@@ -1,0 +1,119 @@
+"""Token sampling on the device (counterpart of aha_tpu/core/sampling.py).
+
+Same semantics and filter order as the JAX package (candle's): repeat
+penalty → temperature → top-k → top-p, then a categorical draw by the
+Gumbel trick (argmax of logits + Gumbel noise).  The noise comes from a
+`torch.Generator`, or is passed in — the tests hand both packages the same
+numpy noise, since jax.random and torch draw different numbers from one
+seed.  Defaults follow the reference generate loop: seed 299792458, repeat
+window 64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+DEFAULT_SEED = 299792458
+DEFAULT_REPEAT_LAST_N = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float | None = None
+    top_p: float | None = None
+    top_k: int | None = None
+    repeat_penalty: float = 1.0
+    repeat_last_n: int | None = DEFAULT_REPEAT_LAST_N
+    seed: int = DEFAULT_SEED
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature is None or self.temperature < 1e-7
+
+
+def fast_argmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """First index of the maximum, as int32.  A row holding a NaN has no
+    element equal to its (NaN) maximum; the sentinel is clamped to the last
+    index so a diverged model still yields a valid id (the JAX
+    fast_argmax's rule)."""
+    m = logits.amax(dim=dim, keepdim=True)
+    n = logits.shape[dim]
+    shape = [1] * logits.ndim
+    shape[dim] = n
+    iota = torch.arange(n, device=logits.device).reshape(shape)
+    idx = torch.where(logits == m, iota, n).amin(dim=dim)
+    return torch.clamp(idx, max=n - 1).to(torch.int32)
+
+
+def apply_repeat_penalty(logits: torch.Tensor, recent_tokens: torch.Tensor,
+                         n_valid: int, penalty: float) -> torch.Tensor:
+    """Penalize tokens among the first `n_valid` entries of the recent-token
+    ring: positive logits are divided by the penalty, negative multiplied."""
+    present = torch.zeros(logits.shape[-1], dtype=torch.bool,
+                          device=logits.device)
+    present[recent_tokens[:n_valid].long()] = True
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(present, penalized, logits)
+
+
+def _mask_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, float("-inf"), logits)
+
+
+def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter; always keeps the most probable token."""
+    sorted_logits, sort_idx = torch.sort(-logits, dim=-1, stable=True)
+    sorted_logits = -sorted_logits
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    cut = cum > p
+    cut[..., 0] = False
+    sorted_logits = torch.where(cut, float("-inf"), sorted_logits)
+    return torch.empty_like(logits).scatter_(-1, sort_idx, sorted_logits)
+
+
+def filter_logits(logits: torch.Tensor, cfg: SamplingConfig,
+                  recent_tokens: torch.Tensor | None = None,
+                  n_valid: int = 0) -> torch.Tensor:
+    """The logits a sampled draw is taken from: float32, penalized,
+    temperature-scaled, top-k then top-p masked with -inf."""
+    logits = logits.float()
+    if cfg.repeat_penalty != 1.0 and recent_tokens is not None:
+        logits = apply_repeat_penalty(logits, recent_tokens, n_valid,
+                                      cfg.repeat_penalty)
+    if cfg.greedy:
+        return logits
+    logits = logits / cfg.temperature
+    if cfg.top_k is not None:
+        logits = _mask_top_k(logits, cfg.top_k)
+    if cfg.top_p is not None and 0.0 < cfg.top_p < 1.0:
+        logits = _mask_top_p(logits, cfg.top_p)
+    return logits
+
+
+def gumbel_noise(shape, generator: torch.Generator,
+                 device: torch.device | str) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    e = -torch.log(u.clamp_min(tiny))          # Exponential(1)
+    return -torch.log(e.clamp_min(tiny))
+
+
+def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
+                 generator: torch.Generator | None = None,
+                 recent_tokens: torch.Tensor | None = None, n_valid: int = 0,
+                 noise: torch.Tensor | None = None) -> torch.Tensor:
+    """logits: (vocab,) → 0-dim int32 token on the logits' device.  A
+    sampled draw adds `noise` (Gumbel) if given, else draws it from
+    `generator`."""
+    logits = filter_logits(logits, cfg, recent_tokens, n_valid)
+    if cfg.greedy:
+        return fast_argmax(logits)
+    if noise is None:
+        noise = gumbel_noise(logits.shape, generator, logits.device)
+    return fast_argmax(logits + noise)
