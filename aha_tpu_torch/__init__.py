@@ -2,9 +2,11 @@
 
 A second package beside the JAX one (`aha_tpu`, the numerics reference).
 The device path — `ops/`, `core/cache.py`, `core/nn.py`,
-`core/sampling.py`, `core/engine.py`, `models/qwen3.py` — is PyTorch with
-three hand-written CUDA kernels for Hopper (`csrc/*.cu`): decode
-attention over the stacked flat KV cache, prefill flash attention, and the
+`core/sampling.py`, `core/engine.py` (one stream), `core/batch_engine.py`
+(continuous batching), `models/qwen3.py` — is PyTorch with hand-written
+CUDA kernels for Hopper (`csrc/*.cu`): the fused decode stack, decode
+attention over the stacked flat KV cache (one slot or a batch of slots),
+decode attention over the int8 cache, prefill flash attention, and the
 fused LM-head GEMV + argmax.  On a CPU tensor every kernel wrapper runs its
 plain PyTorch version instead, which is what the CPU tests exercise.
 

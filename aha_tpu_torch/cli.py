@@ -1,5 +1,7 @@
 """`python -m aha_tpu_torch serv <path>`: serve a Qwen3 chat checkpoint
-on the port (counterpart of `aha serv`, aha_tpu/cli/main.py)."""
+on the port (counterpart of `aha serv`, aha_tpu/cli/main.py).
+`--batch-slots N` serves N chats at once through the continuous-batching
+engine; `AHA_KV_INT8=1` stores the KV cache in int8."""
 
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--address", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--max-seq-len", type=int, default=8192)
+    s.add_argument("--batch-slots", type=int, default=1,
+                   help="continuous batching: decode up to N chat requests "
+                        "together in one batched step (text models)")
     s.add_argument("--prefix-cache", type=int, default=4,
                    help="prompt-prefix KV cache entries (0 disables)")
     s.add_argument("--allow-remote-shutdown", action="store_true")
@@ -38,7 +43,8 @@ def main(argv: list[str] | None = None) -> int:
 
     t0 = time.perf_counter()
     model = load_model(args.model, args.path, max_seq_len=args.max_seq_len,
-                       prefix_cache=args.prefix_cache)
+                       prefix_cache=args.prefix_cache,
+                       batch_slots=args.batch_slots)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "
           f"{model.engine.device}", flush=True)
     state = ServerState(model=model,

@@ -15,10 +15,12 @@ decode, decode blocks of 16 with the same waste past eos (≤ block − 1
 steps), and the Timing/Usage accounting.  Each decode call passes the
 model a host bound on the live rows it reaches (`window`), which admits
 the fused decode stack up to 2048 rows, as the JAX engine's live window
-does; the kernels read the exact length from the device.  Not ported yet:
-speculative decoding and the continuous-batching engine (both raise), the
-per-bucket window variants (nothing is traced), and jit/donation (PyTorch
-runs eagerly).
+does; the kernels read the exact length from the device.  The cache is
+bf16/f32 or int8 (`cache_dtype`, AHA_KV_INT8=1 when served); a prefix
+snapshot carries the int8 layout's scales.  The continuous-batching engine
+is core/batch_engine.py, sharing PrefixStore.  Not ported yet: speculative
+decoding (raises), the per-bucket window variants (nothing is traced), and
+jit/donation (PyTorch runs eagerly).
 """
 
 from __future__ import annotations
@@ -64,7 +66,10 @@ class Timing:
 class PrefixStore:
     """MRU store of prompt-prefix KV snapshots, bounded by entry count and
     by PREFIX_MAX_BYTES: a later prompt that starts with a stored prompt
-    restores its rows and prefills only the suffix."""
+    restores its rows and prefills only the suffix.  Shared by TextEngine
+    and BatchEngine; a snapshot holds the cache's per-row entries
+    (`kv.ROW_KEYS`: k/v and, for the int8 layout, their scales — the JAX
+    PREFIX_RESTORE_KEYS less the hybrid models' rolling state)."""
 
     def __init__(self, max_entries: int):
         self.max_entries = max_entries
@@ -107,8 +112,8 @@ class PrefixStore:
             self._entries.move_to_end(key)
             return
         n = len(prompt_ids)
-        entry = {"k": cache["k"][:, :, :n].clone(),
-                 "v": cache["v"][:, :, :n].clone()}
+        entry = {name: cache[name][:, :, :n].clone() for name in kv.ROW_KEYS
+                 if name in cache}
         nbytes = self._entry_bytes(entry)
         if nbytes > PREFIX_MAX_BYTES:
             return
@@ -119,14 +124,23 @@ class PrefixStore:
             _, old = self._entries.popitem(last=False)
             self._bytes -= self._entry_bytes(old)
 
+    @staticmethod
+    def restore(entry: dict, cache: dict, p: int) -> None:
+        """Copy a snapshot into the cache's rows [0, n) and set pos to p."""
+        for name, rows in entry.items():
+            cache[name][:, :, :rows.shape[2]].copy_(rows)
+        cache["pos"].fill_(p)
+
 
 class TextEngine:
     """Drives one Qwen3Model (init_cache / backbone / logits / greedy_token
-    / fuse_params) at batch 1; the cache has the parameters' dtype."""
+    / fuse_params) at batch 1; the cache has `cache_dtype` (default the
+    parameters' dtype; torch.int8 for the quantized layout)."""
 
     def __init__(self, model, params: dict, eos_token_ids: list[int],
                  max_seq_len: int = 8192, prefix_cache_entries: int = 0,
-                 spec_tokens: int = 0):
+                 spec_tokens: int = 0,
+                 cache_dtype: torch.dtype | None = None):
         if spec_tokens > 0:
             raise ValueError("speculative decoding is not ported to "
                              "aha_tpu_torch yet; serve with spec_tokens=0")
@@ -134,6 +148,7 @@ class TextEngine:
         # one [q|k|v] and one [gate|up] weight per layer: bit-identical
         # outputs, fewer weight streams per decode step
         self.params = model.fuse_params(params)
+        self.cache_dtype = cache_dtype or self.params["embed"]["w"].dtype
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.max_seq_len = max_seq_len
         self.prefix_cache_entries = prefix_cache_entries
@@ -150,8 +165,7 @@ class TextEngine:
     def _take_cache(self, cache_len: int) -> dict:
         c = self._cache_pool.pop(cache_len, None)
         if c is None:
-            c = self.model.init_cache(1, cache_len,
-                                      self.params["embed"]["w"].dtype)
+            c = self.model.init_cache(1, cache_len, self.cache_dtype)
         return kv.reset(c)
 
     def _return_cache(self, cache: dict) -> None:
@@ -249,10 +263,7 @@ class TextEngine:
         try:
             t0 = time.perf_counter()
             if entry is not None:
-                n = entry["k"].shape[2]
-                cache["k"][:, :, :n].copy_(entry["k"])
-                cache["v"][:, :, :n].copy_(entry["v"])
-                cache["pos"].fill_(p)
+                self._prefix_entries.restore(entry, cache, p)
                 suffix = prompt_ids[p:]
                 logits = self._prefill(suffix, bucket_for(len(suffix)), cache,
                                        from_cache=True)

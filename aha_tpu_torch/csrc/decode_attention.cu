@@ -13,7 +13,9 @@
 // Pass 1 gives each (batch, kv-head, split of rows) its own block — the
 // wrapper picks 64-row splits, so a 2048-row cache spreads over 256 blocks
 // instead of the 8 one block per kv-head would give, each walking 8 serial
-// row-iterations.  Inside a block every row is read once with
+// row-iterations.  B > 1 is the continuous-batching step
+// (flash_decode_at_layer_flat_batched): one grid z-row per slot, each with
+// its own valid_len; a split past its slot's length exits at once.  Inside a block every row is read once with
 // 16-byte loads by D/8 lanes, and all G = Hq/Hkv query heads of the group
 // are scored from that one read.  Each sub-warp keeps its own running
 // (max, sum, acc) in f32; the block merges them in shared memory and writes
@@ -24,10 +26,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_combine.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr float kNegInf = -1e30f;   // finite, as the JAX kernel's NEG_INF
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -149,26 +152,6 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Pass 2: one block per (query head, batch row), one thread per channel.
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      __nv_bfloat16* __restrict__ out,
-                                      int Hq, int D, int nsplit) {
-  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  if (d >= D) return;
-  const size_t row0 = ((size_t)b * Hq + hq) * nsplit;
-  float M = kNegInf;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, part_m[row0 + s]);
-  float Lsum = 0.f, A = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = __expf(part_m[row0 + s] - M);
-    Lsum += part_l[row0 + s] * w;
-    A += part_acc[(row0 + s) * D + d] * w;
-  }
-  out[((size_t)b * Hq + hq) * D + d] = __float2bfloat16(A / fmaxf(Lsum, 1e-30f));
-}
-
 struct PartialArgs {
   const void *q, *k, *v, *layer, *valid_len;
   int vl_stride;
@@ -231,9 +214,6 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<<<dim3(Hq, B), D, 0, st>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), Hq,
-      D, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode_combine(part_m, part_l, part_acc, out, B, Hq, D, nsplit,
+                               st);
 }

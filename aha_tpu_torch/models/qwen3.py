@@ -6,14 +6,18 @@ linear weights (in, out) as in the JAX package, and the head stored
 vocab-major (V, K) — a tied head is the embedding tensor itself.
 
 The KV cache (core/cache.py) is written in place at the device position
-`cache["pos"]`; the backbone never advances it (the engine does).  A
+`cache["pos"]` — 0-dim for one stream, or (B,) for the continuous-batching
+engine, where each slot's row goes to its own position; the backbone never
+advances it (the engine does).  An int8 cache is quantized on write
+(per-row, per-kv-head scales) and read by the q8 decode kernel; prefill
+attends over the full-precision fresh block, as in the JAX package.  A
 batch-1 bf16 decode step whose caller bounds the live rows by `window` ≤
 MAX_WINDOW (2048) runs the whole stack as ONE fused kernel
-(ops/fused_layer.py), as the JAX package does; deeper steps run the
-per-op chain, whose attention is the decode kernel.  The greedy head runs
-its kernel (ops/lm_head.py), prefill of prompts of ≥ 128 bucketed rows the
-flash prefill kernel (ops/flash_attention.py); outside the fused step the
-projections and the MLP stay torch.matmul.
+(ops/fused_layer.py), as the JAX package does; deeper steps, batched steps
+and int8 caches run the per-op chain, whose attention is a decode kernel.
+The greedy head runs its kernel (ops/lm_head.py), prefill of prompts of ≥
+128 bucketed rows the flash prefill kernel (ops/flash_attention.py);
+outside the fused step the projections and the MLP stay torch.matmul.
 """
 
 from __future__ import annotations
@@ -28,8 +32,11 @@ import torch
 from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core import nn
 from aha_tpu_torch.ops.attention import (attention_decode_at,
+                                         attention_decode_at_q8,
                                          attention_prefill,
-                                         attention_prefill_at)
+                                         attention_prefill_at,
+                                         attention_prefill_at_q8,
+                                         quantize_kv_rows)
 from aha_tpu_torch.ops.fused_layer import (MAX_WINDOW, fused_decode_stack,
                                            fused_stack_supported)
 from aha_tpu_torch.ops.lm_head import head_argmax
@@ -75,7 +82,8 @@ def unstack_layers(layers: dict) -> list[dict]:
 
 
 class Qwen3Model:
-    """The model TextEngine (core/engine.py) drives."""
+    """The model TextEngine (core/engine.py) and BatchEngine
+    (core/batch_engine.py) drive."""
 
     def __init__(self, config: Qwen3Config, max_rope_len: int = 32768,
                  device: torch.device | str = "cpu"):
@@ -92,14 +100,16 @@ class Qwen3Model:
         self._layer_ids = torch.arange(self.n_layers, dtype=torch.int32,
                                        device=self.device)
         self._views: tuple[Any, list[dict]] | None = None
+        self._slots: torch.Tensor | None = None
 
     # -- cache --------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.bfloat16) -> dict:
+                   dtype: torch.dtype = torch.bfloat16,
+                   per_slot_pos: bool = False) -> dict:
         return kv.init_kv_cache(self.n_layers, batch, max_len,
                                 self.n_kv_heads, self.head_dim, dtype,
-                                self.device)
+                                self.device, per_slot_pos)
 
     # -- forward ------------------------------------------------------------
 
@@ -112,7 +122,8 @@ class Qwen3Model:
                cache: dict, is_prefill: bool, from_cache: bool,
                positions: torch.Tensor, valid_len: torch.Tensor | None):
         """One decoder block; writes this layer's K/V rows into the cache
-        in place at `positions`."""
+        in place at `positions` — (S,) rows shared by the batch, or (B,)
+        one row per slot (per-slot decode, S = 1)."""
         c = self.config
         B, S, _ = x.shape
         D = self.head_dim
@@ -131,30 +142,48 @@ class Qwen3Model:
         v = v.reshape(B, S, self.n_kv_heads, D)
         q, k = apply_rope(q, k, cos, sin)
 
-        kc, vc = cache["k"][li], cache["v"][li]          # (B, S_cache, HD)
-        kc.index_copy_(1, positions, k.reshape(B, S, nkv).to(kc.dtype))
-        vc.index_copy_(1, positions, v.reshape(B, S, nkv).to(vc.dtype))
+        quant = kv.is_quantized(cache)
+        rows = {"k": k, "v": v}
+        if quant:
+            (rows["k"], rows["k_scale"]), (rows["v"], rows["v_scale"]) = (
+                quantize_kv_rows(k), quantize_kv_rows(v))
+        per_slot = cache["pos"].ndim == 1
+        for name, new in rows.items():
+            dst = cache[name][li]              # (B, S_cache, HD | Hkv)
+            new = new.reshape(B, S, -1).to(dst.dtype)
+            if per_slot:                       # row b at positions[b]
+                dst[self._slot_ids(B, x.device), positions] = new[:, 0]
+            else:
+                dst.index_copy_(1, positions, new)
         layer = self._layer_ids[li]
+        scales = (cache["k_scale"], cache["v_scale"]) if quant else ()
         if is_prefill and from_cache:
-            attn = attention_prefill_at(q, cache["k"], cache["v"], layer,
-                                        cache["pos"])
+            attn = (attention_prefill_at_q8 if quant else
+                    attention_prefill_at)(q, cache["k"], cache["v"], *scales,
+                                          layer, cache["pos"])
         elif is_prefill:
             attn = attention_prefill(q, k, v, causal=True)
         else:
-            attn = attention_decode_at(q, cache["k"], cache["v"], layer,
-                                       valid_len)
+            attn = (attention_decode_at_q8 if quant else
+                    attention_decode_at)(q, cache["k"], cache["v"], *scales,
+                                         layer, valid_len)
         x = x + nn.linear(lp["o"], attn.reshape(B, S, nq))
         h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
         return x + nn.swiglu_mlp(lp["mlp"], h)
+
+    def _slot_ids(self, B: int, device) -> torch.Tensor:
+        if self._slots is None or self._slots.shape[0] != B:
+            self._slots = torch.arange(B, device=device)
+        return self._slots
 
     def _use_fused_stack(self, params: dict, x: torch.Tensor, cache: dict,
                          window: int | None) -> bool:
         """The JAX package's gate for the one-launch decode stack
         (aha_tpu/models/qwen3.py _use_fused_layer): one bf16 token of
-        batch 1 over a flat bf16 cache, fused parameters the kernel covers,
-        at most MAX_WINDOW live rows, and AHA_FUSED_LAYER not "0".  The
-        kernel reads the live length on the device; `window` is the
-        caller's host bound on it."""
+        batch 1 over a flat bf16 cache with a scalar pos, fused parameters
+        the kernel covers, at most MAX_WINDOW live rows, and
+        AHA_FUSED_LAYER not "0".  The kernel reads the live length on the
+        device; `window` is the caller's host bound on it."""
         if window is None or window > MAX_WINDOW \
                 or os.environ.get("AHA_FUSED_LAYER", "1") != "1":
             return False
@@ -162,6 +191,7 @@ class Qwen3Model:
         c = self.config
         return (B == 1 and S == 1 and x.dtype == torch.bfloat16
                 and cache["k"].dtype == torch.bfloat16
+                and cache["pos"].ndim == 0
                 and fused_stack_supported(params["layers"], c.hidden_size,
                                           self.n_heads, self.n_kv_heads,
                                           self.head_dim,
@@ -173,11 +203,22 @@ class Qwen3Model:
         """Decoder stack over input embeddings → final-normed hidden.
         Writes K/V at [pos, pos + S) and leaves pos as it was.  `window`:
         a host bound on the live cache rows after this call (decode only),
-        which admits the fused decode stack."""
+        which admits the fused decode stack.  A (B,) pos decodes one token
+        per slot, each at its own position: rope rows gathered per slot,
+        and a position past the cache (a slot stepped past its budget, as
+        the batch engine's runahead does) clamped to the last row, where
+        the JAX scatter drops it — that slot's outputs are discarded."""
         B, S, _ = x.shape
         pos = cache["pos"]
-        positions = pos.long() + torch.arange(S, device=x.device)
-        cos, sin = gather_rope(self.cos, self.sin, positions)
+        if pos.ndim == 0:
+            positions = pos.long() + torch.arange(S, device=x.device)
+            cos, sin = gather_rope(self.cos, self.sin, positions)
+        else:
+            if S != 1:
+                raise ValueError("per-slot positions take one token per slot")
+            last = min(kv.cache_max_len(cache), self.cos.shape[0]) - 1
+            positions = pos.long().clamp(max=last)
+            cos, sin = gather_rope(self.cos, self.sin, positions[:, None])
         eps = self.config.rms_norm_eps
         if self._use_fused_stack(params, x, cache, window):
             x = fused_decode_stack(x, params["layers"], pos,
@@ -186,7 +227,7 @@ class Qwen3Model:
                                    cache["k"], cache["v"], eps)
             return rms_norm(x, params["norm"]["w"], eps)
         is_prefill = S > 1
-        valid_len = None if is_prefill else (pos + 1).reshape(1)
+        valid_len = None if is_prefill else (pos + 1).reshape(-1)
         for li, lp in enumerate(self._layer_views(params["layers"])):
             x = self._layer(lp, li, x, cos, sin, cache, is_prefill,
                             from_cache, positions, valid_len)

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (`aha_tpu_torch/csrc/*.cu`).
 
 nvcc compiles every source into ONE shared library with a plain C
-interface (no PyTorch headers: seconds, not minutes), loaded with ctypes.
+interface (no PyTorch headers: seconds, not minutes), loaded with ctypes:
+one nvcc process per source, all started together, then one link.
 The library is built at first use into `build/aha_tpu_torch/` at the
 repository root (`AHA_TORCH_BUILD_DIR` overrides it), named by a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one is
@@ -27,8 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "aha_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 7
+                               + [_F, _I, _P],
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aha_head_argmax_parts": [_I],
     "aha_flash_prefill": [_P, _P, _P, _P] + [_LL] * 12
@@ -76,6 +79,21 @@ def library_path() -> Path:
     return build_dir() / f"libaha_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their stderr, or raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs = []
+    for cmd, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                               f"{cmd[-1]}:\n{err[-8000:]}")
+        logs.append(err)
+    return logs
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the same sources exists."""
     global build_log
@@ -83,13 +101,20 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out.parent / f"{tag}.{p.stem}.o" for p in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
-    build_log = r.stderr
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(srcs, objs)])
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_log = "".join(logs)
     os.replace(tmp, out)     # atomic: two processes building at once agree
     return out
 

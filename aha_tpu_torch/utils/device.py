@@ -4,6 +4,7 @@ The compute dtype follows the device: bfloat16 on CUDA (the tensor cores'
 native low-precision type), float32 on the CPU (the parity tests), with
 `AHA_DTYPE` overriding both.  `AHA_DEVICE` picks the device; asking for
 CUDA where there is none raises instead of silently running on the CPU.
+`AHA_KV_INT8=1` stores the KV cache in int8 (core/cache.py).
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ def get_dtype(dev: torch.device | None = None) -> torch.dtype:
         return _DTYPE_MAP[override.lower()]
     dev = dev if dev is not None else device()
     return torch.bfloat16 if dev.type == "cuda" else torch.float32
+
+
+def get_cache_dtype(dev: torch.device | None = None) -> torch.dtype:
+    """KV-cache storage dtype: int8 rows with per-(row, kv-head) scales
+    under `AHA_KV_INT8=1` (half the bytes a long-context decode step
+    reads), else the compute dtype."""
+    if os.environ.get("AHA_KV_INT8") == "1":
+        return torch.int8
+    return get_dtype(dev)
 
 
 def default_save_dir() -> str:

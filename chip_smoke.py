@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive aha_tpu_torch's Qwen3 chat path once on one CUDA card.
+"""Drive aha_tpu_torch's Qwen3 chat paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -9,8 +9,9 @@ before the last line:
 1. device — the card's name, power limit, torch/CUDA/nvcc versions;
 2. build — nvcc compiles aha_tpu_torch/csrc/*.cu (set-up time);
 3. kernels — each CUDA kernel against its plain PyTorch version at the
-   shapes the main path gives it, bf16 inputs, with error and device time
-   per call (profiler) of both;
+   shapes the paths give it (bf16 q, bf16 or int8 caches), with error and
+   device time per call (profiler) of both; the batched decode also bit
+   for bit against one-slot launches;
 4. engine — Qwen3-0.6B's published geometry (28 layers, hidden 1024, vocab
    151936, tied head) with seeded random bf16 weights on the card, through
    TextEngine: plain and kernel prefill, prefix-cache restore, greedy and
@@ -18,10 +19,17 @@ before the last line:
    a 2100-token prompt whose decode runs the per-op chain; the kernels'
    launch counters must all rise; then 8 teacher-forced steps of each
    decode path against the plain path (float32, on the CPU);
-5. HTTP — the same weights saved as a checkpoint (embedding rows past the
+5. batch — the same weights through the continuous-batching BatchEngine
+   (8 slots, 12 concurrent requests, one of them sampled, chunked
+   admission) over a bf16 and an int8 cache, and an int8 TextEngine; each
+   path with the launch counters
+   zeroed before it and read after it; then 8 teacher-forced steps of 4
+   slots against the f32 plain path on the CPU over the same cache;
+6. HTTP — the same weights saved as a checkpoint (embedding rows past the
    test tokenizer's vocabulary zeroed, so replies decode to text) and
    served by `python -m aha_tpu_torch serv` in a child process:
-   non-stream, stream and a prefix-cache repeat of /v1/chat/completions.
+   non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
+   then a `--batch-slots 4` server answering 4 chats at once.
 
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -29,6 +37,7 @@ line {"ok": true, "device": {...}}.  Imports nothing of JAX or aha_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -48,6 +57,13 @@ TOL_HEAD_REL = 1e-3      # a differing index must tie within 1e-3·|max|
 TOL_HIDDEN_REL = 5e-2    # bf16 28-layer stack vs f32, relative to max |ref|
 TOL_FUSED_REL = 2e-2     # fused stack kernel vs its f32 plain version, same
                          # bf16 inputs, relative to max |ref|
+# q8 decode vs its f32 plain version (the dequantizing fallback), max abs
+# error relative to max |ref|, by variant (mxu False: cast, True: all-int8,
+# which adds the requantization noise of q and p).  The inputs make the
+# outputs O(1) (peaked scores), so a zero or unscaled output is off by ≥ 1.
+# Measured on an H100 at these inputs: cast ≤ 2.8e-3 (the bf16 rounding of
+# the output), all-int8 ≤ 4.1e-2 (1000 live rows; 1.5e-2 at 16000)
+TOL_Q8_REL = {False: 6e-3, True: 8e-2}
 
 KERNELS = {
     "flash_decode_at_layer_flat": dict(
@@ -62,6 +78,15 @@ KERNELS = {
     "fused_decode_stack": dict(
         source="aha_tpu_torch/csrc/fused_decode_stack.cu",
         replaces="aha_tpu/ops/fused_layer.py:396"),
+    "flash_decode_at_layer_flat_batched": dict(
+        source="aha_tpu_torch/csrc/decode_attention.cu",
+        replaces="aha_tpu/ops/flash_attention.py:542"),
+    "flash_decode_at_layer_q8": dict(
+        source="aha_tpu_torch/csrc/decode_attention_q8.cu",
+        replaces="aha_tpu/ops/flash_attention.py:775"),
+    "flash_decode_at_layer_q8_batched": dict(
+        source="aha_tpu_torch/csrc/decode_attention_q8.cu",
+        replaces="aha_tpu/ops/flash_attention.py:1013"),
 }
 RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0} for k in KERNELS}
 
@@ -84,35 +109,47 @@ def card_line() -> str:
 
 
 def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Device time per call: the summed duration of the CUDA kernels `fn`
-    launches, from the profiler's trace of `iters` calls.  (CUDA events
-    around a loop would time the host's per-call Python work instead,
-    which exceeds a µs-scale kernel.)"""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call: the summed profiler time of the CUDA kernels
+    `fn` launches."""
+    from aha_tpu_torch.utils.profile_decode import device_ms_per_kernel
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0,
-            "profiler saw no device time")
-    return us / 1e3 / iters
+    ms = sum(device_ms_per_kernel(fn, iters, warmup).values())
+    require(ms > 0, "profiler saw no device time")
+    return ms
 
 
 def wrappers():
-    from aha_tpu_torch.ops.flash_attention import (flash_attention,
-                                                   flash_decode_at_layer_flat)
+    from aha_tpu_torch.ops import flash_attention as fa
     from aha_tpu_torch.ops.fused_layer import fused_decode_stack
     from aha_tpu_torch.ops.lm_head import head_argmax
 
-    return {"flash_decode_at_layer_flat": flash_decode_at_layer_flat,
-            "head_argmax": head_argmax, "flash_attention": flash_attention,
-            "fused_decode_stack": fused_decode_stack}
+    return {"flash_decode_at_layer_flat": fa.flash_decode_at_layer_flat,
+            "head_argmax": head_argmax, "flash_attention": fa.flash_attention,
+            "fused_decode_stack": fused_decode_stack,
+            "flash_decode_at_layer_flat_batched":
+                fa.flash_decode_at_layer_flat_batched,
+            "flash_decode_at_layer_q8": fa.flash_decode_at_layer_q8,
+            "flash_decode_at_layer_q8_batched":
+                fa.flash_decode_at_layer_q8_batched}
+
+
+def zero_counts() -> dict:
+    wr = wrappers()
+    for fn in wr.values():
+        fn.launches = 0
+    return wr
+
+
+def read_counts(wr: dict, path: str, must: tuple[str, ...]) -> dict:
+    """The counts of one path's run; each kernel in `must` launched, and
+    its count recorded as the kernel's main-path launches."""
+    launches = {name: fn.launches for name, fn in wr.items()}
+    for name in must:
+        require(launches[name] > 0,
+                f"{name} was not launched on the {path} path")
+        RESULTS[name]["launches"] = launches[name]
+    log(f"[{path}] launches: {json.dumps(launches)}")
+    return launches
 
 
 # -- 1. device ----------------------------------------------------------------
@@ -169,14 +206,13 @@ def check_decode(S: int, valid: int, timed: bool) -> None:
     q = torch.randn((1, 1, Hq, D), generator=g, **bf)
     k = torch.randn((L, 1, S, Hkv * D), generator=g, **bf)
     v = torch.randn((L, 1, S, Hkv * D), generator=g, **bf)
-    layers = [torch.tensor(i, dtype=torch.int32, device="cuda")
-              for i in range(L)]
     vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
     err = 0.0
     for li in (0, L - 1):
-        got = flash_decode_at_layer_flat(q, k, v, layers[li], vl)
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = flash_decode_at_layer_flat(q, k, v, lt, vl)
         ref = flash_decode_at_layer_flat_plain(q.float(), k.float(),
-                                               v.float(), layers[li], vl)
+                                               v.float(), lt, vl)
         torch.cuda.synchronize()
         err = max(err, (got.float() - ref).abs().max().item())
     require(err <= TOL_ATTN,
@@ -184,14 +220,18 @@ def check_decode(S: int, valid: int, timed: bool) -> None:
     # time across all 28 layers in turn, as one decode step reads them:
     # 28 layers of live rows are far past the 50 MB L2, so each call reads
     # HBM
-    it = iter(range(10 ** 9))
+    layer = _layer_cycle(L)
     ms = device_ms(lambda: flash_decode_at_layer_flat(
-        q, k, v, layers[next(it) % L], vl), iters=56)
+        q, k, v, layer(), vl), iters=56)
     plain_ms = device_ms(lambda: flash_decode_at_layer_flat_plain(
-        q, k, v, layers[next(it) % L], vl), iters=56)
+        q, k, v, layer(), vl), iters=56)
+    nbytes = valid * Hkv * D * 2 * 2                 # bf16 K and V rows
     log(f"[kernels] decode L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}:"
         f" max_abs_err {err:.3e} (tol {TOL_ATTN}); device ms/call kernel"
-        f" {ms:.4f} plain {plain_ms:.4f}")
+        f" {ms:.4f} plain {plain_ms:.4f}; {nbytes / ms / 1e6:.1f} GB/s of"
+        f" live rows")
+    del k, v
+    torch.cuda.empty_cache()
     _record("flash_decode_at_layer_flat", err, *((ms, plain_ms) if timed
                                                  else ()))
 
@@ -330,6 +370,165 @@ def check_fused(pos: int, n_layers: int, timed: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def _q8_cache(g, L: int, B: int, S: int):
+    """Seeded int8 K/V rows and f32 scales at Qwen3-0.6B's widths.  q is
+    drawn 4× wider than N(0, 1), so scores spread over ~2 nats and a few
+    dozen rows carry most of the weight: outputs of O(1), not the ~1e-2 of
+    a flat average over thousands of random rows."""
+    Hq, Hkv, D = 16, 8, 128
+    i8 = dict(generator=g, device="cuda", dtype=torch.int8)
+    q = (torch.randn((B, 1, Hq, D), generator=g, device="cuda") * 4).to(
+        torch.bfloat16)
+    k = torch.randint(-127, 128, (L, B, S, Hkv * D), **i8)
+    v = torch.randint(-127, 128, (L, B, S, Hkv * D), **i8)
+    ks = torch.rand((L, B, S, Hkv), generator=g, device="cuda") * 0.01 + 2e-3
+    vs = torch.rand((L, B, S, Hkv), generator=g, device="cuda") * 0.01 + 2e-3
+    return q, k, v, ks, vs
+
+
+def _q8_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _q8_err(got: torch.Tensor, ref: torch.Tensor, mxu: bool, what: str,
+            rel: dict) -> float:
+    """Holds `got` to TOL_Q8_REL[mxu]; keeps the worst relative error per
+    variant in `rel`; returns the max abs error."""
+    r = _q8_rel(got, ref)
+    require(r <= TOL_Q8_REL[mxu],
+            f"{what} mxu={mxu}: err {r} of max |ref| (tol {TOL_Q8_REL[mxu]})")
+    rel[mxu] = max(rel.get(mxu, 0.0), r)
+    return (got.float() - ref).abs().max().item()
+
+
+def _layer_cycle(L: int):
+    layers = [torch.tensor(i, dtype=torch.int32, device="cuda")
+              for i in range(L)]
+    it = iter(range(10 ** 9))
+    return lambda: layers[next(it) % L]
+
+
+def check_q8(S: int, valid: int, timed: bool) -> None:
+    """Both q8 variants at B = 1 against the plain version; device time of
+    each over the 28 layers in turn, and the bytes/s of the live rows."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_decode_at_layer_q8, flash_decode_at_layer_q8_plain)
+
+    L, Hkv, D = 28, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(S + 1)
+    q, k, v, ks, vs = _q8_cache(g, L, 1, S)
+    vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    layer = _layer_cycle(L)
+    err, ms, rel = 0.0, {}, {}
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        ref = flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, lt, vl)
+        for mxu in (False, True):
+            got = flash_decode_at_layer_q8(q, k, v, ks, vs, lt, vl, mxu=mxu)
+            torch.cuda.synchronize()
+            err = max(err, _q8_err(got, ref, mxu, f"q8 S={S} valid={valid}",
+                                   rel))
+    # the bound tells a wrong output from a right one: zeros, and the
+    # output of a kernel that forgot the v scales, both fail it
+    unscaled = flash_decode_at_layer_q8_plain(
+        q.float(), k, v, ks, torch.ones_like(vs), lt, vl)
+    bad = {"zeros": _q8_rel(torch.zeros_like(ref), ref),
+           "v unscaled": _q8_rel(unscaled, ref)}
+    require(min(bad.values()) > max(TOL_Q8_REL.values()),
+            f"q8 bound does not reject a wrong output: {bad}")
+    for mxu in (False, True):
+        ms[mxu] = device_ms(lambda: flash_decode_at_layer_q8(
+            q, k, v, ks, vs, layer(), vl, mxu=mxu), iters=56)
+    plain_ms = device_ms(lambda: flash_decode_at_layer_q8_plain(
+        q, k, v, ks, vs, layer(), vl), iters=28)
+    nbytes = valid * Hkv * (D + 4) * 2          # int8 rows + f32 scales
+    log(f"[kernels] q8 decode L={L} S={S} valid={valid} Hq=16 Hkv={Hkv} "
+        f"D={D}: err of max |ref| cast {rel[False]:.3e} int8 "
+        f"{rel[True]:.3e} (tol {TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}; "
+        f"zeros {bad['zeros']:.3g}, v unscaled {bad['v unscaled']:.3g}), "
+        f"max_abs_err {err:.3e}; device ms/call cast "
+        f"{ms[False]:.4f} int8 {ms[True]:.4f} plain {plain_ms:.4f}; "
+        f"{nbytes / ms[True] / 1e6:.1f} GB/s (int8) of live rows")
+    _record("flash_decode_at_layer_q8", err,
+            *((ms[True], plain_ms) if timed else ()))
+    if timed:
+        RESULTS["flash_decode_at_layer_q8"]["ms_cast_variant"] = ms[False]
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+def check_batched(timed: bool) -> None:
+    """The batched bf16 and q8 decode at the BatchEngine's shapes: 8 slots
+    of a 4096-row cache, ragged lengths (a parked slot of 1, the split
+    boundaries 64 and 128, the full 4096); bf16 bit-equal to eight B = 1
+    launches; errors and device times against the plain versions."""
+    from aha_tpu_torch.ops import flash_attention as fa
+    from aha_tpu_torch.utils.profile_decode import RAGGED
+
+    L, B, S, Hkv, D = 28, 8, 4096, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((B, 1, 16, D), generator=g, **bf)
+    k = torch.randn((L, B, S, Hkv * D), generator=g, **bf)
+    v = torch.randn((L, B, S, Hkv * D), generator=g, **bf)
+    vl = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    layer = _layer_cycle(L)
+    err = 0.0
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = fa.flash_decode_at_layer_flat_batched(q, k, v, lt, vl)
+        ref = fa.flash_decode_at_layer_flat_plain(q.float(), k.float(),
+                                                  v.float(), lt, vl)
+        err = max(err, (got.float() - ref).abs().max().item())
+        for b in range(B):
+            one = fa.flash_decode_at_layer_flat(
+                q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                v[:, b:b + 1].contiguous(), lt, vl[b:b + 1].contiguous())
+            require(torch.equal(one, got[b:b + 1]),
+                    f"batched decode slot {b} differs from a B = 1 launch")
+    require(err <= TOL_ATTN, f"batched decode err {err}")
+    ms = device_ms(lambda: fa.flash_decode_at_layer_flat_batched(
+        q, k, v, layer(), vl), iters=56)
+    plain_ms = device_ms(lambda: fa.flash_decode_at_layer_flat_plain(
+        q, k, v, layer(), vl), iters=28)
+    log(f"[kernels] batched decode L={L} B={B} S={S} lengths {RAGGED}: "
+        f"max_abs_err {err:.3e} (tol {TOL_ATTN}), each slot bit-equal to a "
+        f"B = 1 launch; device ms/call kernel {ms:.4f} plain {plain_ms:.4f}")
+    _record("flash_decode_at_layer_flat_batched", err,
+            *((ms, plain_ms) if timed else ()))
+    del k, v
+    torch.cuda.empty_cache()
+
+    q, k, v, ks, vs = _q8_cache(g, L, B, S)
+    err, rel = 0.0, {}
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        ref = fa.flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, lt,
+                                                vl)
+        for mxu in (False, True):
+            got = fa.flash_decode_at_layer_q8_batched(q, k, v, ks, vs, lt, vl,
+                                                      mxu=mxu)
+            torch.cuda.synchronize()
+            err = max(err, _q8_err(got, ref, mxu, "q8 batched", rel))
+    ms = {mxu: device_ms(lambda: fa.flash_decode_at_layer_q8_batched(
+        q, k, v, ks, vs, layer(), vl, mxu=mxu), iters=56)
+        for mxu in (False, True)}
+    plain_ms = device_ms(lambda: fa.flash_decode_at_layer_q8_plain(
+        q, k, v, ks, vs, layer(), vl), iters=28)
+    log(f"[kernels] q8 batched decode L={L} B={B} S={S} lengths {RAGGED}: "
+        f"err of max |ref| cast {rel[False]:.3e} int8 {rel[True]:.3e} (tol "
+        f"{TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}), max_abs_err {err:.3e}; "
+        f"device ms/call cast {ms[False]:.4f} "
+        f"int8 {ms[True]:.4f} plain {plain_ms:.4f}")
+    _record("flash_decode_at_layer_q8_batched", err,
+            *((ms[True], plain_ms) if timed else ()))
+    if timed:
+        RESULTS["flash_decode_at_layer_q8_batched"]["ms_cast_variant"] = \
+            ms[False]
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> None:
     check_fused(1000, 1, timed=False)
     check_fused(1000, 28, timed=True)
@@ -340,6 +539,10 @@ def phase_kernels() -> None:
     check_prefill(256, True, timed=False)
     check_prefill(256, False, timed=False)
     check_prefill(2048, True, timed=True)
+    check_q8(2048, 1000, timed=True)
+    check_q8(16384, 16000, timed=False)
+    check_decode(16384, 16000, timed=False)
+    check_batched(timed=True)
     torch.cuda.synchronize()
 
 
@@ -407,9 +610,7 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     a_ids, b_ids = _prompt(rng, 20, V), _prompt(rng, 300, V)
     c_ids = b_ids + _prompt(rng, 40, V)
     e_ids = _prompt(rng, 2100, V)
-    wr = wrappers()
-    for fn in wr.values():
-        fn.launches = 0
+    wr = zero_counts()
     _sync(device)
     out_a = eng.generate_tokens(a_ids, greedy, max_tokens=64)
     out_b = eng.generate_tokens(b_ids, greedy, max_tokens=128)
@@ -421,11 +622,8 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     out_e = eng.generate_tokens(e_ids, greedy, max_tokens=32)
     te = eng.last_timing
     _sync(device)
-    launches = {name: fn.launches for name, fn in wr.items()}
-    for name, n in launches.items():
-        require(n > 0,
-                f"{name} was not launched on the main path")
-        RESULTS[name]["launches"] = n
+    read_counts(wr, "engine", ("flash_decode_at_layer_flat", "head_argmax",
+                               "flash_attention", "fused_decode_stack"))
     # (a)-(d) run 4 + 8 + 2 + 2 decode blocks of 16 steps, each step one
     # fused launch; (e), past 2048 rows, none
     require(n_fused == 16 * (4 + 8 + 2 + 2)
@@ -450,7 +648,6 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
         f"{len(set(out_d))} distinct")
     log(f"[engine] (e) 2100-token prompt, bucket 4096 kernel prefill: 32 "
         f"greedy, decode past 2048 rows on the per-op chain")
-    log(f"[engine] launches on the main path: {json.dumps(launches)}")
     card = card_line() if device == "cuda" else "cpu"
 
     def rate(t):
@@ -501,6 +698,155 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     return {"model": model, "params": params}
 
 
+# -- 5. continuous batching and the int8 cache --------------------------------
+
+#: the request of the (f)/(g) mix that samples (a 420-token prompt)
+SAMPLED = 5
+
+def _batch_path(model, params, device: str, cache_dtype, name: str,
+                must: str, slots: int = 8) -> None:
+    """(f)/(g): a BatchEngine of `slots` slots, max_seq_len 4096, the 12
+    requests of BATCH_PROMPTS, 64 tokens each, from threads at once; one
+    of them sampled (temperature, top-k, top-p, repeat penalty), so the
+    steps it shares run the batched sampler with per-slot generators."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.utils.profile_decode import (BATCH_PROMPTS,
+                                                    drive_concurrent)
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(len(name))
+    eng = BatchEngine(model, params, eos_token_ids=[], slots=slots,
+                      cache_dtype=cache_dtype, max_seq_len=4096)
+    greedy = SamplingConfig()
+    sampled = SamplingConfig(temperature=0.7, top_k=20, top_p=0.9,
+                             repeat_penalty=1.1, seed=1234)
+    cfgs = [greedy] * len(BATCH_PROMPTS)
+    cfgs[SAMPLED] = sampled
+    try:
+        # warm-up of the step and prefill shapes, not counted
+        drive_concurrent(eng, [_prompt(rng, 40, V), _prompt(rng, 600, V)],
+                         [greedy, sampled], 8)
+        prompts = [_prompt(rng, n, V) for n in BATCH_PROMPTS]
+        wr = zero_counts()
+        _sync(device)
+        outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs, 64,
+                                                  monitor=True)
+        _sync(device)
+        read_counts(wr, name, (must,))
+    finally:
+        eng.shutdown()
+    for i, out in enumerate(outs):
+        require(out is not None and len(out) == 64
+                and all(0 <= t < V for t in out),
+                f"{name} request {i}: {out and len(out)} tokens")
+    require(peak == slots, f"{name}: peak occupied slots {peak} of {slots}")
+    n_distinct = len(set(outs[SAMPLED]))
+    require(n_distinct > 1,
+            f"{name}: the sampled request drew one token: {outs[SAMPLED]}")
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[{name}] {len(prompts)} requests of {len(prompts[0])}-"
+        f"{len(prompts[-1])} prompt tokens, 64 tokens each (11 greedy, 1 "
+        f"sampled T=0.7 top_k=20 top_p=0.9 penalty 1.1: {n_distinct} "
+        f"distinct), {slots} slots "
+        f"({str(cache_dtype).replace('torch.', '')} cache): "
+        f"all finished, peak {peak} slots busy; aggregate "
+        f"{len(prompts) * 64 / wall:.1f} tok/s over {wall:.2f} s; time to "
+        f"first token mean {np.mean(ttft) * 1e3:.1f} ms, max "
+        f"{max(ttft) * 1e3:.1f} ms | {card}")
+
+
+def _int8_text_path(model, params, device: str) -> None:
+    """(h): an int8 TextEngine, a 300-token prompt and 128 greedy tokens."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(300)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                     cache_dtype=torch.int8)
+    eng.generate_tokens(_prompt(rng, 300, V), SamplingConfig(), 16)  # warm
+    ids = _prompt(rng, 300, V)
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, SamplingConfig(), max_tokens=128)
+    _sync(device)
+    read_counts(wr, "int8-text", ("flash_decode_at_layer_q8",))
+    require(len(out) == 128 and all(0 <= t < V for t in out),
+            f"int8 TextEngine: {len(out)} tokens")
+    t = eng.last_timing
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[int8-text] (h) 300-token prompt, int8 cache: 128 greedy tokens, "
+        f"prefill {t.prompt_secs * 1e3:.2f} ms, decode "
+        f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at "
+        f"batch 1 (per-op chain) | {card}")
+
+
+def teacher_forced_slots(model, params, prompts: list[list[int]],
+                         forced: torch.Tensor, device, cache_dtype,
+                         cache: dict | None = None):
+    """Decode `forced` (B, n) one column per step through a per-slot cache
+    of B slots; with no `cache`, first prefill each prompt at batch 1 into
+    its slot.  Returns the (n, B, H) f32 hidden states on the CPU and the
+    cache as it stood before the first step (on the CPU)."""
+    from aha_tpu_torch.core import cache as kv
+    from aha_tpu_torch.core.engine import bucket_for
+
+    B = len(prompts)
+    if cache is None:
+        cache = model.init_cache(B, 1024, cache_dtype, per_slot_pos=True)
+        for b, ids in enumerate(prompts):
+            small = model.init_cache(1, bucket_for(len(ids)), cache_dtype)
+            x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
+            x[0, :len(ids)] = torch.tensor(ids)
+            model.backbone(params, x.to(device), small)
+            for name in kv.ROW_KEYS:
+                if name in small:
+                    cache[name][:, b, :len(ids)] = small[name][:, 0, :len(ids)]
+            cache["pos"][b] = len(ids)
+    before = {k: v.to("cpu", copy=True) for k, v in cache.items()}
+    hs = []
+    for step in range(forced.shape[1]):
+        tok = forced[:, step:step + 1].to(device)
+        hs.append(model.backbone(params, tok, cache)[:, 0])
+        kv.advance(cache, 1)
+    return torch.stack(hs).float().cpu(), before
+
+
+def phase_batch(model, params, device: str = "cuda") -> None:
+    _batch_path(model, params, device, torch.bfloat16, "batch-bf16",
+                "flash_decode_at_layer_flat_batched")
+    _batch_path(model, params, device, torch.int8, "batch-int8",
+                "flash_decode_at_layer_q8_batched")
+    _int8_text_path(model, params, device)
+
+    # (i) 8 teacher-forced steps of 4 slots on the card against the f32
+    # plain path on the CPU, from the same cache contents
+    from aha_tpu_torch.models.qwen3 import Qwen3Model
+
+    V, cfg = model.config.vocab_size, model.config
+    rng = np.random.default_rng(9)
+    prompts = [_prompt(rng, n, V) for n in (50, 120, 300, 700)]
+    forced = torch.tensor(rng.integers(0, V, (4, 8)))
+    cpu_model = Qwen3Model(cfg, max_rope_len=8192, device="cpu")
+    cpu_params = _tree_to(params, "cpu", torch.float32)
+    cpu_params["lm_head"] = {"w": cpu_params["embed"]["w"]}
+    for dtype in (torch.bfloat16, torch.int8):
+        hk, before = teacher_forced_slots(model, params, prompts, forced,
+                                          device, dtype)
+        if dtype != torch.int8:
+            before = {k: (v.float() if v.is_floating_point() else v)
+                      for k, v in before.items()}
+        hp, _ = teacher_forced_slots(cpu_model, cpu_params, prompts, forced,
+                                     "cpu", None, cache=before)
+        rel = ((hk - hp).abs().max() / hp.abs().max()).item()
+        log(f"[batch] teacher-forced 4 slots x 8 steps, "
+            f"{str(dtype).replace('torch.', '')} cache: hidden max err "
+            f"{rel:.3e} of max |ref| (tol {TOL_HIDDEN_REL})")
+        require(rel <= TOL_HIDDEN_REL,
+                f"batched {dtype} hidden off by {rel}")
+
+
 def _sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -520,7 +866,7 @@ def _tree_to(tree, device, dtype):
     return tree.to(device=device, dtype=dtype)
 
 
-# -- 5. HTTP ------------------------------------------------------------------
+# -- 6. HTTP ------------------------------------------------------------------
 
 
 def _free_port() -> int:
@@ -539,7 +885,10 @@ def _post(url: str, body: dict) -> tuple[int, str]:
 def phase_http(config, params: dict) -> None:
     with tempfile.TemporaryDirectory(prefix="aha_torch_smoke_") as tmp:
         _write_checkpoint(tmp, config, params)
-        _serve_and_ask(tmp)
+        with _server(tmp) as base:
+            _ask(base)
+        with _server(tmp, "--batch-slots", "4") as base:
+            _ask_concurrent(base, 4)
 
 
 def _write_checkpoint(tmp: str, config, params: dict) -> None:
@@ -574,15 +923,16 @@ def _write_checkpoint(tmp: str, config, params: dict) -> None:
         f"{time.perf_counter() - t0:.1f} s (set-up)")
 
 
-def _serve_and_ask(tmp: str) -> None:
-    """`python -m aha_tpu_torch serv tmp` in a child process; three chat
-    requests; the child is always stopped."""
+@contextlib.contextmanager
+def _server(tmp: str, *extra: str):
+    """`python -m aha_tpu_torch serv tmp` in a child process, up and
+    answering /health; the child is always stopped."""
     port = _free_port()
-    logf = open(os.path.join(tmp, "server.log"), "w")
+    logf = open(os.path.join(tmp, f"server_{port}.log"), "w")
     env = {**os.environ, "AHA_NO_COMPILE_CACHE": "1"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "aha_tpu_torch", "serv", tmp, "--port",
-         str(port), "--max-seq-len", "2048"], cwd=ROOT, env=env,
+         str(port), "--max-seq-len", "2048", *extra], cwd=ROOT, env=env,
         stdout=logf, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
     try:
@@ -600,39 +950,9 @@ def _serve_and_ask(tmp: str) -> None:
             require(time.perf_counter() - t0 < 300,
                     "server did not come up")
             time.sleep(1)
-        log(f"[http] server up in {time.perf_counter() - t0:.1f} s")
-        msgs = [{"role": "user", "content":
-                 "the quick brown fox jumps over the lazy dog " * 3}]
-        body = {"model": "Qwen/Qwen3-0.6B", "messages": msgs,
-                "max_tokens": 24, "temperature": 0.0}
-        status, text = _post(base + "/v1/chat/completions",
-                             {**body, "stream": False})
-        resp = json.loads(text)
-        u = resp["usage"]
-        require(status == 200 and u["prompt_tokens"] >= 32
-                and u["completion_tokens"] >= 1, resp)
-        log(f"[http] non-stream 200: usage prompt {u['prompt_tokens']} "
-            f"completion {u['completion_tokens']}")
-        status, text = _post(base + "/v1/chat/completions",
-                             {**body, "stream": True})
-        events = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
-        require(status == 200 and events[-1] == "[DONE]",
-                text[-500:])
-        chunks = [json.loads(e) for e in events[:-1]]
-        usage = chunks[-1]["usage"]
-        n_text = sum(1 for c in chunks for ch in c.get("choices") or []
-                     if (ch.get("delta") or {}).get("content")
-                     or (ch.get("delta") or {}).get("reasoning_content"))
-        require(usage["completion_tokens"] >= 1 and n_text >= 1,
-                f"usage {usage}, {n_text} text chunks")
-        log(f"[http] stream 200: {len(chunks)} chunks, {n_text} with text, "
-            f"usage completion {usage['completion_tokens']}")
-        status, text = _post(base + "/v1/chat/completions",
-                             {**body, "stream": False})
-        u = json.loads(text)["usage"]
-        require(status == 200 and u["completion_tokens"] >= 1, text)
-        log(f"[http] prefix-cache repeat 200: usage prompt "
-            f"{u['prompt_tokens']} completion {u['completion_tokens']}")
+        log(f"[http] server {' '.join(extra) or '(single stream)'} up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        yield base
     finally:
         proc.terminate()
         try:
@@ -641,6 +961,66 @@ def _serve_and_ask(tmp: str) -> None:
             proc.kill()
             proc.wait()
         logf.close()
+
+
+def _chat_body(text: str) -> dict:
+    return {"model": "Qwen/Qwen3-0.6B", "max_tokens": 24, "temperature": 0.0,
+            "messages": [{"role": "user", "content": text}]}
+
+
+def _ask(base: str) -> None:
+    """Non-stream, stream and a prefix-cache repeat."""
+    body = _chat_body("the quick brown fox jumps over the lazy dog " * 3)
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": False})
+    resp = json.loads(text)
+    u = resp["usage"]
+    require(status == 200 and u["prompt_tokens"] >= 32
+            and u["completion_tokens"] >= 1, resp)
+    log(f"[http] non-stream 200: usage prompt {u['prompt_tokens']} "
+        f"completion {u['completion_tokens']}")
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": True})
+    events = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
+    require(status == 200 and events[-1] == "[DONE]",
+            text[-500:])
+    chunks = [json.loads(e) for e in events[:-1]]
+    usage = chunks[-1]["usage"]
+    n_text = sum(1 for c in chunks for ch in c.get("choices") or []
+                 if (ch.get("delta") or {}).get("content")
+                 or (ch.get("delta") or {}).get("reasoning_content"))
+    require(usage["completion_tokens"] >= 1 and n_text >= 1,
+            f"usage {usage}, {n_text} text chunks")
+    log(f"[http] stream 200: {len(chunks)} chunks, {n_text} with text, "
+        f"usage completion {usage['completion_tokens']}")
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": False})
+    u = json.loads(text)["usage"]
+    require(status == 200 and u["completion_tokens"] >= 1, text)
+    log(f"[http] prefix-cache repeat 200: usage prompt "
+        f"{u['prompt_tokens']} completion {u['completion_tokens']}")
+
+
+def _ask_concurrent(base: str, n: int) -> None:
+    """n chats at once: every one 200 with content."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    texts = [f"request {i}: the quick brown fox jumps over the lazy dog "
+             * (2 + i) for i in range(n)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n) as pool:
+        replies = list(pool.map(
+            lambda t: _post(base + "/v1/chat/completions",
+                            {**_chat_body(t), "stream": False}), texts))
+    wall = time.perf_counter() - t0
+    for status, text in replies:
+        resp = json.loads(text)
+        msg = resp["choices"][0]["message"]
+        require(status == 200 and (msg.get("content")
+                                   or msg.get("reasoning_content"))
+                and resp["usage"]["completion_tokens"] >= 1, text[-500:])
+    log(f"[http] {n} concurrent chats to --batch-slots {n}: all 200 with "
+        f"content in {wall:.2f} s")
 
 
 def main() -> int:
@@ -654,6 +1034,7 @@ def main() -> int:
     from aha_tpu_torch.models.qwen3 import Qwen3Config
 
     state = phase_engine(Qwen3Config())
+    phase_batch(state["model"], state["params"])
     phase_http(state["model"].config, state["params"])
     require("jax" not in sys.modules and not any(
         m == "aha_tpu" or m.startswith("aha_tpu.") for m in sys.modules),

@@ -121,6 +121,97 @@ def test_fused_stack_kernel_matches_plain(dev, D, hq, hkv, pos):
         assert torch.equal(new[:, 0, keep], want[:, 0, keep])
 
 
+RAGGED = [1, 5, 64, 100, 128, 200, 511, 512]
+
+
+def test_batched_decode_matches_plain_and_per_slot(dev):
+    """The batched wrapper at B = 8 with ragged lengths (a parked slot of
+    1, split boundaries 64 and 128, the full 512): within 2e-2 of the f32
+    plain version, and bit-equal to eight B = 1 launches of the kernel."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_decode_at_layer_flat, flash_decode_at_layer_flat_batched,
+        flash_decode_at_layer_flat_plain)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    L, B, S, Hkv, D = 3, 8, 512, 2, 128
+    q = _bf(g, B, 1, 2 * Hkv, D)
+    k, v = _bf(g, L, B, S, Hkv * D), _bf(g, L, B, S, Hkv * D)
+    layer = torch.tensor(2, dtype=torch.int32, device=dev)
+    vl = torch.tensor(RAGGED, dtype=torch.int32, device=dev)
+    n0 = flash_decode_at_layer_flat_batched.launches
+    got = flash_decode_at_layer_flat_batched(q, k, v, layer, vl)
+    ref = flash_decode_at_layer_flat_plain(q.float(), k.float(), v.float(),
+                                           layer, vl)
+    assert flash_decode_at_layer_flat_batched.launches == n0 + 1
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    for b in range(B):
+        one = flash_decode_at_layer_flat(
+            q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+            v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+        assert torch.equal(one, got[b:b + 1]), b
+
+
+def _q8_inputs(g, dev, L, B, S, Hq, Hkv, D):
+    k = torch.randint(-127, 128, (L, B, S, Hkv * D), generator=g, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (L, B, S, Hkv * D), generator=g, device=dev,
+                      dtype=torch.int8)
+    ks = torch.rand((L, B, S, Hkv), generator=g, device=dev) * 0.01 + 0.002
+    vs = torch.rand((L, B, S, Hkv), generator=g, device=dev) * 0.01 + 0.002
+    # q 4× wider than N(0, 1): peaked scores, outputs of O(1)
+    q = (torch.randn((B, 1, Hq, D), generator=g, device=dev) * 4).to(
+        torch.bfloat16)
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("D,G,B", [(128, 2, 1), (64, 4, 1), (128, 2, 8),
+                                   (64, 1, 8)])
+def test_q8_decode_kernel_matches_plain(dev, mxu, D, G, B):
+    """Both q8 variants against the f32 plain version (the dequantizing
+    fallback) on the same int8 rows, max error relative to max |ref|: the
+    cast variant within 6e-3 (the bf16 rounding of its output), the
+    all-int8 one within 8e-2 (its q and p requantization), as chip_smoke
+    holds them.  B = 8 runs the batched wrapper over ragged lengths."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_decode_at_layer_q8, flash_decode_at_layer_q8_batched,
+        flash_decode_at_layer_q8_plain)
+
+    g = torch.Generator(device=dev).manual_seed(5 + D + G + B)
+    L, S, Hkv = 2, 512, 2
+    q, k, v, ks, vs = _q8_inputs(g, dev, L, B, S, Hkv * G, Hkv, D)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    vl = torch.tensor(RAGGED if B == 8 else [300], dtype=torch.int32,
+                      device=dev)
+    fn = flash_decode_at_layer_q8_batched if B > 1 else \
+        flash_decode_at_layer_q8
+    n0 = fn.launches
+    got = fn(q, k, v, ks, vs, layer, vl, mxu=mxu)
+    ref = flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, layer, vl)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= (8e-2 if mxu else 6e-3), rel
+
+
+def test_q8_mxu_default_follows_env(dev, monkeypatch):
+    """AHA_Q8_MXU, read at call time: unset or "1" is the all-int8
+    variant, "0" the cast variant."""
+    from aha_tpu_torch.ops.flash_attention import flash_decode_at_layer_q8
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, ks, vs = _q8_inputs(g, dev, 1, 1, 256, 4, 2, 128)
+    layer = torch.tensor(0, dtype=torch.int32, device=dev)
+    vl = torch.tensor([200], dtype=torch.int32, device=dev)
+    args = (q, k, v, ks, vs, layer, vl)
+    monkeypatch.delenv("AHA_Q8_MXU", raising=False)
+    assert torch.equal(flash_decode_at_layer_q8(*args),
+                       flash_decode_at_layer_q8(*args, mxu=True))
+    monkeypatch.setenv("AHA_Q8_MXU", "0")
+    assert torch.equal(flash_decode_at_layer_q8(*args),
+                       flash_decode_at_layer_q8(*args, mxu=False))
+
+
 def test_cuda_tensors_never_take_the_plain_path(dev):
     """An unsupported shape on the card raises; it does not fall back."""
     from aha_tpu_torch.ops.flash_attention import flash_attention
@@ -128,3 +219,12 @@ def test_cuda_tensors_never_take_the_plain_path(dev):
     q = torch.zeros(1, 100, 4, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :2], q[:, :, :2])
+    # a bf16 cache handed to the q8 kernel
+    from aha_tpu_torch.ops.flash_attention import flash_decode_at_layer_q8
+
+    q1 = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros(1, 1, 64, 128, dtype=torch.bfloat16, device=dev)
+    sc = torch.zeros(1, 1, 64, 2, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        flash_decode_at_layer_q8(q1, kv, kv, sc, sc, one[0], one)

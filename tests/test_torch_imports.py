@@ -13,7 +13,8 @@ DEVICE_PATH = ["aha_tpu_torch.ops.kernels", "aha_tpu_torch.ops.norms",
                "aha_tpu_torch.ops.lm_head", "aha_tpu_torch.ops.fused_layer",
                "aha_tpu_torch.core.cache",
                "aha_tpu_torch.core.nn", "aha_tpu_torch.core.sampling",
-               "aha_tpu_torch.core.engine", "aha_tpu_torch.models.qwen3",
+               "aha_tpu_torch.core.engine", "aha_tpu_torch.core.batch_engine",
+               "aha_tpu_torch.models.qwen3", "aha_tpu_torch.utils.device",
                "aha_tpu_torch.io.convert"]
 
 
