@@ -35,9 +35,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    # aha_tpu's package __init__ imports jax for its compile cache unless
-    # this is set; the port reuses only its jax-free host modules
-    os.environ.setdefault("AHA_NO_COMPILE_CACHE", "1")
     from aha_tpu_torch.models.loader import load_model
     from aha_tpu_torch.server.app import ServerState, start_http_server
 

@@ -1,10 +1,11 @@
 """Chat-level generation: request → prompt → engine → OpenAI responses
 (counterpart of aha_tpu/core/generate.py, text only).
 
-The response types, tokenizer and chat-template classes are aha_tpu's
-jax-free host modules; the stream channel routing (UTF-8 partial tokens,
-<think> reasoning channel, <tool_call> capture, final usage chunk) is the
-same as the JAX package's, so both serve identical chunk streams.
+The response types, tokenizer and chat-template classes are the port's
+copies of aha_tpu's host modules; the stream channel routing (UTF-8
+partial tokens, <think> reasoning channel, <tool_call> capture, final
+usage chunk) is the same as the JAX package's, so both serve identical
+chunk streams.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import uuid
 from dataclasses import dataclass
 from typing import Iterator
 
-from aha_tpu.core.tokenizer import TokenizerModel
-from aha_tpu.params import (
+from aha_tpu_torch.core.engine import TextEngine
+from aha_tpu_torch.core.sampling import DEFAULT_SEED, SamplingConfig
+from aha_tpu_torch.core.tokenizer import TokenizerModel
+from aha_tpu_torch.params import (
     ChatCompletionChunkChoice,
     ChatCompletionChunkResponse,
     ChatCompletionChoice,
@@ -27,9 +30,7 @@ from aha_tpu.params import (
     DeltaToolCall,
     Usage,
 )
-from aha_tpu.params.chat import now_created
-from aha_tpu_torch.core.engine import TextEngine
-from aha_tpu_torch.core.sampling import DEFAULT_SEED, SamplingConfig
+from aha_tpu_torch.params.chat import now_created
 
 DEFAULT_MAX_TOKENS = 1024
 

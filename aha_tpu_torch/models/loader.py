@@ -3,8 +3,8 @@ aha_tpu/models/loader.py; only the Qwen3 chat family is ported)."""
 
 from __future__ import annotations
 
-from aha_tpu.models.base import LoadedModel
-from aha_tpu.registry import lookup
+from aha_tpu_torch.models.base import LoadedModel
+from aha_tpu_torch.registry import lookup
 
 
 def load_model(model_id: str, path: str, **kw) -> LoadedModel:

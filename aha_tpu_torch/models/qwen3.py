@@ -11,13 +11,19 @@ engine, where each slot's row goes to its own position; the backbone never
 advances it (the engine does).  An int8 cache is quantized on write
 (per-row, per-kv-head scales) and read by the q8 decode kernel; prefill
 attends over the full-precision fresh block, as in the JAX package.  A
-batch-1 bf16 decode step whose caller bounds the live rows by `window` ≤
-MAX_WINDOW (2048) runs the whole stack as ONE fused kernel
-(ops/fused_layer.py), as the JAX package does; deeper steps, batched steps
-and int8 caches run the per-op chain, whose attention is a decode kernel.
-The greedy head runs its kernel (ops/lm_head.py), prefill of prompts of ≥
-128 bucketed rows the flash prefill kernel (ops/flash_attention.py);
-outside the fused step the projections and the MLP stay torch.matmul.
+batch-1 decode step over a bf16 cache whose caller bounds the live rows by
+`window` ≤ MAX_WINDOW (2048) runs the whole stack as ONE fused kernel
+(ops/fused_layer.py), as the JAX package does: the bf16 stack for dense
+weights, the quantized stack for GGUF-grid ones; deeper steps, batched
+steps and int8 caches run the per-op chain, whose attention is a decode
+kernel.  The greedy head runs its kernel (ops/lm_head.py), prefill of
+prompts of ≥ 128 bucketed rows the flash prefill kernel
+(ops/flash_attention.py); outside the fused step dense projections and the
+MLP stay torch.matmul.  On the per-op chain, GGUF block-quantized
+parameters (io/gguf_models.py, or pack_params) take the quant-matmul
+kernels at ≤ 64 rows on the card, the MLP the fused quantized SwiGLU, and a
+quantized head the head's quantized bodies (greedy) or the quant-matmul
+kernel (logits).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core import nn
+from aha_tpu_torch.core.sampling import fast_argmax
 from aha_tpu_torch.ops.attention import (attention_decode_at,
                                          attention_decode_at_q8,
                                          attention_prefill,
@@ -38,9 +45,12 @@ from aha_tpu_torch.ops.attention import (attention_decode_at,
                                          attention_prefill_at_q8,
                                          quantize_kv_rows)
 from aha_tpu_torch.ops.fused_layer import (MAX_WINDOW, fused_decode_stack,
+                                           fused_decode_stack_q8,
+                                           fused_stack_q8_supported,
                                            fused_stack_supported)
 from aha_tpu_torch.ops.lm_head import head_argmax
 from aha_tpu_torch.ops.norms import rms_norm
+from aha_tpu_torch.ops.quant_matmul import concat_columns, pack_rows
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
 
 
@@ -177,25 +187,31 @@ class Qwen3Model:
         return self._slots
 
     def _use_fused_stack(self, params: dict, x: torch.Tensor, cache: dict,
-                         window: int | None) -> bool:
+                         window: int | None) -> str | None:
         """The JAX package's gate for the one-launch decode stack
         (aha_tpu/models/qwen3.py _use_fused_layer): one bf16 token of
-        batch 1 over a flat bf16 cache with a scalar pos, fused parameters
-        the kernel covers, at most MAX_WINDOW live rows, and
-        AHA_FUSED_LAYER not "0".  The kernel reads the live length on the
-        device; `window` is the caller's host bound on it."""
+        batch 1 over a flat bf16 cache with a scalar pos, at most MAX_WINDOW
+        live rows, and AHA_FUSED_LAYER not "0"; then "bf16" for fused dense
+        parameters the bf16 kernel covers, "q8" for fused GGUF-grid ones
+        the quantized kernel covers, else None (the per-op chain).  The
+        kernels read the live length on the device; `window` is the
+        caller's host bound on it."""
         if window is None or window > MAX_WINDOW \
                 or os.environ.get("AHA_FUSED_LAYER", "1") != "1":
-            return False
+            return None
         B, S, _ = x.shape
-        c = self.config
-        return (B == 1 and S == 1 and x.dtype == torch.bfloat16
+        if not (B == 1 and S == 1 and x.dtype == torch.bfloat16
                 and cache["k"].dtype == torch.bfloat16
-                and cache["pos"].ndim == 0
-                and fused_stack_supported(params["layers"], c.hidden_size,
-                                          self.n_heads, self.n_kv_heads,
-                                          self.head_dim,
-                                          c.intermediate_size))
+                and cache["pos"].ndim == 0):
+            return None
+        c = self.config
+        geo = (params["layers"], c.hidden_size, self.n_heads,
+               self.n_kv_heads, self.head_dim, c.intermediate_size)
+        if fused_stack_supported(*geo):
+            return "bf16"
+        if fused_stack_q8_supported(*geo):
+            return "q8"
+        return None
 
     def run_layers(self, params: dict, x: torch.Tensor, cache: dict,
                    from_cache: bool = False,
@@ -220,11 +236,12 @@ class Qwen3Model:
             positions = pos.long().clamp(max=last)
             cos, sin = gather_rope(self.cos, self.sin, positions[:, None])
         eps = self.config.rms_norm_eps
-        if self._use_fused_stack(params, x, cache, window):
-            x = fused_decode_stack(x, params["layers"], pos,
-                                   torch.cat([cos, cos], -1),
-                                   torch.cat([sin, sin], -1),
-                                   cache["k"], cache["v"], eps)
+        mode = self._use_fused_stack(params, x, cache, window)
+        if mode:
+            stack = fused_decode_stack if mode == "bf16" else \
+                fused_decode_stack_q8
+            x = stack(x, params["layers"], pos, torch.cat([cos, cos], -1),
+                      torch.cat([sin, sin], -1), cache["k"], cache["v"], eps)
             return rms_norm(x, params["norm"]["w"], eps)
         is_prefill = S > 1
         valid_len = None if is_prefill else (pos + 1).reshape(-1)
@@ -241,13 +258,26 @@ class Qwen3Model:
                                window=window)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ params["lm_head"]["w"].t()
+        """A dense head is vocab-major (V, K); a quantized head goes
+        through nn.linear (the quant-matmul kernel at ≤ 64 rows on the
+        card)."""
+        head = params["lm_head"]
+        if "w" in head:
+            return hidden @ head["w"].t()
+        return nn.linear(head, hidden)
 
     def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """Greedy next token for ONE hidden state (0-dim int32 on the
         device): the fused head GEMV + argmax kernel on the card, logits +
-        fast_argmax on the CPU.  Raises for more than one row."""
-        return head_argmax(params["lm_head"]["w"], hidden)
+        fast_argmax on the CPU, as the JAX model's non-TPU branch (which
+        is, for a dense head, the kernel's plain version).  Raises for more
+        than one row."""
+        if hidden.is_cuda:
+            return head_argmax(params["lm_head"], hidden)
+        if hidden.numel() != hidden.shape[-1]:
+            raise ValueError("greedy_token takes one hidden row, got "
+                             f"{tuple(hidden.shape)}")
+        return fast_argmax(self.logits(params, hidden).float().reshape(-1))
 
     def forward_hidden(self, params: dict,
                        input_ids: torch.Tensor) -> torch.Tensor:
@@ -336,26 +366,74 @@ def stack_layers(layers: list[dict]) -> dict:
     return torch.stack(layers)
 
 
+def _fuse_out_axis(parts: list[dict]) -> dict | None:
+    """Concatenate weight dicts on the output (column) axis, as the JAX
+    package's _fuse_out_axis does: dense "w" (in, out) on its last axis, the
+    quantized grids through ops/quant_matmul.concat_columns.  Column blocks
+    of a product are independent and both grids scale per column, so the
+    concat is bit-identical to separate products.  None for what must stay
+    separate: mixed grids (a Q6_K tensor packed int8 beside Q4_K ones packed
+    4-bit — llama.cpp mixes formats per tensor), unequal K, biases on some
+    parts only, or biased quantized dicts."""
+    if all("w" in p for p in parts):
+        fused = {"w": torch.cat([p["w"] for p in parts], dim=-1)}
+        if "b" in parts[0]:
+            if not all("b" in p for p in parts):
+                return None
+            fused["b"] = torch.cat([p["b"] for p in parts], dim=-1)
+        return fused
+    return concat_columns(parts)
+
+
 def fuse_decode_params(params: dict) -> dict:
     """Concatenate each layer's q/k/v (and gate/up) weights into single
     [q|k|v] / [gate|up] matrices on the output axis: fewer, larger weight
-    streams for the batch-1 decode step.  Column blocks of a product are
-    independent, so outputs are bit-identical to the separate products."""
+    streams for the decode step, dense or quantized.  Outputs are
+    bit-identical to the separate products; layers whose parts cannot fuse
+    (_fuse_out_axis) keep them separate."""
     layers = params.get("layers")
-    if not isinstance(layers, dict) or "q" not in layers:
+    if (not isinstance(layers, dict) or "q" not in layers
+            or not isinstance(layers.get("mlp"), dict)):
         return params
     layers = dict(layers)
-    layers["qkv"] = {"w": torch.cat([layers.pop(n)["w"] for n in "qkv"],
-                                    dim=-1)}
-    mlp = dict(layers["mlp"])
+    fused = _fuse_out_axis([layers["q"], layers["k"], layers["v"]])
+    if fused is not None:
+        for name in "qkv":
+            layers.pop(name)
+        layers["qkv"] = fused
+    mlp = layers["mlp"]
     if "gate" in mlp:
-        mlp["gateup"] = {"w": torch.cat([mlp.pop("gate")["w"],
-                                         mlp.pop("up")["w"]], dim=-1)}
-        layers["mlp"] = mlp
+        gu = _fuse_out_axis([mlp["gate"], mlp["up"]])
+        if gu is not None:
+            mlp = {k: v for k, v in mlp.items() if k not in ("gate", "up")}
+            layers["mlp"] = {**mlp, "gateup": gu}
     return {**params, "layers": layers}
 
 
 Qwen3Model.fuse_params = staticmethod(fuse_decode_params)
+
+
+def pack_params(params: dict, grid: str) -> dict:
+    """A parameter tree with every decoder linear and the head packed on
+    one GGUF grid ("q8" or "q4"), as a GGUF file of one format would give
+    them: the stacked (L, in, out) "w" of each linear becomes (L, N, ...)
+    grid tensors, the vocab-major head (V, K) a (V, ...) one; the embedding
+    and norms stay dense.  Packs on the parameters' device."""
+    q4 = {"q8": False, "q4": True}[grid]
+
+    def walk(tree):
+        out = {}
+        for name, p in tree.items():
+            if isinstance(p, dict) and "w" in p and p["w"].ndim == 3:
+                out[name] = pack_rows(p["w"].transpose(-1, -2), q4)
+            elif isinstance(p, dict):
+                out[name] = walk(p)
+            else:
+                out[name] = p
+        return out
+
+    return {**params, "layers": walk(params["layers"]),
+            "lm_head": pack_rows(params["lm_head"]["w"], q4)}
 
 
 def load_stop_token_ids(model_dir: str) -> list[int]:

@@ -3,10 +3,10 @@ Qwen3Chat; the embedding and reranker models are not ported yet)."""
 
 from __future__ import annotations
 
-from aha_tpu.registry import ModelEntry
 from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
 from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import device, get_dtype
 
 

@@ -9,15 +9,15 @@ import json
 import os
 from typing import Callable
 
-from aha_tpu.core.chat_template import ChatTemplate
-from aha_tpu.core.tokenizer import TokenizerModel
-from aha_tpu.models.base import LoadedModel
-from aha_tpu.params import ChatCompletionParameters
-from aha_tpu.registry import ModelEntry
 from aha_tpu_torch.core.batch_engine import BatchEngine
+from aha_tpu_torch.core.chat_template import ChatTemplate
 from aha_tpu_torch.core.engine import TextEngine
 from aha_tpu_torch.core.generate import GenerateModel, PrepareData
+from aha_tpu_torch.core.tokenizer import TokenizerModel
+from aha_tpu_torch.models.base import LoadedModel
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
+from aha_tpu_torch.params import ChatCompletionParameters
+from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import get_cache_dtype
 
 

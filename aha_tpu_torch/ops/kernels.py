@@ -43,9 +43,14 @@ _SIGNATURES = {
                                + [_F, _I, _P],
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aha_head_argmax_parts": [_I],
+    "aha_head_argmax_quant": [_P] * 8 + [_I] * 4 + [_P],
+    "aha_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "aha_quant_swiglu": [_P] * 9 + [_I] * 9 + [_P],
+    "aha_smem_optin": [_I],
     "aha_flash_prefill": [_P, _P, _P, _P] + [_LL] * 12
                          + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aha_fused_decode_stack": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
+    "aha_fused_decode_stack_q8": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_error_string": [_I],
 }
 
@@ -141,6 +146,19 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().aha_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+_smem_optin: dict[int, int] = {}
+
+
+def smem_optin(device: torch.device) -> int:
+    """The most dynamic shared memory one block on `device` may opt in to
+    (bytes)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _smem_optin:
+        _smem_optin[index] = lib().aha_smem_optin(index)
+    return _smem_optin[index]
 
 
 def stream_handle(t: torch.Tensor) -> int:

@@ -1,6 +1,7 @@
 """Where a decode step's time goes, on one CUDA card.
 
     python -m aha_tpu_torch.utils.profile_decode [--prompt 300] [--steps 16]
+    python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
 
 Builds Qwen3-0.6B's published geometry with seeded random bf16 weights,
@@ -16,7 +17,11 @@ prefills a random prompt through TextEngine, and reads one decode block of
 - idle share: 1 − busy / wall;
 - device ops per step, and the largest ops by device time.
 
-The same is read for the prompt's prefill.  With `--batch-slots N` the
+The same is read for the prompt's prefill.  `--quant q8|q4` packs the
+seeded weights and the head on that GGUF grid (models/qwen3.pack_params):
+the fused step is then the quantized stack (fused_decode_stack_q8), the
+per-op step the quant-matmul, fused quantized SwiGLU and quantized head
+kernels.  With `--batch-slots N` the
 block is instead N slots of the continuous-batching engine stepping
 together (BatchEngine._decode_n, every slot live at `--prompt` rows, bf16
 or `--kv-int8` cache).  One JSON line per configuration goes to stdout,
@@ -175,7 +180,8 @@ def profile_batch(model, params, args, card: str) -> None:
         eng._cache["pos"].fill_(args.prompt)
         eng._decode_n(args.steps)
 
-    name = f"batch {n} {str(dtype).replace('torch.', '')}"
+    name = (f"batch {n} {str(dtype).replace('torch.', '')}"
+            + (f" {args.quant}" if args.quant else ""))
     with torch.no_grad():
         for _ in range(2):                  # warm-up: allocator, cuBLAS
             block()
@@ -334,6 +340,8 @@ def main(argv=None) -> int:
                          "BATCH_PROMPTS request mix")
     ap.add_argument("--passes", action="store_true",
                     help="device time of each decode-attention pass")
+    ap.add_argument("--quant", choices=("q8", "q4"),
+                    help="pack the weights and head on this GGUF grid")
     args = ap.parse_args(argv)
     need = max(BATCH_PROMPTS) + ENGINE_TOKENS
     if args.engine and (args.batch_slots < 2 or args.cache < need):
@@ -354,6 +362,10 @@ def main(argv=None) -> int:
     model = Qwen3Model(cfg, max_rope_len=8192, device="cuda")
     params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
                                dtype=torch.bfloat16)
+    if args.quant:
+        from aha_tpu_torch.models.qwen3 import pack_params
+
+        params = pack_params(params, args.quant)
     if args.batch_slots > 1:
         (profile_engine if args.engine else profile_batch)(model, params,
                                                            args, card)
@@ -365,7 +377,8 @@ def main(argv=None) -> int:
     ring = torch.zeros((64,), dtype=torch.int32, device="cuda")
     bucket = bucket_for(len(ids))
     print(f"profile_decode: prompt {len(ids)} (bucket {bucket}), cache "
-          f"{args.cache}, {args.steps}-step block | {card}")
+          f"{args.cache}, {args.steps}-step block, "
+          f"{args.quant or 'bf16'} weights | {card}")
     with torch.no_grad():
         for fused in (True, False):
             with _fused(fused):
@@ -385,7 +398,8 @@ def main(argv=None) -> int:
                 for _ in range(2):          # warm-up: allocator, cuBLAS
                     prefill()
                     block()
-                out = {"config": "fused" if fused else "per-op",
+                out = {"config": ("fused" if fused else "per-op")
+                           + (f" {args.quant}" if args.quant else ""),
                        "card": card, "prompt": len(ids),
                        "cache": args.cache, "steps": args.steps,
                        "prefill": _read(prefill, 1),

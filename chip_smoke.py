@@ -25,14 +25,33 @@ before the last line:
    path with the launch counters
    zeroed before it and read after it; then 8 teacher-forced steps of 4
    slots against the f32 plain path on the CPU over the same cache;
-6. HTTP — the same weights saved as a checkpoint (embedding rows past the
+6. quant — the same weights packed on the GGUF grids on the card
+   (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
+   TextEngine, whose decode runs the quantized fused stack and whose short
+   prompt's prefill runs the quant-matmul and fused-SwiGLU kernels, each
+   also timed on the per-op chain; (l) a q4 BatchEngine of 8 slots under
+   the (f) request mix; then (m) a Qwen3 GGUF file at full width and 4
+   layers, written with the port's writer (token_embd Q8_0 tied, attention
+   and gate/up Q4_K, ffn_down Q6_K), loaded with load_qwen3_gguf, 32 greedy
+   tokens, and 8 teacher-forced steps through each decode path against the
+   same steps on the CPU through the kernels' plain versions (the witness)
+   and through the exact dequantized path; each path with the counters
+   zeroed before it and its kernels launched;
+7. HTTP — the bf16 weights saved as a checkpoint (embedding rows past the
    test tokenizer's vocabulary zeroed, so replies decode to text) and
    served by `python -m aha_tpu_torch serv` in a child process:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
-   then a `--batch-slots 4` server answering 4 chats at once.
+   then a `--batch-slots 4` server answering 4 chats at once; the child
+   runs under `-X importtime`, whose log must name no module of jax or
+   aha_tpu.
 
-Then one JSON line of per-kernel results, the card line, and the last
-line {"ok": true, "device": {...}}.  Imports nothing of JAX or aha_tpu.
+Every kernel check also reads the least time the card could take for the
+same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
+and its operations over the H100's peak for their type) and, where one
+PyTorch call computes the same function, that call's time (`library_ms`;
+timed here only, never called by the port).  Then one JSON line of
+per-kernel results, the card line, and the last line {"ok": true,
+"device": {...}}.  Imports nothing of JAX or aha_tpu.
 """
 
 from __future__ import annotations
@@ -57,6 +76,16 @@ TOL_HEAD_REL = 1e-3      # a differing index must tie within 1e-3·|max|
 TOL_HIDDEN_REL = 5e-2    # bf16 28-layer stack vs f32, relative to max |ref|
 TOL_FUSED_REL = 2e-2     # fused stack kernel vs its f32 plain version, same
                          # bf16 inputs, relative to max |ref|
+# the quantized stack against its plain version at 28 layers, relative to max
+# |ref| (one layer is held to TOL_FUSED_REL).  Its attention output differs
+# from the plain one in f32 rounding (exp, split order), and so does the
+# 4-bit dot, whose large n·s·sx·Σxq and xsum·b terms cancel: a value that
+# lands across a .5 boundary requantizes one step apart and moves every
+# column of the next product, and 28 layers of seeded random weights amplify
+# that.  Measured on an H100: int8 at pos 0 bit-equal, at pos 1000 2.5e-2;
+# with 4-bit grids ≤ 7.9e-2 (≤ 7.3e-3 at one layer); zeroed down scales
+# are off by ≥ 0.58
+TOL_FUSED_Q8_DEEP_REL = {"q8": 5e-2, "q4": 1.2e-1, "gguf": 1.2e-1}
 # q8 decode vs its f32 plain version (the dequantizing fallback), max abs
 # error relative to max |ref|, by variant (mxu False: cast, True: all-int8,
 # which adds the requantization noise of q and p).  The inputs make the
@@ -64,6 +93,26 @@ TOL_FUSED_REL = 2e-2     # fused stack kernel vs its f32 plain version, same
 # Measured on an H100 at these inputs: cast ≤ 2.8e-3 (the bf16 rounding of
 # the output), all-int8 ≤ 4.1e-2 (1000 live rows; 1.5e-2 at 16000)
 TOL_Q8_REL = {False: 6e-3, True: 8e-2}
+# GGUF-grid kernels vs their f32 plain versions on the same bf16 inputs,
+# relative to max |ref|: the matmuls round their output to bf16 (≤ 2^-8);
+# the fused MLP also requantizes a = SiLU(g)·u, where an f32 rounding can
+# move a rare value across a .5 boundary, one step of max|a_g|/127 · |w|
+TOL_QMM_REL = 5e-3
+TOL_SWIGLU_REL = 1e-2
+# (m): the GGUF model's hidden states through the kernels on the card,
+# relative to max |ref|, against (a) the witness: the same steps on the CPU
+# in bf16 through the kernels' plain versions (the same activation
+# quantization), which differs from the card by bf16 rounding and the rare
+# activation a summation order moves across a .5 boundary; and (b) the
+# exact path: f32 on the CPU with exactly dequantized weights, which
+# differs by the activation quantization the kernels do (5.5e-2 and 6.5e-2
+# of max |ref| measured over 4 layers on an H100 on the per-op chain)
+TOL_GGUF_WITNESS_REL = 1e-1
+TOL_GGUF_REL = 1e-1
+#: the H100 SXM's published rates (NVIDIA data sheet, dense): HBM bytes/s,
+#: operations/s by type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 KERNELS = {
     "flash_decode_at_layer_flat": dict(
@@ -87,8 +136,27 @@ KERNELS = {
     "flash_decode_at_layer_q8_batched": dict(
         source="aha_tpu_torch/csrc/decode_attention_q8.cu",
         replaces="aha_tpu/ops/flash_attention.py:1013"),
+    "quant_matmul": dict(
+        source="aha_tpu_torch/csrc/quant_matmul.cu",
+        replaces="aha_tpu/ops/quant_matmul.py:262"),
+    "quant_matmul_q4": dict(
+        source="aha_tpu_torch/csrc/quant_matmul.cu",
+        replaces="aha_tpu/ops/quant_matmul.py:341"),
+    "quant_swiglu": dict(
+        source="aha_tpu_torch/csrc/quant_swiglu.cu",
+        replaces="aha_tpu/ops/quant_matmul.py:478"),
+    "head_argmax_q8": dict(
+        source="aha_tpu_torch/csrc/head_argmax.cu",
+        replaces="aha_tpu/ops/lm_head.py:76"),
+    "head_argmax_q4": dict(
+        source="aha_tpu_torch/csrc/head_argmax.cu",
+        replaces="aha_tpu/ops/lm_head.py:87"),
+    "fused_decode_stack_q8": dict(
+        source="aha_tpu_torch/csrc/fused_decode_stack_q8.cu",
+        replaces="aha_tpu/ops/fused_layer.py:728"),
 }
-RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0} for k in KERNELS}
+RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0, "library_ms": None}
+                            for k in KERNELS}
 
 
 def log(*a):
@@ -120,17 +188,26 @@ def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 def wrappers():
     from aha_tpu_torch.ops import flash_attention as fa
-    from aha_tpu_torch.ops.fused_layer import fused_decode_stack
-    from aha_tpu_torch.ops.lm_head import head_argmax
+    from aha_tpu_torch.ops import lm_head
+    from aha_tpu_torch.ops import quant_matmul as qm
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack,
+                                               fused_decode_stack_q8)
 
     return {"flash_decode_at_layer_flat": fa.flash_decode_at_layer_flat,
-            "head_argmax": head_argmax, "flash_attention": fa.flash_attention,
+            "head_argmax": lm_head.head_argmax,
+            "flash_attention": fa.flash_attention,
             "fused_decode_stack": fused_decode_stack,
             "flash_decode_at_layer_flat_batched":
                 fa.flash_decode_at_layer_flat_batched,
             "flash_decode_at_layer_q8": fa.flash_decode_at_layer_q8,
             "flash_decode_at_layer_q8_batched":
-                fa.flash_decode_at_layer_q8_batched}
+                fa.flash_decode_at_layer_q8_batched,
+            "quant_matmul": qm.quant_matmul,
+            "quant_matmul_q4": qm.quant_matmul_q4,
+            "quant_swiglu": qm.quant_swiglu,
+            "head_argmax_q8": lm_head.head_argmax_q8,
+            "head_argmax_q4": lm_head.head_argmax_q4,
+            "fused_decode_stack_q8": fused_decode_stack_q8}
 
 
 def zero_counts() -> dict:
@@ -148,6 +225,8 @@ def read_counts(wr: dict, path: str, must: tuple[str, ...]) -> dict:
         require(launches[name] > 0,
                 f"{name} was not launched on the {path} path")
         RESULTS[name]["launches"] = launches[name]
+        RESULTS[name].setdefault("launches_by_path", {})[path] = \
+            launches[name]
     log(f"[{path}] launches: {json.dumps(launches)}")
     return launches
 
@@ -188,12 +267,42 @@ def phase_build() -> None:
 # -- 3. kernels vs plain ------------------------------------------------------
 
 
+def bound(nbytes: float, ops: float = 0.0, kind: str = "bf16"
+          ) -> tuple[float, str]:
+    """The least time (ms) the card could take: the bytes the function
+    must move (each input read once, each output written once) over the
+    HBM rate, or its operations over the peak for their type, the larger;
+    and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _record(name: str, err: float, ms: float | None = None,
-            plain_ms: float | None = None) -> None:
+            plain_ms: float | None = None,
+            bound_of: tuple[float, str] | None = None,
+            library_ms: float | None = None, library: str | None = None,
+            shape: str | None = None) -> None:
+    """Keep the worst error of every check of `name`; a timed check also
+    sets its times, its bound (bound_ms, bound_by) and the library call's
+    time, all at the shape it names."""
     r = RESULTS[name]
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if ms is not None:
         r["ms"], r["plain_ms"] = ms, plain_ms
+        r["bound_ms"], r["bound_by"] = bound_of
+        r["library_ms"] = library_ms
+        if library is not None:
+            r["library"] = library
+        r["timed_at"] = shape
+
+
+def _sdpa(q, k, v, **kw):
+    """F.scaled_dot_product_attention on (B, H, S, D) tensors: the
+    library yardstick of the attention kernels (the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
 def check_decode(S: int, valid: int, timed: bool) -> None:
@@ -226,14 +335,32 @@ def check_decode(S: int, valid: int, timed: bool) -> None:
     plain_ms = device_ms(lambda: flash_decode_at_layer_flat_plain(
         q, k, v, layer(), vl), iters=56)
     nbytes = valid * Hkv * D * 2 * 2                 # bf16 K and V rows
+    b = bound(nbytes + 2 * Hq * D * 2, 4 * Hq * valid * D)
+    lib_ms = None
+    if timed:
+        # the library call on the live rows of every layer, laid out
+        # (B, H, S, D) beforehand
+        kv = [(k[li, :, :valid].reshape(1, valid, Hkv, D).transpose(1, 2)
+               .contiguous(), v[li, :, :valid].reshape(1, valid, Hkv, D)
+               .transpose(1, 2).contiguous()) for li in range(L)]
+        qt = q.transpose(1, 2).contiguous()
+        it = iter(range(10 ** 9))
+        lib_ms = device_ms(lambda: _sdpa(qt, *kv[next(it) % L]), iters=56)
+        del kv
     log(f"[kernels] decode L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}:"
         f" max_abs_err {err:.3e} (tol {TOL_ATTN}); device ms/call kernel"
-        f" {ms:.4f} plain {plain_ms:.4f}; {nbytes / ms / 1e6:.1f} GB/s of"
+        f" {ms:.4f} plain {plain_ms:.4f}"
+        + (f" sdpa {lib_ms:.4f}" if lib_ms else "")
+        + f"; bound {b[0]:.4f} ({b[1]}); {nbytes / ms / 1e6:.1f} GB/s of"
         f" live rows")
     del k, v
     torch.cuda.empty_cache()
-    _record("flash_decode_at_layer_flat", err, *((ms, plain_ms) if timed
-                                                 else ()))
+    if timed:
+        _record("flash_decode_at_layer_flat", err, ms, plain_ms, b, lib_ms,
+                "F.scaled_dot_product_attention over the live rows",
+                f"L={L} S={S} valid={valid}")
+    else:
+        _record("flash_decode_at_layer_flat", err)
 
 
 def check_head() -> None:
@@ -247,7 +374,7 @@ def check_head() -> None:
     worst, mismatches = 0.0, 0
     for trial in range(4):
         h = torch.randn((1, 1, K), generator=g, **bf)
-        got = int(head_argmax(w, h))
+        got = int(head_argmax({"w": w}, h))
         ref = int(head_argmax_plain(w, h))
         if got != ref:
             logits = h.reshape(1, K).float() @ w.float().t()
@@ -263,21 +390,29 @@ def check_head() -> None:
     wt[37, 0] = 1.0
     e0 = torch.zeros((1, K), **bf)
     e0[0, 0] = 1.0
-    require(int(head_argmax(wt, e0)) == 37 == int(head_argmax_plain(wt, e0)),
+    require(int(head_argmax({"w": wt}, e0)) == 37
+            == int(head_argmax_plain(wt, e0)),
             "planted tie did not go to the smaller index")
     # a NaN hidden state: the plain fast_argmax rule, index V - 1
     hn = torch.full((1, K), float("nan"), **bf)
-    require(int(head_argmax(w, hn)) == V - 1 == int(head_argmax_plain(w, hn)),
+    require(int(head_argmax({"w": w}, hn)) == V - 1
+            == int(head_argmax_plain(w, hn)),
             "a NaN row did not give V - 1")
     h = torch.randn((1, 1, K), generator=g, **bf)
-    ms = device_ms(lambda: head_argmax(w, h))
+    ms = device_ms(lambda: head_argmax({"w": w}, h))
     plain_ms = device_ms(lambda: head_argmax_plain(w, h))
+    hv = h.reshape(K)
+    lib_ms = device_ms(lambda: torch.matmul(w, hv))
+    b = bound(V * K * 2 + K * 2, 2 * V * K)
     log(f"[kernels] head_argmax K={K} V={V}: {mismatches} index mismatches "
         f"in 4 random rows (worst logit gap {worst:.3e}), planted tie and NaN "
-        f"row agree; device ms/call kernel {ms:.4f} plain {plain_ms:.4f}")
+        f"row agree; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"torch.matmul GEMV alone {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
     # the kernel returns an index: its "error" is the logit gap between its
     # index and the plain one (0 when they agree)
-    _record("head_argmax", worst, ms, plain_ms)
+    _record("head_argmax", worst, ms, plain_ms, b, lib_ms,
+            "torch.matmul GEMV alone (the logits, no argmax)",
+            f"K={K} V={V}")
     RESULTS["head_argmax"].update(
         index_mismatches=mismatches,
         max_abs_err_of="logit gap between kernel and plain argmax")
@@ -300,74 +435,23 @@ def check_prefill(S: int, causal: bool, timed: bool) -> None:
     err = (got.float() - ref).abs().max().item()
     require(err <= TOL_ATTN,
             f"prefill S={S} causal={causal}: err {err}")
-    ms = device_ms(lambda: flash_attention(q, k, v, causal=causal))
-    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
-    log(f"[kernels] prefill S={S} causal={causal} Hq={Hq} Hkv={Hkv} D={D}: "
-        f"max_abs_err {err:.3e} (tol {TOL_ATTN}); device ms/call kernel "
-        f"{ms:.4f} plain {plain_ms:.4f}")
-    _record("flash_attention", err, *((ms, plain_ms) if timed else ()))
-
-
-def check_fused(pos: int, n_layers: int, timed: bool) -> None:
-    """The fused stack over `n_layers` of Qwen3-0.6B's layers (seeded
-    weights as the engine phase makes them), a 2048-row cache with random
-    rows, the token at `pos`: hidden state and the written cache rows
-    against the plain version in f32 on the same bf16 inputs."""
-    from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
-                                            fuse_decode_params)
-    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack,
-                                               fused_decode_stack_plain)
-
-    cfg = Qwen3Config(num_hidden_layers=n_layers)
-    model = Qwen3Model(cfg, max_rope_len=4096, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(11 + pos)
-    lyr = fuse_decode_params(model.init_random(g, dtype=torch.bfloat16))[
-        "layers"]
-    S, HD = 2048, cfg.num_key_value_heads * cfg.head_dim
-    bf = dict(device="cuda", dtype=torch.bfloat16)
-    x = torch.randn((1, 1, cfg.hidden_size), generator=g, **bf)
-    k = torch.randn((n_layers, 1, S, HD), generator=g, **bf)
-    v = torch.randn((n_layers, 1, S, HD), generator=g, **bf)
-    kp, vp = k.clone(), v.clone()
-    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    cos = torch.cat([model.cos[pos], model.cos[pos]])[None]
-    sin = torch.cat([model.sin[pos], model.sin[pos]])[None]
-    eps = cfg.rms_norm_eps
-    got = fused_decode_stack(x, lyr, p, cos, sin, k, v, eps)
-    ref = fused_decode_stack_plain(x, lyr, p, cos, sin, kp, vp, eps)
-    torch.cuda.synchronize()
-
-    def rel(a, b):
-        return ((a.float() - b.float()).abs().max()
-                / b.float().abs().max()).item()
-
-    err_x = rel(got, ref)
-    err_kv = max(rel(k[:, 0, pos], kp[:, 0, pos]),
-                 rel(v[:, 0, pos], vp[:, 0, pos]))
-    keep = torch.arange(S, device="cuda") != pos
-    require(torch.equal(k[:, :, keep], kp[:, :, keep])
-            and torch.equal(v[:, :, keep], vp[:, :, keep]),
-            "fused stack touched cache rows other than pos")
-    require(err_x <= TOL_FUSED_REL and err_kv <= TOL_FUSED_REL,
-            f"fused stack L={n_layers} pos={pos}: hidden err {err_x}, "
-            f"cache-row err {err_kv} of max |ref|")
-    abs_err = (got.float() - ref.float()).abs().max().item()
-    line = (f"[kernels] fused_decode_stack L={n_layers} H={cfg.hidden_size} "
-            f"pos={pos} (cache 2048): hidden err {err_x:.3e}, cache-row err "
-            f"{err_kv:.3e} of max |ref| (tol {TOL_FUSED_REL}); max_abs_err "
-            f"{abs_err:.3e}")
+    line = (f"[kernels] prefill S={S} causal={causal} Hq={Hq} Hkv={Hkv} "
+            f"D={D}: max_abs_err {err:.3e} (tol {TOL_ATTN})")
     if timed:
-        ms = device_ms(lambda: fused_decode_stack(x, lyr, p, cos, sin, k, v,
-                                                  eps), iters=20)
-        plain_ms = device_ms(lambda: fused_decode_stack_plain(
-            x, lyr, p, cos, sin, kp, vp, eps), iters=3, warmup=1)
-        line += f"; device ms/call kernel {ms:.4f} plain {plain_ms:.4f}"
-        _record("fused_decode_stack", abs_err, ms, plain_ms)
+        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = device_ms(lambda: flash_attention_plain(q, k, v,
+                                                           causal=causal))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        b = bound(S * (2 * Hq + 2 * Hkv) * D * 2, 4 * Hq * pairs * D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, is_causal=causal))
+        line += (f"; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+                 f"sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+        _record("flash_attention", err, ms, plain_ms, b, lib_ms,
+                "F.scaled_dot_product_attention", f"S={S} causal={causal}")
     else:
-        _record("fused_decode_stack", abs_err)
+        _record("flash_attention", err)
     log(line)
-    del lyr, k, v, kp, vp
-    torch.cuda.empty_cache()
 
 
 def _q8_cache(g, L: int, B: int, S: int):
@@ -386,15 +470,11 @@ def _q8_cache(g, L: int, B: int, S: int):
     return q, k, v, ks, vs
 
 
-def _q8_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
-    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
-
-
 def _q8_err(got: torch.Tensor, ref: torch.Tensor, mxu: bool, what: str,
             rel: dict) -> float:
     """Holds `got` to TOL_Q8_REL[mxu]; keeps the worst relative error per
     variant in `rel`; returns the max abs error."""
-    r = _q8_rel(got, ref)
+    r = _rel(got, ref)
     require(r <= TOL_Q8_REL[mxu],
             f"{what} mxu={mxu}: err {r} of max |ref| (tol {TOL_Q8_REL[mxu]})")
     rel[mxu] = max(rel.get(mxu, 0.0), r)
@@ -432,8 +512,8 @@ def check_q8(S: int, valid: int, timed: bool) -> None:
     # output of a kernel that forgot the v scales, both fail it
     unscaled = flash_decode_at_layer_q8_plain(
         q.float(), k, v, ks, torch.ones_like(vs), lt, vl)
-    bad = {"zeros": _q8_rel(torch.zeros_like(ref), ref),
-           "v unscaled": _q8_rel(unscaled, ref)}
+    bad = {"zeros": _rel(torch.zeros_like(ref), ref),
+           "v unscaled": _rel(unscaled, ref)}
     require(min(bad.values()) > max(TOL_Q8_REL.values()),
             f"q8 bound does not reject a wrong output: {bad}")
     for mxu in (False, True):
@@ -449,10 +529,13 @@ def check_q8(S: int, valid: int, timed: bool) -> None:
         f"max_abs_err {err:.3e}; device ms/call cast "
         f"{ms[False]:.4f} int8 {ms[True]:.4f} plain {plain_ms:.4f}; "
         f"{nbytes / ms[True] / 1e6:.1f} GB/s (int8) of live rows")
-    _record("flash_decode_at_layer_q8", err,
-            *((ms[True], plain_ms) if timed else ()))
     if timed:
+        _record("flash_decode_at_layer_q8", err, ms[True], plain_ms,
+                bound(nbytes + 2 * 16 * D * 2, 4 * 16 * valid * D), None,
+                None, f"L={L} S={S} valid={valid} all-int8")
         RESULTS["flash_decode_at_layer_q8"]["ms_cast_variant"] = ms[False]
+    else:
+        _record("flash_decode_at_layer_q8", err)
     del k, v, ks, vs
     torch.cuda.empty_cache()
 
@@ -491,11 +574,30 @@ def check_batched(timed: bool) -> None:
         q, k, v, layer(), vl), iters=56)
     plain_ms = device_ms(lambda: fa.flash_decode_at_layer_flat_plain(
         q, k, v, layer(), vl), iters=28)
+    live = sum(RAGGED)
+    b = bound(live * Hkv * D * 2 * 2 + 2 * B * 16 * D * 2,
+              4 * 16 * live * D)
+    # the library call: one masked attention over each slot's whole cache
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < vl[:, None]).reshape(B, 1, 1, S)
+    qt = q.transpose(1, 2).contiguous()
+    kv = [(k[li].reshape(B, S, Hkv, D).transpose(1, 2).contiguous(),
+           v[li].reshape(B, S, Hkv, D).transpose(1, 2).contiguous())
+          for li in range(L)]
+    it = iter(range(10 ** 9))
+    lib_ms = device_ms(lambda: _sdpa(qt, *kv[next(it) % L], attn_mask=mask),
+                       iters=56)
+    del kv
     log(f"[kernels] batched decode L={L} B={B} S={S} lengths {RAGGED}: "
         f"max_abs_err {err:.3e} (tol {TOL_ATTN}), each slot bit-equal to a "
-        f"B = 1 launch; device ms/call kernel {ms:.4f} plain {plain_ms:.4f}")
-    _record("flash_decode_at_layer_flat_batched", err,
-            *((ms, plain_ms) if timed else ()))
+        f"B = 1 launch; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"masked sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+    if timed:
+        _record("flash_decode_at_layer_flat_batched", err, ms, plain_ms, b,
+                lib_ms, "F.scaled_dot_product_attention, a per-slot length "
+                "mask over the whole cache", f"L={L} B={B} S={S} ragged")
+    else:
+        _record("flash_decode_at_layer_flat_batched", err)
     del k, v
     torch.cuda.empty_cache()
 
@@ -520,8 +622,13 @@ def check_batched(timed: bool) -> None:
         f"{TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}), max_abs_err {err:.3e}; "
         f"device ms/call cast {ms[False]:.4f} "
         f"int8 {ms[True]:.4f} plain {plain_ms:.4f}")
-    _record("flash_decode_at_layer_q8_batched", err,
-            *((ms[True], plain_ms) if timed else ()))
+    if timed:
+        _record("flash_decode_at_layer_q8_batched", err, ms[True], plain_ms,
+                bound(live * Hkv * (D + 4) * 2 + 2 * B * 16 * D * 2,
+                      4 * 16 * live * D), None, None,
+                f"L={L} B={B} S={S} ragged all-int8")
+    else:
+        _record("flash_decode_at_layer_q8_batched", err)
     if timed:
         RESULTS["flash_decode_at_layer_q8_batched"]["ms_cast_variant"] = \
             ms[False]
@@ -529,10 +636,308 @@ def check_batched(timed: bool) -> None:
     torch.cuda.empty_cache()
 
 
+#: Qwen3-0.6B's fused decode projections (in, out): q|k|v, o, gate|up, down
+PROJECTIONS = {"qkv": (1024, 4096), "o": (2048, 1024),
+               "gateup": (1024, 6144), "down": (3072, 1024)}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _pack(g, n: int, k: int, grid: str, scale: float = 0.02) -> dict:
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    w = torch.randn((n, k), generator=g, device="cuda") * scale
+    if grid == "q4":
+        w += 0.25 * scale        # the 4-bit grid's min term matters
+    return pack_rows(w, grid == "q4")
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def check_quant_matmul(grid: str) -> None:
+    """The int8 or 4-bit matmul at the four projections of Qwen3-0.6B (M =
+    1, 8, 64) and the head logits of BatchEngine's step (M = 8, N =
+    151936), each against the f32 plain version on the same bf16 inputs
+    within TOL_QMM_REL of max |ref|; zeroed scales (q8) or a dropped
+    xsum·b term (q4) fail that bound.  Device time of kernel and plain at
+    M = 1 of each projection and at the head."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    name = "quant_matmul_q4" if grid == "q4" else "quant_matmul"
+    fn = getattr(qm, name)
+    plain = getattr(qm, name + "_plain")
+    keys = qm.GRID_KEYS[grid]
+    g = torch.Generator(device="cuda").manual_seed(21 + len(grid))
+    shapes = [(proj, k, n, m) for proj, (k, n) in PROJECTIONS.items()
+              for m in (1, 8, 64)] + [("head", 1024, 151936, 8)]
+    worst, worst_bad = 0.0, float("inf")
+    for proj, K, N, M in shapes:
+        p = _pack(g, N, K, grid)
+        args = [p[k] for k in keys]
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        got = fn(x, *args)
+        ref = plain(x.float(), *args)
+        torch.cuda.synchronize()
+        err = _rel(got, ref)
+        require(err <= TOL_QMM_REL, f"{name} {proj} M={M}: err {err} of "
+                f"max |ref| (tol {TOL_QMM_REL})")
+        worst = max(worst, err)
+        _record(name, (got.float() - ref).abs().max().item())
+        if grid == "q8":
+            bad = plain(x.float(), args[0], torch.zeros_like(args[1]))
+        else:
+            bad = plain(x.float(), *args[:2], torch.zeros_like(args[2]))
+        worst_bad = min(worst_bad, _rel(bad, ref))
+        if M == 1 or proj == "head":
+            wbytes = _nbytes(p)
+            ms = device_ms(lambda: fn(x, *args))
+            plain_ms = device_ms(lambda: plain(x, *args), iters=5)
+            b = bound(wbytes + M * K * 2 + M * N * 2, 2 * M * N * K, "int8")
+            log(f"[kernels] {name} {proj} M={M} K={K} N={N}: err {err:.3e} "
+                f"of max |ref|; device ms/call kernel {ms:.4f} plain "
+                f"{plain_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+                f"{wbytes / ms / 1e6:.1f} GB/s of weights")
+            if proj == "qkv":
+                _record(name, 0.0, ms, plain_ms, b, None, None,
+                        f"q|k|v M=1 K={K} N={N}")
+        del p, args
+    require(worst_bad > TOL_QMM_REL, f"{name}: the bound does not reject "
+            f"{'zeroed scales' if grid == 'q8' else 'a dropped xsum*b'}")
+    log(f"[kernels] {name}: {len(shapes)} shapes within {worst:.3e} of max "
+        f"|ref| (tol {TOL_QMM_REL}); "
+        f"{'zeroed scales' if grid == 'q8' else 'dropped xsum*b term'} off "
+        f"by ≥ {worst_bad:.3g}")
+    torch.cuda.empty_cache()
+
+
+def check_quant_swiglu() -> None:
+    """The fused quantized MLP at Qwen3-0.6B's widths (H 1024, I 3072) in
+    all four grid pairs at M = 1 and 8, against the f32 plain version
+    within TOL_SWIGLU_REL of max |ref|; zeroed down scales fail the bound.
+    Device time at M = 1 of each pair."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    H, I = 1024, 3072
+    g = torch.Generator(device="cuda").manual_seed(31)
+    worst, worst_bad = 0.0, float("inf")
+    for gu_fmt in ("q8", "q4"):
+        for dn_fmt in ("q8", "q4"):
+            gu = _pack(g, 2 * I, H, gu_fmt)
+            dn = _pack(g, H, I, dn_fmt)
+            for M in (1, 8):
+                x = torch.randn((1, M, H), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                got = qm.quant_swiglu(gu, dn, x)
+                ref = qm.quant_swiglu_plain(gu, dn, x.reshape(M, H).float())
+                torch.cuda.synchronize()
+                err = _rel(got.reshape(M, H), ref)
+                require(err <= TOL_SWIGLU_REL, f"quant_swiglu {gu_fmt}/"
+                        f"{dn_fmt} M={M}: err {err} (tol {TOL_SWIGLU_REL})")
+                worst = max(worst, err)
+                _record("quant_swiglu", (got.reshape(M, H).float() - ref)
+                        .abs().max().item())
+                zeroed = {k: torch.zeros_like(v) if k in ("st", "s4") else v
+                          for k, v in dn.items()}
+                worst_bad = min(worst_bad, _rel(qm.quant_swiglu_plain(
+                    gu, zeroed, x.reshape(M, H).float()), ref))
+            x = torch.randn((1, 1, H), generator=g, device="cuda").to(
+                torch.bfloat16)
+            ms = device_ms(lambda: qm.quant_swiglu(gu, dn, x))
+            plain_ms = device_ms(lambda: qm.quant_swiglu_plain(
+                gu, dn, x.reshape(1, H)), iters=5)
+            wbytes = _nbytes(gu) + _nbytes(dn)
+            b = bound(wbytes + 2 * H * 2, 2 * (2 * I * H + H * I), "int8")
+            log(f"[kernels] quant_swiglu {gu_fmt}/{dn_fmt} M=1 H={H} I={I}: "
+                f"device ms/call kernel {ms:.4f} plain {plain_ms:.4f}; bound "
+                f"{b[0]:.4f} ({b[1]}); {wbytes / ms / 1e6:.1f} GB/s of "
+                f"weights")
+            if gu_fmt == dn_fmt == "q8":
+                _record("quant_swiglu", 0.0, ms, plain_ms, b, None, None,
+                        f"q8/q8 M=1 H={H} I={I}")
+    require(worst_bad > TOL_SWIGLU_REL,
+            "quant_swiglu: the bound does not reject zeroed down scales")
+    log(f"[kernels] quant_swiglu: 4 grid pairs x M in (1, 8) within "
+        f"{worst:.3e} of max |ref| (tol {TOL_SWIGLU_REL}); zeroed down "
+        f"scales off by ≥ {worst_bad:.3g}")
+    torch.cuda.empty_cache()
+
+
+def check_quant_heads() -> None:
+    """The int8 and 4-bit greedy heads at Qwen3-0.6B's vocabulary: each
+    random row's index equal to the plain version's or tied with it within
+    TOL_HEAD_REL of max |logit|; a tie planted across blocks goes to the
+    smaller index; a NaN row gives V − 1; zeroed scales change the index."""
+    from aha_tpu_torch.ops import lm_head
+    from aha_tpu_torch.ops.quant_matmul import pack_rows, qdot, quant_acts
+
+    K, V = 1024, 151936
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for grid in ("q8", "q4"):
+        name = f"head_argmax_{grid}"
+        p = _pack(g, V, K, grid)
+        worst, mismatches, moved = 0.0, 0, 0
+        for _ in range(4):
+            h = torch.randn((1, 1, K), generator=g, device="cuda").to(
+                torch.bfloat16)
+            got = int(lm_head.head_argmax(p, h))
+            ref = int(lm_head.quant_head_plain(p, h))
+            if got != ref:
+                logits = qdot(p, *quant_acts(h.reshape(1, K).float(), K))[0]
+                gap = abs(logits[got] - logits[ref]).item()
+                require(gap <= TOL_HEAD_REL * logits.abs().max().item(),
+                        f"{name} {got} vs plain {ref}: logit gap {gap}")
+                worst = max(worst, gap)
+                mismatches += 1
+            zeroed = {k: torch.zeros_like(v) if k in ("st", "s4", "b4") else v
+                      for k, v in p.items()}
+            moved += int(lm_head.quant_head_plain(zeroed, h)) != ref
+        require(moved > 0, f"{name}: zeroed scales kept every index")
+        wt = torch.zeros((V, K), device="cuda")
+        wt[70000, :4] = wt[37, :4] = 1.0
+        wt[5000, :4] = 0.5
+        e0 = torch.zeros((1, K), dtype=torch.bfloat16, device="cuda")
+        e0[0, :4] = 1.0
+        pt = pack_rows(wt, grid == "q4")
+        require(int(lm_head.head_argmax(pt, e0)) == 37
+                == int(lm_head.quant_head_plain(pt, e0)),
+                f"{name}: planted tie did not go to the smaller index")
+        hn = torch.full((1, K), float("nan"), dtype=torch.bfloat16,
+                        device="cuda")
+        require(int(lm_head.head_argmax(p, hn)) == V - 1
+                == int(lm_head.quant_head_plain(p, hn)),
+                f"{name}: a NaN row did not give V - 1")
+        h = torch.randn((1, 1, K), generator=g, device="cuda").to(
+            torch.bfloat16)
+        ms = device_ms(lambda: lm_head.head_argmax(p, h))
+        plain_ms = device_ms(lambda: lm_head.quant_head_plain(p, h), iters=5)
+        wbytes = _nbytes(p)
+        b = bound(wbytes + K * 2, 2 * V * K, "int8")
+        log(f"[kernels] {name} K={K} V={V}: {mismatches} index mismatches in "
+            f"4 random rows (worst logit gap {worst:.3e}), zeroed scales moved "
+            f"{moved}/4, planted tie and NaN row agree; device ms/call kernel "
+            f"{ms:.4f} plain {plain_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+            f"{wbytes / ms / 1e6:.1f} GB/s of weights")
+        _record(name, worst, ms, plain_ms, b, None, None, f"K={K} V={V}")
+        RESULTS[name].update(
+            index_mismatches=mismatches,
+            max_abs_err_of="logit gap between kernel and plain argmax")
+        del p
+    torch.cuda.empty_cache()
+
+
+#: the grids of (q|k|v, o, gate|up, down) the quantized stack is checked on:
+#: one grid throughout, and the mix of a Q4_K file (Q6_K ffn_down → int8)
+STACK_GRIDS = {"q8": ("q8",) * 4, "q4": ("q4",) * 4,
+               "gguf": ("q4", "q4", "q4", "q8")}
+
+
+def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
+    """A fused decode stack over `n_layers` of Qwen3-0.6B's layers (seeded
+    bf16 weights as the engine phase makes them; with `grids` in
+    STACK_GRIDS packed on those grids for the quantized stack, with "bf16"
+    left dense for the bf16 one), a 2048-row cache with random rows, the
+    token at `pos`: hidden state and the written cache rows against the
+    plain version (f32, the same bf16 inputs); rows other than `pos`
+    untouched; on the grids, zeroed down scales fail the bound."""
+    from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
+                                            fuse_decode_params)
+    from aha_tpu_torch.ops import fused_layer
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    quant = grids != "bf16"
+    name = "fused_decode_stack_q8" if quant else "fused_decode_stack"
+    kernel = getattr(fused_layer, name)
+    plain = getattr(fused_layer, name + "_plain")
+    cfg = Qwen3Config(num_hidden_layers=n_layers)
+    model = Qwen3Model(cfg, max_rope_len=4096, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(
+        (13 if quant else 11) + pos)
+    lyr = fuse_decode_params(model.init_random(g, dtype=torch.bfloat16))[
+        "layers"]
+    if quant:
+        def pack(p, grid):
+            return pack_rows(p["w"].transpose(-1, -2), grid == "q4")
+
+        g_qkv, g_o, g_gu, g_dn = STACK_GRIDS[grids]
+        lyr = {**lyr, "qkv": pack(lyr["qkv"], g_qkv),
+               "o": pack(lyr["o"], g_o),
+               "mlp": {"gateup": pack(lyr["mlp"]["gateup"], g_gu),
+                       "down": pack(lyr["mlp"]["down"], g_dn)}}
+    S, HD = 2048, cfg.num_key_value_heads * cfg.head_dim
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    x = torch.randn((1, 1, cfg.hidden_size), generator=g, **bf)
+    k = torch.randn((n_layers, 1, S, HD), generator=g, **bf)
+    v = torch.randn((n_layers, 1, S, HD), generator=g, **bf)
+    kp, vp = k.clone(), v.clone()
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    cos = torch.cat([model.cos[pos], model.cos[pos]])[None]
+    sin = torch.cat([model.sin[pos], model.sin[pos]])[None]
+    eps = cfg.rms_norm_eps
+    got = kernel(x, lyr, p, cos, sin, k, v, eps)
+    ref = plain(x, lyr, p, cos, sin, kp, vp, eps)
+    torch.cuda.synchronize()
+    err_x = _rel(got, ref)
+    err_kv = max(_rel(k[:, 0, pos], kp[:, 0, pos]),
+                 _rel(v[:, 0, pos], vp[:, 0, pos]))
+    keep = torch.arange(S, device="cuda") != pos
+    require(torch.equal(k[:, :, keep], kp[:, :, keep])
+            and torch.equal(v[:, :, keep], vp[:, :, keep]),
+            f"{name} touched cache rows other than pos")
+    tol = (TOL_FUSED_REL if not quant or n_layers == 1
+           else TOL_FUSED_Q8_DEEP_REL[grids])
+    require(err_x <= tol and err_kv <= tol,
+            f"{name} {grids} L={n_layers} pos={pos}: hidden err {err_x}, "
+            f"cache-row err {err_kv} of max |ref| (tol {tol})")
+    abs_err = (got.float() - ref.float()).abs().max().item()
+    line = (f"[kernels] {name} {grids} L={n_layers} H={cfg.hidden_size} "
+            f"pos={pos} (cache 2048): hidden err {err_x:.3e}, cache-row err "
+            f"{err_kv:.3e} of max |ref| (tol {tol}); max_abs_err "
+            f"{abs_err:.3e}")
+    if quant:
+        dn = lyr["mlp"]["down"]
+        zeroed = {**lyr, "mlp": {**lyr["mlp"], "down": {
+            key: torch.zeros_like(t) if key in ("st", "s4") else t
+            for key, t in dn.items()}}}
+        err_bad = _rel(plain(x, zeroed, p, cos, sin, kp.clone(), vp.clone(),
+                             eps), ref)
+        require(err_bad > tol, f"{name}: zeroed down scales pass ({err_bad})")
+        line += f"; {STACK_GRIDS[grids]}, zeroed down scales {err_bad:.3g}"
+    if timed:
+        ms = device_ms(lambda: kernel(x, lyr, p, cos, sin, k, v, eps),
+                       iters=20)
+        plain_ms = device_ms(lambda: plain(x, lyr, p, cos, sin, kp, vp, eps),
+                             iters=3, warmup=1)
+        wbytes = _nbytes(lyr)
+        live = pos * n_layers * HD * 2 * 2          # K and V rows read
+        attn_ops = 4 * cfg.num_attention_heads * pos * cfg.head_dim * n_layers
+        if quant:
+            weights = sum(t.numel() * (2 if t.dtype == torch.uint8 else 1)
+                          for t in _leaves(lyr) if not t.is_floating_point())
+            b = bound(wbytes + live, 2 * weights + attn_ops, "int8")
+        else:
+            b = bound(wbytes + live,
+                      2 * sum(t.numel() for t in _leaves(lyr)) + attn_ops)
+        line += (f"; device ms/call kernel {ms:.4f} plain {plain_ms:.4f}; "
+                 f"bound {b[0]:.4f} ({b[1]}); {wbytes / ms / 1e6:.1f} GB/s "
+                 f"of weights")
+        if grids in ("bf16", "q8"):
+            _record(name, abs_err, ms, plain_ms, b, None, None,
+                    f"{grids} L={n_layers} pos={pos}")
+    _record(name, abs_err)
+    log(line)
+    del lyr, k, v, kp, vp
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> None:
-    check_fused(1000, 1, timed=False)
-    check_fused(1000, 28, timed=True)
-    check_fused(2047, 28, timed=False)
+    check_stack(1000, 1, "bf16", timed=False)
+    check_stack(1000, 28, "bf16", timed=True)
+    check_stack(2047, 28, "bf16", timed=False)
     check_decode(2048, 1000, timed=True)
     check_decode(4096, 4000, timed=False)
     check_head()
@@ -543,6 +948,16 @@ def phase_kernels() -> None:
     check_q8(16384, 16000, timed=False)
     check_decode(16384, 16000, timed=False)
     check_batched(timed=True)
+    check_quant_matmul("q8")
+    check_quant_matmul("q4")
+    check_quant_swiglu()
+    check_quant_heads()
+    for grids in STACK_GRIDS:
+        check_stack(0, 1, grids, timed=False)
+        check_stack(1000, 1, grids, timed=False)
+    check_stack(1000, 28, "q8", timed=True)
+    check_stack(1000, 28, "q4", timed=True)
+    check_stack(2047, 28, "gguf", timed=True)
     torch.cuda.synchronize()
 
 
@@ -704,7 +1119,7 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
 SAMPLED = 5
 
 def _batch_path(model, params, device: str, cache_dtype, name: str,
-                must: str, slots: int = 8) -> None:
+                must: tuple[str, ...], slots: int = 8) -> None:
     """(f)/(g): a BatchEngine of `slots` slots, max_seq_len 4096, the 12
     requests of BATCH_PROMPTS, 64 tokens each, from threads at once; one
     of them sampled (temperature, top-k, top-p, repeat penalty), so the
@@ -733,7 +1148,7 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
         outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs, 64,
                                                   monitor=True)
         _sync(device)
-        read_counts(wr, name, (must,))
+        launches = read_counts(wr, name, must)
     finally:
         eng.shutdown()
     for i, out in enumerate(outs):
@@ -741,6 +1156,9 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
                 and all(0 <= t < V for t in out),
                 f"{name} request {i}: {out and len(out)} tokens")
     require(peak == slots, f"{name}: peak occupied slots {peak} of {slots}")
+    require(launches["fused_decode_stack"] == 0
+            and launches["fused_decode_stack_q8"] == 0,
+            f"{name}: a fused stack ran on a batched path")
     n_distinct = len(set(outs[SAMPLED]))
     require(n_distinct > 1,
             f"{name}: the sampled request drew one token: {outs[SAMPLED]}")
@@ -815,9 +1233,9 @@ def teacher_forced_slots(model, params, prompts: list[list[int]],
 
 def phase_batch(model, params, device: str = "cuda") -> None:
     _batch_path(model, params, device, torch.bfloat16, "batch-bf16",
-                "flash_decode_at_layer_flat_batched")
+                ("flash_decode_at_layer_flat_batched",))
     _batch_path(model, params, device, torch.int8, "batch-int8",
-                "flash_decode_at_layer_q8_batched")
+                ("flash_decode_at_layer_q8_batched",))
     _int8_text_path(model, params, device)
 
     # (i) 8 teacher-forced steps of 4 slots on the card against the f32
@@ -847,6 +1265,289 @@ def phase_batch(model, params, device: str = "cuda") -> None:
                 f"batched {dtype} hidden off by {rel}")
 
 
+# -- 6. GGUF-quantized paths ---------------------------------------------------
+
+#: the GGUF file of (m): its depth, cut from Qwen3-0.6B's 28 layers (the
+#: widths stay the published ones)
+GGUF_LAYERS = 4
+
+
+def _quant_text_path(model, params, grid: str, device: str) -> None:
+    """(j)/(k): a TextEngine over the bf16 weights packed on one grid, the
+    head too: a 20-token prompt (its 32-row prefill bucket runs the
+    quant-matmul and fused-SwiGLU kernels) and 16 greedy tokens, then a
+    300-token prompt and 128 greedy tokens; every decode step is one launch
+    of the quantized fused stack.  Then the 300-token request once more on
+    the per-op chain (AHA_FUSED_LAYER=0), outside the counted path."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(400 + len(grid))
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    eng.generate_tokens(_prompt(rng, 300, V), SamplingConfig(), 16)  # warm
+    short, ids = _prompt(rng, 20, V), _prompt(rng, 300, V)
+    wr = zero_counts()
+    _sync(device)
+    out_s = eng.generate_tokens(short, SamplingConfig(), max_tokens=16)
+    out = eng.generate_tokens(ids, SamplingConfig(), max_tokens=128)
+    t = eng.last_timing
+    _sync(device)
+    mm = "quant_matmul_q4" if grid == "q4" else "quant_matmul"
+    launches = read_counts(wr, f"{grid}-text",
+                           (mm, "quant_swiglu", f"head_argmax_{grid}",
+                            "fused_decode_stack_q8"))
+    # 1 + 8 decode blocks of 16 steps, each step one fused launch
+    require(launches["fused_decode_stack"] == 0
+            and launches["fused_decode_stack_q8"] == 16 * 9,
+            f"{grid} TextEngine: fused launches {launches}")
+    require(len(out_s) == 16 and len(out) == 128
+            and all(0 <= t < V for t in out_s + out),
+            f"{grid} TextEngine: {len(out_s)} + {len(out)} tokens")
+    os.environ["AHA_FUSED_LAYER"] = "0"
+    try:
+        plain_eng = TextEngine(model, params, eos_token_ids=[],
+                               max_seq_len=8192)
+        out0 = plain_eng.generate_tokens(ids, SamplingConfig(),
+                                         max_tokens=128)
+        t0 = plain_eng.last_timing
+    finally:
+        del os.environ["AHA_FUSED_LAYER"]
+    same = next((i for i, (x, y) in enumerate(zip(out, out0)) if x != y),
+                len(out))
+    card = card_line() if device == "cuda" else "cpu"
+    label = {"q8": "(j)", "q4": "(k)"}[grid]
+
+    def rate(t):
+        return (t.completion_tokens - 1) / t.completion_secs
+
+    log(f"[{grid}-text] {label} 300-token prompt, {grid} weights and head: "
+        f"128 greedy tokens, prefill {t.prompt_secs * 1e3:.2f} ms, decode "
+        f"{rate(t):.1f} tok/s at batch 1 (quantized fused stack) | {card}")
+    log(f"[{grid}-text] {label} per-op chain: decode {rate(t0):.1f} tok/s at "
+        f"batch 1 | {card}; greedy streams equal for the first {same}/128 "
+        f"tokens")
+
+
+def _write_gguf_model(path: str, cfg, n_layers: int, seed: int) -> None:
+    """A Qwen3 GGUF at cfg's widths and n_layers, seeded numpy weights
+    (0.02 scale, unit norms), written with the port's writer: token_embd
+    Q8_0 (tied, so the head is quantized), attention and ffn_gate/up Q4_K,
+    ffn_down Q6_K in every layer."""
+    from aha_tpu_torch.io import gguf as G
+
+    rng = np.random.default_rng(seed)
+    H, I, D = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    NQ, NKV = cfg.num_attention_heads * D, cfg.num_key_value_heads * D
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    def ones(n):
+        return (np.ones(n, np.float32), G.GGML_F32)
+
+    tensors = {"token_embd.weight": (w(cfg.vocab_size, H), G.GGML_Q8_0),
+               "output_norm.weight": ones(H)}
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        tensors.update({
+            b + "attn_norm.weight": ones(H), b + "ffn_norm.weight": ones(H),
+            b + "attn_q_norm.weight": ones(D),
+            b + "attn_k_norm.weight": ones(D),
+            b + "attn_q.weight": (w(NQ, H), G.GGML_Q4_K),
+            b + "attn_k.weight": (w(NKV, H), G.GGML_Q4_K),
+            b + "attn_v.weight": (w(NKV, H), G.GGML_Q4_K),
+            b + "attn_output.weight": (w(H, NQ), G.GGML_Q4_K),
+            b + "ffn_gate.weight": (w(I, H), G.GGML_Q4_K),
+            b + "ffn_up.weight": (w(I, H), G.GGML_Q4_K),
+            b + "ffn_down.weight": (w(H, I), G.GGML_Q6_K),
+        })
+    G.write_gguf(path, {
+        "general.architecture": "qwen3",
+        "qwen3.block_count": n_layers,
+        "qwen3.embedding_length": H,
+        "qwen3.feed_forward_length": I,
+        "qwen3.attention.head_count": cfg.num_attention_heads,
+        "qwen3.attention.head_count_kv": cfg.num_key_value_heads,
+        "qwen3.attention.key_length": D,
+        "qwen3.attention.layer_norm_rms_epsilon": cfg.rms_norm_eps,
+        "qwen3.rope.freq_base": cfg.rope_theta,
+        "qwen3.context_length": cfg.max_position_embeddings,
+    }, tensors)
+
+
+def _zero_scales(tree):
+    if isinstance(tree, dict):
+        return {k: (torch.zeros_like(v) if k in ("st", "s4")
+                    else _zero_scales(v)) for k, v in tree.items()}
+    return tree
+
+
+@contextlib.contextmanager
+def card_routes_on_cpu():
+    """On the CPU, quantized linears of ≤ MAX_KERNEL_M rows and the fused
+    quantized MLP go through the kernels' plain versions (activation
+    quantization), as they go through the kernels on the card, instead of
+    the dequantize path the CPU takes otherwise."""
+    from aha_tpu_torch.core import nn
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    linear, mlp = nn.quant_linear, nn.swiglu_mlp
+
+    def quant_linear(p, x):
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.shape[0] > qm.MAX_KERNEL_M:
+            return linear(p, x)
+        grid = "q4" if "q4" in p else "q8"
+        fn = qm.quant_matmul_q4 if grid == "q4" else qm.quant_matmul
+        y = fn(x2, *[p[k] for k in qm.GRID_KEYS[grid]])
+        return (y + p["b"] if "b" in p else y).reshape(*x.shape[:-1], -1)
+
+    def swiglu_mlp(p, x):
+        if "gateup" in p and qm.swiglu_fusable(
+                p["gateup"], p["down"], x.numel() // x.shape[-1]):
+            return qm.quant_swiglu(p["gateup"], p["down"], x)
+        return mlp(p, x)
+
+    nn.quant_linear, nn.swiglu_mlp = quant_linear, swiglu_mlp
+    try:
+        yield
+    finally:
+        nn.quant_linear, nn.swiglu_mlp = linear, mlp
+
+
+def _nudge_scales(tree):
+    """Every grid scale times (1 + 2**-23): each quantized product moves by
+    about one f32 rounding, the size of the card's own differences from the
+    plain versions."""
+    if isinstance(tree, dict):
+        return {k: (v * (1 + 2 ** -23) if k in ("st", "s4")
+                    else _nudge_scales(v)) for k, v in tree.items()}
+    return tree
+
+
+def _gguf_path(cfg, device: str) -> None:
+    """(m): a GGUF Qwen3 written, loaded with the port's load_qwen3_gguf on
+    the card, 32 greedy tokens (decode through the quantized fused stack);
+    then 8 teacher-forced steps through each decode path against the same
+    steps on the CPU through the kernels' plain versions (the witness) and
+    through the exact dequantized path, and the same steps with every
+    grid's scales zeroed, which must fail both bounds."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.io.gguf_models import load_qwen3_gguf
+    from aha_tpu_torch.models.qwen3 import fuse_decode_params
+
+    with tempfile.TemporaryDirectory(prefix="aha_torch_gguf_") as tmp:
+        path = os.path.join(tmp, "qwen3-0.6b-width.gguf")
+        t0 = time.perf_counter()
+        _write_gguf_model(path, cfg, GGUF_LAYERS, seed=5)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        model, params, _ = load_qwen3_gguf(path, max_rope_len=4096)
+        _sync(device)
+        t2 = time.perf_counter()
+    require(model.device.type == device
+            and params["embed"]["w"].dtype == torch.bfloat16,
+            f"load_qwen3_gguf defaults: {model.device}, "
+            f"{params['embed']['w'].dtype}")
+    c = model.config
+    lay = fuse_decode_params(params)["layers"]
+    grids = {name: "q4" if "q4" in p else "q8" for name, p in
+             (("qkv", lay["qkv"]), ("o", lay["o"]),
+              ("gateup", lay["mlp"]["gateup"]), ("down", lay["mlp"]["down"]),
+              ("head", params["lm_head"]))}
+    require(grids == {"qkv": "q4", "o": "q4", "gateup": "q4", "down": "q8",
+                      "head": "q8"}, f"GGUF grids {grids}")
+    log(f"[gguf] (m) Qwen3 GGUF, H={c.hidden_size} I={c.intermediate_size} "
+        f"V={c.vocab_size}, {c.num_hidden_layers} layers (depth cut from "
+        f"28): {size / 1e6:.1f} MB written in {t1 - t0:.1f} s, loaded onto "
+        f"the card in {t2 - t1:.1f} s (set-up, the default device and "
+        f"dtype); grids {grids}")
+    V = c.vocab_size
+    rng = np.random.default_rng(600)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=4096)
+    eng.generate_tokens(_prompt(rng, 64, V), SamplingConfig(), 16)    # warm
+    ids = _prompt(rng, 64, V)
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, SamplingConfig(), max_tokens=32)
+    _sync(device)
+    launches = read_counts(wr, "gguf", ("quant_matmul_q4", "quant_swiglu",
+                                        "head_argmax_q8",
+                                        "fused_decode_stack_q8"))
+    require(launches["fused_decode_stack"] == 0,
+            "the GGUF path ran the bf16 fused stack")
+    require(len(out) == 32 and all(0 <= t < V for t in out),
+            f"GGUF TextEngine: {len(out)} tokens")
+    t = eng.last_timing
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[gguf] 64-token prompt: 32 greedy tokens, prefill "
+        f"{t.prompt_secs * 1e3:.2f} ms, decode "
+        f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at batch "
+        f"1 (quantized fused stack) | {card}")
+
+    # teacher-forced, through each decode path on the card
+    forced = out[:8]
+    cpu_model = type(model)(c, max_rope_len=4096, device="cpu")
+    exact_params = _tree_to(eng.params, "cpu", torch.float32)
+    witness_params = _tree_to(eng.params, "cpu", None)
+    hx, _ = teacher_forced_hidden(cpu_model, exact_params, ids, forced, "cpu")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    for path, window in (("fused stack", 512), ("per-op chain", None)):
+        hk, gk = teacher_forced_hidden(model, eng.params, ids, forced, device,
+                                       window)
+        with card_routes_on_cpu():
+            hw, gw = teacher_forced_hidden(cpu_model, witness_params, ids,
+                                           forced, "cpu", window)
+            hn, _ = teacher_forced_hidden(cpu_model,
+                                          _nudge_scales(witness_params), ids,
+                                          forced, "cpu", window)
+        bad, _ = teacher_forced_hidden(model, _zero_scales(eng.params), ids,
+                                       forced, device, window)
+        rel_w, rel_x = rel(hk, hw), rel(hk, hx)
+        by_pos = " ".join(f"{rel(hk[i], hw[i]):.1e}" for i in range(len(hk)))
+        agree = sum(x == y for x, y in zip(gk, gw))
+        log(f"[gguf] teacher-forced 9 positions (prefill + 8 steps), {path}: "
+            f"hidden max err vs the witness (CPU, bf16, the plain versions) "
+            f"{rel_w:.3e} of max |ref| (tol {TOL_GGUF_WITNESS_REL}; by "
+            f"position {by_pos}); the witness with every scale nudged by one "
+            f"f32 ulp {rel(hn, hw):.3e} from it; vs the exact path (CPU, f32, "
+            f"dequantized) {rel_x:.3e} (tol {TOL_GGUF_REL}), the witness "
+            f"itself {rel(hw, hx):.3e}; zeroed scales {rel(bad, hw):.3g} / "
+            f"{rel(bad, hx):.3g}; greedy agreement with the witness "
+            f"{agree}/{len(gk)}")
+        require(rel_w <= TOL_GGUF_WITNESS_REL,
+                f"GGUF {path} off the witness by {rel_w}")
+        require(rel_x <= TOL_GGUF_REL, f"GGUF {path} off exact by {rel_x}")
+        require(rel(bad, hw) > TOL_GGUF_WITNESS_REL
+                and rel(bad, hx) > TOL_GGUF_REL,
+                "zeroed scales pass the GGUF bounds")
+
+
+def phase_quant(model, params, device: str = "cuda") -> None:
+    """(j)-(m): the GGUF grids on the card."""
+    from aha_tpu_torch.models.qwen3 import pack_params
+
+    for grid in ("q8", "q4"):
+        t0 = time.perf_counter()
+        packed = pack_params(params, grid)
+        _sync(device)
+        log(f"[{grid}-text] weights and head packed {grid} on the card in "
+            f"{time.perf_counter() - t0:.1f} s (set-up)")
+        _quant_text_path(model, packed, grid, device)
+        if grid == "q4":
+            _batch_path(model, packed, device, torch.bfloat16, "batch-q4",
+                        ("quant_matmul_q4", "quant_swiglu"))
+        del packed
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    _gguf_path(model.config, device)
+
+
 def _sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -861,9 +1562,12 @@ def _leaves(tree):
 
 
 def _tree_to(tree, device, dtype):
+    """The tree on `device`, its float tensors in `dtype` (the grids'
+    integer tensors keep theirs)."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
-    return tree.to(device=device, dtype=dtype)
+    return tree.to(device=device, dtype=dtype if tree.is_floating_point()
+                   else tree.dtype)
 
 
 # -- 6. HTTP ------------------------------------------------------------------
@@ -929,11 +1633,10 @@ def _server(tmp: str, *extra: str):
     answering /health; the child is always stopped."""
     port = _free_port()
     logf = open(os.path.join(tmp, f"server_{port}.log"), "w")
-    env = {**os.environ, "AHA_NO_COMPILE_CACHE": "1"}
     proc = subprocess.Popen(
-        [sys.executable, "-m", "aha_tpu_torch", "serv", tmp, "--port",
-         str(port), "--max-seq-len", "2048", *extra], cwd=ROOT, env=env,
-        stdout=logf, stderr=subprocess.STDOUT)
+        [sys.executable, "-X", "importtime", "-m", "aha_tpu_torch", "serv",
+         tmp, "--port", str(port), "--max-seq-len", "2048", *extra],
+        cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
     try:
         t0 = time.perf_counter()
@@ -961,6 +1664,16 @@ def _server(tmp: str, *extra: str):
             proc.kill()
             proc.wait()
         logf.close()
+    # -X importtime logged every module the child imported, requests
+    # served included
+    with open(logf.name) as f:
+        mods = [ln.rsplit("|", 1)[-1].strip() for ln in f
+                if ln.startswith("import time:")]
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "aha_tpu")]
+    require(len(mods) > 100 and not bad,
+            f"served child imported {bad or 'nothing logged'}")
+    log(f"[http] served child imported {len(mods)} modules, none of jax or "
+        f"aha_tpu")
 
 
 def _chat_body(text: str) -> dict:
@@ -1028,24 +1741,36 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    phase_device()
-    phase_build()
-    phase_kernels()
+    t_start = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    timed("kernels", phase_kernels)
     from aha_tpu_torch.models.qwen3 import Qwen3Config
 
-    state = phase_engine(Qwen3Config())
-    phase_batch(state["model"], state["params"])
-    phase_http(state["model"].config, state["params"])
+    state = timed("engine", phase_engine, Qwen3Config())
+    timed("batch", phase_batch, state["model"], state["params"])
+    timed("quant", phase_quant, state["model"], state["params"])
+    timed("http", phase_http, state["model"].config, state["params"])
+    log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
+        f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
         m == "aha_tpu" or m.startswith("aha_tpu.") for m in sys.modules),
         "jax or aha_tpu was imported")
     kernels = [{"name": name, "route": "cuda", **KERNELS[name],
-                "launches": RESULTS[name]["launches"],
-                "max_abs_err": RESULTS[name]["max_abs_err"],
-                "ms": RESULTS[name]["ms"],
-                "plain_ms": RESULTS[name]["plain_ms"],
-                **{k: RESULTS[name][k] for k in ("index_mismatches",
-                                                 "max_abs_err_of")
+                **{k: RESULTS[name][k] for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")},
+                **{k: RESULTS[name][k] for k in (
+                    "library", "timed_at", "launches_by_path",
+                    "index_mismatches", "max_abs_err_of", "ms_cast_variant")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,6 +1,7 @@
 """Each CUDA kernel against its plain PyTorch version on the card, at small
 shapes (bf16 inputs; attention tolerance 2e-2 abs against the f32 plain
-version).  Marked `cuda`: skipped where torch sees no CUDA device.  Run on
+version; the GGUF-grid kernels relative to max |ref|, each stated at its
+test).  Marked `cuda`: skipped where torch sees no CUDA device.  Run on
 a card with `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 
 import pytest
@@ -58,14 +59,15 @@ def test_head_argmax_kernel_matches_plain(dev):
 
     g = torch.Generator(device=dev).manual_seed(2)
     w, h = _bf(g, 5000, 256), _bf(g, 1, 256)
-    assert int(head_argmax(w, h)) == int(head_argmax_plain(w, h))
+    assert int(head_argmax({"w": w}, h)) == int(head_argmax_plain(w, h))
     wt = torch.zeros(5000, 256, dtype=torch.bfloat16, device=dev)
     wt[4000, 0] = wt[37, 0] = 1.0
     e0 = torch.zeros(1, 256, dtype=torch.bfloat16, device=dev)
     e0[0, 0] = 1.0
-    assert int(head_argmax(wt, e0)) == 37
+    assert int(head_argmax({"w": wt}, e0)) == 37
     nan = torch.full((1, 256), float("nan"), dtype=torch.bfloat16, device=dev)
-    assert int(head_argmax(w, nan)) == 4999 == int(head_argmax_plain(w, nan))
+    assert int(head_argmax({"w": w}, nan)) == 4999 == \
+        int(head_argmax_plain(w, nan))
 
 
 def _fused_layers(g, L, H, hq, hkv, D, NI):
@@ -228,3 +230,198 @@ def test_cuda_tensors_never_take_the_plain_path(dev):
     one = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         flash_decode_at_layer_q8(q1, kv, kv, sc, sc, one[0], one)
+
+
+def _packed(g, n, k, grid, shift=0.0):
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    w = torch.randn((n, k), generator=g, device="cuda") * 0.02 + shift
+    return pack_rows(w, grid == "q4")
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("M", [1, 3, 8, 37, 64])
+def test_quant_matmul_kernel_matches_plain(dev, grid, M):
+    """Both grids at the M the decode paths give (1, a batch of 8, the
+    chunked-admission and short-prefill rows up to 64), K ragged against
+    128 (x narrower than the packed Kp) and N ragged against the warps:
+    the bf16 output within 5e-3 of max |ref| of the f32 plain version on
+    the same bf16 inputs (its bf16 rounding)."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(40 + M)
+    K, N = 1000, 1001
+    p = _packed(g, N, K, grid, 0.01 if grid == "q4" else 0.0)
+    x = _bf(g, M, K)
+    fn, plain = ((qm.quant_matmul_q4, qm.quant_matmul_q4_plain)
+                 if grid == "q4" else (qm.quant_matmul, qm.quant_matmul_plain))
+    args = [p[k] for k in (("q4", "s4", "b4") if grid == "q4" else ("qt", "st"))]
+    n0 = fn.launches
+    got = fn(x, *args)
+    ref = plain(x.float(), *args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and got.shape == (M, N)
+    top = ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= 5e-3 * top
+    zero = plain(x.float(), *[a if i != 1 else torch.zeros_like(a)
+                              for i, a in enumerate(args)])
+    assert (zero - ref).abs().max().item() > 5e-3 * top
+
+
+@pytest.mark.parametrize("gu_fmt,dn_fmt", [("q8", "q8"), ("q4", "q4"),
+                                           ("q4", "q8"), ("q8", "q4")])
+@pytest.mark.parametrize("M", [1, 8, 37])
+def test_quant_swiglu_kernel_matches_plain(dev, gu_fmt, dn_fmt, M):
+    """The one-launch fused MLP in all four grid pairs against its f32 plain
+    version on the same bf16 inputs: within 1e-2 of max |ref|.  The output
+    is rounded to bf16 (≤ 2^-8 of max |ref|), and the kernel's a =
+    SiLU(g)·u differs from the plain one in f32 summation order, so a rare
+    value of a/sa at a .5 boundary requantizes one step apart, moving an
+    output by max|a_g|/127 · |w_down| (≤ 3.2e-3 of max |ref| measured on an
+    H100 over these cases).  Zeroed down scales are off by ~1 and fail."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(50 + M)
+    H, I = 384, 512
+    gu = {k: torch.cat([a, b], 0) for (k, a), b in zip(
+        _packed(g, I, H, gu_fmt).items(),
+        _packed(g, I, H, gu_fmt, 0.01).values())}
+    dn = _packed(g, H, I, dn_fmt)
+    x = _bf(g, 1, M, H) * 4
+    n0 = qm.quant_swiglu.launches
+    got = qm.quant_swiglu(gu, dn, x)
+    ref = qm.quant_swiglu_plain(gu, dn, x.reshape(M, H).float())
+    torch.cuda.synchronize()
+    assert qm.quant_swiglu.launches == n0 + 1 and got.shape == (1, M, H)
+    top = ref.abs().max().item()
+    assert (got.reshape(M, H).float() - ref).abs().max().item() <= 1e-2 * top
+    bad = qm.quant_swiglu_plain(
+        gu, {k: torch.zeros_like(v) if k in ("st", "s4") else v
+             for k, v in dn.items()}, x.reshape(M, H).float())
+    assert (bad - ref).abs().max().item() > 1e-2 * top
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+def test_quant_head_argmax_matches_plain(dev, grid):
+    """The quantized greedy heads: the plain index on random rows, a tie
+    planted across blocks going to the smaller index, a NaN row giving
+    V − 1."""
+    from aha_tpu_torch.ops import lm_head
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    g = torch.Generator(device=dev).manual_seed(60)
+    V, K = 5000, 256
+    p = _packed(g, V, K, grid)
+    fn = lm_head.head_argmax_q4 if grid == "q4" else lm_head.head_argmax_q8
+    n0 = fn.launches
+    for _ in range(3):
+        h = _bf(g, 1, K)
+        got = int(lm_head.head_argmax(p, h))
+        ref = int(lm_head.quant_head_plain(p, h))
+        assert got == ref
+    assert fn.launches == n0 + 3
+    wt = torch.zeros(V, K, device=dev)
+    wt[4000, :5] = wt[37, :5] = 1.0
+    wt[1000, :5] = 0.5
+    e0 = torch.zeros(1, K, dtype=torch.bfloat16, device=dev)
+    e0[0, :5] = 1.0
+    assert int(lm_head.head_argmax(pack_rows(wt, grid == "q4"), e0)) == 37
+    nan = torch.full((1, K), float("nan"), dtype=torch.bfloat16, device=dev)
+    assert int(lm_head.head_argmax(p, nan)) == V - 1 == \
+        int(lm_head.quant_head_plain(p, nan))
+
+
+def _quant_layers(lyr, grids):
+    """_fused_layers with q|k|v, o, gate|up and down packed on `grids`."""
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    def pack(p, grid):
+        return pack_rows(p["w"].float().transpose(-1, -2), grid == "q4")
+
+    mlp = lyr["mlp"]
+    return {**lyr, "qkv": pack(lyr["qkv"], grids[0]),
+            "o": pack(lyr["o"], grids[1]),
+            "mlp": {"gateup": pack(mlp["gateup"], grids[2]),
+                    "down": pack(mlp["down"], grids[3])}}
+
+
+@pytest.mark.parametrize("grids,D,hq,hkv,pos", [
+    (("q8", "q8", "q8", "q8"), 128, 4, 2, 100),
+    (("q4", "q4", "q4", "q4"), 128, 4, 2, 0),
+    (("q4", "q4", "q4", "q8"), 64, 6, 2, 255),
+    (("q8", "q4", "q8", "q4"), 128, 3, 3, 37)])
+def test_fused_stack_q8_kernel_matches_plain(dev, grids, D, hq, hkv, pos):
+    """The one-launch decode stack over the GGUF grids, each projection on
+    its own grid, against its plain version on the same inputs: hidden
+    state and the in-place cache rows within 2e-2 of max |ref| on the int8
+    grid and 8e-2 with a 4-bit one; rows other than `pos` untouched; zeroed
+    down scales fail the bound.  Both sides quantize the activations from
+    f32 values that differ in rounding (the attention's exp and split
+    order; on the 4-bit grid also the order of the n·s·sx·Σxq and xsum·b
+    terms, which cancel), so a value at a .5 boundary requantizes one step
+    apart and moves every column of the next product; the 4-bit grid's
+    w − b ≥ 0 moves them one way.  Measured on an H100 in these cases: ≤ 7.4e-3
+    int8, ≤ 3.5e-2 with a 4-bit grid."""
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack_q8,
+                                               fused_decode_stack_q8_plain)
+    from aha_tpu_torch.ops.rope import rope_table
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    L, H, NI, S = 2, 256, 512, 256
+    lyr = _quant_layers(_fused_layers(g, L, H, hq, hkv, D, NI), grids)
+    x = _bf(g, 1, 1, H)
+    kc, vc = _bf(g, L, 1, S, hkv * D), _bf(g, L, 1, S, hkv * D)
+    cos, sin = rope_table(D, S, 1e6, device=dev)
+    cosr = torch.cat([cos[pos], cos[pos]])[None]
+    sinr = torch.cat([sin[pos], sin[pos]])[None]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kp, vp = kc.clone(), vc.clone()
+    n0 = fused_decode_stack_q8.launches
+    got = fused_decode_stack_q8(x, lyr, p, cosr, sinr, kc, vc, 1e-6)
+    ref = fused_decode_stack_q8_plain(x, lyr, p, cosr, sinr, kp, vp, 1e-6)
+    torch.cuda.synchronize()
+    assert fused_decode_stack_q8.launches == n0 + 1
+    tol = 8e-2 if "q4" in grids else 2e-2
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol * top
+    for new, want in ((kc, kp), (vc, vp)):
+        rows = want[:, 0, pos].float()
+        assert (new[:, 0, pos].float() - rows).abs().max().item() <= \
+            tol * rows.abs().max().item()
+        keep = torch.ones(S, dtype=torch.bool, device=dev)
+        keep[pos] = False
+        assert torch.equal(new[:, 0, keep], want[:, 0, keep])
+    dn = lyr["mlp"]["down"]
+    zeroed = {**lyr, "mlp": {**lyr["mlp"], "down": {
+        k: torch.zeros_like(v) if k in ("st", "s4") else v
+        for k, v in dn.items()}}}
+    bad = fused_decode_stack_q8_plain(x, zeroed, p, cosr, sinr, kp.clone(),
+                                      vp.clone(), 1e-6)
+    assert (bad.float() - ref.float()).abs().max().item() > tol * top
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+def test_quant_kernels_wide_intermediate(dev, grid):
+    """Qwen3-14B's intermediate width (17408) at M = 37: 16 staged rows
+    would pass the block's shared memory, so both kernels take 8 per pass
+    (pass_rows) and agree with their plain versions as at narrow widths."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(70)
+    H, I, M = 256, 17408, 37
+    gu = _packed(g, 2 * I, H, grid)
+    dn = _packed(g, H, I, grid)
+    x = _bf(g, 1, M, H) * 4
+    got = qm.quant_swiglu(gu, dn, x)
+    ref = qm.quant_swiglu_plain(gu, dn, x.reshape(M, H).float())
+    a = _bf(g, M, I)
+    keys = qm.GRID_KEYS[grid]
+    fn = qm.quant_matmul_q4 if grid == "q4" else qm.quant_matmul
+    plain = qm.quant_matmul_q4_plain if grid == "q4" else qm.quant_matmul_plain
+    got_mm = fn(a, *[dn[k] for k in keys])
+    ref_mm = plain(a.float(), *[dn[k] for k in keys])
+    torch.cuda.synchronize()
+    assert (got.reshape(M, H).float() - ref).abs().max().item() <= \
+        1e-2 * ref.abs().max().item()
+    assert (got_mm.float() - ref_mm).abs().max().item() <= \
+        5e-3 * ref_mm.abs().max().item()

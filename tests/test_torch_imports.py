@@ -1,56 +1,82 @@
-"""aha_tpu_torch never imports jax, its device path imports nothing of
-aha_tpu, and chip_smoke.py imports neither and refuses to run without a
-card.  Each check runs in a fresh interpreter."""
+"""aha_tpu_torch imports nothing of jax or aha_tpu — every module of the
+package, and a chat request served through its aiohttp app — and
+chip_smoke.py imports neither and refuses to run without a card.  Each
+check runs in a fresh interpreter, with no AHA_NO_COMPILE_CACHE set."""
 
 import os
 import subprocess
 import sys
 
+from tests.fixtures import build_tiny_qwen3_repo
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEVICE_PATH = ["aha_tpu_torch.ops.kernels", "aha_tpu_torch.ops.norms",
-               "aha_tpu_torch.ops.rope", "aha_tpu_torch.ops.attention",
-               "aha_tpu_torch.ops.flash_attention",
-               "aha_tpu_torch.ops.lm_head", "aha_tpu_torch.ops.fused_layer",
-               "aha_tpu_torch.core.cache",
-               "aha_tpu_torch.core.nn", "aha_tpu_torch.core.sampling",
-               "aha_tpu_torch.core.engine", "aha_tpu_torch.core.batch_engine",
-               "aha_tpu_torch.models.qwen3", "aha_tpu_torch.utils.device",
-               "aha_tpu_torch.io.convert"]
+#: every module of the package (the device path and the host modules)
+ALL_MODULES = (
+    "import importlib, pkgutil, sys, aha_tpu_torch\n"
+    "mods = [m.name for m in pkgutil.walk_packages(aha_tpu_torch.__path__,"
+    " 'aha_tpu_torch.') if not m.name.endswith('__main__')]\n"
+    "[importlib.import_module(m) for m in mods]\n"
+    "assert len(mods) > 30, mods\n")
+#: the check that closes each child's code
+NOTHING_OF_AHA_TPU = (
+    "bad = [m for m in sys.modules if m in ('aha_tpu', 'jax') or "
+    "m.startswith(('aha_tpu.', 'jax.'))]\n"
+    "assert not bad, bad\n")
 
 
 def _run(code: str, **env) -> subprocess.CompletedProcess:
+    clean = {k: v for k, v in os.environ.items()
+             if k != "AHA_NO_COMPILE_CACHE"}
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True,
-                          env={**os.environ, **env}, timeout=120)
+                          env={**clean, **env}, timeout=120)
 
 
 def test_no_module_imports_jax():
-    code = (
-        "import importlib, pkgutil, sys, aha_tpu_torch\n"
-        "mods = [m.name for m in pkgutil.walk_packages(aha_tpu_torch.__path__,"
-        " 'aha_tpu_torch.') if not m.name.endswith('__main__')]\n"
-        "[importlib.import_module(m) for m in mods]\n"
-        "assert len(mods) > 20, mods\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "print(len(mods))\n")
-    r = _run(code, AHA_NO_COMPILE_CACHE="1")
+    r = _run(ALL_MODULES + "assert 'jax' not in sys.modules, 'jax imported'\n")
     assert r.returncode == 0, r.stderr
 
 
 def test_device_path_imports_nothing_of_aha_tpu():
-    code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in DEVICE_PATH)
-            + "bad = [m for m in sys.modules if m == 'aha_tpu' or "
-              "m.startswith('aha_tpu.') or m == 'jax']\n"
-              "assert not bad, bad\n")
+    """Every module of the package, the host modules included (the served
+    model, the HTTP app, the CLI, the GGUF reader)."""
+    r = _run(ALL_MODULES + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
+def test_served_chat_imports_nothing_of_aha_tpu(tmp_path):
+    """One non-stream chat request through the port's aiohttp app on the
+    tiny on-disk Qwen3 repo, in a fresh interpreter: 200, and still no
+    aha_tpu or jax module loaded."""
+    build_tiny_qwen3_repo(str(tmp_path))
+    code = (
+        "import asyncio, json, sys\n"
+        "from aiohttp.test_utils import TestClient, TestServer\n"
+        "from aha_tpu_torch.models.loader import load_model\n"
+        "from aha_tpu_torch.server.app import ServerState, create_app\n"
+        f"served = load_model('Qwen/Qwen3-0.6B', {str(tmp_path)!r},"
+        " max_seq_len=256)\n"
+        "async def ask():\n"
+        "    client = TestClient(TestServer(create_app(ServerState("
+        "model=served))))\n"
+        "    await client.start_server()\n"
+        "    try:\n"
+        "        r = await client.post('/v1/chat/completions', json={"
+        "'model': 'Qwen/Qwen3-0.6B', 'max_tokens': 4, 'temperature': 0.0,"
+        " 'stream': False, 'messages': [{'role': 'user', 'content': 'hi'}]})\n"
+        "        return r.status, json.loads(await r.text())\n"
+        "    finally:\n"
+        "        await client.close()\n"
+        "status, resp = asyncio.run(ask())\n"
+        "assert status == 200 and resp['usage']['completion_tokens'] >= 1,"
+        " resp\n"
+        + NOTHING_OF_AHA_TPU)
     r = _run(code)
     assert r.returncode == 0, r.stderr
 
 
 def test_chip_smoke_imports_and_needs_a_card():
-    r = _run("import sys, chip_smoke\n"
-             "assert not [m for m in sys.modules if m == 'jax' or "
-             "m.startswith('aha_tpu')], 'chip_smoke imported jax/aha_tpu'\n")
+    r = _run("import sys, chip_smoke\n" + NOTHING_OF_AHA_TPU)
     assert r.returncode == 0, r.stderr
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,

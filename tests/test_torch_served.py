@@ -11,17 +11,20 @@ import torch
 from aiohttp.test_utils import TestClient, TestServer
 
 from aha_tpu.models.qwen3_served import Qwen3Chat as JQwen3Chat
-from aha_tpu.params import ChatCompletionParameters
-from aha_tpu.registry import lookup
+from aha_tpu.params import ChatCompletionParameters as JParameters
+from aha_tpu.registry import lookup as jlookup
 from aha_tpu_torch.cli import build_parser
 from aha_tpu_torch.core.batch_engine import BatchEngine
 from aha_tpu_torch.models.loader import load_model
 from aha_tpu_torch.models.qwen3_served import Qwen3Chat
+from aha_tpu_torch.params import ChatCompletionParameters
+from aha_tpu_torch.registry import lookup
 from aha_tpu_torch.server.app import ServerState, create_app
 from tests.fixtures import build_tiny_qwen3_repo
 
 torch.set_num_threads(1)
 ENTRY = lookup("Qwen/Qwen3-0.6B")
+JENTRY = jlookup("Qwen/Qwen3-0.6B")
 
 
 @pytest.fixture(scope="module")
@@ -36,16 +39,26 @@ def served(repo):
     return Qwen3Chat.load(ENTRY, repo, max_seq_len=512)
 
 
-def _req(**kw):
+def _body(**kw):
     body = {"model": "Qwen/Qwen3-0.6B", "max_tokens": 20, "temperature": 0.0,
             "messages": [{"role": "user",
                           "content": "hello world how are you today " * 3}]}
-    return ChatCompletionParameters.model_validate({**body, **kw})
+    return {**body, **kw}
+
+
+def _req(**kw):
+    """The request as the port's wire type."""
+    return ChatCompletionParameters.model_validate(_body(**kw))
+
+
+def _jreq(**kw):
+    """The same request as aha_tpu's wire type, for the JAX oracle."""
+    return JParameters.model_validate(_body(**kw))
 
 
 def test_greedy_text_matches_jax(repo, served):
-    jax_served = JQwen3Chat.load(ENTRY, repo, max_seq_len=512)
-    want = jax_served.generate(_req()).choices[0].message.content
+    jax_served = JQwen3Chat.load(JENTRY, repo, max_seq_len=512)
+    want = jax_served.generate(_jreq()).choices[0].message.content
     got = served.generate(_req())
     assert got.choices[0].message.content == want
     assert got.usage.prompt_tokens >= 32 and got.usage.completion_tokens >= 1
@@ -54,15 +67,15 @@ def test_greedy_text_matches_jax(repo, served):
 def test_stream_chunks_match_jax(repo, served):
     """Same text and reasoning deltas (the channel routing of
     <think>/<tool_call> markers) as aha_tpu's stream, then a usage chunk."""
-    def deltas(model):
-        chunks = list(model.generate_stream(_req(stream=True)))
+    def deltas(model, req):
+        chunks = list(model.generate_stream(req(stream=True)))
         assert chunks[-1].usage is not None
         assert chunks[-1].usage.completion_tokens >= 1
         return [(c.choices[0].delta.content,
                  c.choices[0].delta.reasoning_content) for c in chunks[:-1]]
 
-    jax_served = JQwen3Chat.load(ENTRY, repo, max_seq_len=512)
-    assert deltas(served) == deltas(jax_served)
+    jax_served = JQwen3Chat.load(JENTRY, repo, max_seq_len=512)
+    assert deltas(served, _req) == deltas(jax_served, _jreq)
 
 
 def test_loader_and_unported_options(repo):
