@@ -1,23 +1,43 @@
-"""`python -m aha_tpu_torch serv <path>`: serve a Qwen3 chat checkpoint
-on the port (counterpart of `aha serv`, aha_tpu/cli/main.py).
+"""`python -m aha_tpu_torch serv <path>`: serve a Qwen3 chat or a
+Qwen2.5-VL checkpoint on the port (counterpart of `aha serv`,
+aha_tpu/cli/main.py).  A directory whose config.json has model_type
+"qwen2_5_vl" is served as Qwen/Qwen2.5-VL-3B-Instruct unless --model names
+another id.
 `--batch-slots N` serves N chats at once through the continuous-batching
 engine; `AHA_KV_INT8=1` stores the KV cache in int8."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
 
 
+DEFAULT_MODEL = "Qwen/Qwen3-0.6B"
+#: config.json model_type → the id a directory is served as by default
+MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct"}
+
+
+def model_id_for(path: str, model: str) -> str:
+    """`model`, or for the default id the one the directory's config.json
+    model_type names."""
+    cfg = os.path.join(path, "config.json")
+    if model != DEFAULT_MODEL or not os.path.exists(cfg):
+        return model
+    with open(cfg) as f:
+        return MODEL_TYPES.get(json.load(f).get("model_type"), model)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m aha_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
-    s = sub.add_parser("serv", help="serve a local Qwen3 chat checkpoint")
+    s = sub.add_parser("serv", help="serve a local Qwen3 chat or "
+                                    "Qwen2.5-VL checkpoint")
     s.add_argument("path", help="model directory (config.json, tokenizer, "
                                 "*.safetensors)")
-    s.add_argument("--model", default="Qwen/Qwen3-0.6B",
+    s.add_argument("--model", default=DEFAULT_MODEL,
                    help="registry id the checkpoint is served as")
     s.add_argument("--address", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
@@ -39,7 +59,8 @@ def main(argv: list[str] | None = None) -> int:
     from aha_tpu_torch.server.app import ServerState, start_http_server
 
     t0 = time.perf_counter()
-    model = load_model(args.model, args.path, max_seq_len=args.max_seq_len,
+    model = load_model(model_id_for(args.path, args.model), args.path,
+                       max_seq_len=args.max_seq_len,
                        prefix_cache=args.prefix_cache,
                        batch_slots=args.batch_slots)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "

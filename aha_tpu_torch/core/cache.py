@@ -1,4 +1,4 @@
-"""KV cache (counterpart of aha_tpu/core/cache.py, flat layouts only).
+"""KV cache (counterpart of aha_tpu/core/cache.py).
 
 The JAX package keeps the cache as functional state and relies on jit
 donation to update it in place.  Here the cache tensors are preallocated
@@ -9,7 +9,11 @@ for one stream, or a (B,) vector with one write head per slot for the
 continuous-batching engine (core/batch_engine.py).
 
 Layouts:
-- bf16/f32: k/v (L, B, S, Hkv·D) — the flat rows the decode kernel reads;
+- bf16/f32: k/v (L, B, S, Hkv·D) — the flat rows the decode kernel reads
+  (the Qwen3 model's);
+- bf16/f32 with `flat=False`: k/v (L, B, S, Hkv, D), the JAX package's
+  default, which the llama-family decoders keep.  Contiguous, so its bytes
+  are the flat rows, and the decode kernel reads it through a view;
 - int8 (`dtype=torch.int8`): k/v int8 (L, B, S, Hkv·D) plus float32
   scales `k_scale`/`v_scale` (L, B, S, Hkv), one per (row, kv-head).  The
   JAX package keeps its scales lane-oriented (L, B, Hkv, S), a Mosaic
@@ -23,15 +27,20 @@ from typing import Any
 
 import torch
 
-#: cache entries that hold per-row state (sliced by a prefix snapshot)
+#: cache entries that hold per-row state, rows on dim 2 in every layout
+#: (sliced by a prefix snapshot)
 ROW_KEYS = ("k", "v", "k_scale", "v_scale")
 
 
 def init_kv_cache(n_layers: int, batch: int, max_len: int, n_kv_heads: int,
                   head_dim: int, dtype: torch.dtype = torch.bfloat16,
                   device: torch.device | str = "cpu",
-                  per_slot_pos: bool = False) -> dict[str, Any]:
-    shape = (n_layers, batch, max_len, n_kv_heads * head_dim)
+                  per_slot_pos: bool = False,
+                  flat: bool = True) -> dict[str, Any]:
+    if not flat and dtype == torch.int8:
+        raise ValueError("the int8 cache is flat (L, B, S, Hkv·D) only")
+    shape = ((n_layers, batch, max_len, n_kv_heads * head_dim) if flat
+             else (n_layers, batch, max_len, n_kv_heads, head_dim))
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

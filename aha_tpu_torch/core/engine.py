@@ -10,14 +10,17 @@ one `tolist()`, never once per step.
 
 Kept from the JAX engine: the prefill and cache length buckets, the cache
 pool, the prompt-prefix KV store with restore + suffix prefill, greedy
-through the model's `greedy_token` (the fused head kernel) and sampled
-decode, decode blocks of 16 with the same waste past eos (≤ block − 1
-steps), and the Timing/Usage accounting.  Each decode call passes the
-model a host bound on the live rows it reaches (`window`), which admits
-the fused decode stack up to 2048 rows, as the JAX engine's live window
-does; the kernels read the exact length from the device.  The cache is
-bf16/f32 or int8 (`cache_dtype`, AHA_KV_INT8=1 when served); a prefix
-snapshot carries the int8 layout's scales.  The continuous-batching engine
+through the model's `greedy_token` (the fused head kernel) where it has
+one, else logits + fast_argmax, and sampled decode, decode blocks of 16
+with the same waste past eos (≤ block − 1 steps), and the Timing/Usage
+accounting.  Each decode call passes the model a host bound on the live
+rows it reaches (`window`), which admits the fused decode stack up to 2048
+rows, as the JAX engine's live window does; the kernels read the exact
+length from the device.  The cache is bf16/f32 or int8 (`cache_dtype`,
+AHA_KV_INT8=1 when served); a prefix snapshot carries the int8 layout's
+scales.  A multimodal prompt (`mm`, Qwen2.5-VL's images) prefills with its
+inputs and joins the prefix store under its content digest `mm_key`; the
+snapshot carries the M-RoPE `rope_delta`.  The continuous-batching engine
 is core/batch_engine.py, sharing PrefixStore.  Not ported yet: speculative
 decoding (raises), the per-bucket window variants (nothing is traced), and
 jit/donation (PyTorch runs eagerly).
@@ -34,7 +37,8 @@ import torch
 
 from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core.sampling import (DEFAULT_REPEAT_LAST_N,
-                                         SamplingConfig, sample_token)
+                                         SamplingConfig, fast_argmax,
+                                         sample_token)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
                    32768, 65536, 131072)
@@ -46,6 +50,12 @@ PREFIX_MIN_TOKENS = 32
 DECODE_BLOCK = 16
 #: bytes of KV the prefix store may pin on the device
 PREFIX_MAX_BYTES = 512 << 20
+
+
+def embed_weight(params: dict) -> torch.Tensor:
+    """The token embedding of a text tree or of a multimodal one whose
+    decoder sits under "text"; its dtype and device are the engine's."""
+    return params.get("text", params)["embed"]["w"]
 
 
 def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
@@ -69,7 +79,10 @@ class PrefixStore:
     restores its rows and prefills only the suffix.  Shared by TextEngine
     and BatchEngine; a snapshot holds the cache's per-row entries
     (`kv.ROW_KEYS`: k/v and, for the int8 layout, their scales — the JAX
-    PREFIX_RESTORE_KEYS less the hybrid models' rolling state)."""
+    PREFIX_RESTORE_KEYS less the hybrid models' rolling state) and the
+    M-RoPE `rope_delta` where the cache has one.  Entries are keyed on
+    (tokens, mm_key): a multimodal prompt only matches a snapshot of the
+    same images, and a text prompt (mm_key None) only a text one."""
 
     def __init__(self, max_entries: int):
         self.max_entries = max_entries
@@ -83,13 +96,17 @@ class PrefixStore:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def match(self, prompt_ids: list[int]) -> tuple[dict | None, int]:
-        """Longest stored entry whose tokens prefix this prompt.  Returns
-        (entry, p): restore the entry's rows and prefill from p.  An exact
-        repeat resumes at p = n − 1 so the suffix has a token to produce
-        logits from."""
+    def match(self, prompt_ids: list[int],
+              mm_key: str | None = None) -> tuple[dict | None, int]:
+        """Longest stored entry under the same multimodal key whose tokens
+        prefix this prompt.  Returns (entry, p): restore the entry's rows
+        and prefill from p.  An exact repeat resumes at p = n − 1 so the
+        suffix has a token to produce logits from."""
         best_key, best_p = None, 0
-        for toks in self._entries:
+        for key in self._entries:
+            toks, key_mm = key
+            if key_mm != mm_key:
+                continue
             n = len(toks)
             if n > len(prompt_ids):
                 continue
@@ -97,23 +114,26 @@ class PrefixStore:
             if p <= best_p or p < PREFIX_MIN_TOKENS:
                 continue
             if list(prompt_ids[:n]) == list(toks):
-                best_key, best_p = toks, p
+                best_key, best_p = key, p
         if best_key is None:
             return None, 0
         self._entries.move_to_end(best_key)
         return self._entries[best_key], best_p
 
-    def store(self, prompt_ids: list[int], cache: dict) -> None:
-        """Snapshot (copy) the prompt's KV rows [0, len)."""
+    def store(self, prompt_ids: list[int], cache: dict,
+              mm_key: str | None = None) -> None:
+        """Snapshot (copy) the prompt's KV rows [0, len), and rope_delta."""
         if self.max_entries <= 0 or len(prompt_ids) < PREFIX_MIN_TOKENS:
             return
-        key = tuple(prompt_ids)
+        key = (tuple(prompt_ids), mm_key)
         if key in self._entries:
             self._entries.move_to_end(key)
             return
         n = len(prompt_ids)
         entry = {name: cache[name][:, :, :n].clone() for name in kv.ROW_KEYS
                  if name in cache}
+        if "rope_delta" in cache:
+            entry["rope_delta"] = cache["rope_delta"].clone()
         nbytes = self._entry_bytes(entry)
         if nbytes > PREFIX_MAX_BYTES:
             return
@@ -126,16 +146,21 @@ class PrefixStore:
 
     @staticmethod
     def restore(entry: dict, cache: dict, p: int) -> None:
-        """Copy a snapshot into the cache's rows [0, n) and set pos to p."""
+        """Copy a snapshot into the cache's rows [0, n) (and its rope_delta,
+        a scalar) and set pos to p."""
         for name, rows in entry.items():
-            cache[name][:, :, :rows.shape[2]].copy_(rows)
+            if name == "rope_delta":
+                cache[name].copy_(rows)
+            else:
+                cache[name][:, :, :rows.shape[2]].copy_(rows)
         cache["pos"].fill_(p)
 
 
 class TextEngine:
-    """Drives one Qwen3Model (init_cache / backbone / logits / greedy_token
-    / fuse_params) at batch 1; the cache has `cache_dtype` (default the
-    parameters' dtype; torch.int8 for the quantized layout)."""
+    """Drives one model (init_cache / backbone / logits / fuse_params, and
+    greedy_token where it has one: Qwen3Model, LlamaModel, Qwen2_5VLModel)
+    at batch 1; the cache has `cache_dtype` (default the parameters'
+    dtype; torch.int8 for the quantized layout)."""
 
     def __init__(self, model, params: dict, eos_token_ids: list[int],
                  max_seq_len: int = 8192, prefix_cache_entries: int = 0,
@@ -148,17 +173,18 @@ class TextEngine:
         # one [q|k|v] and one [gate|up] weight per layer: bit-identical
         # outputs, fewer weight streams per decode step
         self.params = model.fuse_params(params)
-        self.cache_dtype = cache_dtype or self.params["embed"]["w"].dtype
+        self.cache_dtype = cache_dtype or embed_weight(self.params).dtype
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.max_seq_len = max_seq_len
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_entries = PrefixStore(prefix_cache_entries)
         self._cache_pool: dict[int, dict] = {}
         self.last_timing = Timing()
+        self._greedy_fn = getattr(model, "greedy_token", None)
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"]["w"].device
+        return embed_weight(self.params).device
 
     # -- cache pool ---------------------------------------------------------
 
@@ -174,13 +200,15 @@ class TextEngine:
     # -- steps --------------------------------------------------------------
 
     def _prefill(self, tokens: list[int], bucket: int, cache: dict,
-                 from_cache: bool) -> torch.Tensor:
-        """Prefill `tokens` right-padded to `bucket` at cache["pos"], advance
-        pos by len(tokens), return the last real row's f32 logits (1, V)."""
+                 from_cache: bool, mm=None) -> torch.Tensor:
+        """Prefill `tokens` right-padded to `bucket` at cache["pos"] (with
+        the multimodal inputs `mm`, if any), advance pos by len(tokens),
+        return the last real row's f32 logits (1, V)."""
         ids = torch.zeros((1, bucket), dtype=torch.int64)
         ids[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
+        kw = {} if mm is None else {"mm": mm}
         hidden = self.model.backbone(self.params, ids.to(self.device), cache,
-                                     from_cache=from_cache)
+                                     from_cache=from_cache, **kw)
         kv.advance(cache, len(tokens))
         last = hidden[:, len(tokens) - 1:len(tokens)]
         return self.model.logits(self.params, last)[:, 0].float()
@@ -210,7 +238,10 @@ class TextEngine:
                                      window=window)
         kv.advance(cache, 1)
         if cfg.greedy and cfg.repeat_penalty == 1.0:
-            return self.model.greedy_token(self.params, hidden)
+            if self._greedy_fn is not None:
+                return self._greedy_fn(self.params, hidden)
+            logits = self.model.logits(self.params, hidden)
+            return fast_argmax(logits.float().reshape(-1))
         logits = self.model.logits(self.params, hidden)[:, 0].float()
         return self._sample(logits, cfg, gen, ring, n_gen)
 
@@ -229,9 +260,15 @@ class TextEngine:
     # inference tensors refuse in-place updates outside inference mode
     @torch.no_grad()
     def stream_tokens(self, prompt_ids: list[int], cfg: SamplingConfig,
-                      max_tokens: int = 1024) -> Iterator[int]:
+                      max_tokens: int = 1024, mm=None,
+                      mm_key: str | None = None,
+                      mm_token_ids: tuple = ()) -> Iterator[int]:
         """Yields sampled token ids (including the final eos); records
-        Timing into self.last_timing."""
+        Timing into self.last_timing.  `mm` is the model's multimodal
+        prefill input; `mm_key` a digest of it, under which the prompt
+        joins the prefix store (None: a multimodal prompt does not);
+        `mm_token_ids` the placeholder ids a restored prefix's un-prefilled
+        suffix must not hold."""
         prompt_len = len(prompt_ids)
         if prompt_len == 0:
             raise ValueError("empty prompt")
@@ -254,11 +291,17 @@ class TextEngine:
                            device=self.device)
 
         entry, p = (None, 0)
-        if self.prefix_cache_entries:
-            entry, p = self._prefix_entries.match(prompt_ids)
+        use_prefix = self.prefix_cache_entries and \
+            (mm is None or mm_key is not None)
+        key = mm_key if mm is not None else None
+        if use_prefix:
+            entry, p = self._prefix_entries.match(prompt_ids, key)
             if entry is not None and \
                     p + bucket_for(prompt_len - p) > cache_len:
                 entry, p = None, 0       # suffix bucket would not fit
+            if entry is not None and mm_token_ids and any(
+                    t in mm_token_ids for t in prompt_ids[p:]):
+                entry, p = None, 0       # the suffix needs image features
 
         try:
             t0 = time.perf_counter()
@@ -269,9 +312,9 @@ class TextEngine:
                                        from_cache=True)
             else:
                 logits = self._prefill(prompt_ids, pf_bucket, cache,
-                                       from_cache=False)
-            if self.prefix_cache_entries:
-                self._prefix_entries.store(prompt_ids, cache)
+                                       from_cache=False, mm=mm)
+            if use_prefix:
+                self._prefix_entries.store(prompt_ids, cache, key)
             token = self._sample(logits, cfg, gen, ring, 0)
             token_host = int(token)
             timing.prompt_secs = time.perf_counter() - t0
@@ -326,9 +369,10 @@ class TextEngine:
             self._return_cache(cache)
 
     def generate_tokens(self, prompt_ids: list[int], cfg: SamplingConfig,
-                        max_tokens: int = 1024) -> list[int]:
-        """Non-streaming: all sampled tokens, eos (if any) stripped."""
-        out = list(self.stream_tokens(prompt_ids, cfg, max_tokens))
+                        max_tokens: int = 1024, **mm_kw) -> list[int]:
+        """Non-streaming: all sampled tokens, eos (if any) stripped;
+        `mm_kw` as stream_tokens takes them."""
+        out = list(self.stream_tokens(prompt_ids, cfg, max_tokens, **mm_kw))
         if out and out[-1] in self.eos_token_ids:
             out = out[:-1]
         return out

@@ -1,5 +1,7 @@
 """Chat-level generation: request → prompt → engine → OpenAI responses
-(counterpart of aha_tpu/core/generate.py, text only).
+(counterpart of aha_tpu/core/generate.py).  A model family's `get_data`
+may hand the engine multimodal prefill inputs (`PrepareData.mm`) with
+their prefix-cache key.
 
 The response types, tokenizer and chat-template classes are the port's
 copies of aha_tpu's host modules; the stream channel routing (UTF-8
@@ -13,7 +15,7 @@ from __future__ import annotations
 import json
 import uuid
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Any, Iterator
 
 from aha_tpu_torch.core.engine import TextEngine
 from aha_tpu_torch.core.sampling import DEFAULT_SEED, SamplingConfig
@@ -40,7 +42,22 @@ class PrepareData:
     """A model family's request preprocessing output."""
 
     input_ids: list[int]
+    mm: Any = None  # model-specific multimodal inputs for prefill
     in_reasoning: bool = False
+    #: digest of the multimodal inputs — lets identical-image prompts join
+    #: the prefix cache (multi-turn image chat); None = no prefix caching
+    #: for multimodal requests
+    mm_key: str | None = None
+    #: placeholder token ids the prefix-cache suffix must not contain
+    mm_token_ids: tuple = ()
+
+    def engine_kw(self) -> dict:
+        """The multimodal keywords of the engine's stream_tokens (none
+        for a text prompt, so text-only engines take them too)."""
+        if self.mm is None:
+            return {}
+        return {"mm": self.mm, "mm_key": self.mm_key,
+                "mm_token_ids": self.mm_token_ids}
 
 
 @dataclass
@@ -81,7 +98,8 @@ class GenerateModel:
         cfg = self._sampling_cfg(mes)
         max_tokens = mes.max_tokens or DEFAULT_MAX_TOKENS
         data = self.get_data(mes)
-        ids = self.engine.generate_tokens(data.input_ids, cfg, max_tokens)
+        ids = self.engine.generate_tokens(data.input_ids, cfg, max_tokens,
+                                          **data.engine_kw())
         t = self.engine.last_timing
         return ChatCompletionResponse(
             id=str(uuid.uuid4()),
@@ -107,7 +125,8 @@ class GenerateModel:
         tool_call_content = ""
         error_tokens: list[int] = []
 
-        for token in self.engine.stream_tokens(data.input_ids, cfg, max_tokens):
+        for token in self.engine.stream_tokens(data.input_ids, cfg, max_tokens,
+                                               **data.engine_kw()):
             decoded = self.tokenizer.decode(error_tokens + [token])
             if "�" in decoded:          # partial UTF-8 sequence
                 error_tokens.append(token)

@@ -1,8 +1,10 @@
 """Parameters carried across from the JAX package.
 
-`params_from_jax` takes aha_tpu's Qwen3 parameter tree as numpy arrays
-(what `Qwen3Model.init_random` / `load_params` / `load_qwen3_gguf`
-produce, fused or not) and returns the port's tree: the same nesting and
+`params_from_jax` takes aha_tpu's Qwen3 or llama parameter tree as numpy
+arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
+`load_qwen3_gguf` produce, fused or not), or a Qwen2.5-VL tree ({"visual":
+..., "text": a llama tree}, the vision blocks a list), and returns the
+port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
 head turned from the JAX (K, V) to the port's vocab-major (V, K), and every
 GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`.
@@ -59,6 +61,8 @@ def quant_from_jax(p: dict) -> dict:
 
 
 def _to_torch(tree, device, dtype):
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, dtype) for v in tree]
     if isinstance(tree, dict):
         if is_quantized(tree):
             return {k: v.to(device) for k, v in quant_from_jax(tree).items()}
@@ -69,6 +73,9 @@ def _to_torch(tree, device, dtype):
 
 def params_from_jax(tree: dict, device: torch.device | str = "cpu",
                     dtype: torch.dtype = torch.float32) -> dict:
+    if "text" in tree:                          # a vision-language tree
+        return {"visual": _to_torch(tree["visual"], device, dtype),
+                "text": params_from_jax(tree["text"], device, dtype)}
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
            if k != "lm_head"}
     head = tree["lm_head"]

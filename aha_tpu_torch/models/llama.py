@@ -1,0 +1,334 @@
+"""Parameterized llama-style decoder (counterpart of aha_tpu/models/llama.py):
+the text backbone of Qwen2.5-VL (the qwen2 form, q/k/v bias) and of the
+MiniCPM families (LongRoPE + mup scalings), with optional qwen3-style
+qk-norm.  Flags in LlamaConfig select the variant; the forward is one code
+path.
+
+Parameters follow the port's Qwen3 layout (models/qwen3.py): layers
+STACKED on a leading (L, ...) axis, linear weights (in, out), the head
+vocab-major (V, K) — a tied head is the embedding tensor itself, not a
+copy.  The KV cache is the JAX package's 5-D (L, B, S, Hkv, D) layout
+(core/cache.py, flat=False), written in place at the device position
+`cache["pos"]` (0-dim: one stream); the backbone never advances it.  A
+decode step's attention is flash_decode_at_layer (the split-KV decode
+kernel on the card), prefill of ≥ 128 bucketed rows the flash prefill
+kernel; the projections and MLP stay torch.matmul, as the JAX package
+leaves them to XLA.  Not ported: per-slot (B,) positions (continuous
+batching), the tensor-parallel partition rules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from aha_tpu_torch.core import cache as kv
+from aha_tpu_torch.core import nn
+from aha_tpu_torch.models.qwen3 import (fuse_decode_params, stack_layers,
+                                        unstack_layers)
+from aha_tpu_torch.ops.attention import (attention_decode_at,
+                                         attention_prefill,
+                                         attention_prefill_at, causal_mask,
+                                         sdpa)
+from aha_tpu_torch.ops.norms import rms_norm
+from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 4
+    head_dim: int | None = None
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096
+    tie_word_embeddings: bool = False
+    qkv_bias: bool = False          # qwen2-style q/k/v bias
+    qk_norm: bool = False           # qwen3-style per-head rms q/k norm
+    # mup-style scalings (minicpm4); neutral defaults
+    scale_emb: float = 1.0
+    scale_depth: float | None = None   # residual scale = scale_depth/sqrt(L)
+    dim_model_base: int | None = None  # hidden scale = 1/(d/dim_model_base)
+    rope_scaling: Any = None           # {"short_factor": [...], ...} LongRoPE
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LlamaConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @classmethod
+    def from_file(cls, model_dir: str) -> "LlamaConfig":
+        with open(os.path.join(model_dir, "config.json")) as f:
+            return cls.from_dict(json.load(f))
+
+
+def longrope_table(cfg: LlamaConfig, max_len: int,
+                   device: torch.device | str = "cpu"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """LongRoPE: per-frequency ext factors (long_factor beyond the original
+    context, short_factor within it) and a log-scaled amplitude; float32
+    tables computed in float64."""
+    rs = cfg.rope_scaling
+    half = cfg.head_dim_ // 2
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, half) / half))
+    original = rs["original_max_position_embeddings"]
+    factor = np.asarray(rs["long_factor"] if max_len > original
+                        else rs["short_factor"], np.float64)
+    scale = cfg.max_position_embeddings / original
+    scaling_factor = math.sqrt(1.0 + math.log(scale) / math.log(original)) \
+        if scale > 1.0 else 1.0
+    freqs = np.outer(np.arange(max_len, dtype=np.float64), inv_freq / factor)
+    return (torch.from_numpy((np.cos(freqs) * scaling_factor)
+                             .astype(np.float32)).to(device),
+            torch.from_numpy((np.sin(freqs) * scaling_factor)
+                             .astype(np.float32)).to(device))
+
+
+class LlamaModel:
+    """The model TextEngine (core/engine.py) drives."""
+
+    def __init__(self, config: LlamaConfig, max_rope_len: int = 8192,
+                 device: torch.device | str = "cpu"):
+        self.config = c = config
+        self.device = torch.device(device)
+        self.n_layers = c.num_hidden_layers
+        self.n_heads = c.num_attention_heads
+        self.n_kv_heads = c.num_key_value_heads
+        self.head_dim = c.head_dim_
+        max_rope_len = min(max_rope_len, c.max_position_embeddings)
+        if c.rope_scaling and "short_factor" in c.rope_scaling:
+            self.cos, self.sin = longrope_table(c, max_rope_len, self.device)
+        else:
+            self.cos, self.sin = rope_table(self.head_dim, max_rope_len,
+                                            c.rope_theta, device=self.device)
+        self.residual_scale = (c.scale_depth / math.sqrt(c.num_hidden_layers)
+                               if c.scale_depth else 1.0)
+        self.hidden_scale = (1.0 / (c.hidden_size / c.dim_model_base)
+                             if c.dim_model_base else 1.0)
+        # layer indices as device scalars: the decode kernel reads its layer
+        self._layer_ids = torch.arange(self.n_layers, dtype=torch.int32,
+                                       device=self.device)
+        self._views: tuple[Any, list[dict]] | None = None
+
+    fuse_params = staticmethod(fuse_decode_params)
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+        return kv.init_kv_cache(self.n_layers, batch, max_len,
+                                self.n_kv_heads, self.head_dim, dtype,
+                                self.device, flat=False)
+
+    # -- forward ------------------------------------------------------------
+
+    def _layer_views(self, layers: dict) -> list[dict]:
+        if self._views is None or self._views[0] is not layers:
+            self._views = (layers, unstack_layers(layers))
+        return self._views[1]
+
+    def _qkv(self, lp: dict, h: torch.Tensor):
+        """q (B, S, Hq, D), k/v (B, S, Hkv, D), qk-normed where the config
+        says so."""
+        c = self.config
+        B, S, _ = h.shape
+        D = self.head_dim
+        nq, nkv = self.n_heads * D, self.n_kv_heads * D
+        if "qkv" in lp:
+            qkv = nn.linear(lp["qkv"], h)
+            q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+        else:
+            q, k, v = (nn.linear(lp["q"], h), nn.linear(lp["k"], h),
+                       nn.linear(lp["v"], h))
+        q = q.reshape(B, S, self.n_heads, D)
+        k = k.reshape(B, S, self.n_kv_heads, D)
+        v = v.reshape(B, S, self.n_kv_heads, D)
+        if c.qk_norm:
+            q = rms_norm(q, lp["q_norm"]["w"], c.rms_norm_eps)
+            k = rms_norm(k, lp["k_norm"]["w"], c.rms_norm_eps)
+        return q, k, v
+
+    def _mlp_residual(self, lp: dict, x: torch.Tensor,
+                      attn: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        B, S, _ = x.shape
+        x = x + nn.linear(lp["o"], attn.reshape(B, S, -1)) * \
+            self.residual_scale
+        h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
+        return x + nn.swiglu_mlp(lp["mlp"], h) * self.residual_scale
+
+    def _layer(self, lp: dict, li: int, x: torch.Tensor, cos, sin,
+               cache: dict, is_prefill: bool, from_cache: bool,
+               positions: torch.Tensor, valid_len: torch.Tensor | None):
+        """One decoder block; writes this layer's K/V rows into the cache
+        in place at `positions` (S,)."""
+        h = rms_norm(x, lp["ln1"]["w"], self.config.rms_norm_eps)
+        q, k, v = self._qkv(lp, h)
+        q, k = apply_rope(q, k, cos, sin)
+        for name, new in (("k", k), ("v", v)):
+            dst = cache[name][li]                  # (B, S_cache, Hkv, D)
+            dst.index_copy_(1, positions, new.to(dst.dtype))
+        layer = self._layer_ids[li]
+        if is_prefill and from_cache:
+            attn = attention_prefill_at(q, cache["k"], cache["v"], layer,
+                                        cache["pos"])
+        elif is_prefill:
+            attn = attention_prefill(q, k, v, causal=True)
+        else:
+            attn = attention_decode_at(q, cache["k"], cache["v"], layer,
+                                       valid_len)
+        return self._mlp_residual(lp, x, attn)
+
+    def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
+                 from_cache: bool = False,
+                 window: int | None = None) -> torch.Tensor:
+        """Embeddings → final hidden.  `window` (the engine's bound on the
+        live rows) is accepted and unused: no fused decode stack here."""
+        x = nn.embedding(params["embed"], input_ids) * self.config.scale_emb
+        return self.run_layers(params, x, cache, from_cache=from_cache)
+
+    def run_layers(self, params: dict, x: torch.Tensor, cache: dict,
+                   cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
+                   from_cache: bool = False) -> torch.Tensor:
+        """Decoder stack over input embeddings → final-normed hidden times
+        the hidden scale.  Writes K/V at [pos, pos + S) and leaves pos as it
+        was.  `cos_sin` overrides the arange RoPE gather (M-RoPE wrappers
+        such as Qwen2.5-VL)."""
+        B, S, _ = x.shape
+        pos = cache["pos"]
+        if pos.ndim != 0:
+            raise ValueError("LlamaModel decodes one stream (a 0-dim pos); "
+                             "per-slot positions are not ported")
+        positions = pos.long() + torch.arange(S, device=x.device)
+        cos, sin = cos_sin if cos_sin is not None else \
+            gather_rope(self.cos, self.sin, positions)
+        is_prefill = S > 1
+        valid_len = None if is_prefill else (pos + 1).reshape(1)
+        for li, lp in enumerate(self._layer_views(params["layers"])):
+            x = self._layer(lp, li, x, cos, sin, cache, is_prefill,
+                            from_cache, positions, valid_len)
+        x = rms_norm(x, params["norm"]["w"], self.config.rms_norm_eps)
+        return x * self.hidden_scale
+
+    def run_layers_no_cache(self, params: dict, x: torch.Tensor,
+                            mask: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+        """Encoder-style pass: no KV cache, RoPE from position 0, an
+        optional additive attention mask (default causal)."""
+        B, S, _ = x.shape
+        cos, sin = gather_rope(self.cos, self.sin,
+                               torch.arange(S, device=x.device))
+        if mask is None:
+            mask = causal_mask(S, S, device=x.device)
+        for lp in self._layer_views(params["layers"]):
+            h = rms_norm(x, lp["ln1"]["w"], self.config.rms_norm_eps)
+            q, k, v = self._qkv(lp, h)
+            q, k = apply_rope(q, k, cos, sin)
+            x = self._mlp_residual(lp, x, sdpa(q, k, v, mask))
+        x = rms_norm(x, params["norm"]["w"], self.config.rms_norm_eps)
+        return x * self.hidden_scale
+
+    def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """The head is vocab-major (V, K)."""
+        return hidden @ params["lm_head"]["w"].t()
+
+    # -- parameters ---------------------------------------------------------
+
+    def load_params(self, src, dtype: torch.dtype = torch.bfloat16,
+                    prefix: str = "model.") -> dict:
+        """HF checkpoint names under `prefix` → the port's layout on
+        self.device.  `src` maps a tensor name to a CPU tensor
+        (io/weights.py)."""
+        c = self.config
+
+        def get(name):
+            return src[name].to(device=self.device, dtype=dtype)
+
+        def lin(name):             # HF (out, in) → (in, out), bias if any
+            p = {"w": get(name + ".weight").t().contiguous()}
+            if name + ".bias" in src:
+                p["b"] = get(name + ".bias")
+            return p
+
+        def norm(name):
+            return {"w": get(name + ".weight")}
+
+        layers = []
+        for i in range(self.n_layers):
+            p = f"{prefix}layers.{i}."
+            lp = {
+                "ln1": norm(p + "input_layernorm"),
+                "ln2": norm(p + "post_attention_layernorm"),
+                "q": lin(p + "self_attn.q_proj"),
+                "k": lin(p + "self_attn.k_proj"),
+                "v": lin(p + "self_attn.v_proj"),
+                "o": lin(p + "self_attn.o_proj"),
+                "mlp": {"gate": lin(p + "mlp.gate_proj"),
+                        "up": lin(p + "mlp.up_proj"),
+                        "down": lin(p + "mlp.down_proj")},
+            }
+            if c.qk_norm:
+                lp["q_norm"] = norm(p + "self_attn.q_norm")
+                lp["k_norm"] = norm(p + "self_attn.k_norm")
+            layers.append(lp)
+        embed = get(prefix + "embed_tokens.weight")
+        if c.tie_word_embeddings and "lm_head.weight" not in src:
+            head = embed
+        else:
+            head = get("lm_head.weight")       # HF stores it (V, K)
+        return {"embed": {"w": embed}, "layers": stack_layers(layers),
+                "norm": norm(prefix + "norm"), "lm_head": {"w": head}}
+
+    def init_random(self, generator: torch.Generator,
+                    dtype: torch.dtype = torch.float32,
+                    scale: float = 0.02) -> dict:
+        """Seeded random parameters at this config's geometry (zero q/k/v
+        biases where the config has them, unit norms), drawn on the generator's device and moved to
+        self.device."""
+        c = self.config
+        d, hd, L = c.hidden_size, self.head_dim, self.n_layers
+        gdev = generator.device
+
+        def w(*shape):
+            x = torch.randn(shape, generator=generator, device=gdev,
+                            dtype=torch.float32) * scale
+            return x.to(device=self.device, dtype=dtype)
+
+        def full(value, *shape):
+            return torch.full(shape, value, device=self.device, dtype=dtype)
+
+        def lin(i, o, bias=False):
+            p = {"w": w(L, i, o)}
+            if bias:
+                p["b"] = full(0.0, L, o)
+            return p
+
+        layers = {
+            "ln1": {"w": full(1.0, L, d)}, "ln2": {"w": full(1.0, L, d)},
+            "q": lin(d, self.n_heads * hd, c.qkv_bias),
+            "k": lin(d, self.n_kv_heads * hd, c.qkv_bias),
+            "v": lin(d, self.n_kv_heads * hd, c.qkv_bias),
+            "o": lin(self.n_heads * hd, d),
+            "mlp": {"gate": lin(d, c.intermediate_size),
+                    "up": lin(d, c.intermediate_size),
+                    "down": lin(c.intermediate_size, d)},
+        }
+        if c.qk_norm:
+            layers["q_norm"] = {"w": full(1.0, L, hd)}
+            layers["k_norm"] = {"w": full(1.0, L, hd)}
+        embed = w(c.vocab_size, d)
+        head = embed if c.tie_word_embeddings else w(c.vocab_size, d)
+        return {"embed": {"w": embed}, "layers": layers,
+                "norm": {"w": full(1.0, d)}, "lm_head": {"w": head}}

@@ -1,5 +1,7 @@
 """Model factory: registry id → served model (counterpart of
-aha_tpu/models/loader.py; only the Qwen3 chat family is ported)."""
+aha_tpu/models/loader.py).  Ported families: qwen3 (the Qwen3 chat models)
+and qwen2_5vl (Qwen2.5-VL image chat); every other family raises
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -20,10 +22,14 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
                          "devices) is not ported to aha_tpu_torch yet; "
                          "serve with --dp 1")
     entry = lookup(model_id)
-    if entry.family != "qwen3":
-        raise NotImplementedError(
-            f"model family '{entry.family}' is not ported to aha_tpu_torch "
-            "yet (the Qwen3 chat models are)")
-    from aha_tpu_torch.models.qwen3_served import Qwen3Chat
+    if entry.family == "qwen3":
+        from aha_tpu_torch.models.qwen3_served import Qwen3Chat
 
-    return Qwen3Chat.load(entry, path, **kw)
+        return Qwen3Chat.load(entry, path, **kw)
+    if entry.family == "qwen2_5vl":
+        from aha_tpu_torch.models.qwen2_5vl_served import Qwen2_5VLChat
+
+        return Qwen2_5VLChat.load(entry, path, **kw)
+    raise NotImplementedError(
+        f"model family '{entry.family}' is not ported to aha_tpu_torch "
+        "yet (the Qwen3 chat and Qwen2.5-VL models are)")

@@ -1,0 +1,167 @@
+"""Qwen2.5-VL served model: image chat on the port's TextEngine
+(counterpart of aha_tpu/models/qwen2_5vl_served.py's Qwen2_5VLChat).
+
+Qwen-VL processing: smart resize to the factor-28 grid, CLIP
+normalization, <|image_pad|> expanded to the number of merge units per
+image.  The patch buffer and every grid-derived index are padded to a
+patch bucket (256 … 16384 patches: pad rows carry seg = -1), and the
+M-RoPE position ids to the engine's prompt bucket, as in the JAX package.
+A video part raises NotImplementedError (utils/video.py).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+
+import numpy as np
+
+from aha_tpu_torch.core.engine import bucket_for
+from aha_tpu_torch.core.generate import PrepareData
+from aha_tpu_torch.io.weights import open_weights
+from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLConfig, Qwen2_5VLModel,
+                                            get_rope_index, mm_to,
+                                            vision_geometry)
+from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.params import ChatCompletionParameters
+from aha_tpu_torch.registry import ModelEntry
+from aha_tpu_torch.utils.device import device, get_dtype
+
+IMAGE_PAD = "<|image_pad|>"
+PATCH_BUCKETS = (256, 512, 1024, 2048, 4096, 6400, 9216, 16384)
+MIN_PIXELS = 56 * 56
+MAX_PIXELS = 14 * 14 * 4 * 1280
+
+
+def patch_bucket(n: int) -> int:
+    for b in PATCH_BUCKETS:
+        if n <= b:
+            return b
+    raise ValueError(f"the request's images give {n} patches; the largest "
+                     f"patch bucket is {PATCH_BUCKETS[-1]}")
+
+
+def _pad(a: np.ndarray, fill, size: int) -> np.ndarray:
+    out = np.full((size,) + a.shape[1:], fill, a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
+             input_ids: list[int], cfg: Qwen2_5VLConfig) -> dict:
+    """The host inputs of one multimodal prefill, as numpy: the patches and
+    grid indices padded to their patch bucket, the (3, S) M-RoPE position
+    ids padded to the prompt bucket (positions continue past the prompt),
+    and rope_delta."""
+    v = cfg.vision
+    unit = v.spatial_merge_size ** 2
+    geo = vision_geometry(grids, v)
+    patches = np.concatenate(patches_list)
+    n_real = patches.shape[0]
+    bucket = patch_bucket(n_real)
+    mm = {
+        "patches": _pad(patches.astype(np.float32), 0.0, bucket),
+        "window_index": _pad(geo["window_index"], 0, bucket // unit),
+        "inverse_index": _pad(geo["inverse_index"], 0, bucket // unit),
+        "window_seg": _pad(geo["window_seg"], -1, bucket),
+        "full_seg": _pad(geo["full_seg"], -1, bucket),
+        "pos_hw": _pad(geo["pos_hw"], 0, bucket),
+    }
+    position_ids, rope_delta = get_rope_index(input_ids, grids, cfg)
+    blen = bucket_for(len(input_ids))
+    if blen > position_ids.shape[1]:
+        extra = blen - position_ids.shape[1]
+        cont = position_ids.max() + 1 + np.arange(extra)
+        position_ids = np.concatenate(
+            [position_ids, np.broadcast_to(cont, (3, extra))], axis=1)
+    mm["position_ids"] = position_ids
+    mm["rope_delta"] = rope_delta
+    return mm
+
+
+def mm_digest(patches_list: list[np.ndarray], grids: list[tuple]) -> str:
+    """Digest of the vision CONTENT (decoded patches + grids), not of the
+    source URL: a mutable URL must not hit stale cached KV."""
+    h = hashlib.sha256(np.ascontiguousarray(
+        np.concatenate(patches_list)).tobytes())
+    for grid in grids:
+        h.update(repr((tuple(grid), 0.0)).encode())
+    return h.hexdigest()
+
+
+class Qwen2_5VLChat(TextChatModel):
+    vl_model: Qwen2_5VLModel
+    #: the resize bounds (preprocessor_config.json's, else Qwen-VL's)
+    min_pixels: int = MIN_PIXELS
+    max_pixels: int = MAX_PIXELS
+
+    @classmethod
+    def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
+             **kw) -> "Qwen2_5VLChat":
+        """One stream on the TextEngine (`batch_slots > 1` is refused:
+        the continuous-batching engine takes text models only)."""
+        if kw.get("batch_slots", 1) > 1:
+            raise ValueError("--batch-slots > 1 serves text models; "
+                             "Qwen2.5-VL runs one stream (--batch-slots 1)")
+
+        def build(path, max_seq_len):
+            dev = device()
+            model = Qwen2_5VLModel(Qwen2_5VLConfig.from_file(path),
+                                   max_rope_len=max_seq_len, device=dev)
+            return model, model.load_params(open_weights(path),
+                                            dtype=get_dtype(dev))
+
+        served = super().load(entry, path, build, max_seq_len=max_seq_len,
+                              prefix_cache=kw.get("prefix_cache", 4),
+                              spec_tokens=kw.get("spec_tokens", 0))
+        pp = {}
+        pp_path = os.path.join(path, "preprocessor_config.json")
+        if os.path.exists(pp_path):
+            with open(pp_path) as f:
+                pp = json.load(f)
+        served.vl_model = served.engine.model
+        served.min_pixels = pp.get("min_pixels", MIN_PIXELS)
+        served.max_pixels = pp.get("max_pixels", MAX_PIXELS)
+        return served
+
+    def get_data(self, mes: ChatCompletionParameters) -> PrepareData:
+        from aha_tpu_torch.utils.image import (load_image,
+                                               preprocess_image_qwen_vl)
+        from aha_tpu_torch.utils.video import (VIDEO_NOT_PORTED,
+                                               extract_vision_parts)
+
+        cfg = self.vl_model.config
+        v = cfg.vision
+        rendered = self.chat_template.apply(
+            [m.to_json_dict() for m in mes.messages],
+            add_generation_prompt=True,
+            enable_thinking=bool(mes.enable_thinking))
+        parts = extract_vision_parts(mes)
+        if not parts:
+            return PrepareData(input_ids=self.tokenizer.encode(rendered),
+                               in_reasoning=self.is_in_reasoning(rendered))
+        if any(kind == "video" for kind, _ in parts):
+            raise NotImplementedError(VIDEO_NOT_PORTED)
+
+        merge_len = v.spatial_merge_size ** 2
+        patches_list, grids = [], []
+        for _, src in parts:
+            patches, grid = preprocess_image_qwen_vl(
+                load_image(src), patch_size=v.patch_size,
+                merge_size=v.spatial_merge_size,
+                temporal_patch_size=v.temporal_patch_size,
+                min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+            n_units = grid[0] * grid[1] * grid[2] // merge_len
+            rendered = rendered.replace(
+                IMAGE_PAD, "<|placeholder|>" * n_units, 1)
+            patches_list.append(patches)
+            grids.append(grid)
+        rendered = rendered.replace("<|placeholder|>", IMAGE_PAD)
+        input_ids = self.tokenizer.encode(rendered)
+        mm = build_mm(patches_list, grids, input_ids, cfg)
+        return PrepareData(
+            input_ids=input_ids, mm=mm_to(mm, self.engine.device),
+            in_reasoning=self.is_in_reasoning(rendered),
+            mm_key=mm_digest(patches_list, grids),
+            mm_token_ids=(cfg.image_token_id, cfg.video_token_id))

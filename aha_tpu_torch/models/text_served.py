@@ -11,7 +11,7 @@ from typing import Callable
 
 from aha_tpu_torch.core.batch_engine import BatchEngine
 from aha_tpu_torch.core.chat_template import ChatTemplate
-from aha_tpu_torch.core.engine import TextEngine
+from aha_tpu_torch.core.engine import TextEngine, embed_weight
 from aha_tpu_torch.core.generate import GenerateModel, PrepareData
 from aha_tpu_torch.core.tokenizer import TokenizerModel
 from aha_tpu_torch.models.base import LoadedModel
@@ -58,7 +58,7 @@ class TextChatModel(GenerateModel, LoadedModel):
         if batch_slots > 1 and spec_tokens > 0:
             raise ValueError(SPEC_WITH_SLOTS)
         model, params = build_model(path, max_seq_len)
-        cache_dtype = get_cache_dtype(params["embed"]["w"].device)
+        cache_dtype = get_cache_dtype(embed_weight(params).device)
         eos = load_stop_token_ids(path)
         if batch_slots > 1:
             engine = BatchEngine(model, params, eos_token_ids=eos,

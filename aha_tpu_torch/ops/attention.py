@@ -8,6 +8,10 @@ every decode step go through the CUDA kernels of ops/flash_attention.py;
 the gates are explicit shape conditions.  The int8 cache layout
 (core/cache.py) adds `quantize_kv_rows` and the `_q8` variants: decode
 through the q8 kernels, chunk prefill plain (dequantize, then sdpa).
+`attention_decode_at` reads the flat (L, B, S, Hkv·D) cache or the
+stacked (L, B, S, Hkv, D) one of the llama-family decoders, routed by its
+rank as the JAX function routes it; `segment_attention` is the vision
+towers' window / full-image attention.
 """
 
 from __future__ import annotations
@@ -78,17 +82,54 @@ def attention_decode_at(q: torch.Tensor, k_stack: torch.Tensor,
                         v_stack: torch.Tensor, layer: torch.Tensor,
                         valid_len: torch.Tensor,
                         scale: float | None = None) -> torch.Tensor:
-    """Decode attention reading layer `layer` of the stacked flat cache
-    (L, B, S, Hkv·D) over rows [0, valid_len) — valid_len is the JAX
-    function's `pos + 1`, (1,) or per slot (B,), computed once per step by
-    the caller.  One query row: the decode kernel's wrapper (kernel or
-    plain version by device); B > 1 slots go to the batched wrapper, as
-    the JAX function routes them."""
+    """Decode attention reading layer `layer` of the stacked cache — flat
+    (L, B, S, Hkv·D) or (L, B, S, Hkv, D) — over rows [0, valid_len):
+    valid_len is the JAX function's `pos + 1`, (1,) or per slot (B,),
+    computed once per step by the caller.  One query row: the decode
+    kernel's wrapper (kernel or plain version by device).  Five dimensions
+    go to flash_decode_at_layer for any B; of the flat cache, B > 1 slots
+    go to the batched wrapper, as the JAX function routes them."""
     from aha_tpu_torch.ops import flash_attention as fa
 
-    fn = (fa.flash_decode_at_layer_flat_batched if q.shape[0] > 1
-          else fa.flash_decode_at_layer_flat)
+    if k_stack.ndim == 5:
+        fn = fa.flash_decode_at_layer
+    elif q.shape[0] > 1:
+        fn = fa.flash_decode_at_layer_flat_batched
+    else:
+        fn = fa.flash_decode_at_layer_flat
     return fn(q, k_stack, v_stack, layer, valid_len, scale=scale)
+
+
+def attention_decode(q: torch.Tensor, k_all: torch.Tensor,
+                     v_all: torch.Tensor, pos: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token decode over one (B, S, Hkv, D) cache; `pos` (0-dim or
+    (B,) int32) is the row the new K/V was just written at, so rows
+    [0, pos] are live: flash_decode's wrapper."""
+    from aha_tpu_torch.ops.flash_attention import flash_decode
+
+    return flash_decode(q, k_all, v_all, (pos + 1).reshape(-1).int(),
+                        scale=scale)
+
+
+def segment_mask(seg: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Boolean (1, 1, S, S): row i attends row j iff seg[i] == seg[j] ≥ 0
+    (a pad row, seg < 0, attends nothing)."""
+    seg = seg.to(device)
+    return ((seg[:, None] == seg[None, :]) & (seg[None, :] >= 0))[None, None]
+
+
+def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      seg: torch.Tensor,
+                      scale: float | None = None) -> torch.Tensor:
+    """Self-attention where row i attends row j iff seg[i] == seg[j]
+    (vision-tower windows and whole images; a seg < 0 row is padding whose
+    output is 0).  q/k/v (B, S, H, D); seg (S,) int32.  The segment
+    kernel's wrapper at any S: the kernel on the card, its plain version
+    on the CPU."""
+    from aha_tpu_torch.ops.flash_attention import flash_attention_segmented
+
+    return flash_attention_segmented(q, k, v, seg, scale=scale)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -22,6 +22,18 @@ raises.  `<wrapper>.launches` counts kernel launches.
   the int8 cache, half the bytes per row; the same split-KV grid, scales
   folded into the score and probability vectors.  `mxu` selects the
   all-int8 variant (q and p quantized per query row, int32 dot products).
+- `flash_decode_at_layer` / `flash_decode` ← flash_decode_at_layer /
+  flash_decode (csrc/decode_attention.cu): the stacked (L, B, S, Hkv, D)
+  cache of the llama-family decoders, and one unstacked (B, S, Hkv, D)
+  cache.  Both are contiguous, so their bytes are exactly the flat rows
+  (L, B, S, Hkv·D) (L = 1 for the unstacked one): the wrapper hands the
+  split-KV kernel a view, no copy and no kernel of their own.
+- `flash_attention_segmented` ← flash_attention_segmented
+  (csrc/segment_flash.cu): row i attends row j iff seg[i] == seg[j], the
+  vision tower's window and full-image blocks; bound by bytes in window
+  blocks, by tensor-core FLOPs in full ones; each block lists the k tiles
+  whose segs can match its rows and computes only those, and a pad row
+  (seg < 0) matches nothing, so a bucket's pad tail costs no tile visits.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ import torch
 
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
-from aha_tpu_torch.ops.attention import causal_mask, dequantize_layer, sdpa
+from aha_tpu_torch.ops.attention import (causal_mask, dequantize_layer, sdpa,
+                                         segment_mask)
 
 #: cache rows per decode split (one pass-1 block per split and kv-head):
 #: short splits keep many blocks in flight, each walking few serial rows.
@@ -165,20 +178,28 @@ def _q8_mxu_default(mxu: bool | None) -> bool:
     return os.environ.get("AHA_Q8_MXU", "1") == "1" if mxu is None else mxu
 
 
+def _launch_bf16(counted, q, k_stack, v_stack, layer, valid_len, scale):
+    """The bf16 decode over a flat (L, B, S, Hkv·D) cache: the kernel on
+    the card, counted on `counted.launches`; the plain version on the
+    CPU."""
+    _check_shapes(q, k_stack, v_stack)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if not q.is_cuda:
+        return flash_decode_at_layer_flat_plain(q, k_stack, v_stack, layer,
+                                                valid_len, scale)
+    out = _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale)
+    counted.launches += 1
+    return out
+
+
 def _bf16_decode_wrapper(name: str, doc: str):
     """A bf16 decode wrapper with its own `.launches` counter."""
     def wrapper(q: torch.Tensor, k_stack: torch.Tensor,
                 v_stack: torch.Tensor, layer: torch.Tensor,
                 valid_len: torch.Tensor,
                 scale: float | None = None) -> torch.Tensor:
-        _check_shapes(q, k_stack, v_stack)
-        scale = scale if scale is not None else q.shape[3] ** -0.5
-        if not q.is_cuda:
-            return flash_decode_at_layer_flat_plain(q, k_stack, v_stack,
-                                                    layer, valid_len, scale)
-        out = _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale)
-        wrapper.launches += 1
-        return out
+        return _launch_bf16(wrapper, q, k_stack, v_stack, layer, valid_len,
+                            scale)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
@@ -224,6 +245,64 @@ flash_decode_at_layer_flat_batched = _bf16_decode_wrapper(
     (ragged; a parked slot has length 1).  Its plain version is
     flash_decode_at_layer_flat_plain; each slot's result is bit-equal to
     a B = 1 launch of the same kernel on that slot alone.""")
+
+def _flat_view(stack: torch.Tensor) -> torch.Tensor:
+    """(L, B, S, Hkv, D) → (L, B, S, Hkv·D), a view of the same bytes."""
+    require(stack.ndim == 5 and stack.is_contiguous(),
+            "the stacked cache must be a contiguous (L, B, S, Hkv, D)")
+    L, B, S, Hkv, D = stack.shape
+    return stack.view(L, B, S, Hkv * D)
+
+
+def flash_decode_at_layer_plain(q, k_stack, v_stack, layer, valid_len,
+                                scale=None):
+    """Plain version over the stacked (L, B, S, Hkv, D) cache: the flat
+    cache's plain version on its view."""
+    return flash_decode_at_layer_flat_plain(q, _flat_view(k_stack),
+                                            _flat_view(v_stack), layer,
+                                            valid_len, scale)
+
+
+def flash_decode_at_layer(q: torch.Tensor, k_stack: torch.Tensor,
+                          v_stack: torch.Tensor, layer: torch.Tensor,
+                          valid_len: torch.Tensor,
+                          scale: float | None = None) -> torch.Tensor:
+    """One-token attention for layer `layer` of the stacked cache k/v (L,
+    B, S, Hkv, D); q (B, 1, Hq, D); layer an int32 device scalar;
+    valid_len int32 (1,) or (B,), rows [0, valid_len[b]) live.  Returns
+    (B, 1, Hq, D).  On the card: the split-KV decode kernel on the flat
+    view of the same bytes."""
+    return _launch_bf16(flash_decode_at_layer, q, _flat_view(k_stack),
+                        _flat_view(v_stack), layer, valid_len, scale)
+
+
+flash_decode_at_layer.launches = 0
+
+
+def _layer0(device: torch.device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def flash_decode_plain(q, k_all, v_all, valid_len, scale=None):
+    """Plain version over one (B, S, Hkv, D) cache."""
+    return flash_decode_at_layer_plain(q, k_all[None], v_all[None],
+                                       _layer0(q.device), valid_len, scale)
+
+
+def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                 valid_len: torch.Tensor,
+                 scale: float | None = None) -> torch.Tensor:
+    """One-token attention over one unstacked cache k/v (B, S, Hkv, D),
+    rows [0, valid_len[b]) live: flash_decode_at_layer at L = 1, layer 0
+    (a view, no copy)."""
+    require(k_all.ndim == 4, "k/v must be (B, S, Hkv, D)")
+    return _launch_bf16(flash_decode, q, _flat_view(k_all[None]),
+                        _flat_view(v_all[None]), _layer0(q.device),
+                        valid_len, scale)
+
+
+flash_decode.launches = 0
+
 
 flash_decode_at_layer_q8 = _q8_decode_wrapper(
     "flash_decode_at_layer_q8",
@@ -287,3 +366,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+# -- segment-masked attention (vision towers) ----------------------------------
+
+#: the kernel lists up to 1024 k tiles of 64 rows in shared memory
+SEGMENT_MAX_S = 65536
+
+
+def flash_attention_segmented_plain(q, k, v, seg, scale=None):
+    """Plain version: masked sdpa in float32, row i attends row j iff
+    seg[i] == seg[j] ≥ 0; a pad row's output is 0."""
+    out = sdpa(q.float(), k.float(), v.float(), segment_mask(seg, q.device),
+               scale)
+    real = (seg.to(q.device) >= 0)[None, :, None, None]
+    return torch.where(real, out, 0.0).to(q.dtype)
+
+
+def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, seg: torch.Tensor,
+                              scale: float | None = None) -> torch.Tensor:
+    """Non-causal attention where row i attends row j iff seg[i] == seg[j].
+    q (B, S, Hq, D); k/v (B, S, Hkv, D); seg (S,) int32, shared by the
+    batch; a row with seg < 0 is padding: it matches no row and its
+    output is 0 (the JAX kernel lets pad rows attend each other; no caller
+    reads them).  Returns (B, S, Hq, D).  On the card: any S ≤ 65536, D 64, 80 or 128, bf16; q/k/v may be
+    strided views with a contiguous channel axis (one third of a fused qkv
+    product is read in place)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    require(k.shape == v.shape and k.shape[:2] == (B, S) and k.shape[3] == D
+            and Hq % Hkv == 0, "q/k/v shapes do not match")
+    require(seg.shape == (S,), f"seg must be ({S},), got {tuple(seg.shape)}")
+    scale = scale if scale is not None else D ** -0.5
+    if not q.is_cuda:
+        return flash_attention_segmented_plain(q, k, v, seg, scale)
+    require(all(t.device == q.device for t in (k, v, seg)),
+            "all inputs on one device")
+    require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+            "segment kernel takes bf16 q/k/v")
+    require(seg.dtype == torch.int32 and seg.is_contiguous()
+            and _aligned16(seg), "seg must be contiguous, 16-byte aligned "
+            "int32")
+    require(D in (64, 80, 128), f"segment kernel takes D 64, 80 or 128, "
+            f"not {D}")
+    require(S <= SEGMENT_MAX_S, f"segment kernel takes S ≤ {SEGMENT_MAX_S}")
+    require(all(t.stride(-1) == 1 for t in (q, k, v)),
+            "segment kernel needs a contiguous channel axis")
+    # 4-byte fragment loads of q; 16-byte row loads of k/v
+    require(q.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in q.stride()[:3]),
+            "q rows must be 4-byte aligned")
+    require(all(_aligned16(t) and all(s % 8 == 0 for s in t.stride()[:3])
+                for t in (k, v)), "k/v rows must be 16-byte aligned")
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    rc = kernels.lib().aha_segment_flash(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        out.data_ptr(), *strides, B, S, Hq, Hkv, D, float(scale),
+        kernels.stream_handle(q))
+    kernels.check(rc, "aha_segment_flash")
+    flash_attention_segmented.launches += 1
+    return out
+
+
+flash_attention_segmented.launches = 0

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "aha_smem_optin": [_I],
     "aha_flash_prefill": [_P, _P, _P, _P] + [_LL] * 12
                          + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "aha_segment_flash": [_P] * 5 + [_LL] * 12 + [_I] * 5 + [_F, _P],
     "aha_fused_decode_stack": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_fused_decode_stack_q8": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_error_string": [_I],

@@ -1,6 +1,9 @@
 """Rotary position embeddings, half-rotation form (counterpart of
-aha_tpu/ops/rope.py; M-RoPE is not ported yet).  Tables are float32,
-computed in float64 on the host once and gathered by position."""
+aha_tpu/ops/rope.py): the 1-D tables, M-RoPE's contiguous t/h/w sections
+(Qwen2.5-VL's text decoder) and the vision tower's 2-D (h, w) rotary.
+Tables are float32, computed in float64 on the host once and gathered by
+position.  Not ported yet: the interleaved and partial-rotary forms and
+Qwen3-VL's interleaved sections."""
 
 from __future__ import annotations
 
@@ -40,3 +43,43 @@ def gather_rope(cos: torch.Tensor, sin: torch.Tensor,
     sync)."""
     positions = positions.long()
     return cos[positions], sin[positions]
+
+
+def mrope_sections(half: int, mrope_section: tuple[int, ...]) -> np.ndarray:
+    """Which of t/h/w (0/1/2) owns each of the `half` frequency channels:
+    contiguous sections, channels past them to t (aha_tpu/ops/rope.py
+    mrope_cos_sin, interleaved=False)."""
+    sec = np.zeros(half, np.int64)
+    start = 0
+    for i, width in enumerate(mrope_section):
+        sec[start:start + width] = i
+        start += width
+    return sec
+
+
+def mrope_cos_sin(cos: torch.Tensor, sin: torch.Tensor,
+                  position_ids: torch.Tensor, sections: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(3, S) t/h/w position ids → (S, half) cos/sin: channel c takes the
+    row of its section, sections[c] (mrope_sections, a device tensor)."""
+    cos3, sin3 = gather_rope(cos, sin, position_ids)      # (3, S, half)
+    sel = sections[None, None, :].expand(1, *cos3.shape[1:])
+    return (torch.take_along_dim(cos3, sel, dim=0)[0],
+            torch.take_along_dim(sin3, sel, dim=0)[0])
+
+
+def vision_inv_freq(head_dim: int, theta: float = 10000.0) -> np.ndarray:
+    """The vision tower's rotary frequencies: head_dim / 4 of them, shared
+    by the h and w halves."""
+    quarter = head_dim // 4
+    return 1.0 / (theta ** (np.arange(quarter) / quarter))
+
+
+def vision_cos_sin(inv_freq: torch.Tensor, pos_hw: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, 2) (h, w) patch coordinates → (N, head_dim / 2) cos/sin: the h
+    frequencies, then the w ones (float32)."""
+    f = pos_hw.float()
+    freqs = torch.cat([f[:, 0:1] * inv_freq[None, :],
+                       f[:, 1:2] * inv_freq[None, :]], dim=-1)
+    return torch.cos(freqs), torch.sin(freqs)

@@ -3,6 +3,7 @@
     python -m aha_tpu_torch.utils.profile_decode [--prompt 300] [--steps 16]
     python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
+    python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl
 
 Builds Qwen3-0.6B's published geometry with seeded random bf16 weights,
 prefills a random prompt through TextEngine, and reads one decode block of
@@ -40,6 +41,12 @@ after the readable lines.  Two more readings:
   kernels (split-KV pass, combine pass) over 28 layers in turn, bf16 and
   both int8 variants, at S = 2048 / 1000 live rows, S = 16384 / 16000
   and 8 slots of S = 4096 with ragged lengths.
+
+`--model qwen2_5vl` reads Qwen2.5-VL-3B-Instruct's geometry instead
+(seeded bf16 weights; a seeded --image-px square image, 980 by default:
+4,900 patches in the 6,400 bucket): the vision tower alone, the image
+prompt's prefill (tower + text decoder) and a decode block of the
+llama-family text decoder's per-op chain over the 5-D cache.
 """
 
 from __future__ import annotations
@@ -326,6 +333,73 @@ def profile_passes(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def profile_vl(args, card: str) -> None:
+    """Qwen2.5-VL-3B: the tower, the image prefill and a decode block."""
+    from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLModel, mm_to,
+                                                qwen2_5vl_3b)
+    from aha_tpu_torch.models.qwen2_5vl_served import build_mm
+    from aha_tpu_torch.utils.image import patchify_qwen_vl, to_normalized_array
+
+    cfg = qwen2_5vl_3b()
+    model = Qwen2_5VLModel(cfg, max_rope_len=8192, device="cuda")
+    params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    rng = np.random.default_rng(0)
+    side = args.image_px
+    pixels = rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
+    patches, grid = patchify_qwen_vl(to_normalized_array(pixels)[None])
+    n_img = patches.shape[0] // 4
+    ids = ([int(t) for t in rng.integers(0, 151643, 12)]
+           + [cfg.vision_start_token_id] + [cfg.image_token_id] * n_img
+           + [int(t) for t in rng.integers(0, 151643, 20)])
+    mm = mm_to(build_mm([patches], [grid], ids, cfg), torch.device("cuda"))
+    bucket = bucket_for(len(ids))
+    cache_len = max(args.cache, bucket_for(len(ids) + args.steps + 1,
+                                           CACHE_BUCKETS))
+    greedy = SamplingConfig()
+    ring = torch.zeros((64,), dtype=torch.int32, device="cuda")
+    print(f"profile_decode: Qwen2.5-VL-3B, {side} px image ({patches.shape[0]}"
+          f" patches, bucket {mm['patches'].shape[0]}), prompt {len(ids)} "
+          f"(bucket {bucket}), cache {cache_len}, {args.steps}-step block "
+          f"| {card}")
+    with torch.no_grad():
+        cache = eng._take_cache(cache_len)
+
+        def vision():
+            model.encode_vision(eng.params["visual"], mm)
+
+        def prefill():
+            cache["pos"].zero_()
+            return eng._prefill(ids, bucket, cache, from_cache=False, mm=mm)
+
+        def block():
+            cache["pos"].fill_(len(ids))
+            tok = torch.zeros((), dtype=torch.int32, device="cuda")
+            eng._decode_block(tok, cache, greedy, None, ring, 1, args.steps,
+                              len(ids) + 1 + args.steps)
+
+        for _ in range(2):                  # warm-up: allocator, cuBLAS
+            prefill()
+            block()
+        out = {"config": "qwen2_5vl per-op", "card": card,
+               "image_px": side, "prompt": len(ids), "cache": cache_len,
+               "steps": args.steps, "vision": _read(vision, 1),
+               "prefill": _read(prefill, 1),
+               "decode_block": _read(block, args.steps)}
+        eng._return_cache(cache)
+    _print_block(out["config"], out["decode_block"], args.steps)
+    for part in ("vision", "prefill"):
+        p = out[part]
+        print(f"[{out['config']}] {part}: wall {p['wall_ms']:.2f} ms, device "
+              f"busy {p['device_busy_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f}, {p['device_ops_per_step']:.0f} device "
+              f"ops; top {p['top_ops'][:3]}")
+    print(json.dumps(out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prompt", type=int, default=300)
@@ -342,6 +416,13 @@ def main(argv=None) -> int:
                     help="device time of each decode-attention pass")
     ap.add_argument("--quant", choices=("q8", "q4"),
                     help="pack the weights and head on this GGUF grid")
+    ap.add_argument("--model", choices=("qwen3", "qwen2_5vl"),
+                    default="qwen3",
+                    help="qwen2_5vl: Qwen2.5-VL-3B's tower, image prefill "
+                         "and text decode")
+    ap.add_argument("--image-px", type=int, default=980,
+                    help="with --model qwen2_5vl: the image's side, a "
+                         "multiple of 28")
     args = ap.parse_args(argv)
     need = max(BATCH_PROMPTS) + ENGINE_TOKENS
     if args.engine and (args.batch_slots < 2 or args.cache < need):
@@ -357,6 +438,9 @@ def main(argv=None) -> int:
                           text=True).stdout.strip().splitlines()[0]
     if args.passes:
         profile_passes(card)
+        return 0
+    if args.model == "qwen2_5vl":
+        profile_vl(args, card)
         return 0
     cfg = Qwen3Config()
     model = Qwen3Model(cfg, max_rope_len=8192, device="cuda")

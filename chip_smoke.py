@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive aha_tpu_torch's Qwen3 chat paths once on one CUDA card.
+"""Drive aha_tpu_torch's Qwen3 chat and Qwen2.5-VL image-chat paths once on
+one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -11,7 +12,9 @@ before the last line:
 3. kernels — each CUDA kernel against its plain PyTorch version at the
    shapes the paths give it (bf16 q, bf16 or int8 caches), with error and
    device time per call (profiler) of both; the batched decode also bit
-   for bit against one-slot launches;
+   for bit against one-slot launches; the prefill kernel at Qwen3's 16/8
+   heads and at Qwen2.5-VL's 16/2; the segment and stacked-decode kernels
+   held relative to max |ref| beside a planted fault their bound rejects;
 4. engine — Qwen3-0.6B's published geometry (28 layers, hidden 1024, vocab
    151936, tied head) with seeded random bf16 weights on the card, through
    TextEngine: plain and kernel prefill, prefix-cache restore, greedy and
@@ -43,7 +46,24 @@ before the last line:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
    then a `--batch-slots 4` server answering 4 chats at once; the child
    runs under `-X importtime`, whose log must name no module of jax or
-   aha_tpu.
+   aha_tpu;
+8. vl — (n) Qwen2.5-VL-3B-Instruct's published geometry (vision tower 32
+   blocks at hidden 1280, text decoder 36 layers at hidden 2048, vocab
+   151936, tied) with seeded bf16 weights on the card, through TextEngine
+   with the prefix store: (n1) a 448 x 448 image (1,024 patches, 256 image
+   tokens) and (n2) a 980 x 980 one (4,900 patches in the 6,400 bucket,
+   1,225 image tokens), 32 greedy tokens each, and (n3) a follow-up turn on
+   (n2)'s image that restores its rows and rope_delta from the prefix
+   store; the segment-flash, prefill and stacked-decode launch counters
+   must rise 32 per image, 36 per prefill of ≥ 128 rows and 36 per decode
+   step; then 8 teacher-forced steps at full width and reduced depth (8
+   vision blocks, one of them full-attention, 4 text layers) against the
+   f32 plain path on the CPU;
+9. vl-http — that reduced-depth model saved as an HF-named checkpoint with
+   the test tokenizer and the four vision special tokens, served by
+   `python -m aha_tpu_torch serv` in a child process under `-X
+   importtime` (no jax or aha_tpu module): one chat with a PNG data-URL
+   image and one text-only chat.
 
 Every kernel check also reads the least time the card could take for the
 same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
@@ -109,6 +129,24 @@ TOL_SWIGLU_REL = 1e-2
 # of max |ref| measured over 4 layers on an H100 on the per-op chain)
 TOL_GGUF_WITNESS_REL = 1e-1
 TOL_GGUF_REL = 1e-1
+# (n)'s teacher-forced steps (8 vision blocks, one full-attention, 4 text
+# layers at full width): bf16 on the card through the kernels against f32
+# on the CPU through the plain versions, max abs error of the hidden states
+# relative to max |ref| (the bf16 rounding of every activation through 12
+# blocks; the Qwen3 28-layer stack is held to TOL_HIDDEN_REL)
+TOL_VL_HIDDEN_REL = 5e-2
+# the segment kernel and the stacked-cache decode against their f32 plain
+# versions on the same bf16 inputs, max abs error relative to max |ref|.
+# The inputs make the outputs O(1) — q drawn 4x wide for the segment
+# kernel, so each row's weight sits on a few keys; a planted key per kv
+# head at the last live decode row carrying ~0.1-0.9 of every query head's
+# weight — so the error is bf16 rounding (≤ 2^-8 of a value, of the output
+# and, in the segment kernel, of the probabilities), while a k tile left
+# off a block's list or a live length off by one moves some row by most of
+# max |ref| (0.7-1.6 in the plain versions; each check plants that fault
+# and requires its bound to reject it)
+TOL_SEG_REL = 2e-2
+TOL_DECODE_REL = 1e-2
 #: the H100 SXM's published rates (NVIDIA data sheet, dense): HBM bytes/s,
 #: operations/s by type
 HBM_BYTES_S = 3.35e12
@@ -154,6 +192,15 @@ KERNELS = {
     "fused_decode_stack_q8": dict(
         source="aha_tpu_torch/csrc/fused_decode_stack_q8.cu",
         replaces="aha_tpu/ops/fused_layer.py:728"),
+    "flash_attention_segmented": dict(
+        source="aha_tpu_torch/csrc/segment_flash.cu",
+        replaces="aha_tpu/ops/flash_attention.py:1171"),
+    "flash_decode_at_layer": dict(
+        source="aha_tpu_torch/csrc/decode_attention.cu",
+        replaces="aha_tpu/ops/flash_attention.py:235"),
+    "flash_decode": dict(
+        source="aha_tpu_torch/csrc/decode_attention.cu",
+        replaces="aha_tpu/ops/flash_attention.py:166"),
 }
 RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0, "library_ms": None}
                             for k in KERNELS}
@@ -207,7 +254,10 @@ def wrappers():
             "quant_swiglu": qm.quant_swiglu,
             "head_argmax_q8": lm_head.head_argmax_q8,
             "head_argmax_q4": lm_head.head_argmax_q4,
-            "fused_decode_stack_q8": fused_decode_stack_q8}
+            "fused_decode_stack_q8": fused_decode_stack_q8,
+            "flash_attention_segmented": fa.flash_attention_segmented,
+            "flash_decode_at_layer": fa.flash_decode_at_layer,
+            "flash_decode": fa.flash_decode}
 
 
 def zero_counts() -> dict:
@@ -418,12 +468,14 @@ def check_head() -> None:
         max_abs_err_of="logit gap between kernel and plain argmax")
 
 
-def check_prefill(S: int, causal: bool, timed: bool) -> None:
+def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8) -> None:
+    """The prefill kernel against its f32 plain version: Hkv 8 is
+    Qwen3-0.6B's 16/8 heads, Hkv 2 Qwen2.5-VL-3B's 16/2 (G = 8)."""
     from aha_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_plain)
 
-    Hq, Hkv, D = 16, 8, 128
-    g = torch.Generator(device="cuda").manual_seed(S + causal)
+    Hq, D = 16, 128
+    g = torch.Generator(device="cuda").manual_seed(S + causal + Hkv)
     bf = dict(device="cuda", dtype=torch.bfloat16)
     q = torch.randn((1, S, Hq, D), generator=g, **bf)
     k = torch.randn((1, S, Hkv, D), generator=g, **bf)
@@ -434,7 +486,7 @@ def check_prefill(S: int, causal: bool, timed: bool) -> None:
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()
     require(err <= TOL_ATTN,
-            f"prefill S={S} causal={causal}: err {err}")
+            f"prefill S={S} causal={causal} Hkv={Hkv}: err {err}")
     line = (f"[kernels] prefill S={S} causal={causal} Hq={Hq} Hkv={Hkv} "
             f"D={D}: max_abs_err {err:.3e} (tol {TOL_ATTN})")
     if timed:
@@ -933,6 +985,196 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     del lyr, k, v, kp, vp
     torch.cuda.empty_cache()
 
+#: (n2)'s patch bucket: 4,900 patches of a 980 x 980 image, 1,500 pad rows
+VL_BUCKET, VL_GRID, VL_REAL = 6400, (1, 70, 70), 4900
+
+
+def vl_segments() -> dict[str, np.ndarray]:
+    """The window and full-image seg ids of (n2)'s bucket (the published
+    tower's 112-pixel windows over 70 x 70 patches), pad rows −1."""
+    from aha_tpu_torch.models.qwen2_5vl import VisionConfig, vision_geometry
+
+    geo = vision_geometry([VL_GRID], VisionConfig())
+    pad = -np.ones(VL_BUCKET - VL_REAL, np.int32)
+    return {"window": np.concatenate([geo["window_seg"], pad]),
+            "full": np.concatenate([geo["full_seg"], pad])}
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, the same relative to max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
+def check_segmented() -> None:
+    """The segment kernel at (n2)'s shape (S 6400, H 16, D 80), q/k/v the
+    strided thirds of one fused qkv product as the tower hands them, once
+    with the window segments and once with the full-image one: error
+    against the f32 plain version on every row (pad rows give 0), within
+    TOL_SEG_REL of max |ref|; a planted fault — the k tile of rows
+    2816-2879, which a window straddles, hidden from every other row, as a
+    block that left it off its list would — must break that bound.  Then device time of kernel and
+    plain, the bound, and F.scaled_dot_product_attention with the boolean
+    (S, S) mask (timed only)."""
+    from aha_tpu_torch.ops import flash_attention as fa
+    from aha_tpu_torch.ops.attention import segment_mask
+
+    S, H, D, R = VL_BUCKET, 16, 80, VL_REAL
+    g = torch.Generator(device="cuda").manual_seed(80)
+    qkv = torch.randn((1, S, 3, H, D), generator=g, device="cuda")
+    qkv[:, :, 0] *= 4                       # peaked scores: O(1) outputs
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    t0 = 44 * 64
+    outside = torch.ones(S, dtype=torch.bool, device="cuda")
+    outside[t0:t0 + 64] = False
+    for kind, seg_np in vl_segments().items():
+        seg = torch.from_numpy(seg_np).cuda()
+        got = fa.flash_attention_segmented(q, k, v, seg)
+        ref = fa.flash_attention_segmented_plain(q.float(), k.float(),
+                                                 v.float(), seg)
+        hidden = seg.clone()
+        hidden[t0:t0 + 64] = 1 << 30        # a seg no other row has
+        bad = fa.flash_attention_segmented(q, k, v, hidden)
+        torch.cuda.synchronize()
+        err, rel = _rel_err(got, ref)
+        _, rel_bad = _rel_err(bad[:, outside], ref[:, outside])
+        require(rel <= TOL_SEG_REL,
+                f"segmented {kind}: err {rel} of max |ref|")
+        require(rel_bad > TOL_SEG_REL, f"segmented {kind}: a hidden k tile "
+                f"stays within the bound ({rel_bad} of max |ref|)")
+        ms = device_ms(lambda: fa.flash_attention_segmented(q, k, v, seg))
+        # the real rows alone: a bucket's pad tail should cost ~nothing
+        real = [t[:, :R] for t in (q, k, v)] + [seg[:R]]
+        ms_real = device_ms(lambda: fa.flash_attention_segmented(*real))
+        plain_ms = device_ms(lambda: fa.flash_attention_segmented_plain(
+            q, k, v, seg), iters=5, warmup=1)
+        mask = segment_mask(seg, seg.device)
+        lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, attn_mask=mask))
+        # real rows' q, k, v read once, every output row written once; the
+        # pairs with equal seg ≥ 0
+        pairs = int((np.bincount(seg_np[seg_np >= 0]).astype(np.int64) ** 2
+                     ).sum())
+        b = bound((3 * R + S) * H * D * 2, 4 * H * D * pairs)
+        log(f"[kernels] segmented {kind} S={S} ({R} real + {S - R} pad) "
+            f"H={H} D={D}, strided qkv: max_abs_err {err:.3e}, {rel:.3e} of "
+            f"max |ref| (tol {TOL_SEG_REL}; a hidden k tile {rel_bad:.3e}); "
+            f"{pairs} pairs; device ms/call kernel {ms:.4f} (the {R} real rows "
+            f"alone {ms_real:.4f}) plain {plain_ms:.4f} masked sdpa "
+            f"{lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+        if kind == "window":
+            _record("flash_attention_segmented", err, ms, plain_ms, b, lib_ms,
+                    "F.scaled_dot_product_attention, boolean (S, S) mask",
+                    f"window segments S={S} H={H} D={D} (28 of 32 blocks)")
+        else:
+            _record("flash_attention_segmented", err)
+            RESULTS["flash_attention_segmented"]["full_image"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib_ms,
+                "real_rows_ms": ms_real,
+                "timed_at": f"full-image segment S={S} (4 of 32 blocks)"}
+        r = RESULTS["flash_attention_segmented"]
+        r["rel_err"] = max(r.get("rel_err", 0.0), rel)
+        if kind == "window":
+            r["real_rows_ms"] = ms_real
+        del ref, got, bad, mask
+    del qkv, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
+                          valid: int):
+    """q and a (L, 1, S, Hkv, D) bf16 cache at N(0, 1), with one key per kv
+    head planted at the last live row along its query heads' summed
+    direction — scored ~7 against the ~7.4 log-sum of the other 999 rows,
+    so it carries ~0.1-0.9 of each query head's weight — and a dead row at
+    `valid` planted three times stronger, which would swamp a read past
+    the live length."""
+    G = Hq // Hkv
+    q = torch.randn((1, 1, Hq, D), generator=g, device="cuda")
+    k = torch.randn((L, 1, S, Hkv, D), generator=g, device="cuda")
+    v = torch.randn((L, 1, S, Hkv, D), generator=g, device="cuda")
+    u = q.reshape(Hkv, G, D).sum(1)
+    u = u / u.norm(dim=-1, keepdim=True)
+    k[:, 0, valid - 1] = 21 * u
+    k[:, 0, valid] = 63 * u
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def check_stacked_decode() -> None:
+    """flash_decode_at_layer over the 5-D cache at Qwen2.5-VL-3B's decoder
+    (L 36, S 4096, Hq 16 over Hkv 2, D 128, 1000 live rows) and flash_decode
+    over one (B, S, Hkv, D) layer of it: errors against the plain versions,
+    within TOL_DECODE_REL of max |ref|, and the live length off by one
+    either way must break that bound; device time over the 36 layers in
+    turn (past the L2, as a step reads them), the bound, and sdpa over the
+    live rows (timed only)."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    L, S, Hq, Hkv, D, valid = 36, 4096, 16, 2, 128, 1000
+    g = torch.Generator(device="cuda").manual_seed(36)
+    q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid)
+    vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    err = {"flash_decode_at_layer": 0.0, "flash_decode": 0.0}
+    rel = dict(err)
+    rel_bad = float("inf")
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             lt, vl)
+        runs = {"flash_decode_at_layer": lambda n: fa.flash_decode_at_layer(
+                    q, k, v, lt, vl + n),
+                "flash_decode": lambda n: fa.flash_decode(q, k[li], v[li],
+                                                          vl + n)}
+        for name, run in runs.items():
+            e, r = _rel_err(run(0), ref)
+            err[name], rel[name] = max(err[name], e), max(rel[name], r)
+            for off in (-1, 1):
+                rel_bad = min(rel_bad, _rel_err(run(off), ref)[1])
+    require(max(rel.values()) <= TOL_DECODE_REL,
+            f"stacked decode errors {rel} of max |ref|")
+    require(rel_bad > TOL_DECODE_REL, f"stacked decode: a live length off "
+            f"by one stays within the bound ({rel_bad} of max |ref|)")
+    layer = _layer_cycle(L)
+    it = iter(range(10 ** 9))
+
+    def cycle() -> int:
+        return next(it) % L
+
+    def _on_layer(fn, li: int):
+        return fn(q, k[li], v[li], vl)
+    runs = {
+        "flash_decode_at_layer": (
+            lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
+            lambda: fa.flash_decode_at_layer_plain(q, k, v, layer(), vl)),
+        "flash_decode": (
+            lambda: _on_layer(fa.flash_decode, cycle()),
+            lambda: _on_layer(fa.flash_decode_plain, cycle())),
+    }
+    kv_live = [(k[li, :, :valid].transpose(1, 2).contiguous(),
+                v[li, :, :valid].transpose(1, 2).contiguous())
+               for li in range(L)]
+    qt = q.transpose(1, 2).contiguous()
+    lib_ms = device_ms(lambda: _sdpa(qt, *kv_live[cycle()]), iters=72)
+    b = bound(valid * Hkv * D * 2 * 2 + 2 * Hq * D * 2, 4 * Hq * valid * D)
+    for name, (kernel, plain) in runs.items():
+        ms = device_ms(kernel, iters=72)
+        plain_ms = device_ms(plain, iters=72)
+        log(f"[kernels] {name} L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} "
+            f"D={D}: max_abs_err {err[name]:.3e}, {rel[name]:.3e} of max "
+            f"|ref| (tol {TOL_DECODE_REL}; live length ±1 ≥ {rel_bad:.3e}); "
+            f"device ms/call kernel {ms:.4f} plain {plain_ms:.4f} sdpa "
+            f"{lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+        _record(name, err[name], ms, plain_ms, b, lib_ms,
+                "F.scaled_dot_product_attention over the live rows",
+                f"L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv}"
+                if name == "flash_decode_at_layer" else
+                f"one (1, {S}, {Hkv}, {D}) layer, valid={valid}")
+        RESULTS[name]["rel_err"] = rel[name]
+    del k, v, kv_live
+    torch.cuda.empty_cache()
+
 
 def phase_kernels() -> None:
     check_stack(1000, 1, "bf16", timed=False)
@@ -944,6 +1186,8 @@ def phase_kernels() -> None:
     check_prefill(256, True, timed=False)
     check_prefill(256, False, timed=False)
     check_prefill(2048, True, timed=True)
+    check_prefill(512, True, timed=False, Hkv=2)    # (n1)'s prompt bucket
+    check_prefill(2048, True, timed=False, Hkv=2)   # (n2)'s
     check_q8(2048, 1000, timed=True)
     check_q8(16384, 16000, timed=False)
     check_decode(16384, 16000, timed=False)
@@ -958,6 +1202,8 @@ def phase_kernels() -> None:
     check_stack(1000, 28, "q8", timed=True)
     check_stack(1000, 28, "q4", timed=True)
     check_stack(2047, 28, "gguf", timed=True)
+    check_segmented()
+    check_stacked_decode()
     torch.cuda.synchronize()
 
 
@@ -1554,8 +1800,8 @@ def _sync(device: str) -> None:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -1566,6 +1812,8 @@ def _tree_to(tree, device, dtype):
     integer tensors keep theirs)."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device, dtype) for v in tree]
     return tree.to(device=device, dtype=dtype if tree.is_floating_point()
                    else tree.dtype)
 
@@ -1735,6 +1983,345 @@ def _ask_concurrent(base: str, n: int) -> None:
     log(f"[http] {n} concurrent chats to --batch-slots {n}: all 200 with "
         f"content in {wall:.2f} s")
 
+# -- 8. Qwen2.5-VL image chat ---------------------------------------------------
+
+#: Qwen2.5-VL-3B-Instruct's special tokens: vision start / end, image pad
+VL_VSTART, VL_VEND, VL_IMAGE = 151652, 151653, 151655
+#: the reduced depth of the teacher-forced check and the served checkpoint:
+#: 8 vision blocks (block 7 full-attention, as in the published 32) and 4
+#: text layers, at the published widths
+VL_CUT = dict(depth=8, layers=4, fullatt=(7,))
+
+
+def _vl_cut(params: dict, depth: int, layers: int) -> dict:
+    """The first `depth` vision blocks and `layers` text layers of a
+    parameter tree, as views (the tied head stays the embedding)."""
+    text = params["text"]
+    lay = {k: _tree_map(lambda t: t[:layers], v)
+           for k, v in text["layers"].items()}
+    return {"visual": {**params["visual"],
+                       "blocks": params["visual"]["blocks"][:depth]},
+            "text": {**text, "layers": lay}}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _vl_image(side: int, seed: int):
+    """(patches, grid) of a seeded random side x side RGB image through the
+    port's Qwen-VL processing: Pillow decode and resize where it is
+    installed, else (said on a line) numpy frames straight into
+    patchify_qwen_vl, the same patches a side that is a multiple of 28
+    gives without resizing."""
+    from aha_tpu_torch.utils import image
+
+    rng = np.random.default_rng(seed)
+    pixels = rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        return image.preprocess_image_qwen_vl(Image.fromarray(pixels))
+    log("[vl] Pillow is not installed: patches from numpy frames through "
+        "patchify_qwen_vl")
+    arr = (pixels.astype(np.float32) / 255.0 - image.OPENAI_CLIP_MEAN) \
+        / image.OPENAI_CLIP_STD
+    return image.patchify_qwen_vl(arr.transpose(2, 0, 1)[None])
+
+
+def _vl_request(cfg, side: int, seed: int, n_pre: int = 12, n_post: int = 20):
+    """Prompt ids with one image of `side` pixels, its host inputs (numpy)
+    and its content digest."""
+    from aha_tpu_torch.models.qwen2_5vl_served import build_mm, mm_digest
+
+    patches, grid = _vl_image(side, seed)
+    rng = np.random.default_rng(seed)
+    n_units = grid[0] * grid[1] * grid[2] // 4
+    ids = (_prompt(rng, n_pre, 151643) + [VL_VSTART] + [VL_IMAGE] * n_units
+           + [VL_VEND] + _prompt(rng, n_post, 151643))
+    return (ids, build_mm([patches], [grid], ids, cfg), patches, grid,
+            mm_digest([patches], [grid]))
+
+
+def teacher_forced_vl(model, params, ids, mm, forced, device):
+    """Prefill `ids` with the image inputs `mm`, then feed `forced` one
+    token per step; the (1 + len(forced), H) final hidden states in f32 on
+    the CPU."""
+    from aha_tpu_torch.core import cache as kv
+    from aha_tpu_torch.core.engine import bucket_for
+
+    cache = model.init_cache(1, 1024, embed_dtype(params))
+    x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
+    x[0, :len(ids)] = torch.tensor(ids)
+    hs = [model.backbone(params, x.to(device), cache, mm=mm)[0, len(ids) - 1]]
+    kv.advance(cache, len(ids))
+    for t in forced:
+        hs.append(model.backbone(params, torch.tensor([[t]], device=device),
+                                 cache)[0, 0])
+        kv.advance(cache, 1)
+    return torch.stack(hs).float().cpu()
+
+
+def embed_dtype(params: dict) -> torch.dtype:
+    return params["text"]["embed"]["w"].dtype
+
+
+def phase_vl(device: str = "cuda") -> dict:
+    """(n1)-(n3) at the published geometry, then the teacher-forced check
+    at reduced depth; returns the model and parameters."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLModel, mm_to,
+                                                qwen2_5vl_3b)
+
+    cfg = qwen2_5vl_3b()
+    model = Qwen2_5VLModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(3),
+                               dtype=torch.bfloat16)
+    fused = model.fuse_params(params)
+    _sync(device)
+    n_vis = sum(t.numel() for t in _leaves(params["visual"]))
+    n_text = sum(t.numel() for name, t in params["text"].items()
+                 if name != "lm_head" for t in _leaves(t))
+    log(f"[vl] Qwen2.5-VL-3B geometry: vision {cfg.vision.depth} blocks H="
+        f"{cfg.vision.hidden_size}, text {cfg.text.num_hidden_layers} layers "
+        f"H={cfg.text.hidden_size} V={cfg.text.vocab_size} tied: "
+        f"{n_vis / 1e6:.1f} M + {n_text / 1e6:.1f} M bf16 params seeded on "
+        f"the card in {time.perf_counter() - t0:.1f} s (set-up)")
+    greedy = SamplingConfig()
+    reqs = {"n1": _vl_request(cfg, 448, 1), "n2": _vl_request(cfg, 980, 2)}
+    for name, side, patches in (("n1", 448, 1024), ("n2", 980, 4900)):
+        ids, mm_np, pat, grid, _ = reqs[name]
+        require(pat.shape[0] == patches and ids.count(VL_IMAGE) == patches // 4,
+                f"({name}) {side} px: {pat.shape[0]} patches, grid {grid}")
+    mms = {name: mm_to(r[1], torch.device(device)) for name, r in reqs.items()}
+
+    # warm-up of both patch buckets and prompt buckets, not counted; then
+    # the vision tower alone per image
+    warm = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    for name, r in reqs.items():
+        warm.generate_tokens(r[0], greedy, max_tokens=4, mm=mms[name])
+    del warm
+    vision_ms = {}
+    with torch.no_grad():
+        for name in reqs:
+            _sync(device)
+            t0 = time.perf_counter()
+            model.encode_vision(params["visual"], mms[name])
+            _sync(device)
+            vision_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                     prefix_cache_entries=4)
+    outs, timing = {}, {}
+    steps = 32                  # 2 decode blocks of 16 for 32 tokens
+    for name in ("n1", "n2"):
+        ids, _, _, _, key = reqs[name]
+        wr = zero_counts()
+        _sync(device)
+        outs[name] = eng.generate_tokens(ids, greedy, max_tokens=32,
+                                         mm=mms[name], mm_key=key,
+                                         mm_token_ids=(VL_IMAGE,))
+        _sync(device)
+        timing[name] = eng.last_timing
+        got = read_counts(wr, f"vl-{name}", ("flash_attention_segmented",
+                                             "flash_attention",
+                                             "flash_decode_at_layer"))
+        require(got["flash_attention_segmented"] == 32
+                and got["flash_attention"] == 36
+                and got["flash_decode_at_layer"] == 36 * steps,
+                f"({name}) launches {got}")
+        RESULTS["flash_decode"]["launches"] = got["flash_decode"]
+    # (n3): a follow-up turn on (n2)'s image — the stored prompt and more
+    # text: the prefix store restores its rows and rope_delta, the suffix
+    # is prefilled at its offset and no vision block runs
+    ids2, _, pat2, grid2, key2 = reqs["n2"]
+    rng = np.random.default_rng(33)
+    ids3 = ids2 + _prompt(rng, 24, 151643)
+    from aha_tpu_torch.models.qwen2_5vl_served import build_mm
+
+    mm3 = mm_to(build_mm([pat2], [grid2], ids3, cfg), torch.device(device))
+    wr = zero_counts()
+    _sync(device)
+    outs["n3"] = eng.generate_tokens(ids3, greedy, max_tokens=32, mm=mm3,
+                                     mm_key=key2, mm_token_ids=(VL_IMAGE,))
+    _sync(device)
+    timing["n3"] = eng.last_timing
+    got = read_counts(wr, "vl-n3", ("flash_decode_at_layer",))
+    require(got["flash_attention_segmented"] == 0
+            and got["flash_attention"] == 0
+            and got["flash_decode_at_layer"] == 36 * steps,
+            f"(n3) was not a prefix-store hit: launches {got}")
+    for name, out in outs.items():
+        require(len(out) == 32 and all(0 <= t < cfg.text.vocab_size
+                                       for t in out),
+                f"({name}): {len(out)} tokens")
+    card = card_line() if device == "cuda" else "cpu"
+    for name, what in (("n1", "448 x 448 image, 1024 patches (bucket 1024)"),
+                       ("n2", "980 x 980 image, 4900 patches (bucket 6400)"),
+                       ("n3", "follow-up on (n2), prefix-store hit")):
+        t = timing[name]
+        vis = (f"; vision tower alone {vision_ms[name]:.2f} ms"
+               if name in vision_ms else "")
+        log(f"[vl] ({name}) {what}: {t.prompt_tokens}-token prompt, prefill "
+            f"(vision + text, first token read) {t.prompt_secs * 1e3:.2f} ms"
+            f"{vis}; 32 greedy tokens, decode "
+            f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at "
+            f"batch 1 (per-op chain) | {card}")
+    cold = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    out3_cold = cold.generate_tokens(ids3, greedy, max_tokens=32, mm=mm3)
+    same = next((i for i, (x, y) in enumerate(zip(outs["n3"], out3_cold))
+                 if x != y), 32)
+    log(f"[vl] (n3) against a cold engine's full prefill of the same prompt "
+        f"(kernel prefill vs the plain suffix prefill over restored rows): "
+        f"greedy streams equal for the first {same}/32 tokens")
+    del cold, eng, fused
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 8 teacher-forced steps at reduced depth: the card through the kernels
+    # against the CPU in f32 through the plain versions
+    cut = qwen2_5vl_3b(**VL_CUT)
+    small = Qwen2_5VLModel(cut, max_rope_len=8192, device=device)
+    sp = _vl_cut(params, VL_CUT["depth"], VL_CUT["layers"])
+    ids1, mm1_np = reqs["n1"][0], reqs["n1"][1]
+    forced = outs["n1"][:8]
+    wr = zero_counts()
+    hk = teacher_forced_vl(small, sp, ids1, mms["n1"], forced, device)
+    launches = {n: fn.launches for n, fn in wr.items()}
+    require(launches["flash_attention_segmented"] == VL_CUT["depth"]
+            and launches["flash_decode_at_layer"] == 8 * VL_CUT["layers"],
+            f"teacher-forced launches {launches}")
+    cpu_model = Qwen2_5VLModel(cut, max_rope_len=8192, device="cpu")
+    cpu_params = _tree_to({"visual": sp["visual"],
+                           "text": {k: v for k, v in sp["text"].items()
+                                    if k != "lm_head"}}, "cpu", torch.float32)
+    cpu_params["text"]["lm_head"] = {"w": cpu_params["text"]["embed"]["w"]}
+    hp = teacher_forced_vl(cpu_model, cpu_params, ids1,
+                           mm_to(mm1_np, torch.device("cpu")), forced, "cpu")
+    rel = ((hk - hp).abs().max() / hp.abs().max()).item()
+    by_pos = " ".join(f"{((hk[i] - hp[i]).abs().max() / hp.abs().max()).item():.1e}"
+                      for i in range(len(hk)))
+    log(f"[vl] teacher-forced (n1) at full width, {VL_CUT['depth']} vision "
+        f"blocks (block 7 full-attention) and {VL_CUT['layers']} text "
+        f"layers, 9 positions: hidden max err {rel:.3e} of max |ref| (tol "
+        f"{TOL_VL_HIDDEN_REL}; by position {by_pos})")
+    require(rel <= TOL_VL_HIDDEN_REL, f"VL hidden off by {rel}")
+    del cpu_params, cpu_model
+    return {"model": model, "params": params}
+
+
+def phase_http_vl(params: dict) -> None:
+    """The reduced-depth model (VL_CUT) saved as a checkpoint and served by
+    `python -m aha_tpu_torch serv <dir>` (model type read from its
+    config.json): one chat with a PNG data-URL image, one text-only."""
+    with tempfile.TemporaryDirectory(prefix="aha_torch_vl_") as tmp:
+        _write_vl_checkpoint(tmp, params)
+        with _server(tmp) as base:
+            _ask_vl(base)
+
+
+def _write_vl_checkpoint(tmp: str, params: dict) -> None:
+    """A servable Qwen2.5-VL directory: the test tokenizer with the four
+    vision special tokens and an image-aware chat template, an HF-style
+    config at the published widths and VL_CUT's depth whose image token is
+    that tokenizer's, and the seeded weights (embedding rows past the
+    tokenizer zeroed, so replies decode to text)."""
+    from tokenizers import AddedToken
+
+    from aha_tpu_torch.io.weights import save_hf_qwen2_5vl
+
+    spec = importlib.util.spec_from_file_location(
+        "aha_test_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    tok = fixtures.build_tokenizer(tmp)
+    tok.add_special_tokens([AddedToken(t, special=True) for t in
+                            ("<|vision_start|>", "<|image_pad|>",
+                             "<|vision_end|>", "<|video_pad|>")])
+    tok.save(os.path.join(tmp, "tokenizer.json"))
+    eos = tok.token_to_id("<|im_end|>")
+    cut = _vl_cut(params, VL_CUT["depth"], VL_CUT["layers"])
+    embed = cut["text"]["embed"]["w"].clone()
+    embed[tok.get_vocab_size(with_added_tokens=True):] = 0
+    cut["text"] = {**cut["text"], "embed": {"w": embed},
+                   "lm_head": {"w": embed}}
+    from aha_tpu_torch.models.qwen2_5vl import qwen2_5vl_3b
+
+    model_cfg = qwen2_5vl_3b(**VL_CUT)
+    v = model_cfg.vision
+    cfg = {**model_cfg.text.__dict__,
+           "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+           "model_type": "qwen2_5_vl", "torch_dtype": "bfloat16",
+           "rope_scaling": {"type": "mrope", "mrope_section":
+                            list(model_cfg.mrope_section)},
+           "vision_config": {**v.__dict__, "fullatt_block_indexes":
+                             list(v.fullatt_block_indexes)},
+           "image_token_id": tok.token_to_id("<|image_pad|>"),
+           "video_token_id": tok.token_to_id("<|video_pad|>"),
+           "vision_start_token_id": tok.token_to_id("<|vision_start|>"),
+           "vision_end_token_id": tok.token_to_id("<|vision_end|>"),
+           "eos_token_id": eos}
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(tmp, "generation_config.json"), "w") as f:
+        json.dump({"eos_token_id": [eos]}, f)
+    tpl = fixtures.CHAT_TEMPLATE.replace(
+        "{{ message.content }}",
+        "{% if message.content is string %}{{ message.content }}"
+        "{% else %}{% for part in message.content %}"
+        "{% if part.type == 'text' %}{{ part.text }}"
+        "{% elif part.type == 'image_url' %}"
+        "<|vision_start|><|image_pad|><|vision_end|>{% endif %}"
+        "{% endfor %}{% endif %}")
+    with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": tpl}, f)
+    t0 = time.perf_counter()
+    save_hf_qwen2_5vl(cut, tmp)
+    log(f"[vl-http] full-width checkpoint ({VL_CUT['depth']} vision blocks, "
+        f"{VL_CUT['layers']} text layers) written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+
+def _png_data_url(side: int, seed: int) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 255, (side, side, 3),
+                                 dtype=np.uint8)).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def _ask_vl(base: str) -> None:
+    """A 224 x 224 PNG image chat (256 patches, 64 image tokens) and a
+    text-only chat: 200, the image's tokens in the prompt count, a reply."""
+    body = {"model": "Qwen/Qwen2.5-VL-3B-Instruct", "max_tokens": 16,
+            "temperature": 0.0, "stream": False}
+    image = [{"type": "text", "text": "describe the image "},
+             {"type": "image_url", "image_url": {"url": _png_data_url(224, 7)}}]
+    status, text = _post(base + "/v1/chat/completions", {
+        **body, "messages": [{"role": "user", "content": image}]})
+    u = json.loads(text)["usage"]
+    require(status == 200 and u["prompt_tokens"] > 64
+            and u["completion_tokens"] >= 1, text[-500:])
+    log(f"[vl-http] image chat 200: usage prompt {u['prompt_tokens']} "
+        f"(64 image tokens) completion {u['completion_tokens']}")
+    status, text = _post(base + "/v1/chat/completions", {
+        **body, "messages": [{"role": "user",
+                              "content": "hello world how are you today"}]})
+    u = json.loads(text)["usage"]
+    require(status == 200 and u["completion_tokens"] >= 1, text[-500:])
+    log(f"[vl-http] text-only chat 200: usage prompt {u['prompt_tokens']} "
+        f"completion {u['completion_tokens']}")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1759,6 +2346,10 @@ def main() -> int:
     timed("batch", phase_batch, state["model"], state["params"])
     timed("quant", phase_quant, state["model"], state["params"])
     timed("http", phase_http, state["model"].config, state["params"])
+    del state
+    torch.cuda.empty_cache()
+    vl = timed("vl", phase_vl)
+    timed("vl-http", phase_http_vl, vl["params"])
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(

@@ -425,3 +425,93 @@ def test_quant_kernels_wide_intermediate(dev, grid):
         1e-2 * ref.abs().max().item()
     assert (got_mm.float() - ref_mm).abs().max().item() <= \
         5e-3 * ref_mm.abs().max().item()
+
+
+def _windows(rng, S, pad):
+    """Sorted segments of 1-64 rows that straddle the 64-row tiles, then
+    `pad` rows of seg -1 (a patch bucket's tail)."""
+    import numpy as np
+
+    sizes = rng.integers(1, 65, S)
+    seg = np.repeat(np.arange(S), sizes)[:S - pad]
+    return np.concatenate([seg, -np.ones(pad, np.int64)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["windows", "full"])
+@pytest.mark.parametrize("S,H,Hkv,D,pad", [
+    (1024, 4, 4, 80, 200),      # the tower's D 80, a pad tail
+    (300, 4, 2, 64, 0),         # ragged S, G 2
+    (640, 2, 2, 128, 37),
+])
+def test_segment_flash_kernel_matches_plain(dev, kind, S, H, Hkv, D, pad):
+    """bf16 kernel vs the f32 plain version on the same inputs, every row
+    (pad rows included: both give them 0), 2e-2 abs."""
+    import numpy as np
+
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_attention_segmented, flash_attention_segmented_plain)
+
+    rng = np.random.default_rng(S + D)
+    seg = (_windows(rng, S, pad) if kind == "windows" else
+           np.concatenate([np.zeros(S - pad, np.int32),
+                           -np.ones(pad, np.int32)]))
+    seg = torch.from_numpy(seg).to(dev)
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = _bf(g, 1, S, H, D), _bf(g, 1, S, Hkv, D), _bf(g, 1, S, Hkv, D)
+    n0 = flash_attention_segmented.launches
+    got = flash_attention_segmented(q, k, v, seg)
+    ref = flash_attention_segmented_plain(q.float(), k.float(), v.float(),
+                                          seg)
+    torch.cuda.synchronize()
+    assert flash_attention_segmented.launches == n0 + 1
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+
+
+def test_segment_flash_reads_strided_qkv(dev):
+    """Thirds of one fused qkv product, as the vision tower hands them."""
+    from aha_tpu_torch.ops.flash_attention import flash_attention_segmented
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = _bf(g, 1, 512, 3, 4, 80)
+    seg = torch.arange(512, device=dev, dtype=torch.int32) // 48
+    views = [qkv[:, :, i] for i in range(3)]
+    got = flash_attention_segmented(*views, seg)
+    want = flash_attention_segmented(*[t.contiguous() for t in views], seg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,lens", [(1, (1,)), (1, (1000,)), (2, (77, 512))])
+def test_stacked_decode_wrappers_match_plain(dev, B, lens):
+    """flash_decode_at_layer over the 5-D cache at G 8 (Qwen2.5-VL's 16/2)
+    and flash_decode over one layer of it, 2e-2 abs."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    L, S, Hq, Hkv, D = 3, 1024, 16, 2, 128
+    q = _bf(g, B, 1, Hq, D)
+    k, v = _bf(g, L, B, S, Hkv, D), _bf(g, L, B, S, Hkv, D)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    layer = torch.tensor(2, dtype=torch.int32, device=dev)
+    got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+    ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                         layer, vl)
+    one = fa.flash_decode(q, k[1].contiguous(), v[1].contiguous(), vl)
+    ref1 = fa.flash_decode_plain(q.float(), k[1].float(), v[1].float(), vl)
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    assert (one.float() - ref1).abs().max().item() <= 2e-2
+
+
+def test_prefill_kernel_at_group_8(dev):
+    """Qwen2.5-VL-3B's text decoder: 16 query heads over 2 KV heads."""
+    from aha_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = _bf(g, 1, 256, 16, 128), _bf(g, 1, 256, 2, 128), \
+        _bf(g, 1, 256, 2, 128)
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= 2e-2

@@ -32,6 +32,19 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
                           env={**clean, **env}, timeout=120)
 
 
+#: the modules of the Qwen2.5-VL slice, each named so the walk above must
+#: find it
+VL_MODULES = ("aha_tpu_torch.models.llama", "aha_tpu_torch.models.qwen2_5vl",
+              "aha_tpu_torch.models.qwen2_5vl_served",
+              "aha_tpu_torch.utils.image", "aha_tpu_torch.utils.video")
+
+
+def test_vl_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({VL_MODULES!r}) - set(mods)\n"
+             "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
 def test_no_module_imports_jax():
     r = _run(ALL_MODULES + "assert 'jax' not in sys.modules, 'jax imported'\n")
     assert r.returncode == 0, r.stderr
