@@ -1,77 +1,110 @@
-// One-token GQA decode attention over the stacked flat KV cache.
+// One-token GQA decode attention over the stacked flat KV cache, in one
+// launch: split-KV partials and their fold.
 //
 // Replaces aha_tpu/ops/flash_attention.py:flash_decode_at_layer_flat
-// (Pallas body _decode_stacked_flat_kernel).
+// (Pallas body _decode_stacked_flat_kernel), and through views of the same
+// bytes flash_decode_at_layer_flat_batched, flash_decode_at_layer and
+// flash_decode.
 //
 //   q   (B, 1, Hq, D) bf16, contiguous
 //   k/v (L, B, S, Hkv*D) bf16, contiguous — the flat cache of core/cache.py
 //   layer, valid_len: int32 on the device, read by the kernel itself, so a
-//   decode step never syncs the host.  Rows [0, valid_len) are attended.
+//   decode step never syncs the host.  Rows [0, valid_len[b]) are attended.
 //
-// Bound: HBM bytes, 2 * valid_len * Hkv * D * 2 B per layer per step; the
-// arithmetic is ~1 FMA per byte.  Design: split-KV ("flash decoding").
-// Pass 1 gives each (batch, kv-head, split of rows) its own block — the
-// wrapper picks 64-row splits, so a 2048-row cache spreads over 256 blocks
-// instead of the 8 one block per kv-head would give, each walking 8 serial
-// row-iterations.  B > 1 is the continuous-batching step
-// (flash_decode_at_layer_flat_batched): one grid z-row per slot, each with
-// its own valid_len; a split past its slot's length exits at once.  Inside a block every row is read once with
-// 16-byte loads by D/8 lanes, and all G = Hq/Hkv query heads of the group
-// are scored from that one read.  Each sub-warp keeps its own running
-// (max, sum, acc) in f32; the block merges them in shared memory and writes
-// one partial per split.  Pass 2 folds the splits per query head.  Splits
-// past valid_len exit after writing an empty partial.
+// Bound: HBM bytes, 2 * valid_len * Hkv * D * 2 B per layer per step, and at
+// a thousand rows the latency of one launch and a few DRAM round trips.
+// Design ("flash decoding" with the combine folded in):
+//
+// - Grid (nsplit, Hkv · shares, B), nsplit fixed by S and Hkv only (the wrapper:
+//   enough blocks to fill 132 SMs at Hkv 2 as at Hkv 8).  Each block takes
+//   its share of its slot's LIVE rows: the slot uses ceil(valid / 32)
+//   splits at most, so a 1000-row decode spreads over 32 splits per
+//   kv-head whatever S is, and a split past the slot's count exits at once.
+//   A slot's result depends only on its own length: bit-equal to a B = 1
+//   launch on that slot alone.
+// - 8 warps; D/8 lanes own a row (16-byte loads), each sub-warp loads two
+//   rows before it computes, so a 32-row split is one DRAM round trip.  A
+//   block scores two of the group's G = Hq/Hkv query heads (all of them at
+//   G = 1) from that one read, each keeping its running (max, sum, acc) in
+//   f32; the G/2 blocks of a kv-head's heads read the same rows, the later
+//   reads from L2, so each share's fold stays short.  Sub-warps merge by
+//   shuffles, warps in shared memory, and the block writes one partial per
+//   (query head, split).
+// - The last block of each (slot, kv-head, share) to finish — an atomic
+//   ticket on a counter of its own, which that block resets to 0 for the
+//   next launch — folds the slot's splits for its heads: the per-split weights
+//   exp(m_s - M) and the sum Σ l_s·w_s by warps over the splits, then the
+//   G·D channels, each summed over the splits by groups of threads in a
+//   fixed order and the groups folded in a fixed order: deterministic,
+//   whichever block arrives last.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode_combine.cuh"
-
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMinRows = 32;         // live rows per split at least
+constexpr int kMaxSplit = 256;       // splits per (slot, kv-head) at most
+constexpr float kNegInf = -1e30f;    // finite, as the JAX kernels' NEG_INF
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float2 x = __bfloat1622float2(h[i]);
+    const float2 x = __bfloat1622float2(h[i]);
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const int* __restrict__ layer,
-                      const int* __restrict__ valid_len, int vl_stride,
-                      float* __restrict__ part_m, float* __restrict__ part_l,
-                      float* __restrict__ part_acc, int B, int Hq, int Hkv,
-                      int L, int S, int rows_per_split, float scale) {
-  constexpr int kLanesPerRow = D / 8;              // 16-byte chunk per lane
-  constexpr int kRowsPerWarp = 32 / kLanesPerRow;
-  constexpr int kSub = kWarps * kRowsPerWarp;      // rows in flight / block
-  __shared__ float sm_m[kSub][G];
-  __shared__ float sm_l[kSub][G];
-  __shared__ float sm_acc[kSub][G][D];
+template <int D, int G>   // G: the query heads one block scores
+struct Smem {
+  static constexpr int kLanesPerRow = D / 8;
+  static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
+  // phase 1: per-warp (m, l, acc); phase 2 (the fold) reuses the bytes
+  static constexpr int kMerge = kWarps * G * (D + 2);
+  static constexpr int kFold = G * kMaxSplit + 8 + kThreads * 4;
+  static constexpr int kFloats = kMerge > kFold ? kMerge : kFold;
+};
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
+// G here is the block's share of a kv-head's query heads (HB): the group's
+// Hq/Hkv heads are split over Hq/Hkv/G blocks that read the same rows (the
+// second read hits L2), so the fold of each share stays short.
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ layer,
+              const int* __restrict__ valid_len, int vl_stride, float* __restrict__ part_m,
+              float* __restrict__ part_l, float* __restrict__ part_acc,
+              int* __restrict__ counters, __nv_bfloat16* __restrict__ out, int B, int Hq,
+              int Hkv, int L, int S, float scale) {
+  constexpr int LPR = Smem<D, G>::kLanesPerRow;
+  constexpr int RPW = Smem<D, G>::kRowsPerWarp;
+  constexpr int kSub = kWarps * RPW;                // rows per load wave
+  __shared__ __align__(16) float smem[Smem<D, G>::kFloats];
+  __shared__ int s_last;
+
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int n_share = Hq / Hkv / G;                 // blocks per kv-head
+  const int h = blockIdx.y / n_share, share = blockIdx.y % n_share;
+  const int maxsplit = gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub_in_warp = lane / kLanesPerRow;
-  const int sub = warp * kRowsPerWarp + sub_in_warp;
-  const int chunk = lane % kLanesPerRow;
+  const int sub_in_warp = lane / LPR, chunk = lane % LPR;
+  const int sub = warp * RPW + sub_in_warp;
 
   int li = *layer;
   li = li < 0 ? 0 : (li >= L ? L - 1 : li);
   int valid = valid_len[b * vl_stride];
   valid = valid < 0 ? 0 : (valid > S ? S : valid);
-  const int start = split * rows_per_split;
-  const int end = min(start + rows_per_split, valid);
+  int nsplit = (valid + kMinRows - 1) / kMinRows;
+  nsplit = nsplit < 1 ? 1 : (nsplit > maxsplit ? maxsplit : nsplit);
+  if (split >= nsplit) return;
+  const int rows = (valid + nsplit - 1) / nsplit;
+  const int start = split * rows;
+  const int end = min(start + rows, valid);
 
   float qf[G][8];
   float m[G], l[G], acc[G][8];
@@ -82,7 +115,7 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
     const uint4 u = *reinterpret_cast<const uint4*>(
-        q + ((size_t)b * Hq + (size_t)h * G + g) * D + chunk * 8);
+        q + ((size_t)b * Hq + (size_t)h * (Hq / Hkv) + (size_t)share * G + g) * D + chunk * 8);
     bf16x8_to_float(u, qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) qf[g][i] *= scale;
@@ -90,95 +123,206 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 
   const size_t HD = (size_t)Hkv * D;
   const size_t base = (((size_t)li * B + b) * S) * HD + (size_t)h * D + chunk * 8;
-  // the loop bound is warp-uniform (all sub-warps of a warp step together),
-  // so the shuffles below never run under divergence
-  for (int r0 = start + warp * kRowsPerWarp; r0 < end; r0 += kSub) {
-    const int r = r0 + sub_in_warp;
-    const bool live = r < end;
-    float kf[8], vf[8];
-    if (live) {
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(k + base + r * HD), kf);
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(v + base + r * HD), vf);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
-    }
+  // the loop bound is block-uniform, so the shuffles never run divergent
+  for (int r0 = start; r0 < end; r0 += 2 * kSub) {
+    const int ra = r0 + sub, rb = r0 + kSub + sub;
+    const bool la = ra < end, lb = rb < end;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    const uint4 ka = la ? __ldg(reinterpret_cast<const uint4*>(k + base + ra * HD)) : z;
+    const uint4 va = la ? __ldg(reinterpret_cast<const uint4*>(v + base + ra * HD)) : z;
+    const uint4 kb = lb ? __ldg(reinterpret_cast<const uint4*>(k + base + rb * HD)) : z;
+    const uint4 vb = lb ? __ldg(reinterpret_cast<const uint4*>(v + base + rb * HD)) : z;
+    float kfa[8], kfb[8], vfa[8], vfb[8];
+    bf16x8_to_float(ka, kfa);
+    bf16x8_to_float(kb, kfb);
+    bf16x8_to_float(va, vfa);
+    bf16x8_to_float(vb, vfb);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s = 0.f;
+      float sa = 0.f, sb = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s = fmaf(qf[g][i], kf[i], s);
-#pragma unroll
-      for (int off = kLanesPerRow / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (live) {
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = __expf(m[g] - m_new);
-        const float p = __expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(acc[g][i], alpha, p * vf[i]);
-        m[g] = m_new;
+      for (int i = 0; i < 8; ++i) {
+        sa = fmaf(qf[g][i], kfa[i], sa);
+        sb = fmaf(qf[g][i], kfb[i], sb);
       }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) {
+        sa += __shfl_xor_sync(0xffffffffu, sa, off);
+        sb += __shfl_xor_sync(0xffffffffu, sb, off);
+      }
+      sa = la ? sa : -INFINITY;
+      sb = lb ? sb : -INFINITY;
+      const float m_new = fmaxf(m[g], fmaxf(sa, sb));
+      const float alpha = __expf(m[g] - m_new);
+      const float pa = __expf(sa - m_new), pb = __expf(sb - m_new);
+      l[g] = l[g] * alpha + pa + pb;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[g][i] = fmaf(acc[g][i], alpha, fmaf(pa, vfa[i], pb * vfb[i]));
+      m[g] = m_new;
     }
   }
 
-  for (int g = 0; g < G; ++g) {
-    if (chunk == 0) {
-      sm_m[sub][g] = m[g];
-      sm_l[sub][g] = l[g];
-    }
+  // merge the sub-warps of each warp (same chunk, other rows)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sm_acc[sub][g][chunk * 8 + i] = acc[g][i];
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], m_o);
+      const float wa = __expf(m[g] - M), wb = __expf(m_o - M);
+      l[g] = l[g] * wa + l_o * wb;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+        acc[g][i] = acc[g][i] * wa + acc_o * wb;
+      }
+      m[g] = M;
+    }
+  }
+  float* s_m = smem;                        // [kWarps][G]
+  float* s_l = s_m + kWarps * G;            // [kWarps][G]
+  float* s_acc = s_l + kWarps * G;          // [kWarps][G][D]
+  if (sub_in_warp == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (chunk == 0) {
+        s_m[warp * G + g] = m[g];
+        s_l[warp * G + g] = l[g];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s_acc[(warp * G + g) * D + chunk * 8 + i] = acc[g][i];
+    }
   }
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+  // the first query head of this block's share
+  const size_t head0 = (size_t)b * Hq + (size_t)h * (Hq / Hkv) + (size_t)share * G;
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
     const int g = idx / D, d = idx % D;
     float M = kNegInf;
-    for (int s = 0; s < kSub; ++s) M = fmaxf(M, sm_m[s][g]);
-    float Lsum = 0.f, A = 0.f;
-    for (int s = 0; s < kSub; ++s) {
-      const float w = __expf(sm_m[s][g] - M);
-      Lsum += sm_l[s][g] * w;
-      A += sm_acc[s][g][d] * w;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, s_m[w * G + g]);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = __expf(s_m[w * G + g] - M);
+      Ls = fmaf(s_l[w * G + g], wt, Ls);
+      A = fmaf(s_acc[(w * G + g) * D + d], wt, A);
     }
-    const size_t row = ((size_t)b * Hq + (size_t)h * G + g) * nsplit + split;
-    part_acc[row * D + d] = A;
+    const size_t row = (head0 + g) * maxsplit + split;
+    __stcg(part_acc + row * D + d, A);
     if (d == 0) {
-      part_m[row] = M;
-      part_l[row] = Lsum;
+      __stcg(part_m + row, M);
+      __stcg(part_l + row, Ls);
     }
+  }
+
+  // the ticket: the last split of this (slot, kv-head, share) folds them all
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ctr = counters + (size_t)b * Hkv * n_share + blockIdx.y;
+    const int ticket = atomicAdd(ctr, 1);
+    s_last = ticket == nsplit - 1;
+    if (s_last) *ctr = 0;                   // ready for the next launch
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  float* s_w = smem;                        // [G][kMaxSplit] exp(m_s - M)
+  float* s_inv = s_w + G * kMaxSplit;       // [G ≤ 8] 1 / Σ l_s·w_s
+  float4* s_part = reinterpret_cast<float4*>(s_inv + 8);   // [kThreads]
+  for (int g = warp; g < G; g += kWarps) {
+    const size_t row0 = (head0 + g) * maxsplit;
+    float M = kNegInf;
+    for (int s = lane; s < nsplit; s += 32) M = fmaxf(M, __ldcg(part_m + row0 + s));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float Ls = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float wt = __expf(__ldcg(part_m + row0 + s) - M);
+      s_w[g * kMaxSplit + s] = wt;
+      Ls = fmaf(__ldcg(part_l + row0 + s), wt, Ls);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) Ls += __shfl_xor_sync(0xffffffffu, Ls, off);
+    if (lane == 0) s_inv[g] = 1.f / fmaxf(Ls, 1e-30f);
+  }
+  __syncthreads();
+  // G·D/4 float4 outputs; `groups` threads per output, each summing the
+  // splits s ≡ its group (mod groups) in order
+  constexpr int kOut = G * D / 4;
+  constexpr int kGroups = kThreads / kOut > 0 ? kThreads / kOut : 1;
+  static_assert(kOut <= kThreads, "one float4 output per thread at least");
+  {
+    const int o = threadIdx.x % kOut, gi = threadIdx.x / kOut;
+    const int g = o / (D / 4), d4 = o % (D / 4);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gi < kGroups) {
+      const float4* src = reinterpret_cast<const float4*>(part_acc) +
+                          ((head0 + g) * maxsplit) * (D / 4) + d4;
+#pragma unroll 8
+      for (int s = gi; s < nsplit; s += kGroups) {
+        const float wt = s_w[g * kMaxSplit + s];
+        const float4 x = __ldcg(src + (size_t)s * (D / 4));
+        a.x = fmaf(x.x, wt, a.x);
+        a.y = fmaf(x.y, wt, a.y);
+        a.z = fmaf(x.z, wt, a.z);
+        a.w = fmaf(x.w, wt, a.w);
+      }
+    }
+    s_part[threadIdx.x] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x < kOut) {
+    const int o = threadIdx.x, g = o / (D / 4), d4 = o % (D / 4);
+    float4 a = s_part[o];
+#pragma unroll
+    for (int gi = 1; gi < kGroups; ++gi) {
+      const float4 x = s_part[gi * kOut + o];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const float inv = s_inv[g];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (head0 + g) * D + d4 * 4);
+    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
   }
 }
 
-struct PartialArgs {
+struct Args {
   const void *q, *k, *v, *layer, *valid_len;
   int vl_stride;
-  void *part_m, *part_l, *part_acc;
-  int B, Hq, Hkv, L, S, rows;
+  void *part_m, *part_l, *part_acc, *counters, *out;
+  int B, Hq, Hkv, L, S;
   float scale;
 };
 
 template <int D, int G>
-void launch_partial(dim3 grid, cudaStream_t st, const PartialArgs& a) {
-  decode_partial_kernel<D, G><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
+void launch(dim3 grid, cudaStream_t st, const Args& a) {
+  decode_kernel<D, G><<<grid, kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.layer),
-      static_cast<const int*>(a.valid_len), a.vl_stride,
-      static_cast<float*>(a.part_m), static_cast<float*>(a.part_l),
-      static_cast<float*>(a.part_acc), a.B, a.Hq, a.Hkv, a.L, a.S, a.rows,
-      a.scale);
+      static_cast<const int*>(a.valid_len), a.vl_stride, static_cast<float*>(a.part_m),
+      static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc),
+      static_cast<int*>(a.counters), static_cast<__nv_bfloat16*>(a.out), a.B, a.Hq, a.Hkv,
+      a.L, a.S, a.scale);
 }
 
+// Query heads per block: up to kShare of the group's G.
+constexpr int kShare = 2;
+
 template <int D>
-bool launch_for_group(int G, dim3 grid, cudaStream_t st, const PartialArgs& a) {
-  switch (G) {
-    case 1: launch_partial<D, 1>(grid, st, a); return true;
-    case 2: launch_partial<D, 2>(grid, st, a); return true;
-    case 4: launch_partial<D, 4>(grid, st, a); return true;
-    case 8: launch_partial<D, 8>(grid, st, a); return true;
+bool launch_for_group(int G, dim3 grid, cudaStream_t st, const Args& a) {
+  switch (G < kShare ? G : kShare) {
+    case 1: launch<D, 1>(grid, st, a); return true;
+    case 2: launch<D, 2>(grid, st, a); return true;
+    case 4: launch<D, 4>(grid, st, a); return true;
+    case 8: launch<D, 8>(grid, st, a); return true;
     default: return false;
   }
 }
@@ -189,22 +333,24 @@ extern "C" const char* aha_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D).
-// Supported: D in {64, 128}, G = Hq / Hkv in {1, 2, 4, 8}.
+// part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D);
+// counters: (B, Hq) int32 (one per block share of a kv-head's heads, at
+// most Hq), zero before the launch and left zero after it.
+// Supported: D in {64, 128}, G = Hq / Hkv in {1, 2, 4, 8}, 1 ≤ nsplit ≤ 256.
 extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     const void* layer, const void* valid_len,
                                     int vl_stride, void* part_m, void* part_l,
-                                    void* part_acc, void* out, int B, int Hq,
-                                    int Hkv, int D, int L, int S, int nsplit,
+                                    void* part_acc, void* counters, void* out, int B,
+                                    int Hq, int Hkv, int D, int L, int S, int nsplit,
                                     float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || nsplit < 1)
+  if (Hkv < 1 || Hq % Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PartialArgs a{q, k, v, layer, valid_len, vl_stride, part_m, part_l,
-                      part_acc, B, Hq, Hkv, L, S, (S + nsplit - 1) / nsplit,
-                      scale};
-  const dim3 grid(nsplit, Hkv, B);
+  const Args a{q, k, v, layer, valid_len, vl_stride, part_m, part_l, part_acc, counters,
+               out, B, Hq, Hkv, L, S, scale};
+  const int share = G < kShare ? G : kShare;
+  const dim3 grid(nsplit, Hkv * (G / share), B);
   bool ok = false;
   switch (D) {
     case 64: ok = launch_for_group<64>(G, grid, st, a); break;
@@ -212,8 +358,5 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_decode_combine(part_m, part_l, part_acc, out, B, Hq, D, nsplit,
-                               st);
+  return static_cast<int>(cudaGetLastError());
 }

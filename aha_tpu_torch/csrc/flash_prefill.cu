@@ -1,4 +1,5 @@
-// Blockwise online-softmax attention for prefill, causal or not, GQA.
+// Blockwise online-softmax attention for prefill, causal or not, GQA, on
+// Hopper's warpgroup MMA, TMA and mbarriers.
 //
 // Replaces aha_tpu/ops/flash_attention.py:flash_attention (Pallas body
 // _flash_kernel).
@@ -6,19 +7,37 @@
 //   q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) bf16, addressed through strides
 //   (the channel axis must be contiguous; no transposes) → o (B, Sq, Hq, D).
 //   q-head h reads kv-head h / (Hq / Hkv).  Sq, Skv multiples of 64;
-//   D in {64, 128}.  Causal: key j is visible to query i iff j <= i.
+//   D in {64, 128}; q/k/v bases and their batch, sequence and head strides
+//   16-byte aligned, as TMA needs.  Causal: key j is visible to query i iff
+//   j <= i.
 //
 // Bound: tensor-core FLOPs at S >= 2048 — 4 * Sq * Skv * D * Hq, halved
-// when causal.  Design: one block of 4 warps per (64-row q tile, q-head,
-// batch row); each warp owns 16 query rows and keeps its Q fragments and
-// its f32 output accumulator in registers.  The block walks 64-row K/V
-// tiles through shared memory (rows padded by 16 B so the fragment reads
-// are bank-conflict free), computes S = Q K^T and O += P V with
-// mma.sync.m16n8k16 bf16 → f32, and runs the online softmax on the S
-// fragments in registers — the (Sq, Skv) scores never leave the SM.  K/V
-// tiles wholly above the diagonal are not visited.  wgmma/TMA and
-// multi-stage loads are later work.
+// when causal.  Design (FlashAttention-3's shape, without its inter-warpgroup
+// ping-pong):
+//
+// - one block of three warpgroups per (128-row q tile, q-head, batch row):
+//   warpgroups 0 and 1 consume 64 rows each; warpgroup 2 is the producer,
+//   whose one thread issues TMA copies (cp.async.bulk.tensor, tensor maps
+//   encoded on the host through cudaGetDriverEntryPointByVersion, so no
+//   libcuda link) of the Q tile once and of 128-row K and V tiles into a
+//   3-stage ring, 128-byte swizzled, each completing on its own mbarrier;
+//   consumers hand a stage back on an "empty" mbarrier.  setmaxnreg moves
+//   registers from the producer to the consumers.
+// - consumers: S = Q·Kᵀ by wgmma.m64n128k16 with both operands in shared
+//   memory (K-major), the online softmax on the S accumulators in registers
+//   (exp2, scale folded in), O += P·V by wgmma with P from registers and V
+//   from shared memory (MN-major); the (Sq, Skv) scores never leave the SM.
+//   Each tile's S is issued together with the previous tile's P·V, and its
+//   softmax runs while that P·V finishes (two P buffers in turn; the
+//   operands pinned in registers, so no wgmma is serialized).
+// - causal: K/V tiles above the diagonal are never loaded, the mask runs
+//   only on the diagonal tile (and on a tile past Skv, whose rows TMA fills
+//   with zeros); q tiles are scheduled heaviest first (the grid's slower
+//   dimension walks them from the last), and the q-heads sharing a kv-head
+//   are neighbours in launch order, so their K/V tiles meet in L2.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -26,215 +45,421 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kPad = 8;
-constexpr int kThreads = 128;
+constexpr int kBlockQ = 128;
+constexpr int kBlockK = 128;
+constexpr int kStages = 3;
+constexpr int kThreads = 384;
+constexpr int kBoxBytes = 128 * 128;   // one [128 rows][64 bf16] TMA box
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int D>
+struct Layout {
+  static constexpr int NH = D / 64;                 // boxes per 128-row tile
+  static constexpr int kTile = NH * kBoxBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 128 + 1024;  // barriers, alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors, 128-byte swizzle; 8-row groups 1024 B
+// apart.  K-major: rows of 64 contiguous K values.  MN-major: rows of 64
+// contiguous N values along K, `lbo` bytes to the next 64 N values.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d(64x128, f32) (+)= A(64x16, smem desc) * B(16x128, smem desc), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64x64, f32) += A(64x16, registers) * B(16x64, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d(64x128, f32) += A(64x16, registers) * B(16x128, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_pair(const __nv_bfloat16& lo,
-                                              const __nv_bfloat16& hi) {
-  const uint32_t l = *reinterpret_cast<const uint16_t*>(&lo);
-  const uint32_t h = *reinterpret_cast<const uint16_t*>(&hi);
-  return l | (h << 16);
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(o, a, db);
 }
 
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct Strides {
-  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
+struct OutStrides {
+  long long ob, os, oh;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, Strides st, int Skv, int G,
-                     int causal, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockK][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlockK][D + kPad];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                           OutStrides st, int Sq, int Skv, int Hq, int G, int causal,
+                           float scale_log2) {
+  using Lay = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;          // swizzle atoms: 1024-aligned
+  const uint32_t sQ = base + Lay::kQ, sK = base + Lay::kK, sV = base + Lay::kV;
+  const uint32_t bar = base + Lay::kBar;
+  const uint32_t qbar = bar, fullk = bar + 8, fullv = bar + 8 + 8 * kStages,
+                 empty = bar + 8 + 16 * kStages;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
-  const int row0 = qt * kBlockQ + warp * 16 + g;  // rows row0, row0 + 8
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  const int n_qt = gridDim.y;
+  const int qt = causal ? n_qt - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBlockQ;
+  int n_tiles = (Skv + kBlockK - 1) / kBlockK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBlockQ, Sq) - 1) / kBlockK + 1);
 
-  const __nv_bfloat16* qp = q + b * st.qb + h * st.qh;
-  const __nv_bfloat16* kp = k + b * st.kb + (h / G) * st.kh;
-  const __nv_bfloat16* vp = v + b * st.vb + (h / G) * st.vh;
-
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qa[kk][0] = ld32(qp + row0 * st.qs + c);
-    qa[kk][1] = ld32(qp + (row0 + 8) * st.qs + c);
-    qa[kk][2] = ld32(qp + row0 * st.qs + c + 8);
-    qa[kk][3] = ld32(qp + (row0 + 8) * st.qs + c + 8);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(fullk + 8 * s, 1);
+      mbar_init(fullv + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);                      // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  int n_tiles = Skv / kBlockK;
-  if (causal) n_tiles = min(n_tiles, (qt * kBlockQ + kBlockQ - 1) / kBlockK + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = threadIdx.x; i < kBlockK * D / 8; i += kThreads) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const long long kr = (long long)(kt * kBlockK + r);
-      *reinterpret_cast<uint4*>(&Ks[r][c]) =
-          *reinterpret_cast<const uint4*>(kp + kr * st.ks + c);
-      *reinterpret_cast<uint4*>(&Vs[r][c]) =
-          *reinterpret_cast<const uint4*>(vp + kr * st.vs + c);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16(s[n], qa[kk], ld32(&Ks[n * 8 + g][kk * 16 + t * 2]),
-                 ld32(&Ks[n * 8 + g][kk * 16 + 8 + t * 2]));
-    }
-
-    // scale (log2 domain), causal mask, running max
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = row0 + (j >= 2 ? 8 : 0);
-        const int key = kt * kBlockK + n * 8 + t * 2 + (j & 1);
-        float x = s[n][j] * scale_log2;
-        if (causal && key > row) x = -INFINITY;
-        s[n][j] = x;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const int hk = h / G;
+      mbar_expect_tx(qbar, Lay::kTile);
+      for (int c = 0; c < Lay::NH; ++c) tma_load(sQ + c * kBoxBytes, &tq, qbar, c * 64, q0, h, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(fullk + 8 * s, Lay::kTile);
+        for (int c = 0; c < Lay::NH; ++c)
+          tma_load(sK + s * Lay::kTile + c * kBoxBytes, &tk, fullk + 8 * s, c * 64,
+                   kt * kBlockK, hk, b);
+        mbar_expect_tx(fullv + 8 * s, Lay::kTile);
+        for (int c = 0; c < Lay::NH; ++c)
+          tma_load(sV + s * Lay::kTile + c * kBoxBytes, &tv, fullv + 8 * s, c * 64,
+                   kt * kBlockK, hk, b);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wtid = threadIdx.x % 128, wi = wtid / 32, lane = wtid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + wg * 64 + wi * 16 + g;      // rows row0, row0 + 8
+    const int wg_row0 = q0 + wg * 64;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    uint32_t pa[8][4];               // P of the tile whose P·V is next
+    float sc[64];
+    mbar_wait(qbar, 0);
+
+    // S = Q·K_kt into sc, issued (not waited for)
+    auto issue_s = [&](int kt) {
+      const int s = kt % kStages;
+      mbar_wait(fullk + 8 * s, (kt / kStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sc, desc_k_major(sQ + koff + wg * 64 * 128),
+                      desc_k_major(sK + s * Lay::kTile + koff), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // acc += P·V_kt, issued
+    auto issue_pv_from = [&](int kt, const uint32_t (&p)[8][4]) {
+      const int s = kt % kStages;
+      mbar_wait(fullv + 8 * s, (kt / kStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk)
+        wgmma_pv<D>(acc, p[kk], desc_mn_major(sV + s * Lay::kTile + kk * 16 * 128, kBoxBytes));
+      wgmma_commit();
+    };
+    // the online softmax of sc (tile kt) into pn; a0/a1 get the rescale of
+    // the rows' output and running sums
+    auto softmax = [&](int kt, uint32_t (&pn)[8][4], float& a0, float& a1) {
+      const int key0 = kt * kBlockK;
+      const bool masked = (causal && key0 + kBlockK - 1 > wg_row0) || key0 + kBlockK > Skv;
+      // sc stays read-only here: it is the accumulator of a wgmma whose
+      // pipeline stage is still open, and writing it would serialize them
+      auto score = [&](int j, int e) {
+        float x = sc[j * 4 + e] * scale_log2;
+        if (masked) {
+          const int row = row0 + (e >= 2 ? 8 : 0);
+          const int key = key0 + j * 8 + t * 2 + (e & 1);
+          if (key >= Skv || (causal && key > row)) x = -INFINITY;
+        }
+        return x;
+      };
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(score(j, 0), score(j, 1)));
+        mx1 = fmaxf(mx1, fmaxf(score(j, 2), score(j, 3)));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // key 0 is visible to every row and tile 0 comes first: after it the
+      // running max is finite (rows past Sq see key 0 too: they compute on
+      // zero-filled q and are never written)
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      a0 = exp2f(m0 - mn0);
+      a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p0 = exp2f(score(j, 0) - m0), p1 = exp2f(score(j, 1) - m0);
+        const float p2 = exp2f(score(j, 2) - m1), p3 = exp2f(score(j, 3) - m1);
+        rs0 += p0 + p1;
+        rs1 += p2 + p3;
+        pn[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pn[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+    };
+
+    // pin the wgmma operands where they stand, so the compiler moves no
+    // definition of them into an open wgmma pipeline stage
+    auto pin_acc = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    };
+    auto pin_p = [&](uint32_t (&p)[8][4]) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kk][e])::"memory");
+    };
+    // one tile: S = Q·K_kt and P_{kt-1}·V_{kt-1} on the tensor cores
+    // together, the softmax of S_kt into pout while the P·V finishes
+    uint32_t pb[8][4];
+    float a0, a1;
+    auto step = [&](int kt, uint32_t (&pin)[8][4], uint32_t (&pout)[8][4]) {
+      pin_acc();
+      pin_p(pin);
+      wgmma_fence();
+      issue_s(kt);
+      issue_pv_from(kt - 1, pin);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");   // S done
+      softmax(kt, pout, a0, a1);
+      pin_p(pout);
+      wgmma_wait0();                                                     // P·V done
+      pin_acc();
+      if (wtid == 0) mbar_arrive(empty + 8 * ((kt - 1) % kStages));
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j * 4] *= a0;
+        acc[j * 4 + 1] *= a0;
+        acc[j * 4 + 2] *= a1;
+        acc[j * 4 + 3] *= a1;
+      }
+    };
+    auto last_pv = [&](uint32_t (&p)[8][4]) {
+      pin_acc();
+      pin_p(p);
+      wgmma_fence();
+      issue_pv_from(n_tiles - 1, p);
+      wgmma_wait0();
+      pin_acc();
+      if (wtid == 0) mbar_arrive(empty + 8 * ((n_tiles - 1) % kStages));
+    };
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait0();
+    softmax(0, pa, a0, a1);
+    int kt = 1;
+    for (; kt + 1 < n_tiles; kt += 2) {
+      step(kt, pa, pb);
+      step(kt + 1, pb, pa);
+    }
+    if (kt < n_tiles) {
+      step(kt, pa, pb);
+      last_pv(pb);
+    } else {
+      last_pv(pa);
+    }
+
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    // key 0 is visible to every row, so after tile 0 the max is finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* op = o + b * st.ob + h * st.oh;
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - m0);
-      s[n][1] = exp2f(s[n][1] - m0);
-      s[n][2] = exp2f(s[n][2] - m1);
-      s[n][3] = exp2f(s[n][3] - m1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + t * 2;
+      if (row0 < Sq)
+        *reinterpret_cast<uint32_t*>(op + row0 * st.os + c) =
+            pack_bf16(acc[j * 4] * inv0, acc[j * 4 + 1] * inv0);
+      if (row0 + 8 < Sq)
+        *reinterpret_cast<uint32_t*>(op + (row0 + 8) * st.os + c) =
+            pack_bf16(acc[j * 4 + 2] * inv1, acc[j * 4 + 3] * inv1);
     }
-    l0 = l0 * a0 + rs0;   // per-thread partial row sums; reduced at the end
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
+  }
+}
 
-    // O += P V: the S accumulator fragments of two adjacent key n-tiles are
-    // exactly the A fragment of a 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + t * 2;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int d = n * 8 + g;
-        mma_bf16(acc[n], pa, pack_pair(Vs[key][d], Vs[key + 1][d]),
-                 pack_pair(Vs[key + 8][d], Vs[key + 9][d]));
-      }
-    }
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
+  return fn;
+}
 
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* op = o + b * st.ob + h * st.oh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(op + row0 * st.os + c) =
-        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(op + (row0 + 8) * st.os + c) =
-        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
+// A (D, S, H, B) map of 128-row, 64-channel boxes over a strided bf16
+// (B, S, H, D) tensor (element strides bs, ss, hs; channel stride 1).
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long bs,
+              long long ss, long long hs) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t es[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(dim3 grid, cudaStream_t s, const CUtensorMap& tq, const CUtensorMap& tk,
+           const CUtensorMap& tv, __nv_bfloat16* o, OutStrides st, int Sq, int Skv, int Hq,
+           int G, int causal, float scale_log2) {
+  const int smem = Layout<D>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_prefill_kernel<D><<<grid, kThreads, smem, s>>>(tq, tk, tv, o, st, Sq, Skv, Hq, G,
+                                                             causal, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides: 12 element strides (batch, seq, head) of q, k, v, o in order.
-extern "C" int aha_flash_prefill(const void* q, const void* k, const void* v,
-                                 void* o, long long qb, long long qs,
-                                 long long qh, long long kb, long long ks,
-                                 long long kh, long long vb, long long vs,
-                                 long long vh, long long ob, long long os,
-                                 long long oh, int B, int Sq, int Skv, int Hq,
-                                 int Hkv, int D, int causal, float scale,
-                                 void* stream) {
-  if (Sq % kBlockQ != 0 || Skv % kBlockK != 0 || Hkv < 1 || Hq % Hkv != 0)
+extern "C" int aha_flash_prefill(const void* q, const void* k, const void* v, void* o,
+                                       long long qb, long long qs, long long qh, long long kb,
+                                       long long ks, long long kh, long long vb, long long vs,
+                                       long long vh, long long ob, long long os, long long oh,
+                                       int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                                       int causal, float scale, void* stream) {
+  if (Sq % 64 != 0 || Skv % 64 != 0 || Hkv < 1 || Hq % Hkv != 0 || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
-  const dim3 grid(Sq / kBlockQ, Hq, B);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, Sq, Hq, B, qb, qs, qh) || !make_map(&tk, k, D, Skv, Hkv, B, kb, ks, kh) ||
+      !make_map(&tv, v, D, Skv, Hkv, B, vb, vs, vh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(Hq * B, (Sq + kBlockQ - 1) / kBlockQ);
+  const OutStrides st{ob, os, oh};
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(o);
-  switch (D) {
-    case 64:
-      flash_prefill_kernel<64><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, oo, st, Skv, Hq / Hkv, causal, scale_log2);
-      break;
-    case 128:
-      flash_prefill_kernel<128><<<grid, kThreads, 0, s>>>(
-          qq, kk, vv, oo, st, Skv, Hq / Hkv, causal, scale_log2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? launch<64>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, Hq / Hkv, causal, scale_log2)
+                 : launch<128>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, Hq / Hkv, causal,
+                               scale_log2);
 }

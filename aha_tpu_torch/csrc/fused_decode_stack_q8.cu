@@ -143,7 +143,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_q8_kernel(const QStac
     columns(a.qkv, li, NQKV, H, st, [&](int n, float y) { __stcg(w.qkv + n, y); });
     aha_coop::grid_barrier();
     // 2-3. attention
-    attention_phase<D, GC>(a, li, pos, w.qkv, w.part_m, w.part_l, w.part_acc, s_merge);
+    attention_phase<D, GC>(a, li, pos, w.qkv, w.part_m, w.part_l, w.part_acc, s_merge,
+                            cache_row<D>(a, a.k_cache, li, pos),
+                            cache_row<D>(a, a.v_cache, li, pos));
     aha_coop::grid_barrier();
     combine_phase<D>(a, pos, items_per_split, w.part_m, w.part_l, w.part_acc, w.attn);
     aha_coop::grid_barrier();

@@ -5,8 +5,11 @@
 // threads per block, a grid barrier between them (cooperative.cuh).
 //
 //   attention_phase: q/k head norms and RoPE in registers, split-KV over
-//     (kv-head, head chunk, row split) work items; the fresh k/v row is used
-//     from registers and written to the cache by one item;
+//     (kv-head, head chunk, row split) work items over cache rows
+//     [0, n_cached) and the fresh row after them; the fresh k/v row is used
+//     from registers and written by one item where the caller says (the
+//     stacks: the cache row at pos = n_cached; the one-layer kernel
+//     fused_decode_layer.cu: its output rows, the cache untouched);
 //   combine_phase:   the splits merged per query head.
 //
 // Both read the projected q|k|v (f32 workspace, NQ + 2·HD) and the stack's
@@ -122,13 +125,24 @@ constexpr size_t merge_bytes() {
   return (size_t)kWarps * GC * (D + 2) * sizeof(float);
 }
 
+// Row `pos` of layer `li` of a flat (L, 1, S, Hkv·D) cache.
+template <int D, class Args>
+__device__ __forceinline__ __nv_bfloat16* cache_row(const Args& a, __nv_bfloat16* cache,
+                                                    int li, int pos) {
+  return cache + ((size_t)li * a.S + pos) * a.hkv * D;
+}
+
 // One work item per (kv-head h, chunk of GC query heads, split).  Sub-warps
 // of LPR lanes take rows; each keeps (m, l, acc) per query head in f32; the
-// block merges them and writes one partial per (query head, split).
+// block merges them and writes one partial per (query head, split).  Row
+// index n_cached is the fresh row; its Hkv·D k and v values go to
+// k_fresh / v_fresh.
 template <int D, int GC, class Args>
-__device__ void attention_phase(const Args& a, int li, int pos, const float* qkv,
+__device__ void attention_phase(const Args& a, int li, int n_cached, const float* qkv,
                                 float* part_m, float* part_l, float* part_acc,
-                                float* s_merge) {
+                                float* s_merge, __nv_bfloat16* k_fresh,
+                                __nv_bfloat16* v_fresh) {
+  const int pos = n_cached;
   constexpr int LPR = D / 8;
   constexpr int RPW = 32 / LPR;
   constexpr int kSub = kWarps * RPW;
@@ -174,9 +188,9 @@ __device__ void attention_phase(const Args& a, int li, int pos, const float* qkv
         v_new[i] = round_bf16(v_new[i]);
       }
       if (gc == 0 && warp == 0 && sub_in_warp == 0) {
-        const size_t off = layer_base + (size_t)pos * HD + h * D + chunk * 8;
-        *reinterpret_cast<uint4*>(a.k_cache + off) = float8_to_bf16x8(k_new);
-        *reinterpret_cast<uint4*>(a.v_cache + off) = float8_to_bf16x8(v_new);
+        const size_t off = (size_t)h * D + chunk * 8;
+        *reinterpret_cast<uint4*>(k_fresh + off) = float8_to_bf16x8(k_new);
+        *reinterpret_cast<uint4*>(v_fresh + off) = float8_to_bf16x8(v_new);
       }
     }
 
@@ -280,10 +294,10 @@ __device__ void attention_phase(const Args& a, int li, int pos, const float* qkv
 
 // attn[head, d] = Σ_s acc·e^(m−M) / Σ_s l·e^(m−M).
 template <int D, class Args>
-__device__ void combine_phase(const Args& a, int pos, int items_per_split,
+__device__ void combine_phase(const Args& a, int n_cached, int items_per_split,
                               const float* part_m, const float* part_l,
                               const float* part_acc, float* attn) {
-  const SplitPlan plan = split_plan(pos + 1, items_per_split);
+  const SplitPlan plan = split_plan(n_cached + 1, items_per_split);
   for (int head = blockIdx.x; head < a.hq; head += gridDim.x) {
     for (int d = threadIdx.x; d < D; d += kThreads) {
       const size_t row0 = (size_t)head * gridDim.x;

@@ -84,9 +84,9 @@ def load_qwen3_gguf(path: str, dtype: torch.dtype | None = None,
                     device: torch.device | str | None = None
                     ) -> tuple[Qwen3Model, dict, GGUFFile]:
     """(model, params, gguf) from a qwen3-architecture .gguf file, on
-    `device` — by default the port's device (utils/device.py: the card when
-    one is visible, `AHA_DEVICE` overriding) — with dense tensors in `dtype`
-    (by default that device's compute dtype).  Layers are stacked (L, ...) as the JAX loader stacks them,
+    `device` — by default the port's device (utils/device.py: the card,
+    which must be visible, unless `AHA_DEVICE` names another) — with dense
+    tensors in `dtype` (by default that device's compute dtype).  Layers are stacked (L, ...) as the JAX loader stacks them,
     which takes one grid per tensor name across the layers: a file whose
     layers store the same tensor in formats of different grids (Q4_K_M's
     Q6_K `attn_v` / `ffn_down` in some layers, Q4_K in the others) is

@@ -7,11 +7,14 @@ raises.  `<wrapper>.launches` counts kernel launches.
 
 - `flash_attention` ← aha_tpu/ops/flash_attention.py:flash_attention
   (csrc/flash_prefill.cu): bound by tensor-core FLOPs at long prompts;
-  mma.sync tiles with the online softmax in registers.
+  wgmma on 128-row q tiles (two consumer warpgroups), K/V tiles fed by
+  TMA from a producer warpgroup through mbarriers, the online softmax in
+  registers, causal q tiles heaviest first.
 - `flash_decode_at_layer_flat` ← aha_tpu/ops/flash_attention.py:
   flash_decode_at_layer_flat (csrc/decode_attention.cu): bound by the
-  bytes of the live cache rows; split-KV over 64-row chunks plus a combine
-  pass, so a short batch-1 step still spreads over many SMs.
+  bytes of the live cache rows, and at short caches by latency; one launch
+  spreads the LIVE rows over up to decode_splits(S, Hkv) splits per
+  kv-head and the last split to finish folds them (an atomic ticket).
 - `flash_decode_at_layer_flat_batched` ← flash_decode_at_layer_flat_batched
   (the same kernel at B slots): the TPU kernel folds the slots into one
   block only to spare the Pallas grid sequencer; here the grid is
@@ -47,10 +50,10 @@ from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.ops.attention import (causal_mask, dequantize_layer, sdpa,
                                          segment_mask)
 
-#: cache rows per decode split (one pass-1 block per split and kv-head):
-#: short splits keep many blocks in flight, each walking few serial rows.
-#: The q8 kernel's all-int8 variant requantizes p over the rows of one
-#: split, as the TPU kernel does over one block_k block.
+#: cache rows per split of the int8-cache decode kernel (one pass-1 block
+#: per split and kv-head): short splits keep many blocks in flight, each
+#: walking few serial rows.  Its all-int8 variant requantizes p over the
+#: rows of one split, as the TPU kernel does over one block_k block.
 DECODE_ROWS_PER_SPLIT = 64
 
 
@@ -116,17 +119,51 @@ def _decode_scratch(q: torch.Tensor, S: int):
             torch.empty((B, Hq, nsplit, D), **f32))
 
 
+#: the bf16 decode kernel's splits per (slot, kv-head): at least this many
+#: live rows each, and at most DECODE_BLOCKS / Hkv of them, so Hkv 2 fills
+#: the 132 SMs as well as Hkv 8 does; fixed by S and Hkv, never by B, so a
+#: slot's result does not depend on the other slots
+DECODE_MIN_ROWS = 32
+DECODE_BLOCKS = 256
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def decode_splits(S: int, Hkv: int) -> int:
+    """The bf16 decode kernel's grid of splits (at most 256)."""
+    return max(1, min(DECODE_BLOCKS // Hkv, -(-S // DECODE_MIN_ROWS)))
+
+
+def _ticket_counters(device: torch.device, stream: int, n: int):
+    """(n,) int32 zeros for the kernel's tickets (one per slot and block
+    share of a kv-head's query heads), kept per device and stream: every
+    launch leaves them zero again."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
+
+
 def _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale):
     B, Hq, Hkv, D, L, S = _check_decode(q, k_stack, v_stack, layer,
                                         valid_len, torch.bfloat16)
-    nsplit, part_m, part_l, part_acc = _decode_scratch(q, S)
+    nsplit = decode_splits(S, Hkv)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((B, Hq, nsplit), **f32)
+    part_l = torch.empty((B, Hq, nsplit), **f32)
+    part_acc = torch.empty((B, Hq, nsplit, D), **f32)
+    stream = kernels.stream_handle(q)
+    tickets = _ticket_counters(q.device, stream, B * Hq)
     out = torch.empty_like(q)
     rc = kernels.lib().aha_decode_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         layer.data_ptr(), valid_len.data_ptr(),
         0 if valid_len.numel() == 1 else 1, part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-        D, L, S, nsplit, float(scale), kernels.stream_handle(q))
+        part_l.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, D, L, S, nsplit, float(scale), stream)
     kernels.check(rc, "aha_decode_attention")
     return out
 
@@ -349,11 +386,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"prefill kernel needs Sq, Skv multiples of 64 ({Sq}, {Skv})")
     require(all(t.stride(-1) == 1 for t in (q, k, v)),
             "prefill kernel needs a contiguous channel axis")
-    # 4-byte fragment loads of q; 16-byte row loads of k/v
-    require(q.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in q.stride()[:3]),
-            "q rows must be 4-byte aligned")
+    # TMA copies: 16-byte aligned bases and batch/sequence/head strides
     require(all(_aligned16(t) and all(s % 8 == 0 for s in t.stride()[:3])
-                for t in (k, v)), "k/v rows must be 16-byte aligned")
+                for t in (q, k, v)), "prefill kernel needs 16-byte aligned "
+            "q/k/v rows (base and strides), as TMA does")
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = kernels.lib().aha_flash_prefill(

@@ -1,5 +1,5 @@
 """The whole-stack fused decode step (batch 1, one token, dense Qwen3), over
-bf16 weights or over the GGUF grids.
+bf16 weights or over the GGUF grids, and the one-layer fused decode block.
 
 Replaces aha_tpu/ops/fused_layer.py:fused_decode_stack with the CUDA kernel
 of csrc/fused_decode_stack.cu, and :fused_decode_stack_q8 with that of
@@ -26,9 +26,17 @@ read the live length from the device, so the port has no window argument.
 `MAX_WINDOW` stays the gate of the model (models/qwen3.py): a fused step
 runs while at most that many cache rows are live, as in the JAX package.
 
+`fused_decode_layer` replaces aha_tpu/ops/fused_layer.py:fused_decode_layer
+with csrc/fused_decode_layer.cu: one layer (its index and the position read
+on the device) through the same phases, with the per-layer kernel's
+numerics (the residual rounded to bf16 after attention) and, as in JAX, the
+cache read only: the new K/V rows are returned for the caller to write.
+No model calls it; bound: one layer's weight bytes plus the live window.
+
 On the CPU the plain versions run; on the card the kernel runs or the
-wrapper raises.  `fused_decode_stack.launches` and
-`fused_decode_stack_q8.launches` count kernel launches.
+wrapper raises.  `fused_decode_stack.launches`,
+`fused_decode_stack_q8.launches` and `fused_decode_layer.launches` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -117,19 +125,21 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * w
 
 
-def _attend(qkv: torch.Tensor, lyr: dict, li: int, pos: torch.Tensor,
+def _attend(qkv: torch.Tensor, lyr: dict, li: int, n_cached: torch.Tensor,
             cos: torch.Tensor, sin: torch.Tensor, k_cache: torch.Tensor,
-            v_cache: torch.Tensor, eps: float, n: dict) -> torch.Tensor:
+            v_cache: torch.Tensor, eps: float, n: dict
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's attention in the plain versions, as the Pallas
-    _attention_rows: q/k head norms and RoPE, q and the fresh k/v rounded to
-    bf16, f32 scores over rows [0, pos) plus the fresh row, probabilities
-    rounded to bf16 for the value product as its dot does; writes the fresh
-    k/v row at pos.  Returns the (NQ,) f32 output, unrounded."""
+    _attention_rows / _attention: q/k head norms and RoPE, q and the fresh
+    k/v rounded to bf16, f32 scores over cache rows [0, n_cached) plus the
+    fresh row, probabilities rounded to bf16 for the value product as its
+    dot does.  Returns the (NQ,) f32 output, unrounded, and the fresh k/v
+    rows (Hkv, D) in f32 (bf16 values)."""
     S, D, hkv, hq, NQ, HD = (n[k] for k in ("S", "D", "hkv", "hq", "NQ",
                                             "HD"))
     G = hq // hkv
     bf = torch.bfloat16
-    live = (torch.arange(S, device=qkv.device) < pos).reshape(1, 1, S)
+    live = (torch.arange(S, device=qkv.device) < n_cached).reshape(1, 1, S)
     cosf, sinf = cos.reshape(1, D).float(), sin.reshape(1, D).float()
     scale = D ** -0.5
     q = _rms(qkv[:NQ].reshape(hq, D), lyr["q_norm"]["w"][li].float(), eps)
@@ -150,10 +160,18 @@ def _attend(qkv: torch.Tensor, lyr: dict, li: int, pos: torch.Tensor,
     denom = p.sum(-1, keepdim=True) + p_cur
     o = torch.einsum("hgs,shd->hgd", p.to(bf).float(), vw)
     o = (o + p_cur * v[:, None, :]) / denom
+    return o.reshape(NQ), k, v
+
+
+def _attend_in_place(qkv, lyr, li, pos, cos, sin, k_cache, v_cache, eps, n):
+    """_attend over rows [0, pos), then the fresh k/v row written into the
+    cache at pos, as the stacks do."""
+    o, k, v = _attend(qkv, lyr, li, pos, cos, sin, k_cache, v_cache, eps, n)
     pidx = pos.reshape(1).long()
+    HD = n["HD"]
     k_cache[li, 0].index_copy_(0, pidx, k.reshape(1, HD).to(k_cache.dtype))
     v_cache[li, 0].index_copy_(0, pidx, v.reshape(1, HD).to(v_cache.dtype))
-    return o.reshape(NQ)
+    return o
 
 
 def _silu_mul(gu: torch.Tensor, inter: int) -> torch.Tensor:
@@ -174,8 +192,8 @@ def fused_decode_stack_plain(x, layers, pos, cos, sin, k_cache, v_cache, eps):
             return p["w"][li].float()
 
         h1 = _rms(xf, w(lyr["ln1"]), eps).to(bf).float()
-        o = _attend(h1 @ w(lyr["qkv"]), lyr, li, pos, cos, sin, k_cache,
-                    v_cache, eps, n)
+        o = _attend_in_place(h1 @ w(lyr["qkv"]), lyr, li, pos, cos, sin,
+                             k_cache, v_cache, eps, n)
         xf = xf + o.to(bf).float() @ w(lyr["o"])
         h2 = _rms(xf, w(lyr["ln2"]), eps).to(bf).float()
         act = _silu_mul(h2 @ w(lyr["mlp"]["gateup"]), n["NI"])
@@ -199,8 +217,8 @@ def fused_decode_stack_q8_plain(x, layers, pos, cos, sin, k_cache, v_cache,
             return qdot(p, *quant_acts(v[None], grid_k(p)))[0]
 
         h1 = _rms(xf, lyr["ln1"]["w"][li].float(), eps)
-        o = _attend(mm(lyr["qkv"], h1), lyr, li, pos, cos, sin, k_cache,
-                    v_cache, eps, n)
+        o = _attend_in_place(mm(lyr["qkv"], h1), lyr, li, pos, cos, sin,
+                             k_cache, v_cache, eps, n)
         xf = xf + mm(lyr["o"], o)
         h2 = _rms(xf, lyr["ln2"]["w"][li].float(), eps)
         act = _silu_mul(mm(lyr["mlp"]["gateup"], h2), n["NI"])
@@ -252,6 +270,23 @@ def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n):
     return ptrs, cos_r, sin_r, ws, out, grid
 
 
+def _dense_mats(x: torch.Tensor, layers: dict, n: dict) -> dict:
+    """The bf16 kernels' checks of the four stacked weights; {name: w}."""
+    L, H, NI = n["L"], n["H"], n["NI"]
+    shapes = dict(qkv=(L, H, n["NQ"] + 2 * n["HD"]), o=(L, n["NQ"], H),
+                  gateup=(L, H, 2 * NI), down=(L, NI, H))
+    w = dict(zip(shapes, (p["w"] for p in _mats(layers))))
+    for name, shape in shapes.items():
+        t = w[name]
+        require(tuple(t.shape) == shape, f"{name} is {tuple(t.shape)}, "
+                f"expected {shape}")
+        require(t.device == x.device and t.dtype == torch.bfloat16
+                and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{name} must be a contiguous, 16-byte aligned bf16 tensor "
+                f"on x's device")
+    return w
+
+
 def fused_decode_stack(x: torch.Tensor, layers: dict, pos: torch.Tensor,
                        cos: torch.Tensor, sin: torch.Tensor,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -265,25 +300,14 @@ def fused_decode_stack(x: torch.Tensor, layers: dict, pos: torch.Tensor,
     if not x.is_cuda:
         return fused_decode_stack_plain(x, layers, pos, cos, sin, k_cache,
                                         v_cache, eps)
-    L, H, NI = n["L"], n["H"], n["NI"]
-    shapes = dict(qkv=(L, H, n["NQ"] + 2 * n["HD"]), o=(L, n["NQ"], H),
-                  gateup=(L, H, 2 * NI), down=(L, NI, H))
-    w = dict(zip(shapes, (p["w"] for p in _mats(layers))))
-    for name, shape in shapes.items():
-        t = w[name]
-        require(tuple(t.shape) == shape, f"{name} is {tuple(t.shape)}, "
-                f"expected {shape}")
-        require(t.device == x.device and t.dtype == torch.bfloat16
-                and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"{name} must be a contiguous, 16-byte aligned bf16 tensor "
-                f"on x's device")
+    w = _dense_mats(x, layers, n)
     norms, cos_r, sin_r, ws, out, grid = _launch_args(
         x, layers, pos, cos, sin, k_cache, v_cache, n)
     rc = kernels.lib().aha_fused_decode_stack(
         x.data_ptr(), *(t.data_ptr() for t in w.values()), *norms,
         cos_r.data_ptr(), sin_r.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        L, H, n["hq"], n["hkv"], n["D"], NI, n["S"], float(eps),
+        n["L"], n["H"], n["hq"], n["hkv"], n["D"], n["NI"], n["S"], float(eps),
         float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack")
     fused_decode_stack.launches += 1
@@ -334,3 +358,89 @@ def fused_decode_stack_q8(x: torch.Tensor, layers: dict, pos: torch.Tensor,
 
 fused_decode_stack.launches = 0
 fused_decode_stack_q8.launches = 0
+
+
+# -- one layer ---------------------------------------------------------------
+
+
+def fused_layer_supported(layers: dict, hidden: int, n_heads: int,
+                          n_kv_heads: int, head_dim: int, intermediate: int,
+                          window: int | None) -> bool:
+    """The gate of fused_decode_layer, as the JAX fused_layer_supported: a
+    window of at most MAX_WINDOW rows and the bf16 stack's layout and
+    geometry (fused_stack_supported).  The JAX gate's 1024-column chunks
+    and D = 128 are TPU tiling; the kernel takes D 64 or 128."""
+    if window is None or window > MAX_WINDOW:
+        return False
+    return fused_stack_supported(layers, hidden, n_heads, n_kv_heads,
+                                 head_dim, intermediate)
+
+
+def fused_decode_layer_plain(x, layers, li, pos, cos, sin, k_stack, v_stack,
+                             window, eps):
+    """Plain version, with the per-layer Pallas kernel's numerics: h1 =
+    rms(x) rounded to bf16; attention as _attend over cache rows [0,
+    min(pos, window)) and the fresh row; x2 = x + attn·Wo; the MLP's norm
+    reads f32 x2 while the residual takes x2 rounded to x's dtype: x_out =
+    dtype(float(dtype(x2)) + mlp).  The caches are not written."""
+    n = _dims(layers, k_stack)
+    bf = torch.bfloat16
+    i = int(li)
+    lyr = layers
+
+    def w(p):
+        return p["w"][i].float()
+
+    n_cached = pos.reshape(()).clamp(max=min(window, n["S"]))
+    xf = x.reshape(n["H"]).float()
+    h1 = _rms(xf, w(lyr["ln1"]), eps).to(bf).float()
+    o, k, v = _attend(h1 @ w(lyr["qkv"]), lyr, i, n_cached, cos, sin,
+                      k_stack, v_stack, eps, n)
+    x2 = xf + o.to(bf).float() @ w(lyr["o"])
+    h2 = _rms(x2, w(lyr["ln2"]), eps).to(bf).float()
+    act = _silu_mul(h2 @ w(lyr["mlp"]["gateup"]), n["NI"])
+    out = x2.to(x.dtype).float() + act.to(bf).float() @ w(lyr["mlp"]["down"])
+    return (out.to(x.dtype).reshape(1, 1, n["H"]), k.to(k_stack.dtype),
+            v.to(v_stack.dtype))
+
+
+def fused_decode_layer(x: torch.Tensor, layers: dict, li: torch.Tensor,
+                       pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                       k_stack: torch.Tensor, v_stack: torch.Tensor,
+                       window: int, eps: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused decoder layer at decode time (B = 1, S = 1).  x (1, 1, H);
+    layers: the fused stacked (L, ...) bf16 decode parameters
+    (fuse_decode_params); li, pos: int32 device scalars; cos/sin (1, D):
+    the rope row of pos over both halves; k_stack/v_stack: the flat (L, 1,
+    S, Hkv·D) bf16 cache, read only — rows [0, min(pos, window)) of layer
+    li are attended.  Returns (x_out (1, 1, H), k_row (Hkv, D), v_row
+    (Hkv, D)); the caller writes the rows into the cache at (li, 0, pos).
+    No model calls it, as in the JAX package."""
+    n = _check_step(x, layers, pos, cos, sin, k_stack, v_stack)
+    require(li.numel() == 1, "li is a scalar")
+    require(window >= 1, f"window must be ≥ 1, got {window}")
+    if not x.is_cuda:
+        return fused_decode_layer_plain(x, layers, li, pos, cos, sin,
+                                        k_stack, v_stack, window, eps)
+    require(li.device == x.device and li.dtype == torch.int32,
+            "li must be an int32 device scalar")
+    w = _dense_mats(x, layers, n)
+    norms, cos_r, sin_r, ws, out, grid = _launch_args(
+        x, layers, pos, cos, sin, k_stack, v_stack, n)
+    k_row = torch.empty((n["hkv"], n["D"]), dtype=k_stack.dtype,
+                        device=x.device)
+    v_row = torch.empty_like(k_row)
+    rc = kernels.lib().aha_fused_decode_layer(
+        x.data_ptr(), *(t.data_ptr() for t in w.values()), *norms,
+        cos_r.data_ptr(), sin_r.data_ptr(), k_stack.data_ptr(),
+        v_stack.data_ptr(), li.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        k_row.data_ptr(), v_row.data_ptr(), ws.data_ptr(), n["L"], n["H"],
+        n["hq"], n["hkv"], n["D"], n["NI"], n["S"], min(window, n["S"]),
+        float(eps), float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
+    kernels.check(rc, "aha_fused_decode_layer")
+    fused_decode_layer.launches += 1
+    return out, k_row, v_row
+
+
+fused_decode_layer.launches = 0

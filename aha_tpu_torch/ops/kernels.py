@@ -37,7 +37,7 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 #: C entry → argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "aha_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+    "aha_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 7
                                + [_F, _I, _P],
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "aha_segment_flash": [_P] * 5 + [_LL] * 12 + [_I] * 5 + [_F, _P],
     "aha_fused_decode_stack": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_fused_decode_stack_q8": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
+    "aha_fused_decode_layer": [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "aha_error_string": [_I],
 }
 

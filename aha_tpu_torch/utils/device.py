@@ -2,8 +2,10 @@
 
 The compute dtype follows the device: bfloat16 on CUDA (the tensor cores'
 native low-precision type), float32 on the CPU (the parity tests), with
-`AHA_DTYPE` overriding both.  `AHA_DEVICE` picks the device; asking for
-CUDA where there is none raises instead of silently running on the CPU.
+`AHA_DTYPE` overriding both.  The port's entry points run on the card:
+with `AHA_DEVICE` unset the device is cuda, and a machine where torch sees
+no card raises rather than serve on the CPU.  `AHA_DEVICE=cpu` is the way
+to ask for the CPU (the parity tests do); any other value names a device.
 `AHA_KV_INT8=1` stores the KV cache in int8 (core/cache.py).
 """
 
@@ -24,13 +26,13 @@ _DTYPE_MAP = {
 
 
 def device() -> torch.device:
-    """`AHA_DEVICE` if set, else cuda:0 when a card is visible, else cpu."""
-    name = os.environ.get("AHA_DEVICE")
-    if not name:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """`AHA_DEVICE` if set, else cuda; a cuda device where torch sees no
+    card raises RuntimeError."""
+    name = os.environ.get("AHA_DEVICE") or "cuda"
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"AHA_DEVICE={name} but torch sees no CUDA device")
+        raise RuntimeError(f"device {name!r}: torch sees no CUDA device; "
+                           "set AHA_DEVICE=cpu to run on the CPU")
     return dev
 
 

@@ -13,8 +13,11 @@ before the last line:
    shapes the paths give it (bf16 q, bf16 or int8 caches), with error and
    device time per call (profiler) of both; the batched decode also bit
    for bit against one-slot launches; the prefill kernel at Qwen3's 16/8
-   heads and at Qwen2.5-VL's 16/2; the segment and stacked-decode kernels
-   held relative to max |ref| beside a planted fault their bound rejects;
+   heads (S 2048 and 4096) and at Qwen2.5-VL's 16/2 (S 512, 2048), each
+   timed beside sdpa; the segment and stacked-decode kernels held relative
+   to max |ref| beside a planted fault their bound rejects; the one-layer
+   fused decode block, which no path runs, at Qwen3-0.6B's widths, alone
+   and as 28 chained launches against the fused stack's plain version;
 4. engine — Qwen3-0.6B's published geometry (28 layers, hidden 1024, vocab
    151936, tied head) with seeded random bf16 weights on the card, through
    TextEngine: plain and kernel prefill, prefix-cache restore, greedy and
@@ -65,7 +68,9 @@ before the last line:
    importtime` (no jax or aha_tpu module): one chat with a PNG data-URL
    image and one text-only chat.
 
-Every kernel check also reads the least time the card could take for the
+Every path's run must leave the one-layer block's launch count at 0 (no
+model calls it, as in the JAX package).  Every kernel check also reads the
+least time the card could take for the
 same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
@@ -147,6 +152,12 @@ TOL_VL_HIDDEN_REL = 5e-2
 # and requires its bound to reject it)
 TOL_SEG_REL = 2e-2
 TOL_DECODE_REL = 1e-2
+# 28 chained launches of the one-layer kernel (each layer's rows written by
+# the caller) against the fused stack's plain version, relative to max
+# |ref|: the layer rounds its residual to bf16 twice per layer where the
+# stack carries f32, 56 roundings of ≤ 2^-9 of a value through 28 layers
+# of seeded random weights (each layer alone is held to TOL_FUSED_REL)
+TOL_CHAIN_REL = 5e-2
 #: the H100 SXM's published rates (NVIDIA data sheet, dense): HBM bytes/s,
 #: operations/s by type
 HBM_BYTES_S = 3.35e12
@@ -201,7 +212,13 @@ KERNELS = {
     "flash_decode": dict(
         source="aha_tpu_torch/csrc/decode_attention.cu",
         replaces="aha_tpu/ops/flash_attention.py:166"),
+    "fused_decode_layer": dict(
+        source="aha_tpu_torch/csrc/fused_decode_layer.cu",
+        replaces="aha_tpu/ops/fused_layer.py:856"),
 }
+#: kernels no model path runs (as in the JAX package): each path's run must
+#: leave their counts at 0, and 0 is their main-path launch count
+OFF_PATH = ("fused_decode_layer",)
 RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0, "library_ms": None}
                             for k in KERNELS}
 
@@ -237,7 +254,8 @@ def wrappers():
     from aha_tpu_torch.ops import flash_attention as fa
     from aha_tpu_torch.ops import lm_head
     from aha_tpu_torch.ops import quant_matmul as qm
-    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack,
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_layer,
+                                               fused_decode_stack,
                                                fused_decode_stack_q8)
 
     return {"flash_decode_at_layer_flat": fa.flash_decode_at_layer_flat,
@@ -257,7 +275,8 @@ def wrappers():
             "fused_decode_stack_q8": fused_decode_stack_q8,
             "flash_attention_segmented": fa.flash_attention_segmented,
             "flash_decode_at_layer": fa.flash_decode_at_layer,
-            "flash_decode": fa.flash_decode}
+            "flash_decode": fa.flash_decode,
+            "fused_decode_layer": fused_decode_layer}
 
 
 def zero_counts() -> dict:
@@ -271,6 +290,9 @@ def read_counts(wr: dict, path: str, must: tuple[str, ...]) -> dict:
     """The counts of one path's run; each kernel in `must` launched, and
     its count recorded as the kernel's main-path launches."""
     launches = {name: fn.launches for name, fn in wr.items()}
+    for name in OFF_PATH:
+        require(launches[name] == 0, f"{name} ran on the {path} path")
+        RESULTS[name]["launches"] = 0
     for name in must:
         require(launches[name] > 0,
                 f"{name} was not launched on the {path} path")
@@ -468,9 +490,12 @@ def check_head() -> None:
         max_abs_err_of="logit gap between kernel and plain argmax")
 
 
-def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8) -> None:
+def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8,
+                  record: bool = False) -> None:
     """The prefill kernel against its f32 plain version: Hkv 8 is
-    Qwen3-0.6B's 16/8 heads, Hkv 2 Qwen2.5-VL-3B's 16/2 (G = 8)."""
+    Qwen3-0.6B's 16/8 heads, Hkv 2 Qwen2.5-VL-3B's 16/2 (G = 8).  Timed:
+    device time of kernel, plain and sdpa; `record` makes it the kernel's
+    row of the JSON line, other timed shapes go to its `also_timed`."""
     from aha_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_plain)
 
@@ -485,24 +510,32 @@ def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8) -> None:
                                 causal=causal)
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()
+    del ref
     require(err <= TOL_ATTN,
             f"prefill S={S} causal={causal} Hkv={Hkv}: err {err}")
     line = (f"[kernels] prefill S={S} causal={causal} Hq={Hq} Hkv={Hkv} "
             f"D={D}: max_abs_err {err:.3e} (tol {TOL_ATTN})")
+    _record("flash_attention", err)
     if timed:
         ms = device_ms(lambda: flash_attention(q, k, v, causal=causal))
         plain_ms = device_ms(lambda: flash_attention_plain(q, k, v,
-                                                           causal=causal))
+                                                           causal=causal),
+                             iters=10)
         pairs = S * (S + 1) // 2 if causal else S * S
         b = bound(S * (2 * Hq + 2 * Hkv) * D * 2, 4 * Hq * pairs * D)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, is_causal=causal))
         line += (f"; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
-                 f"sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
-        _record("flash_attention", err, ms, plain_ms, b, lib_ms,
-                "F.scaled_dot_product_attention", f"S={S} causal={causal}")
-    else:
-        _record("flash_attention", err)
+                 f"sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+                 f"{4 * Hq * pairs * D / ms / 1e9:.1f} TFLOP/s")
+        shape = f"S={S} causal={causal} Hq={Hq} Hkv={Hkv}"
+        if record:
+            _record("flash_attention", err, ms, plain_ms, b, lib_ms,
+                    "F.scaled_dot_product_attention", shape)
+        else:
+            RESULTS["flash_attention"].setdefault("also_timed", []).append(
+                {"at": shape, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b[0], "library_ms": lib_ms})
     log(line)
 
 
@@ -985,6 +1018,94 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     del lyr, k, v, kp, vp
     torch.cuda.empty_cache()
 
+def check_fused_layer() -> None:
+    """The one-layer fused decode block (no model path runs it) at
+    Qwen3-0.6B's widths, 28 stacked layers of seeded bf16 weights, a
+    2048-row cache, pos 1000, window 2048: layers 0 and 27 against the
+    plain version (x_out, k_row, v_row within TOL_FUSED_REL of max |ref|),
+    the caches untouched; then 28 chained launches, the caller writing each
+    layer's rows, against the fused stack's plain version (TOL_CHAIN_REL).
+    Device time per call over the 28 layers in turn (one layer's 31.5 MB of
+    weights fits the 50 MB L2; cycling reads HBM as a step would)."""
+    from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
+                                            fuse_decode_params)
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_layer,
+                                               fused_decode_layer_plain,
+                                               fused_decode_stack_plain)
+
+    L, pos, window, S = 28, 1000, 2048, 2048
+    cfg = Qwen3Config(num_hidden_layers=L)
+    model = Qwen3Model(cfg, max_rope_len=4096, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(56)
+    lyr = fuse_decode_params(model.init_random(g, dtype=torch.bfloat16))[
+        "layers"]
+    H, D = cfg.hidden_size, cfg.head_dim
+    HD = cfg.num_key_value_heads * D
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    x = torch.randn((1, 1, H), generator=g, **bf)
+    k = torch.randn((L, 1, S, HD), generator=g, **bf)
+    v = torch.randn((L, 1, S, HD), generator=g, **bf)
+    k0, v0 = k.clone(), v.clone()
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    cos = torch.cat([model.cos[pos], model.cos[pos]])[None]
+    sin = torch.cat([model.sin[pos], model.sin[pos]])[None]
+    eps = cfg.rms_norm_eps
+    rel, err = 0.0, 0.0
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = fused_decode_layer(x, lyr, lt, p, cos, sin, k, v, window, eps)
+        ref = fused_decode_layer_plain(x, lyr, lt, p, cos, sin, k, v, window,
+                                       eps)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            rel = max(rel, _rel(a, b))
+            err = max(err, (a.float() - b.float()).abs().max().item())
+    require(rel <= TOL_FUSED_REL, f"fused_decode_layer: err {rel} of max "
+            f"|ref| (tol {TOL_FUSED_REL})")
+    require(torch.equal(k, k0) and torch.equal(v, v0),
+            "fused_decode_layer wrote the cache")
+    # the chain: L launches, the caller writing each layer's rows at pos
+    layers = [torch.tensor(i, dtype=torch.int32, device="cuda")
+              for i in range(L)]
+    h = x
+    for li in range(L):
+        h, kr, vr = fused_decode_layer(h, lyr, layers[li], p, cos, sin, k0,
+                                       v0, window, eps)
+        k0[li, 0, pos] = kr.reshape(HD)
+        v0[li, 0, pos] = vr.reshape(HD)
+    want = fused_decode_stack_plain(x, lyr, p, cos, sin, k, v, eps)
+    torch.cuda.synchronize()
+    rel_chain = _rel(h, want)
+    rel_rows = max(_rel(k0[:, 0, pos], k[:, 0, pos]),
+                   _rel(v0[:, 0, pos], v[:, 0, pos]))
+    require(rel_chain <= TOL_CHAIN_REL and rel_rows <= TOL_CHAIN_REL,
+            f"28 chained fused_decode_layer launches vs the stack: hidden "
+            f"{rel_chain}, rows {rel_rows} of max |ref| (tol {TOL_CHAIN_REL})")
+    del k0, v0
+    layer = _layer_cycle(L)
+    ms = device_ms(lambda: fused_decode_layer(x, lyr, layer(), p, cos, sin,
+                                              k, v, window, eps), iters=56)
+    plain_ms = device_ms(lambda: fused_decode_layer_plain(
+        x, lyr, layer(), p, cos, sin, k, v, window, eps), iters=28)
+    rows = min(pos, window)
+    wbytes = _nbytes(lyr) // L
+    b = bound(wbytes + rows * HD * 2 * 2 + 2 * H * 2 + 2 * HD * 2,
+              2 * sum(t.numel() for t in _leaves(lyr)) // L
+              + 4 * cfg.num_attention_heads * rows * D)
+    log(f"[kernels] fused_decode_layer L={L} H={H} pos={pos} window={window}"
+        f": err {rel:.3e} of max |ref| (tol {TOL_FUSED_REL}), max_abs_err "
+        f"{err:.3e}, caches untouched; 28 chained launches vs the stack's "
+        f"plain version: hidden {rel_chain:.3e}, rows {rel_rows:.3e} (tol "
+        f"{TOL_CHAIN_REL}); device ms/call kernel {ms:.4f} plain "
+        f"{plain_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+        f"{wbytes / ms / 1e6:.1f} GB/s of weights")
+    _record("fused_decode_layer", err, ms, plain_ms, b, None, None,
+            f"one of L={L} layers, pos={pos} window={window}")
+    RESULTS["fused_decode_layer"].update(rel_err=rel, chain_rel_err=rel_chain)
+    del lyr, k, v
+    torch.cuda.empty_cache()
+
+
 #: (n2)'s patch bucket: 4,900 patches of a 980 x 980 image, 1,500 pad rows
 VL_BUCKET, VL_GRID, VL_REAL = 6400, (1, 70, 70), 4900
 
@@ -1184,10 +1305,11 @@ def phase_kernels() -> None:
     check_decode(4096, 4000, timed=False)
     check_head()
     check_prefill(256, True, timed=False)
-    check_prefill(256, False, timed=False)
-    check_prefill(2048, True, timed=True)
-    check_prefill(512, True, timed=False, Hkv=2)    # (n1)'s prompt bucket
-    check_prefill(2048, True, timed=False, Hkv=2)   # (n2)'s
+    check_prefill(192, False, timed=False)
+    check_prefill(2048, True, timed=True, record=True)
+    check_prefill(512, True, timed=True, Hkv=2)     # (n1)'s prompt bucket
+    check_prefill(2048, True, timed=True, Hkv=2)    # (n2)'s
+    check_prefill(4096, True, timed=True)
     check_q8(2048, 1000, timed=True)
     check_q8(16384, 16000, timed=False)
     check_decode(16384, 16000, timed=False)
@@ -1204,6 +1326,7 @@ def phase_kernels() -> None:
     check_stack(2047, 28, "gguf", timed=True)
     check_segmented()
     check_stacked_decode()
+    check_fused_layer()
     torch.cuda.synchronize()
 
 
@@ -2361,7 +2484,8 @@ def main() -> int:
                     "bound_by", "library_ms")},
                 **{k: RESULTS[name][k] for k in (
                     "library", "timed_at", "launches_by_path",
-                    "index_mismatches", "max_abs_err_of", "ms_cast_variant")
+                    "index_mismatches", "max_abs_err_of", "ms_cast_variant",
+                    "also_timed", "full_image")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -515,3 +515,137 @@ def test_prefill_kernel_at_group_8(dev):
     ref = flash_attention_plain(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     assert (got.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("D,hq,hkv,pos,window", [
+    (128, 4, 2, 0, 256), (128, 4, 2, 100, 256), (64, 6, 2, 37, 256),
+    (128, 8, 1, 200, 64)])
+def test_fused_layer_kernel_matches_plain(dev, D, hq, hkv, pos, window):
+    """The one-layer fused decode block against its plain version (f32 from
+    the same bf16 inputs) at layers 0 and 1: x_out and the returned k/v
+    rows within 2e-2 of max |ref| (the stack's bound: f32 summation order
+    and the bf16 roundings it moves); the caches bit-unchanged."""
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_layer,
+                                               fused_decode_layer_plain)
+    from aha_tpu_torch.ops.rope import rope_table
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    L, H, NI, S = 2, 256, 512, 256
+    lyr = _fused_layers(g, L, H, hq, hkv, D, NI)
+    x = _bf(g, 1, 1, H)
+    kc, vc = _bf(g, L, 1, S, hkv * D), _bf(g, L, 1, S, hkv * D)
+    k0, v0 = kc.clone(), vc.clone()
+    cos, sin = rope_table(D, S, 1e6, device=dev)
+    cosr = torch.cat([cos[pos], cos[pos]])[None]
+    sinr = torch.cat([sin[pos], sin[pos]])[None]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    for li in range(L):
+        lt = torch.tensor(li, dtype=torch.int32, device=dev)
+        n0 = fused_decode_layer.launches
+        got = fused_decode_layer(x, lyr, lt, p, cosr, sinr, kc, vc, window,
+                                 1e-6)
+        ref = fused_decode_layer_plain(x, lyr, lt, p, cosr, sinr, kc, vc,
+                                       window, 1e-6)
+        torch.cuda.synchronize()
+        assert fused_decode_layer.launches == n0 + 1
+        assert got[1].shape == got[2].shape == (hkv, D)
+        for a, b in zip(got, ref):
+            top = b.float().abs().max().item()
+            assert (a.float() - b.float()).abs().max().item() <= 2e-2 * top
+    assert torch.equal(kc, k0) and torch.equal(vc, v0)
+
+
+def _prefill_check(q, k, v, causal):
+    from aha_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("S", [128, 192, 2048])
+@pytest.mark.parametrize("D,G", [(128, 1), (64, 2), (128, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_prefill_redesign_strided_qkv(dev, S, D, G, causal):
+    """The prefill kernel on q/k/v read in place as strided slices of one
+    fused (B, S, (Hq + 2·Hkv)·D) projection, as the models hand them:
+    2e-2 abs against the f32 plain version, Sq = Skv (a 192-row prompt
+    leaves half a 128-row q tile)."""
+    g = torch.Generator(device=dev).manual_seed(S + D + G + causal)
+    Hkv = 2
+    Hq = Hkv * G
+    qkv = _bf(g, 2, S, (Hq + 2 * Hkv) * D)
+    q = qkv[..., :Hq * D].view(2, S, Hq, D)
+    k = qkv[..., Hq * D:(Hq + Hkv) * D].view(2, S, Hkv, D)
+    v = qkv[..., (Hq + Hkv) * D:].view(2, S, Hkv, D)
+    _prefill_check(q, k, v, causal)
+
+
+def test_prefill_refuses_a_misaligned_view(dev):
+    """The 16-byte row copies need 16-byte aligned bases and strides: a view
+    4 elements into its storage raises instead of reading misaligned."""
+    from aha_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    base = _bf(g, 1, 128, 4 * 64 + 4)
+    q = base[..., 4:].view(1, 128, 4, 64)
+    k, v = _bf(g, 1, 128, 2, 64), _bf(g, 1, 128, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_redesign_lengths_and_repeats(dev, G, D):
+    """The one-launch decode at live lengths 1, 63, 64, 65, 1000 and S over
+    a 2048-row cache: 2e-2 abs against the f32 plain version, and a second
+    launch bit-equal to the first (the ticketed fold is deterministic)."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_decode_at_layer_flat, flash_decode_at_layer_flat_plain)
+
+    g = torch.Generator(device=dev).manual_seed(13 + G + D)
+    L, S, Hkv = 2, 2048, 2
+    q = _bf(g, 1, 1, Hkv * G, D)
+    k, v = _bf(g, L, 1, S, Hkv * D), _bf(g, L, 1, S, Hkv * D)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    for valid in (1, 63, 64, 65, 1000, S):
+        vl = torch.tensor([valid], dtype=torch.int32, device=dev)
+        got = flash_decode_at_layer_flat(q, k, v, layer, vl)
+        again = flash_decode_at_layer_flat(q, k, v, layer, vl)
+        ref = flash_decode_at_layer_flat_plain(q.float(), k.float(),
+                                               v.float(), layer, vl)
+        torch.cuda.synchronize()
+        assert (got.float() - ref).abs().max().item() <= 2e-2, valid
+        assert torch.equal(got, again), valid
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_decode_redesign_ragged_slots(dev, G):
+    """B = 8 slots of a 4096-row cache with ragged lengths: within 2e-2 of
+    the plain version, each slot bit-equal to a B = 1 launch on it alone,
+    and a repeated launch bit-equal."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(14 + G)
+    L, B, S, Hkv, D = 2, 8, 4096, 2, 128
+    lens = [1, 63, 64, 65, 1000, 2047, 3000, 4096]
+    q = _bf(g, B, 1, Hkv * G, D)
+    k, v = _bf(g, L, B, S, Hkv * D), _bf(g, L, B, S, Hkv * D)
+    layer = torch.tensor(0, dtype=torch.int32, device=dev)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = fa.flash_decode_at_layer_flat_batched(q, k, v, layer, vl)
+    again = fa.flash_decode_at_layer_flat_batched(q, k, v, layer, vl)
+    ref = fa.flash_decode_at_layer_flat_plain(q.float(), k.float(),
+                                              v.float(), layer, vl)
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    assert torch.equal(got, again)
+    for b in range(B):
+        one = fa.flash_decode_at_layer_flat(
+            q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+            v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+        assert torch.equal(one, got[b:b + 1]), b

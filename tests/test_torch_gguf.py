@@ -61,6 +61,14 @@ DEADLINE = 60.0
 GREEDY, JGREEDY = SamplingConfig(), JSampling()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port's loaders run on the card unless the CPU is asked for."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("AHA_DEVICE", "cpu")
+        yield
+
+
 def _write(path, params, fmt, layer_fmt=None):
     """A tiny float Qwen3 quantized into a GGUF with llama.cpp naming;
     `layer_fmt(i, name)` may override one tensor's format per layer."""
@@ -266,8 +274,9 @@ def test_head_follows_stored_type(files, tmp_path, monkeypatch):
 
 def test_load_defaults_to_the_ports_device(files, monkeypatch):
     """Without device= and dtype= the loader takes the port's device
-    (utils/device.py: AHA_DEVICE, else the card when one is visible) and
-    that device's compute dtype (AHA_DTYPE, else float32 on the CPU)."""
+    (utils/device.py: the card unless AHA_DEVICE names another; no card
+    raises) and that device's compute dtype (AHA_DTYPE, else float32 on
+    the CPU)."""
     monkeypatch.delenv("AHA_DTYPE", raising=False)
     monkeypatch.setenv("AHA_DEVICE", "cpu")
     model, params, _ = load_qwen3_gguf(files["q8"])
@@ -279,7 +288,10 @@ def test_load_defaults_to_the_ports_device(files, monkeypatch):
     assert params["embed"]["w"].dtype == torch.bfloat16
     monkeypatch.delenv("AHA_DEVICE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model, _, _ = load_qwen3_gguf(files["q8"], dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="AHA_DEVICE=cpu"):
+        load_qwen3_gguf(files["q8"], dtype=torch.float32)
+    model, _, _ = load_qwen3_gguf(files["q8"], dtype=torch.float32,
+                                  device="cpu")
     assert model.device == torch.device("cpu")
 
 

@@ -84,8 +84,24 @@ def test_served_chat_imports_nothing_of_aha_tpu(tmp_path):
         "assert status == 200 and resp['usage']['completion_tokens'] >= 1,"
         " resp\n"
         + NOTHING_OF_AHA_TPU)
-    r = _run(code)
+    r = _run(code, AHA_DEVICE="cpu")
     assert r.returncode == 0, r.stderr
+
+
+def test_serv_refuses_a_missing_card(tmp_path):
+    """`python -m aha_tpu_torch serv` with AHA_DEVICE unset where torch
+    sees no card raises before loading, naming the way to ask for the CPU;
+    nothing is served on the CPU."""
+    build_tiny_qwen3_repo(str(tmp_path))
+    clean = {k: v for k, v in os.environ.items()
+             if k not in ("AHA_DEVICE", "AHA_NO_COMPILE_CACHE")}
+    r = subprocess.run([sys.executable, "-m", "aha_tpu_torch", "serv",
+                        str(tmp_path), "--port", "0"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**clean, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "AHA_DEVICE=cpu" in r.stderr, r.stderr[-2000:]
+    assert "model loaded" not in r.stdout
 
 
 def test_chip_smoke_imports_and_needs_a_card():

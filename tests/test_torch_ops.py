@@ -104,6 +104,9 @@ def test_cache_advance_reset_keeps_rows():
 
 
 def test_device_and_dtype_selection(monkeypatch):
+    """Unset AHA_DEVICE means the card: with no card visible device()
+    raises instead of running on the CPU; AHA_DEVICE=cpu asks for the
+    CPU."""
     from aha_tpu_torch.utils import device as d
 
     monkeypatch.delenv("AHA_DEVICE", raising=False)
@@ -112,11 +115,19 @@ def test_device_and_dtype_selection(monkeypatch):
     assert d.get_dtype(torch.device("cuda")) == torch.bfloat16
     monkeypatch.setenv("AHA_DTYPE", "bf16")
     assert d.get_dtype(torch.device("cpu")) == torch.bfloat16
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="AHA_DEVICE=cpu"):
+        d.device()
+    monkeypatch.delenv("AHA_DTYPE")
+    with pytest.raises(RuntimeError):
+        d.get_dtype()
+    monkeypatch.setenv("AHA_DEVICE", "cuda")
+    with pytest.raises(RuntimeError):
+        d.device()
     monkeypatch.setenv("AHA_DEVICE", "cpu")
     assert d.device() == torch.device("cpu")
-    if not torch.cuda.is_available():
-        monkeypatch.setenv("AHA_DEVICE", "cuda")
-        with pytest.raises(RuntimeError):
-            d.device()
+    monkeypatch.delenv("AHA_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert d.device() == torch.device("cuda")
     monkeypatch.setenv("AHA_HOME", "/models")
     assert d.default_save_dir() == "/models"

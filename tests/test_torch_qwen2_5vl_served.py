@@ -39,6 +39,14 @@ TINY_VL_KW = dict(
     attention_dropout=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port's loaders run on the card unless the CPU is asked for."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("AHA_DEVICE", "cpu")
+        yield
+
+
 @pytest.fixture(scope="module")
 def vl_repo(tmp_path_factory):
     from tokenizers import AddedToken

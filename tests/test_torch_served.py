@@ -27,6 +27,14 @@ ENTRY = lookup("Qwen/Qwen3-0.6B")
 JENTRY = jlookup("Qwen/Qwen3-0.6B")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _on_the_cpu():
+    """The port's loaders run on the card unless the CPU is asked for."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("AHA_DEVICE", "cpu")
+        yield
+
+
 @pytest.fixture(scope="module")
 def repo(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("tiny_qwen3"))
