@@ -37,6 +37,9 @@
 //   G·D channels, each summed over the splits by groups of threads in a
 //   fixed order and the groups folded in a fixed order: deterministic,
 //   whichever block arrives last.
+// - Any group size G = Hq / Hkv from 1 to 8: a block scores two heads when G
+//   is even and one when it is odd (G 3, 5, 7 — Qwen2.5-VL-7B has 28 over 4),
+//   so the shares always tile the group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -313,16 +316,14 @@ void launch(dim3 grid, cudaStream_t st, const Args& a) {
       a.L, a.S, a.scale);
 }
 
-// Query heads per block: up to kShare of the group's G.
-constexpr int kShare = 2;
+// Query heads per block: two of an even group's G, one of an odd group's.
+__host__ __device__ constexpr int share_of(int G) { return G % 2 == 0 ? 2 : 1; }
 
 template <int D>
 bool launch_for_group(int G, dim3 grid, cudaStream_t st, const Args& a) {
-  switch (G < kShare ? G : kShare) {
+  switch (share_of(G)) {
     case 1: launch<D, 1>(grid, st, a); return true;
     case 2: launch<D, 2>(grid, st, a); return true;
-    case 4: launch<D, 4>(grid, st, a); return true;
-    case 8: launch<D, 8>(grid, st, a); return true;
     default: return false;
   }
 }
@@ -336,21 +337,20 @@ extern "C" const char* aha_error_string(int code) {
 // part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D);
 // counters: (B, Hq) int32 (one per block share of a kv-head's heads, at
 // most Hq), zero before the launch and left zero after it.
-// Supported: D in {64, 128}, G = Hq / Hkv in {1, 2, 4, 8}, 1 ≤ nsplit ≤ 256.
+// Supported: D in {64, 128}, G = Hq / Hkv from 1 to 8, 1 ≤ nsplit ≤ 256.
 extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     const void* layer, const void* valid_len,
                                     int vl_stride, void* part_m, void* part_l,
                                     void* part_acc, void* counters, void* out, int B,
                                     int Hq, int Hkv, int D, int L, int S, int nsplit,
                                     float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
+  if (Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > 8 || nsplit < 1 || nsplit > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, layer, valid_len, vl_stride, part_m, part_l, part_acc, counters,
                out, B, Hq, Hkv, L, S, scale};
-  const int share = G < kShare ? G : kShare;
-  const dim3 grid(nsplit, Hkv * (G / share), B);
+  const dim3 grid(nsplit, Hkv * (G / share_of(G)), B);
   bool ok = false;
   switch (D) {
     case 64: ok = launch_for_group<64>(G, grid, st, a); break;

@@ -309,7 +309,11 @@ bool launch_q8_for_group(int G, dim3 grid, cudaStream_t st, const Q8Args& a) {
   switch (G) {
     case 1: launch_q8<D, 1, MXU>(grid, st, a); return true;
     case 2: launch_q8<D, 2, MXU>(grid, st, a); return true;
+    case 3: launch_q8<D, 3, MXU>(grid, st, a); return true;
     case 4: launch_q8<D, 4, MXU>(grid, st, a); return true;
+    case 5: launch_q8<D, 5, MXU>(grid, st, a); return true;
+    case 6: launch_q8<D, 6, MXU>(grid, st, a); return true;
+    case 7: launch_q8<D, 7, MXU>(grid, st, a); return true;
     case 8: launch_q8<D, 8, MXU>(grid, st, a); return true;
     default: return false;
   }
@@ -325,7 +329,7 @@ bool launch_q8_for_variant(int G, int mxu, dim3 grid, cudaStream_t st,
 }  // namespace
 
 // part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D).
-// Supported: D in {64, 128}, G = Hq / Hkv in {1, 2, 4, 8}, at most 64 rows
+// Supported: D in {64, 128}, G = Hq / Hkv from 1 to 8, at most 64 rows
 // per split (nsplit >= ceil(S / 64)).
 extern "C" int aha_decode_attention_q8(const void* q, const void* k,
                                        const void* v, const void* k_scale,

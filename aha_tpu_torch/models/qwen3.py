@@ -95,6 +95,10 @@ class Qwen3Model:
     """The model TextEngine (core/engine.py) and BatchEngine
     (core/batch_engine.py) drive."""
 
+    #: decode reads an int8 KV cache (init_cache(dtype=torch.int8); serve
+    #: with AHA_KV_INT8=1) — halves long-context cache bandwidth
+    supports_kv_int8 = True
+
     def __init__(self, config: Qwen3Config, max_rope_len: int = 32768,
                  device: torch.device | str = "cpu"):
         self.config = c = config

@@ -1,7 +1,9 @@
 """Generic text-chat served model: CausalLM + tokenizer + chat template
 (counterpart of aha_tpu/models/text_served.py).  `batch_slots > 1` serves
-through the continuous-batching BatchEngine; the cache dtype follows
-get_cache_dtype() (AHA_KV_INT8=1 → int8) on both engines."""
+through the continuous-batching BatchEngine.  A model with
+`supports_kv_int8` (Qwen3) takes get_cache_dtype() (AHA_KV_INT8=1 → int8)
+on both engines; any other keeps its parameters' dtype, as the
+reference's rule is."""
 
 from __future__ import annotations
 
@@ -58,7 +60,10 @@ class TextChatModel(GenerateModel, LoadedModel):
         if batch_slots > 1 and spec_tokens > 0:
             raise ValueError(SPEC_WITH_SLOTS)
         model, params = build_model(path, max_seq_len)
-        cache_dtype = get_cache_dtype(embed_weight(params).device)
+        w = embed_weight(params)
+        cache_dtype = (get_cache_dtype(w.device)
+                       if getattr(model, "supports_kv_int8", False)
+                       else w.dtype)
         eos = load_stop_token_ids(path)
         if batch_slots > 1:
             engine = BatchEngine(model, params, eos_token_ids=eos,

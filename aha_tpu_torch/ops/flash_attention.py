@@ -100,7 +100,7 @@ def _check_decode(q, k_stack, v_stack, layer, valid_len, kv_dtype,
     require(layer.numel() == 1 and valid_len.numel() in (1, B),
             "layer is a scalar, valid_len (1,) or (B,)")
     require(D in (64, 128) and Hq % Hkv == 0
-            and Hq // Hkv in (1, 2, 4, 8), f"unsupported D={D} G={Hq}/{Hkv}")
+            and 1 <= Hq // Hkv <= 8, f"unsupported D={D} G={Hq}/{Hkv}")
     require(all(t.is_contiguous() for t in
                 (q, k_stack, v_stack, valid_len, *scales)),
             "decode kernel takes contiguous tensors")
@@ -134,10 +134,12 @@ def decode_splits(S: int, Hkv: int) -> int:
     return max(1, min(DECODE_BLOCKS // Hkv, -(-S // DECODE_MIN_ROWS)))
 
 
-def _ticket_counters(device: torch.device, stream: int, n: int):
-    """(n,) int32 zeros for the kernel's tickets (one per slot and block
-    share of a kv-head's query heads), kept per device and stream: every
-    launch leaves them zero again."""
+def ticket_counters(device: torch.device, stream: int, n: int):
+    """(n,) int32 zeros for a ticketed kernel's counters (here one per slot
+    and block share of a kv-head's query heads), kept per device and
+    stream: every launch leaves them zero again, and launches on one stream
+    run one after another, so every ticketed kernel shares them (the
+    studies' argmax head and one-launch layer too)."""
     key = (device.index if device.index is not None
            else torch.cuda.current_device(), stream)
     t = _tickets.get(key)
@@ -156,7 +158,7 @@ def _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale):
     part_l = torch.empty((B, Hq, nsplit), **f32)
     part_acc = torch.empty((B, Hq, nsplit, D), **f32)
     stream = kernels.stream_handle(q)
-    tickets = _ticket_counters(q.device, stream, B * Hq)
+    tickets = ticket_counters(q.device, stream, B * Hq)
     out = torch.empty_like(q)
     rc = kernels.lib().aha_decode_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),

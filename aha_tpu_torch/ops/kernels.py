@@ -54,6 +54,11 @@ _SIGNATURES = {
     "aha_fused_decode_stack_q8": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_fused_decode_layer": [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "aha_error_string": [_I],
+    # the H100 design studies (aha_tpu_torch/studies/)
+    "aha_study_stream_sum": [_P] * 6 + [_I] * 3 + [_P],
+    "aha_study_gemv": [_P] * 6 + [_I] * 5 + [_P],
+    "aha_study_int4": [_P] * 3 + [_I] * 3 + [_P],
+    "aha_study_fused_layer": [_P] * 10 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -232,5 +232,14 @@ def create_app(state: ServerState | None = None) -> web.Application:
 
 def start_http_server(state: ServerState, address: str = "127.0.0.1",
                       port: int = 8000) -> None:
+    """Blocking server start: `<port>.pid` is written before the app runs
+    and removed when it stops (server/process.py)."""
+    from aha_tpu_torch.server.process import (cleanup_pid_file,
+                                              create_pid_file)
+
     state.port = port
-    web.run_app(create_app(state), host=address, port=port, print=None)
+    create_pid_file(os.getpid(), port)
+    try:
+        web.run_app(create_app(state), host=address, port=port, print=None)
+    finally:
+        cleanup_pid_file(port)

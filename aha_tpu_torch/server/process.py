@@ -1,5 +1,5 @@
-"""PID-file helpers of the server's shutdown route (the port's copy of the
-part of aha_tpu/server/process.py that the route uses): `<port>.pid` under
+"""PID-file helpers of the server (the port's copy of the part of
+aha_tpu/server/process.py that the server uses): `<port>.pid` under
 $XDG_RUNTIME_DIR/aha or ~/.aha/run, as the reference's
 src/server/process.rs:45-70 keeps them.
 """
@@ -18,6 +18,10 @@ def get_pid_dir() -> Path:
         d = Path(os.path.expanduser("~")) / ".aha" / "run"
     d.mkdir(parents=True, exist_ok=True)
     return d
+
+
+def create_pid_file(pid: int, port: int) -> None:
+    (get_pid_dir() / f"{port}.pid").write_text(f"{pid}\n")
 
 
 def cleanup_pid_file(port: int) -> None:

@@ -2,8 +2,8 @@
 aha_tpu/utils/image.py): load from a data: URL, base64, file:// or a path,
 Qwen-VL smart resize to the factor-28 grid, CLIP normalization and the
 merge-blocked patchify.  Decoding stays on the host (Pillow); everything
-after is numpy feeding the device.  http(s) URLs are refused: the port
-fetches nothing from the network.
+after is numpy feeding the device.  http(s) URLs are fetched with
+`requests`, as the reference does.
 """
 
 from __future__ import annotations
@@ -30,8 +30,11 @@ def load_image(source: str):
     elif source.startswith("data:"):
         img = Image.open(io.BytesIO(base64.b64decode(source.split(",", 1)[1])))
     elif source.startswith(("http://", "https://")):
-        raise ValueError("image URLs are not fetched; send the image as a "
-                         "data: URL, base64 or a local file")
+        import requests
+
+        r = requests.get(source, timeout=30)
+        r.raise_for_status()
+        img = Image.open(io.BytesIO(r.content))
     elif os.path.exists(source):
         img = Image.open(source)
     else:

@@ -266,23 +266,37 @@ def profile_engine(model, params, args, card: str) -> None:
                                  for k, v in secs.items()}}))
 
 
+#: traces taken before device_ms_per_kernel gives up: now and then the
+#: profiler's CUDA trace comes back empty, or holds fewer kernels than
+#: calls (on an H100 with torch 2.11, an sdpa timing of chip_smoke.py read
+#: 0 and, in another run, 0.0005 ms where the same call read 0.008), and a
+#: fresh trace of the same calls reads normally
+TRACE_ATTEMPTS = 3
+
+
 def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
     """Device ms per call of each CUDA kernel `fn` launches, from the
-    profiler's trace of `iters` calls.  (CUDA events around a loop would
-    time the host's per-call Python work instead, which exceeds a µs-scale
-    kernel.)"""
+    profiler's trace of `iters` calls (each of which launches at least one
+    kernel); a trace with fewer kernel launches than calls is incomplete
+    and is taken again, up to TRACE_ATTEMPTS times.  (CUDA events around a
+    loop would time the host's per-call Python work instead, which exceeds
+    a µs-scale kernel.)"""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        ms = {e.key: e.self_device_time_total / 1e3 / iters for e in kernels}
+        if sum(e.count for e in kernels) >= iters and sum(ms.values()) > 0:
+            return ms
+    return ms
 
 
 def profile_passes(card: str) -> None:

@@ -15,9 +15,18 @@ before the last line:
    for bit against one-slot launches; the prefill kernel at Qwen3's 16/8
    heads (S 2048 and 4096) and at Qwen2.5-VL's 16/2 (S 512, 2048), each
    timed beside sdpa; the segment and stacked-decode kernels held relative
-   to max |ref| beside a planted fault their bound rejects; the one-layer
-   fused decode block, which no path runs, at Qwen3-0.6B's widths, alone
-   and as 28 chained launches against the fused stack's plain version;
+   to max |ref| beside a planted fault their bound rejects; decode at
+   Qwen2.5-VL-7B's group (28 query heads over 4, G 7), bf16 and int8; the
+   one-layer fused decode block, which no path runs, at Qwen3-0.6B's
+   widths, alone and as 28 chained launches against the fused stack's
+   plain version;
+3b. studies — the H100 design studies (aha_tpu_torch/studies/, the port of
+   the TPU studies under scripts/), each through its entry point
+   `main(["--quick"])` at the scripts' full geometry: the HBM read ceiling
+   (stream_sum), the M = 8 GEMV and the argmax head over the (1024,
+   151936) Qwen3 head, the three int4 kernels, and the one-launch layer
+   over 28 layers; every kernel held to its plain version and timed beside
+   it, its bound and its library yardstick;
 4. engine — Qwen3-0.6B's published geometry (28 layers, hidden 1024, vocab
    151936, tied head) with seeded random bf16 weights on the card, through
    TextEngine: plain and kernel prefill, prefix-cache restore, greedy and
@@ -68,8 +77,9 @@ before the last line:
    importtime` (no jax or aha_tpu module): one chat with a PNG data-URL
    image and one text-only chat.
 
-Every path's run must leave the one-layer block's launch count at 0 (no
-model calls it, as in the JAX package).  Every kernel check also reads the
+Every serving path's run must leave the one-layer block's launch count at
+0 (no model calls it, as in the JAX package), and the study kernels'
+(their path is the studies phase).  Every kernel check also reads the
 least time the card could take for the
 same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the H100's peak for their type) and, where one
@@ -158,6 +168,15 @@ TOL_DECODE_REL = 1e-2
 # stack carries f32, 56 roundings of ≤ 2^-9 of a value through 28 layers
 # of seeded random weights (each layer alone is held to TOL_FUSED_REL)
 TOL_CHAIN_REL = 5e-2
+# the study kernels (aha_tpu_torch/studies/) against their plain versions,
+# each study's main() holding them as it runs: the block sum and the GEMVs
+# within 1e-5 of max |ref| (f32 sums in another order; the block sum's total
+# of every element within 1e-5 of Σ|w|), the argmax's index equal (or tied
+# within 1e-5), the three int4 kernels bit-equal, the one-launch layer
+# within 2^-7 of max |ref| (the bf16 roundings of its five folds)
+TOL_STUDY = {"stream_sum": 1e-5, "gemv_m8": 1e-5, "gemv_argmax": 1e-5,
+             "head_once": 1e-5, "i4_upcast": 0.0, "i4_tensorcore": 0.0,
+             "i4_packed_k": 0.0, "fused_layer_stream": 2.0 ** -7}
 #: the H100 SXM's published rates (NVIDIA data sheet, dense): HBM bytes/s,
 #: operations/s by type
 HBM_BYTES_S = 3.35e12
@@ -215,10 +234,38 @@ KERNELS = {
     "fused_decode_layer": dict(
         source="aha_tpu_torch/csrc/fused_decode_layer.cu",
         replaces="aha_tpu/ops/fused_layer.py:856"),
+    # the TPU design studies under scripts/, ported as H100 studies
+    "stream_sum": dict(
+        source="aha_tpu_torch/csrc/study_gemv.cu",
+        replaces="scripts/exp_gemv.py:89"),
+    "gemv_m8": dict(
+        source="aha_tpu_torch/csrc/study_gemv.cu",
+        replaces="scripts/exp_gemv.py:132"),
+    "gemv_argmax": dict(
+        source="aha_tpu_torch/csrc/study_gemv.cu",
+        replaces="scripts/exp_gemv.py:188"),
+    "head_once": dict(
+        source="aha_tpu_torch/csrc/study_gemv.cu",
+        replaces="scripts/exp_gemv.py:220"),
+    "i4_upcast": dict(
+        source="aha_tpu_torch/csrc/study_int4.cu",
+        replaces="scripts/exp_int4.py:101"),
+    "i4_tensorcore": dict(
+        source="aha_tpu_torch/csrc/study_int4.cu",
+        replaces="scripts/exp_int4.py:128"),
+    "i4_packed_k": dict(
+        source="aha_tpu_torch/csrc/study_int4.cu",
+        replaces="scripts/exp_int4.py:163"),
+    "fused_layer_stream": dict(
+        source="aha_tpu_torch/csrc/study_fused_layer.cu",
+        replaces="scripts/exp_fused_layer.py:140"),
 }
-#: kernels no model path runs (as in the JAX package): each path's run must
-#: leave their counts at 0, and 0 is their main-path launch count
-OFF_PATH = ("fused_decode_layer",)
+#: the study kernels: their path is the studies' own entry points
+STUDY_KERNELS = tuple(TOL_STUDY)
+#: kernels no model path runs (as in the JAX package): each serving path's
+#: run must leave their counts at 0; the study kernels' main-path count is
+#: the studies phase's
+OFF_PATH = ("fused_decode_layer",) + STUDY_KERNELS
 RESULTS: dict[str, dict] = {k: {"max_abs_err": 0.0, "library_ms": None}
                             for k in KERNELS}
 
@@ -257,6 +304,7 @@ def wrappers():
     from aha_tpu_torch.ops.fused_layer import (fused_decode_layer,
                                                fused_decode_stack,
                                                fused_decode_stack_q8)
+    from aha_tpu_torch.studies import exp_fused_layer, exp_gemv, exp_int4
 
     return {"flash_decode_at_layer_flat": fa.flash_decode_at_layer_flat,
             "head_argmax": lm_head.head_argmax,
@@ -276,7 +324,15 @@ def wrappers():
             "flash_attention_segmented": fa.flash_attention_segmented,
             "flash_decode_at_layer": fa.flash_decode_at_layer,
             "flash_decode": fa.flash_decode,
-            "fused_decode_layer": fused_decode_layer}
+            "fused_decode_layer": fused_decode_layer,
+            "stream_sum": exp_gemv.stream_sum,
+            "gemv_m8": exp_gemv.gemv_m8,
+            "gemv_argmax": exp_gemv.gemv_argmax,
+            "head_once": exp_gemv.head_once,
+            "i4_upcast": exp_int4.i4_upcast,
+            "i4_tensorcore": exp_int4.i4_tensorcore,
+            "i4_packed_k": exp_int4.i4_packed_k,
+            "fused_layer_stream": exp_fused_layer.fused_layer_stream}
 
 
 def zero_counts() -> dict:
@@ -291,8 +347,11 @@ def read_counts(wr: dict, path: str, must: tuple[str, ...]) -> dict:
     its count recorded as the kernel's main-path launches."""
     launches = {name: fn.launches for name, fn in wr.items()}
     for name in OFF_PATH:
+        if name in must:
+            continue
         require(launches[name] == 0, f"{name} ran on the {path} path")
-        RESULTS[name]["launches"] = 0
+        RESULTS[name].setdefault("launches", 0)
+        RESULTS[name].setdefault("launches_by_path", {})[path] = 0
     for name in must:
         require(launches[name] > 0,
                 f"{name} was not launched on the {path} path")
@@ -1297,6 +1356,62 @@ def check_stacked_decode() -> None:
     torch.cuda.empty_cache()
 
 
+def check_decode_g7() -> None:
+    """Decode at Qwen2.5-VL-7B's group (Hq 28 over Hkv 4: G 7, D 128), 1000
+    of 4096 live rows over 28 layers: flash_decode_at_layer on the 5-D
+    cache and both int8 variants on its quantized rows, against their plain
+    versions (TOL_DECODE_REL / TOL_Q8_REL of max |ref|), a repeat bit-equal;
+    the bf16 kernel's device time over the 28 layers in turn."""
+    from aha_tpu_torch.ops import attention
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    L, S, Hq, Hkv, D, valid = 28, 4096, 28, 4, 128, 1000
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid)
+    vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    rel, err = 0.0, 0.0
+    kq, ks = attention.quantize_kv_rows(k.reshape(L, 1, S, Hkv, D))
+    vq, vs = attention.quantize_kv_rows(v.reshape(L, 1, S, Hkv, D))
+    kq, vq = kq.reshape(L, 1, S, Hkv * D), vq.reshape(L, 1, S, Hkv * D)
+    rel8 = {False: 0.0, True: 0.0}
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = fa.flash_decode_at_layer(q, k, v, lt, vl)
+        again = fa.flash_decode_at_layer(q, k, v, lt, vl)
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             lt, vl)
+        e, r = _rel_err(got, ref)
+        err, rel = max(err, e), max(rel, r)
+        require(torch.equal(got, again), "G 7 decode: a repeat differs")
+        ref8 = fa.flash_decode_at_layer_q8_plain(q.float(), kq, vq, ks, vs,
+                                                 lt, vl)
+        for mxu in (False, True):
+            got8 = fa.flash_decode_at_layer_q8(q, kq, vq, ks, vs, lt, vl,
+                                               mxu=mxu)
+            rel8[mxu] = max(rel8[mxu], _rel_err(got8, ref8)[1])
+    require(rel <= TOL_DECODE_REL, f"G 7 decode: {rel} of max |ref| (tol "
+            f"{TOL_DECODE_REL})")
+    for mxu, r in rel8.items():
+        require(r <= TOL_Q8_REL[mxu], f"G 7 int8 decode mxu={mxu}: {r} of "
+                f"max |ref| (tol {TOL_Q8_REL[mxu]})")
+    layer = _layer_cycle(L)
+    ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
+                   iters=56)
+    b = bound(valid * Hkv * D * 2 * 2 + 2 * Hq * D * 2, 4 * Hq * valid * D)
+    log(f"[kernels] decode G 7 (Qwen2.5-VL-7B: L={L} S={S} valid={valid} "
+        f"Hq={Hq} Hkv={Hkv} D={D}): {rel:.3e} of max |ref| (tol "
+        f"{TOL_DECODE_REL}), repeat bit-equal; int8 cast {rel8[False]:.3e}, "
+        f"all-int8 {rel8[True]:.3e}; device ms/call {ms:.4f}; bound "
+        f"{b[0]:.4f} ({b[1]})")
+    _record("flash_decode_at_layer", err)
+    RESULTS["flash_decode_at_layer"]["g7"] = dict(
+        ms=ms, rel_err=rel, bound_ms=b[0], int8_rel_err=rel8[False],
+        int8_mxu_rel_err=rel8[True],
+        shape=f"L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}")
+    del q, k, v, kq, vq, ks, vs
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> None:
     check_stack(1000, 1, "bf16", timed=False)
     check_stack(1000, 28, "bf16", timed=True)
@@ -1326,8 +1441,40 @@ def phase_kernels() -> None:
     check_stack(2047, 28, "gguf", timed=True)
     check_segmented()
     check_stacked_decode()
+    check_decode_g7()
     check_fused_layer()
     torch.cuda.synchronize()
+
+
+# -- 3b. the H100 design studies ----------------------------------------------
+
+
+def phase_studies() -> None:
+    """The studies' main path: each study's `main(["--quick"])` (the
+    entry point of `python -m aha_tpu_torch.studies.<name> --quick`) at the
+    scripts' full geometry — K 1024, N 151936; 28 layers of Qwen3-0.6B
+    widths at M = 8 — with the counts zeroed before and read after (path
+    "studies").  Each main holds every kernel to its plain version (raising
+    past TOL_STUDY) and times it, its plain version and its library
+    yardstick by profiler device time; those readings are the JSON line's."""
+    from aha_tpu_torch.studies import exp_fused_layer, exp_gemv, exp_int4
+
+    wr = zero_counts()
+    results = {}
+    for mod in (exp_gemv, exp_int4, exp_fused_layer):
+        results.update(mod.main(["--quick"]))
+    read_counts(wr, "studies", STUDY_KERNELS)
+    for name in STUDY_KERNELS:
+        r = results[name]
+        if TOL_STUDY[name] == 0.0:
+            require(r["max_abs_err"] == 0.0, f"{name} is not bit-equal")
+        _record(name, r["max_abs_err"], r["ms"], r["plain_ms"],
+                (r["bound_ms"], r["bound_by"]), r["library_ms"], r["library"],
+                f"{r['variant'] or 'the one variant'} at the script's "
+                f"geometry")
+        RESULTS[name]["gbps"] = r["gbps"]
+        RESULTS[name]["tol"] = TOL_STUDY[name]
+    torch.cuda.empty_cache()
 
 
 # -- 4. engine main path ------------------------------------------------------
@@ -2463,6 +2610,7 @@ def main() -> int:
     timed("device", phase_device)
     timed("build", phase_build)
     timed("kernels", phase_kernels)
+    timed("studies", phase_studies)
     from aha_tpu_torch.models.qwen3 import Qwen3Config
 
     state = timed("engine", phase_engine, Qwen3Config())
@@ -2485,7 +2633,7 @@ def main() -> int:
                 **{k: RESULTS[name][k] for k in (
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
-                    "also_timed", "full_image")
+                    "also_timed", "full_image", "g7", "gbps", "tol")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,7 +21,9 @@ def _bf(g, *shape):
     return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("D,G,valid", [(128, 2, 300), (64, 4, 1), (128, 1, 512)])
+@pytest.mark.parametrize("D,G,valid", [(128, 2, 300), (64, 4, 1), (128, 1, 512),
+                                       (128, 3, 300), (64, 5, 77),
+                                       (128, 7, 500)])
 def test_decode_kernel_matches_plain(dev, D, G, valid):
     from aha_tpu_torch.ops.flash_attention import (
         flash_decode_at_layer_flat, flash_decode_at_layer_flat_plain)
@@ -168,7 +170,8 @@ def _q8_inputs(g, dev, L, B, S, Hq, Hkv, D):
 
 @pytest.mark.parametrize("mxu", [False, True])
 @pytest.mark.parametrize("D,G,B", [(128, 2, 1), (64, 4, 1), (128, 2, 8),
-                                   (64, 1, 8)])
+                                   (64, 1, 8), (128, 3, 1), (64, 5, 1),
+                                   (128, 7, 1), (128, 7, 8)])
 def test_q8_decode_kernel_matches_plain(dev, mxu, D, G, B):
     """Both q8 variants against the f32 plain version (the dequantizing
     fallback) on the same int8 rows, max error relative to max |ref|: the
@@ -598,7 +601,7 @@ def test_prefill_refuses_a_misaligned_view(dev):
         flash_attention(q, k, v)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("D", [64, 128])
 def test_decode_redesign_lengths_and_repeats(dev, G, D):
     """The one-launch decode at live lengths 1, 63, 64, 65, 1000 and S over
@@ -623,7 +626,7 @@ def test_decode_redesign_lengths_and_repeats(dev, G, D):
         assert torch.equal(got, again), valid
 
 
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 7, 8])
 def test_decode_redesign_ragged_slots(dev, G):
     """B = 8 slots of a 4096-row cache with ragged lengths: within 2e-2 of
     the plain version, each slot bit-equal to a B = 1 launch on it alone,
@@ -649,3 +652,113 @@ def test_decode_redesign_ragged_slots(dev, G):
             q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
             v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
         assert torch.equal(one, got[b:b + 1]), b
+
+
+# -- the H100 design studies (aha_tpu_torch/studies/) ------------------------
+
+
+@pytest.mark.parametrize("bn,N", [(2048, 2 * 2048 + 136), (2048, 2 * 2048 + 40),
+                                  (4096, 4096)])
+def test_study_stream_sum_matches_plain(dev, bn, N):
+    """The block sum's (1, 128) tile within 1e-5 of max |ref|, and its total
+    of every element within 1e-5 of Σ|w|; a ragged last block (136 or 40
+    columns) counts the columns it has."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    g = torch.Generator(device=dev).manual_seed(N)
+    w, x = _bf(g, 256, N), _bf(g, 1, 256)
+    n0 = eg.stream_sum.launches
+    out, total = eg.stream_sum(x, w, bn)
+    ref, ref_total = eg.stream_sum_plain(x, w, bn)
+    torch.cuda.synchronize()
+    assert eg.stream_sum.launches == n0 + 1
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    assert abs(float(total) - float(ref_total)) <= \
+        1e-5 * float(w.float().abs().sum())
+
+
+@pytest.mark.parametrize("bn", [256, 1024, 8192])
+def test_study_gemv_m8_matches_plain(dev, bn):
+    """The M = 8 GEMV at three block widths over a ragged N, within 1e-5 of
+    max |ref|."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    g = torch.Generator(device=dev).manual_seed(bn)
+    N = 3 * 1024 + 40
+    w, xp = _bf(g, 512, N), _bf(g, 8, 512)
+    got = eg.gemv_m8(xp, w, bn)
+    ref = eg.gemv_m8_plain(xp, w)
+    torch.cuda.synchronize()
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("bn", [256, 1024, 2048])
+def test_study_gemv_argmax_matches_plain(dev, bn):
+    """The argmax head over a ragged N: the maximum planted in the last
+    columns is found, a tie goes to the smaller index, and random inputs
+    agree with the plain version; head_once counts its own launches."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    g = torch.Generator(device=dev).manual_seed(bn + 1)
+    K, N = 512, 2 * 2048 + 40
+    w, x = _bf(g, K, N), _bf(g, 1, K)
+    assert eg.argmax_agrees(eg.gemv_argmax(x, w, bn), x, w)
+    planted = w.clone()
+    planted[:, N - 3] = torch.sign(x[0]) * 4
+    val, idx = eg.gemv_argmax(x, planted, bn)
+    assert int(idx) == N - 3
+    tie = planted.clone()
+    tie[:, 5] = tie[:, N - 3]
+    assert int(eg.gemv_argmax(x, tie, bn)[1]) == 5
+    n0, n1 = eg.head_once.launches, eg.gemv_argmax.launches
+    assert int(eg.head_once(x, tie)[1]) == 5
+    torch.cuda.synchronize()
+    assert (eg.head_once.launches, eg.gemv_argmax.launches) == (n0 + 1, n1)
+
+
+@pytest.mark.parametrize("N", [2048 + 40, 4096])
+def test_study_int4_kernels_bit_equal(dev, N):
+    """i4_upcast, i4_tensorcore and i4_packed_k bit-equal to the plain
+    version and to each other, a ragged last block included; a zero row
+    (sx = 0) gives zeros."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    g = torch.Generator(device=dev).manual_seed(N)
+    K = 256
+    x = _bf(g, 8, K) * 3
+    x[3] = 0
+    w4 = torch.randint(-8, 8, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    words, packed = e4.pack_k8(w4), e4.pack_k(w4)
+    ref = e4.int4_matmul_plain(x, w4)
+    for fn, w in ((e4.i4_upcast, words), (e4.i4_tensorcore, words),
+                  (e4.i4_packed_k, packed)):
+        n0 = fn.launches
+        got = fn(x, w)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        assert torch.equal(got, ref), fn.__name__
+    assert torch.equal(ref[3], torch.zeros_like(ref[3]))
+
+
+def test_study_fused_layer_matches_plain(dev):
+    """Every (tile, NBUF) variant of the one-launch layer at the script's
+    widths, two layers: within 2^-7 of max |ref| of the plain version,
+    bit-equal on a repeat, the tickets left zero."""
+    from aha_tpu_torch.studies import exp_fused_layer as efl
+
+    ws, x = efl.weights(dev, n_layers=2, seed=3)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    ref = efl.fused_layer_stream_plain(x, *ws, layer)
+    for tile, nbuf in efl.VARIANTS:
+        got = efl.fused_layer_stream(x, *ws, layer, tile=tile, nbuf=nbuf)
+        again = efl.fused_layer_stream(x, *ws, layer, tile=tile, nbuf=nbuf)
+        torch.cuda.synchronize()
+        rel = ((got.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel <= 2.0 ** -7, (tile, nbuf, rel)
+        assert torch.equal(got, again), (tile, nbuf)
+    from aha_tpu_torch.ops.flash_attention import ticket_counters
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(ticket_counters(dev, stream, 16)[:16].abs().sum()) == 0

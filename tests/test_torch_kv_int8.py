@@ -91,6 +91,27 @@ def test_q8_plain_matches_jax_fallback(q8_case, layer):
     assert torch.equal(routed, got)
 
 
+@pytest.mark.parametrize("G", [3, 5, 7])
+def test_q8_plain_matches_jax_kernels_at_odd_groups(G):
+    """G odd (Qwen2.5-VL-7B's 7): the q8 decode (plain on the CPU) against
+    the cast Pallas q8 kernel in interpret mode, which takes any G."""
+    rng = np.random.default_rng(20 + G)
+    L, S, Hkv, D, valid = 2, 256, 2, 64, 150
+    q = rng.standard_normal((1, 1, Hkv * G, D)).astype(np.float32)
+    k = rng.integers(-127, 128, (L, 1, S, Hkv * D)).astype(np.int8)
+    v = rng.integers(-127, 128, (L, 1, S, Hkv * D)).astype(np.int8)
+    ks = (rng.random((L, 1, Hkv, S)) * 0.01 + 0.002).astype(np.float32)
+    vs = (rng.random((L, 1, Hkv, S)) * 0.01 + 0.002).astype(np.float32)
+    want = np.asarray(jfa.flash_decode_at_layer_q8(
+        *(jnp.asarray(a) for a in (q, k, v, ks, vs)), jnp.int32(1),
+        jnp.int32(valid), block_k=256, interpret=True, mxu=False))
+    got = flash_decode_at_layer_q8(
+        _t(q), _t(k), _t(v), _t(ks.transpose(0, 1, 3, 2)),
+        _t(vs.transpose(0, 1, 3, 2)), torch.tensor(1, dtype=torch.int32),
+        torch.tensor([valid], dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-2)
+
+
 @pytest.mark.parametrize("mxu", [False, True])
 def test_q8_plain_matches_jax_kernels(q8_case, mxu):
     """The plain version (both variants' reference on the card) against the

@@ -4,7 +4,9 @@ Qwen2_5_VLForConditionalGeneration with random weights, the test
 tokenizer plus the four vision special tokens, an image-aware chat
 template), loaded through both packages' load_model: a PNG data-URL image
 chat gives aha_tpu's greedy text and prompt-token count, two image sizes
-share a patch bucket, a text-only chat matches, and a video part raises.
+share a patch bucket, a text-only chat matches, a video part raises, and
+AHA_KV_INT8=1 leaves the VL model's cache in its own dtype (only a model
+with supports_kv_int8 takes int8, as aha_tpu/models/text_served.py has it).
 float32 on the CPU."""
 
 import base64
@@ -164,6 +166,23 @@ def test_stream_chunks_match_jax(both):
 def test_text_only_chat_matches_jax(both):
     got, want = _both_generate(both, _body("hello world how are you", 6))
     assert got.usage.prompt_tokens == want.usage.prompt_tokens
+    assert got.choices[0].message.content == want.choices[0].message.content
+
+
+def test_kv_int8_env_keeps_the_vl_cache(both, vl_repo, monkeypatch):
+    """AHA_KV_INT8=1 is for Qwen3: the VL model keeps a float32 cache on
+    the CPU and its image chat equals the one served without the
+    variable."""
+    port, _ = both
+    monkeypatch.setenv("AHA_KV_INT8", "1")
+    int8_env = load_model(MODEL, vl_repo, max_seq_len=512)
+    assert int8_env.engine.cache_dtype == torch.float32
+    body = _body([{"type": "text", "text": "what is this "},
+                  {"type": "image_url",
+                   "image_url": {"url": _png_data_url(seed=4)}}])
+    mes = ChatCompletionParameters.model_validate(body)
+    got, want = int8_env.generate(mes), port.generate(mes)
+    assert got.usage.prompt_tokens == want.usage.prompt_tokens > 6
     assert got.choices[0].message.content == want.choices[0].message.content
 
 

@@ -115,6 +115,7 @@ def test_kv_int8_env_reaches_both_engines(repo, monkeypatch):
     int8 rows with their scales."""
     monkeypatch.setenv("AHA_KV_INT8", "1")
     single = load_model("Qwen/Qwen3-0.6B", repo, max_seq_len=256)
+    assert single.engine.model.supports_kv_int8
     assert single.engine.cache_dtype == torch.int8
     assert single.generate(_req(max_tokens=4)).usage.completion_tokens >= 1
     batched = load_model("Qwen/Qwen3-0.6B", repo, max_seq_len=256,
