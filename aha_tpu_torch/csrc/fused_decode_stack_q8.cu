@@ -27,12 +27,15 @@
 //
 //   1. rms-norm of the f32 carry (every block, redundantly), quantized per
 //      128-group straight into shared memory → q|k|v columns, one warp each
-//   2-3. attention and the split combine (fused_stack_attention.cuh)
-//   4. attention output quantized → o columns + residual
-//   5. rms-norm quantized → gate|up: each warp takes gate column j and up
+//   2. attention, the split combine folded in by the last split of each
+//      head chunk (fused_stack_attention.cuh)
+//   3. attention output quantized → o columns + residual
+//   4. rms-norm quantized → gate|up: each warp takes gate column j and up
 //      column NI + j and writes SiLU(g)·u in f32
-//   6. SiLU·u quantized → down columns + residual (the last layer also
+//   5. SiLU·u quantized → down columns + residual (the last layer also
 //      writes x_out)
+//
+// Five grid barriers a layer (the last layer's last one skipped).
 //
 // Activations are quantized as the Pallas kernel's _quant_acts quantizes
 // them — from f32 values, never rounded to bf16 first — with quant_dot.cuh's
@@ -71,6 +74,7 @@ struct QStackArgs {
   const int* pos;
   __nv_bfloat16* x_out;
   float* ws;
+  int* tickets;
   int L, H, hq, hkv, NI, S;
   float eps, scale;
 };
@@ -125,13 +129,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_q8_kernel(const QStac
 
   const int H = a.H, NI = a.NI, NQ = a.hq * D, HD = a.hkv * D;
   const int NQKV = NQ + 2 * HD;
-  const Workspace w = carve_ws(a.ws, H, NQKV, NQ, NI, a.hq);
+  const Workspace w = carve_ws(a.ws, H, NQKV, NQ, NI, a.hq, D);
   const int pos = clamp_pos(a.pos, a.S);
-  const int items_per_split = a.hkv * (a.hq / a.hkv / GC);
 
   for (int li = 0; li < a.L; ++li) {
     // 1. input norm → q|k|v
-    __syncthreads();                 // the staged buffer is free (phase 6 read it)
+    __syncthreads();                 // the staged buffer is free (phase 5 read it)
     Staged st = aha_quant::carve(smem_raw, 1, H);
     if (li == 0) {
       rms_quantize(nullptr, a.x_in, a.ln1, H, a.eps, s_red, st);
@@ -142,21 +145,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_q8_kernel(const QStac
     }
     columns(a.qkv, li, NQKV, H, st, [&](int n, float y) { __stcg(w.qkv + n, y); });
     aha_coop::grid_barrier();
-    // 2-3. attention
-    attention_phase<D, GC>(a, li, pos, w.qkv, w.part_m, w.part_l, w.part_acc, s_merge,
-                            cache_row<D>(a, a.k_cache, li, pos),
-                            cache_row<D>(a, a.v_cache, li, pos));
+    // 2. attention
+    attention_phase<D, GC>(a, li, pos, QkvVector{w.qkv}, w.part_m, w.part_l, w.part_acc,
+                           a.tickets, w.attn, s_merge, cache_row<D>(a, a.k_cache, li, pos),
+                           cache_row<D>(a, a.v_cache, li, pos));
     aha_coop::grid_barrier();
-    combine_phase<D>(a, pos, items_per_split, w.part_m, w.part_l, w.part_acc, w.attn);
-    aha_coop::grid_barrier();
-    // 4. o-proj + residual
+    // 3. o-proj + residual
     st = aha_quant::carve(smem_raw, 1, NQ);
     aha_quant::quantize_rows(static_cast<const float*>(w.attn), NQ, NQ, NQ, 1, st.xq, st.sx,
                              st.xsum);
     columns(a.o, li, H, NQ, st,
             [&](int n, float y) { __stcg(w.xbuf + n, __ldcg(w.xbuf + n) + y); });
     aha_coop::grid_barrier();
-    // 5. post-attention norm → gate|up → SiLU·u
+    // 4. post-attention norm → gate|up → SiLU·u
     st = aha_quant::carve(smem_raw, 1, H);
     rms_quantize(w.xbuf, nullptr, a.ln2 + (size_t)li * H, H, a.eps, s_red, st);
     {
@@ -168,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_q8_kernel(const QStac
       }
     }
     aha_coop::grid_barrier();
-    // 6. down + residual
+    // 5. down + residual
     st = aha_quant::carve(smem_raw, 1, NI);
     aha_quant::quantize_rows(static_cast<const float*>(w.act), NI, NI, NI, 1, st.xq, st.sx,
                              st.xsum);
@@ -204,13 +205,14 @@ int launch(const QStackArgs& a, int grid, cudaStream_t st) {
 // Hq % Hkv == 0, H, Hq·D and NI multiples of 128 (each projection's K
 // exactly its grid's Kp).  Per projection w/s/b point at layer 0's grid
 // tensors (b only where q4 is set).  `grid` blocks, one per SM; ws holds
-// H + (NQ + 2·HD) + NQ + NI + Hq·grid·(D + 2) f32.
+// H + (NQ + 2·HD) + NQ + NI + Hq·grid·(D + 2) f32; tickets Hq int32 zeros,
+// left zero.
 extern "C" int aha_fused_decode_stack_q8(
     const void* x_in, const void* const* w, const void* const* s,
     const void* const* b, const int* q4, const void* ln1, const void* ln2,
     const void* qn, const void* kn, const void* cos_r, const void* sin_r,
-    void* k_cache, void* v_cache, const void* pos, void* x_out, void* ws, int L,
-    int H, int hq, int hkv, int D, int NI, int S, float eps, float scale, int grid,
+    void* k_cache, void* v_cache, const void* pos, void* x_out, void* ws, void* tickets,
+    int L, int H, int hq, int hkv, int D, int NI, int S, float eps, float scale, int grid,
     void* stream) {
   if (hkv < 1 || hq % hkv != 0 || H % kGroup != 0 || NI % kGroup != 0 ||
       (hq * D) % kGroup != 0 || grid < 1 || L < 1)
@@ -228,7 +230,8 @@ extern "C" int aha_fused_decode_stack_q8(
                      static_cast<const float*>(cos_r), static_cast<const float*>(sin_r),
                      static_cast<bf*>(k_cache), static_cast<bf*>(v_cache),
                      static_cast<const int*>(pos), static_cast<bf*>(x_out),
-                     static_cast<float*>(ws), L, H, hq, hkv, NI, S, eps, scale};
+                     static_cast<float*>(ws), static_cast<int*>(tickets), L, H, hq, hkv,
+                     NI, S, eps, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pair = (hq / hkv) % 2 == 0;
   switch (D) {

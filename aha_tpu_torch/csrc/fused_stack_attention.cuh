@@ -1,22 +1,30 @@
 // The attention of the one-launch decode stacks (fused_decode_stack.cu over
-// bf16 weights, fused_decode_stack_q8.cu over the GGUF grids): one decode
-// token's attention over the flat bf16 cache rows of layer `li` plus the
-// fresh row, as two phases of a persistent cooperative kernel of kThreads
-// threads per block, a grid barrier between them (cooperative.cuh).
+// bf16 weights, fused_decode_stack_q8.cu over the GGUF grids) and of the
+// one-layer block (fused_decode_layer.cu): one decode token's attention
+// over the flat bf16 cache rows of layer `li` plus the fresh row, as one
+// phase of a persistent cooperative kernel of kThreads threads per block
+// (cooperative.cuh).
 //
 //   attention_phase: q/k head norms and RoPE in registers, split-KV over
 //     (kv-head, head chunk, row split) work items over cache rows
 //     [0, n_cached) and the fresh row after them; the fresh k/v row is used
 //     from registers and written by one item where the caller says (the
-//     stacks: the cache row at pos = n_cached; the one-layer kernel
-//     fused_decode_layer.cu: its output rows, the cache untouched);
-//   combine_phase:   the splits merged per query head.
+//     stacks: the cache row at pos = n_cached; the one-layer kernel: its
+//     output rows, the cache untouched).  Each item writes a partial
+//     (m, l, acc) per query head.  Given tickets, the last split of a
+//     (kv-head, head chunk) to finish — an atomic ticket it resets to 0, as
+//     decode_attention.cu's — merges the chunk's splits into `attn` (the
+//     quantized stack); without, the caller's next phase merges the rows
+//     it reads (combine_split, the bf16 kernels).  Either way no grid
+//     barrier separates a combine pass.
 //
-// Both read the projected q|k|v (f32 workspace, NQ + 2·HD) and the stack's
-// arguments through any struct with the fields they name (qn, kn, cos_r,
-// sin_r, k_cache, v_cache, hq, hkv, S, eps, scale).  Numerics follow the
+// An item reads its heads' projected q|k|v values through `qkv(col)` (col
+// in [0, NQ + 2·HD)) into shared memory first, and the stack's arguments
+// through any struct with the fields it names (qn, kn, cos_r, sin_r,
+// k_cache, v_cache, hq, hkv, S, eps, scale).  Numerics follow the
 // Pallas _attention_rows: q and the fresh k/v rounded to bf16 after RoPE,
-// f32 scores and softmax state, the output left in f32.
+// f32 scores and softmax state, the output left in f32; the splits merge
+// in split order, whichever comes last.
 
 #pragma once
 
@@ -50,14 +58,6 @@ __device__ __forceinline__ uint4 float8_to_bf16x8(const float* f) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// Eight consecutive f32 workspace values, read through L2.
-__device__ __forceinline__ void load8_cg(const float* p, float* f) {
-  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
 // 1 / sqrt(mean(x²) + eps) over x[0, H): x is the f32 workspace carry, or
@@ -119,10 +119,60 @@ __device__ __forceinline__ void norm_rope(float* v, const __nv_bfloat16* w, int 
 }
 
 // Shared memory the attention phase needs (dynamic, aliased with the
-// activations of the other phases).
+// activations of the other phases): the merge, then an item's q|k|v.
 template <int D, int GC>
-constexpr size_t merge_bytes() {
-  return (size_t)kWarps * GC * (D + 2) * sizeof(float);
+__host__ __device__ constexpr size_t merge_bytes() {
+  return ((size_t)kWarps * GC * (D + 2) + (GC + 2) * D) * sizeof(float);
+}
+
+// Eight consecutive f32 values of shared memory.
+__device__ __forceinline__ void load8_s(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// The projected q|k|v as an f32 vector that other SMs wrote.
+struct QkvVector {
+  const float* qkv;
+  __device__ float operator()(int col) const { return __ldcg(qkv + col); }
+};
+
+// attn[head, d] = Σ_s acc·e^(m−M) / Σ_s l·e^(m−M) over the `nsplit` split
+// partials of one query head (rows head·P + s, P = gridDim.x), in split
+// order.
+template <int D>
+__device__ __forceinline__ float combine_split(const float* part_m, const float* part_l,
+                                               const float* part_acc, int head, int d,
+                                               int nsplit) {
+  constexpr int kBatch = 16;              // splits loaded at once
+  const size_t row0 = (size_t)head * gridDim.x;
+  float M = kNegInf, Ls = 0.f, A = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += kBatch) {
+    float m[kBatch], l[kBatch], acc[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const bool ok = s0 + i < nsplit;
+      m[i] = ok ? __ldcg(part_m + row0 + s0 + i) : kNegInf;
+      l[i] = ok ? __ldcg(part_l + row0 + s0 + i) : 0.f;
+      acc[i] = ok ? __ldcg(part_acc + (row0 + s0 + i) * D + d) : 0.f;
+    }
+    float Mb = M;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) Mb = fmaxf(Mb, m[i]);
+    const float r = __expf(M - Mb);
+    Ls *= r;
+    A *= r;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const float wt = __expf(m[i] - Mb);
+      Ls = fmaf(l[i], wt, Ls);
+      A = fmaf(acc[i], wt, A);
+    }
+    M = Mb;
+  }
+  return A / fmaxf(Ls, 1e-30f);
 }
 
 // Row `pos` of layer `li` of a flat (L, 1, S, Hkv·D) cache.
@@ -137,11 +187,12 @@ __device__ __forceinline__ __nv_bfloat16* cache_row(const Args& a, __nv_bfloat16
 // block merges them and writes one partial per (query head, split).  Row
 // index n_cached is the fresh row; its Hkv·D k and v values go to
 // k_fresh / v_fresh.
-template <int D, int GC, class Args>
-__device__ void attention_phase(const Args& a, int li, int n_cached, const float* qkv,
+template <int D, int GC, class Args, class Qkv>
+__device__ void attention_phase(const Args& a, int li, int n_cached, Qkv qkv,
                                 float* part_m, float* part_l, float* part_acc,
-                                float* s_merge, __nv_bfloat16* k_fresh,
-                                __nv_bfloat16* v_fresh) {
+                                int* tickets, float* attn, float* s_merge,
+                                __nv_bfloat16* k_fresh, __nv_bfloat16* v_fresh) {
+  __shared__ int s_last;
   const int pos = n_cached;
   constexpr int LPR = D / 8;
   constexpr int RPW = 32 / LPR;
@@ -158,6 +209,7 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, const float
   float* s_m = s_merge;                       // [kWarps][GC]
   float* s_l = s_m + kWarps * GC;             // [kWarps][GC]
   float* s_acc = s_l + kWarps * GC;           // [kWarps][GC][D]
+  float* s_qkv = s_acc + kWarps * GC * D;     // [GC + 2][D]: q of the heads, k, v
   const size_t layer_base = (size_t)li * a.S * HD;
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
@@ -166,11 +218,15 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, const float
     const int r0 = split * plan.rows;
     const int r1 = min(r0 + plan.rows, live);
 
+    for (int i = threadIdx.x; i < (GC + 2) * D; i += kThreads) {
+      const int j = i / D, d = i % D;
+      s_qkv[i] = qkv(j < GC ? (h * G + gc * GC + j) * D + d : NQ + (j - GC) * HD + h * D + d);
+    }
+    __syncthreads();
     float qf[GC][8];
 #pragma unroll
     for (int j = 0; j < GC; ++j) {
-      const int head = h * G + gc * GC + j;
-      load8_cg(qkv + head * D + chunk * 8, qf[j]);
+      load8_s(s_qkv + j * D + chunk * 8, qf[j]);
       norm_rope<LPR>(qf[j], qn, chunk, a.cos_r, a.sin_r, a.eps);
 #pragma unroll
       for (int i = 0; i < 8; ++i) qf[j][i] = round_bf16(qf[j][i]) * a.scale;
@@ -179,9 +235,9 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, const float
     const bool has_fresh = pos >= r0 && pos < r1;
     float k_new[8], v_new[8];
     if (has_fresh) {
-      load8_cg(qkv + NQ + h * D + chunk * 8, k_new);
+      load8_s(s_qkv + GC * D + chunk * 8, k_new);
       norm_rope<LPR>(k_new, kn, chunk, a.cos_r, a.sin_r, a.eps);
-      load8_cg(qkv + NQ + HD + h * D + chunk * 8, v_new);
+      load8_s(s_qkv + (GC + 1) * D + chunk * 8, v_new);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         k_new[i] = round_bf16(k_new[i]);
@@ -204,6 +260,7 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, const float
     }
     const size_t base = layer_base + (size_t)h * D + chunk * 8;
     // warp-uniform bound: the shuffles below never run under divergence
+#pragma unroll 2
     for (int rr = r0 + warp * RPW; rr < r1; rr += kSub) {
       const int r = rr + sub_in_warp;
       const bool ok = r < r1;
@@ -288,39 +345,37 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, const float
         __stcg(part_l + row, Ls);
       }
     }
+    // the ticket: the last split of this (kv-head, head chunk) folds them
+    if (tickets != nullptr) __threadfence();
+    __syncthreads();
+    if (tickets == nullptr) continue;
+    if (threadIdx.x == 0) {
+      int* ctr = tickets + h * NGC + gc;
+      const int ticket = atomicAdd(ctr, 1);
+      s_last = ticket == plan.nsplit - 1;
+      if (s_last) *ctr = 0;                 // ready for the next layer
+    }
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      for (int idx = threadIdx.x; idx < GC * D; idx += kThreads) {
+        const int head = h * G + gc * GC + idx / D, d = idx % D;
+        __stcg(attn + head * D + d,
+               combine_split<D>(part_m, part_l, part_acc, head, d, plan.nsplit));
+      }
+    }
     __syncthreads();
   }
 }
 
-// attn[head, d] = Σ_s acc·e^(m−M) / Σ_s l·e^(m−M).
-template <int D, class Args>
-__device__ void combine_phase(const Args& a, int n_cached, int items_per_split,
-                              const float* part_m, const float* part_l,
-                              const float* part_acc, float* attn) {
-  const SplitPlan plan = split_plan(n_cached + 1, items_per_split);
-  for (int head = blockIdx.x; head < a.hq; head += gridDim.x) {
-    for (int d = threadIdx.x; d < D; d += kThreads) {
-      const size_t row0 = (size_t)head * gridDim.x;
-      float M = kNegInf;
-      for (int s = 0; s < plan.nsplit; ++s) M = fmaxf(M, __ldcg(part_m + row0 + s));
-      float Ls = 0.f, A = 0.f;
-      for (int s = 0; s < plan.nsplit; ++s) {
-        const float wt = __expf(__ldcg(part_m + row0 + s) - M);
-        Ls = fmaf(__ldcg(part_l + row0 + s), wt, Ls);
-        A = fmaf(__ldcg(part_acc + (row0 + s) * D + d), wt, A);
-      }
-      __stcg(attn + head * D + d, A / fmaxf(Ls, 1e-30f));
-    }
-  }
-}
-
-// The stacks' f32 workspace, carved the same way by both kernels.
+// The one-launch kernels' f32 workspace, carved the same way by each.
 struct Workspace {
   float *xbuf, *qkv, *attn, *act, *part_m, *part_l, *part_acc;
+  float* part_gemv;   // the bf16 kernels' GEMV partials (fused_stack_gemv.cuh)
 };
 
 __device__ __forceinline__ Workspace carve_ws(float* ws, int H, int NQKV, int NQ, int NI,
-                                              int hq) {
+                                              int hq, int D) {
   const int P = gridDim.x;
   Workspace w;
   w.xbuf = ws;
@@ -330,6 +385,7 @@ __device__ __forceinline__ Workspace carve_ws(float* ws, int H, int NQKV, int NQ
   w.part_m = w.act + NI;
   w.part_l = w.part_m + hq * P;
   w.part_acc = w.part_l + hq * P;
+  w.part_gemv = w.part_acc + (size_t)hq * P * D;
   return w;
 }
 

@@ -34,8 +34,9 @@ raises.  `<wrapper>.launches` counts kernel launches.
 - `flash_attention_segmented` ← flash_attention_segmented
   (csrc/segment_flash.cu): row i attends row j iff seg[i] == seg[j], the
   vision tower's window and full-image blocks; bound by bytes in window
-  blocks, by tensor-core FLOPs in full ones; each block lists the k tiles
-  whose segs can match its rows and computes only those, and a pad row
+  blocks, by tensor-core FLOPs in full ones; prefill's wgmma/TMA design in
+  a persistent walk over (q tile, head) units, each unit listing the k
+  tiles whose segs can match its rows and computing only those; a pad row
   (seg < 0) matches nothing, so a bucket's pad tail costs no tile visits.
 """
 
@@ -408,7 +409,7 @@ flash_attention.launches = 0
 
 # -- segment-masked attention (vision towers) ----------------------------------
 
-#: the kernel lists up to 1024 k tiles of 64 rows in shared memory
+#: the kernel lists up to 512 k tiles of 128 rows in shared memory
 SEGMENT_MAX_S = 65536
 
 
@@ -451,11 +452,10 @@ def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
     require(S <= SEGMENT_MAX_S, f"segment kernel takes S ≤ {SEGMENT_MAX_S}")
     require(all(t.stride(-1) == 1 for t in (q, k, v)),
             "segment kernel needs a contiguous channel axis")
-    # 4-byte fragment loads of q; 16-byte row loads of k/v
-    require(q.data_ptr() % 4 == 0 and all(s % 2 == 0 for s in q.stride()[:3]),
-            "q rows must be 4-byte aligned")
+    # TMA copies: 16-byte aligned bases and batch/sequence/head strides
     require(all(_aligned16(t) and all(s % 8 == 0 for s in t.stride()[:3])
-                for t in (k, v)), "k/v rows must be 16-byte aligned")
+                for t in (q, k, v)), "segment kernel needs 16-byte aligned "
+            "q/k/v rows (base and strides), as TMA does")
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = kernels.lib().aha_segment_flash(

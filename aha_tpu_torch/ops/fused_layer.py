@@ -9,8 +9,10 @@ row, o-proj, SwiGLU and residuals in ONE cooperative launch.  Bound: the
 weight bytes (840 MB a step for Qwen3-0.6B in bf16, 433 MB on the int8
 grid, 236 MB on the 4-bit one), read once; the per-op chain instead pays
 ~70 host dispatches and launches per layer.  The design — a persistent
-block per SM, six grid barriers per layer, deterministic block- or
-warp-level dot reductions — is described in the sources.
+block per SM, five grid barriers per layer, deterministic block- or
+warp-level dot reductions; over bf16 weights a static plan of weight tiles
+streamed by TMA through a shared-memory ring that runs ahead across the
+barriers — is described in the sources.
 
 The quantized stack takes each of its four projections on either grid
 (ops/quant_matmul.py layouts, K exactly the grid's Kp), as the JAX kernel
@@ -46,6 +48,7 @@ import ctypes
 import torch
 
 from aha_tpu_torch.ops import kernels
+from aha_tpu_torch.ops.flash_attention import ticket_counters
 from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.ops.quant_matmul import (GRID_KEYS, GROUP, check_grid,
                                             grid_info, grid_k, qdot,
@@ -237,8 +240,22 @@ def _check_step(x, layers, pos, cos, sin, k_cache, v_cache) -> dict:
     return n
 
 
+def _gemv_partials(n: dict) -> int:
+    """f32 partial sums of one of the bf16 kernels' two GEMV partial
+    buffers (csrc/fused_stack_gemv.cuh): the most over the four phases of
+    ⌈K/rows⌉·⌈N/64⌉·64·pieces (units of 128 rows of one 64-column piece;
+    gate|up 64 rows of a gate and an up piece)."""
+    H, NQ, NI = n["H"], n["NQ"], n["NI"]
+
+    def units(K, N, rows, pieces):
+        return -(-K // rows) * -(-N // 64) * 64 * pieces
+
+    return max(units(H, NQ + 2 * n["HD"], 128, 1), units(NQ, H, 128, 1),
+               units(H, NI, 64, 2), units(NI, H, 128, 1))
+
+
 def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n):
-    """The card-side checks both kernels share, then (norm pointers, cos,
+    """The card-side checks the kernels share, then (norm pointers, cos,
     sin, workspace, output, grid) for the launch."""
     L, H, D, hq, hkv, NI = (n[k] for k in ("L", "H", "D", "hq", "hkv", "NI"))
     norms = dict(ln1=(L, H), ln2=(L, H), q_norm=(L, D), k_norm=(L, D))
@@ -263,8 +280,8 @@ def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n):
             f"Hkv={hkv} H={H} NI={NI}")
     grid = torch.cuda.get_device_properties(x.device).multi_processor_count
     ws = torch.empty(H + n["NQ"] + 2 * n["HD"] + n["NQ"] + NI
-                     + hq * grid * (D + 2), dtype=torch.float32,
-                     device=x.device)
+                     + hq * grid * (D + 2) + 2 * _gemv_partials(n),
+                     dtype=torch.float32, device=x.device)
     out = torch.empty((1, 1, H), dtype=x.dtype, device=x.device)
     ptrs = [layers[name]["w"].data_ptr() for name in norms]
     return ptrs, cos_r, sin_r, ws, out, grid
@@ -307,8 +324,8 @@ def fused_decode_stack(x: torch.Tensor, layers: dict, pos: torch.Tensor,
         x.data_ptr(), *(t.data_ptr() for t in w.values()), *norms,
         cos_r.data_ptr(), sin_r.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        n["L"], n["H"], n["hq"], n["hkv"], n["D"], n["NI"], n["S"], float(eps),
-        float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
+        n["L"], n["H"], n["hq"], n["hkv"], n["D"], n["NI"], n["S"],
+        float(eps), float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack")
     fused_decode_stack.launches += 1
     return out
@@ -342,15 +359,17 @@ def fused_decode_stack_q8(x: torch.Tensor, layers: dict, pos: torch.Tensor,
         q4.append(int("q4" in p))
     norms, cos_r, sin_r, ws, out, grid = _launch_args(
         x, layers, pos, cos, sin, k_cache, v_cache, n)
+    # the attention's ticketed fold: one counter per query head at most
+    tickets = ticket_counters(x.device, kernels.stream_handle(x), n["hq"])
     ptrs = [(ctypes.c_void_p * 4)(*a) for a in (w, s, b)]
     flags = (ctypes.c_int * 4)(*q4)
     rc = kernels.lib().aha_fused_decode_stack_q8(
         x.data_ptr(), *(ctypes.addressof(a) for a in ptrs),
         ctypes.addressof(flags), *norms, cos_r.data_ptr(), sin_r.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), L, H, n["hq"], n["hkv"], n["D"], NI,
-        n["S"], float(eps), float(n["D"] ** -0.5), grid,
-        kernels.stream_handle(x))
+        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), L, H, n["hq"],
+        n["hkv"], n["D"], NI, n["S"], float(eps), float(n["D"] ** -0.5),
+        grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack_q8")
     fused_decode_stack_q8.launches += 1
     return out

@@ -8,6 +8,11 @@ kernels (`csrc/study_*.cu`) beside their plain PyTorch versions:
     python -m aha_tpu_torch.studies.exp_int4          # int4 weights: dp4a vs mma.sync
     python -m aha_tpu_torch.studies.exp_fused_layer   # one launch per layer, NBUF sweep
 
+and one study of the port's own bf16 decode stack, `stack_parts` (its
+grid barriers alone, its weight stream without them, the stack):
+
+    python -m aha_tpu_torch.studies.stack_parts
+
 `--quick` runs each kernel's default variant only.  Every wrapper counts
 its launches (`<wrapper>.launches`), runs its plain version on a CPU tensor
 and launches its kernel (or raises) on a CUDA one.  Nothing here is on a

@@ -987,7 +987,8 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     left dense for the bf16 one), a 2048-row cache with random rows, the
     token at `pos`: hidden state and the written cache rows against the
     plain version (f32, the same bf16 inputs); rows other than `pos`
-    untouched; on the grids, zeroed down scales fail the bound."""
+    untouched; a repeat bit-equal; on the grids, zeroed down scales fail
+    the bound.  Timed: device ms, the bound and GB/s of weights."""
     from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
                                             fuse_decode_params)
     from aha_tpu_torch.ops import fused_layer
@@ -1023,8 +1024,11 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     sin = torch.cat([model.sin[pos], model.sin[pos]])[None]
     eps = cfg.rms_norm_eps
     got = kernel(x, lyr, p, cos, sin, k, v, eps)
+    again = kernel(x, lyr, p, cos, sin, k, v, eps)     # rewrites row pos alike
     ref = plain(x, lyr, p, cos, sin, kp, vp, eps)
     torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{name} {grids} L={n_layers} pos={pos}: "
+            "a repeat is not bit-equal")
     err_x = _rel(got, ref)
     err_kv = max(_rel(k[:, 0, pos], kp[:, 0, pos]),
                  _rel(v[:, 0, pos], vp[:, 0, pos]))
@@ -1041,7 +1045,7 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     line = (f"[kernels] {name} {grids} L={n_layers} H={cfg.hidden_size} "
             f"pos={pos} (cache 2048): hidden err {err_x:.3e}, cache-row err "
             f"{err_kv:.3e} of max |ref| (tol {tol}); max_abs_err "
-            f"{abs_err:.3e}")
+            f"{abs_err:.3e}; a repeat bit-equal")
     if quant:
         dn = lyr["mlp"]["down"]
         zeroed = {**lyr, "mlp": {**lyr["mlp"], "down": {
@@ -1072,6 +1076,7 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
         if grids in ("bf16", "q8"):
             _record(name, abs_err, ms, plain_ms, b, None, None,
                     f"{grids} L={n_layers} pos={pos}")
+            RESULTS[name]["weight_gb_s"] = wbytes / ms / 1e6
     _record(name, abs_err)
     log(line)
     del lyr, k, v, kp, vp
@@ -1193,7 +1198,8 @@ def check_segmented() -> None:
     against the f32 plain version on every row (pad rows give 0), within
     TOL_SEG_REL of max |ref|; a planted fault — the k tile of rows
     2816-2879, which a window straddles, hidden from every other row, as a
-    block that left it off its list would — must break that bound.  Then device time of kernel and
+    block that left it off its list would — must break that bound; a
+    repeat is bit-equal.  Then device time of kernel and
     plain, the bound, and F.scaled_dot_product_attention with the boolean
     (S, S) mask (timed only)."""
     from aha_tpu_torch.ops import flash_attention as fa
@@ -1212,12 +1218,15 @@ def check_segmented() -> None:
     for kind, seg_np in vl_segments().items():
         seg = torch.from_numpy(seg_np).cuda()
         got = fa.flash_attention_segmented(q, k, v, seg)
+        again = fa.flash_attention_segmented(q, k, v, seg)
         ref = fa.flash_attention_segmented_plain(q.float(), k.float(),
                                                  v.float(), seg)
         hidden = seg.clone()
         hidden[t0:t0 + 64] = 1 << 30        # a seg no other row has
         bad = fa.flash_attention_segmented(q, k, v, hidden)
         torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"segmented {kind}: a repeat is not bit-equal")
         err, rel = _rel_err(got, ref)
         _, rel_bad = _rel_err(bad[:, outside], ref[:, outside])
         require(rel <= TOL_SEG_REL,
@@ -1239,8 +1248,8 @@ def check_segmented() -> None:
         b = bound((3 * R + S) * H * D * 2, 4 * H * D * pairs)
         log(f"[kernels] segmented {kind} S={S} ({R} real + {S - R} pad) "
             f"H={H} D={D}, strided qkv: max_abs_err {err:.3e}, {rel:.3e} of "
-            f"max |ref| (tol {TOL_SEG_REL}; a hidden k tile {rel_bad:.3e}); "
-            f"{pairs} pairs; device ms/call kernel {ms:.4f} (the {R} real rows "
+            f"max |ref| (tol {TOL_SEG_REL}; a hidden k tile {rel_bad:.3e}), "
+            f"a repeat bit-equal; {pairs} pairs; device ms/call kernel {ms:.4f} (the {R} real rows "
             f"alone {ms_real:.4f}) plain {plain_ms:.4f} masked sdpa "
             f"{lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
         if kind == "window":
@@ -2633,7 +2642,8 @@ def main() -> int:
                 **{k: RESULTS[name][k] for k in (
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
-                    "also_timed", "full_image", "g7", "gbps", "tol")
+                    "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
+                    "g7", "gbps", "tol")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

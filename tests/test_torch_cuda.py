@@ -762,3 +762,86 @@ def test_study_fused_layer_matches_plain(dev):
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     assert int(ticket_counters(dev, stream, 16)[:16].abs().sum()) == 0
+
+
+def _tower_segments(kind, real=4900, bucket=6400):
+    """(n2)'s seg ids: a 70 x 70 patch grid (980 px) under the published
+    tower's 112-pixel windows, in a 6400-row bucket, pad rows -1; cut to
+    the first `bucket` rows when that is smaller."""
+    import numpy as np
+
+    from aha_tpu_torch.models.qwen2_5vl import VisionConfig, vision_geometry
+
+    geo = vision_geometry([(1, 70, 70)], VisionConfig())
+    seg = geo["window_seg" if kind == "window" else "full_seg"][:real]
+    seg = np.concatenate([seg, -np.ones(max(bucket - len(seg), 0), np.int32)])
+    return torch.from_numpy(seg[:bucket].astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["window", "full"])
+@pytest.mark.parametrize("B,real,bucket", [
+    (1, 4900, 6400),     # the tower's bucket: q tile 38 straddles real / pad
+    (2, 4900, 6400),     # two batch rows share seg
+    (1, 100, 100),       # S < 128: one ragged q and k tile
+    (1, 300, 448),       # a short bucket with a pad tail
+])
+def test_segment_flash_at_the_tower_geometry(dev, kind, B, real, bucket):
+    """The segment kernel at Qwen2.5-VL-3B's tower geometry (H 16, D 80,
+    strided thirds of one fused qkv product, peaked q): every row within
+    2e-2 of max |ref| of the f32 plain version (pad rows 0 in both), and a
+    repeat bit-equal."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_attention_segmented, flash_attention_segmented_plain)
+
+    H, D = 16, 80
+    seg = _tower_segments(kind, real, bucket).to(dev)
+    g = torch.Generator(device=dev).manual_seed(bucket + B)
+    qkv = torch.randn((B, bucket, 3, H, D), generator=g, device=dev)
+    qkv[:, :, 0] *= 4
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    got = flash_attention_segmented(q, k, v, seg)
+    again = flash_attention_segmented(q, k, v, seg)
+    ref = flash_attention_segmented_plain(q.float(), k.float(), v.float(),
+                                          seg)
+    torch.cuda.synchronize()
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2 * top
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, seg < 0], torch.zeros_like(got[:, seg < 0]))
+
+
+@pytest.mark.parametrize("pos", [0, 2047])
+def test_fused_stack_at_qwen3_widths(dev, pos):
+    """The bf16 stack at Qwen3-0.6B's widths (H 1024, NI 3072, 16/8 heads,
+    D 128), 2 layers, a 2048-row cache: hidden state and the written rows
+    within 2e-2 of max |ref| of the plain version, other rows untouched,
+    two calls bit-equal (the same cache row rewritten the same)."""
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack,
+                                               fused_decode_stack_plain)
+    from aha_tpu_torch.ops.rope import rope_table
+
+    g = torch.Generator(device=dev).manual_seed(30 + pos)
+    L, H, NI, S, hq, hkv, D = 2, 1024, 3072, 2048, 16, 8, 128
+    lyr = _fused_layers(g, L, H, hq, hkv, D, NI)
+    x = _bf(g, 1, 1, H)
+    kc, vc = _bf(g, L, 1, S, hkv * D), _bf(g, L, 1, S, hkv * D)
+    cos, sin = rope_table(D, S, 1e6, device=dev)
+    cosr = torch.cat([cos[pos], cos[pos]])[None]
+    sinr = torch.cat([sin[pos], sin[pos]])[None]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kp, vp = kc.clone(), vc.clone()
+    got = fused_decode_stack(x, lyr, p, cosr, sinr, kc, vc, 1e-6)
+    again = fused_decode_stack(x, lyr, p, cosr, sinr, kc, vc, 1e-6)
+    ref = fused_decode_stack_plain(x, lyr, p, cosr, sinr, kp, vp, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2 * top
+    keep = torch.ones(S, dtype=torch.bool, device=dev)
+    keep[pos] = False
+    for new, want in ((kc, kp), (vc, vp)):
+        rows = want[:, 0, pos].float()
+        assert (new[:, 0, pos].float() - rows).abs().max().item() <= \
+            2e-2 * rows.abs().max().item()
+        assert torch.equal(new[:, 0, keep], want[:, 0, keep])

@@ -174,3 +174,26 @@ def test_fused_step_close_to_per_op_chain(pair):
     assert (cf["k"][:, :, 12].float() - cp["k"][:, :, 12].float()).abs() \
         .max().item() <= 3e-2 * cp["k"][:, :, 12].float().abs().max().item()
     assert int(tm.greedy_token(tp, hf)) == int(tm.greedy_token(tp, hp))
+
+
+def test_stack_parts_edits_the_stack_source():
+    """The bf16 stack's decomposition study (studies/stack_parts.py): its
+    reading (b) empties every grid barrier and the attention call of
+    csrc/fused_decode_stack.cu, multi-line calls through their semicolon,
+    and its reading (a) counts the stack's barriers from the same source:
+    five a layer, the last layer's kept (the x_out residual reads the
+    down partials after it)."""
+    from aha_tpu_torch.ops import kernels
+    from aha_tpu_torch.studies import stack_parts as sp
+
+    src = (kernels.CSRC / sp.STACK_SOURCE).read_text()
+    assert sp.barriers_per_step(src) == 5 * sp.L
+    cut = sp.drop_calls(src, sp.DROPPED)
+    assert sp.BARRIER not in cut and "attention_phase<" not in cut
+    assert cut.count("(") == cut.count(")")
+    assert sp.drop_calls("a(1);\n  f<2>(x,\n    (y));\nb();", ("f<",)) == \
+        "a(1);\n  ;\nb();"
+    old = "for (;;) {\n  x();\n  aha_coop::grid_barrier();\n  if (!last) " \
+          "aha_coop::grid_barrier();\n}"
+    assert sp.barriers_per_step(old) == 2 * sp.L - 1
+    assert sp.drop_calls(old, sp.DROPPED).endswith("if (!last) ;\n}")
