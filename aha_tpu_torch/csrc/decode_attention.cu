@@ -32,10 +32,8 @@
 //   (query head, split).
 // - The last block of each (slot, kv-head, share) to finish — an atomic
 //   ticket on a counter of its own, which that block resets to 0 for the
-//   next launch — folds the slot's splits for its heads: the per-split weights
-//   exp(m_s - M) and the sum Σ l_s·w_s by warps over the splits, then the
-//   G·D channels, each summed over the splits by groups of threads in a
-//   fixed order and the groups folded in a fixed order: deterministic,
+//   next launch — folds the slot's splits for its heads in a fixed order
+//   (decode_fold.cuh, shared with decode_attention_q8.cu): deterministic,
 //   whichever block arrives last.
 // - Any group size G = Hq / Hkv from 1 to 8: a block scores two heads when G
 //   is even and one when it is odd (G 3, 5, 7 — Qwen2.5-VL-7B has 28 over 4),
@@ -45,13 +43,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_fold.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMinRows = 32;         // live rows per split at least
-constexpr int kMaxSplit = 256;       // splits per (slot, kv-head) at most
-constexpr float kNegInf = -1e30f;    // finite, as the JAX kernels' NEG_INF
+using aha_decode::kMaxSplit;
+using aha_decode::kNegInf;
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -69,7 +69,7 @@ struct Smem {
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   // phase 1: per-warp (m, l, acc); phase 2 (the fold) reuses the bytes
   static constexpr int kMerge = kWarps * G * (D + 2);
-  static constexpr int kFold = G * kMaxSplit + 8 + kThreads * 4;
+  static constexpr int kFold = aha_decode::fold_floats(G, kThreads);
   static constexpr int kFloats = kMerge > kFold ? kMerge : kFold;
 };
 
@@ -88,7 +88,6 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr int RPW = Smem<D, G>::kRowsPerWarp;
   constexpr int kSub = kWarps * RPW;                // rows per load wave
   __shared__ __align__(16) float smem[Smem<D, G>::kFloats];
-  __shared__ int s_last;
 
   const int split = blockIdx.x, b = blockIdx.z;
   const int n_share = Hq / Hkv / G;                 // blocks per kv-head
@@ -222,79 +221,8 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 
   // the ticket: the last split of this (slot, kv-head, share) folds them all
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* ctr = counters + (size_t)b * Hkv * n_share + blockIdx.y;
-    const int ticket = atomicAdd(ctr, 1);
-    s_last = ticket == nsplit - 1;
-    if (s_last) *ctr = 0;                   // ready for the next launch
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  float* s_w = smem;                        // [G][kMaxSplit] exp(m_s - M)
-  float* s_inv = s_w + G * kMaxSplit;       // [G ≤ 8] 1 / Σ l_s·w_s
-  float4* s_part = reinterpret_cast<float4*>(s_inv + 8);   // [kThreads]
-  for (int g = warp; g < G; g += kWarps) {
-    const size_t row0 = (head0 + g) * maxsplit;
-    float M = kNegInf;
-    for (int s = lane; s < nsplit; s += 32) M = fmaxf(M, __ldcg(part_m + row0 + s));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
-    float Ls = 0.f;
-    for (int s = lane; s < nsplit; s += 32) {
-      const float wt = __expf(__ldcg(part_m + row0 + s) - M);
-      s_w[g * kMaxSplit + s] = wt;
-      Ls = fmaf(__ldcg(part_l + row0 + s), wt, Ls);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) Ls += __shfl_xor_sync(0xffffffffu, Ls, off);
-    if (lane == 0) s_inv[g] = 1.f / fmaxf(Ls, 1e-30f);
-  }
-  __syncthreads();
-  // G·D/4 float4 outputs; `groups` threads per output, each summing the
-  // splits s ≡ its group (mod groups) in order
-  constexpr int kOut = G * D / 4;
-  constexpr int kGroups = kThreads / kOut > 0 ? kThreads / kOut : 1;
-  static_assert(kOut <= kThreads, "one float4 output per thread at least");
-  {
-    const int o = threadIdx.x % kOut, gi = threadIdx.x / kOut;
-    const int g = o / (D / 4), d4 = o % (D / 4);
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gi < kGroups) {
-      const float4* src = reinterpret_cast<const float4*>(part_acc) +
-                          ((head0 + g) * maxsplit) * (D / 4) + d4;
-#pragma unroll 8
-      for (int s = gi; s < nsplit; s += kGroups) {
-        const float wt = s_w[g * kMaxSplit + s];
-        const float4 x = __ldcg(src + (size_t)s * (D / 4));
-        a.x = fmaf(x.x, wt, a.x);
-        a.y = fmaf(x.y, wt, a.y);
-        a.z = fmaf(x.z, wt, a.z);
-        a.w = fmaf(x.w, wt, a.w);
-      }
-    }
-    s_part[threadIdx.x] = a;
-  }
-  __syncthreads();
-  if (threadIdx.x < kOut) {
-    const int o = threadIdx.x, g = o / (D / 4), d4 = o % (D / 4);
-    float4 a = s_part[o];
-#pragma unroll
-    for (int gi = 1; gi < kGroups; ++gi) {
-      const float4 x = s_part[gi * kOut + o];
-      a.x += x.x;
-      a.y += x.y;
-      a.z += x.z;
-      a.w += x.w;
-    }
-    const float inv = s_inv[g];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (head0 + g) * D + d4 * 4);
-    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
-    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
-  }
+  aha_decode::fold_if_last<D, G, kThreads>(part_m, part_l, part_acc, counters, out, head0,
+                                           maxsplit, nsplit, smem);
 }
 
 struct Args {

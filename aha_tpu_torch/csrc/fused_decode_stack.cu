@@ -128,8 +128,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_stack_kernel(const __grid_c
 // layer is written in place.  Supported: D in {64, 128}, Hq % Hkv == 0,
 // H and NI multiples of 8; the weights 16-byte aligned.  `grid` blocks (one
 // per SM: a cooperative launch fails rather than run blocks that are not
-// all resident); ws holds H + (NQ + 2·HD) + NQ + NI + Hq·grid·(D + 2) f32
-// and the GEMV partials after them, twice the most of
+// all resident); ws (16-byte aligned) holds H + (NQ + 2·HD) + NQ + NI +
+// Hq·grid·(D + 2) + 4 f32 and the GEMV partials after them, twice the most of
 // ⌈K/rows⌉·⌈N/64⌉·64·pieces over the four phases (rows 128, pieces 1;
 // gate|up rows 64, pieces 2, N = NI).
 extern "C" int aha_fused_decode_stack(

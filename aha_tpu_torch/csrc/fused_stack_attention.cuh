@@ -371,7 +371,7 @@ __device__ void attention_phase(const Args& a, int li, int n_cached, Qkv qkv,
 // The one-launch kernels' f32 workspace, carved the same way by each.
 struct Workspace {
   float *xbuf, *qkv, *attn, *act, *part_m, *part_l, *part_acc;
-  float* part_gemv;   // the bf16 kernels' GEMV partials (fused_stack_gemv.cuh)
+  float* part_gemv;   // the streamed stacks' GEMV partials (fused_stack_gemv.cuh)
 };
 
 __device__ __forceinline__ Workspace carve_ws(float* ws, int H, int NQKV, int NQ, int NI,
@@ -385,7 +385,9 @@ __device__ __forceinline__ Workspace carve_ws(float* ws, int H, int NQKV, int NQ
   w.part_m = w.act + NI;
   w.part_l = w.part_m + hq * P;
   w.part_acc = w.part_l + hq * P;
-  w.part_gemv = w.part_acc + (size_t)hq * P * D;
+  // 16-byte aligned (add_phase reads float4s): the wrapper allots 4 more
+  const size_t off = (w.part_acc + (size_t)hq * P * D) - ws;
+  w.part_gemv = ws + (off + 3) / 4 * 4;
   return w;
 }
 

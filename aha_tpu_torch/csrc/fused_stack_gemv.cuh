@@ -1,7 +1,9 @@
 // The weight stream and the GEMV and norm phases of the one-launch decode
-// kernels over bf16 weights (fused_decode_stack.cu: every layer of a step;
-// fused_decode_layer.cu: one layer), for a persistent cooperative kernel of
-// kThreads threads per block (cooperative.cuh, fused_stack_attention.cuh).
+// kernels (fused_decode_stack.cu: every layer of a step; fused_decode_layer.cu:
+// one layer; the plan, ring and partial sums also carry the GGUF-grid stack,
+// fused_decode_stack_q8.cu, whose units and multiply are its own), for a
+// persistent cooperative kernel of kThreads threads per block
+// (cooperative.cuh, fused_stack_attention.cuh).
 //
 // The weights do not depend on the activations, so every block knows
 // before the launch which weight tiles it reads in every phase of every
@@ -44,8 +46,9 @@
 //   alternate (q|k|v and gate|up; o and down): a phase's partials are read
 //   only in the next phase, before the one after overwrites them.
 //
-// Activations a dot consumes are rounded to bf16 in shared memory (s_act),
-// as the Pallas kernels' dots take them, zero past K.
+// The bf16 GEMV phase (gemv_phase) rounds the activations a dot consumes
+// to bf16 in shared memory (s_act), as the Pallas kernels' dots take them,
+// zero past K; the quantized stack has its own unit multiply.
 
 #pragma once
 
@@ -66,21 +69,32 @@ constexpr int kMaxStages = 4;               // deeper rings queue the phases' ow
                                             // reads behind weights, and read slower
 constexpr int kRowPieces = kThreads / 8;    // row pieces a block multiplies at once
 
-// The tensor maps of the four weight stacks, in phase order.
+// The tensor maps of the four bf16 weight stacks, in phase order, and the
+// copies of one unit: a stream's Maps type gives its stage bytes (kStage) and
+// issues a unit's copies onto the stage's mbarrier (copy).
 struct WeightMaps {
+  static constexpr int kStage = kStageBytes;
   CUtensorMap m[kPhases];
+
+  __device__ void copy(uint32_t dst, uint32_t bar, int p, int pieces, int piece_off,
+                       int rows, int ct, int rt, int li) const {
+    aha_hopper::mbar_expect_tx(bar, kStageBytes);
+    for (int pc = 0; pc < pieces; ++pc)
+      aha_hopper::tma_load_3d(dst + pc * (kStageBytes / pieces), &m[p], bar,
+                              ct * kTileCols + pc * piece_off, rt * rows, li);
+  }
 };
 
 // K rounded up to whole 128-row units: the length of s_act.
 __host__ __device__ __forceinline__ int k_pad(int K) { return (K + 127) / 128 * 128; }
 
 // One GEMV phase of a layer: K rows, `ncols` output columns of `pieces`
-// 64-column pieces a unit (the second `piece_off` columns after the first),
-// `rows` rows a unit; ct x rt units, this block's [lo, hi); first[b] the
-// first unit of block b (b ≤ grid + kRunBatch, U past the grid), in
+// `tile`-column pieces a unit (the second `piece_off` columns after the
+// first), `rows` rows a unit; ct x rt units, this block's [lo, hi); first[b]
+// the first unit of block b (b ≤ grid + kRunBatch, U past the grid), in
 // shared memory.
 struct Phase {
-  int K, ncols, pieces, piece_off, rows, ct, rt, lo, hi;
+  int K, ncols, pieces, piece_off, rows, tile, ct, rt, lo, hi;
   const int* first;
 };
 
@@ -91,14 +105,17 @@ __host__ __device__ __forceinline__ int plan_table_ints(int grid) {
   return kPhases * (grid + kRunBatch + 1);
 }
 
-__device__ __forceinline__ Phase make_phase(int K, int ncols, int pieces, int piece_off) {
+// rows 0: the bf16 units' 128 / pieces rows.
+__device__ __forceinline__ Phase make_phase(int K, int ncols, int pieces, int piece_off,
+                                            int rows = 0, int tile = kTileCols) {
   Phase p;
   p.K = K;
   p.ncols = ncols;
   p.pieces = pieces;
   p.piece_off = piece_off;
-  p.rows = 128 / pieces;
-  p.ct = (ncols + kTileCols - 1) / kTileCols;
+  p.rows = rows > 0 ? rows : 128 / pieces;
+  p.tile = tile;
+  p.ct = (ncols + tile - 1) / tile;
   p.rt = (K + p.rows - 1) / p.rows;
   const long long units = (long long)p.ct * p.rt;
   p.lo = (int)(blockIdx.x * units / gridDim.x);
@@ -111,18 +128,24 @@ __device__ __forceinline__ Phase make_phase(int K, int ncols, int pieces, int pi
 struct LayerPlan {
   Phase ph[kPhases];
   float* part[2];     // q|k|v and gate|up partials; o and down partials
-  // parts: 2 x the most of U·64·pieces over the phases, f32; table:
-  // plan_table_ints(grid) ints of shared memory
-  __device__ LayerPlan(int H, int NQKV, int NQ, int NI, float* parts, int* table) {
-    ph[0] = make_phase(H, NQKV, 1, 0);
-    ph[1] = make_phase(NQ, H, 1, 0);
-    ph[2] = make_phase(H, NI, 2, NI);
-    ph[3] = make_phase(NI, H, 1, 0);
+  // The bf16 weights' plan.  parts: 2 x the most of U·tile·pieces over the
+  // phases, f32; table: plan_table_ints(grid) ints of shared memory
+  __device__ LayerPlan(int H, int NQKV, int NQ, int NI, float* parts, int* table)
+      : LayerPlan(make_phase(H, NQKV, 1, 0), make_phase(NQ, H, 1, 0), make_phase(H, NI, 2, NI),
+                  make_phase(NI, H, 1, 0), parts, table) {}
+
+  // Any four phases, in layer order.
+  __device__ LayerPlan(Phase qkv, Phase o, Phase gu, Phase dn, float* parts, int* table) {
+    ph[0] = qkv;
+    ph[1] = o;
+    ph[2] = gu;
+    ph[3] = dn;
     size_t n = 0;
     const int G = gridDim.x, per = G + kRunBatch + 1;
     for (int p = 0; p < kPhases; ++p) {
       const long long U = (long long)ph[p].ct * ph[p].rt;
-      n = (size_t)U * kTileCols * ph[p].pieces > n ? (size_t)U * kTileCols * ph[p].pieces : n;
+      const size_t cols = (size_t)U * ph[p].tile * ph[p].pieces;
+      n = cols > n ? cols : n;
       int* first = table + p * per;
       for (int b = threadIdx.x; b < per; b += kThreads)
         first[b] = b <= G ? (int)(b * U / G) : (int)U;
@@ -134,7 +157,7 @@ struct LayerPlan {
   }
 };
 
-// Dynamic shared memory of a bf16 one-launch kernel: 128 bytes of
+// Dynamic shared memory of a streamed one-launch kernel: 128 bytes of
 // alignment slack, the ring, the activations (or the attention's merge,
 // which aliases them), the f32 hidden state, the plan's tables, the ring's
 // mbarriers.
@@ -143,9 +166,9 @@ struct RingLayout {
 };
 
 __host__ __device__ __forceinline__ RingLayout ring_layout(int nbuf, size_t act_bytes, int H,
-                                                          int grid) {
+                                                          int grid, int stage = kStageBytes) {
   RingLayout r;
-  r.act = (size_t)nbuf * kStageBytes;
+  r.act = (size_t)nbuf * stage;
   r.x = r.act + (act_bytes + 15) / 16 * 16;
   r.table = r.x + (size_t)k_pad(H) * sizeof(float);
   r.bars = r.table + ((size_t)plan_table_ints(grid) * sizeof(int) + 15) / 16 * 16;
@@ -164,11 +187,12 @@ __host__ __device__ __forceinline__ size_t act_bytes(int H, int NQ, int NI) {
 }
 
 // The block's ring and its place in the plan.  Every thread walks the
-// consumer side; thread 0 alone issues copies.
+// consumer side; thread 0 alone issues copies (Maps::copy).
+template <class Maps>
 class WeightStream {
  public:
   // Layers [li0, li1) of the plan; the first `nbuf` stages are issued here.
-  __device__ WeightStream(const WeightMaps& maps, const LayerPlan& plan, int li0, int li1,
+  __device__ WeightStream(const Maps& maps, const LayerPlan& plan, int li0, int li1,
                           unsigned char* ring, uint32_t bars, int nbuf)
       : maps_(maps), plan_(plan), ring_(ring), bars_(bars), nbuf_(nbuf), li1_(li1) {
     if (threadIdx.x == 0) {
@@ -184,10 +208,10 @@ class WeightStream {
   }
 
   // The next stage of the plan, once it has landed.
-  __device__ const __nv_bfloat16* wait() {
+  __device__ const unsigned char* wait() {
     const int slot = consumed_ % nbuf_;
     aha_hopper::mbar_wait(bars_ + 8 * slot, (consumed_ / nbuf_) & 1);
-    return reinterpret_cast<const __nv_bfloat16*>(ring_ + (size_t)slot * kStageBytes);
+    return ring_ + (size_t)slot * Maps::kStage;
   }
 
   // Every thread is done with the stage: its slot takes the copy of the
@@ -214,19 +238,15 @@ class WeightStream {
     if (li_ >= li1_) return;
     const Phase& P = plan_.ph[p_];
     const int slot = issued_ % nbuf_;
-    const uint32_t dst = aha_hopper::smem_u32(ring_ + (size_t)slot * kStageBytes);
+    const uint32_t dst = aha_hopper::smem_u32(ring_ + (size_t)slot * Maps::kStage);
     const uint32_t bar = bars_ + 8 * slot;
-    const int ct = u_ / P.rt, rt = u_ % P.rt;
     aha_hopper::fence_proxy_async();      // the slot's last readers came first
-    aha_hopper::mbar_expect_tx(bar, kStageBytes);
-    for (int pc = 0; pc < P.pieces; ++pc)
-      aha_hopper::tma_load_3d(dst + pc * (kStageBytes / P.pieces), &maps_.m[p_], bar,
-                              ct * kTileCols + pc * P.piece_off, rt * P.rows, li_);
+    maps_.copy(dst, bar, p_, P.pieces, P.piece_off, P.rows, u_ / P.rt, u_ % P.rt, li_);
     ++issued_;
     advance();
   }
 
-  const WeightMaps& maps_;
+  const Maps& maps_;
   const LayerPlan& plan_;
   unsigned char* ring_;
   uint32_t bars_;
@@ -238,8 +258,8 @@ class WeightStream {
 // part[u0·TW + j] += (s_act @ W)[column j of the unit tile] for each run of
 // this block's units of phase P (u0 the run's first unit, TW = 64·PIECES
 // columns a unit).  s_red holds kWarps·kTileCols floats.
-template <int PIECES>
-__device__ void gemv_phase(WeightStream& ws, const Phase& P, const __nv_bfloat16* s_act,
+template <int PIECES, class Stream>
+__device__ void gemv_phase(Stream& ws, const Phase& P, const __nv_bfloat16* s_act,
                            float* s_red, float* part) {
   constexpr int TW = kTileCols * PIECES;          // a unit's output columns
   constexpr int RP = kRowPieces / PIECES;         // rows of a piece at once
@@ -257,7 +277,7 @@ __device__ void gemv_phase(WeightStream& ws, const Phase& P, const __nv_bfloat16
       for (int i = 0; i < 8; ++i) acc[i] = 0.f;
       u_run = u;
     }
-    const __nv_bfloat16* st = ws.wait();
+    const __nv_bfloat16* st = reinterpret_cast<const __nv_bfloat16*>(ws.wait());
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
       const int r = r0 + pass * RP;
@@ -295,6 +315,13 @@ __device__ void gemv_phase(WeightStream& ws, const Phase& P, const __nv_bfloat16
   }
 }
 
+// A lower bound of the block that owns unit u of phase P (the plan gives
+// block b units [b·U/grid, (b+1)·U/grid)); 32-bit: U·grid stays far below
+// 2^32 at any model width.
+__device__ __forceinline__ int first_block(const Phase& P, int u) {
+  return (int)((unsigned)u * gridDim.x / (unsigned)(P.ct * P.rt));
+}
+
 // Columns n[c] (pieces pc[c]) of phase P: each the sum of its tile's run
 // partials in plan order — the tile's first unit, then the first unit of
 // each later block that starts inside the tile — kRunBatch loads of each
@@ -302,18 +329,18 @@ __device__ void gemv_phase(WeightStream& ws, const Phase& P, const __nv_bfloat16
 template <int C>
 __device__ __forceinline__ void phase_sums(const Phase& P, const float* part, const int (&n)[C],
                                            const int (&pc)[C], float (&out)[C]) {
-  const int TW = kTileCols * P.pieces;
+  const int TW = P.tile * P.pieces;
   const int* first = P.first;
   int b[C], u1[C];
   const float* col[C];
   bool more = false;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int u0 = n[c] / kTileCols * P.rt;
+    const int u0 = n[c] / P.tile * P.rt;
     u1[c] = u0 + P.rt;
-    col[c] = part + pc[c] * kTileCols + n[c] % kTileCols;
+    col[c] = part + pc[c] * P.tile + n[c] % P.tile;
     // the first block whose first unit lies past u0 (first[] is monotone)
-    b[c] = (int)((long long)u0 * gridDim.x / ((long long)P.ct * P.rt));
+    b[c] = first_block(P, u0);
     while (first[b[c]] <= u0) ++b[c];
     out[c] = __ldcg(col[c] + (size_t)u0 * TW);
     more |= first[b[c]] < u1[c];
@@ -365,15 +392,42 @@ __device__ void rows_to_smem(const Phase& P, __nv_bfloat16* s_act, F value) {
   __syncthreads();
 }
 
-// x[n] += column n of phase P, n < H: every block alike, in shared memory,
-// two columns a thread at once.
+// x[n] += column n of phase P (one piece a unit), n < H (a multiple of 4):
+// every block alike, in shared memory.  phase_sum's walk over the tile's
+// run partials, in the same order, four columns a thread with 16-byte
+// loads: every block reads all of them at once, and a quarter of the
+// requests queue at the same L2 lines.
 __device__ __forceinline__ void add_phase(const Phase& P, const float* part, float* x, int H) {
-  for (int n = threadIdx.x; n < H; n += 2 * kThreads) {
-    const int m = n + kThreads < H ? n + kThreads : n;
-    float y[2];
-    phase_sums<2>(P, part, {n, m}, {0, 0}, y);
-    x[n] += y[0];
-    if (m != n) x[m] += y[1];
+  const int TW4 = P.tile / 4;                    // float4s a unit's partials
+  const int* first = P.first;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = threadIdx.x; q < H / 4; q += kThreads) {
+    const int n = 4 * q;
+    const int u0 = n / P.tile * P.rt, u1 = u0 + P.rt;
+    const float4* col = reinterpret_cast<const float4*>(part) + (n % P.tile) / 4;
+    int b = first_block(P, u0);
+    while (first[b] <= u0) ++b;
+    float4 y = __ldcg(col + (size_t)u0 * TW4);
+    while (first[b] < u1) {
+      float4 v[kRunBatch];
+#pragma unroll
+      for (int i = 0; i < kRunBatch; ++i) {
+        const int f0 = first[b + i], f1 = first[b + i + 1];
+        v[i] = f0 < u1 && f1 > f0 ? __ldcg(col + (size_t)f0 * TW4) : zero;
+      }
+#pragma unroll
+      for (int i = 0; i < kRunBatch; ++i) {
+        y.x += v[i].x;
+        y.y += v[i].y;
+        y.z += v[i].z;
+        y.w += v[i].w;
+      }
+      b += kRunBatch;
+    }
+    x[n] += y.x;
+    x[n + 1] += y.y;
+    x[n + 2] += y.z;
+    x[n + 3] += y.w;
   }
   __syncthreads();
 }
@@ -385,10 +439,9 @@ __device__ __forceinline__ float swiglu(const Phase& P, const float* part, int n
   return gu[0] * (1.f / (1.f + expf(-gu[0]))) * gu[1];
 }
 
-// s_act[k] = bf16(x[k] · rsqrt(mean(x²) + eps) · w[k]) for k < H, 0 up to
-// k_pad(H); x the f32 hidden state in shared memory.
-static __device__ void rms_to_smem(const float* x, const __nv_bfloat16* w, int H, float eps,
-                                   __nv_bfloat16* s_act, float* s_red) {
+// rsqrt(mean(x²) + eps) over the f32 hidden state x in shared memory;
+// every thread returns it.  s_red holds kWarps floats.
+static __device__ float rms_inv_smem(const float* x, int H, float eps, float* s_red) {
   float ss = 0.f;
   for (int k = threadIdx.x; k < H; k += kThreads) ss = fmaf(x[k], x[k], ss);
 #pragma unroll
@@ -398,7 +451,15 @@ static __device__ void rms_to_smem(const float* x, const __nv_bfloat16* w, int H
   float tot = 0.f;
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) tot += s_red[i];
-  const float rinv = rsqrtf(tot / H + eps);
+  __syncthreads();     // s_red is free again
+  return rsqrtf(tot / H + eps);
+}
+
+// s_act[k] = bf16(x[k] · rsqrt(mean(x²) + eps) · w[k]) for k < H, 0 up to
+// k_pad(H); x the f32 hidden state in shared memory.
+static __device__ void rms_to_smem(const float* x, const __nv_bfloat16* w, int H, float eps,
+                                   __nv_bfloat16* s_act, float* s_red) {
+  const float rinv = rms_inv_smem(x, H, eps, s_red);
   for (int k = threadIdx.x; k < k_pad(H); k += kThreads)
     s_act[k] = __float2bfloat16(k < H ? x[k] * rinv * __bfloat162float(w[k]) : 0.f);
   __syncthreads();
@@ -413,11 +474,12 @@ inline bool make_weight_maps(WeightMaps* m, const void* wqkv, const void* wo, co
          aha_hopper::make_weight_map(&m->m[3], wdn, H, NI, L, 128);
 }
 
-// Launch a bf16 one-launch kernel cooperatively with as many ring stages
-// as the block's shared memory holds beside `act` bytes of activations and
-// the hidden state (at most kMaxStages); sets a.nbuf.
+// Launch a streamed one-launch kernel cooperatively with as many ring stages
+// of `stage` bytes as the block's shared memory holds beside `act` bytes of
+// activations and the hidden state (at most kMaxStages); sets a.nbuf.
 template <typename Args>
-int launch_streamed(void (*fn)(Args), Args a, int grid, size_t act, cudaStream_t st) {
+int launch_streamed(void (*fn)(Args), Args a, int grid, size_t act, cudaStream_t st,
+                    int stage = kStageBytes) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -427,11 +489,12 @@ int launch_streamed(void (*fn)(Args), Args a, int grid, size_t act, cudaStream_t
   if (err != cudaSuccess) return static_cast<int>(err);
   int nbuf = kMaxStages;
   while (nbuf >= 2 &&
-         fa.sharedSizeBytes + ring_layout(nbuf, act, a.H, grid).total > (size_t)optin)
+         fa.sharedSizeBytes + ring_layout(nbuf, act, a.H, grid, stage).total > (size_t)optin)
     --nbuf;
   if (nbuf < 2) return static_cast<int>(cudaErrorInvalidValue);
   a.nbuf = nbuf;
-  return aha_coop::launch(fn, a, grid, kThreads, ring_layout(nbuf, act, a.H, grid).total, st);
+  return aha_coop::launch(fn, a, grid, kThreads, ring_layout(nbuf, act, a.H, grid, stage).total,
+                          st);
 }
 
 // The ring, the activations, the hidden state and the mbarriers in the
@@ -444,8 +507,9 @@ struct SmemCarve {
   uint32_t bars;
 };
 
-__device__ __forceinline__ SmemCarve carve_smem(unsigned char* raw, int nbuf, size_t act, int H) {
-  const RingLayout r = ring_layout(nbuf, act, H, gridDim.x);
+__device__ __forceinline__ SmemCarve carve_smem(unsigned char* raw, int nbuf, size_t act, int H,
+                                                int stage = kStageBytes) {
+  const RingLayout r = ring_layout(nbuf, act, H, gridDim.x, stage);
   unsigned char* base = raw + ((128 - (aha_hopper::smem_u32(raw) & 127)) & 127);
   return {base, reinterpret_cast<__nv_bfloat16*>(base + r.act),
           reinterpret_cast<float*>(base + r.x), reinterpret_cast<int*>(base + r.table),

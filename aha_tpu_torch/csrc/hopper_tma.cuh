@@ -1,7 +1,8 @@
 // Hopper's asynchronous building blocks: mbarriers and TMA tile copies
 // through tensor maps encoded on the host (the attention kernels on the
 // tensor cores, flash_prefill.cu and segment_flash.cu, and the weight ring
-// of the bf16 one-launch decode kernels, fused_stack_gemv.cuh), and the
+// of the one-launch decode kernels, fused_stack_gemv.cuh, over bf16 weights
+// and over the GGUF grids), and the
 // wgmma shared-memory descriptors, fences and m64 bf16 products of the
 // attention kernels.
 //
@@ -230,6 +231,40 @@ inline bool make_weight_map(CUtensorMap* map, const void* ptr, int N, int K, int
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t es[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (Kb/4, N, L) map of `box_cols` column rows of `box_words` 32-bit words
+// over a contiguous (L, N, Kb) stack of GGUF grid rows (ops/quant_matmul.py:
+// Kb bytes a column, int8 values or nibble pairs; Kb a multiple of 16): one
+// box is box_cols column pieces of 4·box_words bytes, unswizzled; a box past
+// Kb or N is zero-filled.
+inline bool make_grid_map(CUtensorMap* map, const void* ptr, int Kb, int N, int L, int box_words,
+                          int box_cols) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)Kb / 4, (cuuint64_t)N, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)Kb, (cuuint64_t)N * Kb};
+  const cuuint32_t box[3] = {(cuuint32_t)box_words, (cuuint32_t)box_cols, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(ptr), dims, strides, box,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (G, N, L) map of `box_cols` columns of `box_groups` f32 values over a
+// contiguous (L, N, G) stack of per-group scales (or mins); G a multiple of
+// 4 (16-byte column strides).  A box past G or N is zero-filled.
+inline bool make_group_map(CUtensorMap* map, const void* ptr, int G, int N, int L,
+                           int box_groups, int box_cols) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)G, (cuuint64_t)N, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)G * 4, (cuuint64_t)N * G * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)box_groups, (cuuint32_t)box_cols, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
             es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,5 +1,5 @@
 // Device pieces shared by the kernels over the GGUF grids (quant_matmul.cu,
-// quant_swiglu.cu, head_argmax.cu): activation quantization into shared
+// quant_swiglu.cu, head_argmax.cu, fused_decode_stack_q8.cu): activation quantization into shared
 // memory, and one warp's dot of a quantized weight column with the staged
 // rows.
 //
@@ -35,43 +35,51 @@ __device__ __forceinline__ float load_act(const __nv_bfloat16* p) {
 // read them through L2.
 __device__ __forceinline__ float load_act(const float* p) { return __ldcg(p); }
 
+// One warp quantizes group g of row m: load(m, k) for k < K, zero past K,
+// into xq[m·Kp + k] int8, sx[m·G + g], xsum[m·G + g] (G = Kp / 128), four
+// values per lane.
+template <typename Load>
+__device__ __forceinline__ void quantize_group(Load load, int m, int g, int K, int Kp,
+                                               int8_t* xq, float* sx, float* xsum) {
+  const int lane = threadIdx.x & 31;
+  const int G = Kp / kGroup;
+  const int k0 = g * kGroup + lane * 4;
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = k0 + j < K ? load(m, k0 + j) : 0.f;
+  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+  float sum = (v[0] + v[1]) + (v[2] + v[3]);
+  const bool nan = isnan(v[0]) || isnan(v[1]) || isnan(v[2]) || isnan(v[3]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  }
+  const float s = __any_sync(0xffffffffu, nan) ? NAN : amax / 127.0f;
+  const float d = s == 0.f ? 1.f : s;
+  char4 q;
+  q.x = (signed char)__float2int_rn(v[0] / d);
+  q.y = (signed char)__float2int_rn(v[1] / d);
+  q.z = (signed char)__float2int_rn(v[2] / d);
+  q.w = (signed char)__float2int_rn(v[3] / d);
+  *reinterpret_cast<char4*>(xq + (size_t)m * Kp + k0) = q;
+  if (lane == 0) {
+    sx[m * G + g] = s;
+    xsum[m * G + g] = sum;
+  }
+}
+
 // Quantize `rows` rows of activations, load(m, k) for k < K and zero past K
 // up to Kp, into shared memory: xq[m·Kp + k] int8, sx[m·G + g], xsum[m·G +
-// g].  One warp per (row, group) item, four values per lane.  Ends with the
+// g].  One warp per (row, group) item (quantize_group).  Ends with the
 // block synchronised.
 template <typename Load>
 __device__ void quantize_rows_by(Load load, int K, int Kp, int rows, int8_t* xq,
                                  float* sx, float* xsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int G = Kp / kGroup;
-  for (int item = warp; item < rows * G; item += nwarps) {
-    const int m = item / G, g = item % G;
-    const int k0 = g * kGroup + lane * 4;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = k0 + j < K ? load(m, k0 + j) : 0.f;
-    float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
-    float sum = (v[0] + v[1]) + (v[2] + v[3]);
-    const bool nan = isnan(v[0]) || isnan(v[1]) || isnan(v[2]) || isnan(v[3]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    }
-    const float s = __any_sync(0xffffffffu, nan) ? NAN : amax / 127.0f;
-    const float d = s == 0.f ? 1.f : s;
-    char4 q;
-    q.x = (signed char)__float2int_rn(v[0] / d);
-    q.y = (signed char)__float2int_rn(v[1] / d);
-    q.z = (signed char)__float2int_rn(v[2] / d);
-    q.w = (signed char)__float2int_rn(v[3] / d);
-    *reinterpret_cast<char4*>(xq + (size_t)m * Kp + k0) = q;
-    if (lane == 0) {
-      sx[m * G + g] = s;
-      xsum[m * G + g] = sum;
-    }
-  }
+  for (int item = warp; item < rows * G; item += nwarps)
+    quantize_group(load, item / G, item % G, K, Kp, xq, sx, xsum);
   __syncthreads();
 }
 

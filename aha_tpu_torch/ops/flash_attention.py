@@ -22,9 +22,11 @@ raises.  `<wrapper>.launches` counts kernel launches.
   slot's length exits at once.
 - `flash_decode_at_layer_q8` / `flash_decode_at_layer_q8_batched` ←
   flash_decode_at_layer_q8 / _q8_batched (csrc/decode_attention_q8.cu):
-  the int8 cache, half the bytes per row; the same split-KV grid, scales
-  folded into the score and probability vectors.  `mxu` selects the
-  all-int8 variant (q and p quantized per query row, int32 dot products).
+  the int8 cache, half the bytes per row; the same one-launch design over
+  the live rows (splits of at least Q8_MIN_ROWS = 64 live rows),
+  scales folded into the score and probability vectors.  `mxu` selects
+  the all-int8 variant (q quantized per query row and p per warp step of
+  at most 64 rows, int32 dot products).
 - `flash_decode_at_layer` / `flash_decode` ← flash_decode_at_layer /
   flash_decode (csrc/decode_attention.cu): the stacked (L, B, S, Hkv, D)
   cache of the llama-family decoders, and one unstacked (B, S, Hkv, D)
@@ -50,13 +52,6 @@ from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.ops.attention import (causal_mask, dequantize_layer, sdpa,
                                          segment_mask)
-
-#: cache rows per split of the int8-cache decode kernel (one pass-1 block
-#: per split and kv-head): short splits keep many blocks in flight, each
-#: walking few serial rows.  Its all-int8 variant requantizes p over the
-#: rows of one split, as the TPU kernel does over one block_k block.
-DECODE_ROWS_PER_SPLIT = 64
-
 
 def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
@@ -110,29 +105,37 @@ def _check_decode(q, k_stack, v_stack, layer, valid_len, kv_dtype,
     return B, Hq, Hkv, D, L, S
 
 
-def _decode_scratch(q: torch.Tensor, S: int):
-    """nsplit and the (m, l, acc) partials of the split-KV pass."""
-    B, _, Hq, D = q.shape
-    nsplit = max(1, -(-S // DECODE_ROWS_PER_SPLIT))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    return (nsplit, torch.empty((B, Hq, nsplit), **f32),
-            torch.empty((B, Hq, nsplit), **f32),
-            torch.empty((B, Hq, nsplit, D), **f32))
-
-
 #: the bf16 decode kernel's splits per (slot, kv-head): at least this many
 #: live rows each, and at most DECODE_BLOCKS / Hkv of them, so Hkv 2 fills
 #: the 132 SMs as well as Hkv 8 does; fixed by S and Hkv, never by B, so a
 #: slot's result does not depend on the other slots
 DECODE_MIN_ROWS = 32
 DECODE_BLOCKS = 256
+#: the int8 kernel's live rows per split at least (the bytes of the bf16
+#: kernel's 32); its all-int8 variant requantizes p over at most this many
+#: rows (the rows a warp holds at one step), as the TPU kernel does over its
+#: block_k rows
+Q8_MIN_ROWS = 64
 
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def decode_splits(S: int, Hkv: int) -> int:
-    """The bf16 decode kernel's grid of splits (at most 256)."""
-    return max(1, min(DECODE_BLOCKS // Hkv, -(-S // DECODE_MIN_ROWS)))
+def decode_splits(S: int, Hkv: int, min_rows: int = DECODE_MIN_ROWS) -> int:
+    """The decode kernels' grid of splits per (slot, kv-head), at most 256;
+    `min_rows` live rows a split at least."""
+    return max(1, min(DECODE_BLOCKS // Hkv, -(-S // min_rows)))
+
+
+def split_rows(valid: int, maxsplit: int, min_rows: int) -> list[range]:
+    """The rows of each split a decode kernel gives a slot of `valid` live
+    rows on a grid of `maxsplit` splits (csrc/decode_attention*.cu): at most
+    ⌈valid / min_rows⌉ splits, each an equal share of the live rows; the
+    splits past them exit at once.  Depends on the slot's own length and
+    the grid only, so never on B."""
+    n = max(1, min(maxsplit, -(-valid // min_rows)))
+    rows = -(-valid // n)
+    return [range(min(s * rows, valid), min(s * rows + rows, valid))
+            for s in range(n)]
 
 
 def ticket_counters(device: torch.device, stream: int, n: int):
@@ -150,16 +153,23 @@ def ticket_counters(device: torch.device, stream: int, n: int):
     return t
 
 
+def _split_scratch(q: torch.Tensor, nsplit: int):
+    """The (m, l, acc) split partials of a decode launch, its ticket
+    counters (one per slot and block share, at most B·Hq) and its stream."""
+    B, _, Hq, D = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stream = kernels.stream_handle(q)
+    return (torch.empty((B, Hq, nsplit), **f32),
+            torch.empty((B, Hq, nsplit), **f32),
+            torch.empty((B, Hq, nsplit, D), **f32),
+            ticket_counters(q.device, stream, B * Hq), stream)
+
+
 def _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale):
     B, Hq, Hkv, D, L, S = _check_decode(q, k_stack, v_stack, layer,
                                         valid_len, torch.bfloat16)
     nsplit = decode_splits(S, Hkv)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B, Hq, nsplit), **f32)
-    part_l = torch.empty((B, Hq, nsplit), **f32)
-    part_acc = torch.empty((B, Hq, nsplit, D), **f32)
-    stream = kernels.stream_handle(q)
-    tickets = ticket_counters(q.device, stream, B * Hq)
+    part_m, part_l, part_acc, tickets, stream = _split_scratch(q, nsplit)
     out = torch.empty_like(q)
     rc = kernels.lib().aha_decode_attention(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
@@ -199,15 +209,16 @@ def _decode_q8(q, k_stack, v_stack, k_scale, v_scale, layer, valid_len,
     require(k_scale.shape == v_scale.shape == (L, B, S, Hkv)
             and k_scale.dtype == v_scale.dtype == torch.float32,
             "scales must be float32 (L, B, S, Hkv)")
-    nsplit, part_m, part_l, part_acc = _decode_scratch(q, S)
+    nsplit = decode_splits(S, Hkv, Q8_MIN_ROWS)
+    part_m, part_l, part_acc, tickets, stream = _split_scratch(q, nsplit)
     out = torch.empty_like(q)
     rc = kernels.lib().aha_decode_attention_q8(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), layer.data_ptr(),
         valid_len.data_ptr(), 0 if valid_len.numel() == 1 else 1,
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, D, L, S, nsplit, float(scale), int(mxu),
-        kernels.stream_handle(q))
+        tickets.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, L, S, nsplit,
+        float(scale), int(mxu), stream)
     kernels.check(rc, "aha_decode_attention_q8")
     return out
 

@@ -9,10 +9,11 @@ row, o-proj, SwiGLU and residuals in ONE cooperative launch.  Bound: the
 weight bytes (840 MB a step for Qwen3-0.6B in bf16, 433 MB on the int8
 grid, 236 MB on the 4-bit one), read once; the per-op chain instead pays
 ~70 host dispatches and launches per layer.  The design — a persistent
-block per SM, five grid barriers per layer, deterministic block- or
-warp-level dot reductions; over bf16 weights a static plan of weight tiles
-streamed by TMA through a shared-memory ring that runs ahead across the
-barriers — is described in the sources.
+block per SM, five grid barriers per layer, a static plan of weight tiles
+(over the grids with their scales) streamed by TMA through a shared-memory
+ring that runs ahead across the barriers, run partials summed in plan
+order by the phase that reads them — is described in the sources
+(csrc/fused_stack_gemv.cuh).
 
 The quantized stack takes each of its four projections on either grid
 (ops/quant_matmul.py layouts, K exactly the grid's Kp), as the JAX kernel
@@ -254,9 +255,36 @@ def _gemv_partials(n: dict) -> int:
                units(H, NI, 64, 2), units(NI, H, 128, 1))
 
 
-def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n):
+#: the quantized stack's unit: 32 output columns x 512 bytes of their grid
+#: rows (csrc/fused_decode_stack_q8.cu)
+Q_UNIT_COLS, Q_UNIT_BYTES = 32, 512
+
+
+def _quant_partials(n: dict, q4: list[bool]) -> int:
+    """f32 partial sums of one of the quantized stack's two partial buffers:
+    the most over the four projections, each on its grid (`q4` in phase
+    order), of ⌈Kb/512⌉·⌈N/32⌉·32 (Kb the bytes of a column: K int8 values,
+    or K/2 bytes of nibble pairs)."""
+    H, NQ, NI = n["H"], n["NQ"], n["NI"]
+    kn = ((H, NQ + 2 * n["HD"]), (NQ, H), (H, 2 * NI), (NI, H))
+    return max(-(-(K // 2 if g4 else K) // Q_UNIT_BYTES)
+               * -(-N // Q_UNIT_COLS) * Q_UNIT_COLS
+               for (K, N), g4 in zip(kn, q4))
+
+
+def _group_padded(t: torch.Tensor) -> torch.Tensor:
+    """Per-group scales (or mins) (L, N, G) as the quantized stack's tensor
+    maps take them: G a multiple of 4 (16-byte column strides), zeros
+    appended where it is not (no Qwen3 width; only narrow test models)."""
+    G = t.shape[-1]
+    return t if G % 4 == 0 else torch.nn.functional.pad(t, (0, -G % 4))
+
+
+def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n,
+                 partials: int | None = None):
     """The card-side checks the kernels share, then (norm pointers, cos,
-    sin, workspace, output, grid) for the launch."""
+    sin, workspace, output, grid) for the launch; `partials` f32 a GEMV
+    partial buffer (the bf16 kernels' _gemv_partials by default)."""
     L, H, D, hq, hkv, NI = (n[k] for k in ("L", "H", "D", "hq", "hkv", "NI"))
     norms = dict(ln1=(L, H), ln2=(L, H), q_norm=(L, D), k_norm=(L, D))
     for name, shape in norms.items():
@@ -280,7 +308,8 @@ def _launch_args(x, layers, pos, cos, sin, k_cache, v_cache, n):
             f"Hkv={hkv} H={H} NI={NI}")
     grid = torch.cuda.get_device_properties(x.device).multi_processor_count
     ws = torch.empty(H + n["NQ"] + 2 * n["HD"] + n["NQ"] + NI
-                     + hq * grid * (D + 2) + 2 * _gemv_partials(n),
+                     + hq * grid * (D + 2) + 4
+                     + 2 * (partials or _gemv_partials(n)),
                      dtype=torch.float32, device=x.device)
     out = torch.empty((1, 1, H), dtype=x.dtype, device=x.device)
     ptrs = [layers[name]["w"].data_ptr() for name in norms]
@@ -344,7 +373,7 @@ def fused_decode_stack_q8(x: torch.Tensor, layers: dict, pos: torch.Tensor,
                                            k_cache, v_cache, eps)
     L, H, NQ, NI = n["L"], n["H"], n["NQ"], n["NI"]
     want = ((H, NQ + 2 * n["HD"]), (NQ, H), (H, 2 * NI), (NI, H))
-    w, s, b, q4 = [], [], [], []
+    w, s, b, q4, gs, keep = [], [], [], [], [], []
     for name, p, (K, N) in zip(("qkv", "o", "gateup", "down"),
                                _mats(layers), want):
         require(grid_info(p) is not None and "b" not in p,
@@ -353,21 +382,27 @@ def fused_decode_stack_q8(x: torch.Tensor, layers: dict, pos: torch.Tensor,
         require(shape == (N, K), f"{name} is {shape} (N, Kp), expected "
                 f"{(N, K)}")
         tensors = [p[k] for k in GRID_KEYS["q4" if "q4" in p else "q8"]]
+        groups = [_group_padded(t) for t in tensors[1:]]
+        require(all(t.data_ptr() % 16 == 0 for t in groups),
+                f"{name}: scales 16-byte aligned")
+        keep += groups       # padded copies live until the launch is queued
         w.append(tensors[0].data_ptr())
-        s.append(tensors[1].data_ptr())
-        b.append(tensors[2].data_ptr() if "q4" in p else None)
+        s.append(groups[0].data_ptr())
+        b.append(groups[1].data_ptr() if "q4" in p else None)
         q4.append(int("q4" in p))
+        gs.append(groups[0].shape[-1])
     norms, cos_r, sin_r, ws, out, grid = _launch_args(
-        x, layers, pos, cos, sin, k_cache, v_cache, n)
+        x, layers, pos, cos, sin, k_cache, v_cache, n,
+        _quant_partials(n, [bool(f) for f in q4]))
     # the attention's ticketed fold: one counter per query head at most
     tickets = ticket_counters(x.device, kernels.stream_handle(x), n["hq"])
     ptrs = [(ctypes.c_void_p * 4)(*a) for a in (w, s, b)]
-    flags = (ctypes.c_int * 4)(*q4)
+    flags, groups = (ctypes.c_int * 4)(*q4), (ctypes.c_int * 4)(*gs)
     rc = kernels.lib().aha_fused_decode_stack_q8(
         x.data_ptr(), *(ctypes.addressof(a) for a in ptrs),
-        ctypes.addressof(flags), *norms, cos_r.data_ptr(), sin_r.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), L, H, n["hq"],
+        ctypes.addressof(flags), ctypes.addressof(groups), *norms,
+        cos_r.data_ptr(), sin_r.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), L, H, n["hq"],
         n["hkv"], n["D"], NI, n["S"], float(eps), float(n["D"] ** -0.5),
         grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack_q8")

@@ -39,7 +39,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "aha_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 4 + [_I] * 7
+    "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 7
                                + [_F, _I, _P],
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aha_head_argmax_parts": [_I],
@@ -51,7 +51,7 @@ _SIGNATURES = {
                          + [_I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aha_segment_flash": [_P] * 5 + [_LL] * 12 + [_I] * 5 + [_F, _P],
     "aha_fused_decode_stack": [_P] * 16 + [_I] * 7 + [_F, _F, _I, _P],
-    "aha_fused_decode_stack_q8": [_P] * 17 + [_I] * 7 + [_F, _F, _I, _P],
+    "aha_fused_decode_stack_q8": [_P] * 18 + [_I] * 7 + [_F, _F, _I, _P],
     "aha_fused_decode_layer": [_P] * 19 + [_I] * 8 + [_F, _F, _I, _P],
     "aha_error_string": [_I],
     # the H100 design studies (aha_tpu_torch/studies/)

@@ -1,16 +1,18 @@
-"""Where the bf16 fused decode stack's time goes: three readings of one
+"""Where a fused decode stack's time goes: three readings of one
 Qwen3-0.6B decode step on the card (28 layers, cache row 1000 of 2048,
-seeded weights).
+seeded weights), over bf16 weights or packed on a GGUF grid.
 
-    python -m aha_tpu_torch.studies.stack_parts
+    python -m aha_tpu_torch.studies.stack_parts [--grids bf16|q8|q4]
 
 (a) an otherwise empty cooperative kernel of one 512-thread block per SM
-    doing the stack's grid barriers (counted in csrc/fused_decode_stack.cu:
+    doing the stack's grid barriers (counted in its source,
+    csrc/fused_decode_stack.cu or, on a grid, csrc/fused_decode_stack_q8.cu:
     its barriers a layer times 28, less any the last layer skips);
 (b) the stack with its grid barriers and attention calls taken out of the
     source: the GEMV phases' weight stream alone (a wrong answer, timing
     only), built from a copy of the sources under the build directory;
-(c) the stack as it is (`ops/fused_layer.fused_decode_stack`).
+(c) the stack as it is (`ops/fused_layer.fused_decode_stack`, or
+    `fused_decode_stack_q8` with every projection on the grid).
 
 (c) − (b) is what the barriers and the attention cost on top of the
 stream; (a) is the barriers' own floor.  Prints the card line first and a
@@ -30,7 +32,10 @@ from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.studies import card_line, device_ms, require_card
 
 L, POS, S = 28, 1000, 2048
-STACK_SOURCE = "fused_decode_stack.cu"
+#: each stack's source, by the grid of its weights
+STACK_SOURCES = {"bf16": "fused_decode_stack.cu",
+                 "q8": "fused_decode_stack_q8.cu",
+                 "q4": "fused_decode_stack_q8.cu"}
 BARRIER = "aha_coop::grid_barrier();"
 #: calls taken out of the stack's source for reading (b)
 DROPPED = (BARRIER, "attention_phase<")
@@ -90,12 +95,33 @@ def _barrier_lib(where) -> object:
     return lib
 
 
+def pack_layers(lyr: dict, grids: tuple[str, str, str, str]) -> dict:
+    """The fused bf16 layers with q|k|v, o, gate|up and down packed on
+    their `grids` ("q8" or "q4" each), norms left bf16."""
+    from aha_tpu_torch.ops.quant_matmul import pack_rows
+
+    def pack(p, grid):
+        return pack_rows(p["w"].transpose(-1, -2), grid == "q4")
+
+    g_qkv, g_o, g_gu, g_dn = grids
+    return {**lyr, "qkv": pack(lyr["qkv"], g_qkv), "o": pack(lyr["o"], g_o),
+            "mlp": {"gateup": pack(lyr["mlp"]["gateup"], g_gu),
+                    "down": pack(lyr["mlp"]["down"], g_dn)}}
+
+
 def main(argv=None) -> int:
+    import argparse
+
     from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
                                             fuse_decode_params)
     from aha_tpu_torch.ops import flash_attention as fa
-    from aha_tpu_torch.ops.fused_layer import fused_decode_stack
+    from aha_tpu_torch.ops import fused_layer
 
+    ap = argparse.ArgumentParser(prog="stack_parts")
+    ap.add_argument("--grids", choices=tuple(STACK_SOURCES), default="bf16",
+                    help="the weights: bf16, or every projection on the "
+                    "int8 or 4-bit GGUF grid")
+    args = ap.parse_args(argv)
     dev = require_card()
     print(f"[stack_parts] {card_line()}", flush=True)
     cfg = Qwen3Config(num_hidden_layers=L)
@@ -103,6 +129,10 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(11)
     lyr = fuse_decode_params(model.init_random(g, dtype=torch.bfloat16))[
         "layers"]
+    stack = fused_layer.fused_decode_stack
+    if args.grids != "bf16":
+        lyr = pack_layers(lyr, (args.grids,) * 4)
+        stack = fused_layer.fused_decode_stack_q8
     HD = cfg.num_key_value_heads * cfg.head_dim
     bf = dict(device="cuda", dtype=torch.bfloat16)
     x = torch.randn((1, 1, cfg.hidden_size), generator=g, **bf)
@@ -111,17 +141,19 @@ def main(argv=None) -> int:
     p = torch.tensor(POS, dtype=torch.int32, device="cuda")
     cos = torch.cat([model.cos[POS], model.cos[POS]])[None]
     sin = torch.cat([model.sin[POS], model.sin[POS]])[None]
-    wbytes = sum(t.numel() * t.element_size() for t in
-                 (lyr["qkv"]["w"], lyr["o"]["w"], lyr["mlp"]["gateup"]["w"],
-                  lyr["mlp"]["down"]["w"]))
+    # the four projections' weights (and on a grid their scales and mins)
+    wbytes = sum(t.numel() * t.element_size()
+                 for p_ in (lyr["qkv"], lyr["o"], lyr["mlp"]["gateup"],
+                            lyr["mlp"]["down"]) for t in p_.values())
 
     def step():
-        return fused_decode_stack(x, lyr, p, cos, sin, k, v, cfg.rms_norm_eps)
+        return stack(x, lyr, p, cos, sin, k, v, cfg.rms_norm_eps)
 
     kernels.lib()
     c_ms = device_ms(step, iters=20)
 
-    src = (kernels.CSRC / STACK_SOURCE).read_text()
+    source = STACK_SOURCES[args.grids]
+    src = (kernels.CSRC / source).read_text()
     n_bar = barriers_per_step(src)
     work = kernels.build_dir() / "stack_parts"
     shutil.rmtree(work, ignore_errors=True)
@@ -138,7 +170,7 @@ def main(argv=None) -> int:
     # (b): the same wrapper over a library built from the edited copy
     csrc = work / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
-    (csrc / STACK_SOURCE).write_text(drop_calls(src, DROPPED))
+    (csrc / source).write_text(drop_calls(src, DROPPED))
     saved = kernels.CSRC, kernels._lib
     try:
         kernels.CSRC, kernels._lib = csrc, None
@@ -149,12 +181,14 @@ def main(argv=None) -> int:
         # the edited kernel's folds may leave tickets behind
         fa.ticket_counters(dev, stream, 1).zero_()
     torch.cuda.synchronize()
-    rows = {"card": card_line(), "layers": L, "pos": POS,
+    rows = {"card": card_line(), "grids": args.grids, "layers": L,
+            "pos": POS,
             "barriers_per_step": n_bar, "a_barriers_ms": a_ms,
             "b_stream_ms": b_ms, "c_stack_ms": c_ms,
             "weight_bytes": wbytes,
             "b_gb_s": wbytes / b_ms / 1e6, "c_gb_s": wbytes / c_ms / 1e6}
-    print(f"[stack_parts] (a) {n_bar} grid barriers {a_ms:.4f} ms; (b) the "
+    print(f"[stack_parts] {args.grids}: (a) {n_bar} grid barriers "
+          f"{a_ms:.4f} ms; (b) the "
           f"GEMV phases alone {b_ms:.4f} ms ({rows['b_gb_s']:.1f} GB/s); (c) "
           f"the stack {c_ms:.4f} ms ({rows['c_gb_s']:.1f} GB/s)", flush=True)
     print(json.dumps(rows), flush=True)

@@ -37,9 +37,8 @@ after the readable lines.  Two more readings:
   aggregate tok/s, mean time to first token, decode steps run, and the
   host seconds the scheduler thread spends in decode dispatches,
   admission chunks and token fetches (timers around those methods);
-- `--passes`: device ms per call of each pass of the decode-attention
-  kernels (the int8 kernels' split-KV and combine passes; the bf16 kernel
-  is one launch) over 28 layers in turn, bf16 and
+- `--passes`: device ms per call of the decode-attention kernels (each
+  one launch, its fold inside) over 28 layers in turn, bf16 and
   both int8 variants, at S = 2048 / 1000 live rows, S = 16384 / 16000
   and 8 slots of S = 4096 with ragged lengths.
 
@@ -300,7 +299,7 @@ def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
 
 
 def profile_passes(card: str) -> None:
-    """The passes of each decode-attention kernel (one for bf16) at
+    """The device time of each decode-attention kernel (one launch each) at
     Qwen3-0.6B's widths (Hq 16, Hkv 8, D 128), 28 layers in turn so every
     call reads HBM."""
     from aha_tpu_torch.ops import flash_attention as fa

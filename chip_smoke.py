@@ -633,8 +633,9 @@ def _layer_cycle(L: int):
 
 
 def check_q8(S: int, valid: int, timed: bool) -> None:
-    """Both q8 variants at B = 1 against the plain version; device time of
-    each over the 28 layers in turn, and the bytes/s of the live rows."""
+    """Both q8 variants at B = 1 against the plain version, a repeat
+    bit-equal; device time of each over the 28 layers in turn, its bound,
+    and the bytes/s of the live rows."""
     from aha_tpu_torch.ops.flash_attention import (
         flash_decode_at_layer_q8, flash_decode_at_layer_q8_plain)
 
@@ -649,7 +650,11 @@ def check_q8(S: int, valid: int, timed: bool) -> None:
         ref = flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, lt, vl)
         for mxu in (False, True):
             got = flash_decode_at_layer_q8(q, k, v, ks, vs, lt, vl, mxu=mxu)
+            again = flash_decode_at_layer_q8(q, k, v, ks, vs, lt, vl,
+                                             mxu=mxu)
             torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"q8 S={S} valid={valid} mxu={mxu}: a repeat differs")
             err = max(err, _q8_err(got, ref, mxu, f"q8 S={S} valid={valid}",
                                    rel))
     # the bound tells a wrong output from a right one: zeros, and the
@@ -666,16 +671,17 @@ def check_q8(S: int, valid: int, timed: bool) -> None:
     plain_ms = device_ms(lambda: flash_decode_at_layer_q8_plain(
         q, k, v, ks, vs, layer(), vl), iters=28)
     nbytes = valid * Hkv * (D + 4) * 2          # int8 rows + f32 scales
+    b = bound(nbytes + 2 * 16 * D * 2, 4 * 16 * valid * D)
     log(f"[kernels] q8 decode L={L} S={S} valid={valid} Hq=16 Hkv={Hkv} "
         f"D={D}: err of max |ref| cast {rel[False]:.3e} int8 "
         f"{rel[True]:.3e} (tol {TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}; "
         f"zeros {bad['zeros']:.3g}, v unscaled {bad['v unscaled']:.3g}), "
-        f"max_abs_err {err:.3e}; device ms/call cast "
-        f"{ms[False]:.4f} int8 {ms[True]:.4f} plain {plain_ms:.4f}; "
-        f"{nbytes / ms[True] / 1e6:.1f} GB/s (int8) of live rows")
+        f"max_abs_err {err:.3e}, a repeat bit-equal; device ms/call cast "
+        f"{ms[False]:.4f} int8 {ms[True]:.4f} plain {plain_ms:.4f}; bound "
+        f"{b[0]:.4f} ({b[1]}); {nbytes / ms[True] / 1e6:.1f} GB/s (int8) of "
+        f"live rows")
     if timed:
-        _record("flash_decode_at_layer_q8", err, ms[True], plain_ms,
-                bound(nbytes + 2 * 16 * D * 2, 4 * 16 * valid * D), None,
+        _record("flash_decode_at_layer_q8", err, ms[True], plain_ms, b, None,
                 None, f"L={L} S={S} valid={valid} all-int8")
         RESULTS["flash_decode_at_layer_q8"]["ms_cast_variant"] = ms[False]
     else:
@@ -754,22 +760,38 @@ def check_batched(timed: bool) -> None:
         for mxu in (False, True):
             got = fa.flash_decode_at_layer_q8_batched(q, k, v, ks, vs, lt, vl,
                                                       mxu=mxu)
+            again = fa.flash_decode_at_layer_q8_batched(q, k, v, ks, vs, lt,
+                                                        vl, mxu=mxu)
             torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"q8 batched mxu={mxu}: a repeat differs")
             err = max(err, _q8_err(got, ref, mxu, "q8 batched", rel))
+            for b in range(B):
+                one = fa.flash_decode_at_layer_q8(
+                    q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                    v[:, b:b + 1].contiguous(), ks[:, b:b + 1].contiguous(),
+                    vs[:, b:b + 1].contiguous(), lt,
+                    vl[b:b + 1].contiguous(), mxu=mxu)
+                require(torch.equal(one, got[b:b + 1]),
+                        f"q8 batched mxu={mxu}: slot {b} differs from a "
+                        "B = 1 launch")
     ms = {mxu: device_ms(lambda: fa.flash_decode_at_layer_q8_batched(
         q, k, v, ks, vs, layer(), vl, mxu=mxu), iters=56)
         for mxu in (False, True)}
     plain_ms = device_ms(lambda: fa.flash_decode_at_layer_q8_plain(
         q, k, v, ks, vs, layer(), vl), iters=28)
+    b8 = bound(live * Hkv * (D + 4) * 2 + 2 * B * 16 * D * 2,
+               4 * 16 * live * D)
     log(f"[kernels] q8 batched decode L={L} B={B} S={S} lengths {RAGGED}: "
         f"err of max |ref| cast {rel[False]:.3e} int8 {rel[True]:.3e} (tol "
-        f"{TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}), max_abs_err {err:.3e}; "
+        f"{TOL_Q8_REL[False]}/{TOL_Q8_REL[True]}), max_abs_err {err:.3e}, "
+        f"each slot bit-equal to a B = 1 launch and to a repeat; "
         f"device ms/call cast {ms[False]:.4f} "
-        f"int8 {ms[True]:.4f} plain {plain_ms:.4f}")
+        f"int8 {ms[True]:.4f} plain {plain_ms:.4f}; bound {b8[0]:.4f} "
+        f"({b8[1]})")
     if timed:
         _record("flash_decode_at_layer_q8_batched", err, ms[True], plain_ms,
-                bound(live * Hkv * (D + 4) * 2 + 2 * B * 16 * D * 2,
-                      4 * 16 * live * D), None, None,
+                b8, None, None,
                 f"L={L} B={B} S={S} ragged all-int8")
     else:
         _record("flash_decode_at_layer_q8_batched", err)
@@ -992,7 +1014,7 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
                                             fuse_decode_params)
     from aha_tpu_torch.ops import fused_layer
-    from aha_tpu_torch.ops.quant_matmul import pack_rows
+    from aha_tpu_torch.studies.stack_parts import pack_layers
 
     quant = grids != "bf16"
     name = "fused_decode_stack_q8" if quant else "fused_decode_stack"
@@ -1005,14 +1027,7 @@ def check_stack(pos: int, n_layers: int, grids: str, timed: bool) -> None:
     lyr = fuse_decode_params(model.init_random(g, dtype=torch.bfloat16))[
         "layers"]
     if quant:
-        def pack(p, grid):
-            return pack_rows(p["w"].transpose(-1, -2), grid == "q4")
-
-        g_qkv, g_o, g_gu, g_dn = STACK_GRIDS[grids]
-        lyr = {**lyr, "qkv": pack(lyr["qkv"], g_qkv),
-               "o": pack(lyr["o"], g_o),
-               "mlp": {"gateup": pack(lyr["mlp"]["gateup"], g_gu),
-                       "down": pack(lyr["mlp"]["down"], g_dn)}}
+        lyr = pack_layers(lyr, STACK_GRIDS[grids])
     S, HD = 2048, cfg.num_key_value_heads * cfg.head_dim
     bf = dict(device="cuda", dtype=torch.bfloat16)
     x = torch.randn((1, 1, cfg.hidden_size), generator=g, **bf)

@@ -845,3 +845,130 @@ def test_fused_stack_at_qwen3_widths(dev, pos):
         assert (new[:, 0, pos].float() - rows).abs().max().item() <= \
             2e-2 * rows.abs().max().item()
         assert torch.equal(new[:, 0, keep], want[:, 0, keep])
+
+
+# -- the one-launch int8 decode and the streamed quantized stack ---------------
+
+Q8_TOL = {False: 6e-3, True: 8e-2}      # chip_smoke.py's TOL_Q8_REL
+
+
+def _q8_check(got, ref, valid, mxu):
+    """A slot with live rows within Q8_TOL of max |ref| of the plain
+    version; a slot with none is 0 (the plain version averages its masked
+    rows)."""
+    if valid == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= Q8_TOL[mxu], (valid, mxu, rel)
+
+
+def _tickets_zero(dev):
+    from aha_tpu_torch.ops import flash_attention as fa, kernels
+
+    t = fa.ticket_counters(dev, kernels.stream_handle(
+        torch.empty(1, device=dev)), 1)
+    return int(t.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_q8_decode_redesign_lengths_and_repeats(dev, G, D):
+    """The one-launch int8 decode, both variants, at live lengths 0, 1, 63,
+    64, 65, 1000 and S of a 2048-row cache: within TOL_Q8_REL of max |ref|
+    of the plain version, a second launch bit-equal to the first, and the
+    ticket counters left at zero."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_decode_at_layer_q8, flash_decode_at_layer_q8_plain)
+
+    g = torch.Generator(device=dev).manual_seed(40 + G + D)
+    L, S, Hkv = 2, 2048, 2
+    q, k, v, ks, vs = _q8_inputs(g, dev, L, 1, S, Hkv * G, Hkv, D)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    for valid in (0, 1, 63, 64, 65, 1000, S):
+        vl = torch.tensor([valid], dtype=torch.int32, device=dev)
+        ref = flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, layer,
+                                             vl)
+        for mxu in (False, True):
+            got = flash_decode_at_layer_q8(q, k, v, ks, vs, layer, vl,
+                                           mxu=mxu)
+            again = flash_decode_at_layer_q8(q, k, v, ks, vs, layer, vl,
+                                             mxu=mxu)
+            torch.cuda.synchronize()
+            _q8_check(got, ref, valid, mxu)
+            assert torch.equal(got, again), (valid, mxu)
+    assert _tickets_zero(dev)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("D,G", [(128, 1), (128, 2), (64, 4), (128, 7),
+                                 (128, 8)])
+def test_q8_decode_redesign_ragged_slots(dev, mxu, D, G):
+    """B = 8 slots of a 4096-row int8 cache with ragged lengths (0, 1, 63,
+    64, 65, 1000, 3000, the full cache): each slot within TOL_Q8_REL of the
+    plain version and bit-equal to a B = 1 launch on that slot alone; a
+    repeat bit-equal; the ticket counters left at zero."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(50 + D + G)
+    L, B, S, Hkv = 2, 8, 4096, 2
+    lens = [0, 1, 63, 64, 65, 1000, 3000, 4096]
+    q, k, v, ks, vs = _q8_inputs(g, dev, L, B, S, Hkv * G, Hkv, D)
+    layer = torch.tensor(0, dtype=torch.int32, device=dev)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = fa.flash_decode_at_layer_q8_batched(q, k, v, ks, vs, layer, vl,
+                                              mxu=mxu)
+    again = fa.flash_decode_at_layer_q8_batched(q, k, v, ks, vs, layer, vl,
+                                                mxu=mxu)
+    ref = fa.flash_decode_at_layer_q8_plain(q.float(), k, v, ks, vs, layer,
+                                            vl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for b in range(B):
+        _q8_check(got[b:b + 1], ref[b:b + 1], lens[b], mxu)
+        one = fa.flash_decode_at_layer_q8(
+            q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+            v[:, b:b + 1].contiguous(), ks[:, b:b + 1].contiguous(),
+            vs[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous(),
+            mxu=mxu)
+        assert torch.equal(one, got[b:b + 1]), b
+    assert _tickets_zero(dev)
+
+
+@pytest.mark.parametrize("grids", [("q8",) * 4, ("q4",) * 4,
+                                   ("q4", "q4", "q4", "q8")])
+def test_fused_stack_q8_deep_repeat(dev, grids):
+    """The streamed quantized stack over Qwen3-0.6B's 28 layers (its
+    widths, seeded weights as the engine makes them, a 2048-row cache, pos
+    1000): two calls bit-equal (the partials summed in plan order, the
+    attention fold in split order), the hidden state within chip_smoke's
+    deep tolerance of the plain version (5e-2 of max |ref| on the int8
+    grid, 1.2e-1 with a 4-bit one), the ticket counters left at zero."""
+    from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
+                                            fuse_decode_params)
+    from aha_tpu_torch.ops.fused_layer import (fused_decode_stack_q8,
+                                               fused_decode_stack_q8_plain)
+
+    cfg = Qwen3Config()
+    model = Qwen3Model(cfg, max_rope_len=4096, device="cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+    lyr = _quant_layers(fuse_decode_params(
+        model.init_random(g, dtype=torch.bfloat16))["layers"], grids)
+    L, S, pos = cfg.num_hidden_layers, 2048, 1000
+    HD = cfg.num_key_value_heads * cfg.head_dim
+    x = _bf(g, 1, 1, cfg.hidden_size)
+    kc, vc = _bf(g, L, 1, S, HD), _bf(g, L, 1, S, HD)
+    cosr = torch.cat([model.cos[pos], model.cos[pos]])[None]
+    sinr = torch.cat([model.sin[pos], model.sin[pos]])[None]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kp, vp = kc.clone(), vc.clone()
+    eps = cfg.rms_norm_eps
+    got = fused_decode_stack_q8(x, lyr, p, cosr, sinr, kc, vc, eps)
+    again = fused_decode_stack_q8(x, lyr, p, cosr, sinr, kc, vc, eps)
+    ref = fused_decode_stack_q8_plain(x, lyr, p, cosr, sinr, kp, vp, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 1.2e-1 if "q4" in grids else 5e-2
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol * top
+    assert _tickets_zero(dev)

@@ -186,7 +186,7 @@ def test_stack_parts_edits_the_stack_source():
     from aha_tpu_torch.ops import kernels
     from aha_tpu_torch.studies import stack_parts as sp
 
-    src = (kernels.CSRC / sp.STACK_SOURCE).read_text()
+    src = (kernels.CSRC / sp.STACK_SOURCES["bf16"]).read_text()
     assert sp.barriers_per_step(src) == 5 * sp.L
     cut = sp.drop_calls(src, sp.DROPPED)
     assert sp.BARRIER not in cut and "attention_phase<" not in cut
