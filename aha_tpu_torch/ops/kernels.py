@@ -44,8 +44,8 @@ _SIGNATURES = {
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aha_head_argmax_parts": [_I],
     "aha_head_argmax_quant": [_P] * 8 + [_I] * 4 + [_P],
-    "aha_quant_matmul": [_P] * 5 + [_I] * 6 + [_P],
-    "aha_quant_swiglu": [_P] * 9 + [_I] * 9 + [_P],
+    "aha_quant_matmul": [_P] * 5 + [_I] * 10 + [_P],
+    "aha_quant_swiglu": [_P] * 9 + [_I] * 13 + [_P],
     "aha_smem_optin": [_I],
     "aha_flash_prefill": [_P, _P, _P, _P] + [_LL] * 12
                          + [_I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -18,14 +18,19 @@ of 128 only (padded groups carry scale 0): the JAX package's 1024-row
 chunks are VMEM tiling, and its folded high nibbles ((n − 8) & 15 with s/16
 and b + 8s) a Mosaic workaround — `io/convert.quant_from_jax` unfolds them.
 
-Kernels (csrc/quant_matmul.cu, csrc/quant_swiglu.cu), each with a plain
-version that repeats its arithmetic — activations quantized per (row,
-128-group) to int8 (sx = max|x|/127, round half to even of x/sx, the exact
-f32 group sum for the 4-bit grid's min term), an integer dot per group,
-scales applied after the dot — and a `.launches` count:
+Kernels (csrc/quant_matmul.cu, csrc/quant_swiglu.cu, both on the
+tensor-core dot of csrc/quant_mma.cuh), each with a plain version that
+repeats its arithmetic — activations quantized per (row, 128-group) to int8
+(sx = max|x|/127, round half to even of x/sx, the exact f32 group sum for
+the 4-bit grid's min term), an integer dot per group, scales applied after
+the dot — and a `.launches` count:
 
 - `quant_matmul` / `quant_matmul_q4`: x (M, K) @ W → (M, N);
 - `quant_swiglu`: down(SiLU(gate(x))·up(x)) in one cooperative launch.
+
+Each launch runs on a plan (`matmul_plan`, `swiglu_plan`) that depends on
+the grid's Kp, its columns and the SM count, never on M, so a row's output
+is bit-equal whatever rows share its launch.
 
 `quant_linear` routes as the JAX package does: on a CUDA tensor M ≤
 MAX_KERNEL_M goes to the kernel and larger M to dequantize + matmul; on a
@@ -35,6 +40,8 @@ quant_matmul_q4_xla there) run outside any kernel.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -57,7 +64,14 @@ GRID_KEYS = {"q8": ("qt", "st"), "q4": ("q4", "s4", "b4")}
 #: csrc/quant_swiglu.cu)
 MATMUL_PASS_ROWS = (1, 2, 4, 8, 16)
 SWIGLU_PASS_ROWS = (1, 4, 8, 16)
-
+#: the kernels' plan constants (csrc/quant_mma.cuh and the two kernels):
+#: output columns a unit (one mma n-tile), staged row padding, groups ×
+#: tiles a warp holds in registers, warps a block
+UNIT_COLS = 8
+ROW_PAD = 16
+SPAN_TILES = 4
+MATMUL_WARPS = 8
+SWIGLU_WARPS = 8
 
 def supports_kernel_layout(Kp: int) -> bool:
     return Kp % GROUP == 0
@@ -234,8 +248,98 @@ def dequant_matmul_q4(x, q4, s4, b4):
 
 def staged_bytes(rows: int, Kp: int) -> int:
     """Shared memory of `rows` staged activation rows of width Kp: the int8
-    values and an f32 scale and sum per 128-group (csrc/quant_dot.cuh)."""
-    return rows * Kp + 8 * rows * (Kp // GROUP)
+    values at row stride Kp + 16 and an f32 scale and sum per 128-group
+    (csrc/quant_mma.cuh staged_mma_bytes)."""
+    return rows * (Kp + ROW_PAD) + 8 * rows * (Kp // GROUP)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class MatmulPlan:
+    """csrc/quant_matmul.cu's launch: `wk` of a block's `warps` share a
+    unit of UNIT_COLS columns, so a block step takes warps / wk units, and
+    block b takes steps b, b + grid, ...; a unit's K runs in `chunks`
+    chunks of `wk · span` groups, warp part p taking chunk groups
+    [p·span, (p+1)·span); `fixed` bytes of shared memory besides the
+    staged rows (two buffers of the warps' partials where they share a
+    unit)."""
+    warps: int
+    wk: int
+    span: int
+    chunks: int
+    grid: int
+    fixed: int
+
+
+def matmul_plan(Kp: int, N: int, sms: int) -> MatmulPlan:
+    """The plan of an (N, Kp) grid on a card of `sms` SMs.  Every block
+    quantizes all of x, so where the units fit one step of at most one
+    block an SM, that is the plan: the way of sharing a unit among wk of
+    the block's warps that gives the most blocks, then the fewest warps a
+    unit (Qwen3-0.6B's q|k|v: 2 warps a unit, 128 blocks; gate|up: 1, 96;
+    o and down: all 8, 128).  Otherwise (the head) units stream through
+    two blocks an SM, two warps a unit, which read fastest on the card.
+    A warp holds at most SPAN_TILES groups at once."""
+    W, G, U = MATMUL_WARPS, Kp // GROUP, _cdiv(N, UNIT_COLS)
+    one_step = [w for w in (1, 2, 4, 8) if _cdiv(U, W // w) <= sms]
+    if one_step:
+        wk = max(one_step, key=lambda w: (_cdiv(U, W // w), -w))
+        grid = _cdiv(U, W // wk)
+    else:
+        wk, grid = 2, 2 * sms
+    chunks = _cdiv(G, wk * SPAN_TILES)
+    span = _cdiv(G, wk * chunks)
+    return MatmulPlan(W, wk, span, chunks, grid,
+                      2 * W * 128 * 4 if wk > 1 else 0)
+
+
+@dataclass(frozen=True)
+class SwigluPlan:
+    """csrc/quant_swiglu.cu's launch: `grid` blocks (one an SM), block b
+    taking the units b, b + grid, ... of each phase — phase 1's of 8 gate
+    and the same 8 up columns, phase 3's of 8 down columns — all its warps
+    on each unit, whose K runs in chunks1 / chunks3 chunks of
+    `warps · span1` / `warps · span3` groups; `fixed` bytes of shared
+    memory besides the staged rows (two buffers of the warps' partials)."""
+    warps: int
+    span1: int
+    chunks1: int
+    span3: int
+    chunks3: int
+    grid: int
+    fixed: int
+
+
+def swiglu_plan(gKp: int, inter: int, sms: int) -> SwigluPlan:
+    """The fused MLP's plan (a gate|up unit's two tiles share the
+    registers of SPAN_TILES groups)."""
+    W, G1, G3 = SWIGLU_WARPS, gKp // GROUP, inter // GROUP
+    chunks1 = _cdiv(G1, W * SPAN_TILES // 2)
+    chunks3 = _cdiv(G3, W * SPAN_TILES)
+    return SwigluPlan(W, _cdiv(G1, W * chunks1), chunks1, _cdiv(G3, W * chunks3),
+                      chunks3, sms, 2 * W * 2 * 128 * 4)
+
+
+def matmul_launch(M: int, Kp: int, N: int, sms: int,
+                  smem_limit: int) -> tuple[MatmulPlan, int]:
+    """The int8 / 4-bit kernel's plan and rows per pass for M rows."""
+    plan = matmul_plan(Kp, N, sms)
+    return plan, pass_rows(M, Kp, smem_limit - plan.fixed)
+
+
+def swiglu_launch(M: int, gKp: int, inter: int, sms: int,
+                  smem_limit: int) -> tuple[SwigluPlan, int]:
+    """The fused MLP's plan and rows per pass for M rows."""
+    plan = swiglu_plan(gKp, inter, sms)
+    return plan, pass_rows(M, max(gKp, inter), smem_limit - plan.fixed,
+                           SWIGLU_PASS_ROWS)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pass_rows(m: int, Kp: int, smem_limit: int,
@@ -289,12 +393,13 @@ def _launch_matmul(x: torch.Tensor, p: dict, what: str) -> torch.Tensor:
     N, Kp = check_grid(p, x.device, K, what)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     q4 = "q4" in p
+    plan, rows = matmul_launch(M, Kp, N, sm_count(x.device),
+                               kernels.smem_optin(x.device))
     rc = kernels.lib().aha_quant_matmul(
         x.data_ptr(), (p["q4"] if q4 else p["qt"]).data_ptr(),
         (p["s4"] if q4 else p["st"]).data_ptr(), _ptr(p.get("b4")),
-        out.data_ptr(), M, K, N, Kp, int(q4),
-        pass_rows(M, Kp, kernels.smem_optin(x.device)),
-        kernels.stream_handle(x))
+        out.data_ptr(), M, K, N, Kp, int(q4), rows, plan.wk, plan.span,
+        plan.chunks, plan.grid, kernels.stream_handle(x))
     kernels.check(rc, what)
     return out
 
@@ -406,16 +511,16 @@ def quant_swiglu(gu: dict, dn: dict, x: torch.Tensor) -> torch.Tensor:
     g4, d4 = "q4" in gu, "q4" in dn
     act = torch.empty((M, inter), dtype=torch.float32, device=x.device)
     out = torch.empty((M, dN), dtype=x.dtype, device=x.device)
-    grid = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan, rows = swiglu_launch(M, grid_k(gu), inter, sm_count(x.device),
+                               kernels.smem_optin(x.device))
     rc = kernels.lib().aha_quant_swiglu(
         x2.data_ptr(), (gu["q4"] if g4 else gu["qt"]).data_ptr(),
         (gu["s4"] if g4 else gu["st"]).data_ptr(), _ptr(gu.get("b4")),
         (dn["q4"] if d4 else dn["qt"]).data_ptr(),
         (dn["s4"] if d4 else dn["st"]).data_ptr(), _ptr(dn.get("b4")),
         act.data_ptr(), out.data_ptr(), M, H, grid_k(gu), inter, dN, int(g4),
-        int(d4), pass_rows(M, max(grid_k(gu), inter),
-                           kernels.smem_optin(x.device), SWIGLU_PASS_ROWS),
-        grid, kernels.stream_handle(x))
+        int(d4), rows, plan.span1, plan.chunks1, plan.span3, plan.chunks3,
+        plan.grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_quant_swiglu")
     quant_swiglu.launches += 1
     return out.reshape(*lead, dN)

@@ -830,8 +830,10 @@ def check_quant_matmul(grid: str) -> None:
     1, 8, 64) and the head logits of BatchEngine's step (M = 8, N =
     151936), each against the f32 plain version on the same bf16 inputs
     within TOL_QMM_REL of max |ref|; zeroed scales (q8) or a dropped
-    xsum·b term (q4) fail that bound.  Device time of kernel and plain at
-    M = 1 of each projection and at the head."""
+    xsum·b term (q4) fail that bound; a repeat bit-equal, and each row of
+    the M = 8 launch bit-equal to an M = 1 launch of that row alone.
+    Device time of kernel and plain at M = 1 and 8 of each projection and
+    at the head (M = 8); `quant_matmul[_q4]_timings` keeps them all."""
     from aha_tpu_torch.ops import quant_matmul as qm
 
     name = "quant_matmul_q4" if grid == "q4" else "quant_matmul"
@@ -842,13 +844,21 @@ def check_quant_matmul(grid: str) -> None:
     shapes = [(proj, k, n, m) for proj, (k, n) in PROJECTIONS.items()
               for m in (1, 8, 64)] + [("head", 1024, 151936, 8)]
     worst, worst_bad = 0.0, float("inf")
+    timings = RESULTS[name].setdefault("timings", {})
     for proj, K, N, M in shapes:
         p = _pack(g, N, K, grid)
         args = [p[k] for k in keys]
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         got = fn(x, *args)
+        again = fn(x, *args)
         ref = plain(x.float(), *args)
         torch.cuda.synchronize()
+        require(torch.equal(got, again), f"{name} {proj} M={M}: a repeat "
+                f"is not bit-equal")
+        if M == 8:
+            for r in range(M):
+                require(torch.equal(got[r], fn(x[r:r + 1], *args)[0]),
+                        f"{name} {proj}: row {r} of M=8 differs from M=1")
         err = _rel(got, ref)
         require(err <= TOL_QMM_REL, f"{name} {proj} M={M}: err {err} of "
                 f"max |ref| (tol {TOL_QMM_REL})")
@@ -859,7 +869,7 @@ def check_quant_matmul(grid: str) -> None:
         else:
             bad = plain(x.float(), *args[:2], torch.zeros_like(args[2]))
         worst_bad = min(worst_bad, _rel(bad, ref))
-        if M == 1 or proj == "head":
+        if M in (1, 8):
             wbytes = _nbytes(p)
             ms = device_ms(lambda: fn(x, *args))
             plain_ms = device_ms(lambda: plain(x, *args), iters=5)
@@ -868,14 +878,17 @@ def check_quant_matmul(grid: str) -> None:
                 f"of max |ref|; device ms/call kernel {ms:.4f} plain "
                 f"{plain_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
                 f"{wbytes / ms / 1e6:.1f} GB/s of weights")
-            if proj == "qkv":
+            timings[f"{proj} M={M}"] = {"ms": ms, "plain_ms": plain_ms,
+                                        "bound_ms": b[0]}
+            if proj == "qkv" and M == 1:
                 _record(name, 0.0, ms, plain_ms, b, None, None,
                         f"q|k|v M=1 K={K} N={N}")
         del p, args
     require(worst_bad > TOL_QMM_REL, f"{name}: the bound does not reject "
             f"{'zeroed scales' if grid == 'q8' else 'a dropped xsum*b'}")
     log(f"[kernels] {name}: {len(shapes)} shapes within {worst:.3e} of max "
-        f"|ref| (tol {TOL_QMM_REL}); "
+        f"|ref| (tol {TOL_QMM_REL}), repeats and M=8 rows against M=1 "
+        f"bit-equal; "
         f"{'zeroed scales' if grid == 'q8' else 'dropped xsum*b term'} off "
         f"by ≥ {worst_bad:.3g}")
     torch.cuda.empty_cache()
@@ -884,13 +897,16 @@ def check_quant_matmul(grid: str) -> None:
 def check_quant_swiglu() -> None:
     """The fused quantized MLP at Qwen3-0.6B's widths (H 1024, I 3072) in
     all four grid pairs at M = 1 and 8, against the f32 plain version
-    within TOL_SWIGLU_REL of max |ref|; zeroed down scales fail the bound.
-    Device time at M = 1 of each pair."""
+    within TOL_SWIGLU_REL of max |ref|; zeroed down scales fail the bound;
+    a repeat bit-equal, and each row of M = 8 bit-equal to M = 1 of that
+    row alone.  Device time at M = 1 of each pair and at M = 8 of q8/q8
+    and q4/q4 (`quant_swiglu_timings`)."""
     from aha_tpu_torch.ops import quant_matmul as qm
 
     H, I = 1024, 3072
     g = torch.Generator(device="cuda").manual_seed(31)
     worst, worst_bad = 0.0, float("inf")
+    timings = RESULTS["quant_swiglu"].setdefault("timings", {})
     for gu_fmt in ("q8", "q4"):
         for dn_fmt in ("q8", "q4"):
             gu = _pack(g, 2 * I, H, gu_fmt)
@@ -899,8 +915,16 @@ def check_quant_swiglu() -> None:
                 x = torch.randn((1, M, H), generator=g, device="cuda").to(
                     torch.bfloat16)
                 got = qm.quant_swiglu(gu, dn, x)
+                again = qm.quant_swiglu(gu, dn, x)
                 ref = qm.quant_swiglu_plain(gu, dn, x.reshape(M, H).float())
                 torch.cuda.synchronize()
+                require(torch.equal(got, again), f"quant_swiglu {gu_fmt}/"
+                        f"{dn_fmt} M={M}: a repeat is not bit-equal")
+                for r in range(M if M > 1 else 0):
+                    one = qm.quant_swiglu(gu, dn, x[:, r:r + 1].contiguous())
+                    require(torch.equal(got[0, r], one[0, 0]),
+                            f"quant_swiglu {gu_fmt}/{dn_fmt}: row {r} of "
+                            f"M=8 differs from M=1")
                 err = _rel(got.reshape(M, H), ref)
                 require(err <= TOL_SWIGLU_REL, f"quant_swiglu {gu_fmt}/"
                         f"{dn_fmt} M={M}: err {err} (tol {TOL_SWIGLU_REL})")
@@ -911,24 +935,29 @@ def check_quant_swiglu() -> None:
                           for k, v in dn.items()}
                 worst_bad = min(worst_bad, _rel(qm.quant_swiglu_plain(
                     gu, zeroed, x.reshape(M, H).float()), ref))
-            x = torch.randn((1, 1, H), generator=g, device="cuda").to(
-                torch.bfloat16)
-            ms = device_ms(lambda: qm.quant_swiglu(gu, dn, x))
-            plain_ms = device_ms(lambda: qm.quant_swiglu_plain(
-                gu, dn, x.reshape(1, H)), iters=5)
-            wbytes = _nbytes(gu) + _nbytes(dn)
-            b = bound(wbytes + 2 * H * 2, 2 * (2 * I * H + H * I), "int8")
-            log(f"[kernels] quant_swiglu {gu_fmt}/{dn_fmt} M=1 H={H} I={I}: "
-                f"device ms/call kernel {ms:.4f} plain {plain_ms:.4f}; bound "
-                f"{b[0]:.4f} ({b[1]}); {wbytes / ms / 1e6:.1f} GB/s of "
-                f"weights")
-            if gu_fmt == dn_fmt == "q8":
-                _record("quant_swiglu", 0.0, ms, plain_ms, b, None, None,
-                        f"q8/q8 M=1 H={H} I={I}")
+            for M in ((1, 8) if gu_fmt == dn_fmt else (1,)):
+                x = torch.randn((1, M, H), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                ms = device_ms(lambda: qm.quant_swiglu(gu, dn, x))
+                plain_ms = device_ms(lambda: qm.quant_swiglu_plain(
+                    gu, dn, x.reshape(M, H)), iters=5)
+                wbytes = _nbytes(gu) + _nbytes(dn)
+                b = bound(wbytes + 2 * M * H * 2,
+                          2 * M * (2 * I * H + H * I), "int8")
+                log(f"[kernels] quant_swiglu {gu_fmt}/{dn_fmt} M={M} H={H} "
+                    f"I={I}: device ms/call kernel {ms:.4f} plain "
+                    f"{plain_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+                    f"{wbytes / ms / 1e6:.1f} GB/s of weights")
+                timings[f"{gu_fmt}/{dn_fmt} M={M}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0]}
+                if gu_fmt == dn_fmt == "q8" and M == 1:
+                    _record("quant_swiglu", 0.0, ms, plain_ms, b, None, None,
+                            f"q8/q8 M=1 H={H} I={I}")
     require(worst_bad > TOL_SWIGLU_REL,
             "quant_swiglu: the bound does not reject zeroed down scales")
     log(f"[kernels] quant_swiglu: 4 grid pairs x M in (1, 8) within "
-        f"{worst:.3e} of max |ref| (tol {TOL_SWIGLU_REL}); zeroed down "
+        f"{worst:.3e} of max |ref| (tol {TOL_SWIGLU_REL}), repeats and M=8 "
+        f"rows against M=1 bit-equal; zeroed down "
         f"scales off by ≥ {worst_bad:.3g}")
     torch.cuda.empty_cache()
 
@@ -2658,7 +2687,7 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
-                    "g7", "gbps", "tol")
+                    "g7", "gbps", "tol", "timings")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -972,3 +972,142 @@ def test_fused_stack_q8_deep_repeat(dev, grids):
     top = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= tol * top
     assert _tickets_zero(dev)
+
+
+# -- the tensor-core GGUF kernels (quant_mma.cuh) ------------------------------
+
+#: Qwen3-0.6B's decode projections (in, out), as chip_smoke.PROJECTIONS
+QWEN3_PROJECTIONS = {"qkv": (1024, 4096), "o": (2048, 1024),
+                     "gateup": (1024, 6144), "down": (3072, 1024)}
+
+
+def _qmm(grid):
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    if grid == "q4":
+        return qm.quant_matmul_q4, qm.quant_matmul_q4_plain, ("q4", "s4", "b4")
+    return qm.quant_matmul, qm.quant_matmul_plain, ("qt", "st")
+
+
+def _fault(grid, args):
+    """Zeroed scales (q8) or a dropped xsum·b term (zeroed mins, q4)."""
+    i = 2 if grid == "q4" else 1
+    return [torch.zeros_like(a) if j == i else a for j, a in enumerate(args)]
+
+
+def _check_qmm(dev, grid, p, x):
+    """Kernel within 5e-3 of max |ref| of the f32 plain version, bit-equal
+    on a repeat; the fault off by more than the bound.  Returns the
+    kernel's output."""
+    fn, plain, keys = _qmm(grid)
+    args = [p[k] for k in keys]
+    got = fn(x, *args)
+    again = fn(x, *args)
+    ref = plain(x.float(), *args)
+    bad = plain(x.float(), *_fault(grid, args))
+    torch.cuda.synchronize()
+    top = ref.abs().max().item()
+    assert torch.equal(got, again)
+    assert (got.float() - ref).abs().max().item() <= 5e-3 * top
+    assert (bad - ref).abs().max().item() > 5e-3 * top
+    return got
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 37, 64])
+@pytest.mark.parametrize("K,N", [(1000, 1001), (128, 1001)])
+def test_quant_matmul_mma_ragged(dev, grid, M, K, N):
+    """The tensor-core matmul at every pass shape (1–8 rows in one n-tile's
+    upper half, 9–16 in both halves, 17 and up in passes), x narrower than
+    Kp (K 1000), one group a column (Kp 128) and a ragged last unit (N
+    1001): within the bound, bit-equal on a repeat, the fault rejected."""
+    g = torch.Generator(device=dev).manual_seed(80 + M)
+    p = _packed(g, N, K, grid, 0.01 if grid == "q4" else 0.0)
+    _check_qmm(dev, grid, p, _bf(g, M, K))
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("proj", list(QWEN3_PROJECTIONS) + ["head"])
+def test_quant_matmul_mma_qwen3_shapes(dev, grid, proj):
+    """Qwen3-0.6B's four projections at M 1 and 8 (o and down split their
+    K over a cluster) and the head logits of an 8-slot step (K 1024 x N
+    151936, M 8)."""
+    K, N = QWEN3_PROJECTIONS.get(proj, (1024, 151936))
+    g = torch.Generator(device=dev).manual_seed(90)
+    p = _packed(g, N, K, grid, 0.01 if grid == "q4" else 0.0)
+    for M in ((8,) if proj == "head" else (1, 8)):
+        _check_qmm(dev, grid, p, _bf(g, M, K))
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("K,N", [(1000, 1001), (2048, 1024), (1024, 4096)])
+def test_quant_matmul_rows_do_not_depend_on_m(dev, grid, K, N):
+    """Row r of an M 8 (and an M 37) launch is bit-equal to an M 1 launch
+    of row r alone: the plan does not depend on M and each row's sums run
+    in a fixed order."""
+    fn, _, keys = _qmm(grid)
+    g = torch.Generator(device=dev).manual_seed(91)
+    p = _packed(g, N, K, grid, 0.01 if grid == "q4" else 0.0)
+    args = [p[k] for k in keys]
+    x = _bf(g, 37, K)
+    for M in (8, 37):
+        many = fn(x[:M].contiguous(), *args)
+        for r in range(0, M, 5):
+            assert torch.equal(many[r], fn(x[r:r + 1].contiguous(), *args)[0])
+
+
+def _swiglu_weights(g, H, inter, gu_fmt, dn_fmt):
+    gu = {k: torch.cat([a, b], 0) for (k, a), b in zip(
+        _packed(g, inter, H, gu_fmt).items(),
+        _packed(g, inter, H, gu_fmt, 0.01).values())}
+    return gu, _packed(g, H, inter, dn_fmt)
+
+
+def _check_swiglu(dev, gu, dn, x):
+    """Within 1e-2 of max |ref| (test_quant_swiglu_kernel_matches_plain
+    gives the reason), bit-equal on a repeat, zeroed down scales rejected.
+    Returns the kernel's (M, Hout) output."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    M, H = x.shape
+    got = qm.quant_swiglu(gu, dn, x)
+    again = qm.quant_swiglu(gu, dn, x)
+    ref = qm.quant_swiglu_plain(gu, dn, x.float())
+    bad = qm.quant_swiglu_plain(
+        gu, {k: torch.zeros_like(v) if k in ("st", "s4") else v
+             for k, v in dn.items()}, x.float())
+    torch.cuda.synchronize()
+    top = ref.abs().max().item()
+    assert torch.equal(got, again)
+    assert (got.float() - ref).abs().max().item() <= 1e-2 * top
+    assert (bad - ref).abs().max().item() > 1e-2 * top
+    return got
+
+
+@pytest.mark.parametrize("gu_fmt,dn_fmt", [("q8", "q8"), ("q4", "q4"),
+                                           ("q4", "q8"), ("q8", "q4")])
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 37, 64])
+@pytest.mark.parametrize("H,K,inter", [(384, 384, 512), (128, 100, 128)])
+def test_quant_swiglu_mma_shapes(dev, gu_fmt, dn_fmt, M, H, K, inter):
+    """The one-launch MLP on the tensor-core dot in all four grid pairs at
+    every pass shape, with one group a column (H 128, I 128) and x
+    narrower than the gate|up grid's Kp (K 100 of 128)."""
+    g = torch.Generator(device=dev).manual_seed(100 + M)
+    gu, dn = _swiglu_weights(g, H, inter, gu_fmt, dn_fmt)
+    _check_swiglu(dev, gu, dn, _bf(g, M, K) * 4)
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+def test_quant_swiglu_mma_qwen3_width_rows(dev, grid):
+    """Qwen3-0.6B's MLP (H 1024, I 3072) at M 1 and 8; row r of the M 8
+    launch bit-equal to an M 1 launch of row r alone."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(110)
+    gu, dn = _swiglu_weights(g, 1024, 3072, grid, grid)
+    x = _bf(g, 8, 1024) * 4
+    many = _check_swiglu(dev, gu, dn, x)
+    for r in range(8):
+        one = _check_swiglu(dev, gu, dn, x[r:r + 1].contiguous())
+        assert torch.equal(many[r], one[0])
+    assert qm.quant_swiglu.launches > 0
