@@ -2,9 +2,9 @@
 // through tensor maps encoded on the host (the attention kernels on the
 // tensor cores, flash_prefill.cu and segment_flash.cu, and the weight ring
 // of the one-launch decode kernels, fused_stack_gemv.cuh, over bf16 weights
-// and over the GGUF grids), and the
+// and over the GGUF grids, and the M = 8 GEMV study, study_gemv.cu), and the
 // wgmma shared-memory descriptors, fences and m64 bf16 products of the
-// attention kernels.
+// attention kernels and of that GEMV (n8, A MN-major).
 //
 // Attention tiles are [rows][64 bf16] boxes of 128 bytes a row, 128-byte
 // swizzled, kBoxBytes a 128-row box; a D-wide head is D / 64 boxes side by
@@ -139,6 +139,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d(64x8, f32) (+)= A(64x16, smem desc, MN-major) * B(16x8, smem desc,
+// K-major): A's 64 rows are contiguous along a K row, as the columns of a
+// row-major (K, N) weight are (the transpose bit of 16-bit types)
+__device__ __forceinline__ void wgmma_ss_n8_amn(float (&d)[4], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d(64x64, f32) += A(64x16, registers) * B(16x64, smem desc, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
@@ -220,10 +233,12 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A (N, K, L) map of `rows`-row, 64-column boxes, unswizzled, over a
-// contiguous bf16 (L, K, N) weight stack: one box is `rows` 128-byte row
-// pieces; a box past row K or column N is zero-filled.
-inline bool make_weight_map(CUtensorMap* map, const void* ptr, int N, int K, int L, int rows) {
+// A (N, K, L) map of `rows`-row, 64-column boxes over a contiguous bf16
+// (L, K, N) weight stack: one box is `rows` 128-byte row pieces, unswizzled
+// or (swizzle128) 128-byte swizzled as a wgmma operand reads them; a box
+// past row K or column N is zero-filled.
+inline bool make_weight_map(CUtensorMap* map, const void* ptr, int N, int K, int L, int rows,
+                            bool swizzle128 = false) {
   auto fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
@@ -231,7 +246,8 @@ inline bool make_weight_map(CUtensorMap* map, const void* ptr, int N, int K, int
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t es[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -16,8 +16,7 @@
 // cover all N, masking the ragged edge (N a multiple of 8).
 //
 // Bound: bytes.  W is 311.2 MB at K 1024, N 151936: 0.0929 ms at 3.35 TB/s;
-// the M = 8 GEMV also writes 4.9 MB of f32 (0.0943 ms).  8 FMAs per W element
-// at M = 8 (1.24 G FMA, 0.037 ms of the f32 rate) stay under the byte time.
+// the M = 8 GEMV also writes 4.9 MB of f32 (0.0943 ms).
 //
 // Design:
 // - stream_sum: one pass, every thread one 8-column strip (16-byte loads,
@@ -28,21 +27,38 @@
 //   them in a fixed order (no atomics), so both outputs are deterministic.  The
 //   total of every element read is the proof that no load was dropped.
 //   (The fold: 1024 threads, each one slice's sums of one column.)
-// - gemv: a block owns BN columns (the TPU's block width, swept); its threads
-//   own 8-column strips, and where BN/8 < 256 the K rows are split across the
-//   threads left over, the slices summed through shared memory in a fixed
-//   order.  x sits in shared memory as f32 [k][m], 8 accumulators per column
-//   per row.  ARGMAX (M = 1): each block reduces its columns to (max, smallest
-//   index) and the last block to finish — an atomic ticket it resets for the
-//   next launch, as decode_attention.cu does — folds the partials.  A
-//   strictly greater value wins and an equal one goes to the smaller index,
-//   which is associative, so the fold order does not matter.
+// - gemv: the TPU's bn is a VMEM tile width, not a work unit here.  The
+//   wrapper's plan (studies/exp_gemv.gemv_plan, a pure function of N and the
+//   SM count) gives a column tile of 64, 128 or 256 and a persistent grid of
+//   at most one block an SM; block b walks tiles b, b + grid, ...  (at N
+//   151936: 128-column tiles, 1,187 of them, 9 rounds of 132 blocks with one
+//   slot idle).  Warp specialisation: one producer thread keeps TMA copies of
+//   W in flight, (64 K rows x 64 columns) boxes of 8 KB, 128-byte swizzled,
+//   in a ring of up to 6 stages of one k-step of the tile each, on across
+//   tile ends; each of the tile's 64-column boxes is one consumer
+//   warpgroup's, which multiplies it on the tensor cores: wgmma.m64n8k16,
+//   A = the box read MN-major (W's columns are the product's 64 rows), B = x
+//   K-major (its 8 rows the n = 8 side), staged once a block, an f32 64 x 8
+//   accumulator of 4 registers a thread.  M = 8: the accumulator goes through
+//   shared memory (it is columns x rows, out rows x columns) and leaves in
+//   16-byte stores.  ARGMAX (M = 1): B is x's row 0 and seven zero rows
+//   (free: the bytes bound it); each block keeps a running (max, smallest
+//   index) over its tiles, and the last block to finish — an atomic ticket it
+//   resets for the next launch, as decode_attention.cu does — folds the
+//   grid's partials.  A strictly greater value wins and an equal one goes to
+//   the smaller index, which is associative, so the fold order does not move
+//   the result.  The script's bn reaches neither the grid nor the kernel.
+//   TMA zero-fills columns past N and rows past K: a zero logit would beat a
+//   row of negative ones, so the argmax masks columns >= N by index, and
+//   M = 8 stores none of them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -149,137 +165,161 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <int M, int BN>
-struct GemvShape {
-  static constexpr int kChunks = BN / 8;                          // strips per block
-  static constexpr int kCols = kChunks < kThreads ? kChunks : kThreads;   // strips at once
-  static constexpr int kSlices = kThreads / kCols;                // K slices
-  static constexpr int kRed = kSlices > 1 ? M * kCols * 8 : 0;    // floats to fold slices
-};
+// -- gemv: the product on wgmma, fed by a TMA ring ---------------------------
 
-// grid ceil(N / BN); dynamic shared memory: K * M floats of x, then the
-// slice-fold buffer
-template <int M, int BN, bool ARGMAX>
-__global__ void __launch_bounds__(kThreads)
-gemv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+using namespace aha_hopper;
+
+constexpr int kCols = 64;                    // a box's columns: one consumer warpgroup's
+constexpr int kRows = 64;                    // a box's K rows: one k-step
+constexpr int kBox = kCols * kRows * 2;      // 8 KB, 128-byte swizzled
+constexpr int kXChunk = 8 * kRows * 2;       // x's 8 rows of one k-step, swizzled alike
+constexpr int kStages = 6;                   // ring depth, fewer where shared memory is short
+constexpr int kSlab = 68;                    // floats a row of the M = 8 slab (no bank conflicts)
+constexpr int kMaxWarps = 4 * 4 + 1;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Dynamic shared memory of a tile of 64·C columns: the ring (stages x C
+// boxes), x (one 1 KB chunk a k-step), C slabs of (8, kSlab) f32, 2 x stages
+// mbarriers, and slack to align the ring to the 1024-byte swizzle atom.
+inline size_t gemv_smem(int C, int K, int stages) {
+  const int nk = (K + kRows - 1) / kRows;
+  return 1024 + (size_t)stages * C * kBox + (size_t)nk * kXChunk + (size_t)C * 8 * kSlab * 4 +
+         16 * (size_t)stages;
+}
+
+// grid: the plan's persistent blocks; block b walks tiles b, b + grid, ...
+// Warps 0 .. 4C-1 are C consumer warpgroups, one a 64-column box; warp 4C
+// the producer.
+template <int C, bool ARGMAX>
+__global__ void __launch_bounds__(128 * C + 32, 1)
+gemv_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
             float* __restrict__ out, float* __restrict__ part_val, int* __restrict__ part_idx,
-            int* __restrict__ counter, int K, int N) {
-  using S = GemvShape<M, BN>;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                   // [K][M]
-  float* red = smem + (size_t)K * M;  // [M][kCols * 8]
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
+            int* __restrict__ counter, int M, int K, int N, int stages) {
+  constexpr int T = C * kCols, kStage = C * kBox;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_p = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nk = (K + kRows - 1) / kRows;
+  unsigned char* xs_p = ring_p + (size_t)stages * kStage;
+  float* slabs = reinterpret_cast<float*>(xs_p + (size_t)nk * kXChunk);
+  const uint32_t ring = smem_u32(ring_p), xs = smem_u32(xs_p);
+  const uint32_t full = smem_u32(slabs + C * 8 * kSlab), empty = full + 8 * stages;
+  __shared__ float s_val[kMaxWarps];
+  __shared__ int s_idx[kMaxWarps];
   __shared__ int s_last;
 
-  for (int i = threadIdx.x; i < K * M; i += kThreads) {
-    const int k = i / M, m = i % M;
-    xs[i] = __bfloat162float(x[(size_t)m * K + k]);
+  const int ntiles = (N + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);       // one arrival a consumer warp
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  const int nchunk = N / 8;
-  const int strip = threadIdx.x % S::kCols, slice = threadIdx.x / S::kCols;
-  const int rows = (K + S::kSlices - 1) / S::kSlices;
-  const int r0 = slice * rows, r1 = min(K, r0 + rows);
   float best = -INFINITY;
   int best_i = INT_MAX;
-  for (int c0 = 0; c0 < S::kChunks; c0 += S::kCols) {
-    const int chunk = blockIdx.x * S::kChunks + c0 + strip;
-    const bool live = chunk < nchunk;
-    float acc[M][8];
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-    if (live) {
-      const uint4* p = reinterpret_cast<const uint4*>(w) + chunk;
-      constexpr int U = M > 1 ? 4 : 8;
-      int r = r0;
-      for (; r + U <= r1; r += U) {
-        uint4 u[U];
-#pragma unroll
-        for (int i = 0; i < U; ++i) u[i] = __ldcs(p + (size_t)(r + i) * nchunk);
-#pragma unroll
-        for (int i = 0; i < U; ++i) {
-          float f[8];
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[i]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 t = __bfloat1622float2(h[j]);
-            f[2 * j] = t.x;
-            f[2 * j + 1] = t.y;
-          }
-          const float* xr = xs + (size_t)(r + i) * M;
-#pragma unroll
-          for (int m = 0; m < M; ++m) {
-            const float xm = xr[m];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xm, f[j], acc[m][j]);
+  if (warp == 4 * C) {
+    // the producer: one thread keeps the ring full, on across tile ends, so a
+    // tile's epilogue overlaps the next tile's loads
+    if (lane == 0) {
+      int s = 0, ph = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x)
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, kStage);
+          for (int c = 0; c < C; ++c)
+            tma_load_3d(ring + s * kStage + c * kBox, &wmap, full + 8 * s, t * T + c * kCols,
+                        kc * kRows, 0);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
           }
         }
-      }
-      for (; r < r1; ++r) {
-        const uint4 u = __ldcs(p + (size_t)r * nchunk);
-        float f[8];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 t = __bfloat1622float2(h[j]);
-          f[2 * j] = t.x;
-          f[2 * j + 1] = t.y;
-        }
-        const float* xr = xs + (size_t)r * M;
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xr[m], f[j], acc[m][j]);
-      }
     }
-    if (S::kSlices > 1) {
-      // fold the K slices in order: slice 0 writes, each later slice adds
-      for (int s = 0; s < S::kSlices; ++s) {
-        if (slice == s) {
+  } else {
+    // x once a block: B of the product, K-major, 8 rows (rows past M and
+    // K zero), each k-step's 64 K a [8][128-byte] chunk, 128-byte swizzled
+    const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
+    for (int p = threadIdx.x; p < nk * 64; p += 128 * C) {
+      const int kc = p / 64, n = (p / 8) % 8, j = p % 8, k0 = kc * kRows + j * 8;
+      uint32_t v[4];
 #pragma unroll
-          for (int m = 0; m < M; ++m)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              float* d = red + ((size_t)m * S::kCols + strip) * 8 + j;
-              *d = s == 0 ? acc[m][j] : *d + acc[m][j];
-            }
-        }
-        __syncthreads();
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + 2 * e;
+        const uint32_t lo = n < M && k < K ? xb[(size_t)n * K + k] : 0u;
+        const uint32_t hi = n < M && k + 1 < K ? xb[(size_t)n * K + k + 1] : 0u;
+        v[e] = lo | (hi << 16);
       }
-      if (slice == 0) {
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[m][j] = red[((size_t)m * S::kCols + strip) * 8 + j];
-      }
-      __syncthreads();
+      *reinterpret_cast<uint4*>(xs_p + kc * kXChunk + n * 128 + ((j ^ n) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
     }
-    if (slice == 0 && live) {
+    fence_proxy_async();                     // x's stores, then wgmma's async reads
+    named_sync(1, 128 * C);
+
+    const int wg = warp / 4, wi = warp % 4, g = lane / 4, q = lane % 4, wt = threadIdx.x % 128;
+    float* slab = slabs + wg * 8 * kSlab;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    int s = 0, ph = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      // D (64 columns x 8 rows of x) = W box^T . x: A the box MN-major, B x
+      int prev = -1;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(full + 8 * s, ph);
+        const uint32_t a = ring + s * kStage + wg * kBox, b = xs + kc * kXChunk;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_ss_n8_amn(d, desc_mn_major(a + kk * 16 * 128, kBox), desc_k_major(b + kk * 32),
+                          kc + kk > 0);
+        wgmma_commit();
+        wgmma_wait1();                       // the previous k-step's products are done
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = s;
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait0();
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+      // d[0], d[1]: column r, x rows 2q, 2q + 1; d[2], d[3]: column r + 8
+      const int c0 = t * T + wg * kCols, r = wi * 16 + g;
       if (ARGMAX) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (better(acc[0][j], chunk * 8 + j, best, best_i)) {
-            best = acc[0][j];
-            best_i = chunk * 8 + j;
-          }
-      } else {
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          float4* dst = reinterpret_cast<float4*>(out + (size_t)m * N + (size_t)chunk * 8);
-          dst[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-          dst[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+        // columns past N hold TMA's zero fill: masked by index, not by value
+        if (q == 0 && c0 + r < N && better(d[0], c0 + r, best, best_i)) {
+          best = d[0];
+          best_i = c0 + r;
         }
+        if (q == 0 && c0 + r + 8 < N && better(d[2], c0 + r + 8, best, best_i)) {
+          best = d[2];
+          best_i = c0 + r + 8;
+        }
+      } else {
+        // D is columns x rows, out rows x columns: through the slab, then
+        // one 16-byte store a thread (a row's 64 columns are 16 threads)
+        named_sync(2 + wg, 128);             // the last tile's reads are done
+        slab[2 * q * kSlab + r] = d[0];
+        slab[(2 * q + 1) * kSlab + r] = d[1];
+        slab[2 * q * kSlab + r + 8] = d[2];
+        slab[(2 * q + 1) * kSlab + r + 8] = d[3];
+        named_sync(2 + wg, 128);
+        const int m = wt / 16, c4 = (wt % 16) * 4;
+        if (c0 + c4 < N)                     // N a multiple of 8: whole float4s
+          __stcs(reinterpret_cast<float4*>(out + (size_t)m * N + c0 + c4),
+                 *reinterpret_cast<const float4*>(slab + m * kSlab + c4));
       }
     }
   }
   if (!ARGMAX) return;
 
   // the block's (max, first index), then the last block folds every block's
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float v = __shfl_xor_sync(0xffffffffu, best, off);
@@ -297,7 +337,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   if (threadIdx.x == 0) {
     float bv = s_val[0];
     int bi = s_idx[0];
-    for (int i = 1; i < kWarps; ++i)
+    for (int i = 1; i < nwarps; ++i)
       if (better(s_val[i], s_idx[i], bv, bi)) {
         bv = s_val[i];
         bi = s_idx[i];
@@ -314,7 +354,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   __threadfence();
   best = -INFINITY;
   best_i = INT_MAX;
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) {
     const float v = __ldcg(part_val + b);
     const int i = __ldcg(part_idx + b);
     if (better(v, i, best, best_i)) {
@@ -340,7 +380,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   if (threadIdx.x == 0) {
     float bv = s_val[0];
     int bi = s_idx[0];
-    for (int i = 1; i < kWarps; ++i)
+    for (int i = 1; i < nwarps; ++i)
       if (better(s_val[i], s_idx[i], bv, bi)) {
         bv = s_val[i];
         bi = s_idx[i];
@@ -350,32 +390,36 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict
   }
 }
 
-template <int M, int BN, bool ARGMAX>
-int launch_gemv(const void* x, const void* w, void* out, void* part_val, void* part_idx,
-                void* counter, int K, int N, cudaStream_t st) {
-  const size_t smem = ((size_t)K * M + GemvShape<M, BN>::kRed) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gemv_kernel<M, BN, ARGMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int C, bool ARGMAX>
+int launch_gemv(const CUtensorMap& map, const void* x, void* out, void* part_val, void* part_idx,
+                void* counter, int M, int K, int N, int grid, cudaStream_t st) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (N + BN - 1) / BN;
-  gemv_kernel<M, BN, ARGMAX><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<float*>(out), static_cast<float*>(part_val), static_cast<int*>(part_idx),
-      static_cast<int*>(counter), K, N);
+  const size_t avail = (size_t)optin - 256;            // the static arrays
+  int stages = kStages;
+  while (stages > 2 && gemv_smem(C, K, stages) > avail) --stages;
+  const size_t smem = gemv_smem(C, K, stages);
+  if (smem > avail) return static_cast<int>(cudaErrorInvalidValue);   // x too long
+  err = cudaFuncSetAttribute(gemv_kernel<C, ARGMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gemv_kernel<C, ARGMAX><<<grid, 128 * C + 32, smem, st>>>(
+      map, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(out),
+      static_cast<float*>(part_val), static_cast<int*>(part_idx), static_cast<int*>(counter), M,
+      K, N, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int M, bool ARGMAX>
-int gemv_for_width(int bn, const void* x, const void* w, void* out, void* pv, void* pi,
-                   void* ctr, int K, int N, cudaStream_t st) {
-  switch (bn) {
-    case 256: return launch_gemv<M, 256, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
-    case 512: return launch_gemv<M, 512, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
-    case 1024: return launch_gemv<M, 1024, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
-    case 2048: return launch_gemv<M, 2048, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
-    case 4096: return launch_gemv<M, 4096, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
-    case 8192: return launch_gemv<M, 8192, ARGMAX>(x, w, out, pv, pi, ctr, K, N, st);
+template <bool ARGMAX>
+int gemv_for_tile(int tile, const CUtensorMap& map, const void* x, void* out, void* pv, void* pi,
+                  void* ctr, int M, int K, int N, int grid, cudaStream_t st) {
+  switch (tile) {
+    case 64: return launch_gemv<1, ARGMAX>(map, x, out, pv, pi, ctr, M, K, N, grid, st);
+    case 128: return launch_gemv<2, ARGMAX>(map, x, out, pv, pi, ctr, M, K, N, grid, st);
+    case 256: return launch_gemv<4, ARGMAX>(map, x, out, pv, pi, ctr, M, K, N, grid, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -407,17 +451,23 @@ extern "C" int aha_study_stream_sum(const void* x, const void* w, void* head_par
 
 // M = 8, argmax 0: x (8, K) bf16 . w (K, N) bf16 -> out (8, N) f32.
 // M = 1, argmax 1: out (1,) f32 the max of x (1, K) . w, and part_idx[grid]
-// its first index; part_val / part_idx (grid + 1) scratch with grid =
-// ceil(N / bn), counter one int32 that is zero before the launch and is left
-// zero.  bn in {256, 512, 1024, 2048, 4096, 8192}; N a multiple of 8.
+// its first index; part_val / part_idx (grid + 1) scratch, counter one int32
+// that is zero before the launch and is left zero.  tile (64, 128 or 256
+// columns) and grid (at most ceil(N / tile) blocks) are the wrapper's plan
+// (studies/exp_gemv.gemv_plan).  N a multiple of 8, w 16-byte aligned.
 extern "C" int aha_study_gemv(const void* x, const void* w, void* out, void* part_val,
-                              void* part_idx, void* counter, int M, int K, int N, int bn,
-                              int argmax, void* stream) {
-  if (K < 1 || N < 8 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                              void* part_idx, void* counter, int M, int K, int N, int argmax,
+                              int tile, int grid, void* stream) {
+  if (K < 1 || N < 8 || N % 8 != 0 || (argmax ? M != 1 : M != 8) || tile < kCols || grid < 1 ||
+      grid > (N + tile - 1) / tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  if (!make_weight_map(&map, w, N, K, 1, kRows, true))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (argmax && M == 1)
-    return gemv_for_width<1, true>(bn, x, w, out, part_val, part_idx, counter, K, N, st);
-  if (!argmax && M == 8)
-    return gemv_for_width<8, false>(bn, x, w, out, part_val, part_idx, counter, K, N, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return argmax
+             ? gemv_for_tile<true>(tile, map, x, out, part_val, part_idx, counter, M, K, N, grid,
+                                   st)
+             : gemv_for_tile<false>(tile, map, x, out, part_val, part_idx, counter, M, K, N, grid,
+                                    st);
 }

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.utils.device import sm_count
 
 GROUP = 128          # weight / activation quantization group (rows of K)
 #: above this many rows the dequantize-then-matmul path takes over (the
@@ -336,10 +337,6 @@ def swiglu_launch(M: int, gKp: int, inter: int, sms: int,
     plan = swiglu_plan(gKp, inter, sms)
     return plan, pass_rows(M, max(gKp, inter), smem_limit - plan.fixed,
                            SWIGLU_PASS_ROWS)
-
-
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pass_rows(m: int, Kp: int, smem_limit: int,

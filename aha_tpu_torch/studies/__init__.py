@@ -81,7 +81,8 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 def report(rows: list[dict]) -> None:
     """One readable line per measured kernel, then the rows as JSON."""
     for r in rows:
-        extra = "".join(f" {k} {r[k]:.4f}" for k in ("plain_ms", "library_ms")
+        extra = "".join(f" {k} {r[k]:.4f}" for k in
+                        ("plain_ms", "library_ms", "library_bf16_ms")
                         if r.get(k) is not None)
         print(f"[{r['name']}{' ' + r['variant'] if r.get('variant') else ''}]"
               f" {r['ms']:.4f} ms, {r['gbps']:.1f} GB/s; bound "

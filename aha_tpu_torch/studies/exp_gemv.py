@@ -12,16 +12,20 @@ bf16), seeded weights, csrc/study_gemv.cu:
   sum of every element read, so no load can be dropped.  The read ceiling,
   timed beside `torch.sum(w, dtype=torch.float32)`.
 - `gemv_m8` ← mk_gemv (gemv_kernel): xp (8, K) bf16 · W (K, N) bf16 → (8, N)
-  f32; the block width swept over the script's 1024-8192 and two narrower
-  ones, beside `torch.matmul(xp, w)` (the script's "a2. XLA bf16 M=8").
+  f32 on wgmma from a TMA ring; the script's block width swept over its
+  1024-8192 and two narrower ones, beside `torch.mm(xp, w,
+  out_dtype=torch.float32)` (the same function; the bf16-out
+  `torch.matmul(xp, w)`, the script's "a2. XLA bf16 M=8", timed beside it).
 - `gemv_argmax` ← mk_head (head_kernel): row 0's GEMV reduced to (max f32,
   first index int32); x is (1, K), not the TPU's 8-row pad.  Beside
   `torch.matmul` of the GEMV alone.  `head_once` ← head_once: the same
   kernel at bn 2048, checked against torch.argmax as the script checks it.
 
-The TPU grids are N // bn and skip the last N % bn columns (384 at bn 2048
-and 4096, 4480 at 8192); these kernels and their plain versions cover all
-N.
+On the card the launch follows `gemv_plan(N, sms)`, whatever bn: the
+wrappers keep the script's bn and its sweep, so the study still asks the
+TPU study's question, but bn reaches neither the grid nor the kernel.  The
+TPU grids are N // bn and skip the last N % bn columns (384 at bn 2048 and
+4096, 4480 at 8192); these kernels and their plain versions cover all N.
 """
 
 from __future__ import annotations
@@ -35,16 +39,19 @@ from aha_tpu_torch.ops.flash_attention import ticket_counters
 from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.studies import (bound, card_line, device_ms, rel_err,
                                    report, require_card)
+from aha_tpu_torch.utils.device import sm_count
 
 K, N = 1024, 151936
 #: the script's block-sum widths
 SUM_BNS = (2048, 4096, 8192)
-#: columns per block: the script's 1024-8192 and two narrower widths
+#: the script's block widths, 1024-8192, and two narrower ones
 GEMV_BNS = (256, 512, 1024, 2048, 4096, 8192)
-#: the widths that read fastest on an H100 (the sweep of PERF.md §6)
+#: the default widths (the fastest when bn set the grid, PERF.md §6)
 GEMV_BN = 256
 HEAD_BN = 256
 ONCE_BN = 2048
+#: csrc/study_gemv.cu's column tiles: one 64-column box a consumer warpgroup
+GEMV_TILES = (256, 128, 64)
 #: csrc/study_gemv.cu's stream_sum grid: threads a block, K row slices
 SUM_THREADS, SUM_SLICES = 256, 8
 #: kernel vs plain, relative to max |ref| (f32 sums in another order)
@@ -92,6 +99,48 @@ def stream_sum(x: torch.Tensor, w: torch.Tensor, bn: int = 2048
     return out, total
 
 
+# -- the GEMV's launch plan ----------------------------------------------------
+
+
+def gemv_plan(n: int, sms: int) -> tuple[int, int]:
+    """(tile, grid) of the GEMV kernels over N columns on `sms` SMs: a
+    column tile from GEMV_TILES and a persistent grid of min(tiles, sms)
+    blocks, block b walking tiles b, b + grid, ...  The tile minimises the
+    longest walk in columns, ceil(tiles / grid) · tile (the last round's
+    idle SMs cost that much), the larger tile on a tie."""
+    best = None
+    for tile in GEMV_TILES:
+        tiles = -(-n // tile)
+        grid = min(tiles, sms)
+        span = -(-tiles // grid) * tile
+        if best is None or span < best[0]:
+            best = (span, tile, grid)
+    return best[1], best[2]
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+            argmax: bool):
+    """Launch csrc/study_gemv.cu's GEMV on gemv_plan's grid.  Returns the
+    argmax's int32 scratch, whose last slot the kernel leaves the index in
+    (None for M = 8)."""
+    Kw, Nw = w.shape
+    tile, grid = gemv_plan(Nw, sm_count(w.device))
+    stream = kernels.stream_handle(w)
+    val = idx = ticket = None
+    if argmax:
+        val = torch.empty((grid + 1,), dtype=torch.float32, device=w.device)
+        idx = torch.empty((grid + 1,), dtype=torch.int32, device=w.device)
+        ticket = ticket_counters(w.device, stream, 1)
+    rc = kernels.lib().aha_study_gemv(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if val is None else val.data_ptr(),
+        None if idx is None else idx.data_ptr(),
+        None if ticket is None else ticket.data_ptr(), x.shape[0], Kw, Nw,
+        int(argmax), tile, grid, stream)
+    kernels.check(rc, "aha_study_gemv")
+    return idx
+
+
 # -- gemv_m8 -------------------------------------------------------------------
 
 
@@ -102,16 +151,13 @@ def gemv_m8_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def gemv_m8(xp: torch.Tensor, w: torch.Tensor, bn: int = GEMV_BN
             ) -> torch.Tensor:
     """xp (8, K) bf16 · w (K, N) bf16 → (8, N) f32, f32 accumulation; `bn`
-    columns per block."""
+    one of GEMV_BNS (the script's block width: it moves nothing here)."""
     if not w.is_cuda:
         return gemv_m8_plain(xp, w)
-    Kw, Nw = _check(xp, w, 8, "gemv_m8")
+    _, Nw = _check(xp, w, 8, "gemv_m8")
     require(bn in GEMV_BNS, f"bn one of {GEMV_BNS}")
     out = torch.empty((8, Nw), dtype=torch.float32, device=w.device)
-    rc = kernels.lib().aha_study_gemv(
-        xp.data_ptr(), w.data_ptr(), out.data_ptr(), None, None, None, 8, Kw,
-        Nw, bn, 0, kernels.stream_handle(w))
-    kernels.check(rc, "aha_study_gemv")
+    _launch(xp, w, out, argmax=False)
     gemv_m8.launches += 1
     return out
 
@@ -129,19 +175,11 @@ def gemv_argmax_plain(x: torch.Tensor, w: torch.Tensor
 
 def _argmax(x: torch.Tensor, w: torch.Tensor, bn: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    Kw, Nw = _check(x, w, 1, "gemv_argmax")
+    _check(x, w, 1, "gemv_argmax")
     require(bn in GEMV_BNS, f"bn one of {GEMV_BNS}")
-    grid = -(-Nw // bn)
-    val = torch.empty((grid + 1,), dtype=torch.float32, device=w.device)
-    idx = torch.empty((grid + 1,), dtype=torch.int32, device=w.device)
-    stream = kernels.stream_handle(w)
-    ticket = ticket_counters(w.device, stream, 1)
     out = torch.empty((1,), dtype=torch.float32, device=w.device)
-    rc = kernels.lib().aha_study_gemv(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), val.data_ptr(),
-        idx.data_ptr(), ticket.data_ptr(), 1, Kw, Nw, bn, 1, stream)
-    kernels.check(rc, "aha_study_gemv")
-    return out[0], idx[grid]
+    idx = _launch(x, w, out, argmax=True)
+    return out[0], idx[-1]
 
 
 def gemv_argmax(x: torch.Tensor, w: torch.Tensor, bn: int = HEAD_BN
@@ -240,8 +278,11 @@ def measure(quick: bool = False, iters: int = 30) -> list[dict]:
             K * N, "f32"), max(e1, e2), plain_ms, lib_sum,
             "torch.sum(w, dtype=torch.float32)")
 
-    # the M = 8 GEMV, block width swept (the default first)
-    lib_mm = device_ms(lambda: torch.matmul(xp, w), iters)
+    # the M = 8 GEMV, block width swept (the default first); the library
+    # call writes f32 as the kernel does, the bf16-out call is kept beside it
+    lib_bf16 = device_ms(lambda: torch.matmul(xp, w), iters)
+    lib_mm = device_ms(lambda: torch.mm(xp, w, out_dtype=torch.float32),
+                       iters)
     ref = gemv_m8_plain(xp, w)
     plain_ms = device_ms(lambda: gemv_m8_plain(xp, w), 5)
     nbytes = wbytes + 8 * K * 2 + 8 * N * 4
@@ -252,7 +293,8 @@ def measure(quick: bool = False, iters: int = 30) -> list[dict]:
         ms = device_ms(lambda: gemv_m8(xp, w, bn), iters)
         row("gemv_m8", f"bn={bn}", ms, nbytes,
             bound(nbytes, 2 * 8 * K * N), e, plain_ms if bn == GEMV_BN
-            else None, lib_mm, "torch.matmul(xp, w) (bf16, M = 8)")
+            else None, lib_mm, "torch.mm(xp, w, out_dtype=torch.float32)")
+        rows[-1]["library_bf16_ms"] = lib_bf16
     del ref
 
     # the argmax head and the script's one-shot check

@@ -36,6 +36,11 @@ def device() -> torch.device:
     return dev
 
 
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors: the launch plans' unit."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def get_dtype(dev: torch.device | None = None) -> torch.dtype:
     override = os.environ.get("AHA_DTYPE")
     if override:

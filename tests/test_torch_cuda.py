@@ -686,9 +686,11 @@ def test_study_gemv_m8_matches_plain(dev, bn):
     g = torch.Generator(device=dev).manual_seed(bn)
     N = 3 * 1024 + 40
     w, xp = _bf(g, 512, N), _bf(g, 8, 512)
+    n0 = eg.gemv_m8.launches
     got = eg.gemv_m8(xp, w, bn)
     ref = eg.gemv_m8_plain(xp, w)
     torch.cuda.synchronize()
+    assert eg.gemv_m8.launches == n0 + 1
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
@@ -714,6 +716,86 @@ def test_study_gemv_argmax_matches_plain(dev, bn):
     assert int(eg.head_once(x, tie)[1]) == 5
     torch.cuda.synchronize()
     assert (eg.head_once.launches, eg.gemv_argmax.launches) == (n0 + 1, n1)
+
+
+# the head's width and a ragged one (not a whole number of 128-column tiles)
+GEMV_NS = [151936, 2 * 2048 + 40]
+
+
+@pytest.mark.parametrize("N", GEMV_NS)
+def test_study_gemv_every_bn(dev, N):
+    """Both GEMV kernels at every bn of the sweep, K 1024: the M = 8 output
+    within 1e-5 of max |ref| and bit-equal on a repeat, the argmax agreeing
+    with the plain version and its index the same at every bn; each call
+    counts one launch of its own wrapper."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    g = torch.Generator(device=dev).manual_seed(N + 3)
+    w, xp = _bf(g, 1024, N), _bf(g, 8, 1024)
+    x = xp[:1].contiguous()
+    ref = eg.gemv_m8_plain(xp, w)
+    idx = set()
+    for bn in eg.GEMV_BNS:
+        n0, n1 = eg.gemv_m8.launches, eg.gemv_argmax.launches
+        got = eg.gemv_m8(xp, w, bn)
+        assert torch.equal(got, eg.gemv_m8(xp, w, bn))
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+        am = eg.gemv_argmax(x, w, bn)
+        torch.cuda.synchronize()
+        assert eg.argmax_agrees(am, x, w)
+        idx.add(int(am[1]))
+        assert (eg.gemv_m8.launches, eg.gemv_argmax.launches) == (n0 + 2,
+                                                                  n1 + 1)
+    assert len(idx) == 1
+
+
+@pytest.mark.parametrize("N", [1000] + GEMV_NS)
+def test_study_gemv_argmax_masks_the_zero_fill(dev, N):
+    """Every logit negative, the largest in the last column: TMA fills the
+    columns past N with zeros, whose logit 0 would win unless they are
+    masked by index.  The planted logit is exact (K · -2^-10 = -1)."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    g = torch.Generator(device=dev).manual_seed(N)
+    K = 1024
+    w = -(torch.rand((K, N), generator=g, device=dev) + 0.01).to(
+        torch.bfloat16)
+    w[:, N - 1] = -2.0 ** -10
+    x = torch.ones((1, K), dtype=torch.bfloat16, device=dev)
+    for bn in eg.GEMV_BNS:
+        val, i = eg.gemv_argmax(x, w, bn)
+        assert (int(i), float(val)) == (N - 1, -1.0)
+    val, i = eg.head_once(x, w)
+    assert (int(i), float(val)) == (N - 1, -1.0)
+    got = eg.gemv_m8(x.expand(8, K).contiguous(), w)
+    torch.cuda.synchronize()
+    assert got.shape == (8, N) and (got[:, N - 1] == -1.0).all()
+
+
+def test_study_gemv_argmax_ties_go_to_the_smaller_index(dev):
+    """Equal maxima (exact: K ones times 1.0) across two blocks' partials
+    (the larger index in block 0's second tile, the smaller in block 1's
+    first), across a tile boundary, across warpgroups of one tile and
+    across the two rows a thread holds: the smallest index, at every bn."""
+    from aha_tpu_torch.studies import exp_gemv as eg
+
+    N, K = 151936, 1024
+    tile, grid = eg.gemv_plan(N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert grid >= 8
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = (_bf(g, K, N) * 0.01)
+    x = torch.ones((1, K), dtype=torch.bfloat16, device=dev)
+    cases = [((grid * tile + 3, tile + 7), tile + 7),
+             ((6 * tile, 6 * tile - 1), 6 * tile - 1),
+             ((64 + 2, 60), 60),
+             ((7 * tile + 8 + 1, 7 * tile + 1), 7 * tile + 1)]
+    for cols, want in cases:
+        w = base.clone()
+        w[:, list(cols)] = 1.0
+        for bn in eg.GEMV_BNS:
+            val, i = eg.gemv_argmax(x, w, bn)
+            assert (int(i), float(val)) == (want, float(K)), (cols, bn)
 
 
 @pytest.mark.parametrize("N", [2048 + 40, 4096])
