@@ -22,8 +22,10 @@
 //   kv-head whatever S is, and a split past the slot's count exits at once.
 //   A slot's result depends only on its own length: bit-equal to a B = 1
 //   launch on that slot alone.
-// - 8 warps; D/8 lanes own a row (16-byte loads), each sub-warp loads two
-//   rows before it computes, so a 32-row split is one DRAM round trip.  A
+// - 8 warps; D/8 lanes own a row (16-byte loads; at D 192 the row's 24
+//   lanes are a 32-lane sub-warp whose last 8 read nothing and add zeros),
+//   each sub-warp loads two rows before it computes, so a 32-row split is
+//   one DRAM round trip.  A
 //   block scores two of the group's G = Hq/Hkv query heads (all of them at
 //   G = 1) from that one read, each keeping its running (max, sum, acc) in
 //   f32; the G/2 blocks of a kv-head's heads read the same rows, the later
@@ -35,9 +37,9 @@
 //   next launch — folds the slot's splits for its heads in a fixed order
 //   (decode_fold.cuh, shared with decode_attention_q8.cu): deterministic,
 //   whichever block arrives last.
-// - Any group size G = Hq / Hkv from 1 to 8: a block scores two heads when G
-//   is even and one when it is odd (G 3, 5, 7 — Qwen2.5-VL-7B has 28 over 4),
-//   so the shares always tile the group.
+// - Any group size G = Hq / Hkv: a block scores two heads when G is even
+//   and one when it is odd (G 3, 5, 7 — Qwen2.5-VL-7B has 28 over 4), so
+//   the shares always tile the group; a group of 16 is 8 blocks a kv-head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,9 +65,16 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
+// The smallest power of two >= n (n <= 32): the lanes a sub-warp takes for
+// a row of n 16-byte chunks, so the shuffle trees stay whole.
+__host__ __device__ constexpr int pow2_lanes(int n) {
+  return n <= 1 ? 1 : 2 * pow2_lanes((n + 1) / 2);
+}
+
 template <int D, int G>   // G: the query heads one block scores
 struct Smem {
-  static constexpr int kLanesPerRow = D / 8;
+  static constexpr int kChunks = D / 8;             // 16-byte chunks a row
+  static constexpr int kLanesPerRow = pow2_lanes(kChunks);
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   // phase 1: per-warp (m, l, acc); phase 2 (the fold) reuses the bytes
   static constexpr int kMerge = kWarps * G * (D + 2);
@@ -96,6 +105,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub_in_warp = lane / LPR, chunk = lane % LPR;
   const int sub = warp * RPW + sub_in_warp;
+  const bool live = chunk < Smem<D, G>::kChunks;   // a lane past the row adds zeros
 
   int li = *layer;
   li = li < 0 ? 0 : (li >= L ? L - 1 : li);
@@ -116,8 +126,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        q + ((size_t)b * Hq + (size_t)h * (Hq / Hkv) + (size_t)share * G + g) * D + chunk * 8);
+    const uint4 u = live ? *reinterpret_cast<const uint4*>(
+                               q + ((size_t)b * Hq + (size_t)h * (Hq / Hkv) +
+                                    (size_t)share * G + g) * D + chunk * 8)
+                         : make_uint4(0u, 0u, 0u, 0u);
     bf16x8_to_float(u, qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) qf[g][i] *= scale;
@@ -129,11 +141,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   for (int r0 = start; r0 < end; r0 += 2 * kSub) {
     const int ra = r0 + sub, rb = r0 + kSub + sub;
     const bool la = ra < end, lb = rb < end;
+    const bool lla = la && live, llb = lb && live;
     const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    const uint4 ka = la ? __ldg(reinterpret_cast<const uint4*>(k + base + ra * HD)) : z;
-    const uint4 va = la ? __ldg(reinterpret_cast<const uint4*>(v + base + ra * HD)) : z;
-    const uint4 kb = lb ? __ldg(reinterpret_cast<const uint4*>(k + base + rb * HD)) : z;
-    const uint4 vb = lb ? __ldg(reinterpret_cast<const uint4*>(v + base + rb * HD)) : z;
+    const uint4 ka = lla ? __ldg(reinterpret_cast<const uint4*>(k + base + ra * HD)) : z;
+    const uint4 va = lla ? __ldg(reinterpret_cast<const uint4*>(v + base + ra * HD)) : z;
+    const uint4 kb = llb ? __ldg(reinterpret_cast<const uint4*>(k + base + rb * HD)) : z;
+    const uint4 vb = llb ? __ldg(reinterpret_cast<const uint4*>(v + base + rb * HD)) : z;
     float kfa[8], kfb[8], vfa[8], vfb[8];
     bf16x8_to_float(ka, kfa);
     bf16x8_to_float(kb, kfb);
@@ -186,7 +199,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   float* s_m = smem;                        // [kWarps][G]
   float* s_l = s_m + kWarps * G;            // [kWarps][G]
   float* s_acc = s_l + kWarps * G;          // [kWarps][G][D]
-  if (sub_in_warp == 0) {
+  if (sub_in_warp == 0 && live) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (chunk == 0) {
@@ -265,14 +278,14 @@ extern "C" const char* aha_error_string(int code) {
 // part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D);
 // counters: (B, Hq) int32 (one per block share of a kv-head's heads, at
 // most Hq), zero before the launch and left zero after it.
-// Supported: D in {64, 128}, G = Hq / Hkv from 1 to 8, 1 ≤ nsplit ≤ 256.
+// Supported: D in {64, 128, 192, 256}, any G = Hq / Hkv, 1 ≤ nsplit ≤ 256.
 extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     const void* layer, const void* valid_len,
                                     int vl_stride, void* part_m, void* part_l,
                                     void* part_acc, void* counters, void* out, int B,
                                     int Hq, int Hkv, int D, int L, int S, int nsplit,
                                     float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > 8 || nsplit < 1 || nsplit > kMaxSplit)
+  if (Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -283,6 +296,8 @@ extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 64: ok = launch_for_group<64>(G, grid, st, a); break;
     case 128: ok = launch_for_group<128>(G, grid, st, a); break;
+    case 192: ok = launch_for_group<192>(G, grid, st, a); break;
+    case 256: ok = launch_for_group<256>(G, grid, st, a); break;
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

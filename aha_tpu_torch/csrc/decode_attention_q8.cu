@@ -23,8 +23,10 @@
 //   that count exits at once and writes nothing.  A slot's result depends
 //   only on its own length: bit-equal to a B = 1 launch on that slot.
 // - A block scores one of the group's G = Hq/Hkv query heads (all-int8)
-//   or two (cast, one when G is odd).  8 warps; D/16 lanes own a row (16 int8 channels each, one
-//   16-byte load) and each sub-warp loads two rows, their K and V and both
+//   or two (cast, one when G is odd), of any G.  8 warps; D/16 lanes own a
+//   row (16 int8 channels each, one 16-byte load; at D 192 the row's 12
+//   lanes are a 16-lane sub-warp whose last 4 read nothing and add zeros)
+//   and each sub-warp loads two rows, their K and V and both
 //   scales, before it computes: at D 128 a 64-row split is one DRAM round
 //   trip.  The scores s = (q · k_i8) · scale · ks[row]; a warp keeps one
 //   running max per query head over its rows (no barrier in the loop), and
@@ -85,10 +87,12 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
                  float* __restrict__ part_acc, int* __restrict__ counters,
                  __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv, int L, int S,
                  float scale) {
-  constexpr int LPR = D / 16;                    // lanes a row
+  constexpr int kChunks = D / 16;                // 16-byte chunks a row
+  constexpr int LPR = kChunks <= 4 ? 4 : (kChunks <= 8 ? 8 : 16);   // lanes a row
   constexpr int RPW = 32 / LPR;                  // rows a warp loads at once
   constexpr int kSub = kWarps * RPW;             // rows the block loads at once
-  static_assert(RPW >= 4, "four sub-warps share the packing of q");
+  constexpr int kPackers = RPW < 4 ? RPW : 4;    // sub-warps that share q's packing
+  static_assert(kChunks <= 16, "D up to 256");
   __shared__ __align__(16) float smem[Q8Smem<D, G>::kFloats];
 
   const int split = blockIdx.x, b = blockIdx.z;
@@ -98,6 +102,7 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub_in_warp = lane / LPR, chunk = lane % LPR;
   const int sub = warp * RPW + sub_in_warp;
+  const bool live = chunk < kChunks;             // a lane past the row adds zeros
 
   int li = *layer;
   li = li < 0 ? 0 : (li >= L ? L - 1 : li);
@@ -120,7 +125,7 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
     const uint4* src = reinterpret_cast<const uint4*>(q + (head0 + g) * D + chunk * 16);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const uint4 u = src[half];
+      const uint4 u = live ? src[half] : make_uint4(0u, 0u, 0u, 0u);
       const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -138,20 +143,22 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
       for (int off = LPR / 2; off > 0; off >>= 1)
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
       q_s[g] = fmaxf(amax, 1e-20f) / 127.f;
-      // the sub-warps share the divisions: sub-warp j packs word j % 4 of
-      // its chunk, and every lane gathers the four words of its chunk
-      int w = 0;
+      // the sub-warps share the divisions: sub-warp j packs the words
+      // jj ≡ j (mod kPackers) of its chunk, and every lane gathers the four
+      // words of its chunk
+      int w[4] = {0, 0, 0, 0};
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        if (jj != sub_in_warp % 4) continue;
+        if (jj % kPackers != sub_in_warp % kPackers) continue;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float r = fminf(fmaxf(rintf(qf[g][4 * jj + c] / q_s[g]), -127.f), 127.f);
-          w |= (static_cast<int>(r) & 0xff) << (8 * c);
+          w[jj] |= (static_cast<int>(r) & 0xff) << (8 * c);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) qpack[g][j] = __shfl_sync(0xffffffffu, w, j * LPR + chunk);
+      for (int j = 0; j < 4; ++j)
+        qpack[g][j] = __shfl_sync(0xffffffffu, w[j], (j % kPackers) * LPR + chunk);
     }
   }
 
@@ -171,11 +178,12 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
   for (int r0 = start; r0 < end; r0 += 2 * kSub) {
     const int ra = r0 + sub, rb = r0 + kSub + sub;
     const bool la = ra < end, lb = rb < end;
+    const bool lla = la && live, llb = lb && live;
     const int4 z = make_int4(0, 0, 0, 0);
-    const int4 ka = la ? __ldg(reinterpret_cast<const int4*>(k + kv_base + ra * HD)) : z;
-    const int4 va = la ? __ldg(reinterpret_cast<const int4*>(v + kv_base + ra * HD)) : z;
-    const int4 kb = lb ? __ldg(reinterpret_cast<const int4*>(k + kv_base + rb * HD)) : z;
-    const int4 vb = lb ? __ldg(reinterpret_cast<const int4*>(v + kv_base + rb * HD)) : z;
+    const int4 ka = lla ? __ldg(reinterpret_cast<const int4*>(k + kv_base + ra * HD)) : z;
+    const int4 va = lla ? __ldg(reinterpret_cast<const int4*>(v + kv_base + ra * HD)) : z;
+    const int4 kb = llb ? __ldg(reinterpret_cast<const int4*>(k + kv_base + rb * HD)) : z;
+    const int4 vb = llb ? __ldg(reinterpret_cast<const int4*>(v + kv_base + rb * HD)) : z;
     const float ksa = la ? __ldg(ks + sc_base + (size_t)ra * Hkv) : 0.f;
     const float ksb = lb ? __ldg(ks + sc_base + (size_t)rb * Hkv) : 0.f;
     const float vsa = la ? __ldg(vs + sc_base + (size_t)ra * Hkv) : 0.f;
@@ -265,7 +273,7 @@ decode_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__
       float a = acc[g][c];
 #pragma unroll
       for (int off = LPR; off < 32; off <<= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (sub_in_warp == 0) s_acc[(warp * G + g) * D + chunk * 16 + c] = a;
+      if (sub_in_warp == 0 && live) s_acc[(warp * G + g) * D + chunk * 16 + c] = a;
     }
     if (lane == 0) {
       s_m[warp * G + g] = m[g];
@@ -339,7 +347,7 @@ void launch_q8_for_group(int G, dim3 grid, cudaStream_t st, const Q8Args& a) {
 // part_m/part_l: (B, Hq, nsplit) f32 scratch; part_acc: (B, Hq, nsplit, D);
 // counters: (B, Hq) int32 (one per block share of a kv-head's heads, at
 // most Hq), zero before the launch and left zero after it.
-// Supported: D in {64, 128}, G = Hq / Hkv from 1 to 8, 1 ≤ nsplit ≤ 256.
+// Supported: D in {64, 128, 192, 256}, any G = Hq / Hkv, 1 ≤ nsplit ≤ 256.
 extern "C" int aha_decode_attention_q8(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale,
                                        const void* layer, const void* valid_len,
@@ -347,19 +355,23 @@ extern "C" int aha_decode_attention_q8(const void* q, const void* k, const void*
                                        void* part_acc, void* counters, void* out, int B,
                                        int Hq, int Hkv, int D, int L, int S, int nsplit,
                                        float scale, int mxu, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > 8 || nsplit < 1 || nsplit > kMaxSplit ||
-      (D != 64 && D != 128))
+  if (Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Q8Args a{q, k, v, k_scale, v_scale, layer, valid_len, vl_stride, part_m, part_l,
                  part_acc, counters, out, B, Hq, Hkv, L, S, scale};
   const dim3 grid(nsplit, Hkv * (G / share_of(G, mxu)), B);
-  if (D == 128)
-    mxu ? launch_q8_for_group<128, true>(G, grid, st, a)
-        : launch_q8_for_group<128, false>(G, grid, st, a);
-  else
-    mxu ? launch_q8_for_group<64, true>(G, grid, st, a)
-        : launch_q8_for_group<64, false>(G, grid, st, a);
+  switch (D) {
+    case 64: mxu ? launch_q8_for_group<64, true>(G, grid, st, a)
+                 : launch_q8_for_group<64, false>(G, grid, st, a); break;
+    case 128: mxu ? launch_q8_for_group<128, true>(G, grid, st, a)
+                  : launch_q8_for_group<128, false>(G, grid, st, a); break;
+    case 192: mxu ? launch_q8_for_group<192, true>(G, grid, st, a)
+                  : launch_q8_for_group<192, false>(G, grid, st, a); break;
+    case 256: mxu ? launch_q8_for_group<256, true>(G, grid, st, a)
+                  : launch_q8_for_group<256, false>(G, grid, st, a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,10 @@
 //
 //   q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) bf16, addressed through strides
 //   (the channel axis must be contiguous; no transposes) → o (B, Sq, Hq, D).
-//   q-head h reads kv-head h / (Hq / Hkv).  Sq, Skv multiples of 64;
-//   D in {64, 128}; q/k/v bases and their batch, sequence and head strides
-//   16-byte aligned, as TMA needs.  Causal: key j is visible to query i iff
-//   j <= i.
+//   q-head h reads kv-head h / (Hq / Hkv), any whole group.  Sq, Skv
+//   multiples of 64; D in {64, 128, 192, 256}; q/k/v bases and their batch,
+//   sequence and head strides 16-byte aligned, as TMA needs.  Causal: key j
+//   is visible to query i iff j <= i.
 //
 // Bound: tensor-core FLOPs at S >= 2048 — 4 * Sq * Skv * D * Hq, halved
 // when causal.  Design (FlashAttention-3's shape, without its inter-warpgroup
@@ -20,11 +20,14 @@
 //   whose one thread issues TMA copies (cp.async.bulk.tensor, tensor maps
 //   encoded on the host through cudaGetDriverEntryPointByVersion, so no
 //   libcuda link) of the Q tile once and of 128-row K and V tiles into a
-//   3-stage ring, 128-byte swizzled, each completing on its own mbarrier;
+//   3-stage ring, 128-byte swizzled, each completing on its own mbarrier
+//   (past D 128, 64-row K and V tiles, so the wider accumulators still fit
+//   the registers, and at D 256 a 2-stage ring, so the tiles fit the
+//   shared memory);
 //   consumers hand a stage back on an "empty" mbarrier.  setmaxnreg moves
 //   registers from the producer to the consumers.
-// - consumers: S = Q·Kᵀ by wgmma.m64n128k16 with both operands in shared
-//   memory (K-major), the online softmax on the S accumulators in registers
+// - consumers: S = Q·Kᵀ by wgmma.m64n128k16 (n64 past D 128) with both
+//   operands in shared memory (K-major), the online softmax on the S accumulators in registers
 //   (exp2, scale folded in), O += P·V by wgmma with P from registers and V
 //   from shared memory (MN-major); the (Sq, Skv) scores never leave the SM.
 //   Each tile's S is issued together with the previous tile's P·V, and its
@@ -50,20 +53,32 @@ namespace {
 using namespace aha_hopper;
 
 constexpr int kBlockQ = 128;
-constexpr int kBlockK = 128;
-constexpr int kStages = 3;
 constexpr int kThreads = 384;
 
 template <int D>
 struct Layout {
-  static constexpr int NH = D / 64;                 // boxes per 128-row tile
-  static constexpr int kTile = NH * kBoxBytes;
+  static constexpr int kBlockK = D <= 128 ? 128 : 64;   // K/V rows a tile
+  static constexpr int kStages = D <= 192 ? 3 : 2;
+  static constexpr int NH = D / 64;                 // 64-column boxes a row
+  static constexpr int kQTile = NH * kBoxBytes;     // 128 rows
+  static constexpr int kKVBox = kBlockK * 128;      // one box of a K or V tile
+  static constexpr int kKVTile = NH * kKVBox;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;
   static constexpr int kBytes = kBar + 128 + 1024;  // barriers, alignment slack
 };
+
+// S (64 x N, f32) (+)= Q (64 x 16) · K (N x 16)ᵀ, both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, da, db, accumulate);
+  else
+    wgmma_ss_n64(d, da, db, accumulate);
+}
 
 struct OutStrides {
   long long ob, os, oh;
@@ -77,6 +92,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                            OutStrides st, int Sq, int Skv, int Hq, int G, int causal,
                            float scale_log2) {
   using Lay = Layout<D>;
+  constexpr int kBlockK = Lay::kBlockK, kStages = Lay::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;          // swizzle atoms: 1024-aligned
@@ -109,18 +125,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
       const int hk = h / G;
-      mbar_expect_tx(qbar, Lay::kTile);
+      mbar_expect_tx(qbar, Lay::kQTile);
       for (int c = 0; c < Lay::NH; ++c) tma_load(sQ + c * kBoxBytes, &tq, qbar, c * 64, q0, h, b);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int s = kt % kStages;
         mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(fullk + 8 * s, Lay::kTile);
+        mbar_expect_tx(fullk + 8 * s, Lay::kKVTile);
         for (int c = 0; c < Lay::NH; ++c)
-          tma_load(sK + s * Lay::kTile + c * kBoxBytes, &tk, fullk + 8 * s, c * 64,
+          tma_load(sK + s * Lay::kKVTile + c * Lay::kKVBox, &tk, fullk + 8 * s, c * 64,
                    kt * kBlockK, hk, b);
-        mbar_expect_tx(fullv + 8 * s, Lay::kTile);
+        mbar_expect_tx(fullv + 8 * s, Lay::kKVTile);
         for (int c = 0; c < Lay::NH; ++c)
-          tma_load(sV + s * Lay::kTile + c * kBoxBytes, &tv, fullv + 8 * s, c * 64,
+          tma_load(sV + s * Lay::kKVTile + c * Lay::kKVBox, &tv, fullv + 8 * s, c * 64,
                    kt * kBlockK, hk, b);
       }
     }
@@ -135,8 +151,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    uint32_t pa[8][4];               // P of the tile whose P·V is next
-    float sc[64];
+    constexpr int KK = kBlockK / 16;   // k16 steps of P·V, P fragments a tile
+    uint32_t pa[KK][4];               // P of the tile whose P·V is next
+    float sc[kBlockK / 2];
     mbar_wait(qbar, 0);
 
     // S = Q·K_kt into sc, issued (not waited for)
@@ -145,24 +162,26 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(fullk + 8 * s, (kt / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_k_major(sQ + koff + wg * 64 * 128),
-                      desc_k_major(sK + s * Lay::kTile + koff), kk > 0);
+        const uint32_t qoff = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * Lay::kKVBox + (kk % 4) * 32;
+        wgmma_qk<kBlockK>(sc, desc_k_major(sQ + qoff + wg * 64 * 128),
+                          desc_k_major(sK + s * Lay::kKVTile + koff), kk > 0);
       }
       wgmma_commit();
     };
     // acc += P·V_kt, issued
-    auto issue_pv_from = [&](int kt, const uint32_t (&p)[8][4]) {
+    auto issue_pv_from = [&](int kt, const uint32_t (&p)[KK][4]) {
       const int s = kt % kStages;
       mbar_wait(fullv + 8 * s, (kt / kStages) & 1);
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk)
-        wgmma_pv<D>(acc, p[kk], desc_mn_major(sV + s * Lay::kTile + kk * 16 * 128, kBoxBytes));
+      for (int kk = 0; kk < KK; ++kk)
+        wgmma_pv<D>(acc, p[kk],
+                    desc_mn_major(sV + s * Lay::kKVTile + kk * 16 * 128, Lay::kKVBox));
       wgmma_commit();
     };
     // the online softmax of sc (tile kt) into pn; a0/a1 get the rescale of
     // the rows' output and running sums
-    auto softmax = [&](int kt, uint32_t (&pn)[8][4], float& a0, float& a1) {
+    auto softmax = [&](int kt, uint32_t (&pn)[KK][4], float& a0, float& a1) {
       const int key0 = kt * kBlockK;
       const bool masked = (causal && key0 + kBlockK - 1 > wg_row0) || key0 + kBlockK > Skv;
       // sc stays read-only here: it is the accumulator of a wgmma whose
@@ -178,7 +197,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       };
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBlockK / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(score(j, 0), score(j, 1)));
         mx1 = fmaxf(mx1, fmaxf(score(j, 2), score(j, 3)));
       }
@@ -197,7 +216,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       m1 = mn1;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBlockK / 8; ++j) {
         const float p0 = exp2f(score(j, 0) - m0), p1 = exp2f(score(j, 1) - m0);
         const float p2 = exp2f(score(j, 2) - m1), p3 = exp2f(score(j, 3) - m1);
         rs0 += p0 + p1;
@@ -215,17 +234,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
     };
-    auto pin_p = [&](uint32_t (&p)[8][4]) {
+    auto pin_p = [&](uint32_t (&p)[KK][4]) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kk][e])::"memory");
     };
     // one tile: S = Q·K_kt and P_{kt-1}·V_{kt-1} on the tensor cores
     // together, the softmax of S_kt into pout while the P·V finishes
-    uint32_t pb[8][4];
+    uint32_t pb[KK][4];
     float a0, a1;
-    auto step = [&](int kt, uint32_t (&pin)[8][4], uint32_t (&pout)[8][4]) {
+    auto step = [&](int kt, uint32_t (&pin)[KK][4], uint32_t (&pout)[KK][4]) {
       pin_acc();
       pin_p(pin);
       wgmma_fence();
@@ -245,7 +264,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tq,
         acc[j * 4 + 3] *= a1;
       }
     };
-    auto last_pv = [&](uint32_t (&p)[8][4]) {
+    auto last_pv = [&](uint32_t (&p)[KK][4]) {
       pin_acc();
       pin_p(p);
       wgmma_fence();
@@ -312,18 +331,25 @@ extern "C" int aha_flash_prefill(const void* q, const void* k, const void* v, vo
                                        long long vh, long long ob, long long os, long long oh,
                                        int B, int Sq, int Skv, int Hq, int Hkv, int D,
                                        int causal, float scale, void* stream) {
-  if (Sq % 64 != 0 || Skv % 64 != 0 || Hkv < 1 || Hq % Hkv != 0 || (D != 64 && D != 128))
+  if (Sq % 64 != 0 || Skv % 64 != 0 || Hkv < 1 || Hq % Hkv != 0 ||
+      (D != 64 && D != 128 && D != 192 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int kv_rows = D <= 128 ? Layout<128>::kBlockK : Layout<256>::kBlockK;   // K/V box
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, Sq, Hq, B, qb, qs, qh) || !make_map(&tk, k, D, Skv, Hkv, B, kb, ks, kh) ||
-      !make_map(&tv, v, D, Skv, Hkv, B, vb, vs, vh))
+  if (!make_map(&tq, q, D, Sq, Hq, B, qb, qs, qh) ||
+      !make_map(&tk, k, D, Skv, Hkv, B, kb, ks, kh, 64, kv_rows) ||
+      !make_map(&tv, v, D, Skv, Hkv, B, vb, vs, vh, 64, kv_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(Hq * B, (Sq + kBlockQ - 1) / kBlockQ);
   const OutStrides st{ob, os, oh};
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* oo = static_cast<__nv_bfloat16*>(o);
-  return D == 64 ? launch<64>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, Hq / Hkv, causal, scale_log2)
-                 : launch<128>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, Hq / Hkv, causal,
-                               scale_log2);
+  const int G = Hq / Hkv;
+  switch (D) {
+    case 64: return launch<64>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, G, causal, scale_log2);
+    case 128: return launch<128>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, G, causal, scale_log2);
+    case 192: return launch<192>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, G, causal, scale_log2);
+    default: return launch<256>(grid, s, tq, tk, tv, oo, st, Sq, Skv, Hq, G, causal, scale_log2);
+  }
 }

@@ -2,9 +2,10 @@
 // through tensor maps encoded on the host (the attention kernels on the
 // tensor cores, flash_prefill.cu and segment_flash.cu, and the weight ring
 // of the one-launch decode kernels, fused_stack_gemv.cuh, over bf16 weights
-// and over the GGUF grids, and the M = 8 GEMV study, study_gemv.cu), and the
-// wgmma shared-memory descriptors, fences and m64 bf16 products of the
-// attention kernels and of that GEMV (n8, A MN-major).
+// and over the GGUF grids, the M = 8 GEMV study, study_gemv.cu, and the
+// one-launch layer study, study_fused_layer.cu), and the wgmma shared-memory
+// descriptors, fences and m64 bf16 products of the attention kernels and of
+// those studies (n8 and n16, A MN-major).
 //
 // Attention tiles are [rows][64 bf16] boxes of 128 bytes a row, 128-byte
 // swizzled, kBoxBytes a 128-row box; a D-wide head is D / 64 boxes side by
@@ -139,6 +140,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d(64x64, f32) (+)= A(64x16, smem desc) * B(16x64, smem desc), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d(64x8, f32) (+)= A(64x16, smem desc, MN-major) * B(16x8, smem desc,
 // K-major): A's 64 rows are contiguous along a K row, as the columns of a
 // row-major (K, N) weight are (the transpose bit of 16-bit types)
@@ -149,6 +161,18 @@ __device__ __forceinline__ void wgmma_ss_n8_amn(float (&d)[4], uint64_t da, uint
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64x16, f32) += A(64x16, smem desc, MN-major) * B(16x16, smem desc,
+// K-major): wgmma_ss_n8_amn for 16 rows of B (two 8-row groups 1024 B apart)
+__device__ __forceinline__ void wgmma_ss_n16_amn(float (&d)[8], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -200,6 +224,25 @@ template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_n128(o, a, db);
 }
+// D 192 and 256: one n64 product a box of 64 columns, the boxes `lbo` (the
+// descriptor's leading byte offset) apart; the accumulators of a 64 x DP
+// product are those of its n64 pieces one after another
+template <int DP>
+__device__ __forceinline__ void wgmma_pv_boxes(float (&o)[DP / 2], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  const uint64_t lbo = (db >> 16) & 0x3FFF;
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[32 * c]), a, db + c * lbo);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_pv_boxes<192>(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_pv_boxes<256>(o, a, db);
+}
 
 // cuTensorMapEncodeTiled, found through the runtime (no libcuda link).
 inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
@@ -215,17 +258,17 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A (D, S, H, B) map of 128-row boxes of `cols` channels (64, 128-byte
+// A (D, S, H, B) map of `rows`-row boxes of `cols` channels (64, 128-byte
 // swizzled, or 16, 32-byte swizzled) over a strided bf16 (B, S, H, D)
 // tensor (element strides bs, ss, hs; channel stride 1).  A box past
 // column D or row S is zero-filled.
 inline bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long bs,
-                     long long ss, long long hs, int cols = 64) {
+                     long long ss, long long hs, int cols = 64, int rows = 128) {
   auto fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 128, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t es[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             es, CU_TENSOR_MAP_INTERLEAVE_NONE,

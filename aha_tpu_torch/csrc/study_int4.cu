@@ -16,7 +16,7 @@
 //     padded to 16 in registers only.
 //   - f_pk (body k_pk): nibbles packed two per byte along K, (K/2, N), row
 //     2i the low nibble and 2i+1 the high one.  Here `i4_packed_k`, on that
-//     layout exactly, __dp4a.
+//     layout exactly, from a TMA ring into mma.sync.m16n8k32 s8.
 // All three read 4 bits a weight (77.8 MB at K 1024, N 151936) and agree bit
 // for bit with each other and the plain version: the int32 sums are exact,
 // and sx and the epilogue round the same way.  The TPU grids (N // 2048)
@@ -31,25 +31,50 @@
 // are the fragments: the thread (group g, lane-in-group t) of k block kb
 // takes word q = 4kb + t of column g as B's two registers and xlo / xhi[q][g]
 // as A's row-g registers (which k a byte slot stands for is a relabelling
-// shared by A and B, so the sum is unchanged).  Row 22's (K/2, N) bytes, four
-// rows at a time, transpose in registers (byte_perm) into words of the same
-// even/odd order.
+// shared by A and B, so the sum is unchanged).
 //
 // Bound: bytes, 77.8 MB of weights + 2.4 MB of output: 0.0239 ms at
-// 3.35 TB/s.  The dot is 1.24 G int8 MACs (311 M __dp4a; 0.0013 ms of the
-// int8 tensor rate).  Grids: 64-thread blocks for the __dp4a kernels (594
-// of them, 4-5 a SM, where 256-thread blocks made 149 for 132 SMs and a
-// second wave), 256-thread blocks of 32 columns a warp for mma.sync.  Sign
-// extension: rows 20-21 set a nibble's byte's high bits from its bit 3
-// (b | (b & 0x08) * 0x1E per byte, three integer ops for four nibbles; the
-// SIMD __vsub4 is emulated on sm_90); row 22 keeps the script's shifts — the
-// nibble shifted to the top of its byte is 16x its signed value, so the
-// int32 sum is 16x the dot and one arithmetic shift right by 4 ends it
-// (|sum| < 2^28: exact).
+// 3.35 TB/s.  The dot is 1.24 G int8 MACs (0.0013 ms of the int8 tensor
+// rate).  Grids of rows 20-21: 64-thread blocks for __dp4a (594 of them,
+// 4-5 a SM, where 256-thread blocks made 149 for 132 SMs and a second
+// wave), 256-thread blocks of 32 columns a warp for mma.sync; each block
+// quantizes all of x.  Sign extension: rows 20-21 set a nibble's byte's
+// high bits from its bit 3 (b | (b & 0x08) * 0x1E per byte, three integer
+// ops for four nibbles; the SIMD __vsub4 is emulated on sm_90); row 22
+// keeps the script's shifts — the nibble shifted to the top of its byte is
+// 16x its signed value, so the int32 sum is 16x the dot and one arithmetic
+// shift right by 4 ends it (|sum| < 2^28: exact).
+//
+// Row 22's design: a persistent grid from exp_int4.packed_k_plan (gemv_plan's,
+// with tiles of whole 128-column boxes: at N 151936, 1,187 tiles of 128
+// columns on 132 blocks), each block quantizing x once, from L2 into the
+// fragments it keeps (x itself is never held in shared memory).
+// - Weights by TMA.  A tensor map's row stride must be a multiple of 16
+//   bytes, and N bytes need not be (N % 16 == 8 is allowed), so the map
+//   views the bytes as (K/4, 2N): row i is packed rows 2i and 2i + 1 side
+//   by side.  A column tile is two boxes of 64 rows x 128 bytes, 128-byte
+//   swizzled, at column n0 (the even packed rows) and N + n0 (the odd ones):
+//   256 k values of 128 columns, 16 KB a ring stage, 96 KB in flight.  A
+//   box must also start at a multiple of 16 bytes (the card refuses others
+//   with an illegal instruction): where N % 16 == 8 the odd rows come as an
+//   unswizzled 144-byte box from N + n0 - 8, read 8 bytes in.  A
+//   producer warp keeps the ring full across tile ends; columns past N are
+//   read (the odd rows' bytes, or zero fill) but never stored.
+// - Products on mma.sync.m16n8k32 s8: W's columns are A's 16 rows, x's 8
+//   rows B's 8 columns.  A thread loads 16 bytes (16 columns) of four rows
+//   of each box and transposes them (byte_perm) into one word a column,
+//   whose nibbles shifted to the tops of the bytes are A's registers;
+//   the k values they stand for (4·row + 0..3) are relabelled in B, staged
+//   once a block as ready fragment words.  Four consumer warps a 128
+//   columns each take one 64-k group of every stage and sum through shared
+//   memory at the tile's end.  (wgmma takes 8-bit operands K-major only,
+//   and this layout has N contiguous.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -70,11 +95,38 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   }
 }
 
-// Stage xq as the xlo / xhi words ([K/8][kM] each) and sx per row: x copied
-// to shared memory first (xs, K * kM / 8 uint4) with every thread's loads in
-// flight at once, then the row maxima and the words from there.
-__device__ void stage_acts(const __nv_bfloat16* __restrict__ x, int K, uint4* xs, int* xlo,
-                           int* xhi, float* sx) {
+// sx per row (absmax / 127) of x (kM, K) bf16 at `src`, in shared memory
+// (BATCH 1) or global memory (BATCH kLoadBatch: a lane's loads in flight);
+// then a block barrier.
+template <int BATCH>
+__device__ void row_scales(const uint4* src, int K, float* sx) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int m = warp; m < kM; m += blockDim.x / 32) {
+    float a = 0.f;
+    for (int q0 = lane; q0 < K / 8; q0 += 32 * BATCH) {
+      uint4 v[BATCH];
+#pragma unroll
+      for (int j = 0; j < BATCH; ++j)
+        if (q0 + 32 * j < K / 8) v[j] = src[m * (K / 8) + q0 + 32 * j];
+#pragma unroll
+      for (int j = 0; j < BATCH; ++j) {
+        if (q0 + 32 * j >= K / 8) break;
+        float f[8];
+        bf16x8(v[j], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(f[e]));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (lane == 0) sx[m] = a / 127.f;
+  }
+  __syncthreads();
+}
+
+// x copied to shared memory (xs, K * kM / 8 uint4) with every thread's loads
+// in flight at once, then sx per row from there (absmax / 127).
+__device__ void stage_x(const __nv_bfloat16* __restrict__ x, int K, uint4* xs, float* sx) {
   const int n16 = K * kM / 8;
   const uint4* src = reinterpret_cast<const uint4*>(x);
   for (int i0 = threadIdx.x; i0 < n16; i0 += kLoadBatch * blockDim.x) {
@@ -91,32 +143,28 @@ __device__ void stage_acts(const __nv_bfloat16* __restrict__ x, int K, uint4* xs
     }
   }
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < kM; m += blockDim.x / 32) {
-    float a = 0.f;
-    for (int q = lane; q < K / 8; q += 32) {
-      float f[8];
-      bf16x8(xs[m * (K / 8) + q], f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a = fmaxf(a, fabsf(f[j]));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-    if (lane == 0) sx[m] = a / 127.f;
-  }
-  __syncthreads();
+  row_scales<1>(xs, K, sx);
+}
+
+// One activation quantized as the TPU kernels quantize it: a true division
+// by sx (1 where sx is 0), rounded half to even.
+__device__ __forceinline__ int quantize(float f, float sx) {
+  return static_cast<int>(rintf(f / (sx == 0.f ? 1.f : sx)));
+}
+
+// Stage xq as the xlo / xhi words ([K/8][kM] each) and sx per row.
+__device__ void stage_acts(const __nv_bfloat16* __restrict__ x, int K, uint4* xs, int* xlo,
+                           int* xhi, float* sx) {
+  stage_x(x, K, xs, sx);
   for (int i = threadIdx.x; i < (K / 8) * kM; i += blockDim.x) {
     const int q = i / kM, m = i % kM;
-    const float d = sx[m] == 0.f ? 1.f : sx[m];
     float f[8];
     bf16x8(xs[m * (K / 8) + q], f);
     int lo = 0, hi = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int e = static_cast<int>(rintf(f[2 * j] / d));
-      const int o = static_cast<int>(rintf(f[2 * j + 1] / d));
-      lo |= (e & 0xff) << (8 * j);
-      hi |= (o & 0xff) << (8 * j);
+      lo |= (quantize(f[2 * j], sx[m]) & 0xff) << (8 * j);
+      hi |= (quantize(f[2 * j + 1], sx[m]) & 0xff) << (8 * j);
     }
     xlo[i] = lo;
     xhi[i] = hi;
@@ -189,71 +237,6 @@ i4_upcast_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ w,
   for (int m = 0; m < kM; ++m) store_row(out, N, m, n0, 4, acc[m], sx[m]);
 }
 
-// Row 22: a thread owns 4 columns of the (K/2, N) bytes; four packed rows
-// (8 k values) per step, transposed into one word per column.
-__global__ void __launch_bounds__(kDp4aThreads)
-i4_packed_k_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                   __nv_bfloat16* __restrict__ out, int K, int N) {
-  extern __shared__ __align__(16) int smem[];
-  int* xlo = smem;
-  int* xhi = xlo + (K / 8) * kM;
-  uint4* xs = reinterpret_cast<uint4*>(xhi + (K / 8) * kM);
-  __shared__ float sx[kM];
-  stage_acts(x, K, xs, xlo, xhi, sx);
-  const int n0 = 4 * (blockIdx.x * kDp4aThreads + threadIdx.x);
-  if (n0 >= N) return;
-  int acc[kM][4];
-#pragma unroll
-  for (int m = 0; m < kM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
-  const int Q = K / 8;
-  const int* p = reinterpret_cast<const int*>(w + n0);
-  const size_t stride = N / 4;            // ints per packed row
-  constexpr int U = kUnroll;
-  for (int q0 = 0; q0 < Q; q0 += U) {
-    int r[U][4];
-#pragma unroll
-    for (int i = 0; i < U; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r[i][j] = q0 + i < Q ? __ldcs(p + (size_t)(4 * (q0 + i) + j) * stride) : 0;
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      if (q0 + i >= Q) break;
-      const int q = q0 + i;
-      const int4 xl0 = reinterpret_cast<const int4*>(xlo)[q * 2];
-      const int4 xl1 = reinterpret_cast<const int4*>(xlo)[q * 2 + 1];
-      const int4 xh0 = reinterpret_cast<const int4*>(xhi)[q * 2];
-      const int4 xh1 = reinterpret_cast<const int4*>(xhi)[q * 2 + 1];
-      const int xl[kM] = {xl0.x, xl0.y, xl0.z, xl0.w, xl1.x, xl1.y, xl1.z, xl1.w};
-      const int xh[kM] = {xh0.x, xh0.y, xh0.z, xh0.w, xh1.x, xh1.y, xh1.z, xh1.w};
-      // 4 rows x 4 columns of bytes -> one word per column, row j in byte j
-      const unsigned t0 = __byte_perm(r[i][0], r[i][1], 0x5140);
-      const unsigned t1 = __byte_perm(r[i][2], r[i][3], 0x5140);
-      const unsigned t2 = __byte_perm(r[i][0], r[i][1], 0x7362);
-      const unsigned t3 = __byte_perm(r[i][2], r[i][3], 0x7362);
-      const unsigned col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                               __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // the script's (pk << 4) >> 4 and pk >> 4, with the >> 4 taken once
-        // on the int32 sum: each nibble sits at the top of its byte (16x)
-        const int lo = static_cast<int>((col[c] << 4) & 0xF0F0F0F0u);
-        const int hi = static_cast<int>(col[c] & 0xF0F0F0F0u);
-#pragma unroll
-        for (int m = 0; m < kM; ++m) acc[m][c] = __dp4a(hi, xh[m], __dp4a(lo, xl[m], acc[m][c]));
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] >>= 4;
-    store_row(out, N, m, n0, 4, acc[m], sx[m]);
-  }
-}
-
 __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a2, int b0, int b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -314,49 +297,345 @@ i4_tensorcore_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict_
   }
 }
 
+// -- Row 22: the packed bytes from a TMA ring, products on mma.sync s8 -------
+
+using namespace aha_hopper;
+
+constexpr int kPkRows = 64;               // rows of a box of the (K/4, 2N) view
+constexpr int kPkBox = kPkRows * 128;     // 8 KB: 128-byte rows, 128-byte swizzled
+constexpr int kPkOddBox = kPkRows * 144;  // 9 KB: 144-byte rows, unswizzled (N % 16 == 8)
+constexpr int kPkHalf = kPkBox + kPkOddBox;   // a stage's bytes per 128 columns
+constexpr int kPkRing = 96 * 1024;        // bytes in flight, as the shared memory allows
+
+// c (16 x 8 s32) += a (16 x 32 s8) . b (32 x 8 s8)
+__device__ __forceinline__ void mma_s8_16(int (&c)[4], unsigned a0, unsigned a1, unsigned a2,
+                                          unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 4 rows x 4 columns of bytes (row j the word rj) -> one word per column,
+// row j in byte j
+__device__ __forceinline__ void transpose4(unsigned r0, unsigned r1, unsigned r2, unsigned r3,
+                                           unsigned (&col)[4]) {
+  const unsigned t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r2, r3, 0x5140);
+  const unsigned t2 = __byte_perm(r0, r1, 0x7362), t3 = __byte_perm(r2, r3, 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+__device__ __forceinline__ unsigned word(const uint4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The bytes a row of xq takes in shared memory: K rounded up to whole ring
+// stages, and 16 more, so the 4-byte reads of lanes (t, m) below fall on 32
+// distinct banks.
+__host__ __device__ __forceinline__ int pk_xq_stride(int nkg) { return nkg * 64 + 16; }
+
+// xq as B fragments, from x in global memory (and sx, row_scales), by the
+// `threads` consumer threads (named barrier 1): first xq itself into
+// shared memory (8 values from each 16-byte load of x, kLoadBatch loads of
+// a thread in flight, zero past K), then
+// xw[(kg * kM + m) * 4 + t] — four words for row m, K group kg (64 k
+// values) and fragment lane t, word v's byte j being xq[m][64 kg + 16 j +
+// 4 t + v]: the k values that the A fragments built from rows
+// 16 kg + 4 j + t of the (K/4, 2N) view hold — each from four 4-byte reads
+// transposed.
+__device__ void stage_packed_acts(int K, int nkg, const uint4* __restrict__ x, unsigned char* xq,
+                                  uint4* xw, const float* sx, int threads) {
+  const int ld = pk_xq_stride(nkg);
+  for (int i0 = threadIdx.x; i0 < K * kM / 8; i0 += kLoadBatch * threads) {
+    uint4 v[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j)
+      if (i0 + j * threads < K * kM / 8) v[j] = __ldg(x + i0 + j * threads);
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int i = i0 + j * threads;
+      if (i >= K * kM / 8) break;
+      const int m = i / (K / 8), k0 = (i % (K / 8)) * 8;
+      float f[8];
+      bf16x8(v[j], f);
+      unsigned lo = 0u, hi = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lo |= (static_cast<unsigned>(quantize(f[e], sx[m])) & 0xffu) << (8 * e);
+        hi |= (static_cast<unsigned>(quantize(f[4 + e], sx[m])) & 0xffu) << (8 * e);
+      }
+      *reinterpret_cast<uint2*>(xq + m * ld + k0) = make_uint2(lo, hi);
+    }
+  }
+  for (int i = threadIdx.x; i < kM * (nkg * 64 - K); i += threads)
+    xq[(i / (nkg * 64 - K)) * ld + K + i % (nkg * 64 - K)] = 0;
+  named_sync(1, threads);
+  for (int i = threadIdx.x; i < nkg * kM * 4; i += threads) {
+    const int t = i % 4, m = (i / 4) % kM, k0 = (i / (4 * kM)) * 64 + 4 * t;
+    const unsigned* row = reinterpret_cast<const unsigned*>(xq + m * ld + k0);
+    unsigned w[4];
+    transpose4(row[0], row[4], row[8], row[12], w);   // k0 + 16 j, j = 0 .. 3
+    xw[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  named_sync(1, threads);
+}
+
+// Shared memory past the ring: xw, then xq while xw is built from it and
+// the epilogue's int32 sums after (the same bytes), then 2 x depth
+// mbarriers.  x itself is read from global memory, never held here.
+__host__ __device__ __forceinline__ size_t pk_scratch(int nkg, int H) {
+  const size_t xq = (size_t)kM * pk_xq_stride(nkg), red = (size_t)4 * kM * 128 * H * 4;
+  return xq > red ? xq : red;
+}
+
+__host__ __device__ __forceinline__ int pk_kgroups(int K) {
+  return (K / 4 + kPkRows - 1) / kPkRows * 4;
+}
+
+// grid: the plan's persistent blocks (exp_int4.packed_k_plan); block b walks
+// column tiles b, b + grid, ... of `tile` = 128·H columns, H boxes of 128
+// columns a tile half.  Warps 0 .. 4H-1 consume (warp w: half w / 4, K group w % 4
+// of every stage), warp 4H produces.
+template <int H>
+__global__ void __launch_bounds__(128 * H + 32, 1)
+i4_packed_k_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap omap,
+                   const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, int K,
+                   int N, int tile, int depth) {
+  constexpr int kCons = 128 * H, kStage = H * kPkHalf, kCols = 128 * H;
+  // the odd packed rows of column n0 lie at byte N + n0 of a view row, and a
+  // TMA box must start at a multiple of 16 bytes: where N % 16 == 8 they
+  // come as a 144-byte box from 8 bytes before (omap), unswizzled
+  const int sh = N % 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_p = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nkg = pk_kgroups(K), nks = nkg / 4;   // K groups; ring stages a tile
+  uint4* xw = reinterpret_cast<uint4*>(ring_p + (size_t)depth * kStage);
+  unsigned char* scratch = reinterpret_cast<unsigned char*>(xw + nkg * kM * 4);
+  unsigned char* xq = scratch;              // until xw is built
+  int* red = reinterpret_cast<int*>(scratch);   // the epilogue's, after
+  const uint32_t ring = smem_u32(ring_p);
+  const uint32_t full = smem_u32(scratch + pk_scratch(nkg, H)), empty = full + 8 * depth;
+  __shared__ float sx[kM];
+
+  const int ntiles = (N + tile - 1) / tile;
+  const int total = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x * nks;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kCons / 32);   // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // sx first: its loads of x would queue behind the ring's first copies
+  // (12 MB over the grid); then the producer issues while the consumers
+  // quantize (x again, from L2)
+  row_scales<kLoadBatch>(reinterpret_cast<const uint4*>(x), K, sx);
+  if (warp == kCons / 32) {
+    // stage f of the block's walk: K rows (f % nks) of the walk's tile
+    // f / nks, the even packed rows at column n0 of the view and the odd
+    // ones at N + n0
+    for (int f = 0; lane == 0 && f < total; ++f) {
+      const int s = f % depth, row = (f % nks) * kPkRows;
+      const int n0 = (blockIdx.x + (f / nks) * gridDim.x) * tile;
+      mbar_wait(empty + 8 * s, ((f / depth) & 1) ^ 1);
+      mbar_expect_tx(full + 8 * s, H * (kPkBox + (sh ? kPkOddBox : kPkBox)));
+      for (int h = 0; h < H; ++h) {
+        const uint32_t ev = ring + s * kStage + h * kPkBox;
+        const uint32_t od = ring + s * kStage + H * kPkBox + h * kPkOddBox;
+        tma_load_3d(ev, &wmap, full + 8 * s, n0 + 128 * h, row, 0);
+        if (sh)
+          tma_load_3d(od, &omap, full + 8 * s, N + n0 + 128 * h - sh, row, 0);
+        else
+          tma_load_3d(od, &wmap, full + 8 * s, N + n0 + 128 * h, row, 0);
+      }
+    }
+    return;
+  }
+  stage_packed_acts(K, nkg, reinterpret_cast<const uint4*>(x), xq, xw, sx, kCons);
+
+  // thread (g, t): 16 columns of its half, the 16-byte piece c of the
+  // 128-byte rows (the pieces of lanes 8i .. 8i + 7 at eight distinct banks
+  // after the swizzle), rows 16 kg + 4 j + t of each stage's K group kg.
+  // A row g of m16 tile j is column 16 c + 2 j, row g + 8 column 16 c + 2 j + 1.
+  const int g = lane / 4, t = lane % 4, h = warp / 4, kg = warp % 4;
+  const int c = g / 2 + 4 * (g % 2);
+  int f = 0;
+  for (int tt = blockIdx.x; tt < ntiles; tt += gridDim.x) {
+    int acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    for (int ks = 0; ks < nks; ++ks, ++f) {
+      const int s = f % depth;
+      mbar_wait(full + 8 * s, (f / depth) & 1);
+      const unsigned char* ev = ring_p + (size_t)s * kStage + h * kPkBox;
+      const unsigned char* od = ring_p + (size_t)s * kStage + H * kPkBox + h * kPkOddBox;
+      uint4 re[4], ro[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = kg * 16 + 4 * j + t, off = r * 128 + ((c ^ (r & 7)) << 4);
+        re[j] = *reinterpret_cast<const uint4*>(ev + off);
+        if (sh) {                             // bytes 16c + 8 .. 16c + 24 of a 144-byte row
+          const uint2* p = reinterpret_cast<const uint2*>(od + r * 144 + 16 * c + sh);
+          const uint2 lo = p[0], hi = p[1];
+          ro[j] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+        } else {
+          ro[j] = *reinterpret_cast<const uint4*>(od + off);
+        }
+      }
+      const uint4 xv = xw[((ks * 4 + kg) * kM + g) * 4 + t];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        unsigned ce[4], co[4];
+        transpose4(word(re[0], e), word(re[1], e), word(re[2], e), word(re[3], e), ce);
+        transpose4(word(ro[0], e), word(ro[1], e), word(ro[2], e), word(ro[3], e), co);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // the script's (pk << 4) >> 4 and pk >> 4, the >> 4 taken once on
+          // the int32 sum: each nibble at the top of its byte (16x)
+          const unsigned e0 = ce[2 * i], e1 = ce[2 * i + 1], o0 = co[2 * i], o1 = co[2 * i + 1];
+          mma_s8_16(acc[2 * e + i], (e0 << 4) & 0xF0F0F0F0u, (e1 << 4) & 0xF0F0F0F0u,
+                    e0 & 0xF0F0F0F0u, e1 & 0xF0F0F0F0u, xv.x, xv.y);
+          mma_s8_16(acc[2 * e + i], (o0 << 4) & 0xF0F0F0F0u, (o1 << 4) & 0xF0F0F0F0u,
+                    o0 & 0xF0F0F0F0u, o1 & 0xF0F0F0F0u, xv.z, xv.w);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    // acc[j]: rows (columns) 16c + 2j and + 1, x rows 2t and 2t + 1; the four
+    // K groups' sums through shared memory (integers: any order is exact)
+    int* rw = red + (size_t)kg * kM * kCols;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 128 * h + 16 * c + 2 * j;
+      *reinterpret_cast<int2*>(rw + (2 * t) * kCols + col) = make_int2(acc[j][0], acc[j][2]);
+      *reinterpret_cast<int2*>(rw + (2 * t + 1) * kCols + col) = make_int2(acc[j][1], acc[j][3]);
+    }
+    named_sync(1, kCons);
+    {
+      const int m = threadIdx.x / (kCols / 8), c8 = (threadIdx.x % (kCols / 8)) * 8;
+      const int n = tt * tile + c8;
+      if (n < N) {                            // N a multiple of 8: whole groups
+        int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          const int4* src = reinterpret_cast<const int4*>(red + ((size_t)k4 * kM + m) * kCols + c8);
+          const int4 lo = src[0], hi = src[1];
+          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        }
+        unsigned o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[i] = pack_bf16(static_cast<float>(v[2 * i] >> 4) * sx[m],
+                           static_cast<float>(v[2 * i + 1] >> 4) * sx[m]);
+        *reinterpret_cast<uint4*>(out + (size_t)m * N + n) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    named_sync(1, kCons);                     // the sums are read before the next tile's
+  }
+}
+
+// W's (K/2, N) bytes viewed as (K/4, 2N): row i is packed rows 2i and 2i + 1
+// side by side, a row stride of 2N bytes (a multiple of 16 for any N a
+// multiple of 8, which N itself need not be); boxes of 64 rows x `cols`
+// bytes, 128-byte swizzled (128 columns) or not (144); zero past K/4 and 2N.
+inline bool make_packed_map(CUtensorMap* map, const void* w, int K, int N, int cols) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)2 * N, (cuuint64_t)K / 4, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)2 * N, (cuuint64_t)2 * N * (K / 4)};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, kPkRows, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int H>
+int launch_packed(const CUtensorMap& map, const CUtensorMap& omap, const __nv_bfloat16* x,
+                  __nv_bfloat16* out, int K, int N, int tile, int grid, cudaStream_t st) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kStage = H * kPkHalf;
+  const size_t avail = (size_t)optin - 256;               // the static arrays
+  const int nkg = pk_kgroups(K);
+  const size_t fixed =
+      1024 + (size_t)nkg * kM * 4 * 16 + pk_scratch(nkg, H);
+  int depth = kPkRing / (2 * H * kPkBox);
+  while (depth > 2 && fixed + (size_t)depth * (kStage + 16) > avail) --depth;
+  const size_t smem = fixed + (size_t)depth * (kStage + 16);
+  if (smem > avail) return static_cast<int>(cudaErrorInvalidValue);   // x too long
+  err = cudaFuncSetAttribute(i4_packed_k_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  i4_packed_k_kernel<H><<<grid, 128 * H + 32, smem, st>>>(map, omap, x, out, K, N, tile, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (8, K) bf16; variant 0 (i4_upcast) and 1 (i4_tensorcore): w the k8
 // words (K/8, N) int32; variant 2 (i4_packed_k): w (K/2, N) int8 nibble
-// pairs.  out (8, N) bf16.  K a multiple of 32, N of 8.
+// pairs, 16-byte aligned, on the plan's `tile` (128 or 256 columns, whole
+// boxes) and `grid` (at most ceil(N / tile) blocks; exp_int4.packed_k_plan),
+// which variants 0 and 1 do not read; K up to 9,984 (xw and xq beside a
+// ring of two stages fill the shared memory: 12,032 at tile 128).  out (8,
+// N) bf16.  K a multiple of 32, N of 8.
 extern "C" int aha_study_int4(const void* x, const void* w, void* out, int K, int N,
-                              int variant, void* stream) {
+                              int variant, int tile, int grid, void* stream) {
   if (K < 32 || K % 32 != 0 || N < 8 || N % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the xlo / xhi words, then x itself
-  const size_t smem = 2 * (size_t)(K / 8) * kM * sizeof(int) + (size_t)K * kM * 2;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (variant == 2) {
+    if ((tile != 128 && tile != 256) || grid < 1 || grid > (N + tile - 1) / tile)
+      return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap map, omap;
+    if (!make_packed_map(&map, w, K, N, 128) ||
+        !(N % 16 == 0 ? make_packed_map(&omap, w, K, N, 128) : make_packed_map(&omap, w, K, N, 144)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tile == 256 ? launch_packed<2>(map, omap, xb, ob, K, N, tile, grid, st)
+                       : launch_packed<1>(map, omap, xb, ob, K, N, tile, grid, st);
+  }
+  // the xlo / xhi words, then x itself
+  const size_t smem = 2 * (size_t)(K / 8) * kM * sizeof(int) + (size_t)K * kM * 2;
   void (*fn)(const __nv_bfloat16*, const int*, __nv_bfloat16*, int, int) = nullptr;
-  int grid = 0, threads = 0;
+  int blocks = 0, threads = 0;
   switch (variant) {
     case 0:
       fn = i4_upcast_kernel;
-      grid = (N / 4 + kDp4aThreads - 1) / kDp4aThreads;
+      blocks = (N / 4 + kDp4aThreads - 1) / kDp4aThreads;
       threads = kDp4aThreads;
       break;
     case 1:
       fn = i4_tensorcore_kernel;
-      grid = (N + kThreads / 32 * kTiles * 8 - 1) / (kThreads / 32 * kTiles * 8);
+      blocks = (N + kThreads / 32 * kTiles * 8 - 1) / (kThreads / 32 * kTiles * 8);
       threads = kThreads;
       break;
-    case 2: {
-      cudaError_t err = cudaFuncSetAttribute(i4_packed_k_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      i4_packed_k_kernel<<<(N / 4 + kDp4aThreads - 1) / kDp4aThreads, kDp4aThreads, smem,
-                           st>>>(
-          xb, static_cast<const int8_t*>(w), ob, K, N);
-      return static_cast<int>(cudaGetLastError());
-    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<grid, threads, smem, st>>>(xb, static_cast<const int*>(w), ob, K, N);
+  fn<<<blocks, threads, smem, st>>>(xb, static_cast<const int*>(w), ob, K, N);
   return static_cast<int>(cudaGetLastError());
 }

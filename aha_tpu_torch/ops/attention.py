@@ -66,8 +66,9 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill over the fresh block: the flash kernel's wrapper for
     bucketed shapes (D % 64 == 0, Sq ≥ 128, Sq and Skv multiples of 64 —
     the JAX `_flash_eligible` gate in the kernel's own tile terms; the
-    wrapper picks the kernel or its plain version by device), plain sdpa
-    otherwise."""
+    wrapper picks the kernel or its plain version by device, and on the
+    card takes D 64 to 256, `flash_attention.prefill_takes`, and raises
+    past that), plain sdpa otherwise."""
     if (q.shape[3] % 64 == 0 and q.shape[1] >= 128
             and q.shape[1] % 64 == 0 and k.shape[1] % 64 == 0):
         from aha_tpu_torch.ops.flash_attention import flash_attention
@@ -86,7 +87,9 @@ def attention_decode_at(q: torch.Tensor, k_stack: torch.Tensor,
     (L, B, S, Hkv·D) or (L, B, S, Hkv, D) — over rows [0, valid_len):
     valid_len is the JAX function's `pos + 1`, (1,) or per slot (B,),
     computed once per step by the caller.  One query row: the decode
-    kernel's wrapper (kernel or plain version by device).  Five dimensions
+    kernel's wrapper (kernel or plain version by device; on the card the
+    kernel takes D 64 to 256 and any G, `flash_attention.decode_takes`,
+    and a wider head raises).  Five dimensions
     go to flash_decode_at_layer for any B; of the flat cache, B > 1 slots
     go to the batched wrapper, as the JAX function routes them."""
     from aha_tpu_torch.ops import flash_attention as fa

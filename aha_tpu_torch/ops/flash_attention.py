@@ -57,6 +57,27 @@ def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+# -- the kernels' own limits ---------------------------------------------------
+# Read by the wrappers' checks on the card, where a shape outside them
+# raises; ops/attention.py's routers send the wrappers every shape the
+# reference's gates send its TPU kernels (D % 64 == 0), as they stand.
+
+#: the head widths of the prefill and decode kernels, bf16 and int8
+HEAD_DIMS = (64, 128, 192, 256)
+
+
+def prefill_takes(D: int) -> bool:
+    """The prefill kernel (csrc/flash_prefill.cu) takes head width D 64,
+    128, 192 or 256."""
+    return D in HEAD_DIMS
+
+
+def decode_takes(D: int, Hq: int, Hkv: int) -> bool:
+    """The decode kernels, bf16 and int8 (csrc/decode_attention*.cu), take
+    head width D 64, 128, 192 or 256 and any whole group G = Hq / Hkv."""
+    return D in HEAD_DIMS and 1 <= Hkv <= Hq and Hq % Hkv == 0
+
+
 # -- decode ------------------------------------------------------------------
 
 
@@ -95,8 +116,7 @@ def _check_decode(q, k_stack, v_stack, layer, valid_len, kv_dtype,
             "layer/valid_len must be int32")
     require(layer.numel() == 1 and valid_len.numel() in (1, B),
             "layer is a scalar, valid_len (1,) or (B,)")
-    require(D in (64, 128) and Hq % Hkv == 0
-            and 1 <= Hq // Hkv <= 8, f"unsupported D={D} G={Hq}/{Hkv}")
+    require(decode_takes(D, Hq, Hkv), f"unsupported D={D} G={Hq}/{Hkv}")
     require(all(t.is_contiguous() for t in
                 (q, k_stack, v_stack, valid_len, *scales)),
             "decode kernel takes contiguous tensors")
@@ -383,7 +403,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) → (B, Sq, Hq, D).  On the
     card Sq and Skv must be multiples of 64 (the engine's power-of-two
-    prefill buckets ≥ 128 are) and D 64 or 128."""
+    prefill buckets ≥ 128 are) and D 64, 128, 192 or 256."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == D
@@ -395,7 +415,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "all inputs on one device")
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "prefill kernel takes bf16 q/k/v")
-    require(D in (64, 128), f"prefill kernel takes D 64 or 128, not {D}")
+    require(prefill_takes(D), f"prefill kernel takes D in {HEAD_DIMS}, "
+            f"not {D}")
     require(Sq % 64 == 0 and Skv % 64 == 0,
             f"prefill kernel needs Sq, Skv multiples of 64 ({Sq}, {Skv})")
     require(all(t.stride(-1) == 1 for t in (q, k, v)),

@@ -57,8 +57,8 @@ _SIGNATURES = {
     # the H100 design studies (aha_tpu_torch/studies/)
     "aha_study_stream_sum": [_P] * 6 + [_I] * 3 + [_P],
     "aha_study_gemv": [_P] * 6 + [_I] * 6 + [_P],
-    "aha_study_int4": [_P] * 3 + [_I] * 3 + [_P],
-    "aha_study_fused_layer": [_P] * 10 + [_I] * 3 + [_P],
+    "aha_study_int4": [_P] * 3 + [_I] * 5 + [_P],
+    "aha_study_fused_layer": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -20,7 +20,10 @@ bit with the plain version and each other:
   unit";
 - `i4_packed_k` ← f_pk (k_pk): the script's own layout, nibbles packed two
   per byte along K, (K/2, N), row 2i the low nibble and 2i+1 the high one,
-  sign-extended with shifts, __dp4a.
+  sign-extended with shifts; the bytes by TMA into mma.sync.m16n8k32 s8 on
+  a persistent grid of column tiles (`packed_k_plan`: gemv_plan's, in
+  whole 128-column boxes), x quantized once a block; K up to
+  PACKED_K_MAX.
 
 Rows 20-21 read "k8 words" (`pack_k8`): W as (K/8, N) int32, word [q, n]
 holding W[8q + j, n] in bits 4j..4j+3 — on the TPU they read jnp.int4
@@ -43,9 +46,15 @@ from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.ops.quant_matmul import _true_div
 from aha_tpu_torch.studies import (bound, card_line, device_ms, rel_err,
                                    report, require_card)
+from aha_tpu_torch.studies.exp_gemv import gemv_plan
+from aha_tpu_torch.utils.device import sm_count
 
 M, K, N = 8, 1024, 151936
 VARIANTS = {"i4_upcast": 0, "i4_tensorcore": 1, "i4_packed_k": 2}
+#: i4_packed_k's K at most: its fragments of xq, and xq while they are
+#: built, beside a ring of two 256-column stages fill the shared memory
+#: (csrc/study_int4.cu; 12,032 where its tiles are 128 columns)
+PACKED_K_MAX = 9984
 
 
 # -- layouts -------------------------------------------------------------------
@@ -120,6 +129,17 @@ def i4_packed_k_plain(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return int4_matmul_plain(x, unpack_k(packed))
 
 
+def packed_k_plan(n: int, sms: int) -> tuple[int, int]:
+    """(tile, grid) of i4_packed_k over N columns on `sms` SMs:
+    exp_gemv.gemv_plan's, with a tile of 64 columns widened to 128 — the
+    kernel's TMA boxes are 128 columns, so a narrower tile would read every
+    byte twice — and the grid no larger than the tiles."""
+    tile, grid = gemv_plan(n, sms)
+    if tile < 128:
+        tile, grid = 128, min(-(-n // 128), sms)
+    return tile, grid
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     require(x.device == w.device, "x and w on one device")
     require(x.dtype == torch.bfloat16 and x.ndim == 2 and x.shape[0] == M,
@@ -128,6 +148,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     if variant == "i4_packed_k":
         require(w.dtype == torch.int8 and w.shape[0] * 2 == Kx,
                 "i4_packed_k takes (K/2, N) int8 nibble pairs")
+        require(Kx <= PACKED_K_MAX, f"i4_packed_k takes K ≤ {PACKED_K_MAX}")
     else:
         require(w.dtype == torch.int32 and w.shape[0] * 8 == Kx,
                 f"{variant} takes the (K/8, N) int32 k8 words")
@@ -135,10 +156,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     require(Kx % 32 == 0 and Nw % 8 == 0, "K a multiple of 32, N of 8")
     require(x.is_contiguous() and w.is_contiguous() and w.data_ptr() % 16 == 0
             and x.data_ptr() % 16 == 0, "contiguous, 16-byte aligned inputs")
+    # i4_packed_k's persistent grid of column tiles; the others' grids are
+    # their own
+    tile, grid = (packed_k_plan(Nw, sm_count(w.device))
+                  if variant == "i4_packed_k" else (0, 0))
     out = torch.empty((M, Nw), dtype=torch.bfloat16, device=w.device)
     rc = kernels.lib().aha_study_int4(x.data_ptr(), w.data_ptr(),
                                       out.data_ptr(), Kx, Nw,
-                                      VARIANTS[variant],
+                                      VARIANTS[variant], tile, grid,
                                       kernels.stream_handle(w))
     kernels.check(rc, "aha_study_int4")
     return out
@@ -163,7 +188,8 @@ def i4_tensorcore(x: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
 
 
 def i4_packed_k(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """x (8, K) bf16, the (K/2, N) nibble pairs → (8, N) bf16 (__dp4a)."""
+    """x (8, K) bf16, the (K/2, N) nibble pairs → (8, N) bf16 (TMA ring,
+    mma.sync s8), on packed_k_plan's grid for the card's SMs."""
     if not packed.is_cuda:
         return i4_packed_k_plain(x, packed)
     out = _launch(x, packed, "i4_packed_k")

@@ -85,11 +85,13 @@ def test_decode_at_odd_groups_matches_pallas(G):
 
 @pytest.mark.parametrize("G,ok", [(1, True), (3, True), (5, True),
                                   (6, True), (7, True), (8, True),
-                                  (9, False)])
+                                  (9, True), (16, True)])
 def test_decode_kernel_check_admits_groups_up_to_8(G, ok):
-    """The checks the bf16 and int8 decode kernels share take any G from 1
-    to 8 (the kernels dispatch each), and refuse a larger one."""
+    """The checks the bf16 and int8 decode kernels share take any whole
+    group G (the kernels dispatch each; past 8 since they take any G), and
+    refuse a group that is not whole."""
     q = torch.zeros(1, 1, 4 * G, 128, dtype=torch.bfloat16)
+    ragged = torch.zeros(1, 1, 4 * G + 2, 128, dtype=torch.bfloat16)
     one = torch.tensor([1], dtype=torch.int32)
     for kv_dtype in (torch.bfloat16, torch.int8):
         kv = torch.zeros(2, 1, 64, 4 * 128, dtype=kv_dtype)
@@ -99,6 +101,8 @@ def test_decode_kernel_check_admits_groups_up_to_8(G, ok):
         else:
             with pytest.raises(ValueError, match="G="):
                 fa._check_decode(q, kv, kv, one[0], one, kv_dtype)
+        with pytest.raises(ValueError, match="G="):
+            fa._check_decode(ragged, kv, kv, one[0], one, kv_dtype)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -520,6 +520,94 @@ def test_prefill_kernel_at_group_8(dev):
     assert (got.float() - ref).abs().max().item() <= 2e-2
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,G", [(192, 2), (256, 2), (128, 16), (256, 16),
+                                 (192, 16)])
+def test_attention_kernels_at_wide_heads_and_groups(dev, D, G, causal):
+    """Prefill and decode (flat, batched, stacked, unstacked, int8 both
+    variants) through the routers at head widths 192 and 256 and a group
+    of 16: each kernel launches once a call and agrees with its plain
+    version — prefill and bf16 decode within 2e-2 abs of the f32 plain
+    version, int8 decode within 6e-3 (cast) and 8e-2 (all-int8) of max
+    |ref|, as test_q8_decode_kernel_matches_plain holds them.  The prefill
+    prompt is 320 rows: past D 128 the kernel's K/V tiles are 64 rows, so
+    the causal diagonal falls inside a 128-row q tile's second K tile."""
+    from aha_tpu_torch.ops import attention as at
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(D + G + causal)
+    Hkv, S, L = 2, 320, 2
+    q, k, v = _bf(g, 1, S, Hkv * G, D), _bf(g, 1, S, Hkv, D), \
+        _bf(g, 1, S, Hkv, D)
+    n0 = fa.flash_attention.launches
+    got = at.attention_prefill(q, k, v, causal=causal)
+    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    for B, lens in ((1, [200]), (2, [1, 320])):
+        q1 = _bf(g, B, 1, Hkv * G, D)
+        kf, vf = _bf(g, L, B, S, Hkv * D), _bf(g, L, B, S, Hkv * D)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ref = fa.flash_decode_at_layer_flat_plain(q1.float(), kf.float(),
+                                                  vf.float(), layer, vl)
+        k5, v5 = kf.view(L, B, S, Hkv, D), vf.view(L, B, S, Hkv, D)
+        flat = (fa.flash_decode_at_layer_flat_batched if B > 1
+                else fa.flash_decode_at_layer_flat)
+        for fn, call in (
+                (flat, lambda: at.attention_decode_at(q1, kf, vf, layer, vl)),
+                (fa.flash_decode_at_layer,
+                 lambda: at.attention_decode_at(q1, k5, v5, layer, vl)),
+                (fa.flash_decode,
+                 lambda: at.attention_decode(q1, k5[1], v5[1], vl - 1))):
+            n0 = fn.launches
+            out = call()
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1, fn.__name__
+            assert (out.float() - ref).abs().max().item() <= 2e-2, fn.__name__
+        k8, ks = at.quantize_kv_rows(k5)
+        v8, vs = at.quantize_kv_rows(v5)
+        k8, v8 = k8.view(L, B, S, Hkv * D), v8.view(L, B, S, Hkv * D)
+        ref = fa.flash_decode_at_layer_q8_plain(q1.float(), k8, v8, ks, vs,
+                                                layer, vl)
+        fn = (fa.flash_decode_at_layer_q8_batched if B > 1
+              else fa.flash_decode_at_layer_q8)
+        for mxu, tol in ((False, 6e-3), (True, 8e-2)):
+            n0 = fn.launches
+            out = fn(q1, k8, v8, ks, vs, layer, vl, mxu=mxu)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= tol, (mxu, rel)
+        assert torch.equal(at.attention_decode_at_q8(q1, k8, v8, ks, vs, layer,
+                                                     vl),
+                           fn(q1, k8, v8, ks, vs, layer, vl))
+
+
+def test_attention_wrappers_raise_past_the_kernels_limits(dev):
+    """D 320 is past every attention kernel's head widths: on the card the
+    routers hand it to the wrappers, as the reference's gates hand it to
+    its TPU kernels, and the wrappers raise rather than run a plain form."""
+    from aha_tpu_torch.ops import attention as at
+
+    D, Hkv = 320, 2
+    q = torch.zeros(1, 128, 4, D, dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros(1, 128, Hkv, D, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        at.attention_prefill(q, kv, kv)
+    q1 = torch.zeros(1, 1, 4, D, dtype=torch.bfloat16, device=dev)
+    cache = torch.zeros(1, 1, 64, Hkv * D, dtype=torch.bfloat16, device=dev)
+    layer = torch.zeros((), dtype=torch.int32, device=dev)
+    vl = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        at.attention_decode_at(q1, cache, cache, layer, vl)
+    c8 = torch.zeros(1, 1, 64, Hkv * D, dtype=torch.int8, device=dev)
+    sc = torch.ones(1, 1, 64, Hkv, device=dev)
+    with pytest.raises(ValueError):
+        at.attention_decode_at_q8(q1, c8, c8, sc, sc, layer, vl)
+
+
 @pytest.mark.parametrize("D,hq,hkv,pos,window", [
     (128, 4, 2, 0, 256), (128, 4, 2, 100, 256), (64, 6, 2, 37, 256),
     (128, 8, 1, 200, 64)])
@@ -798,15 +886,21 @@ def test_study_gemv_argmax_ties_go_to_the_smaller_index(dev):
             assert (int(i), float(val)) == (want, float(K)), (cols, bn)
 
 
-@pytest.mark.parametrize("N", [2048 + 40, 4096])
-def test_study_int4_kernels_bit_equal(dev, N):
+@pytest.mark.parametrize("K", [32, 1024])
+@pytest.mark.parametrize("N", [8, 24, 2048 + 40, 4096, 132 * 128,
+                               132 * 256])
+def test_study_int4_kernels_bit_equal(dev, monkeypatch, N, K):
     """i4_upcast, i4_tensorcore and i4_packed_k bit-equal to the plain
-    version and to each other, a ragged last block included; a zero row
-    (sx = 0) gives zeros."""
+    version and to each other, a ragged last block included (i4_packed_k:
+    N % 16 == 8, whose packed rows are no multiple of 16 bytes; K/4 rows
+    short of one TMA box at K 32; packed_k_plan's tiles of 128 columns up
+    to N 132·128 and of 256 at N 132·256 on 132 SMs); a zero row (sx = 0)
+    gives zeros.  i4_packed_k also on its plans for 114 SMs and for one (a
+    block walking every tile, its ring running across them), the SM count
+    it plans for faked."""
     from aha_tpu_torch.studies import exp_int4 as e4
 
-    g = torch.Generator(device=dev).manual_seed(N)
-    K = 256
+    g = torch.Generator(device=dev).manual_seed(N + K)
     x = _bf(g, 8, K) * 3
     x[3] = 0
     w4 = torch.randint(-8, 8, (K, N), generator=g, device=dev,
@@ -820,26 +914,54 @@ def test_study_int4_kernels_bit_equal(dev, N):
         torch.cuda.synchronize()
         assert fn.launches == n0 + 1
         assert torch.equal(got, ref), fn.__name__
+    for sms in (114, 1):
+        monkeypatch.setattr(e4, "sm_count", lambda device, n=sms: n)
+        assert torch.equal(e4.i4_packed_k(x, packed), ref), sms
     assert torch.equal(ref[3], torch.zeros_like(ref[3]))
 
 
-def test_study_fused_layer_matches_plain(dev):
-    """Every (tile, NBUF) variant of the one-launch layer at the script's
-    widths, two layers: within 2^-7 of max |ref| of the plain version,
-    bit-equal on a repeat, the tickets left zero."""
+@pytest.mark.parametrize("N", [4096, 132 * 256])
+def test_study_int4_packed_k_at_its_longest_k(dev, N):
+    """i4_packed_k at K = PACKED_K_MAX (9,984), at tiles of 128 and of 256
+    columns (the larger stage, the tighter shared memory): bit-equal to the
+    plain version; one step of 32 past it is refused."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    K = e4.PACKED_K_MAX
+    g = torch.Generator(device=dev).manual_seed(N)
+    x = _bf(g, 8, K) * 3
+    w4 = torch.randint(-8, 8, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    got = e4.i4_packed_k(x, e4.pack_k(w4))
+    assert torch.equal(got, e4.int4_matmul_plain(x, w4))
+    w4 = torch.zeros((K + 32, N), device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        e4.i4_packed_k(_bf(g, 8, K + 32), e4.pack_k(w4))
+
+
+def test_study_fused_layer_matches_plain(dev, monkeypatch):
+    """Every (box rows, ring depth) variant of the one-launch layer at the
+    script's widths, two layers, and the default variant on the plans for
+    114 SMs and for one (the SM count it plans for faked; the kernel takes
+    its units from the plan's table): within 2^-7 of max |ref| of the plain version, bit-equal on a
+    repeat, the tickets left zero."""
     from aha_tpu_torch.studies import exp_fused_layer as efl
 
     ws, x = efl.weights(dev, n_layers=2, seed=3)
     layer = torch.tensor(1, dtype=torch.int32, device=dev)
     ref = efl.fused_layer_stream_plain(x, *ws, layer)
-    for tile, nbuf in efl.VARIANTS:
-        got = efl.fused_layer_stream(x, *ws, layer, tile=tile, nbuf=nbuf)
-        again = efl.fused_layer_stream(x, *ws, layer, tile=tile, nbuf=nbuf)
+    runs = [(rows, depth, None) for rows, depth in efl.VARIANTS]
+    runs += [(*efl.VARIANTS[0], sms) for sms in (114, 1)]
+    card = efl.sm_count(dev)
+    for rows, depth, sms in runs:
+        monkeypatch.setattr(efl, "sm_count", lambda device, n=sms or card: n)
+        got = efl.fused_layer_stream(x, *ws, layer, rows=rows, depth=depth)
+        again = efl.fused_layer_stream(x, *ws, layer, rows=rows, depth=depth)
         torch.cuda.synchronize()
         rel = ((got.float() - ref.float()).abs().max()
                / ref.float().abs().max()).item()
-        assert rel <= 2.0 ** -7, (tile, nbuf, rel)
-        assert torch.equal(got, again), (tile, nbuf)
+        assert rel <= 2.0 ** -7, (rows, depth, sms, rel)
+        assert torch.equal(got, again), (rows, depth, sms)
     from aha_tpu_torch.ops.flash_attention import ticket_counters
 
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,17 +1,27 @@
-"""The launch plan of the decode-GEMV study's kernels (csrc/study_gemv.cu),
-checked on the CPU: `studies/exp_gemv.gemv_plan(N, sms)` is a pure
-function of the column count and the SM count.  Each test walks the plan
-as the kernel walks it — block b takes tiles b, b + grid, ..., each tile
-64·C columns, those past N masked — and holds it to what the kernel needs:
-every column of [0, N) taken exactly once, a tile the kernel has, a grid
-no larger than the tiles, a short last round, the argmax's fold, and a
-launch that the script's block width bn does not reach."""
+"""The launch plans of the H100 studies' persistent kernels, checked on the
+CPU.  `studies/exp_gemv.gemv_plan(N, sms)` is a pure function of the
+column count and the SM count, the plan of the decode-GEMV kernels
+(csrc/study_gemv.cu); `studies/exp_int4.packed_k_plan` is its form for the
+packed-int4 kernel (csrc/study_int4.cu `i4_packed_k`), whose tiles are
+whole 128-column boxes.  Each test walks the plan as the kernel walks it —
+block b takes tiles b, b + grid, ..., each tile 64·C columns, those past N
+masked — and holds it to what the kernel needs: every column of [0, N)
+taken exactly once, a tile the kernel has, a grid no larger than the
+tiles, a short last round, the argmax's fold, and a launch that the
+script's block width bn does not reach.
+`studies/exp_fused_layer.fused_layer_plan(sms)` splits the one-launch
+layer's units (csrc/study_fused_layer.cu) over the SMs, and the kernel
+reads each block's units from its table: every unit of both phases once,
+the blocks' shares within a unit.  The card tests (tests/test_torch_cuda.py)
+run both kernels on these plans at several SM counts against their plain
+versions."""
 
 import inspect
 
 import numpy as np
 import pytest
 
+from aha_tpu_torch.studies import exp_fused_layer as efl
 from aha_tpu_torch.studies import exp_gemv as eg
 
 SMS = 132            # H100 SXM
@@ -114,3 +124,109 @@ def test_gemv_plan_argmax_is_the_same_at_every_bn(N):
         tied[c] = -0.5
     assert _kernel_argmax(tied, N, tile, grid) == (-0.5, tile - 1)
     assert int(np.argmax(tied)) == tile - 1
+
+
+# -- the one-launch layer's plan (csrc/study_fused_layer.cu) -------------------
+
+
+@pytest.mark.parametrize("sms", [SMS, 114, 1])
+def test_fused_layer_plan_covers_every_unit_once(sms):
+    """fused_layer_plan(sms): one block an SM; block b's phase-1 units b,
+    b + grid, ... and a contiguous range of phase-2 units; together they
+    take every unit of both phases exactly once, and a block's share of
+    each phase (phase 2's: the units it streams after the grid barrier) is
+    within one unit of the mean."""
+    plan = efl.fused_layer_plan(sms)
+    grid = len(plan)
+    assert grid == min(sms, efl.P2_UNITS)
+    for phase, units in ((0, efl.P1_UNITS), (1, efl.P2_UNITS)):
+        taken = np.zeros(units, np.int64)
+        for b, block in enumerate(plan):
+            r = block[phase]
+            assert (r.start, r.step) == ((b, grid) if phase == 0 else
+                                         (r.start, 1))
+            taken[list(r)] += 1
+        assert (taken == 1).all()
+        mean = units / len(plan)
+        assert all(abs(len(block[phase]) - mean) < 1 for block in plan)
+
+
+def test_fused_layer_plan_units_are_the_layer():
+    """The units tile the layer: phase 1 the 10,240 columns of [Wqkv | Wgu]
+    in 64-column tiles by four 256-row K quarters, phase 2 the 1,024
+    columns of [Wo ; Wdn] by twenty 256-row tiles (four a 1024-row chunk,
+    none straddling o and down); at 132 SMs each block has units of both
+    phases (no block skips the barrier's work), its phase-2 units span at
+    most two row tiles (the activations it stages), and the blocks' first
+    phase-1 units are neighbouring column tiles of one K quarter."""
+    cols1 = efl.NQKV + 2 * efl.NI
+    assert efl.P1_UNITS * efl.UNIT_COLS * efl.P1_ROWS == cols1 * efl.H
+    assert efl.P2_UNITS * efl.UNIT_COLS * efl.P2_ROWS == \
+        efl.H * (efl.NO + efl.NI)
+    assert efl.NO % efl.P2_ROWS == 0 and efl.H % efl.P2_ROWS == 0
+    for b, (p1, p2) in enumerate(efl.fused_layer_plan(SMS)):
+        assert len(p1) and len(p2), b
+        tiles = {u // efl.P2_COLUMN_TILES for u in p2}
+        assert len(tiles) <= 2 and max(tiles) - min(tiles) == len(tiles) - 1
+    firsts = [p1[0] for p1, _ in efl.fused_layer_plan(SMS)]
+    assert firsts == list(range(SMS)) and SMS <= efl.P1_UNITS // efl.P1_SLICES
+
+
+@pytest.mark.parametrize("sms", [SMS, 114, 1])
+def test_fused_layer_plan_table_is_the_plan(sms):
+    """The table the kernel reads from its parameters, a row a block (its
+    rows the launch's grid): (phase-1 start, step, count, phase-2 first,
+    count), each row giving back exactly the block's ranges of
+    fused_layer_plan, every value at most the 640 phase-1 units (the
+    kernel holds them as int16), and block b's phase-1 walk starting at b
+    with step grid (the launch refuses a plan that walks otherwise)."""
+    plan = efl.fused_layer_plan(sms)
+    table = efl.fused_layer_plan_table(sms)
+    assert len(table) == len(plan)
+    for b, ((start1, step1, n1, first2, n2), (r1, r2)) in enumerate(
+            zip(table, plan)):
+        assert (start1, step1) == (b, len(table))
+        assert range(start1, start1 + step1 * n1, step1) == r1
+        assert range(first2, first2 + n2) == r2
+    assert np.array(table).min() >= 0
+    assert np.array(table).max() <= efl.P1_UNITS == 640
+
+
+# -- the packed-int4 kernel's plan (csrc/study_int4.cu) -------------------------
+
+
+@pytest.mark.parametrize("sms", [SMS, 114, 1])
+@pytest.mark.parametrize("N", [8, 24, 2088, 151936])
+def test_packed_k_plan_covers_every_column_once(N, sms):
+    """packed_k_plan: tiles of whole 128-column boxes (one or two), a grid
+    no larger than the tiles, and every column of [0, N) in exactly one
+    block's walk; the (K/4, 2N) view the kernel's TMA reads has a row
+    stride of 2N bytes, a multiple of 16 for any N a multiple of 8."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    tile, grid = e4.packed_k_plan(N, sms)
+    assert tile in (128, 256)
+    assert 1 <= grid <= min(_cdiv(N, tile), sms)
+    taken = np.zeros(_cdiv(N, tile) * tile, np.int64)
+    for walk in _walks(N, tile, grid):
+        for t in walk:
+            taken[t * tile:(t + 1) * tile] += 1
+    assert (taken[:N] == 1).all()
+    assert (2 * N) % 16 == 0
+
+
+@pytest.mark.parametrize("N", NS)
+def test_packed_k_plan_is_the_gemv_plan_in_whole_boxes(N):
+    """Where gemv_plan's tile is a whole box or two, packed_k_plan is
+    gemv_plan; its 64-column tiles become 128-column ones (the kernel would
+    read each box for two tiles).  At N 151936 on 132 SMs: 1,187 tiles of
+    128 columns on 132 blocks."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    tile, grid = eg.gemv_plan(N, SMS)
+    if tile >= 128:
+        assert e4.packed_k_plan(N, SMS) == (tile, grid)
+    else:
+        assert e4.packed_k_plan(N, SMS) == (128, min(_cdiv(N, 128), SMS))
+    tile, grid = e4.packed_k_plan(151936, SMS)
+    assert (tile, grid, _cdiv(151936, tile)) == (128, 132, 1187)
