@@ -3,7 +3,8 @@
 // tensor cores, flash_prefill.cu and segment_flash.cu, and the weight ring
 // of the one-launch decode kernels, fused_stack_gemv.cuh, over bf16 weights
 // and over the GGUF grids, the M = 8 GEMV study, study_gemv.cu, and the
-// one-launch layer study, study_fused_layer.cu), and the wgmma shared-memory
+// one-launch layer study, study_fused_layer.cu; the int4 studies' rings,
+// study_int4.cu, on Ring and ring_walk), and the wgmma shared-memory
 // descriptors, fences and m64 bf16 products of the attention kernels and of
 // those studies (n8 and n16, A MN-major).
 //
@@ -55,6 +56,49 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// A ring of `depth` stages in shared memory that one producer thread fills
+// by TMA and consumer warps drain: stage f of a walk lies in slot f % depth,
+// with a `full` and an `empty` mbarrier a slot (8 bytes apart).
+struct Ring {
+  uint32_t full, empty;
+  int depth;
+
+  // one thread, before a block barrier: one arrival (the producer's, with
+  // its transaction bytes) fills a slot, one a consumer warp drains it
+  __device__ void init(int consumer_warps) const {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, consumer_warps);
+    }
+    mbar_fence_init();
+  }
+  __device__ uint32_t slot_bar(int f) const { return full + 8 * (f % depth); }
+  // the producer: wait until stage f's slot is drained, then expect its bytes
+  __device__ void fill(int f, int bytes) const {
+    mbar_wait(empty + 8 * (f % depth), ((f / depth) & 1) ^ 1);
+    mbar_expect_tx(slot_bar(f), bytes);
+  }
+  // a consumer: wait until stage f has landed
+  __device__ void wait(int f) const { mbar_wait(slot_bar(f), (f / depth) & 1); }
+  // a consumer warp's lane 0, after the warp's last read of stage f
+  __device__ void drain(int f) const { mbar_arrive(empty + 8 * (f % depth)); }
+};
+
+// The producer of a persistent block's walk over `ntiles` column tiles
+// (tiles blockIdx.x, blockIdx.x + gridDim.x, ...), `nks` stages a tile:
+// stage f is K step f % nks of the walk's tile, and the ring runs on across
+// tile ends.  bytes(tile) gives a stage's transaction bytes;
+// issue(slot, bar, tile, ks) issues its copies into `slot` on `bar`.
+template <class Bytes, class Issue>
+__device__ void ring_walk(const Ring& ring, int ntiles, int nks, Bytes bytes, Issue issue) {
+  const int total = (ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * nks;
+  for (int f = 0; f < total; ++f) {
+    const int tile = blockIdx.x + (f / nks) * gridDim.x;
+    ring.fill(f, bytes(tile));
+    issue(f % ring.depth, ring.slot_bar(f), tile, f % nks);
+  }
 }
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,

@@ -6,9 +6,9 @@
 // absmax / 127 (sx = max|x| / 127, xq = round_half_even(x / (sx or 1)), true
 // divisions), xq . W (K, N) int4 accumulated in int32, times sx, to bf16
 // (8, N).  No weight scales.
-//   - f_i4_pl (body k_i4): the int4 block upcast to int8, then the dot.
-//     Here `i4_upcast`: nibbles sign-extended to int8 in registers, __dp4a
-//     on the CUDA cores.
+//   - f_i4_pl (body k_i4; scripts/exp_int4.py:101): the int4 block upcast
+//     to int8, then the dot.  Here `i4_upcast`, over the k8 words below,
+//     on a TMA ring into mma.sync.m16n8k32 s8 (the design further down).
 //   - f_i4n_pl (body k_i4n): the int4 block handed to the dot as it is.
 //     Here `i4_tensorcore`: Hopper has no s8 x s4 product (mma.sync takes
 //     s8 x s8 or s4 x s4, wgmma only s8), so the nibbles are sign-extended
@@ -25,30 +25,64 @@
 // Layouts.  Rows 20-21 read "k8 words": W as (K/8, N) int32, word [q, n]
 // holding W[8q + j, n] in bits 4j..4j+3 (ops: studies/exp_int4.pack_k8).
 // A word's AND with 0x0F0F0F0F gives its even-k nibbles in bytes, its shift
-// right by 4 then the same AND the odd-k ones, so the activations are staged
-// once per block as matching words: xlo[q][m] = xq[m][8q + 0, 2, 4, 6],
-// xhi[q][m] = xq[m][8q + 1, 3, 5, 7].  For the tensor cores the same words
-// are the fragments: the thread (group g, lane-in-group t) of k block kb
-// takes word q = 4kb + t of column g as B's two registers and xlo / xhi[q][g]
-// as A's row-g registers (which k a byte slot stands for is a relabelling
-// shared by A and B, so the sum is unchanged).
+// right by 4 then the same AND the odd-k ones, so row 21 stages the
+// activations once per block as matching words: xlo[q][m] = xq[m][8q + 0,
+// 2, 4, 6], xhi[q][m] = xq[m][8q + 1, 3, 5, 7].  For the tensor cores the
+// same words are the fragments: the thread (group g, lane-in-group t) of k
+// block kb takes word q = 4kb + t of column g as B's two registers and
+// xlo / xhi[q][g] as A's row-g registers (which k a byte slot stands for is
+// a relabelling shared by A and B, so the sum is unchanged).
 //
-// Bound: bytes, 77.8 MB of weights + 2.4 MB of output: 0.0239 ms at
+// Bound: bytes, 77.8 MB of weights + 2.4 MB of output: 0.0240 ms at
 // 3.35 TB/s.  The dot is 1.24 G int8 MACs (0.0013 ms of the int8 tensor
-// rate).  Grids of rows 20-21: 64-thread blocks for __dp4a (594 of them,
-// 4-5 a SM, where 256-thread blocks made 149 for 132 SMs and a second
-// wave), 256-thread blocks of 32 columns a warp for mma.sync; each block
-// quantizes all of x.  Sign extension: rows 20-21 set a nibble's byte's
-// high bits from its bit 3 (b | (b & 0x08) * 0x1E per byte, three integer
-// ops for four nibbles; the SIMD __vsub4 is emulated on sm_90); row 22
-// keeps the script's shifts — the nibble shifted to the top of its byte is
-// 16x its signed value, so the int32 sum is 16x the dot and one arithmetic
-// shift right by 4 ends it (|sum| < 2^28: exact).
+// rate).  Row 20 left __dp4a for the tensor cores: its 311 M dp4a, at 64 a
+// clock an SM (132 SMs, 1.98 GHz), would take about 0.019 ms of that pipe
+// alone, 78 % of the bound, before the nibbles' unpacking and the
+// activations' shared-memory reads.  Row 21's grid: 256-thread blocks of 32
+// columns a warp, each block quantizing all of x; its sign extension sets a
+// nibble's byte's high bits from its bit 3 (b | (b & 0x08) * 0x1E per byte,
+// three integer ops for four nibbles; the SIMD __vsub4 is emulated on
+// sm_90).  Rows 20 and 22 keep the script's shifts: a nibble shifted to the
+// top of its byte is 16x its signed value, so the int32 sum is 16x the dot
+// and one arithmetic shift right by 4 ends it (|16 sum| <= 16 K 127 8 <
+// 2^31 for every K they take: exact).
 //
-// Row 22's design: a persistent grid from exp_int4.packed_k_plan (gemv_plan's,
-// with tiles of whole 128-column boxes: at N 151936, 1,187 tiles of 128
-// columns on 132 blocks), each block quantizing x once, from L2 into the
-// fragments it keeps (x itself is never held in shared memory).
+// Rows 20 and 22 share a design: a persistent grid from
+// exp_int4.packed_k_plan (gemv_plan's, with tiles of whole 128-column
+// boxes: at N 151936, 1,187 tiles of 128 columns on 132 blocks); each block
+// quantizes x once into ready B fragment words; a producer warp keeps a TMA
+// ring full across tile ends (hopper_tma.cuh Ring, ring_walk); products on
+// mma.sync.m16n8k32 s8 with W's columns as A's 16 rows and x's 8 rows as
+// B's 8 columns, so M is not padded.  (wgmma takes 8-bit operands K-major
+// only, and both layouts have N contiguous.)
+//
+// Row 20's design:
+// - x: each consumer thread issues the loads of its first kXHeld 16-byte
+//   pieces of x, then lets the producer start (a named barrier): the loads
+//   are ahead of the ring's first copies (loads issued after them wait
+//   behind them), and the ring fills while the consumers take sx per row
+//   (a true division) from the pieces held in registers — all of x up to
+//   K = 1024 H — and quantize them straight into B fragments: a uint4 a
+//   lane for 8 rows of words.  Past that K the rest of x is read twice,
+//   from L2.
+// - W by TMA: the words as a tensor map of 4-byte elements, row stride 4N
+//   bytes (a multiple of 16 for any N a multiple of 4); boxes of 64 rows x
+//   32 words (128 bytes), 128-byte swizzled, starting at column n0 + 32 b (a
+//   multiple of 128 bytes); a stage is a 64-row K step of a tile, one box a
+//   32 columns: 32 KB for 128 columns, 128 KB in flight.  Rows past K/8 and
+//   columns past N come as zero fill; a box wholly past N is not issued,
+//   and columns past N are never stored.
+// - Products: consumer warp b takes box b of every stage, 32 columns and
+//   all of K, so its sums stay in registers to the tile's end (no reduction
+//   across warps).  Lane (g, t) reads the 16 bytes of columns 4g .. 4g + 3
+//   of rows 8i + 2t + e (e = 0, 1): after the swizzle (chunk g ^ (2t + e))
+//   the eight lanes of each quarter warp read eight distinct 16-byte bank
+//   groups.  Columns 4g, 4g + 1 are A rows g, g + 8 of one m16 tile, 4g + 2,
+//   4g + 3 of another; a word's even-k nibbles at the tops of the bytes
+//   ((w << 4) & 0xF0F0F0F0) are A's k slots 4t .. 4t + 3, its odd ones
+//   (w & 0xF0F0F0F0) slots 16 + 4t .. 19 + 4t, and B's the matching xq.
+//
+// Row 22's design, on the shared parts above:
 // - Weights by TMA.  A tensor map's row stride must be a multiple of 16
 //   bytes, and N bytes need not be (N % 16 == 8 is allowed), so the map
 //   views the bytes as (K/4, 2N): row i is packed rows 2i and 2i + 1 side
@@ -57,18 +91,16 @@
 //   256 k values of 128 columns, 16 KB a ring stage, 96 KB in flight.  A
 //   box must also start at a multiple of 16 bytes (the card refuses others
 //   with an illegal instruction): where N % 16 == 8 the odd rows come as an
-//   unswizzled 144-byte box from N + n0 - 8, read 8 bytes in.  A
-//   producer warp keeps the ring full across tile ends; columns past N are
-//   read (the odd rows' bytes, or zero fill) but never stored.
-// - Products on mma.sync.m16n8k32 s8: W's columns are A's 16 rows, x's 8
-//   rows B's 8 columns.  A thread loads 16 bytes (16 columns) of four rows
-//   of each box and transposes them (byte_perm) into one word a column,
-//   whose nibbles shifted to the tops of the bytes are A's registers;
-//   the k values they stand for (4·row + 0..3) are relabelled in B, staged
-//   once a block as ready fragment words.  Four consumer warps a 128
-//   columns each take one 64-k group of every stage and sum through shared
-//   memory at the tile's end.  (wgmma takes 8-bit operands K-major only,
-//   and this layout has N contiguous.)
+//   unswizzled 144-byte box from N + n0 - 8, read 8 bytes in.  Columns past
+//   N are read (the odd rows' bytes, or zero fill) but never stored.
+// - x is quantized from L2 into the fragments it keeps (x itself is never
+//   held in shared memory).
+// - A thread loads 16 bytes (16 columns) of four rows of each box and
+//   transposes them (byte_perm) into one word a column, whose nibbles
+//   shifted to the tops of the bytes are A's registers; the k values they
+//   stand for (4·row + 0..3) are relabelled in B.  Four consumer warps a
+//   128 columns each take one 64-k group of every stage and sum through
+//   shared memory at the tile's end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,10 +110,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // the mma.sync kernel's block
-constexpr int kDp4aThreads = 64;   // the __dp4a kernels' blocks
+constexpr int kThreads = 256;      // row 21's block
 constexpr int kM = 8;        // activation rows
-constexpr int kUnroll = 16;  // k8 words (or packed row quads) in flight
 
 constexpr int kLoadBatch = 16;   // 16-byte loads of x in flight per thread
 
@@ -189,54 +219,6 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* out, int N, int m, int 
   }
 }
 
-// Row 20: a thread owns 4 columns, one 16-byte load of k8 words per q.
-__global__ void __launch_bounds__(kDp4aThreads)
-i4_upcast_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ w,
-                 __nv_bfloat16* __restrict__ out, int K, int N) {
-  extern __shared__ __align__(16) int smem[];
-  int* xlo = smem;
-  int* xhi = xlo + (K / 8) * kM;
-  uint4* xs = reinterpret_cast<uint4*>(xhi + (K / 8) * kM);
-  __shared__ float sx[kM];
-  stage_acts(x, K, xs, xlo, xhi, sx);
-  const int n0 = 4 * (blockIdx.x * kDp4aThreads + threadIdx.x);
-  if (n0 >= N) return;
-  int acc[kM][4];
-#pragma unroll
-  for (int m = 0; m < kM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
-  const int Q = K / 8;
-  const int4* p = reinterpret_cast<const int4*>(w + n0);
-  const size_t stride = N / 4;            // int4s per k8 row
-  for (int q0 = 0; q0 < Q; q0 += kUnroll) {
-    int4 u[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i)
-      u[i] = q0 + i < Q ? __ldcs(p + (size_t)(q0 + i) * stride) : make_int4(0, 0, 0, 0);
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      if (q0 + i >= Q) break;
-      const int4 xl0 = reinterpret_cast<const int4*>(xlo)[(q0 + i) * 2];
-      const int4 xl1 = reinterpret_cast<const int4*>(xlo)[(q0 + i) * 2 + 1];
-      const int4 xh0 = reinterpret_cast<const int4*>(xhi)[(q0 + i) * 2];
-      const int4 xh1 = reinterpret_cast<const int4*>(xhi)[(q0 + i) * 2 + 1];
-      const int xl[kM] = {xl0.x, xl0.y, xl0.z, xl0.w, xl1.x, xl1.y, xl1.z, xl1.w};
-      const int xh[kM] = {xh0.x, xh0.y, xh0.z, xh0.w, xh1.x, xh1.y, xh1.z, xh1.w};
-      const int wv[4] = {u[i].x, u[i].y, u[i].z, u[i].w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int lo = sext4(wv[c] & 0x0F0F0F0F);
-        const int hi = sext4((wv[c] >> 4) & 0x0F0F0F0F);
-#pragma unroll
-        for (int m = 0; m < kM; ++m) acc[m][c] = __dp4a(hi, xh[m], __dp4a(lo, xl[m], acc[m][c]));
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kM; ++m) store_row(out, N, m, n0, 4, acc[m], sx[m]);
-}
-
 __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a2, int b0, int b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -337,6 +319,10 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // The bytes a row of xq takes in shared memory: K rounded up to whole ring
 // stages, and 16 more, so the 4-byte reads of lanes (t, m) below fall on 32
 // distinct banks.
@@ -421,44 +407,36 @@ i4_packed_k_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_consta
   unsigned char* scratch = reinterpret_cast<unsigned char*>(xw + nkg * kM * 4);
   unsigned char* xq = scratch;              // until xw is built
   int* red = reinterpret_cast<int*>(scratch);   // the epilogue's, after
-  const uint32_t ring = smem_u32(ring_p);
-  const uint32_t full = smem_u32(scratch + pk_scratch(nkg, H)), empty = full + 8 * depth;
+  const uint32_t slots = smem_u32(ring_p);
+  const uint32_t full = smem_u32(scratch + pk_scratch(nkg, H));
+  const Ring ring{full, full + 8 * depth, depth};
   __shared__ float sx[kM];
 
   const int ntiles = (N + tile - 1) / tile;
-  const int total = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x * nks;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < depth; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kCons / 32);   // one arrival a consumer warp
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) ring.init(kCons / 32);
   __syncthreads();
   // sx first: its loads of x would queue behind the ring's first copies
   // (12 MB over the grid); then the producer issues while the consumers
   // quantize (x again, from L2)
   row_scales<kLoadBatch>(reinterpret_cast<const uint4*>(x), K, sx);
   if (warp == kCons / 32) {
-    // stage f of the block's walk: K rows (f % nks) of the walk's tile
-    // f / nks, the even packed rows at column n0 of the view and the odd
-    // ones at N + n0
-    for (int f = 0; lane == 0 && f < total; ++f) {
-      const int s = f % depth, row = (f % nks) * kPkRows;
-      const int n0 = (blockIdx.x + (f / nks) * gridDim.x) * tile;
-      mbar_wait(empty + 8 * s, ((f / depth) & 1) ^ 1);
-      mbar_expect_tx(full + 8 * s, H * (kPkBox + (sh ? kPkOddBox : kPkBox)));
-      for (int h = 0; h < H; ++h) {
-        const uint32_t ev = ring + s * kStage + h * kPkBox;
-        const uint32_t od = ring + s * kStage + H * kPkBox + h * kPkOddBox;
-        tma_load_3d(ev, &wmap, full + 8 * s, n0 + 128 * h, row, 0);
-        if (sh)
-          tma_load_3d(od, &omap, full + 8 * s, N + n0 + 128 * h - sh, row, 0);
-        else
-          tma_load_3d(od, &wmap, full + 8 * s, N + n0 + 128 * h, row, 0);
-      }
-    }
+    // a stage: 64 view rows of the tile, the even packed rows at column n0
+    // of the view and the odd ones at N + n0
+    if (lane == 0)
+      ring_walk(ring, ntiles, nks, [&](int) { return H * (kPkBox + (sh ? kPkOddBox : kPkBox)); },
+                [&](int s, uint32_t bar, int tt, int ks) {
+                  const int row = ks * kPkRows, n0 = tt * tile;
+                  for (int h = 0; h < H; ++h) {
+                    const uint32_t ev = slots + s * kStage + h * kPkBox;
+                    const uint32_t od = slots + s * kStage + H * kPkBox + h * kPkOddBox;
+                    tma_load_3d(ev, &wmap, bar, n0 + 128 * h, row, 0);
+                    if (sh)
+                      tma_load_3d(od, &omap, bar, N + n0 + 128 * h - sh, row, 0);
+                    else
+                      tma_load_3d(od, &wmap, bar, N + n0 + 128 * h, row, 0);
+                  }
+                });
     return;
   }
   stage_packed_acts(K, nkg, reinterpret_cast<const uint4*>(x), xq, xw, sx, kCons);
@@ -478,7 +456,7 @@ i4_packed_k_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_consta
       for (int i = 0; i < 4; ++i) acc[j][i] = 0;
     for (int ks = 0; ks < nks; ++ks, ++f) {
       const int s = f % depth;
-      mbar_wait(full + 8 * s, (f / depth) & 1);
+      ring.wait(f);
       const unsigned char* ev = ring_p + (size_t)s * kStage + h * kPkBox;
       const unsigned char* od = ring_p + (size_t)s * kStage + H * kPkBox + h * kPkOddBox;
       uint4 re[4], ro[4];
@@ -512,7 +490,7 @@ i4_packed_k_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_consta
         }
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * s);
+      if (lane == 0) ring.drain(f);
     }
     // acc[j]: rows (columns) 16c + 2j and + 1, x rows 2t and 2t + 1; the four
     // K groups' sums through shared memory (integers: any order is exact)
@@ -565,27 +543,272 @@ inline bool make_packed_map(CUtensorMap* map, const void* w, int K, int N, int c
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The dynamic shared memory of a ring kernel: `fixed` bytes beside `depth`
+// stages of `stage` bytes and their two mbarriers, the depth cut from
+// `want` to as few as two where the card's opt-in shared memory, less
+// `reserved` (the kernel's static arrays), would not hold them; 0 where two
+// do not fit (x too long) or the card cannot be asked.
+inline size_t ring_smem(size_t fixed, int stage, int want, size_t reserved, int* depth) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  const size_t avail = (size_t)optin - reserved;
+  int d = want;
+  while (d > 2 && fixed + (size_t)d * (stage + 16) > avail) --d;
+  *depth = d;
+  const size_t smem = fixed + (size_t)d * (stage + 16);
+  return smem > avail ? 0 : smem;
+}
+
 template <int H>
 int launch_packed(const CUtensorMap& map, const CUtensorMap& omap, const __nv_bfloat16* x,
                   __nv_bfloat16* out, int K, int N, int tile, int grid, cudaStream_t st) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kStage = H * kPkHalf;
-  const size_t avail = (size_t)optin - 256;               // the static arrays
   const int nkg = pk_kgroups(K);
-  const size_t fixed =
-      1024 + (size_t)nkg * kM * 4 * 16 + pk_scratch(nkg, H);
-  int depth = kPkRing / (2 * H * kPkBox);
-  while (depth > 2 && fixed + (size_t)depth * (kStage + 16) > avail) --depth;
-  const size_t smem = fixed + (size_t)depth * (kStage + 16);
-  if (smem > avail) return static_cast<int>(cudaErrorInvalidValue);   // x too long
-  err = cudaFuncSetAttribute(i4_packed_k_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const size_t fixed = 1024 + (size_t)nkg * kM * 4 * 16 + pk_scratch(nkg, H);
+  int depth = 0;
+  const size_t smem = ring_smem(fixed, H * kPkHalf, kPkRing / (2 * H * kPkBox), 256, &depth);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      i4_packed_k_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   i4_packed_k_kernel<H><<<grid, 128 * H + 32, smem, st>>>(map, omap, x, out, K, N, tile, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- Row 20: the k8 words from a TMA ring, products on mma.sync s8 ----------
+
+constexpr int kUpRows = 64;               // word rows (512 k values) of a box and a stage
+constexpr int kUpBox = kUpRows * 128;     // 8 KB: 32 words a row, 128-byte swizzled
+constexpr int kUpRing = 128 * 1024;       // bytes in flight, as the shared memory allows
+constexpr int kXHeld = 8;                 // 16-byte pieces of x a consumer thread holds
+
+__host__ __device__ __forceinline__ int up_ksteps(int K) {
+  return (K / 8 + kUpRows - 1) / kUpRows;
+}
+
+// The B fragments: a uint4 a lane for every 8 word rows of the K steps
+__host__ __device__ __forceinline__ size_t up_frag_bytes(int K) {
+  return (size_t)up_ksteps(K) * (kUpRows / 8) * 32 * 16;
+}
+
+// v[m] for a row m known only at run time, without indexing registers
+__device__ __forceinline__ float pick(const float (&v)[kM], int m) {
+  float r = v[0];
+#pragma unroll
+  for (int i = 1; i < kM; ++i) r = m == i ? v[i] : r;
+  return r;
+}
+
+// grid: the plan's persistent blocks (exp_int4.packed_k_plan); block b walks
+// column tiles b, b + grid, ... of 128·H columns, 4H boxes of 32 columns a
+// stage.  Warps 0 .. 4H-1 consume (warp w: box w of every stage), warp 4H
+// produces.  Shared memory: the ring, the B fragments, the warps' row
+// maxima of x, the ring's mbarriers.
+template <int H>
+__global__ void __launch_bounds__(128 * H + 32, 1)
+i4_upcast_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
+                 __nv_bfloat16* __restrict__ out, int K, int N, int depth) {
+  constexpr int kCons = 128 * H, kBoxes = 4 * H, kStage = kBoxes * kUpBox, kTile = 128 * H;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_p = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int Q = K / 8, nks = up_ksteps(K);
+  uint4* xw = reinterpret_cast<uint4*>(ring_p + (size_t)depth * kStage);
+  float* rmax = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(xw) + up_frag_bytes(K));
+  const uint32_t full = smem_u32(rmax + (kCons / 32) * kM);
+  const Ring ring{full, full + 8 * depth, depth};
+  const int ntiles = (N + kTile - 1) / kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // x as K pieces of 8 values, row m's pieces at m Q .. m Q + Q - 1; a
+  // consumer thread takes pieces threadIdx.x + j kCons
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int u0 = threadIdx.x;
+
+  // x's loads are issued before the ring's first copies, the first kXHeld
+  // of a thread held in registers; sx[m] is a row's running max |x| until
+  // the consumers' barrier
+  uint4 held[kXHeld];
+  float sx[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) sx[m] = 0.f;
+  auto fold = [&](int u, const uint4& v) {
+    float f[8];
+    bf16x8(v, f);
+    float a = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(f[e]));
+    const int m = u / Q;
+#pragma unroll
+    for (int i = 0; i < kM; ++i) sx[i] = m == i ? fmaxf(sx[i], a) : sx[i];
+  };
+  if (warp == kCons / 32) {
+    // the producer starts once the consumers' loads of x are issued, ahead
+    // of its copies (named barrier 2).  A stage: 64 word rows of the tile,
+    // one box a 32 columns; a box wholly past N is not issued (its warp's
+    // sums are never stored)
+    named_sync(2, kCons + 32);
+    if (lane == 0)
+      ring_walk(ring, ntiles, nks,
+                [&](int tt) { return min(kBoxes, (N - tt * kTile + 31) / 32) * kUpBox; },
+                [&](int s, uint32_t bar, int tt, int ks) {
+                  for (int b = 0; b < kBoxes && tt * kTile + 32 * b < N; ++b)
+                    tma_load_3d(smem_u32(ring_p) + s * kStage + b * kUpBox, &wmap, bar,
+                                tt * kTile + 32 * b, ks * kUpRows, 0);
+                });
+    return;
+  }
+  if (threadIdx.x == 0) ring.init(kCons / 32);
+#pragma unroll
+  for (int j = 0; j < kXHeld; ++j)
+    if (u0 + j * kCons < K) held[j] = __ldg(xv + u0 + j * kCons);
+  named_arrive(2, kCons + 32);
+#pragma unroll
+  for (int j = 0; j < kXHeld; ++j)
+    if (u0 + j * kCons < K) fold(u0 + j * kCons, held[j]);
+  for (int j0 = kXHeld; u0 + j0 * kCons < K; j0 += kXHeld) {   // past K = 1024 H
+    uint4 v[kXHeld];
+#pragma unroll
+    for (int j = 0; j < kXHeld; ++j)
+      if (u0 + (j0 + j) * kCons < K) v[j] = __ldg(xv + u0 + (j0 + j) * kCons);
+#pragma unroll
+    for (int j = 0; j < kXHeld; ++j)
+      if (u0 + (j0 + j) * kCons < K) fold(u0 + (j0 + j) * kCons, v[j]);
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    float a = sx[m];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (lane == 0) rmax[warp * kM + m] = a;
+  }
+  named_sync(1, kCons);   // the row maxima, and the ring's mbarriers initialised
+
+  // sx per row: the warps' maxima over 127, a true division as the plain
+  // version's
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    float a = 0.f;
+    for (int w = 0; w < kCons / 32; ++w) a = fmaxf(a, rmax[w * kM + m]);
+    sx[m] = a / 127.f;
+  }
+  // xq straight into B fragments: word row q's (lo, hi) pair of row m —
+  // xq[m][8q + 0, 2, 4, 6] and xq[m][8q + 1, 3, 5, 7] — is half e = q % 2
+  // of lane (m, t = q % 8 / 2)'s uint4 of the 8-row group q / 8
+  uint2* xw2 = reinterpret_cast<uint2*>(xw);
+  auto frag = [&](int q, int m) { return (((q >> 3) * kM + m) * 4 + ((q & 7) >> 1)) * 2 + (q & 1); };
+  auto quant = [&](int u, const uint4& v) {
+    const int m = u / Q, q = u % Q;
+    const float s = pick(sx, m);
+    float f[8];
+    bf16x8(v, f);
+    unsigned lo = 0u, hi = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo |= (static_cast<unsigned>(quantize(f[2 * e], s)) & 0xffu) << (8 * e);
+      hi |= (static_cast<unsigned>(quantize(f[2 * e + 1], s)) & 0xffu) << (8 * e);
+    }
+    xw2[frag(q, m)] = make_uint2(lo, hi);
+  };
+#pragma unroll
+  for (int j = 0; j < kXHeld; ++j)
+    if (u0 + j * kCons < K) quant(u0 + j * kCons, held[j]);
+  for (int j0 = kXHeld; u0 + j0 * kCons < K; j0 += kXHeld) {
+    uint4 v[kXHeld];
+#pragma unroll
+    for (int j = 0; j < kXHeld; ++j)
+      if (u0 + (j0 + j) * kCons < K) v[j] = __ldg(xv + u0 + (j0 + j) * kCons);
+#pragma unroll
+    for (int j = 0; j < kXHeld; ++j)
+      if (u0 + (j0 + j) * kCons < K) quant(u0 + (j0 + j) * kCons, v[j]);
+  }
+  // the word rows past K/8 of the last K step are zero fill: zero fragments
+  for (int i = u0; i < (nks * kUpRows - Q) * kM; i += kCons)
+    xw2[frag(Q + i / kM, i % kM)] = make_uint2(0u, 0u);
+  named_sync(1, kCons);
+
+  // lane (g, t): columns 4g .. 4g + 3 of its warp's box, rows 8i + 2t + e
+  // of each stage; columns 4g, 4g + 1 are A rows g, g + 8 of m16 tile 0,
+  // 4g + 2, 4g + 3 those of tile 1; acc[e][tile], e's two chains summed at
+  // the tile's end
+  const int g = lane / 4, t = lane % 4;
+  const float s0 = pick(sx, 2 * t), s1 = pick(sx, 2 * t + 1);
+  const unsigned char* mine = ring_p + warp * kUpBox;
+  int f = 0;
+  for (int tt = blockIdx.x; tt < ntiles; tt += gridDim.x) {
+    int acc[2][2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[e][j][i] = 0;
+    for (int ks = 0; ks < nks; ++ks, ++f) {
+      ring.wait(f);
+      const unsigned char* box = mine + (size_t)(f % depth) * kStage;
+      const uint4* xk = xw + ks * (kUpRows / 8) * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < kUpRows / 8; ++i) {
+        const uint4 xb = xk[32 * i];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * i + 2 * t + e;
+          const uint4 wv = *reinterpret_cast<const uint4*>(box + r * 128 + ((g ^ (2 * t + e)) << 4));
+          const unsigned b0 = e ? xb.z : xb.x, b1 = e ? xb.w : xb.y;
+          // the script's nibbles at the tops of the bytes (16x), the >> 4
+          // taken once on the int32 sum
+          mma_s8_16(acc[e][0], (wv.x << 4) & 0xF0F0F0F0u, (wv.y << 4) & 0xF0F0F0F0u,
+                    wv.x & 0xF0F0F0F0u, wv.y & 0xF0F0F0F0u, b0, b1);
+          mma_s8_16(acc[e][1], (wv.z << 4) & 0xF0F0F0F0u, (wv.w << 4) & 0xF0F0F0F0u,
+                    wv.z & 0xF0F0F0F0u, wv.w & 0xF0F0F0F0u, b0, b1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) ring.drain(f);
+    }
+    // acc[.][j][0 / 1]: column 4g + 2j, x rows 2t / 2t + 1; [2 / 3]: column
+    // 4g + 2j + 1.  Rows 2t and 2t + 1 of 4 columns each, 8 bytes a store
+    const int n = tt * kTile + 32 * warp + 4 * g;
+    if (n < N) {                              // N a multiple of 8: whole groups of 4
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float s = h ? s1 : s0;
+        auto v = [&](int j, int c) {
+          return static_cast<float>((acc[0][j][c] + acc[1][j][c]) >> 4) * s;
+        };
+        *reinterpret_cast<uint2*>(out + (size_t)(2 * t + h) * N + n) =
+            make_uint2(pack_bf16(v(0, h), v(0, 2 + h)), pack_bf16(v(1, h), v(1, 2 + h)));
+      }
+    }
+  }
+}
+
+// The k8 words (K/8, N) int32 as 4-byte elements, a row stride of 4N bytes
+// (a multiple of 16 for any N a multiple of 4); boxes of 64 rows x 32 words
+// (128 bytes), 128-byte swizzled; zero past K/8 and N.
+inline bool make_k8_map(CUtensorMap* map, const void* w, int K, int N) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K / 8, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)4 * N, (cuuint64_t)4 * N * (K / 8)};
+  const cuuint32_t box[3] = {32, kUpRows, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(w), dims, strides, box, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int H>
+int launch_upcast(const CUtensorMap& map, const __nv_bfloat16* x, __nv_bfloat16* out, int K,
+                  int N, int grid, cudaStream_t st) {
+  constexpr int kStage = 4 * H * kUpBox;
+  const size_t fixed = 1024 + up_frag_bytes(K) + (size_t)4 * H * kM * sizeof(float);
+  int depth = 0;
+  const size_t smem = ring_smem(fixed, kStage, kUpRing / kStage, 0, &depth);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      i4_upcast_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  i4_upcast_kernel<H><<<grid, 128 * H + 32, smem, st>>>(map, x, out, K, N, depth);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -593,11 +816,13 @@ int launch_packed(const CUtensorMap& map, const CUtensorMap& omap, const __nv_bf
 
 // x (8, K) bf16; variant 0 (i4_upcast) and 1 (i4_tensorcore): w the k8
 // words (K/8, N) int32; variant 2 (i4_packed_k): w (K/2, N) int8 nibble
-// pairs, 16-byte aligned, on the plan's `tile` (128 or 256 columns, whole
-// boxes) and `grid` (at most ceil(N / tile) blocks; exp_int4.packed_k_plan),
-// which variants 0 and 1 do not read; K up to 9,984 (xw and xq beside a
-// ring of two stages fill the shared memory: 12,032 at tile 128).  out (8,
-// N) bf16.  K a multiple of 32, N of 8.
+// pairs; 16-byte aligned.  Variants 0 and 2 run on the plan's `tile` (128 or
+// 256 columns, whole boxes) and `grid` (at most ceil(N / tile) blocks;
+// exp_int4.packed_k_plan), which variant 1 does not read.  K up to 12,288
+// for variant 0 (its fragments of xq beside a ring of two 256-column stages
+// fill the shared memory) and 9,984 for variant 2 (xw and xq beside a ring
+// of two stages: 12,032 at tile 128).  out (8, N) bf16.  K a multiple of
+// 32, N of 8.
 extern "C" int aha_study_int4(const void* x, const void* w, void* out, int K, int N,
                               int variant, int tile, int grid, void* stream) {
   if (K < 32 || K % 32 != 0 || N < 8 || N % 8 != 0)
@@ -605,9 +830,17 @@ extern "C" int aha_study_int4(const void* x, const void* w, void* out, int K, in
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (variant == 2) {
+  if (variant == 0 || variant == 2) {
     if ((tile != 128 && tile != 256) || grid < 1 || grid > (N + tile - 1) / tile)
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant == 0) {
+    CUtensorMap map;
+    if (!make_k8_map(&map, w, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+    return tile == 256 ? launch_upcast<2>(map, xb, ob, K, N, grid, st)
+                       : launch_upcast<1>(map, xb, ob, K, N, grid, st);
+  }
+  if (variant == 2) {
     CUtensorMap map, omap;
     if (!make_packed_map(&map, w, K, N, 128) ||
         !(N % 16 == 0 ? make_packed_map(&omap, w, K, N, 128) : make_packed_map(&omap, w, K, N, 144)))
@@ -615,27 +848,15 @@ extern "C" int aha_study_int4(const void* x, const void* w, void* out, int K, in
     return tile == 256 ? launch_packed<2>(map, omap, xb, ob, K, N, tile, grid, st)
                        : launch_packed<1>(map, omap, xb, ob, K, N, tile, grid, st);
   }
+  if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
   // the xlo / xhi words, then x itself
   const size_t smem = 2 * (size_t)(K / 8) * kM * sizeof(int) + (size_t)K * kM * 2;
-  void (*fn)(const __nv_bfloat16*, const int*, __nv_bfloat16*, int, int) = nullptr;
-  int blocks = 0, threads = 0;
-  switch (variant) {
-    case 0:
-      fn = i4_upcast_kernel;
-      blocks = (N / 4 + kDp4aThreads - 1) / kDp4aThreads;
-      threads = kDp4aThreads;
-      break;
-    case 1:
-      fn = i4_tensorcore_kernel;
-      blocks = (N + kThreads / 32 * kTiles * 8 - 1) / (kThreads / 32 * kTiles * 8);
-      threads = kThreads;
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(i4_tensorcore_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<blocks, threads, smem, st>>>(xb, static_cast<const int*>(w), ob, K, N);
+  const int cols = kThreads / 32 * kTiles * 8;   // a block's
+  i4_tensorcore_kernel<<<(N + cols - 1) / cols, kThreads, smem, st>>>(
+      xb, static_cast<const int*>(w), ob, K, N);
   return static_cast<int>(cudaGetLastError());
 }

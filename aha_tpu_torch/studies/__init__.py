@@ -5,7 +5,7 @@ candidates on the card at the script's full geometry, as hand-written CUDA
 kernels (`csrc/study_*.cu`) beside their plain PyTorch versions:
 
     python -m aha_tpu_torch.studies.exp_gemv          # read ceiling, M = 8 GEMV, argmax head
-    python -m aha_tpu_torch.studies.exp_int4          # int4 weights: dp4a vs mma.sync (k8 words, packed)
+    python -m aha_tpu_torch.studies.exp_int4          # int4 weights on mma.sync: k8 words (two ways), packed
     python -m aha_tpu_torch.studies.exp_fused_layer   # one launch per layer, box and ring sweep
 
 and one study of the port's own bf16 decode stack, `stack_parts` (its

@@ -1,7 +1,7 @@
 """int4-weight study on the card (the port of scripts/exp_int4.py): can 4-bit
 weights stream at the M = 8 quantized head's geometry faster than the
-int8 and bf16 paths, and do CUDA-core __dp4a or tensor-core mma.sync carry
-them better?
+int8 and bf16 paths, and which of its layouts carries them best on the
+tensor cores?
 
     python -m aha_tpu_torch.studies.exp_int4 [--quick]
 
@@ -12,8 +12,13 @@ times int4 weights W (K, N), int32 accumulation, × sx → bf16 (8, N); no
 weight scales.  All three read 4 bits a weight (77.8 MB) and agree bit for
 bit with the plain version and each other:
 
-- `i4_upcast` ← f_i4_pl (k_i4): nibbles sign-extended to int8 in
-  registers, __dp4a — the TPU's "upcast, then dot";
+- `i4_upcast` ← f_i4_pl (k_i4), over the k8 words: a persistent grid of
+  column tiles (`packed_k_plan`), x quantized once a block straight into
+  mma.sync B fragments, the words by TMA (boxes of 64 rows × 32 words,
+  128-byte swizzled) into a ring a producer warp keeps full across tile
+  ends, each nibble "upcast" to the top of an s8 byte in registers for
+  mma.sync.m16n8k32 s8 (W's columns as A's rows, x's 8 rows as B's
+  columns); K up to UPCAST_K_MAX;
 - `i4_tensorcore` ← f_i4n_pl (k_i4n): the nibbles sign-extended into the
   s8 fragments of mma.sync.m16n8k32 (Hopper has no s8 × s4 product), M
   padded to 16 in registers only — "hand the narrow weight to the matrix
@@ -21,8 +26,7 @@ bit with the plain version and each other:
 - `i4_packed_k` ← f_pk (k_pk): the script's own layout, nibbles packed two
   per byte along K, (K/2, N), row 2i the low nibble and 2i+1 the high one,
   sign-extended with shifts; the bytes by TMA into mma.sync.m16n8k32 s8 on
-  a persistent grid of column tiles (`packed_k_plan`: gemv_plan's, in
-  whole 128-column boxes), x quantized once a block; K up to
+  the same persistent grid, x quantized once a block; K up to
   PACKED_K_MAX.
 
 Rows 20-21 read "k8 words" (`pack_k8`): W as (K/8, N) int32, word [q, n]
@@ -55,6 +59,9 @@ VARIANTS = {"i4_upcast": 0, "i4_tensorcore": 1, "i4_packed_k": 2}
 #: built, beside a ring of two 256-column stages fill the shared memory
 #: (csrc/study_int4.cu; 12,032 where its tiles are 128 columns)
 PACKED_K_MAX = 9984
+#: i4_upcast's K at most: its fragments of xq (8·K bytes) beside a ring of
+#: two 256-column stages (128 KB) fill the shared memory (csrc/study_int4.cu)
+UPCAST_K_MAX = 12288
 
 
 # -- layouts -------------------------------------------------------------------
@@ -130,10 +137,11 @@ def i4_packed_k_plain(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 
 
 def packed_k_plan(n: int, sms: int) -> tuple[int, int]:
-    """(tile, grid) of i4_packed_k over N columns on `sms` SMs:
-    exp_gemv.gemv_plan's, with a tile of 64 columns widened to 128 — the
-    kernel's TMA boxes are 128 columns, so a narrower tile would read every
-    byte twice — and the grid no larger than the tiles."""
+    """(tile, grid) of i4_packed_k and i4_upcast over N columns on `sms`
+    SMs: exp_gemv.gemv_plan's, with a tile of 64 columns widened to 128 —
+    i4_packed_k's TMA boxes are 128 columns, so a narrower tile would read
+    every byte twice; i4_upcast's tiles are four or eight of its 32-word
+    boxes — and the grid no larger than the tiles."""
     tile, grid = gemv_plan(n, sms)
     if tile < 128:
         tile, grid = 128, min(-(-n // 128), sms)
@@ -152,14 +160,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     else:
         require(w.dtype == torch.int32 and w.shape[0] * 8 == Kx,
                 f"{variant} takes the (K/8, N) int32 k8 words")
+    if variant == "i4_upcast":
+        require(Kx <= UPCAST_K_MAX, f"i4_upcast takes K ≤ {UPCAST_K_MAX}")
     Nw = w.shape[1]
     require(Kx % 32 == 0 and Nw % 8 == 0, "K a multiple of 32, N of 8")
     require(x.is_contiguous() and w.is_contiguous() and w.data_ptr() % 16 == 0
             and x.data_ptr() % 16 == 0, "contiguous, 16-byte aligned inputs")
-    # i4_packed_k's persistent grid of column tiles; the others' grids are
-    # their own
-    tile, grid = (packed_k_plan(Nw, sm_count(w.device))
-                  if variant == "i4_packed_k" else (0, 0))
+    # i4_packed_k's and i4_upcast's persistent grid of column tiles;
+    # i4_tensorcore's grid is its own
+    tile, grid = ((0, 0) if variant == "i4_tensorcore"
+                  else packed_k_plan(Nw, sm_count(w.device)))
     out = torch.empty((M, Nw), dtype=torch.bfloat16, device=w.device)
     rc = kernels.lib().aha_study_int4(x.data_ptr(), w.data_ptr(),
                                       out.data_ptr(), Kx, Nw,
@@ -170,7 +180,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 def i4_upcast(x: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
-    """x (8, K) bf16, the k8 words (K/8, N) → (8, N) bf16 (__dp4a)."""
+    """x (8, K) bf16, the k8 words (K/8, N) → (8, N) bf16 (TMA ring,
+    mma.sync s8), on packed_k_plan's grid for the card's SMs."""
     if not words.is_cuda:
         return i4_upcast_plain(x, words)
     out = _launch(x, words, "i4_upcast")

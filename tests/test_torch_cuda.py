@@ -895,9 +895,10 @@ def test_study_int4_kernels_bit_equal(dev, monkeypatch, N, K):
     N % 16 == 8, whose packed rows are no multiple of 16 bytes; K/4 rows
     short of one TMA box at K 32; packed_k_plan's tiles of 128 columns up
     to N 132·128 and of 256 at N 132·256 on 132 SMs); a zero row (sx = 0)
-    gives zeros.  i4_packed_k also on its plans for 114 SMs and for one (a
-    block walking every tile, its ring running across them), the SM count
-    it plans for faked."""
+    gives zeros.  i4_packed_k and i4_upcast (K/8 rows short of one box at
+    K 32; boxes wholly past N at N 8 and 24) also on their plans for 114
+    SMs and for one (a block walking every tile, its ring running across
+    them), the SM count they plan for faked."""
     from aha_tpu_torch.studies import exp_int4 as e4
 
     g = torch.Generator(device=dev).manual_seed(N + K)
@@ -917,6 +918,7 @@ def test_study_int4_kernels_bit_equal(dev, monkeypatch, N, K):
     for sms in (114, 1):
         monkeypatch.setattr(e4, "sm_count", lambda device, n=sms: n)
         assert torch.equal(e4.i4_packed_k(x, packed), ref), sms
+        assert torch.equal(e4.i4_upcast(x, words), ref), sms
     assert torch.equal(ref[3], torch.zeros_like(ref[3]))
 
 
@@ -937,6 +939,26 @@ def test_study_int4_packed_k_at_its_longest_k(dev, N):
     w4 = torch.zeros((K + 32, N), device=dev, dtype=torch.int8)
     with pytest.raises(ValueError):
         e4.i4_packed_k(_bf(g, 8, K + 32), e4.pack_k(w4))
+
+
+@pytest.mark.parametrize("N", [4096, 132 * 256])
+def test_study_int4_upcast_at_its_longest_k(dev, N):
+    """i4_upcast at K = UPCAST_K_MAX (12,288), at tiles of 128 and of 256
+    columns (the larger stage, the tighter shared memory; past K = 1024·H
+    a thread's pieces of x beyond those it holds are read again from L2):
+    bit-equal to the plain version; one step of 32 past it is refused."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    K = e4.UPCAST_K_MAX
+    g = torch.Generator(device=dev).manual_seed(N + 1)
+    x = _bf(g, 8, K) * 3
+    w4 = torch.randint(-8, 8, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    got = e4.i4_upcast(x, e4.pack_k8(w4))
+    assert torch.equal(got, e4.int4_matmul_plain(x, w4))
+    w4 = torch.zeros((K + 32, N), device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        e4.i4_upcast(_bf(g, 8, K + 32), e4.pack_k8(w4))
 
 
 def test_study_fused_layer_matches_plain(dev, monkeypatch):

@@ -2,8 +2,8 @@
 CPU.  `studies/exp_gemv.gemv_plan(N, sms)` is a pure function of the
 column count and the SM count, the plan of the decode-GEMV kernels
 (csrc/study_gemv.cu); `studies/exp_int4.packed_k_plan` is its form for the
-packed-int4 kernel (csrc/study_int4.cu `i4_packed_k`), whose tiles are
-whole 128-column boxes.  Each test walks the plan as the kernel walks it —
+int4 kernels on TMA rings (csrc/study_int4.cu `i4_packed_k` and
+`i4_upcast`), whose tiles are whole 128-column boxes.  Each test walks the plan as the kernel walks it —
 block b takes tiles b, b + grid, ..., each tile 64·C columns, those past N
 masked — and holds it to what the kernel needs: every column of [0, N)
 taken exactly once, a tile the kernel has, a grid no larger than the
@@ -20,6 +20,7 @@ import inspect
 
 import numpy as np
 import pytest
+import torch
 
 from aha_tpu_torch.studies import exp_fused_layer as efl
 from aha_tpu_torch.studies import exp_gemv as eg
@@ -230,3 +231,123 @@ def test_packed_k_plan_is_the_gemv_plan_in_whole_boxes(N):
         assert e4.packed_k_plan(N, SMS) == (128, min(_cdiv(N, 128), SMS))
     tile, grid = e4.packed_k_plan(151936, SMS)
     assert (tile, grid, _cdiv(151936, tile)) == (128, 132, 1187)
+
+
+# -- the int4 upcast kernel's plan (csrc/study_int4.cu `i4_upcast`) -------------
+#
+# i4_upcast reuses packed_k_plan: its tiles of 128 or 256 columns are four
+# or eight of its 32-word TMA boxes.
+
+UPCAST_BOX_WORDS = 32      # a box row: 32 k8 words, 128 bytes
+
+
+@pytest.mark.parametrize("sms", [SMS, 114, 1])
+@pytest.mark.parametrize("N", [8, 24, 2088, 151936])
+def test_upcast_plan_covers_every_column_once(N, sms):
+    """i4_upcast runs on packed_k_plan (reused, not a plan of its own):
+    every column of [0, N) lies in exactly one block's walk, a tile is
+    whole 32-word boxes, the grid is no larger than the tiles, and the k8
+    words' tensor map has a row stride of 4N bytes, a multiple of 16; a box
+    starts at a column that is a multiple of 32, 128 bytes into a row."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    tile, grid = e4.packed_k_plan(N, sms)
+    assert tile in (128, 256) and tile % UPCAST_BOX_WORDS == 0
+    assert 1 <= grid <= min(_cdiv(N, tile), sms)
+    taken = np.zeros(_cdiv(N, tile) * tile, np.int64)
+    for walk in _walks(N, tile, grid):
+        assert walk, "every block has a tile"
+        for t in walk:
+            taken[t * tile:(t + 1) * tile] += 1
+    assert (taken[:N] == 1).all()
+    assert (4 * N) % 16 == 0
+    assert all((4 * b) % 128 == 0
+               for b in range(0, _cdiv(N, tile) * tile, UPCAST_BOX_WORDS))
+
+
+def test_upcast_word_rows_stride_is_whole_16_bytes_for_every_n():
+    """The TMA map over the (K/8, N) int32 words needs a row stride that is
+    a multiple of 16 bytes: 4N is, for every N % 8 == 0 the wrapper admits
+    (up to past the Qwen3 head's 151936)."""
+    assert all((4 * n) % 16 == 0 for n in range(8, 160_001, 8))
+
+
+def _fake_lib(monkeypatch, calls):
+    from aha_tpu_torch.ops import kernels
+
+    class Lib:
+        def aha_study_int4(self, x, w, out, K, N, variant, tile, grid,
+                           stream):
+            calls.append(dict(K=K, N=N, variant=variant, tile=tile,
+                              grid=grid))
+            return 0
+
+    monkeypatch.setattr(kernels, "lib", lambda: Lib())
+    monkeypatch.setattr(kernels, "stream_handle", lambda t: 0)
+
+
+@pytest.mark.parametrize("sms", [SMS, 114, 1])
+@pytest.mark.parametrize("N", [8, 2088, 132 * 256, 151936])
+def test_upcast_wrapper_launches_on_packed_k_plan(monkeypatch, N, sms):
+    """The launch i4_upcast's wrapper makes takes packed_k_plan(N, sms)
+    for the card's SM count (faked here, the C entry recorded instead of
+    called): the same (tile, grid) as i4_packed_k's; i4_tensorcore's grid
+    stays its own (no plan passed)."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    calls = []
+    _fake_lib(monkeypatch, calls)
+    monkeypatch.setattr(e4, "sm_count", lambda device: sms)
+    K = 64
+    x = torch.zeros((8, K), dtype=torch.bfloat16)
+    words = torch.zeros((K // 8, N), dtype=torch.int32)
+    packed = torch.zeros((K // 2, N), dtype=torch.int8)
+    e4._launch(x, words, "i4_upcast")
+    e4._launch(x, packed, "i4_packed_k")
+    e4._launch(x, words, "i4_tensorcore")
+    tile, grid = e4.packed_k_plan(N, sms)
+    assert calls[0] == dict(K=K, N=N, variant=e4.VARIANTS["i4_upcast"],
+                            tile=tile, grid=grid)
+    assert (calls[1]["tile"], calls[1]["grid"]) == (tile, grid)
+    assert (calls[2]["tile"], calls[2]["grid"]) == (0, 0)
+
+
+def test_upcast_wrapper_refuses_past_its_k(monkeypatch):
+    """i4_upcast's K limit is checked by the wrapper: K = UPCAST_K_MAX
+    launches, one step of 32 past it raises ValueError before any launch."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    calls = []
+    _fake_lib(monkeypatch, calls)
+    monkeypatch.setattr(e4, "sm_count", lambda device: SMS)
+    for K in (e4.UPCAST_K_MAX, e4.UPCAST_K_MAX + 32):
+        x = torch.zeros((8, K), dtype=torch.bfloat16)
+        words = torch.zeros((K // 8, 64), dtype=torch.int32)
+        if K > e4.UPCAST_K_MAX:
+            with pytest.raises(ValueError):
+                e4._launch(x, words, "i4_upcast")
+        else:
+            e4._launch(x, words, "i4_upcast")
+    assert len(calls) == 1 and calls[0]["K"] == e4.UPCAST_K_MAX
+
+
+def test_upcast_k_limit_is_the_shared_memory_budget():
+    """UPCAST_K_MAX is the longest K (a multiple of 32) whose B fragments
+    (512 bytes a 64 k values, in whole 512-k ring steps) fit beside two
+    256-column ring stages (64 KB each, two mbarriers), the warps' row
+    maxima and the 1 KB alignment in the H100's 227 KB of opt-in shared
+    memory — csrc/study_int4.cu's launch_upcast<2> budget; and below it
+    the sums stay exact (|sum| ≤ K·127·8 < 2^24, and 16x that < 2^31)."""
+    from aha_tpu_torch.studies import exp_int4 as e4
+
+    def smem(K, tile=256):
+        ksteps = _cdiv(K // 8, 64)
+        stage = tile // 32 * 64 * 128
+        return 1024 + ksteps * 8 * 32 * 16 + tile // 32 * 8 * 4 \
+            + 2 * (stage + 16)
+
+    optin = 232448
+    assert smem(e4.UPCAST_K_MAX) <= optin < smem(e4.UPCAST_K_MAX + 32)
+    assert e4.UPCAST_K_MAX % 32 == 0 and e4.UPCAST_K_MAX >= e4.PACKED_K_MAX
+    assert e4.UPCAST_K_MAX * 127 * 8 < 2 ** 24
+    assert 16 * e4.UPCAST_K_MAX * 127 * 8 < 2 ** 31
