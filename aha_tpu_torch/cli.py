@@ -47,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "together in one batched step (text models)")
     s.add_argument("--prefix-cache", type=int, default=4,
                    help="prompt-prefix KV cache entries (0 disables)")
+    s.add_argument("--eager", action="store_true",
+                   help="run decode blocks eagerly instead of replaying "
+                        "captured CUDA graphs")
     s.add_argument("--allow-remote-shutdown", action="store_true")
     s.add_argument("--api-key", help="require 'Authorization: Bearer <key>' "
                                      "(env AHA_API_KEY also works)")
@@ -62,7 +65,8 @@ def main(argv: list[str] | None = None) -> int:
     model = load_model(model_id_for(args.path, args.model), args.path,
                        max_seq_len=args.max_seq_len,
                        prefix_cache=args.prefix_cache,
-                       batch_slots=args.batch_slots)
+                       batch_slots=args.batch_slots,
+                       cuda_graphs=not args.eager)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "
           f"{model.engine.device}", flush=True)
     state = ServerState(model=model,

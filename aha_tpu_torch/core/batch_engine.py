@@ -24,10 +24,17 @@ Design, as in the JAX engine:
   dispatches, `decode_block` steps per dispatch up to `runahead` steps
   ahead of the host, chunked token fetches, per-request output queues.
 
-Where the JAX engine jits `decode_block` steps into one dispatch and reads
-tokens back with copy_to_host_async, this one runs the steps eagerly and
-reads back through a non-blocking copy into pinned memory plus a CUDA
-event, so the scheduler never waits on the step it just issued.  Not
+Where the JAX engine jits `decode_block` steps into one dispatch, this one
+replays a captured CUDA graph of them on a CUDA device (core/graphs.py),
+keyed on (mode, n_steps) over the one shared cache, as JAX keys its
+`_decode_n`: every step input (tokens, rings, counts, active mask,
+sampling parameters) is a device tensor updated in place, never rebound,
+and the B slot generators are registered with the sampled graph.
+`cuda_graphs=False`, and any CPU device, run the steps eagerly.  Tokens
+come back, as JAX's copy_to_host_async, through a non-blocking copy of the
+block's (static) output into pinned memory plus a CUDA event, enqueued on
+the replay's stream before the next replay, so the scheduler never waits
+on the block it just issued.  Admission and prefill stay eager.  Not
 ported: the `mesh`/`dp`/`tp` sharded layouts and multimodal requests.
 """
 
@@ -42,6 +49,7 @@ from typing import Iterator
 import torch
 
 from aha_tpu_torch.core import cache as kv
+from aha_tpu_torch.core.graphs import DecodeGraphs
 from aha_tpu_torch.core.engine import (CACHE_BUCKETS, PREFILL_BUCKETS,
                                        REPEAT_WINDOW, PrefixStore, Timing,
                                        bucket_for)
@@ -67,8 +75,10 @@ class _Request:
 
 class _HostCopy:
     """A device tensor's values on their way to the host: a non-blocking
-    copy into pinned memory and an event recorded after it (on the CPU,
-    the tensor itself)."""
+    copy into pinned memory and an event recorded after it, both on the
+    current stream (on the CPU, the tensor itself).  Made right after a
+    replay, it is ordered before the next replay that overwrites the
+    graph's output."""
 
     def __init__(self, t: torch.Tensor):
         self._event = None
@@ -88,13 +98,15 @@ class _HostCopy:
 
 class BatchEngine:
     """Continuous batching over a model with per-slot decode positions
-    (Qwen3Model: a (B,) cache["pos"] and prefill over cached rows)."""
+    (Qwen3Model: a (B,) cache["pos"] and prefill over cached rows).
+    `cuda_graphs`: replay captured decode blocks on a CUDA device (False:
+    run them eagerly)."""
 
     def __init__(self, model, params: dict, eos_token_ids: list[int],
                  slots: int = 4, cache_dtype: torch.dtype | None = None,
                  max_seq_len: int = 4096, runahead: int = 32,
                  prefix_cache_entries: int = 0, prefill_chunk: int = 512,
-                 decode_block: int = 4):
+                 decode_block: int = 4, cuda_graphs: bool = True):
         self.model = model
         self.params = model.fuse_params(params)
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
@@ -131,6 +143,11 @@ class BatchEngine:
         self._active_i32 = self._active.int()
         self._mode = "greedy"
         self._slots_dirty = True
+        #: decode steps dispatched (every slot steps in each)
+        self.decode_steps = 0
+        self.graphs = (DecodeGraphs(dev) if cuda_graphs and dev.type == "cuda"
+                       else None)
+        self._graph_table: dict = {}
 
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._wake = threading.Event()
@@ -169,13 +186,24 @@ class BatchEngine:
         toks = torch.where(self._active, toks, 0)
         self._rings[self._slot_ar, (self._n_gen % REPEAT_WINDOW).long()] = toks
         self._n_gen.add_(self._active_i32)
-        self._tokens = toks
+        self._tokens.copy_(toks)
         return toks
 
     def _decode_n(self, n_steps: int) -> torch.Tensor:
         """n_steps batched decode steps; the (n_steps, B) tokens in step
-        order."""
-        return torch.stack([self._step() for _ in range(n_steps)])
+        order: on the card the replay of the (mode, n_steps) graph, whose
+        output buffer the next replay overwrites (read it back before, on
+        the same stream: _HostCopy)."""
+        self.decode_steps += n_steps
+
+        def block():
+            return torch.stack([self._step() for _ in range(n_steps)])
+
+        if self.graphs is None:
+            return block()
+        gens = tuple(self._gens) if self._mode == "general" else ()
+        return self.graphs.run(self._graph_table, (self._mode, n_steps),
+                               block, gens)
 
     def _seed_slot(self, slot: int, tok: torch.Tensor) -> None:
         """Seed a freshly admitted slot's loop state with its first token."""
@@ -411,12 +439,15 @@ class BatchEngine:
                 self._finish(slot)
 
     def _refresh_step_inputs(self, active: list[bool]) -> None:
+        """Write the slot set's sampling parameters and active mask into
+        the step inputs in place (a captured block reads their storage)."""
         cfgs = [(r.cfg if r is not None else SamplingConfig())
                 for r in self._slot_req]
-        dev = self.device
-        self._sp = pack_sampling_params(cfgs, dev)
-        self._active = torch.tensor(active, dtype=torch.bool, device=dev)
-        self._active_i32 = self._active.int()
+        for name, t in pack_sampling_params(cfgs).items():
+            self._sp[name].copy_(t)
+        mask = torch.tensor(active, dtype=torch.bool)
+        self._active.copy_(mask)
+        self._active_i32.copy_(mask)
         self._mode = "greedy" if all(
             c.greedy and c.repeat_penalty == 1.0 for c in cfgs) else "general"
         self._slots_dirty = False

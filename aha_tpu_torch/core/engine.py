@@ -21,9 +21,22 @@ AHA_KV_INT8=1 when served); a prefix snapshot carries the int8 layout's
 scales.  A multimodal prompt (`mm`, Qwen2.5-VL's images) prefills with its
 inputs and joins the prefix store under its content digest `mm_key`; the
 snapshot carries the M-RoPE `rope_delta`.  The continuous-batching engine
-is core/batch_engine.py, sharing PrefixStore.  Not ported yet: speculative
-decoding (raises), the per-bucket window variants (nothing is traced), and
-jit/donation (PyTorch runs eagerly).
+is core/batch_engine.py, sharing PrefixStore.
+
+On a CUDA device every decode block — DECODE_BLOCK steps, or the single
+step of the tail at the cache bucket's end — is one replay of a captured
+CUDA graph (core/graphs.py), the counterpart of the JAX engine's jitted
+`lax.scan` over a donated cache: keyed on (cache_len, window key, mode,
+n_steps) as JAX keys `_get_decode_n` on (cfg, n_steps, window), captured
+on first use and bound to the pooled cache of that length and to the
+loop state kept beside it (input token, repeat ring, generated count).
+The window key is the smallest CACHE_BUCKETS entry covering the block's
+live rows, capped at the cache length: JAX's `_live_window`, except that
+where that gives None (no bound) the key is the cache bucket, which the
+port's fused-stack gate reads as JAX's unbounded window would not (the
+gate's 2048 is a bucket, so it chooses as with the exact live rows).
+`cuda_graphs=False`, and any CPU device, run the same blocks eagerly.
+Not ported yet: speculative decoding (raises) and the jitted prefill.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from typing import Iterator
 import torch
 
 from aha_tpu_torch.core import cache as kv
+from aha_tpu_torch.core.graphs import DecodeGraphs
 from aha_tpu_torch.core.sampling import (DEFAULT_REPEAT_LAST_N,
                                          SamplingConfig, fast_argmax,
                                          sample_token)
@@ -63,6 +77,19 @@ def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
         if n <= b:
             return b
     raise ValueError(f"sequence length {n} exceeds largest bucket {buckets[-1]}")
+
+
+def window_key(live_rows: int, cache_len: int) -> int:
+    """The decode window a block runs under, and keys its graph on: the
+    smallest CACHE_BUCKETS entry covering `live_rows`, capped at
+    `cache_len` (aha_tpu's TextEngine._live_window, with the cache bucket
+    where that returns None)."""
+    for w in CACHE_BUCKETS:
+        if w >= cache_len:
+            return cache_len
+        if live_rows <= w:
+            return w
+    return cache_len
 
 
 @dataclasses.dataclass
@@ -156,16 +183,30 @@ class PrefixStore:
         cache["pos"].fill_(p)
 
 
+@dataclasses.dataclass
+class _Pooled:
+    """A pooled cache and the decode loop's device state bound to it: the
+    next step's input token, the repeat-token ring, the tokens generated so
+    far, and the graphs captured over them."""
+    cache: dict
+    token: torch.Tensor
+    ring: torch.Tensor
+    n_gen: torch.Tensor
+    graphs: dict = dataclasses.field(default_factory=dict)
+
+
 class TextEngine:
     """Drives one model (init_cache / backbone / logits / fuse_params, and
     greedy_token where it has one: Qwen3Model, LlamaModel, Qwen2_5VLModel)
     at batch 1; the cache has `cache_dtype` (default the parameters'
-    dtype; torch.int8 for the quantized layout)."""
+    dtype; torch.int8 for the quantized layout).  `cuda_graphs`: replay
+    captured decode blocks on a CUDA device (False: run them eagerly)."""
 
     def __init__(self, model, params: dict, eos_token_ids: list[int],
                  max_seq_len: int = 8192, prefix_cache_entries: int = 0,
                  spec_tokens: int = 0,
-                 cache_dtype: torch.dtype | None = None):
+                 cache_dtype: torch.dtype | None = None,
+                 cuda_graphs: bool = True):
         if spec_tokens > 0:
             raise ValueError("speculative decoding is not ported to "
                              "aha_tpu_torch yet; serve with spec_tokens=0")
@@ -178,9 +219,14 @@ class TextEngine:
         self.max_seq_len = max_seq_len
         self.prefix_cache_entries = prefix_cache_entries
         self._prefix_entries = PrefixStore(prefix_cache_entries)
-        self._cache_pool: dict[int, dict] = {}
+        self._cache_pool: dict[int, _Pooled] = {}
         self.last_timing = Timing()
         self._greedy_fn = getattr(model, "greedy_token", None)
+        # one generator, re-seeded per sampled request
+        self._gen = torch.Generator(device=self.device)
+        self.graphs = (DecodeGraphs(self.device)
+                       if cuda_graphs and self.device.type == "cuda"
+                       else None)
 
     @property
     def device(self) -> torch.device:
@@ -188,14 +234,23 @@ class TextEngine:
 
     # -- cache pool ---------------------------------------------------------
 
-    def _take_cache(self, cache_len: int) -> dict:
-        c = self._cache_pool.pop(cache_len, None)
-        if c is None:
-            c = self.model.init_cache(1, cache_len, self.cache_dtype)
-        return kv.reset(c)
+    def _take(self, cache_len: int) -> _Pooled:
+        """The pooled cache of this length with its loop state, rewound
+        (ring and count zeroed); a new one if the pool has none."""
+        st = self._cache_pool.pop(cache_len, None)
+        if st is None:
+            i32 = dict(dtype=torch.int32, device=self.device)
+            st = _Pooled(self.model.init_cache(1, cache_len, self.cache_dtype),
+                         torch.zeros((), **i32),
+                         torch.zeros((REPEAT_WINDOW,), **i32),
+                         torch.zeros((), **i32))
+        kv.reset(st.cache)
+        st.ring.zero_()
+        st.n_gen.zero_()
+        return st
 
-    def _return_cache(self, cache: dict) -> None:
-        self._cache_pool[kv.cache_max_len(cache)] = cache
+    def _return(self, st: _Pooled) -> None:
+        self._cache_pool[kv.cache_max_len(st.cache)] = st
 
     # -- steps --------------------------------------------------------------
 
@@ -220,39 +275,67 @@ class TextEngine:
         return min(int(last_n), REPEAT_WINDOW)
 
     def _sample(self, logits: torch.Tensor, cfg: SamplingConfig,
-                gen: torch.Generator | None, ring: torch.Tensor,
-                n_gen: int) -> torch.Tensor:
-        """Sample from (1, V) logits; record the token in the ring."""
-        n_valid = min(n_gen, self._repeat_window(cfg))
-        tok = sample_token(logits[0], cfg, gen, ring, n_valid)
-        ring[n_gen % ring.shape[0]] = tok
+                st: _Pooled) -> torch.Tensor:
+        """Sample from (1, V) logits with the loop state on the device:
+        the ring's first min(n_gen, window) entries penalized, the token
+        recorded at n_gen mod the ring's length, n_gen advanced."""
+        n_valid = st.n_gen.clamp(max=self._repeat_window(cfg))
+        tok = sample_token(logits[0], cfg, self._gen, st.ring, n_valid)
+        slot = (st.n_gen % st.ring.shape[0]).long().reshape(1)
+        st.ring.index_copy_(0, slot, tok.reshape(1))
+        st.n_gen.add_(1)
         return tok
 
-    def _decode_step(self, token: torch.Tensor, cache: dict,
-                     cfg: SamplingConfig, gen, ring: torch.Tensor,
-                     n_gen: int, window: int) -> torch.Tensor:
-        """One decode step from a device token; returns the next device
-        token (0-dim int32) without a host sync.  `window` bounds the live
-        cache rows after the step."""
-        hidden = self.model.backbone(self.params, token.reshape(1, 1), cache,
-                                     window=window)
-        kv.advance(cache, 1)
-        if cfg.greedy and cfg.repeat_penalty == 1.0:
-            if self._greedy_fn is not None:
-                return self._greedy_fn(self.params, hidden)
-            logits = self.model.logits(self.params, hidden)
-            return fast_argmax(logits.float().reshape(-1))
-        logits = self.model.logits(self.params, hidden)[:, 0].float()
-        return self._sample(logits, cfg, gen, ring, n_gen)
+    @staticmethod
+    def _mode(cfg: SamplingConfig) -> str:
+        return "greedy" if cfg.greedy and cfg.repeat_penalty == 1.0 \
+            else "sampled"
 
-    def _decode_block(self, token, cache, cfg, gen, ring, n_gen0: int,
-                      n_steps: int, window: int) -> torch.Tensor:
-        toks = []
-        for i in range(n_steps):
-            token = self._decode_step(token, cache, cfg, gen, ring,
-                                      n_gen0 + i, window)
+    def _decode_steps(self, st: _Pooled, cfg: SamplingConfig, n_steps: int,
+                      window: int) -> torch.Tensor:
+        """`n_steps` decode steps from st.token, every input on the device
+        and no host sync; the (n_steps,) int32 tokens, the last left in
+        st.token for the next block.  `window` bounds the live cache rows
+        after the last step."""
+        greedy = self._mode(cfg) == "greedy"
+        token, toks = st.token, []
+        for _ in range(n_steps):
+            hidden = self.model.backbone(self.params, token.reshape(1, 1),
+                                         st.cache, window=window)
+            kv.advance(st.cache, 1)
+            if greedy and self._greedy_fn is not None:
+                token = self._greedy_fn(self.params, hidden)
+            elif greedy:
+                logits = self.model.logits(self.params, hidden)
+                token = fast_argmax(logits.float().reshape(-1))
+            else:
+                logits = self.model.logits(self.params, hidden)[:, 0].float()
+                token = self._sample(logits, cfg, st)
             toks.append(token)
+        st.token.copy_(token)
         return torch.stack(toks)
+
+    def _decode_block(self, st: _Pooled, cfg: SamplingConfig, n_steps: int,
+                      live_rows: int) -> torch.Tensor:
+        """A decode block whose last step leaves `live_rows` live cache
+        rows: the replay of its graph on the card (cuda_graphs), else the
+        steps run eagerly."""
+        cache_len = kv.cache_max_len(st.cache)
+        window = window_key(live_rows, cache_len)
+
+        def block():
+            return self._decode_steps(st, cfg, n_steps, window)
+
+        if self.graphs is None:
+            return block()
+        mode = self._mode(cfg)
+        # the sampled block bakes cfg's filters in; its seed is the
+        # generator's state, read at each replay
+        key = (window, mode, n_steps,
+               dataclasses.replace(cfg, seed=0) if mode == "sampled"
+               else None)
+        return self.graphs.run(st.graphs, key, block,
+                               (self._gen,) if mode == "sampled" else ())
 
     # -- main loop ----------------------------------------------------------
 
@@ -280,15 +363,12 @@ class TextEngine:
         cache_len = bucket_for(min(prompt_len + max_tokens, self.max_seq_len),
                                CACHE_BUCKETS)
         pf_bucket = min(bucket_for(prompt_len), cache_len)
-        cache = self._take_cache(cache_len)
+        st = self._take(cache_len)
+        cache = st.cache
         timing = Timing(prompt_tokens=prompt_len)
         self.last_timing = timing
-        gen = None
         if not cfg.greedy:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(cfg.seed)
-        ring = torch.zeros((REPEAT_WINDOW,), dtype=torch.int32,
-                           device=self.device)
+            self._gen.manual_seed(cfg.seed)
 
         entry, p = (None, 0)
         use_prefix = self.prefix_cache_entries and \
@@ -315,7 +395,8 @@ class TextEngine:
                                        from_cache=False, mm=mm)
             if use_prefix:
                 self._prefix_entries.store(prompt_ids, cache, key)
-            token = self._sample(logits, cfg, gen, ring, 0)
+            token = self._sample(logits, cfg, st)
+            st.token.copy_(token)
             token_host = int(token)
             timing.prompt_secs = time.perf_counter() - t0
             timing.completion_tokens = 1
@@ -343,10 +424,8 @@ class TextEngine:
             # live rows after a block: the prompt, the tokens sampled so
             # far (the last not yet in the cache) and the block's steps
             while emitted + blk <= max_decode:
-                toks = self._decode_block(token, cache, cfg, gen, ring,
-                                          emitted, blk,
+                toks = self._decode_block(st, cfg, blk,
                                           prompt_len + emitted + blk)
-                token = toks[-1]
                 if (yield from emit(toks.tolist())):
                     return
             rem = max_decode - emitted
@@ -355,18 +434,17 @@ class TextEngine:
             if prompt_len + emitted + blk <= cache_len:
                 # one overshooting block, extras discarded: blk − 1 wasted
                 # device steps beat blk − 1 host round trips
-                toks = self._decode_block(token, cache, cfg, gen, ring,
-                                          emitted, blk,
+                toks = self._decode_block(st, cfg, blk,
                                           prompt_len + emitted + blk)
                 yield from emit(toks.tolist()[:rem])
                 return
             while emitted < max_decode:   # single-step tail at the bucket end
-                token = self._decode_step(token, cache, cfg, gen, ring,
-                                          emitted, prompt_len + emitted + 1)
-                if (yield from emit([int(token)])):
+                toks = self._decode_block(st, cfg, 1,
+                                          prompt_len + emitted + 1)
+                if (yield from emit(toks.tolist())):
                     return
         finally:
-            self._return_cache(cache)
+            self._return(st)
 
     def generate_tokens(self, prompt_ids: list[int], cfg: SamplingConfig,
                         max_tokens: int = 1024, **mm_kw) -> list[int]:

@@ -48,12 +48,19 @@ def fast_argmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def apply_repeat_penalty(logits: torch.Tensor, recent_tokens: torch.Tensor,
-                         n_valid: int, penalty: float) -> torch.Tensor:
+                         n_valid: "int | torch.Tensor",
+                         penalty: float) -> torch.Tensor:
     """Penalize tokens among the first `n_valid` entries of the recent-token
-    ring: positive logits are divided by the penalty, negative multiplied."""
-    present = torch.zeros(logits.shape[-1], dtype=torch.bool,
+    ring: positive logits are divided by the penalty, negative multiplied.
+    `n_valid` is a host int or a 0-dim device tensor (the captured decode
+    block's count): the ring is masked by position, never sliced, so
+    neither form reads a device value on the host."""
+    W = recent_tokens.shape[0]
+    valid = torch.arange(W, device=recent_tokens.device) < n_valid
+    idx = torch.where(valid, recent_tokens, 0).long()
+    present = torch.zeros(logits.shape[-1], dtype=torch.int32,
                           device=logits.device)
-    present[recent_tokens[:n_valid].long()] = True
+    present = present.scatter_add_(0, idx, valid.int()) > 0
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(present, penalized, logits)
 
@@ -71,14 +78,14 @@ def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     sorted_logits = -sorted_logits
     cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
     cut = cum > p
-    cut[..., 0] = False
+    cut[..., 0].fill_(False)       # a kernel: no host scalar copied
     sorted_logits = torch.where(cut, float("-inf"), sorted_logits)
     return torch.empty_like(logits).scatter_(-1, sort_idx, sorted_logits)
 
 
 def filter_logits(logits: torch.Tensor, cfg: SamplingConfig,
                   recent_tokens: torch.Tensor | None = None,
-                  n_valid: int = 0) -> torch.Tensor:
+                  n_valid: "int | torch.Tensor" = 0) -> torch.Tensor:
     """The logits a sampled draw is taken from: float32, penalized,
     temperature-scaled, top-k then top-p masked with -inf."""
     logits = logits.float()
@@ -106,11 +113,12 @@ def gumbel_noise(shape, generator: torch.Generator,
 
 def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
                  generator: torch.Generator | None = None,
-                 recent_tokens: torch.Tensor | None = None, n_valid: int = 0,
+                 recent_tokens: torch.Tensor | None = None,
+                 n_valid: "int | torch.Tensor" = 0,
                  noise: torch.Tensor | None = None) -> torch.Tensor:
     """logits: (vocab,) → 0-dim int32 token on the logits' device.  A
     sampled draw adds `noise` (Gumbel) if given, else draws it from
-    `generator`."""
+    `generator`.  `n_valid`: a host int or a 0-dim device tensor."""
     logits = filter_logits(logits, cfg, recent_tokens, n_valid)
     if cfg.greedy:
         return fast_argmax(logits)
@@ -182,7 +190,7 @@ def _mask_top_p_dyn(logits: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     sorted_logits = -sorted_neg
     cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
     cut = (cum > p[:, None]) & (p < 1.0)[:, None]
-    cut[:, 0] = False
+    cut[:, 0].fill_(False)
     sorted_logits = torch.where(cut, float("-inf"), sorted_logits)
     return torch.empty_like(logits).scatter_(-1, sort_idx, sorted_logits)
 
@@ -198,8 +206,9 @@ def sample_tokens_batch(logits: torch.Tensor, sp: dict, rings: torch.Tensor,
     logits = logits.float()
     B, V = logits.shape
     W = rings.shape[1]
-    n_valid = torch.minimum(torch.minimum(n_gen, sp["repeat_last_n"]),
-                            torch.tensor(W, device=n_gen.device))
+    # clamped by the host int: no per-step upload (a captured block
+    # refuses one)
+    n_valid = torch.minimum(n_gen, sp["repeat_last_n"]).clamp(max=W)
     lg = _penalized(logits, rings, n_valid, sp["repeat_penalty"])
     greedy_tok = fast_argmax(lg)
     temp = sp["temperature"]

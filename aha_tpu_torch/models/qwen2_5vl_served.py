@@ -114,7 +114,8 @@ class Qwen2_5VLChat(TextChatModel):
 
         served = super().load(entry, path, build, max_seq_len=max_seq_len,
                               prefix_cache=kw.get("prefix_cache", 4),
-                              spec_tokens=kw.get("spec_tokens", 0))
+                              spec_tokens=kw.get("spec_tokens", 0),
+                              cuda_graphs=kw.get("cuda_graphs", True))
         pp = {}
         pp_path = os.path.join(path, "preprocessor_config.json")
         if os.path.exists(pp_path):

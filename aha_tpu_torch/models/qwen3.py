@@ -114,7 +114,8 @@ class Qwen3Model:
         self._layer_ids = torch.arange(self.n_layers, dtype=torch.int32,
                                        device=self.device)
         self._views: tuple[Any, list[dict]] | None = None
-        self._slots: torch.Tensor | None = None
+        # arange(B) per slot count, kept: a captured decode block binds it
+        self._slots: dict[int, torch.Tensor] = {}
 
     # -- cache --------------------------------------------------------------
 
@@ -186,9 +187,9 @@ class Qwen3Model:
         return x + nn.swiglu_mlp(lp["mlp"], h)
 
     def _slot_ids(self, B: int, device) -> torch.Tensor:
-        if self._slots is None or self._slots.shape[0] != B:
-            self._slots = torch.arange(B, device=device)
-        return self._slots
+        if B not in self._slots:
+            self._slots[B] = torch.arange(B, device=device)
+        return self._slots[B]
 
     def _use_fused_stack(self, params: dict, x: torch.Tensor, cache: dict,
                          window: int | None) -> str | None:

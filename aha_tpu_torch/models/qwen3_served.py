@@ -24,4 +24,5 @@ class Qwen3Chat(TextChatModel):
         return super().load(entry, path, build, max_seq_len=max_seq_len,
                             batch_slots=kw.get("batch_slots", 1),
                             prefix_cache=kw.get("prefix_cache", 4),
-                            spec_tokens=kw.get("spec_tokens", 0))
+                            spec_tokens=kw.get("spec_tokens", 0),
+                            cuda_graphs=kw.get("cuda_graphs", True))

@@ -55,8 +55,10 @@ class TextChatModel(GenerateModel, LoadedModel):
     def load(cls, entry: ModelEntry, path: str,
              build_model: Callable[[str, int], tuple],
              max_seq_len: int = 8192, batch_slots: int = 1,
-             prefix_cache: int = 4, spec_tokens: int = 0) -> "TextChatModel":
-        """build_model(path, max_seq_len) → (model, params)."""
+             prefix_cache: int = 4, spec_tokens: int = 0,
+             cuda_graphs: bool = True) -> "TextChatModel":
+        """build_model(path, max_seq_len) → (model, params); `cuda_graphs`
+        as the engines take it."""
         if batch_slots > 1 and spec_tokens > 0:
             raise ValueError(SPEC_WITH_SLOTS)
         model, params = build_model(path, max_seq_len)
@@ -69,13 +71,15 @@ class TextChatModel(GenerateModel, LoadedModel):
             engine = BatchEngine(model, params, eos_token_ids=eos,
                                  slots=batch_slots, cache_dtype=cache_dtype,
                                  max_seq_len=max_seq_len,
-                                 prefix_cache_entries=prefix_cache)
+                                 prefix_cache_entries=prefix_cache,
+                                 cuda_graphs=cuda_graphs)
         else:
             engine = TextEngine(model, params, eos_token_ids=eos,
                                 max_seq_len=max_seq_len,
                                 prefix_cache_entries=prefix_cache,
                                 spec_tokens=spec_tokens,
-                                cache_dtype=cache_dtype)
+                                cache_dtype=cache_dtype,
+                                cuda_graphs=cuda_graphs)
         served = cls(entry, engine, TokenizerModel.init(path),
                      ChatTemplate.init(path), load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))

@@ -4,11 +4,17 @@
     python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
     python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl
+    ... [--eager]
 
 Builds Qwen3-0.6B's published geometry with seeded random bf16 weights,
 prefills a random prompt through TextEngine, and reads one decode block of
 `--steps` greedy steps twice per configuration — the fused decode stack
-(AHA_FUSED_LAYER=1, the default) and the per-op chain (AHA_FUSED_LAYER=0):
+(AHA_FUSED_LAYER=1, the default) and the per-op chain (AHA_FUSED_LAYER=0),
+each through an engine of its own.  A block is the engines' captured CUDA
+graph, replayed (its capture is part of the warm-up); `--eager` reads the
+same blocks through engines built with `cuda_graphs=False`, the eager loop.
+Every reading's JSON line names which (`"graphs"`: the engine's graph
+count and capture seconds, null when eager):
 
 - wall ms: host clock from the block's first launch to a synchronize after
   its last, WITHOUT the profiler (its own overhead would inflate it);
@@ -122,6 +128,14 @@ def drive_concurrent(eng, prompts: list[list[int]], cfg, max_tokens: int,
     return outs, ttft, wall, peak[0] if monitor else None
 
 
+def _how(args) -> str:
+    return " eager" if args.eager else " graphed"
+
+
+def _graphs(eng) -> dict | None:
+    return eng.graphs.stats() if eng.graphs is not None else None
+
+
 @contextlib.contextmanager
 def _fused(on: bool):
     old = os.environ.get("AHA_FUSED_LAYER")
@@ -180,7 +194,8 @@ def profile_batch(model, params, args, card: str) -> None:
     n = args.batch_slots
     dtype = torch.int8 if args.kv_int8 else torch.bfloat16
     eng = BatchEngine(model, params, eos_token_ids=[], slots=n,
-                      cache_dtype=dtype, max_seq_len=max(args.cache, 512))
+                      cache_dtype=dtype, max_seq_len=max(args.cache, 512),
+                      cuda_graphs=not args.eager)
     eng._refresh_step_inputs([True] * n)
 
     def block():
@@ -188,7 +203,7 @@ def profile_batch(model, params, args, card: str) -> None:
         eng._decode_n(args.steps)
 
     name = (f"batch {n} {str(dtype).replace('torch.', '')}"
-            + (f" {args.quant}" if args.quant else ""))
+            + (f" {args.quant}" if args.quant else "") + _how(args))
     with torch.no_grad():
         for _ in range(2):                  # warm-up: allocator, cuBLAS
             block()
@@ -198,7 +213,7 @@ def profile_batch(model, params, args, card: str) -> None:
           f"aggregate over the block")
     print(json.dumps({"config": name, "card": card, "prompt": args.prompt,
                       "cache": args.cache, "steps": args.steps,
-                      "decode_block": d}))
+                      "graphs": _graphs(eng), "decode_block": d}))
 
 
 def _timed_methods(obj, names: tuple[str, ...]) -> dict:
@@ -236,7 +251,8 @@ def profile_engine(model, params, args, card: str) -> None:
 
     greedy = SamplingConfig()
     eng = BatchEngine(model, params, eos_token_ids=[], slots=args.batch_slots,
-                      cache_dtype=dtype, max_seq_len=args.cache)
+                      cache_dtype=dtype, max_seq_len=args.cache,
+                      cuda_graphs=not args.eager)
     try:
         # warm-up of the step and prefill shapes, not counted
         drive_concurrent(eng, [prompt(40), prompt(600)], greedy, 8)
@@ -249,7 +265,8 @@ def profile_engine(model, params, args, card: str) -> None:
         eng.shutdown()
     tokens = len(prompts) * ENGINE_TOKENS
     steps = secs["_decode_n"][0] * eng.decode_block
-    name = f"engine {args.batch_slots} {str(dtype).replace('torch.', '')}"
+    name = (f"engine {args.batch_slots} {str(dtype).replace('torch.', '')}"
+            + _how(args))
     print(f"[{name}] {len(prompts)} requests x {ENGINE_TOKENS} tokens: wall "
           f"{wall:.3f} s, {tokens / wall:.1f} tok/s aggregate, time to first "
           f"token mean {np.mean(ttft) * 1e3:.1f} ms; {steps} decode steps "
@@ -260,7 +277,7 @@ def profile_engine(model, params, args, card: str) -> None:
                       "runahead": eng.runahead, "wall_s": wall,
                       "tok_s": tokens / wall,
                       "ttft_mean_ms": float(np.mean(ttft)) * 1e3,
-                      "decode_steps": steps,
+                      "decode_steps": steps, "graphs": _graphs(eng),
                       "host_s": {k: {"calls": v[0], "s": v[1]}
                                  for k, v in secs.items()}}))
 
@@ -360,7 +377,8 @@ def profile_vl(args, card: str) -> None:
     model = Qwen2_5VLModel(cfg, max_rope_len=8192, device="cuda")
     params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
                                dtype=torch.bfloat16)
-    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                     cuda_graphs=not args.eager)
     rng = np.random.default_rng(0)
     side = args.image_px
     pixels = rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
@@ -374,36 +392,35 @@ def profile_vl(args, card: str) -> None:
     cache_len = max(args.cache, bucket_for(len(ids) + args.steps + 1,
                                            CACHE_BUCKETS))
     greedy = SamplingConfig()
-    ring = torch.zeros((64,), dtype=torch.int32, device="cuda")
     print(f"profile_decode: Qwen2.5-VL-3B, {side} px image ({patches.shape[0]}"
           f" patches, bucket {mm['patches'].shape[0]}), prompt {len(ids)} "
           f"(bucket {bucket}), cache {cache_len}, {args.steps}-step block "
           f"| {card}")
     with torch.no_grad():
-        cache = eng._take_cache(cache_len)
+        st = eng._take(cache_len)
 
         def vision():
             model.encode_vision(eng.params["visual"], mm)
 
         def prefill():
-            cache["pos"].zero_()
-            return eng._prefill(ids, bucket, cache, from_cache=False, mm=mm)
+            st.cache["pos"].zero_()
+            return eng._prefill(ids, bucket, st.cache, from_cache=False,
+                                mm=mm)
 
         def block():
-            cache["pos"].fill_(len(ids))
-            tok = torch.zeros((), dtype=torch.int32, device="cuda")
-            eng._decode_block(tok, cache, greedy, None, ring, 1, args.steps,
+            st.cache["pos"].fill_(len(ids))
+            eng._decode_block(st, greedy, args.steps,
                               len(ids) + 1 + args.steps)
 
-        for _ in range(2):                  # warm-up: allocator, cuBLAS
+        for _ in range(2):       # warm-up: allocator, cuBLAS, the capture
             prefill()
             block()
-        out = {"config": "qwen2_5vl per-op", "card": card,
+        out = {"config": "qwen2_5vl per-op" + _how(args), "card": card,
                "image_px": side, "prompt": len(ids), "cache": cache_len,
-               "steps": args.steps, "vision": _read(vision, 1),
-               "prefill": _read(prefill, 1),
+               "steps": args.steps, "graphs": _graphs(eng),
+               "vision": _read(vision, 1), "prefill": _read(prefill, 1),
                "decode_block": _read(block, args.steps)}
-        eng._return_cache(cache)
+        eng._return(st)
     _print_block(out["config"], out["decode_block"], args.steps)
     for part in ("vision", "prefill"):
         p = out[part]
@@ -434,6 +451,9 @@ def main(argv=None) -> int:
                     default="qwen3",
                     help="qwen2_5vl: Qwen2.5-VL-3B's tower, image prefill "
                          "and text decode")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode blocks eagerly (engines built with "
+                         "cuda_graphs=False) instead of replaying graphs")
     ap.add_argument("--image-px", type=int, default=980,
                     help="with --model qwen2_5vl: the image's side, a "
                          "multiple of 28")
@@ -468,41 +488,43 @@ def main(argv=None) -> int:
         (profile_engine if args.engine else profile_batch)(model, params,
                                                            args, card)
         return 0
-    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
     ids = [int(t) for t in
            np.random.default_rng(0).integers(0, cfg.vocab_size, args.prompt)]
     greedy = SamplingConfig()
-    ring = torch.zeros((64,), dtype=torch.int32, device="cuda")
     bucket = bucket_for(len(ids))
     print(f"profile_decode: prompt {len(ids)} (bucket {bucket}), cache "
           f"{args.cache}, {args.steps}-step block, "
-          f"{args.quant or 'bf16'} weights | {card}")
+          f"{args.quant or 'bf16'} weights,{_how(args)} | {card}")
     with torch.no_grad():
         for fused in (True, False):
             with _fused(fused):
-                cache = eng._take_cache(args.cache)
+                # an engine per route: its graphs are captured on the route
+                eng = TextEngine(model, params, eos_token_ids=[],
+                                 max_seq_len=8192, cuda_graphs=not args.eager)
+                st = eng._take(args.cache)
 
                 def prefill():
-                    cache["pos"].zero_()
-                    return eng._prefill(ids, bucket, cache, from_cache=False)
+                    st.cache["pos"].zero_()
+                    return eng._prefill(ids, bucket, st.cache,
+                                        from_cache=False)
 
                 def block():
-                    cache["pos"].fill_(len(ids))
-                    tok = torch.zeros((), dtype=torch.int32, device="cuda")
-                    eng._decode_block(tok, cache, greedy, None, ring, 1,
-                                      args.steps,
+                    st.cache["pos"].fill_(len(ids))
+                    eng._decode_block(st, greedy, args.steps,
                                       len(ids) + 1 + args.steps)
 
-                for _ in range(2):          # warm-up: allocator, cuBLAS
+                for _ in range(2):   # warm-up: allocator, cuBLAS, the capture
                     prefill()
                     block()
                 out = {"config": ("fused" if fused else "per-op")
-                           + (f" {args.quant}" if args.quant else ""),
+                           + (f" {args.quant}" if args.quant else "")
+                           + _how(args),
                        "card": card, "prompt": len(ids),
                        "cache": args.cache, "steps": args.steps,
+                       "graphs": _graphs(eng),
                        "prefill": _read(prefill, 1),
                        "decode_block": _read(block, args.steps)}
-                eng._return_cache(cache)
+                eng._return(st)
             d, p = out["decode_block"], out["prefill"]
             _print_block(out["config"], d, args.steps)
             print(f"[{out['config']}] prefill: wall {p['wall_ms']:.2f} ms, "

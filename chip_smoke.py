@@ -77,6 +77,15 @@ before the last line:
    importtime` (no jax or aha_tpu module): one chat with a PNG data-URL
    image and one text-only chat.
 
+Every engine path runs its decode blocks as replays of captured CUDA
+graphs (core/graphs.py), the engines' default on the card, and once more
+through an engine built with cuda_graphs=False (the servers: `serv
+--eager`): the greedy tokens, and the sampled ones from the same seed,
+must be equal, and so must every kernel's launch count — on the batched
+paths, whose scheduler decides by timing how many blocks run, a block's
+launches and the launches besides the blocks; each such path prints
+`[graphs]` lines (graphs captured, capture seconds, decode ms/step
+graphed and eager), gathered in one JSON line before the kernels line.
 Every serving path's run must leave the one-layer block's launch count at
 0 (no model calls it, as in the JAX package), and the study kernels'
 (their path is the studies phase).  Every kernel check also reads the
@@ -84,8 +93,9 @@ least time the card could take for the
 same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
-timed here only, never called by the port).  Then one JSON line of
-per-kernel results, the card line, and the last line {"ok": true,
+timed here only, never called by the port).  Then the JSON line of the
+graph readings, one JSON line of per-kernel results, the card line, and
+the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
 """
 
@@ -360,6 +370,72 @@ def read_counts(wr: dict, path: str, must: tuple[str, ...]) -> dict:
             launches[name]
     log(f"[{path}] launches: {json.dumps(launches)}")
     return launches
+
+
+#: per path: the graphed engine's graphs and capture seconds, and ms/step
+#: graphed and eager (printed as one JSON line before the kernels line)
+GRAPH_READINGS: list[dict] = []
+
+
+def _diff(a: dict, b: dict) -> dict:
+    return {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+            if a.get(k) != b.get(k)}
+
+
+def _graph_stats(eng, device: str) -> dict:
+    """The engine's graph count and capture seconds; on the card it must
+    hold graphs (the CPU, where the smoke's phases are rehearsed, runs
+    eagerly)."""
+    require(device != "cuda" or eng.graphs is not None,
+            "an engine on the card runs without graphs")
+    return (eng.graphs.stats() if eng.graphs is not None
+            else {"graphs": 0, "capture_s": 0.0})
+
+
+def _ms_per_step(timings) -> float:
+    """Decode wall ms per step over requests' Timing (the first token is
+    the prefill's)."""
+    steps = sum(t.completion_tokens - 1 for t in timings)
+    return sum(t.completion_secs for t in timings) / max(steps, 1) * 1e3
+
+
+def eager_twin(path: str, graphed, make_eager, run, outs: list,
+               counts: dict, device: str = "cuda",
+               groups: dict | None = None) -> None:
+    """The path once more through an engine built with cuda_graphs=False:
+    `run(engine)` → (token lists, Timings).  Its tokens (greedy, and
+    sampled from the same seeds) and every kernel's launch count must
+    equal the graphed run's (`outs`, `counts`); then the graphed engine
+    repeats `run`, capturing nothing new, for its ms/step with every graph
+    already captured.  `groups` names the requests read as one ms/step
+    (name → indices; by default all of them, under `path`)."""
+    eager = make_eager()
+    require(eager.graphs is None, f"[{path}] the eager twin holds graphs")
+    wr = zero_counts()
+    _sync(device)
+    outs_e, t_eager = run(eager)
+    _sync(device)
+    counts_e = {name: fn.launches for name, fn in wr.items()}
+    require(outs_e == outs, f"[{path}] graphed tokens differ from eager: "
+            f"{outs} vs {outs_e}")
+    require(counts_e == counts, f"[{path}] launches graphed vs eager differ: "
+            f"{_diff(counts, counts_e)}")
+    stats = _graph_stats(graphed, device)
+    _, t_graphed = run(graphed)
+    _sync(device)
+    require(_graph_stats(graphed, device)["graphs"] == stats["graphs"],
+            f"[{path}] a repeat of the same requests captured again")
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[graphs] {path}: tokens equal to the eager engine's, every "
+        f"kernel's launches equal; {stats['graphs']} graphs captured in "
+        f"{stats['capture_s']:.2f} s | {card}")
+    for name, idx in (groups or {path: range(len(outs))}).items():
+        ms_g = _ms_per_step([t_graphed[i] for i in idx])
+        ms_e = _ms_per_step([t_eager[i] for i in idx])
+        GRAPH_READINGS.append({"path": name, **stats, "ms_per_step_graphed":
+                               ms_g, "ms_per_step_eager": ms_e})
+        log(f"[graphs] {name}: decode {ms_g:.3f} ms/step graphed, "
+            f"{ms_e:.3f} eager | {card}")
 
 
 # -- 1. device ----------------------------------------------------------------
@@ -1565,6 +1641,19 @@ def teacher_forced_hidden(model, params, ids: list[int], forced: list[int],
     return hid.float().cpu(), greedy
 
 
+def _requests(reqs, **kw):
+    """`run` for eager_twin: each (ids, cfg, max_tokens) of `reqs` through
+    the engine's generate_tokens in turn."""
+    def run(eng):
+        outs, timings = [], []
+        for ids, cfg, n in reqs:
+            outs.append(eng.generate_tokens(ids, cfg, max_tokens=n, **kw))
+            timings.append(eng.last_timing)
+        return outs, timings
+
+    return run
+
+
 def phase_engine(cfg, device: str = "cuda") -> dict:
     from aha_tpu_torch.core.engine import TextEngine
     from aha_tpu_torch.core.sampling import SamplingConfig
@@ -1610,8 +1699,9 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     out_e = eng.generate_tokens(e_ids, greedy, max_tokens=32)
     te = eng.last_timing
     _sync(device)
-    read_counts(wr, "engine", ("flash_decode_at_layer_flat", "head_argmax",
-                               "flash_attention", "fused_decode_stack"))
+    engine_counts = read_counts(wr, "engine", (
+        "flash_decode_at_layer_flat", "head_argmax", "flash_attention",
+        "fused_decode_stack"))
     # (a)-(d) run 4 + 8 + 2 + 2 decode blocks of 16 steps, each step one
     # fused launch; (e), past 2048 rows, none
     require(n_fused == 16 * (4 + 8 + 2 + 2)
@@ -1647,20 +1737,36 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     log(f"[engine] (e) prefill {te.prompt_secs * 1e3:.2f} ms for 2100 tokens "
         f"(bucket 4096), decode {rate(te):.1f} tok/s at batch 1 (per-op "
         f"chain, 2100+ rows) | {card}")
+    reqs = ((a_ids, greedy, 64), (b_ids, greedy, 128), (c_ids, greedy, 32),
+            (a_ids, sampled, 32), (e_ids, greedy, 32))
+    eager_twin("(a)-(e)", eng, lambda: TextEngine(
+        model, params, eos_token_ids=[], max_seq_len=8192,
+        prefix_cache_entries=4, cuda_graphs=False), _requests(reqs),
+        [out_a, out_b, out_c, out_d, out_e], engine_counts, device,
+        groups={"(a)-(c) greedy, fused stack": (0, 1, 2),
+                "(d) sampled, fused stack": (3,),
+                "(e) greedy past 2048 rows, per-op chain": (4,)})
     # (b) once more with the fused stack switched off, outside the counted
-    # main path: the per-op chain's rate on the same request
+    # main path: the per-op chain on the same request, graphed and eager
     os.environ["AHA_FUSED_LAYER"] = "0"
     try:
         plain_eng = TextEngine(model, params, eos_token_ids=[],
                                max_seq_len=8192)
+        wr = zero_counts()
         out_b0 = plain_eng.generate_tokens(b_ids, greedy, max_tokens=128)
+        _sync(device)
         tb0 = plain_eng.last_timing
+        eager_twin("(b) per-op chain", plain_eng, lambda: TextEngine(
+            model, params, eos_token_ids=[], max_seq_len=8192,
+            cuda_graphs=False), _requests(reqs[1:2]), [out_b0],
+            {name: fn.launches for name, fn in wr.items()}, device)
     finally:
         del os.environ["AHA_FUSED_LAYER"]
     same = next((i for i, (x, y) in enumerate(zip(out_b, out_b0)) if x != y),
                 len(out_b))
     log(f"[engine] (b) per-op chain: decode {rate(tb0):.1f} tok/s at batch 1 "
-        f"| {card}; greedy streams equal for the first {same}/128 tokens")
+        f"(graphs captured in this request) | {card}; greedy streams equal "
+        f"to the fused stack's for the first {same}/128 tokens")
 
     # 8 teacher-forced steps of (b) through each decode path on the card vs
     # the plain path (float32 on the CPU: there every wrapper runs its
@@ -1691,12 +1797,39 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
 #: the request of the (f)/(g) mix that samples (a 420-token prompt)
 SAMPLED = 5
 
+def _block_reading(eng, device: str) -> tuple[dict, dict]:
+    """One `decode_block` dispatch of every slot, in each mode, on an
+    engine whose scheduler has stopped (slots at 1000 live rows): the
+    launches of one block by mode, and ms per step over 8 blocks."""
+    counts, ms = {}, {}
+    blk = eng.decode_block
+    with torch.no_grad():
+        for mode in ("greedy", "general"):
+            eng._refresh_step_inputs([True] * eng.slots)
+            eng._mode = mode
+            eng._cache["pos"].fill_(1000)
+            wr = zero_counts()
+            eng._decode_n(blk)
+            _sync(device)
+            counts[mode] = {name: fn.launches for name, fn in wr.items()}
+            t0 = time.perf_counter()
+            for _ in range(8):
+                eng._decode_n(blk)
+            _sync(device)
+            ms[mode] = (time.perf_counter() - t0) * 1e3 / (8 * blk)
+    return counts, ms
+
+
 def _batch_path(model, params, device: str, cache_dtype, name: str,
                 must: tuple[str, ...], slots: int = 8) -> None:
     """(f)/(g): a BatchEngine of `slots` slots, max_seq_len 4096, the 12
     requests of BATCH_PROMPTS, 64 tokens each, from threads at once; one
     of them sampled (temperature, top-k, top-p, repeat penalty), so the
-    steps it shares run the batched sampler with per-slot generators."""
+    steps it shares run the batched sampler with per-slot generators.
+    Then the same through an engine built with cuda_graphs=False: every
+    request's tokens equal; one block's launches in each mode equal; and
+    each kernel's count over the run, less its launches a block times
+    the blocks dispatched (which the scheduler's timing decides), equal."""
     from aha_tpu_torch.core.batch_engine import BatchEngine
     from aha_tpu_torch.core.sampling import SamplingConfig
     from aha_tpu_torch.utils.profile_decode import (BATCH_PROMPTS,
@@ -1704,26 +1837,41 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
 
     V = model.config.vocab_size
     rng = np.random.default_rng(len(name))
-    eng = BatchEngine(model, params, eos_token_ids=[], slots=slots,
-                      cache_dtype=cache_dtype, max_seq_len=4096)
     greedy = SamplingConfig()
     sampled = SamplingConfig(temperature=0.7, top_k=20, top_p=0.9,
                              repeat_penalty=1.1, seed=1234)
     cfgs = [greedy] * len(BATCH_PROMPTS)
     cfgs[SAMPLED] = sampled
-    try:
-        # warm-up of the step and prefill shapes, not counted
-        drive_concurrent(eng, [_prompt(rng, 40, V), _prompt(rng, 600, V)],
-                         [greedy, sampled], 8)
-        prompts = [_prompt(rng, n, V) for n in BATCH_PROMPTS]
-        wr = zero_counts()
-        _sync(device)
-        outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs, 64,
-                                                  monitor=True)
-        _sync(device)
-        launches = read_counts(wr, name, must)
-    finally:
-        eng.shutdown()
+    warm = [_prompt(rng, 40, V), _prompt(rng, 600, V)]
+    prompts = [_prompt(rng, n, V) for n in BATCH_PROMPTS]
+    runs = {}
+    for graphed in (True, False):
+        eng = BatchEngine(model, params, eos_token_ids=[], slots=slots,
+                          cache_dtype=cache_dtype, max_seq_len=4096,
+                          cuda_graphs=graphed)
+        try:
+            # warm-up of the step and prefill shapes, not counted
+            drive_concurrent(eng, warm, [greedy, sampled], 8)
+            wr = zero_counts()
+            s0 = eng.decode_steps
+            _sync(device)
+            outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs, 64,
+                                                      monitor=True)
+            _sync(device)
+            launches = (read_counts(wr, name, must) if graphed else
+                        {n: fn.launches for n, fn in wr.items()})
+            steps = eng.decode_steps - s0
+        finally:
+            eng.shutdown()
+        block, ms = _block_reading(eng, device)
+        runs[graphed] = dict(outs=outs, ttft=ttft, wall=wall, peak=peak,
+                             launches=launches, steps=steps, block=block,
+                             ms=ms, blk=eng.decode_block,
+                             graphs=_graph_stats(eng, device)
+                             if graphed else None)
+    g, e = runs[True], runs[False]
+    outs, ttft, wall, peak, launches = (g[k] for k in (
+        "outs", "ttft", "wall", "peak", "launches"))
     for i, out in enumerate(outs):
         require(out is not None and len(out) == 64
                 and all(0 <= t < V for t in out),
@@ -1735,6 +1883,21 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
     n_distinct = len(set(outs[SAMPLED]))
     require(n_distinct > 1,
             f"{name}: the sampled request drew one token: {outs[SAMPLED]}")
+    require(e["outs"] == outs, f"{name}: graphed tokens differ from eager")
+    require(g["block"] == e["block"], f"{name}: a block's launches graphed "
+            f"vs eager differ: {_diff(g['block'], e['block'])}")
+    require(g["block"]["greedy"] == g["block"]["general"],
+            f"{name}: a greedy and a general block launch other kernels")
+    blk = g["blk"]
+    per_block = g["block"]["general"]
+    for k in launches:
+        # the run's launches outside its decode blocks: the prefills'
+        rest = [r["launches"][k] * blk - r["steps"] * per_block[k]
+                for r in (g, e)]
+        require(rest[0] == rest[1], f"{name}: {k} launches besides the "
+                f"decode blocks differ graphed vs eager: "
+                f"{g['launches'][k]} in {g['steps']} steps, "
+                f"{e['launches'][k]} in {e['steps']} steps")
     card = card_line() if device == "cuda" else "cpu"
     log(f"[{name}] {len(prompts)} requests of {len(prompts[0])}-"
         f"{len(prompts[-1])} prompt tokens, 64 tokens each (11 greedy, 1 "
@@ -1745,6 +1908,20 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
         f"{len(prompts) * 64 / wall:.1f} tok/s over {wall:.2f} s; time to "
         f"first token mean {np.mean(ttft) * 1e3:.1f} ms, max "
         f"{max(ttft) * 1e3:.1f} ms | {card}")
+    log(f"[graphs] {name}: tokens equal to the eager engine's, a block's "
+        f"launches equal in both modes, and the launches besides the "
+        f"blocks ({g['steps']} and {e['steps']} steps dispatched); "
+        f"{g['graphs']['graphs']} graphs captured in "
+        f"{g['graphs']['capture_s']:.2f} s; eager run aggregate "
+        f"{len(prompts) * 64 / e['wall']:.1f} tok/s | {card}")
+    for mode in ("greedy", "general"):
+        GRAPH_READINGS.append({
+            "path": f"{name} {mode} block", **g["graphs"],
+            "ms_per_step_graphed": g["ms"][mode],
+            "ms_per_step_eager": e["ms"][mode]})
+        log(f"[graphs] {name}, {mode} block of {blk} steps, {slots} slots at "
+            f"1000 rows: {g['ms'][mode]:.3f} ms/step graphed, "
+            f"{e['ms'][mode]:.3f} eager | {card}")
 
 
 def _int8_text_path(model, params, device: str) -> None:
@@ -1762,9 +1939,13 @@ def _int8_text_path(model, params, device: str) -> None:
     _sync(device)
     out = eng.generate_tokens(ids, SamplingConfig(), max_tokens=128)
     _sync(device)
-    read_counts(wr, "int8-text", ("flash_decode_at_layer_q8",))
+    counts = read_counts(wr, "int8-text", ("flash_decode_at_layer_q8",))
     require(len(out) == 128 and all(0 <= t < V for t in out),
             f"int8 TextEngine: {len(out)} tokens")
+    eager_twin("(h) int8 cache, per-op chain", eng, lambda: TextEngine(
+        model, params, eos_token_ids=[], max_seq_len=8192,
+        cache_dtype=torch.int8, cuda_graphs=False),
+        _requests([(ids, SamplingConfig(), 128)]), [out], counts, device)
     t = eng.last_timing
     card = card_line() if device == "cuda" else "cpu"
     log(f"[int8-text] (h) 300-token prompt, int8 cache: 128 greedy tokens, "
@@ -1877,19 +2058,30 @@ def _quant_text_path(model, params, grid: str, device: str) -> None:
     require(len(out_s) == 16 and len(out) == 128
             and all(0 <= t < V for t in out_s + out),
             f"{grid} TextEngine: {len(out_s)} + {len(out)} tokens")
+    label = {"q8": "(j)", "q4": "(k)"}[grid]
+    reqs = [(short, SamplingConfig(), 16), (ids, SamplingConfig(), 128)]
+    eager_twin(f"{label} {grid} fused stack", eng, lambda: TextEngine(
+        model, params, eos_token_ids=[], max_seq_len=8192,
+        cuda_graphs=False), _requests(reqs), [out_s, out], launches, device)
     os.environ["AHA_FUSED_LAYER"] = "0"
     try:
         plain_eng = TextEngine(model, params, eos_token_ids=[],
                                max_seq_len=8192)
+        wr = zero_counts()
         out0 = plain_eng.generate_tokens(ids, SamplingConfig(),
                                          max_tokens=128)
+        _sync(device)
         t0 = plain_eng.last_timing
+        eager_twin(f"{label} {grid} per-op chain", plain_eng,
+                   lambda: TextEngine(model, params, eos_token_ids=[],
+                                      max_seq_len=8192, cuda_graphs=False),
+                   _requests(reqs[1:]), [out0],
+                   {name: fn.launches for name, fn in wr.items()}, device)
     finally:
         del os.environ["AHA_FUSED_LAYER"]
     same = next((i for i, (x, y) in enumerate(zip(out, out0)) if x != y),
                 len(out))
     card = card_line() if device == "cuda" else "cpu"
-    label = {"q8": "(j)", "q4": "(k)"}[grid]
 
     def rate(t):
         return (t.completion_tokens - 1) / t.completion_secs
@@ -1898,8 +2090,8 @@ def _quant_text_path(model, params, grid: str, device: str) -> None:
         f"128 greedy tokens, prefill {t.prompt_secs * 1e3:.2f} ms, decode "
         f"{rate(t):.1f} tok/s at batch 1 (quantized fused stack) | {card}")
     log(f"[{grid}-text] {label} per-op chain: decode {rate(t0):.1f} tok/s at "
-        f"batch 1 | {card}; greedy streams equal for the first {same}/128 "
-        f"tokens")
+        f"batch 1 (graphs captured in this request) | {card}; greedy streams "
+        f"equal to the fused stack's for the first {same}/128 tokens")
 
 
 def _write_gguf_model(path: str, cfg, n_layers: int, seed: int) -> None:
@@ -2053,6 +2245,11 @@ def _gguf_path(cfg, device: str) -> None:
             "the GGUF path ran the bf16 fused stack")
     require(len(out) == 32 and all(0 <= t < V for t in out),
             f"GGUF TextEngine: {len(out)} tokens")
+    eager_twin("(m) GGUF file, quantized fused stack", eng,
+               lambda: TextEngine(model, params, eos_token_ids=[],
+                                  max_seq_len=4096, cuda_graphs=False),
+               _requests([(ids, SamplingConfig(), 32)]), [out], launches,
+               device)
     t = eng.last_timing
     card = card_line() if device == "cuda" else "cpu"
     log(f"[gguf] 64-token prompt: 32 greedy tokens, prefill "
@@ -2162,12 +2359,35 @@ def _post(url: str, body: dict) -> tuple[int, str]:
 
 
 def phase_http(config, params: dict) -> None:
+    """The servers replay captured decode blocks; a server started with
+    `--eager` must give the same greedy replies."""
     with tempfile.TemporaryDirectory(prefix="aha_torch_smoke_") as tmp:
         _write_checkpoint(tmp, config, params)
         with _server(tmp) as base:
-            _ask(base)
+            first = _ask(base)
+        with _server(tmp, "--eager") as base:
+            _same_replies("single stream", [first], [_reply(base, _ASK)])
         with _server(tmp, "--batch-slots", "4") as base:
-            _ask_concurrent(base, 4)
+            replies = _ask_concurrent(base, 4)
+        with _server(tmp, "--batch-slots", "4", "--eager") as base:
+            _same_replies("--batch-slots 4", replies,
+                          _ask_concurrent(base, 4))
+
+
+def _same_replies(what: str, graphed: list, eager: list) -> None:
+    require(graphed == eager, f"{what}: the eager server's replies differ: "
+            f"{graphed} vs {eager}")
+    log(f"[graphs] HTTP {what}: {len(eager)} greedy replies of the "
+        f"graphed server equal to an --eager server's")
+
+
+def _reply(base: str, body: dict) -> str:
+    """A non-stream chat's reply text (content, else reasoning)."""
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": False})
+    msg = json.loads(text)["choices"][0]["message"]
+    require(status == 200, text[-500:])
+    return msg.get("content") or msg.get("reasoning_content") or ""
 
 
 def _write_checkpoint(tmp: str, config, params: dict) -> None:
@@ -2256,15 +2476,21 @@ def _chat_body(text: str) -> dict:
             "messages": [{"role": "user", "content": text}]}
 
 
-def _ask(base: str) -> None:
-    """Non-stream, stream and a prefix-cache repeat."""
-    body = _chat_body("the quick brown fox jumps over the lazy dog " * 3)
+_ASK = _chat_body("the quick brown fox jumps over the lazy dog " * 3)
+
+
+def _ask(base: str) -> str:
+    """Non-stream, stream and a prefix-cache repeat; the first reply's
+    text."""
+    body = _ASK
     status, text = _post(base + "/v1/chat/completions",
                          {**body, "stream": False})
     resp = json.loads(text)
     u = resp["usage"]
     require(status == 200 and u["prompt_tokens"] >= 32
             and u["completion_tokens"] >= 1, resp)
+    msg = resp["choices"][0]["message"]
+    first = msg.get("content") or msg.get("reasoning_content") or ""
     log(f"[http] non-stream 200: usage prompt {u['prompt_tokens']} "
         f"completion {u['completion_tokens']}")
     status, text = _post(base + "/v1/chat/completions",
@@ -2287,10 +2513,11 @@ def _ask(base: str) -> None:
     require(status == 200 and u["completion_tokens"] >= 1, text)
     log(f"[http] prefix-cache repeat 200: usage prompt "
         f"{u['prompt_tokens']} completion {u['completion_tokens']}")
+    return first
 
 
-def _ask_concurrent(base: str, n: int) -> None:
-    """n chats at once: every one 200 with content."""
+def _ask_concurrent(base: str, n: int) -> list[str]:
+    """n chats at once: every one 200 with content; their texts."""
     from concurrent.futures import ThreadPoolExecutor
 
     texts = [f"request {i}: the quick brown fox jumps over the lazy dog "
@@ -2301,14 +2528,16 @@ def _ask_concurrent(base: str, n: int) -> None:
             lambda t: _post(base + "/v1/chat/completions",
                             {**_chat_body(t), "stream": False}), texts))
     wall = time.perf_counter() - t0
+    out = []
     for status, text in replies:
         resp = json.loads(text)
         msg = resp["choices"][0]["message"]
-        require(status == 200 and (msg.get("content")
-                                   or msg.get("reasoning_content"))
+        out.append(msg.get("content") or msg.get("reasoning_content"))
+        require(status == 200 and out[-1]
                 and resp["usage"]["completion_tokens"] >= 1, text[-500:])
     log(f"[http] {n} concurrent chats to --batch-slots {n}: all 200 with "
         f"content in {wall:.2f} s")
+    return out
 
 # -- 8. Qwen2.5-VL image chat ---------------------------------------------------
 
@@ -2395,6 +2624,16 @@ def embed_dtype(params: dict) -> torch.dtype:
     return params["text"]["embed"]["w"].dtype
 
 
+def _vl_run(ids, mm, key, cfg):
+    """`run` for eager_twin: one image request of 32 tokens."""
+    def run(eng):
+        out = eng.generate_tokens(ids, cfg, max_tokens=32, mm=mm, mm_key=key,
+                                  mm_token_ids=(VL_IMAGE,))
+        return [out], [eng.last_timing]
+
+    return run
+
+
 def phase_vl(device: str = "cuda") -> dict:
     """(n1)-(n3) at the published geometry, then the teacher-forced check
     at reduced depth; returns the model and parameters."""
@@ -2443,7 +2682,7 @@ def phase_vl(device: str = "cuda") -> dict:
 
     eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
                      prefix_cache_entries=4)
-    outs, timing = {}, {}
+    outs, timing, counts = {}, {}, {}
     steps = 32                  # 2 decode blocks of 16 for 32 tokens
     for name in ("n1", "n2"):
         ids, _, _, _, key = reqs[name]
@@ -2454,9 +2693,9 @@ def phase_vl(device: str = "cuda") -> dict:
                                          mm_token_ids=(VL_IMAGE,))
         _sync(device)
         timing[name] = eng.last_timing
-        got = read_counts(wr, f"vl-{name}", ("flash_attention_segmented",
-                                             "flash_attention",
-                                             "flash_decode_at_layer"))
+        got = counts[name] = read_counts(
+            wr, f"vl-{name}", ("flash_attention_segmented", "flash_attention",
+                               "flash_decode_at_layer"))
         require(got["flash_attention_segmented"] == 32
                 and got["flash_attention"] == 36
                 and got["flash_decode_at_layer"] == 36 * steps,
@@ -2477,7 +2716,7 @@ def phase_vl(device: str = "cuda") -> dict:
                                      mm_key=key2, mm_token_ids=(VL_IMAGE,))
     _sync(device)
     timing["n3"] = eng.last_timing
-    got = read_counts(wr, "vl-n3", ("flash_decode_at_layer",))
+    got = counts["n3"] = read_counts(wr, "vl-n3", ("flash_decode_at_layer",))
     require(got["flash_attention_segmented"] == 0
             and got["flash_attention"] == 0
             and got["flash_decode_at_layer"] == 36 * steps,
@@ -2498,6 +2737,17 @@ def phase_vl(device: str = "cuda") -> dict:
             f"{vis}; 32 greedy tokens, decode "
             f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at "
             f"batch 1 (per-op chain) | {card}")
+    # each of (n1)-(n3) once more through an eager engine with its own
+    # prefix store, request by request
+    eager = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                       prefix_cache_entries=4, cuda_graphs=False)
+    vl_reqs = {"n1": (reqs["n1"][0], mms["n1"], reqs["n1"][4]),
+               "n2": (reqs["n2"][0], mms["n2"], key2),
+               "n3": (ids3, mm3, key2)}
+    for name, (ids, mm, key) in vl_reqs.items():
+        eager_twin(f"(n) Qwen2.5-VL-3B ({name})", eng, lambda: eager,
+                   _vl_run(ids, mm, key, greedy), [outs[name]], counts[name],
+                   device)
     cold = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
     out3_cold = cold.generate_tokens(ids3, greedy, max_tokens=32, mm=mm3)
     same = next((i for i, (x, y) in enumerate(zip(outs["n3"], out3_cold))
@@ -2548,7 +2798,9 @@ def phase_http_vl(params: dict) -> None:
     with tempfile.TemporaryDirectory(prefix="aha_torch_vl_") as tmp:
         _write_vl_checkpoint(tmp, params)
         with _server(tmp) as base:
-            _ask_vl(base)
+            replies = _ask_vl(base)
+        with _server(tmp, "--eager") as base:
+            _same_replies("Qwen2.5-VL", replies, _ask_vl(base))
 
 
 def _write_vl_checkpoint(tmp: str, params: dict) -> None:
@@ -2626,9 +2878,10 @@ def _png_data_url(side: int, seed: int) -> str:
     return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
 
 
-def _ask_vl(base: str) -> None:
+def _ask_vl(base: str) -> list[str]:
     """A 224 x 224 PNG image chat (256 patches, 64 image tokens) and a
-    text-only chat: 200, the image's tokens in the prompt count, a reply."""
+    text-only chat: 200, the image's tokens in the prompt count, a reply;
+    the two replies' texts."""
     body = {"model": "Qwen/Qwen2.5-VL-3B-Instruct", "max_tokens": 16,
             "temperature": 0.0, "stream": False}
     image = [{"type": "text", "text": "describe the image "},
@@ -2636,6 +2889,8 @@ def _ask_vl(base: str) -> None:
     status, text = _post(base + "/v1/chat/completions", {
         **body, "messages": [{"role": "user", "content": image}]})
     u = json.loads(text)["usage"]
+    msg = json.loads(text)["choices"][0]["message"]
+    out = [msg.get("content") or msg.get("reasoning_content")]
     require(status == 200 and u["prompt_tokens"] > 64
             and u["completion_tokens"] >= 1, text[-500:])
     log(f"[vl-http] image chat 200: usage prompt {u['prompt_tokens']} "
@@ -2644,9 +2899,12 @@ def _ask_vl(base: str) -> None:
         **body, "messages": [{"role": "user",
                               "content": "hello world how are you today"}]})
     u = json.loads(text)["usage"]
+    msg = json.loads(text)["choices"][0]["message"]
+    out.append(msg.get("content") or msg.get("reasoning_content"))
     require(status == 200 and u["completion_tokens"] >= 1, text[-500:])
     log(f"[vl-http] text-only chat 200: usage prompt {u['prompt_tokens']} "
         f"completion {u['completion_tokens']}")
+    return out
 
 
 
@@ -2693,6 +2951,7 @@ def main() -> int:
                     "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms")
                    if k in RESULTS[name]}} for name in KERNELS]
+    print(json.dumps({"graphs": GRAPH_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

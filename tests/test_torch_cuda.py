@@ -1,8 +1,10 @@
 """Each CUDA kernel against its plain PyTorch version on the card, at small
 shapes (bf16 inputs; attention tolerance 2e-2 abs against the f32 plain
 version; the GGUF-grid kernels relative to max |ref|, each stated at its
-test).  Marked `cuda`: skipped where torch sees no CUDA device.  Run on
-a card with `python -m pytest tests/test_torch_cuda.py -m cuda`."""
+test), and each engine path's decode blocks replayed from captured CUDA
+graphs against the eager loop (`-k graphs`).  Marked `cuda`: skipped
+where torch sees no CUDA device.  Run on a card with `python -m pytest
+tests/test_torch_cuda.py -m cuda`."""
 
 import pytest
 import torch
@@ -1337,3 +1339,225 @@ def test_quant_swiglu_mma_qwen3_width_rows(dev, grid):
         one = _check_swiglu(dev, gu, dn, x[r:r + 1].contiguous())
         assert torch.equal(many[r], one[0])
     assert qm.quant_swiglu.launches > 0
+
+
+# -- captured decode blocks (core/graphs.py) ----------------------------------
+#
+# Each engine path twice on the card, once through an engine that replays
+# captured graphs (the default) and once through one built with
+# cuda_graphs=False: the same tokens bit for bit (greedy, and sampled from
+# the same seed), and every kernel's launch count the same.
+
+_GREEDY = dict()
+_SAMPLED = dict(temperature=0.7, top_k=20, top_p=0.9, repeat_penalty=1.1,
+                seed=1234)
+
+
+def _launches() -> dict:
+    from aha_tpu_torch.core.graphs import counted_wrappers
+
+    return {fn.__name__: fn.launches for fn in counted_wrappers()}
+
+
+def _counted(fn):
+    """fn's result and the launches it made, by wrapper (those > 0)."""
+    before = _launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _launches()
+    return out, {k: n - before.get(k, 0) for k, n in after.items()
+                 if n != before.get(k, 0)}
+
+
+def _qwen3_tiny(dev, grid=None):
+    """Qwen3 at a narrow width the fused stacks take (H 256, 4/2 heads of
+    128, I 512, 2 layers, vocab 512), seeded bf16; packed on a GGUF grid
+    with `grid`."""
+    from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
+                                            pack_params)
+
+    cfg = Qwen3Config(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=128)
+    model = Qwen3Model(cfg, max_rope_len=8192, device=dev)
+    params = model.init_random(torch.Generator(device=dev).manual_seed(7),
+                               dtype=torch.bfloat16, scale=0.05)
+    return model, (pack_params(params, grid) if grid else params)
+
+
+def _text_requests(eng, prompts, **kw):
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    return [eng.generate_tokens(ids, SamplingConfig(**cfg), n, **kw)
+            for ids, cfg, n in prompts]
+
+
+def _prompt_ids(n, seed, vocab=512):
+    import numpy as np
+
+    return [int(t) for t in np.random.default_rng(seed).integers(0, vocab, n)]
+
+
+@pytest.mark.parametrize("path", ["bf16-stack", "per-op-past-2048",
+                                  "int8-cache", "q8-stack", "q4-stack",
+                                  "q8-per-op", "q4-per-op"])
+def test_text_engine_graphs_equal_eager(dev, path, monkeypatch):
+    """TextEngine's decode blocks replayed from graphs against the eager
+    loop on each Qwen3 path: greedy and sampled tokens bit-equal, the same
+    launches of every kernel, and a second request on the same keys
+    capturing nothing new."""
+    from aha_tpu_torch.core.engine import TextEngine
+
+    grid = path[:2] if path[:2] in ("q8", "q4") else None
+    if path.endswith("per-op"):
+        monkeypatch.setenv("AHA_FUSED_LAYER", "0")
+    model, params = _qwen3_tiny(dev, grid)
+    kw = dict(cache_dtype=torch.int8) if path == "int8-cache" else {}
+    n_prompt = 2100 if path == "per-op-past-2048" else 40
+    # 40 tokens: two whole blocks, an overshooting block; the sampled
+    # request's bucket-end tail (cache 256 - 220 prompt rows) runs n = 1
+    reqs = [(_prompt_ids(n_prompt, 1), _GREEDY, 40),
+            (_prompt_ids(220, 2), _SAMPLED, 60)]
+    engines = {g: TextEngine(model, params, eos_token_ids=[],
+                             max_seq_len=8192, cuda_graphs=g, **kw)
+               for g in (True, False)}
+    got = {g: _counted(lambda: _text_requests(e, reqs))
+           for g, e in engines.items()}
+    assert got[True][0] == got[False][0]
+    assert got[True][1] == got[False][1]
+    stack = {"bf16-stack": "fused_decode_stack", "q8-stack":
+             "fused_decode_stack_q8", "q4-stack": "fused_decode_stack_q8"}
+    if path in stack:
+        assert got[True][1][stack[path]] > 0
+    graphs = engines[True].graphs
+    n_graphs = graphs.stats()["graphs"]
+    assert n_graphs >= 3            # greedy 16, sampled 16, sampled 1
+    again = _counted(lambda: _text_requests(engines[True], reqs))
+    assert again == got[True] and graphs.stats()["graphs"] == n_graphs
+    assert engines[False].graphs is None
+
+
+def _vl_tiny(dev):
+    from aha_tpu_torch.models.llama import LlamaConfig
+    from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLConfig,
+                                                Qwen2_5VLModel, VisionConfig)
+
+    cfg = Qwen2_5VLConfig(
+        vision=VisionConfig(depth=2, hidden_size=128, intermediate_size=256,
+                            num_heads=2, in_chans=3, out_hidden_size=256,
+                            patch_size=14, spatial_merge_size=2,
+                            temporal_patch_size=2, window_size=56,
+                            fullatt_block_indexes=(1,)),
+        text=LlamaConfig(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         rope_theta=1e6, max_position_embeddings=8192,
+                         tie_word_embeddings=True, qkv_bias=True),
+        mrope_section=(16, 8, 8), image_token_id=500, video_token_id=501,
+        vision_start_token_id=502)
+    model = Qwen2_5VLModel(cfg, max_rope_len=8192, device=dev)
+    params = model.init_random(torch.Generator(device=dev).manual_seed(8),
+                               dtype=torch.bfloat16)
+    return cfg, model, params
+
+
+def test_vl_text_decode_graphs_equal_eager(dev):
+    """Qwen2.5-VL's llama decoder over the 5-D cache: an image prompt (its
+    rope_delta read on the device) and a text one, graphed against eager:
+    tokens bit-equal, launches equal."""
+    import numpy as np
+
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+    from aha_tpu_torch.models.qwen2_5vl_served import build_mm
+
+    cfg, model, params = _vl_tiny(dev)
+    grid = (1, 8, 8)
+    patches = np.random.default_rng(0).standard_normal(
+        (64, 3 * 2 * 14 * 14)).astype(np.float32)
+    ids = _prompt_ids(4, 3, 400) + [502] + [500] * 16 + _prompt_ids(6, 4, 400)
+    mm = mm_to(build_mm([patches], [grid], ids, cfg), dev)
+    engines = {g: TextEngine(model, params, eos_token_ids=[],
+                             max_seq_len=8192, cuda_graphs=g)
+               for g in (True, False)}
+
+    def run(eng):
+        from aha_tpu_torch.core.sampling import SamplingConfig
+
+        return (eng.generate_tokens(ids, SamplingConfig(), 40, mm=mm),
+                _text_requests(eng, [(_prompt_ids(30, 5, 400), _SAMPLED,
+                                      24)]))
+
+    got = {g: _counted(lambda: run(e)) for g, e in engines.items()}
+    assert got[True] == got[False]
+    assert got[True][1]["flash_decode_at_layer"] > 0
+
+
+def _batch_blocks(eng, prompts, cfgs, n_blocks):
+    """A BatchEngine driven without its scheduler thread: each prompt
+    admitted into its slot, then `n_blocks` decode blocks, each read back
+    through _HostCopy enqueued right after the block (before the next
+    replay overwrites the graph's output).  The first tokens and the
+    (n_blocks · decode_block, B) rows."""
+    import queue
+
+    from aha_tpu_torch.core.batch_engine import _HostCopy, _Request
+
+    firsts = []
+    with torch.no_grad():
+        for slot, (ids, cfg) in enumerate(zip(prompts, cfgs)):
+            req = _Request(ids, cfg, 64, queue.Queue())
+            eng._begin_admission(req, slot)
+            entry = None
+            while entry is None:
+                entry = eng._advance_admission()
+                assert req.out.empty(), req.out.get()
+            firsts.append(entry[1].get())
+        eng._refresh_step_inputs(eng._active_mask())
+        copies = [_HostCopy(eng._decode_n(eng.decode_block))
+                  for _ in range(n_blocks)]
+    return firsts, [row for c in copies for row in c.get()]
+
+
+@pytest.mark.parametrize("grid,cache", [(None, torch.bfloat16),
+                                        (None, torch.int8),
+                                        ("q4", torch.bfloat16)])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_batch_engine_graphs_equal_eager(dev, grid, cache, sampled):
+    """BatchEngine's (mode, n_steps) blocks replayed against eager ones on
+    the same admissions: every row of tokens bit-equal, launches equal,
+    the host copies of back-to-back replays each holding its own block;
+    then a concurrent run through the scheduler gives the same tokens."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    model, params = _qwen3_tiny(dev, grid)
+    prompts = [_prompt_ids(n, 10 + n) for n in (5, 40, 90, 300)]
+    cfgs = [SamplingConfig()] * 4
+    if sampled:
+        cfgs[2] = SamplingConfig(**_SAMPLED)
+    got = {}
+    for g in (True, False):
+        eng = BatchEngine(model, params, eos_token_ids=[], slots=4,
+                          cache_dtype=cache, max_seq_len=1024,
+                          cuda_graphs=g)
+        got[g] = _counted(lambda: _batch_blocks(eng, prompts, cfgs, 6))
+        if g:
+            assert eng.graphs.stats()["graphs"] == 1
+    assert got[True] == got[False]
+    firsts, rows = got[True][0]
+    assert len(rows) == 24 and len({tuple(r) for r in rows}) > 1
+
+    from aha_tpu_torch.utils.profile_decode import drive_concurrent
+
+    outs = {}
+    for g in (True, False):
+        eng = BatchEngine(model, params, eos_token_ids=[], slots=4,
+                          cache_dtype=cache, max_seq_len=1024,
+                          cuda_graphs=g)
+        try:
+            outs[g] = drive_concurrent(eng, prompts + prompts[:2],
+                                       cfgs + cfgs[:2], 24)[0]
+        finally:
+            eng.shutdown()
+    assert outs[True] == outs[False]
