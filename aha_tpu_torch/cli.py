@@ -1,19 +1,33 @@
-"""`python -m aha_tpu_torch serv <path>`: serve a Qwen3 chat or a
-Qwen2.5-VL checkpoint on the port (counterpart of `aha serv`,
-aha_tpu/cli/main.py).  A directory whose config.json has model_type
-"qwen2_5_vl" is served as Qwen/Qwen2.5-VL-3B-Instruct unless --model names
-another id.
-`--batch-slots N` serves N chats at once through the continuous-batching
-engine; `AHA_KV_INT8=1` stores the KV cache in int8."""
+"""`python -m aha_tpu_torch <command>`: the port's CLI (counterpart of
+`aha`, aha_tpu/cli/main.py), for the model families the port serves.
+
+- `serv <path>`: serve a local Qwen3 chat or Qwen2.5-VL checkpoint.  A
+  directory whose config.json has model_type "qwen2_5_vl" is served as
+  Qwen/Qwen2.5-VL-3B-Instruct unless --model names another id.
+  `--batch-slots N` serves N chats at once through the continuous-batching
+  engine; `--spec-tokens N` drafts N tokens a speculative round on the
+  single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
+  cache in int8.
+- `run <path> --input ...`: one chat from the command line (text, or for
+  a vlm a prompt and an image), with the load and generate times.
+- `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
+  the downloaded mark, a downloaded model's removal, the running servers.
+
+The paths are given, never fetched: `download` and `cli` stay with the JAX
+package's CLI.
+"""
 
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import sys
 import time
 
+from aha_tpu_torch import registry
+from aha_tpu_torch.utils.device import default_save_dir
 
 DEFAULT_MODEL = "Qwen/Qwen3-0.6B"
 #: config.json model_type → the id a directory is served as by default
@@ -30,18 +44,41 @@ def model_id_for(path: str, model: str) -> str:
         return MODEL_TYPES.get(json.load(f).get("model_type"), model)
 
 
+def _add_model_path(p: argparse.ArgumentParser) -> None:
+    p.add_argument("path", help="model directory (config.json, tokenizer, "
+                                "*.safetensors)")
+    p.add_argument("--model", default=DEFAULT_MODEL,
+                   help="registry id the checkpoint is served as")
+    p.add_argument("--max-seq-len", type=int, default=8192)
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="speculative decoding: draft up to N tokens a round "
+                        "by prompt lookup and verify them in one forward; "
+                        "greedy requests stream output identical to plain "
+                        "decoding.  Models with a pure K/V cache only; 0 "
+                        "disables")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m aha_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("list", help="list supported models")
+    p.add_argument("--json", action="store_true", help="JSON output")
+
+    p = sub.add_parser("delete", help="delete a downloaded model")
+    p.add_argument("model", help="model id")
+    p.add_argument("--save-dir", help="model root (default ~/.aha)")
+    p.add_argument("-y", "--yes", action="store_true",
+                   help="skip confirmation")
+
+    p = sub.add_parser("ps", help="list running servers")
+    p.add_argument("--compact", action="store_true")
+
     s = sub.add_parser("serv", help="serve a local Qwen3 chat or "
                                     "Qwen2.5-VL checkpoint")
-    s.add_argument("path", help="model directory (config.json, tokenizer, "
-                                "*.safetensors)")
-    s.add_argument("--model", default=DEFAULT_MODEL,
-                   help="registry id the checkpoint is served as")
+    _add_model_path(s)
     s.add_argument("--address", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
-    s.add_argument("--max-seq-len", type=int, default=8192)
     s.add_argument("--batch-slots", type=int, default=1,
                    help="continuous batching: decode up to N chat requests "
                         "together in one batched step (text models)")
@@ -53,20 +90,93 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--allow-remote-shutdown", action="store_true")
     s.add_argument("--api-key", help="require 'Authorization: Bearer <key>' "
                                      "(env AHA_API_KEY also works)")
+
+    r = sub.add_parser("run", help="one chat from the command line")
+    _add_model_path(r)
+    r.add_argument("--input", required=True, action="append",
+                   help="repeatable: the prompt (text, or file:// text), "
+                        "then for a vlm the image (path or URL)")
+    r.add_argument("--max-tokens", type=int, default=1024)
     return ap
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+def is_model_downloaded(model_id: str, save_dir: str) -> bool:
+    d = os.path.join(save_dir, model_id)
+    return os.path.isdir(d) and bool(os.listdir(d))
+
+
+def run_list(args) -> int:
+    save = default_save_dir()
+    models = registry.model_list()
+    if args.json:
+        print(json.dumps([{
+            "model_id": m.model_id,
+            "owner": m.owner,
+            "model_type": m.model_type,
+            "downloaded": is_model_downloaded(m.model_id, save),
+        } for m in models], indent=2))
+        return 0
+    print("Available models:")
+    print()
+    print(f"{'Model ID':<40} {'Owner':<20} {'type':<10} {'Download':<10}")
+    print("-" * 80)
+    for m in models:
+        mark = "  ✔" if is_model_downloaded(m.model_id, save) else ""
+        print(f"{m.model_id:<40} {m.owner:<20} {m.model_type:<10} {mark:<10}")
+    return 0
+
+
+def run_delete(args) -> int:
+    registry.lookup(args.model)
+    target = os.path.join(args.save_dir or default_save_dir(), args.model)
+    if not os.path.isdir(target):
+        print(f"model {args.model} is not downloaded ({target})")
+        return 1
+    if not args.yes:
+        answer = input(f"Delete {target}? [y/N] ").strip().lower()
+        if answer not in ("y", "yes"):
+            print("aborted")
+            return 1
+    shutil.rmtree(target)
+    print(f"deleted {target}")
+    return 0
+
+
+def run_ps(args) -> int:
+    from aha_tpu_torch.server.process import find_aha_services
+
+    services = find_aha_services()
+    if not services:
+        print("No aha services found running.")
+        return 0
+    if args.compact:
+        for svc in services:
+            print(svc.service_id)
+        return 0
+    print(f"{'Service ID':<20} {'PID':<10} {'Model':<20} {'Port':<10} "
+          f"{'Address':<15} {'Status':<10}")
+    print("-" * 85)
+    for svc in services:
+        print(f"{svc.service_id:<20} {svc.pid:<10} {svc.model or 'N/A':<20} "
+              f"{svc.port:<10} {svc.address:<15} "
+              f"{svc.status.capitalize():<10}")
+    return 0
+
+
+def _load(args, **kw):
     from aha_tpu_torch.models.loader import load_model
+
+    return load_model(model_id_for(args.path, args.model), args.path,
+                      max_seq_len=args.max_seq_len,
+                      spec_tokens=args.spec_tokens, **kw)
+
+
+def run_serv(args) -> int:
     from aha_tpu_torch.server.app import ServerState, start_http_server
 
     t0 = time.perf_counter()
-    model = load_model(model_id_for(args.path, args.model), args.path,
-                       max_seq_len=args.max_seq_len,
-                       prefix_cache=args.prefix_cache,
-                       batch_slots=args.batch_slots,
-                       cuda_graphs=not args.eager)
+    model = _load(args, prefix_cache=args.prefix_cache,
+                  batch_slots=args.batch_slots, cuda_graphs=not args.eager)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "
           f"{model.engine.device}", flush=True)
     state = ServerState(model=model,
@@ -75,6 +185,73 @@ def main(argv: list[str] | None = None) -> int:
                         api_key=args.api_key or os.environ.get("AHA_API_KEY"))
     start_http_server(state, address=args.address, port=args.port)
     return 0
+
+
+def _as_url(s: str) -> str:
+    """Bare paths become file:// URLs."""
+    if s.startswith(("http://", "https://", "file://", "data:")):
+        return s
+    return f"file://{os.path.abspath(s)}"
+
+
+def _maybe_file_text(s: str) -> str:
+    """A file:// input is read as text."""
+    if s.startswith("file://"):
+        with open(s[7:]) as f:
+            return f.read()
+    return s
+
+
+def _chat_req(model_id: str, content, max_tokens: int, greedy: bool):
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    body = {"messages": [{"role": "user", "content": content}],
+            "model": model_id, "max_tokens": max_tokens}
+    if greedy:
+        # speculation engages on greedy requests only: without this a
+        # generation_config with temperature > 0 would never speculate
+        body["temperature"] = 0.0
+    return ChatCompletionParameters.model_validate(body)
+
+
+def run_run(args) -> int:
+    """One chat, printing the model-load and generate wall times as the
+    JAX CLI's `run` does; text chat (llm) and image chat (vlm)."""
+    model_id = model_id_for(args.path, args.model)
+    mt = registry.lookup(model_id).model_type
+    if mt not in ("llm", "vlm"):
+        raise NotImplementedError(
+            f"`run` of a {mt} model is not ported to aha_tpu_torch yet "
+            "(text and image chat are)")
+    inputs: list[str] = args.input
+    if mt == "vlm" and len(inputs) < 2:
+        print(f"{model_id} needs --input <prompt> --input <image>")
+        return 1
+    t0 = time.perf_counter()
+    model = _load(args)
+    print(f"load model use time: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    content = _maybe_file_text(inputs[0])
+    greedy = False
+    if mt == "vlm":
+        content = [{"type": "image_url",
+                    "image_url": {"url": _as_url(inputs[1])}},
+                   {"type": "text", "text": content}]
+    elif args.spec_tokens > 0:
+        greedy = True
+        print("note: --spec-tokens forces greedy sampling "
+              "(speculation is exact only for greedy decoding)")
+    resp = model.generate(_chat_req(model_id, content, args.max_tokens,
+                                    greedy))
+    print(resp.choices[0].message.text() if resp.choices else "")
+    print(f"generate use time: {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return {"list": run_list, "delete": run_delete, "ps": run_ps,
+            "serv": run_serv, "run": run_run}[args.command](args)
 
 
 if __name__ == "__main__":

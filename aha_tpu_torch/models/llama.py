@@ -101,6 +101,12 @@ def longrope_table(cfg: LlamaConfig, max_len: int,
 class LlamaModel:
     """The model TextEngine (core/engine.py) drives."""
 
+    #: pure K/V + position-gated reads: the cache can REWIND (pos -= k) with
+    #: no state to unwind — speculative decoding verifies drafts then rolls
+    #: back rejected rows for free (hybrids cannot: conv/rec state advanced
+    #: by rejected tokens is unrecoverable)
+    supports_token_rewind = True
+
     def __init__(self, config: LlamaConfig, max_rope_len: int = 8192,
                  device: torch.device | str = "cpu"):
         self.config = c = config

@@ -98,6 +98,11 @@ class Qwen3Model:
     #: decode reads an int8 KV cache (init_cache(dtype=torch.int8); serve
     #: with AHA_KV_INT8=1) — halves long-context cache bandwidth
     supports_kv_int8 = True
+    #: pure K/V + position-gated reads: the cache can REWIND (pos -= k) with
+    #: no state to unwind — speculative decoding verifies drafts then rolls
+    #: back rejected rows for free (hybrids cannot: conv/rec state advanced
+    #: by rejected tokens is unrecoverable)
+    supports_token_rewind = True
 
     def __init__(self, config: Qwen3Config, max_rope_len: int = 32768,
                  device: torch.device | str = "cpu"):
@@ -270,6 +275,19 @@ class Qwen3Model:
         if "w" in head:
             return hidden @ head["w"].t()
         return nn.linear(head, hidden)
+
+    def logits_f32(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """f32 logits of every row whose sums are never rounded to bf16, as
+        the greedy head compares them (head_argmax): a dense bf16 head on
+        the card is one GEMM with an f32 output; otherwise logits() in
+        f32.  A speculative round takes its targets from these, so that
+        they tie where greedy_token ties, not at bf16's spacing."""
+        w = params["lm_head"].get("w")
+        if w is not None and hidden.is_cuda and hidden.dtype == torch.bfloat16:
+            return torch.mm(hidden.reshape(-1, hidden.shape[-1]), w.t(),
+                            out_dtype=torch.float32).reshape(
+                                *hidden.shape[:-1], -1)
+        return self.logits(params, hidden).float()
 
     def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """Greedy next token for ONE hidden state (0-dim int32 on the

@@ -80,6 +80,10 @@ class TextChatModel(GenerateModel, LoadedModel):
                                 spec_tokens=spec_tokens,
                                 cache_dtype=cache_dtype,
                                 cuda_graphs=cuda_graphs)
+            if spec_tokens > 0 and engine.spec_tokens == 0:
+                print(f"--spec-tokens ignored: {type(model).__name__} "
+                      "carries rolling conv/recurrent state that cannot "
+                      "rewind past rejected drafts")
         served = cls(entry, engine, TokenizerModel.init(path),
                      ChatTemplate.init(path), load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))

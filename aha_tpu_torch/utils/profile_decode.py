@@ -4,6 +4,7 @@
     python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
     python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl
+    python -m aha_tpu_torch.utils.profile_decode --spec-tokens 8 [--no-drafts]
     ... [--eager]
 
 Builds Qwen3-0.6B's published geometry with seeded random bf16 weights,
@@ -48,6 +49,17 @@ after the readable lines.  Two more readings:
   both int8 variants, at S = 2048 / 1000 live rows, S = 16384 / 16000
   and 8 slots of S = 4096 with ragged lengths.
 
+`--spec-tokens N [--no-drafts]` reads speculative decoding instead: a
+TextEngine with N drafts a round over a `--prompt`-token prompt made of a
+48-token cycle (drafts the greedy targets accept), one dispatch of the
+engine's `spec_rounds` rounds from the prefilled prompt (the replay of its
+graph, or the rounds run eagerly with `--eager`): wall, device busy, idle
+share, ms per emitted token, tokens emitted and each round's accepted
+count; then a whole request of SPEC_TOKENS greedy tokens through the
+speculative engine and through a plain one, ms per emitted token each.
+`--no-drafts` builds the engine with spec_no_drafts (every round verifies
+its token alone: the draftless floor).
+
 `--model qwen2_5vl` reads Qwen2.5-VL-3B-Instruct's geometry instead
 (seeded bf16 weights; a seeded --image-px square image, 980 by default:
 4,900 patches in the 6,400 bucket): the vision tower alone, the image
@@ -73,6 +85,10 @@ import torch
 #: 8 slots, five above the 512-token admission chunk
 BATCH_PROMPTS = (40, 90, 150, 230, 300, 420, 510, 700, 900, 1100, 1300, 1500)
 ENGINE_TOKENS = 64
+#: tokens of the speculative reading's whole request, and the period of its
+#: cyclic prompt
+SPEC_TOKENS = 192
+SPEC_CYCLE = 48
 #: per-slot lengths of the batched decode reading: a parked slot (1), the
 #: split boundaries 64 and 128, and the full 4096-row cache
 RAGGED = (1, 64, 128, 300, 1000, 1500, 2048, 4096)
@@ -364,6 +380,81 @@ def profile_passes(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def profile_spec(model, params, args, card: str) -> None:
+    """One dispatch of speculative rounds from a prefilled cyclic prompt,
+    then a whole request, speculative and plain."""
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    rng = np.random.default_rng(0)
+    cycle = [int(t) for t in rng.integers(0, model.config.vocab_size,
+                                          SPEC_CYCLE)]
+    ids = [cycle[i % SPEC_CYCLE] for i in range(args.prompt)]
+    greedy = SamplingConfig()
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                     spec_tokens=args.spec_tokens,
+                     spec_no_drafts=args.no_drafts,
+                     cuda_graphs=not args.eager)
+    G1, R, P = args.spec_tokens + 1, eng.spec_rounds, len(ids)
+    name = (f"spec {args.spec_tokens}" + (" no-drafts" if args.no_drafts
+                                          else "")
+            + (f" {args.quant}" if args.quant else "") + _how(args))
+    with torch.no_grad():
+        st = eng._take(args.cache)
+        first = int(eng._prefill(ids, bucket_for(P), st.cache,
+                                 from_cache=False)[0].argmax())
+        eng._spec_history(st, G1, ids + [first])
+        hist0 = st.hist.clone()
+        out = []
+
+        def dispatch():
+            st.cache["pos"].fill_(P)
+            st.hist.copy_(hist0)
+            st.hl.fill_(P + 1)
+            st.token.fill_(first)
+            out.append(eng._spec_rounds(st, G1, R, P))
+
+        for _ in range(2):      # warm-up: allocator, cuBLAS, the capture
+            dispatch()
+        d = _read(dispatch, R)
+        eng._return(st)
+        a = [row[-1] for row in out[-1].tolist()]
+        emitted = sum(x + 1 for x in a)
+        spec_run = eng.generate_tokens(ids, greedy, SPEC_TOKENS)
+        t_spec, req_a = eng.last_timing, list(eng.last_spec_a)
+        plain = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                           cuda_graphs=not args.eager)
+        plain.generate_tokens(ids, greedy, SPEC_TOKENS)       # warm-up
+        plain_run = plain.generate_tokens(ids, greedy, SPEC_TOKENS)
+        t_plain = plain.last_timing
+
+    def per_token(t):
+        return t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+
+    same = next((i for i, (x, y) in enumerate(zip(spec_run, plain_run))
+                 if x != y), len(spec_run))
+    print(f"[{name}] dispatch of {R} rounds of {G1} rows: wall "
+          f"{d['wall_ms']:.3f} ms, device busy {d['device_busy_ms']:.3f} ms, "
+          f"idle share {d['idle_share']:.3f}; {emitted} tokens, "
+          f"{d['wall_ms'] / emitted:.3f} ms/token; a {a} | {card}")
+    print(f"[{name}] request of {SPEC_TOKENS} tokens: {per_token(t_spec):.3f}"
+          f" ms/token in {len(req_a)} rounds (mean a "
+          f"{np.mean(req_a) if req_a else 0:.2f}); plain "
+          f"{per_token(t_plain):.3f} ms/token; streams equal for the first "
+          f"{same}/{len(spec_run)} tokens")
+    print(json.dumps({"config": name, "card": card, "prompt": P,
+                      "cache": args.cache, "rounds": R, "G1": G1,
+                      "graphs": _graphs(eng), "dispatch": d,
+                      "dispatch_a": a, "dispatch_tokens": emitted,
+                      "dispatch_ms_per_token": d["wall_ms"] / emitted,
+                      "request_ms_per_token": per_token(t_spec),
+                      "request_rounds": len(req_a),
+                      "request_mean_a": float(np.mean(req_a)) if req_a
+                      else 0.0,
+                      "plain_ms_per_token": per_token(t_plain),
+                      "streams_equal_for": same}))
+
+
 def profile_vl(args, card: str) -> None:
     """Qwen2.5-VL-3B: the tower, the image prefill and a decode block."""
     from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
@@ -454,6 +545,10 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
                          "cuda_graphs=False) instead of replaying graphs")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="read speculative rounds of N drafts instead")
+    ap.add_argument("--no-drafts", action="store_true",
+                    help="with --spec-tokens: every round draftless")
     ap.add_argument("--image-px", type=int, default=980,
                     help="with --model qwen2_5vl: the image's side, a "
                          "multiple of 28")
@@ -484,6 +579,9 @@ def main(argv=None) -> int:
         from aha_tpu_torch.models.qwen3 import pack_params
 
         params = pack_params(params, args.quant)
+    if args.spec_tokens > 0:
+        profile_spec(model, params, args, card)
+        return 0
     if args.batch_slots > 1:
         (profile_engine if args.engine else profile_batch)(model, params,
                                                            args, card)

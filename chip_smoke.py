@@ -10,7 +10,8 @@ before the last line:
 1. device — the card's name, power limit, torch/CUDA/nvcc versions;
 2. build — nvcc compiles aha_tpu_torch/csrc/*.cu (set-up time);
 3. kernels — each CUDA kernel against its plain PyTorch version at the
-   shapes the paths give it (bf16 q, bf16 or int8 caches), with error and
+   shapes the paths give it (bf16 q, bf16 or int8 caches; the GGUF
+   matmuls and MLP also at a verify pass's M = 5 and 9), with error and
    device time per call (profiler) of both; the batched decode also bit
    for bit against one-slot launches; the prefill kernel at Qwen3's 16/8
    heads (S 2048 and 4096) and at Qwen2.5-VL's 16/2 (S 512, 2048), each
@@ -34,6 +35,19 @@ before the last line:
    a 2100-token prompt whose decode runs the per-op chain; the kernels'
    launch counters must all rise; then 8 teacher-forced steps of each
    decode path against the plain path (float32, on the CPU);
+4b. spec — prompt-lookup speculative decoding (8 drafts a round, 8 rounds
+   a dispatch, each dispatch one graph replay) through TextEngine on the
+   same weights: (o) a 300-token prompt of a 48-token cycle, 192 greedy
+   tokens, and the same with spec_no_drafts (every a 0, the same stream);
+   (p) a 470-token prompt in the 512-row bucket with max_tokens past it,
+   drafted and draftless: the host guard drops to single rounds and hands
+   the stream to the decode blocks; (q) the int8 cache and (r) the q4
+   pack, whose verify pass runs the quantized matmul and MLP kernels at
+   M = 9, 96 tokens each.  Each stream equals the plain graphed engine's
+   on the same request, or parts from it only where the two candidates'
+   f32 logits tie within TOL_SPEC_TIE_REL; each is graphed against eager
+   (tokens, accepted counts, launches); ms per emitted token, rounds and
+   the accepted counts beside the plain engine's ms per token;
 5. batch — the same weights through the continuous-batching BatchEngine
    (8 slots, 12 concurrent requests, one of them sampled, chunked
    admission) over a bf16 and an int8 cache, and an int8 TextEngine; each
@@ -56,6 +70,7 @@ before the last line:
    test tokenizer's vocabulary zeroed, so replies decode to text) and
    served by `python -m aha_tpu_torch serv` in a child process:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
+   a `--spec-tokens 8` server's greedy reply equal to the plain one's;
    then a `--batch-slots 4` server answering 4 chats at once; the child
    runs under `-X importtime`, whose log must name no module of jax or
    aha_tpu;
@@ -94,7 +109,8 @@ same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
-graph readings, one JSON line of per-kernel results, the card line, and
+graph readings, the JSON line of the speculative paths' readings, one
+JSON line of per-kernel results, the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
 """
@@ -903,13 +919,14 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def check_quant_matmul(grid: str) -> None:
     """The int8 or 4-bit matmul at the four projections of Qwen3-0.6B (M =
-    1, 8, 64) and the head logits of BatchEngine's step (M = 8, N =
-    151936), each against the f32 plain version on the same bf16 inputs
-    within TOL_QMM_REL of max |ref|; zeroed scales (q8) or a dropped
-    xsum·b term (q4) fail that bound; a repeat bit-equal, and each row of
-    the M = 8 launch bit-equal to an M = 1 launch of that row alone.
-    Device time of kernel and plain at M = 1 and 8 of each projection and
-    at the head (M = 8); `quant_matmul[_q4]_timings` keeps them all."""
+    1, 5, 8, 9, 64) and the head logits of BatchEngine's step (M = 8) and
+    of a speculative verify pass at 4 and 8 drafts (M = 5, 9; N = 151936),
+    each against the f32 plain version on the same bf16 inputs within
+    TOL_QMM_REL of max |ref|; zeroed scales (q8) or a dropped xsum·b term
+    (q4) fail that bound; a repeat bit-equal, and each row of an M = 5, 8
+    or 9 launch bit-equal to an M = 1 launch of that row alone.  Device
+    time of kernel and plain at M = 1, 5, 8 and 9 of each projection and
+    of the head; `quant_matmul[_q4]_timings` keeps them all."""
     from aha_tpu_torch.ops import quant_matmul as qm
 
     name = "quant_matmul_q4" if grid == "q4" else "quant_matmul"
@@ -918,7 +935,8 @@ def check_quant_matmul(grid: str) -> None:
     keys = qm.GRID_KEYS[grid]
     g = torch.Generator(device="cuda").manual_seed(21 + len(grid))
     shapes = [(proj, k, n, m) for proj, (k, n) in PROJECTIONS.items()
-              for m in (1, 8, 64)] + [("head", 1024, 151936, 8)]
+              for m in (1, 5, 8, 9, 64)] + [("head", 1024, 151936, m)
+                                            for m in (5, 8, 9)]
     worst, worst_bad = 0.0, float("inf")
     timings = RESULTS[name].setdefault("timings", {})
     for proj, K, N, M in shapes:
@@ -931,10 +949,11 @@ def check_quant_matmul(grid: str) -> None:
         torch.cuda.synchronize()
         require(torch.equal(got, again), f"{name} {proj} M={M}: a repeat "
                 f"is not bit-equal")
-        if M == 8:
+        if M in (5, 8, 9):
             for r in range(M):
                 require(torch.equal(got[r], fn(x[r:r + 1], *args)[0]),
-                        f"{name} {proj}: row {r} of M=8 differs from M=1")
+                        f"{name} {proj}: row {r} of M={M} differs from "
+                        f"M=1")
         err = _rel(got, ref)
         require(err <= TOL_QMM_REL, f"{name} {proj} M={M}: err {err} of "
                 f"max |ref| (tol {TOL_QMM_REL})")
@@ -945,7 +964,7 @@ def check_quant_matmul(grid: str) -> None:
         else:
             bad = plain(x.float(), *args[:2], torch.zeros_like(args[2]))
         worst_bad = min(worst_bad, _rel(bad, ref))
-        if M in (1, 8):
+        if M in (1, 5, 8, 9):
             wbytes = _nbytes(p)
             ms = device_ms(lambda: fn(x, *args))
             plain_ms = device_ms(lambda: plain(x, *args), iters=5)
@@ -963,7 +982,7 @@ def check_quant_matmul(grid: str) -> None:
     require(worst_bad > TOL_QMM_REL, f"{name}: the bound does not reject "
             f"{'zeroed scales' if grid == 'q8' else 'a dropped xsum*b'}")
     log(f"[kernels] {name}: {len(shapes)} shapes within {worst:.3e} of max "
-        f"|ref| (tol {TOL_QMM_REL}), repeats and M=8 rows against M=1 "
+        f"|ref| (tol {TOL_QMM_REL}), repeats and M=5/8/9 rows against M=1 "
         f"bit-equal; "
         f"{'zeroed scales' if grid == 'q8' else 'dropped xsum*b term'} off "
         f"by ≥ {worst_bad:.3g}")
@@ -972,11 +991,12 @@ def check_quant_matmul(grid: str) -> None:
 
 def check_quant_swiglu() -> None:
     """The fused quantized MLP at Qwen3-0.6B's widths (H 1024, I 3072) in
-    all four grid pairs at M = 1 and 8, against the f32 plain version
-    within TOL_SWIGLU_REL of max |ref|; zeroed down scales fail the bound;
-    a repeat bit-equal, and each row of M = 8 bit-equal to M = 1 of that
-    row alone.  Device time at M = 1 of each pair and at M = 8 of q8/q8
-    and q4/q4 (`quant_swiglu_timings`)."""
+    all four grid pairs at M = 1, 5, 8 and 9 (5 and 9: a speculative
+    verify pass), against the f32 plain version within TOL_SWIGLU_REL of
+    max |ref|; zeroed down scales fail the bound; a repeat bit-equal, and
+    each row of M > 1 bit-equal to M = 1 of that row alone.  Device time
+    at M = 1 of each pair and at M = 5, 8 and 9 of q8/q8 and q4/q4
+    (`quant_swiglu_timings`)."""
     from aha_tpu_torch.ops import quant_matmul as qm
 
     H, I = 1024, 3072
@@ -987,7 +1007,7 @@ def check_quant_swiglu() -> None:
         for dn_fmt in ("q8", "q4"):
             gu = _pack(g, 2 * I, H, gu_fmt)
             dn = _pack(g, H, I, dn_fmt)
-            for M in (1, 8):
+            for M in (1, 5, 8, 9):
                 x = torch.randn((1, M, H), generator=g, device="cuda").to(
                     torch.bfloat16)
                 got = qm.quant_swiglu(gu, dn, x)
@@ -1000,7 +1020,7 @@ def check_quant_swiglu() -> None:
                     one = qm.quant_swiglu(gu, dn, x[:, r:r + 1].contiguous())
                     require(torch.equal(got[0, r], one[0, 0]),
                             f"quant_swiglu {gu_fmt}/{dn_fmt}: row {r} of "
-                            f"M=8 differs from M=1")
+                            f"M={M} differs from M=1")
                 err = _rel(got.reshape(M, H), ref)
                 require(err <= TOL_SWIGLU_REL, f"quant_swiglu {gu_fmt}/"
                         f"{dn_fmt} M={M}: err {err} (tol {TOL_SWIGLU_REL})")
@@ -1011,7 +1031,7 @@ def check_quant_swiglu() -> None:
                           for k, v in dn.items()}
                 worst_bad = min(worst_bad, _rel(qm.quant_swiglu_plain(
                     gu, zeroed, x.reshape(M, H).float()), ref))
-            for M in ((1, 8) if gu_fmt == dn_fmt else (1,)):
+            for M in ((1, 5, 8, 9) if gu_fmt == dn_fmt else (1,)):
                 x = torch.randn((1, M, H), generator=g, device="cuda").to(
                     torch.bfloat16)
                 ms = device_ms(lambda: qm.quant_swiglu(gu, dn, x))
@@ -1031,8 +1051,8 @@ def check_quant_swiglu() -> None:
                             f"q8/q8 M=1 H={H} I={I}")
     require(worst_bad > TOL_SWIGLU_REL,
             "quant_swiglu: the bound does not reject zeroed down scales")
-    log(f"[kernels] quant_swiglu: 4 grid pairs x M in (1, 8) within "
-        f"{worst:.3e} of max |ref| (tol {TOL_SWIGLU_REL}), repeats and M=8 "
+    log(f"[kernels] quant_swiglu: 4 grid pairs x M in (1, 5, 8, 9) within "
+        f"{worst:.3e} of max |ref| (tol {TOL_SWIGLU_REL}), repeats and M>1 "
         f"rows against M=1 bit-equal; zeroed down "
         f"scales off by ≥ {worst_bad:.3g}")
     torch.cuda.empty_cache()
@@ -1772,9 +1792,7 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
     # the plain path (float32 on the CPU: there every wrapper runs its
     # plain version and the fused gate, bf16 only, stays shut)
     forced = out_b[:8]
-    cpu_model = Qwen3Model(cfg, max_rope_len=8192, device="cpu")
-    cpu_params = _tree_to(params, "cpu", torch.float32)
-    cpu_params["lm_head"] = {"w": cpu_params["embed"]["w"]}
+    cpu_model, cpu_params = _f32_cpu(model, params)
     hp, gp = teacher_forced_hidden(cpu_model, cpu_params, b_ids, forced,
                                    "cpu")
     for path, window in (("fused stack", 512), ("per-op chain", None)):
@@ -1790,6 +1808,218 @@ def phase_engine(cfg, device: str = "cuda") -> dict:
         require(rel <= TOL_HIDDEN_REL,
                 f"{path} hidden off by {rel}")
     return {"model": model, "params": params}
+
+
+# -- 4b. speculative decoding -------------------------------------------------
+
+#: the (o)-(r) prompts: a 48-token cycle of seeded ids (drafts the seeded
+#: model's greedy targets accept) and (p)'s bucket-end prompt
+SPEC_CYCLE = 48
+SPEC_DRAFTS = 8
+# where a speculative stream parts from plain greedy decoding of the same
+# prefix on the card, the two candidates' logits at that position,
+# recomputed in f32 on the CPU through the plain versions, must lie within
+# this share of the row's max |logit|: the verify pass (per-op chain over
+# G1 rows, plain attention over the bucket with bf16 probabilities) and
+# plain decode (fused stack, head_argmax) round differently, which
+# separates a near-tie of the seeded model's flat logits (max |logit|
+# ≈ 2.9).  Measured on an H100 over (o)-(r): 15 partings in 468 tokens,
+# gaps 1.3e-4 to 7.4e-3 of max |logit| (the bound 2.7x the largest)
+TOL_SPEC_TIE_REL = 2e-2
+
+
+def _cyclic(rng, n: int, vocab: int) -> list[int]:
+    cycle = _prompt(rng, SPEC_CYCLE, vocab)
+    return [cycle[i % SPEC_CYCLE] for i in range(n)]
+
+
+def _f32_cpu(model, params) -> tuple:
+    """The model's plain path on the CPU in float32 (the grids' integer
+    tensors kept: a CPU quantized linear dequantizes exactly)."""
+    from aha_tpu_torch.models.qwen3 import Qwen3Model
+
+    cpu_params = _tree_to(params, "cpu", torch.float32)
+    if params["lm_head"].get("w") is params["embed"]["w"]:    # tied
+        cpu_params["lm_head"] = {"w": cpu_params["embed"]["w"]}
+    return Qwen3Model(model.config, max_rope_len=8192, device="cpu"), \
+        cpu_params
+
+
+def _walk_ties(what: str, plain, got: list[int], ids: list[int], model,
+               params, cpu: dict) -> dict:
+    """Every token of `got` equal to what the plain engine decodes
+    greedily from the same prefix (`ids` + got[:i]), or, where they part,
+    the two candidates' logits within TOL_SPEC_TIE_REL of max |logit| in
+    f32 on the CPU: the plain engine is re-run from each parting with the
+    speculative token taken, and one f32 forward over the stream reads the
+    logits of every parting.  `cpu` caches the f32 model."""
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    parts, i = [], 0
+    while i < len(got):
+        want = plain.generate_tokens(ids + got[:i], SamplingConfig(),
+                                     max_tokens=len(got) - i)
+        require(len(want) == len(got) - i, f"{what}: the plain engine "
+                f"gave {len(want)} tokens from {i}, not {len(got) - i}")
+        j = next((k for k, (x, y) in enumerate(zip(got[i:], want))
+                  if x != y), None)
+        if j is None:
+            break
+        parts.append((i + j, want[j]))
+        i += j + 1
+    if not parts:
+        log(f"[spec] {what}: equal to plain greedy decoding ({len(got)} "
+            f"tokens)")
+        return {"parts": []}
+    if not cpu:
+        cpu["model"], cpu["params"] = _f32_cpu(model, params)
+    m, p = cpu["model"], cpu["params"]
+    rows = [len(ids) - 1 + k for k, _ in parts]
+    with torch.no_grad():
+        h = m.forward_hidden(p, torch.tensor([ids + got[:parts[-1][0]]]))
+        logits = m.logits(p, h[:, rows]).float()[0]
+    gaps = []
+    for r, (k, w) in enumerate(parts):
+        top = logits[r].abs().max().item()
+        gaps.append(abs(logits[r, got[k]] - logits[r, w]).item() / top)
+    log(f"[spec] {what}: parts from plain greedy decoding of the same "
+        f"prefix at {len(parts)} of {len(got)} tokens {[k for k, _ in parts]}"
+        f"; the candidates' f32 logit gaps {[f'{x:.2e}' for x in gaps]} of "
+        f"max |logit| (tie bound {TOL_SPEC_TIE_REL})")
+    require(max(gaps) <= TOL_SPEC_TIE_REL, f"{what}: parts at "
+            f"{parts[gaps.index(max(gaps))][0]} where the f32 logits "
+            f"differ by {max(gaps)} of max |logit|")
+    return {"parts": [k for k, _ in parts], "max_gap_rel": max(gaps)}
+
+
+def _spec_request(eng, ids, n):
+    """run for eager_twin: one greedy request; its tokens with every
+    round's accepted count."""
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    def run(e):
+        out = e.generate_tokens(ids, SamplingConfig(), max_tokens=n)
+        return [(out, list(e.last_spec_a))], [e.last_timing]
+
+    return run
+
+
+def _per_token_ms(t) -> float:
+    return t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+
+
+def _spec_path(label: str, model, params, ids: list[int], n: int,
+               must: tuple[str, ...], device: str, cpu: dict,
+               max_seq_len: int = 8192, same_as: list[int] | None = None,
+               **kw) -> dict:
+    """One speculative request on a graphed engine (counts zeroed before,
+    read after: path `spec-<label>`), then again with its graphs captured
+    (the same tokens; its ms per emitted token).  With `same_as` the
+    stream must equal that one; else it is walked against the plain
+    graphed engine (`_walk_ties`), and its eager twin must give the same
+    tokens, accepted counts and launches."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    def engine(spec, graphs=True):
+        return TextEngine(model, params, eos_token_ids=[],
+                          max_seq_len=max_seq_len, spec_tokens=spec,
+                          cuda_graphs=graphs, **kw)
+
+    eng = engine(SPEC_DRAFTS)
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, SamplingConfig(), max_tokens=n)
+    _sync(device)
+    a = list(eng.last_spec_a)
+    counts = read_counts(wr, f"spec-{label}", must)
+    require(out and a, f"({label}): {len(out)} tokens, {len(a)} rounds")
+    stats = _graph_stats(eng, device)
+    again = eng.generate_tokens(ids, SamplingConfig(), max_tokens=n)
+    require(again == out and eng.last_spec_a == a, f"({label}): a repeat "
+            f"differs")
+    t = eng.last_timing
+    plain = engine(0)
+    plain.generate_tokens(ids, SamplingConfig(), max_tokens=n)   # captures
+    want = plain.generate_tokens(ids, SamplingConfig(), max_tokens=n)
+    t_plain = plain.last_timing
+    require(len(out) == len(want), f"({label}): {len(out)} tokens, plain "
+            f"{len(want)}")
+    if same_as is not None:
+        require(out == same_as, f"({label}): the stream differs from the "
+                f"drafted one")
+        tie = {}
+    else:
+        tie = _walk_ties(f"({label})", plain, out, ids, model, params, cpu)
+        eager_twin(f"({label}) spec", eng, lambda: engine(SPEC_DRAFTS,
+                                                          False),
+                   _spec_request(eng, ids, n), [(out, a)], counts, device)
+    card = card_line() if device == "cuda" else "cpu"
+    hist = {k: a.count(k) for k in sorted(set(a))}
+    log(f"[spec] ({label}) {len(ids)}-token prompt, {len(out)} greedy "
+        f"tokens (max_tokens {n}): {_per_token_ms(t):.3f} ms per emitted "
+        f"token graphed, plain graphed engine {_per_token_ms(t_plain):.3f};"
+        f" {len(a)} rounds, mean a {np.mean(a):.2f}, a histogram {hist}; "
+        f"{stats['graphs']} graphs captured in {stats['capture_s']:.2f} s "
+        f"| {card}")
+    SPEC_READINGS.append({
+        "path": label, "tokens": len(out), "ms_per_token":
+        _per_token_ms(t), "plain_ms_per_token": _per_token_ms(t_plain),
+        "rounds": len(a), "mean_a": float(np.mean(a)), "a_hist": hist,
+        **stats, **tie})
+    return {"out": out, "a_hist": hist}
+
+
+#: per speculative path: ms per emitted token (graphs captured) beside the
+#: plain graphed engine's, rounds, accepted counts, graphs, and where the
+#: stream parts from plain greedy decoding at a near-tie (printed as one
+#: JSON line before the kernels line)
+SPEC_READINGS: list[dict] = []
+
+
+def phase_spec(model, params, device: str = "cuda") -> None:
+    """(o)-(r): prompt-lookup speculative decoding (8 drafts a round, 8
+    rounds a dispatch) through TextEngine at Qwen3-0.6B's widths: (o) bf16,
+    a 300-token cyclic prompt, 192 greedy tokens, and the same with
+    spec_no_drafts; (p) a 470-token prompt in the 512-row bucket with
+    max_tokens past it, drafted and draftless, so the host guard drops to
+    single rounds and hands the stream to the decode blocks; (q) the int8
+    cache and (r) the q4 pack (its verify pass on the quantized matmul and
+    MLP kernels at M = 9), 96 tokens each.  Every token held to the plain
+    graphed engine's greedy decoding of the same prefix (or parted from it
+    at a near-tie), graphed against eager (tokens, a's, launches); (o)'s
+    draftless stream equal to the drafted one."""
+    from aha_tpu_torch.models.qwen3 import pack_params
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(500)
+    cpu: dict = {}
+    ids = _cyclic(rng, 300, V)
+    o = _spec_path("o", model, params, ids, 192, ("flash_attention",),
+                   device, cpu)
+    o0 = _spec_path("o no-drafts", model, params, ids, 192,
+                    ("flash_attention",), device, cpu, same_as=o["out"],
+                    spec_no_drafts=True)
+    require(set(o0["a_hist"]) == {0}, f"no-drafts rounds accepted "
+            f"{o0['a_hist']}")
+    log("[spec] (o) no-drafts: every round a = 0, stream equal to the "
+        "drafted one")
+    p_ids = _cyclic(rng, 470, V)
+    # the draftless rounds stop at pos 504 and the decode blocks take the
+    # last 7 tokens: the tail's fused stack and head launch
+    _spec_path("p", model, params, p_ids, 1024, ("flash_attention",),
+               device, cpu, max_seq_len=512)
+    _spec_path("p no-drafts", model, params, p_ids, 1024, (
+        "flash_attention", "fused_decode_stack", "head_argmax"), device,
+        cpu, max_seq_len=512, spec_no_drafts=True)
+    _spec_path("q", model, params, ids, 96, ("flash_attention",), device,
+               cpu, cache_dtype=torch.int8)
+    packed = pack_params(params, "q4")
+    _spec_path("r", model, packed, ids, 96, (
+        "flash_attention", "quant_matmul_q4", "quant_swiglu"), device, {})
+    del packed
+    if device == "cuda":
+        torch.cuda.empty_cache()
 
 
 # -- 5. continuous batching and the int8 cache --------------------------------
@@ -1994,15 +2224,11 @@ def phase_batch(model, params, device: str = "cuda") -> None:
 
     # (i) 8 teacher-forced steps of 4 slots on the card against the f32
     # plain path on the CPU, from the same cache contents
-    from aha_tpu_torch.models.qwen3 import Qwen3Model
-
-    V, cfg = model.config.vocab_size, model.config
+    V = model.config.vocab_size
     rng = np.random.default_rng(9)
     prompts = [_prompt(rng, n, V) for n in (50, 120, 300, 700)]
     forced = torch.tensor(rng.integers(0, V, (4, 8)))
-    cpu_model = Qwen3Model(cfg, max_rope_len=8192, device="cpu")
-    cpu_params = _tree_to(params, "cpu", torch.float32)
-    cpu_params["lm_head"] = {"w": cpu_params["embed"]["w"]}
+    cpu_model, cpu_params = _f32_cpu(model, params)
     for dtype in (torch.bfloat16, torch.int8):
         hk, before = teacher_forced_slots(model, params, prompts, forced,
                                           device, dtype)
@@ -2360,11 +2586,19 @@ def _post(url: str, body: dict) -> tuple[int, str]:
 
 def phase_http(config, params: dict) -> None:
     """The servers replay captured decode blocks; a server started with
-    `--eager` must give the same greedy replies."""
+    `--eager` must give the same greedy replies, and so must one started
+    with `--spec-tokens 8` (speculative rounds, greedy-exact)."""
     with tempfile.TemporaryDirectory(prefix="aha_torch_smoke_") as tmp:
         _write_checkpoint(tmp, config, params)
         with _server(tmp) as base:
             first = _ask(base)
+        with _server(tmp, "--spec-tokens", str(SPEC_DRAFTS)) as base:
+            spec = _reply(base, _ASK)
+        require(spec == first, f"--spec-tokens {SPEC_DRAFTS}: the greedy "
+                f"reply differs from the plain server's: {spec!r} vs "
+                f"{first!r}")
+        log(f"[http] --spec-tokens {SPEC_DRAFTS}: the greedy reply equals "
+            f"the plain server's")
         with _server(tmp, "--eager") as base:
             _same_replies("single stream", [first], [_reply(base, _ASK)])
         with _server(tmp, "--batch-slots", "4") as base:
@@ -2929,6 +3163,7 @@ def main() -> int:
     from aha_tpu_torch.models.qwen3 import Qwen3Config
 
     state = timed("engine", phase_engine, Qwen3Config())
+    timed("spec", phase_spec, state["model"], state["params"])
     timed("batch", phase_batch, state["model"], state["params"])
     timed("quant", phase_quant, state["model"], state["params"])
     timed("http", phase_http, state["model"].config, state["params"])
@@ -2952,6 +3187,7 @@ def main() -> int:
                     "g7", "gbps", "tol", "timings", "library_bf16_ms")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"graphs": GRAPH_READINGS}))
+    print(json.dumps({"spec": SPEC_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,194 @@
+"""The port's CLI (`python -m aha_tpu_torch`): its subcommands against the
+JAX CLI's behaviour (aha_tpu/cli/main.py) — `list` with the downloaded
+mark under AHA_HOME, `delete`, `ps` finding a live server by its PID file
+and removing a stale one, and `run` on the tiny Qwen3 repo of
+tests/fixtures answering as the served model does, on the CPU.  Child
+processes run against 127.0.0.1 with a deadline."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from aha_tpu.cli.main import build_parser as jbuild_parser
+from aha_tpu_torch import cli
+from aha_tpu_torch.registry import model_list
+from aha_tpu_torch.server import process
+from tests.fixtures import build_tiny_qwen3_repo
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def repo(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("tiny_qwen3"))
+    build_tiny_qwen3_repo(path)
+    return path
+
+
+@pytest.fixture
+def aha_home(tmp_path, monkeypatch):
+    monkeypatch.setenv("AHA_HOME", str(tmp_path / "home"))
+    return tmp_path / "home"
+
+
+def test_parser_subcommands(repo):
+    ap = cli.build_parser()
+    assert ap.parse_args(["list", "--json"]).json
+    a = ap.parse_args(["delete", "Qwen/Qwen3-0.6B", "-y", "--save-dir", "/x"])
+    assert (a.model, a.yes, a.save_dir) == ("Qwen/Qwen3-0.6B", True, "/x")
+    assert ap.parse_args(["ps", "--compact"]).compact
+    a = ap.parse_args(["serv", repo, "--spec-tokens", "8", "--port", "9002"])
+    assert (a.path, a.spec_tokens, a.port, a.batch_slots) == (repo, 8, 9002,
+                                                              1)
+    a = ap.parse_args(["run", repo, "--input", "hi", "--input", "x.png",
+                       "--max-tokens", "5", "--spec-tokens", "4"])
+    assert (a.input, a.max_tokens, a.spec_tokens, a.model) == (
+        ["hi", "x.png"], 5, 4, "Qwen/Qwen3-0.6B")
+    # the JAX CLI's options of the same names take the same defaults
+    j = jbuild_parser().parse_args(["run", "Qwen/Qwen3-0.6B", "--input", "h"])
+    t = ap.parse_args(["run", repo, "--input", "h"])
+    assert (t.max_tokens, t.max_seq_len, t.spec_tokens) == \
+        (j.max_tokens, j.max_seq_len, j.spec_tokens)
+    for cmd in ("download", "cli"):     # stay with the JAX CLI
+        with pytest.raises(SystemExit):
+            ap.parse_args([cmd, "Qwen/Qwen3-0.6B"])
+
+
+def test_list_json_and_table_mark_downloaded_models(aha_home, capsys):
+    (aha_home / "Qwen" / "Qwen3-0.6B").mkdir(parents=True)
+    (aha_home / "Qwen" / "Qwen3-0.6B" / "config.json").write_text("{}")
+    (aha_home / "Qwen" / "Qwen3-1.7B").mkdir(parents=True)   # empty: not
+    assert cli.main(["list", "--json"]) == 0
+    infos = json.loads(capsys.readouterr().out)
+    assert [i["model_id"] for i in infos] == [m.model_id
+                                              for m in model_list()]
+    marked = {i["model_id"] for i in infos if i["downloaded"]}
+    assert marked == {"Qwen/Qwen3-0.6B"}
+    assert infos[0].keys() == {"model_id", "owner", "model_type",
+                               "downloaded"}
+    assert cli.main(["list"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    rows = {ln.split()[0]: ln for ln in lines[4:]}
+    assert len(rows) == len(model_list())
+    assert rows["Qwen/Qwen3-0.6B"].rstrip().endswith("✔")
+    assert "✔" not in rows["Qwen/Qwen3-1.7B"]
+
+
+def test_delete_missing_and_present(aha_home, capsys, monkeypatch):
+    assert cli.main(["delete", "Qwen/Qwen3-0.6B"]) == 1
+    assert "is not downloaded" in capsys.readouterr().out
+    target = aha_home / "Qwen" / "Qwen3-0.6B"
+    target.mkdir(parents=True)
+    (target / "model.safetensors").write_bytes(b"x")
+    monkeypatch.setattr("builtins.input", lambda prompt: "n")
+    assert cli.main(["delete", "Qwen/Qwen3-0.6B"]) == 1
+    assert target.exists() and "aborted" in capsys.readouterr().out
+    assert cli.main(["delete", "Qwen/Qwen3-0.6B", "--yes"]) == 0
+    assert not target.exists()
+    assert f"deleted {target}" in capsys.readouterr().out
+    with pytest.raises(KeyError):
+        cli.main(["delete", "no/such-model", "-y"])
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_ps_finds_a_live_server_and_drops_a_stale_pid_file(
+        repo, tmp_path, monkeypatch, capsys):
+    """`python -m aha_tpu_torch serv` in a child under a temporary
+    XDG_RUNTIME_DIR: ps lists it as <pid>@<port> from its PID file; a PID
+    file whose process is gone is removed."""
+    monkeypatch.setenv("XDG_RUNTIME_DIR", str(tmp_path))
+    port = _free_port()
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait(timeout=30)
+    stale = process.get_pid_dir() / "1.pid"
+    stale.write_text(f"{dead.pid}\n")
+    env = {**os.environ, "XDG_RUNTIME_DIR": str(tmp_path),
+           "PYTHONPATH": str(ROOT), "AHA_DEVICE": "cpu"}
+    child = subprocess.Popen(
+        [sys.executable, "-m", "aha_tpu_torch", "serv", repo, "--port",
+         str(port), "--max-seq-len", "256"], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        up = False
+        while time.monotonic() < deadline and child.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/health", timeout=2) as r:
+                    up = r.status == 200
+            except OSError:
+                pass
+            if up:
+                break
+            time.sleep(0.2)
+        assert up, child.stdout.read().decode()[-2000:] \
+            if child.poll() is not None else "server did not answer"
+        ids = {s.service_id for s in process.find_aha_services()}
+        assert f"{child.pid}@{port}" in ids
+        assert not stale.exists()
+        assert cli.main(["ps", "--compact"]) == 0
+        assert f"{child.pid}@{port}" in capsys.readouterr().out.split()
+        assert cli.main(["ps"]) == 0
+        table = capsys.readouterr().out
+        assert "Service ID" in table and str(port) in table
+    finally:
+        child.terminate()
+        try:
+            child.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=10)
+    assert f"{child.pid}@{port}" not in {
+        s.service_id for s in process.find_aha_services()}
+
+
+def _served_answer(repo, temperature=None, **kw) -> str:
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    body = {"messages": [{"role": "user", "content": "write me a poem"}],
+            "model": "Qwen/Qwen3-0.6B", "max_tokens": 24}
+    if temperature is not None:
+        body["temperature"] = temperature
+    served = load_model("Qwen/Qwen3-0.6B", repo, max_seq_len=512, **kw)
+    resp = served.generate(ChatCompletionParameters.model_validate(body))
+    return resp.choices[0].message.text()
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+def test_run_answers_as_the_served_model(repo, monkeypatch, capsys, spec):
+    """`run` prints the load time, the answer the served model gives the
+    same chat, and the generate time; with --spec-tokens it notes the
+    forced greedy sampling and answers as a greedy request."""
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    assert cli.main(["run", repo, "--input", "write me a poem",
+                     "--max-tokens", "24", "--max-seq-len", "512",
+                     "--spec-tokens", str(spec)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("load model use time: ")
+    assert out[-1].startswith("generate use time: ")
+    noted = out[1].startswith("note: --spec-tokens forces greedy")
+    assert noted == (spec > 0)
+    answer = "\n".join(out[1 + noted:-1])
+    want = _served_answer(repo, 0.0 if spec else None, spec_tokens=spec)
+    assert answer == want and answer
+
+
+def test_run_refuses_an_unported_model_type(repo, tmp_path):
+    with pytest.raises(NotImplementedError):
+        cli.main(["run", repo, "--model", "Qwen/Qwen3-Embedding-0.6B",
+                  "--input", "hi"])

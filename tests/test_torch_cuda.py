@@ -1341,6 +1341,31 @@ def test_quant_swiglu_mma_qwen3_width_rows(dev, grid):
     assert qm.quant_swiglu.launches > 0
 
 
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("M", [5, 9])
+def test_quant_kernels_at_verify_rows(dev, grid, M):
+    """A speculative round's verify pass at 4 and 8 drafts (M = 5 and 9
+    rows, the second in two pass halves): Qwen3-0.6B's four projections,
+    the head (K 1024 x N 151936) and the MLP (H 1024, I 3072) at M rows,
+    within the bounds the M = 8 tests hold; each row bit-equal to an M = 1
+    launch of that row alone."""
+    fn, _, keys = _qmm(grid)
+    g = torch.Generator(device=dev).manual_seed(120 + M)
+    for proj, (K, N) in {**QWEN3_PROJECTIONS, "head": (1024, 151936)}.items():
+        p = _packed(g, N, K, grid, 0.01 if grid == "q4" else 0.0)
+        x = _bf(g, M, K)
+        many = _check_qmm(dev, grid, p, x)
+        args = [p[k] for k in keys]
+        for r in range(M):
+            assert torch.equal(many[r], fn(x[r:r + 1].contiguous(), *args)[0])
+    gu, dn = _swiglu_weights(g, 1024, 3072, grid, grid)
+    x = _bf(g, M, 1024) * 4
+    many = _check_swiglu(dev, gu, dn, x)
+    for r in range(M):
+        one = _check_swiglu(dev, gu, dn, x[r:r + 1].contiguous())
+        assert torch.equal(many[r], one[0])
+
+
 # -- captured decode blocks (core/graphs.py) ----------------------------------
 #
 # Each engine path twice on the card, once through an engine that replays
@@ -1435,6 +1460,67 @@ def test_text_engine_graphs_equal_eager(dev, path, monkeypatch):
     again = _counted(lambda: _text_requests(engines[True], reqs))
     assert again == got[True] and graphs.stats()["graphs"] == n_graphs
     assert engines[False].graphs is None
+
+
+@pytest.mark.parametrize("path", ["bf16", "int8-cache", "q4"])
+def test_text_engine_spec_graphs_equal_eager(dev, path):
+    """Speculative rounds replayed from graphs (keys ("spec", G1, R))
+    against the same rounds run eagerly: a cyclic prompt whose drafts are
+    accepted, and a prompt near the 256-row bucket's end whose rounds hand
+    over to single rounds and the decode blocks.  Tokens, every round's
+    accepted count and every kernel's launches equal; the verify pass of
+    the q4 pack launches the quantized matmul and MLP kernels."""
+    from aha_tpu_torch.core.engine import TextEngine
+
+    model, params = _qwen3_tiny(dev, "q4" if path == "q4" else None)
+    kw = dict(cache_dtype=torch.int8) if path == "int8-cache" else {}
+    cyclic = [(i % 11) + 3 for i in range(60)]
+    reqs = [(cyclic, _GREEDY, 96), (_prompt_ids(200, 3), _GREEDY, 56)]
+    engines = {g: TextEngine(model, params, eos_token_ids=[],
+                             max_seq_len=8192, spec_tokens=8,
+                             cuda_graphs=g, **kw)
+               for g in (True, False)}
+
+    def run(eng):
+        out = []
+        for req in reqs:
+            out.append((_text_requests(eng, [req]), list(eng.last_spec_a)))
+        return out
+
+    got = {g: _counted(lambda: run(e)) for g, e in engines.items()}
+    assert got[True] == got[False]
+    assert all(a for _, a in got[True][0])
+    assert max(got[True][0][0][1]) > 0
+    keys = {k for st in engines[True]._cache_pool.values()
+            for k in st.graphs}
+    assert {("spec", 9, 8), ("spec", 9, 1)} <= keys
+    if path == "q4":
+        assert got[True][1]["quant_matmul_q4"] > 0
+        assert got[True][1]["quant_swiglu"] > 0
+
+
+def test_verify_logits_rank_as_the_greedy_head(dev):
+    """The verify pass's f32 logits (Qwen3Model.logits_f32, one bf16 GEMM
+    with f32 sums) give each row the index head_argmax gives it alone, or
+    one whose f32 logit ties it within 1e-3 of max |logit| (the
+    tolerance check_head holds head_argmax to)."""
+    from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+
+    model = Qwen3Model(Qwen3Config(vocab_size=151936, hidden_size=1024,
+                                   num_hidden_layers=1), max_rope_len=64,
+                       device=dev)
+    g = torch.Generator(device=dev).manual_seed(130)
+    params = {"lm_head": {"w": _bf(g, 151936, 1024) * 0.05}}
+    hidden = _bf(g, 1, 9, 1024)
+    logits = model.logits_f32(params, hidden)
+    assert logits.dtype == torch.float32 and logits.shape == (1, 9, 151936)
+    ref = hidden[0].float() @ params["lm_head"]["w"].float().t()
+    top = ref.abs().max().item()
+    assert (logits[0] - ref).abs().max().item() <= 1e-4 * top
+    for r in range(9):
+        want = int(model.greedy_token(params, hidden[:, r:r + 1]))
+        got = int(logits[0, r].argmax())
+        assert got == want or abs(ref[r, got] - ref[r, want]) <= 1e-3 * top
 
 
 def _vl_tiny(dev):

@@ -188,9 +188,11 @@ def test_sampled_stream_seeded(pair):
 
 
 def test_unported_engine_options_raise(pair):
+    """Speculative decoding is ported (tests/test_torch_spec_decode.py):
+    spec_tokens builds an engine that drafts; an empty prompt raises."""
     _, _, tm, tp = pair
-    with pytest.raises(ValueError):
-        TextEngine(tm, tp, eos_token_ids=[], spec_tokens=4)
+    assert TextEngine(tm, tp, eos_token_ids=[], spec_tokens=4).spec_tokens \
+        == 4
     with pytest.raises(ValueError):
         TextEngine(tm, tp, eos_token_ids=[]).generate_tokens(
             [], SamplingConfig())
