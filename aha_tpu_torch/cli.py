@@ -1,15 +1,20 @@
 """`python -m aha_tpu_torch <command>`: the port's CLI (counterpart of
 `aha`, aha_tpu/cli/main.py), for the model families the port serves.
 
-- `serv <path>`: serve a local Qwen3 chat or Qwen2.5-VL checkpoint.  A
-  directory whose config.json has model_type "qwen2_5_vl" is served as
-  Qwen/Qwen2.5-VL-3B-Instruct unless --model names another id.
+- `serv <path>`: serve a local checkpoint as the registry id --model
+  names: Qwen3 or MiniCPM4/5 chat, Qwen2.5-VL image chat, or a Qwen3
+  embedding / reranker or all-MiniLM-L6-v2 model behind /v1/embeddings
+  and /v1/rerank.  A directory whose config.json has model_type
+  "qwen2_5_vl" is served as Qwen/Qwen2.5-VL-3B-Instruct unless --model
+  names another id.
   `--batch-slots N` serves N chats at once through the continuous-batching
   engine; `--spec-tokens N` drafts N tokens a speculative round on the
   single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
   cache in int8.
 - `run <path> --input ...`: one chat from the command line (text, or for
-  a vlm a prompt and an image), with the load and generate times.
+  a vlm a prompt and an image), the vectors of an embedding model's
+  inputs, or a reranker's ranking of `--input query --input doc ...`,
+  with the load and generate times.
 - `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
   the downloaded mark, a downloaded model's removal, the running servers.
 
@@ -74,8 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("ps", help="list running servers")
     p.add_argument("--compact", action="store_true")
 
-    s = sub.add_parser("serv", help="serve a local Qwen3 chat or "
-                                    "Qwen2.5-VL checkpoint")
+    s = sub.add_parser("serv", help="serve a local checkpoint")
     _add_model_path(s)
     s.add_argument("--address", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
@@ -95,7 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_path(r)
     r.add_argument("--input", required=True, action="append",
                    help="repeatable: the prompt (text, or file:// text), "
-                        "then for a vlm the image (path or URL)")
+                        "then for a vlm the image (path or URL); an "
+                        "embedding model's texts; a reranker's query, "
+                        "then its documents")
     r.add_argument("--max-tokens", type=int, default=1024)
     return ap
 
@@ -173,12 +179,13 @@ def _load(args, **kw):
 
 def run_serv(args) -> int:
     from aha_tpu_torch.server.app import ServerState, start_http_server
+    from aha_tpu_torch.utils.device import device
 
     t0 = time.perf_counter()
     model = _load(args, prefix_cache=args.prefix_cache,
                   batch_slots=args.batch_slots, cuda_graphs=not args.eager)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "
-          f"{model.engine.device}", flush=True)
+          f"{device()}", flush=True)
     state = ServerState(model=model,
                         allow_remote_shutdown=args.allow_remote_shutdown,
                         port=args.port,
@@ -215,22 +222,37 @@ def _chat_req(model_id: str, content, max_tokens: int, greedy: bool):
 
 
 def run_run(args) -> int:
-    """One chat, printing the model-load and generate wall times as the
-    JAX CLI's `run` does; text chat (llm) and image chat (vlm)."""
+    """One request, printing the model-load and generate wall times as
+    the JAX CLI's `run` does: text chat (llm), image chat (vlm), an
+    embedding model's vectors, a reranker's ranking."""
     model_id = model_id_for(args.path, args.model)
     mt = registry.lookup(model_id).model_type
-    if mt not in ("llm", "vlm"):
+    if mt not in ("llm", "vlm", "embedding", "reranker"):
         raise NotImplementedError(
             f"`run` of a {mt} model is not ported to aha_tpu_torch yet "
-            "(text and image chat are)")
+            "(text and image chat, embeddings and reranking are)")
     inputs: list[str] = args.input
     if mt == "vlm" and len(inputs) < 2:
         print(f"{model_id} needs --input <prompt> --input <image>")
+        return 1
+    if mt == "reranker" and len(inputs) < 2:
+        print("reranker needs --input query --input doc [--input doc ...]")
         return 1
     t0 = time.perf_counter()
     model = _load(args)
     print(f"load model use time: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
+    if mt == "embedding":
+        for v in model.embedding([_maybe_file_text(s) for s in inputs]):
+            print(f"embedding dim {len(v)}: {v[:8]}...")
+    elif mt == "reranker":
+        scores = model.rerank(inputs[0], inputs[1:])
+        order = sorted(range(len(scores)), key=lambda i: -scores[i])
+        for rank, i in enumerate(order):
+            print(f"#{rank + 1} score={scores[i]:.4f}  {inputs[i + 1][:70]}")
+    if mt in ("embedding", "reranker"):
+        print(f"generate use time: {time.perf_counter() - t0:.2f}s")
+        return 0
     content = _maybe_file_text(inputs[0])
     greedy = False
     if mt == "vlm":

@@ -34,7 +34,14 @@ and the B slot generators are registered with the sampled graph.
 come back, as JAX's copy_to_host_async, through a non-blocking copy of the
 block's (static) output into pinned memory plus a CUDA event, enqueued on
 the replay's stream before the next replay, so the scheduler never waits
-on the block it just issued.  Admission and prefill stay eager.  Not
+on the block it just issued.  Admission and prefill stay eager.
+
+The engine is model-generic, as the JAX one is: any model with
+`supports_slot_decode` (Qwen3Model's flat (L, B, S, Hkv·D) cache, int8 or
+not; LlamaModel's 5-D (L, B, S, Hkv, D) one) — every per-row cache entry
+keeps its slots on dim 1 and its rows on dim 2, which is all admission
+(`_insert`) and the prefix store read.  Chunked admission and the prefix
+store need `supports_prefix_cache` (prefill over cached rows).  Not
 ported: the `mesh`/`dp`/`tp` sharded layouts and multimodal requests.
 """
 
@@ -98,7 +105,7 @@ class _HostCopy:
 
 class BatchEngine:
     """Continuous batching over a model with per-slot decode positions
-    (Qwen3Model: a (B,) cache["pos"] and prefill over cached rows).
+    (`supports_slot_decode`: a (B,) cache["pos"]; Qwen3Model, LlamaModel).
     `cuda_graphs`: replay captured decode blocks on a CUDA device (False:
     run them eagerly)."""
 
@@ -115,8 +122,10 @@ class BatchEngine:
         self.max_seq_len = min(max_seq_len, CACHE_BUCKETS[-1])
         self.runahead = max(1, runahead)
         # chunking reorders float reductions, so a chunked prompt's logits
-        # may differ from a one-shot prefill's in the last bits
-        self.prefill_chunk = max(0, prefill_chunk)
+        # may differ from a one-shot prefill's in the last bits; a model
+        # without prefill over cached rows admits in one shot
+        self.prefill_chunk = max(0, prefill_chunk) if getattr(
+            model, "supports_prefix_cache", False) else 0
         self._admission: dict | None = None
         self.decode_block = max(1, decode_block)
         # each consumer thread sees ITS request's timing
@@ -155,7 +164,9 @@ class BatchEngine:
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         self._pf_caches: dict[int, dict] = {}
-        self.prefix_cache_entries = prefix_cache_entries
+        self.prefix_cache_entries = (
+            prefix_cache_entries
+            if getattr(model, "supports_prefix_cache", False) else 0)
         self._prefix_entries = PrefixStore(self.prefix_cache_entries)
 
     @property
@@ -214,7 +225,8 @@ class BatchEngine:
 
     def _insert(self, small: dict, slot: int, prompt_len: int) -> None:
         """Copy a prefilled 1-slot cache's rows [0, prompt_len) into slot
-        `slot` of the shared cache and set that slot's position."""
+        `slot` of the shared cache (any layout: slots on dim 1, rows on
+        dim 2) and set that slot's position."""
         for name in kv.ROW_KEYS:
             if name in small:
                 self._cache[name][:, slot, :prompt_len].copy_(

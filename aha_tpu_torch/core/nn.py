@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from aha_tpu_torch.ops.norms import layer_norm
 from aha_tpu_torch.ops.quant_matmul import (is_quantized, quant_linear,
                                             quant_swiglu, swiglu_fusable)
 
@@ -44,3 +45,8 @@ def swiglu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
         g, u = linear(gu, x).chunk(2, dim=-1)
         return linear(dn, F.silu(g) * u)
     return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+
+
+def ln(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the dict's weight and optional bias."""
+    return layer_norm(x, p["w"], p.get("b"), eps)

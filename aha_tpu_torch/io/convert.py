@@ -2,9 +2,11 @@
 
 `params_from_jax` takes aha_tpu's Qwen3 or llama parameter tree as numpy
 arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
-`load_qwen3_gguf` produce, fused or not), or a Qwen2.5-VL tree ({"visual":
-..., "text": a llama tree}, the vision blocks a list), and returns the
-port's tree: the same nesting (lists kept) and
+`load_qwen3_gguf` produce, fused or not), a Qwen2.5-VL tree ({"visual":
+..., "text": a llama tree}, the vision blocks a list), or a BERT tree
+(`BertModel`'s: "embeddings" and a "layers" list, linear weights and
+norms with biases, no head), and returns the port's tree: the same
+nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
 head turned from the JAX (K, V) to the port's vocab-major (V, K), and every
 GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`.
@@ -78,6 +80,8 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
                 "text": params_from_jax(tree["text"], device, dtype)}
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
            if k != "lm_head"}
+    if "lm_head" not in tree:                   # an encoder (BERT) tree
+        return out
     head = tree["lm_head"]
     if is_quantized(head):                      # the grids are vocab-major
         out["lm_head"] = _to_torch(head, device, dtype)

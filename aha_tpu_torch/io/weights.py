@@ -94,10 +94,37 @@ def _save(tensors: dict, path: str) -> None:
 
 
 def save_hf_qwen3(params: dict, path: str) -> None:
-    """Write the port's Qwen3 parameters as an HF-named safetensors file
-    (the inverse of Qwen3Model.load_params): a checkpoint made from seeded
-    weights for serving without a download."""
+    """Write the port's Qwen3 parameters, or LlamaModel's (a MiniCPM
+    checkpoint's names), as an HF-named safetensors file (the inverse of
+    their load_params): a checkpoint made from seeded weights for serving
+    without a download."""
     _save(_hf_decoder(params), path)
+
+
+def save_hf_bert(params: dict, path: str) -> None:
+    """Write the port's BertModel parameters with HF BertModel's names
+    (the inverse of BertModel.load_params)."""
+    e = params["embeddings"]
+    out = {f"embeddings.{n}_embeddings.weight": e[n]["w"].contiguous().cpu()
+           for n in ("word", "position", "token_type")}
+
+    def norm(name: str, p: dict) -> None:
+        out[name + ".weight"], out[name + ".bias"] = p["w"].cpu(), \
+            p["b"].cpu()
+
+    norm("embeddings.LayerNorm", e["ln"])
+    for i, lp in enumerate(params["layers"]):
+        p = f"encoder.layer.{i}."
+        for name, key in (("attention.self.query", "q"),
+                          ("attention.self.key", "k"),
+                          ("attention.self.value", "v"),
+                          ("attention.output.dense", "attn_out"),
+                          ("intermediate.dense", "ffn_in"),
+                          ("output.dense", "ffn_out")):
+            _hf_linear(out, p + name, lp[key])
+        norm(p + "attention.output.LayerNorm", lp["attn_ln"])
+        norm(p + "output.LayerNorm", lp["ffn_ln"])
+    _save(out, path)
 
 
 def save_hf_qwen2_5vl(params: dict, path: str) -> None:

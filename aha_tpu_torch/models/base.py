@@ -49,3 +49,11 @@ class LoadedModel:
             op = ("streaming chat completions" if stream else "chat completions")
             return f"{kind} model does not support {op}"
         return "model does not support chat completions"
+
+    # -- embedding / rerank --------------------------------------------------
+
+    def embedding(self, texts: list[str]) -> list[list[float]]:
+        raise UnsupportedOperation("current model does not support embeddings")
+
+    def rerank(self, query: str, documents: list[str]) -> list[float]:
+        raise UnsupportedOperation("current model does not support rerank")

@@ -9,12 +9,13 @@ STACKED on a leading (L, ...) axis, linear weights (in, out), the head
 vocab-major (V, K) — a tied head is the embedding tensor itself, not a
 copy.  The KV cache is the JAX package's 5-D (L, B, S, Hkv, D) layout
 (core/cache.py, flat=False), written in place at the device position
-`cache["pos"]` (0-dim: one stream); the backbone never advances it.  A
-decode step's attention is flash_decode_at_layer (the split-KV decode
-kernel on the card), prefill of ≥ 128 bucketed rows the flash prefill
-kernel; the projections and MLP stay torch.matmul, as the JAX package
-leaves them to XLA.  Not ported: per-slot (B,) positions (continuous
-batching), the tensor-parallel partition rules.
+`cache["pos"]` — 0-dim for one stream, or (B,) for the continuous-batching
+engine, where each slot's new row goes to its own position; the backbone
+never advances it.  A decode step's attention is flash_decode_at_layer
+(the split-KV decode kernel on the card, one slot or B with per-slot
+lengths), prefill of ≥ 128 bucketed rows the flash prefill kernel; the
+projections and MLP stay torch.matmul, as the JAX package leaves them to
+XLA.  Not ported: the tensor-parallel partition rules.
 """
 
 from __future__ import annotations
@@ -76,6 +77,26 @@ class LlamaConfig:
             return cls.from_dict(json.load(f))
 
 
+def minicpm4_0_5b(layers: int = 24) -> LlamaConfig:
+    """MiniCPM4-0.5B's backbone geometry (vocab 73448, hidden 1024,
+    intermediate 3072, 24 layers cut to `layers`, 16 query heads over 2,
+    head_dim 64, tied head) with the family's mup scalings (scale_emb 12,
+    scale_depth 1.4, dim_model_base 256) and a LongRoPE rope_scaling of 32
+    factors a side.  The published checkpoint's factors are not in the
+    repository: these are a smooth stand-in (1.0 to 1.6 short, twice that
+    long), used with seeded weights where no checkpoint is at hand."""
+    short = [float(x) for x in np.linspace(1.0, 1.6, 32)]
+    return LlamaConfig(
+        vocab_size=73448, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=layers, num_attention_heads=16,
+        num_key_value_heads=2, rms_norm_eps=1e-5, rope_theta=10000.0,
+        max_position_embeddings=32768, tie_word_embeddings=True,
+        scale_emb=12.0, scale_depth=1.4, dim_model_base=256,
+        rope_scaling={"rope_type": "longrope", "short_factor": short,
+                      "long_factor": [2.0 * x for x in short],
+                      "original_max_position_embeddings": 32768})
+
+
 def longrope_table(cfg: LlamaConfig, max_len: int,
                    device: torch.device | str = "cpu"
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,8 +120,14 @@ def longrope_table(cfg: LlamaConfig, max_len: int,
 
 
 class LlamaModel:
-    """The model TextEngine (core/engine.py) drives."""
+    """The model TextEngine (core/engine.py) and BatchEngine
+    (core/batch_engine.py) drive."""
 
+    #: decode accepts a per-slot (B,) cache["pos"] vector (continuous
+    #: batching, core/batch_engine.py)
+    supports_slot_decode = True
+    #: pure K/V cache; prefill accepts from_cache=True (prefix caching)
+    supports_prefix_cache = True
     #: pure K/V + position-gated reads: the cache can REWIND (pos -= k) with
     #: no state to unwind — speculative decoding verifies drafts then rolls
     #: back rejected rows for free (hybrids cannot: conv/rec state advanced
@@ -129,14 +156,22 @@ class LlamaModel:
         self._layer_ids = torch.arange(self.n_layers, dtype=torch.int32,
                                        device=self.device)
         self._views: tuple[Any, list[dict]] | None = None
+        # arange(B) per slot count, kept: a captured decode block binds it
+        self._slots: dict[int, torch.Tensor] = {}
 
     fuse_params = staticmethod(fuse_decode_params)
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.bfloat16) -> dict:
+                   dtype: torch.dtype = torch.bfloat16,
+                   per_slot_pos: bool = False) -> dict:
         return kv.init_kv_cache(self.n_layers, batch, max_len,
                                 self.n_kv_heads, self.head_dim, dtype,
-                                self.device, flat=False)
+                                self.device, per_slot_pos, flat=False)
+
+    def _slot_ids(self, B: int, device) -> torch.Tensor:
+        if B not in self._slots:
+            self._slots[B] = torch.arange(B, device=device)
+        return self._slots[B]
 
     # -- forward ------------------------------------------------------------
 
@@ -179,13 +214,21 @@ class LlamaModel:
                cache: dict, is_prefill: bool, from_cache: bool,
                positions: torch.Tensor, valid_len: torch.Tensor | None):
         """One decoder block; writes this layer's K/V rows into the cache
-        in place at `positions` (S,)."""
+        in place at `positions` — (S,) rows shared by the batch, or (B,)
+        one row per slot (per-slot decode, S = 1: the JAX scatter
+        `kc.at[li, b_idx, pos].set(k[:, 0])`)."""
         h = rms_norm(x, lp["ln1"]["w"], self.config.rms_norm_eps)
         q, k, v = self._qkv(lp, h)
         q, k = apply_rope(q, k, cos, sin)
+        per_slot = cache["pos"].ndim == 1
         for name, new in (("k", k), ("v", v)):
             dst = cache[name][li]                  # (B, S_cache, Hkv, D)
-            dst.index_copy_(1, positions, new.to(dst.dtype))
+            new = new.to(dst.dtype)
+            if per_slot:                           # row b at positions[b]
+                dst.index_put_((self._slot_ids(x.shape[0], x.device),
+                                positions), new[:, 0])
+            else:
+                dst.index_copy_(1, positions, new)
         layer = self._layer_ids[li]
         if is_prefill and from_cache:
             attn = attention_prefill_at(q, cache["k"], cache["v"], layer,
@@ -211,17 +254,26 @@ class LlamaModel:
         """Decoder stack over input embeddings → final-normed hidden times
         the hidden scale.  Writes K/V at [pos, pos + S) and leaves pos as it
         was.  `cos_sin` overrides the arange RoPE gather (M-RoPE wrappers
-        such as Qwen2.5-VL)."""
+        such as Qwen2.5-VL).  A (B,) pos decodes one token per slot, each
+        at its own position: rope rows gathered per slot, and a position
+        past the cache (a slot stepped past its budget, as the batch
+        engine's runahead does) clamped to the last row, where the JAX
+        scatter drops it — that slot's outputs are discarded."""
         B, S, _ = x.shape
         pos = cache["pos"]
-        if pos.ndim != 0:
-            raise ValueError("LlamaModel decodes one stream (a 0-dim pos); "
-                             "per-slot positions are not ported")
-        positions = pos.long() + torch.arange(S, device=x.device)
+        if pos.ndim == 0:
+            positions = pos.long() + torch.arange(S, device=x.device)
+            rope_at = positions
+        else:
+            if S != 1:
+                raise ValueError("per-slot positions take one token per slot")
+            last = min(kv.cache_max_len(cache), self.cos.shape[0]) - 1
+            positions = pos.long().clamp(max=last)
+            rope_at = positions[:, None]
         cos, sin = cos_sin if cos_sin is not None else \
-            gather_rope(self.cos, self.sin, positions)
+            gather_rope(self.cos, self.sin, rope_at)
         is_prefill = S > 1
-        valid_len = None if is_prefill else (pos + 1).reshape(1)
+        valid_len = None if is_prefill else (pos + 1).reshape(-1)
         for li, lp in enumerate(self._layer_views(params["layers"])):
             x = self._layer(lp, li, x, cos, sin, cache, is_prefill,
                             from_cache, positions, valid_len)

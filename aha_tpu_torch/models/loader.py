@@ -1,35 +1,121 @@
 """Model factory: registry id → served model (counterpart of
-aha_tpu/models/loader.py).  Ported families: qwen3 (the Qwen3 chat models)
-and qwen2_5vl (Qwen2.5-VL image chat); every other family raises
-NotImplementedError."""
+aha_tpu/models/loader.py).  Ported families: qwen3 (the Qwen3 chat
+models), the llama text families minicpm4 / minicpm5, qwen2_5vl
+(Qwen2.5-VL image chat), qwen3_embedding / qwen3_reranker and minilm
+(all-MiniLM-L6-v2); every other family raises NotImplementedError.  The
+reference's option checks run first, before any weights load, with its
+strings."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 from aha_tpu_torch.models.base import LoadedModel
-from aha_tpu_torch.registry import lookup
+from aha_tpu_torch.registry import ModelEntry, lookup
+
+
+def _qwen3(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen3_served import Qwen3Chat
+
+    return Qwen3Chat.load(entry, path, **kw)
+
+
+def _qwen3_embedding(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen3_served import Qwen3EmbeddingServed
+
+    return Qwen3EmbeddingServed.load(entry, path)
+
+
+def _qwen3_reranker(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen3_served import Qwen3RerankerServed
+
+    return Qwen3RerankerServed.load(entry, path)
+
+
+def _minilm(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.minilm_served import MiniLMServed
+
+    return MiniLMServed.load(entry, path)
+
+
+def _llama_family(entry: ModelEntry, path: str, max_seq_len: int = 8192,
+                  **kw) -> LoadedModel:
+    """minicpm4 / minicpm5: the generic LlamaForCausalLM wrapper —
+    LlamaConfig picks up whatever mup / LongRoPE fields the config.json
+    has."""
+    from aha_tpu_torch.io.weights import open_weights
+    from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aha_tpu_torch.models.text_served import TextChatModel
+    from aha_tpu_torch.utils.device import device, get_dtype
+
+    def build(path, max_seq_len):
+        dev = device()
+        model = LlamaModel(LlamaConfig.from_file(path),
+                           max_rope_len=max_seq_len, device=dev)
+        return model, model.load_params(open_weights(path),
+                                        dtype=get_dtype(dev))
+
+    return TextChatModel.load(entry, path, build, max_seq_len=max_seq_len,
+                              batch_slots=kw.get("batch_slots", 1),
+                              prefix_cache=kw.get("prefix_cache", 4),
+                              spec_tokens=kw.get("spec_tokens", 0),
+                              cuda_graphs=kw.get("cuda_graphs", True))
+
+
+def _qwen2_5vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen2_5vl_served import Qwen2_5VLChat
+
+    return Qwen2_5VLChat.load(entry, path, **kw)
+
+
+FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
+    "minilm": _minilm,
+    "qwen2_5vl": _qwen2_5vl,
+    "qwen3": _qwen3,
+    "qwen3_embedding": _qwen3_embedding,
+    "qwen3_reranker": _qwen3_reranker,
+    "minicpm4": _llama_family,
+    "minicpm5": _llama_family,
+}
+
+# families whose serving path can sit on the continuous-batching engine:
+# the reference's set, so its refusal reads the same; lfm2 and qwen3_5 are
+# not ported and raise NotImplementedError as every unported family does
+BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 
 
 def load_model(model_id: str, path: str, **kw) -> LoadedModel:
-    """`batch_slots > 1` serves through the continuous-batching engine;
-    combined with `spec_tokens > 0` it is refused before any weights load,
-    as the JAX loader does.  `dp > 1` (sharded slots) is not ported."""
+    """`batch_slots > 1` serves a batchable family through the
+    continuous-batching engine; combined with `spec_tokens > 0` it is
+    refused before any weights load, as the JAX loader does.  `dp > 1`
+    (sharded slots) is not ported."""
     from aha_tpu_torch.models.text_served import SPEC_WITH_SLOTS
 
+    entry = lookup(model_id)
+    if kw.get("batch_slots", 1) > 1 and entry.family not in BATCHABLE_FAMILIES:
+        raise ValueError(
+            f"--batch-slots applies to text chat families "
+            f"({', '.join(sorted(BATCHABLE_FAMILIES))}); "
+            f"'{entry.family}' is served single-stream")
     if kw.get("batch_slots", 1) > 1 and kw.get("spec_tokens", 0) > 0:
         raise ValueError(SPEC_WITH_SLOTS)
     if kw.pop("dp", 1) > 1:
         raise ValueError("--dp (continuous-batching slots sharded over "
                          "devices) is not ported to aha_tpu_torch yet; "
                          "serve with --dp 1")
-    entry = lookup(model_id)
-    if entry.family == "qwen3":
-        from aha_tpu_torch.models.qwen3_served import Qwen3Chat
-
-        return Qwen3Chat.load(entry, path, **kw)
-    if entry.family == "qwen2_5vl":
-        from aha_tpu_torch.models.qwen2_5vl_served import Qwen2_5VLChat
-
-        return Qwen2_5VLChat.load(entry, path, **kw)
-    raise NotImplementedError(
-        f"model family '{entry.family}' is not ported to aha_tpu_torch "
-        "yet (the Qwen3 chat and Qwen2.5-VL models are)")
+    if kw.get("batch_slots", 1) == 1:
+        kw.pop("batch_slots", None)   # keep kwargs clean for family loaders
+    if entry.family not in BATCHABLE_FAMILIES:
+        # prompt-prefix KV caching + speculative decoding ride the
+        # text-chat engine only
+        kw.pop("prefix_cache", None)
+        kw.pop("spec_tokens", None)
+    if kw.get("spec_tokens", 0) == 0:
+        kw.pop("spec_tokens", None)
+    loader = FAMILY_LOADERS.get(entry.family)
+    if loader is None:
+        raise NotImplementedError(
+            f"model family '{entry.family}' is not ported to aha_tpu_torch "
+            "yet (the Qwen3 chat, MiniCPM4/5, Qwen2.5-VL, Qwen3 embedding "
+            "and reranker, and all-MiniLM-L6-v2 models are)")
+    return loader(entry, path, **kw)

@@ -95,6 +95,11 @@ class Qwen3Model:
     """The model TextEngine (core/engine.py) and BatchEngine
     (core/batch_engine.py) drive."""
 
+    #: decode accepts a per-slot (B,) cache["pos"] vector — the contract the
+    #: continuous-batching engine (core/batch_engine.py) needs
+    supports_slot_decode = True
+    #: pure K/V cache; prefill accepts from_cache=True (prefix caching)
+    supports_prefix_cache = True
     #: decode reads an int8 KV cache (init_cache(dtype=torch.int8); serve
     #: with AHA_KV_INT8=1) — halves long-context cache bandwidth
     supports_kv_int8 = True

@@ -1,6 +1,9 @@
 """Generic text-chat served model: CausalLM + tokenizer + chat template
-(counterpart of aha_tpu/models/text_served.py).  `batch_slots > 1` serves
-through the continuous-batching BatchEngine.  A model with
+(counterpart of aha_tpu/models/text_served.py): Qwen3 and the llama
+families (minicpm4 / minicpm5) share it, each contributing only the
+function that builds its model.  `batch_slots > 1` serves through the continuous-batching
+BatchEngine, for a model with `supports_slot_decode` (others are refused,
+as the reference refuses them).  A model with
 `supports_kv_int8` (Qwen3) takes get_cache_dtype() (AHA_KV_INT8=1 → int8)
 on both engines; any other keeps its parameters' dtype, as the
 reference's rule is."""
@@ -62,6 +65,11 @@ class TextChatModel(GenerateModel, LoadedModel):
         if batch_slots > 1 and spec_tokens > 0:
             raise ValueError(SPEC_WITH_SLOTS)
         model, params = build_model(path, max_seq_len)
+        if batch_slots > 1 and not getattr(model, "supports_slot_decode",
+                                           False):
+            raise ValueError(
+                f"{type(model).__name__} does not support per-slot batched "
+                "decode; serve it with --batch-slots 1")
         w = embed_weight(params)
         cache_dtype = (get_cache_dtype(w.device)
                        if getattr(model, "supports_kv_int8", False)

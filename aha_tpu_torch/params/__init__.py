@@ -1,7 +1,7 @@
 """OpenAI-compatible wire types (pydantic): the port's copy of
-aha_tpu/params (chat and the shared Usage), field for field, so both
-packages answer the same JSON.  The embedding, rerank and transcription
-types come with the endpoints that use them.
+aha_tpu/params (chat, embedding, rerank and the shared Usage), field for
+field, so both packages answer the same JSON.  The transcription types
+come with the endpoint that uses them.
 """
 
 from aha_tpu_torch.params.shared import (
@@ -24,6 +24,16 @@ from aha_tpu_torch.params.chat import (
     content_to_text,
     extract_parts,
 )
+from aha_tpu_torch.params.embedding import (
+    EmbeddingRequest,
+    EmbeddingData,
+    EmbeddingResponse,
+)
+from aha_tpu_torch.params.rerank import (
+    RerankRequest,
+    RerankResult,
+    RerankResponse,
+)
 
 __all__ = [
     "Usage",
@@ -42,4 +52,10 @@ __all__ = [
     "DeltaFunction",
     "content_to_text",
     "extract_parts",
+    "EmbeddingRequest",
+    "EmbeddingData",
+    "EmbeddingResponse",
+    "RerankRequest",
+    "RerankResult",
+    "RerankResponse",
 ]

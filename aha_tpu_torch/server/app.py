@@ -1,15 +1,17 @@
 """OpenAI-compatible HTTP server for the port (aiohttp).
 
-The port's copy of the chat-serving part of aha_tpu/server/app.py: the
-same server state, auth middleware and chat / health / models / shutdown
-handlers, so both packages answer the same wire format.  The /manage
-routes and the embedding / rerank / audio / image endpoints are not ported
+The port's copy of the chat, embedding and rerank parts of
+aha_tpu/server/app.py: the same server state, auth middleware and chat /
+embeddings / rerank / health / models / shutdown handlers, with the same
+status codes and error strings, so both packages answer the same wire
+format.  The /manage routes and the audio / image endpoints are not ported
 yet.
 
 One model in memory; generation runs in a worker thread guarded by an
 asyncio lock (the reference's write-lock serialization, api.rs:31/:131) —
 except chat on a continuous-batching model (concurrent_streams > 1), where
 requests run concurrently and the engine schedules slots itself.
+Embedding and rerank calls always run behind the lock.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ from typing import Optional
 
 from aiohttp import web
 
-from aha_tpu_torch.models.base import LoadedModel
-from aha_tpu_torch.params import ChatCompletionParameters
+from aha_tpu_torch.models.base import LoadedModel, UnsupportedOperation
+from aha_tpu_torch.params import (ChatCompletionParameters, EmbeddingData,
+                                  EmbeddingResponse, RerankRequest,
+                                  RerankResponse, RerankResult)
 
 __all__ = ["ServerState", "create_app", "start_http_server"]
 
@@ -116,9 +120,12 @@ async def chat(request: web.Request) -> web.StreamResponse:
 
         def producer():
             # closing the generator (finally:) returns the engine's pooled KV
-            # cache even when the client disconnects mid-stream
-            gen = state.model.generate_stream(mes)
+            # cache even when the client disconnects mid-stream; a model
+            # that refuses to stream (an embedding model) raises on the
+            # call itself, which streams as the error event
+            gen = None
             try:
+                gen = state.model.generate_stream(mes)
                 for chunk in gen:
                     if cancel.is_set() or not _put(("chunk", chunk)):
                         return
@@ -127,7 +134,8 @@ async def chat(request: web.Request) -> web.StreamResponse:
                 if not cancel.is_set():
                     _put(("error", str(e)))
             finally:
-                gen.close()
+                if gen is not None:
+                    gen.close()
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
@@ -155,6 +163,74 @@ async def chat(request: web.Request) -> web.StreamResponse:
     except (ConnectionResetError, ConnectionError):
         pass
     return response
+
+
+async def embeddings(request: web.Request) -> web.Response:
+    state = _state(request)
+    try:
+        body = await request.json()
+    except Exception:
+        return web.json_response({"error": "invalid JSON body"}, status=400)
+    raw = body.get("input")
+    if isinstance(raw, str):
+        texts = [raw]
+    elif isinstance(raw, list):
+        if not raw:
+            return web.json_response(
+                {"error": "embedding input cannot be empty"}, status=400)
+        if not all(isinstance(x, str) for x in raw):
+            return web.json_response(
+                {"error": "embedding input array must contain only strings"},
+                status=400)
+        texts = raw
+    else:
+        return web.json_response(
+            {"error": "embedding input must be a string or an array of strings"},
+            status=400)
+    if state.model is None:
+        return web.json_response({"error": "model not init"}, status=503)
+    async with state.lock:
+        try:
+            vecs = await _run_blocking(state.model.embedding, texts)
+        except (UnsupportedOperation, ValueError) as e:
+            return web.json_response({"error": str(e)}, status=400)
+    resp = EmbeddingResponse(
+        object="list",
+        model=state.model.entry.model_id,
+        data=[EmbeddingData(object="embedding", index=i, embedding=v)
+              for i, v in enumerate(vecs)],
+    )
+    return web.json_response(resp.to_json_dict())
+
+
+async def rerank(request: web.Request) -> web.Response:
+    state = _state(request)
+    try:
+        req = RerankRequest.model_validate(await request.json())
+    except Exception as e:
+        return web.json_response({"error": f"invalid request: {e}"}, status=400)
+    if not req.query.strip():
+        return web.json_response({"error": "rerank query cannot be empty"},
+                                 status=400)
+    if not req.documents:
+        return web.json_response({"error": "rerank documents cannot be empty"},
+                                 status=400)
+    if state.model is None:
+        return web.json_response({"error": "model not init"}, status=503)
+    async with state.lock:
+        try:
+            scores = await _run_blocking(state.model.rerank, req.query,
+                                         req.documents)
+        except (UnsupportedOperation, ValueError) as e:
+            return web.json_response({"error": str(e)}, status=400)
+    results = [RerankResult(index=i, relevance_score=s, document=d)
+               for i, (s, d) in enumerate(zip(scores, req.documents))]
+    results.sort(key=lambda r: r.relevance_score, reverse=True)
+    if req.top_n is not None:
+        results = results[: req.top_n]
+    resp = RerankResponse(object="list", model=state.model.entry.model_id,
+                          results=results)
+    return web.json_response(resp.to_json_dict())
 
 
 async def health(request: web.Request) -> web.Response:
@@ -222,6 +298,10 @@ def create_app(state: ServerState | None = None) -> web.Application:
     app.add_routes([
         web.post("/v1/chat/completions", chat),
         web.post("/chat/completions", chat),
+        web.post("/embeddings", embeddings),
+        web.post("/v1/embeddings", embeddings),
+        web.post("/rerank", rerank),
+        web.post("/v1/rerank", rerank),
         web.get("/health", health),
         web.get("/models", models),
         web.get("/v1/models", models),

@@ -60,6 +60,11 @@ speculative engine and through a plain one, ms per emitted token each.
 `--no-drafts` builds the engine with spec_no_drafts (every round verifies
 its token alone: the draftless floor).
 
+`--model minicpm4` reads MiniCPM4-0.5B's geometry (models/llama.py
+minicpm4_0_5b, seeded bf16 weights) on the same readings: the per-op
+decode block of the llama decoder (no fused stack) and its prefill, or
+with `--batch-slots N` its N-slot step.
+
 `--model qwen2_5vl` reads Qwen2.5-VL-3B-Instruct's geometry instead
 (seeded bf16 weights; a seeded --image-px square image, 980 by default:
 4,900 patches in the 6,400 bucket): the vision tower alone, the image
@@ -219,7 +224,9 @@ def profile_batch(model, params, args, card: str) -> None:
         eng._decode_n(args.steps)
 
     name = (f"batch {n} {str(dtype).replace('torch.', '')}"
-            + (f" {args.quant}" if args.quant else "") + _how(args))
+            + (f" {args.quant}" if args.quant else "")
+            + (f" {args.model}" if args.model != "qwen3" else "")
+            + _how(args))
     with torch.no_grad():
         for _ in range(2):                  # warm-up: allocator, cuBLAS
             block()
@@ -538,9 +545,10 @@ def main(argv=None) -> int:
                     help="device time of each decode-attention pass")
     ap.add_argument("--quant", choices=("q8", "q4"),
                     help="pack the weights and head on this GGUF grid")
-    ap.add_argument("--model", choices=("qwen3", "qwen2_5vl"),
+    ap.add_argument("--model", choices=("qwen3", "minicpm4", "qwen2_5vl"),
                     default="qwen3",
-                    help="qwen2_5vl: Qwen2.5-VL-3B's tower, image prefill "
+                    help="minicpm4: MiniCPM4-0.5B's llama decoder; "
+                         "qwen2_5vl: Qwen2.5-VL-3B's tower, image prefill "
                          "and text decode")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
@@ -571,10 +579,21 @@ def main(argv=None) -> int:
     if args.model == "qwen2_5vl":
         profile_vl(args, card)
         return 0
-    cfg = Qwen3Config()
-    model = Qwen3Model(cfg, max_rope_len=8192, device="cuda")
+    if args.model == "minicpm4":
+        from aha_tpu_torch.models.llama import LlamaModel, minicpm4_0_5b
+
+        if args.quant or args.spec_tokens > 0:
+            ap.error("--model minicpm4 reads bf16 decode (no --quant, "
+                     "--spec-tokens)")
+        cfg = minicpm4_0_5b()
+        model = LlamaModel(cfg, max_rope_len=8192, device="cuda")
+    else:
+        cfg = Qwen3Config()
+        model = Qwen3Model(cfg, max_rope_len=8192, device="cuda")
     params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
                                dtype=torch.bfloat16)
+    if args.model == "minicpm4":
+        params = model.fuse_params(params)
     if args.quant:
         from aha_tpu_torch.models.qwen3 import pack_params
 
@@ -593,8 +612,10 @@ def main(argv=None) -> int:
     print(f"profile_decode: prompt {len(ids)} (bucket {bucket}), cache "
           f"{args.cache}, {args.steps}-step block, "
           f"{args.quant or 'bf16'} weights,{_how(args)} | {card}")
+    # the llama decoder has no fused stack: one reading, its per-op chain
+    routes = (True, False) if args.model == "qwen3" else (False,)
     with torch.no_grad():
-        for fused in (True, False):
+        for fused in routes:
             with _fused(fused):
                 # an engine per route: its graphs are captured on the route
                 eng = TextEngine(model, params, eos_token_ids=[],
@@ -616,6 +637,8 @@ def main(argv=None) -> int:
                     block()
                 out = {"config": ("fused" if fused else "per-op")
                            + (f" {args.quant}" if args.quant else "")
+                           + (f" {args.model}" if args.model != "qwen3"
+                              else "")
                            + _how(args),
                        "card": card, "prompt": len(ids),
                        "cache": args.cache, "steps": args.steps,

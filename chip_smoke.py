@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive aha_tpu_torch's Qwen3 chat and Qwen2.5-VL image-chat paths once on
-one CUDA card.
+"""Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank and
+Qwen2.5-VL image-chat paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -20,7 +20,9 @@ before the last line:
    Qwen2.5-VL-7B's group (28 query heads over 4, G 7), bf16 and int8; the
    one-layer fused decode block, which no path runs, at Qwen3-0.6B's
    widths, alone and as 28 chained launches against the fused stack's
-   plain version;
+   plain version; the stacked decode at MiniCPM4-0.5B's 8-slot step (L 24,
+   S 4096, 16/2, D 64, ragged lengths) and the prefill kernel at B = 4
+   (an embedding group), each slot or row bit-equal to a B = 1 launch;
 3b. studies — the H100 design studies (aha_tpu_torch/studies/, the port of
    the TPU studies under scripts/), each through its entry point
    `main(["--quick"])` at the scripts' full geometry: the HBM read ceiling
@@ -66,14 +68,35 @@ before the last line:
    same steps on the CPU through the kernels' plain versions (the witness)
    and through the exact dequantized path; each path with the counters
    zeroed before it and its kernels launched;
+6b. embed — (t1) Qwen3-Embedding-0.6B on the same weights: 12 texts of
+   the test tokenizer over the 32, 128 and 512 buckets, one forward a
+   bucket group (the prefill kernel at B = the group's rows, 28 launches a
+   group of >= 128 rows), unit vectors within TOL_EMBED_REL of the f32
+   plain path on the CPU; (t2) Qwen3-Reranker-0.6B's scores equal to the
+   vectors' dot products; (t3) all-MiniLM-L6-v2 at its full geometry in
+   f32, 12 texts against the CPU;
 7. HTTP — the bf16 weights saved as a checkpoint (embedding rows past the
    test tokenizer's vocabulary zeroed, so replies decode to text) and
    served by `python -m aha_tpu_torch serv` in a child process:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
    a `--spec-tokens 8` server's greedy reply equal to the plain one's;
-   then a `--batch-slots 4` server answering 4 chats at once; the child
-   runs under `-X importtime`, whose log must name no module of jax or
-   aha_tpu;
+   then a `--batch-slots 4` server answering 4 chats at once, and the
+   same checkpoint served as Qwen/Qwen3-Reranker-0.6B answering /v1/rerank
+   with top_n, sorted; each child runs under `-X importtime`, whose log
+   must name no module of jax or aha_tpu;
+7b. minicpm — (s) MiniCPM4-0.5B's geometry (24 layers, hidden 1024, 16/2
+   heads, D 64, vocab 73448, mup scalings, LongRoPE) with seeded bf16
+   weights: (s1) a TextEngine, a 300-token prompt and 64 greedy tokens
+   (flash_attention 24 a prefill, flash_decode_at_layer 24 a step); (s2)
+   a BatchEngine of 8 slots with the prefix store under the (f) mix
+   (flash_decode_at_layer 24 a step of 8 slots at per-slot lengths); each
+   graphed and eager; 8 teacher-forced steps of 4 slots against the f32
+   plain path on the CPU;
+7c. http-embed — a MiniLM checkpoint served as
+   sentence-transformers/all-MiniLM-L6-v2 (/v1/embeddings of a string and
+   an array equal to the in-process vectors, /v1/rerank refused 400) and a
+   4-layer MiniCPM4 checkpoint in HF names served as
+   OpenBMB/MiniCPM4-0.5B --batch-slots 4 answering 4 chats at once;
 8. vl — (n) Qwen2.5-VL-3B-Instruct's published geometry (vision tower 32
    blocks at hidden 1280, text decoder 36 layers at hidden 2048, vocab
    151936, tied) with seeded bf16 weights on the card, through TextEngine
@@ -126,6 +149,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -188,6 +212,14 @@ TOL_VL_HIDDEN_REL = 5e-2
 # and requires its bound to reject it)
 TOL_SEG_REL = 2e-2
 TOL_DECODE_REL = 1e-2
+# (t): the Qwen3-Embedding vectors (the last row's final hidden, L2-unit)
+# through the kernels in bf16 on the card against the f32 plain path on the
+# CPU, max abs error relative to max |ref| (the bf16 rounding through 28
+# layers, as TOL_HIDDEN_REL holds the chat model's hidden states); all-
+# MiniLM-L6-v2 is float32 on both sides (no TF32), max abs error of its
+# unit vectors
+TOL_EMBED_REL = 5e-2
+TOL_MINILM = 1e-4
 # 28 chained launches of the one-layer kernel (each layer's rows written by
 # the caller) against the fused stack's plain version, relative to max
 # |ref|: the layer rounds its residual to bf16 twice per layer where the
@@ -1505,6 +1537,144 @@ def check_stacked_decode() -> None:
     torch.cuda.empty_cache()
 
 
+def _planted_slots_cache(g, L: int, B: int, S: int, Hq: int, Hkv: int,
+                         D: int, lens: tuple[int, ...]):
+    """_planted_decode_cache at B slots with per-slot lengths: each slot's
+    key planted at its last live row along its query heads' summed
+    direction, and a dead row at its length planted three times
+    stronger."""
+    G = Hq // Hkv
+    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda")
+    k = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    v = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    for b, n in enumerate(lens):
+        u = q[b].reshape(Hkv, G, D).sum(1)
+        u = u / u.norm(dim=-1, keepdim=True)
+        k[:, b, n - 1] = 21 * u
+        if n < S:
+            k[:, b, n] = 63 * u
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+#: (s)'s decode shape: MiniCPM4-0.5B's 24 layers, 16 query heads over 2, D
+#: 64, 8 slots of a 4096-row cache at ragged lengths (a parked slot of 1,
+#: the split boundaries 32 and 33, a live row short of the whole cache)
+MINICPM_RAGGED = (1, 32, 33, 300, 1000, 1500, 2048, 4095)
+
+
+def check_minicpm_decode() -> None:
+    """Row 8 (flash_decode_at_layer) as (s)'s 8-slot step reads it: the 5-D
+    cache at L 24, S 4096, Hq 16 over Hkv 2, D 64, B 8, MINICPM_RAGGED;
+    within TOL_DECODE_REL of max |ref| against the plain version, every
+    slot's live length off by one rejected by that bound, each slot
+    bit-equal to a B = 1 launch on that slot; device time over the 24
+    layers in turn beside one masked sdpa over each slot's whole cache
+    (per-slot length mask) and the bound of the live rows."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    L, B, S, Hq, Hkv, D = 24, 8, 4096, 16, 2, 64
+    lens = MINICPM_RAGGED
+    g = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = _planted_slots_cache(g, L, B, S, Hq, Hkv, D, lens)
+    vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    err = rel = 0.0
+    rel_bad = float("inf")
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = fa.flash_decode_at_layer(q, k, v, lt, vl)
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             lt, vl)
+        e, r = _rel_err(got, ref)
+        err, rel = max(err, e), max(rel, r)
+        for off in (-1, 1):
+            bad = (vl + off).clamp(1, S)
+            rel_bad = min(rel_bad, _rel_err(
+                fa.flash_decode_at_layer(q, k, v, lt, bad), ref)[1])
+        for b in range(B):
+            one = fa.flash_decode_at_layer(
+                q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                v[:, b:b + 1].contiguous(), lt, vl[b:b + 1].contiguous())
+            require(torch.equal(one, got[b:b + 1]),
+                    f"MiniCPM decode slot {b} differs from a B = 1 launch")
+    require(rel <= TOL_DECODE_REL, f"MiniCPM decode: {rel} of max |ref| "
+            f"(tol {TOL_DECODE_REL})")
+    require(rel_bad > TOL_DECODE_REL, f"MiniCPM decode: live lengths off by "
+            f"one stay within the bound ({rel_bad} of max |ref|)")
+    layer = _layer_cycle(L)
+    ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
+                   iters=48)
+    plain_ms = device_ms(lambda: fa.flash_decode_at_layer_plain(
+        q, k, v, layer(), vl), iters=24)
+    live = sum(lens)
+    b_ = bound(live * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2,
+               4 * Hq * live * D)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < vl[:, None]).reshape(B, 1, 1, S)
+    qt = q.transpose(1, 2).contiguous()
+    kv_t = [(k[li].transpose(1, 2).contiguous(),
+             v[li].transpose(1, 2).contiguous()) for li in range(L)]
+    it = iter(range(10 ** 9))
+    lib_ms = device_ms(lambda: _sdpa(qt, *kv_t[next(it) % L],
+                                     attn_mask=mask), iters=48)
+    del kv_t
+    log(f"[kernels] flash_decode_at_layer at MiniCPM4-0.5B's 8-slot step "
+        f"(L={L} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}, lengths {lens}): "
+        f"{rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; live lengths ±1 ≥ "
+        f"{rel_bad:.3e}), each slot bit-equal to a B = 1 launch; device "
+        f"ms/call kernel {ms:.4f} plain {plain_ms:.4f} masked sdpa "
+        f"{lib_ms:.4f}; bound {b_[0]:.4f} ({b_[1]})")
+    _record("flash_decode_at_layer", err)
+    RESULTS["flash_decode_at_layer"]["minicpm_b8"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_[0], bound_by=b_[1],
+        library_ms=lib_ms, rel_err=rel, off_by_one_rel_err=rel_bad,
+        library="F.scaled_dot_product_attention, a per-slot length mask "
+                "over the whole cache",
+        shape=f"L={L} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ragged {lens}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def check_prefill_batched() -> None:
+    """Row 1 (flash_attention) at B = 4, as an embedding group of rows
+    prefills: S 512, Hq 16 over Hkv 8, D 128, causal; within TOL_ATTN of
+    the plain version, each batch row bit-equal to a B = 1 launch on it;
+    device time beside F.scaled_dot_product_attention and the bound."""
+    from aha_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    B, S, Hq, Hkv, D = 4, 512, 16, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(4512)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((B, S, Hq, D), generator=g, **bf)
+    k = torch.randn((B, S, Hkv, D), generator=g, **bf)
+    v = torch.randn((B, S, Hkv, D), generator=g, **bf)
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    require(err <= TOL_ATTN, f"prefill B={B}: err {err}")
+    for b in range(B):
+        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+        require(torch.equal(one, got[b:b + 1]),
+                f"prefill B={B}: row {b} differs from a B = 1 launch")
+    ms = device_ms(lambda: flash_attention(q, k, v))
+    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v), iters=10)
+    pairs = S * (S + 1) // 2
+    b_ = bound(B * S * (2 * Hq + 2 * Hkv) * D * 2, 4 * B * Hq * pairs * D)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, is_causal=True))
+    log(f"[kernels] prefill B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}: "
+        f"max_abs_err {err:.3e} (tol {TOL_ATTN}), each row bit-equal to a "
+        f"B = 1 launch; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"sdpa {lib_ms:.4f}; bound {b_[0]:.4f} ({b_[1]})")
+    _record("flash_attention", err)
+    RESULTS["flash_attention"].setdefault("also_timed", []).append(
+        {"at": f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}", "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": b_[0], "library_ms": lib_ms})
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
 def check_decode_g7() -> None:
     """Decode at Qwen2.5-VL-7B's group (Hq 28 over Hkv 4: G 7, D 128), 1000
     of 4096 live rows over 28 layers: flash_decode_at_layer on the 5-D
@@ -1591,6 +1761,8 @@ def phase_kernels() -> None:
     check_segmented()
     check_stacked_decode()
     check_decode_g7()
+    check_minicpm_decode()
+    check_prefill_batched()
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -1835,13 +2007,12 @@ def _cyclic(rng, n: int, vocab: int) -> list[int]:
 
 def _f32_cpu(model, params) -> tuple:
     """The model's plain path on the CPU in float32 (the grids' integer
-    tensors kept: a CPU quantized linear dequantizes exactly)."""
-    from aha_tpu_torch.models.qwen3 import Qwen3Model
-
+    tensors kept: a CPU quantized linear dequantizes exactly): the same
+    class (Qwen3Model, LlamaModel) at the same config."""
     cpu_params = _tree_to(params, "cpu", torch.float32)
     if params["lm_head"].get("w") is params["embed"]["w"]:    # tied
         cpu_params["lm_head"] = {"w": cpu_params["embed"]["w"]}
-    return Qwen3Model(model.config, max_rope_len=8192, device="cpu"), \
+    return type(model)(model.config, max_rope_len=8192, device="cpu"), \
         cpu_params
 
 
@@ -2051,7 +2222,8 @@ def _block_reading(eng, device: str) -> tuple[dict, dict]:
 
 
 def _batch_path(model, params, device: str, cache_dtype, name: str,
-                must: tuple[str, ...], slots: int = 8) -> None:
+                must: tuple[str, ...], slots: int = 8,
+                prefix_cache_entries: int = 0) -> dict:
     """(f)/(g): a BatchEngine of `slots` slots, max_seq_len 4096, the 12
     requests of BATCH_PROMPTS, 64 tokens each, from threads at once; one
     of them sampled (temperature, top-k, top-p, repeat penalty), so the
@@ -2059,7 +2231,9 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
     Then the same through an engine built with cuda_graphs=False: every
     request's tokens equal; one block's launches in each mode equal; and
     each kernel's count over the run, less its launches a block times
-    the blocks dispatched (which the scheduler's timing decides), equal."""
+    the blocks dispatched (which the scheduler's timing decides), equal.
+    Returns the graphed run's launches, one block's launches, the block's
+    steps and the steps dispatched."""
     from aha_tpu_torch.core.batch_engine import BatchEngine
     from aha_tpu_torch.core.sampling import SamplingConfig
     from aha_tpu_torch.utils.profile_decode import (BATCH_PROMPTS,
@@ -2078,7 +2252,8 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
     for graphed in (True, False):
         eng = BatchEngine(model, params, eos_token_ids=[], slots=slots,
                           cache_dtype=cache_dtype, max_seq_len=4096,
-                          cuda_graphs=graphed)
+                          cuda_graphs=graphed,
+                          prefix_cache_entries=prefix_cache_entries)
         try:
             # warm-up of the step and prefill shapes, not counted
             drive_concurrent(eng, warm, [greedy, sampled], 8)
@@ -2152,6 +2327,8 @@ def _batch_path(model, params, device: str, cache_dtype, name: str,
         log(f"[graphs] {name}, {mode} block of {blk} steps, {slots} slots at "
             f"1000 rows: {g['ms'][mode]:.3f} ms/step graphed, "
             f"{e['ms'][mode]:.3f} eager | {card}")
+    return {"launches": launches, "block": per_block, "blk": blk,
+            "steps": g["steps"], "prompts": BATCH_PROMPTS}
 
 
 def _int8_text_path(model, params, device: str) -> None:
@@ -2224,12 +2401,23 @@ def phase_batch(model, params, device: str = "cuda") -> None:
 
     # (i) 8 teacher-forced steps of 4 slots on the card against the f32
     # plain path on the CPU, from the same cache contents
+    _teacher_forced_4_slots(model, params, device,
+                            (torch.bfloat16, torch.int8), "batch")
+
+
+def _teacher_forced_4_slots(model, params, device: str, dtypes,
+                            tag: str) -> None:
+    """8 teacher-forced steps of 4 slots (prompts of 50, 120, 300 and 700
+    tokens, each prefilled at batch 1 into its slot) through the per-slot
+    decode on the card, against the same steps in f32 on the CPU through
+    the plain versions from the same cache contents: hidden states within
+    TOL_HIDDEN_REL of max |ref|, for each cache dtype."""
     V = model.config.vocab_size
     rng = np.random.default_rng(9)
     prompts = [_prompt(rng, n, V) for n in (50, 120, 300, 700)]
     forced = torch.tensor(rng.integers(0, V, (4, 8)))
     cpu_model, cpu_params = _f32_cpu(model, params)
-    for dtype in (torch.bfloat16, torch.int8):
+    for dtype in dtypes:
         hk, before = teacher_forced_slots(model, params, prompts, forced,
                                           device, dtype)
         if dtype != torch.int8:
@@ -2238,11 +2426,11 @@ def phase_batch(model, params, device: str = "cuda") -> None:
         hp, _ = teacher_forced_slots(cpu_model, cpu_params, prompts, forced,
                                      "cpu", None, cache=before)
         rel = ((hk - hp).abs().max() / hp.abs().max()).item()
-        log(f"[batch] teacher-forced 4 slots x 8 steps, "
+        log(f"[{tag}] teacher-forced 4 slots x 8 steps, "
             f"{str(dtype).replace('torch.', '')} cache: hidden max err "
             f"{rel:.3e} of max |ref| (tol {TOL_HIDDEN_REL})")
         require(rel <= TOL_HIDDEN_REL,
-                f"batched {dtype} hidden off by {rel}")
+                f"{tag}: batched {dtype} hidden off by {rel}")
 
 
 # -- 6. GGUF-quantized paths ---------------------------------------------------
@@ -2568,6 +2756,297 @@ def _tree_to(tree, device, dtype):
                    else tree.dtype)
 
 
+# -- 6b. MiniCPM4-0.5B: the llama family on both engines (s) ------------------
+
+#: the depth of the MiniCPM4 checkpoint the HTTP phase serves (full width)
+MINICPM_HTTP_LAYERS = 4
+
+
+def phase_minicpm(device: str = "cuda") -> dict:
+    """(s1) a TextEngine: a 300-token prompt (bucket 512, the prefill
+    kernel at 16/2, D 64) and 64 greedy tokens, every decode step 24
+    launches of flash_decode_at_layer; (s2) a BatchEngine of 8 slots with
+    the prefix store under the (f) request mix (one sampled request,
+    chunked admission); each graphed and eager; then 8 teacher-forced
+    steps of 4 slots against the f32 plain path on the CPU."""
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.llama import LlamaModel, minicpm4_0_5b
+
+    cfg = minicpm4_0_5b()
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = LlamaModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(4),
+                               dtype=torch.bfloat16)
+    fused = model.fuse_params(params)
+    _sync(device)
+    n_params = sum(t.numel() for name, t in params.items()
+                   if name != "lm_head" for t in _leaves(t))
+    log(f"[minicpm] MiniCPM4-0.5B geometry L={L} H={cfg.hidden_size} "
+        f"Hq/Hkv={cfg.num_attention_heads}/{cfg.num_key_value_heads} "
+        f"D={model.head_dim} V={V} tied, scale_emb {cfg.scale_emb}, "
+        f"residual x{model.residual_scale:.4f}, hidden x"
+        f"{model.hidden_scale:.4f}, LongRoPE: {n_params / 1e6:.1f} M bf16 "
+        f"params seeded on the card in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+    rng = np.random.default_rng(15)
+    greedy = SamplingConfig()
+    warm = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    warm.generate_tokens(_prompt(rng, 300, V), greedy, max_tokens=32)
+    del warm
+    eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    ids = _prompt(rng, 300, V)
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, greedy, max_tokens=64)
+    _sync(device)
+    counts = read_counts(wr, "minicpm-text", ("flash_attention",
+                                              "flash_decode_at_layer"))
+    require(len(out) == 64 and all(0 <= t < V for t in out),
+            f"(s1): {len(out)} tokens")
+    require(counts["flash_attention"] == L
+            and counts["flash_decode_at_layer"] == L * 64,
+            f"(s1) launches {counts}: {L} prefill, {L * 64} decode expected")
+    t = eng.last_timing
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[minicpm] (s1) 300-token prompt, bucket 512 kernel prefill "
+        f"{t.prompt_secs * 1e3:.2f} ms; 64 greedy tokens, decode "
+        f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at "
+        f"batch 1 (per-op chain, no fused stack) | {card}")
+    eager_twin("(s1) MiniCPM4-0.5B TextEngine", eng, lambda: TextEngine(
+        model, fused, eos_token_ids=[], max_seq_len=8192, cuda_graphs=False),
+        _requests([(ids, greedy, 64)]), [out], counts, device)
+    del eng
+
+    r = _batch_path(model, fused, device, torch.bfloat16, "minicpm-batch",
+                    ("flash_attention", "flash_decode_at_layer"),
+                    prefix_cache_entries=4)
+    chunk = 512                       # BatchEngine's default prefill_chunk
+    whole = [n for n in r["prompts"] if n <= chunk and bucket_for(n) >= 128]
+    require(r["block"]["flash_decode_at_layer"] == L * r["blk"]
+            and r["launches"]["flash_decode_at_layer"] == L * r["steps"]
+            and r["launches"]["flash_attention"] == L * len(whole),
+            f"(s2) launches {r['launches']} (a block: {r['block']}) over "
+            f"{r['steps']} steps; {L * len(whole)} prefill launches expected "
+            f"for the {len(whole)} prompts admitted in one kernel prefill")
+    log(f"[minicpm] (s2) flash_attention {L} a one-chunk prefill of >= 128 "
+        f"rows ({len(whole)} prompts), flash_decode_at_layer {L} a step of "
+        f"8 slots ({r['steps']} steps)")
+    _teacher_forced_4_slots(model, fused, device, (torch.bfloat16,),
+                            "minicpm")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"model": model, "params": params}
+
+
+# -- 6c. embeddings and reranking (t) -------------------------------------------
+
+
+def _smoke_tokenizer(tmp: str):
+    """tests/fixtures.py's test tokenizer written under `tmp`, loaded by
+    file path (a `tests` package elsewhere on sys.path must not shadow
+    it); returns the fixtures module and the tokenizer."""
+    spec = importlib.util.spec_from_file_location(
+        "aha_test_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    return fixtures, fixtures.build_tokenizer(tmp)
+
+
+_EMBED_WORDS = ("hello world how are you today the quick brown fox jumps "
+                "over the lazy dog what is the answer to life").split()
+
+
+def _embed_texts(tok, lens: tuple[int, ...], seed: int) -> list[str]:
+    """Seeded word strings, each grown until it encodes to at least its
+    length in `lens` (one text a length)."""
+    rng = np.random.default_rng(seed)
+    texts = []
+    for n in lens:
+        words: list[str] = []
+        while len(tok.encode(" ".join(words)).ids) < n:
+            words.append(_EMBED_WORDS[rng.integers(len(_EMBED_WORDS))])
+        texts.append(" ".join(words))
+    return texts
+
+
+#: (t1)'s 12 texts: token counts over the 32, 128 and 512 buckets (5 in
+#: the 512 one)
+EMBED_LENS = (5, 17, 30, 70, 100, 120, 128, 260, 300, 400, 470, 505)
+#: (t3)'s 12 texts over MiniLM's 16-512 buckets, one past its 512 positions
+MINILM_LENS = (3, 9, 15, 20, 31, 40, 60, 64, 100, 200, 300, 600)
+
+
+def phase_embed(qwen_model, qwen_params: dict, device: str = "cuda") -> dict:
+    """(t1) Qwen3-Embedding-0.6B on phase 4's Qwen3-0.6B weights: 12 texts
+    over the 32, 128 and 512 buckets, flash_attention 28 a group at a
+    bucket of 128 or more (B = the group's rows); every vector unit-norm
+    and within TOL_EMBED_REL of the f32 plain path on the CPU.  (t2)
+    Qwen3-Reranker-0.6B on the same weights: scores equal to the vectors'
+    dot products, the order printed.  (t3) all-MiniLM-L6-v2 at its full
+    geometry, f32: 12 texts on the card against the CPU within
+    TOL_MINILM.  Returns MiniLM's config, parameters, texts and vectors."""
+    from aha_tpu_torch.core.engine import bucket_for
+    from aha_tpu_torch.core.tokenizer import TokenizerModel
+    from aha_tpu_torch.models.minilm import BertConfig, BertModel
+    from aha_tpu_torch.models.minilm_served import MiniLMServed
+    from aha_tpu_torch.models.qwen3_served import (Qwen3EmbeddingServed,
+                                                   Qwen3RerankerServed)
+    from aha_tpu_torch.registry import lookup
+
+    card = card_line() if device == "cuda" else "cpu"
+    L = qwen_model.config.num_hidden_layers
+    with tempfile.TemporaryDirectory(prefix="aha_torch_tok_") as tmp:
+        _, tok = _smoke_tokenizer(tmp)
+        tokenizer = TokenizerModel.init(tmp)
+    texts = _embed_texts(tok, EMBED_LENS, 16)
+    lens = [len(tokenizer.encode(t)) for t in texts]
+    groups: dict[int, int] = {}
+    for n in lens:
+        groups[bucket_for(n)] = groups.get(bucket_for(n), 0) + 1
+    require(set(groups) == {32, 128, 512} and groups[512] >= 4,
+            f"(t) token counts {lens} fill buckets {groups}")
+    emb = Qwen3EmbeddingServed(lookup("Qwen/Qwen3-Embedding-0.6B"),
+                               qwen_model, qwen_params, tokenizer)
+    emb.embed_arrays(texts)                                  # warm-up
+    wr = zero_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    vecs = emb.embed_arrays(texts)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    counts = read_counts(wr, "embed", ("flash_attention",))
+    big = [b for b in groups if b >= 128]
+    require(counts["flash_attention"] == L * len(big),
+            f"(t1) flash_attention {counts['flash_attention']}, "
+            f"{L} x {len(big)} groups at >= 128 rows expected")
+    norms = np.linalg.norm(vecs, axis=-1)
+    require(np.all(np.abs(norms - 1) < 1e-4), f"(t1) norms {norms}")
+    cpu_model, cpu_params = _f32_cpu(qwen_model, qwen_params)
+    cpu = Qwen3EmbeddingServed(emb.entry, cpu_model, cpu_params, tokenizer)
+    ref = cpu.embed_arrays(texts)
+    rel = float(np.abs(vecs - ref).max() / np.abs(ref).max())
+    cos = float((vecs * ref).sum(-1).min())
+    log(f"[embed] (t1) Qwen3-Embedding-0.6B, 12 texts of {min(lens)}-"
+        f"{max(lens)} tokens in groups {dict(sorted(groups.items()))} "
+        f"(rows padded to powers of two): unit-norm; max err {rel:.3e} of "
+        f"max |ref| against the f32 plain path on the CPU (tol "
+        f"{TOL_EMBED_REL}), least cosine {cos:.5f}; flash_attention "
+        f"{counts['flash_attention']} ({L} a group at >= 128 rows); "
+        f"{secs * 1e3:.1f} ms for the 12 | {card}")
+    require(rel <= TOL_EMBED_REL, f"(t1) vectors off by {rel}")
+    del cpu, cpu_params, cpu_model
+
+    rr = Qwen3RerankerServed(lookup("Qwen/Qwen3-Reranker-0.6B"), emb)
+    query, docs = texts[1], texts[2:]
+    scores = np.asarray(rr.rerank(query, docs))
+    qd = emb.embed_arrays([query] + docs)
+    dots = qd[1:] @ qd[0]
+    require(np.abs(scores - dots).max() <= 1e-6,
+            f"(t2) scores {scores} vs dots {dots}")
+    order = [int(i) for i in np.argsort(-scores)]
+    log(f"[embed] (t2) Qwen3-Reranker-0.6B: {len(docs)} documents' scores "
+        f"equal the vectors' dot products; order {order}, scores "
+        f"{[round(float(scores[i]), 5) for i in order]}")
+
+    bcfg = BertConfig()
+    bert = BertModel(bcfg, device=device)
+    bparams = bert.init_random(torch.Generator(device=device).manual_seed(6))
+    mini = MiniLMServed(lookup("sentence-transformers/all-MiniLM-L6-v2"),
+                        bert, bparams, tokenizer)
+    mtexts = _embed_texts(tok, MINILM_LENS, 17)
+    mini.embedding(mtexts)                                   # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    mv = np.asarray(mini.embedding(mtexts))
+    _sync(device)
+    msecs = time.perf_counter() - t0
+    cmini = MiniLMServed(mini.entry, BertModel(bcfg, device="cpu"),
+                         _tree_to(bparams, "cpu", torch.float32), tokenizer)
+    mref = np.asarray(cmini.embedding(mtexts))
+    merr = float(np.abs(mv - mref).max())
+    log(f"[embed] (t3) all-MiniLM-L6-v2 (vocab {bcfg.vocab_size}, "
+        f"{bcfg.hidden_size} x {bcfg.num_hidden_layers}, "
+        f"{bcfg.num_attention_heads} heads, {bcfg.intermediate_size}, f32): "
+        f"12 texts, max err {merr:.3e} against the CPU (tol {TOL_MINILM}); "
+        f"{msecs * 1e3:.1f} ms for the 12 | {card}")
+    require(merr <= TOL_MINILM, f"(t3) MiniLM off by {merr}")
+    return {"config": bcfg, "params": bparams, "vectors": mv,
+            "texts": mtexts}
+
+
+def phase_http_embed(minilm: dict, minicpm: dict) -> None:
+    """Two more `python -m aha_tpu_torch serv` children under -X
+    importtime: (1) a MiniLM checkpoint served as
+    sentence-transformers/all-MiniLM-L6-v2 — /v1/embeddings with a string
+    and with an array equal to the in-process vectors, /v1/rerank refused
+    400 with the reference's message; (2) a MiniCPM4 checkpoint in HF
+    names (full width, MINICPM_HTTP_LAYERS layers) served as
+    OpenBMB/MiniCPM4-0.5B with --batch-slots 4, answering 4 chats at once.
+    (The Qwen3 reranker's server is phase_http's.)"""
+    from aha_tpu_torch.io.weights import save_hf_bert, save_hf_qwen3
+    from aha_tpu_torch.models.llama import minicpm4_0_5b
+
+    with tempfile.TemporaryDirectory(prefix="aha_torch_minilm_") as tmp:
+        _smoke_tokenizer(tmp)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({**minilm["config"].__dict__,
+                       "architectures": ["BertModel"], "model_type": "bert"},
+                      f)
+        save_hf_bert(minilm["params"], tmp)
+        texts = minilm["texts"]
+        with _server(tmp, "--model",
+                     "sentence-transformers/all-MiniLM-L6-v2") as base:
+            for inp, want in ((texts[3], minilm["vectors"][3:4]),
+                              (texts, minilm["vectors"])):
+                status, text = _post(base + "/v1/embeddings", {"input": inp})
+                got = np.asarray([d["embedding"]
+                                  for d in json.loads(text)["data"]])
+                err = float(np.abs(got - want).max())
+                require(status == 200 and got.shape == want.shape
+                        and err <= 1e-6, f"/v1/embeddings {status}: err "
+                        f"{err}, shape {got.shape}")
+            status, text = _post(base + "/v1/rerank",
+                                     {"query": "q", "documents": ["d"]})
+            require(status == 400 and json.loads(text) == {
+                "error": "current model does not support rerank"},
+                f"/v1/rerank on MiniLM: {status} {text}")
+        log(f"[http] MiniLM: /v1/embeddings of a string and of {len(texts)} "
+            f"texts equal to the in-process vectors (within 1e-6); "
+            f"/v1/rerank refused 400 with the reference's message")
+
+    cut = minicpm4_0_5b(MINICPM_HTTP_LAYERS)
+    p = minicpm["params"]
+    with tempfile.TemporaryDirectory(prefix="aha_torch_minicpm_") as tmp:
+        fixtures, tok = _smoke_tokenizer(tmp)
+        eos = tok.token_to_id("<|im_end|>")
+        embed = p["embed"]["w"].clone()
+        # replies stay in the test tokenizer's vocabulary
+        embed[tok.get_vocab_size(with_added_tokens=True):] = 0
+        cut_params = {"embed": {"w": embed}, "norm": p["norm"],
+                      "lm_head": {"w": embed},
+                      "layers": _tree_map(lambda t: t[:MINICPM_HTTP_LAYERS],
+                                          p["layers"])}
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({**cut.__dict__,
+                       "architectures": ["MiniCPMForCausalLM"],
+                       "model_type": "minicpm", "torch_dtype": "bfloat16",
+                       "eos_token_id": eos}, f)
+        with open(os.path.join(tmp, "generation_config.json"), "w") as f:
+            json.dump({"eos_token_id": [eos]}, f)
+        with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
+        save_hf_qwen3(cut_params, tmp)
+        del embed, cut_params
+        with _server(tmp, "--model", "OpenBMB/MiniCPM4-0.5B",
+                     "--batch-slots", "4") as base:
+            _ask_concurrent(base, 4)
+    log(f"[http] MiniCPM4-0.5B checkpoint (full width, "
+        f"{MINICPM_HTTP_LAYERS} layers) served with --batch-slots 4: 4 "
+        f"chats at once")
+
+
 # -- 6. HTTP ------------------------------------------------------------------
 
 
@@ -2578,10 +3057,14 @@ def _free_port() -> int:
 
 
 def _post(url: str, body: dict) -> tuple[int, str]:
+    """(status, body) of a JSON POST, an HTTP error's too."""
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=300) as r:
-        return r.status, r.read().decode()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def phase_http(config, params: dict) -> None:
@@ -2606,6 +3089,26 @@ def phase_http(config, params: dict) -> None:
         with _server(tmp, "--batch-slots", "4", "--eager") as base:
             _same_replies("--batch-slots 4", replies,
                           _ask_concurrent(base, 4))
+        with _server(tmp, "--model", "Qwen/Qwen3-Reranker-0.6B") as base:
+            _ask_rerank(base)
+
+
+def _ask_rerank(base: str) -> None:
+    """/v1/rerank with top_n on the Qwen3 checkpoint served as
+    Qwen/Qwen3-Reranker-0.6B: 200, top_n results sorted by score."""
+    docs = [f"document {i}: the quick brown fox " + "jumps " * i
+            for i in range(6)]
+    status, text = _post(base + "/v1/rerank", {
+        "query": "the lazy dog", "documents": docs, "top_n": 4})
+    res = json.loads(text)["results"]
+    scores = [r["relevance_score"] for r in res]
+    require(status == 200 and len(res) == 4
+            and scores == sorted(scores, reverse=True)
+            and all(r["document"] == docs[r["index"]] for r in res),
+            f"/v1/rerank: {status} {text[-500:]}")
+    log(f"[http] Qwen3-Reranker-0.6B: /v1/rerank top_n 4 of {len(docs)}, "
+        f"sorted: indices {[r['index'] for r in res]}, scores "
+        f"{[round(x, 5) for x in scores]}")
 
 
 def _same_replies(what: str, graphed: list, eager: list) -> None:
@@ -3166,8 +3669,13 @@ def main() -> int:
     timed("spec", phase_spec, state["model"], state["params"])
     timed("batch", phase_batch, state["model"], state["params"])
     timed("quant", phase_quant, state["model"], state["params"])
+    minilm = timed("embed", phase_embed, state["model"], state["params"])
     timed("http", phase_http, state["model"].config, state["params"])
     del state
+    torch.cuda.empty_cache()
+    minicpm = timed("minicpm", phase_minicpm)
+    timed("http-embed", phase_http_embed, minilm, minicpm)
+    del minicpm, minilm
     torch.cuda.empty_cache()
     vl = timed("vl", phase_vl)
     timed("vl-http", phase_http_vl, vl["params"])
@@ -3184,7 +3692,8 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
-                    "g7", "gbps", "tol", "timings", "library_bf16_ms")
+                    "g7", "gbps", "tol", "timings", "library_bf16_ms",
+                    "minicpm_b8")
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"graphs": GRAPH_READINGS}))
     print(json.dumps({"spec": SPEC_READINGS}))

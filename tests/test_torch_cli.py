@@ -190,5 +190,46 @@ def test_run_answers_as_the_served_model(repo, monkeypatch, capsys, spec):
 
 def test_run_refuses_an_unported_model_type(repo, tmp_path):
     with pytest.raises(NotImplementedError):
-        cli.main(["run", repo, "--model", "Qwen/Qwen3-Embedding-0.6B",
+        cli.main(["run", repo, "--model", "Qwen/Qwen3-ASR-0.6B",
                   "--input", "hi"])
+
+
+def test_run_prints_an_embedding_models_vectors(repo, monkeypatch, capsys):
+    """`run` of an embedding model prints each input's dimension and
+    leading values (file:// inputs read as text), as the served model
+    computes them."""
+    from aha_tpu_torch.models.loader import load_model
+
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    text_file = Path(repo) / "doc.txt"
+    text_file.write_text("the quick brown fox")
+    inputs = ["hello world", f"file://{text_file}"]
+    assert cli.main(["run", repo, "--model", "Qwen/Qwen3-Embedding-0.6B",
+                     "--input", inputs[0], "--input", inputs[1]]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("load model use time: ")
+    assert out[-1].startswith("generate use time: ")
+    want = load_model("Qwen/Qwen3-Embedding-0.6B", repo).embedding(
+        ["hello world", "the quick brown fox"])
+    assert out[1:-1] == [f"embedding dim 64: {v[:8]}..." for v in want]
+
+
+def test_run_ranks_a_rerankers_documents(repo, monkeypatch, capsys):
+    """`run` of a reranker: the query, then the documents, printed best
+    first with their scores; fewer than two inputs are refused."""
+    from aha_tpu_torch.models.loader import load_model
+
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    mid = "Qwen/Qwen3-Reranker-0.6B"
+    query, docs = "hello world", ["the lazy dog", "hello", "quick brown fox"]
+    args = ["run", repo, "--model", mid, "--input", query]
+    assert cli.main(args) == 1
+    assert "reranker needs --input query" in capsys.readouterr().out
+    for d in docs:
+        args += ["--input", d]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out.splitlines()
+    scores = load_model(mid, repo).rerank(query, docs)
+    order = sorted(range(3), key=lambda i: -scores[i])
+    assert out[1:-1] == [f"#{r + 1} score={scores[i]:.4f}  {docs[i]}"
+                         for r, i in enumerate(order)]

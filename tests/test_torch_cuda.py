@@ -522,6 +522,51 @@ def test_prefill_kernel_at_group_8(dev):
     assert (got.float() - ref).abs().max().item() <= 2e-2
 
 
+def test_stacked_decode_at_minicpm_slots(dev):
+    """Row 8 as MiniCPM4-0.5B's 8-slot step reads it: the 5-D cache at D 64,
+    16 query heads over 2, ragged per-slot lengths (a parked slot of 1,
+    the split boundaries, the whole cache); within 2e-2 of the plain
+    version, and each slot bit-equal to a B = 1 launch on that slot."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    L, B, S, Hq, Hkv, D = 3, 8, 1024, 16, 2, 64
+    lens = (1, 31, 32, 33, 300, 777, 1000, 1024)
+    q = _bf(g, B, 1, Hq, D)
+    k, v = _bf(g, L, B, S, Hkv, D), _bf(g, L, B, S, Hkv, D)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for li in (0, L - 1):
+        layer = torch.tensor(li, dtype=torch.int32, device=dev)
+        got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             layer, vl)
+        assert (got.float() - ref).abs().max().item() <= 2e-2
+        for b in range(B):
+            one = fa.flash_decode_at_layer(
+                q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+            assert torch.equal(one, got[b:b + 1]), f"slot {b}"
+
+
+@pytest.mark.parametrize("Hkv,D", [(8, 128), (2, 64)])
+def test_prefill_kernel_rows_equal_batch_1(dev, Hkv, D):
+    """Row 1 at B = 4 (an embedding group's rows): within 2e-2 of the
+    plain version, and each row bit-equal to a B = 1 launch on it."""
+    from aha_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    B, S, Hq = 4, 256, 16
+    q, k, v = _bf(g, B, S, Hq, D), _bf(g, B, S, Hkv, D), _bf(g, B, S, Hkv, D)
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+    for b in range(B):
+        one = flash_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1])
+        assert torch.equal(one, got[b:b + 1]), f"row {b}"
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D,G", [(192, 2), (256, 2), (128, 16), (256, 16),
                                  (192, 16)])

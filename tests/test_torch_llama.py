@@ -273,8 +273,10 @@ def test_int8_and_per_slot_caches_refused():
         tm.init_cache(1, 16, torch.int8)
     cache = kv.init_kv_cache(2, 2, 16, 2, 12, torch.float32, flat=False,
                              per_slot_pos=True)
+    # per-slot positions decode one token a slot (continuous batching);
+    # a per-slot prefill is refused, as in the Qwen3 model
     with pytest.raises(ValueError, match="per-slot"):
-        tm.backbone(tp, torch.tensor([[1], [2]]), cache)
+        tm.backbone(tp, torch.tensor([[1, 2], [3, 4]]), cache)
 
 
 def test_config_from_dict_ignores_unknown_keys():

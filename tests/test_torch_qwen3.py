@@ -196,3 +196,33 @@ def test_unported_engine_options_raise(pair):
     with pytest.raises(ValueError):
         TextEngine(tm, tp, eos_token_ids=[]).generate_tokens(
             [], SamplingConfig())
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_hf_transformers_parity(tie):
+    """Qwen3Model's logits against HF transformers' Qwen3ForCausalLM built
+    from a config (nothing downloaded), loaded from its own state dict
+    through load_params; as tests/test_qwen3_model.py holds the JAX model
+    (atol 1e-2: the random-init rms norms amplify f32 roundoff; argmax
+    agreement above 80 %)."""
+    from transformers import Qwen3Config as HFConfig
+    from transformers.models.qwen3 import Qwen3ForCausalLM
+
+    hf_cfg = HFConfig(**GEO, tie_word_embeddings=tie, rope_theta=1000000.0,
+                      attention_dropout=0.0)
+    torch.manual_seed(0)
+    hf = Qwen3ForCausalLM(hf_cfg).eval()
+    sd = {k: v.detach().clone() for k, v in hf.state_dict().items()}
+    if tie:
+        sd.pop("lm_head.weight", None)
+    model = Qwen3Model(Qwen3Config(**GEO, tie_word_embeddings=tie),
+                       max_rope_len=128)
+    params = model.load_params(sd, dtype=torch.float32)
+    assert (params["lm_head"]["w"] is params["embed"]["w"]) == tie
+    ids = [[1, 5, 9, 100, 42, 7]]
+    with torch.no_grad():
+        ref = hf(torch.tensor(ids)).logits[0].numpy()
+        got = model.logits(params, model.forward_hidden(
+            params, torch.tensor(ids)))[0].numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-2)
+    assert (got.argmax(-1) == ref.argmax(-1)).mean() > 0.8
