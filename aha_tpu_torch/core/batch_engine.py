@@ -38,11 +38,15 @@ on the block it just issued.  Admission and prefill stay eager.
 
 The engine is model-generic, as the JAX one is: any model with
 `supports_slot_decode` (Qwen3Model's flat (L, B, S, Hkv·D) cache, int8 or
-not; LlamaModel's 5-D (L, B, S, Hkv, D) one) — every per-row cache entry
-keeps its slots on dim 1 and its rows on dim 2, which is all admission
-(`_insert`) and the prefix store read.  Chunked admission and the prefix
-store need `supports_prefix_cache` (prefill over cached rows).  Not
-ported: the `mesh`/`dp`/`tp` sharded layouts and multimodal requests.
+not; LlamaModel's 5-D (L, B, S, Hkv, D) one; the hybrids' 5-D K/V beside
+their rolling conv / rec state) — every per-row cache entry keeps its
+slots on dim 1 and its rows on dim 2, and every rolling-state entry its
+slots on dim 1, which is all admission (`_insert`) and the prefix store
+read.  Inactive slots step too, as in the JAX engine: their rolling state
+turns to garbage, which admission overwrites whole.  Chunked admission
+and the prefix store need `supports_prefix_cache` (prefill over cached
+rows).  Not ported: the `mesh`/`dp`/`tp` sharded layouts and multimodal
+requests.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core.graphs import DecodeGraphs
 from aha_tpu_torch.core.engine import (CACHE_BUCKETS, PREFILL_BUCKETS,
                                        REPEAT_WINDOW, PrefixStore, Timing,
-                                       bucket_for)
+                                       bucket_for, fused_params)
 from aha_tpu_torch.core.sampling import (SamplingConfig, fast_argmax,
                                          pack_sampling_params, sample_token,
                                          sample_tokens_batch)
@@ -105,7 +109,8 @@ class _HostCopy:
 
 class BatchEngine:
     """Continuous batching over a model with per-slot decode positions
-    (`supports_slot_decode`: a (B,) cache["pos"]; Qwen3Model, LlamaModel).
+    (`supports_slot_decode`: a (B,) cache["pos"]; Qwen3Model, LlamaModel,
+    Lfm2Model, Qwen3_5Model).
     `cuda_graphs`: replay captured decode blocks on a CUDA device (False:
     run them eagerly)."""
 
@@ -115,7 +120,7 @@ class BatchEngine:
                  prefix_cache_entries: int = 0, prefill_chunk: int = 512,
                  decode_block: int = 4, cuda_graphs: bool = True):
         self.model = model
-        self.params = model.fuse_params(params)
+        self.params = fused_params(model, params)
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.slots = B = slots
         self.cache_dtype = cache_dtype or self.params["embed"]["w"].dtype
@@ -226,22 +231,29 @@ class BatchEngine:
     def _insert(self, small: dict, slot: int, prompt_len: int) -> None:
         """Copy a prefilled 1-slot cache's rows [0, prompt_len) into slot
         `slot` of the shared cache (any layout: slots on dim 1, rows on
-        dim 2) and set that slot's position."""
+        dim 2), and its rolling state whole (a hybrid's conv / rec: slots
+        on dim 1), and set that slot's position."""
         for name in kv.ROW_KEYS:
             if name in small:
                 self._cache[name][:, slot, :prompt_len].copy_(
                     small[name][:, 0, :prompt_len])
+        for name in kv.STATE_KEYS:
+            if name in small:
+                self._cache[name][:, slot].copy_(small[name][:, 0])
         self._cache["pos"][slot] = prompt_len
 
     def _prefill(self, tokens: list[int], bucket: int, small: dict,
                  from_cache: bool = False) -> torch.Tensor:
         """A whole prompt into an empty small cache (fresh-block attention,
         the flash kernel at ≥ 128 rows), or with `from_cache` a chunk over
-        the rows [0, pos) already there; (1, V) f32 logits of its last
-        row."""
+        the rows [0, pos) already there — and, for a hybrid, over the
+        rolling state there, which the chunk continues; (1, V) f32 logits
+        of its last row.  The model is told the chunk's true length, as
+        the JAX engine's _prefill / _prefill_from tell it."""
         ids = torch.zeros((1, bucket), dtype=torch.int64)
         ids[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
         hidden = self.model.backbone(self.params, ids.to(self.device), small,
+                                     prompt_len=len(tokens),
                                      from_cache=from_cache)
         kv.advance(small, len(tokens))
         last = hidden[:, len(tokens) - 1:len(tokens)]

@@ -19,6 +19,18 @@ Layouts:
   JAX package keeps its scales lane-oriented (L, B, Hkv, S), a Mosaic
   workaround; here a row's Hkv scales sit next to each other (32 bytes at
   Hkv = 8), one sector the decode kernel reads per row.
+
+Rolling state (`STATE_KEYS`): the hybrid decoders add per-slot state with
+no row axis, slots on dim 1 as everywhere, which every step reads whatever
+`pos` is — so `reset` zeroes it, a prefix snapshot copies it whole, and
+admission copies a slot's whole:
+- LFM2 (models/lfm2.py): `conv` (Lc, B, L, D), the last L gated inputs of
+  each of its Lc short-conv layers, in the cache dtype;
+- Qwen3.5 (models/qwen3_5.py): `conv` (Ll, B, K, conv_dim), the last K
+  pre-conv inputs of each of its Ll GatedDeltaNet layers, in the cache
+  dtype, and `rec` (Ll, B, Hv, Dk, Dv), the delta rule's recurrent state,
+  always float32.  Its cache also holds the 0-dim `rope_delta` (0 for
+  text), as the JAX cache does.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ import torch
 #: cache entries that hold per-row state, rows on dim 2 in every layout
 #: (sliced by a prefix snapshot)
 ROW_KEYS = ("k", "v", "k_scale", "v_scale")
+#: per-slot rolling state of the hybrid decoders (no row axis)
+STATE_KEYS = ("conv", "rec")
 
 
 def init_kv_cache(n_layers: int, batch: int, max_len: int, n_kv_heads: int,
@@ -70,6 +84,11 @@ def advance(cache: dict[str, Any], n: int | torch.Tensor) -> dict[str, Any]:
 def reset(cache: dict[str, Any]) -> dict[str, Any]:
     """Rewind the write head (every slot's, for a (B,) pos).  Rows past pos
     are never read (the kernels and the masks stop at pos), so the pooled
-    K/V is NOT zeroed."""
+    K/V is NOT zeroed; rolling state is read by every step, so it is
+    zeroed in place (a pooled cache hands the next request no stale
+    state)."""
     cache["pos"].zero_()
+    for name in STATE_KEYS:
+        if name in cache:
+            cache[name].zero_()
     return cache

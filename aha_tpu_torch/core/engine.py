@@ -18,7 +18,9 @@ rows it reaches (`window`), which admits the fused decode stack up to 2048
 rows, as the JAX engine's live window does; the kernels read the exact
 length from the device.  The cache is bf16/f32 or int8 (`cache_dtype`,
 AHA_KV_INT8=1 when served); a prefix snapshot carries the int8 layout's
-scales.  A multimodal prompt (`mm`, Qwen2.5-VL's images) prefills with its
+scales, and a hybrid model's snapshot its rolling conv / recurrent state
+(which only resumes at exactly the stored length).  A multimodal prompt
+(`mm`, Qwen2.5-VL's images) prefills with its
 inputs and joins the prefix store under its content digest `mm_key`; the
 snapshot carries the M-RoPE `rope_delta`.  The continuous-batching engine
 is core/batch_engine.py, sharing PrefixStore.
@@ -125,6 +127,13 @@ def spec_propose_device(hist: torch.Tensor, hl: torch.Tensor, g: int,
     return drafts, n_drafts.to(torch.int32)
 
 
+def fused_params(model, params: dict) -> dict:
+    """The model's decode fusion of `params` where it has one (the JAX
+    engines call fuse_params only where the model defines it)."""
+    fuse = getattr(model, "fuse_params", None)
+    return fuse(params) if fuse is not None else params
+
+
 def embed_weight(params: dict) -> torch.Tensor:
     """The token embedding of a text tree or of a multimodal one whose
     decoder sits under "text"; its dtype and device are the engine's."""
@@ -164,11 +173,12 @@ class PrefixStore:
     by PREFIX_MAX_BYTES: a later prompt that starts with a stored prompt
     restores its rows and prefills only the suffix.  Shared by TextEngine
     and BatchEngine; a snapshot holds the cache's per-row entries
-    (`kv.ROW_KEYS`: k/v and, for the int8 layout, their scales — the JAX
-    PREFIX_RESTORE_KEYS less the hybrid models' rolling state) and the
-    M-RoPE `rope_delta` where the cache has one.  Entries are keyed on
-    (tokens, mm_key): a multimodal prompt only matches a snapshot of the
-    same images, and a text prompt (mm_key None) only a text one."""
+    (`kv.ROW_KEYS`: k/v and, for the int8 layout, their scales) sliced to
+    the prompt, the hybrid models' rolling state (`kv.STATE_KEYS`) whole —
+    together the JAX PREFIX_RESTORE_KEYS — and the M-RoPE `rope_delta`
+    where the cache has one.  Entries are keyed on (tokens, mm_key): a
+    multimodal prompt only matches a snapshot of the same images, and a
+    text prompt (mm_key None) only a text one."""
 
     def __init__(self, max_entries: int):
         self.max_entries = max_entries
@@ -187,14 +197,20 @@ class PrefixStore:
         """Longest stored entry under the same multimodal key whose tokens
         prefix this prompt.  Returns (entry, p): restore the entry's rows
         and prefill from p.  An exact repeat resumes at p = n − 1 so the
-        suffix has a token to produce logits from."""
+        suffix has a token to produce logits from — except from an entry
+        that carries rolling state, which can only resume at exactly n
+        (its state cannot rewind one token): such an entry does not match
+        an exact repeat."""
         best_key, best_p = None, 0
-        for key in self._entries:
+        for key, entry in self._entries.items():
             toks, key_mm = key
             if key_mm != mm_key:
                 continue
             n = len(toks)
             if n > len(prompt_ids):
+                continue
+            if n == len(prompt_ids) and any(name in entry
+                                            for name in kv.STATE_KEYS):
                 continue
             p = n - 1 if n == len(prompt_ids) else n
             if p <= best_p or p < PREFIX_MIN_TOKENS:
@@ -208,7 +224,8 @@ class PrefixStore:
 
     def store(self, prompt_ids: list[int], cache: dict,
               mm_key: str | None = None) -> None:
-        """Snapshot (copy) the prompt's KV rows [0, len), and rope_delta."""
+        """Snapshot (copy) the prompt's KV rows [0, len), the rolling state
+        whole, and rope_delta."""
         if self.max_entries <= 0 or len(prompt_ids) < PREFIX_MIN_TOKENS:
             return
         key = (tuple(prompt_ids), mm_key)
@@ -218,8 +235,9 @@ class PrefixStore:
         n = len(prompt_ids)
         entry = {name: cache[name][:, :, :n].clone() for name in kv.ROW_KEYS
                  if name in cache}
-        if "rope_delta" in cache:
-            entry["rope_delta"] = cache["rope_delta"].clone()
+        for name in kv.STATE_KEYS + ("rope_delta",):
+            if name in cache:
+                entry[name] = cache[name].clone()
         nbytes = self._entry_bytes(entry)
         if nbytes > PREFIX_MAX_BYTES:
             return
@@ -232,13 +250,13 @@ class PrefixStore:
 
     @staticmethod
     def restore(entry: dict, cache: dict, p: int) -> None:
-        """Copy a snapshot into the cache's rows [0, n) (and its rope_delta,
-        a scalar) and set pos to p."""
+        """Copy a snapshot into the cache's rows [0, n) (its rolling state
+        and rope_delta whole) and set pos to p."""
         for name, rows in entry.items():
-            if name == "rope_delta":
-                cache[name].copy_(rows)
-            else:
+            if name in kv.ROW_KEYS:
                 cache[name][:, :, :rows.shape[2]].copy_(rows)
+            else:
+                cache[name].copy_(rows)
         cache["pos"].fill_(p)
 
 
@@ -259,10 +277,11 @@ class _Pooled:
 
 
 class TextEngine:
-    """Drives one model (init_cache / backbone / logits / fuse_params, and
-    greedy_token where it has one: Qwen3Model, LlamaModel, Qwen2_5VLModel)
-    at batch 1; the cache has `cache_dtype` (default the parameters'
-    dtype; torch.int8 for the quantized layout).  `cuda_graphs`: replay
+    """Drives one model (init_cache / backbone / logits, and fuse_params
+    and greedy_token where it has them: Qwen3Model, LlamaModel,
+    Qwen2_5VLModel, the hybrids Lfm2Model and Qwen3_5Model) at batch 1;
+    the cache has `cache_dtype` (default the parameters' dtype;
+    torch.int8 for the quantized layout).  `cuda_graphs`: replay
     captured decode blocks on a CUDA device (False: run them eagerly).
     `spec_tokens`: drafts a speculative round verifies (0 for a model
     without `supports_token_rewind`); `spec_no_drafts` forces every round
@@ -283,9 +302,10 @@ class TextEngine:
         self.spec_no_drafts = spec_no_drafts
         #: the accepted count `a` of every round the last request read
         self.last_spec_a: list[int] = []
-        # one [q|k|v] and one [gate|up] weight per layer: bit-identical
-        # outputs, fewer weight streams per decode step
-        self.params = model.fuse_params(params)
+        # one [q|k|v] and one [gate|up] weight per layer, where the model
+        # has a fusion: bit-identical outputs, fewer weight streams per
+        # decode step
+        self.params = fused_params(model, params)
         self.cache_dtype = cache_dtype or embed_weight(self.params).dtype
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.max_seq_len = max_seq_len
@@ -330,11 +350,14 @@ class TextEngine:
                  from_cache: bool, mm=None) -> torch.Tensor:
         """Prefill `tokens` right-padded to `bucket` at cache["pos"] (with
         the multimodal inputs `mm`, if any), advance pos by len(tokens),
-        return the last real row's f32 logits (1, V)."""
+        return the last real row's f32 logits (1, V).  The model is told
+        the true length (`prompt_len`): a hybrid places its rolling state
+        at the last real row and makes the padded rows no-ops."""
         ids = torch.zeros((1, bucket), dtype=torch.int64)
         ids[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
         kw = {} if mm is None else {"mm": mm}
         hidden = self.model.backbone(self.params, ids.to(self.device), cache,
+                                     prompt_len=len(tokens),
                                      from_cache=from_cache, **kw)
         kv.advance(cache, len(tokens))
         last = hidden[:, len(tokens) - 1:len(tokens)]

@@ -3,14 +3,16 @@
 `params_from_jax` takes aha_tpu's Qwen3 or llama parameter tree as numpy
 arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
 `load_qwen3_gguf` produce, fused or not), a Qwen2.5-VL tree ({"visual":
-..., "text": a llama tree}, the vision blocks a list), or a BERT tree
-(`BertModel`'s: "embeddings" and a "layers" list, linear weights and
-norms with biases, no head), and returns the port's tree: the same
-nesting (lists kept) and
+..., "text": a llama tree}, the vision blocks a list), a hybrid decoder's
+tree (`Lfm2Model`'s or the text `Qwen3_5Model`'s: a per-layer "layers"
+list of layer dicts of two kinds), or a BERT tree (`BertModel`'s:
+"embeddings" and a "layers" list, linear weights and norms with biases, no
+head), and returns the port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
-head turned from the JAX (K, V) to the port's vocab-major (V, K), and every
-GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`.
-A tied head — one equal to the transposed embedding — shares the
+head turned from the JAX (K, V) to the port's vocab-major (V, K), every
+GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`,
+and Qwen3.5's `a_log` / `dt_bias` kept float32 whatever `dtype` is.  A
+tied head — one equal to the transposed embedding — shares the
 embedding's storage instead of being copied.  `cache_from_jax` carries a
 JAX KV cache across in the port's layout, so tests compare caches
 directly.
@@ -23,6 +25,8 @@ import torch
 
 from aha_tpu_torch.ops.quant_matmul import is_quantized
 
+#: parameters the port keeps in float32 at any compute dtype
+F32_LEAVES = ("a_log", "dt_bias")
 #: the JAX packer's K chunk, whose second half its 4-bit grid folds
 K_CHUNK = 1024
 
@@ -68,7 +72,8 @@ def _to_torch(tree, device, dtype):
     if isinstance(tree, dict):
         if is_quantized(tree):
             return {k: v.to(device) for k, v in quant_from_jax(tree).items()}
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_torch(v, device, torch.float32 if k in F32_LEAVES
+                             else dtype) for k, v in tree.items()}
     arr = np.array(tree, dtype=np.float32)      # a writable copy
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
@@ -97,14 +102,16 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
 
 def cache_from_jax(cache: dict, device: torch.device | str = "cpu") -> dict:
     """aha_tpu's KV cache (numpy arrays) → the port's layout (core/cache.py):
-    k/v as flat (L, B, S, Hkv·D) rows (a 5-D (L, B, S, Hkv, D) cache is
-    flattened), the int8 layout's lane-oriented (L, B, Hkv, S) scales
-    transposed to (L, B, S, Hkv), pos int32, dtypes kept."""
+    k/v in the layout JAX gives them, which is the port's own for each
+    family (flat (L, B, S, Hkv·D) rows for Qwen3 and the int8 cache, 5-D
+    (L, B, S, Hkv, D) for llama and the hybrids), the int8 layout's
+    lane-oriented (L, B, Hkv, S) scales transposed to (L, B, S, Hkv), the
+    hybrids' rolling state (`conv`, `rec`) and `rope_delta` unchanged, pos
+    int32, dtypes kept."""
     out = {}
-    for name in ("k", "v"):
-        a = np.array(cache[name])               # a writable copy
-        out[name] = torch.from_numpy(a.reshape(a.shape[:3] + (-1,))).to(
-            device)
+    for name in ("k", "v", "conv", "rec", "rope_delta"):
+        if name in cache:
+            out[name] = torch.from_numpy(np.array(cache[name])).to(device)
     for name in ("k_scale", "v_scale"):
         if name in cache:
             a = np.array(cache[name], dtype=np.float32)

@@ -148,3 +148,78 @@ def save_hf_qwen2_5vl(params: dict, path: str) -> None:
             _hf_linear(out, f"{p}mlp.{name}_proj", blk["mlp"][name])
     out.update(_hf_decoder(params["text"]))
     _save(out, path)
+
+
+def _hf_head(out: dict, params: dict, prefix: str = "model.") -> None:
+    """The embedding, and lm_head unless it is the embedding itself."""
+    out[prefix + "embed_tokens.weight"] = \
+        params["embed"]["w"].contiguous().cpu()
+    if params["lm_head"]["w"] is not params["embed"]["w"]:
+        out["lm_head.weight"] = params["lm_head"]["w"].contiguous().cpu()
+
+
+def _hf_conv(w: torch.Tensor) -> torch.Tensor:
+    """Conv taps (L, D) → torch's depthwise Conv1d weight (D, 1, L)."""
+    return w.t().contiguous()[:, None, :].cpu()
+
+
+def save_hf_lfm2(params: dict, path: str) -> None:
+    """Write the port's (unfused) Lfm2Model parameters with HF LFM2 names
+    (the inverse of Lfm2Model.load_params)."""
+    out = {"model.embedding_norm.weight":
+           params["embedding_norm"]["w"].cpu()}
+    _hf_head(out, params)
+    for i, lp in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        out[p + "operator_norm.weight"] = lp["operator_norm"]["w"].cpu()
+        out[p + "ffn_norm.weight"] = lp["ffn_norm"]["w"].cpu()
+        for name, key in (("w1", "gate"), ("w3", "up"), ("w2", "down")):
+            _hf_linear(out, f"{p}feed_forward.{name}", lp["mlp"][key])
+        if "q" in lp:
+            for name, key in (("q_proj", "q"), ("k_proj", "k"),
+                              ("v_proj", "v"), ("out_proj", "o")):
+                _hf_linear(out, f"{p}self_attn.{name}", lp[key])
+            out[p + "self_attn.q_layernorm.weight"] = lp["q_norm"]["w"].cpu()
+            out[p + "self_attn.k_layernorm.weight"] = lp["k_norm"]["w"].cpu()
+        else:
+            out[p + "conv.conv.weight"] = _hf_conv(lp["conv"]["w"])
+            if "b" in lp["conv"]:
+                out[p + "conv.conv.bias"] = lp["conv"]["b"].cpu()
+            _hf_linear(out, p + "conv.in_proj", lp["in_proj"])
+            _hf_linear(out, p + "conv.out_proj", lp["out_proj"])
+    _save(out, path)
+
+
+def save_hf_qwen3_5(params: dict, path: str,
+                    prefix: str = "model.") -> None:
+    """Write the port's (unfused) Qwen3_5Model parameters with HF Qwen3.5
+    names under `prefix` ("model.language_model." for a VL checkpoint's
+    decoder): the zero-centred norms unfolded to w − 1 (the inverse of
+    Qwen3_5Model.load_params)."""
+    def centred(name: str, p: dict) -> None:
+        out[name + ".weight"] = (p["w"] - 1.0).cpu()
+
+    out = {}
+    _hf_head(out, params, prefix)
+    centred(prefix + "norm", params["norm"])
+    for i, lp in enumerate(params["layers"]):
+        p = f"{prefix}layers.{i}."
+        centred(p + "input_layernorm", lp["ln1"])
+        centred(p + "post_attention_layernorm", lp["ln2"])
+        for name in ("gate", "up", "down"):
+            _hf_linear(out, f"{p}mlp.{name}_proj", lp["mlp"][name])
+        if "q" in lp:
+            for name in "qkvo":
+                _hf_linear(out, f"{p}self_attn.{name}_proj", lp[name])
+            centred(p + "self_attn.q_norm", lp["q_norm"])
+            centred(p + "self_attn.k_norm", lp["k_norm"])
+        else:
+            la = p + "linear_attn."
+            for name in ("in_proj_qkv", "in_proj_z", "in_proj_b",
+                         "in_proj_a", "out_proj"):
+                _hf_linear(out, la + name, lp[name])
+            out[la + "conv1d.weight"] = _hf_conv(lp["conv"]["w"])
+            out[la + "dt_bias"] = lp["dt_bias"].cpu()
+            out[la + "A_log"] = lp["a_log"].cpu()
+            out[la + "norm.weight"] = lp["norm"]["w"].cpu()
+    _save(out, path)

@@ -31,12 +31,10 @@ import torch
 
 from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core import nn
+from aha_tpu_torch.models.cache_attention import CacheAttention
 from aha_tpu_torch.models.qwen3 import (fuse_decode_params, stack_layers,
                                         unstack_layers)
-from aha_tpu_torch.ops.attention import (attention_decode_at,
-                                         attention_prefill,
-                                         attention_prefill_at, causal_mask,
-                                         sdpa)
+from aha_tpu_torch.ops.attention import causal_mask, sdpa
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
 
@@ -152,12 +150,9 @@ class LlamaModel:
                                if c.scale_depth else 1.0)
         self.hidden_scale = (1.0 / (c.hidden_size / c.dim_model_base)
                              if c.dim_model_base else 1.0)
-        # layer indices as device scalars: the decode kernel reads its layer
-        self._layer_ids = torch.arange(self.n_layers, dtype=torch.int32,
-                                       device=self.device)
+        # each layer owns its own slot of the 5-D K/V stack
+        self.attn = CacheAttention(self.n_layers, self.device)
         self._views: tuple[Any, list[dict]] | None = None
-        # arange(B) per slot count, kept: a captured decode block binds it
-        self._slots: dict[int, torch.Tensor] = {}
 
     fuse_params = staticmethod(fuse_decode_params)
 
@@ -167,11 +162,6 @@ class LlamaModel:
         return kv.init_kv_cache(self.n_layers, batch, max_len,
                                 self.n_kv_heads, self.head_dim, dtype,
                                 self.device, per_slot_pos, flat=False)
-
-    def _slot_ids(self, B: int, device) -> torch.Tensor:
-        if B not in self._slots:
-            self._slots[B] = torch.arange(B, device=device)
-        return self._slots[B]
 
     # -- forward ------------------------------------------------------------
 
@@ -211,8 +201,8 @@ class LlamaModel:
         return x + nn.swiglu_mlp(lp["mlp"], h) * self.residual_scale
 
     def _layer(self, lp: dict, li: int, x: torch.Tensor, cos, sin,
-               cache: dict, is_prefill: bool, from_cache: bool,
-               positions: torch.Tensor, valid_len: torch.Tensor | None):
+               cache: dict, from_cache: bool, positions: torch.Tensor,
+               valid_len: torch.Tensor | None):
         """One decoder block; writes this layer's K/V rows into the cache
         in place at `positions` — (S,) rows shared by the batch, or (B,)
         one row per slot (per-slot decode, S = 1: the JAX scatter
@@ -220,31 +210,17 @@ class LlamaModel:
         h = rms_norm(x, lp["ln1"]["w"], self.config.rms_norm_eps)
         q, k, v = self._qkv(lp, h)
         q, k = apply_rope(q, k, cos, sin)
-        per_slot = cache["pos"].ndim == 1
-        for name, new in (("k", k), ("v", v)):
-            dst = cache[name][li]                  # (B, S_cache, Hkv, D)
-            new = new.to(dst.dtype)
-            if per_slot:                           # row b at positions[b]
-                dst.index_put_((self._slot_ids(x.shape[0], x.device),
-                                positions), new[:, 0])
-            else:
-                dst.index_copy_(1, positions, new)
-        layer = self._layer_ids[li]
-        if is_prefill and from_cache:
-            attn = attention_prefill_at(q, cache["k"], cache["v"], layer,
-                                        cache["pos"])
-        elif is_prefill:
-            attn = attention_prefill(q, k, v, causal=True)
-        else:
-            attn = attention_decode_at(q, cache["k"], cache["v"], layer,
-                                       valid_len)
+        attn = self.attn.attend(q, k, v, cache, li, positions, valid_len,
+                                from_cache)
         return self._mlp_residual(lp, x, attn)
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
-                 from_cache: bool = False,
-                 window: int | None = None) -> torch.Tensor:
+                 from_cache: bool = False, window: int | None = None,
+                 prompt_len: int | None = None) -> torch.Tensor:
         """Embeddings → final hidden.  `window` (the engine's bound on the
-        live rows) is accepted and unused: no fused decode stack here."""
+        live rows) is accepted and unused: no fused decode stack here; so
+        is `prompt_len` (a padded prefill's true length): rows past it are
+        never read."""
         x = nn.embedding(params["embed"], input_ids) * self.config.scale_emb
         return self.run_layers(params, x, cache, from_cache=from_cache)
 
@@ -259,24 +235,13 @@ class LlamaModel:
         past the cache (a slot stepped past its budget, as the batch
         engine's runahead does) clamped to the last row, where the JAX
         scatter drops it — that slot's outputs are discarded."""
-        B, S, _ = x.shape
-        pos = cache["pos"]
-        if pos.ndim == 0:
-            positions = pos.long() + torch.arange(S, device=x.device)
-            rope_at = positions
-        else:
-            if S != 1:
-                raise ValueError("per-slot positions take one token per slot")
-            last = min(kv.cache_max_len(cache), self.cos.shape[0]) - 1
-            positions = pos.long().clamp(max=last)
-            rope_at = positions[:, None]
+        positions, rope_at, valid_len = self.attn.positions(
+            cache, x.shape[1], self.cos.shape[0], x.device)
         cos, sin = cos_sin if cos_sin is not None else \
             gather_rope(self.cos, self.sin, rope_at)
-        is_prefill = S > 1
-        valid_len = None if is_prefill else (pos + 1).reshape(-1)
         for li, lp in enumerate(self._layer_views(params["layers"])):
-            x = self._layer(lp, li, x, cos, sin, cache, is_prefill,
-                            from_cache, positions, valid_len)
+            x = self._layer(lp, li, x, cos, sin, cache, from_cache,
+                            positions, valid_len)
         x = rms_norm(x, params["norm"]["w"], self.config.rms_norm_eps)
         return x * self.hidden_scale
 

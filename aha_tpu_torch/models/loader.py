@@ -1,10 +1,11 @@
 """Model factory: registry id → served model (counterpart of
 aha_tpu/models/loader.py).  Ported families: qwen3 (the Qwen3 chat
-models), the llama text families minicpm4 / minicpm5, qwen2_5vl
-(Qwen2.5-VL image chat), qwen3_embedding / qwen3_reranker and minilm
-(all-MiniLM-L6-v2); every other family raises NotImplementedError.  The
-reference's option checks run first, before any weights load, with its
-strings."""
+models), the llama text families minicpm4 / minicpm5, the hybrid text
+families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5, text requests),
+qwen2_5vl (Qwen2.5-VL image chat), qwen3_embedding / qwen3_reranker and
+minilm (all-MiniLM-L6-v2); every other family raises NotImplementedError.
+The reference's option checks run first, before any weights load, with
+its strings."""
 
 from __future__ import annotations
 
@@ -38,28 +39,32 @@ def _minilm(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return MiniLMServed.load(entry, path)
 
 
-def _llama_family(entry: ModelEntry, path: str, max_seq_len: int = 8192,
-                  **kw) -> LoadedModel:
+def _llama_family(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     """minicpm4 / minicpm5: the generic LlamaForCausalLM wrapper —
     LlamaConfig picks up whatever mup / LongRoPE fields the config.json
     has."""
-    from aha_tpu_torch.io.weights import open_weights
     from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from aha_tpu_torch.models.text_served import TextChatModel
-    from aha_tpu_torch.utils.device import device, get_dtype
 
-    def build(path, max_seq_len):
-        dev = device()
-        model = LlamaModel(LlamaConfig.from_file(path),
-                           max_rope_len=max_seq_len, device=dev)
-        return model, model.load_params(open_weights(path),
-                                        dtype=get_dtype(dev))
+    return TextChatModel.load_decoder(entry, path, LlamaModel, LlamaConfig,
+                                      **kw)
 
-    return TextChatModel.load(entry, path, build, max_seq_len=max_seq_len,
-                              batch_slots=kw.get("batch_slots", 1),
-                              prefix_cache=kw.get("prefix_cache", 4),
-                              spec_tokens=kw.get("spec_tokens", 0),
-                              cuda_graphs=kw.get("cuda_graphs", True))
+
+def _lfm2(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    """LFM2 / LFM2.5 text chat on the hybrid conv / attention decoder."""
+    from aha_tpu_torch.models.lfm2 import Lfm2Config, Lfm2Model
+    from aha_tpu_torch.models.text_served import TextChatModel
+
+    return TextChatModel.load_decoder(entry, path, Lfm2Model, Lfm2Config,
+                                      **kw)
+
+
+def _qwen3_5(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    """Qwen3.5 text chat on the GatedDeltaNet decoder (a checkpoint with a
+    vision_config is served single-stream, image parts refused)."""
+    from aha_tpu_torch.models.qwen3_5_served import load_qwen3_5
+
+    return load_qwen3_5(entry, path, **kw)
 
 
 def _qwen2_5vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
@@ -76,11 +81,12 @@ FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "qwen3_reranker": _qwen3_reranker,
     "minicpm4": _llama_family,
     "minicpm5": _llama_family,
+    "lfm2": _lfm2,
+    "qwen3_5": _qwen3_5,
 }
 
 # families whose serving path can sit on the continuous-batching engine:
-# the reference's set, so its refusal reads the same; lfm2 and qwen3_5 are
-# not ported and raise NotImplementedError as every unported family does
+# the reference's set, so its refusal reads the same
 BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 
 
@@ -116,6 +122,7 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
     if loader is None:
         raise NotImplementedError(
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
-            "yet (the Qwen3 chat, MiniCPM4/5, Qwen2.5-VL, Qwen3 embedding "
-            "and reranker, and all-MiniLM-L6-v2 models are)")
+            "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5 text, "
+            "Qwen2.5-VL, Qwen3 embedding and reranker, and "
+            "all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -318,12 +318,15 @@ class Qwen2_5VLModel:
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
                  mm: dict | None = None, from_cache: bool = False,
-                 window: int | None = None) -> torch.Tensor:
+                 window: int | None = None,
+                 prompt_len: int | None = None) -> torch.Tensor:
         """With `mm`: encode the images, splice their features at the
         image-token positions and take M-RoPE positions (rope_delta stored
         in the cache).  Without: decode, or a text-only suffix prefill over
         a restored multimodal prefix, continues at pos + rope_delta; a
-        text-only prefill takes plain positions and sets rope_delta to 0."""
+        text-only prefill takes plain positions and sets rope_delta to 0.
+        `prompt_len` (a padded prefill's true length) is accepted and
+        unused."""
         B, S = input_ids.shape
         text = self.text
         x = nn.embedding(params["text"]["embed"], input_ids)

@@ -266,8 +266,10 @@ class Qwen3Model:
         return rms_norm(x, params["norm"]["w"], eps)
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
-                 from_cache: bool = False,
-                 window: int | None = None) -> torch.Tensor:
+                 from_cache: bool = False, window: int | None = None,
+                 prompt_len: int | None = None) -> torch.Tensor:
+        """`prompt_len` (the true length of a padded prefill) is accepted
+        and unused: rows past it are never read."""
         x = nn.embedding(params["embed"], input_ids)
         return self.run_layers(params, x, cache, from_cache=from_cache,
                                window=window)

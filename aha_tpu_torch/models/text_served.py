@@ -1,9 +1,10 @@
 """Generic text-chat served model: CausalLM + tokenizer + chat template
-(counterpart of aha_tpu/models/text_served.py): Qwen3 and the llama
-families (minicpm4 / minicpm5) share it, each contributing only the
-function that builds its model.  `batch_slots > 1` serves through the continuous-batching
-BatchEngine, for a model with `supports_slot_decode` (others are refused,
-as the reference refuses them).  A model with
+(counterpart of aha_tpu/models/text_served.py): Qwen3, the llama
+families (minicpm4 / minicpm5) and the hybrids (lfm2, qwen3_5) share it,
+each contributing only the function that builds its model.
+`batch_slots > 1` serves through the continuous-batching BatchEngine, for
+a model with `supports_slot_decode` (others are refused, as the reference
+refuses them).  A model with
 `supports_kv_int8` (Qwen3) takes get_cache_dtype() (AHA_KV_INT8=1 → int8)
 on both engines; any other keeps its parameters' dtype, as the
 reference's rule is."""
@@ -19,12 +20,16 @@ from aha_tpu_torch.core.chat_template import ChatTemplate
 from aha_tpu_torch.core.engine import TextEngine, embed_weight
 from aha_tpu_torch.core.generate import GenerateModel, PrepareData
 from aha_tpu_torch.core.tokenizer import TokenizerModel
+from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.base import LoadedModel
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
-from aha_tpu_torch.utils.device import get_cache_dtype
+from aha_tpu_torch.utils.device import device, get_cache_dtype, get_dtype
 
+
+#: the serve options `load` takes, as `load_model` passes them on
+SERVE_OPTIONS = ("batch_slots", "prefix_cache", "spec_tokens", "cuda_graphs")
 
 SPEC_WITH_SLOTS = (
     "--spec-tokens rides the single-stream engine; combine it with "
@@ -53,6 +58,24 @@ class TextChatModel(GenerateModel, LoadedModel):
                                model_name=model_name)
         self.chat_template = chat_template
         self.generation_config = generation_config
+
+    @classmethod
+    def load_decoder(cls, entry: ModelEntry, path: str, model_cls: type,
+                     config_cls: type, max_seq_len: int = 8192,
+                     **kw) -> "TextChatModel":
+        """`model_cls(config_cls.from_file(path))` on the default device with
+        the checkpoint's safetensors weights, served through `load` with the
+        serve options of `kw` (SERVE_OPTIONS; anything else is ignored)."""
+        def build(path, max_seq_len):
+            dev = device()
+            model = model_cls(config_cls.from_file(path),
+                              max_rope_len=max_seq_len, device=dev)
+            return model, model.load_params(open_weights(path),
+                                            dtype=get_dtype(dev))
+
+        return cls.load(entry, path, build, max_seq_len=max_seq_len,
+                        **{k: v for k, v in kw.items()
+                           if k in SERVE_OPTIONS})
 
     @classmethod
     def load(cls, entry: ModelEntry, path: str,

@@ -65,6 +65,12 @@ minicpm4_0_5b, seeded bf16 weights) on the same readings: the per-op
 decode block of the llama decoder (no fused stack) and its prefill, or
 with `--batch-slots N` its N-slot step.
 
+`--model lfm2` / `--model qwen3_5` read the hybrid decoders the same way
+(LFM2-1.2B's published geometry, models/lfm2.py lfm2_1_2b; the reference's
+default Qwen3.5 text config, models/qwen3_5.py qwen3_5_text_default;
+seeded bf16 weights): the per-op decode block with its conv window roll
+and recurrent state update, the prefill, or the N-slot step.
+
 `--model qwen2_5vl` reads Qwen2.5-VL-3B-Instruct's geometry instead
 (seeded bf16 weights; a seeded --image-px square image, 980 by default:
 4,900 patches in the 6,400 bucket): the vision tower alone, the image
@@ -390,7 +396,7 @@ def profile_passes(card: str) -> None:
 def profile_spec(model, params, args, card: str) -> None:
     """One dispatch of speculative rounds from a prefilled cyclic prompt,
     then a whole request, speculative and plain."""
-    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for, fused_params
     from aha_tpu_torch.core.sampling import SamplingConfig
 
     rng = np.random.default_rng(0)
@@ -545,11 +551,13 @@ def main(argv=None) -> int:
                     help="device time of each decode-attention pass")
     ap.add_argument("--quant", choices=("q8", "q4"),
                     help="pack the weights and head on this GGUF grid")
-    ap.add_argument("--model", choices=("qwen3", "minicpm4", "qwen2_5vl"),
+    ap.add_argument("--model", choices=("qwen3", "minicpm4", "lfm2",
+                                        "qwen3_5", "qwen2_5vl"),
                     default="qwen3",
-                    help="minicpm4: MiniCPM4-0.5B's llama decoder; "
-                         "qwen2_5vl: Qwen2.5-VL-3B's tower, image prefill "
-                         "and text decode")
+                    help="minicpm4: MiniCPM4-0.5B's llama decoder; lfm2 / "
+                         "qwen3_5: the hybrid decoders; qwen2_5vl: "
+                         "Qwen2.5-VL-3B's tower, image prefill and text "
+                         "decode")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
                          "cuda_graphs=False) instead of replaying graphs")
@@ -566,7 +574,7 @@ def main(argv=None) -> int:
         ap.error(f"--engine needs --batch-slots >= 2 and --cache >= {need}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: torch sees no CUDA device")
-    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for, fused_params
     from aha_tpu_torch.core.sampling import SamplingConfig
     from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
 
@@ -579,21 +587,32 @@ def main(argv=None) -> int:
     if args.model == "qwen2_5vl":
         profile_vl(args, card)
         return 0
+    if args.model != "qwen3" and (args.quant or args.spec_tokens > 0):
+        ap.error(f"--model {args.model} reads bf16 decode (no --quant, "
+                 "--spec-tokens)")
     if args.model == "minicpm4":
         from aha_tpu_torch.models.llama import LlamaModel, minicpm4_0_5b
 
-        if args.quant or args.spec_tokens > 0:
-            ap.error("--model minicpm4 reads bf16 decode (no --quant, "
-                     "--spec-tokens)")
         cfg = minicpm4_0_5b()
         model = LlamaModel(cfg, max_rope_len=8192, device="cuda")
+    elif args.model == "lfm2":
+        from aha_tpu_torch.models.lfm2 import Lfm2Model, lfm2_1_2b
+
+        cfg = lfm2_1_2b()
+        model = Lfm2Model(cfg, max_rope_len=8192, device="cuda")
+    elif args.model == "qwen3_5":
+        from aha_tpu_torch.models.qwen3_5 import (Qwen3_5Model,
+                                                  qwen3_5_text_default)
+
+        cfg = qwen3_5_text_default()
+        model = Qwen3_5Model(cfg, max_rope_len=8192, device="cuda")
     else:
         cfg = Qwen3Config()
         model = Qwen3Model(cfg, max_rope_len=8192, device="cuda")
     params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
                                dtype=torch.bfloat16)
-    if args.model == "minicpm4":
-        params = model.fuse_params(params)
+    if args.model != "qwen3":
+        params = fused_params(model, params)
     if args.quant:
         from aha_tpu_torch.models.qwen3 import pack_params
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank and
-Qwen2.5-VL image-chat paths once on one CUDA card.
+"""Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
+LFM2 and Qwen3.5 hybrid chat and Qwen2.5-VL image-chat paths once on one
+CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -21,8 +22,12 @@ before the last line:
    one-layer fused decode block, which no path runs, at Qwen3-0.6B's
    widths, alone and as 28 chained launches against the fused stack's
    plain version; the stacked decode at MiniCPM4-0.5B's 8-slot step (L 24,
-   S 4096, 16/2, D 64, ragged lengths) and the prefill kernel at B = 4
+   S 4096, 16/2, D 64, ragged lengths) and at the hybrids' 8-slot steps
+   (6 attention layers: LFM2-1.2B's 32/8 at D 64, Qwen3.5's 16/2 at D
+   128), each timed beside masked sdpa, and the prefill kernel at B = 4
    (an embedding group), each slot or row bit-equal to a B = 1 launch;
+   the prefill kernel at LFM2-1.2B's 32/8 heads of 64 (S 512, 2048)
+   beside sdpa;
 3b. studies — the H100 design studies (aha_tpu_torch/studies/, the port of
    the TPU studies under scripts/), each through its entry point
    `main(["--quick"])` at the scripts' full geometry: the HBM read ceiling
@@ -97,6 +102,24 @@ before the last line:
    an array equal to the in-process vectors, /v1/rerank refused 400) and a
    4-layer MiniCPM4 checkpoint in HF names served as
    OpenBMB/MiniCPM4-0.5B --batch-slots 4 answering 4 chats at once;
+7d. hybrid — (u) LFM2-1.2B's published geometry (16 layers, 6 of them
+   attention at 32/8 heads of 64, the rest gated short convs; hidden
+   2048, ff 8192, vocab 65536, tied) and (v) the reference's default
+   Qwen3.5 text config (24 layers, 6 gated attention at 16/2 heads of
+   128, 18 GatedDeltaNet; hidden 1024, vocab 151936, tied), seeded bf16:
+   (u1)/(v1) a TextEngine with the prefix store, a 300-token prompt and
+   64 greedy tokens (flash_attention 6 a prefill, flash_decode_at_layer 6
+   a step), graphed and eager; its extension restored from the store
+   (rows and rolling state) held to a cold engine's stream, and its exact
+   repeat, which must match no entry, equal to the cold stream; a decode
+   block's idle share; (u2)/(v2) an 8-slot BatchEngine with the prefix
+   store under the (f) mix; 8 teacher-forced steps of 4 slots at the
+   first 4 layers against the f32 plain path on the CPU; each cut to 4
+   layers and served over HTTP under -X importtime (LFM2 with
+   --batch-slots 4, 4 chats at once; Qwen3.5 text-only, a non-stream, a
+   stream and a repeat chat); then the plain mixers' device times (the
+   delta rule's recurrent step at B 1 and 8, its chunked form at S 512,
+   the short conv);
 8. vl — (n) Qwen2.5-VL-3B-Instruct's published geometry (vision tower 32
    blocks at hidden 1280, text decoder 36 layers at hidden 2048, vocab
    151936, tied) with seeded bf16 weights on the card, through TextEngine
@@ -132,8 +155,9 @@ same work (`bound_ms`: the larger of the bytes it must move over 3.35 TB/s
 and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
-graph readings, the JSON line of the speculative paths' readings, one
-JSON line of per-kernel results, the card line, and
+graph readings, the JSON line of the speculative paths' readings, the
+JSON line of the hybrid readings, one JSON line of per-kernel results,
+the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
 """
@@ -674,16 +698,17 @@ def check_head() -> None:
 
 
 def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8,
-                  record: bool = False) -> None:
+                  record: bool = False, Hq: int = 16, D: int = 128) -> None:
     """The prefill kernel against its f32 plain version: Hkv 8 is
-    Qwen3-0.6B's 16/8 heads, Hkv 2 Qwen2.5-VL-3B's 16/2 (G = 8).  Timed:
-    device time of kernel, plain and sdpa; `record` makes it the kernel's
-    row of the JSON line, other timed shapes go to its `also_timed`."""
+    Qwen3-0.6B's 16/8 heads, Hkv 2 Qwen2.5-VL-3B's 16/2 (G = 8), Hq 32
+    over Hkv 8 at D 64 LFM2-1.2B's.  Timed: device time of kernel, plain
+    and sdpa; `record` makes it the kernel's row of the JSON line, other
+    timed shapes go to its `also_timed`."""
     from aha_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_plain)
 
-    Hq, D = 16, 128
-    g = torch.Generator(device="cuda").manual_seed(S + causal + Hkv)
+    g = torch.Generator(device="cuda").manual_seed(
+        S + causal + Hkv + (Hq - 16) + (D - 128))
     bf = dict(device="cuda", dtype=torch.bfloat16)
     q = torch.randn((1, S, Hq, D), generator=g, **bf)
     k = torch.randn((1, S, Hkv, D), generator=g, **bf)
@@ -711,7 +736,8 @@ def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8,
         line += (f"; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
                  f"sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
                  f"{4 * Hq * pairs * D / ms / 1e9:.1f} TFLOP/s")
-        shape = f"S={S} causal={causal} Hq={Hq} Hkv={Hkv}"
+        shape = f"S={S} causal={causal} Hq={Hq} Hkv={Hkv}" + (
+            f" D={D}" if D != 128 else "")
         if record:
             _record("flash_attention", err, ms, plain_ms, b, lib_ms,
                     "F.scaled_dot_product_attention", shape)
@@ -1558,23 +1584,33 @@ def _planted_slots_cache(g, L: int, B: int, S: int, Hq: int, Hkv: int,
 
 #: (s)'s decode shape: MiniCPM4-0.5B's 24 layers, 16 query heads over 2, D
 #: 64, 8 slots of a 4096-row cache at ragged lengths (a parked slot of 1,
-#: the split boundaries 32 and 33, a live row short of the whole cache)
+#: the split boundaries 32 and 33, a live row short of the whole cache);
+#: (u2)'s and (v2)'s 8-slot steps read the same lengths
 MINICPM_RAGGED = (1, 32, 33, 300, 1000, 1500, 2048, 4095)
 
+#: row 8 at the 8-slot steps of the paths that run it over the 5-D cache:
+#: JSON key → (label, L attention layers, Hq, Hkv, D, the inputs' seed)
+SLOT_DECODE_SHAPES = {
+    "minicpm_b8": ("MiniCPM4-0.5B's", 24, 16, 2, 64, 24),
+    "lfm2_b8": ("LFM2-1.2B's (u2)", 6, 32, 8, 64, 256),
+    "qwen3_5_b8": ("Qwen3.5's (v2)", 6, 16, 2, 128, 224),
+}
 
-def check_minicpm_decode() -> None:
-    """Row 8 (flash_decode_at_layer) as (s)'s 8-slot step reads it: the 5-D
-    cache at L 24, S 4096, Hq 16 over Hkv 2, D 64, B 8, MINICPM_RAGGED;
-    within TOL_DECODE_REL of max |ref| against the plain version, every
-    slot's live length off by one rejected by that bound, each slot
-    bit-equal to a B = 1 launch on that slot; device time over the 24
-    layers in turn beside one masked sdpa over each slot's whole cache
-    (per-slot length mask) and the bound of the live rows."""
+
+def check_slots_decode(key: str) -> None:
+    """Row 8 (flash_decode_at_layer) as an 8-slot step reads it
+    (SLOT_DECODE_SHAPES[key]): the 5-D cache at S 4096, B 8,
+    MINICPM_RAGGED; within TOL_DECODE_REL of max |ref| against the plain
+    version, every slot's live length off by one rejected by that bound,
+    each slot bit-equal to a B = 1 launch on that slot; device time over
+    the L layers in turn beside one masked sdpa over each slot's whole
+    cache (per-slot length mask) and the bound of the live rows."""
     from aha_tpu_torch.ops import flash_attention as fa
 
-    L, B, S, Hq, Hkv, D = 24, 8, 4096, 16, 2, 64
+    label, L, Hq, Hkv, D, seed = SLOT_DECODE_SHAPES[key]
+    B, S = 8, 4096
     lens = MINICPM_RAGGED
-    g = torch.Generator(device="cuda").manual_seed(24)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _planted_slots_cache(g, L, B, S, Hq, Hkv, D, lens)
     vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     err = rel = 0.0
@@ -1595,10 +1631,10 @@ def check_minicpm_decode() -> None:
                 q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
                 v[:, b:b + 1].contiguous(), lt, vl[b:b + 1].contiguous())
             require(torch.equal(one, got[b:b + 1]),
-                    f"MiniCPM decode slot {b} differs from a B = 1 launch")
-    require(rel <= TOL_DECODE_REL, f"MiniCPM decode: {rel} of max |ref| "
+                    f"{label} decode slot {b} differs from a B = 1 launch")
+    require(rel <= TOL_DECODE_REL, f"{label} decode: {rel} of max |ref| "
             f"(tol {TOL_DECODE_REL})")
-    require(rel_bad > TOL_DECODE_REL, f"MiniCPM decode: live lengths off by "
+    require(rel_bad > TOL_DECODE_REL, f"{label} decode: live lengths off by "
             f"one stay within the bound ({rel_bad} of max |ref|)")
     layer = _layer_cycle(L)
     ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
@@ -1617,19 +1653,19 @@ def check_minicpm_decode() -> None:
     lib_ms = device_ms(lambda: _sdpa(qt, *kv_t[next(it) % L],
                                      attn_mask=mask), iters=48)
     del kv_t
-    log(f"[kernels] flash_decode_at_layer at MiniCPM4-0.5B's 8-slot step "
-        f"(L={L} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}, lengths {lens}): "
-        f"{rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; live lengths ±1 ≥ "
-        f"{rel_bad:.3e}), each slot bit-equal to a B = 1 launch; device "
-        f"ms/call kernel {ms:.4f} plain {plain_ms:.4f} masked sdpa "
-        f"{lib_ms:.4f}; bound {b_[0]:.4f} ({b_[1]})")
+    shape = f"L={L} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}"
+    log(f"[kernels] flash_decode_at_layer at {label} 8-slot step ({shape}, "
+        f"lengths {lens}): {rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; "
+        f"live lengths ±1 ≥ {rel_bad:.3e}), each slot bit-equal to a B = 1 "
+        f"launch; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+        f"masked sdpa {lib_ms:.4f}; bound {b_[0]:.4f} ({b_[1]})")
     _record("flash_decode_at_layer", err)
-    RESULTS["flash_decode_at_layer"]["minicpm_b8"] = dict(
+    RESULTS["flash_decode_at_layer"][key] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_[0], bound_by=b_[1],
         library_ms=lib_ms, rel_err=rel, off_by_one_rel_err=rel_bad,
         library="F.scaled_dot_product_attention, a per-slot length mask "
                 "over the whole cache",
-        shape=f"L={L} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ragged {lens}")
+        shape=f"{shape} ragged {lens}")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -1761,8 +1797,12 @@ def phase_kernels() -> None:
     check_segmented()
     check_stacked_decode()
     check_decode_g7()
-    check_minicpm_decode()
+    for key in SLOT_DECODE_SHAPES:
+        check_slots_decode(key)
     check_prefill_batched()
+    # row 1 at LFM2-1.2B's 32/8 heads of 64: (u1)'s 512 bucket and 2048
+    check_prefill(512, True, timed=True, Hkv=8, Hq=32, D=64)
+    check_prefill(2048, True, timed=True, Hkv=8, Hq=32, D=64)
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -2016,14 +2056,26 @@ def _f32_cpu(model, params) -> tuple:
         cpu_params
 
 
+def _f32_hidden(m, p, ids: list[int]) -> torch.Tensor:
+    """The f32 CPU model's final hidden over `ids` from position 0: its
+    cache-free forward where it has one, else a prefill into a fresh
+    cache."""
+    x = torch.tensor([ids])
+    if hasattr(m, "forward_hidden"):
+        return m.forward_hidden(p, x)
+    return m.backbone(p, x, m.init_cache(1, len(ids), torch.float32))
+
+
 def _walk_ties(what: str, plain, got: list[int], ids: list[int], model,
-               params, cpu: dict) -> dict:
+               params, cpu: dict, tag: str = "spec",
+               tol: float = TOL_SPEC_TIE_REL) -> dict:
     """Every token of `got` equal to what the plain engine decodes
     greedily from the same prefix (`ids` + got[:i]), or, where they part,
-    the two candidates' logits within TOL_SPEC_TIE_REL of max |logit| in
-    f32 on the CPU: the plain engine is re-run from each parting with the
-    speculative token taken, and one f32 forward over the stream reads the
-    logits of every parting.  `cpu` caches the f32 model."""
+    the two candidates' logits within `tol` of max |logit| in f32 on the
+    CPU: the plain engine is re-run from each parting with the other
+    path's token taken, and one f32 forward over the stream reads the
+    logits of every parting.  `cpu` caches the f32 model; `tag` heads the
+    log lines."""
     from aha_tpu_torch.core.sampling import SamplingConfig
 
     parts, i = [], 0
@@ -2039,7 +2091,7 @@ def _walk_ties(what: str, plain, got: list[int], ids: list[int], model,
         parts.append((i + j, want[j]))
         i += j + 1
     if not parts:
-        log(f"[spec] {what}: equal to plain greedy decoding ({len(got)} "
+        log(f"[{tag}] {what}: equal to plain greedy decoding ({len(got)} "
             f"tokens)")
         return {"parts": []}
     if not cpu:
@@ -2047,17 +2099,17 @@ def _walk_ties(what: str, plain, got: list[int], ids: list[int], model,
     m, p = cpu["model"], cpu["params"]
     rows = [len(ids) - 1 + k for k, _ in parts]
     with torch.no_grad():
-        h = m.forward_hidden(p, torch.tensor([ids + got[:parts[-1][0]]]))
+        h = _f32_hidden(m, p, ids + got[:parts[-1][0]])
         logits = m.logits(p, h[:, rows]).float()[0]
     gaps = []
     for r, (k, w) in enumerate(parts):
         top = logits[r].abs().max().item()
         gaps.append(abs(logits[r, got[k]] - logits[r, w]).item() / top)
-    log(f"[spec] {what}: parts from plain greedy decoding of the same "
+    log(f"[{tag}] {what}: parts from plain greedy decoding of the same "
         f"prefix at {len(parts)} of {len(got)} tokens {[k for k, _ in parts]}"
         f"; the candidates' f32 logit gaps {[f'{x:.2e}' for x in gaps]} of "
-        f"max |logit| (tie bound {TOL_SPEC_TIE_REL})")
-    require(max(gaps) <= TOL_SPEC_TIE_REL, f"{what}: parts at "
+        f"max |logit| (tie bound {tol})")
+    require(max(gaps) <= tol, f"{what}: parts at "
             f"{parts[gaps.index(max(gaps))][0]} where the f32 logits "
             f"differ by {max(gaps)} of max |logit|")
     return {"parts": [k for k, _ in parts], "max_gap_rel": max(gaps)}
@@ -2366,8 +2418,9 @@ def teacher_forced_slots(model, params, prompts: list[list[int]],
                          cache: dict | None = None):
     """Decode `forced` (B, n) one column per step through a per-slot cache
     of B slots; with no `cache`, first prefill each prompt at batch 1 into
-    its slot.  Returns the (n, B, H) f32 hidden states on the CPU and the
-    cache as it stood before the first step (on the CPU)."""
+    its slot (its rows, and a hybrid's rolling state whole).  Returns the
+    (n, B, H) f32 hidden states on the CPU and the cache as it stood before
+    the first step (on the CPU)."""
     from aha_tpu_torch.core import cache as kv
     from aha_tpu_torch.core.engine import bucket_for
 
@@ -2378,10 +2431,13 @@ def teacher_forced_slots(model, params, prompts: list[list[int]],
             small = model.init_cache(1, bucket_for(len(ids)), cache_dtype)
             x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
             x[0, :len(ids)] = torch.tensor(ids)
-            model.backbone(params, x.to(device), small)
+            model.backbone(params, x.to(device), small, prompt_len=len(ids))
             for name in kv.ROW_KEYS:
                 if name in small:
                     cache[name][:, b, :len(ids)] = small[name][:, 0, :len(ids)]
+            for name in kv.STATE_KEYS:
+                if name in small:
+                    cache[name][:, b] = small[name][:, 0]
             cache["pos"][b] = len(ids)
     before = {k: v.to("cpu", copy=True) for k, v in cache.items()}
     hs = []
@@ -3047,6 +3103,423 @@ def phase_http_embed(minilm: dict, minicpm: dict) -> None:
         f"chats at once")
 
 
+# -- 7d. the hybrid families: LFM2-1.2B (u) and Qwen3.5 (v) -------------------
+
+#: where a stream restored from the prefix store parts from a cold
+#: engine's on the same prompt, the two candidates' f32 CPU logits must lie
+#: within this share of the row's max |logit|: the restored path prefills
+#: the suffix over the stored state (chunks at other boundaries, sdpa over
+#: the cache with bf16 probabilities) where the cold one prefills it whole
+#: (the flash kernel), and 16-24 bf16 layers of seeded weights carry that
+#: rounding to near-ties of a 65,536- or 151,936-way flat head.  Measured
+#: on an H100: 9 partings in 128 tokens over (u1) and (v1), gaps 2.4e-3 to
+#: 2.06e-2 of max |logit| (the bound 2.4x the largest).  This bound only
+#: says that a parting is a near-tie; what holds the restore itself is
+#: _restore_check (hidden states against the cold path's, and a planted
+#: broken restore that must fail it)
+TOL_HYBRID_TIE_REL = 5e-2
+#: the hybrids' cut depth for the teacher-forced check and the served
+#: checkpoints: their first 4 layers (3 mixer layers and 1 attention layer
+#: in both), at full width
+HYBRID_CUT = 4
+#: per hybrid reading: a decode block's wall, device busy and idle share,
+#: and the plain mixers' device times (printed as one JSON line before the
+#: kernels line)
+HYBRID_READINGS: list[dict] = []
+
+
+def _hybrid_model(family: str, device: str, layers: int | None = None):
+    """LFM2-1.2B's published geometry, or the reference's default Qwen3.5
+    text config; `layers` keeps the first ones."""
+    from aha_tpu_torch.models import lfm2, qwen3_5
+
+    if family == "lfm2":
+        return lfm2.Lfm2Model(lfm2.lfm2_1_2b(layers), max_rope_len=8192,
+                              device=device)
+    return qwen3_5.Qwen3_5Model(qwen3_5.qwen3_5_text_default(layers),
+                                max_rope_len=8192, device=device)
+
+
+def _block_idle(eng, ids: list[int], device: str) -> dict:
+    """One 16-step greedy decode block of a TextEngine from the prefilled
+    prompt (the replay of its graph, or the eager steps): wall, device busy
+    and idle share (profile_decode's reading)."""
+    from aha_tpu_torch.core.engine import bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.utils.profile_decode import _read
+
+    st = eng._take(512)
+    greedy = SamplingConfig()
+
+    def block():
+        st.cache["pos"].fill_(len(ids))
+        eng._decode_block(st, greedy, 16, len(ids) + 17)
+
+    try:
+        with torch.no_grad():
+            eng._prefill(ids, bucket_for(len(ids)), st.cache,
+                         from_cache=False)
+            for _ in range(2):          # warm-up: allocator, the capture
+                block()
+            return _read(block, 16) if device == "cuda" else {}
+    finally:
+        eng._return(st)
+
+
+def _suffix_hidden(model, params, ids: list[int], p: int,
+                   forced: list[int], device: str, entry: dict | None = None
+                   ) -> torch.Tensor:
+    """The final hidden states of ids[p:] and of `forced` fed one token a
+    step after them: with `entry`, ids[p:] prefilled over the snapshot
+    restored at p (PrefixStore.restore, as the engine resumes); without,
+    all of `ids` prefilled cold and its rows from p kept."""
+    from aha_tpu_torch.core import cache as kv
+    from aha_tpu_torch.core.engine import PrefixStore, bucket_for
+
+    cache = model.init_cache(1, 512, params["embed"]["w"].dtype)
+    toks, first = (ids[p:], 0) if entry is not None else (ids, p)
+    if entry is not None:
+        PrefixStore.restore(entry, cache, p)
+    x = torch.zeros((1, bucket_for(len(toks))), dtype=torch.int64)
+    x[0, :len(toks)] = torch.tensor(toks)
+    hs = [model.backbone(params, x.to(device), cache, prompt_len=len(toks),
+                         from_cache=entry is not None)[0, first:len(toks)]]
+    kv.advance(cache, len(toks))
+    for t in forced:
+        tok = torch.tensor([[t]], device=device)
+        hs.append(model.backbone(params, tok, cache)[0])
+        kv.advance(cache, 1)
+    return torch.cat(hs)
+
+
+def _row_rel(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Each row's max |got - ref| over the row's max |ref|, in f32."""
+    got, ref = got.float(), ref.float()
+    return (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+
+
+def _restore_check(tag: str, model, params, ids: list[int], entry: dict,
+                   p: int, forced: list[int], device: str) -> dict:
+    """The restored path's hidden states (the suffix ids[p:] prefilled over
+    `entry`, then `forced` teacher-forced) against the cold path's on the
+    same tokens, each row within TOL_HIDDEN_REL of its max |ref|; the same
+    with a planted broken restore (the entry less its rolling state,
+    kv.STATE_KEYS) must exceed it.  Over the rows that pick a token (the
+    suffix's last and each forced step's), per row over its max |logit|:
+    the cold path's top-two gap, how far the restored path moves that
+    difference, and the rows where the two paths' argmax differ — a
+    greedy stream parts where the move passes the gap."""
+    from aha_tpu_torch.core import cache as kv
+
+    with torch.no_grad():
+        cold = _suffix_hidden(model, params, ids, p, forced, device)
+        warm = _suffix_hidden(model, params, ids, p, forced, device, entry)
+        broken = _suffix_hidden(model, params, ids, p, forced, device,
+                                {k: v for k, v in entry.items()
+                                 if k not in kv.STATE_KEYS})
+        err = float(_row_rel(warm, cold).max())
+        bad = float(_row_rel(broken, cold).max())
+        picks = slice(len(ids) - p - 1, None)
+        lc = model.logits(params, cold[None, picks])[0].float()
+        lw = model.logits(params, warm[None, picks])[0].float()
+        top = lc.abs().amax(-1)
+        pair = lc.topk(2, dim=-1).indices
+
+        def diff(lg):
+            two = lg.gather(-1, pair)
+            return two[:, 0] - two[:, 1]
+
+        gap = (diff(lc) / top).cpu()
+        move = ((diff(lw) - diff(lc)).abs() / top).cpu()
+        flips = int((lw.argmax(-1) != lc.argmax(-1)).sum())
+    log(f"[hybrid] ({tag}1) restore check, {len(ids) - p} suffix rows + "
+        f"{len(forced)} teacher-forced steps: hidden max err {err:.3e} of "
+        f"the row's max |ref| against the cold path (tol {TOL_HIDDEN_REL}); "
+        f"a restore less the rolling state {bad:.3e} (must exceed the tol); "
+        f"of {len(gap)} rows that pick a token: top-two gap median "
+        f"{float(gap.median()):.3e}, its move median "
+        f"{float(move.median()):.3e} max {float(move.max()):.3e}, argmax "
+        f"differs on {flips}")
+    require(err <= TOL_HIDDEN_REL, f"({tag}1) the restored path's hidden "
+            f"states off the cold path's by {err}")
+    require(bad > TOL_HIDDEN_REL, f"({tag}1) a restore without the rolling "
+            f"state passes the check ({bad} <= {TOL_HIDDEN_REL})")
+    return {"hidden_err_rel": err, "broken_restore_err_rel": bad,
+            "top2_gap_median": float(gap.median()),
+            "top2_move_median": float(move.median()),
+            "top2_move_max": float(move.max()), "argmax_flips": flips,
+            "rows": len(gap)}
+
+
+def _hybrid_text(tag: str, name: str, model, fused, params, device: str,
+                 n_attn: int) -> None:
+    """(u1)/(v1): a TextEngine with the prefix store, a 300-token prompt
+    (bucket 512: the prefill kernel) and 64 greedy tokens, graphed and
+    eager; the prompt extended by 40 tokens, restored from the store
+    (rows and rolling state) and prefilled from 300, held to a cold
+    engine's stream; the exact repeat, which must match no entry, equal to
+    the cold stream; one decode block's idle share, graphed and eager."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(16)
+    greedy = SamplingConfig()
+    card = card_line() if device == "cuda" else "cpu"
+    warm = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    warm.generate_tokens(_prompt(rng, 300, V), greedy, max_tokens=32)
+    del warm
+    eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                     prefix_cache_entries=4)
+    ids = _prompt(rng, 300, V)
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, greedy, max_tokens=64)
+    _sync(device)
+    counts = read_counts(wr, f"{name}-text", ("flash_attention",
+                                              "flash_decode_at_layer"))
+    require(len(out) == 64 and all(0 <= t < V for t in out),
+            f"({tag}1): {len(out)} tokens")
+    require(counts["flash_attention"] == n_attn
+            and counts["flash_decode_at_layer"] == n_attn * 64,
+            f"({tag}1) launches {counts}: {n_attn} prefill, {n_attn * 64} "
+            f"decode expected")
+    t = eng.last_timing
+    log(f"[hybrid] ({tag}1) 300-token prompt, bucket 512 kernel prefill "
+        f"{t.prompt_secs * 1e3:.2f} ms; 64 greedy tokens, decode "
+        f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s at "
+        f"batch 1 | {card}")
+    eager_twin(f"({tag}1) {name} TextEngine", eng, lambda: TextEngine(
+        model, fused, eos_token_ids=[], max_seq_len=8192, cuda_graphs=False),
+        _requests([(ids, greedy, 64)]), [out], counts, device)
+
+    store = eng._prefix_entries
+    require(store.match(ids) == (None, 0), f"({tag}1): an exact repeat "
+            f"matched a state-carrying prefix entry")
+    ext = ids + _prompt(rng, 40, V)
+    entry, p = store.match(ext)
+    require(p == len(ids) and entry is not None and "conv" in entry,
+            f"({tag}1): the extension restores from {p}")
+    cold = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    wr = zero_counts()
+    got = eng.generate_tokens(ext, greedy, max_tokens=64)
+    _sync(device)
+    c_ext = read_counts(wr, f"{name}-prefix", ("flash_decode_at_layer",))
+    require(c_ext["flash_attention"] == 0, f"({tag}1) extension: the "
+            f"40-token suffix prefilled through the kernel")
+    tie = _walk_ties(f"({tag}1) prefix-store extension", cold, got, ext,
+                     model, params, {}, tag="hybrid",
+                     tol=TOL_HYBRID_TIE_REL)
+    HYBRID_READINGS.append({
+        "path": f"({tag}1) {name} prefix-store extension", "parts": tie[
+            "parts"], **_restore_check(tag, model, fused, ext, entry, p, got,
+                                       device), "card": card})
+    rep = eng.generate_tokens(ids, greedy, max_tokens=64)
+    require(rep == out == cold.generate_tokens(ids, greedy, max_tokens=64),
+            f"({tag}1): the exact repeat differs from a cold stream")
+    log(f"[hybrid] ({tag}1) the extension restored 300 rows and the rolling "
+        f"state, prefilled 40 (parts from the cold stream at "
+        f"{tie['parts']}); the exact repeat matched no entry and equals the "
+        f"cold stream")
+    del cold
+    for graphed in (True, False):
+        e = eng if graphed else TextEngine(model, fused, eos_token_ids=[],
+                                           max_seq_len=8192,
+                                           cuda_graphs=False)
+        d = _block_idle(e, ids, device)
+        if d:
+            HYBRID_READINGS.append({
+                "path": f"({tag}1) {name} decode block, 16 steps at 301 "
+                        f"rows", "graphed": graphed,
+                "ms_per_step": d["wall_ms"] / 16,
+                "device_busy_ms_per_step": d["device_busy_ms"] / 16,
+                "idle_share": d["idle_share"],
+                "device_ops_per_step": d["device_ops_per_step"],
+                "top_ops": d["top_ops"][:4], "card": card})
+            log(f"[hybrid] ({tag}1) decode block "
+                f"{'graphed' if graphed else 'eager'}: "
+                f"{d['wall_ms'] / 16:.3f} ms/step wall, device busy "
+                f"{d['device_busy_ms'] / 16:.3f} ms/step, idle share "
+                f"{d['idle_share']:.3f}, {d['device_ops_per_step']:.0f} "
+                f"device ops/step | {card}")
+
+
+def _hybrid_http(tag: str, name: str, model_id: str, params: dict,
+                 extra: tuple[str, ...]) -> None:
+    """The first HYBRID_CUT layers at full width saved as an HF-named
+    checkpoint with the test tokenizer (the tied embedding's rows zeroed
+    but those of tokens that decode alone to whole text — no special or
+    marker token, no partial UTF-8 byte — so a seeded model's replies
+    stream as text), served by `python -m aha_tpu_torch
+    serv` as `model_id` under -X importtime: four chats at once with
+    `--batch-slots 4`, else a non-stream, a stream and a repeat chat."""
+    import dataclasses
+
+    from aha_tpu_torch.io.weights import save_hf_lfm2, save_hf_qwen3_5
+
+    cut = _hybrid_model(name, "cpu", HYBRID_CUT).config
+    with tempfile.TemporaryDirectory(prefix=f"aha_torch_{name}_") as tmp:
+        fixtures, tok = _smoke_tokenizer(tmp)
+        eos = tok.token_to_id("<|im_end|>")
+        special = set(tok.get_added_tokens_decoder())
+        words = [tok.decode([i]) for i in
+                 range(tok.get_vocab_size(with_added_tokens=True))]
+        text = [i for i, w in enumerate(words)
+                if i not in special and w.strip() and "\ufffd" not in w]
+        embed = torch.zeros_like(params["embed"]["w"])
+        keep = torch.tensor(text, device=embed.device)
+        embed[keep] = params["embed"]["w"][keep]
+        cut_params = {**params, "embed": {"w": embed},
+                      "lm_head": {"w": embed},
+                      "layers": params["layers"][:HYBRID_CUT]}
+        cfg = {**dataclasses.asdict(cut), "torch_dtype": "bfloat16",
+               "eos_token_id": eos,
+               "layer_types": list(cut.layer_types)}
+        cfg.update({"architectures": ["Lfm2ForCausalLM"],
+                    "model_type": "lfm2"} if name == "lfm2" else
+                   {"architectures": ["Qwen3_5ForCausalLM"],
+                    "model_type": "qwen3_5_text"})
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        with open(os.path.join(tmp, "generation_config.json"), "w") as f:
+            json.dump({"eos_token_id": [eos]}, f)
+        with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
+        (save_hf_lfm2 if name == "lfm2" else save_hf_qwen3_5)(cut_params,
+                                                              tmp)
+        del embed, cut_params
+        with _server(tmp, "--model", model_id, *extra) as base:
+            if "--batch-slots" in extra:
+                _ask_concurrent(base, 4)
+            else:
+                _ask(base)
+    log(f"[http] ({tag}) {model_id} checkpoint (full width, {HYBRID_CUT} "
+        f"layers) served {' '.join(extra) or 'single-stream'}")
+
+
+def _hybrid_family(tag: str, name: str, device: str) -> None:
+    """(u) or (v): the seeded bf16 model at full depth through (tag1)
+    TextEngine and (tag2) an 8-slot BatchEngine with the prefix store
+    under the (f) mix (chunked admission, one sampled request), each
+    graphed and eager; 8 teacher-forced steps of 4 slots at HYBRID_CUT
+    layers against the f32 plain path on the CPU; then the cut checkpoint
+    over HTTP."""
+    from aha_tpu_torch.core.engine import bucket_for, fused_params
+
+    model = _hybrid_model(name, device)
+    cfg = model.config
+    n_attn = len(model.attn_slot)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(16),
+                               dtype=torch.bfloat16)
+    fused = fused_params(model, params)
+    _sync(device)
+    n_params = sum(t.numel() for k, t in params.items() if k != "lm_head"
+                   for t in _leaves(t))
+    log(f"[hybrid] ({tag}) {name}: {cfg.num_hidden_layers} layers "
+        f"({n_attn} attention), hidden {cfg.hidden_size}, vocab "
+        f"{cfg.vocab_size}, tied: {n_params / 1e6:.1f} M bf16 params seeded "
+        f"on the card in {time.perf_counter() - t0:.1f} s (set-up)")
+    _hybrid_text(tag, name, model, fused, params, device, n_attn)
+
+    r = _batch_path(model, fused, device, torch.bfloat16, f"{name}-batch",
+                    ("flash_attention", "flash_decode_at_layer"),
+                    prefix_cache_entries=4)
+    chunk = 512                       # BatchEngine's default prefill_chunk
+    whole = [n for n in r["prompts"] if n <= chunk and bucket_for(n) >= 128]
+    require(r["block"]["flash_decode_at_layer"] == n_attn * r["blk"]
+            and r["launches"]["flash_decode_at_layer"] == n_attn * r["steps"]
+            and r["launches"]["flash_attention"] == n_attn * len(whole),
+            f"({tag}2) launches {r['launches']} (a block: {r['block']}) over "
+            f"{r['steps']} steps; {n_attn * len(whole)} prefill launches "
+            f"expected for the {len(whole)} prompts admitted in one kernel "
+            f"prefill")
+    log(f"[hybrid] ({tag}2) flash_attention {n_attn} a one-chunk prefill of "
+        f">= 128 rows ({len(whole)} prompts), flash_decode_at_layer {n_attn} "
+        f"a step of 8 slots ({r['steps']} steps)")
+    del fused
+    cut = _hybrid_model(name, device, HYBRID_CUT)
+    cut_params = {**params, "layers": params["layers"][:HYBRID_CUT]}
+    _teacher_forced_4_slots(cut, fused_params(cut, cut_params), device,
+                            (torch.bfloat16,), f"hybrid ({tag}) {name}")
+    del cut_params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    model_id = "LiquidAI/LFM2-1.2B" if name == "lfm2" else "Qwen/Qwen3.5-0.8B"
+    _hybrid_http(tag, name, model_id, params,
+                 ("--batch-slots", "4") if name == "lfm2" else ())
+
+
+def _mixer_timings() -> None:
+    """The hybrids' plain mixers on the card, for a later kernel design:
+    Qwen3.5's recurrent delta-rule step of one layer at B 1 and 8 and its
+    chunked rule at S 512 (16 value heads of 128, f32), and LFM2-1.2B's
+    short-conv decode step at B 1 and 8 and its prefill at S 512 (D 2048,
+    L 3, bf16); device time per call beside the bound of the bytes each
+    must move (and the f32 operations of the chunked rule)."""
+    from aha_tpu_torch.models.hybrid import causal_conv
+    from aha_tpu_torch.models.qwen3_5 import (CHUNK, chunk_gated_delta_rule,
+                                              recurrent_gated_delta_rule)
+
+    g = torch.Generator(device="cuda").manual_seed(35)
+    card = card_line()
+    H, Dk, Dv = 16, 128, 128
+
+    def inputs(B, S):
+        f = dict(device="cuda", dtype=torch.float32)
+        q, k = (torch.nn.functional.normalize(
+            torch.randn((B, S, H, Dk), generator=g, **f), dim=-1)
+            for _ in range(2))
+        v = torch.randn((B, S, H, Dv), generator=g, **f)
+        gg = -torch.rand((B, S, H), generator=g, **f) * 0.1
+        beta = torch.rand((B, S, H), generator=g, **f)
+        state = torch.randn((B, H, Dk, Dv), generator=g, **f) * 0.1
+        return q, k, v, gg, beta, state
+
+    rows = []
+    for B in (1, 8):
+        a = inputs(B, 1)
+        ms = device_ms(lambda: recurrent_gated_delta_rule(*a), iters=48)
+        nbytes = 2 * B * H * Dk * Dv * 4 + B * H * (2 * Dk + 2 * Dv + 2) * 4
+        rows.append(("delta rule, recurrent step", f"B={B}", ms,
+                     bound(nbytes, 6 * B * H * Dk * Dv, "f32")))
+    S = 512
+    a = inputs(1, S)
+    ms = device_ms(lambda: chunk_gated_delta_rule(*a), iters=10)
+    C, N = CHUNK, S // CHUNK
+    ops = N * H * (10 * C * C * Dk + 6 * C * Dk * Dv + C ** 3 // 3)
+    nbytes = S * H * (2 * Dk + 2 * Dv + 2) * 4 + 2 * H * Dk * Dv * 4
+    rows.append(("delta rule, chunked", f"B=1 S={S}", ms,
+                 bound(nbytes, ops, "f32")))
+    D, L = 2048, 3
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    w = torch.randn((L, D), generator=g, **bf)
+    for B, S in ((1, 1), (8, 1), (1, 512)):
+        x = torch.randn((B, S, D), generator=g, **bf)
+        state = torch.zeros((B, L, D), **bf)
+        ms = device_ms(lambda: causal_conv(x, w, state, S, False), iters=48)
+        nbytes = (2 * B * S * D + 2 * B * L * D + L * D) * 2
+        rows.append(("short conv", f"B={B} S={S}", ms,
+                     bound(nbytes, 2 * L * B * S * D)))
+    for what, at, ms, b in rows:
+        log(f"[hybrid] plain {what} at {at}: device ms/call {ms:.4f}; bound "
+            f"{b[0]:.4f} ({b[1]}) | {card}")
+        HYBRID_READINGS.append({"path": f"plain {what}", "at": at, "ms": ms,
+                                "bound_ms": b[0], "bound_by": b[1],
+                                "card": card})
+
+
+def phase_hybrid(device: str = "cuda") -> None:
+    """7d: (u) LFM2-1.2B, then (v) Qwen3.5, each through _hybrid_family;
+    then the plain mixers' device times."""
+    for tag, name in (("u", "lfm2"), ("v", "qwen3_5")):
+        _hybrid_family(tag, name, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if device == "cuda":
+        _mixer_timings()
+
+
 # -- 6. HTTP ------------------------------------------------------------------
 
 
@@ -3677,6 +4150,8 @@ def main() -> int:
     timed("http-embed", phase_http_embed, minilm, minicpm)
     del minicpm, minilm
     torch.cuda.empty_cache()
+    timed("hybrid", phase_hybrid)
+    torch.cuda.empty_cache()
     vl = timed("vl", phase_vl)
     timed("vl-http", phase_http_vl, vl["params"])
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
@@ -3693,10 +4168,11 @@ def main() -> int:
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
-                    "minicpm_b8")
+                    *SLOT_DECODE_SHAPES)
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"graphs": GRAPH_READINGS}))
     print(json.dumps({"spec": SPEC_READINGS}))
+    print(json.dumps({"hybrid": HYBRID_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

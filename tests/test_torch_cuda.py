@@ -1692,3 +1692,97 @@ def test_batch_engine_graphs_equal_eager(dev, grid, cache, sampled):
         finally:
             eng.shutdown()
     assert outs[True] == outs[False]
+
+
+# -- the hybrid families (LFM2, Qwen3.5) --------------------------------------
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 64), (16, 2, 128)])
+def test_stacked_decode_at_hybrid_slots(dev, Hq, Hkv, D):
+    """Row 8 at the hybrids' 8-slot steps: LFM2-1.2B's 32/8 heads of 64 and
+    Qwen3.5's 16/2 of 128 over a 6-layer attention stack, ragged lengths;
+    within 2e-2 of the plain version, each slot bit-equal to a B = 1
+    launch on that slot."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(Hq + D)
+    L, B, S = 6, 8, 1024
+    lens = (1, 31, 32, 33, 300, 777, 1000, 1024)
+    q = _bf(g, B, 1, Hq, D)
+    k, v = _bf(g, L, B, S, Hkv, D), _bf(g, L, B, S, Hkv, D)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for li in (0, L - 1):
+        layer = torch.tensor(li, dtype=torch.int32, device=dev)
+        got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             layer, vl)
+        assert (got.float() - ref).abs().max().item() <= 2e-2
+        for b in range(B):
+            one = fa.flash_decode_at_layer(
+                q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+            assert torch.equal(one, got[b:b + 1]), f"slot {b}"
+
+
+def _hybrid_tiny(dev, family):
+    """LFM2 or Qwen3.5 at a narrow width whose heads the kernels take (D 64
+    / 128), 4 layers of both kinds, seeded bf16."""
+    if family == "lfm2":
+        from aha_tpu_torch.models.lfm2 import Lfm2Config, Lfm2Model
+
+        cfg = Lfm2Config(vocab_size=512, hidden_size=256,
+                         num_hidden_layers=4, num_attention_heads=4,
+                         num_key_value_heads=2, block_ff_dim=512,
+                         block_auto_adjust_ff_dim=False,
+                         layer_types=("conv", "full_attention", "conv",
+                                      "full_attention"))
+        model = Lfm2Model(cfg, max_rope_len=8192, device=dev)
+    else:
+        from aha_tpu_torch.models.qwen3_5 import (Qwen3_5Model,
+                                                  Qwen3_5TextConfig)
+
+        cfg = Qwen3_5TextConfig(vocab_size=512, hidden_size=256,
+                                intermediate_size=512, num_hidden_layers=4,
+                                num_attention_heads=4, num_key_value_heads=2,
+                                head_dim=128, linear_num_value_heads=4,
+                                linear_num_key_heads=2,
+                                linear_key_head_dim=64,
+                                linear_value_head_dim=64)
+        model = Qwen3_5Model(cfg, max_rope_len=8192, device=dev)
+    params = model.init_random(torch.Generator(device=dev).manual_seed(16),
+                               dtype=torch.bfloat16, scale=0.05)
+    return model, params
+
+
+@pytest.mark.parametrize("family", ["lfm2", "qwen3_5"])
+def test_hybrid_decode_graphs_equal_eager(dev, family):
+    """A hybrid decoder's decode blocks — the conv window roll and the
+    recurrent state written in place into the pooled cache — replayed from
+    graphs against the eager loop: TextEngine greedy and sampled (a
+    300-token prompt, the prefill kernel, then a prefix-store extension),
+    and BatchEngine blocks of 4 slots; tokens bit-equal, launches equal."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    model, params = _hybrid_tiny(dev, family)
+    base = _prompt_ids(300, 3)
+    reqs = [(base, _GREEDY, 40), (base + _prompt_ids(9, 4), _GREEDY, 24),
+            (_prompt_ids(50, 5), _SAMPLED, 24)]
+    got = {}
+    for g in (True, False):
+        eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                         prefix_cache_entries=4, cuda_graphs=g)
+        got[g] = _counted(lambda: _text_requests(eng, reqs))
+    assert got[True] == got[False]
+    assert got[True][1]["flash_decode_at_layer"] > 0
+    assert got[True][1]["flash_attention"] > 0
+    prompts = [_prompt_ids(n, 20 + n) for n in (5, 40, 90, 300)]
+    cfgs = [SamplingConfig()] * 3 + [SamplingConfig(**_SAMPLED)]
+    blocks = {}
+    for g in (True, False):
+        eng = BatchEngine(model, params, eos_token_ids=[], slots=4,
+                          max_seq_len=1024, cuda_graphs=g)
+        blocks[g] = _counted(lambda: _batch_blocks(eng, prompts, cfgs, 6))
+    assert blocks[True] == blocks[False]
+    assert len({tuple(r) for r in blocks[True][0][1]}) > 1

@@ -343,7 +343,7 @@ def test_loader_drops_chat_options_for_other_families(monkeypatch):
     from aha_tpu_torch.models import loader
 
     seen = {}
-    for family in ("minilm", "qwen3_reranker", "minicpm4"):
+    for family in ("minilm", "qwen3_reranker", "minicpm4", "lfm2"):
         monkeypatch.setitem(loader.FAMILY_LOADERS, family,
                             lambda e, p, _f=family, **kw: seen.update(
                                 {_f: kw}))
@@ -352,10 +352,12 @@ def test_loader_drops_chat_options_for_other_families(monkeypatch):
     loader.load_model("Qwen/Qwen3-Reranker-0.6B", "/x", prefix_cache=2)
     loader.load_model("OpenBMB/MiniCPM4-0.5B", "/x", prefix_cache=2,
                       spec_tokens=3, batch_slots=1)
+    loader.load_model("LiquidAI/LFM2-1.2B", "/x", batch_slots=2)
     assert seen == {"minilm": {}, "qwen3_reranker": {},
-                    "minicpm4": {"prefix_cache": 2, "spec_tokens": 3}}
+                    "minicpm4": {"prefix_cache": 2, "spec_tokens": 3},
+                    "lfm2": {"batch_slots": 2}}
     with pytest.raises(NotImplementedError):
-        loader.load_model("LiquidAI/LFM2-1.2B", "/x", batch_slots=2)
+        loader.load_model("LiquidAI/LFM2-VL-1.6B", "/x")
 
 
 def test_minicpm4_geometry():
@@ -380,7 +382,9 @@ def test_minicpm4_geometry():
 @pytest.mark.parametrize("model_id", ["OpenBMB/MiniCPM4-0.5B",
                                       "Qwen/Qwen3-Embedding-0.6B",
                                       "Qwen/Qwen3-Reranker-0.6B",
-                                      "sentence-transformers/all-MiniLM-L6-v2"])
+                                      "sentence-transformers/all-MiniLM-L6-v2",
+                                      "LiquidAI/LFM2-1.2B",
+                                      "Qwen/Qwen3.5-0.8B"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
