@@ -36,7 +36,8 @@ from aha_tpu_torch.utils.device import default_save_dir
 
 DEFAULT_MODEL = "Qwen/Qwen3-0.6B"
 #: config.json model_type → the id a directory is served as by default
-MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct"}
+MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct",
+               "qwen3_vl": "Qwen/Qwen3-VL-8B-Instruct"}
 
 
 def model_id_for(path: str, model: str) -> str:

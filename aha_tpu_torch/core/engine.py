@@ -20,7 +20,8 @@ length from the device.  The cache is bf16/f32 or int8 (`cache_dtype`,
 AHA_KV_INT8=1 when served); a prefix snapshot carries the int8 layout's
 scales, and a hybrid model's snapshot its rolling conv / recurrent state
 (which only resumes at exactly the stored length).  A multimodal prompt
-(`mm`, Qwen2.5-VL's images) prefills with its
+(`mm`: the images and video frames of Qwen2.5-VL, Qwen3-VL or Qwen3.5
+with its tower) prefills with its
 inputs and joins the prefix store under its content digest `mm_key`; the
 snapshot carries the M-RoPE `rope_delta`.  The continuous-batching engine
 is core/batch_engine.py, sharing PrefixStore.
@@ -279,9 +280,9 @@ class _Pooled:
 class TextEngine:
     """Drives one model (init_cache / backbone / logits, and fuse_params
     and greedy_token where it has them: Qwen3Model, LlamaModel,
-    Qwen2_5VLModel, the hybrids Lfm2Model and Qwen3_5Model) at batch 1;
-    the cache has `cache_dtype` (default the parameters' dtype;
-    torch.int8 for the quantized layout).  `cuda_graphs`: replay
+    Qwen2_5VLModel, Qwen3VLModel, the hybrids Lfm2Model and Qwen3_5Model)
+    at batch 1; the cache has `cache_dtype` (default the parameters'
+    dtype; torch.int8 for the quantized layout).  `cuda_graphs`: replay
     captured decode blocks on a CUDA device (False: run them eagerly).
     `spec_tokens`: drafts a speculative round verifies (0 for a model
     without `supports_token_rewind`); `spec_no_drafts` forces every round

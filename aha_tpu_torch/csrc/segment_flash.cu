@@ -3,14 +3,15 @@
 //
 // Replaces aha_tpu/ops/flash_attention.py:flash_attention_segmented (Pallas
 // body _flash_seg_kernel) — the windowed and full-attention blocks of the
-// Qwen2.5-VL vision tower.
+// Qwen2.5-VL vision tower (D 80) and the per-frame blocks of the Qwen3-VL /
+// Qwen3.5 tower (D 72).
 //
 //   q (B, S, Hq, D), k/v (B, S, Hkv, D) bf16, addressed through strides (the
 //   channel axis contiguous; a strided view such as one third of a fused
 //   qkv product is read in place; bases and batch, row and head strides
 //   16-byte aligned, as TMA needs) → o (B, S, Hq, D); seg (S,) int32 shared
 //   by the batch; q-head h reads kv-head h / (Hq / Hkv).  Any S ≤ 65536; D
-//   in {64, 80, 128}.  Rows with seg < 0 are padding: they match no row and
+//   in {64, 72, 80, 128}.  Rows with seg < 0 are padding: they match no row and
 //   their output is 0 (a patch bucket's tail, which no caller reads).
 //
 // Bound: the window blocks by bytes (q, k, v read once, o written once);
@@ -53,6 +54,13 @@
 //   the second, P·V runs as n64 + n16.  The D 128 layout with TMA
 //   zero-filling columns 80-127 (the prefill kernel's, tried first) ran
 //   P·V at n128 and left the full-image call at 3.5x its bound.
+// - D 72 (Qwen3-VL's tower, 1152 / 16) is D 80's layout: the tail box is
+//   16 columns wide, and as every tensor map's inner extent is D, not the
+//   row stride, TMA fills its columns 72-79 with zeros (never the next
+//   head's first 8 columns of a fused qkv row).  The zero columns add
+//   exactly 0 to Q·Kᵀ's fifth k16 step and give zero columns of the n16
+//   P·V product, which the epilogue does not write: it stores D columns
+//   and no column of the next head.
 // - the window call's units are latency-bound (2-3 masked tiles each);
 //   one block a unit left them at 0.069 ms on an H100, a block an SM at a
 //   time, the walk at 0.051 (its setup under the previous unit's products;
@@ -79,13 +87,14 @@ constexpr int kMaxTiles = 512;          // S <= 65536
 constexpr uint16_t kUnmasked = 0x8000;  // a list entry's flag bit
 constexpr int kTailBytes = 128 * 32;    // one [128 rows][16 bf16] TMA box
 
-// A 128-row tile of a D-wide head: NA boxes of 64 columns, then (D 80) a
-// tail box of the last 16.  Two Q buffers, then the K and V rings.
+// A 128-row tile of a D-wide head: NA boxes of 64 columns, then (D 72, 80)
+// a 16-column tail box of the rest, zero-filled past D.  Two Q buffers,
+// then the K and V rings.
 template <int D>
 struct Layout {
   static constexpr int NA = D / 64;
-  static constexpr int DT = D % 64;                 // 0 or 16
-  static_assert(DT == 0 || DT == 16, "D is 64, 80 or 128");
+  static constexpr int DT = D % 64 ? 16 : 0;        // the tail box's columns
+  static_assert(D == 64 || D == 72 || D == 80 || D == 128, "D is 64, 72, 80 or 128");
   static constexpr int kTail = NA * kBoxBytes;      // the tail box in a tile
   static constexpr int kTile = kTail + (DT ? kTailBytes : 0);
   static constexpr int kStages = D > 80 ? 2 : 3;    // within 227 KB
@@ -295,7 +304,7 @@ segment_flash_kernel(const __grid_constant__ CUtensorMap tq,
     const int qb = qn & 1;
     const uint32_t q_at = sQ + qb * Lay::kTile;
 
-    float acc[NA * 32], acc_t[8];     // columns [0, 64·NA); the tail's 16
+    float acc[NA * 32], acc_t[8];     // columns [0, 64·NA); the tail box's 16
 #pragma unroll
     for (int i = 0; i < NA * 32; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -546,9 +555,10 @@ extern "C" int aha_segment_flash(const void* q, const void* k, const void* v,
                                  int Hq, int Hkv, int D, float scale,
                                  void* stream) {
   if (S < 1 || (S + kBlockK - 1) / kBlockK > kMaxTiles || Hkv < 1 ||
-      Hq % Hkv != 0 || (D != 64 && D != 80 && D != 128))
+      Hq % Hkv != 0 || (D != 64 && D != 72 && D != 80 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  // q, k, v in 64-column boxes, then (D 80) their last 16 columns
+  // q, k, v in 64-column boxes, then (D 72, 80) a 16-column box from
+  // column 64; each map's inner extent is D, so columns past it read 0
   CUtensorMap m[6];
   const int tail = D % 64 ? 16 : 64;
   for (int w = 0; w < 2; ++w) {
@@ -572,6 +582,7 @@ extern "C" int aha_segment_flash(const void* q, const void* k, const void* v,
   const int G = Hq / Hkv;
   switch (D) {
     case 64: return launch<64>(grid, s, m, sg, oo, st, un, G, scale_log2);
+    case 72: return launch<72>(grid, s, m, sg, oo, st, un, G, scale_log2);
     case 80: return launch<80>(grid, s, m, sg, oo, st, un, G, scale_log2);
     default: return launch<128>(grid, s, m, sg, oo, st, un, G, scale_log2);
   }

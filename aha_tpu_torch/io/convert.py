@@ -2,10 +2,12 @@
 
 `params_from_jax` takes aha_tpu's Qwen3 or llama parameter tree as numpy
 arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
-`load_qwen3_gguf` produce, fused or not), a Qwen2.5-VL tree ({"visual":
-..., "text": a llama tree}, the vision blocks a list), a hybrid decoder's
-tree (`Lfm2Model`'s or the text `Qwen3_5Model`'s: a per-layer "layers"
-list of layer dicts of two kinds), or a BERT tree (`BertModel`'s:
+`load_qwen3_gguf` produce, fused or not), a vision-language tree
+({"visual": ..., "text": ...}: Qwen2.5-VL's over a llama tree, Qwen3-VL's
+over a Qwen3 tree; the vision blocks and deepstack mergers lists), a
+hybrid decoder's tree (`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer
+"layers" list of layer dicts of two kinds, and Qwen3.5's "visual" tower
+subtree where it has one), or a BERT tree (`BertModel`'s:
 "embeddings" and a "layers" list, linear weights and norms with biases, no
 head), and returns the port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense

@@ -150,6 +150,51 @@ def save_hf_qwen2_5vl(params: dict, path: str) -> None:
     _save(out, path)
 
 
+def _hf_qwen3vl_tower(vp: dict, vt: str) -> dict:
+    """HF names of the Qwen3-VL tower under `vt` (the inverse of
+    Qwen3VLVisionTower.load_params): the patch embedding flat (d, in_dim)
+    as save_hf_qwen2_5vl writes it (the loader reshapes HF's conv3d
+    weight to that), LayerNorms with biases, the mergers' linear_fc1 /
+    linear_fc2."""
+    pe = vp["patch_embed"]["w"]                     # (in_dim, d)
+    out = {vt + "patch_embed.proj.weight": pe.t().contiguous().cpu(),
+           vt + "patch_embed.proj.bias": vp["patch_embed"]["b"].cpu(),
+           vt + "pos_embed.weight": vp["pos_embed"]["w"].contiguous().cpu()}
+
+    def norm(name: str, p: dict) -> None:
+        out[name + ".weight"] = p["w"].cpu()
+        if "b" in p:
+            out[name + ".bias"] = p["b"].cpu()
+
+    def merger(prefix: str, mp: dict) -> None:
+        norm(prefix + "norm", mp["norm"])
+        _hf_linear(out, prefix + "linear_fc1", mp["fc1"])
+        _hf_linear(out, prefix + "linear_fc2", mp["fc2"])
+
+    merger(vt + "merger.", vp["merger"])
+    for i, mp in enumerate(vp["ds_mergers"]):
+        merger(f"{vt}deepstack_merger_list.{i}.", mp)
+    for i, blk in enumerate(vp["blocks"]):
+        p = f"{vt}blocks.{i}."
+        norm(p + "norm1", blk["norm1"])
+        norm(p + "norm2", blk["norm2"])
+        _hf_linear(out, p + "attn.qkv", blk["qkv"])
+        _hf_linear(out, p + "attn.proj", blk["proj"])
+        _hf_linear(out, p + "mlp.linear_fc1", blk["fc1"])
+        _hf_linear(out, p + "mlp.linear_fc2", blk["fc2"])
+    return out
+
+
+def save_hf_qwen3vl(params: dict, path: str) -> None:
+    """Write the port's (unfused) Qwen3-VL parameters with the names of a
+    published Qwen3VLForConditionalGeneration checkpoint (model.visual. /
+    model.language_model., lm_head unless tied; the inverse of
+    Qwen3VLModel.load_params)."""
+    out = _hf_qwen3vl_tower(params["visual"], "model.visual.")
+    out.update(_hf_decoder(params["text"], prefix="model.language_model."))
+    _save(out, path)
+
+
 def _hf_head(out: dict, params: dict, prefix: str = "model.") -> None:
     """The embedding, and lm_head unless it is the embedding itself."""
     out[prefix + "embed_tokens.weight"] = \
@@ -195,7 +240,8 @@ def save_hf_qwen3_5(params: dict, path: str,
     """Write the port's (unfused) Qwen3_5Model parameters with HF Qwen3.5
     names under `prefix` ("model.language_model." for a VL checkpoint's
     decoder): the zero-centred norms unfolded to w − 1 (the inverse of
-    Qwen3_5Model.load_params)."""
+    Qwen3_5Model.load_params); a tree with a "visual" tower writes it
+    under model.visual."""
     def centred(name: str, p: dict) -> None:
         out[name + ".weight"] = (p["w"] - 1.0).cpu()
 
@@ -222,4 +268,6 @@ def save_hf_qwen3_5(params: dict, path: str,
             out[la + "dt_bias"] = lp["dt_bias"].cpu()
             out[la + "A_log"] = lp["a_log"].cpu()
             out[la + "norm.weight"] = lp["norm"]["w"].cpu()
+    if "visual" in params:
+        out.update(_hf_qwen3vl_tower(params["visual"], "model.visual."))
     _save(out, path)

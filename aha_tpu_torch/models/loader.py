@@ -1,8 +1,10 @@
 """Model factory: registry id → served model (counterpart of
 aha_tpu/models/loader.py).  Ported families: qwen3 (the Qwen3 chat
 models), the llama text families minicpm4 / minicpm5, the hybrid text
-families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5, text requests),
-qwen2_5vl (Qwen2.5-VL image chat), qwen3_embedding / qwen3_reranker and
+families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5: text, and image and
+video chat on a checkpoint with a vision tower), qwen2_5vl (Qwen2.5-VL
+image and video chat), qwen3vl (Qwen3-VL image and video chat),
+qwen3_embedding / qwen3_reranker and
 minilm (all-MiniLM-L6-v2); every other family raises NotImplementedError.
 The reference's option checks run first, before any weights load, with
 its strings."""
@@ -60,8 +62,8 @@ def _lfm2(entry: ModelEntry, path: str, **kw) -> LoadedModel:
 
 
 def _qwen3_5(entry: ModelEntry, path: str, **kw) -> LoadedModel:
-    """Qwen3.5 text chat on the GatedDeltaNet decoder (a checkpoint with a
-    vision_config is served single-stream, image parts refused)."""
+    """Qwen3.5 on the GatedDeltaNet decoder: text chat, or (a checkpoint
+    with a vision_config, single-stream) image and video chat."""
     from aha_tpu_torch.models.qwen3_5_served import load_qwen3_5
 
     return load_qwen3_5(entry, path, **kw)
@@ -73,9 +75,16 @@ def _qwen2_5vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return Qwen2_5VLChat.load(entry, path, **kw)
 
 
+def _qwen3vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen3vl_served import Qwen3VLChat
+
+    return Qwen3VLChat.load(entry, path, **kw)
+
+
 FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "minilm": _minilm,
     "qwen2_5vl": _qwen2_5vl,
+    "qwen3vl": _qwen3vl,
     "qwen3": _qwen3,
     "qwen3_embedding": _qwen3_embedding,
     "qwen3_reranker": _qwen3_reranker,
@@ -122,7 +131,7 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
     if loader is None:
         raise NotImplementedError(
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
-            "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5 text, "
-            "Qwen2.5-VL, Qwen3 embedding and reranker, and "
+            "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
+            "Qwen3-VL, Qwen3 embedding and reranker, and "
             "all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -3,10 +3,14 @@
 
 Qwen-VL processing: smart resize to the factor-28 grid, CLIP
 normalization, <|image_pad|> expanded to the number of merge units per
-image.  The patch buffer and every grid-derived index are padded to a
-patch bucket (256 … 16384 patches: pad rows carry seg = -1), and the
-M-RoPE position ids to the engine's prompt bucket, as in the JAX package.
-A video part raises NotImplementedError (utils/video.py).
+image.  A video part (utils/video.py) is sampled at 2 fps (4 to 64
+frames), resized under a budget counted over its frames, patchified in
+temporal pairs and its <|video_pad|> expanded the same way; its temporal
+M-RoPE interval is `second_per_grid_ts` (temporal_patch_size / fps),
+which also enters the content digest.  The patch buffer and every
+grid-derived index are padded to a patch bucket (256 … 16384 patches: pad
+rows carry seg = -1), and the M-RoPE position ids to the engine's prompt
+bucket, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import device, get_dtype
 
 IMAGE_PAD = "<|image_pad|>"
+VIDEO_PAD = "<|video_pad|>"
 PATCH_BUCKETS = (256, 512, 1024, 2048, 4096, 6400, 9216, 16384)
 MIN_PIXELS = 56 * 56
 MAX_PIXELS = 14 * 14 * 4 * 1280
@@ -48,12 +53,33 @@ def _pad(a: np.ndarray, fill, size: int) -> np.ndarray:
     return out
 
 
+def expand_image(rendered: str, src: str, v, min_pixels: int,
+                 max_pixels: int) -> tuple[str, np.ndarray, tuple]:
+    """One image part: loaded and preprocessed on the Qwen-VL grid of the
+    vision config `v`, the prompt's first <|image_pad|> expanded to one
+    "<|placeholder|>" a merge unit (get_data turns them back into
+    <|image_pad|> after every part is placed).  Returns the prompt, the
+    patches and the grid."""
+    from aha_tpu_torch.utils.image import load_image, preprocess_image_qwen_vl
+
+    patches, grid = preprocess_image_qwen_vl(
+        load_image(src), patch_size=v.patch_size,
+        merge_size=v.spatial_merge_size,
+        temporal_patch_size=v.temporal_patch_size, min_pixels=min_pixels,
+        max_pixels=max_pixels)
+    n_units = grid[0] * grid[1] * grid[2] // v.spatial_merge_size ** 2
+    return (rendered.replace(IMAGE_PAD, "<|placeholder|>" * n_units, 1),
+            patches, grid)
+
+
 def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
-             input_ids: list[int], cfg: Qwen2_5VLConfig) -> dict:
+             input_ids: list[int], cfg: Qwen2_5VLConfig,
+             second_per_grid_ts: list[float] | None = None) -> dict:
     """The host inputs of one multimodal prefill, as numpy: the patches and
     grid indices padded to their patch bucket, the (3, S) M-RoPE position
     ids padded to the prompt bucket (positions continue past the prompt),
-    and rope_delta."""
+    and rope_delta.  `second_per_grid_ts` (one a grid; 0.0 for an image)
+    spaces a video's temporal positions."""
     v = cfg.vision
     unit = v.spatial_merge_size ** 2
     geo = vision_geometry(grids, v)
@@ -68,7 +94,8 @@ def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
         "full_seg": _pad(geo["full_seg"], -1, bucket),
         "pos_hw": _pad(geo["pos_hw"], 0, bucket),
     }
-    position_ids, rope_delta = get_rope_index(input_ids, grids, cfg)
+    position_ids, rope_delta = get_rope_index(
+        input_ids, grids, cfg, second_per_grid_ts=second_per_grid_ts)
     blen = bucket_for(len(input_ids))
     if blen > position_ids.shape[1]:
         extra = blen - position_ids.shape[1]
@@ -80,13 +107,17 @@ def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
     return mm
 
 
-def mm_digest(patches_list: list[np.ndarray], grids: list[tuple]) -> str:
-    """Digest of the vision CONTENT (decoded patches + grids), not of the
-    source URL: a mutable URL must not hit stale cached KV."""
+def mm_digest(patches_list: list[np.ndarray], grids: list[tuple],
+              second_per_grid_ts: list[float] | None = None) -> str:
+    """Digest of the vision CONTENT (decoded patches, grids and each grid's
+    temporal seconds), not of the source URL: a mutable URL must not hit
+    stale cached KV, and the same frames at another source fps take other
+    M-RoPE positions."""
     h = hashlib.sha256(np.ascontiguousarray(
         np.concatenate(patches_list)).tobytes())
-    for grid in grids:
-        h.update(repr((tuple(grid), 0.0)).encode())
+    ts = second_per_grid_ts or [0.0] * len(grids)
+    for grid, t in zip(grids, ts):
+        h.update(repr((tuple(grid), float(t))).encode())
     return h.hexdigest()
 
 
@@ -127,10 +158,10 @@ class Qwen2_5VLChat(TextChatModel):
         return served
 
     def get_data(self, mes: ChatCompletionParameters) -> PrepareData:
-        from aha_tpu_torch.utils.image import (load_image,
-                                               preprocess_image_qwen_vl)
-        from aha_tpu_torch.utils.video import (VIDEO_NOT_PORTED,
-                                               extract_vision_parts)
+        from aha_tpu_torch.utils.video import (extract_vision_parts,
+                                               load_video_frames,
+                                               preprocess_video_qwen_vl,
+                                               sample_frames)
 
         cfg = self.vl_model.config
         v = cfg.vision
@@ -142,27 +173,37 @@ class Qwen2_5VLChat(TextChatModel):
         if not parts:
             return PrepareData(input_ids=self.tokenizer.encode(rendered),
                                in_reasoning=self.is_in_reasoning(rendered))
-        if any(kind == "video" for kind, _ in parts):
-            raise NotImplementedError(VIDEO_NOT_PORTED)
 
         merge_len = v.spatial_merge_size ** 2
-        patches_list, grids = [], []
-        for _, src in parts:
-            patches, grid = preprocess_image_qwen_vl(
-                load_image(src), patch_size=v.patch_size,
-                merge_size=v.spatial_merge_size,
-                temporal_patch_size=v.temporal_patch_size,
-                min_pixels=self.min_pixels, max_pixels=self.max_pixels)
-            n_units = grid[0] * grid[1] * grid[2] // merge_len
-            rendered = rendered.replace(
-                IMAGE_PAD, "<|placeholder|>" * n_units, 1)
+        patches_list, grids, second_per_grid_ts = [], [], []
+        for kind, src in parts:
+            if kind == "image":
+                rendered, patches, grid = expand_image(
+                    rendered, src, v, self.min_pixels, self.max_pixels)
+                second_per_grid_ts.append(0.0)
+            else:
+                frames, src_fps = load_video_frames(src)
+                frames, _, fps = sample_frames(frames, src_fps,
+                                               target_fps=2.0, min_frames=4,
+                                               max_frames=64)
+                patches, grid = preprocess_video_qwen_vl(
+                    frames, v.patch_size, v.spatial_merge_size,
+                    v.temporal_patch_size, self.min_pixels,
+                    self.max_pixels * 4)
+                n_units = grid[0] * grid[1] * grid[2] // merge_len
+                rendered = rendered.replace(
+                    VIDEO_PAD, "<|vplaceholder|>" * n_units, 1)
+                # the temporal M-RoPE interval (HF Qwen2.5-VL's)
+                second_per_grid_ts.append(v.temporal_patch_size / fps)
             patches_list.append(patches)
             grids.append(grid)
         rendered = rendered.replace("<|placeholder|>", IMAGE_PAD)
+        rendered = rendered.replace("<|vplaceholder|>", VIDEO_PAD)
         input_ids = self.tokenizer.encode(rendered)
-        mm = build_mm(patches_list, grids, input_ids, cfg)
+        mm = build_mm(patches_list, grids, input_ids, cfg,
+                      second_per_grid_ts)
         return PrepareData(
             input_ids=input_ids, mm=mm_to(mm, self.engine.device),
             in_reasoning=self.is_in_reasoning(rendered),
-            mm_key=mm_digest(patches_list, grids),
+            mm_key=mm_digest(patches_list, grids, second_per_grid_ts),
             mm_token_ids=(cfg.image_token_id, cfg.video_token_id))

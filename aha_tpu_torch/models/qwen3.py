@@ -318,9 +318,12 @@ class Qwen3Model:
 
     # -- parameters ---------------------------------------------------------
 
-    def load_params(self, src, dtype: torch.dtype = torch.bfloat16) -> dict:
-        """HF checkpoint names → the port's layout on self.device.  `src`
-        maps a tensor name to a CPU tensor (io/weights.py)."""
+    def load_params(self, src, dtype: torch.dtype = torch.bfloat16,
+                    prefix: str = "model.") -> dict:
+        """HF checkpoint names under `prefix` ("model.language_model." for
+        a Qwen3-VL checkpoint's decoder) → the port's layout on
+        self.device.  `src` maps a tensor name to a CPU tensor
+        (io/weights.py)."""
         def get(name):
             return src[name].to(device=self.device, dtype=dtype)
 
@@ -332,7 +335,7 @@ class Qwen3Model:
 
         layers = []
         for i in range(self.n_layers):
-            p = f"model.layers.{i}."
+            p = f"{prefix}layers.{i}."
             layers.append({
                 "ln1": norm(p + "input_layernorm"),
                 "ln2": norm(p + "post_attention_layernorm"),
@@ -346,13 +349,13 @@ class Qwen3Model:
                         "up": lin(p + "mlp.up_proj"),
                         "down": lin(p + "mlp.down_proj")},
             })
-        embed = get("model.embed_tokens.weight")
+        embed = get(prefix + "embed_tokens.weight")
         if self.config.tie_word_embeddings and "lm_head.weight" not in src:
             head = embed
         else:
             head = get("lm_head.weight")       # HF stores it (V, K)
         return {"embed": {"w": embed}, "layers": stack_layers(layers),
-                "norm": norm("model.norm"), "lm_head": {"w": head}}
+                "norm": norm(prefix + "norm"), "lm_head": {"w": head}}
 
     def init_random(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32,

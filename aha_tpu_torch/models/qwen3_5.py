@@ -26,9 +26,13 @@ Under right-padding (`prompt_len`) the padded rows are no-ops: input 0,
 g = 0, beta = 0.  The delta rule is plain torch in float32 on every
 device, as the JAX package computes it outside any Pallas kernel; the
 attention layers run the flash prefill kernel (≥ 128 bucketed rows) and
-the 5-D decode kernel.  Not ported: the deepstack vision tower and
-interleaved M-RoPE (Qwen3-VL's), the quantized column padding of the
-fusion (the GGUF map), the tensor-parallel rules.
+the 5-D decode kernel.  With a `vl_config` that has a vision tower (every
+published Qwen3.5 checkpoint's), the model carries Qwen3-VL's deepstack
+tower (models/qwen3vl.py): a multimodal prefill splices its features at
+the placeholder tokens, takes interleaved M-RoPE positions over the
+partial rotary table (rope_delta kept in the cache for later positions)
+and adds deepstack level i after layer i.  Not ported: the quantized
+column padding of the fusion (the GGUF map), the tensor-parallel rules.
 """
 
 from __future__ import annotations
@@ -45,8 +49,12 @@ from aha_tpu_torch.core import nn
 from aha_tpu_torch.models.cache_attention import CacheAttention
 from aha_tpu_torch.models.hybrid import causal_conv
 from aha_tpu_torch.models.qwen3 import _fuse_out_axis
+from aha_tpu_torch.models.qwen3vl import (Qwen3VLVisionConfig,
+                                          Qwen3VLVisionTower,
+                                          inject_deepstack, splice_vision)
 from aha_tpu_torch.ops.norms import rms_norm
-from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
+from aha_tpu_torch.ops.rope import (apply_rope, gather_rope, mrope_cos_sin,
+                                    mrope_interleaved_sections, rope_table)
 
 #: the chunked delta rule's chunk length
 CHUNK = 64
@@ -104,6 +112,34 @@ class Qwen3_5TextConfig:
         with open(os.path.join(model_dir, "config.json")) as f:
             d = json.load(f)
         return cls.from_dict(d.get("text_config", d))
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen3_5Config:
+    """A whole config.json: the text config and, where the file has a
+    `vision_config`, the Qwen3-VL tower with its M-RoPE sections and
+    token ids."""
+    text: Qwen3_5TextConfig
+    vision: Qwen3VLVisionConfig | None = None
+    mrope_section: tuple[int, ...] = (8, 4, 4)
+    image_token_id: int = 151655
+    video_token_id: int = 151656
+    vision_start_token_id: int = 151652
+
+    @classmethod
+    def from_file(cls, model_dir: str) -> "Qwen3_5Config":
+        with open(os.path.join(model_dir, "config.json")) as f:
+            d = json.load(f)
+        text_d = d.get("text_config", d)
+        vision = (Qwen3VLVisionConfig.from_dict(d["vision_config"])
+                  if "vision_config" in d else None)
+        rp = text_d.get("rope_parameters") or text_d.get("rope_scaling") or {}
+        return cls(text=Qwen3_5TextConfig.from_dict(text_d), vision=vision,
+                   mrope_section=tuple(rp.get("mrope_section", (8, 4, 4))),
+                   image_token_id=d.get("image_token_id", 151655),
+                   video_token_id=d.get("video_token_id", 151656),
+                   vision_start_token_id=d.get("vision_start_token_id",
+                                               151652))
 
 
 # -- the gated delta rule (float32 throughout) -----------------------------
@@ -222,8 +258,23 @@ def qwen3_5_text_default(layers: int | None = None) -> Qwen3_5TextConfig:
                                layer_types=full.layer_types[:layers])
 
 
+def qwen3_5_vl_default(layers: int | None = None, depth: int = 27,
+                       deepstack: tuple[int, ...] = (8, 16, 24)
+                       ) -> Qwen3_5Config:
+    """qwen3_5_text_default(layers) with the JAX package's default Qwen3-VL
+    tower (27 blocks at 1152, 16 heads of 72) cut to `depth` blocks
+    (deepstack after `deepstack`), its output at the decoder's width, and
+    Qwen3_5Config's default M-RoPE sections (8, 4, 4)."""
+    text = qwen3_5_text_default(layers)
+    return Qwen3_5Config(text=text, vision=Qwen3VLVisionConfig(
+        depth=depth, out_hidden_size=text.hidden_size,
+        deepstack_visual_indexes=deepstack))
+
+
 class Qwen3_5Model:
-    """The text decoder TextEngine and BatchEngine drive."""
+    """The decoder TextEngine and BatchEngine drive; with a `vl_config`
+    whose `vision` is set, also the Qwen3-VL tower (parameters under
+    "visual")."""
 
     #: decode accepts a per-slot (B,) cache["pos"]; the conv / recurrent
     #: states are per slot and position-free
@@ -235,7 +286,8 @@ class Qwen3_5Model:
     fuse_params = staticmethod(fuse_qwen3_5_decode_params)
 
     def __init__(self, config: Qwen3_5TextConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu",
+                 vl_config: Qwen3_5Config | None = None):
         self.config = c = config
         self.device = torch.device(device)
         self.n_layers = c.num_hidden_layers
@@ -253,6 +305,13 @@ class Qwen3_5Model:
         self.conv_dim = (2 * c.linear_num_key_heads * c.linear_key_head_dim
                          + c.linear_num_value_heads * c.linear_value_head_dim)
         self.attn = CacheAttention(self.n_attn, self.device)
+        self.vl = vl_config
+        self.tower = None
+        if vl_config is not None and vl_config.vision is not None:
+            self.tower = Qwen3VLVisionTower(vl_config.vision, self.device)
+            # interleaved M-RoPE over the PARTIAL rotary table
+            self.sections = torch.from_numpy(mrope_interleaved_sections(
+                self.cos.shape[-1], vl_config.mrope_section)).to(self.device)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
@@ -362,13 +421,17 @@ class Qwen3_5Model:
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
                  prompt_len: int | None = None, from_cache: bool = False,
-                 window: int | None = None) -> torch.Tensor:
+                 window: int | None = None,
+                 mm: dict | None = None) -> torch.Tensor:
         """Embeddings → final hidden; writes K/V rows at [pos, pos + S) and
         the rolling state in place, and leaves pos as it was.  Decode and a
         from_cache chunk take rope positions at pos + rope_delta; a fresh
-        prefill at pos, and sets rope_delta to 0.  `prompt_len` (a host
-        int, default S) is a padded prefill's true length; `window` is
-        accepted and unused."""
+        prefill at pos, and sets rope_delta to 0 — or, with `mm` (the
+        Qwen3-VL inputs, models/qwen3vl_served.build_mm), the vision
+        features at the placeholder tokens, interleaved M-RoPE positions
+        and mm's rope_delta, deepstack level i added after layer i; `mm`
+        on a model without a tower raises.  `prompt_len` (a host int, default S) is a padded
+        prefill's true length; `window` is accepted and unused."""
         c = self.config
         B, S = input_ids.shape
         prompt_len = S if prompt_len is None else prompt_len
@@ -379,7 +442,20 @@ class Qwen3_5Model:
         positions, rope_at, valid_len = self.attn.positions(
             cache, S, self.cos.shape[0], x.device,
             offset=None if fresh else cache["rope_delta"])
-        cos, sin = gather_rope(self.cos, self.sin, rope_at)
+        ds = vis = rows = None
+        if mm is not None:
+            if self.tower is None:
+                raise ValueError("image or video inputs given to a Qwen3.5 "
+                                 "model without a vision tower")
+            feats, ds = self.tower.encode(params["visual"], mm)
+            x, vis, rows = splice_vision(
+                x, input_ids, feats,
+                (self.vl.image_token_id, self.vl.video_token_id))
+            cos, sin = mrope_cos_sin(self.cos, self.sin,
+                                     mm["position_ids"][:, :S], self.sections)
+            cache["rope_delta"].fill_(int(mm["rope_delta"]))
+        else:
+            cos, sin = gather_rope(self.cos, self.sin, rope_at)
         valid = (torch.arange(S, device=x.device) < prompt_len
                  if S > 1 and prompt_len < S else None)
         for i, lp in enumerate(params["layers"]):
@@ -394,6 +470,8 @@ class Qwen3_5Model:
             x = x + out
             h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
             x = x + nn.swiglu_mlp(lp["mlp"], h)
+            if ds is not None and i < ds.shape[0]:
+                x = inject_deepstack(x, ds[i], vis, rows)
         return rms_norm(x, params["norm"]["w"], c.rms_norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -405,8 +483,9 @@ class Qwen3_5Model:
     def load_params(self, src, dtype: torch.dtype = torch.bfloat16,
                     prefix: str = "model.") -> dict:
         """HF checkpoint names → the port's tree on self.device: a VL
-        checkpoint's decoder under `model.language_model.` (its
-        `model.visual.*` left unread), the zero-centred norms folded to
+        checkpoint's decoder under `model.language_model.` (its tower,
+        under `visual.` or `model.visual.`, read only by a model with
+        one), the zero-centred norms folded to
         w + 1, the depthwise conv's (D, 1, K) weight as (K, D), A_log and
         dt_bias in float32, the gated norm as stored; lm_head is the
         embedding itself when the config ties it and the file has none."""
@@ -455,8 +534,13 @@ class Qwen3_5Model:
         embed = get(prefix + "embed_tokens.weight")
         head = (embed if c.tie_word_embeddings and "lm_head.weight" not in src
                 else get("lm_head.weight"))
-        return {"embed": {"w": embed}, "layers": layers,
-                "norm": centred(prefix + "norm"), "lm_head": {"w": head}}
+        params = {"embed": {"w": embed}, "layers": layers,
+                  "norm": centred(prefix + "norm"), "lm_head": {"w": head}}
+        if self.tower is not None:
+            vt = ("visual." if "visual.patch_embed.proj.weight" in src
+                  else "model.visual.")
+            params["visual"] = self.tower.load_params(src, dtype, vt)
+        return params
 
     def init_random(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32,
@@ -500,5 +584,9 @@ class Qwen3_5Model:
                            "norm": ones(Dv)})
             layers.append(lp)
         embed = w(c.vocab_size, d)
-        return {"embed": embed, "layers": layers, "norm": ones(d),
-                "lm_head": {"w": embed["w"]}}
+        params = {"embed": embed, "layers": layers, "norm": ones(d),
+                  "lm_head": {"w": embed["w"]}}
+        if self.tower is not None:
+            params["visual"] = self.tower.init_random(generator, d, dtype,
+                                                      scale)
+        return params

@@ -443,6 +443,8 @@ flash_attention.launches = 0
 
 #: the kernel lists up to 512 k tiles of 128 rows in shared memory
 SEGMENT_MAX_S = 65536
+#: the head widths the segment kernel is built for
+SEGMENT_HEAD_DIMS = (64, 72, 80, 128)
 
 
 def flash_attention_segmented_plain(q, k, v, seg, scale=None):
@@ -461,7 +463,9 @@ def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
     q (B, S, Hq, D); k/v (B, S, Hkv, D); seg (S,) int32, shared by the
     batch; a row with seg < 0 is padding: it matches no row and its
     output is 0 (the JAX kernel lets pad rows attend each other; no caller
-    reads them).  Returns (B, S, Hq, D).  On the card: any S ≤ 65536, D 64, 80 or 128, bf16; q/k/v may be
+    reads them).  Returns (B, S, Hq, D).  On the card: any S ≤ 65536, D in
+    SEGMENT_HEAD_DIMS (64, Qwen2.5-VL's 80, Qwen3-VL's 72, 128), bf16, and
+    any other D raises; q/k/v may be
     strided views with a contiguous channel axis (one third of a fused qkv
     product is read in place)."""
     B, S, Hq, D = q.shape
@@ -479,8 +483,8 @@ def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
     require(seg.dtype == torch.int32 and seg.is_contiguous()
             and _aligned16(seg), "seg must be contiguous, 16-byte aligned "
             "int32")
-    require(D in (64, 80, 128), f"segment kernel takes D 64, 80 or 128, "
-            f"not {D}")
+    require(D in SEGMENT_HEAD_DIMS, f"segment kernel takes D in "
+            f"{SEGMENT_HEAD_DIMS}, not {D}")
     require(S <= SEGMENT_MAX_S, f"segment kernel takes S ≤ {SEGMENT_MAX_S}")
     require(all(t.stride(-1) == 1 for t in (q, k, v)),
             "segment kernel needs a contiguous channel axis")

@@ -1,9 +1,10 @@
 """Rotary position embeddings, half-rotation form (counterpart of
 aha_tpu/ops/rope.py): the 1-D tables, M-RoPE's contiguous t/h/w sections
-(Qwen2.5-VL's text decoder) and the vision tower's 2-D (h, w) rotary.
-Tables are float32, computed in float64 on the host once and gathered by
-position.  Not ported yet: the interleaved and partial-rotary forms and
-Qwen3-VL's interleaved sections."""
+(Qwen2.5-VL's text decoder) and the interleaved ones (Qwen3-VL's, and
+Qwen3.5's over its partial rotary table), and the vision towers' 2-D
+(h, w) rotary.  Tables are float32, computed in float64 on the host once
+and gathered by position.  Not ported: the pairwise (GPT-NeoX)
+rotation."""
 
 from __future__ import annotations
 
@@ -54,6 +55,18 @@ def mrope_sections(half: int, mrope_section: tuple[int, ...]) -> np.ndarray:
     for i, width in enumerate(mrope_section):
         sec[start:start + width] = i
         start += width
+    return sec
+
+
+def mrope_interleaved_sections(half: int, mrope_section: tuple[int, ...]
+                               ) -> np.ndarray:
+    """Interleaved M-RoPE: channel c takes axis c % 3 (h at 1, 4, 7, ...
+    below 3 · mrope_section[1], w at 2, 5, 8, ... below 3 ·
+    mrope_section[2], each clipped at `half`), every other channel t (the
+    JAX models' `_mrope_sel`)."""
+    sec = np.zeros(half, np.int64)
+    for axis in (1, 2):
+        sec[np.arange(axis, min(mrope_section[axis] * 3, half), 3)] = axis
     return sec
 
 

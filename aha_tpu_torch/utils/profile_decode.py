@@ -3,7 +3,7 @@
     python -m aha_tpu_torch.utils.profile_decode [--prompt 300] [--steps 16]
     python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
-    python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl
+    python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl|qwen3vl
     python -m aha_tpu_torch.utils.profile_decode --spec-tokens 8 [--no-drafts]
     ... [--eager]
 
@@ -76,6 +76,12 @@ and recurrent state update, the prefill, or the N-slot step.
 4,900 patches in the 6,400 bucket): the vision tower alone, the image
 prompt's prefill (tower + text decoder) and a decode block of the
 llama-family text decoder's per-op chain over the 5-D cache.
+`--model qwen3vl` reads Qwen3-VL-8B-Instruct's geometry the same way
+(models/qwen3vl.py qwen3vl_8b: the 27-block deepstack tower, 36 Qwen3
+layers at hidden 4096; --image-px a multiple of 32, 1024 by default:
+4,096 patches): the tower, the image
+prefill and a decode block of the per-op Qwen3 layers over the flat cache
+with the greedy head kernel.
 """
 
 from __future__ import annotations
@@ -469,24 +475,35 @@ def profile_spec(model, params, args, card: str) -> None:
 
 
 def profile_vl(args, card: str) -> None:
-    """Qwen2.5-VL-3B: the tower, the image prefill and a decode block."""
+    """Qwen2.5-VL-3B or Qwen3-VL-8B: the tower, the image prefill and a
+    decode block."""
     from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
     from aha_tpu_torch.core.sampling import SamplingConfig
-    from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLModel, mm_to,
-                                                qwen2_5vl_3b)
-    from aha_tpu_torch.models.qwen2_5vl_served import build_mm
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
     from aha_tpu_torch.utils.image import patchify_qwen_vl, to_normalized_array
 
-    cfg = qwen2_5vl_3b()
-    model = Qwen2_5VLModel(cfg, max_rope_len=8192, device="cuda")
+    if args.model == "qwen3vl":
+        from aha_tpu_torch.models.qwen3vl import Qwen3VLModel, qwen3vl_8b
+        from aha_tpu_torch.models.qwen3vl_served import build_mm
+
+        cfg, name = qwen3vl_8b(), "Qwen3-VL-8B"
+        model = Qwen3VLModel(cfg, max_rope_len=8192, device="cuda")
+    else:
+        from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLModel,
+                                                    qwen2_5vl_3b)
+        from aha_tpu_torch.models.qwen2_5vl_served import build_mm
+
+        cfg, name = qwen2_5vl_3b(), "Qwen2.5-VL-3B"
+        model = Qwen2_5VLModel(cfg, max_rope_len=8192, device="cuda")
     params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
                                dtype=torch.bfloat16)
     eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
                      cuda_graphs=not args.eager)
     rng = np.random.default_rng(0)
-    side = args.image_px
+    side = args.image_px or (1024 if args.model == "qwen3vl" else 980)
     pixels = rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
-    patches, grid = patchify_qwen_vl(to_normalized_array(pixels)[None])
+    patches, grid = patchify_qwen_vl(to_normalized_array(pixels)[None],
+                                     patch_size=cfg.vision.patch_size)
     n_img = patches.shape[0] // 4
     ids = ([int(t) for t in rng.integers(0, 151643, 12)]
            + [cfg.vision_start_token_id] + [cfg.image_token_id] * n_img
@@ -496,7 +513,7 @@ def profile_vl(args, card: str) -> None:
     cache_len = max(args.cache, bucket_for(len(ids) + args.steps + 1,
                                            CACHE_BUCKETS))
     greedy = SamplingConfig()
-    print(f"profile_decode: Qwen2.5-VL-3B, {side} px image ({patches.shape[0]}"
+    print(f"profile_decode: {name}, {side} px image ({patches.shape[0]}"
           f" patches, bucket {mm['patches'].shape[0]}), prompt {len(ids)} "
           f"(bucket {bucket}), cache {cache_len}, {args.steps}-step block "
           f"| {card}")
@@ -519,7 +536,7 @@ def profile_vl(args, card: str) -> None:
         for _ in range(2):       # warm-up: allocator, cuBLAS, the capture
             prefill()
             block()
-        out = {"config": "qwen2_5vl per-op" + _how(args), "card": card,
+        out = {"config": f"{args.model} per-op" + _how(args), "card": card,
                "image_px": side, "prompt": len(ids), "cache": cache_len,
                "steps": args.steps, "graphs": _graphs(eng),
                "vision": _read(vision, 1), "prefill": _read(prefill, 1),
@@ -552,12 +569,12 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", choices=("q8", "q4"),
                     help="pack the weights and head on this GGUF grid")
     ap.add_argument("--model", choices=("qwen3", "minicpm4", "lfm2",
-                                        "qwen3_5", "qwen2_5vl"),
+                                        "qwen3_5", "qwen2_5vl", "qwen3vl"),
                     default="qwen3",
                     help="minicpm4: MiniCPM4-0.5B's llama decoder; lfm2 / "
-                         "qwen3_5: the hybrid decoders; qwen2_5vl: "
-                         "Qwen2.5-VL-3B's tower, image prefill and text "
-                         "decode")
+                         "qwen3_5: the hybrid decoders; qwen2_5vl / "
+                         "qwen3vl: Qwen2.5-VL-3B's / Qwen3-VL-8B's tower, "
+                         "image prefill and text decode")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
                          "cuda_graphs=False) instead of replaying graphs")
@@ -565,9 +582,10 @@ def main(argv=None) -> int:
                     help="read speculative rounds of N drafts instead")
     ap.add_argument("--no-drafts", action="store_true",
                     help="with --spec-tokens: every round draftless")
-    ap.add_argument("--image-px", type=int, default=980,
-                    help="with --model qwen2_5vl: the image's side, a "
-                         "multiple of 28")
+    ap.add_argument("--image-px", type=int, default=None,
+                    help="with --model qwen2_5vl / qwen3vl: the image's "
+                         "side, a multiple of 28 / 32 (980 / 1024 by "
+                         "default)")
     args = ap.parse_args(argv)
     need = max(BATCH_PROMPTS) + ENGINE_TOKENS
     if args.engine and (args.batch_slots < 2 or args.cache < need):
@@ -584,7 +602,7 @@ def main(argv=None) -> int:
     if args.passes:
         profile_passes(card)
         return 0
-    if args.model == "qwen2_5vl":
+    if args.model in ("qwen2_5vl", "qwen3vl"):
         profile_vl(args, card)
         return 0
     if args.model != "qwen3" and (args.quant or args.spec_tokens > 0):

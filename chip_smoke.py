@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
-LFM2 and Qwen3.5 hybrid chat and Qwen2.5-VL image-chat paths once on one
-CUDA card.
+LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, and
+Qwen3-VL and Qwen3.5 image and video chat paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -26,8 +26,15 @@ before the last line:
    (6 attention layers: LFM2-1.2B's 32/8 at D 64, Qwen3.5's 16/2 at D
    128), each timed beside masked sdpa, and the prefill kernel at B = 4
    (an embedding group), each slot or row bit-equal to a B = 1 launch;
-   the prefill kernel at LFM2-1.2B's 32/8 heads of 64 (S 512, 2048)
-   beside sdpa;
+   the prefill kernel at LFM2-1.2B's 32/8 heads of 64 (S 512, 2048) and
+   at Qwen3-VL-8B's 32/8 heads of 128 (S 2048) beside sdpa; the segment
+   kernel's D 72 instance at Qwen3-VL-8B's tower (16 heads, strided thirds
+   of a fused qkv whose heads differ): (a) a 1024 x 1024 image, one
+   segment of 4,096 rows, and (b) an 8-frame 448 x 448 video, 4 frame
+   segments of 784 rows and 960 pad rows in the 4,096 bucket, each held
+   to TOL_SEG_REL beside two planted faults its bound rejects (a hidden k
+   tile; every score taking 8 columns past D from the next head) and timed
+   beside masked sdpa (and, for (a), sdpa without a mask);
 3b. studies — the H100 design studies (aha_tpu_torch/studies/, the port of
    the TPU studies under scripts/), each through its entry point
    `main(["--quick"])` at the scripts' full geometry: the HBM read ceiling
@@ -132,11 +139,35 @@ before the last line:
    step; then 8 teacher-forced steps at full width and reduced depth (8
    vision blocks, one of them full-attention, 4 text layers) against the
    f32 plain path on the CPU;
-9. vl-http — that reduced-depth model saved as an HF-named checkpoint with
-   the test tokenizer and the four vision special tokens, served by
+8b. vl3 — (w) Qwen3-VL-8B-Instruct's published geometry (tower 27
+   blocks at hidden 1152, 16 heads of 72, deepstack after blocks 8, 16
+   and 24; text 36 Qwen3 layers at hidden 4096, 32/8 heads of 128, vocab
+   151936, untied head, interleaved M-RoPE (24, 20, 20)) with seeded bf16
+   weights on the card, through TextEngine with an engine-level prefix
+   store: (w1) a 1024 x 1024 image (4,096 patches, 1,024 image tokens),
+   (w2) an 8-frame 448 x 448 .npz video at 2 fps through the port's video
+   processing (grid (4, 28, 28), 784 video tokens in 4 timestamped
+   frames) and (w3) a follow-up turn on (w1)'s image restored from the
+   store (rows and rope_delta), 32 greedy tokens each: the segment
+   counter 27 per request with vision, the prefill kernel 36 per prefill
+   of >= 128 rows, the flat-cache decode 36 and the greedy head 1 per step,
+   the fused stack never (decode runs the per-op layers, as the JAX
+   model's); then 8 teacher-forced steps at full width and reduced depth
+   (4 vision blocks, deepstack after 1, 2, 3; 4 text layers) on a 224 x
+   224 image against the f32 plain path on the CPU; (x) the JAX package's
+   default Qwen3.5 text config (24 layers, hidden 1024) with its default
+   tower (out 1024): a 448 x 448 image chat (27 segment launches, 6
+   prefill, 6 decode a step) and the same reduced-depth check; TTFT, the
+   tower alone and decode ms/step of each path in one JSON line;
+9. vl-http — the reduced-depth models saved as HF-named checkpoints with
+   the test tokenizer and the four vision special tokens, each served by
    `python -m aha_tpu_torch serv` in a child process under `-X
-   importtime` (no jax or aha_tpu module): one chat with a PNG data-URL
-   image and one text-only chat.
+   importtime` (no jax or aha_tpu module): Qwen2.5-VL answering a PNG
+   data-URL image chat, an .npz data-URL video chat and a text-only chat
+   (graphed and --eager, equal replies); Qwen3-VL (config.json model type
+   qwen3_vl, served as Qwen/Qwen3-VL-8B-Instruct) an image, a video and a
+   text chat; Qwen3.5 with the tower, served as Qwen/Qwen3.5-0.8B, an
+   image chat.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -156,7 +187,8 @@ and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
-JSON line of the hybrid readings, one JSON line of per-kernel results,
+JSON line of the hybrid readings, the JSON line of the vl3 readings, one
+JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -642,11 +674,17 @@ def check_decode(S: int, valid: int, timed: bool) -> None:
         _record("flash_decode_at_layer_flat", err)
 
 
-def check_head() -> None:
+def check_head(K: int = 1024, key: str | None = None) -> None:
+    """The bf16 head kernel over a V 151936 head of width K against its
+    plain version: 4 random rows (a differing index must tie within
+    TOL_HEAD_REL), a tie planted across vocab tiles, a NaN row; device ms
+    of kernel, plain and the torch.matmul GEMV.  K 1024 is the row of the
+    JSON line; another K (Qwen3-VL-8B's untied 4096 head) goes under `key`
+    in that row."""
     from aha_tpu_torch.ops.lm_head import head_argmax, head_argmax_plain
 
-    K, V = 1024, 151936
-    g = torch.Generator(device="cuda").manual_seed(7)
+    V = 151936
+    g = torch.Generator(device="cuda").manual_seed(7 if key is None else K)
     bf = dict(device="cuda", dtype=torch.bfloat16)
     w = (torch.randn((V, K), generator=g, device="cuda") * 0.02).to(
         torch.bfloat16)
@@ -660,7 +698,7 @@ def check_head() -> None:
             gap = abs(logits[0, got] - logits[0, ref]).item()
             top = logits.abs().max().item()
             require(gap <= TOL_HEAD_REL * top,
-                    f"head_argmax {got} vs plain {ref}: logit gap {gap}")
+                    f"head_argmax K={K} {got} vs plain {ref}: logit gap {gap}")
             worst = max(worst, gap)
             mismatches += 1
     # planted tie across vocab tiles: the smaller index must win
@@ -671,12 +709,13 @@ def check_head() -> None:
     e0[0, 0] = 1.0
     require(int(head_argmax({"w": wt}, e0)) == 37
             == int(head_argmax_plain(wt, e0)),
-            "planted tie did not go to the smaller index")
+            f"K={K}: planted tie did not go to the smaller index")
+    del wt
     # a NaN hidden state: the plain fast_argmax rule, index V - 1
     hn = torch.full((1, K), float("nan"), **bf)
     require(int(head_argmax({"w": w}, hn)) == V - 1
             == int(head_argmax_plain(w, hn)),
-            "a NaN row did not give V - 1")
+            f"K={K}: a NaN row did not give V - 1")
     h = torch.randn((1, 1, K), generator=g, **bf)
     ms = device_ms(lambda: head_argmax({"w": w}, h))
     plain_ms = device_ms(lambda: head_argmax_plain(w, h))
@@ -686,9 +725,19 @@ def check_head() -> None:
     log(f"[kernels] head_argmax K={K} V={V}: {mismatches} index mismatches "
         f"in 4 random rows (worst logit gap {worst:.3e}), planted tie and NaN "
         f"row agree; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
-        f"torch.matmul GEMV alone {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+        f"torch.matmul GEMV alone {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+        f"{V * K * 2 / ms / 1e6:.1f} GB/s of weights")
+    del w
+    torch.cuda.empty_cache()
     # the kernel returns an index: its "error" is the logit gap between its
     # index and the plain one (0 when they agree)
+    if key is not None:
+        _record("head_argmax", worst)
+        RESULTS["head_argmax"][key] = {
+            "max_abs_err": worst, "index_mismatches": mismatches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "timed_at": f"K={K} V={V}"}
+        return
     _record("head_argmax", worst, ms, plain_ms, b, lib_ms,
             "torch.matmul GEMV alone (the logits, no argmax)",
             f"K={K} V={V}")
@@ -1470,6 +1519,124 @@ def check_segmented() -> None:
     torch.cuda.empty_cache()
 
 
+#: Qwen3-VL-8B's tower at the segment kernel: 16 heads of 72, a 4096-row
+#: patch bucket holding (a) one 1024 x 1024 image (64 x 64 patches, one
+#: segment) or (b) the 8-frame 448 x 448 video (4 frame segments of 28 x 28
+#: patches, 3,136 real rows and 960 pad)
+VL3_SEG_CASES = {"image": (1, 4096), "video": (4, 784)}
+VL3_BUCKET = 4096
+
+
+def vl3_segments(kind: str) -> np.ndarray:
+    frames, rows = VL3_SEG_CASES[kind]
+    seg = np.repeat(np.arange(frames, dtype=np.int32), rows)
+    return np.concatenate([seg, -np.ones(VL3_BUCKET - len(seg), np.int32)])
+
+
+def _tail_from_next_head(qkv: torch.Tensor, D: int, extra: int):
+    """The fault the D 72 tensor maps must not make: each head's q and k
+    read `extra` columns past D, from the next head of the fused qkv row
+    (q head 15 into k head 0, k head 15 into v head 0), as a tail box
+    whose map extent were the row stride would.  (q, k) of width
+    D + extra, in f32."""
+    B, S, _, H, _ = qkv.shape
+    flat = qkv.float().reshape(B, S, 3 * H * D)
+    wide = [torch.stack([flat[..., (part * H + h) * D:
+                              (part * H + h) * D + D + extra]
+                         for h in range(H)], dim=2) for part in (0, 1)]
+    return wide[0], wide[1]
+
+
+def check_segmented_d72() -> None:
+    """The segment kernel's D 72 instance at Qwen3-VL-8B's tower (H 16, D
+    72), q/k/v the strided thirds of one fused qkv product whose heads
+    differ, in the two cases of VL3_SEG_CASES: error against the f32 plain
+    version on every row, within TOL_SEG_REL of max |ref|; a repeat
+    bit-equal; two planted faults the bound must reject — a k tile hidden
+    from every other row (a tile left off a list), and every score taking
+    8 more columns from the next head (a tail box read past D); device ms
+    of kernel and plain, the bound, and F.scaled_dot_product_attention
+    with the boolean (S, S) mask (and, for the one-segment image, without
+    a mask)."""
+    from aha_tpu_torch.ops import flash_attention as fa
+    from aha_tpu_torch.ops.attention import segment_mask
+
+    S, H, D = VL3_BUCKET, 16, 72
+    out = RESULTS["flash_attention_segmented"].setdefault("d72", {})
+    for kind, (frames, rows) in VL3_SEG_CASES.items():
+        R = frames * rows
+        seg_np = vl3_segments(kind)
+        seg = torch.from_numpy(seg_np).cuda()
+        g = torch.Generator(device="cuda").manual_seed(72 + frames)
+        qkv = torch.randn((1, S, 3, H, D), generator=g, device="cuda")
+        qkv[:, :, 0] *= 4                   # peaked scores: O(1) outputs
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i] for i in range(3))
+        n0 = fa.flash_attention_segmented.launches
+        got = fa.flash_attention_segmented(q, k, v, seg)
+        again = fa.flash_attention_segmented(q, k, v, seg)
+        require(fa.flash_attention_segmented.launches == n0 + 2,
+                "the D 72 segment call did not launch the kernel")
+        ref = fa.flash_attention_segmented_plain(q.float(), k.float(),
+                                                 v.float(), seg)
+        t0 = 5 * 64                         # a k tile inside frame 0
+        hidden = seg.clone()
+        hidden[t0:t0 + 64] = 1 << 30
+        outside = torch.ones(S, dtype=torch.bool, device="cuda")
+        outside[t0:t0 + 64] = False
+        bad_tile = fa.flash_attention_segmented(q, k, v, hidden)
+        q80, k80 = _tail_from_next_head(qkv, D, 8)
+        v80 = torch.cat([v.float(), torch.zeros_like(v.float()[..., :8])],
+                        -1)
+        bad_tail = fa.flash_attention_segmented_plain(
+            q80, k80, v80, seg, scale=D ** -0.5)[..., :D]
+        torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"segmented D 72 {kind}: a repeat is not bit-equal")
+        err, rel = _rel_err(got, ref)
+        _, rel_tile = _rel_err(bad_tile[:, outside], ref[:, outside])
+        _, rel_tail = _rel_err(bad_tail, ref)
+        require(rel <= TOL_SEG_REL,
+                f"segmented D 72 {kind}: err {rel} of max |ref|")
+        require(rel_tile > TOL_SEG_REL, f"segmented D 72 {kind}: a hidden "
+                f"k tile stays within the bound ({rel_tile})")
+        require(rel_tail > TOL_SEG_REL, f"segmented D 72 {kind}: a tail "
+                f"read from the next head stays within the bound "
+                f"({rel_tail})")
+        ms = device_ms(lambda: fa.flash_attention_segmented(q, k, v, seg))
+        plain_ms = device_ms(lambda: fa.flash_attention_segmented_plain(
+            q, k, v, seg), iters=5, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = segment_mask(seg, seg.device)
+        lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, attn_mask=mask))
+        lib_nomask_ms = (device_ms(lambda: _sdpa(qt, kt, vt))
+                         if kind == "image" else None)
+        pairs = int((np.bincount(seg_np[seg_np >= 0]).astype(np.int64) ** 2
+                     ).sum())
+        b = bound((3 * R + S) * H * D * 2, 4 * H * D * pairs)
+        nomask = (f", unmasked sdpa {lib_nomask_ms:.4f}"
+                  if lib_nomask_ms is not None else "")
+        log(f"[kernels] segmented D 72 {kind} S={S} ({R} real + {S - R} pad, "
+            f"{frames} segment(s)) H={H}, strided qkv: max_abs_err "
+            f"{err:.3e}, {rel:.3e} of max |ref| (tol {TOL_SEG_REL}; a hidden "
+            f"k tile {rel_tile:.3e}, a tail read from the next head "
+            f"{rel_tail:.3e}), a repeat bit-equal; {pairs} pairs; device "
+            f"ms/call kernel {ms:.4f} plain {plain_ms:.4f} masked sdpa "
+            f"{lib_ms:.4f}{nomask}; bound {b[0]:.4f} ({b[1]}) | "
+            f"{card_line()}")
+        _record("flash_attention_segmented", err)
+        out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "library_ms": lib_ms,
+                     "library_unmasked_ms": lib_nomask_ms, "rel_err": rel,
+                     "rel_err_hidden_tile": rel_tile,
+                     "rel_err_tail_from_next_head": rel_tail,
+                     "timed_at": f"S={S} ({R} real) H={H} D={D}, {frames} "
+                                 f"segment(s)"}
+        del qkv, qt, kt, vt, ref, got, again, bad_tile, bad_tail, mask
+        del q80, k80, v80
+    torch.cuda.empty_cache()
+
+
 def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
                           valid: int):
     """q and a (L, 1, S, Hkv, D) bf16 cache at N(0, 1), with one key per kv
@@ -1774,6 +1941,7 @@ def phase_kernels() -> None:
     check_decode(2048, 1000, timed=True)
     check_decode(4096, 4000, timed=False)
     check_head()
+    check_head(4096, "k4096")       # Qwen3-VL-8B's untied head, (w)'s decode
     check_prefill(256, True, timed=False)
     check_prefill(192, False, timed=False)
     check_prefill(2048, True, timed=True, record=True)
@@ -1795,6 +1963,7 @@ def phase_kernels() -> None:
     check_stack(1000, 28, "q4", timed=True)
     check_stack(2047, 28, "gguf", timed=True)
     check_segmented()
+    check_segmented_d72()
     check_stacked_decode()
     check_decode_g7()
     for key in SLOT_DECODE_SHAPES:
@@ -1803,6 +1972,8 @@ def phase_kernels() -> None:
     # row 1 at LFM2-1.2B's 32/8 heads of 64: (u1)'s 512 bucket and 2048
     check_prefill(512, True, timed=True, Hkv=8, Hq=32, D=64)
     check_prefill(2048, True, timed=True, Hkv=8, Hq=32, D=64)
+    # row 1 at Qwen3-VL-8B's 32/8 heads of 128: (w1)'s 2048 bucket
+    check_prefill(2048, True, timed=True, Hkv=8, Hq=32)
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -3167,23 +3338,28 @@ def _block_idle(eng, ids: list[int], device: str) -> dict:
 
 
 def _suffix_hidden(model, params, ids: list[int], p: int,
-                   forced: list[int], device: str, entry: dict | None = None
-                   ) -> torch.Tensor:
+                   forced: list[int], device: str, entry: dict | None = None,
+                   mm: dict | None = None) -> torch.Tensor:
     """The final hidden states of ids[p:] and of `forced` fed one token a
     step after them: with `entry`, ids[p:] prefilled over the snapshot
     restored at p (PrefixStore.restore, as the engine resumes); without,
-    all of `ids` prefilled cold and its rows from p kept."""
+    all of `ids` prefilled cold (with its images or frames `mm`, on the
+    device) and its rows from p kept."""
     from aha_tpu_torch.core import cache as kv
     from aha_tpu_torch.core.engine import PrefixStore, bucket_for
 
-    cache = model.init_cache(1, 512, params["embed"]["w"].dtype)
+    cache = model.init_cache(1, max(512, bucket_for(len(ids)),
+                                    len(ids) + len(forced)),
+                             embed_dtype(params))
     toks, first = (ids[p:], 0) if entry is not None else (ids, p)
     if entry is not None:
         PrefixStore.restore(entry, cache, p)
     x = torch.zeros((1, bucket_for(len(toks))), dtype=torch.int64)
     x[0, :len(toks)] = torch.tensor(toks)
     hs = [model.backbone(params, x.to(device), cache, prompt_len=len(toks),
-                         from_cache=entry is not None)[0, first:len(toks)]]
+                         from_cache=entry is not None,
+                         **({} if entry is not None or mm is None
+                            else {"mm": mm}))[0, first:len(toks)]]
     kv.advance(cache, len(toks))
     for t in forced:
         tok = torch.tensor([[t]], device=device)
@@ -3199,24 +3375,30 @@ def _row_rel(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def _restore_check(tag: str, model, params, ids: list[int], entry: dict,
-                   p: int, forced: list[int], device: str) -> dict:
+                   p: int, forced: list[int], device: str,
+                   mm: dict | None = None, drop: tuple[str, ...] | None = None,
+                   dropped: str = "the rolling state", label: str | None = None,
+                   phase: str = "hybrid") -> dict:
     """The restored path's hidden states (the suffix ids[p:] prefilled over
     `entry`, then `forced` teacher-forced) against the cold path's on the
-    same tokens, each row within TOL_HIDDEN_REL of its max |ref|; the same
-    with a planted broken restore (the entry less its rolling state,
-    kv.STATE_KEYS) must exceed it.  Over the rows that pick a token (the
-    suffix's last and each forced step's), per row over its max |logit|:
-    the cold path's top-two gap, how far the restored path moves that
-    difference, and the rows where the two paths' argmax differ — a
-    greedy stream parts where the move passes the gap."""
+    same tokens (prefilled with the images or frames `mm`), each row within
+    TOL_HIDDEN_REL of its max |ref|; the same with a planted broken restore
+    (the entry less `drop`, by default its rolling state kv.STATE_KEYS)
+    must exceed it.  Over the rows that pick a token (the suffix's last and
+    each forced step's), per row over its max |logit|: the cold path's
+    top-two gap, how far the restored path moves that difference, and the
+    rows where the two paths' argmax differ — a greedy stream parts where
+    the move passes the gap."""
     from aha_tpu_torch.core import cache as kv
 
+    drop = kv.STATE_KEYS if drop is None else drop
+    label = f"({tag}1)" if label is None else label
     with torch.no_grad():
-        cold = _suffix_hidden(model, params, ids, p, forced, device)
+        cold = _suffix_hidden(model, params, ids, p, forced, device, mm=mm)
         warm = _suffix_hidden(model, params, ids, p, forced, device, entry)
         broken = _suffix_hidden(model, params, ids, p, forced, device,
                                 {k: v for k, v in entry.items()
-                                 if k not in kv.STATE_KEYS})
+                                 if k not in drop})
         err = float(_row_rel(warm, cold).max())
         bad = float(_row_rel(broken, cold).max())
         picks = slice(len(ids) - p - 1, None)
@@ -3232,18 +3414,18 @@ def _restore_check(tag: str, model, params, ids: list[int], entry: dict,
         gap = (diff(lc) / top).cpu()
         move = ((diff(lw) - diff(lc)).abs() / top).cpu()
         flips = int((lw.argmax(-1) != lc.argmax(-1)).sum())
-    log(f"[hybrid] ({tag}1) restore check, {len(ids) - p} suffix rows + "
+    log(f"[{phase}] {label} restore check, {len(ids) - p} suffix rows + "
         f"{len(forced)} teacher-forced steps: hidden max err {err:.3e} of "
         f"the row's max |ref| against the cold path (tol {TOL_HIDDEN_REL}); "
-        f"a restore less the rolling state {bad:.3e} (must exceed the tol); "
+        f"a restore less {dropped} {bad:.3e} (must exceed the tol); "
         f"of {len(gap)} rows that pick a token: top-two gap median "
         f"{float(gap.median()):.3e}, its move median "
         f"{float(move.median()):.3e} max {float(move.max()):.3e}, argmax "
         f"differs on {flips}")
-    require(err <= TOL_HIDDEN_REL, f"({tag}1) the restored path's hidden "
+    require(err <= TOL_HIDDEN_REL, f"{label} the restored path's hidden "
             f"states off the cold path's by {err}")
-    require(bad > TOL_HIDDEN_REL, f"({tag}1) a restore without the rolling "
-            f"state passes the check ({bad} <= {TOL_HIDDEN_REL})")
+    require(bad > TOL_HIDDEN_REL, f"{label} a restore without {dropped} "
+            f"passes the check ({bad} <= {TOL_HIDDEN_REL})")
     return {"hidden_err_rel": err, "broken_restore_err_rel": bad,
             "top2_gap_median": float(gap.median()),
             "top2_move_median": float(move.median()),
@@ -3605,14 +3787,7 @@ def _write_checkpoint(tmp: str, config, params: dict) -> None:
     the config, and the seeded weights as safetensors."""
     from aha_tpu_torch.io.weights import save_hf_qwen3
 
-    # tests/fixtures.py by path: a `tests` package elsewhere on sys.path
-    # must not shadow it
-    spec = importlib.util.spec_from_file_location(
-        "aha_test_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
-
-    tok = fixtures.build_tokenizer(tmp)
+    fixtures, tok = _smoke_tokenizer(tmp)
     eos = tok.token_to_id("<|im_end|>")
     # the seeded model samples from all 151936 ids, the test tokenizer
     # knows ~400: zero the (tied) embedding rows past them, so their
@@ -3752,7 +3927,7 @@ def _ask_concurrent(base: str, n: int) -> list[str]:
 # -- 8. Qwen2.5-VL image chat ---------------------------------------------------
 
 #: Qwen2.5-VL-3B-Instruct's special tokens: vision start / end, image pad
-VL_VSTART, VL_VEND, VL_IMAGE = 151652, 151653, 151655
+VL_VSTART, VL_VEND, VL_IMAGE, VL_VIDEO = 151652, 151653, 151655, 151656
 #: the reduced depth of the teacher-forced check and the served checkpoint:
 #: 8 vision blocks (block 7 full-attention, as in the published 32) and 4
 #: text layers, at the published widths
@@ -3776,12 +3951,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _vl_image(side: int, seed: int):
+def _vl_image(side: int, seed: int, **processing):
     """(patches, grid) of a seeded random side x side RGB image through the
-    port's Qwen-VL processing: Pillow decode and resize where it is
-    installed, else (said on a line) numpy frames straight into
-    patchify_qwen_vl, the same patches a side that is a multiple of 28
-    gives without resizing."""
+    port's Qwen-VL processing (`processing`: preprocess_image_qwen_vl's
+    patch size and pixel bounds; Qwen2.5-VL's by default): Pillow decode
+    and resize where it is installed, else (said on a line) numpy frames
+    straight into patchify_qwen_vl, the same patches a side that is a
+    multiple of the grid factor gives without resizing."""
     from aha_tpu_torch.utils import image
 
     rng = np.random.default_rng(seed)
@@ -3789,12 +3965,14 @@ def _vl_image(side: int, seed: int):
     if importlib.util.find_spec("PIL") is not None:
         from PIL import Image
 
-        return image.preprocess_image_qwen_vl(Image.fromarray(pixels))
+        return image.preprocess_image_qwen_vl(Image.fromarray(pixels),
+                                              **processing)
     log("[vl] Pillow is not installed: patches from numpy frames through "
         "patchify_qwen_vl")
     arr = (pixels.astype(np.float32) / 255.0 - image.OPENAI_CLIP_MEAN) \
         / image.OPENAI_CLIP_STD
-    return image.patchify_qwen_vl(arr.transpose(2, 0, 1)[None])
+    return image.patchify_qwen_vl(arr.transpose(2, 0, 1)[None],
+                                  processing.get("patch_size", 14))
 
 
 def _vl_request(cfg, side: int, seed: int, n_pre: int = 12, n_post: int = 20):
@@ -3821,7 +3999,8 @@ def teacher_forced_vl(model, params, ids, mm, forced, device):
     cache = model.init_cache(1, 1024, embed_dtype(params))
     x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
     x[0, :len(ids)] = torch.tensor(ids)
-    hs = [model.backbone(params, x.to(device), cache, mm=mm)[0, len(ids) - 1]]
+    hs = [model.backbone(params, x.to(device), cache, mm=mm,
+                         prompt_len=len(ids))[0, len(ids) - 1]]
     kv.advance(cache, len(ids))
     for t in forced:
         hs.append(model.backbone(params, torch.tensor([[t]], device=device),
@@ -3831,14 +4010,17 @@ def teacher_forced_vl(model, params, ids, mm, forced, device):
 
 
 def embed_dtype(params: dict) -> torch.dtype:
-    return params["text"]["embed"]["w"].dtype
+    """The embedding's dtype: a VL tree's text decoder's, or a decoder
+    tree's own (Qwen3.5 with its tower)."""
+    return params.get("text", params)["embed"]["w"].dtype
 
 
 def _vl_run(ids, mm, key, cfg):
-    """`run` for eager_twin: one image request of 32 tokens."""
+    """`run` for eager_twin: one request of 32 tokens with its images or
+    video."""
     def run(eng):
         out = eng.generate_tokens(ids, cfg, max_tokens=32, mm=mm, mm_key=key,
-                                  mm_token_ids=(VL_IMAGE,))
+                                  mm_token_ids=(VL_IMAGE, VL_VIDEO))
         return [out], [eng.last_timing]
 
     return run
@@ -4001,45 +4183,43 @@ def phase_vl(device: str = "cuda") -> dict:
     return {"model": model, "params": params}
 
 
-def phase_http_vl(params: dict) -> None:
-    """The reduced-depth model (VL_CUT) saved as a checkpoint and served by
-    `python -m aha_tpu_torch serv <dir>` (model type read from its
-    config.json): one chat with a PNG data-URL image, one text-only."""
+def phase_http_vl(params: dict, vl3: dict) -> None:
+    """The reduced-depth models served by `python -m aha_tpu_torch serv
+    <dir>` in child processes: Qwen2.5-VL (VL_CUT; model type read from
+    its config.json) answering an image, a video and a text chat, graphed
+    and --eager with equal replies; then phase_vl3's cut Qwen3-VL (its
+    config.json's model type qwen3_vl: Qwen/Qwen3-VL-8B-Instruct) answering
+    an image, a video and a text chat, and the cut Qwen3.5 with the tower
+    served as Qwen/Qwen3.5-0.8B answering an image chat."""
     with tempfile.TemporaryDirectory(prefix="aha_torch_vl_") as tmp:
         _write_vl_checkpoint(tmp, params)
         with _server(tmp) as base:
             replies = _ask_vl(base)
         with _server(tmp, "--eager") as base:
             _same_replies("Qwen2.5-VL", replies, _ask_vl(base))
+    with tempfile.TemporaryDirectory(prefix="aha_torch_vl3_") as tmp:
+        _write_vl3_checkpoint(tmp, "qwen3vl", vl3["qwen3vl"])
+        with _server(tmp) as base:
+            _ask_vl3(base, "Qwen/Qwen3-VL-8B-Instruct", video=True)
+    with tempfile.TemporaryDirectory(prefix="aha_torch_q35vl_") as tmp:
+        _write_vl3_checkpoint(tmp, "qwen3_5", vl3["qwen3_5"])
+        with _server(tmp, "--model", "Qwen/Qwen3.5-0.8B") as base:
+            _ask_vl3(base, "Qwen/Qwen3.5-0.8B", video=False)
 
 
 def _write_vl_checkpoint(tmp: str, params: dict) -> None:
     """A servable Qwen2.5-VL directory: the test tokenizer with the four
-    vision special tokens and an image-aware chat template, an HF-style
-    config at the published widths and VL_CUT's depth whose image token is
-    that tokenizer's, and the seeded weights (embedding rows past the
-    tokenizer zeroed, so replies decode to text)."""
-    from tokenizers import AddedToken
-
+    vision special tokens and a chat template with image and video parts,
+    an HF-style config at the published widths and VL_CUT's depth whose
+    vision ids are that tokenizer's, and the seeded weights (embedding
+    rows past the tokenizer zeroed, so replies decode to text)."""
     from aha_tpu_torch.io.weights import save_hf_qwen2_5vl
-
-    spec = importlib.util.spec_from_file_location(
-        "aha_test_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
-    tok = fixtures.build_tokenizer(tmp)
-    tok.add_special_tokens([AddedToken(t, special=True) for t in
-                            ("<|vision_start|>", "<|image_pad|>",
-                             "<|vision_end|>", "<|video_pad|>")])
-    tok.save(os.path.join(tmp, "tokenizer.json"))
-    eos = tok.token_to_id("<|im_end|>")
-    cut = _vl_cut(params, VL_CUT["depth"], VL_CUT["layers"])
-    embed = cut["text"]["embed"]["w"].clone()
-    embed[tok.get_vocab_size(with_added_tokens=True):] = 0
-    cut["text"] = {**cut["text"], "embed": {"w": embed},
-                   "lm_head": {"w": embed}}
     from aha_tpu_torch.models.qwen2_5vl import qwen2_5vl_3b
 
+    tok, ids = _vl_tokenizer(tmp)
+    cut = _vl_cut(params, VL_CUT["depth"], VL_CUT["layers"])
+    cut["text"] = _text_rows_zeroed(cut["text"],
+                                    tok.get_vocab_size(with_added_tokens=True))
     model_cfg = qwen2_5vl_3b(**VL_CUT)
     v = model_cfg.vision
     cfg = {**model_cfg.text.__dict__,
@@ -4048,31 +4228,472 @@ def _write_vl_checkpoint(tmp: str, params: dict) -> None:
            "rope_scaling": {"type": "mrope", "mrope_section":
                             list(model_cfg.mrope_section)},
            "vision_config": {**v.__dict__, "fullatt_block_indexes":
-                             list(v.fullatt_block_indexes)},
-           "image_token_id": tok.token_to_id("<|image_pad|>"),
-           "video_token_id": tok.token_to_id("<|video_pad|>"),
-           "vision_start_token_id": tok.token_to_id("<|vision_start|>"),
-           "vision_end_token_id": tok.token_to_id("<|vision_end|>"),
-           "eos_token_id": eos}
+                             list(v.fullatt_block_indexes)}, **ids}
     with open(os.path.join(tmp, "config.json"), "w") as f:
         json.dump(cfg, f)
-    with open(os.path.join(tmp, "generation_config.json"), "w") as f:
-        json.dump({"eos_token_id": [eos]}, f)
-    tpl = fixtures.CHAT_TEMPLATE.replace(
-        "{{ message.content }}",
-        "{% if message.content is string %}{{ message.content }}"
-        "{% else %}{% for part in message.content %}"
-        "{% if part.type == 'text' %}{{ part.text }}"
-        "{% elif part.type == 'image_url' %}"
-        "<|vision_start|><|image_pad|><|vision_end|>{% endif %}"
-        "{% endfor %}{% endif %}")
-    with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
-        json.dump({"chat_template": tpl}, f)
     t0 = time.perf_counter()
     save_hf_qwen2_5vl(cut, tmp)
     log(f"[vl-http] full-width checkpoint ({VL_CUT['depth']} vision blocks, "
         f"{VL_CUT['layers']} text layers) written in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+
+# -- 8b. Qwen3-VL and Qwen3.5 with the deepstack tower (w, x) ---------------
+
+#: (w)'s and (x)'s teacher-forced depth, and the served checkpoints': 4
+#: vision blocks with deepstack after blocks 1, 2 and 3, 4 text layers, at
+#: the published widths
+VL3_CUT = dict(depth=4, layers=4, deepstack=(1, 2, 3))
+#: per path: TTFT (prefill with the tower, first token read), the tower
+#: alone and decode ms/step graphed and eager (one JSON line before the
+#: kernels line)
+VL3_READINGS: dict[str, dict] = {}
+
+
+def _vl3_image_request(cfg, side: int, seed: int, n_pre: int = 12,
+                       n_post: int = 20):
+    """Prompt ids with one image of `side` pixels through Qwen3-VL's
+    processing (patch 16, its pixel bounds), the host inputs (numpy) and
+    the content digest."""
+    from aha_tpu_torch.models import qwen3vl_served as served
+
+    patches, grid = _vl_image(side, seed, patch_size=16,
+                              min_pixels=served.MIN_PIXELS,
+                              max_pixels=served.MAX_PIXELS)
+    rng = np.random.default_rng(seed)
+    n_units = grid[0] * grid[1] * grid[2] // 4
+    ids = (_prompt(rng, n_pre, 151643) + [VL_VSTART] + [VL_IMAGE] * n_units
+           + [VL_VEND] + _prompt(rng, n_post, 151643))
+    return {"ids": ids, "mm": served.build_mm([patches], [grid], ids, cfg),
+            "patches": patches, "grids": [grid],
+            "key": served.mm_digest([patches], [grid])}
+
+
+def _npz_data_url(n: int, side: int, fps: float, seed: int) -> str:
+    """A data URL of an .npz holding n seeded side x side RGB frames and
+    their fps."""
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, frames=np.random.default_rng(seed).integers(
+        0, 255, (n, side, side, 3), dtype=np.uint8), fps=fps)
+    return ("data:application/octet-stream;base64,"
+            + base64.b64encode(buf.getvalue()).decode())
+
+
+def _vl3_video_request(cfg, seed: int, n: int = 8, side: int = 448,
+                       fps: float = 2.0):
+    """(w2): an n-frame `side`-pixel .npz at `fps` through the port's video
+    processing (load, 2 fps sampling, resize, temporal patchify), laid out
+    as the served model lays it out — each temporal pair its own vision
+    block after its timestamp, 5 seeded text ids standing for the
+    "<t seconds>" text the tokenizer would give — with its per-frame
+    grids."""
+    from aha_tpu_torch.models import qwen3vl_served as served
+    from aha_tpu_torch.utils import video
+
+    frames, src_fps = video.load_video_frames(
+        _npz_data_url(n, side, fps, seed))
+    frames, idx, fps = video.sample_frames(frames, src_fps, 2.0, 4, 64)
+    patches, grid = video.preprocess_video_qwen_vl(
+        frames, 16, 2, 2, served.MIN_PIXELS, served.MAX_PIXELS * 4)
+    stamps = [float(t) for t in video.video_timestamps(idx, fps, 2)]
+    rng = np.random.default_rng(seed)
+    per_frame = grid[1] * grid[2] // 4
+    ids = _prompt(rng, 12, 151643)
+    for _ in range(grid[0]):
+        ids += (_prompt(rng, 5, 151643) + [VL_VSTART]
+                + [VL_VIDEO] * per_frame + [VL_VEND])
+    ids += _prompt(rng, 20, 151643)
+    grids = [(1, grid[1], grid[2])] * grid[0]
+    return {"ids": ids, "mm": served.build_mm([patches], grids, ids, cfg),
+            "patches": patches, "grids": grids, "grid": grid,
+            "stamps": stamps, "key": served.mm_digest([patches], grids)}
+
+
+def _tower_ms(model, visual: dict, mm: dict, device: str) -> float:
+    """Wall ms of the tower alone on one request's inputs (after a
+    warm-up)."""
+    with torch.no_grad():
+        model.tower.encode(visual, mm)
+        _sync(device)
+        t0 = time.perf_counter()
+        model.tower.encode(visual, mm)
+        _sync(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _vl3_teacher_forced(tag: str, model_cls, cut_cfg, small_params: dict,
+                        req: dict, forced: list[int], device: str,
+                        launches: dict, **model_kw) -> None:
+    """8 teacher-forced steps of the cut model: the card through the
+    kernels against the CPU in f32 through the plain versions; the card's
+    run must launch `launches` (name → count)."""
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    small = model_cls(cut_cfg, max_rope_len=8192, device=device, **model_kw)
+    wr = zero_counts()
+    hk = teacher_forced_vl(small, small_params, req["ids"],
+                           mm_to(req["mm"], torch.device(device)), forced,
+                           device)
+    got = {n: fn.launches for n, fn in wr.items()}
+    require(device != "cuda" or all(got[n] == c for n, c in launches.items()),
+            f"({tag}) teacher-forced launches {got}, want {launches}")
+    cpu_model = model_cls(cut_cfg, max_rope_len=8192, device="cpu",
+                          **model_kw)
+    # the backbone reads no head: leave it on the card
+    text = small_params.get("text", small_params)
+    text = {k: v for k, v in text.items() if k != "lm_head"}
+    cpu_params = _tree_to({**small_params, "text": text}
+                          if "text" in small_params else text,
+                          "cpu", torch.float32)
+    hp = teacher_forced_vl(cpu_model, cpu_params, req["ids"],
+                           mm_to(req["mm"], torch.device("cpu")), forced,
+                           "cpu")
+    rel = ((hk - hp).abs().max() / hp.abs().max()).item()
+    by_pos = " ".join(
+        f"{((hk[i] - hp[i]).abs().max() / hp.abs().max()).item():.1e}"
+        for i in range(len(hk)))
+    log(f"[vl3] ({tag}) teacher-forced at full width, {VL3_CUT['depth']} "
+        f"vision blocks (deepstack after 1, 2, 3) and {VL3_CUT['layers']} "
+        f"text layers, 9 positions: hidden max err {rel:.3e} of max |ref| "
+        f"(tol {TOL_VL_HIDDEN_REL}; by position {by_pos})")
+    require(rel <= TOL_VL_HIDDEN_REL, f"({tag}) hidden off by {rel}")
+
+
+def _vl3_path(tag: str, what: str, eng, eager, req: dict, greedy,
+              must: tuple[str, ...], want: dict, device: str,
+              tower: float | None = None) -> list[int]:
+    """One request through the graphed engine (counts zeroed before it,
+    each of `want` required equal), then eager_twin; TTFT and decode
+    ms/step into VL3_READINGS.  Returns the tokens."""
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    mm = req.get("mm_dev") or mm_to(req["mm"], torch.device(device))
+    req["mm_dev"] = mm
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(req["ids"], greedy, max_tokens=32, mm=mm,
+                              mm_key=req["key"],
+                              mm_token_ids=(VL_IMAGE, VL_VIDEO))
+    _sync(device)
+    t = eng.last_timing
+    counts = read_counts(wr, f"vl3-{tag}", must)
+    require(device != "cuda" or all(counts[n] == c for n, c in want.items()),
+            f"({tag}) launches {counts}, want {want}")
+    require(len(out) == 32, f"({tag}): {len(out)} tokens")
+    card = card_line() if device == "cuda" else "cpu"
+    ttft = t.prompt_secs * 1e3
+    log(f"[vl3] ({tag}) {what}: {t.prompt_tokens}-token prompt, TTFT "
+        f"(tower + prefill, first token read) {ttft:.2f} ms"
+        + (f"; tower alone {tower:.2f} ms" if tower is not None else "")
+        + f"; 32 greedy tokens, decode "
+        f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s | {card}")
+    eager_twin(f"({tag}) {what}", eng, lambda: eager,
+               _vl_run(req["ids"], mm, req["key"], greedy), [out], counts,
+               device)
+    g = GRAPH_READINGS[-1]
+    VL3_READINGS[tag] = {"what": what, "prompt_tokens": t.prompt_tokens,
+                         "ttft_ms": ttft, "tower_ms": tower,
+                         "decode_ms_per_step_graphed": g["ms_per_step_graphed"],
+                         "decode_ms_per_step_eager": g["ms_per_step_eager"],
+                         "card": card}
+    return out
+
+
+def phase_vl3(device: str = "cuda") -> dict:
+    """(w) Qwen3-VL-8B-Instruct's published geometry and (x) Qwen3.5 with
+    the Qwen3-VL tower, seeded bf16 weights on the card, through TextEngine;
+    each then teacher-forced at reduced depth against the CPU.  Returns the
+    two reduced-depth parameter trees (copies: the full weights are freed
+    here) for the HTTP phase."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+    from aha_tpu_torch.models.qwen3_5 import Qwen3_5Model, qwen3_5_vl_default
+    from aha_tpu_torch.models.qwen3vl import Qwen3VLModel, qwen3vl_8b
+
+    greedy = SamplingConfig()
+    card = card_line() if device == "cuda" else "cpu"
+    # (w) -------------------------------------------------------------------
+    cfg = qwen3vl_8b()
+    require(cfg.vision.head_dim == 72, "the tower's heads are not 72 wide")
+    model = Qwen3VLModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(8),
+                               dtype=torch.bfloat16)
+    fused = model.fuse_params(params)
+    _sync(device)
+    n_vis = sum(t.numel() for t in _leaves(params["visual"]))
+    n_text = sum(t.numel() for t in _leaves(params["text"]))
+    log(f"[vl3] (w) Qwen3-VL-8B geometry: tower {cfg.vision.depth} blocks "
+        f"H={cfg.vision.hidden_size} (16 heads of 72, deepstack after 8, 16, "
+        f"24), text {cfg.text.num_hidden_layers} layers "
+        f"H={cfg.text.hidden_size} 32/8 heads V={cfg.text.vocab_size} "
+        f"untied: {n_vis / 1e6:.1f} M + {n_text / 1e6:.1f} M bf16 params "
+        f"seeded on the card in {time.perf_counter() - t0:.1f} s (set-up)")
+    reqs = {"w1": _vl3_image_request(cfg, 1024, 1),
+            "w2": _vl3_video_request(cfg, 2)}
+    w1, w2 = reqs["w1"], reqs["w2"]
+    require(w1["patches"].shape[0] == 4096
+            and w1["ids"].count(VL_IMAGE) == 1024,
+            f"(w1) 1024 px: {w1['patches'].shape[0]} patches")
+    require(tuple(w2["grid"]) == (4, 28, 28)
+            and w2["ids"].count(VL_VIDEO) == 784
+            and w2["mm"]["patches"].shape[0] == VL3_BUCKET,
+            f"(w2) video grid {w2['grid']}")
+    log(f"[vl3] (w2) video: 8 frames of 448 x 448 at 2 fps, grid "
+        f"{tuple(w2['grid'])}, timestamps {w2['stamps']}, 784 video tokens, "
+        f"{w2['patches'].shape[0]} patches in the {VL3_BUCKET} bucket")
+    # (w3): a follow-up turn on (w1)'s image, restored from the store
+    rng = np.random.default_rng(33)
+    ids3 = w1["ids"] + _prompt(rng, 24, 151643)
+    from aha_tpu_torch.models.qwen3vl_served import build_mm
+
+    reqs["w3"] = {"ids": ids3, "key": w1["key"],
+                  "mm": build_mm([w1["patches"]], w1["grids"], ids3, cfg)}
+    # warm-up of the patch and prompt buckets, not counted
+    warm = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    for name in ("w1", "w2"):
+        warm.generate_tokens(reqs[name]["ids"], greedy, max_tokens=4,
+                             mm=mm_to(reqs[name]["mm"], torch.device(device)))
+    del warm
+    eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                     prefix_cache_entries=4)
+    eager = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                       prefix_cache_entries=4, cuda_graphs=False)
+    L = cfg.text.num_hidden_layers
+    must = ("flash_attention_segmented", "flash_attention",
+            "flash_decode_at_layer_flat", "head_argmax")
+    full = {"flash_attention_segmented": cfg.vision.depth,
+            "flash_attention": L, "flash_decode_at_layer_flat": L * 32,
+            "head_argmax": 32, "fused_decode_stack": 0}
+    outs = {}
+    for name, what in (("w1", "1024 x 1024 image, 4096 patches, 1024 image "
+                               "tokens"),
+                       ("w2", "8-frame 448 x 448 .npz video at 2 fps, 784 "
+                              "video tokens")):
+        mm = mm_to(reqs[name]["mm"], torch.device(device))
+        tower = _tower_ms(model, params["visual"], mm, device)
+        reqs[name]["mm_dev"] = mm
+        outs[name] = _vl3_path(name, what, eng, eager, reqs[name], greedy,
+                               must, full, device, tower)
+    entry, p3 = eng._prefix_entries.match(ids3, w1["key"])
+    require(entry is not None and p3 == len(w1["ids"])
+            and "rope_delta" in entry,
+            f"(w3) the follow-up restores from {p3}, not (w1)'s prompt")
+    outs["w3"] = _vl3_path(
+        "w3", "follow-up on (w1)'s image, prefix-store hit", eng, eager,
+        reqs["w3"], greedy, ("flash_decode_at_layer_flat", "head_argmax"),
+        {"flash_attention_segmented": 0, "flash_attention": 0,
+         "flash_decode_at_layer_flat": L * 32}, device)
+    # the restore itself at full width: the suffix over the stored rows and
+    # rope_delta against a cold prefill of the whole prompt with its image
+    VL3_READINGS["w3"]["restore"] = _restore_check(
+        "w3", model, fused, ids3, entry, p3, outs["w3"][:8], device,
+        mm=reqs["w3"]["mm_dev"],
+        drop=("rope_delta",), dropped="rope_delta", label="(w3)",
+        phase="vl3")
+    del entry
+    log(f"[vl3] (w) every segment call of the path is the tower's, 16 heads "
+        f"of 72: {cfg.vision.depth} a request with vision; decode runs the "
+        f"per-op layers (flash_decode_at_layer_flat {L} a step, head_argmax "
+        f"over the untied 4096 x 151936 head), never the fused stack | "
+        f"{card}")
+    del eng, eager, fused
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # reduced depth, teacher-forced, on a 224 x 224 image
+    cut_cfg = qwen3vl_8b(**VL3_CUT)
+    text = params["text"]
+    small = {"visual": {**params["visual"],
+                        "blocks": params["visual"]["blocks"][:VL3_CUT["depth"]]},
+             "text": {**text, "layers": _tree_map(
+                 lambda t: t[:VL3_CUT["layers"]].clone(), text["layers"])}}
+    del params, text, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    req_tf = _vl3_image_request(cut_cfg, 224, 4)
+    _vl3_teacher_forced(
+        "w", Qwen3VLModel, cut_cfg, small, req_tf, outs["w1"][:8], device,
+        {"flash_attention_segmented": VL3_CUT["depth"],
+         "flash_decode_at_layer_flat": 8 * VL3_CUT["layers"]})
+
+    # (x) -------------------------------------------------------------------
+    xcfg = qwen3_5_vl_default()
+    xm = Qwen3_5Model(xcfg.text, max_rope_len=8192, device=device,
+                      vl_config=xcfg)
+    xp = xm.init_random(torch.Generator(device=device).manual_seed(9),
+                        dtype=torch.bfloat16)
+    xfused = xm.fuse_params(xp)
+    req_x = _vl3_image_request(xcfg, 448, 5)
+    require(req_x["patches"].shape[0] == 784, "(x) 448 px: "
+            f"{req_x['patches'].shape[0]} patches")
+    warm = TextEngine(xm, xfused, eos_token_ids=[], max_seq_len=8192)
+    warm.generate_tokens(req_x["ids"], greedy, max_tokens=4,
+                         mm=mm_to(req_x["mm"], torch.device(device)))
+    del warm
+    xeng = TextEngine(xm, xfused, eos_token_ids=[], max_seq_len=8192)
+    xeager = TextEngine(xm, xfused, eos_token_ids=[], max_seq_len=8192,
+                        cuda_graphs=False)
+    mm = mm_to(req_x["mm"], torch.device(device))
+    req_x["mm_dev"] = mm
+    n_attn = xm.n_attn
+    outs["x"] = _vl3_path(
+        "x", "Qwen3.5 (24 layers, hidden 1024) + the 27-block tower, 448 x "
+             "448 image, 196 image tokens", xeng, xeager, req_x, greedy,
+        ("flash_attention_segmented", "flash_attention",
+         "flash_decode_at_layer"),
+        {"flash_attention_segmented": xcfg.vision.depth,
+         "flash_attention": n_attn, "flash_decode_at_layer": n_attn * 32},
+        device, _tower_ms(xm, xp["visual"], mm, device))
+    del xeng, xeager, xfused
+    xcut = qwen3_5_vl_default(layers=VL3_CUT["layers"],
+                              depth=VL3_CUT["depth"],
+                              deepstack=VL3_CUT["deepstack"])
+    xsmall = {**xp, "layers": xp["layers"][:VL3_CUT["layers"]],
+              "visual": {**xp["visual"],
+                         "blocks": xp["visual"]["blocks"][:VL3_CUT["depth"]]}}
+    n_cut_attn = sum(t == "full_attention" for t in xcut.text.layer_types)
+    _vl3_teacher_forced(
+        "x", lambda c, **kw: Qwen3_5Model(c.text, vl_config=c, **kw), xcut,
+        xsmall, _vl3_image_request(xcut, 224, 6), outs["x"][:8], device,
+        {"flash_attention_segmented": VL3_CUT["depth"],
+         "flash_decode_at_layer": 8 * n_cut_attn})
+    del xp, xm
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"qwen3vl": small, "qwen3_5": xsmall}
+
+
+#: the chat template's content loop, rendering image and video parts
+VL_TEMPLATE_PARTS = (
+    "{% if message.content is string %}{{ message.content }}"
+    "{% else %}{% for part in message.content %}"
+    "{% if part.type == 'text' %}{{ part.text }}"
+    "{% elif part.type == 'image_url' %}"
+    "<|vision_start|><|image_pad|><|vision_end|>"
+    "{% elif part.type == 'video_url' %}"
+    "<|vision_start|><|video_pad|><|vision_end|>{% endif %}"
+    "{% endfor %}{% endif %}")
+
+
+def _vl_tokenizer(tmp: str) -> tuple:
+    """The test tokenizer with the four vision special tokens, its chat
+    template with image and video parts and generation config written to
+    `tmp`; (tokenizer, the config.json token fields)."""
+    from tokenizers import AddedToken
+
+    fixtures, tok = _smoke_tokenizer(tmp)
+    tok.add_special_tokens([AddedToken(t, special=True) for t in
+                            ("<|vision_start|>", "<|image_pad|>",
+                             "<|vision_end|>", "<|video_pad|>")])
+    tok.save(os.path.join(tmp, "tokenizer.json"))
+    eos = tok.token_to_id("<|im_end|>")
+    with open(os.path.join(tmp, "generation_config.json"), "w") as f:
+        json.dump({"eos_token_id": [eos]}, f)
+    with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": fixtures.CHAT_TEMPLATE.replace(
+            "{{ message.content }}", VL_TEMPLATE_PARTS)}, f)
+    return tok, {"image_token_id": tok.token_to_id("<|image_pad|>"),
+                 "video_token_id": tok.token_to_id("<|video_pad|>"),
+                 "vision_start_token_id": tok.token_to_id("<|vision_start|>"),
+                 "vision_end_token_id": tok.token_to_id("<|vision_end|>"),
+                 "eos_token_id": eos}
+
+
+def _text_rows_zeroed(tree: dict, vocab: int) -> dict:
+    """The embedding (and an untied head) with the rows past the test
+    tokenizer's vocabulary zeroed, so replies decode to text."""
+    embed = tree["embed"]["w"].clone()
+    embed[vocab:] = 0
+    head = tree["lm_head"]["w"]
+    if head is tree["embed"]["w"]:
+        head = embed
+    else:
+        head = head.clone()
+        head[vocab:] = 0
+    return {**tree, "embed": {"w": embed}, "lm_head": {"w": head}}
+
+
+def _vision_json(v) -> dict:
+    return {**v.__dict__, "deepstack_visual_indexes":
+            list(v.deepstack_visual_indexes)}
+
+
+def _write_vl3_checkpoint(tmp: str, kind: str, params: dict) -> None:
+    """A servable reduced-depth (VL3_CUT) directory at the published
+    widths: "qwen3vl" as a Qwen3VLForConditionalGeneration checkpoint
+    (model_type qwen3_vl), "qwen3_5" as a Qwen3.5 one with a vision tower;
+    the test tokenizer's vision ids in config.json."""
+    from aha_tpu_torch.io import weights
+    from aha_tpu_torch.models.qwen3_5 import qwen3_5_vl_default
+    from aha_tpu_torch.models.qwen3vl import qwen3vl_8b
+
+    tok, ids = _vl_tokenizer(tmp)
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    t0 = time.perf_counter()
+    if kind == "qwen3vl":
+        c = qwen3vl_8b(**VL3_CUT)
+        cfg = {"architectures": ["Qwen3VLForConditionalGeneration"],
+               "model_type": "qwen3_vl", "torch_dtype": "bfloat16",
+               "text_config": {**c.text.__dict__, "rope_scaling": {
+                   "rope_type": "default", "mrope_interleaved": True,
+                   "mrope_section": list(c.mrope_section)}},
+               "vision_config": _vision_json(c.vision), **ids}
+        weights.save_hf_qwen3vl({**params, "text": _text_rows_zeroed(
+            params["text"], vocab)}, tmp)
+    else:
+        c = qwen3_5_vl_default(layers=VL3_CUT["layers"],
+                               depth=VL3_CUT["depth"],
+                               deepstack=VL3_CUT["deepstack"])
+        cfg = {"architectures": ["Qwen3_5ForConditionalGeneration"],
+               "model_type": "qwen3_5", "torch_dtype": "bfloat16",
+               "text_config": {**c.text.__dict__,
+                               "layer_types": list(c.text.layer_types)},
+               "vision_config": _vision_json(c.vision), **ids}
+        weights.save_hf_qwen3_5(_text_rows_zeroed(params, vocab), tmp,
+                                prefix="model.language_model.")
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    log(f"[vl-http] {kind} full-width checkpoint ({VL3_CUT['depth']} vision "
+        f"blocks, {VL3_CUT['layers']} text layers) written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+
+def _vl_chat(base: str, model: str, content, what: str,
+             min_prompt: int) -> str:
+    """One greedy chat: 200, at least `min_prompt` prompt tokens, a reply;
+    the reply's text."""
+    status, text = _post(base + "/v1/chat/completions", {
+        "model": model, "max_tokens": 16, "temperature": 0.0,
+        "stream": False, "messages": [{"role": "user", "content": content}]})
+    require(status == 200, f"{what}: {text[-500:]}")
+    resp = json.loads(text)
+    u, msg = resp["usage"], resp["choices"][0]["message"]
+    require(u["prompt_tokens"] >= min_prompt and u["completion_tokens"] >= 1,
+            f"{what}: usage {u}")
+    log(f"[vl-http] {what} 200: usage prompt {u['prompt_tokens']} "
+        f"completion {u['completion_tokens']}")
+    return msg.get("content") or msg.get("reasoning_content") or ""
+
+
+def _ask_vl3(base: str, model: str, video: bool) -> list[str]:
+    """A 224 x 224 PNG image chat (49 image tokens), with `video` an
+    8-frame 224 x 224 .npz chat at 2 fps (4 timestamped frames of 49
+    tokens) and a text chat."""
+    image = [{"type": "text", "text": "describe the image "},
+             {"type": "image_url", "image_url": {"url": _png_data_url(224, 7)}}]
+    out = [_vl_chat(base, model, image, f"{model} image chat", 49)]
+    if video:
+        clip = [{"type": "text", "text": "what happens "},
+                {"type": "video_url",
+                 "video_url": {"url": _npz_data_url(8, 224, 2.0, 8)}}]
+        out.append(_vl_chat(base, model, clip, f"{model} video chat", 196))
+        out.append(_vl_chat(base, model, "hello world how are you today",
+                            f"{model} text chat", 1))
+    return out
 
 
 def _png_data_url(side: int, seed: int) -> str:
@@ -4089,33 +4710,20 @@ def _png_data_url(side: int, seed: int) -> str:
 
 
 def _ask_vl(base: str) -> list[str]:
-    """A 224 x 224 PNG image chat (256 patches, 64 image tokens) and a
-    text-only chat: 200, the image's tokens in the prompt count, a reply;
-    the two replies' texts."""
-    body = {"model": "Qwen/Qwen2.5-VL-3B-Instruct", "max_tokens": 16,
-            "temperature": 0.0, "stream": False}
+    """A 224 x 224 PNG image chat (256 patches, 64 image tokens), an
+    8-frame 224 x 224 .npz video chat at 2 fps (grid (4, 16, 16): 256 video
+    tokens) and a text-only chat: 200, the vision tokens in the prompt
+    count, a reply; the three replies' texts."""
+    model = "Qwen/Qwen2.5-VL-3B-Instruct"
     image = [{"type": "text", "text": "describe the image "},
              {"type": "image_url", "image_url": {"url": _png_data_url(224, 7)}}]
-    status, text = _post(base + "/v1/chat/completions", {
-        **body, "messages": [{"role": "user", "content": image}]})
-    u = json.loads(text)["usage"]
-    msg = json.loads(text)["choices"][0]["message"]
-    out = [msg.get("content") or msg.get("reasoning_content")]
-    require(status == 200 and u["prompt_tokens"] > 64
-            and u["completion_tokens"] >= 1, text[-500:])
-    log(f"[vl-http] image chat 200: usage prompt {u['prompt_tokens']} "
-        f"(64 image tokens) completion {u['completion_tokens']}")
-    status, text = _post(base + "/v1/chat/completions", {
-        **body, "messages": [{"role": "user",
-                              "content": "hello world how are you today"}]})
-    u = json.loads(text)["usage"]
-    msg = json.loads(text)["choices"][0]["message"]
-    out.append(msg.get("content") or msg.get("reasoning_content"))
-    require(status == 200 and u["completion_tokens"] >= 1, text[-500:])
-    log(f"[vl-http] text-only chat 200: usage prompt {u['prompt_tokens']} "
-        f"completion {u['completion_tokens']}")
-    return out
-
+    clip = [{"type": "text", "text": "what happens "},
+            {"type": "video_url",
+             "video_url": {"url": _npz_data_url(8, 224, 2.0, 8)}}]
+    return [_vl_chat(base, model, image, "image chat", 64),
+            _vl_chat(base, model, clip, "video chat", 256),
+            _vl_chat(base, model, "hello world how are you today",
+                     "text-only chat", 1)]
 
 
 def main() -> int:
@@ -4153,7 +4761,9 @@ def main() -> int:
     timed("hybrid", phase_hybrid)
     torch.cuda.empty_cache()
     vl = timed("vl", phase_vl)
-    timed("vl-http", phase_http_vl, vl["params"])
+    vl3 = timed("vl3", phase_vl3)
+    timed("vl-http", phase_http_vl, vl["params"], vl3)
+    del vl, vl3
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -4166,13 +4776,15 @@ def main() -> int:
                 **{k: RESULTS[name][k] for k in (
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
-                    "also_timed", "full_image", "real_rows_ms", "weight_gb_s",
+                    "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
+                    "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
                    if k in RESULTS[name]}} for name in KERNELS]
     print(json.dumps({"graphs": GRAPH_READINGS}))
     print(json.dumps({"spec": SPEC_READINGS}))
     print(json.dumps({"hybrid": HYBRID_READINGS}))
+    print(json.dumps({"vl3": VL3_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -445,6 +445,7 @@ def _windows(rng, S, pad):
 @pytest.mark.parametrize("kind", ["windows", "full"])
 @pytest.mark.parametrize("S,H,Hkv,D,pad", [
     (1024, 4, 4, 80, 200),      # the tower's D 80, a pad tail
+    (1024, 4, 4, 72, 200),      # Qwen3-VL's D 72, a pad tail
     (300, 4, 2, 64, 0),         # ragged S, G 2
     (640, 2, 2, 128, 37),
 ])
@@ -484,6 +485,64 @@ def test_segment_flash_reads_strided_qkv(dev):
     want = flash_attention_segmented(*[t.contiguous() for t in views], seg)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _frames_seg(frames: int, rows: int, bucket: int) -> torch.Tensor:
+    """One segment a frame of `rows` patches, then pad rows of -1 up to
+    `bucket` (Qwen3-VL's per-frame blocks)."""
+    import numpy as np
+
+    seg = np.repeat(np.arange(frames, dtype=np.int32), rows)
+    return torch.from_numpy(np.concatenate(
+        [seg, -np.ones(bucket - len(seg), np.int32)]))
+
+
+@pytest.mark.parametrize("frames,rows,bucket", [
+    (1, 4096, 4096),     # a 1024 x 1024 image: one segment, no pad
+    (4, 784, 4096),      # 8 frames of 448 x 448: 4 segments + 960 pad rows
+    (2, 196, 512),       # a short bucket with a ragged tail
+])
+def test_segment_flash_at_d72(dev, frames, rows, bucket):
+    """The D 72 instance at Qwen3-VL-8B's tower (H 16), q/k/v the strided
+    thirds of one fused qkv product whose heads differ: within 2e-2 of max
+    |ref| of the f32 plain version, a repeat bit-equal, pad rows 0, and the
+    kernel launched.  A tail box read past column 72 would add head h + 1's
+    first 8 columns (other random values) to every score."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_attention_segmented, flash_attention_segmented_plain)
+
+    H, D = 16, 72
+    seg = _frames_seg(frames, rows, bucket).to(dev)
+    g = torch.Generator(device=dev).manual_seed(bucket + frames)
+    qkv = torch.randn((1, bucket, 3, H, D), generator=g, device=dev)
+    qkv[:, :, 0] *= 4
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    n0 = flash_attention_segmented.launches
+    got = flash_attention_segmented(q, k, v, seg)
+    again = flash_attention_segmented(q, k, v, seg)
+    ref = flash_attention_segmented_plain(q.float(), k.float(), v.float(),
+                                          seg)
+    torch.cuda.synchronize()
+    assert flash_attention_segmented.launches == n0 + 2
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2 * top
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, seg < 0], torch.zeros_like(got[:, seg < 0]))
+
+
+def test_segment_flash_refuses_other_head_dims(dev):
+    """A head the kernel is not built for raises on the card; nothing
+    falls back to sdpa or the plain version."""
+    from aha_tpu_torch.ops.flash_attention import flash_attention_segmented
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = _bf(g, 1, 256, 2, 96)
+    seg = torch.zeros(256, dtype=torch.int32, device=dev)
+    n0 = flash_attention_segmented.launches
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention_segmented(q, q, q, seg)
+    assert flash_attention_segmented.launches == n0
 
 
 @pytest.mark.parametrize("B,lens", [(1, (1,)), (1, (1000,)), (2, (77, 512))])

@@ -384,7 +384,8 @@ def test_minicpm4_geometry():
                                       "Qwen/Qwen3-Reranker-0.6B",
                                       "sentence-transformers/all-MiniLM-L6-v2",
                                       "LiquidAI/LFM2-1.2B",
-                                      "Qwen/Qwen3.5-0.8B"])
+                                      "Qwen/Qwen3.5-0.8B",
+                                      "Qwen/Qwen3-VL-8B-Instruct"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch

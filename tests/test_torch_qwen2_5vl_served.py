@@ -4,7 +4,8 @@ Qwen2_5_VLForConditionalGeneration with random weights, the test
 tokenizer plus the four vision special tokens, an image-aware chat
 template), loaded through both packages' load_model: a PNG data-URL image
 chat gives aha_tpu's greedy text and prompt-token count, two image sizes
-share a patch bucket, a text-only chat matches, a video part raises, and
+share a patch bucket, a text-only chat matches, an .npz video chat
+matches (its digest changing with the source fps, as aha_tpu's does), and
 AHA_KV_INT8=1 leaves the VL model's cache in its own dtype (only a model
 with supports_kv_int8 takes int8, as aha_tpu/models/text_served.py has it).
 float32 on the CPU."""
@@ -187,11 +188,34 @@ def test_kv_int8_env_keeps_the_vl_cache(both, vl_repo, monkeypatch):
 
 
 def test_video_part_raises(both):
-    port, _ = both
-    mes = ChatCompletionParameters.model_validate(_body([
-        {"type": "video_url", "video_url": {"url": "file:///clip.mp4"}}]))
-    with pytest.raises(NotImplementedError, match="video"):
-        port.generate(mes)
+    """A video part no longer raises: an .npz data-URL video chat gives
+    aha_tpu's greedy text and prompt-token count, and the request's
+    content digest is aha_tpu's, which hashes each grid's temporal
+    seconds: the same frames at another source fps take other M-RoPE
+    positions and another digest."""
+    from tests.vision_chat import npz_data_url
+
+    port, jax_model = both
+    video = [{"type": "text", "text": "what happens "},
+             {"type": "video_url",
+              "video_url": {"url": npz_data_url(side=56, fps=2.0)}}]
+    got, want = _both_generate(both, _body(video))
+    assert got.usage.prompt_tokens == want.usage.prompt_tokens > 16
+    assert got.choices[0].message.content == want.choices[0].message.content
+    keys, rope = [], []
+    for fps in (2.0, 1.0):
+        b = _body([{"type": "video_url", "video_url": {
+            "url": npz_data_url(side=56, fps=fps)}}])
+        data = port.get_data(ChatCompletionParameters.model_validate(b))
+        jdata = jax_model.get_data(JParameters.model_validate(b))
+        assert data.mm_key == jdata.mm_key
+        np.testing.assert_array_equal(data.mm["position_ids"].numpy(),
+                                      np.asarray(jdata.mm["position_ids"]))
+        np.testing.assert_array_equal(data.mm["patches"].numpy(),
+                                      np.asarray(jdata.mm["patches"]))
+        keys.append(data.mm_key)
+        rope.append(data.mm["position_ids"].numpy())
+    assert keys[0] != keys[1] and not np.array_equal(*rope)
 
 
 def test_cli_serves_a_vl_directory_as_the_vl_model(vl_repo, tmp_path):

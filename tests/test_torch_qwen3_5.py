@@ -6,7 +6,8 @@ of 16, conv K 4): both delta rules from a nonzero state, the model's
 hidden states and caches (padded, chunked, per-slot), the fusion, greedy
 streams of both engines (tests/hybrid_streams.py), and the served chat:
 a text-only repo on both engines, a repo with a vision_config that refuses
-batch slots and image parts.  Tolerances: TOL (1e-4) of max |ref|."""
+batch slots and answers image and video chats as aha_tpu does.
+Tolerances: TOL (1e-4) of max |ref|."""
 
 import json
 import os
@@ -326,39 +327,39 @@ VISION = {"depth": 3, "hidden_size": 32, "intermediate_size": 64,
 
 
 def _repo(path: str, vision: bool) -> str:
-    """A tiny Qwen3.5 checkpoint in HF names with the test tokenizer: a
-    text-only config.json, or (vision) the published layout — the decoder
-    under text_config and model.language_model.*, a vision_config, and a
-    model.visual.* tensor the port leaves unread."""
-    from safetensors.torch import load_file, save_file
-
+    """A tiny Qwen3.5 checkpoint in HF names with the test tokenizer (and
+    its four vision special tokens, in both kinds, so that the decoders'
+    weights are the same draws): a text-only config.json, or (vision) the
+    published layout — the decoder under text_config and
+    model.language_model.*, a vision_config and the tower under
+    model.visual.*, the image and video token ids the tokenizer's — with a
+    template that renders image and video parts."""
     from aha_tpu_torch.io.weights import save_hf_qwen3_5
-    from tests.fixtures import CHAT_TEMPLATE, build_tokenizer
+    from aha_tpu_torch.models.qwen3vl import Qwen3VLVisionConfig
+    from tests.vision_chat import vision_tokenizer, write_template
 
     os.makedirs(path, exist_ok=True)
-    tok = build_tokenizer(path)
+    tok = vision_tokenizer(path)
     eos = tok.token_to_id("<|im_end|>")
     text = {**TINY, "vocab_size": tok.get_vocab_size(),
             "tie_word_embeddings": True, "eos_token_id": eos}
+    tokens = {"image_token_id": tok.token_to_id("<|image_pad|>"),
+              "video_token_id": tok.token_to_id("<|video_pad|>"),
+              "vision_start_token_id": tok.token_to_id("<|vision_start|>")}
     cfg = ({"architectures": ["Qwen3_5ForConditionalGeneration"],
-            "text_config": text, "vision_config": VISION} if vision
-           else {**text, "architectures": ["Qwen3_5ForCausalLM"]})
+            "text_config": text, "vision_config": VISION, **tokens}
+           if vision else {**text, "architectures": ["Qwen3_5ForCausalLM"]})
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
-    with open(os.path.join(path, "generation_config.json"), "w") as f:
-        json.dump({"eos_token_id": [eos]}, f)
-    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
-        json.dump({"chat_template": CHAT_TEMPLATE}, f)
-    model = T.Qwen3_5Model(T.Qwen3_5TextConfig.from_dict(text))
+    write_template(path, tok)
+    text_cfg = T.Qwen3_5TextConfig.from_dict(text)
+    vl = (T.Qwen3_5Config(text=text_cfg,
+                          vision=Qwen3VLVisionConfig.from_dict(VISION),
+                          **tokens) if vision else None)
+    model = T.Qwen3_5Model(text_cfg, vl_config=vl)
     params = model.init_random(torch.Generator().manual_seed(5), scale=0.3)
     save_hf_qwen3_5(params, path, prefix="model.language_model." if vision
                     else "model.")
-    if vision:
-        st = os.path.join(path, "model.safetensors")
-        tensors = load_file(st)
-        tensors["model.visual.patch_embed.proj.weight"] = torch.zeros(
-            32, 3, 2, 16, 16)
-        save_file(tensors, st)
     return path
 
 
@@ -417,41 +418,40 @@ def test_text_repo_serves_as_the_reference(cpu, text_repo, slots):
 
 def test_vision_repo_refuses_slots_and_images(cpu, vl_repo, text_repo):
     """A checkpoint with a vision_config: --batch-slots 4 refused before
-    any weights load with aha_tpu's words; single-stream it loads the
-    decoder from model.language_model.* and answers a text chat as the
-    text-only checkpoint of the same weights does; an image part is
-    refused naming the missing tower, a video part as every port model
-    refuses one."""
+    any weights load with aha_tpu's words, as the GGUF entry is; single
+    stream, Qwen3_5VLChat answers a text chat as the text-only checkpoint
+    of the same decoder weights does, and an image chat and a video chat
+    as aha_tpu's Qwen3_5VLChat does."""
     from aha_tpu.models.loader import load_model as jload_model
     from aha_tpu_torch.models.loader import load_model
     from aha_tpu_torch.models.qwen3_5_served import (GGUF_NOT_PORTED,
-                                                     IMAGE_NOT_PORTED,
-                                                     VL_SLOTS)
-    from aha_tpu_torch.utils.video import VIDEO_NOT_PORTED
+                                                     VL_SLOTS, Qwen3_5VLChat)
+    from tests.vision_chat import npz_data_url, png_data_url
 
     with pytest.raises(ValueError) as got:
         load_model("Qwen/Qwen3.5-0.8B", vl_repo, batch_slots=4)
     with pytest.raises(ValueError) as want:
         jload_model("Qwen/Qwen3.5-0.8B", vl_repo, batch_slots=4)
     assert str(got.value) == str(want.value) == VL_SLOTS
-    served = load_model("Qwen/Qwen3.5-0.8B", vl_repo, max_seq_len=256)
+    with pytest.raises(NotImplementedError) as e:
+        load_model("qwen3.5-gguf", vl_repo)
+    assert str(e.value) == GGUF_NOT_PORTED
+    served = load_model("Qwen/Qwen3.5-0.8B", vl_repo, max_seq_len=1024)
+    assert isinstance(served, Qwen3_5VLChat)
+    assert served.engine.prefix_cache_entries == 0
     mes, _ = _chat("the quick brown fox")
     plain = load_model("Qwen/Qwen3.5-0.8B", text_repo, max_seq_len=256)
     assert served.generate(mes).choices[0].message.text() == \
         plain.generate(mes).choices[0].message.text()
-    image = [{"type": "text", "text": "what is this?"},
-             {"type": "image_url",
-              "image_url": {"url": "data:image/png;base64,AAAA"}}]
-    with pytest.raises(NotImplementedError) as e:
-        served.generate(_chat(image)[0])
-    assert str(e.value) == IMAGE_NOT_PORTED and "Qwen3-VL" in str(e.value)
-    video = [{"type": "video_url", "video_url": {"url": "file:///x.mp4"}}]
-    with pytest.raises(NotImplementedError, match="video"):
-        served.generate(_chat(video)[0])
-    assert VIDEO_NOT_PORTED
-    with pytest.raises(NotImplementedError) as e:
-        load_model("qwen3.5-gguf", vl_repo)
-    assert str(e.value) == GGUF_NOT_PORTED
+    jserved = jload_model("Qwen/Qwen3.5-0.8B", vl_repo, max_seq_len=1024)
+    for part in ({"type": "image_url",
+                  "image_url": {"url": png_data_url(96, 64, seed=3)}},
+                 {"type": "video_url", "video_url": {"url": npz_data_url()}}):
+        mes, jmes = _chat([{"type": "text", "text": "what is this?"}, part])
+        got, want = served.generate(mes), jserved.generate(jmes)
+        assert got.usage.prompt_tokens == want.usage.prompt_tokens > 20
+        assert got.choices[0].message.text() == \
+            want.choices[0].message.text()
 
 
 def test_config_reads_text_config_and_rope_parameters(vl_repo):
