@@ -4,17 +4,18 @@
 - `serv <path>`: serve a local checkpoint as the registry id --model
   names: Qwen3 or MiniCPM4/5 chat, Qwen2.5-VL image chat, or a Qwen3
   embedding / reranker or all-MiniLM-L6-v2 model behind /v1/embeddings
-  and /v1/rerank.  A directory whose config.json has model_type
-  "qwen2_5_vl" is served as Qwen/Qwen2.5-VL-3B-Instruct unless --model
-  names another id.
+  and /v1/rerank.  A directory whose config.json has a model_type of
+  MODEL_TYPES (qwen2_5_vl, qwen3_vl, paddleocr_vl, lfm2_vl) is served as
+  that type's id unless --model names another.
   `--batch-slots N` serves N chats at once through the continuous-batching
   engine; `--spec-tokens N` drafts N tokens a speculative round on the
   single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
   cache in int8.
 - `run <path> --input ...`: one chat from the command line (text, or for
-  a vlm a prompt and an image), the vectors of an embedding model's
-  inputs, or a reranker's ranking of `--input query --input doc ...`,
-  with the load and generate times.
+  a vlm a prompt and an image, or for an OCR model an image and an
+  optional prompt, the family's task prompt by default), the vectors of
+  an embedding model's inputs, or a reranker's ranking of `--input query
+  --input doc ...`, with the load and generate times.
 - `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
   the downloaded mark, a downloaded model's removal, the running servers.
 
@@ -37,7 +38,15 @@ from aha_tpu_torch.utils.device import default_save_dir
 DEFAULT_MODEL = "Qwen/Qwen3-0.6B"
 #: config.json model_type → the id a directory is served as by default
 MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct",
-               "qwen3_vl": "Qwen/Qwen3-VL-8B-Instruct"}
+               "qwen3_vl": "Qwen/Qwen3-VL-8B-Instruct",
+               "paddleocr_vl": "PaddlePaddle/PaddleOCR-VL",
+               # transformers registers lfm2_vl; its config class writes
+               # lfm2-vl into a saved config.json
+               "lfm2_vl": "LiquidAI/LFM2-VL-1.6B",
+               "lfm2-vl": "LiquidAI/LFM2-VL-1.6B"}
+#: family → default OCR instruction (the JAX CLI's); each OCR family
+#: adds its own as it is ported
+_OCR_PROMPTS = {"paddleocr_vl": "OCR:"}
 
 
 def model_id_for(path: str, model: str) -> str:
@@ -100,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_path(r)
     r.add_argument("--input", required=True, action="append",
                    help="repeatable: the prompt (text, or file:// text), "
-                        "then for a vlm the image (path or URL); an "
+                        "then for a vlm the image (path or URL); for an "
+                        "OCR model the image, then an optional prompt; an "
                         "embedding model's texts; a reranker's query, "
                         "then its documents")
     r.add_argument("--max-tokens", type=int, default=1024)
@@ -224,14 +234,16 @@ def _chat_req(model_id: str, content, max_tokens: int, greedy: bool):
 
 def run_run(args) -> int:
     """One request, printing the model-load and generate wall times as
-    the JAX CLI's `run` does: text chat (llm), image chat (vlm), an
-    embedding model's vectors, a reranker's ranking."""
+    the JAX CLI's `run` does: text chat (llm), image chat (vlm), an OCR
+    model's reading of an image (ocr), an embedding model's vectors, a
+    reranker's ranking."""
     model_id = model_id_for(args.path, args.model)
-    mt = registry.lookup(model_id).model_type
-    if mt not in ("llm", "vlm", "embedding", "reranker"):
+    entry = registry.lookup(model_id)
+    mt = entry.model_type
+    if mt not in ("llm", "vlm", "ocr", "embedding", "reranker"):
         raise NotImplementedError(
             f"`run` of a {mt} model is not ported to aha_tpu_torch yet "
-            "(text and image chat, embeddings and reranking are)")
+            "(text and image chat, OCR, embeddings and reranking are)")
     inputs: list[str] = args.input
     if mt == "vlm" and len(inputs) < 2:
         print(f"{model_id} needs --input <prompt> --input <image>")
@@ -254,16 +266,23 @@ def run_run(args) -> int:
     if mt in ("embedding", "reranker"):
         print(f"generate use time: {time.perf_counter() - t0:.2f}s")
         return 0
-    content = _maybe_file_text(inputs[0])
     greedy = False
     if mt == "vlm":
         content = [{"type": "image_url",
                     "image_url": {"url": _as_url(inputs[1])}},
-                   {"type": "text", "text": content}]
-    elif args.spec_tokens > 0:
-        greedy = True
-        print("note: --spec-tokens forces greedy sampling "
-              "(speculation is exact only for greedy decoding)")
+                   {"type": "text", "text": _maybe_file_text(inputs[0])}]
+    elif mt == "ocr":
+        prompt = (_maybe_file_text(inputs[1]) if len(inputs) > 1
+                  else _OCR_PROMPTS[entry.family])
+        content = [{"type": "image_url",
+                    "image_url": {"url": _as_url(inputs[0])}},
+                   {"type": "text", "text": prompt}]
+    else:
+        content = _maybe_file_text(inputs[0])
+        if args.spec_tokens > 0:
+            greedy = True
+            print("note: --spec-tokens forces greedy sampling "
+                  "(speculation is exact only for greedy decoding)")
     resp = model.generate(_chat_req(model_id, content, args.max_tokens,
                                     greedy))
     print(resp.choices[0].message.text() if resp.choices else "")

@@ -3,17 +3,20 @@
 `params_from_jax` takes aha_tpu's Qwen3 or llama parameter tree as numpy
 arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
 `load_qwen3_gguf` produce, fused or not), a vision-language tree
-({"visual": ..., "text": ...}: Qwen2.5-VL's over a llama tree, Qwen3-VL's
-over a Qwen3 tree; the vision blocks and deepstack mergers lists), a
-hybrid decoder's tree (`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer
-"layers" list of layer dicts of two kinds, and Qwen3.5's "visual" tower
-subtree where it has one), or a BERT tree (`BertModel`'s:
+({"visual": ..., "text": ...}: Qwen2.5-VL's and PaddleOCR-VL's over a
+llama tree, Qwen3-VL's over a Qwen3 tree; the vision blocks, encoder
+layers and deepstack mergers lists), a hybrid decoder's tree
+(`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer "layers" list of layer
+dicts of two kinds, and Qwen3.5's "visual" tower subtree where it has
+one; LFM2-VL's is LFM2's with its "visual" tower and "projector" beside
+the decoder's keys), or a BERT tree (`BertModel`'s:
 "embeddings" and a "layers" list, linear weights and norms with biases, no
 head), and returns the port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
 head turned from the JAX (K, V) to the port's vocab-major (V, K), every
 GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`,
-and Qwen3.5's `a_log` / `dt_bias` kept float32 whatever `dtype` is.  A
+and Qwen3.5's `a_log` / `dt_bias` and LFM2-VL's position table
+`pos_table` kept float32 whatever `dtype` is.  A
 tied head — one equal to the transposed embedding — shares the
 embedding's storage instead of being copied.  `cache_from_jax` carries a
 JAX KV cache across in the port's layout, so tests compare caches
@@ -28,7 +31,7 @@ import torch
 from aha_tpu_torch.ops.quant_matmul import is_quantized
 
 #: parameters the port keeps in float32 at any compute dtype
-F32_LEAVES = ("a_log", "dt_bias")
+F32_LEAVES = ("a_log", "dt_bias", "pos_table")
 #: the JAX packer's K chunk, whose second half its 4-bit grid folds
 K_CHUNK = 1024
 

@@ -18,6 +18,8 @@ import os
 
 import torch
 
+from aha_tpu_torch.models import siglip
+
 
 class SafetensorsSource:
     def __init__(self, paths: list[str]):
@@ -208,14 +210,14 @@ def _hf_conv(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous()[:, None, :].cpu()
 
 
-def save_hf_lfm2(params: dict, path: str) -> None:
-    """Write the port's (unfused) Lfm2Model parameters with HF LFM2 names
-    (the inverse of Lfm2Model.load_params)."""
-    out = {"model.embedding_norm.weight":
+def _hf_lfm2(params: dict, prefix: str = "model.") -> dict:
+    """HF LFM2 names of an Lfm2Model tree's decoder under `prefix` (the
+    inverse of Lfm2Model.load_params); lm_head unless tied."""
+    out = {prefix + "embedding_norm.weight":
            params["embedding_norm"]["w"].cpu()}
-    _hf_head(out, params)
+    _hf_head(out, params, prefix)
     for i, lp in enumerate(params["layers"]):
-        p = f"model.layers.{i}."
+        p = f"{prefix}layers.{i}."
         out[p + "operator_norm.weight"] = lp["operator_norm"]["w"].cpu()
         out[p + "ffn_norm.weight"] = lp["ffn_norm"]["w"].cpu()
         for name, key in (("w1", "gate"), ("w3", "up"), ("w2", "down")):
@@ -232,6 +234,78 @@ def save_hf_lfm2(params: dict, path: str) -> None:
                 out[p + "conv.conv.bias"] = lp["conv"]["b"].cpu()
             _hf_linear(out, p + "conv.in_proj", lp["in_proj"])
             _hf_linear(out, p + "conv.out_proj", lp["out_proj"])
+    return out
+
+
+def save_hf_lfm2(params: dict, path: str) -> None:
+    """Write the port's (unfused) Lfm2Model parameters with HF LFM2 names
+    (the inverse of Lfm2Model.load_params)."""
+    _save(_hf_lfm2(params), path)
+
+
+def _hf_norm(out: dict, name: str, p: dict) -> None:
+    """A norm's weight, and its bias where it has one."""
+    out[name + ".weight"] = p["w"].cpu()
+    if "b" in p:
+        out[name + ".bias"] = p["b"].cpu()
+
+
+def _hf_siglip_layers(out: dict, prefix: str, layers: list) -> None:
+    """SigLIP encoder blocks under `prefix` (the inverse of
+    models/siglip.block_params)."""
+    for i, lp in enumerate(layers):
+        for key, name in siglip.BLOCK_NORMS:
+            _hf_norm(out, f"{prefix}{i}.{name}", lp[key])
+        for key, name in siglip.BLOCK_LINEARS:
+            _hf_linear(out, f"{prefix}{i}.{name}", lp[key])
+
+
+def save_hf_paddleocr_vl(params: dict, path: str) -> None:
+    """Write the port's (unfused) PaddleOCR-VL parameters with the names
+    of a published checkpoint (the inverse of PaddleOCRVLModel.load_params):
+    the tower under visual.vision_model. with its patch embedding as the
+    (d, 3, p, p) conv weight, the projector under mlp_AR., the ERNIE
+    decoder under model. (biases where it has them)."""
+    vp = params["visual"]
+    vm = "visual.vision_model."
+    pe = vp["patch_embed"]["w"]                     # (3·p·p, d)
+    p = int(round((pe.shape[0] // 3) ** 0.5))
+    out = {vm + "embeddings.patch_embedding.weight":
+           pe.t().reshape(pe.shape[1], 3, p, p).contiguous().cpu(),
+           vm + "embeddings.patch_embedding.bias":
+           vp["patch_embed"]["b"].cpu(),
+           vm + "embeddings.position_embedding.weight":
+           vp["pos_embed"]["w"].contiguous().cpu()}
+    _hf_norm(out, vm + "post_layernorm", vp["post_ln"])
+    _hf_norm(out, "mlp_AR.pre_norm", vp["proj"]["pre_norm"])
+    _hf_linear(out, "mlp_AR.linear_1", vp["proj"]["fc1"])
+    _hf_linear(out, "mlp_AR.linear_2", vp["proj"]["fc2"])
+    _hf_siglip_layers(out, vm + "encoder.layers.", vp["layers"])
+    out.update(_hf_decoder(params["text"]))
+    _save(out, path)
+
+
+def save_hf_lfm2vl(params: dict, path: str) -> None:
+    """Write the port's (unfused) LFM2-VL parameters with the names of an
+    Lfm2VlForConditionalGeneration checkpoint (the inverse of
+    Lfm2VLModel.load_params): the decoder under model.language_model.,
+    the tower under model.vision_tower.vision_model., the projector under
+    model.multi_modal_projector."""
+    out = _hf_lfm2(params, "model.language_model.")
+    vp = params["visual"]
+    vt = "model.vision_tower.vision_model."
+    _hf_linear(out, vt + "embeddings.patch_embedding",
+               vp["patch_embedding"])
+    out[vt + "embeddings.position_embedding.weight"] = \
+        vp["pos_table"].contiguous().cpu()
+    _hf_norm(out, vt + "post_layernorm", vp["post_ln"])
+    _hf_siglip_layers(out, vt + "encoder.layers.", vp["layers"])
+    mp = "model.multi_modal_projector."
+    pj = params["projector"]
+    if "ln" in pj:
+        _hf_norm(out, mp + "layer_norm", pj["ln"])
+    _hf_linear(out, mp + "linear_1", pj["l1"])
+    _hf_linear(out, mp + "linear_2", pj["l2"])
     _save(out, path)
 
 

@@ -194,15 +194,19 @@ class Lfm2Model:
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
                  prompt_len: int | None = None, from_cache: bool = False,
-                 window: int | None = None) -> torch.Tensor:
+                 window: int | None = None,
+                 inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
         """Embeddings → final hidden; writes K/V rows at [pos, pos + S) and
         the conv windows in place, and leaves pos as it was.  `prompt_len`
         (a host int, default S) is a padded prefill's true length; `window`
-        (the engine's bound on the live rows) is accepted and unused."""
+        (the engine's bound on the live rows) is accepted and unused;
+        `inputs_embeds` (B, S, D), where given, stands for the token
+        embeddings (LFM2-VL's image features spliced in)."""
         c = self.config
         B, S = input_ids.shape
         prompt_len = S if prompt_len is None else prompt_len
-        x = nn.embedding(params["embed"], input_ids)
+        x = (inputs_embeds if inputs_embeds is not None
+             else nn.embedding(params["embed"], input_ids))
         positions, rope_at, valid_len = self.attn.positions(
             cache, S, self.cos.shape[0], x.device)
         cos, sin = gather_rope(self.cos, self.sin, rope_at)

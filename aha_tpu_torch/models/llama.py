@@ -1,7 +1,8 @@
 """Parameterized llama-style decoder (counterpart of aha_tpu/models/llama.py):
-the text backbone of Qwen2.5-VL (the qwen2 form, q/k/v bias) and of the
-MiniCPM families (LongRoPE + mup scalings), with optional qwen3-style
-qk-norm.  Flags in LlamaConfig select the variant; the forward is one code
+the text backbone of Qwen2.5-VL (the qwen2 form, q/k/v bias), of
+PaddleOCR-VL (ERNIE-4.5: q/k/v, o and MLP biases where its config sets
+use_bias) and of the MiniCPM families (LongRoPE + mup scalings), with
+optional qwen3-style qk-norm.  Flags in LlamaConfig select the variant; the forward is one code
 path.
 
 Parameters follow the port's Qwen3 layout (models/qwen3.py): layers
@@ -53,6 +54,8 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
     qkv_bias: bool = False          # qwen2-style q/k/v bias
+    o_bias: bool = False            # ERNIE-4.5 with use_bias: o_proj bias
+    mlp_bias: bool = False          # and gate/up/down biases
     qk_norm: bool = False           # qwen3-style per-head rms q/k norm
     # mup-style scalings (minicpm4); neutral defaults
     scale_emb: float = 1.0
@@ -317,9 +320,9 @@ class LlamaModel:
     def init_random(self, generator: torch.Generator,
                     dtype: torch.dtype = torch.float32,
                     scale: float = 0.02) -> dict:
-        """Seeded random parameters at this config's geometry (zero q/k/v
-        biases where the config has them, unit norms), drawn on the generator's device and moved to
-        self.device."""
+        """Seeded random parameters at this config's geometry (zero biases
+        where the config has them — q/k/v, o, the MLP —, unit norms), drawn
+        on the generator's device and moved to self.device."""
         c = self.config
         d, hd, L = c.hidden_size, self.head_dim, self.n_layers
         gdev = generator.device
@@ -343,10 +346,10 @@ class LlamaModel:
             "q": lin(d, self.n_heads * hd, c.qkv_bias),
             "k": lin(d, self.n_kv_heads * hd, c.qkv_bias),
             "v": lin(d, self.n_kv_heads * hd, c.qkv_bias),
-            "o": lin(self.n_heads * hd, d),
-            "mlp": {"gate": lin(d, c.intermediate_size),
-                    "up": lin(d, c.intermediate_size),
-                    "down": lin(c.intermediate_size, d)},
+            "o": lin(self.n_heads * hd, d, c.o_bias),
+            "mlp": {"gate": lin(d, c.intermediate_size, c.mlp_bias),
+                    "up": lin(d, c.intermediate_size, c.mlp_bias),
+                    "down": lin(c.intermediate_size, d, c.mlp_bias)},
         }
         if c.qk_norm:
             layers["q_norm"] = {"w": full(1.0, L, hd)}

@@ -4,6 +4,7 @@ models), the llama text families minicpm4 / minicpm5, the hybrid text
 families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5: text, and image and
 video chat on a checkpoint with a vision tower), qwen2_5vl (Qwen2.5-VL
 image and video chat), qwen3vl (Qwen3-VL image and video chat),
+paddleocr_vl (PaddleOCR-VL document OCR), lfm2vl (LFM2-VL image chat),
 qwen3_embedding / qwen3_reranker and
 minilm (all-MiniLM-L6-v2); every other family raises NotImplementedError.
 The reference's option checks run first, before any weights load, with
@@ -81,8 +82,22 @@ def _qwen3vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return Qwen3VLChat.load(entry, path, **kw)
 
 
+def _paddleocr_vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.paddleocr_vl_served import PaddleOCRVLChat
+
+    return PaddleOCRVLChat.load(entry, path, **kw)
+
+
+def _lfm2vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.lfm2vl_served import Lfm2VLChat
+
+    return Lfm2VLChat.load(entry, path, **kw)
+
+
 FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "minilm": _minilm,
+    "paddleocr_vl": _paddleocr_vl,
+    "lfm2vl": _lfm2vl,
     "qwen2_5vl": _qwen2_5vl,
     "qwen3vl": _qwen3vl,
     "qwen3": _qwen3,
@@ -132,6 +147,6 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
         raise NotImplementedError(
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
             "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
-            "Qwen3-VL, Qwen3 embedding and reranker, and "
-            "all-MiniLM-L6-v2 models are)")
+            "Qwen3-VL, PaddleOCR-VL, LFM2-VL, Qwen3 embedding and "
+            "reranker, and all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -53,6 +53,17 @@ def _pad(a: np.ndarray, fill, size: int) -> np.ndarray:
     return out
 
 
+def rope_ids_to_bucket(position_ids: np.ndarray) -> np.ndarray:
+    """(3, S) M-RoPE ids padded to the engine's prompt bucket: the padded
+    positions continue past the prompt's largest."""
+    extra = bucket_for(position_ids.shape[1]) - position_ids.shape[1]
+    if extra <= 0:
+        return position_ids
+    cont = position_ids.max() + 1 + np.arange(extra)
+    return np.concatenate([position_ids, np.broadcast_to(cont, (3, extra))],
+                          axis=1)
+
+
 def expand_image(rendered: str, src: str, v, min_pixels: int,
                  max_pixels: int) -> tuple[str, np.ndarray, tuple]:
     """One image part: loaded and preprocessed on the Qwen-VL grid of the
@@ -96,13 +107,7 @@ def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
     }
     position_ids, rope_delta = get_rope_index(
         input_ids, grids, cfg, second_per_grid_ts=second_per_grid_ts)
-    blen = bucket_for(len(input_ids))
-    if blen > position_ids.shape[1]:
-        extra = blen - position_ids.shape[1]
-        cont = position_ids.max() + 1 + np.arange(extra)
-        position_ids = np.concatenate(
-            [position_ids, np.broadcast_to(cont, (3, extra))], axis=1)
-    mm["position_ids"] = position_ids
+    mm["position_ids"] = rope_ids_to_bucket(position_ids)
     mm["rope_delta"] = rope_delta
     return mm
 

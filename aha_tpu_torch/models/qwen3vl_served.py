@@ -22,12 +22,12 @@ import os
 
 import numpy as np
 
-from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.qwen2_5vl_served import (_pad, expand_image,
-                                                    patch_bucket)
+                                                    patch_bucket,
+                                                    rope_ids_to_bucket)
 from aha_tpu_torch.models.qwen3vl import (Qwen3VLConfig, Qwen3VLModel,
                                           get_rope_index_qwen3vl,
                                           vision_geometry_qwen3vl)
@@ -62,13 +62,7 @@ def build_mm(patches_list: list[np.ndarray], grids: list[tuple],
           "pos_idx": _pad(geo["pos_idx"], 0, bucket),
           "pos_w": _pad(geo["pos_w"], 0.0, bucket)}
     position_ids, rope_delta = get_rope_index_qwen3vl(input_ids, grids, cfg)
-    blen = bucket_for(len(input_ids))
-    if blen > position_ids.shape[1]:
-        extra = blen - position_ids.shape[1]
-        cont = position_ids.max() + 1 + np.arange(extra)
-        position_ids = np.concatenate(
-            [position_ids, np.broadcast_to(cont, (3, extra))], axis=1)
-    mm["position_ids"] = position_ids
+    mm["position_ids"] = rope_ids_to_bucket(position_ids)
     mm["rope_delta"] = rope_delta
     return mm
 

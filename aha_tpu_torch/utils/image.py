@@ -1,9 +1,11 @@
-"""Host-side image utilities (the port's copy of the Qwen-VL part of
-aha_tpu/utils/image.py): load from a data: URL, base64, file:// or a path,
-Qwen-VL smart resize to the factor-28 grid, CLIP normalization and the
-merge-blocked patchify.  Decoding stays on the host (Pillow); everything
-after is numpy feeding the device.  http(s) URLs are fetched with
-`requests`, as the reference does.
+"""Host-side image utilities (the port's copy of the Qwen-VL, SigLIP and
+tiling parts of aha_tpu/utils/image.py): load from a data: URL, base64,
+file:// or a path, Qwen-VL smart resize to the factor-28 grid, CLIP
+normalization and the merge-blocked patchify; the SigLIP (NaViT) row-major
+patchify and its preprocessing (PaddleOCR-VL); the tile grids, their
+closest aspect ratio and the tile crop (LFM2-VL).  Decoding stays on the
+host (Pillow); everything after is numpy feeding the device.  http(s) URLs
+are fetched with `requests`, as the reference does.
 """
 
 from __future__ import annotations
@@ -111,3 +113,90 @@ def preprocess_image_qwen_vl(img, patch_size: int = 14, merge_size: int = 2,
     frames = to_normalized_array(img)[None]  # (1, C, H, W)
     return patchify_qwen_vl(frames, patch_size, merge_size,
                             temporal_patch_size)
+
+
+def patchify_siglip(frames: np.ndarray, patch_size: int = 14
+                    ) -> tuple[np.ndarray, tuple[int, int, int]]:
+    """(T, C, H, W) → (T·gh·gw, C·p·p) patches in ROW-MAJOR order (the
+    PaddleOCR-VL NaViT packing — no temporal patching, no merge blocking)."""
+    T, C, H, W = frames.shape
+    p = patch_size
+    gh, gw = H // p, W // p
+    x = frames.reshape(T, C, gh, p, gw, p).transpose(0, 2, 4, 1, 3, 5)
+    return (x.reshape(T * gh * gw, C * p * p).astype(np.float32),
+            (T, gh, gw))
+
+
+def preprocess_image_siglip(img, patch_size: int = 14, merge_size: int = 2,
+                            min_pixels: int = 28 * 28,
+                            max_pixels: int = 28 * 28 * 4096,
+                            mean: float = 0.5, std: float = 0.5
+                            ) -> tuple[np.ndarray, tuple[int, int, int]]:
+    """image → (patches, grid_thw): smart resize to the factor
+    patch · merge grid, scalar mean / std, row-major patchify."""
+    from PIL import Image
+
+    factor = patch_size * merge_size
+    w, h = img.size
+    h2, w2 = smart_resize(h, w, factor, min_pixels, max_pixels)
+    img = img.resize((w2, h2), Image.BICUBIC)
+    arr = np.asarray(img, np.float32) / 255.0
+    arr = ((arr - mean) / std).transpose(2, 0, 1)
+    return patchify_siglip(arr[None], patch_size)
+
+
+def generate_target_ratios(min_num: int, max_num: int
+                           ) -> list[tuple[int, int]]:
+    """All (w, h) tile grids with min_num <= w*h <= max_num, sorted by
+    area (img_utils.rs:114-132)."""
+    ratios = {(i, j)
+              for n in range(min_num, max_num + 1)
+              for i in range(1, n + 1)
+              for j in range(1, n + 1)
+              if min_num <= i * j <= max_num}
+    return sorted(ratios, key=lambda r: r[0] * r[1])
+
+
+def find_closest_aspect_ratio(aspect_ratio: float,
+                              target_ratios: list[tuple[int, int]],
+                              width: int, height: int,
+                              image_size: int) -> tuple[int, int]:
+    """Best (grid_w, grid_h) for the image (img_utils.rs:135-163): the
+    closest aspect ratio, a tie going to the larger grid where the image
+    covers more than half of it."""
+    best_diff = float("inf")
+    best = (1, 1)
+    area = width * height
+    for ratio in target_ratios:
+        target_ar = ratio[0] / ratio[1]
+        diff = abs(aspect_ratio - target_ar)
+        if diff < best_diff:
+            best_diff = diff
+            best = ratio
+        elif abs(diff - best_diff) < 1e-10:
+            if area > 0.5 * image_size * image_size * ratio[0] * ratio[1]:
+                best = ratio
+    return best
+
+
+def crop_img(img, grid_h: int, grid_w: int, image_size: int) -> list:
+    """Resize to the exact grid and cut image_size tiles row-major
+    (img_utils.rs:165-191)."""
+    from PIL import Image
+
+    resized = img.resize((image_size * grid_w, image_size * grid_h),
+                         Image.BICUBIC)
+    tiles = []
+    for i in range(grid_w * grid_h):
+        x1 = (i % grid_w) * image_size
+        y1 = (i // grid_w) * image_size
+        tiles.append(resized.crop((x1, y1, x1 + image_size, y1 + image_size)))
+    return tiles
+
+
+def extract_image_sources(mes) -> list[str]:
+    """All image_url part URLs of a chat request, in order."""
+    from aha_tpu_torch.params import extract_parts
+
+    return [p.image_url.url for m in mes.messages
+            for p in extract_parts(m.content, "image_url")]

@@ -4,6 +4,7 @@
     python -m aha_tpu_torch.utils.profile_decode --quant q8|q4
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
     python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl|qwen3vl
+    python -m aha_tpu_torch.utils.profile_decode --model paddleocr_vl|lfm2vl
     python -m aha_tpu_torch.utils.profile_decode --spec-tokens 8 [--no-drafts]
     ... [--eager]
 
@@ -81,7 +82,13 @@ llama-family text decoder's per-op chain over the 5-D cache.
 layers at hidden 4096; --image-px a multiple of 32, 1024 by default:
 4,096 patches): the tower, the image
 prefill and a decode block of the per-op Qwen3 layers over the flat cache
-with the greedy head kernel.
+with the greedy head kernel.  `--model paddleocr_vl` reads
+PaddleOCR-VL-0.9B (models/paddleocr_vl.py paddleocr_vl_0_9b: the 27-block
+SigLIP tower at D 72, ERNIE-4.5-0.3B's 18 layers) on an A4 page at 150
+dpi by default (11,088 patches in the 16,384 bucket), `--model lfm2vl`
+LFM2-VL-1.6B (models/lfm2vl.py lfm2vl_1_6b: the 26-block SigLIP2 tower
+with plain masked sdpa, LFM2-1.2B's decoder) on a 1,536 x 1,024 image cut
+into 3 x 2 tiles and a thumbnail: the same three readings.
 """
 
 from __future__ import annotations
@@ -159,6 +166,10 @@ def drive_concurrent(eng, prompts: list[list[int]], cfg, max_tokens: int,
     if errs:
         raise errs[0]
     return outs, ttft, wall, peak[0] if monitor else None
+
+
+#: the --model choices profile_vl reads
+VL_MODELS = ("qwen2_5vl", "qwen3vl", "paddleocr_vl", "lfm2vl")
 
 
 def _how(args) -> str:
@@ -474,14 +485,67 @@ def profile_spec(model, params, args, card: str) -> None:
                       "streams_equal_for": same}))
 
 
-def profile_vl(args, card: str) -> None:
-    """Qwen2.5-VL-3B or Qwen3-VL-8B: the tower, the image prefill and a
-    decode block."""
-    from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
-    from aha_tpu_torch.core.sampling import SamplingConfig
-    from aha_tpu_torch.models.qwen2_5vl import mm_to
+def _vl_request(args, rng):
+    """(name, model, params, ids, host mm, vision(params, mm), real
+    patches) of the VL geometry --model names, seeded bf16 weights and a
+    seeded image."""
     from aha_tpu_torch.utils.image import patchify_qwen_vl, to_normalized_array
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def text(n):
+        return [int(t) for t in rng.integers(0, 100000, n)]
+
+    if args.model == "paddleocr_vl":
+        from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLModel,
+                                                       paddleocr_vl_0_9b)
+        from aha_tpu_torch.models.paddleocr_vl_served import build_mm
+        from aha_tpu_torch.utils.image import patchify_siglip
+
+        cfg = paddleocr_vl_0_9b()
+        model = PaddleOCRVLModel(cfg, max_rope_len=8192, device="cuda")
+        params = model.init_random(gen, dtype=torch.bfloat16)
+        # an A4 page at 150 dpi by default: 1,240 x 1,754 px resized to the
+        # factor-28 grid, 126 x 88 patches
+        h, w = ((args.image_px, args.image_px) if args.image_px
+                else (1764, 1232))
+        pixels = rng.integers(0, 255, (h, w, 3)).astype(np.float32)
+        patches, grid = patchify_siglip(
+            ((pixels / 255.0 - 0.5) / 0.5).transpose(2, 0, 1)[None], 14)
+        ids = (text(12) + [cfg.vision_start_token_id]
+               + [cfg.image_token_id] * (patches.shape[0] // 4) + text(8))
+        return ("PaddleOCR-VL-0.9B", model, params, ids,
+                build_mm([patches], [grid], ids, cfg),
+                lambda p, mm: model.encode_vision(p["visual"], mm),
+                patches.shape[0])
+    if args.model == "lfm2vl":
+        from PIL import Image
+
+        from aha_tpu_torch.models.lfm2vl import Lfm2VLModel, lfm2vl_1_6b
+        from aha_tpu_torch.models.lfm2vl_served import (build_mm,
+                                                        resize_and_split)
+
+        cfg = lfm2vl_1_6b()
+        model = Lfm2VLModel(cfg, max_rope_len=8192, device="cuda")
+        params = model.init_random(gen, dtype=torch.bfloat16)
+        # 1,536 x 1,024 by default: 3 x 2 tiles of 512 and a thumbnail
+        w, h = ((args.image_px, args.image_px) if args.image_px
+                else (1536, 1024))
+        img = Image.fromarray(rng.integers(0, 255, (h, w, 3),
+                                           dtype=np.uint8))
+        entries, _, _, _ = resize_and_split(img, cfg, {})
+        per = [p for p, _ in entries]
+        shapes = [s for _, s in entries]
+        units = sum((a // 2) * (b // 2) for a, b in shapes)
+        # text ids within LFM2's vocabulary and past its image id (396)
+        ids = ([int(t) for t in rng.integers(400, 60000, 12)]
+               + [cfg.image_token_id] * units
+               + [int(t) for t in rng.integers(400, 60000, 8)])
+        table = params["visual"]["pos_table"].float().cpu().numpy()
+        return ("LFM2-VL-1.6B", model, params, ids,
+                build_mm(per, shapes, table, cfg), model.encode_vision,
+                sum(len(p) for p in per))
+    side = args.image_px or (1024 if args.model == "qwen3vl" else 980)
     if args.model == "qwen3vl":
         from aha_tpu_torch.models.qwen3vl import Qwen3VLModel, qwen3vl_8b
         from aha_tpu_torch.models.qwen3vl_served import build_mm
@@ -495,12 +559,7 @@ def profile_vl(args, card: str) -> None:
 
         cfg, name = qwen2_5vl_3b(), "Qwen2.5-VL-3B"
         model = Qwen2_5VLModel(cfg, max_rope_len=8192, device="cuda")
-    params = model.init_random(torch.Generator(device="cuda").manual_seed(0),
-                               dtype=torch.bfloat16)
-    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
-                     cuda_graphs=not args.eager)
-    rng = np.random.default_rng(0)
-    side = args.image_px or (1024 if args.model == "qwen3vl" else 980)
+    params = model.init_random(gen, dtype=torch.bfloat16)
     pixels = rng.integers(0, 255, (side, side, 3), dtype=np.uint8)
     patches, grid = patchify_qwen_vl(to_normalized_array(pixels)[None],
                                      patch_size=cfg.vision.patch_size)
@@ -508,20 +567,37 @@ def profile_vl(args, card: str) -> None:
     ids = ([int(t) for t in rng.integers(0, 151643, 12)]
            + [cfg.vision_start_token_id] + [cfg.image_token_id] * n_img
            + [int(t) for t in rng.integers(0, 151643, 20)])
-    mm = mm_to(build_mm([patches], [grid], ids, cfg), torch.device("cuda"))
+    return (name, model, params, ids, build_mm([patches], [grid], ids, cfg),
+            lambda p, mm: model.encode_vision(p["visual"], mm),
+            patches.shape[0])
+
+
+def profile_vl(args, card: str) -> None:
+    """Qwen2.5-VL-3B, Qwen3-VL-8B, PaddleOCR-VL-0.9B or LFM2-VL-1.6B: the
+    tower, the image prefill and a decode block."""
+    from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    rng = np.random.default_rng(0)
+    name, model, params, ids, mm_np, encode, n_patches = _vl_request(args,
+                                                                     rng)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                     cuda_graphs=not args.eager)
+    mm = mm_to(mm_np, torch.device("cuda"))
+    side = args.image_px
     bucket = bucket_for(len(ids))
     cache_len = max(args.cache, bucket_for(len(ids) + args.steps + 1,
                                            CACHE_BUCKETS))
     greedy = SamplingConfig()
-    print(f"profile_decode: {name}, {side} px image ({patches.shape[0]}"
-          f" patches, bucket {mm['patches'].shape[0]}), prompt {len(ids)} "
-          f"(bucket {bucket}), cache {cache_len}, {args.steps}-step block "
-          f"| {card}")
+    print(f"profile_decode: {name}, image of {n_patches} real patches "
+          f"(--image-px {side or 'default'}), prompt {len(ids)} (bucket "
+          f"{bucket}), cache {cache_len}, {args.steps}-step block | {card}")
     with torch.no_grad():
         st = eng._take(cache_len)
 
         def vision():
-            model.encode_vision(eng.params["visual"], mm)
+            encode(eng.params, mm)
 
         def prefill():
             st.cache["pos"].zero_()
@@ -537,7 +613,8 @@ def profile_vl(args, card: str) -> None:
             prefill()
             block()
         out = {"config": f"{args.model} per-op" + _how(args), "card": card,
-               "image_px": side, "prompt": len(ids), "cache": cache_len,
+               "image_px": side, "patches": n_patches, "prompt": len(ids),
+               "cache": cache_len,
                "steps": args.steps, "graphs": _graphs(eng),
                "vision": _read(vision, 1), "prefill": _read(prefill, 1),
                "decode_block": _read(block, args.steps)}
@@ -569,12 +646,14 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", choices=("q8", "q4"),
                     help="pack the weights and head on this GGUF grid")
     ap.add_argument("--model", choices=("qwen3", "minicpm4", "lfm2",
-                                        "qwen3_5", "qwen2_5vl", "qwen3vl"),
+                                        "qwen3_5") + VL_MODELS,
                     default="qwen3",
                     help="minicpm4: MiniCPM4-0.5B's llama decoder; lfm2 / "
                          "qwen3_5: the hybrid decoders; qwen2_5vl / "
-                         "qwen3vl: Qwen2.5-VL-3B's / Qwen3-VL-8B's tower, "
-                         "image prefill and text decode")
+                         "qwen3vl / paddleocr_vl / lfm2vl: Qwen2.5-VL-3B's "
+                         "/ Qwen3-VL-8B's / PaddleOCR-VL-0.9B's / "
+                         "LFM2-VL-1.6B's tower, image prefill and text "
+                         "decode")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
                          "cuda_graphs=False) instead of replaying graphs")
@@ -583,9 +662,12 @@ def main(argv=None) -> int:
     ap.add_argument("--no-drafts", action="store_true",
                     help="with --spec-tokens: every round draftless")
     ap.add_argument("--image-px", type=int, default=None,
-                    help="with --model qwen2_5vl / qwen3vl: the image's "
-                         "side, a multiple of 28 / 32 (980 / 1024 by "
-                         "default)")
+                    help="with a VL --model: a square image's side, a "
+                         "multiple of 28 / 32 for qwen2_5vl / qwen3vl (980 "
+                         "/ 1024 by default); by default paddleocr_vl reads "
+                         "an A4 page at 150 dpi (1232 x 1764 after resize) "
+                         "and lfm2vl a 1536 x 1024 image (3 x 2 tiles and "
+                         "a thumbnail)")
     args = ap.parse_args(argv)
     need = max(BATCH_PROMPTS) + ENGINE_TOKENS
     if args.engine and (args.batch_slots < 2 or args.cache < need):
@@ -602,7 +684,7 @@ def main(argv=None) -> int:
     if args.passes:
         profile_passes(card)
         return 0
-    if args.model in ("qwen2_5vl", "qwen3vl"):
+    if args.model in VL_MODELS:
         profile_vl(args, card)
         return 0
     if args.model != "qwen3" and (args.quant or args.spec_tokens > 0):

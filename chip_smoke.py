@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
-LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, and
-Qwen3-VL and Qwen3.5 image and video chat paths once on one CUDA card.
+LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
+and Qwen3.5 image and video chat, PaddleOCR-VL document OCR and LFM2-VL
+image chat paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -168,6 +169,38 @@ before the last line:
    qwen3_vl, served as Qwen/Qwen3-VL-8B-Instruct) an image, a video and a
    text chat; Qwen3.5 with the tower, served as Qwen/Qwen3.5-0.8B, an
    image chat.
+10. ocr / lfm2vl — the SigLIP-tower families: (y) PaddleOCR-VL-0.9B's
+    published geometry (tower 27 blocks at hidden 1152, 16 heads of 72,
+    patch 14; ERNIE-4.5-0.3B 18 layers at hidden 1024, 16/2 heads of 128,
+    vocab 103424, tied; contiguous M-RoPE) with seeded bf16 weights through
+    TextEngine without a prefix store, as served: (y1) an A4 page at 150
+    dpi (1,240 x 1,754 px: 11,088 patches in the 16,384 bucket, one
+    segment, 2,772 image tokens, a 4,096-row prompt bucket) under "OCR:",
+    (y2) a 448 x 448 and a 672 x 224 image in one request and one segment
+    (1,792 patches in the 2,048 bucket, 448 image tokens) under "Table
+    Recognition:" and (y3) a 200-token text-only follow-up, 64 greedy
+    tokens each: the segment kernel 27 a request with images (D 72 on
+    contiguous q/k/v), the prefill kernel 18 a prefill of >= 128 rows,
+    flash_decode_at_layer 18 a step, the fused stack never; 8
+    teacher-forced steps of (y2) at 4 blocks + 4 layers against the f32
+    plain path on the CPU; (z) LFM2-VL-1.6B's geometry (SigLIP2 so400m
+    tower, 26 blocks at 1152, 16 heads of 72, patch 16, plain masked sdpa
+    as in the reference; projector 2560; LFM2-1.2B's decoder): (z1) an
+    unsplit 512 x 512 image (1,024 patches, 256 tokens) and (z2) a 1,536 x
+    1,024 one in 3 x 2 tiles of 512 and a 608 x 416 thumbnail (a tower
+    batch of 7 in the 1,024 bucket, 1,783 tokens), 64 tokens each, the
+    segment kernel never, 6 prefill launches a prefill and 6 decode a
+    step; the tower's attention timed beside masked sdpa; teacher-forced
+    at 4 + 4 on (z1) and (z2); tower ms, TTFT and decode ms/step graphed
+    and eager of each path in one JSON line; the kernel phase also holds the segment
+    kernel at (y1)'s page (contiguous q/k/v, S 16,384, plain version in
+    chunks of q rows, the two planted faults) beside unmasked sdpa on the
+    real rows, the prefill kernel at ERNIE's 16/2 heads (S 4,096) and the
+    stacked decode at its 18 layers;
+11. siglip-http — each family cut to 4 blocks + 4 layers at full width,
+    saved with the test tokenizer and its image tokens (config.json model
+    type paddleocr_vl / lfm2-vl) and served by `python -m aha_tpu_torch
+    serv` in a child under -X importtime: an image chat and a text chat.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -187,8 +220,8 @@ and its operations over the H100's peak for their type) and, where one
 PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
-JSON line of the hybrid readings, the JSON line of the vl3 readings, one
-JSON line of per-kernel results,
+JSON line of the hybrid readings, the JSON line of the vl3 readings, the
+JSON line of the siglip readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -1637,6 +1670,184 @@ def check_segmented_d72() -> None:
     torch.cuda.empty_cache()
 
 
+#: PaddleOCR-VL's tower at the segment kernel: an A4 page at 150 dpi
+#: (1,240 x 1,754 px, resized to 1,232 x 1,764: 88 x 126 patches of 14 px),
+#: one segment of 11,088 rows in the 16,384-row patch bucket, 16 heads of
+#: 72 as three separate contiguous (1, S, 16, 72) tensors (the tower's q, k
+#: and v linears)
+PAGE_BUCKET, PAGE_REAL = 16384, 11088
+#: q rows a chunk of the page's plain version (the whole would hold 17 GB
+#: of f32 scores)
+PAGE_CHUNK = 1024
+
+
+def _segment_plain_chunked(q, k, v, seg, rows: int = PAGE_CHUNK):
+    """flash_attention_segmented_plain in chunks of `rows` q rows: f32
+    masked sdpa of each chunk against every key, a pad row's output 0."""
+    from aha_tpu_torch.ops.attention import sdpa
+
+    S = q.shape[1]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    kf, vf = k.float(), v.float()
+    for r0 in range(0, S, rows):
+        sq = seg[r0:r0 + rows]
+        mask = ((sq[:, None] == seg[None, :]) & (seg[None, :] >= 0))
+        o = sdpa(q[:, r0:r0 + rows].float(), kf, vf, mask[None, None])
+        out[:, r0:r0 + rows] = torch.where((sq >= 0)[None, :, None, None],
+                                           o, 0.0)
+    return out
+
+
+def _tail_past_head(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """The fault the D 72 tensor maps must not make on a contiguous
+    (B, S, H, D) tensor: each head read `extra` columns past D — the next
+    head's first columns, head H - 1 the next row's head 0 (zeros past the
+    last row) — as a tail box whose map extent were the row stride would.
+    (B, S, H, D + extra) in f32."""
+    B, S, H, D = t.shape
+    flat = torch.cat([t.float().reshape(-1),
+                      t.new_zeros(extra, dtype=torch.float32)])
+    return flat.as_strided((B, S, H, D + extra), (S * H * D, H * D, D, 1))
+
+
+def check_segmented_page() -> None:
+    """The segment kernel's D 72 instance at PaddleOCR-VL's tower and page:
+    S 16,384 with one segment of PAGE_REAL rows and 5,296 pad rows (seg
+    −1), 16 heads of 72, q / k / v three separate contiguous tensors whose
+    heads differ (87 real k tiles of 128; each head's tail box sits just
+    before the next head's columns).  Every row against the f32 plain
+    version computed in chunks of PAGE_CHUNK q rows, within TOL_SEG_REL of
+    max |ref|; a repeat bit-equal; two planted faults the bound must
+    reject — a k tile hidden from every other row, and every head's q and
+    k reading 8 columns past D from the next head; device ms of the kernel,
+    of the chunked plain version, of unmasked F.scaled_dot_product_attention
+    on the 11,088 real rows alone, and the bound (4 · R² · 72 · 16 flop at
+    the bf16 peak)."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    S, R, H, D = PAGE_BUCKET, PAGE_REAL, 16, 72
+    seg = torch.cat([torch.zeros(R, dtype=torch.int32),
+                     -torch.ones(S - R, dtype=torch.int32)]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(1754)
+    q = (torch.randn((1, S, H, D), generator=g, device="cuda") * 4).bfloat16()
+    k = torch.randn((1, S, H, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, S, H, D), generator=g, device="cuda").bfloat16()
+    require(all(t.is_contiguous() for t in (q, k, v)),
+            "the page's q/k/v are not contiguous")
+    n0 = fa.flash_attention_segmented.launches
+    got = fa.flash_attention_segmented(q, k, v, seg)
+    again = fa.flash_attention_segmented(q, k, v, seg)
+    require(fa.flash_attention_segmented.launches == n0 + 2,
+            "the page's segment call did not launch the kernel")
+    ref = _segment_plain_chunked(q, k, v, seg)
+    t0 = 40 * 128 + 64                      # a k tile inside the segment
+    hidden = seg.clone()
+    hidden[t0:t0 + 64] = 1 << 30
+    outside = torch.ones(S, dtype=torch.bool, device="cuda")
+    outside[t0:t0 + 64] = False
+    bad_tile = fa.flash_attention_segmented(q, k, v, hidden)
+    q80, k80 = _tail_past_head(q, 8), _tail_past_head(k, 8)
+    v80 = torch.cat([v.float(), torch.zeros_like(v.float()[..., :8])], -1)
+    bad_tail = _segment_plain_chunked(q80, k80, v80, seg)[..., :D]
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "segmented page: a repeat is not "
+            "bit-equal")
+    require(bool((got[:, R:] == 0).all()), "segmented page: a pad row's "
+            "output is not 0")
+    err, rel = _rel_err(got, ref)
+    _, rel_tile = _rel_err(bad_tile[:, outside], ref[:, outside])
+    _, rel_tail = _rel_err(bad_tail, ref)
+    del bad_tile, bad_tail, q80, k80, v80, ref, again
+    require(rel <= TOL_SEG_REL, f"segmented page: err {rel} of max |ref|")
+    require(rel_tile > TOL_SEG_REL, f"segmented page: a hidden k tile stays "
+            f"within the bound ({rel_tile})")
+    require(rel_tail > TOL_SEG_REL, f"segmented page: a tail read from the "
+            f"next head stays within the bound ({rel_tail})")
+    ms = device_ms(lambda: fa.flash_attention_segmented(q, k, v, seg),
+                   iters=10)
+    plain_ms = device_ms(lambda: _segment_plain_chunked(q, k, v, seg),
+                         iters=2, warmup=1)
+    qt, kt, vt = (t[:, :R].transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = device_ms(lambda: _sdpa(qt, kt, vt), iters=10)
+    b = bound((3 * R + S) * H * D * 2, 4 * H * D * R * R)
+    log(f"[kernels] segmented D 72 page S={S} ({R} real + {S - R} pad, one "
+        f"segment) H={H}, contiguous q/k/v: max_abs_err {err:.3e}, "
+        f"{rel:.3e} of max |ref| (tol {TOL_SEG_REL}; plain in chunks of "
+        f"{PAGE_CHUNK} q rows; a hidden k tile {rel_tile:.3e}, a tail read "
+        f"from the next head {rel_tail:.3e}), a repeat bit-equal; device "
+        f"ms/call kernel {ms:.4f} plain (chunked) {plain_ms:.4f} unmasked "
+        f"sdpa on the {R} real rows {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}) "
+        f"| {card_line()}")
+    _record("flash_attention_segmented", err)
+    RESULTS["flash_attention_segmented"]["page"] = {
+        "ms": ms, "plain_ms": plain_ms, "plain": f"chunks of {PAGE_CHUNK} q "
+        "rows", "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+        "library": f"F.scaled_dot_product_attention, unmasked, the {R} real "
+                   "rows", "rel_err": rel, "rel_err_hidden_tile": rel_tile,
+        "rel_err_tail_from_next_head": rel_tail,
+        "timed_at": f"S={S} ({R} real, one segment) H={H} D={D}, contiguous "
+                    f"q/k/v"}
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+
+
+#: ERNIE-4.5-0.3B (PaddleOCR-VL's decoder) at the decode kernel: 18 layers,
+#: 16 query heads over 2 of 128, (y1)'s rows in the 4,096-row cache
+ERNIE_DECODE = dict(L=18, S=4096, Hq=16, Hkv=2, D=128, valid=2900)
+
+
+def check_ernie_decode() -> None:
+    """flash_decode_at_layer at ERNIE_DECODE: error against the plain
+    version on the first and last layer, within TOL_DECODE_REL of max |ref|,
+    a live length off by one either way past it; device time over the 18
+    layers in turn, plain, the bound and sdpa over the live rows."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    c = ERNIE_DECODE
+    L, S, Hq, Hkv, D, valid = (c[n] for n in ("L", "S", "Hq", "Hkv", "D",
+                                              "valid"))
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid)
+    vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+    rel, rel_bad, err = 0.0, float("inf"), 0.0
+    for li in (0, L - 1):
+        lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             lt, vl)
+        e, r = _rel_err(fa.flash_decode_at_layer(q, k, v, lt, vl), ref)
+        err, rel = max(err, e), max(rel, r)
+        for off in (-1, 1):
+            rel_bad = min(rel_bad, _rel_err(fa.flash_decode_at_layer(
+                q, k, v, lt, vl + off), ref)[1])
+    require(rel <= TOL_DECODE_REL, f"ERNIE decode: err {rel} of max |ref|")
+    require(rel_bad > TOL_DECODE_REL, f"ERNIE decode: a live length off by "
+            f"one stays within the bound ({rel_bad})")
+    layer = _layer_cycle(L)
+    ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
+                   iters=72)
+    plain_ms = device_ms(lambda: fa.flash_decode_at_layer_plain(
+        q, k, v, layer(), vl), iters=36)
+    it = iter(range(10 ** 9))
+    kv_live = [(k[li, :, :valid].transpose(1, 2).contiguous(),
+                v[li, :, :valid].transpose(1, 2).contiguous())
+               for li in range(L)]
+    qt = q.transpose(1, 2).contiguous()
+    lib_ms = device_ms(lambda: _sdpa(qt, *kv_live[next(it) % L]), iters=72)
+    b = bound(valid * Hkv * D * 2 * 2 + 2 * Hq * D * 2, 4 * Hq * valid * D)
+    log(f"[kernels] flash_decode_at_layer ERNIE-4.5-0.3B L={L} S={S} "
+        f"valid={valid} Hq={Hq} Hkv={Hkv} D={D}: max_abs_err {err:.3e}, "
+        f"{rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; live length ±1 ≥ "
+        f"{rel_bad:.3e}); device ms/call kernel {ms:.4f} plain "
+        f"{plain_ms:.4f} sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
+    _record("flash_decode_at_layer", err)
+    RESULTS["flash_decode_at_layer"]["ernie"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+        "library_ms": lib_ms, "rel_err": rel,
+        "timed_at": f"L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}"}
+    del q, k, v, kv_live, qt
+    torch.cuda.empty_cache()
+
+
 def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
                           valid: int):
     """q and a (L, 1, S, Hkv, D) bf16 cache at N(0, 1), with one key per kv
@@ -1964,7 +2175,9 @@ def phase_kernels() -> None:
     check_stack(2047, 28, "gguf", timed=True)
     check_segmented()
     check_segmented_d72()
+    check_segmented_page()
     check_stacked_decode()
+    check_ernie_decode()
     check_decode_g7()
     for key in SLOT_DECODE_SHAPES:
         check_slots_decode(key)
@@ -1974,6 +2187,8 @@ def phase_kernels() -> None:
     check_prefill(2048, True, timed=True, Hkv=8, Hq=32, D=64)
     # row 1 at Qwen3-VL-8B's 32/8 heads of 128: (w1)'s 2048 bucket
     check_prefill(2048, True, timed=True, Hkv=8, Hq=32)
+    # row 1 at ERNIE-4.5's 16/2 heads of 128: (y1)'s page prompt, 4096
+    check_prefill(4096, True, timed=True, Hkv=2)
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -3996,7 +4211,8 @@ def teacher_forced_vl(model, params, ids, mm, forced, device):
     from aha_tpu_torch.core import cache as kv
     from aha_tpu_torch.core.engine import bucket_for
 
-    cache = model.init_cache(1, 1024, embed_dtype(params))
+    rows = max(1024, bucket_for(len(ids) + len(forced)))
+    cache = model.init_cache(1, rows, embed_dtype(params))
     x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
     x[0, :len(ids)] = torch.tensor(ids)
     hs = [model.backbone(params, x.to(device), cache, mm=mm,
@@ -4015,11 +4231,11 @@ def embed_dtype(params: dict) -> torch.dtype:
     return params.get("text", params)["embed"]["w"].dtype
 
 
-def _vl_run(ids, mm, key, cfg):
-    """`run` for eager_twin: one request of 32 tokens with its images or
+def _vl_run(ids, mm, key, cfg, n: int = 32):
+    """`run` for eager_twin: one request of `n` tokens with its images or
     video."""
     def run(eng):
-        out = eng.generate_tokens(ids, cfg, max_tokens=32, mm=mm, mm_key=key,
+        out = eng.generate_tokens(ids, cfg, max_tokens=n, mm=mm, mm_key=key,
                                   mm_token_ids=(VL_IMAGE, VL_VIDEO))
         return [out], [eng.last_timing]
 
@@ -4312,24 +4528,31 @@ def _vl3_video_request(cfg, seed: int, n: int = 8, side: int = 448,
             "stamps": stamps, "key": served.mm_digest([patches], grids)}
 
 
-def _tower_ms(model, visual: dict, mm: dict, device: str) -> float:
-    """Wall ms of the tower alone on one request's inputs (after a
-    warm-up)."""
+def _wall_ms(fn, device: str) -> float:
+    """Wall ms of one call of `fn` (after a warm-up call)."""
     with torch.no_grad():
-        model.tower.encode(visual, mm)
+        fn()
         _sync(device)
         t0 = time.perf_counter()
-        model.tower.encode(visual, mm)
+        fn()
         _sync(device)
     return (time.perf_counter() - t0) * 1e3
 
 
+def _tower_ms(model, visual: dict, mm: dict, device: str) -> float:
+    """Wall ms of the tower alone on one request's inputs (after a
+    warm-up)."""
+    return _wall_ms(lambda: model.tower.encode(visual, mm), device)
+
+
 def _vl3_teacher_forced(tag: str, model_cls, cut_cfg, small_params: dict,
                         req: dict, forced: list[int], device: str,
-                        launches: dict, **model_kw) -> None:
-    """8 teacher-forced steps of the cut model: the card through the
-    kernels against the CPU in f32 through the plain versions; the card's
-    run must launch `launches` (name → count)."""
+                        launches: dict, phase: str = "vl3",
+                        cut: str | None = None, **model_kw) -> None:
+    """8 teacher-forced steps of the cut model (`cut` says how it was cut;
+    VL3_CUT's words by default): the card through the kernels against the
+    CPU in f32 through the plain versions; the card's run must launch
+    `launches` (name → count)."""
     from aha_tpu_torch.models.qwen2_5vl import mm_to
 
     small = model_cls(cut_cfg, max_rope_len=8192, device=device, **model_kw)
@@ -4355,50 +4578,56 @@ def _vl3_teacher_forced(tag: str, model_cls, cut_cfg, small_params: dict,
     by_pos = " ".join(
         f"{((hk[i] - hp[i]).abs().max() / hp.abs().max()).item():.1e}"
         for i in range(len(hk)))
-    log(f"[vl3] ({tag}) teacher-forced at full width, {VL3_CUT['depth']} "
-        f"vision blocks (deepstack after 1, 2, 3) and {VL3_CUT['layers']} "
-        f"text layers, 9 positions: hidden max err {rel:.3e} of max |ref| "
-        f"(tol {TOL_VL_HIDDEN_REL}; by position {by_pos})")
+    cut = cut or (f"{VL3_CUT['depth']} vision blocks (deepstack after 1, "
+                  f"2, 3) and {VL3_CUT['layers']} text layers")
+    log(f"[{phase}] ({tag}) teacher-forced at full width, {cut}, 9 "
+        f"positions: hidden max err {rel:.3e} of max |ref| (tol "
+        f"{TOL_VL_HIDDEN_REL}; by position {by_pos})")
     require(rel <= TOL_VL_HIDDEN_REL, f"({tag}) hidden off by {rel}")
 
 
 def _vl3_path(tag: str, what: str, eng, eager, req: dict, greedy,
               must: tuple[str, ...], want: dict, device: str,
-              tower: float | None = None) -> list[int]:
-    """One request through the graphed engine (counts zeroed before it,
-    each of `want` required equal), then eager_twin; TTFT and decode
-    ms/step into VL3_READINGS.  Returns the tokens."""
+              tower: float | None = None, n: int = 32,
+              phase: str = "vl3", readings: dict | None = None
+              ) -> list[int]:
+    """One request of `n` greedy tokens through the graphed engine (counts
+    zeroed before it, each of `want` required equal), then eager_twin;
+    TTFT and decode ms/step into `readings` (VL3_READINGS by default).
+    Returns the tokens."""
     from aha_tpu_torch.models.qwen2_5vl import mm_to
 
-    mm = req.get("mm_dev") or mm_to(req["mm"], torch.device(device))
-    req["mm_dev"] = mm
+    if "mm_dev" not in req:                 # None for a text-only request
+        req["mm_dev"] = (None if req.get("mm") is None
+                         else mm_to(req["mm"], torch.device(device)))
+    mm = req["mm_dev"]
     wr = zero_counts()
     _sync(device)
-    out = eng.generate_tokens(req["ids"], greedy, max_tokens=32, mm=mm,
-                              mm_key=req["key"],
+    out = eng.generate_tokens(req["ids"], greedy, max_tokens=n, mm=mm,
+                              mm_key=req.get("key"),
                               mm_token_ids=(VL_IMAGE, VL_VIDEO))
     _sync(device)
     t = eng.last_timing
-    counts = read_counts(wr, f"vl3-{tag}", must)
-    require(device != "cuda" or all(counts[n] == c for n, c in want.items()),
+    counts = read_counts(wr, f"{phase}-{tag}", must)
+    require(device != "cuda" or all(counts[k] == c for k, c in want.items()),
             f"({tag}) launches {counts}, want {want}")
-    require(len(out) == 32, f"({tag}): {len(out)} tokens")
+    require(len(out) == n, f"({tag}): {len(out)} tokens")
     card = card_line() if device == "cuda" else "cpu"
     ttft = t.prompt_secs * 1e3
-    log(f"[vl3] ({tag}) {what}: {t.prompt_tokens}-token prompt, TTFT "
+    log(f"[{phase}] ({tag}) {what}: {t.prompt_tokens}-token prompt, TTFT "
         f"(tower + prefill, first token read) {ttft:.2f} ms"
         + (f"; tower alone {tower:.2f} ms" if tower is not None else "")
-        + f"; 32 greedy tokens, decode "
+        + f"; {n} greedy tokens, decode "
         f"{(t.completion_tokens - 1) / t.completion_secs:.1f} tok/s | {card}")
     eager_twin(f"({tag}) {what}", eng, lambda: eager,
-               _vl_run(req["ids"], mm, req["key"], greedy), [out], counts,
-               device)
+               _vl_run(req["ids"], mm, req.get("key"), greedy, n), [out],
+               counts, device)
     g = GRAPH_READINGS[-1]
-    VL3_READINGS[tag] = {"what": what, "prompt_tokens": t.prompt_tokens,
-                         "ttft_ms": ttft, "tower_ms": tower,
-                         "decode_ms_per_step_graphed": g["ms_per_step_graphed"],
-                         "decode_ms_per_step_eager": g["ms_per_step_eager"],
-                         "card": card}
+    (VL3_READINGS if readings is None else readings)[tag] = {
+        "what": what, "prompt_tokens": t.prompt_tokens, "ttft_ms": ttft,
+        "tower_ms": tower,
+        "decode_ms_per_step_graphed": g["ms_per_step_graphed"],
+        "decode_ms_per_step_eager": g["ms_per_step_eager"], "card": card}
     return out
 
 
@@ -4726,6 +4955,402 @@ def _ask_vl(base: str) -> list[str]:
                      "text-only chat", 1)]
 
 
+# -- 8c. the SigLIP-tower families: PaddleOCR-VL (y) and LFM2-VL (z) ---------
+
+#: (y)'s and (z)'s teacher-forced depth, and the served checkpoints': 4
+#: vision blocks and 4 text layers at the published widths
+SIGLIP_CUT = dict(depth=4, layers=4)
+#: greedy tokens a (y) / (z) request
+SIGLIP_TOKENS = 64
+#: per path: TTFT, the tower alone, decode ms/step graphed and eager; and
+#: LFM2-VL's plain tower attention (one JSON line before the kernels line)
+SIGLIP_READINGS: dict[str, dict] = {}
+#: seeded ids standing for the task prompts' text ("OCR:", "Table
+#: Recognition:"): no ERNIE tokenizer is in the repository
+OCR_PROMPT_IDS = {"OCR:": [4101, 1562, 93], "Table Recognition:":
+                  [8411, 30517, 93]}
+
+
+def _rgb(w: int, h: int, seed: int):
+    """A seeded random w x h RGB image (Pillow)."""
+    from PIL import Image
+
+    return Image.fromarray(np.random.default_rng(seed).integers(
+        0, 255, (h, w, 3), dtype=np.uint8))
+
+
+def _ocr_request(cfg, sizes: list[tuple[int, int]], task: str, seed: int):
+    """(y): seeded images of `sizes` (w, h) through PaddleOCR-VL's served
+    processing (factor-28 smart resize within 28² ... 28² · 4096 pixels,
+    mean / std 0.5, row-major patches), each after its vision-start id
+    with one image id a merge unit, then the task prompt's ids; the host
+    inputs (numpy)."""
+    from aha_tpu_torch.models.paddleocr_vl_served import build_mm
+    from aha_tpu_torch.utils.image import preprocess_image_siglip
+
+    rng = np.random.default_rng(seed)
+    ids, patches, grids = _prompt(rng, 8, 100000), [], []
+    for i, (w, h) in enumerate(sizes):
+        p, grid = preprocess_image_siglip(_rgb(w, h, seed + i))
+        patches.append(p)
+        grids.append(grid)
+        ids += ([cfg.vision_start_token_id]
+                + [cfg.image_token_id] * (p.shape[0] // 4)
+                + _prompt(rng, 1, 100000))
+    ids += _prompt(rng, 4, 100000) + OCR_PROMPT_IDS[task]
+    return {"ids": ids, "mm": build_mm(patches, grids, ids, cfg),
+            "patches": patches, "grids": grids}
+
+
+def phase_ocr(device: str = "cuda") -> dict:
+    """(y) PaddleOCR-VL-0.9B's published geometry (tower 27 blocks at 1152,
+    16 heads of 72; ERNIE-4.5-0.3B 18 layers at 1024, 16/2 heads of 128,
+    vocab 103424, tied) with seeded bf16 weights on the card through
+    TextEngine (no prefix store, as served): (y1) an A4 page at 150 dpi,
+    (y2) two images in one request, (y3) a text-only follow-up; then 8
+    teacher-forced steps of (y2) at SIGLIP_CUT against the CPU's f32 plain
+    path.  Returns the cut parameters for the HTTP phase."""
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLModel,
+                                                   paddleocr_vl_0_9b)
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    greedy, n = SamplingConfig(), SIGLIP_TOKENS
+    cfg = paddleocr_vl_0_9b()
+    require(cfg.vision.head_dim == 72, "the tower's heads are not 72 wide")
+    model = PaddleOCRVLModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(18),
+                               dtype=torch.bfloat16)
+    fused = model.fuse_params(params)
+    _sync(device)
+    n_vis = sum(t.numel() for t in _leaves(params["visual"]))
+    n_text = sum(t.numel() for name, t in params["text"].items()
+                 if name != "lm_head" for t in _leaves(t))
+    log(f"[ocr] (y) PaddleOCR-VL-0.9B geometry: tower "
+        f"{cfg.vision.num_hidden_layers} blocks H={cfg.vision.hidden_size} "
+        f"(16 heads of 72), ERNIE-4.5-0.3B {cfg.text.num_hidden_layers} "
+        f"layers H={cfg.text.hidden_size} 16/2 heads of 128 "
+        f"V={cfg.text.vocab_size} tied: {n_vis / 1e6:.1f} M + "
+        f"{n_text / 1e6:.1f} M bf16 params seeded on the card in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    reqs = {"y1": _ocr_request(cfg, [(1240, 1754)], "OCR:", 1),
+            "y2": _ocr_request(cfg, [(448, 448), (672, 224)],
+                               "Table Recognition:", 2)}
+    y1, y2 = reqs["y1"], reqs["y2"]
+    require(y1["patches"][0].shape[0] == PAGE_REAL
+            and y1["mm"]["patches"].shape[0] == PAGE_BUCKET
+            and y1["ids"].count(cfg.image_token_id) == PAGE_REAL // 4
+            and bucket_for(len(y1["ids"])) == 4096,
+            f"(y1) page: {y1['grids']}, {len(y1['ids'])} ids")
+    require([p.shape[0] for p in y2["patches"]] == [1024, 768]
+            and y2["mm"]["patches"].shape[0] == 2048
+            and y2["ids"].count(cfg.image_token_id) == 448
+            and bool((y2["mm"]["seg"][:1792] == 0).all()),
+            f"(y2) two images: {y2['grids']}")
+    rng = np.random.default_rng(3)
+    reqs["y3"] = {"ids": _prompt(rng, 200, 100000), "mm": None}
+    warm = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    for name in ("y1", "y2"):
+        warm.generate_tokens(reqs[name]["ids"], greedy, max_tokens=4,
+                             mm=mm_to(reqs[name]["mm"], torch.device(device)))
+    del warm
+    eng = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192)
+    eager = TextEngine(model, fused, eos_token_ids=[], max_seq_len=8192,
+                       cuda_graphs=False)
+    L = cfg.text.num_hidden_layers
+    must = ("flash_attention_segmented", "flash_attention",
+            "flash_decode_at_layer")
+    want = {"flash_attention_segmented": cfg.vision.num_hidden_layers,
+            "flash_attention": L, "flash_decode_at_layer": L * n,
+            "fused_decode_stack": 0, "flash_decode_at_layer_flat": 0}
+    outs = {}
+    for name, what in (("y1", "A4 page at 150 dpi, 11088 patches (bucket "
+                               "16384), 2772 image tokens, OCR:"),
+                       ("y2", "448 x 448 and 672 x 224 images in one "
+                              "segment, 1792 patches (bucket 2048), 448 "
+                              "image tokens, Table Recognition:")):
+        mm = mm_to(reqs[name]["mm"], torch.device(device))
+        reqs[name]["mm_dev"] = mm
+        tower = _wall_ms(lambda: model.encode_vision(params["visual"], mm),
+                         device)
+        outs[name] = _vl3_path(name, what, eng, eager, reqs[name], greedy,
+                               must, want, device, tower, n=n, phase="ocr",
+                               readings=SIGLIP_READINGS)
+    outs["y3"] = _vl3_path(
+        "y3", "text-only follow-up, 200 tokens", eng, eager, reqs["y3"],
+        greedy, ("flash_attention", "flash_decode_at_layer"),
+        {**want, "flash_attention_segmented": 0}, device, n=n, phase="ocr",
+        readings=SIGLIP_READINGS)
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[ocr] (y) every segment call is the tower's, 16 heads of 72 on "
+        f"contiguous q/k/v: {cfg.vision.num_hidden_layers} a request with "
+        f"images; the prefill kernel {L} a prefill of >= 128 rows; "
+        f"flash_decode_at_layer {L} a step; never the fused stack | {card}")
+    del eng, eager, fused
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cut_cfg = paddleocr_vl_0_9b(**SIGLIP_CUT)
+    text = params["text"]
+    small = {"visual": {**params["visual"], "layers":
+                        params["visual"]["layers"][:SIGLIP_CUT["depth"]]},
+             "text": {**text, "layers": _tree_map(
+                 lambda t: t[:SIGLIP_CUT["layers"]].clone(), text["layers"])}}
+    del params, text, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    _vl3_teacher_forced(
+        "y", PaddleOCRVLModel, cut_cfg, small, y2, outs["y2"][:8], device,
+        {"flash_attention_segmented": SIGLIP_CUT["depth"],
+         "flash_attention": SIGLIP_CUT["layers"],
+         "flash_decode_at_layer": 8 * SIGLIP_CUT["layers"]}, phase="ocr",
+        cut=f"{SIGLIP_CUT['depth']} vision blocks and "
+            f"{SIGLIP_CUT['layers']} ERNIE layers, (y2)'s two images")
+    return small
+
+
+def _lfm2vl_request(cfg, table: np.ndarray, w: int, h: int, seed: int):
+    """(z): a seeded w x h image through LFM2-VL's served processing (smart
+    resize within 64 ... 256 tokens; past 2 x 256, 512-pixel tiles on the
+    closest aspect grid and a thumbnail), its image ids (one a projected
+    unit, tiles then the thumbnail) between seeded text ids; the host
+    inputs (numpy)."""
+    from aha_tpu_torch.models.lfm2vl_served import build_mm, resize_and_split
+
+    entries, rows, cols, _ = resize_and_split(_rgb(w, h, seed), cfg, {})
+    per = [p for p, _ in entries]
+    shapes = [shape for _, shape in entries]
+    units = sum((a // 2) * (b // 2) for a, b in shapes)
+    rng = np.random.default_rng(seed)
+
+    def text(k):                # ids past the image id (396)
+        return [int(x) for x in rng.integers(400, 60000, k)]
+
+    ids = text(12) + [cfg.image_token_id] * units + text(20)
+    return {"ids": ids, "mm": build_mm(per, shapes, table, cfg),
+            "shapes": shapes, "grid": (rows, cols), "units": units}
+
+
+def _tower_attention_ms(cfg, mm: dict, device: str) -> dict:
+    """LFM2-VL's tower attention (plain masked sdpa, as the reference
+    computes it outside any Pallas kernel) at a request's packed batch:
+    device ms of the port's call and of F.scaled_dot_product_attention
+    with the same boolean mask, and the bound over the real pairs."""
+    from aha_tpu_torch.ops.attention import sdpa
+
+    mask = mm["pixel_mask"]
+    B, N = mask.shape
+    v = cfg.vision
+    H, D = v.num_attention_heads, v.head_dim
+    g = torch.Generator(device=device).manual_seed(7)
+    q, k, val = (torch.randn((B, N, H, D), generator=g, device=device)
+                 .bfloat16() for _ in range(3))
+    m = mask[:, None, None, :]
+    ms = device_ms(lambda: sdpa(q, k, val, m), iters=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, val))
+    lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, attn_mask=m), iters=10)
+    real = mask.sum(1).double()
+    b = bound(B * N * H * D * 2 * 4,
+              float(4 * H * D * (real * real).sum().item()))
+    return {"ms": ms, "library_ms": lib_ms, "bound_ms": b[0],
+            "bound_by": b[1], "at": f"B={B} N={N} H={H} D={D}, "
+            f"{int(real.sum().item())} real patches, boolean pixel mask"}
+
+
+def phase_lfm2vl(device: str = "cuda") -> dict:
+    """(z) LFM2-VL-1.6B's geometry (SigLIP2 so400m tower, 26 blocks at
+    1152, 16 heads of 72, patch 16; projector 2560; LFM2-1.2B's decoder)
+    with seeded bf16 weights on the card through TextEngine: (z1) an
+    unsplit 512 x 512 image, (z2) a 1,536 x 1,024 image in 3 x 2 tiles
+    and a thumbnail; the tower's plain attention timed; then 8
+    teacher-forced steps of (z1) and of (z2) at SIGLIP_CUT against the
+    CPU.  Returns
+    the cut parameters for the HTTP phase."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.lfm2vl import Lfm2VLModel, lfm2vl_1_6b
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    greedy, n = SamplingConfig(), SIGLIP_TOKENS
+    cfg = lfm2vl_1_6b()
+    model = Lfm2VLModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(16),
+                               dtype=torch.bfloat16)
+    _sync(device)
+    n_vis = sum(t.numel() for t in _leaves(params["visual"]))
+    log(f"[lfm2vl] (z) LFM2-VL-1.6B geometry: tower "
+        f"{cfg.vision.num_hidden_layers} blocks H={cfg.vision.hidden_size} "
+        f"(16 heads of 72, patch 16), projector "
+        f"{cfg.projector_hidden_size}, LFM2-1.2B decoder "
+        f"{cfg.text.num_hidden_layers} layers: {n_vis / 1e6:.1f} M tower "
+        f"params, all seeded bf16 on the card in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    table = params["visual"]["pos_table"].float().cpu().numpy()
+    reqs = {"z1": _lfm2vl_request(cfg, table, 512, 512, 1),
+            "z2": _lfm2vl_request(cfg, table, 1536, 1024, 2)}
+    z1, z2 = reqs["z1"], reqs["z2"]
+    require(z1["shapes"] == [(32, 32)] and z1["units"] == 256,
+            f"(z1) 512 px: {z1['shapes']}")
+    require(z2["grid"] == (2, 3) and z2["shapes"] == [(32, 32)] * 6
+            + [(26, 38)] and z2["units"] == 6 * 256 + 247
+            and z2["mm"]["pixels"].shape[:2] == (7, 1024),
+            f"(z2) 1536 x 1024: grid {z2['grid']}, {z2['shapes']}")
+    warm = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    for name in reqs:
+        warm.generate_tokens(reqs[name]["ids"], greedy, max_tokens=4,
+                             mm=mm_to(reqs[name]["mm"], torch.device(device)))
+    del warm
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    eager = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                       cuda_graphs=False)
+    n_attn = model.text.n_attn_layers
+    want = {"flash_attention_segmented": 0, "flash_attention": n_attn,
+            "flash_decode_at_layer": n_attn * n, "fused_decode_stack": 0}
+    outs = {}
+    for name, what in (("z1", "512 x 512 image, unsplit, 1024 patches, 256 "
+                               "image tokens"),
+                       ("z2", "1536 x 1024 image, 3 x 2 tiles of 512 + a "
+                              "608 x 416 thumbnail, tower batch 7 x 1024, "
+                              "1783 image tokens")):
+        mm = mm_to(reqs[name]["mm"], torch.device(device))
+        reqs[name]["mm_dev"] = mm
+        tower = _wall_ms(lambda: model.encode_vision(params, mm), device)
+        outs[name] = _vl3_path(name, what, eng, eager, reqs[name], greedy,
+                               ("flash_attention", "flash_decode_at_layer"),
+                               want, device, tower, n=n, phase="lfm2vl",
+                               readings=SIGLIP_READINGS)
+    if device == "cuda":
+        att = _tower_attention_ms(cfg, reqs["z2"]["mm_dev"], device)
+        SIGLIP_READINGS["z_tower_attention"] = att
+        log(f"[lfm2vl] (z2) the tower's plain masked attention, one block: "
+            f"device ms {att['ms']:.4f}, masked sdpa {att['library_ms']:.4f}, "
+            f"bound {att['bound_ms']:.4f} ({att['bound_by']}) at "
+            f"{att['at']} | {card_line()}")
+    del eng, eager
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cut_cfg = lfm2vl_1_6b(**SIGLIP_CUT)
+    small = {**params, "layers": params["layers"][:SIGLIP_CUT["layers"]],
+             "visual": {**params["visual"], "layers":
+                        params["visual"]["layers"][:SIGLIP_CUT["depth"]]}}
+    n_cut = sum(t == "full_attention" for t in cut_cfg.text.layer_types)
+    # (z2) too: its tiles and padded thumbnail reach the packed tower
+    # batch, the resized position tables and the gather across rows
+    for name, image in (("z1", "(z1)'s image"),
+                        ("z2", "(z2)'s 6 tiles and thumbnail")):
+        _vl3_teacher_forced(
+            name, Lfm2VLModel, cut_cfg, small, reqs[name], outs[name][:8],
+            device, {"flash_attention_segmented": 0,
+                     "flash_attention": n_cut,
+                     "flash_decode_at_layer": 8 * n_cut}, phase="lfm2vl",
+            cut=f"{SIGLIP_CUT['depth']} vision blocks and "
+                f"{SIGLIP_CUT['layers']} LFM2 layers ({n_cut} attention), "
+                f"{image}")
+    return small
+
+
+#: the chat template's content loop, rendering PaddleOCR-VL's image parts
+OCR_TEMPLATE_PARTS = (
+    "{% if message.content is string %}{{ message.content }}"
+    "{% else %}{% for part in message.content %}"
+    "{% if part.type == 'text' %}{{ part.text }}"
+    "{% elif part.type == 'image_url' %}"
+    "<|IMAGE_START|><|IMAGE_PLACEHOLDER|><|IMAGE_END|>{% endif %}"
+    "{% endfor %}{% endif %}")
+#: LFM2-VL's: "<image>", which the processor expands
+LFM2VL_TEMPLATE_PARTS = (
+    "{% if message.content is string %}{{ message.content }}"
+    "{% else %}{% for part in message.content %}"
+    "{% if part.type == 'text' %}{{ part.text }}"
+    "{% elif part.type == 'image_url' %}<image>{% endif %}"
+    "{% endfor %}{% endif %}")
+
+
+def _siglip_checkpoint(tmp: str, kind: str, small: dict) -> str:
+    """A servable SIGLIP_CUT directory at the published widths: the test
+    tokenizer with the family's image tokens, a chat template with image
+    parts, config.json (model type paddleocr_vl or lfm2-vl, the tokenizer's
+    image ids), the seeded weights with the embedding rows past the
+    tokenizer zeroed.  Returns the registry id its model type names."""
+    import dataclasses
+
+    from tokenizers import AddedToken
+
+    from aha_tpu_torch.io import weights
+    from aha_tpu_torch.models.lfm2vl import lfm2vl_1_6b
+    from aha_tpu_torch.models.paddleocr_vl import paddleocr_vl_0_9b
+
+    fixtures, tok = _smoke_tokenizer(tmp)
+    specials = (("<|IMAGE_START|>", "<|IMAGE_PLACEHOLDER|>", "<|IMAGE_END|>")
+                if kind == "ocr" else ("<image>",))
+    tok.add_special_tokens([AddedToken(t, special=True) for t in specials])
+    tok.save(os.path.join(tmp, "tokenizer.json"))
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    eos = tok.token_to_id("<|im_end|>")
+    parts = OCR_TEMPLATE_PARTS if kind == "ocr" else LFM2VL_TEMPLATE_PARTS
+    for name, obj in (("generation_config.json", {"eos_token_id": [eos]}),
+                      ("tokenizer_config.json", {"chat_template":
+                       fixtures.CHAT_TEMPLATE.replace(
+                           "{{ message.content }}", parts)})):
+        with open(os.path.join(tmp, name), "w") as f:
+            json.dump(obj, f)
+    t0 = time.perf_counter()
+    if kind == "ocr":
+        c = paddleocr_vl_0_9b(**SIGLIP_CUT)
+        img = tok.token_to_id("<|IMAGE_PLACEHOLDER|>")
+        cfg = {**c.text.__dict__, "model_type": "paddleocr_vl",
+               "architectures": ["PaddleOCRVLForConditionalGeneration"],
+               "torch_dtype": "bfloat16", "use_bias": False,
+               "vision_config": dataclasses.asdict(c.vision),
+               "rope_scaling": {"mrope_section": list(c.mrope_section),
+                                "rope_type": "default"},
+               "image_token_id": img, "video_token_id": img,
+               "vision_start_token_id": tok.token_to_id("<|IMAGE_START|>")}
+        weights.save_hf_paddleocr_vl({**small, "text": _text_rows_zeroed(
+            small["text"], vocab)}, tmp)
+        model_id = "PaddlePaddle/PaddleOCR-VL"
+    else:
+        c = lfm2vl_1_6b(**SIGLIP_CUT)
+        cfg = {"model_type": "lfm2-vl",
+               "architectures": ["Lfm2VlForConditionalGeneration"],
+               "torch_dtype": "bfloat16",
+               "text_config": {**dataclasses.asdict(c.text), "layer_types":
+                               list(c.text.layer_types)},
+               "vision_config": dataclasses.asdict(c.vision),
+               **{f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+                  if f.name not in ("text", "vision")},
+               "image_token_id": tok.token_to_id("<image>")}
+        weights.save_hf_lfm2vl(_text_rows_zeroed(small, vocab), tmp)
+        model_id = "LiquidAI/LFM2-VL-1.6B"
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    log(f"[siglip-http] {model_id} full-width checkpoint "
+        f"({SIGLIP_CUT['depth']} vision blocks, {SIGLIP_CUT['layers']} text "
+        f"layers) written in {time.perf_counter() - t0:.1f} s (set-up)")
+    return model_id
+
+
+def phase_http_siglip(ocr_small: dict, lfm2vl_small: dict) -> None:
+    """Each family's SIGLIP_CUT checkpoint served by `python -m
+    aha_tpu_torch serv <dir>` (the model type picks the id) in a child
+    under -X importtime (no jax or aha_tpu module): a 224 x 224 PNG image
+    chat (64 image tokens: PaddleOCR-VL's 16 x 16 patches, LFM2-VL's 256
+    px resize) and a text-only chat."""
+    for kind, small, task in (("ocr", ocr_small, "OCR:"),
+                              ("lfm2vl", lfm2vl_small, "describe ")):
+        with tempfile.TemporaryDirectory(prefix=f"aha_torch_{kind}_") as tmp:
+            model_id = _siglip_checkpoint(tmp, kind, small)
+            with _server(tmp) as base:
+                image = [{"type": "image_url", "image_url": {
+                    "url": _png_data_url(224, 11)}},
+                    {"type": "text", "text": task}]
+                _vl_chat(base, model_id, image, f"{model_id} image chat", 64)
+                _vl_chat(base, model_id, "hello world how are you today",
+                         f"{model_id} text chat", 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4764,6 +5389,11 @@ def main() -> int:
     vl3 = timed("vl3", phase_vl3)
     timed("vl-http", phase_http_vl, vl["params"], vl3)
     del vl, vl3
+    torch.cuda.empty_cache()
+    ocr = timed("ocr", phase_ocr)
+    lfm2vl = timed("lfm2vl", phase_lfm2vl)
+    timed("siglip-http", phase_http_siglip, ocr, lfm2vl)
+    del ocr, lfm2vl
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -4777,6 +5407,7 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
+                    "page", "ernie",
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -4785,6 +5416,7 @@ def main() -> int:
     print(json.dumps({"spec": SPEC_READINGS}))
     print(json.dumps({"hybrid": HYBRID_READINGS}))
     print(json.dumps({"vl3": VL3_READINGS}))
+    print(json.dumps({"siglip": SIGLIP_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1845,3 +1845,156 @@ def test_hybrid_decode_graphs_equal_eager(dev, family):
         blocks[g] = _counted(lambda: _batch_blocks(eng, prompts, cfgs, 6))
     assert blocks[True] == blocks[False]
     assert len({tuple(r) for r in blocks[True][0][1]}) > 1
+
+
+# -- the SigLIP-tower families: PaddleOCR-VL's page, both graphed ------------
+
+
+def _segment_plain_rows(q, k, v, seg, rows=1024):
+    """The segment kernel's plain version in chunks of `rows` q rows (the
+    whole would hold S² f32 scores a head): f32 masked sdpa, pad rows 0."""
+    from aha_tpu_torch.ops.attention import sdpa
+
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for r0 in range(0, q.shape[1], rows):
+        sq = seg[r0:r0 + rows]
+        mask = (sq[:, None] == seg[None, :]) & (seg[None, :] >= 0)
+        o = sdpa(q[:, r0:r0 + rows].float(), k.float(), v.float(),
+                 mask[None, None])
+        out[:, r0:r0 + rows] = torch.where((sq >= 0)[None, :, None, None],
+                                           o, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("real,bucket", [
+    (11088, 16384),      # an A4 page at 150 dpi: one segment, 5,296 pad
+    (1792, 2048),        # (y2)'s two images in one segment
+    (1000, 1024),        # a ragged last k tile
+])
+def test_segment_flash_at_paddleocr_layout(dev, real, bucket):
+    """The D 72 instance at PaddleOCR-VL's tower (H 16): q, k, v three
+    separate contiguous tensors (each head's tail box right before the
+    next head's columns), one segment of `real` rows and pad rows of −1 up
+    to the patch bucket: within 2e-2 of max |ref| of the f32 plain version
+    (in chunks of q rows), a repeat bit-equal, pad rows 0, the same result
+    from strided thirds of one fused product holding the same values, and
+    the kernel launched."""
+    from aha_tpu_torch.ops.flash_attention import flash_attention_segmented
+
+    H, D = 16, 72
+    seg = torch.cat([torch.zeros(real, dtype=torch.int32),
+                     -torch.ones(bucket - real, dtype=torch.int32)]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(real)
+    q = (torch.randn((1, bucket, H, D), generator=g, device=dev) * 4).bfloat16()
+    k, v = _bf(g, 1, bucket, H, D), _bf(g, 1, bucket, H, D)
+    n0 = flash_attention_segmented.launches
+    got = flash_attention_segmented(q, k, v, seg)
+    again = flash_attention_segmented(q, k, v, seg)
+    fused = torch.stack([q, k, v], dim=2)          # (1, S, 3, H, D)
+    strided = flash_attention_segmented(*(fused[:, :, i] for i in range(3)),
+                                        seg)
+    ref = _segment_plain_rows(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert flash_attention_segmented.launches == n0 + 3
+    top = ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= 2e-2 * top
+    assert torch.equal(got, again) and torch.equal(got, strided)
+    assert torch.equal(got[:, real:], torch.zeros_like(got[:, real:]))
+
+
+def _siglip_tiny(dev, family):
+    """PaddleOCR-VL (a tower of 2 heads of 72 on an ERNIE of 2 heads of 64)
+    or LFM2-VL (its SigLIP2 tower on LFM2 at 2 heads of 64) at narrow
+    widths the kernels take, seeded bf16; (model, params, image prompt ids,
+    host mm)."""
+    import numpy as np
+
+    from aha_tpu_torch.models.llama import LlamaConfig
+
+    rng = np.random.default_rng(3)
+    if family == "paddleocr_vl":
+        from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLConfig,
+                                                       PaddleOCRVLModel,
+                                                       PaddleVisionConfig)
+        from aha_tpu_torch.models.paddleocr_vl_served import build_mm
+
+        cfg = PaddleOCRVLConfig(
+            vision=PaddleVisionConfig(hidden_size=144, intermediate_size=256,
+                                      num_hidden_layers=2,
+                                      num_attention_heads=2),
+            text=LlamaConfig(vocab_size=512, hidden_size=128,
+                             intermediate_size=256, num_hidden_layers=2,
+                             num_attention_heads=2, num_key_value_heads=1,
+                             rope_theta=5e5, max_position_embeddings=8192,
+                             tie_word_embeddings=True, qkv_bias=True,
+                             o_bias=True, mlp_bias=True),
+            mrope_section=(8, 12, 12), image_token_id=500,
+            video_token_id=501, vision_start_token_id=502)
+        model = PaddleOCRVLModel(cfg, max_rope_len=8192, device=dev)
+        grids = [(1, 12, 16), (1, 8, 8)]
+        patches = rng.standard_normal((256, 3 * 14 * 14)).astype(np.float32)
+        ids = (_prompt_ids(4, 3, 400) + [502] + [500] * 48 + [7, 502]
+               + [500] * 16 + _prompt_ids(140, 4, 400))
+        mm = build_mm([patches], grids, ids, cfg)
+    else:
+        from aha_tpu_torch.models.lfm2 import Lfm2Config
+        from aha_tpu_torch.models.lfm2vl import (Lfm2VLConfig, Lfm2VLModel,
+                                                 Lfm2VLVisionConfig)
+        from aha_tpu_torch.models.lfm2vl_served import build_mm
+
+        cfg = Lfm2VLConfig(
+            text=Lfm2Config(vocab_size=512, hidden_size=128,
+                            num_hidden_layers=4, num_attention_heads=2,
+                            num_key_value_heads=1, block_ff_dim=256,
+                            block_auto_adjust_ff_dim=False,
+                            layer_types=("conv", "full_attention", "conv",
+                                         "full_attention")),
+            vision=Lfm2VLVisionConfig(hidden_size=144, intermediate_size=256,
+                                      num_attention_heads=2,
+                                      num_hidden_layers=2, num_patches=256,
+                                      patch_size=16),
+            image_token_id=500, projector_hidden_size=256)
+        model = Lfm2VLModel(cfg, max_rope_len=8192, device=dev)
+        shapes = [(16, 16), (16, 16), (10, 14)]
+        per = [rng.standard_normal((h * w, 768)).astype(np.float32)
+               for h, w in shapes]
+        table = rng.standard_normal((256, 144)).astype(np.float32)
+        ids = (_prompt_ids(4, 3, 400) + [500] * 163
+               + _prompt_ids(20, 4, 400))
+        mm = build_mm(per, shapes, table, cfg)
+    params = model.init_random(torch.Generator(device=dev).manual_seed(9),
+                               dtype=torch.bfloat16)
+    return model, params, ids, mm
+
+
+@pytest.mark.parametrize("family", ["paddleocr_vl", "lfm2vl"])
+def test_siglip_families_graphs_equal_eager(dev, family):
+    """PaddleOCR-VL and LFM2-VL on TextEngine: an image prompt of >= 128
+    rows (PaddleOCR-VL's two images in one segment; LFM2-VL's three packed
+    images) and a sampled text one, graphed against eager: tokens
+    bit-equal, launches equal; the segment kernel 2 a PaddleOCR-VL image
+    prefill and never for LFM2-VL; the prefill and 5-D decode kernels
+    launched."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    model, params, ids, mm_np = _siglip_tiny(dev, family)
+    mm = mm_to(mm_np, dev)
+    engines = {g: TextEngine(model, params, eos_token_ids=[],
+                             max_seq_len=8192, cuda_graphs=g)
+               for g in (True, False)}
+
+    def run(eng):
+        return (eng.generate_tokens(ids, SamplingConfig(), 40, mm=mm),
+                _text_requests(eng, [(_prompt_ids(30, 5, 400), _SAMPLED,
+                                      24)]))
+
+    got = {g: _counted(lambda: run(e)) for g, e in engines.items()}
+    assert got[True] == got[False]
+    launches = got[True][1]
+    assert launches.get("flash_attention_segmented", 0) == \
+        (2 if family == "paddleocr_vl" else 0)
+    assert launches["flash_attention"] > 0
+    assert launches["flash_decode_at_layer"] > 0
+    assert engines[True].graphs.stats()["graphs"] >= 2

@@ -76,8 +76,8 @@ def _pair(form: str, seed: int = 0):
     jm = JModel(JConfig(**kw), max_rope_len=256)
     jp = _perturb(jax.tree.map(np.asarray, jm.init_random(
         jax.random.PRNGKey(seed), scale=0.3)), np.random.default_rng(seed))
-    # the port's config has no o/mlp bias flags: load_params and the
-    # layers take a bias wherever the tree holds one
+    # load_params and the layers take a bias wherever the tree holds one;
+    # the config's o_bias / mlp_bias flags shape init_random's tree
     tm = LlamaModel(LlamaConfig.from_dict(kw), max_rope_len=256)
     return jm, jax.tree.map(jnp.asarray, jp), tm, params_from_jax(jp)
 
@@ -283,3 +283,38 @@ def test_config_from_dict_ignores_unknown_keys():
     cfg = LlamaConfig.from_dict({**BASE, "architectures": ["X"]})
     assert dataclasses.asdict(cfg)["vocab_size"] == 120
     assert cfg.head_dim_ == 12
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")}
+    return {(prefix, tuple(np.shape(tree)))}
+
+
+@pytest.mark.parametrize("flags", [dict(), dict(o_bias=True),
+                                   dict(mlp_bias=True),
+                                   dict(qkv_bias=True, o_bias=True,
+                                        mlp_bias=True)], ids=str)
+def test_init_random_bias_flags_match_jax(flags):
+    """o_bias and mlp_bias (ERNIE-4.5's use_bias) give init_random the same
+    tree as aha_tpu's, leaf for leaf and shape for shape, and zero biases
+    leave the forward as the bias-free one."""
+    kw = {**BASE, **flags}
+    jtree = params_from_jax(jax.tree.map(np.asarray, JModel(
+        JConfig(**kw), max_rope_len=64).init_random(jax.random.PRNGKey(0))))
+    tm = LlamaModel(LlamaConfig(**kw), max_rope_len=64)
+    tree = tm.init_random(torch.Generator().manual_seed(0))
+    assert _paths(tree) == _paths(jtree)
+    assert ("b" in tree["layers"]["o"]) == flags.get("o_bias", False)
+    assert ("b" in tree["layers"]["mlp"]["down"]) == \
+        flags.get("mlp_bias", False)
+    plain = LlamaModel(LlamaConfig(**BASE), max_rope_len=64)
+    bare = {**tree, "layers": {k: ({n: {"w": p["w"]} for n, p in v.items()}
+                                   if k == "mlp" else
+                                   {"w": v["w"]} if k in "qkvo" else v)
+                               for k, v in tree["layers"].items()}}
+    ids = torch.tensor([_ids(4, 9)])
+    np.testing.assert_array_equal(
+        tm.backbone(tree, ids, tm.init_cache(1, 16, torch.float32)).numpy(),
+        plain.backbone(bare, ids, plain.init_cache(1, 16,
+                                                   torch.float32)).numpy())

@@ -357,7 +357,7 @@ def test_loader_drops_chat_options_for_other_families(monkeypatch):
                     "minicpm4": {"prefix_cache": 2, "spec_tokens": 3},
                     "lfm2": {"batch_slots": 2}}
     with pytest.raises(NotImplementedError):
-        loader.load_model("LiquidAI/LFM2-VL-1.6B", "/x")
+        loader.load_model("deepseek-ai/DeepSeek-OCR", "/x")
 
 
 def test_minicpm4_geometry():
@@ -385,7 +385,9 @@ def test_minicpm4_geometry():
                                       "sentence-transformers/all-MiniLM-L6-v2",
                                       "LiquidAI/LFM2-1.2B",
                                       "Qwen/Qwen3.5-0.8B",
-                                      "Qwen/Qwen3-VL-8B-Instruct"])
+                                      "Qwen/Qwen3-VL-8B-Instruct",
+                                      "PaddlePaddle/PaddleOCR-VL",
+                                      "LiquidAI/LFM2-VL-1.6B"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
