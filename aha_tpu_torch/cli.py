@@ -46,7 +46,8 @@ MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct",
                "lfm2-vl": "LiquidAI/LFM2-VL-1.6B"}
 #: family → default OCR instruction (the JAX CLI's); each OCR family
 #: adds its own as it is ported
-_OCR_PROMPTS = {"paddleocr_vl": "OCR:"}
+_OCR_PROMPTS = {"paddleocr_vl": "OCR:",
+                "deepseek_ocr": "<image>\nConvert the document to markdown. "}
 
 
 def model_id_for(path: str, model: str) -> str:

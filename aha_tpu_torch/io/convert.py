@@ -9,14 +9,19 @@ layers and deepstack mergers lists), a hybrid decoder's tree
 (`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer "layers" list of layer
 dicts of two kinds, and Qwen3.5's "visual" tower subtree where it has
 one; LFM2-VL's is LFM2's with its "visual" tower and "projector" beside
-the decoder's keys), or a BERT tree (`BertModel`'s:
+the decoder's keys), DeepSeek-OCR's (the SAM / CLIP towers, the CLIP
+layers stacked, the decoder an unstacked "layers" list of dense and MoE
+layers, version 2's "qwen2enc" encoder the layers and norm of a llama
+tree, kept float32), or a
+BERT tree (`BertModel`'s:
 "embeddings" and a "layers" list, linear weights and norms with biases, no
 head), and returns the port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
 head turned from the JAX (K, V) to the port's vocab-major (V, K), every
 GGUF-quantized dict turned into the port's grid layout by `quant_from_jax`,
-and Qwen3.5's `a_log` / `dt_bias` and LFM2-VL's position table
-`pos_table` kept float32 whatever `dtype` is.  A
+and Qwen3.5's `a_log` / `dt_bias`, LFM2-VL's position table
+`pos_table` and a MoE block's router (its "gate" beside "experts") kept
+float32 whatever `dtype` is.  A
 tied head — one equal to the transposed embedding — shares the
 embedding's storage instead of being copied.  `cache_from_jax` carries a
 JAX KV cache across in the port's layout, so tests compare caches
@@ -77,8 +82,11 @@ def _to_torch(tree, device, dtype):
     if isinstance(tree, dict):
         if is_quantized(tree):
             return {k: v.to(device) for k, v in quant_from_jax(tree).items()}
-        return {k: _to_torch(v, device, torch.float32 if k in F32_LEAVES
-                             else dtype) for k, v in tree.items()}
+        out = {k: _to_torch(v, device, torch.float32 if k in F32_LEAVES
+                            else dtype) for k, v in tree.items()}
+        if "experts" in tree:                   # a MoE block's router
+            out["gate"] = _to_torch(tree["gate"], device, torch.float32)
+        return out
     arr = np.array(tree, dtype=np.float32)      # a writable copy
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
@@ -90,6 +98,11 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
                 "text": params_from_jax(tree["text"], device, dtype)}
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
            if k != "lm_head"}
+    if "qwen2enc" in tree:                      # DeepSeek-OCR-2's encoder:
+        enc = tree["qwen2enc"]["params"]        # its float32 stack
+        out["qwen2enc"]["params"] = {
+            k: _to_torch(enc[k], device, torch.float32)
+            for k in ("layers", "norm")}
     if "lm_head" not in tree:                   # an encoder (BERT) tree
         return out
     head = tree["lm_head"]

@@ -345,3 +345,81 @@ def save_hf_qwen3_5(params: dict, path: str,
     if "visual" in params:
         out.update(_hf_qwen3vl_tower(params["visual"], "model.visual."))
     _save(out, path)
+
+
+def save_hf_deepseek_ocr(params: dict, path: str) -> None:
+    """Write the port's DeepSeek-OCR (version 1) parameters with the names
+    of a published checkpoint (the inverse of DeepseekOCRModel.load_params):
+    SAM under model.sam_model., CLIP under model.vision_model. (its
+    stacked layers one by one), the projector, image_newline and
+    view_seperator, the decoder's dense and MoE layers (each routed expert
+    on its own, the router under mlp.gate), the embedding, norm and
+    lm_head."""
+    out = {}
+
+    def conv(name: str, p: dict) -> None:
+        out[name + ".weight"] = p["w"].contiguous().cpu()
+        if "b" in p:
+            out[name + ".bias"] = p["b"].cpu()
+
+    sm = "model.sam_model."
+    sam = params["sam"]
+    conv(sm + "patch_embed.proj", sam["patch"])
+    out[sm + "pos_embed"] = sam["pos"].contiguous().cpu()
+    for i, bp in enumerate(sam["blocks"]):
+        b = f"{sm}blocks.{i}."
+        _hf_norm(out, b + "norm1", bp["norm1"])
+        _hf_norm(out, b + "norm2", bp["norm2"])
+        _hf_linear(out, b + "attn.qkv", bp["attn"]["qkv"])
+        _hf_linear(out, b + "attn.proj", bp["attn"]["proj"])
+        for t in ("rel_pos_h", "rel_pos_w"):
+            out[b + "attn." + t] = bp["attn"][t].contiguous().cpu()
+        _hf_linear(out, b + "mlp.lin1", bp["lin1"])
+        _hf_linear(out, b + "mlp.lin2", bp["lin2"])
+    for j in range(4):
+        conv(f"{sm}neck.{j}", sam[f"neck{j}"])
+    conv(sm + "net_2", sam["net2"])
+    conv(sm + "net_3", sam["net3"])
+    cl = "model.vision_model."
+    clip = params["clip"]
+    out[cl + "embeddings.class_embedding"] = clip["cls"].cpu()
+    out[cl + "embeddings.patch_embedding.weight"] = \
+        clip["patch"]["w"].contiguous().cpu()
+    out[cl + "embeddings.position_embedding.weight"] = \
+        clip["pos"].contiguous().cpu()
+    _hf_norm(out, cl + "pre_layrnorm", clip["pre_ln"])
+    lay = clip["layers"]
+    for i in range(lay["qkv"]["w"].shape[0]):
+        b = f"{cl}transformer.layers.{i}."
+        for key, name in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            _hf_norm(out, b + name, {k: t[i] for k, t in lay[key].items()})
+        for key, name in (("qkv", "self_attn.qkv_proj"),
+                          ("out", "self_attn.out_proj"), ("fc1", "mlp.fc1"),
+                          ("fc2", "mlp.fc2")):
+            _hf_linear(out, b + name, {k: t[i] for k, t in lay[key].items()})
+    _hf_linear(out, "model.projector.layers", params["projector"])
+    out["model.image_newline"] = params["image_newline"].cpu()
+    out["model.view_seperator"] = params["view_seperator"].cpu()
+    for i, lp in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        _hf_norm(out, p + "input_layernorm", lp["ln1"])
+        _hf_norm(out, p + "post_attention_layernorm", lp["ln2"])
+        for name in "qkvo":
+            _hf_linear(out, f"{p}self_attn.{name}_proj", lp[name])
+        if "moe" in lp:
+            moe = lp["moe"]
+            out[p + "mlp.gate.weight"] = moe["gate"]["w"].t().contiguous().cpu()
+            for name in ("gate", "up", "down"):
+                w = moe["experts"][name]["w"]
+                for e in range(w.shape[0]):
+                    _hf_linear(out, f"{p}mlp.experts.{e}.{name}_proj",
+                               {"w": w[e]})
+                _hf_linear(out, f"{p}mlp.shared_experts.{name}_proj",
+                           moe["shared"][name])
+        else:
+            for name in ("gate", "up", "down"):
+                _hf_linear(out, f"{p}mlp.{name}_proj", lp["mlp"][name])
+    out["model.embed_tokens.weight"] = params["embed"]["w"].contiguous().cpu()
+    out["model.norm.weight"] = params["norm"]["w"].cpu()
+    out["lm_head.weight"] = params["lm_head"]["w"].contiguous().cpu()
+    _save(out, path)

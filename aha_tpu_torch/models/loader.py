@@ -4,8 +4,9 @@ models), the llama text families minicpm4 / minicpm5, the hybrid text
 families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5: text, and image and
 video chat on a checkpoint with a vision tower), qwen2_5vl (Qwen2.5-VL
 image and video chat), qwen3vl (Qwen3-VL image and video chat),
-paddleocr_vl (PaddleOCR-VL document OCR), lfm2vl (LFM2-VL image chat),
-qwen3_embedding / qwen3_reranker and
+paddleocr_vl (PaddleOCR-VL document OCR), deepseek_ocr (DeepSeek-OCR and
+DeepSeek-OCR-2), lfm2vl (LFM2-VL image chat), qwen3_embedding /
+qwen3_reranker and
 minilm (all-MiniLM-L6-v2); every other family raises NotImplementedError.
 The reference's option checks run first, before any weights load, with
 its strings."""
@@ -88,6 +89,12 @@ def _paddleocr_vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return PaddleOCRVLChat.load(entry, path, **kw)
 
 
+def _deepseek_ocr(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.deepseek_ocr_served import DeepseekOCRChat
+
+    return DeepseekOCRChat.load(entry, path, **kw)
+
+
 def _lfm2vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     from aha_tpu_torch.models.lfm2vl_served import Lfm2VLChat
 
@@ -97,6 +104,7 @@ def _lfm2vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
 FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "minilm": _minilm,
     "paddleocr_vl": _paddleocr_vl,
+    "deepseek_ocr": _deepseek_ocr,
     "lfm2vl": _lfm2vl,
     "qwen2_5vl": _qwen2_5vl,
     "qwen3vl": _qwen3vl,
@@ -147,6 +155,7 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
         raise NotImplementedError(
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
             "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
-            "Qwen3-VL, PaddleOCR-VL, LFM2-VL, Qwen3 embedding and "
+            "Qwen3-VL, PaddleOCR-VL, DeepSeek-OCR, LFM2-VL, Qwen3 "
+            "embedding and "
             "reranker, and all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -3,7 +3,8 @@ tiling parts of aha_tpu/utils/image.py): load from a data: URL, base64,
 file:// or a path, Qwen-VL smart resize to the factor-28 grid, CLIP
 normalization and the merge-blocked patchify; the SigLIP (NaViT) row-major
 patchify and its preprocessing (PaddleOCR-VL); the tile grids, their
-closest aspect ratio and the tile crop (LFM2-VL).  Decoding stays on the
+closest aspect ratio and the tile crop (LFM2-VL); DeepSeek-OCR's Gundam
+tiling, edge-padded resize and scalar normalisation.  Decoding stays on the
 host (Pillow); everything after is numpy feeding the device.  http(s) URLs
 are fetched with `requests`, as the reference does.
 """
@@ -192,6 +193,44 @@ def crop_img(img, grid_h: int, grid_w: int, image_size: int) -> list:
         y1 = (i // grid_w) * image_size
         tiles.append(resized.crop((x1, y1, x1 + image_size, y1 + image_size)))
     return tiles
+
+
+def dynamic_preprocess(img, min_num: int, max_num: int, image_size: int
+                       ) -> tuple[list, tuple[int, int]]:
+    """InternVL-style tiling (img_utils.rs:193-248): the closest grid of
+    min_num..max_num tiles, the image cut into it.  Returns (tiles,
+    (grid_w, grid_h))."""
+    w, h = img.size
+    ratios = generate_target_ratios(min_num, max_num)
+    grid_w, grid_h = find_closest_aspect_ratio(w / h, ratios, w, h,
+                                               image_size)
+    tiles = crop_img(img, grid_h, grid_w, image_size)
+    return tiles, (grid_w, grid_h)
+
+
+def resize_with_edge_padding(img, width: int, height: int,
+                             color: tuple = (127, 127, 127)):
+    """Aspect-preserving resize centered on a solid canvas
+    (img_utils.rs:250-270)."""
+    from PIL import Image
+
+    iw, ih = img.size
+    ratio = min(width / iw, height / ih)
+    nw = max(1, min(width, round(iw * ratio)))
+    nh = max(1, min(height, round(ih * ratio)))
+    resized = img.resize((nw, nh), Image.BICUBIC)
+    if (nw, nh) == (width, height):
+        return resized
+    canvas = Image.new("RGB", (width, height), color)
+    canvas.paste(resized, ((width - nw) // 2, (height - nh) // 2))
+    return canvas
+
+
+def img_transform(img, mean: float = 0.5, std: float = 0.5) -> np.ndarray:
+    """PIL → (C, H, W) float32, scaled to [0, 1] and normalised by a
+    scalar mean / std (img_utils.rs:272-294)."""
+    arr = np.asarray(img.convert("RGB"), np.float32) / 255.0
+    return ((arr - mean) / std).transpose(2, 0, 1)
 
 
 def extract_image_sources(mes) -> list[str]:

@@ -5,6 +5,7 @@
     python -m aha_tpu_torch.utils.profile_decode --batch-slots 8 [--kv-int8]
     python -m aha_tpu_torch.utils.profile_decode --model qwen2_5vl|qwen3vl
     python -m aha_tpu_torch.utils.profile_decode --model paddleocr_vl|lfm2vl
+    python -m aha_tpu_torch.utils.profile_decode --model deepseek_ocr
     python -m aha_tpu_torch.utils.profile_decode --spec-tokens 8 [--no-drafts]
     ... [--eager]
 
@@ -88,7 +89,12 @@ SigLIP tower at D 72, ERNIE-4.5-0.3B's 18 layers) on an A4 page at 150
 dpi by default (11,088 patches in the 16,384 bucket), `--model lfm2vl`
 LFM2-VL-1.6B (models/lfm2vl.py lfm2vl_1_6b: the 26-block SigLIP2 tower
 with plain masked sdpa, LFM2-1.2B's decoder) on a 1,536 x 1,024 image cut
-into 3 x 2 tiles and a thumbnail: the same three readings.
+into 3 x 2 tiles and a thumbnail: the same three readings.  `--model
+deepseek_ocr` reads DeepSeek-OCR (models/deepseek_ocr.py
+DeepseekOCRConfig(): SAM + CLIP towers, the 12-layer DeepSeek-V2 MoE
+decoder) on a 1024 x 1024 image at base 1024 (273 image tokens): the same
+three readings, and one decode step's 11 MoE layers alone (plain; their
+share of the step's device time).
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ import contextlib
 import json
 import os
 import subprocess
+import sys
 import threading
 import time
 from collections import Counter
@@ -169,7 +176,8 @@ def drive_concurrent(eng, prompts: list[list[int]], cfg, max_tokens: int,
 
 
 #: the --model choices profile_vl reads
-VL_MODELS = ("qwen2_5vl", "qwen3vl", "paddleocr_vl", "lfm2vl")
+VL_MODELS = ("qwen2_5vl", "qwen3vl", "paddleocr_vl", "lfm2vl",
+             "deepseek_ocr")
 
 
 def _how(args) -> str:
@@ -332,7 +340,10 @@ def profile_engine(model, params, args, card: str) -> None:
 #: profiler's CUDA trace comes back empty, or holds fewer kernels than
 #: calls (on an H100 with torch 2.11, an sdpa timing of chip_smoke.py read
 #: 0 and, in another run, 0.0005 ms where the same call read 0.008), and a
-#: fresh trace of the same calls reads normally
+#: fresh trace of the same calls reads normally.  On some machines every
+#: trace came back empty for a while (two runs of chip_smoke.py on an H100
+#: failed so, in different phases): then the calls are timed with CUDA
+#: events instead
 TRACE_ATTEMPTS = 3
 
 
@@ -340,9 +351,10 @@ def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
     """Device ms per call of each CUDA kernel `fn` launches, from the
     profiler's trace of `iters` calls (each of which launches at least one
     kernel); a trace with fewer kernel launches than calls is incomplete
-    and is taken again, up to TRACE_ATTEMPTS times.  (CUDA events around a
-    loop would time the host's per-call Python work instead, which exceeds
-    a µs-scale kernel.)"""
+    and is taken again, up to TRACE_ATTEMPTS times.  Only then are the
+    calls timed with CUDA events, under one key: events around a loop
+    time the host's per-call Python work too, which exceeds a µs-scale
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -358,7 +370,18 @@ def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
         ms = {e.key: e.self_device_time_total / 1e3 / iters for e in kernels}
         if sum(e.count for e in kernels) >= iters and sum(ms.values()) > 0:
             return ms
-    return ms
+    # CUDA events around the calls: the stream's time, which also takes
+    # in any gap the host leaves between launches
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"[profile] the profiler's trace stayed empty {TRACE_ATTEMPTS} "
+          f"times: CUDA events instead", file=sys.stderr, flush=True)
+    return {"(CUDA events)": start.elapsed_time(end) / iters}
 
 
 def profile_passes(card: str) -> None:
@@ -518,6 +541,27 @@ def _vl_request(args, rng):
                 build_mm([patches], [grid], ids, cfg),
                 lambda p, mm: model.encode_vision(p["visual"], mm),
                 patches.shape[0])
+    if args.model == "deepseek_ocr":
+        from PIL import Image
+
+        from aha_tpu_torch.models.deepseek_ocr import (DeepseekOCRConfig,
+                                                       DeepseekOCRModel)
+        from aha_tpu_torch.models.deepseek_ocr_served import (build_mm,
+                                                              image_views)
+
+        cfg = DeepseekOCRConfig()
+        model = DeepseekOCRModel(cfg, max_rope_len=8192, device="cuda")
+        params = model.init_random(gen, dtype=torch.bfloat16)
+        # a 1024 x 1024 image at base = image = 1024 by default (273 image
+        # tokens); --image-px N: an N x N image, its view at 1024
+        side = args.image_px or 1024
+        img = Image.fromarray(rng.integers(0, 255, (side, side, 3),
+                                           dtype=np.uint8))
+        view = image_views(img, 1, 1024, 1024, False)
+        ids = ([cfg.language.bos_token_id] + text(8)
+               + [cfg.image_token_id] * view[3] + text(8))
+        return ("DeepSeek-OCR", model, params, ids, build_mm([view], 1),
+                model.assemble_vision, view[3])
     if args.model == "lfm2vl":
         from PIL import Image
 
@@ -619,13 +663,33 @@ def profile_vl(args, card: str) -> None:
                "vision": _read(vision, 1), "prefill": _read(prefill, 1),
                "decode_block": _read(block, args.steps)}
         eng._return(st)
+        if args.model == "deepseek_ocr":
+            # one decode step's MoE layers alone, read the same way
+            h = torch.randn((1, 1, model.config.language.hidden_size),
+                            device="cuda", dtype=torch.bfloat16)
+
+            def moe_step():
+                for lp in params["layers"]:
+                    if "moe" in lp:
+                        model.mlp(lp, h)
+
+            moe_step()
+            out["moe_step"] = _read(moe_step, 1)
+            out["moe_share_of_step"] = (out["moe_step"]["device_busy_ms"]
+                                        / (out["decode_block"]
+                                           ["device_busy_ms"] / args.steps))
     _print_block(out["config"], out["decode_block"], args.steps)
-    for part in ("vision", "prefill"):
+    for part in ("vision", "prefill", "moe_step"):
+        if part not in out:
+            continue
         p = out[part]
         print(f"[{out['config']}] {part}: wall {p['wall_ms']:.2f} ms, device "
               f"busy {p['device_busy_ms']:.2f} ms, idle share "
               f"{p['idle_share']:.3f}, {p['device_ops_per_step']:.0f} device "
               f"ops; top {p['top_ops'][:3]}")
+    if "moe_share_of_step" in out:
+        print(f"[{out['config']}] the MoE layers' share of a decode step's "
+              f"device time: {out['moe_share_of_step']:.3f}")
     print(json.dumps(out))
 
 
@@ -653,7 +717,8 @@ def main(argv=None) -> int:
                          "qwen3vl / paddleocr_vl / lfm2vl: Qwen2.5-VL-3B's "
                          "/ Qwen3-VL-8B's / PaddleOCR-VL-0.9B's / "
                          "LFM2-VL-1.6B's tower, image prefill and text "
-                         "decode")
+                         "decode; deepseek_ocr: DeepSeek-OCR's towers, "
+                         "image prefill, MoE decode and its MoE share")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode blocks eagerly (engines built with "
                          "cuda_graphs=False) instead of replaying graphs")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
 LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
-and Qwen3.5 image and video chat, PaddleOCR-VL document OCR and LFM2-VL
-image chat paths once on one CUDA card.
+and Qwen3.5 image and video chat, PaddleOCR-VL and DeepSeek-OCR document
+OCR and LFM2-VL image chat paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -201,6 +201,29 @@ before the last line:
     saved with the test tokenizer and its image tokens (config.json model
     type paddleocr_vl / lfm2-vl) and served by `python -m aha_tpu_torch
     serv` in a child under -X importtime: an image chat and a text chat.
+12. dsocr — (aa) DeepSeek-OCR's published geometry (DeepseekOCRConfig():
+    SAM ViTDet-B at 1024 px, CLIP-L/14, a DeepSeek-V2 decoder of 12 layers
+    at 1280 with 10 heads of 128 over 10, 64 routed experts of 896 top-6
+    and 2 shared, layer 0 dense at 6848, vocab 129280; 3.3 B params) with
+    seeded bf16 weights through TextEngine without a prefix store, as
+    served: (aa1) a 1024 x 1024 image at base = image = 1024 (273 image
+    tokens, the 512 bucket) and (aa2) an A4 page at 200 dpi in crop mode
+    at base 1024 (6 tiles of 640 and a 1024 view, 903 image tokens, the
+    1024 bucket), 64 greedy tokens each: the prefill kernel 12 a prefill
+    (G 1), flash_decode_at_layer 12 a step, the towers (float32, as the
+    reference's) timed wall and device; the plain MoE layer timed at a
+    decode step and at both prefill buckets, with its share of the step;
+    8 teacher-forced steps of each at the towers' full depth and 4
+    decoder layers against the f32 plain path on the CPU; the kernel
+    phase also holds row 1 at 10/10 heads (S 512, 1024) and row 8 at L
+    12, S 1024, 300 and 920 live rows beside sdpa;
+13. dsocr-http — the model cut to SAM 4 blocks, CLIP 4 layers and 2
+    decoder layers at full width, written with HF names and the test
+    tokenizer's <image> token, served by `python -m aha_tpu_torch serv
+    <dir> --model deepseek-ai/DeepSeek-OCR` in a child under -X
+    importtime: a plain image request and a crop_mode one, each reply
+    equal to the in-process engine's; then `run` of the id in a child,
+    its answer under the family's prompt equal to the in-process one.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -221,7 +244,8 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON line of the siglip readings, one JSON line of per-kernel results,
+JSON lines of the siglip and the dsocr readings, one JSON line of
+per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -1794,19 +1818,25 @@ def check_segmented_page() -> None:
 #: ERNIE-4.5-0.3B (PaddleOCR-VL's decoder) at the decode kernel: 18 layers,
 #: 16 query heads over 2 of 128, (y1)'s rows in the 4,096-row cache
 ERNIE_DECODE = dict(L=18, S=4096, Hq=16, Hkv=2, D=128, valid=2900)
+#: row 8 at DeepSeek-OCR's decoder (12 layers, 10 heads of 128 over 10:
+#: G 1) in (aa2)'s 1024-row cache, at about (aa1)'s and (aa2)'s live rows
+DSOCR_DECODE = {"dsocr_300": dict(L=12, S=1024, Hq=10, Hkv=10, D=128,
+                                  valid=300),
+                "dsocr_920": dict(L=12, S=1024, Hq=10, Hkv=10, D=128,
+                                  valid=920)}
 
 
-def check_ernie_decode() -> None:
-    """flash_decode_at_layer at ERNIE_DECODE: error against the plain
+def check_stacked_at(key: str, label: str, c: dict, seed: int) -> None:
+    """flash_decode_at_layer at the shape `c`: error against the plain
     version on the first and last layer, within TOL_DECODE_REL of max |ref|,
-    a live length off by one either way past it; device time over the 18
-    layers in turn, plain, the bound and sdpa over the live rows."""
+    a live length off by one either way past it; device time over the L
+    layers in turn, plain, the bound and sdpa over the live rows, kept
+    under RESULTS["flash_decode_at_layer"][key]."""
     from aha_tpu_torch.ops import flash_attention as fa
 
-    c = ERNIE_DECODE
     L, S, Hq, Hkv, D, valid = (c[n] for n in ("L", "S", "Hq", "Hkv", "D",
                                               "valid"))
-    g = torch.Generator(device="cuda").manual_seed(18)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid)
     vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
     rel, rel_bad, err = 0.0, float("inf"), 0.0
@@ -1819,33 +1849,49 @@ def check_ernie_decode() -> None:
         for off in (-1, 1):
             rel_bad = min(rel_bad, _rel_err(fa.flash_decode_at_layer(
                 q, k, v, lt, vl + off), ref)[1])
-    require(rel <= TOL_DECODE_REL, f"ERNIE decode: err {rel} of max |ref|")
-    require(rel_bad > TOL_DECODE_REL, f"ERNIE decode: a live length off by "
+    require(rel <= TOL_DECODE_REL, f"{label} decode: err {rel} of max |ref|")
+    require(rel_bad > TOL_DECODE_REL, f"{label} decode: a live length off by "
             f"one stays within the bound ({rel_bad})")
     layer = _layer_cycle(L)
     ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
-                   iters=72)
+                   iters=4 * L)
     plain_ms = device_ms(lambda: fa.flash_decode_at_layer_plain(
-        q, k, v, layer(), vl), iters=36)
+        q, k, v, layer(), vl), iters=2 * L)
     it = iter(range(10 ** 9))
     kv_live = [(k[li, :, :valid].transpose(1, 2).contiguous(),
                 v[li, :, :valid].transpose(1, 2).contiguous())
                for li in range(L)]
     qt = q.transpose(1, 2).contiguous()
-    lib_ms = device_ms(lambda: _sdpa(qt, *kv_live[next(it) % L]), iters=72)
+    lib_ms = device_ms(lambda: _sdpa(qt, *kv_live[next(it) % L]),
+                       iters=4 * L)
     b = bound(valid * Hkv * D * 2 * 2 + 2 * Hq * D * 2, 4 * Hq * valid * D)
-    log(f"[kernels] flash_decode_at_layer ERNIE-4.5-0.3B L={L} S={S} "
+    log(f"[kernels] flash_decode_at_layer {label} L={L} S={S} "
         f"valid={valid} Hq={Hq} Hkv={Hkv} D={D}: max_abs_err {err:.3e}, "
         f"{rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; live length ±1 ≥ "
         f"{rel_bad:.3e}); device ms/call kernel {ms:.4f} plain "
         f"{plain_ms:.4f} sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
     _record("flash_decode_at_layer", err)
-    RESULTS["flash_decode_at_layer"]["ernie"] = {
+    RESULTS["flash_decode_at_layer"][key] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
         "library_ms": lib_ms, "rel_err": rel,
         "timed_at": f"L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}"}
     del q, k, v, kv_live, qt
     torch.cuda.empty_cache()
+
+
+def check_ernie_decode() -> None:
+    """Row 8 at ERNIE-4.5's decoder (PaddleOCR-VL's step)."""
+    check_stacked_at("ernie", "ERNIE-4.5-0.3B", ERNIE_DECODE, 18)
+
+
+def check_dsocr_attention() -> None:
+    """Rows 1 and 8 at DeepSeek-OCR's 10 heads of 128 over 10 (G 1): the
+    prefill kernel at (aa1)'s and (aa2)'s prompt buckets (S 512, 1024,
+    causal) beside sdpa, the stacked decode at DSOCR_DECODE."""
+    check_prefill(512, True, timed=True, Hkv=10, Hq=10)
+    check_prefill(1024, True, timed=True, Hkv=10, Hq=10)
+    for i, (key, c) in enumerate(DSOCR_DECODE.items()):
+        check_stacked_at(key, "DeepSeek-OCR", c, 19 + i)
 
 
 def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
@@ -2189,6 +2235,7 @@ def phase_kernels() -> None:
     check_prefill(2048, True, timed=True, Hkv=8, Hq=32)
     # row 1 at ERNIE-4.5's 16/2 heads of 128: (y1)'s page prompt, 4096
     check_prefill(4096, True, timed=True, Hkv=2)
+    check_dsocr_attention()
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -4913,7 +4960,7 @@ def _ask_vl3(base: str, model: str, video: bool) -> list[str]:
     8-frame 224 x 224 .npz chat at 2 fps (4 timestamped frames of 49
     tokens) and a text chat."""
     image = [{"type": "text", "text": "describe the image "},
-             {"type": "image_url", "image_url": {"url": _png_data_url(224, 7)}}]
+             {"type": "image_url", "image_url": {"url": _png_data_url(224, 224, 7)}}]
     out = [_vl_chat(base, model, image, f"{model} image chat", 49)]
     if video:
         clip = [{"type": "text", "text": "what happens "},
@@ -4925,16 +4972,13 @@ def _ask_vl3(base: str, model: str, video: bool) -> list[str]:
     return out
 
 
-def _png_data_url(side: int, seed: int) -> str:
+def _png_data_url(w: int, h: int, seed: int) -> str:
+    """A seeded w x h RGB image (`_rgb`) as a PNG data URL."""
     import base64
     import io
 
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
     buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 255, (side, side, 3),
-                                 dtype=np.uint8)).save(buf, format="PNG")
+    _rgb(w, h, seed).save(buf, format="PNG")
     return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
 
 
@@ -4945,7 +4989,7 @@ def _ask_vl(base: str) -> list[str]:
     count, a reply; the three replies' texts."""
     model = "Qwen/Qwen2.5-VL-3B-Instruct"
     image = [{"type": "text", "text": "describe the image "},
-             {"type": "image_url", "image_url": {"url": _png_data_url(224, 7)}}]
+             {"type": "image_url", "image_url": {"url": _png_data_url(224, 224, 7)}}]
     clip = [{"type": "text", "text": "what happens "},
             {"type": "video_url",
              "video_url": {"url": _npz_data_url(8, 224, 2.0, 8)}}]
@@ -5344,11 +5388,333 @@ def phase_http_siglip(ocr_small: dict, lfm2vl_small: dict) -> None:
             model_id = _siglip_checkpoint(tmp, kind, small)
             with _server(tmp) as base:
                 image = [{"type": "image_url", "image_url": {
-                    "url": _png_data_url(224, 11)}},
+                    "url": _png_data_url(224, 224, 11)}},
                     {"type": "text", "text": task}]
                 _vl_chat(base, model_id, image, f"{model_id} image chat", 64)
                 _vl_chat(base, model_id, "hello world how are you today",
                          f"{model_id} text chat", 1)
+
+
+# -- 12. dsocr: DeepSeek-OCR (aa) ---------------------------------------------
+
+#: greedy tokens a (aa) request
+DSOCR_TOKENS = 64
+#: the teacher-forced check's decoder depth (its dense layer and 3 MoE
+#: layers); the towers stay whole
+DSOCR_CUT = 4
+#: the served checkpoint, at full width: SAM's first 4 blocks (block 2
+#: global), CLIP's first 4 layers, the decoder's dense layer and one MoE
+#: layer
+DSOCR_SERVE = dict(sam=4, clip=4, layers=2)
+DSOCR_MODEL = "deepseek-ai/DeepSeek-OCR"
+#: per path: TTFT, the tower (wall and device), decode ms/step graphed and
+#: eager; the MoE layer's plain timings (one JSON line before the kernels
+#: line)
+DSOCR_READINGS: dict[str, dict] = {}
+
+
+def _dsocr_request(cfg, w: int, h: int, seed: int, base: int,
+                   image_size: int, crop_mode: bool) -> dict:
+    """A seeded w x h image through the served processing (views, Gundam
+    tiles, gather index), between seeded text ids as the tokenizer would
+    give them (no tokenizer of the published vocabulary is in the
+    repository); the host inputs (numpy)."""
+    from aha_tpu_torch.models.deepseek_ocr_served import build_mm, image_views
+
+    rng = np.random.default_rng(seed)
+    view = image_views(_rgb(w, h, seed), 1, base, image_size, crop_mode)
+    ids = ([cfg.language.bos_token_id] + _prompt(rng, 8, 100000)
+           + [cfg.image_token_id] * view[3] + _prompt(rng, 8, 100000))
+    return {"ids": ids, "mm": build_mm([view], 1), "n_img": view[3],
+            "n_crops": len(view[1])}
+
+
+def _moe_timings(model, params: dict, device: str, step_ms: float) -> None:
+    """The plain MoE layer (layer 1's weights) at a decode step (the
+    gathered form: 6 experts' weights) and at (aa1)'s and (aa2)'s prefill
+    buckets (the capacity buffer over all 64 experts): device ms, its
+    bound and, at decode, 11 layers' share of (aa1)'s graphed step."""
+    from aha_tpu_torch.ops.moe import default_capacity, moe_gate
+
+    c = model.config.language
+    lp = params["layers"][1]
+    D, Fm, E, K = (c.hidden_size, c.moe_intermediate_size,
+                   c.n_routed_experts, c.num_experts_per_tok)
+    Fs = Fm * c.n_shared_experts
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, n in (("decode", 1), ("prefill_512", 512),
+                    ("prefill_1024", 1024)):
+        h = torch.randn((1, n, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        ms = device_ms(lambda: model.mlp(lp, h), iters=20 if n == 1 else 5)
+        hit = K if n == 1 else int(
+            moe_gate(lp["moe"]["gate"]["w"], h[0], K)[1].unique().numel())
+        b = bound(2 * (3 * hit * D * Fm + 3 * D * Fs) + 4 * D * E
+                  + 2 * 2 * n * D, 2 * n * (3 * K * D * Fm + 3 * D * Fs))
+        out[name] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                     "experts_read": hit,
+                     "capacity": default_capacity(n, K, E)}
+        log(f"[dsocr] MoE layer (plain) {name}: device ms {ms:.4f}, bound "
+            f"{b[0]:.4f} ({b[1]}; {hit} experts' weights read)")
+    n_moe = sum(1 for lp in params["layers"] if "moe" in lp)
+    share = n_moe * out["decode"]["ms"] / step_ms
+    out["decode"]["share_of_step"] = share
+    log(f"[dsocr] MoE at decode: {n_moe} layers x {out['decode']['ms']:.4f} "
+        f"ms = {share:.1%} of (aa1)'s graphed step ({step_ms:.3f} ms)")
+    DSOCR_READINGS["moe"] = out
+
+
+def phase_deepseek_ocr(device: str = "cuda") -> dict:
+    """(aa) DeepSeek-OCR's published geometry (DeepseekOCRConfig(): SAM
+    ViTDet-B at 1024 px, CLIP-L/14, DeepSeek-V2 with 12 layers at 1280, 10
+    heads of 128 over 10, 64 routed experts of 896 top-6, 2 shared, the
+    first layer dense at 6848, vocab 129280) with seeded bf16 weights on
+    the card through TextEngine without a prefix store, as served: (aa1) a
+    1024 x 1024 image at base = image = 1024 (273 image tokens, the 512
+    bucket) and (aa2) an A4 page at 200 dpi in crop mode at base 1024 (6
+    tiles of 640 and the global view, 903 image tokens, the 1024 bucket),
+    64 greedy tokens each: the prefill kernel 12 a prefill, row 8 12 a
+    step; the MoE layer's plain timings; 8 teacher-forced steps of each at
+    the towers' full depth and DSOCR_CUT decoder layers against the f32
+    plain path on the CPU.  Returns the parameters for the HTTP phase."""
+    import dataclasses
+
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.deepseek_ocr import (DeepseekOCRConfig,
+                                                   DeepseekOCRModel)
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    greedy, n = SamplingConfig(), DSOCR_TOKENS
+    cfg = DeepseekOCRConfig()
+    lc = cfg.language
+    require((lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim)
+            == (10, 10, 128), "DeepSeek-OCR's heads are not 10/10 of 128")
+    model = DeepseekOCRModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(19),
+                               dtype=torch.bfloat16)
+    _sync(device)
+    n_vis = sum(t.numel() for k in ("sam", "clip", "projector")
+                for t in _leaves(params[k]))
+    n_all = sum(t.numel() for t in _leaves(params))
+    log(f"[dsocr] (aa) DeepSeek-OCR geometry: SAM ViTDet-B "
+        f"{cfg.sam.depth} blocks at {cfg.sam.embed_dim}, CLIP-L "
+        f"{cfg.clip.num_layers} layers at {cfg.clip.hidden_size}, "
+        f"DeepSeek-V2 {lc.num_hidden_layers} layers at {lc.hidden_size} "
+        f"(10/10 heads of 128; {lc.n_routed_experts} experts of "
+        f"{lc.moe_intermediate_size}, top-{lc.num_experts_per_tok}, "
+        f"{lc.n_shared_experts} shared; layer 0 dense at "
+        f"{lc.intermediate_size}), V={lc.vocab_size}: {n_all / 1e9:.3f} B "
+        f"bf16 params ({n_vis / 1e6:.1f} M in the towers) seeded on the "
+        f"card in {time.perf_counter() - t0:.1f} s (set-up)")
+    reqs = {"aa1": _dsocr_request(cfg, 1024, 1024, 1, 1024, 1024, False),
+            "aa2": _dsocr_request(cfg, 1654, 2339, 2, 1024, 640, True)}
+    a1, a2 = reqs["aa1"], reqs["aa2"]
+    require(a1["n_img"] == 273 and a1["n_crops"] == 0
+            and bucket_for(len(a1["ids"])) == 512
+            and len(a1["mm"]["gather_idx"]) == 273,
+            f"(aa1): {a1['n_img']} image tokens, {len(a1['ids'])} ids")
+    require(a2["n_img"] == 903 and a2["n_crops"] == 6
+            and bucket_for(len(a2["ids"])) == 1024
+            and len(a2["mm"]["gather_idx"]) == 903
+            and a2["mm"]["crops"].shape == (6, 3, 640, 640),
+            f"(aa2): {a2['n_img']} image tokens, {a2['n_crops']} crops, "
+            f"{len(a2['ids'])} ids")
+    warm = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    for r in reqs.values():
+        warm.generate_tokens(r["ids"], greedy, max_tokens=4,
+                             mm=mm_to(r["mm"], torch.device(device)))
+    del warm
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    eager = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                       cuda_graphs=False)
+    L = lc.num_hidden_layers
+    must = ("flash_attention", "flash_decode_at_layer")
+    want = {"flash_attention": L, "flash_decode_at_layer": L * n,
+            "flash_attention_segmented": 0, "fused_decode_stack": 0,
+            "flash_decode_at_layer_flat": 0, "head_argmax": 0}
+    outs = {}
+    for tag, what in (("aa1", "1024 x 1024 image at base 1024, 273 image "
+                              "tokens (bucket 512)"),
+                      ("aa2", "A4 page at 200 dpi (1654 x 2339), crop mode, "
+                              "6 tiles of 640 + a 1024 global view, 903 "
+                              "image tokens (bucket 1024)")):
+        r = reqs[tag]
+        mm = mm_to(r["mm"], torch.device(device))
+        r["mm_dev"] = mm
+        tower = _wall_ms(lambda: model.assemble_vision(params, mm), device)
+        tower_dev = (device_ms(lambda: model.assemble_vision(params, mm),
+                               iters=2, warmup=1)
+                     if device == "cuda" else None)
+        outs[tag] = _vl3_path(tag, what, eng, eager, r, greedy, must, want,
+                              device, tower, n=n, phase="dsocr",
+                              readings=DSOCR_READINGS)
+        DSOCR_READINGS[tag]["tower_device_ms"] = tower_dev
+        if tower_dev is not None:
+            log(f"[dsocr] ({tag}) tower: wall {tower:.2f} ms, device "
+                f"{tower_dev:.2f} ms")
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[dsocr] (aa) the prefill kernel {L} a prefill (10/10 heads of "
+        f"128, G 1), flash_decode_at_layer {L} a step, no segment kernel "
+        f"(SAM and CLIP attend plainly, as the reference) | {card}")
+    del eng, eager
+    if device == "cuda":
+        _moe_timings(model, params,
+                     device, DSOCR_READINGS["aa1"]
+                     ["decode_ms_per_step_graphed"])
+        torch.cuda.empty_cache()
+    cut_cfg = dataclasses.replace(cfg, language=dataclasses.replace(
+        lc, num_hidden_layers=DSOCR_CUT))
+    small = {**params, "layers": params["layers"][:DSOCR_CUT]}
+    for tag in ("aa1", "aa2"):
+        _vl3_teacher_forced(
+            tag, DeepseekOCRModel, cut_cfg, small, reqs[tag],
+            outs[tag][:8], device,
+            {"flash_attention": DSOCR_CUT,
+             "flash_decode_at_layer": 8 * DSOCR_CUT}, phase="dsocr",
+            cut=f"the towers whole and {DSOCR_CUT} decoder layers (the "
+                f"dense one and 3 MoE), ({tag})'s image")
+    return params
+
+
+def _dsocr_checkpoint(tmp: str, params: dict) -> tuple:
+    """A servable DSOCR_SERVE cut at the published widths with HF names:
+    the test tokenizer and its <image> token, config.json in the published
+    layout (language_config, vision_config widths, projector_config), the
+    seeded weights with the embedding rows past the tokenizer zeroed.
+    Returns (the served model's cut config, the <image> id)."""
+    import dataclasses
+
+    from tokenizers import AddedToken
+
+    from aha_tpu_torch.io.weights import save_hf_deepseek_ocr
+    from aha_tpu_torch.models.deepseek_ocr import DeepseekOCRConfig
+
+    fixtures, tok = _smoke_tokenizer(tmp)
+    tok.add_tokens([AddedToken("<image>", normalized=False)])
+    tok.save(os.path.join(tmp, "tokenizer.json"))
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    eos, img = tok.token_to_id("<|im_end|>"), tok.token_to_id("<image>")
+    c = DeepseekOCRConfig()
+    cut = DSOCR_SERVE
+    sam = dataclasses.replace(c.sam, depth=cut["sam"],
+                              global_attn_indexes=(2,))
+    lang = dataclasses.replace(c.language, num_hidden_layers=cut["layers"],
+                               bos_token_id=0, eos_token_id=eos)
+    cfg = {"language_config": dataclasses.asdict(lang),
+           "vision_config": {
+               "image_size": sam.img_size, "mlp_ratio": sam.mlp_ratio,
+               "width": {"sam_vit_b": {
+                   "width": sam.embed_dim, "layers": sam.depth,
+                   "heads": sam.num_heads, "out_chans": sam.out_chans,
+                   "window_size": sam.window_size,
+                   "downsample_channels": [sam.net2_chans, sam.net3_chans],
+                   "global_attn_indexes": list(sam.global_attn_indexes)},
+                   "clip-l-14-224": {
+                       "width": c.clip.hidden_size, "layers": cut["clip"],
+                       "heads": c.clip.num_heads,
+                       "image_size": c.clip.image_size,
+                       "patch_size": c.clip.patch_size}}},
+           "projector_config": {"input_dim": c.projector_input_dim,
+                                "n_embed": c.projector_n_embed},
+           "image_token_id": img, "bos_token_id": 0, "eos_token_id": eos}
+    for name, obj in (("config.json", cfg),
+                      ("generation_config.json", {"eos_token_id": [eos]})):
+        with open(os.path.join(tmp, name), "w") as f:
+            json.dump(obj, f)
+    clip = params["clip"]
+    small = {**params,
+             "sam": {**params["sam"],
+                     "blocks": params["sam"]["blocks"][:cut["sam"]]},
+             "clip": {**clip, "layers": _tree_map(
+                 lambda t: t[:cut["clip"]], clip["layers"])},
+             "layers": params["layers"][:cut["layers"]]}
+    t0 = time.perf_counter()
+    save_hf_deepseek_ocr(_text_rows_zeroed(small, vocab), tmp)
+    log(f"[dsocr-http] {DSOCR_MODEL} full-width checkpoint (SAM "
+        f"{cut['sam']} blocks, CLIP {cut['clip']} layers, {cut['layers']} "
+        f"decoder layers) written in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+    return cfg, img
+
+
+def phase_http_deepseek_ocr(params: dict) -> None:
+    """The DSOCR_SERVE checkpoint served by `python -m aha_tpu_torch serv
+    <dir> --model deepseek-ai/DeepSeek-OCR` in a child under -X importtime
+    (no jax or aha_tpu module): a plain image request (the 640 view) and a
+    crop_mode one on a wide image (2 tiles of 640), each reply equal to the
+    in-process engine's on the same checkpoint; then `python -m
+    aha_tpu_torch run <dir> --model ... --input <png>` in a child, whose
+    answer under the family's prompt equals the in-process one."""
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    with tempfile.TemporaryDirectory(prefix="aha_torch_dsocr_") as tmp:
+        _, img_id = _dsocr_checkpoint(tmp, params)
+        served = load_model(DSOCR_MODEL, tmp, max_seq_len=2048)
+
+        def body(url, text, **md):
+            b = {"model": DSOCR_MODEL, "max_tokens": 16, "temperature": 0.0,
+                 "stream": False, "messages": [{"role": "user", "content": [
+                     {"type": "image_url", "image_url": {"url": url}},
+                     {"type": "text", "text": text}]}]}
+            if md:
+                b["metadata"] = md
+            return b
+
+        asks = {"plain image (640 view)": (body(_png_data_url(800, 600, 21),
+                                                "<image>\nFree OCR."), 111),
+                "crop_mode, 1400 x 700 (2 tiles of 640)": (
+                    body(_png_data_url(1400, 700, 22), "<image>\nFree OCR.",
+                         crop_mode="true"), 321)}
+        with _server(tmp, "--model", DSOCR_MODEL) as base:
+            for what, (b, n_img) in asks.items():
+                data = served.get_data(
+                    ChatCompletionParameters.model_validate(b))
+                require(data.input_ids.count(img_id) == n_img
+                        == len(data.mm["gather_idx"]),
+                        f"{what}: {data.input_ids.count(img_id)} image "
+                        f"tokens")
+                want = served.generate(ChatCompletionParameters
+                                       .model_validate(b))
+                status, text = _post(base + "/v1/chat/completions", b)
+                require(status == 200, f"{what}: {text[-500:]}")
+                got = json.loads(text)
+                reply = got["choices"][0]["message"]["content"]
+                require(reply == want.choices[0].message.content
+                        and got["usage"]["prompt_tokens"]
+                        == want.usage.prompt_tokens,
+                        f"{what}: served {reply!r} vs in-process "
+                        f"{want.choices[0].message.content!r}")
+                log(f"[dsocr-http] {what}: {n_img} image tokens, "
+                    f"{got['usage']['prompt_tokens']}-token prompt, reply "
+                    f"equal to the in-process engine's "
+                    f"({got['usage']['completion_tokens']} tokens)")
+        png = os.path.join(tmp, "page.png")
+        _rgb(900, 1200, 23).save(png)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "aha_tpu_torch", "run", tmp, "--model",
+             DSOCR_MODEL, "--input", png, "--max-tokens", "16",
+             "--max-seq-len", "2048"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        require(proc.returncode == 0, f"run: {proc.stderr[-2000:]}")
+        # a seeded reply may hold any character: split at newlines only
+        lines = proc.stdout.rstrip("\n").split("\n")
+        want = served.generate(ChatCompletionParameters.model_validate(
+            body(f"file://{png}",
+                 "<image>\nConvert the document to markdown. ")))
+        require(lines[0].startswith("load model use time: ")
+                and lines[-1].startswith("generate use time: ")
+                and "\n".join(lines[1:-1])
+                == want.choices[0].message.text(),
+                f"run printed {proc.stdout[-1000:]!r}")
+        log(f"[dsocr-http] `run` of {DSOCR_MODEL} answered a 900 x 1200 page "
+            f"under the family's prompt as the in-process engine does "
+            f"({time.perf_counter() - t0:.1f} s, load included)")
+        del served
 
 
 def main() -> int:
@@ -5394,6 +5760,10 @@ def main() -> int:
     lfm2vl = timed("lfm2vl", phase_lfm2vl)
     timed("siglip-http", phase_http_siglip, ocr, lfm2vl)
     del ocr, lfm2vl
+    torch.cuda.empty_cache()
+    dsocr = timed("dsocr", phase_deepseek_ocr)
+    timed("dsocr-http", phase_http_deepseek_ocr, dsocr)
+    del dsocr
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -5407,7 +5777,7 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
-                    "page", "ernie",
+                    "page", "ernie", *DSOCR_DECODE,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -5417,6 +5787,7 @@ def main() -> int:
     print(json.dumps({"hybrid": HYBRID_READINGS}))
     print(json.dumps({"vl3": VL3_READINGS}))
     print(json.dumps({"siglip": SIGLIP_READINGS}))
+    print(json.dumps({"dsocr": DSOCR_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 JAX CLI's behaviour (aha_tpu/cli/main.py) — `list` with the downloaded
 mark under AHA_HOME, `delete`, `ps` finding a live server by its PID file
 and removing a stale one, and `run` on the tiny Qwen3 repo of
-tests/fixtures answering as the served model does, on the CPU.  Child
+tests/fixtures answering as the served model does (and on its tiny
+DeepSeek-OCR repo, with the family's prompt), on the CPU.  Child
 processes run against 127.0.0.1 with a deadline."""
 
 import json
@@ -233,3 +234,41 @@ def test_run_ranks_a_rerankers_documents(repo, monkeypatch, capsys):
     order = sorted(range(3), key=lambda i: -scores[i])
     assert out[1:-1] == [f"#{r + 1} score={scores[i]:.4f}  {docs[i]}"
                          for r, i in enumerate(order)]
+
+
+def test_run_reads_a_deepseek_ocr_page_with_the_family_prompt(
+        tmp_path, monkeypatch, capsys):
+    """`run` of a DeepSeek-OCR id (the tiny repo of tests/fixtures.py)
+    answers an image with the family's default prompt, the JAX CLI's
+    "<image>\\nConvert the document to markdown. ", as the served model
+    answers that request."""
+    import base64
+
+    from aha_tpu.cli.main import _OCR_PROMPTS as JAX_OCR_PROMPTS
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+    from tests.fixtures import build_tiny_deepseek_ocr_repo
+    from tests.vision_chat import png_data_url
+
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    model_id = "deepseek-ai/DeepSeek-OCR"
+    prompt = cli._OCR_PROMPTS["deepseek_ocr"]
+    assert prompt == JAX_OCR_PROMPTS["deepseek_ocr"]
+    repo = str(tmp_path / "dsocr")
+    build_tiny_deepseek_ocr_repo(repo)
+    path = tmp_path / "page.png"
+    path.write_bytes(base64.b64decode(png_data_url(96, 64, seed=9)
+                                      .split(",")[1]))
+    assert cli.main(["run", repo, "--model", model_id, "--input", str(path),
+                     "--max-tokens", "6", "--max-seq-len", "4096"]) == 0
+    # a seeded reply may hold any character: split at newlines only
+    out = capsys.readouterr().out.rstrip("\n").split("\n")
+    assert out[0].startswith("load model use time: ")
+    assert out[-1].startswith("generate use time: ")
+    want = load_model(model_id, repo, max_seq_len=4096).generate(
+        ChatCompletionParameters.model_validate({
+            "messages": [{"role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": f"file://{path}"}},
+                {"type": "text", "text": prompt}]}],
+            "model": model_id, "max_tokens": 6}))
+    assert "\n".join(out[1:-1]) == want.choices[0].message.text()

@@ -1998,3 +1998,112 @@ def test_siglip_families_graphs_equal_eager(dev, family):
     assert launches["flash_attention"] > 0
     assert launches["flash_decode_at_layer"] > 0
     assert engines[True].graphs.stats()["graphs"] >= 2
+
+
+def _deepseek_ocr_tiny(dev):
+    """DeepSeek-OCR with its towers at the JAX tests' tiny widths (SAM at
+    64 px, CLIP at 48) over a decoder of 2 heads of 64 over 2 (G 1, as
+    the published 10 / 10), 16 routed experts top-2 (a prefill of N
+    tokens takes the capacity buffer, C = N / 2), seeded bf16; (model,
+    params, image prompt ids of >= 128 rows, host mm)."""
+    from aha_tpu_torch.models.deepseek_ocr import (ClipViTConfig,
+                                                   DeepseekOCRConfig,
+                                                   DeepseekOCRModel,
+                                                   DeepseekV2Config,
+                                                   SamViTConfig)
+    import numpy as np
+    from PIL import Image
+
+    from aha_tpu_torch.models.deepseek_ocr_served import build_mm, image_views
+
+    cfg = DeepseekOCRConfig(
+        language=DeepseekV2Config(
+            vocab_size=512, hidden_size=128, intermediate_size=256,
+            moe_intermediate_size=64, num_hidden_layers=3,
+            num_attention_heads=2, num_key_value_heads=2,
+            n_routed_experts=16, num_experts_per_tok=2),
+        sam=SamViTConfig(img_size=64, embed_dim=32, depth=3, num_heads=4,
+                         out_chans=16, window_size=2,
+                         global_attn_indexes=(1,), net2_chans=24,
+                         net3_chans=48),
+        clip=ClipViTConfig(image_size=28, num_layers=2, hidden_size=48,
+                           num_heads=4, ffn_hidden_size=96),
+        projector_input_dim=96, projector_n_embed=128, image_token_id=500)
+    model = DeepseekOCRModel(cfg, max_rope_len=8192, device=dev)
+    rng = np.random.default_rng(4)
+    img = Image.fromarray(rng.integers(0, 255, (700, 1400, 3),
+                                       dtype=np.uint8))
+    view = image_views(img, 1, 640, 640, True)          # 2 tiles of 640
+    ids = _prompt_ids(6, 3, 400) + [500] * view[3] + _prompt_ids(9, 4, 400)
+    params = model.init_random(torch.Generator(device=dev).manual_seed(9),
+                               dtype=torch.bfloat16)
+    return model, params, ids, build_mm([view], 1)
+
+
+def test_deepseek_ocr_graphs_equal_eager(dev):
+    """DeepSeek-OCR on TextEngine: a crop-mode image prompt (321 image
+    tokens, the 512 bucket) and a sampled text one, graphed against eager:
+    tokens bit-equal, launches equal; the prefill kernel and the 5-D
+    decode kernel launched, the segment kernel never (the towers attend
+    plainly); the MoE's decode form captured."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    model, params, ids, mm_np = _deepseek_ocr_tiny(dev)
+    mm = mm_to(mm_np, dev)
+    engines = {g: TextEngine(model, params, eos_token_ids=[],
+                             max_seq_len=8192, cuda_graphs=g)
+               for g in (True, False)}
+
+    def run(eng):
+        return (eng.generate_tokens(ids, SamplingConfig(), 40, mm=mm),
+                _text_requests(eng, [(_prompt_ids(30, 5, 400), _SAMPLED,
+                                      24)]))
+
+    got = {g: _counted(lambda: run(e)) for g, e in engines.items()}
+    assert got[True] == got[False]
+    launches = got[True][1]
+    assert launches.get("flash_attention_segmented", 0) == 0
+    assert launches["flash_attention"] == 3
+    assert launches["flash_decode_at_layer"] % 3 == 0 and \
+        launches["flash_decode_at_layer"] > 0
+    assert engines[True].graphs.stats()["graphs"] >= 2
+
+
+@pytest.mark.parametrize("n", [1, 4, 96], ids=["decode", "4-tokens",
+                                               "capacity-buffer"])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, n):
+    """moe_ffn in bf16 on the card (the gathered form at n ≤ C, the
+    capacity buffer past it) against float32 on the CPU on the same bf16
+    numbers, routed by the same float32 gate: within 2e-2 of max |ref|
+    (the bf16 rounding of the expert products)."""
+    from aha_tpu_torch.ops.moe import default_capacity, moe_ffn
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+
+    def mk(*shape):
+        return (torch.randn(shape, generator=g) * 0.05).bfloat16()
+
+    D, F, E, K = 256, 128, 64, 6
+    p = {"gate": {"w": torch.randn((D, E), generator=g)},
+         "experts": {"gate": {"w": mk(E, D, F)}, "up": {"w": mk(E, D, F)},
+                     "down": {"w": mk(E, F, D)}},
+         "shared": {"gate": {"w": mk(D, 2 * F)}, "up": {"w": mk(D, 2 * F)},
+                    "down": {"w": mk(2 * F, D)}}}
+    x = torch.randn((n, D), generator=g).bfloat16()
+    C = default_capacity(n, K, E)
+    assert (n <= C) == (n < 96)
+
+    def to(tree, device, dtype):
+        if isinstance(tree, dict):
+            return {k: to(v, device, torch.float32 if k == "gate"
+                          and "experts" in tree else dtype)
+                    for k, v in tree.items()}
+        return tree.to(device=device, dtype=dtype)
+
+    got = moe_ffn(to(p, dev, torch.bfloat16), x.to(dev), K, capacity=C)
+    ref = moe_ffn(to(p, "cpu", torch.float32), x.float(), K, capacity=C)
+    torch.cuda.synchronize()
+    err = (got.float().cpu() - ref).abs().max() / ref.abs().max()
+    assert got.dtype == torch.bfloat16 and err.item() <= 2e-2

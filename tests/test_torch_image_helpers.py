@@ -1,7 +1,8 @@
 """The port's SigLIP and tiling helpers (aha_tpu_torch/utils/image.py)
 against aha_tpu.utils.image's: the row-major patchify, the SigLIP
 preprocessing under pixel bounds and scalar mean / std, the tile grids,
-the closest aspect ratio (ties included), the tile crop, and the image
+the closest aspect ratio (ties included), the tile crop, DeepSeek-OCR's
+tiling, edge-padded resize and normalisation, and the image
 sources of a chat request.  Exact equality: both are the same numpy and
 Pillow arithmetic."""
 
@@ -81,3 +82,36 @@ def test_extract_image_sources_equal():
     assert T.extract_image_sources(ChatCompletionParameters.model_validate(
         b)) == J.extract_image_sources(JParameters.model_validate(b)) == \
         ["data:x", "file:///y.png", "z"]
+
+
+@pytest.mark.parametrize("w,h,lo,hi,size", [
+    (1400, 700, 2, 9, 640), (1654, 2339, 2, 9, 640),
+    (300, 1200, 2, 6, 768), (900, 500, 2, 6, 768)])
+def test_dynamic_preprocess_equal(w, h, lo, hi, size):
+    """DeepSeek-OCR's Gundam tiling (v1: 2..9 tiles of 640, v2: 2..6 of
+    768): the same grid and tiles."""
+    img = _img(w, h, seed=w + h)
+    got, grid = T.dynamic_preprocess(img, lo, hi, size)
+    want, wgrid = J.dynamic_preprocess(img, lo, hi, size)
+    assert grid == wgrid and len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("w,h,size", [(1654, 2339, 1024), (700, 1400, 640),
+                                      (640, 640, 640), (50, 30, 512)])
+def test_resize_with_edge_padding_equal(w, h, size):
+    img = _img(w, h, seed=h)
+    got = T.resize_with_edge_padding(img, size, size)
+    want = J.resize_with_edge_padding(img, size, size)
+    assert got.size == want.size == (size, size)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("mean,std", [(0.5, 0.5), (0.4, 0.3)])
+def test_img_transform_equal(mean, std):
+    img = _img(37, 21, seed=3)
+    got = T.img_transform(img, mean, std)
+    want = J.img_transform(img, mean, std)
+    assert got.shape == (3, 21, 37) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

@@ -357,7 +357,7 @@ def test_loader_drops_chat_options_for_other_families(monkeypatch):
                     "minicpm4": {"prefix_cache": 2, "spec_tokens": 3},
                     "lfm2": {"batch_slots": 2}}
     with pytest.raises(NotImplementedError):
-        loader.load_model("deepseek-ai/DeepSeek-OCR", "/x")
+        loader.load_model("ZhipuAI/GLM-OCR", "/x")
 
 
 def test_minicpm4_geometry():
@@ -387,7 +387,8 @@ def test_minicpm4_geometry():
                                       "Qwen/Qwen3.5-0.8B",
                                       "Qwen/Qwen3-VL-8B-Instruct",
                                       "PaddlePaddle/PaddleOCR-VL",
-                                      "LiquidAI/LFM2-VL-1.6B"])
+                                      "LiquidAI/LFM2-VL-1.6B",
+                                      "deepseek-ai/DeepSeek-OCR"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
