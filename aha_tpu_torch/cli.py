@@ -13,7 +13,8 @@
   cache in int8.
 - `run <path> --input ...`: one chat from the command line (text, or for
   a vlm a prompt and an image, or for an OCR model an image and an
-  optional prompt, the family's task prompt by default), the vectors of
+  optional prompt, the family's task prompt by default, or for an ASR
+  model an audio file, whose transcript is printed), the vectors of
   an embedding model's inputs, or a reranker's ranking of `--input query
   --input doc ...`, with the load and generate times.
 - `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
@@ -111,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--input", required=True, action="append",
                    help="repeatable: the prompt (text, or file:// text), "
                         "then for a vlm the image (path or URL); for an "
-                        "OCR model the image, then an optional prompt; an "
+                        "OCR model the image, then an optional prompt; for "
+                        "an ASR model the audio (path or URL); an "
                         "embedding model's texts; a reranker's query, "
                         "then its documents")
     r.add_argument("--max-tokens", type=int, default=1024)
@@ -236,15 +238,16 @@ def _chat_req(model_id: str, content, max_tokens: int, greedy: bool):
 def run_run(args) -> int:
     """One request, printing the model-load and generate wall times as
     the JAX CLI's `run` does: text chat (llm), image chat (vlm), an OCR
-    model's reading of an image (ocr), an embedding model's vectors, a
+    model's reading of an image (ocr), an ASR model's transcript of the
+    first input as an audio_url (asr), an embedding model's vectors, a
     reranker's ranking."""
     model_id = model_id_for(args.path, args.model)
     entry = registry.lookup(model_id)
     mt = entry.model_type
-    if mt not in ("llm", "vlm", "ocr", "embedding", "reranker"):
+    if mt not in ("llm", "vlm", "ocr", "asr", "embedding", "reranker"):
         raise NotImplementedError(
             f"`run` of a {mt} model is not ported to aha_tpu_torch yet "
-            "(text and image chat, OCR, embeddings and reranking are)")
+            "(text and image chat, OCR, ASR, embeddings and reranking are)")
     inputs: list[str] = args.input
     if mt == "vlm" and len(inputs) < 2:
         print(f"{model_id} needs --input <prompt> --input <image>")
@@ -278,6 +281,9 @@ def run_run(args) -> int:
         content = [{"type": "image_url",
                     "image_url": {"url": _as_url(inputs[0])}},
                    {"type": "text", "text": prompt}]
+    elif mt == "asr":
+        content = [{"type": "audio_url",
+                    "audio_url": {"url": _as_url(inputs[0])}}]
     else:
         content = _maybe_file_text(inputs[0])
         if args.spec_tokens > 0:

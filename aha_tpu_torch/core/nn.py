@@ -27,6 +27,16 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def linear_promoted(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A dense linear in x's dtype, its weight and bias cast to it: what the
+    JAX package's type promotion does to a float32 input against
+    bfloat16 weights (DeepSeek-OCR's and the ASR models' towers)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return p["w"][ids.long()]
 

@@ -5,15 +5,19 @@ arrays (what `Qwen3Model` / `LlamaModel` `init_random` / `load_params` /
 `load_qwen3_gguf` produce, fused or not), a vision-language tree
 ({"visual": ..., "text": ...}: Qwen2.5-VL's and PaddleOCR-VL's over a
 llama tree, Qwen3-VL's over a Qwen3 tree; the vision blocks, encoder
-layers and deepstack mergers lists), a hybrid decoder's tree
-(`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer "layers" list of layer
-dicts of two kinds, and Qwen3.5's "visual" tower subtree where it has
-one; LFM2-VL's is LFM2's with its "visual" tower and "projector" beside
-the decoder's keys), DeepSeek-OCR's (the SAM / CLIP towers, the CLIP
-layers stacked, the decoder an unstacked "layers" list of dense and MoE
-layers, version 2's "qwen2enc" encoder the layers and norm of a llama
-tree, kept float32), or a
-BERT tree (`BertModel`'s:
+layers and deepstack mergers lists), an ASR tree ({"audio": ..., "text"
+or "llm": ...}: Qwen3-ASR's and Fun-ASR-Nano's over a Qwen3 tree,
+GLM-ASR-Nano's over a llama one; the decoder always under "text" in the
+port, each SANM block's FSMN taps turned from the JAX (K, D) to torch's
+depthwise Conv1d layout (D, 1, K), the convs OIHW / OIH in both), a
+hybrid decoder's tree (`Lfm2Model`'s or `Qwen3_5Model`'s: a per-layer
+"layers" list of layer dicts of two kinds, and Qwen3.5's "visual" tower
+subtree where it has one; LFM2-VL's is LFM2's with its "visual" tower and
+"projector" beside the decoder's keys), DeepSeek-OCR's (the SAM / CLIP
+towers, the CLIP layers stacked, the decoder an unstacked "layers" list
+of dense and MoE layers, version 2's "qwen2enc" encoder the layers and
+norm of a llama tree, kept float32), FireRedVAD's DetectModel tree (no
+head; its FSMN taps kept (K, P)), or a BERT tree (`BertModel`'s:
 "embeddings" and a "layers" list, linear weights and norms with biases, no
 head), and returns the port's tree: the same nesting (lists kept) and
 stacked (L, ...) layers, the (in, out) dense linear layout kept, the dense
@@ -86,6 +90,9 @@ def _to_torch(tree, device, dtype):
                             else dtype) for k, v in tree.items()}
         if "experts" in tree:                   # a MoE block's router
             out["gate"] = _to_torch(tree["gate"], device, torch.float32)
+        if "w" in tree.get("fsmn", {}):         # a SANM block's memory taps
+            taps = np.asarray(tree["fsmn"]["w"], np.float32)      # (K, D)
+            out["fsmn"] = {"w": _to_torch(taps.T[:, None, :], device, dtype)}
         return out
     arr = np.array(tree, dtype=np.float32)      # a writable copy
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
@@ -93,9 +100,12 @@ def _to_torch(tree, device, dtype):
 
 def params_from_jax(tree: dict, device: torch.device | str = "cpu",
                     dtype: torch.dtype = torch.float32) -> dict:
-    if "text" in tree:                          # a vision-language tree
-        return {"visual": _to_torch(tree["visual"], device, dtype),
-                "text": params_from_jax(tree["text"], device, dtype)}
+    if "text" in tree or "llm" in tree:         # a tower beside a decoder
+        dec = "text" if "text" in tree else "llm"
+        out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
+               if k != dec}
+        out["text"] = params_from_jax(tree[dec], device, dtype)
+        return out
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
            if k != "lm_head"}
     if "qwen2enc" in tree:                      # DeepSeek-OCR-2's encoder:

@@ -1,13 +1,16 @@
-"""safetensors checkpoints → torch tensors (counterpart of
-aha_tpu/io/weights.py, safetensors only).
+"""Checkpoints → torch tensors (counterpart of aha_tpu/io/weights.py).
 
 `open_weights(path)` resolves a model directory the way the JAX package
-does (sharded index → *.safetensors) and returns a read-only mapping from
-checkpoint tensor name to a CPU tensor; model loaders move each tensor to
-the device and dtype they need (models/qwen2_5vl.py takes both HF prefix
-sets of a Qwen2_5_VLForConditionalGeneration checkpoint).  The save_hf_*
-writers are the loaders' inverses, for checkpoints made from seeded
-weights.
+does (sharded index → *.safetensors → *.pth / *.bin) and returns a
+read-only mapping from checkpoint tensor name to a CPU tensor; .pth and
+.bin files are read with `torch.load(..., map_location="cpu",
+weights_only=True)`, PyTorch's own reader, which takes the place of the
+JAX package's pure-Python pickle reader (aha_tpu/io/torch_pickle.py);
+model loaders move each tensor to the device and dtype they need
+(models/qwen2_5vl.py takes both HF prefix sets of a
+Qwen2_5_VLForConditionalGeneration checkpoint; `Renamed` gives a loader
+its names over another prefix set).  The save_hf_* writers are the
+loaders' inverses, for checkpoints made from seeded weights.
 """
 
 from __future__ import annotations
@@ -40,9 +43,69 @@ class SafetensorsSource:
         return self._files[self._index[name]].get_tensor(name)
 
 
-def open_weights(path: str) -> SafetensorsSource:
+class TorchPickleSource:
+    """.pth / .bin checkpoints through torch.load (tensors only; a
+    {"state_dict": {...}} wrapper is unwrapped, as the JAX reader's torch
+    fallback does)."""
+
+    def __init__(self, paths: list[str]):
+        self._tensors: dict[str, torch.Tensor] = {}
+        for p in paths:
+            sd = torch.load(p, map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and isinstance(sd.get("state_dict"),
+                                                   dict):
+                sd = sd["state_dict"]
+            self._tensors.update({k: t for k, t in sd.items()
+                                  if isinstance(t, torch.Tensor)})
+
+    def keys(self) -> list[str]:
+        return list(self._tensors)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tensors
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._tensors[name]
+
+
+class Renamed:
+    """A read-only view of a weight source under other names: `rename`
+    maps a name the loader asks for to the one the checkpoint holds (names
+    it does not map pass through)."""
+
+    def __init__(self, src, rename):
+        self.src, self.rename = src, rename
+
+    def __contains__(self, name: str) -> bool:
+        return self.rename(name) in self.src
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.src[self.rename(name)]
+
+
+def take_linear(src, name: str, device, dtype) -> dict:
+    """HF's `name.weight` (out, in) as the port's (in, out), with its bias
+    where the checkpoint has one."""
+    p = {"w": src[name + ".weight"].to(device=device, dtype=dtype)
+         .t().contiguous()}
+    if name + ".bias" in src:
+        p["b"] = src[name + ".bias"].to(device=device, dtype=dtype)
+    return p
+
+
+def take_norm(src, name: str, device, dtype) -> dict:
+    """A norm's weight, and its bias where the checkpoint has one."""
+    p = {"w": src[name + ".weight"].to(device=device, dtype=dtype)}
+    if name + ".bias" in src:
+        p["b"] = src[name + ".bias"].to(device=device, dtype=dtype)
+    return p
+
+
+def open_weights(path: str) -> SafetensorsSource | TorchPickleSource:
     if os.path.isfile(path):
-        return SafetensorsSource([path])
+        if path.endswith(".safetensors"):
+            return SafetensorsSource([path])
+        return TorchPickleSource([path])
     idx = os.path.join(path, "model.safetensors.index.json")
     if os.path.exists(idx):
         with open(idx) as f:
@@ -52,7 +115,11 @@ def open_weights(path: str) -> SafetensorsSource:
     st = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if st:
         return SafetensorsSource(st)
-    raise FileNotFoundError(f"no safetensors weights under {path}")
+    pth = sorted(glob.glob(os.path.join(path, "*.pth"))
+                 + glob.glob(os.path.join(path, "*.bin")))
+    if pth:
+        return TorchPickleSource(pth)
+    raise FileNotFoundError(f"no safetensors/pth/bin weights under {path}")
 
 
 def _hf_linear(out: dict, name: str, p: dict) -> None:
@@ -422,4 +489,81 @@ def save_hf_deepseek_ocr(params: dict, path: str) -> None:
     out["model.embed_tokens.weight"] = params["embed"]["w"].contiguous().cpu()
     out["model.norm.weight"] = params["norm"]["w"].cpu()
     out["lm_head.weight"] = params["lm_head"]["w"].contiguous().cpu()
+    _save(out, path)
+
+
+def save_hf_qwen3_asr(params: dict, path: str) -> None:
+    """Write the port's (unfused) Qwen3-ASR parameters with the names of a
+    published checkpoint (the inverse of Qwen3ASRModel.load_params): the
+    encoder under thinker.audio_tower. (convs OIHW), the decoder under
+    thinker.model., thinker.lm_head unless tied."""
+    at = "thinker.audio_tower."
+    ap = params["audio"]
+    out = {}
+    for i, lp in enumerate(ap["layers"]):
+        p = f"{at}layers.{i}."
+        _hf_norm(out, p + "self_attn_layer_norm", lp["ln1"])
+        _hf_norm(out, p + "final_layer_norm", lp["ln2"])
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                          ("o", "out_proj")):
+            _hf_linear(out, f"{p}self_attn.{name}", lp[key])
+        _hf_linear(out, p + "fc1", lp["fc1"])
+        _hf_linear(out, p + "fc2", lp["fc2"])
+    for i in (1, 2, 3):
+        out[f"{at}conv2d{i}.weight"] = ap[f"conv{i}"]["w"].contiguous().cpu()
+        out[f"{at}conv2d{i}.bias"] = ap[f"conv{i}"]["b"].cpu()
+    _hf_norm(out, at + "ln_post", ap["ln_post"])
+    for name in ("conv_out", "proj1", "proj2"):
+        _hf_linear(out, at + name, ap[name])
+    dec = _hf_decoder(params["text"], prefix="thinker.model.")
+    if "lm_head.weight" in dec:
+        dec["thinker.lm_head.weight"] = dec.pop("lm_head.weight")
+    out.update(dec)
+    _save(out, path)
+
+
+def save_hf_fun_asr_nano(params: dict, path: str) -> None:
+    """Write the port's (unfused) Fun-ASR-Nano parameters with the names of
+    a published checkpoint (the inverse of FunAsrNanoModel.load_params):
+    the SANM encoder under audio_encoder. (each FSMN weight torch's
+    depthwise (D, 1, K)), the adaptor under audio_adaptor., the LLM under
+    llm.model., llm.lm_head unless tied."""
+    ap = params["audio"]
+    out = {}
+
+    def sanm(p: str, lp: dict) -> None:
+        _hf_norm(out, p + "norm1", lp["ln1"])
+        _hf_norm(out, p + "norm2", lp["ln2"])
+        _hf_linear(out, p + "self_attn.linear_q_k_v", lp["qkv"])
+        _hf_linear(out, p + "self_attn.linear_out", lp["out"])
+        out[p + "self_attn.fsmn_block.weight"] = \
+            lp["fsmn"]["w"].contiguous().cpu()
+        _hf_linear(out, p + "feed_forward.w_1", lp["fc1"])
+        _hf_linear(out, p + "feed_forward.w_2", lp["fc2"])
+
+    enc = "audio_encoder."
+    sanm(enc + "encoders0.0.", ap["encoders0"])
+    for i, lp in enumerate(ap["encoders"]):
+        sanm(f"{enc}encoders.{i}.", lp)
+    for i, lp in enumerate(ap["tp_encoders"]):
+        sanm(f"{enc}tp_encoders.{i}.", lp)
+    _hf_norm(out, enc + "after_norm", ap["after_norm"])
+    _hf_norm(out, enc + "tp_norm", ap["tp_norm"])
+    _hf_linear(out, "audio_adaptor.linear1", ap["ada1"])
+    _hf_linear(out, "audio_adaptor.linear2", ap["ada2"])
+    for i, lp in enumerate(ap["ada_blocks"]):
+        p = f"audio_adaptor.blocks.{i}."
+        _hf_norm(out, p + "norm1", lp["ln1"])
+        _hf_norm(out, p + "norm2", lp["ln2"])
+        for key, name in (("q", "self_attn.linear_q"),
+                          ("k", "self_attn.linear_k"),
+                          ("v", "self_attn.linear_v"),
+                          ("out", "self_attn.linear_out"),
+                          ("fc1", "feed_forward.w_1"),
+                          ("fc2", "feed_forward.w_2")):
+            _hf_linear(out, p + name, lp[key])
+    dec = _hf_decoder(params["text"], prefix="llm.model.")
+    if "lm_head.weight" in dec:
+        dec["llm.lm_head.weight"] = dec.pop("lm_head.weight")
+    out.update(dec)
     _save(out, path)

@@ -177,15 +177,6 @@ QWEN2_0_5B_ENCODER = LlamaConfig(
     rope_theta=1000000.0, rms_norm_eps=1e-6, qkv_bias=True)
 
 
-def _lin(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """A tower linear in x's dtype (its weights promoted, as JAX promotes
-    them)."""
-    y = x @ p["w"].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
-    return y
-
-
 def _to_dtype(tree, dtype: torch.dtype):
     if isinstance(tree, dict):
         return {k: _to_dtype(v, dtype) for k, v in tree.items()}
@@ -220,7 +211,7 @@ def _sam_attention(p: dict, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     grids: float32 scores and bias, probabilities cast to v's dtype."""
     B, H, W, C = x.shape
     hd = C // num_heads
-    qkv = _lin(p["qkv"], x).reshape(B, H * W, 3, num_heads, hd)
+    qkv = nn.linear_promoted(p["qkv"], x).reshape(B, H * W, 3, num_heads, hd)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         * (hd ** -0.5)                                   # (B, nh, HW, HW)
@@ -234,7 +225,8 @@ def _sam_attention(p: dict, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     scores += rel_h[..., :, None] + rel_w[..., None, :]
     probs = torch.softmax(scores.view(B, num_heads, H * W, H * W), dim=-1)
     out = torch.matmul(probs.to(v.dtype), v)
-    return _lin(p["proj"], out.transpose(1, 2).reshape(B, H, W, C))
+    return nn.linear_promoted(p["proj"],
+                              out.transpose(1, 2).reshape(B, H, W, C))
 
 
 def _window_partition(x: torch.Tensor, ws: int):
@@ -280,8 +272,8 @@ def sam_encode(p: dict, pixels: torch.Tensor,
                                        (x.shape[1], x.shape[2]))
         x = x + attn
         xn = nn.ln(bp["norm2"], x, eps=1e-6)
-        x = x + _lin(bp["lin2"], F.gelu(_lin(bp["lin1"], xn),
-                                        approximate="none"))
+        m = F.gelu(nn.linear_promoted(bp["lin1"], xn), approximate="none")
+        x = x + nn.linear_promoted(bp["lin2"], m)
     x = x.permute(0, 3, 1, 2)                                # (B, E, h, w)
     x = conv2d(p["neck0"], x)
     x = layer_norm_2d(p["neck1"], x)
@@ -322,12 +314,13 @@ def clip_encode(p: dict, patch_embeds: torch.Tensor,
     for i in range(layers["qkv"]["w"].shape[0]):
         lp = {k: {n: t[i] for n, t in v.items()} for k, v in layers.items()}
         h_ = nn.ln(lp["ln1"], x, eps=cfg.eps)
-        q, k, v = _lin(lp["qkv"], h_).chunk(3, dim=-1)
+        q, k, v = nn.linear_promoted(lp["qkv"], h_).chunk(3, dim=-1)
         a = sdpa(q.reshape(B, S, nh, hd), k.reshape(B, S, nh, hd),
                  v.reshape(B, S, nh, hd)).reshape(B, S, nh * hd)
-        x = x + _lin(lp["out"], a)
-        h_ = _lin(lp["fc1"], nn.ln(lp["ln2"], x, eps=cfg.eps))
-        x = x + _lin(lp["fc2"], h_ * torch.sigmoid(1.702 * h_))  # quick_gelu
+        x = x + nn.linear_promoted(lp["out"], a)
+        h_ = nn.linear_promoted(lp["fc1"], nn.ln(lp["ln2"], x, eps=cfg.eps))
+        # quick_gelu
+        x = x + nn.linear_promoted(lp["fc2"], h_ * torch.sigmoid(1.702 * h_))
     return x
 
 
@@ -412,7 +405,7 @@ class DeepseekOCRModel:
             feats = torch.cat([clip_out[:, 1:], sam_flat], dim=-1)
         else:
             feats = qwen2_encode(self.qwen2_model, p["qwen2enc"], sam_flat)
-        return _lin(p["projector"], feats)
+        return nn.linear_promoted(p["projector"], feats)
 
     def assemble_vision(self, p: dict, mm: dict) -> torch.Tensor:
         """The projected rows of every view, then image_newline (v1) and

@@ -5,9 +5,10 @@ families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5: text, and image and
 video chat on a checkpoint with a vision tower), qwen2_5vl (Qwen2.5-VL
 image and video chat), qwen3vl (Qwen3-VL image and video chat),
 paddleocr_vl (PaddleOCR-VL document OCR), deepseek_ocr (DeepSeek-OCR and
-DeepSeek-OCR-2), lfm2vl (LFM2-VL image chat), qwen3_embedding /
-qwen3_reranker and
-minilm (all-MiniLM-L6-v2); every other family raises NotImplementedError.
+DeepSeek-OCR-2), lfm2vl (LFM2-VL image chat), the ASR families qwen3_asr
+(Qwen3-ASR), fun_asr_nano (Fun-ASR-Nano) and glm_asr_nano (GLM-ASR-Nano),
+qwen3_embedding / qwen3_reranker and minilm (all-MiniLM-L6-v2); every
+other family raises NotImplementedError.
 The reference's option checks run first, before any weights load, with
 its strings."""
 
@@ -101,8 +102,29 @@ def _lfm2vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return Lfm2VLChat.load(entry, path, **kw)
 
 
+def _qwen3_asr(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.qwen3_asr_served import Qwen3ASRChat
+
+    return Qwen3ASRChat.load(entry, path, **kw)
+
+
+def _fun_asr_nano(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.fun_asr_nano_served import FunAsrNanoChat
+
+    return FunAsrNanoChat.load(entry, path, **kw)
+
+
+def _glm_asr_nano(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.glm_asr_nano_served import GlmAsrNanoChat
+
+    return GlmAsrNanoChat.load(entry, path, **kw)
+
+
 FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "minilm": _minilm,
+    "qwen3_asr": _qwen3_asr,
+    "fun_asr_nano": _fun_asr_nano,
+    "glm_asr_nano": _glm_asr_nano,
     "paddleocr_vl": _paddleocr_vl,
     "deepseek_ocr": _deepseek_ocr,
     "lfm2vl": _lfm2vl,
@@ -155,7 +177,7 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
         raise NotImplementedError(
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
             "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
-            "Qwen3-VL, PaddleOCR-VL, DeepSeek-OCR, LFM2-VL, Qwen3 "
-            "embedding and "
-            "reranker, and all-MiniLM-L6-v2 models are)")
+            "Qwen3-VL, PaddleOCR-VL, DeepSeek-OCR, LFM2-VL, Qwen3-ASR, "
+            "Fun-ASR-Nano, GLM-ASR-Nano, Qwen3 embedding and reranker, and "
+            "all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -82,9 +82,11 @@ class TextChatModel(GenerateModel, LoadedModel):
              build_model: Callable[[str, int], tuple],
              max_seq_len: int = 8192, batch_slots: int = 1,
              prefix_cache: int = 4, spec_tokens: int = 0,
-             cuda_graphs: bool = True) -> "TextChatModel":
+             cuda_graphs: bool = True,
+             chat_template: ChatTemplate | None = None) -> "TextChatModel":
         """build_model(path, max_seq_len) → (model, params); `cuda_graphs`
-        as the engines take it."""
+        as the engines take it; `chat_template` in place of the
+        checkpoint's (a family with a fixed prompt)."""
         if batch_slots > 1 and spec_tokens > 0:
             raise ValueError(SPEC_WITH_SLOTS)
         model, params = build_model(path, max_seq_len)
@@ -116,7 +118,8 @@ class TextChatModel(GenerateModel, LoadedModel):
                       "carries rolling conv/recurrent state that cannot "
                       "rewind past rejected drafts")
         served = cls(entry, engine, TokenizerModel.init(path),
-                     ChatTemplate.init(path), load_generation_config(path),
+                     chat_template or ChatTemplate.init(path),
+                     load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))
                      or entry.name)
         # the server's chat gate admits this many chats at once

@@ -1,10 +1,10 @@
 """Rotary position embeddings, half-rotation form (counterpart of
 aha_tpu/ops/rope.py): the 1-D tables, M-RoPE's contiguous t/h/w sections
 (Qwen2.5-VL's text decoder) and the interleaved ones (Qwen3-VL's, and
-Qwen3.5's over its partial rotary table), and the vision towers' 2-D
-(h, w) rotary.  Tables are float32, computed in float64 on the host once
-and gathered by position.  Not ported: the pairwise (GPT-NeoX)
-rotation."""
+Qwen3.5's over its partial rotary table), the vision towers' 2-D (h, w)
+rotary, and the partial rotation of GLM-ASR's audio encoder.  Tables are
+float32, computed in float64 on the host once and gathered by position.
+Not ported: the pairwise (GPT-NeoX) rotation."""
 
 from __future__ import annotations
 
@@ -36,6 +36,18 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     sin2 = torch.cat([sin, sin], dim=-1)[..., :, None, :].to(q.dtype)
     return (q * cos2 + rotate_half(q) * sin2,
             k * cos2 + rotate_half(k) * sin2)
+
+
+def apply_partial_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor, rotary_dim: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate only the first `rotary_dim` channels (GLM-ASR's encoder,
+    rope.rs:172/:245); the rest pass through.  cos/sin: (seq,
+    rotary_dim // 2)."""
+    q_rot, k_rot = apply_rope(q[..., :rotary_dim], k[..., :rotary_dim],
+                              cos, sin)
+    return (torch.cat([q_rot, q[..., rotary_dim:]], dim=-1),
+            torch.cat([k_rot, k[..., rotary_dim:]], dim=-1))
 
 
 def gather_rope(cos: torch.Tensor, sin: torch.Tensor,

@@ -1,11 +1,11 @@
 """OpenAI-compatible HTTP server for the port (aiohttp).
 
-The port's copy of the chat, embedding and rerank parts of
+The port's copy of the chat, transcription, embedding and rerank parts of
 aha_tpu/server/app.py: the same server state, auth middleware and chat /
-embeddings / rerank / health / models / shutdown handlers, with the same
-status codes and error strings, so both packages answer the same wire
-format.  The /manage routes and the audio / image endpoints are not ported
-yet.
+audio transcriptions (multipart) / embeddings / rerank / health / models
+/ shutdown handlers, with the same status codes and error strings, so
+both packages answer the same wire format.  The /manage routes, speech
+synthesis and the image endpoint are not ported yet.
 
 One model in memory; generation runs in a worker thread guarded by an
 asyncio lock (the reference's write-lock serialization, api.rs:31/:131) —
@@ -20,6 +20,7 @@ import asyncio
 import hmac
 import json
 import os
+import tempfile
 import threading
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Optional
@@ -30,10 +31,24 @@ from aha_tpu_torch.models.base import LoadedModel, UnsupportedOperation
 from aha_tpu_torch.params import (ChatCompletionParameters, EmbeddingData,
                                   EmbeddingResponse, RerankRequest,
                                   RerankResponse, RerankResult)
+from aha_tpu_torch.params.asr import TranscriptionResponse, error_response
 
 __all__ = ["ServerState", "create_app", "start_http_server"]
 
 FILE_LIMIT = 100 * 1024 * 1024      # 100 MiB (server/mod.rs:52-54)
+
+# 29-language code → name map used by the ASR endpoint (src/server/asr.rs /
+# utils/mod.rs:593-633)
+LANGUAGE_NAMES = {
+    "zh": "Chinese", "en": "English", "yue": "Cantonese", "ja": "Japanese",
+    "ko": "Korean", "de": "German", "fr": "French", "es": "Spanish",
+    "it": "Italian", "pt": "Portuguese", "ru": "Russian", "ar": "Arabic",
+    "hi": "Hindi", "th": "Thai", "vi": "Vietnamese", "id": "Indonesian",
+    "ms": "Malay", "tr": "Turkish", "nl": "Dutch", "pl": "Polish",
+    "sv": "Swedish", "da": "Danish", "no": "Norwegian", "fi": "Finnish",
+    "cs": "Czech", "uk": "Ukrainian", "el": "Greek", "he": "Hebrew",
+    "hu": "Hungarian",
+}
 
 
 class ServerState:
@@ -65,6 +80,13 @@ class _NullGate:
 
 
 _NULL_GATE = _NullGate()
+
+
+def clean_asr_response(text: str) -> str:
+    """Strip the <asr_text> prefix markers (utils/mod.rs:634)."""
+    for tag in ("<asr_text>", "</asr_text>"):
+        text = text.replace(tag, "")
+    return text.strip()
 
 
 def _state(request: web.Request) -> ServerState:
@@ -163,6 +185,79 @@ async def chat(request: web.Request) -> web.StreamResponse:
     except (ConnectionResetError, ConnectionError):
         pass
     return response
+
+
+async def transcriptions(request: web.Request) -> web.Response:
+    """Multipart ASR endpoint (src/server/asr.rs): the uploaded file goes
+    to a temporary file, wrapped into a chat request with an audio_url
+    part (language as metadata, temperature), the reply's text cleaned of
+    its <asr_text> markers; the file is removed afterwards."""
+    state = _state(request)
+    if state.model is None:
+        return web.json_response(
+            error_response("Model not initialized", "server_error"), status=503)
+    try:
+        reader = await request.multipart()
+    except Exception:
+        return web.json_response(
+            error_response("expected multipart form data"), status=400)
+
+    file_bytes = None
+    filename = "audio"
+    language = None
+    temperature = None
+    async for part in reader:
+        if part.name == "file":
+            filename = part.filename or "audio"
+            file_bytes = await part.read(decode=False)
+            if len(file_bytes) > FILE_LIMIT:
+                return web.json_response(
+                    error_response("file too large"), status=413)
+        elif part.name == "language":
+            language = (await part.text()).strip() or None
+        elif part.name == "temperature":
+            try:
+                temperature = float(await part.text())
+            except ValueError:
+                pass
+        else:
+            await part.read(decode=False)
+
+    if not file_bytes:
+        return web.json_response(
+            error_response("No audio file provided"), status=400)
+
+    suffix = os.path.splitext(filename)[1] or ".wav"
+    with tempfile.NamedTemporaryFile(suffix=suffix, delete=False) as f:
+        f.write(file_bytes)
+        tmp_path = f.name
+    try:
+        metadata = {}
+        if language:
+            metadata["language"] = LANGUAGE_NAMES.get(language, language)
+        mes = ChatCompletionParameters.model_validate({
+            "messages": [{
+                "role": "user",
+                "content": [{"type": "audio_url",
+                             "audio_url": {"url": f"file://{tmp_path}"}}],
+            }],
+            "model": state.model.entry.model_id,
+            "metadata": metadata or None,
+            "temperature": temperature,
+        })
+        async with state.lock:
+            try:
+                resp = await _run_blocking(state.model.generate, mes)
+            except Exception as e:
+                return web.json_response(
+                    error_response(str(e), "server_error"), status=500)
+        text = ""
+        if resp.choices and resp.choices[0].message.content:
+            text = resp.choices[0].message.text()
+        return web.json_response(
+            TranscriptionResponse(text=clean_asr_response(text)).to_json_dict())
+    finally:
+        os.unlink(tmp_path)
 
 
 async def embeddings(request: web.Request) -> web.Response:
@@ -298,6 +393,8 @@ def create_app(state: ServerState | None = None) -> web.Application:
     app.add_routes([
         web.post("/v1/chat/completions", chat),
         web.post("/chat/completions", chat),
+        web.post("/audio/transcriptions", transcriptions),
+        web.post("/v1/audio/transcriptions", transcriptions),
         web.post("/embeddings", embeddings),
         web.post("/v1/embeddings", embeddings),
         web.post("/rerank", rerank),

@@ -2,7 +2,8 @@
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
 LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
 and Qwen3.5 image and video chat, PaddleOCR-VL and DeepSeek-OCR document
-OCR and LFM2-VL image chat paths once on one CUDA card.
+OCR, LFM2-VL image chat and Qwen3-ASR / Fun-ASR-Nano speech recognition
+paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -224,6 +225,30 @@ before the last line:
     importtime: a plain image request and a crop_mode one, each reply
     equal to the in-process engine's; then `run` of the id in a child,
     its answer under the family's prompt equal to the in-process one.
+14. asr — (ab) Qwen3-ASR-0.6B at bench_asr_rtfx's geometry (encoder 18
+    layers at 896, 14 heads of 64, over Qwen3-0.6B) and (ac) Fun-ASR-Nano
+    at the JAX package's default one (50 + 20 SANM blocks at 512, 4 heads
+    of 128, the adaptor to 1024, Qwen3-0.6B), seeded bf16 weights,
+    through their served chat classes on TextEngine without a prefix
+    store: (ab1) / (ac1) bench's 30 s seeded waveform (the 3,200-frame
+    bucket, S 416, 390 audio tokens; 500 LFR rows in the 512 bucket, 63
+    tokens), (ab2) / (ac2) assets/audio/sample.wav ((ab2) in English), 80
+    greedy tokens each: the prefill kernel 28 a prefill of >= 128 rows,
+    the fused stack and the head once a step, row 10 72 a Fun-ASR request;
+    graphed and eager; RTFx (front end + encoder + prefill + 80 tokens,
+    best of 2), the encoder wall and device, TTFT; 8 teacher-forced steps
+    of (ab1) and (ac1) at full encoder depth and 4 decoder layers against
+    the f32 plain path on the CPU; Qwen3-ASR's plain encoder attention
+    and Fun-ASR's FSMN memory timed (design candidates); FireRedVAD on
+    sample.wav (its probabilities against the CPU's, streaming against
+    offline); the kernel phase also holds row 10 at (ac1)'s two shapes;
+15. asr-http — Qwen3-ASR cut to 4 encoder and 2 decoder layers at full
+    width with HF names and the test tokenizer's audio tokens, served by
+    `python -m aha_tpu_torch serv <dir> --model Qwen/Qwen3-ASR-0.6B` in a
+    child under -X importtime: a multipart POST of sample.wav to
+    /v1/audio/transcriptions (language=en) and an audio chat, each equal
+    to the in-process model's reply; then `run` of it and of Fun-ASR-Nano
+    cut to 4 + 2 SANM blocks and 2 LLM layers, each equal likewise.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -244,7 +269,7 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON lines of the siglip and the dsocr readings, one JSON line of
+JSON lines of the siglip, the dsocr and the asr readings, one JSON line of
 per-kernel results,
 the card line, and
 the last line {"ok": true,
@@ -1815,6 +1840,104 @@ def check_segmented_page() -> None:
     torch.cuda.empty_cache()
 
 
+#: Fun-ASR-Nano's two shapes at the segment kernel (D 128), (ac1)'s 30 s:
+#: the SANM blocks' S 512 bucket of 500 LFR rows at 4 heads (q and k the
+#: strided thirds of the fused q|k|v product, v the pad-zeroed copy), the
+#: adaptor's S 256 of 250 rows at 8 heads (three contiguous tensors)
+FUN_ASR_SEG = {"sanm": dict(S=512, real=500, H=4, fused=True),
+               "adaptor": dict(S=256, real=250, H=8, fused=False)}
+
+
+def check_segmented_fun_asr() -> None:
+    """Row 10 at FUN_ASR_SEG's two shapes: every row against the f32 plain
+    version within TOL_SEG_REL of max |ref| (pad rows 0), a repeat
+    bit-equal, and the planted fault the bound must reject (the k tile of
+    rows 128-191 hidden from every other row); device ms of the kernel and
+    its plain version, the bound, and F.scaled_dot_product_attention over
+    the real rows with the boolean mask and without one."""
+    from aha_tpu_torch.ops import flash_attention as fa
+    from aha_tpu_torch.ops.attention import segment_mask
+
+    D = 128
+    out = {}
+    for kind, c in FUN_ASR_SEG.items():
+        S, R, H = c["S"], c["real"], c["H"]
+        seg = torch.cat([torch.zeros(R, dtype=torch.int32),
+                         -torch.ones(S - R, dtype=torch.int32)]).cuda()
+        g = torch.Generator(device="cuda").manual_seed(S + H)
+        if c["fused"]:
+            qkv = torch.randn((1, S, 3 * H * D), generator=g, device="cuda")
+            qkv[..., :H * D] *= 4               # peaked scores: O(1) outputs
+            qkv = qkv.bfloat16()
+            q = qkv[..., :H * D].reshape(1, S, H, D)
+            k = qkv[..., H * D:2 * H * D].reshape(1, S, H, D)
+            v = torch.where((seg >= 0)[None, :, None], qkv[..., 2 * H * D:],
+                            0.0).reshape(1, S, H, D)
+            require(not q.is_contiguous() and not k.is_contiguous()
+                    and v.is_contiguous(), f"{kind}: q/k are not strided "
+                    "thirds of one product")
+        else:
+            q = (torch.randn((1, S, H, D), generator=g, device="cuda")
+                 * 4).bfloat16()
+            k = torch.randn((1, S, H, D), generator=g,
+                            device="cuda").bfloat16()
+            v = torch.randn((1, S, H, D), generator=g,
+                            device="cuda").bfloat16()
+        n0 = fa.flash_attention_segmented.launches
+        got = fa.flash_attention_segmented(q, k, v, seg)
+        again = fa.flash_attention_segmented(q, k, v, seg)
+        require(fa.flash_attention_segmented.launches == n0 + 2,
+                f"segmented {kind}: the kernel was not launched")
+        ref = fa.flash_attention_segmented_plain(q.float(), k.float(),
+                                                 v.float(), seg)
+        t0 = 128
+        hidden = seg.clone()
+        hidden[t0:t0 + 64] = 1 << 30
+        outside = torch.ones(S, dtype=torch.bool, device="cuda")
+        outside[t0:t0 + 64] = False
+        bad = fa.flash_attention_segmented(q, k, v, hidden)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"segmented {kind}: a repeat is "
+                "not bit-equal")
+        require(bool((got[:, R:] == 0).all()), f"segmented {kind}: a pad "
+                "row's output is not 0")
+        err, rel = _rel_err(got, ref)
+        _, rel_bad = _rel_err(bad[:, outside], ref[:, outside])
+        require(rel <= TOL_SEG_REL, f"segmented {kind}: err {rel} of max "
+                "|ref|")
+        require(rel_bad > TOL_SEG_REL, f"segmented {kind}: a hidden k tile "
+                f"stays within the bound ({rel_bad})")
+        ms = device_ms(lambda: fa.flash_attention_segmented(q, k, v, seg))
+        plain_ms = device_ms(lambda: fa.flash_attention_segmented_plain(
+            q, k, v, seg), iters=10)
+        mask = segment_mask(seg, seg.device)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        masked_ms = device_ms(lambda: _sdpa(qt, kt, vt, attn_mask=mask))
+        qr, kr, vr = (t[:, :, :R].contiguous() for t in (qt, kt, vt))
+        lib_ms = device_ms(lambda: _sdpa(qr, kr, vr))
+        b = bound((3 * R + S) * H * D * 2, 4 * H * D * R * R)
+        log(f"[kernels] segmented D 128 Fun-ASR {kind} S={S} ({R} real + "
+            f"{S - R} pad, one segment) H={H}, "
+            f"{'strided q|k|v thirds' if c['fused'] else 'contiguous q/k/v'}: "
+            f"max_abs_err {err:.3e}, {rel:.3e} of max |ref| (tol "
+            f"{TOL_SEG_REL}; a hidden k tile {rel_bad:.3e}), a repeat "
+            f"bit-equal; device ms/call kernel {ms:.4f} plain {plain_ms:.4f} "
+            f"masked sdpa {masked_ms:.4f} unmasked sdpa on the {R} real rows "
+            f"{lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}) | {card_line()}")
+        _record("flash_attention_segmented", err)
+        out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "library_ms": lib_ms,
+                     "library": f"F.scaled_dot_product_attention, unmasked, "
+                                f"the {R} real rows",
+                     "masked_sdpa_ms": masked_ms, "rel_err": rel,
+                     "rel_err_hidden_tile": rel_bad,
+                     "timed_at": f"S={S} ({R} real, one segment) H={H} "
+                                 f"D={D}"}
+        del q, k, v, qt, kt, vt, qr, kr, vr, got, again, ref, bad, mask
+    RESULTS["flash_attention_segmented"]["fun_asr"] = out
+    torch.cuda.empty_cache()
+
+
 #: ERNIE-4.5-0.3B (PaddleOCR-VL's decoder) at the decode kernel: 18 layers,
 #: 16 query heads over 2 of 128, (y1)'s rows in the 4,096-row cache
 ERNIE_DECODE = dict(L=18, S=4096, Hq=16, Hkv=2, D=128, valid=2900)
@@ -2222,6 +2345,7 @@ def phase_kernels() -> None:
     check_segmented()
     check_segmented_d72()
     check_segmented_page()
+    check_segmented_fun_asr()
     check_stacked_decode()
     check_ernie_decode()
     check_decode_g7()
@@ -5717,6 +5841,705 @@ def phase_http_deepseek_ocr(params: dict) -> None:
         del served
 
 
+# -- 14. ASR: Qwen3-ASR-0.6B (ab) and Fun-ASR-Nano (ac) ------------------------
+
+#: greedy tokens a request (bench_asr_rtfx's 80)
+ASR_TOKENS = 80
+#: the teacher-forced check's decoder depth (the encoders stay whole)
+ASR_CUT = 4
+#: the served checkpoints at full width: Qwen3-ASR's first 4 encoder layers
+#: and 2 decoder layers; Fun-ASR's first 4 SANM blocks (encoders0 and 3),
+#: 2 tp blocks, the adaptor whole and 2 LLM layers
+ASR_SERVE = {"qwen3_asr": dict(encoder=4, layers=2),
+             "fun_asr": dict(blocks=4, tp=2, layers=2)}
+QWEN3_ASR_MODEL = "Qwen/Qwen3-ASR-0.6B"
+FUN_ASR_MODEL = "FunAudioLLM/Fun-ASR-Nano-2512"
+SAMPLE_WAV = os.path.join(ROOT, "assets", "audio", "sample.wav")
+#: FireRedVAD: frame-by-frame streaming probabilities against the offline
+#: pass (tests/test_torch_fire_red_vad.py's TOL_PROBS), and the card's
+#: offline probabilities against the CPU's
+TOL_VAD = 1e-5
+TOL_VAD_CPU = 1e-4
+#: per path: RTFx, front end, encoder (wall and device), TTFT, decode
+#: ms/step graphed and eager; the design candidates' timings; FireRedVAD's
+#: segments (one JSON line before the kernels line)
+ASR_READINGS: dict[str, dict] = {}
+
+
+def asr_configs():
+    """(Qwen3-ASR-0.6B at bench_asr_rtfx's geometry, bench.py:247-250:
+    Qwen3ASRAudioConfig() — 18 layers at 896, 14 heads of 64 — over
+    Qwen3Config() = Qwen3-0.6B; Fun-ASR-Nano at the JAX package's default
+    geometry, FunAsrNanoConfig(): a 512-wide SANM encoder of 50 + 20
+    blocks at 4 heads of 128, the adaptor to 1024 at 8 heads of 128,
+    Qwen3-0.6B as its LLM — no published config.json is in the
+    repository)."""
+    from aha_tpu_torch.models.fun_asr_nano import FunAsrNanoConfig
+    from aha_tpu_torch.models.qwen3 import Qwen3Config
+    from aha_tpu_torch.models.qwen3_asr import (Qwen3ASRAudioConfig,
+                                                Qwen3ASRConfig)
+
+    return (Qwen3ASRConfig(audio=Qwen3ASRAudioConfig(), text=Qwen3Config()),
+            FunAsrNanoConfig())
+
+
+def _asr_wave(secs: float = 30.0) -> np.ndarray:
+    """bench_asr_rtfx's waveform (bench.py:255-258)."""
+    return np.random.default_rng(0).standard_normal(
+        int(16000 * secs)).astype(np.float32) * 0.05
+
+
+def _wav_url(wav: np.ndarray) -> str:
+    import base64
+
+    from aha_tpu_torch.utils.audio import wav_bytes
+
+    return "data:audio/wav;base64," + base64.b64encode(
+        wav_bytes(wav, 16000)).decode()
+
+
+def _asr_tokenizer(tmp: str):
+    """tests/fixtures.py's test tokenizer with Qwen3-ASR's three audio
+    tokens, a chat template that renders an audio_url part as the audio
+    marker, and its eos in generation_config.json, written under `tmp`."""
+    from tokenizers import AddedToken
+
+    fixtures, tok = _smoke_tokenizer(tmp)
+    tok.add_special_tokens([AddedToken(t, special=True) for t in (
+        "<|audio_start|>", "<|audio_pad|>", "<|audio_end|>")])
+    tok.save(os.path.join(tmp, "tokenizer.json"))
+    template = fixtures.CHAT_TEMPLATE.replace(
+        "{{ message.content }}",
+        "{% if message.content is string %}{{ message.content }}"
+        "{% else %}{% for part in message.content %}"
+        "{% if part.type == 'text' %}{{ part.text }}"
+        "{% elif part.type == 'audio_url' %}"
+        "<|audio_start|><|audio_pad|><|audio_end|>{% endif %}"
+        "{% endfor %}{% endif %}")
+    for name, obj in (("tokenizer_config.json", {"chat_template": template}),
+                      ("generation_config.json", {"eos_token_id": [
+                          tok.token_to_id("<|im_end|>")]})):
+        with open(os.path.join(tmp, name), "w") as f:
+            json.dump(obj, f)
+    return tok
+
+
+def _asr_chat(cls, model_id: str, model, params: dict, tmp: str,
+              cuda_graphs: bool = True):
+    """The served chat class over an in-process model: a TextEngine without
+    a prefix store or eos (every request runs its max_tokens), the test
+    tokenizer and template under `tmp`."""
+    from aha_tpu_torch.core.chat_template import ChatTemplate
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.tokenizer import TokenizerModel
+    from aha_tpu_torch.models.fun_asr_nano_served import FunAsrNanoChat
+    from aha_tpu_torch.registry import lookup
+
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                     cuda_graphs=cuda_graphs)
+    template = (ChatTemplate.str_init("{{ messages }}")
+                if cls is FunAsrNanoChat else ChatTemplate.init(tmp))
+    chat = cls(lookup(model_id), eng, TokenizerModel.init(tmp), template,
+               {}, model_name="smoke")
+    chat.asr_model = model
+    return chat
+
+
+def _asr_request(url: str, n: int | None = None, **md):
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    body = {"model": "smoke", "messages": [{"role": "user", "content": [
+        {"type": "audio_url", "audio_url": {"url": url}}]}]}
+    if n is not None:
+        body["max_tokens"] = n
+    if md:
+        body["metadata"] = md
+    return ChatCompletionParameters.model_validate(body)
+
+
+def _asr_path(tag: str, what: str, chat, eager, mes, wav: np.ndarray,
+              frontend, encode, device: str, n: int = ASR_TOKENS) -> dict:
+    """One request through the served chat's preprocessing (`get_data`),
+    then `n` greedy tokens through the graphed engine with the counters
+    zeroed before and read after (row 1 at 28 for a prompt bucket of ≥ 128
+    rows, rows 3 and 4 once a decode step, row 2 never, row 10 at 72 for
+    Fun-ASR), eager_twin; the served `generate` of the same request must
+    reply with the same tokens' text.  Then RTFx as bench_asr_rtfx
+    measures it — front end (`frontend(wav, ids)` → mm) + encoder +
+    prefill + n tokens, best of 2 after the warm-up — the encoder alone
+    (wall and device) and TTFT (front end + the engine's prompt time).
+    `frontend(wav, mm)` rebuilds the request's `mm` from the 16 kHz
+    waveform (the prepared one tells it the prompt's layout)."""
+    from aha_tpu_torch.core.engine import DECODE_BLOCK, bucket_for
+    from aha_tpu_torch.models.fun_asr_nano_served import FunAsrNanoChat
+
+    greedy = _greedy()
+    data = chat.get_data(mes)
+    ids, mm = data.input_ids, data.mm
+    fun = isinstance(chat, FunAsrNanoChat)
+    L = chat.asr_model.n_layers
+    steps = DECODE_BLOCK * -(-(n - 1) // DECODE_BLOCK)
+    want = {"flash_attention": L if bucket_for(len(ids)) >= 128 else 0,
+            "fused_decode_stack": steps, "head_argmax": steps,
+            "flash_decode_at_layer_flat": 0, "flash_decode_at_layer": 0,
+            "flash_attention_segmented": 72 if fun else 0}
+    must = tuple(k for k, v in want.items() if v)
+    eng = chat.engine
+    wr = zero_counts()
+    _sync(device)
+    out = eng.generate_tokens(ids, greedy, max_tokens=n, mm=mm)
+    _sync(device)
+    t = eng.last_timing
+    counts = read_counts(wr, f"asr-{tag}", must)
+    require(device != "cuda" or all(counts[k] == c for k, c in want.items()),
+            f"({tag}) launches {counts}, want {want}")
+    require(len(out) == n, f"({tag}): {len(out)} tokens")
+    reply = chat.generate(mes).choices[0].message.content
+    require(reply == chat.tokenizer.decode(out), f"({tag}) the served "
+            f"generate replied {reply!r}, the engine's tokens decode to "
+            f"{chat.tokenizer.decode(out)!r}")
+
+    def run(e):
+        return [e.generate_tokens(ids, greedy, max_tokens=n, mm=mm)], \
+            [e.last_timing]
+
+    eager_twin(f"({tag}) {what}", eng, lambda: eager.engine, run, [out],
+               counts, device)
+    g = GRAPH_READINGS[-1]
+    secs = len(wav) / 16000
+    fe_ms = _wall_ms(lambda: frontend(wav, mm), device)
+
+    def once():
+        _sync(device)
+        t0 = time.perf_counter()
+        eng.generate_tokens(ids, greedy, max_tokens=n, mm=frontend(wav, mm))
+        _sync(device)
+        return secs / (time.perf_counter() - t0)
+
+    rtfx = [once(), once()]
+    enc_ms = _wall_ms(lambda: encode(mm), device)
+    enc_dev = (device_ms(lambda: encode(mm), iters=3, warmup=1)
+               if device == "cuda" else None)
+    ttft = fe_ms + t.prompt_secs * 1e3
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[asr] ({tag}) {what}: {t.prompt_tokens}-token prompt (bucket "
+        f"{bucket_for(len(ids))}); RTFx {max(rtfx):.1f} (best of "
+        f"{', '.join(f'{r:.1f}' for r in rtfx)}: {secs:.0f} s of audio, front "
+        f"end + encoder + prefill + {n} tokens); front end {fe_ms:.2f} ms, "
+        f"encoder {enc_ms:.2f} ms wall"
+        + (f" / {enc_dev:.2f} device" if enc_dev is not None else "")
+        + f"; TTFT {ttft:.2f} ms; decode {g['ms_per_step_graphed']:.3f} "
+        f"ms/step graphed, {g['ms_per_step_eager']:.3f} eager | {card}")
+    ASR_READINGS[tag] = {
+        "what": what, "prompt_tokens": t.prompt_tokens,
+        "audio_s": secs, "rtfx": max(rtfx), "rtfx_runs": rtfx,
+        "frontend_ms": fe_ms, "encoder_wall_ms": enc_ms,
+        "encoder_device_ms": enc_dev, "ttft_ms": ttft,
+        "decode_ms_per_step_graphed": g["ms_per_step_graphed"],
+        "decode_ms_per_step_eager": g["ms_per_step_eager"],
+        "launches": {k: counts[k] for k in want}, "card": card}
+    return {"ids": ids, "out": out, "mm": mm}
+
+
+def _greedy():
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    return SamplingConfig()
+
+
+def _asr_candidates(q_model, q_params: dict, f_model, device: str) -> None:
+    """The two H100 design candidates the slice leaves plain, at (ab1)'s
+    and (ac1)'s shapes (device ms; timed only): Qwen3-ASR's encoder
+    attention — the plain masked sdpa of the reference, 14 heads of 64 over
+    S 416 in the encoder's float32 — beside F.scaled_dot_product_attention
+    with the same boolean key mask (float32, and bfloat16), and
+    Fun-ASR's FSMN memory (the depthwise conv of v plus v, (1, 512, 512)
+    float32, 11 taps)."""
+    from aha_tpu_torch.ops.attention import sdpa
+
+    a = q_model.config.audio
+    S, H, hd = 416, a.encoder_attention_heads, q_model.audio_head_dim
+    g = torch.Generator(device=device).manual_seed(416)
+    q, k, v = (torch.randn((1, S, H, hd), generator=g, device=device)
+               for _ in range(3))
+    keep = torch.arange(S, device=device) < 390
+    add = torch.where(keep, 0.0, torch.finfo(torch.float32).min)[
+        None, None, None]
+    ref = sdpa(q, k, v, add)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    got = _sdpa(qt, kt, vt, attn_mask=keep[None, None, None]).transpose(1, 2)
+    err = (got - ref).abs().max().item()
+    require(err <= TOL_ATTN, f"the encoder's masked sdpa differs from "
+            f"F.sdpa by {err}")
+    e = f_model.config.encoder
+    taps = torch.randn((e.output_size, 1, e.kernel_size), generator=g,
+                       device=device).to(embed_dtype(q_params))
+    vv = torch.randn((1, 512, e.output_size), generator=g, device=device)
+    out = {"encoder_attention": {"shape": f"1 x {S} x {H} x {hd} f32, key "
+                                          f"mask of 390 real rows"},
+           "fsmn_memory": {"shape": f"1 x 512 x {e.output_size} f32, "
+                                    f"{e.kernel_size} taps"}}
+    if device == "cuda":
+        plain = device_ms(lambda: sdpa(q, k, v, add))
+        lib = device_ms(lambda: _sdpa(qt, kt, vt,
+                                      attn_mask=keep[None, None, None]))
+        lib_bf = device_ms(lambda: _sdpa(
+            qt.bfloat16(), kt.bfloat16(), vt.bfloat16(),
+            attn_mask=keep[None, None, None]))
+        fsmn = device_ms(lambda: f_model.fsmn_memory(vv, taps))
+        out["encoder_attention"].update(
+            plain_ms=plain, sdpa_ms=lib, sdpa_bf16_ms=lib_bf,
+            layers=a.encoder_layers,
+            share_of_encoder=a.encoder_layers * plain
+            / ASR_READINGS["ab1"]["encoder_device_ms"])
+        out["fsmn_memory"].update(
+            ms=fsmn, blocks=e.num_blocks + e.tp_blocks,
+            share_of_encoder=(e.num_blocks + e.tp_blocks) * fsmn
+            / ASR_READINGS["ac1"]["encoder_device_ms"])
+        log(f"[asr] design candidates (device ms, timed only): Qwen3-ASR "
+            f"encoder attention plain {plain:.4f} vs F.sdpa f32 {lib:.4f} / "
+            f"bf16 {lib_bf:.4f} ({a.encoder_layers} layers: "
+            f"{out['encoder_attention']['share_of_encoder']:.1%} of (ab1)'s "
+            f"encoder); Fun-ASR FSMN memory {fsmn:.4f} "
+            f"({e.num_blocks + e.tp_blocks} blocks: "
+            f"{out['fsmn_memory']['share_of_encoder']:.1%} of (ac1)'s "
+            f"encoder) | {card_line()}")
+    ASR_READINGS["candidates"] = out
+
+
+def _vad_check(device: str) -> None:
+    """FireRedVAD on the card: seeded DFSMNs at the reference's default
+    geometries (weights at scale 0.05, where the probabilities do not
+    saturate, and the default VAD's output bias set so that about 45 % of
+    sample.wav's frames lie over its threshold), CMVN from sample.wav's
+    own fbank.  The default VAD's offline `detect_waveform` of sample.wav,
+    its probabilities against the same detector's on the CPU within
+    TOL_VAD_CPU and its segments equal to the CPU's; the stream VAD's
+    frame-by-frame probabilities (one feature row a call through its
+    caches) against its offline pass within TOL_VAD."""
+    from aha_tpu_torch.models import fire_red_vad as fr
+    from aha_tpu_torch.ops.audio_feats import kaldi_fbank
+    from aha_tpu_torch.utils.audio import prepare_audio
+
+    wav = prepare_audio(SAMPLE_WAV)
+    fb = kaldi_fbank(wav).astype(np.float64)
+    stats = np.stack([np.append(fb.sum(0), len(fb)),
+                      np.append((fb ** 2).sum(0), len(fb))])
+    cmvn = fr.CMVN(stats.astype(np.float32))
+    feats = torch.from_numpy(fr.extract_feats(cmvn, wav))[None]
+    g = torch.Generator(device="cpu")
+    cfg = fr.FireRedVadConfig.default_vad()
+    cpu = fr.DetectModel(fr.DetectModelConfig.default_vad())
+    params = cpu.init_random(g.manual_seed(21), scale=0.05)
+    logits = torch.logit(cpu.forward(params, feats)[0][0, :, 0].double())
+    # the threshold between two frames' logits, about 45 % of them above
+    params["out"]["b"] += float(np.log(cfg.speech_threshold
+                                       / (1 - cfg.speech_threshold))
+                                - logits.quantile(0.55))
+    vad_cpu = fr.FireRedVad(cpu, params, cmvn, cfg)
+    card = fr.DetectModel(fr.DetectModelConfig.default_vad(), device)
+    vad = fr.FireRedVad(card, _tree_to(params, device, torch.float32), cmvn,
+                        cfg)
+    t0 = time.perf_counter()
+    res = vad.detect_waveform(wav)
+    _sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    p_dev, p_cpu = vad.frame_probs(wav)[:, 0], vad_cpu.frame_probs(wav)[:, 0]
+    err_cpu = float(np.abs(p_dev - p_cpu).max())
+    speech = float((p_dev >= cfg.speech_threshold).mean())
+    require(0.2 < speech < 0.8, f"VAD: {speech:.0%} of frames over the "
+            "threshold")
+    require(err_cpu <= TOL_VAD_CPU, f"VAD probabilities on {device} vs the "
+            f"CPU: {err_cpu}")
+    # a smoothed probability within the tolerance of the threshold may
+    # decide either way on the two devices
+    near = np.abs(fr.smooth_probs(p_cpu, cfg.smooth_window_size)
+                  - cfg.speech_threshold) <= max(10 * err_cpu, 1e-6)
+    require(near.any() or res.timestamps
+            == vad_cpu.detect_waveform(wav).timestamps,
+            "VAD segments differ from the CPU's")
+    model = fr.DetectModel(fr.DetectModelConfig.default_stream_vad(), device)
+    sp = _tree_to(model.init_random(g.manual_seed(22), scale=0.05), device,
+                  torch.float32)
+    fd = feats.to(device)
+    offline, _ = model.forward(sp, fd)
+    caches, rows = None, []
+    for i in range(fd.shape[1]):
+        p, caches = model.forward(sp, fd[:, i:i + 1], caches, streaming=True)
+        rows.append(p)
+    err = (torch.cat(rows, 1) - offline).abs().max().item()
+    require(err <= TOL_VAD, f"VAD streaming vs offline: {err}")
+    line = card_line() if device == "cuda" else "cpu"
+    log(f"[asr] FireRedVAD (seeded, default VAD: r 8, h 256, p 128, n1 = n2 "
+        f"= 20) on sample.wav: {len(p_dev)} frames, probabilities "
+        f"{p_dev.min():.3f}-{p_dev.max():.3f} ({speech:.0%} over "
+        f"{cfg.speech_threshold}), {len(res.timestamps)} segments ("
+        f"{'a frame at the threshold' if near.any() else 'the CPU' + chr(39) + 's'}), within {err_cpu:.1e} of the CPU's probabilities (tol "
+        f"{TOL_VAD_CPU}); detect_waveform {wall:.1f} ms wall; the stream "
+        f"VAD frame by frame within {err:.1e} of its offline pass (tol "
+        f"{TOL_VAD}) | {line}")
+    ASR_READINGS["vad"] = {"frames": len(p_dev), "speech_share": speech,
+                           "segments": res.timestamps,
+                           "err_vs_cpu": err_cpu, "stream_err": err,
+                           "detect_waveform_ms": wall}
+
+
+def phase_asr(device: str = "cuda") -> dict:
+    """(ab) Qwen3-ASR-0.6B and (ac) Fun-ASR-Nano (asr_configs) with seeded
+    bf16 weights (embedding rows past the test tokenizer's vocabulary
+    zeroed, so replies decode to text) through their served chat classes
+    on TextEngine without a prefix store: (ab1) / (ac1) bench_asr_rtfx's
+    30 s waveform (Qwen3-ASR: the 3,200-frame bucket, S 416 encoder rows,
+    390 audio tokens, the 512 prompt bucket; Fun-ASR: 500 LFR rows in the
+    512 bucket, 63 audio tokens, the 128 prompt bucket), (ab2) / (ac2)
+    assets/audio/sample.wav (3 s; (ab2) with language English), 80 greedy
+    tokens each (_asr_path); 8 teacher-forced steps of (ab1) and (ac1) with
+    the encoders whole and ASR_CUT decoder layers against the f32 plain
+    path on the CPU; the design candidates' timings; FireRedVAD
+    (_vad_check).  Returns what the HTTP phase serves."""
+    import dataclasses
+
+    from aha_tpu_torch.models.fun_asr_nano import FunAsrNanoModel
+    from aha_tpu_torch.models.fun_asr_nano_served import (FunAsrNanoChat,
+                                                          build_mm)
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+    from aha_tpu_torch.models.qwen3_asr import Qwen3ASRModel
+    from aha_tpu_torch.models.qwen3_asr_served import Qwen3ASRChat, mel_for
+    from aha_tpu_torch.ops.audio_feats import apply_lfr, kaldi_fbank
+    from aha_tpu_torch.utils.audio import prepare_audio
+
+    tmp = tempfile.mkdtemp(prefix="aha_torch_asr_")
+    tok = _asr_tokenizer(tmp)
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    pad_id = tok.token_to_id("<|audio_pad|>")
+    q_cfg, f_cfg = asr_configs()
+    q_cfg = dataclasses.replace(q_cfg, audio_token_id=pad_id)
+    dev = torch.device(device)
+    wav30, wav3 = _asr_wave(), prepare_audio(SAMPLE_WAV)
+    require(len(wav3) == 48000, f"sample.wav: {len(wav3)} samples")
+    gen = torch.Generator(device=device)
+    out = {"tmp": tmp}
+
+    # (ab) Qwen3-ASR-0.6B
+    t0 = time.perf_counter()
+    q_model = Qwen3ASRModel(q_cfg, max_rope_len=8192, device=device)
+    q_params = q_model.init_random(gen.manual_seed(20), dtype=torch.bfloat16)
+    q_params = {**q_params, "text": _text_rows_zeroed(q_params["text"],
+                                                      vocab)}
+    _sync(device)
+    a = q_cfg.audio
+    log(f"[asr] (ab) Qwen3-ASR-0.6B geometry (bench.py's): encoder "
+        f"{a.encoder_layers} layers at {a.d_model} ({a.encoder_attention_heads}"
+        f" heads of {q_model.audio_head_dim}, convs of "
+        f"{a.downsample_hidden_size}), Qwen3-0.6B decoder "
+        f"({q_cfg.text.num_hidden_layers} layers at "
+        f"{q_cfg.text.hidden_size}): {sum(t.numel() for t in _leaves(q_params)) / 1e9:.3f}"
+        f" B bf16 params seeded in {time.perf_counter() - t0:.1f} s (set-up)")
+    chat = _asr_chat(Qwen3ASRChat, QWEN3_ASR_MODEL, q_model, q_params, tmp)
+    eager = _asr_chat(Qwen3ASRChat, QWEN3_ASR_MODEL, q_model, q_params, tmp,
+                      cuda_graphs=False)
+
+    def q_frontend(wav, mm):
+        mel, _, n_out = mel_for(wav, a.num_mel_bins, dev)
+        return {"mel": mel, "n_out": n_out}
+
+    def q_encode(mm):
+        return q_model.encode_audio(q_params["audio"], mm["mel"], mm["n_out"])
+
+    reqs = {"ab1": (_asr_request(_wav_url(wav30), ASR_TOKENS), wav30,
+                    "30 s seeded waveform (3,200-frame bucket, S 416, 390 "
+                    "audio tokens)"),
+            "ab2": (_asr_request(f"file://{SAMPLE_WAV}", ASR_TOKENS,
+                                 language="English"), wav3,
+                    "sample.wav, 3 s, language English (400-frame bucket, "
+                    "39 audio tokens)")}
+    for tag, (mes, wav, _) in reqs.items():    # warm-up: graphs, cuDNN
+        d = chat.get_data(mes)
+        chat.engine.generate_tokens(d.input_ids, _greedy(), 4, mm=d.mm)
+    paths = {tag: _asr_path(tag, what, chat, eager, mes, wav, q_frontend,
+                            q_encode, device)
+             for tag, (mes, wav, what) in reqs.items()}
+    ab1 = paths["ab1"]
+    require(ab1["mm"]["n_out"] == 390 and ab1["mm"]["mel"].shape[-1] == 3200
+            and ab1["ids"].count(pad_id) == 390,
+            f"(ab1): n_out {ab1['mm']['n_out']}, mel "
+            f"{tuple(ab1['mm']['mel'].shape)}")
+    del chat, eager
+    cut = dataclasses.replace(q_cfg, text=dataclasses.replace(
+        q_cfg.text, num_hidden_layers=ASR_CUT))
+    small = {**q_params, "text": _text_cut(q_params["text"], ASR_CUT)}
+    _vl3_teacher_forced(
+        "ab1", Qwen3ASRModel, cut, small,
+        {"ids": ab1["ids"], "mm": {"mel": ab1["mm"]["mel"].cpu().numpy(),
+                                   "n_out": np.int32(ab1["mm"]["n_out"])}},
+        ab1["out"][:8], device,
+        _cut_launches(ab1["ids"], 0), phase="asr",
+        cut=f"the encoder whole and {ASR_CUT} decoder layers, (ab1)'s 30 s")
+    out["qwen3_asr"] = (q_cfg, q_params)
+
+    # (ac) Fun-ASR-Nano
+    t0 = time.perf_counter()
+    f_model = FunAsrNanoModel(f_cfg, max_rope_len=8192, device=device)
+    f_params = f_model.init_random(gen.manual_seed(30), dtype=torch.bfloat16)
+    f_params = {**f_params, "text": _text_rows_zeroed(f_params["text"],
+                                                      vocab)}
+    _sync(device)
+    e = f_cfg.encoder
+    log(f"[asr] (ac) Fun-ASR-Nano at the JAX package's default geometry: "
+        f"SANM encoder {e.num_blocks} + {e.tp_blocks} blocks at "
+        f"{e.output_size} ({e.attention_heads} heads of "
+        f"{e.output_size // e.attention_heads}, FSMN {e.kernel_size} taps), "
+        f"adaptor to {f_cfg.adaptor.llm_dim} ({f_cfg.adaptor.n_layer} blocks,"
+        f" {f_cfg.adaptor.attention_heads} heads), Qwen3-0.6B LLM: "
+        f"{sum(t.numel() for t in _leaves(f_params)) / 1e9:.3f} B bf16 "
+        f"params seeded in {time.perf_counter() - t0:.1f} s (set-up)")
+    chat = _asr_chat(FunAsrNanoChat, FUN_ASR_MODEL, f_model, f_params, tmp)
+    eager = _asr_chat(FunAsrNanoChat, FUN_ASR_MODEL, f_model, f_params, tmp,
+                      cuda_graphs=False)
+
+    def f_frontend(wav, mm):
+        feats = apply_lfr(kaldi_fbank(wav, num_mel_bins=e.n_mels), e.lfr_m,
+                          e.lfr_n)
+        # the prepared mask's length is the prompt's bucket
+        fmask = mm["fbank_mask"].cpu().numpy()
+        return mm_to(build_mm(feats, len(fmask), int(fmask.argmax()),
+                              int(fmask.sum())), dev)
+
+    def f_encode(mm):
+        return f_model.encode_audio(f_params["audio"], mm["speech"],
+                                    mm["seg"])
+
+    reqs = {"ac1": (_asr_request(_wav_url(wav30), ASR_TOKENS), wav30,
+                    "30 s seeded waveform (500 LFR rows in the 512 bucket, "
+                    "63 audio tokens)"),
+            "ac2": (_asr_request(f"file://{SAMPLE_WAV}", ASR_TOKENS), wav3,
+                    "sample.wav, 3 s (50 LFR rows in the 64 bucket, 7 audio "
+                    "tokens)")}
+    for tag, (mes, wav, _) in reqs.items():
+        d = chat.get_data(mes)
+        chat.engine.generate_tokens(d.input_ids, _greedy(), 4, mm=d.mm)
+    paths = {tag: _asr_path(tag, what, chat, eager, mes, wav, f_frontend,
+                            f_encode, device)
+             for tag, (mes, wav, what) in reqs.items()}
+    ac1 = paths["ac1"]
+    n_tok = int(ac1["mm"]["fbank_mask"].sum())
+    require(ac1["mm"]["speech"].shape[1] == 512
+            and int(ac1["mm"]["seg"].ge(0).sum()) == 500 and n_tok == 63,
+            f"(ac1): speech {tuple(ac1['mm']['speech'].shape)}, {n_tok} "
+            f"audio tokens")
+    del chat, eager
+    cut = dataclasses.replace(f_cfg, llm=dataclasses.replace(
+        f_cfg.llm, num_hidden_layers=ASR_CUT))
+    small = {**f_params, "text": _text_cut(f_params["text"], ASR_CUT)}
+    _vl3_teacher_forced(
+        "ac1", FunAsrNanoModel, cut, small,
+        {"ids": ac1["ids"],
+         "mm": {k: v.cpu().numpy() for k, v in ac1["mm"].items()}},
+        ac1["out"][:8], device,
+        _cut_launches(ac1["ids"], 72), phase="asr",
+        cut=f"the encoder and adaptor whole and {ASR_CUT} LLM layers, "
+            f"(ac1)'s 30 s")
+    out["fun_asr"] = (f_cfg, f_params)
+    _asr_candidates(q_model, q_params, f_model, device)
+    _vad_check(device)
+    return out
+
+
+def _cut_launches(ids: list[int], segmented: int) -> dict:
+    """The teacher-forced check's launches on the card: the prefill kernel
+    ASR_CUT times for a prompt bucket of ≥ 128 rows, the flat-cache decode
+    ASR_CUT a forced step (8 steps, no window: the per-op layers), the
+    segment kernel `segmented` times."""
+    from aha_tpu_torch.core.engine import bucket_for
+
+    return {"flash_attention": ASR_CUT if bucket_for(len(ids)) >= 128
+            else 0, "flash_decode_at_layer_flat": 8 * ASR_CUT,
+            "flash_attention_segmented": segmented}
+
+
+def _text_cut(text: dict, layers: int) -> dict:
+    """A decoder tree's first `layers` stacked layers, as views."""
+    return {**text, "layers": _tree_map(lambda t: t[:layers], text["layers"])}
+
+
+# -- 15. asr-http: the ASR checkpoints served --------------------------------
+
+
+def _multipart(url: str, fields: dict, filename: str,
+               data: bytes) -> tuple[int, str]:
+    """(status, body) of a multipart/form-data POST: `fields` as text
+    parts, then the file part."""
+    boundary = "aha-smoke-7d1c"
+    body = b"".join(
+        f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n'
+        f"{v}\r\n".encode() for k, v in fields.items())
+    body += (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+             f'filename="{filename}"\r\nContent-Type: audio/wav\r\n\r\n'
+             ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "multipart/form-data; "
+                                                 f"boundary={boundary}"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _asr_checkpoints(asr: dict, tmp: str) -> dict:
+    """ASR_SERVE's cuts at full width, each in its own directory under
+    `tmp` with the test tokenizer (_asr_tokenizer) and config.json in the
+    published layout: Qwen3-ASR's thinker_config (audio_config,
+    text_config, audio_token_id) written by save_hf_qwen3_asr, Fun-ASR's
+    audio_encoder_conf / frontend_conf / audio_adaptor_conf / llm_conf by
+    save_hf_fun_asr_nano.  Returns {name: directory}."""
+    import dataclasses
+
+    from aha_tpu_torch.io.weights import (save_hf_fun_asr_nano,
+                                          save_hf_qwen3_asr)
+
+    dirs = {}
+    q_cfg, q_params = asr["qwen3_asr"]
+    c = ASR_SERVE["qwen3_asr"]
+    d = dirs["qwen3_asr"] = os.path.join(tmp, "qwen3_asr")
+    os.makedirs(d)
+    _asr_tokenizer(d)
+    audio = dataclasses.replace(q_cfg.audio, encoder_layers=c["encoder"])
+    text = dataclasses.replace(q_cfg.text, num_hidden_layers=c["layers"])
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"thinker_config": {
+            "audio_config": dataclasses.asdict(audio),
+            "text_config": dataclasses.asdict(text),
+            "audio_token_id": q_cfg.audio_token_id}}, f)
+    t0 = time.perf_counter()
+    save_hf_qwen3_asr({"audio": {**q_params["audio"], "layers": q_params[
+        "audio"]["layers"][:c["encoder"]]},
+        "text": _text_cut(q_params["text"], c["layers"])}, d)
+    f_cfg, f_params = asr["fun_asr"]
+    c = ASR_SERVE["fun_asr"]
+    d = dirs["fun_asr"] = os.path.join(tmp, "fun_asr")
+    os.makedirs(d)
+    _asr_tokenizer(d)
+    enc = dataclasses.asdict(dataclasses.replace(
+        f_cfg.encoder, num_blocks=c["blocks"], tp_blocks=c["tp"]))
+    frontend = {k: enc.pop(k) for k in ("n_mels", "lfr_m", "lfr_n")}
+    llm = dataclasses.replace(f_cfg.llm, num_hidden_layers=c["layers"])
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"audio_encoder_conf": enc, "frontend_conf": frontend,
+                   "audio_adaptor_conf": dataclasses.asdict(f_cfg.adaptor),
+                   "llm_conf": dataclasses.asdict(llm)}, f)
+    ap = f_params["audio"]
+    save_hf_fun_asr_nano({"audio": {
+        **ap, "encoders": ap["encoders"][:c["blocks"] - 1],
+        "tp_encoders": ap["tp_encoders"][:c["tp"]]},
+        "text": _text_cut(f_params["text"], c["layers"])}, d)
+    log(f"[asr-http] full-width checkpoints written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up): {QWEN3_ASR_MODEL} "
+        f"(encoder {ASR_SERVE['qwen3_asr']['encoder']} layers, decoder "
+        f"{ASR_SERVE['qwen3_asr']['layers']}), {FUN_ASR_MODEL} ("
+        f"{c['blocks']} + {c['tp']} SANM blocks, the adaptor, {c['layers']} "
+        f"LLM layers)")
+    return dirs
+
+
+def _run_child(path: str, model_id: str, audio: str, n: int) -> str:
+    """`python -m aha_tpu_torch run` of `model_id` in a child, `audio` as
+    its input: the printed answer (a seeded reply may hold any character:
+    split at newlines only)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "aha_tpu_torch", "run", path, "--model",
+         model_id, "--input", audio, "--max-tokens", str(n),
+         "--max-seq-len", "2048"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    require(proc.returncode == 0, f"run {model_id}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.rstrip("\n").split("\n")
+    require(lines[0].startswith("load model use time: ")
+            and lines[-1].startswith("generate use time: "),
+            f"run printed {proc.stdout[-1000:]!r}")
+    return "\n".join(lines[1:-1])
+
+
+def phase_http_asr(asr: dict) -> None:
+    """ASR_SERVE's checkpoints: Qwen3-ASR served by `python -m
+    aha_tpu_torch serv <dir> --model Qwen/Qwen3-ASR-0.6B` in a child under
+    -X importtime (no jax or aha_tpu module): a multipart POST of
+    sample.wav to /v1/audio/transcriptions with language=en, whose text
+    equals the in-process served model's cleaned reply to the same
+    request, and a chat request with an audio_url part, equal likewise;
+    then `run` of each id in a child with --input sample.wav (Fun-ASR-Nano
+    through `run` only), each answer equal to the in-process one."""
+    import base64
+    import shutil
+
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.server.app import clean_asr_response
+
+    tmp = asr["tmp"]
+    # the served children run with torch's default flags, under which
+    # cuDNN takes TF32 for the encoder's float32 convs; the in-process
+    # model they are held to runs with the same (phase_device turned it
+    # off for the f32 references)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        dirs = _asr_checkpoints(asr, tmp)
+        served = load_model(QWEN3_ASR_MODEL, dirs["qwen3_asr"],
+                            max_seq_len=2048)
+        with open(SAMPLE_WAV, "rb") as f:
+            wav_data = f.read()
+        with _server(dirs["qwen3_asr"], "--model", QWEN3_ASR_MODEL) as base:
+            want = served.generate(_asr_request(f"file://{SAMPLE_WAV}",
+                                                language="English"))
+            want = clean_asr_response(want.choices[0].message.text())
+            status, text = _multipart(base + "/v1/audio/transcriptions",
+                                      {"language": "en"}, "sample.wav",
+                                      wav_data)
+            require(status == 200, f"transcription: {text[-500:]}")
+            got = json.loads(text)["text"]
+            require(got == want, f"transcription {got!r} vs in-process "
+                    f"{want!r}")
+            log(f"[asr-http] POST /v1/audio/transcriptions (sample.wav, "
+                f"language=en): text equal to the in-process reply "
+                f"({len(got)} characters)")
+            url = "data:audio/wav;base64," + base64.b64encode(
+                wav_data).decode()
+            body = {"model": QWEN3_ASR_MODEL, "max_tokens": 24,
+                    "stream": False, "messages": [{"role": "user",
+                                                   "content": [{
+                        "type": "audio_url", "audio_url": {"url": url}}]}]}
+            want = served.generate(_asr_request(url, 24))
+            status, text = _post(base + "/v1/chat/completions", body)
+            require(status == 200, f"audio chat: {text[-500:]}")
+            got = json.loads(text)
+            require(got["choices"][0]["message"]["content"]
+                    == want.choices[0].message.content
+                    and got["usage"]["prompt_tokens"]
+                    == want.usage.prompt_tokens,
+                    f"audio chat: {got['choices'][0]['message']['content']!r}"
+                    f" vs {want.choices[0].message.content!r}")
+            log(f"[asr-http] chat with an audio_url part: "
+                f"{got['usage']['prompt_tokens']}-token prompt, reply equal "
+                f"to the in-process engine's")
+        for name, model_id in (("qwen3_asr", QWEN3_ASR_MODEL),
+                               ("fun_asr", FUN_ASR_MODEL)):
+            t0 = time.perf_counter()
+            local = (served if name == "qwen3_asr" else
+                     load_model(model_id, dirs[name], max_seq_len=2048))
+            want = local.generate(_asr_request(f"file://{SAMPLE_WAV}", 16))
+            got = _run_child(dirs[name], model_id, SAMPLE_WAV, 16)
+            require(got == want.choices[0].message.text(),
+                    f"run {model_id}: {got!r} vs in-process "
+                    f"{want.choices[0].message.text()!r}")
+            log(f"[asr-http] `run` of {model_id} --input sample.wav answered "
+                f"as the in-process model does ({time.perf_counter() - t0:.1f}"
+                f" s, load included)")
+            del local
+        del served
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5764,6 +6587,10 @@ def main() -> int:
     dsocr = timed("dsocr", phase_deepseek_ocr)
     timed("dsocr-http", phase_http_deepseek_ocr, dsocr)
     del dsocr
+    torch.cuda.empty_cache()
+    asr = timed("asr", phase_asr)
+    timed("asr-http", phase_http_asr, asr)
+    del asr
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -5777,7 +6604,7 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
-                    "page", "ernie", *DSOCR_DECODE,
+                    "page", "fun_asr", "ernie", *DSOCR_DECODE,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -5788,6 +6615,7 @@ def main() -> int:
     print(json.dumps({"vl3": VL3_READINGS}))
     print(json.dumps({"siglip": SIGLIP_READINGS}))
     print(json.dumps({"dsocr": DSOCR_READINGS}))
+    print(json.dumps({"asr": ASR_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

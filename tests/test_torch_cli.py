@@ -191,8 +191,40 @@ def test_run_answers_as_the_served_model(repo, monkeypatch, capsys, spec):
 
 def test_run_refuses_an_unported_model_type(repo, tmp_path):
     with pytest.raises(NotImplementedError):
-        cli.main(["run", repo, "--model", "Qwen/Qwen3-ASR-0.6B",
+        cli.main(["run", repo, "--model", "OpenBMB/VoxCPM-0.5B",
                   "--input", "hi"])
+
+
+def test_run_transcribes_an_asr_models_input(tmp_path, monkeypatch, capsys):
+    """`run` of an ASR id (the tiny Qwen3-ASR repo of tests/test_asr.py)
+    sends the first --input as an audio_url and prints the reply the
+    served model gives that request, as the JAX CLI's `run` does."""
+    import numpy as np
+
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+    from aha_tpu_torch.utils.audio import save_wav
+    from tests.test_asr import build_tiny_asr_repo
+
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    model_id = "Qwen/Qwen3-ASR-0.6B"
+    asr = str(tmp_path / "asr")
+    build_tiny_asr_repo(asr)
+    wav = str(tmp_path / "a.wav")
+    t = np.arange(16000) / 16000
+    save_wav(wav, (0.3 * np.sin(2 * np.pi * 330 * t)).astype(np.float32),
+             16000)
+    assert cli.main(["run", asr, "--model", model_id, "--input", wav,
+                     "--max-tokens", "6", "--max-seq-len", "512"]) == 0
+    out = capsys.readouterr().out.rstrip("\n").split("\n")
+    assert out[0].startswith("load model use time: ")
+    assert out[-1].startswith("generate use time: ")
+    want = load_model(model_id, asr, max_seq_len=512).generate(
+        ChatCompletionParameters.model_validate({
+            "messages": [{"role": "user", "content": [
+                {"type": "audio_url", "audio_url": {"url": f"file://{wav}"}}]}],
+            "model": model_id, "max_tokens": 6}))
+    assert "\n".join(out[1:-1]) == want.choices[0].message.text()
 
 
 def test_run_prints_an_embedding_models_vectors(repo, monkeypatch, capsys):

@@ -2107,3 +2107,47 @@ def test_moe_ffn_on_the_card_matches_the_cpu(dev, n):
     torch.cuda.synchronize()
     err = (got.float().cpu() - ref).abs().max() / ref.abs().max()
     assert got.dtype == torch.bfloat16 and err.item() <= 2e-2
+
+
+@pytest.mark.parametrize("S,real,H,fused", [
+    (512, 500, 4, True),     # Fun-ASR's SANM blocks: (ac1)'s 512 bucket
+    (256, 250, 8, False),    # its adaptor blocks: seg[::2] of that bucket
+    (64, 50, 4, True),       # sample.wav's 3 s: the 64 bucket
+])
+def test_segment_flash_at_fun_asr_shapes(dev, S, real, H, fused):
+    """Row 10 at Fun-ASR-Nano's D 128: the SANM blocks hand it q and k as
+    strided thirds of the fused q|k|v product and v as the pad-zeroed copy;
+    the adaptor three contiguous tensors.  Within 2e-2 of max |ref| of the
+    f32 plain version on the real rows, pad rows 0, a repeat bit-equal,
+    the kernel launched."""
+    from aha_tpu_torch.ops.flash_attention import (
+        flash_attention_segmented, flash_attention_segmented_plain)
+
+    D = 128
+    seg = torch.full((S,), -1, dtype=torch.int32)
+    seg[:real] = 0
+    seg = seg.to(dev)
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    if fused:
+        qkv = torch.randn((1, S, 3 * H * D), generator=g, device=dev)
+        qkv[..., :H * D] *= 4
+        qkv = qkv.to(torch.bfloat16)
+        q = qkv[..., :H * D].reshape(1, S, H, D)
+        k = qkv[..., H * D:2 * H * D].reshape(1, S, H, D)
+        v = torch.where((seg >= 0)[None, :, None], qkv[..., 2 * H * D:],
+                        0.0).reshape(1, S, H, D)
+        assert not q.is_contiguous() and v.is_contiguous()
+    else:
+        q, k, v = (_bf(g, 1, S, H, D) for _ in range(3))
+        q = q * 4
+    n0 = flash_attention_segmented.launches
+    got = flash_attention_segmented(q, k, v, seg)
+    again = flash_attention_segmented(q, k, v, seg)
+    ref = flash_attention_segmented_plain(q.float(), k.float(), v.float(),
+                                          seg)
+    torch.cuda.synchronize()
+    assert flash_attention_segmented.launches == n0 + 2
+    top = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2 * top
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, seg < 0], torch.zeros_like(got[:, seg < 0]))

@@ -39,6 +39,24 @@ VL_MODULES = ("aha_tpu_torch.models.llama", "aha_tpu_torch.models.qwen2_5vl",
               "aha_tpu_torch.utils.image", "aha_tpu_torch.utils.video")
 
 
+#: the modules of the ASR slice
+ASR_MODULES = ("aha_tpu_torch.params.asr", "aha_tpu_torch.utils.audio",
+               "aha_tpu_torch.ops.audio_feats",
+               "aha_tpu_torch.models.qwen3_asr",
+               "aha_tpu_torch.models.qwen3_asr_served",
+               "aha_tpu_torch.models.fun_asr_nano",
+               "aha_tpu_torch.models.fun_asr_nano_served",
+               "aha_tpu_torch.models.glm_asr_nano",
+               "aha_tpu_torch.models.glm_asr_nano_served",
+               "aha_tpu_torch.models.fire_red_vad")
+
+
+def test_asr_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({ASR_MODULES!r}) - set(mods)\n"
+             "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
 def test_vl_modules_walked_and_free_of_aha_tpu():
     r = _run(ALL_MODULES + f"missing = set({VL_MODULES!r}) - set(mods)\n"
              "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)

@@ -388,7 +388,10 @@ def test_minicpm4_geometry():
                                       "Qwen/Qwen3-VL-8B-Instruct",
                                       "PaddlePaddle/PaddleOCR-VL",
                                       "LiquidAI/LFM2-VL-1.6B",
-                                      "deepseek-ai/DeepSeek-OCR"])
+                                      "deepseek-ai/DeepSeek-OCR",
+                                      "Qwen/Qwen3-ASR-0.6B",
+                                      "FunAudioLLM/Fun-ASR-Nano-2512",
+                                      "ZhipuAI/GLM-ASR-Nano-2512"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
