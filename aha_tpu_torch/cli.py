@@ -16,7 +16,10 @@
   optional prompt, the family's task prompt by default, or for an ASR
   model an audio file, whose transcript is printed), the vectors of
   an embedding model's inputs, or a reranker's ranking of `--input query
-  --input doc ...`, with the load and generate times.
+  --input doc ...`, with the load and generate times; a tts model's speech
+  of the first input as a WAV (`--output`, default voxcpm_<time>.wav), an
+  image model's background removal of each input as a PNG (`--output`,
+  default output.png; <base>_<i>.png for several).
 - `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
   the downloaded mark, a downloaded model's removal, the running servers.
 
@@ -117,6 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "embedding model's texts; a reranker's query, "
                         "then its documents")
     r.add_argument("--max-tokens", type=int, default=1024)
+    r.add_argument("--output", help="output file (audio/image models)")
     return ap
 
 
@@ -240,14 +244,14 @@ def run_run(args) -> int:
     the JAX CLI's `run` does: text chat (llm), image chat (vlm), an OCR
     model's reading of an image (ocr), an ASR model's transcript of the
     first input as an audio_url (asr), an embedding model's vectors, a
-    reranker's ranking."""
+    reranker's ranking, a tts model's WAV, an image model's PNGs."""
     model_id = model_id_for(args.path, args.model)
     entry = registry.lookup(model_id)
     mt = entry.model_type
-    if mt not in ("llm", "vlm", "ocr", "asr", "embedding", "reranker"):
+    if mt not in ("llm", "vlm", "ocr", "asr", "embedding", "reranker", "tts",
+                  "image"):
         raise NotImplementedError(
-            f"`run` of a {mt} model is not ported to aha_tpu_torch yet "
-            "(text and image chat, OCR, ASR, embeddings and reranking are)")
+            f"`run` of a {mt} model is not ported to aha_tpu_torch yet")
     inputs: list[str] = args.input
     if mt == "vlm" and len(inputs) < 2:
         print(f"{model_id} needs --input <prompt> --input <image>")
@@ -267,7 +271,23 @@ def run_run(args) -> int:
         order = sorted(range(len(scores)), key=lambda i: -scores[i])
         for rank, i in enumerate(order):
             print(f"#{rank + 1} score={scores[i]:.4f}  {inputs[i + 1][:70]}")
-    if mt in ("embedding", "reranker"):
+    elif mt == "tts":
+        from aha_tpu_torch.utils.audio import save_wav
+
+        wav = model.synthesize(_maybe_file_text(inputs[0]))
+        out = args.output or f"voxcpm_{int(time.time())}.wav"
+        save_wav(out, wav, model.vae.out_sample_rate)
+        print(f"Output saved to: {out}")
+    elif mt == "image":
+        pngs = model.remove_background([_as_url(s) for s in inputs])
+        base = args.output or "output.png"
+        for i, png in enumerate(pngs):
+            dest = base if len(pngs) == 1 else \
+                f"{base[:-4] if base.endswith('.png') else base}_{i}.png"
+            with open(dest, "wb") as f:
+                f.write(png)
+            print(f"Output saved to: {dest}")
+    if mt in ("embedding", "reranker", "tts", "image"):
         print(f"generate use time: {time.perf_counter() - t0:.2f}s")
         return 0
     greedy = False

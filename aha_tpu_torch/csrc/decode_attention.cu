@@ -6,13 +6,16 @@
 // bytes flash_decode_at_layer_flat_batched, flash_decode_at_layer and
 // flash_decode.
 //
-//   q   (B, 1, Hq, D) bf16, contiguous
-//   k/v (L, B, S, Hkv*D) bf16, contiguous — the flat cache of core/cache.py
+//   q   (B, 1, Hq, D) bf16 or float32, contiguous
+//   k/v (L, B, S, Hkv*D) of q's type, contiguous — the flat cache of
+//       core/cache.py (bf16), or the 5-D float32 cache of VoxCPM's
+//       MiniCPM stacks seen flat (models/voxcpm.py)
 //   layer, valid_len: int32 on the device, read by the kernel itself, so a
 //   decode step never syncs the host.  Rows [0, valid_len[b]) are attended.
 //
-// Bound: HBM bytes, 2 * valid_len * Hkv * D * 2 B per layer per step, and at
-// a thousand rows the latency of one launch and a few DRAM round trips.
+// Bound: HBM bytes, 2 * valid_len * Hkv * D * (2 or 4) B per layer per step,
+// and at a thousand rows the latency of one launch and a few DRAM round
+// trips.
 // Design ("flash decoding" with the combine folded in):
 //
 // - Grid (nsplit, Hkv · shares, B), nsplit fixed by S and Hkv only (the wrapper:
@@ -37,6 +40,10 @@
 //   next launch — folds the slot's splits for its heads in a fixed order
 //   (decode_fold.cuh, shared with decode_attention_q8.cu): deterministic,
 //   whichever block arrives last.
+// - One body for both element types (template parameter T): a lane owns
+//   8 channels of a row whichever the type, one 16-byte load of bf16 or
+//   two of float32, so the lanes, splits and fold are the same and only
+//   the loads and the output's stores differ; softmax and sums are f32.
 // - Any group size G = Hq / Hkv: a block scores two heads when G is even
 //   and one when it is odd (G 3, 5, 7 — Qwen2.5-VL-7B has 28 over 4), so
 //   the shares always tile the group; a group of 16 is 8 blocks a kv-head.
@@ -65,6 +72,21 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
+// Eight consecutive channels as floats (zeros where !ok): one 16-byte load
+// of bf16, two of float32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool ok, float* f) {
+  const uint4 u = ok ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+  bf16x8_to_float(u, f);
+}
+
+__device__ __forceinline__ void load8(const float* p, bool ok, float* f) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 a = ok ? __ldg(reinterpret_cast<const float4*>(p)) : z;
+  const float4 b = ok ? __ldg(reinterpret_cast<const float4*>(p) + 1) : z;
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
 // The smallest power of two >= n (n <= 32): the lanes a sub-warp takes for
 // a row of n 16-byte chunks, so the shuffle trees stay whole.
 __host__ __device__ constexpr int pow2_lanes(int n) {
@@ -73,7 +95,7 @@ __host__ __device__ constexpr int pow2_lanes(int n) {
 
 template <int D, int G>   // G: the query heads one block scores
 struct Smem {
-  static constexpr int kChunks = D / 8;             // 16-byte chunks a row
+  static constexpr int kChunks = D / 8;             // 8-channel chunks a row
   static constexpr int kLanesPerRow = pow2_lanes(kChunks);
   static constexpr int kRowsPerWarp = 32 / kLanesPerRow;
   // phase 1: per-warp (m, l, acc); phase 2 (the fold) reuses the bytes
@@ -85,14 +107,13 @@ struct Smem {
 // G here is the block's share of a kv-head's query heads (HB): the group's
 // Hq/Hkv heads are split over Hq/Hkv/G blocks that read the same rows (the
 // second read hits L2), so the fold of each share stays short.
-template <int D, int G>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const int* __restrict__ layer,
-              const int* __restrict__ valid_len, int vl_stride, float* __restrict__ part_m,
-              float* __restrict__ part_l, float* __restrict__ part_acc,
-              int* __restrict__ counters, __nv_bfloat16* __restrict__ out, int B, int Hq,
-              int Hkv, int L, int S, float scale) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ layer, const int* __restrict__ valid_len,
+              int vl_stride, float* __restrict__ part_m, float* __restrict__ part_l,
+              float* __restrict__ part_acc, int* __restrict__ counters, T* __restrict__ out,
+              int B, int Hq, int Hkv, int L, int S, float scale) {
   constexpr int LPR = Smem<D, G>::kLanesPerRow;
   constexpr int RPW = Smem<D, G>::kRowsPerWarp;
   constexpr int kSub = kWarps * RPW;                // rows per load wave
@@ -126,11 +147,9 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
-    const uint4 u = live ? *reinterpret_cast<const uint4*>(
-                               q + ((size_t)b * Hq + (size_t)h * (Hq / Hkv) +
-                                    (size_t)share * G + g) * D + chunk * 8)
-                         : make_uint4(0u, 0u, 0u, 0u);
-    bf16x8_to_float(u, qf[g]);
+    load8(q + ((size_t)b * Hq + (size_t)h * (Hq / Hkv) + (size_t)share * G + g) * D +
+              chunk * 8,
+          live, qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) qf[g][i] *= scale;
   }
@@ -142,16 +161,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const int ra = r0 + sub, rb = r0 + kSub + sub;
     const bool la = ra < end, lb = rb < end;
     const bool lla = la && live, llb = lb && live;
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    const uint4 ka = lla ? __ldg(reinterpret_cast<const uint4*>(k + base + ra * HD)) : z;
-    const uint4 va = lla ? __ldg(reinterpret_cast<const uint4*>(v + base + ra * HD)) : z;
-    const uint4 kb = llb ? __ldg(reinterpret_cast<const uint4*>(k + base + rb * HD)) : z;
-    const uint4 vb = llb ? __ldg(reinterpret_cast<const uint4*>(v + base + rb * HD)) : z;
     float kfa[8], kfb[8], vfa[8], vfb[8];
-    bf16x8_to_float(ka, kfa);
-    bf16x8_to_float(kb, kfb);
-    bf16x8_to_float(va, vfa);
-    bf16x8_to_float(vb, vfb);
+    load8(k + base + ra * HD, lla, kfa);
+    load8(v + base + ra * HD, lla, vfa);
+    load8(k + base + rb * HD, llb, kfb);
+    load8(v + base + rb * HD, llb, vfb);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float sa = 0.f, sb = 0.f;
@@ -246,27 +260,44 @@ struct Args {
   float scale;
 };
 
-template <int D, int G>
+template <typename T, int D, int G>
 void launch(dim3 grid, cudaStream_t st, const Args& a) {
-  decode_kernel<D, G><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.layer),
-      static_cast<const int*>(a.valid_len), a.vl_stride, static_cast<float*>(a.part_m),
-      static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc),
-      static_cast<int*>(a.counters), static_cast<__nv_bfloat16*>(a.out), a.B, a.Hq, a.Hkv,
-      a.L, a.S, a.scale);
+  decode_kernel<T, D, G><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.layer), static_cast<const int*>(a.valid_len), a.vl_stride,
+      static_cast<float*>(a.part_m), static_cast<float*>(a.part_l),
+      static_cast<float*>(a.part_acc), static_cast<int*>(a.counters), static_cast<T*>(a.out),
+      a.B, a.Hq, a.Hkv, a.L, a.S, a.scale);
 }
 
 // Query heads per block: two of an even group's G, one of an odd group's.
 __host__ __device__ constexpr int share_of(int G) { return G % 2 == 0 ? 2 : 1; }
 
-template <int D>
+template <typename T, int D>
 bool launch_for_group(int G, dim3 grid, cudaStream_t st, const Args& a) {
   switch (share_of(G)) {
-    case 1: launch<D, 1>(grid, st, a); return true;
-    case 2: launch<D, 2>(grid, st, a); return true;
+    case 1: launch<T, D, 1>(grid, st, a); return true;
+    case 2: launch<T, D, 2>(grid, st, a); return true;
     default: return false;
   }
+}
+
+template <typename T>
+int launch_typed(const Args& a, int D, int nsplit, cudaStream_t st) {
+  if (a.Hkv < 1 || a.Hq < a.Hkv || a.Hq % a.Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = a.Hq / a.Hkv;
+  const dim3 grid(nsplit, a.Hkv * (G / share_of(G)), a.B);
+  bool ok = false;
+  switch (D) {
+    case 64: ok = launch_for_group<T, 64>(G, grid, st, a); break;
+    case 128: ok = launch_for_group<T, 128>(G, grid, st, a); break;
+    case 192: ok = launch_for_group<T, 192>(G, grid, st, a); break;
+    case 256: ok = launch_for_group<T, 256>(G, grid, st, a); break;
+    default: break;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -279,27 +310,26 @@ extern "C" const char* aha_error_string(int code) {
 // counters: (B, Hq) int32 (one per block share of a kv-head's heads, at
 // most Hq), zero before the launch and left zero after it.
 // Supported: D in {64, 128, 192, 256}, any G = Hq / Hkv, 1 ≤ nsplit ≤ 256.
+// aha_decode_attention takes bf16 q, k, v and out; aha_decode_attention_f32
+// the same launch over float32 ones.
 extern "C" int aha_decode_attention(const void* q, const void* k, const void* v,
                                     const void* layer, const void* valid_len,
                                     int vl_stride, void* part_m, void* part_l,
                                     void* part_acc, void* counters, void* out, int B,
                                     int Hq, int Hkv, int D, int L, int S, int nsplit,
                                     float scale, void* stream) {
-  if (Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || nsplit < 1 || nsplit > kMaxSplit)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int G = Hq / Hkv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, layer, valid_len, vl_stride, part_m, part_l, part_acc, counters,
                out, B, Hq, Hkv, L, S, scale};
-  const dim3 grid(nsplit, Hkv * (G / share_of(G)), B);
-  bool ok = false;
-  switch (D) {
-    case 64: ok = launch_for_group<64>(G, grid, st, a); break;
-    case 128: ok = launch_for_group<128>(G, grid, st, a); break;
-    case 192: ok = launch_for_group<192>(G, grid, st, a); break;
-    case 256: ok = launch_for_group<256>(G, grid, st, a); break;
-    default: break;
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return launch_typed<__nv_bfloat16>(a, D, nsplit, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int aha_decode_attention_f32(const void* q, const void* k, const void* v,
+                                        const void* layer, const void* valid_len,
+                                        int vl_stride, void* part_m, void* part_l,
+                                        void* part_acc, void* counters, void* out, int B,
+                                        int Hq, int Hkv, int D, int L, int S, int nsplit,
+                                        float scale, void* stream) {
+  const Args a{q, k, v, layer, valid_len, vl_stride, part_m, part_l, part_acc, counters,
+               out, B, Hq, Hkv, L, S, scale};
+  return launch_typed<float>(a, D, nsplit, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 // The fold of the one-launch split-KV decode kernels (decode_attention.cu
-// over the bf16 cache, decode_attention_q8.cu over the int8 one), run by
-// the last block of each (slot, grid row) to finish.
+// over the bf16 and float32 caches, decode_attention_q8.cu over the int8
+// one), run by the last block of each (slot, grid row) to finish.
 //
 //   part_m/part_l (B, Hq, maxsplit) f32: a split's score max and the sum of
 //   exp(s - m) over its rows; part_acc (B, Hq, maxsplit, D) f32: the split's
@@ -31,15 +31,29 @@ __host__ __device__ constexpr int fold_floats(int G, int threads) {
   return G * kMaxSplit + 8 + threads * 4;
 }
 
+// Four output channels in the output's type: bf16 (the bf16 and int8
+// caches) or float32 (the float32 cache).
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, float c,
+                                       float d) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(dst);
+  h[0] = __floats2bfloat162_rn(a, b);
+  h[1] = __floats2bfloat162_rn(c, d);
+}
+
+__device__ __forceinline__ void store4(float* dst, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+
 // Call with every thread after the block's partial writes; `smem` holds
 // fold_floats(G, THREADS) floats, 16-byte aligned, free for the fold.
-// head0: the first query head (b·Hq + ...) of the block's share.
-template <int D, int G, int THREADS>
+// head0: the first query head (b·Hq + ...) of the block's share; `out`
+// bf16 or float32.
+template <int D, int G, int THREADS, typename TOut>
 __device__ __forceinline__ void fold_if_last(const float* __restrict__ part_m,
                                              const float* __restrict__ part_l,
                                              const float* __restrict__ part_acc,
                                              int* __restrict__ counters,
-                                             __nv_bfloat16* __restrict__ out, size_t head0,
+                                             TOut* __restrict__ out, size_t head0,
                                              int maxsplit, int nsplit, float* smem) {
   constexpr int kWarps = THREADS / 32;
   __shared__ int s_last;
@@ -113,9 +127,7 @@ __device__ __forceinline__ void fold_if_last(const float* __restrict__ part_m,
       a.w += x.w;
     }
     const float inv = s_inv[g];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (head0 + g) * D + d4 * 4);
-    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
-    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+    store4(out + (head0 + g) * D + d4 * 4, a.x * inv, a.y * inv, a.z * inv, a.w * inv);
   }
 }
 

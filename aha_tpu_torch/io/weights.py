@@ -567,3 +567,193 @@ def save_hf_fun_asr_nano(params: dict, path: str) -> None:
         dec["llm.lm_head.weight"] = dec.pop("lm_head.weight")
     out.update(dec)
     _save(out, path)
+
+
+def _hf_vox_lm(out: dict, prefix: str, lp: dict) -> None:
+    """A VoxMiniCPM tree (per-layer list) under its checkpoint names."""
+    for i, layer in enumerate(lp["layers"]):
+        p = f"{prefix}layers.{i}."
+        _hf_norm(out, p + "input_layernorm", layer["ln1"])
+        _hf_norm(out, p + "post_attention_layernorm", layer["ln2"])
+        for name in "qkvo":
+            _hf_linear(out, f"{p}self_attn.{name}_proj", layer[name])
+        for name in ("gate", "up", "down"):
+            _hf_linear(out, f"{p}mlp.{name}_proj", layer["mlp"][name])
+    _hf_norm(out, prefix + "norm", lp["norm"])
+    if "embed" in lp:
+        out[prefix + "embed_tokens.weight"] = \
+            lp["embed"]["w"].contiguous().cpu()
+
+
+def _wn_split(out: dict, name: str, p: dict) -> None:
+    """A conv as weight norm: v = w and g = ‖w‖ over all dims but 0 (folds
+    back to w), and its bias."""
+    w = p["w"].float().cpu()
+    out[name + ".weight_v"] = w.contiguous()
+    out[name + ".weight_g"] = w.square().sum(dim=(1, 2), keepdim=True).sqrt()
+    if "b" in p:
+        out[name + ".bias"] = p["b"].float().cpu()
+
+
+def audio_vae_state_dict(vp: dict) -> dict:
+    """The port's AudioVAE tree under the `.pth`'s weight-normed names (the
+    inverse of AudioVAE.load_params)."""
+    out = {}
+
+    def unit(name, u):
+        out[name + ".block.0.alpha"] = u["a0"].cpu()
+        out[name + ".block.2.alpha"] = u["a2"].cpu()
+        _wn_split(out, name + ".block.1",
+                  {"w": u["w1"], **({"b": u["b1"]} if "b1" in u else {})})
+        _wn_split(out, name + ".block.3",
+                  {"w": u["w3"], **({"b": u["b3"]} if "b3" in u else {})})
+
+    ep, dp = vp["encoder"], vp["decoder"]
+    _wn_split(out, "encoder.block.0", ep["stem"])
+    for i, bp in enumerate(ep["blocks"]):
+        base = f"encoder.block.{i + 1}"
+        for j, u in enumerate(bp["units"]):
+            unit(f"{base}.block.{j}", u)
+        out[f"{base}.block.3.alpha"] = bp["a"].cpu()
+        _wn_split(out, f"{base}.block.4", bp["down"])
+    _wn_split(out, "encoder.fc_mu", ep["fc_mu"])
+    _wn_split(out, "decoder.model.0", dp["stem"])
+    _wn_split(out, "decoder.model.1", dp["in"])
+    for i, bp in enumerate(dp["blocks"]):
+        base = f"decoder.model.{i + 2}"
+        out[f"{base}.block.0.alpha"] = bp["a"].cpu()
+        _wn_split(out, f"{base}.block.1", bp["up"])
+        for j, u in enumerate(bp["units"]):
+            unit(f"{base}.block.{j + 2}", u)
+        if "sr_scale" in bp:
+            sr = f"decoder.sr_cond_model.{i + 2}"
+            out[sr + ".scale_embed.weight"] = bp["sr_scale"].cpu()
+            out[sr + ".bias_embed.weight"] = bp["sr_bias"].cpu()
+    n_up = len(dp["blocks"])
+    out[f"decoder.model.{n_up + 2}.alpha"] = dp["a_out"].cpu()
+    _wn_split(out, f"decoder.model.{n_up + 3}", dp["out"])
+    return out
+
+
+def save_hf_voxcpm(params: dict, vae_params: dict, config: dict,
+                   path: str) -> None:
+    """Write the port's VoxCPM and AudioVAE parameters as VoxCPM-0.5B's
+    files (the inverse of VoxCPMServed.load): config.json, the model's
+    pytorch_model.bin and the VAE's weight-normed audiovae.pth, each a
+    {"state_dict": ...} pickle; the tokenizer.json is the caller's."""
+    out = {}
+    _hf_vox_lm(out, "base_lm.", params["base_lm"])
+    _hf_vox_lm(out, "residual_lm.", params["residual_lm"])
+    fe = params["feat_encoder"]
+    out["feat_encoder.special_token"] = \
+        fe["special_token"].reshape(1, 1, -1).contiguous().cpu()
+    _hf_linear(out, "feat_encoder.in_proj", fe["in_proj"])
+    _hf_vox_lm(out, "feat_encoder.encoder.", fe["encoder"])
+    fd = params["feat_dit"]
+    est = "feat_decoder.estimator."
+    for name in ("in_proj", "cond_proj", "out_proj"):
+        _hf_linear(out, est + name, fd[name])
+    for name in ("time_mlp", "delta_time_mlp"):
+        for sub in ("linear_1", "linear_2"):
+            _hf_linear(out, f"{est}{name}.{sub}", fd[name][sub])
+    _hf_vox_lm(out, est + "decoder.", fd["decoder"])
+    for name in ("in_proj", "out_proj"):
+        _hf_linear(out, f"fsq_layer.{name}", params["fsq_layer"][name])
+    for name in ("enc_to_lm_proj", "lm_to_dit_proj", "res_to_dit_proj",
+                 "stop_proj", "stop_head", "fusion_concat_proj"):
+        if name in params:
+            _hf_linear(out, name, params[name])
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    torch.save({"state_dict": out}, os.path.join(path, "pytorch_model.bin"))
+    torch.save({"state_dict": audio_vae_state_dict(vae_params)},
+               os.path.join(path, "audiovae.pth"))
+
+
+def _hf_conv2d(out: dict, name: str, p: dict) -> None:
+    out[name + ".weight"] = p["w"].contiguous().cpu()
+    if "b" in p:
+        out[name + ".bias"] = p["b"].cpu()
+
+
+def _hf_bn(out: dict, name: str, p: dict) -> None:
+    for key, hf in (("w", "weight"), ("b", "bias"), ("mean", "running_mean"),
+                    ("var", "running_var")):
+        out[f"{name}.{hf}"] = p[key].cpu()
+
+
+def rmbg2_0_state_dict(params: dict) -> dict:
+    """The port's BiRefNet tree under the checkpoint's names (the inverse
+    of BiRefNet.load_params)."""
+    out = {}
+    bb = params["bb"]
+    _hf_conv2d(out, "bb.patch_embed.proj", bb["patch"])
+    _hf_norm(out, "bb.patch_embed.norm", bb["patch_norm"])
+    for i, lp in enumerate(bb["layers"]):
+        for j, bp in enumerate(lp["blocks"]):
+            b = f"bb.layers.{i}.blocks.{j}."
+            _hf_norm(out, b + "norm1", bp["norm1"])
+            _hf_norm(out, b + "norm2", bp["norm2"])
+            _hf_linear(out, b + "attn.qkv", bp["attn"]["qkv"])
+            _hf_linear(out, b + "attn.proj", bp["attn"]["proj"])
+            out[b + "attn.relative_position_bias_table"] = \
+                bp["attn"]["rel_bias_table"].contiguous().cpu()
+            _hf_linear(out, b + "mlp.fc1", bp["fc1"])
+            _hf_linear(out, b + "mlp.fc2", bp["fc2"])
+        if "downsample" in lp:
+            _hf_norm(out, f"bb.layers.{i}.downsample.norm",
+                     lp["downsample"]["norm"])
+            _hf_linear(out, f"bb.layers.{i}.downsample.reduction",
+                       lp["downsample"]["reduction"])
+        _hf_norm(out, f"bb.norm{i}", bb["norms"][i])
+
+    def aspp_mod(n, p):
+        for key, hf in (("offset", "offset_conv"),
+                        ("modulator", "modulator_conv"),
+                        ("conv", "regular_conv")):
+            _hf_conv2d(out, f"{n}.atrous_conv.{hf}", p[key])
+        _hf_bn(out, n + ".bn", p["bn"])
+
+    def dec_blk(n, p):
+        _hf_conv2d(out, n + ".conv_in", p["conv_in"])
+        _hf_bn(out, n + ".bn_in", p["bn_in"])
+        a = p["dec_att"]
+        aspp_mod(n + ".dec_att.aspp1", a["aspp1"])
+        for i in range(3):
+            aspp_mod(f"{n}.dec_att.aspp_deforms.{i}", a[f"deform{i}"])
+        _hf_conv2d(out, n + ".dec_att.global_avg_pool.1", a["pool_conv"])
+        _hf_bn(out, n + ".dec_att.global_avg_pool.2", a["pool_bn"])
+        _hf_conv2d(out, n + ".dec_att.conv1", a["conv1"])
+        _hf_bn(out, n + ".dec_att.bn1", a["bn1"])
+        _hf_conv2d(out, n + ".conv_out", p["conv_out"])
+        _hf_bn(out, n + ".bn_out", p["bn_out"])
+
+    dec_blk("squeeze_module.0", params["squeeze"])
+    d = params["decoder"]
+    for i in (5, 4, 3, 2, 1):
+        _hf_conv2d(out, f"decoder.ipt_blk{i}.conv1", d[f"ipt_blk{i}"]["conv1"])
+        _hf_conv2d(out, f"decoder.ipt_blk{i}.conv_out",
+                 d[f"ipt_blk{i}"]["conv_out"])
+    for i in (4, 3, 2, 1):
+        dec_blk(f"decoder.decoder_block{i}", d[f"block{i}"])
+    _hf_conv2d(out, "decoder.conv_out1.0", d["conv_out1"])
+    for i in (4, 3, 2):
+        _hf_conv2d(out, f"decoder.lateral_block{i}.conv", d[f"lateral{i}"])
+        _hf_conv2d(out, f"decoder.gdt_convs_{i}.0", d[f"gdt{i}"]["conv"])
+        _hf_bn(out, f"decoder.gdt_convs_{i}.1", d[f"gdt{i}"]["bn"])
+        _hf_conv2d(out, f"decoder.gdt_convs_attn_{i}.0", d[f"gdt{i}"]["attn"])
+    return out
+
+
+def save_hf_rmbg2_0(params: dict, swin, path: str) -> None:
+    """Write the port's BiRefNet parameters as an RMBG-2.0 checkpoint:
+    model.safetensors under the reference's names and a config.json with
+    the Swin fields (`swin` a models/rmbg2_0.SwinConfig)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"patch_size": swin.patch_size,
+                   "embed_dim": swin.embed_dim, "depths": list(swin.depths),
+                   "num_heads": list(swin.num_heads),
+                   "window_size": swin.window_size}, f)
+    _save(rmbg2_0_state_dict(params), path)

@@ -7,8 +7,9 @@ image and video chat), qwen3vl (Qwen3-VL image and video chat),
 paddleocr_vl (PaddleOCR-VL document OCR), deepseek_ocr (DeepSeek-OCR and
 DeepSeek-OCR-2), lfm2vl (LFM2-VL image chat), the ASR families qwen3_asr
 (Qwen3-ASR), fun_asr_nano (Fun-ASR-Nano) and glm_asr_nano (GLM-ASR-Nano),
+voxcpm (VoxCPM text-to-speech), rmbg2_0 (RMBG-2.0 background removal),
 qwen3_embedding / qwen3_reranker and minilm (all-MiniLM-L6-v2); every
-other family raises NotImplementedError.
+other family (hunyuan_ocr, glm_ocr) raises NotImplementedError.
 The reference's option checks run first, before any weights load, with
 its strings."""
 
@@ -120,7 +121,21 @@ def _glm_asr_nano(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return GlmAsrNanoChat.load(entry, path, **kw)
 
 
+def _voxcpm(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.voxcpm_served import VoxCPMServed
+
+    return VoxCPMServed.load(entry, path, **kw)
+
+
+def _rmbg2_0(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.rmbg2_0_served import RMBG2Served
+
+    return RMBG2Served.load(entry, path, **kw)
+
+
 FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
+    "voxcpm": _voxcpm,
+    "rmbg2_0": _rmbg2_0,
     "minilm": _minilm,
     "qwen3_asr": _qwen3_asr,
     "fun_asr_nano": _fun_asr_nano,
@@ -178,6 +193,6 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
             f"model family '{entry.family}' is not ported to aha_tpu_torch "
             "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
             "Qwen3-VL, PaddleOCR-VL, DeepSeek-OCR, LFM2-VL, Qwen3-ASR, "
-            "Fun-ASR-Nano, GLM-ASR-Nano, Qwen3 embedding and reranker, and "
-            "all-MiniLM-L6-v2 models are)")
+            "Fun-ASR-Nano, GLM-ASR-Nano, VoxCPM, RMBG-2.0, Qwen3 embedding "
+            "and reranker, and all-MiniLM-L6-v2 models are)")
     return loader(entry, path, **kw)

@@ -33,6 +33,10 @@ raises.  `<wrapper>.launches` counts kernel launches.
   cache.  Both are contiguous, so their bytes are exactly the flat rows
   (L, B, S, Hkv·D) (L = 1 for the unstacked one): the wrapper hands the
   split-KV kernel a view, no copy and no kernel of their own.
+- The bf16 decode wrappers above also take a float32 q and cache (VoxCPM's
+  MiniCPM stacks, which the reference serves in float32): the same kernel
+  body instantiated for float32 (`aha_decode_attention_f32`), counted on
+  the same `.launches`; any other dtype raises on the card.
 - `flash_attention_segmented` ← flash_attention_segmented
   (csrc/segment_flash.cu): row i attends row j iff seg[i] == seg[j], the
   vision tower's window and full-image blocks; bound by bytes in window
@@ -73,8 +77,9 @@ def prefill_takes(D: int) -> bool:
 
 
 def decode_takes(D: int, Hq: int, Hkv: int) -> bool:
-    """The decode kernels, bf16 and int8 (csrc/decode_attention*.cu), take
-    head width D 64, 128, 192 or 256 and any whole group G = Hq / Hkv."""
+    """The decode kernels, bf16, float32 and int8
+    (csrc/decode_attention*.cu), take head width D 64, 128, 192 or 256 and
+    any whole group G = Hq / Hkv."""
     return D in HEAD_DIMS and 1 <= Hkv <= Hq and Hq % Hkv == 0
 
 
@@ -102,7 +107,8 @@ def flash_decode_at_layer_flat_plain(q, k_stack, v_stack, layer, valid_len,
 
 
 def _check_decode(q, k_stack, v_stack, layer, valid_len, kv_dtype,
-                  scales=()) -> tuple[int, int, int, int, int, int]:
+                  scales=(), q_dtype=torch.bfloat16
+                  ) -> tuple[int, int, int, int, int, int]:
     """The checks every decode kernel makes of its inputs on the card;
     returns (B, Hq, Hkv, D, L, S)."""
     B, _, Hq, D = q.shape
@@ -110,8 +116,9 @@ def _check_decode(q, k_stack, v_stack, layer, valid_len, kv_dtype,
     Hkv = HD // D
     for t in (k_stack, v_stack, layer, valid_len, *scales):
         require(t.device == q.device, "all inputs on one device")
-    require(q.dtype == torch.bfloat16 and k_stack.dtype == v_stack.dtype
-            == kv_dtype, f"decode kernel takes bf16 q and {kv_dtype} k/v")
+    require(q.dtype == q_dtype and k_stack.dtype == v_stack.dtype
+            == kv_dtype, f"decode kernel takes {q_dtype} q and {kv_dtype} "
+            f"k/v, not {q.dtype} and {k_stack.dtype}")
     require(layer.dtype == valid_len.dtype == torch.int32,
             "layer/valid_len must be int32")
     require(layer.numel() == 1 and valid_len.numel() in (1, B),
@@ -185,19 +192,30 @@ def _split_scratch(q: torch.Tensor, nsplit: int):
             ticket_counters(q.device, stream, B * Hq), stream)
 
 
-def _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale):
+#: the dense decode kernel's instances: the cache's dtype → its C entry
+DENSE_DECODE_ENTRIES = {torch.bfloat16: "aha_decode_attention",
+                        torch.float32: "aha_decode_attention_f32"}
+
+
+def _decode_dense(q, k_stack, v_stack, layer, valid_len, scale):
+    """The dense decode kernel over a bf16 or float32 cache (q of the
+    cache's dtype); any other dtype raises."""
+    entry = DENSE_DECODE_ENTRIES.get(k_stack.dtype)
+    require(entry is not None, f"decode kernel takes a bf16 or float32 "
+            f"cache, not {k_stack.dtype}")
     B, Hq, Hkv, D, L, S = _check_decode(q, k_stack, v_stack, layer,
-                                        valid_len, torch.bfloat16)
+                                        valid_len, k_stack.dtype,
+                                        q_dtype=k_stack.dtype)
     nsplit = decode_splits(S, Hkv)
     part_m, part_l, part_acc, tickets, stream = _split_scratch(q, nsplit)
     out = torch.empty_like(q)
-    rc = kernels.lib().aha_decode_attention(
+    rc = getattr(kernels.lib(), entry)(
         q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
         layer.data_ptr(), valid_len.data_ptr(),
         0 if valid_len.numel() == 1 else 1, part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
         out.data_ptr(), B, Hq, Hkv, D, L, S, nsplit, float(scale), stream)
-    kernels.check(rc, "aha_decode_attention")
+    kernels.check(rc, entry)
     return out
 
 
@@ -249,28 +267,28 @@ def _q8_mxu_default(mxu: bool | None) -> bool:
     return os.environ.get("AHA_Q8_MXU", "1") == "1" if mxu is None else mxu
 
 
-def _launch_bf16(counted, q, k_stack, v_stack, layer, valid_len, scale):
-    """The bf16 decode over a flat (L, B, S, Hkv·D) cache: the kernel on
-    the card, counted on `counted.launches`; the plain version on the
-    CPU."""
+def _launch_dense(counted, q, k_stack, v_stack, layer, valid_len, scale):
+    """The decode over a flat (L, B, S, Hkv·D) bf16 or float32 cache: the
+    kernel on the card, counted on `counted.launches`; the plain version on
+    the CPU."""
     _check_shapes(q, k_stack, v_stack)
     scale = scale if scale is not None else q.shape[3] ** -0.5
     if not q.is_cuda:
         return flash_decode_at_layer_flat_plain(q, k_stack, v_stack, layer,
                                                 valid_len, scale)
-    out = _decode_bf16(q, k_stack, v_stack, layer, valid_len, scale)
+    out = _decode_dense(q, k_stack, v_stack, layer, valid_len, scale)
     counted.launches += 1
     return out
 
 
-def _bf16_decode_wrapper(name: str, doc: str):
-    """A bf16 decode wrapper with its own `.launches` counter."""
+def _dense_decode_wrapper(name: str, doc: str):
+    """A bf16 / float32 decode wrapper with its own `.launches` counter."""
     def wrapper(q: torch.Tensor, k_stack: torch.Tensor,
                 v_stack: torch.Tensor, layer: torch.Tensor,
                 valid_len: torch.Tensor,
                 scale: float | None = None) -> torch.Tensor:
-        return _launch_bf16(wrapper, q, k_stack, v_stack, layer, valid_len,
-                            scale)
+        return _launch_dense(wrapper, q, k_stack, v_stack, layer, valid_len,
+                             scale)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
@@ -302,14 +320,14 @@ def _q8_decode_wrapper(name: str, doc: str):
     return wrapper
 
 
-flash_decode_at_layer_flat = _bf16_decode_wrapper(
+flash_decode_at_layer_flat = _dense_decode_wrapper(
     "flash_decode_at_layer_flat",
     """One-token attention for layer `layer` straight from the stacked flat
     cache.  q (B, 1, Hq, D); k/v (L, B, S, Hkv·D); layer an int32 device
     scalar; valid_len int32 (1,) or (B,) — rows [0, valid_len) are live.
     Returns (B, 1, Hq, D).""")
 
-flash_decode_at_layer_flat_batched = _bf16_decode_wrapper(
+flash_decode_at_layer_flat_batched = _dense_decode_wrapper(
     "flash_decode_at_layer_flat_batched",
     """flash_decode_at_layer_flat for the continuous-batching step: every
     slot b of the (L, B, S, Hkv·D) cache with its own length valid_len[b]
@@ -342,8 +360,8 @@ def flash_decode_at_layer(q: torch.Tensor, k_stack: torch.Tensor,
     B, S, Hkv, D); q (B, 1, Hq, D); layer an int32 device scalar;
     valid_len int32 (1,) or (B,), rows [0, valid_len[b]) live.  Returns
     (B, 1, Hq, D).  On the card: the split-KV decode kernel on the flat
-    view of the same bytes."""
-    return _launch_bf16(flash_decode_at_layer, q, _flat_view(k_stack),
+    view of the same bytes, bf16 or float32 (q of the cache's dtype)."""
+    return _launch_dense(flash_decode_at_layer, q, _flat_view(k_stack),
                         _flat_view(v_stack), layer, valid_len, scale)
 
 
@@ -367,7 +385,7 @@ def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     rows [0, valid_len[b]) live: flash_decode_at_layer at L = 1, layer 0
     (a view, no copy)."""
     require(k_all.ndim == 4, "k/v must be (B, S, Hkv, D)")
-    return _launch_bf16(flash_decode, q, _flat_view(k_all[None]),
+    return _launch_dense(flash_decode, q, _flat_view(k_all[None]),
                         _flat_view(v_all[None]), _layer0(q.device),
                         valid_len, scale)
 

@@ -39,6 +39,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "aha_decode_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "aha_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 7
                                + [_F, _I, _P],
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

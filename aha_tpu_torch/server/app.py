@@ -1,11 +1,11 @@
 """OpenAI-compatible HTTP server for the port (aiohttp).
 
-The port's copy of the chat, transcription, embedding and rerank parts of
-aha_tpu/server/app.py: the same server state, auth middleware and chat /
-audio transcriptions (multipart) / embeddings / rerank / health / models
-/ shutdown handlers, with the same status codes and error strings, so
-both packages answer the same wire format.  The /manage routes, speech
-synthesis and the image endpoint are not ported yet.
+The port's copy of aha_tpu/server/app.py's serving routes: the same
+server state, auth middleware and chat / audio transcriptions (multipart)
+/ speech synthesis / background removal / embeddings / rerank / health /
+models / shutdown handlers, with the same status codes and error strings,
+so both packages answer the same wire format.  The /manage routes and the
+web console are not ported.
 
 One model in memory; generation runs in a worker thread guarded by an
 asyncio lock (the reference's write-lock serialization, api.rs:31/:131) —
@@ -185,6 +185,34 @@ async def chat(request: web.Request) -> web.StreamResponse:
     except (ConnectionResetError, ConnectionError):
         pass
     return response
+
+
+async def remove_background(request: web.Request) -> web.Response:
+    return await _generate_json(request)
+
+
+async def speech(request: web.Request) -> web.Response:
+    return await _generate_json(request)
+
+
+async def _generate_json(request: web.Request) -> web.Response:
+    """A non-stream generate answered with the whole response JSON as
+    text/plain: 503 with no model, 400 on a body that is not a chat
+    request, 500 with the model's error text."""
+    state = _state(request)
+    if state.model is None:
+        return web.Response(status=503, text="model not init")
+    try:
+        mes = ChatCompletionParameters.model_validate(await request.json())
+    except Exception as e:
+        return web.Response(status=400, text=f"invalid request: {e}")
+    async with state.lock:
+        try:
+            resp = await _run_blocking(state.model.generate, mes)
+        except Exception as e:
+            return web.Response(status=500, text=str(e))
+    return web.Response(text=json.dumps(resp.to_json_dict()),
+                        content_type="text/plain")
 
 
 async def transcriptions(request: web.Request) -> web.Response:
@@ -393,6 +421,8 @@ def create_app(state: ServerState | None = None) -> web.Application:
     app.add_routes([
         web.post("/v1/chat/completions", chat),
         web.post("/chat/completions", chat),
+        web.post("/images/remove_background", remove_background),
+        web.post("/audio/speech", speech),
         web.post("/audio/transcriptions", transcriptions),
         web.post("/v1/audio/transcriptions", transcriptions),
         web.post("/embeddings", embeddings),

@@ -1,5 +1,5 @@
 """Torch F.interpolate semantics as two matrix products (the port's copy of
-the resizes DeepSeek-OCR uses from aha_tpu/utils/interpolate.py).
+the resizes DeepSeek-OCR and RMBG-2.0 use from aha_tpu/utils/interpolate.py).
 
 Interpolation along an axis is a linear map: the (out_size, in_size)
 weight matrix is built on the host in float64 numpy with torch's rules
@@ -9,8 +9,9 @@ float32 and applied on the tensor's device with `torch.matmul` — one
 product for a 1-D mode, two for a 2-D one.  The same weights as the JAX
 package's, so both give the same values.
 
-Supported, with align_corners False: linear / bilinear, and bicubic with
-antialias (the rel-pos tables and the position tables).
+Supported: linear / bilinear with align_corners False or True (RMBG-2.0's
+decoder resizes take True: source coordinates i·(in − 1)/(out − 1)), and
+bicubic with antialias (the rel-pos tables and the position tables).
 """
 
 from __future__ import annotations
@@ -35,19 +36,22 @@ def _linear_kernel(x: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def resize_weights_1d(in_size: int, out_size: int, mode: str = "linear",
-                      antialias: bool = False) -> np.ndarray:
+                      antialias: bool = False,
+                      align_corners: bool = False) -> np.ndarray:
     """(out_size, in_size) float64 weight matrix W with resized = W @ x
     (read-only: the result is cached)."""
-    w = _weights(in_size, out_size, mode, antialias)
+    w = _weights(in_size, out_size, mode, antialias, align_corners)
     w.flags.writeable = False
     return w
 
 
-def _weights(in_size: int, out_size: int, mode: str,
-             antialias: bool) -> np.ndarray:
-    if mode not in ("linear", "cubic") or (mode == "cubic" and not antialias):
+def _weights(in_size: int, out_size: int, mode: str, antialias: bool,
+             align_corners: bool) -> np.ndarray:
+    if (mode not in ("linear", "cubic") or (mode == "cubic" and not antialias)
+            or (align_corners and (mode != "linear" or antialias))):
         raise ValueError(f"unsupported resize: {mode!r}, "
-                         f"antialias={antialias}")
+                         f"antialias={antialias}, "
+                         f"align_corners={align_corners}")
     w = np.zeros((out_size, in_size))
     scale = in_size / out_size
     if antialias:
@@ -69,7 +73,12 @@ def _weights(in_size: int, out_size: int, mode: str,
             w[i, lo:hi] = row
         return w
     # torch area_pixel_compute_source_index, clamped as the linear modes do
-    coords = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        coords = (i * (in_size - 1) / (out_size - 1) if out_size > 1
+                  else np.zeros(out_size))
+    else:
+        coords = (i + 0.5) * scale - 0.5
     coords = np.clip(coords, 0.0, in_size - 1)
     x0 = np.floor(coords).astype(np.int64)
     x1 = np.minimum(x0 + 1, in_size - 1)
@@ -84,9 +93,10 @@ def _on(w: np.ndarray, x: torch.Tensor) -> torch.Tensor:
 
 
 def interpolate(x: torch.Tensor, size, mode: str = "bilinear",
-                antialias: bool = False) -> torch.Tensor:
-    """Torch F.interpolate (align_corners False) over the trailing spatial
-    dims, computed in float32 and returned in x's dtype.
+                antialias: bool = False,
+                align_corners: bool = False) -> torch.Tensor:
+    """Torch F.interpolate over the trailing spatial dims, computed in
+    float32 and returned in x's dtype.
 
     x: (..., L) for "linear" with an int `size`, or (..., H, W) for
     "bilinear" / "bicubic" with `size=(h, w)`.
@@ -94,11 +104,12 @@ def interpolate(x: torch.Tensor, size, mode: str = "bilinear",
     dt = x.dtype
     xf = x.float()
     if isinstance(size, int):
-        wl = resize_weights_1d(x.shape[-1], size, mode, antialias)
+        wl = resize_weights_1d(x.shape[-1], size, mode, antialias,
+                               align_corners)
         return torch.matmul(xf, _on(wl.T, x)).to(dt)
     th, tw = size
     mode1d = {"bilinear": "linear", "bicubic": "cubic"}[mode]
-    wh = resize_weights_1d(x.shape[-2], th, mode1d, antialias)
-    ww = resize_weights_1d(x.shape[-1], tw, mode1d, antialias)
+    wh = resize_weights_1d(x.shape[-2], th, mode1d, antialias, align_corners)
+    ww = resize_weights_1d(x.shape[-1], tw, mode1d, antialias, align_corners)
     out = torch.matmul(_on(wh, x), xf)
     return torch.matmul(out, _on(ww.T, x)).to(dt)

@@ -417,7 +417,7 @@ def profile_passes(card: str) -> None:
         kv = [torch.randn((L, B, S, Hkv * D), generator=g, device="cuda",
                           dtype=torch.bfloat16) for _ in range(2)]
         show(f"bf16 B={B} S={S}", device_ms_per_kernel(
-            lambda: fa._decode_bf16(q, *kv, layer(), vl, scale)),
+            lambda: fa._decode_dense(q, *kv, layer(), vl, scale)),
             rows * D * 2 * 2)
         kv = [torch.randint(-127, 128, (L, B, S, Hkv * D), generator=g,
                             device="cuda", dtype=torch.int8)

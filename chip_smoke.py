@@ -2,8 +2,9 @@
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
 LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
 and Qwen3.5 image and video chat, PaddleOCR-VL and DeepSeek-OCR document
-OCR, LFM2-VL image chat and Qwen3-ASR / Fun-ASR-Nano speech recognition
-paths once on one CUDA card.
+OCR, LFM2-VL image chat, Qwen3-ASR / Fun-ASR-Nano speech recognition,
+VoxCPM text-to-speech and RMBG-2.0 background removal paths once on one
+CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -89,9 +90,10 @@ before the last line:
    plain path on the CPU; (t2) Qwen3-Reranker-0.6B's scores equal to the
    vectors' dot products; (t3) all-MiniLM-L6-v2 at its full geometry in
    f32, 12 texts against the CPU;
-7. HTTP — the bf16 weights saved as a checkpoint (embedding rows past the
-   test tokenizer's vocabulary zeroed, so replies decode to text) and
-   served by `python -m aha_tpu_torch serv` in a child process:
+7. HTTP — the bf16 weights cut to HTTP_LAYERS (4) layers at full width,
+   saved as a checkpoint (embedding rows past the test tokenizer's
+   vocabulary zeroed, so replies decode to text) and served by `python -m
+   aha_tpu_torch serv` in six child processes started together:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
    a `--spec-tokens 8` server's greedy reply equal to the plain one's;
    then a `--batch-slots 4` server answering 4 chats at once, and the
@@ -111,22 +113,25 @@ before the last line:
    an array equal to the in-process vectors, /v1/rerank refused 400) and a
    4-layer MiniCPM4 checkpoint in HF names served as
    OpenBMB/MiniCPM4-0.5B --batch-slots 4 answering 4 chats at once;
-7d. hybrid — (u) LFM2-1.2B's published geometry (16 layers, 6 of them
-   attention at 32/8 heads of 64, the rest gated short convs; hidden
-   2048, ff 8192, vocab 65536, tied) and (v) the reference's default
-   Qwen3.5 text config (24 layers, 6 gated attention at 16/2 heads of
-   128, 18 GatedDeltaNet; hidden 1024, vocab 151936, tied), seeded bf16:
-   (u1)/(v1) a TextEngine with the prefix store, a 300-token prompt and
-   64 greedy tokens (flash_attention 6 a prefill, flash_decode_at_layer 6
-   a step), graphed and eager; its extension restored from the store
+7d. hybrid — (u) LFM2-1.2B's published geometry (hidden 2048, ff 8192,
+   vocab 65536, tied; 32/8 heads of 64 in its attention layers, gated
+   short convs in the rest) cut to its first 8 of 16 layers (2
+   attention) and (v) the reference's default Qwen3.5 text config (hidden
+   1024, vocab 151936, tied; gated attention at 16/2 heads of 128 every
+   4th layer, GatedDeltaNet in the rest) cut to 12 of 24 layers (3
+   attention) — HYBRID_DEPTH —, seeded bf16: (u1)/(v1) a TextEngine with
+   the prefix store, a 300-token prompt and 64 greedy tokens
+   (flash_attention once an attention layer a prefill,
+   flash_decode_at_layer once an attention layer a step), graphed and
+   eager; its extension restored from the store
    (rows and rolling state) held to a cold engine's stream, and its exact
    repeat, which must match no entry, equal to the cold stream; a decode
    block's idle share; (u2)/(v2) an 8-slot BatchEngine with the prefix
    store under the (f) mix; 8 teacher-forced steps of 4 slots at the
    first 4 layers against the f32 plain path on the CPU; each cut to 4
-   layers and served over HTTP under -X importtime (LFM2 with
-   --batch-slots 4, 4 chats at once; Qwen3.5 text-only, a non-stream, a
-   stream and a repeat chat); then the plain mixers' device times (the
+   layers and served over HTTP under -X importtime, both children started
+   together (LFM2 with --batch-slots 4, 4 chats at once; Qwen3.5
+   text-only, a non-stream, a stream and a repeat chat); then the plain mixers' device times (the
    delta rule's recurrent step at B 1 and 8, its chunked form at S 512,
    the short conv);
 8. vl — (n) Qwen2.5-VL-3B-Instruct's published geometry (vision tower 32
@@ -249,6 +254,36 @@ before the last line:
     /v1/audio/transcriptions (language=en) and an audio chat, each equal
     to the in-process model's reply; then `run` of it and of Fun-ASR-Nano
     cut to 4 + 2 SANM blocks and 2 LLM layers, each equal likewise.
+16. tts — (ad) VoxCPM-0.5B at bench.py's geometry (the MiniCPM4-0.5B
+    backbone 24 x 1024 / 3072, 16/2 heads of 64, vocab 73448; residual LM
+    6 layers; LocEnc 512 x 4; LocDiT 768 x 6; feat 64 x patch 2) and the
+    AudioVAE at the reference's defaults, seeded float32 weights as
+    served: (ad1) bench's 48-token prompt, 25 patches (min = max), 10 CFM
+    steps at cfg 2.0: RTF (80 ms of audio a patch), the first patch, ms a
+    patch, one step's device and wall ms, row 8's float32 instance 30
+    launches a patch (24 base + 6 residual one-row steps), the VAE decode;
+    the first 3 patches' latents against the CPU's from the same weights
+    and noise; (ad2) the same on bf16 weights (bench.py's cast, row 8's
+    bf16 instance); the kernel phase also holds row 8's float32 instance
+    at VoxCPM's two caches (L 24 and 6, S 82, 74 live) and a ragged B 2
+    step against its plain version, beside masked sdpa;
+17. tts-http — VoxCPM cut to 4 LM + 2 residual layers at full width,
+    written as VoxCPM-0.5B's files and served by `python -m aha_tpu_torch
+    serv <dir> --model OpenBMB/VoxCPM-0.5B` in a child under -X
+    importtime: POST /audio/speech's WAV samples equal to the in-process
+    served model's, a streamed request refused, `run --output x.wav`'s
+    samples equal to the in-process `synthesize`;
+18. rmbg — (ae) RMBG-2.0 at bench.py's Swin-L defaults (embed 192, depths
+    2/2/18/2, heads 6/12/24/48, window 12) with the BiRefNet decoder,
+    seeded float32 weights: the 1024 px forward's latency (median of 3),
+    its device time and that of its Swin window attention and deformable
+    convs (the design candidates, plain as in the reference); a 256 px
+    matte against the CPU's;
+19. rmbg-http — RMBG-2.0 cut to Swin depths 2/2/2/2 at full width, served
+    by `python -m aha_tpu_torch serv <dir> --model AI-ModelScope/RMBG-2.0`
+    in a child: POST /images/remove_background with two images answers two
+    PNGs equal to the in-process served model's, and `run --output`
+    writes them.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -269,8 +304,8 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON lines of the siglip, the dsocr and the asr readings, one JSON line of
-per-kernel results,
+JSON lines of the siglip, the dsocr, the asr, the tts and the rmbg
+readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -2018,13 +2053,13 @@ def check_dsocr_attention() -> None:
 
 
 def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
-                          valid: int):
-    """q and a (L, 1, S, Hkv, D) bf16 cache at N(0, 1), with one key per kv
-    head planted at the last live row along its query heads' summed
+                          valid: int, dtype: torch.dtype = torch.bfloat16):
+    """q and a (L, 1, S, Hkv, D) cache at N(0, 1) in `dtype`, with one key
+    per kv head planted at the last live row along its query heads' summed
     direction — scored ~7 against the ~7.4 log-sum of the other 999 rows,
     so it carries ~0.1-0.9 of each query head's weight — and a dead row at
-    `valid` planted three times stronger, which would swamp a read past
-    the live length."""
+    `valid` (where S leaves one) planted three times stronger, which would
+    swamp a read past the live length."""
     G = Hq // Hkv
     q = torch.randn((1, 1, Hq, D), generator=g, device="cuda")
     k = torch.randn((L, 1, S, Hkv, D), generator=g, device="cuda")
@@ -2032,8 +2067,9 @@ def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
     u = q.reshape(Hkv, G, D).sum(1)
     u = u / u.norm(dim=-1, keepdim=True)
     k[:, 0, valid - 1] = 21 * u
-    k[:, 0, valid] = 63 * u
-    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+    if valid < S:
+        k[:, 0, valid] = 63 * u
+    return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
 def check_stacked_decode() -> None:
@@ -2360,6 +2396,7 @@ def phase_kernels() -> None:
     # row 1 at ERNIE-4.5's 16/2 heads of 128: (y1)'s page prompt, 4096
     check_prefill(4096, True, timed=True, Hkv=2)
     check_dsocr_attention()
+    check_decode_f32()
     check_fused_layer()
     torch.cuda.synchronize()
 
@@ -3601,16 +3638,42 @@ def phase_http_embed(minilm: dict, minicpm: dict) -> None:
     from aha_tpu_torch.io.weights import save_hf_bert, save_hf_qwen3
     from aha_tpu_torch.models.llama import minicpm4_0_5b
 
-    with tempfile.TemporaryDirectory(prefix="aha_torch_minilm_") as tmp:
+    cut = minicpm4_0_5b(MINICPM_HTTP_LAYERS)
+    p = minicpm["params"]
+    with contextlib.ExitStack() as stack:
+        tmp, tmp_cpm = (stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=f"aha_torch_{kind}_")) for kind in ("minilm", "minicpm"))
         _smoke_tokenizer(tmp)
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump({**minilm["config"].__dict__,
                        "architectures": ["BertModel"], "model_type": "bert"},
                       f)
         save_hf_bert(minilm["params"], tmp)
+        fixtures, tok = _smoke_tokenizer(tmp_cpm)
+        eos = tok.token_to_id("<|im_end|>")
+        embed = p["embed"]["w"].clone()
+        # replies stay in the test tokenizer's vocabulary
+        embed[tok.get_vocab_size(with_added_tokens=True):] = 0
+        cut_params = {"embed": {"w": embed}, "norm": p["norm"],
+                      "lm_head": {"w": embed},
+                      "layers": _tree_map(lambda t: t[:MINICPM_HTTP_LAYERS],
+                                          p["layers"])}
+        with open(os.path.join(tmp_cpm, "config.json"), "w") as f:
+            json.dump({**cut.__dict__,
+                       "architectures": ["MiniCPMForCausalLM"],
+                       "model_type": "minicpm", "torch_dtype": "bfloat16",
+                       "eos_token_id": eos}, f)
+        with open(os.path.join(tmp_cpm, "generation_config.json"), "w") as f:
+            json.dump({"eos_token_id": [eos]}, f)
+        with open(os.path.join(tmp_cpm, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
+        save_hf_qwen3(cut_params, tmp_cpm)
+        del embed, cut_params
         texts = minilm["texts"]
-        with _server(tmp, "--model",
-                     "sentence-transformers/all-MiniLM-L6-v2") as base:
+        with _servers(
+                (tmp, ("--model", "sentence-transformers/all-MiniLM-L6-v2")),
+                (tmp_cpm, ("--model", "OpenBMB/MiniCPM4-0.5B",
+                           "--batch-slots", "4"))) as (base, base_cpm):
             for inp, want in ((texts[3], minilm["vectors"][3:4]),
                               (texts, minilm["vectors"])):
                 status, text = _post(base + "/v1/embeddings", {"input": inp})
@@ -3621,40 +3684,14 @@ def phase_http_embed(minilm: dict, minicpm: dict) -> None:
                         and err <= 1e-6, f"/v1/embeddings {status}: err "
                         f"{err}, shape {got.shape}")
             status, text = _post(base + "/v1/rerank",
-                                     {"query": "q", "documents": ["d"]})
+                                 {"query": "q", "documents": ["d"]})
             require(status == 400 and json.loads(text) == {
                 "error": "current model does not support rerank"},
                 f"/v1/rerank on MiniLM: {status} {text}")
-        log(f"[http] MiniLM: /v1/embeddings of a string and of {len(texts)} "
-            f"texts equal to the in-process vectors (within 1e-6); "
-            f"/v1/rerank refused 400 with the reference's message")
-
-    cut = minicpm4_0_5b(MINICPM_HTTP_LAYERS)
-    p = minicpm["params"]
-    with tempfile.TemporaryDirectory(prefix="aha_torch_minicpm_") as tmp:
-        fixtures, tok = _smoke_tokenizer(tmp)
-        eos = tok.token_to_id("<|im_end|>")
-        embed = p["embed"]["w"].clone()
-        # replies stay in the test tokenizer's vocabulary
-        embed[tok.get_vocab_size(with_added_tokens=True):] = 0
-        cut_params = {"embed": {"w": embed}, "norm": p["norm"],
-                      "lm_head": {"w": embed},
-                      "layers": _tree_map(lambda t: t[:MINICPM_HTTP_LAYERS],
-                                          p["layers"])}
-        with open(os.path.join(tmp, "config.json"), "w") as f:
-            json.dump({**cut.__dict__,
-                       "architectures": ["MiniCPMForCausalLM"],
-                       "model_type": "minicpm", "torch_dtype": "bfloat16",
-                       "eos_token_id": eos}, f)
-        with open(os.path.join(tmp, "generation_config.json"), "w") as f:
-            json.dump({"eos_token_id": [eos]}, f)
-        with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
-            json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
-        save_hf_qwen3(cut_params, tmp)
-        del embed, cut_params
-        with _server(tmp, "--model", "OpenBMB/MiniCPM4-0.5B",
-                     "--batch-slots", "4") as base:
-            _ask_concurrent(base, 4)
+            log(f"[http] MiniLM: /v1/embeddings of a string and of "
+                f"{len(texts)} texts equal to the in-process vectors (within "
+                f"1e-6); /v1/rerank refused 400 with the reference's message")
+            _ask_concurrent(base_cpm, 4)
     log(f"[http] MiniCPM4-0.5B checkpoint (full width, "
         f"{MINICPM_HTTP_LAYERS} layers) served with --batch-slots 4: 4 "
         f"chats at once")
@@ -3912,69 +3949,68 @@ def _hybrid_text(tag: str, name: str, model, fused, params, device: str,
                 f"device ops/step | {card}")
 
 
-def _hybrid_http(tag: str, name: str, model_id: str, params: dict,
-                 extra: tuple[str, ...]) -> None:
-    """The first HYBRID_CUT layers at full width saved as an HF-named
-    checkpoint with the test tokenizer (the tied embedding's rows zeroed
-    but those of tokens that decode alone to whole text — no special or
-    marker token, no partial UTF-8 byte — so a seeded model's replies
-    stream as text), served by `python -m aha_tpu_torch
-    serv` as `model_id` under -X importtime: four chats at once with
-    `--batch-slots 4`, else a non-stream, a stream and a repeat chat."""
+#: each hybrid's served id and the server's flags
+HYBRID_SERVE = {"lfm2": ("LiquidAI/LFM2-1.2B", ("--batch-slots", "4")),
+                "qwen3_5": ("Qwen/Qwen3.5-0.8B", ())}
+
+
+def _hybrid_checkpoint(tmp: str, name: str, params: dict) -> None:
+    """The first HYBRID_CUT layers at full width saved under `tmp` as an
+    HF-named checkpoint with the test tokenizer (the tied embedding's rows
+    zeroed but those of tokens that decode alone to whole text — no
+    special or marker token, no partial UTF-8 byte — so a seeded model's
+    replies stream as text)."""
     import dataclasses
 
     from aha_tpu_torch.io.weights import save_hf_lfm2, save_hf_qwen3_5
 
     cut = _hybrid_model(name, "cpu", HYBRID_CUT).config
-    with tempfile.TemporaryDirectory(prefix=f"aha_torch_{name}_") as tmp:
-        fixtures, tok = _smoke_tokenizer(tmp)
-        eos = tok.token_to_id("<|im_end|>")
-        special = set(tok.get_added_tokens_decoder())
-        words = [tok.decode([i]) for i in
-                 range(tok.get_vocab_size(with_added_tokens=True))]
-        text = [i for i, w in enumerate(words)
-                if i not in special and w.strip() and "\ufffd" not in w]
-        embed = torch.zeros_like(params["embed"]["w"])
-        keep = torch.tensor(text, device=embed.device)
-        embed[keep] = params["embed"]["w"][keep]
-        cut_params = {**params, "embed": {"w": embed},
-                      "lm_head": {"w": embed},
-                      "layers": params["layers"][:HYBRID_CUT]}
-        cfg = {**dataclasses.asdict(cut), "torch_dtype": "bfloat16",
-               "eos_token_id": eos,
-               "layer_types": list(cut.layer_types)}
-        cfg.update({"architectures": ["Lfm2ForCausalLM"],
-                    "model_type": "lfm2"} if name == "lfm2" else
-                   {"architectures": ["Qwen3_5ForCausalLM"],
-                    "model_type": "qwen3_5_text"})
-        with open(os.path.join(tmp, "config.json"), "w") as f:
-            json.dump(cfg, f)
-        with open(os.path.join(tmp, "generation_config.json"), "w") as f:
-            json.dump({"eos_token_id": [eos]}, f)
-        with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
-            json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
-        (save_hf_lfm2 if name == "lfm2" else save_hf_qwen3_5)(cut_params,
-                                                              tmp)
-        del embed, cut_params
-        with _server(tmp, "--model", model_id, *extra) as base:
-            if "--batch-slots" in extra:
-                _ask_concurrent(base, 4)
-            else:
-                _ask(base)
-    log(f"[http] ({tag}) {model_id} checkpoint (full width, {HYBRID_CUT} "
-        f"layers) served {' '.join(extra) or 'single-stream'}")
+    fixtures, tok = _smoke_tokenizer(tmp)
+    eos = tok.token_to_id("<|im_end|>")
+    special = set(tok.get_added_tokens_decoder())
+    words = [tok.decode([i]) for i in
+             range(tok.get_vocab_size(with_added_tokens=True))]
+    text = [i for i, w in enumerate(words)
+            if i not in special and w.strip() and "\ufffd" not in w]
+    embed = torch.zeros_like(params["embed"]["w"])
+    keep = torch.tensor(text, device=embed.device)
+    embed[keep] = params["embed"]["w"][keep]
+    cut_params = {**params, "embed": {"w": embed},
+                  "lm_head": {"w": embed},
+                  "layers": params["layers"][:HYBRID_CUT]}
+    cfg = {**dataclasses.asdict(cut), "torch_dtype": "bfloat16",
+           "eos_token_id": eos,
+           "layer_types": list(cut.layer_types)}
+    cfg.update({"architectures": ["Lfm2ForCausalLM"],
+                "model_type": "lfm2"} if name == "lfm2" else
+               {"architectures": ["Qwen3_5ForCausalLM"],
+                "model_type": "qwen3_5_text"})
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(tmp, "generation_config.json"), "w") as f:
+        json.dump({"eos_token_id": [eos]}, f)
+    with open(os.path.join(tmp, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
+    (save_hf_lfm2 if name == "lfm2" else save_hf_qwen3_5)(cut_params,
+                                                          tmp)
+    del embed, cut_params
 
 
-def _hybrid_family(tag: str, name: str, device: str) -> None:
-    """(u) or (v): the seeded bf16 model at full depth through (tag1)
-    TextEngine and (tag2) an 8-slot BatchEngine with the prefix store
-    under the (f) mix (chunked admission, one sampled request), each
-    graphed and eager; 8 teacher-forced steps of 4 slots at HYBRID_CUT
-    layers against the f32 plain path on the CPU; then the cut checkpoint
-    over HTTP."""
+#: the engine paths' depth of each hybrid, full width: LFM2-1.2B's first 8
+#: of 16 layers (2 attention), Qwen3.5's first 12 of 24 (3 attention)
+HYBRID_DEPTH = {"lfm2": 8, "qwen3_5": 12}
+
+
+def _hybrid_family(tag: str, name: str, device: str, tmp: str) -> None:
+    """(u) or (v): the seeded bf16 model at full width and HYBRID_DEPTH
+    layers through (tag1) TextEngine and (tag2) an 8-slot BatchEngine with
+    the prefix store under the (f) mix (chunked admission, one sampled
+    request), each graphed and eager; 8 teacher-forced steps of 4 slots at
+    HYBRID_CUT layers against the f32 plain path on the CPU; then the cut
+    checkpoint written under `tmp` for phase_hybrid's servers."""
     from aha_tpu_torch.core.engine import bucket_for, fused_params
 
-    model = _hybrid_model(name, device)
+    model = _hybrid_model(name, device, HYBRID_DEPTH[name])
     cfg = model.config
     n_attn = len(model.attn_slot)
     t0 = time.perf_counter()
@@ -4013,9 +4049,7 @@ def _hybrid_family(tag: str, name: str, device: str) -> None:
     del cut_params
     if device == "cuda":
         torch.cuda.empty_cache()
-    model_id = "LiquidAI/LFM2-1.2B" if name == "lfm2" else "Qwen/Qwen3.5-0.8B"
-    _hybrid_http(tag, name, model_id, params,
-                 ("--batch-slots", "4") if name == "lfm2" else ())
+    _hybrid_checkpoint(tmp, name, params)
 
 
 def _mixer_timings() -> None:
@@ -4079,11 +4113,30 @@ def _mixer_timings() -> None:
 
 def phase_hybrid(device: str = "cuda") -> None:
     """7d: (u) LFM2-1.2B, then (v) Qwen3.5, each through _hybrid_family;
+    both cut checkpoints served by `python -m aha_tpu_torch serv` children
+    started together under -X importtime (LFM2 with --batch-slots 4, four
+    chats at once; Qwen3.5 a non-stream, a stream and a repeat chat);
     then the plain mixers' device times."""
-    for tag, name in (("u", "lfm2"), ("v", "qwen3_5")):
-        _hybrid_family(tag, name, device)
-        if device == "cuda":
-            torch.cuda.empty_cache()
+    families = (("u", "lfm2"), ("v", "qwen3_5"))
+    with contextlib.ExitStack() as stack:
+        tmps = [stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=f"aha_torch_{name}_")) for _, name in families]
+        for (tag, name), tmp in zip(families, tmps):
+            _hybrid_family(tag, name, device, tmp)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        with _servers(*((tmp, ("--model", HYBRID_SERVE[name][0],
+                               *HYBRID_SERVE[name][1]))
+                        for (_, name), tmp in zip(families, tmps))) as bases:
+            for base, (tag, name) in zip(bases, families):
+                model_id, extra = HYBRID_SERVE[name]
+                if "--batch-slots" in extra:
+                    _ask_concurrent(base, 4)
+                else:
+                    _ask(base)
+                log(f"[http] ({tag}) {model_id} checkpoint (full width, "
+                    f"{HYBRID_CUT} layers) served "
+                    f"{' '.join(extra) or 'single-stream'}")
     if device == "cuda":
         _mixer_timings()
 
@@ -4108,30 +4161,40 @@ def _post(url: str, body: dict) -> tuple[int, str]:
         return e.code, e.read().decode()
 
 
+#: the depth of the Qwen3 checkpoint the HTTP phase serves (full width)
+HTTP_LAYERS = 4
+
+
 def phase_http(config, params: dict) -> None:
-    """The servers replay captured decode blocks; a server started with
-    `--eager` must give the same greedy replies, and so must one started
-    with `--spec-tokens 8` (speculative rounds, greedy-exact)."""
+    """The Qwen3 weights cut to HTTP_LAYERS at full width, served by six
+    children started together: the servers replay captured decode blocks;
+    a server started with `--eager` must give the same greedy replies, and
+    so must one started with `--spec-tokens 8` (speculative rounds,
+    greedy-exact); then `--batch-slots 4`, graphed and eager, and the
+    reranker."""
+    import dataclasses
+
     with tempfile.TemporaryDirectory(prefix="aha_torch_smoke_") as tmp:
-        _write_checkpoint(tmp, config, params)
-        with _server(tmp) as base:
-            first = _ask(base)
-        with _server(tmp, "--spec-tokens", str(SPEC_DRAFTS)) as base:
-            spec = _reply(base, _ASK)
-        require(spec == first, f"--spec-tokens {SPEC_DRAFTS}: the greedy "
-                f"reply differs from the plain server's: {spec!r} vs "
-                f"{first!r}")
-        log(f"[http] --spec-tokens {SPEC_DRAFTS}: the greedy reply equals "
-            f"the plain server's")
-        with _server(tmp, "--eager") as base:
-            _same_replies("single stream", [first], [_reply(base, _ASK)])
-        with _server(tmp, "--batch-slots", "4") as base:
-            replies = _ask_concurrent(base, 4)
-        with _server(tmp, "--batch-slots", "4", "--eager") as base:
+        _write_checkpoint(tmp, dataclasses.replace(
+            config, num_hidden_layers=HTTP_LAYERS), _text_cut(
+                params, HTTP_LAYERS))
+        with _servers(*((tmp, extra) for extra in (
+                (), ("--spec-tokens", str(SPEC_DRAFTS)), ("--eager",),
+                ("--batch-slots", "4"), ("--batch-slots", "4", "--eager"),
+                ("--model", "Qwen/Qwen3-Reranker-0.6B")))) as bases:
+            plain, spec_base, eager, slots, slots_eager, rerank = bases
+            first = _ask(plain)
+            spec = _reply(spec_base, _ASK)
+            require(spec == first, f"--spec-tokens {SPEC_DRAFTS}: the greedy "
+                    f"reply differs from the plain server's: {spec!r} vs "
+                    f"{first!r}")
+            log(f"[http] --spec-tokens {SPEC_DRAFTS}: the greedy reply equals "
+                f"the plain server's")
+            _same_replies("single stream", [first], [_reply(eager, _ASK)])
+            replies = _ask_concurrent(slots, 4)
             _same_replies("--batch-slots 4", replies,
-                          _ask_concurrent(base, 4))
-        with _server(tmp, "--model", "Qwen/Qwen3-Reranker-0.6B") as base:
-            _ask_rerank(base)
+                          _ask_concurrent(slots_eager, 4))
+            _ask_rerank(rerank)
 
 
 def _ask_rerank(base: str) -> None:
@@ -4189,57 +4252,87 @@ def _write_checkpoint(tmp: str, config, params: dict) -> None:
         json.dump({"chat_template": fixtures.CHAT_TEMPLATE}, f)
     t0 = time.perf_counter()
     save_hf_qwen3(params, tmp)
-    log(f"[http] full-width checkpoint written in "
+    log(f"[http] full-width checkpoint ({config.num_hidden_layers} layers) "
+        f"written in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+
+def _free_ports(n: int) -> list[int]:
+    """n distinct free ports (the sockets held open together while they
+    are picked)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+@contextlib.contextmanager
+def _servers(*specs: tuple):
+    """`python -m aha_tpu_torch serv <dir> *extra` in a child process for
+    each (dir, extra) of `specs`, all started together and each up and
+    answering /health before the body runs (their bases in `specs`'
+    order); every child is always stopped, and the -X importtime log of
+    each must name no module of jax or aha_tpu."""
+    children = []
+    try:
+        for (tmp, extra), port in zip(specs, _free_ports(len(specs))):
+            logf = open(os.path.join(tmp, f"server_{port}.log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-X", "importtime", "-m", "aha_tpu_torch",
+                 "serv", tmp, "--port", str(port), "--max-seq-len", "2048",
+                 *extra], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+            children.append((proc, logf, f"http://127.0.0.1:{port}", extra))
+        t0 = time.perf_counter()
+        for proc, logf, base, extra in children:
+            while True:
+                if proc.poll() is not None:
+                    with open(logf.name) as f:
+                        raise RuntimeError("server exited:\n"
+                                           + f.read()[-4000:])
+                try:
+                    with urllib.request.urlopen(base + "/health",
+                                                timeout=5) as r:
+                        if r.status == 200:
+                            break
+                except OSError:
+                    pass
+                require(time.perf_counter() - t0 < 300,
+                        "server did not come up")
+                time.sleep(1)
+            log(f"[http] server {' '.join(extra) or '(single stream)'} up in "
+                f"{time.perf_counter() - t0:.1f} s")
+        yield [base for _, _, base, _ in children]
+    finally:
+        for proc, logf, _, _ in children:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    # -X importtime logged every module each child imported, requests
+    # served included
+    for _, logf, _, _ in children:
+        with open(logf.name) as f:
+            mods = [ln.rsplit("|", 1)[-1].strip() for ln in f
+                    if ln.startswith("import time:")]
+        bad = [m for m in mods if m.split(".")[0] in ("jax", "aha_tpu")]
+        require(len(mods) > 100 and not bad,
+                f"served child imported {bad or 'nothing logged'}")
+        log(f"[http] served child imported {len(mods)} modules, none of jax "
+            f"or aha_tpu")
 
 
 @contextlib.contextmanager
 def _server(tmp: str, *extra: str):
-    """`python -m aha_tpu_torch serv tmp` in a child process, up and
-    answering /health; the child is always stopped."""
-    port = _free_port()
-    logf = open(os.path.join(tmp, f"server_{port}.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-X", "importtime", "-m", "aha_tpu_torch", "serv",
-         tmp, "--port", str(port), "--max-seq-len", "2048", *extra],
-        cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
-    base = f"http://127.0.0.1:{port}"
-    try:
-        t0 = time.perf_counter()
-        while True:
-            if proc.poll() is not None:
-                with open(logf.name) as f:
-                    raise RuntimeError("server exited:\n" + f.read()[-4000:])
-            try:
-                with urllib.request.urlopen(base + "/health", timeout=5) as r:
-                    if r.status == 200:
-                        break
-            except OSError:
-                pass
-            require(time.perf_counter() - t0 < 300,
-                    "server did not come up")
-            time.sleep(1)
-        log(f"[http] server {' '.join(extra) or '(single stream)'} up in "
-            f"{time.perf_counter() - t0:.1f} s")
-        yield base
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        logf.close()
-    # -X importtime logged every module the child imported, requests
-    # served included
-    with open(logf.name) as f:
-        mods = [ln.rsplit("|", 1)[-1].strip() for ln in f
-                if ln.startswith("import time:")]
-    bad = [m for m in mods if m.split(".")[0] in ("jax", "aha_tpu")]
-    require(len(mods) > 100 and not bad,
-            f"served child imported {bad or 'nothing logged'}")
-    log(f"[http] served child imported {len(mods)} modules, none of jax or "
-        f"aha_tpu")
+    """One child of `_servers`: its base URL."""
+    with _servers((tmp, extra)) as bases:
+        yield bases[0]
 
 
 def _chat_body(text: str) -> dict:
@@ -4578,20 +4671,18 @@ def phase_http_vl(params: dict, vl3: dict) -> None:
     config.json's model type qwen3_vl: Qwen/Qwen3-VL-8B-Instruct) answering
     an image, a video and a text chat, and the cut Qwen3.5 with the tower
     served as Qwen/Qwen3.5-0.8B answering an image chat."""
-    with tempfile.TemporaryDirectory(prefix="aha_torch_vl_") as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp, tmp3, tmp35 = (stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=f"aha_torch_{kind}_")) for kind in ("vl", "vl3", "q35vl"))
         _write_vl_checkpoint(tmp, params)
-        with _server(tmp) as base:
-            replies = _ask_vl(base)
-        with _server(tmp, "--eager") as base:
-            _same_replies("Qwen2.5-VL", replies, _ask_vl(base))
-    with tempfile.TemporaryDirectory(prefix="aha_torch_vl3_") as tmp:
-        _write_vl3_checkpoint(tmp, "qwen3vl", vl3["qwen3vl"])
-        with _server(tmp) as base:
-            _ask_vl3(base, "Qwen/Qwen3-VL-8B-Instruct", video=True)
-    with tempfile.TemporaryDirectory(prefix="aha_torch_q35vl_") as tmp:
-        _write_vl3_checkpoint(tmp, "qwen3_5", vl3["qwen3_5"])
-        with _server(tmp, "--model", "Qwen/Qwen3.5-0.8B") as base:
-            _ask_vl3(base, "Qwen/Qwen3.5-0.8B", video=False)
+        _write_vl3_checkpoint(tmp3, "qwen3vl", vl3["qwen3vl"])
+        _write_vl3_checkpoint(tmp35, "qwen3_5", vl3["qwen3_5"])
+        with _servers((tmp, ()), (tmp, ("--eager",)), (tmp3, ()),
+                      (tmp35, ("--model", "Qwen/Qwen3.5-0.8B"))) as bases:
+            replies = _ask_vl(bases[0])
+            _same_replies("Qwen2.5-VL", replies, _ask_vl(bases[1]))
+            _ask_vl3(bases[2], "Qwen/Qwen3-VL-8B-Instruct", video=True)
+            _ask_vl3(bases[3], "Qwen/Qwen3.5-0.8B", video=False)
 
 
 def _write_vl_checkpoint(tmp: str, params: dict) -> None:
@@ -5506,11 +5597,15 @@ def phase_http_siglip(ocr_small: dict, lfm2vl_small: dict) -> None:
     under -X importtime (no jax or aha_tpu module): a 224 x 224 PNG image
     chat (64 image tokens: PaddleOCR-VL's 16 x 16 patches, LFM2-VL's 256
     px resize) and a text-only chat."""
-    for kind, small, task in (("ocr", ocr_small, "OCR:"),
-                              ("lfm2vl", lfm2vl_small, "describe ")):
-        with tempfile.TemporaryDirectory(prefix=f"aha_torch_{kind}_") as tmp:
-            model_id = _siglip_checkpoint(tmp, kind, small)
-            with _server(tmp) as base:
+    kinds = (("ocr", ocr_small, "OCR:"), ("lfm2vl", lfm2vl_small,
+                                           "describe "))
+    with contextlib.ExitStack() as stack:
+        tmps = [stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=f"aha_torch_{kind}_")) for kind, _, _ in kinds]
+        ids = [_siglip_checkpoint(tmp, kind, small)
+               for tmp, (kind, small, _) in zip(tmps, kinds)]
+        with _servers(*((tmp, ()) for tmp in tmps)) as bases:
+            for base, model_id, (_, _, task) in zip(bases, ids, kinds):
                 image = [{"type": "image_url", "image_url": {
                     "url": _png_data_url(224, 224, 11)}},
                     {"type": "text", "text": task}]
@@ -5775,8 +5870,14 @@ def phase_http_deepseek_ocr(params: dict) -> None:
     from aha_tpu_torch.models.loader import load_model
     from aha_tpu_torch.params import ChatCompletionParameters
 
-    with tempfile.TemporaryDirectory(prefix="aha_torch_dsocr_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="aha_torch_dsocr_") as tmp, \
+            contextlib.ExitStack() as runs:
         _, img_id = _dsocr_checkpoint(tmp, params)
+        png = os.path.join(tmp, "page.png")
+        _rgb(900, 1200, 23).save(png)
+        child = runs.enter_context(_run_beside(
+            tmp, tmp, "--model", DSOCR_MODEL, "--input", png, "--max-tokens",
+            "16", "--max-seq-len", "2048"))
         served = load_model(DSOCR_MODEL, tmp, max_seq_len=2048)
 
         def body(url, text, **md):
@@ -5816,28 +5917,15 @@ def phase_http_deepseek_ocr(params: dict) -> None:
                     f"{got['usage']['prompt_tokens']}-token prompt, reply "
                     f"equal to the in-process engine's "
                     f"({got['usage']['completion_tokens']} tokens)")
-        png = os.path.join(tmp, "page.png")
-        _rgb(900, 1200, 23).save(png)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "aha_tpu_torch", "run", tmp, "--model",
-             DSOCR_MODEL, "--input", png, "--max-tokens", "16",
-             "--max-seq-len", "2048"], cwd=ROOT, capture_output=True,
-            text=True, timeout=600)
-        require(proc.returncode == 0, f"run: {proc.stderr[-2000:]}")
-        # a seeded reply may hold any character: split at newlines only
-        lines = proc.stdout.rstrip("\n").split("\n")
         want = served.generate(ChatCompletionParameters.model_validate(
             body(f"file://{png}",
                  "<image>\nConvert the document to markdown. ")))
-        require(lines[0].startswith("load model use time: ")
-                and lines[-1].startswith("generate use time: ")
-                and "\n".join(lines[1:-1])
-                == want.choices[0].message.text(),
-                f"run printed {proc.stdout[-1000:]!r}")
+        lines, secs = _run_lines(child, DSOCR_MODEL)
+        require("\n".join(lines) == want.choices[0].message.text(),
+                f"run printed {lines!r}")
         log(f"[dsocr-http] `run` of {DSOCR_MODEL} answered a 900 x 1200 page "
             f"under the family's prompt as the in-process engine does "
-            f"({time.perf_counter() - t0:.1f} s, load included)")
+            f"({secs:.1f} s, load included, beside the served child)")
         del served
 
 
@@ -6442,21 +6530,43 @@ def _asr_checkpoints(asr: dict, tmp: str) -> dict:
     return dirs
 
 
-def _run_child(path: str, model_id: str, audio: str, n: int) -> str:
-    """`python -m aha_tpu_torch run` of `model_id` in a child, `audio` as
-    its input: the printed answer (a seeded reply may hold any character:
-    split at newlines only)."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "aha_tpu_torch", "run", path, "--model",
-         model_id, "--input", audio, "--max-tokens", str(n),
-         "--max-seq-len", "2048"], cwd=ROOT, capture_output=True, text=True,
-        timeout=600)
-    require(proc.returncode == 0, f"run {model_id}: {proc.stderr[-2000:]}")
-    lines = proc.stdout.rstrip("\n").split("\n")
+@contextlib.contextmanager
+def _run_beside(tmp: str, *args: str):
+    """`python -m aha_tpu_torch run *args` started in a child, its output
+    to files under `tmp`, so it runs beside the served child; the body
+    reads it with `_run_lines`, and the child is stopped if it still runs
+    when the body ends."""
+    n = sum(1 for f in os.listdir(tmp) if f.startswith("run_"))
+    out = open(os.path.join(tmp, f"run_{n}.out"), "w+")
+    err = open(os.path.join(tmp, f"run_{n}.err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-m", "aha_tpu_torch", "run",
+                             *args], cwd=ROOT, stdout=out, stderr=err,
+                            text=True)
+    try:
+        yield proc, out, err, time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def _run_lines(child, what: str) -> tuple[list[str], float]:
+    """A `_run_beside` child's printed lines between its load and generate
+    times (it must exit 0; a seeded reply may hold any character, so the
+    output splits at newlines only), and its wall seconds."""
+    proc, out, err, t0 = child
+    proc.wait(timeout=600)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    require(proc.returncode == 0, f"run {what}: {stderr[-2000:]}")
+    lines = stdout.rstrip("\n").split("\n")
     require(lines[0].startswith("load model use time: ")
             and lines[-1].startswith("generate use time: "),
-            f"run printed {proc.stdout[-1000:]!r}")
-    return "\n".join(lines[1:-1])
+            f"run {what} printed {stdout[-1000:]!r}")
+    return lines[1:-1], time.perf_counter() - t0
 
 
 def phase_http_asr(asr: dict) -> None:
@@ -6481,13 +6591,20 @@ def phase_http_asr(asr: dict) -> None:
     # off for the f32 references)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
+    runs = contextlib.ExitStack()
     try:
         dirs = _asr_checkpoints(asr, tmp)
+        children = {name: runs.enter_context(_run_beside(
+            tmp, dirs[name], "--model", model_id, "--input", SAMPLE_WAV,
+            "--max-tokens", "16", "--max-seq-len", "2048"))
+            for name, model_id in (("qwen3_asr", QWEN3_ASR_MODEL),
+                                   ("fun_asr", FUN_ASR_MODEL))}
         served = load_model(QWEN3_ASR_MODEL, dirs["qwen3_asr"],
                             max_seq_len=2048)
         with open(SAMPLE_WAV, "rb") as f:
             wav_data = f.read()
-        with _server(dirs["qwen3_asr"], "--model", QWEN3_ASR_MODEL) as base:
+        with runs, _server(dirs["qwen3_asr"], "--model",
+                           QWEN3_ASR_MODEL) as base:
             want = served.generate(_asr_request(f"file://{SAMPLE_WAV}",
                                                 language="English"))
             want = clean_asr_response(want.choices[0].message.text())
@@ -6520,22 +6637,690 @@ def phase_http_asr(asr: dict) -> None:
             log(f"[asr-http] chat with an audio_url part: "
                 f"{got['usage']['prompt_tokens']}-token prompt, reply equal "
                 f"to the in-process engine's")
-        for name, model_id in (("qwen3_asr", QWEN3_ASR_MODEL),
-                               ("fun_asr", FUN_ASR_MODEL)):
-            t0 = time.perf_counter()
-            local = (served if name == "qwen3_asr" else
-                     load_model(model_id, dirs[name], max_seq_len=2048))
-            want = local.generate(_asr_request(f"file://{SAMPLE_WAV}", 16))
-            got = _run_child(dirs[name], model_id, SAMPLE_WAV, 16)
-            require(got == want.choices[0].message.text(),
-                    f"run {model_id}: {got!r} vs in-process "
-                    f"{want.choices[0].message.text()!r}")
-            log(f"[asr-http] `run` of {model_id} --input sample.wav answered "
-                f"as the in-process model does ({time.perf_counter() - t0:.1f}"
-                f" s, load included)")
-            del local
+            for name, model_id in (("qwen3_asr", QWEN3_ASR_MODEL),
+                                   ("fun_asr", FUN_ASR_MODEL)):
+                local = (served if name == "qwen3_asr" else
+                         load_model(model_id, dirs[name], max_seq_len=2048))
+                want = local.generate(_asr_request(f"file://{SAMPLE_WAV}",
+                                                   16))
+                lines, secs = _run_lines(children[name], model_id)
+                got = "\n".join(lines)
+                require(got == want.choices[0].message.text(),
+                        f"run {model_id}: {got!r} vs in-process "
+                        f"{want.choices[0].message.text()!r}")
+                log(f"[asr-http] `run` of {model_id} --input sample.wav "
+                    f"answered as the in-process model does ({secs:.1f} s, "
+                    f"load included, beside the served child)")
+                del local
         del served
     finally:
+        runs.close()
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- 16. VoxCPM text-to-speech: row 8 over a float32 cache --------------------
+
+#: bench.py's VoxCPM prompt (48 ids) and patches (min = max = 25, 80 ms of
+#: 16 kHz audio each), 10 CFM steps at cfg 2.0
+VOX_IDS = [(i % 1000) + 2 for i in range(48)]
+VOX_PATCHES = 25
+VOX_STEPS = 10
+VOX_MODEL = "OpenBMB/VoxCPM-0.5B"
+#: the float32 cache's rows: the prompt, the audio start token, the patches
+#: and the reference's 8 spare rows (voxcpm.py's cache_len)
+VOX_S = len(VOX_IDS) + 1 + VOX_PATCHES + 8
+#: row 8 at VoxCPM-0.5B's float32 caches: the base LM (24 layers) and the
+#: residual LM (6), 16 query heads over 2 of 64, every row of the last
+#: patch's step live
+VOX_DECODE = {"f32": dict(L=24, S=VOX_S, Hq=16, Hkv=2, D=64, valid=VOX_S - 8),
+              "f32_residual": dict(L=6, S=VOX_S, Hq=16, Hkv=2, D=64,
+                                   valid=VOX_S - 8)}
+# the float32 kernel against its plain version on the same float32 inputs,
+# relative to max |ref| (f32 sums in another order and the fast exp; the
+# cuda tests measure it within 1e-5); a live length off by one moves the
+# planted row's weight, most of max |ref|
+TOL_DECODE_F32_REL = 1e-5
+# (tts): the card's first 3 patches' latents (float32, TF32 off) against
+# the same steps on the CPU from the same weights and noise, relative to
+# max |ref|: f32 sums in other orders through 30 LM layers and 9 CFM
+# evaluations of the 6-layer DiT a patch, fed back patch to patch
+TOL_TTS_WITNESS_REL = 1e-3
+#: the depth of the served VoxCPM checkpoint (full width): base LM and
+#: residual LM layers; the LocEnc and the LocDiT keep theirs
+TTS_SERVE = dict(lm=4, residual=2)
+#: 16-bit samples two runs on one card may differ by (a rounding flip)
+TTS_SAMPLE_STEPS = 1
+#: the served checks' text: `run` synthesizes it with the defaults, at
+#: most 2 · 6 + 10 = 22 patches (the reference's retry-badcase bound)
+TTS_TEXT = "hi"
+TTS_READINGS: dict[str, dict] = {}
+
+
+def check_decode_f32() -> None:
+    """Row 8's float32 instance at VoxCPM's two shapes: error against the
+    plain version on the first and last layer within TOL_DECODE_F32_REL of
+    max |ref|, a live length off by one either way past it; device time
+    over the L layers in turn, plain, the bound and masked sdpa over the
+    cache's S rows; then a ragged B 2 step (33 and 74 live rows), each slot
+    within the bound and bit-equal to a B = 1 launch on it."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    for i, (key, c) in enumerate(VOX_DECODE.items()):
+        L, S, Hq, Hkv, D, valid = (c[n] for n in ("L", "S", "Hq", "Hkv",
+                                                  "D", "valid"))
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid,
+                                        torch.float32)
+        vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
+        rel, rel_bad, err = 0.0, float("inf"), 0.0
+        for li in (0, L - 1):
+            lt = torch.tensor(li, dtype=torch.int32, device="cuda")
+            ref = fa.flash_decode_at_layer_plain(q, k, v, lt, vl)
+            got = fa.flash_decode_at_layer(q, k, v, lt, vl)
+            require(got.dtype == torch.float32, "f32 decode returned "
+                    f"{got.dtype}")
+            e, r = _rel_err(got, ref)
+            err, rel = max(err, e), max(rel, r)
+            for off in (-1, 1):
+                rel_bad = min(rel_bad, _rel_err(fa.flash_decode_at_layer(
+                    q, k, v, lt, vl + off), ref)[1])
+        require(rel <= TOL_DECODE_F32_REL,
+                f"f32 decode {key}: err {rel} of max |ref|")
+        require(rel_bad > TOL_DECODE_F32_REL, f"f32 decode {key}: a live "
+                f"length off by one stays within the bound ({rel_bad})")
+        layer = _layer_cycle(L)
+        ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(),
+                                                        vl), iters=4 * L)
+        plain_ms = device_ms(lambda: fa.flash_decode_at_layer_plain(
+            q, k, v, layer(), vl), iters=2 * L)
+        it = iter(range(10 ** 9))
+        kv = [(k[li].transpose(1, 2).contiguous(),
+               v[li].transpose(1, 2).contiguous()) for li in range(L)]
+        qt = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device="cuda") < valid)[None, None, None]
+        lib_ms = device_ms(lambda: _sdpa(qt, *kv[next(it) % L],
+                                         attn_mask=mask), iters=4 * L)
+        b = bound(valid * Hkv * D * 4 * 2 + 2 * Hq * D * 4,
+                  4 * Hq * valid * D, "f32")
+        log(f"[kernels] flash_decode_at_layer float32 {key} L={L} S={S} "
+            f"valid={valid} Hq={Hq} Hkv={Hkv} D={D}: max_abs_err {err:.3e},"
+            f" {rel:.3e} of max |ref| (tol {TOL_DECODE_F32_REL}; live length"
+            f" ±1 ≥ {rel_bad:.3e}); device ms/call kernel {ms:.4f} plain "
+            f"{plain_ms:.4f} masked sdpa {lib_ms:.4f}; bound {b[0]:.5f} "
+            f"({b[1]}) | {card_line()}")
+        _record("flash_decode_at_layer", err)
+        RESULTS["flash_decode_at_layer"][key] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": lib_ms, "rel_err": rel,
+            "library": "F.scaled_dot_product_attention, masked, over the "
+                       "cache's S rows",
+            "timed_at": f"float32 L={L} S={S} valid={valid} Hq={Hq} "
+                        f"Hkv={Hkv} D={D}"}
+        del q, k, v, kv
+    # a ragged B 2 step over the base LM's cache
+    L, S, Hq, Hkv, D, lens = 24, VOX_S, 16, 2, 64, (33, VOX_S - 8)
+    g = torch.Generator(device="cuda").manual_seed(44)
+    q, k, v = _planted_slots_cache(g, L, 2, S, Hq, Hkv, D, lens)
+    q, k, v = q.float(), k.float(), v.float()
+    vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    lt = torch.tensor(L - 1, dtype=torch.int32, device="cuda")
+    got = fa.flash_decode_at_layer(q, k, v, lt, vl)
+    ref = fa.flash_decode_at_layer_plain(q, k, v, lt, vl)
+    rel = 0.0
+    for b_ in range(2):
+        one = fa.flash_decode_at_layer(
+            q[b_:b_ + 1].contiguous(), k[:, b_:b_ + 1].contiguous(),
+            v[:, b_:b_ + 1].contiguous(), lt, vl[b_:b_ + 1].contiguous())
+        require(torch.equal(one, got[b_:b_ + 1]), f"f32 decode slot {b_} "
+                "differs from a B = 1 launch on it")
+        rel = max(rel, _rel_err(got[b_:b_ + 1], ref[b_:b_ + 1])[1])
+    bad = _rel_err(fa.flash_decode_at_layer(q, k, v, lt, vl - 1), ref)[1]
+    require(rel <= TOL_DECODE_F32_REL < bad, f"f32 decode ragged B 2: err "
+            f"{rel} (a length off by one {bad})")
+    RESULTS["flash_decode_at_layer"]["f32"]["ragged_b2_rel_err"] = rel
+    log(f"[kernels] flash_decode_at_layer float32 ragged B=2 lengths {lens}"
+        f" S={S}: {rel:.3e} of max |ref| per slot, each slot bit-equal to a "
+        f"B = 1 launch; lengths - 1 off by {bad:.3e}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def voxcpm_0_5b():
+    """bench.py's VoxCPM-0.5B geometry: the MiniCPM4-0.5B backbone (24 x
+    1024 / 3072, 16/2 heads of 64, vocab 73448, mup, no LongRoPE factors),
+    a 6-layer residual LM, the LocEnc 512 x 4 (8 heads), the LocDiT 768 x 6
+    (12 heads), feat 64 x patch 2, FSQ 64 at scale 9; the AudioVAE at the
+    reference's defaults (encoder 128, rates 2/5/8/8, latent 64, decoder
+    1536, 16 kHz)."""
+    import dataclasses
+
+    from aha_tpu_torch.models.audio_vae import AudioVAE
+    from aha_tpu_torch.models.voxcpm import VoxCPMConfig, VoxLMConfig
+
+    lm = VoxLMConfig(vocab_size=73448, hidden_size=1024,
+                     intermediate_size=3072, num_hidden_layers=24,
+                     num_attention_heads=16, num_key_value_heads=2)
+
+    def sub(h, ffn, heads, layers):
+        return dataclasses.replace(
+            lm, hidden_size=h, intermediate_size=ffn,
+            num_attention_heads=heads, num_hidden_layers=layers,
+            num_key_value_heads=heads, vocab_size=0)
+
+    cfg = VoxCPMConfig(
+        architecture="voxcpm", lm=lm, patch_size=2, feat_dim=64,
+        sq_latent_dim=64, sq_scale=9, residual_lm_num_layers=6,
+        residual_lm_no_rope=False, encoder=sub(512, 2048, 8, 4),
+        dit=sub(768, 3072, 12, 6), audio_vae=None, max_length=4096,
+        dtype="float32")
+    return cfg, AudioVAE()
+
+
+def _vox_run(model, params, device: str, n: int = VOX_PATCHES,
+             seed: int = 0) -> tuple[np.ndarray, float, float]:
+    """bench.py's request: the 48-token prompt, min = max = n patches, 10
+    CFM steps at cfg 2.0; (latents, wall s, s to the first patch)."""
+    ctx = model.build_context(VOX_IDS, None)
+    first = []
+
+    def on_patch(i: int) -> None:
+        if i == 0:
+            _sync(device)
+            first.append(time.perf_counter())
+
+    _sync(device)
+    t0 = time.perf_counter()
+    lat = model.inference(params, *ctx, n, n, VOX_STEPS, 2.0, seed=seed,
+                          on_patch=on_patch)
+    _sync(device)
+    return lat, time.perf_counter() - t0, first[0] - t0
+
+
+def _vox_step_times(model, params, device: str) -> tuple[float, float]:
+    """Device ms (profiler) and wall ms of one decode step after bench's
+    prompt: each call rewrites the same cache row (its pos is not
+    advanced)."""
+    ctx = [torch.as_tensor(np.asarray(a))[None].to(device)
+           for a in model.build_context(VOX_IDS, None)]
+    T = ctx[0].shape[1]
+    cb = model.base_lm.init_cache(1, T + VOX_PATCHES + 8, torch.float32)
+    cr = model.residual_lm.init_cache(1, T + VOX_PATCHES + 8, torch.float32)
+    with torch.no_grad():
+        lm_h, res_h, prev, cb, cr = model.prefill(params, *ctx, cb, cr)
+        z = torch.randn(model.noise_shape(), device=device)
+
+        def step():
+            return model.decode_step(params, lm_h, res_h, prev, cb, cr, z,
+                                     VOX_STEPS, 2.0)
+
+        return device_ms(step, iters=3, warmup=1), _wall_ms(step, device)
+
+
+def phase_tts(device: str = "cuda") -> dict:
+    """(ad) VoxCPM-0.5B at bench.py's geometry, seeded float32 weights as
+    the served model loads them: bench's request through `inference` (a
+    warm-up of 2 patches first), RTF (80 ms of audio a patch over the
+    wall), time to the first patch, ms a patch, row 8's float32 launches
+    (30 a patch: 24 base + 6 residual one-row steps), the VAE's decode of
+    the 50 latent frames; the first 3 patches' latents against the CPU's
+    from the same weights and noise; then the bf16 weights bench.py casts
+    to (row 8's bf16 instance), its RTF."""
+    from aha_tpu_torch.models.voxcpm import VoxCPMModel
+
+    cfg, vae = voxcpm_0_5b()
+    model = VoxCPMModel(cfg, vae.latent_dim, device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(0))
+    vae_params = vae.init_random(torch.Generator().manual_seed(1),
+                                 device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    card = card_line() if device == "cuda" else "cpu"
+    lm = cfg.lm
+    log(f"[tts] VoxCPM-0.5B geometry: LM {lm.num_hidden_layers} x "
+        f"{lm.hidden_size} ({lm.num_attention_heads}/"
+        f"{lm.num_key_value_heads} heads of {lm.head_dim}, vocab "
+        f"{lm.vocab_size}), residual LM {cfg.residual_lm_num_layers}, LocEnc "
+        f"{cfg.encoder.hidden_size} x {cfg.encoder.num_hidden_layers}, LocDiT "
+        f"{cfg.dit.hidden_size} x {cfg.dit.num_hidden_layers}, feat "
+        f"{cfg.feat_dim} x patch {cfg.patch_size}; {n_params / 1e6:.1f} M "
+        f"float32 params and the AudioVAE seeded in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    with torch.no_grad():
+        _vox_run(model, params, device, n=2)                # warm-up
+        wr = zero_counts()
+        lat, wall, ttfp = _vox_run(model, params, device)
+        counts = read_counts(wr, "tts", ("flash_decode_at_layer",))
+    want = 30 * VOX_PATCHES
+    if device == "cuda":
+        require(counts["flash_decode_at_layer"] == want,
+                f"tts: row 8 launched {counts['flash_decode_at_layer']} "
+                f"times, not 30 x {VOX_PATCHES} = {want}")
+        RESULTS["flash_decode_at_layer"].setdefault("f32", {})[
+            "launches"] = counts["flash_decode_at_layer"]
+    P = cfg.patch_size
+    require(lat.shape == (VOX_PATCHES * P, vae.latent_dim)
+            and np.isfinite(lat).all(), f"tts latents {lat.shape}")
+    audio_s = VOX_PATCHES * 0.08
+    ms_patch = (wall - ttfp) / (VOX_PATCHES - 1) * 1e3
+    z = torch.from_numpy(np.ascontiguousarray(lat.T))[None].to(device)
+    with torch.no_grad():
+        wav = vae.decode(vae_params, z)
+    require(wav.shape == (1, 1, VOX_PATCHES * P * vae.hop_length)
+            and bool(torch.isfinite(wav).all()), f"VAE decode {wav.shape}")
+    vae_ms = _wall_ms(lambda: vae.decode(vae_params, z), device)
+    log(f"[tts] (ad1) {VOX_PATCHES} patches ({audio_s:.1f} s of audio) from "
+        f"a {len(VOX_IDS)}-token prompt, {VOX_STEPS} CFM steps: RTF "
+        f"{audio_s / wall:.3f} (float32, target >= 1); first patch "
+        f"{ttfp * 1e3:.1f} ms, {ms_patch:.2f} ms a patch; row 8 float32 "
+        f"{counts['flash_decode_at_layer']} launches (30 a patch); VAE "
+        f"decode of {VOX_PATCHES * P} frames {vae_ms:.1f} ms | {card}")
+    step_ms = step_wall = None
+    if device == "cuda":
+        step_ms, step_wall = _vox_step_times(model, params, device)
+        log(f"[tts] one patch's step (CFM, LocEnc, 30 LM layers) at the "
+            f"prompt's end: {step_ms:.2f} ms device, {step_wall:.2f} ms wall "
+            f"(idle share {1 - step_ms / step_wall:.3f}) | {card}")
+    # the witness: the first 3 patches on the CPU, the same weights and
+    # noise (the loop draws its noise from a CPU generator seeded by seed)
+    t0 = time.perf_counter()
+    cpu_model = VoxCPMModel(cfg, vae.latent_dim, "cpu")
+    cpu_params = _tree_to(params, "cpu", torch.float32)
+    with torch.no_grad():
+        ref = cpu_model.inference(cpu_params, *cpu_model.build_context(
+            VOX_IDS, None), 3, 3, VOX_STEPS, 2.0, seed=0)
+    rel = float(np.abs(lat[:3 * P] - ref).max() / np.abs(ref).max())
+    require(rel <= TOL_TTS_WITNESS_REL, f"tts: the first 3 patches' latents "
+            f"differ from the CPU's by {rel} of max |ref|")
+    log(f"[tts] the first 3 patches' latents against the CPU's (float32, the "
+        f"same weights and noise): {rel:.3e} of max |ref| (tol "
+        f"{TOL_TTS_WITNESS_REL}; {time.perf_counter() - t0:.1f} s)")
+    del cpu_params, cpu_model
+    # bench.py's bf16 cast: row 8's bf16 instance
+    params_bf = _tree_to(params, device, torch.bfloat16)
+    with torch.no_grad():
+        _vox_run(model, params_bf, device, n=2)
+        wr = zero_counts()
+        lat_bf, wall_bf, ttfp_bf = _vox_run(model, params_bf, device)
+        counts_bf = read_counts(wr, "tts-bf16", ("flash_decode_at_layer",))
+    require(device != "cuda" or counts_bf["flash_decode_at_layer"] == want,
+            f"tts bf16: row 8 launched {counts_bf['flash_decode_at_layer']}")
+    require(np.isfinite(lat_bf).all(), "tts bf16 latents not finite")
+    log(f"[tts] (ad2) the same request on bf16 weights (bench.py's cast): RTF"
+        f" {audio_s / wall_bf:.3f}; first patch {ttfp_bf * 1e3:.1f} ms, "
+        f"{(wall_bf - ttfp_bf) / (VOX_PATCHES - 1) * 1e3:.2f} ms a patch; "
+        f"row 8 bf16 {counts_bf['flash_decode_at_layer']} launches | {card}")
+    TTS_READINGS.update({
+        "f32": {"rtf": audio_s / wall, "wall_s": wall,
+                "first_patch_ms": ttfp * 1e3, "ms_per_patch": ms_patch,
+                "row8_launches": counts["flash_decode_at_layer"],
+                "step_device_ms": step_ms, "step_wall_ms": step_wall,
+                "vae_decode_ms": vae_ms, "witness_rel_err": rel},
+        "bf16": {"rtf": audio_s / wall_bf, "wall_s": wall_bf,
+                 "first_patch_ms": ttfp_bf * 1e3,
+                 "ms_per_patch": (wall_bf - ttfp_bf) / (VOX_PATCHES - 1)
+                 * 1e3},
+        "card": card})
+    del params_bf
+    return {"cfg": cfg, "vae": vae, "params": params,
+            "vae_params": vae_params}
+
+
+def _char_tokenizer(path: str) -> None:
+    """A char-level tokenizer.json (printable ASCII, ids 0-94), as
+    tests/test_voxcpm.py's tiny repo has."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    vocab = {chr(c): i for i, c in enumerate(range(32, 127))}
+    vocab["[UNK]"] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Split("", "isolated")
+    tok.save(os.path.join(path, "tokenizer.json"))
+
+
+def _vox_checkpoint(tts: dict, tmp: str) -> str:
+    """TTS_SERVE's cut at full width as VoxCPM-0.5B's files (config.json,
+    pytorch_model.bin, audiovae.pth, a char tokenizer) in a directory named
+    VoxCPM-0.5B (a name with a 2 would be served as VoxCPM2)."""
+    import dataclasses
+
+    from aha_tpu_torch.io.weights import save_hf_voxcpm
+
+    cfg, p, vae = tts["cfg"], tts["params"], tts["vae"]
+    n_lm = min(TTS_SERVE["lm"], cfg.lm.num_hidden_layers)
+    n_res = min(TTS_SERVE["residual"], cfg.residual_lm_num_layers)
+    d = os.path.join(tmp, "VoxCPM-0.5B")
+    os.makedirs(d)
+    _char_tokenizer(d)
+
+    def block(c):
+        return {"hidden_dim": c.hidden_size, "ffn_dim": c.intermediate_size,
+                "num_heads": c.num_attention_heads,
+                "num_layers": c.num_hidden_layers}
+
+    config = {"architecture": "voxcpm", "patch_size": cfg.patch_size,
+              "feat_dim": cfg.feat_dim,
+              "scalar_quantization_latent_dim": cfg.sq_latent_dim,
+              "scalar_quantization_scale": cfg.sq_scale,
+              "residual_lm_num_layers": n_res,
+              "residual_lm_no_rope": cfg.residual_lm_no_rope,
+              "max_length": cfg.max_length, "dtype": "float32",
+              "lm_config": dataclasses.asdict(dataclasses.replace(
+                  cfg.lm, num_hidden_layers=n_lm)),
+              "encoder_config": block(cfg.encoder),
+              "dit_config": block(cfg.dit),
+              "audio_vae_config": {
+                  "encoder_dim": vae.encoder_dim,
+                  "encoder_rates": list(vae.encoder_rates),
+                  "latent_dim": vae.latent_dim,
+                  "decoder_dim": vae.decoder_dim,
+                  "decoder_rates": list(vae.decoder_rates),
+                  "sample_rate": vae.sample_rate}}
+    cut = {**p, "base_lm": {**p["base_lm"],
+                            "layers": p["base_lm"]["layers"][:n_lm]},
+           "residual_lm": {**p["residual_lm"],
+                           "layers": p["residual_lm"]["layers"][:n_res]}}
+    t0 = time.perf_counter()
+    save_hf_voxcpm(cut, tts["vae_params"], config, d)
+    log(f"[tts-http] full-width checkpoint (LM {n_lm} layers, residual "
+        f"{n_res}) written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    return d
+
+
+def _wav_of(data: bytes) -> np.ndarray:
+    """16-bit PCM samples of a WAV file's bytes, as integers."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(
+            np.int32)
+
+
+def _same_samples(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    diff = (np.abs(got - want).max() if got.shape == want.shape
+            and got.size else None)
+    require(diff is not None and diff <= TTS_SAMPLE_STEPS,
+            f"{what}: {got.shape} samples vs {want.shape}, max step diff "
+            f"{diff}")
+    log(f"[tts-http] {what}: {got.size} samples equal to the in-process ones"
+        f" (max diff {diff} of {TTS_SAMPLE_STEPS} 16-bit steps)")
+
+
+def phase_http_tts(tts: dict) -> None:
+    """TTS_SERVE's checkpoint served by `python -m aha_tpu_torch serv <dir>
+    --model OpenBMB/VoxCPM-0.5B` in a child under -X importtime: POST
+    /audio/speech (6 patches) returns one audio part whose WAV samples
+    equal the in-process served model's for the same request; a streamed
+    chat request is refused with the reference's words; then `run` of the
+    id with --output writes the WAV of the in-process `synthesize`."""
+    import base64
+    import shutil
+
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+    from aha_tpu_torch.utils.audio import wav_bytes
+
+    tmp = tempfile.mkdtemp(prefix="aha_torch_tts_")
+    # the children run with torch's default cuDNN TF32 for the VAE's
+    # convs; the in-process model they are held to runs with it too
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    runs = contextlib.ExitStack()
+    try:
+        d = _vox_checkpoint(tts, tmp)
+        out = os.path.join(tmp, "x.wav")
+        child = runs.enter_context(_run_beside(
+            tmp, d, "--model", VOX_MODEL, "--input", TTS_TEXT, "--output",
+            out))
+        served = load_model(VOX_MODEL, d)
+        body = {"model": VOX_MODEL, "metadata": {"min_len": "6",
+                                                 "max_len": "6"},
+                "messages": [{"role": "user", "content": TTS_TEXT}]}
+        want = served.generate(ChatCompletionParameters.model_validate(body))
+        want_url = want.choices[0].message.content[0].audio_url.url
+        with _server(d, "--model", VOX_MODEL) as base:
+            status, text = _post(base + "/audio/speech", body)
+            require(status == 200, f"/audio/speech: {text[-500:]}")
+            parts = json.loads(text)["choices"][0]["message"]["content"]
+            require(len(parts) == 1 and parts[0]["type"] == "audio"
+                    and parts[0]["audio_url"]["url"].startswith(
+                        "data:audio/wav;base64,"), f"parts {str(parts)[:300]}")
+            _same_samples("POST /audio/speech (6 patches)", _wav_of(
+                base64.b64decode(parts[0]["audio_url"]["url"].split(",")[1])),
+                _wav_of(base64.b64decode(want_url.split(",")[1])))
+            status, text = _post(base + "/v1/chat/completions",
+                                 {**body, "stream": True})
+            require("model not support stream" in text,
+                    f"a streamed request: {status} {text[-300:]}")
+            log("[tts-http] a streamed chat request refused: "
+                f"{text.strip()[:120]}")
+        want = _wav_of(wav_bytes(served.synthesize(TTS_TEXT),
+                                 served.vae.out_sample_rate))
+        lines, secs = _run_lines(child, VOX_MODEL)
+        require(lines == [f"Output saved to: {out}"], f"run printed {lines}")
+        with open(out, "rb") as f:
+            got = _wav_of(f.read())
+        _same_samples(f"`run --output x.wav` ({secs:.1f} s, load included, "
+                      f"beside the served child)", got, want)
+        del served
+    finally:
+        runs.close()
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- 17. RMBG-2.0 background removal ----------------------------------------
+
+RMBG_MODEL = "AI-ModelScope/RMBG-2.0"
+#: the timed forward's side (bench.py's 1024 px) and the witness's
+RMBG_SIDE = 1024
+RMBG_WITNESS_SIDE = 256
+#: the matte of the same weights at 256 px on the card (float32, TF32 off)
+#: against the CPU's, relative to max |ref|: f32 sums in other orders
+#: through the Swin-L stages, the deformable decoder and the resizes
+TOL_RMBG_WITNESS_REL = 1e-3
+#: the Swin depths of the served checkpoint (full width, 2 blocks a stage)
+RMBG_SERVE_DEPTHS = (2, 2, 2, 2)
+#: alpha levels two runs of the served matte may differ by (a uint8
+#: truncation flip, spread by the bicubic resize back)
+RMBG_ALPHA_LEVELS = 2
+RMBG_READINGS: dict[str, dict] = {}
+
+
+def _captured_calls(module, names: tuple[str, ...], fn):
+    """Run fn() with each module function in `names` wrapped to record its
+    arguments; {name: [args, ...]}."""
+    calls = {n: [] for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def rec(*a, **k):
+            calls[n].append((a, k))
+            return real[n](*a, **k)
+        return rec
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        fn()
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+    return calls, real
+
+
+def phase_rmbg(device: str = "cuda") -> dict:
+    """(ae) RMBG-2.0 at bench.py's Swin-L defaults (embed 192, depths
+    2/2/18/2, heads 6/12/24/48, window 12) and the BiRefNet decoder, seeded
+    float32 weights (BiRefNet.init_random): the 1024 px forward's latency
+    (median of 3 after a warm-up), its device time, and the device time of
+    its Swin window attention (48 calls: both scales) and its deformable
+    convs (20 calls), the design candidates; the matte of a 256 px input
+    against the CPU's from the same weights."""
+    from aha_tpu_torch.models import rmbg2_0 as rm
+
+    cfg = rm.SwinConfig()
+    model = rm.BiRefNet(cfg, device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[rmbg] RMBG-2.0 geometry: Swin (embed {cfg.embed_dim}, depths "
+        f"{'/'.join(map(str, cfg.depths))}, heads "
+        f"{'/'.join(map(str, cfg.num_heads))}, window {cfg.window_size}) + "
+        f"the deformable decoder: {n_params / 1e6:.1f} M float32 params "
+        f"seeded in {time.perf_counter() - t0:.1f} s (set-up)")
+    side = RMBG_SIDE
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 3, side, side)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        out = model.forward(params, x)
+        _sync(device)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = model.forward(params, x)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+        lat = float(np.median(secs))
+        require(out.shape == (1, 1, side, side) and bool(
+            torch.isfinite(out).all()) and 0 <= float(out.min())
+            and float(out.max()) <= 1, f"matte {tuple(out.shape)}")
+        fwd_ms = att_ms = dcn_ms = None
+        if device == "cuda":
+            fwd_ms = device_ms(lambda: model.forward(params, x), iters=2,
+                               warmup=1)
+            calls, real = _captured_calls(
+                rm, ("_swin_attention", "deform_conv2d"),
+                lambda: model.forward(params, x))
+
+            def replay(name):
+                for a, k in calls[name]:
+                    real[name](*a, **k)
+
+            att_ms = device_ms(lambda: replay("_swin_attention"), iters=2,
+                               warmup=1)
+            dcn_ms = device_ms(lambda: replay("deform_conv2d"), iters=2,
+                               warmup=1)
+            n_att, n_dcn = (len(calls[n]) for n in calls)
+            del calls
+            log(f"[rmbg] (ae1) {side} x {side} forward: {lat * 1e3:.1f} ms wall "
+                f"(median of 3), {fwd_ms:.1f} ms device; Swin window "
+                f"attention {att_ms:.1f} ms device ({n_att} calls, plain "
+                f"einsum + bias), deformable conv {dcn_ms:.1f} ms device "
+                f"({n_dcn} calls, plain gathers + einsum) | {card}")
+        ws = RMBG_WITNESS_SIDE
+        small = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (1, 3, ws, ws)).astype(np.float32))
+        got = model.forward(params, small.to(device)).float().cpu()
+    t0 = time.perf_counter()
+    cpu_model = rm.BiRefNet(cfg, "cpu")
+    with torch.no_grad():
+        ref = cpu_model.forward(_tree_to(params, "cpu", torch.float32), small)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    require(rel <= TOL_RMBG_WITNESS_REL, f"rmbg: the {ws} px matte differs "
+            f"from the CPU's by {rel} of max |ref|")
+    log(f"[rmbg] the {ws} px matte against the CPU's (float32, the same "
+        f"weights): {rel:.3e} of max |ref| (tol {TOL_RMBG_WITNESS_REL}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    RMBG_READINGS.update({"side": side, "latency_ms": lat * 1e3,
+                          "forward_device_ms":
+                          fwd_ms, "swin_attention_device_ms": att_ms,
+                          "deform_conv_device_ms": dcn_ms,
+                          "witness_rel_err": rel, "card": card})
+    return {"cfg": cfg, "params": params}
+
+
+def _decoded_png(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data))
+    require(img.mode == "RGBA", f"PNG mode {img.mode}")
+    return np.asarray(img).astype(np.int32)
+
+
+def _same_png(what: str, got: bytes, want: bytes) -> None:
+    g, w = _decoded_png(got), _decoded_png(want)
+    require(g.shape == w.shape and np.array_equal(g[..., :3], w[..., :3]),
+            f"{what}: {g.shape} vs {w.shape} or the RGB differs")
+    diff = int(np.abs(g[..., 3] - w[..., 3]).max())
+    require(diff <= RMBG_ALPHA_LEVELS, f"{what}: alpha off by {diff}")
+    log(f"[rmbg-http] {what}: {g.shape[1]} x {g.shape[0]} RGBA, RGB equal, "
+        f"alpha within {diff} of {RMBG_ALPHA_LEVELS} levels of the "
+        f"in-process PNG")
+
+
+def phase_http_rmbg(rmbg: dict) -> None:
+    """The model cut to RMBG_SERVE_DEPTHS at full width, written with the
+    checkpoint's names (io/weights.save_hf_rmbg2_0), served by `python -m
+    aha_tpu_torch serv <dir> --model AI-ModelScope/RMBG-2.0` in a child
+    under -X importtime: POST /images/remove_background with two images
+    returns two image parts, PNGs equal to the in-process served model's;
+    then `run` of the id with both inputs and --output writes them."""
+    import base64
+    import dataclasses
+    import shutil
+
+    from aha_tpu_torch.io.weights import save_hf_rmbg2_0
+    from aha_tpu_torch.models.loader import load_model
+
+    cfg, p = rmbg["cfg"], rmbg["params"]
+    small = dataclasses.replace(cfg, depths=RMBG_SERVE_DEPTHS)
+    cut = {**p, "bb": {**p["bb"], "layers": [
+        {**lp, "blocks": lp["blocks"][:n]}
+        for lp, n in zip(p["bb"]["layers"], RMBG_SERVE_DEPTHS)]}}
+    tmp = tempfile.mkdtemp(prefix="aha_torch_rmbg_")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    runs = contextlib.ExitStack()
+    try:
+        d = os.path.join(tmp, "RMBG-2.0")
+        t0 = time.perf_counter()
+        save_hf_rmbg2_0(cut, small, d)
+        log(f"[rmbg-http] full-width checkpoint (Swin depths "
+            f"{RMBG_SERVE_DEPTHS}) written in {time.perf_counter() - t0:.1f}"
+            f" s (set-up)")
+        urls = [_png_data_url(640, 480, 11), _png_data_url(300, 500, 12)]
+        paths = []
+        for i, u in enumerate(urls):
+            paths.append(os.path.join(tmp, f"in{i}.png"))
+            with open(paths[-1], "wb") as f:
+                f.write(base64.b64decode(u.split(",", 1)[1]))
+        out = os.path.join(tmp, "out.png")
+        child = runs.enter_context(_run_beside(
+            tmp, d, "--model", RMBG_MODEL, "--input", paths[0], "--input",
+            paths[1], "--output", out))
+        served = load_model(RMBG_MODEL, d)
+        want = served.remove_background(urls)
+        body = {"model": RMBG_MODEL, "messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": u}} for u in urls]}]}
+        with _server(d, "--model", RMBG_MODEL) as base:
+            status, text = _post(base + "/images/remove_background", body)
+            require(status == 200, f"/images/remove_background: "
+                    f"{text[-500:]}")
+            parts = json.loads(text)["choices"][0]["message"]["content"]
+            require(len(parts) == 2 and all(
+                q["type"] == "image" for q in parts), f"{len(parts)} parts")
+            for i, (q, w) in enumerate(zip(parts, want)):
+                _same_png(f"POST /images/remove_background image {i}",
+                          base64.b64decode(q["image_url"]["url"].split(
+                              ",", 1)[1]), w)
+        lines, secs = _run_lines(child, RMBG_MODEL)
+        dests = [os.path.join(tmp, f"out_{i}.png") for i in range(2)]
+        require(lines == [f"Output saved to: {x}" for x in dests],
+                f"run printed {lines}")
+        for i, (x, w) in enumerate(zip(dests, want)):
+            with open(x, "rb") as f:
+                _same_png(f"`run --output out.png` file out_{i}.png ("
+                          f"{secs:.1f} s, load included, beside the served "
+                          f"child)", f.read(), w)
+        del served
+    finally:
+        runs.close()
         torch.backends.cudnn.allow_tf32 = tf32
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6591,6 +7376,14 @@ def main() -> int:
     asr = timed("asr", phase_asr)
     timed("asr-http", phase_http_asr, asr)
     del asr
+    torch.cuda.empty_cache()
+    tts = timed("tts", phase_tts)
+    timed("tts-http", phase_http_tts, tts)
+    del tts
+    torch.cuda.empty_cache()
+    rmbg = timed("rmbg", phase_rmbg)
+    timed("rmbg-http", phase_http_rmbg, rmbg)
+    del rmbg
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -6604,7 +7397,7 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
-                    "page", "fun_asr", "ernie", *DSOCR_DECODE,
+                    "page", "fun_asr", "ernie", *DSOCR_DECODE, *VOX_DECODE,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -6616,6 +7409,8 @@ def main() -> int:
     print(json.dumps({"siglip": SIGLIP_READINGS}))
     print(json.dumps({"dsocr": DSOCR_READINGS}))
     print(json.dumps({"asr": ASR_READINGS}))
+    print(json.dumps({"tts": TTS_READINGS}))
+    print(json.dumps({"rmbg": RMBG_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

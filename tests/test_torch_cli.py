@@ -191,7 +191,7 @@ def test_run_answers_as_the_served_model(repo, monkeypatch, capsys, spec):
 
 def test_run_refuses_an_unported_model_type(repo, tmp_path):
     with pytest.raises(NotImplementedError):
-        cli.main(["run", repo, "--model", "OpenBMB/VoxCPM-0.5B",
+        cli.main(["run", repo, "--model", "Tencent-Hunyuan/HunyuanOCR",
                   "--input", "hi"])
 
 

@@ -2151,3 +2151,100 @@ def test_segment_flash_at_fun_asr_shapes(dev, S, real, H, fused):
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2 * top
     assert torch.equal(got, again)
     assert torch.equal(got[:, seg < 0], torch.zeros_like(got[:, seg < 0]))
+
+
+# -- row 8 over a float32 cache (VoxCPM's MiniCPM stacks) ---------------------
+
+#: the float32 decode kernel against its plain version on the same float32
+#: inputs, max abs error relative to max |ref|: both sum in f32, in another
+#: order, with the kernel's fast exp; a live length off by one moves the
+#: planted row's weight, most of max |ref|
+TOL_DECODE_F32_REL = 1e-5
+
+
+def _planted_f32(g, L, B, S, Hq, Hkv, D, lens):
+    """q and a (L, B, S, Hkv, D) float32 cache: each slot's last live row
+    planted along its query heads' summed direction, so the outputs are
+    O(1) and lean on that row."""
+    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda")
+    k = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    v = torch.randn((L, B, S, Hkv, D), generator=g, device="cuda")
+    u = q.reshape(B, Hkv, Hq // Hkv, D).sum(2)
+    u = u / u.norm(dim=-1, keepdim=True)
+    for b, n in enumerate(lens):
+        k[:, b, n - 1] = 12 * u[b]
+    return q, k, v
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("L,valid", [(24, 1), (24, 49), (24, 74), (6, 74)])
+def test_decode_f32_at_voxcpm_shapes(dev, L, valid):
+    """flash_decode_at_layer on VoxCPM-0.5B's float32 caches: the base LM's
+    24 layers and the residual LM's 6, 16 query heads over 2 of 64, S = a
+    48-token prompt + the audio start + 25 patches + 8 (82 rows); within
+    TOL_DECODE_F32_REL of max |ref|, one launch each, and a live length
+    off by one outside that bound."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(L + valid)
+    S, Hq, Hkv, D = 82, 16, 2, 64
+    q, k, v = _planted_f32(g, L, 1, S, Hq, Hkv, D, (valid,))
+    vl = torch.tensor([valid], dtype=torch.int32, device=dev)
+    for li in (0, L - 1):
+        layer = torch.tensor(li, dtype=torch.int32, device=dev)
+        n0 = fa.flash_decode_at_layer.launches
+        got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+        ref = fa.flash_decode_at_layer_plain(q, k, v, layer, vl)
+        torch.cuda.synchronize()
+        assert fa.flash_decode_at_layer.launches == n0 + 1
+        assert got.dtype == torch.float32
+        assert _rel(got, ref) <= TOL_DECODE_F32_REL
+        if valid < S:
+            bad = fa.flash_decode_at_layer(q, k, v, layer, vl + 1)
+            assert _rel(bad, ref) > TOL_DECODE_F32_REL
+        if valid > 1:
+            bad = fa.flash_decode_at_layer(q, k, v, layer, vl - 1)
+            assert _rel(bad, ref) > TOL_DECODE_F32_REL
+
+
+def test_decode_f32_ragged_slots(dev):
+    """B 2 slots of lengths 33 and 300 over a float32 (3, 2, 512, 2, 64)
+    cache: each slot within TOL_DECODE_F32_REL of the plain version and
+    bit-equal to a B = 1 launch on that slot alone."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    L, S, Hq, Hkv, D, lens = 3, 512, 16, 2, 64, (33, 300)
+    q, k, v = _planted_f32(g, L, 2, S, Hq, Hkv, D, lens)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    layer = torch.tensor(1, dtype=torch.int32, device=dev)
+    got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+    ref = fa.flash_decode_at_layer_plain(q, k, v, layer, vl)
+    for b in range(2):
+        one = fa.flash_decode_at_layer(
+            q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+            v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+        torch.cuda.synchronize()
+        assert _rel(got[b], ref[b]) <= TOL_DECODE_F32_REL
+        assert torch.equal(got[b:b + 1], one)
+
+
+def test_decode_refuses_other_cache_dtypes(dev):
+    """A float16 cache, or a float32 q over a bf16 cache, raises on the
+    card: no plain version runs and nothing is counted."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    layer = torch.zeros((), dtype=torch.int32, device=dev)
+    vl = torch.ones(1, dtype=torch.int32, device=dev)
+    n0 = fa.flash_decode_at_layer.launches
+    for q_dt, kv_dt in ((torch.float16, torch.float16),
+                        (torch.float32, torch.bfloat16),
+                        (torch.bfloat16, torch.float32)):
+        q = torch.zeros(1, 1, 4, 64, dtype=q_dt, device=dev)
+        kv = torch.zeros(1, 1, 64, 2, 64, dtype=kv_dt, device=dev)
+        with pytest.raises(ValueError):
+            fa.flash_decode_at_layer(q, kv, kv, layer, vl)
+    assert fa.flash_decode_at_layer.launches == n0

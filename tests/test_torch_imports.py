@@ -51,6 +51,22 @@ ASR_MODULES = ("aha_tpu_torch.params.asr", "aha_tpu_torch.utils.audio",
                "aha_tpu_torch.models.fire_red_vad")
 
 
+#: the modules of the text-to-speech and background-removal slice
+TTS_IMAGE_MODULES = ("aha_tpu_torch.ops.conv",
+                     "aha_tpu_torch.models.audio_vae",
+                     "aha_tpu_torch.models.voxcpm",
+                     "aha_tpu_torch.models.voxcpm_served",
+                     "aha_tpu_torch.models.rmbg2_0",
+                     "aha_tpu_torch.models.rmbg2_0_served",
+                     "aha_tpu_torch.utils.interpolate")
+
+
+def test_tts_and_image_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({TTS_IMAGE_MODULES!r}) - "
+             "set(mods)\nassert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
 def test_asr_modules_walked_and_free_of_aha_tpu():
     r = _run(ALL_MODULES + f"missing = set({ASR_MODULES!r}) - set(mods)\n"
              "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)

@@ -391,7 +391,9 @@ def test_minicpm4_geometry():
                                       "deepseek-ai/DeepSeek-OCR",
                                       "Qwen/Qwen3-ASR-0.6B",
                                       "FunAudioLLM/Fun-ASR-Nano-2512",
-                                      "ZhipuAI/GLM-ASR-Nano-2512"])
+                                      "ZhipuAI/GLM-ASR-Nano-2512",
+                                      "OpenBMB/VoxCPM-0.5B",
+                                      "AI-ModelScope/RMBG-2.0"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
