@@ -48,10 +48,14 @@ MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct",
                # lfm2-vl into a saved config.json
                "lfm2_vl": "LiquidAI/LFM2-VL-1.6B",
                "lfm2-vl": "LiquidAI/LFM2-VL-1.6B"}
-#: family → default OCR instruction (the JAX CLI's); each OCR family
-#: adds its own as it is ported
-_OCR_PROMPTS = {"paddleocr_vl": "OCR:",
-                "deepseek_ocr": "<image>\nConvert the document to markdown. "}
+#: family → default OCR instruction (the JAX CLI's)
+_OCR_PROMPTS = {"deepseek_ocr": "<image>\nConvert the document to markdown. ",
+                "glm_ocr": "Text Recognition:",
+                "hunyuan_ocr": "检测并识别图片中的文字，将文本坐标格式化输出。",
+                "paddleocr_vl": "OCR:"}
+#: the registry's model types `run` reads (every one)
+RUN_TYPES = ("llm", "vlm", "ocr", "asr", "embedding", "reranker", "tts",
+             "image")
 
 
 def model_id_for(path: str, model: str) -> str:
@@ -248,8 +252,7 @@ def run_run(args) -> int:
     model_id = model_id_for(args.path, args.model)
     entry = registry.lookup(model_id)
     mt = entry.model_type
-    if mt not in ("llm", "vlm", "ocr", "asr", "embedding", "reranker", "tts",
-                  "image"):
+    if mt not in RUN_TYPES:
         raise NotImplementedError(
             f"`run` of a {mt} model is not ported to aha_tpu_torch yet")
     inputs: list[str] = args.input

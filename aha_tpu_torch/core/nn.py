@@ -60,3 +60,17 @@ def swiglu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 def ln(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with the dict's weight and optional bias."""
     return layer_norm(x, p["w"], p.get("b"), eps)
+
+
+def tree_stack(trees: list[Params]) -> Params:
+    """Per-layer parameter dicts → one dict of (L, ...) tensors."""
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def tree_at(tree: Params, i: int) -> Params:
+    """Layer i of a stacked (L, ...) parameter dict."""
+    if isinstance(tree, dict):
+        return {k: tree_at(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -16,7 +16,10 @@ subtree where it has one; LFM2-VL's is LFM2's with its "visual" tower and
 "projector" beside the decoder's keys), DeepSeek-OCR's (the SAM / CLIP
 towers, the CLIP layers stacked, the decoder an unstacked "layers" list
 of dense and MoE layers, version 2's "qwen2enc" encoder the layers and
-norm of a llama tree, kept float32), FireRedVAD's DetectModel tree (no
+norm of a llama tree, kept float32), HunyuanOCR's ({"visual": the tower's
+stacked blocks and "perceive", the decoder's "layers" list, "embed",
+"norm", the tied head}) and GLM-OCR's ({"visual", "text": stacked
+layers}), FireRedVAD's DetectModel tree (no
 head; its FSMN taps kept (K, P)), or a BERT tree (`BertModel`'s:
 "embeddings" and a "layers" list, linear weights and norms with biases, no
 head), and returns the port's tree: the same nesting (lists kept) and

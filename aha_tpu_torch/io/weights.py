@@ -15,12 +15,14 @@ loaders' inverses, for checkpoints made from seeded weights.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
 
 import torch
 
+from aha_tpu_torch.core.nn import tree_at
 from aha_tpu_torch.models import siglip
 
 
@@ -757,3 +759,185 @@ def save_hf_rmbg2_0(params: dict, swin, path: str) -> None:
                    "num_heads": list(swin.num_heads),
                    "window_size": swin.window_size}, f)
     _save(rmbg2_0_state_dict(params), path)
+
+
+#: the chat template written with a HunyuanOCR checkpoint made here: each
+#: message's parts in turn, an image part as the image marker the
+#: processor expands, a text part as its text
+HUNYUAN_CHAT_TEMPLATE = (
+    "{%- for message in messages -%}"
+    "{%- if message.content is string -%}{{ message.content }}"
+    "{%- else -%}{%- for part in message.content -%}"
+    "{%- if part.type == 'text' -%}{{ part.text }}"
+    "{%- elif part.type in ('image_url', 'image') -%}"
+    "<｜hy_place▁holder▁no▁102｜>{%- endif -%}"
+    "{%- endfor -%}{%- endif -%}"
+    "{%- endfor -%}")
+
+
+def _write_side_files(path: str, config: dict, tokenizer,
+                      generation: dict | None, preprocessor: dict | None,
+                      chat_template: str | None = None) -> None:
+    """config.json, generation_config.json, preprocessor_config.json, the
+    tokenizer (a `tokenizers.Tokenizer`) as tokenizer.json and, where
+    given, a chat template in tokenizer_config.json."""
+    os.makedirs(path, exist_ok=True)
+    files = {"config.json": config,
+             "generation_config.json": generation or {},
+             "preprocessor_config.json": preprocessor or {}}
+    if chat_template is not None:
+        files["tokenizer_config.json"] = {"chat_template": chat_template}
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f)
+    tokenizer.save(os.path.join(path, "tokenizer.json"))
+
+
+def hunyuan_ocr_config_json(cfg) -> dict:
+    """A models/hunyuan_ocr.HunyuanOCRConfig as the checkpoint's
+    config.json: the decoder's fields top-level, rope_scaling's alpha and
+    xdrope_section, vision_config."""
+    d = dataclasses.asdict(cfg)
+    vision = d.pop("vision")
+    alpha, section = d.pop("rope_alpha"), d.pop("xdrope_section")
+    return {**d, "rope_scaling": {"alpha": alpha,
+                                  "xdrope_section": list(section)},
+            "vision_config": vision}
+
+
+def save_hf_hunyuan_ocr(params: dict, cfg, tokenizer, path: str,
+                        generation: dict | None = None,
+                        preprocessor: dict | None = None) -> None:
+    """Write the port's HunyuanOCR parameters as a checkpoint under the
+    reference's names (the inverse of HunyuanOCRModel.load_params: the
+    tower under vit. with its patch conv (d, 3, p, p) and a zero CLS row
+    before the position table, the decoder under model., the head tied)
+    with config.json (`cfg` a HunyuanOCRConfig), generation_config.json,
+    preprocessor_config.json, the tokenizer and HUNYUAN_CHAT_TEMPLATE."""
+    vp = params["visual"]
+    out = {}
+    pe = vp["patch"]["w"]                          # (3·p·p, d)
+    p = int(round((pe.shape[0] // 3) ** 0.5))
+    out["vit.embeddings.patch_embedding.weight"] = \
+        pe.t().reshape(pe.shape[1], 3, p, p).contiguous().cpu()
+    out["vit.embeddings.patch_embedding.bias"] = vp["patch"]["b"].cpu()
+    table = vp["pos_embed"]
+    out["vit.embeddings.position_embedding.weight"] = torch.cat(
+        [torch.zeros_like(table[:1]), table]).contiguous().cpu()
+    blocks = vp["blocks"]
+    for i in range(blocks["q"]["w"].shape[0]):
+        b = f"vit.layers.{i}."
+        at = tree_at(blocks, i)
+        _hf_norm(out, b + "input_layernorm", at["ln1"])
+        _hf_norm(out, b + "post_attention_layernorm", at["ln2"])
+        for name in "qkvo":
+            _hf_linear(out, f"{b}self_attn.{name}_proj", at[name])
+        _hf_linear(out, b + "mlp.dense_h_to_4h", at["fc1"])
+        _hf_linear(out, b + "mlp.dense_4h_to_h", at["fc2"])
+    pc, pp = "vit.perceive.", vp["perceive"]
+    _hf_norm(out, pc + "before_rms", pp["before_rms"])
+    _hf_norm(out, pc + "after_rms", pp["after_rms"])
+    out[pc + "proj.0.weight"] = pp["proj0"]["w"].contiguous().cpu()
+    out[pc + "proj.0.bias"] = pp["proj0"]["b"].cpu()
+    w2 = pp["proj2"]["w"]                          # (2D, 4D)
+    out[pc + "proj.2.weight"] = w2.t().reshape(
+        w2.shape[1], w2.shape[0], 1, 1).contiguous().cpu()
+    out[pc + "proj.2.bias"] = pp["proj2"]["b"].cpu()
+    _hf_linear(out, pc + "mlp", pp["mlp"])
+    for name in ("image_newline", "image_begin", "image_end"):
+        out[pc + name] = pp[name].cpu()
+    for i, lp in enumerate(params["layers"]):
+        b = f"model.layers.{i}."
+        _hf_norm(out, b + "input_layernorm", lp["ln1"])
+        _hf_norm(out, b + "post_attention_layernorm", lp["ln2"])
+        for name in "qkvo":
+            _hf_linear(out, f"{b}self_attn.{name}_proj", lp[name])
+        _hf_norm(out, b + "self_attn.query_layernorm", lp["q_norm"])
+        _hf_norm(out, b + "self_attn.key_layernorm", lp["k_norm"])
+        for name in ("gate", "up", "down"):
+            _hf_linear(out, f"{b}mlp.{name}_proj", lp["mlp"][name])
+    out["model.embed_tokens.weight"] = params["embed"]["w"].contiguous().cpu()
+    _hf_norm(out, "model.norm", params["norm"])
+    _write_side_files(path, hunyuan_ocr_config_json(cfg), tokenizer,
+                      generation, preprocessor, HUNYUAN_CHAT_TEMPLATE)
+    _save(out, path)
+
+
+def glm_ocr_config_json(cfg) -> dict:
+    """A models/glm_ocr.GlmOcrConfig as the checkpoint's config.json:
+    vision_config, text_config with its rope under rope_parameters, the
+    image token ids."""
+    text = dataclasses.asdict(cfg.text)
+    rope = {"rope_type": "default",
+            "mrope_section": list(text.pop("mrope_section")),
+            "partial_rotary_factor": text.pop("partial_rotary_factor"),
+            "rope_theta": text.pop("rope_theta")}
+    if text["head_dim"] is None:
+        text.pop("head_dim")
+    return {"model_type": "glm_ocr",
+            "vision_config": dataclasses.asdict(cfg.vision),
+            "text_config": {**text, "rope_parameters": rope},
+            "image_token_id": cfg.image_token_id,
+            "image_start_token_id": cfg.image_start_token_id,
+            "image_end_token_id": cfg.image_end_token_id}
+
+
+def save_hf_glm_ocr(params: dict, cfg, tokenizer, path: str,
+                    generation: dict | None = None,
+                    preprocessor: dict | None = None) -> None:
+    """Write the port's GLM-OCR parameters as a checkpoint under the
+    reference's names (the inverse of GlmOcrModel.load_params: the tower
+    under model.visual. with its patch conv (d, 3, tp, p, p), the decoder
+    under model.language_model., lm_head unless tied) with config.json
+    (`cfg` a GlmOcrConfig), generation_config.json,
+    preprocessor_config.json and the tokenizer (the prompt frame is
+    fixed: no chat template)."""
+    v = cfg.vision
+    vp, tp = params["visual"], params["text"]
+    vs, ts = "model.visual.", "model.language_model."
+    out = {}
+    pw = vp["patch"]["w"]                          # (3·tp·p·p, d)
+    out[vs + "patch_embed.proj.weight"] = pw.t().reshape(
+        pw.shape[1], v.in_channels, v.temporal_patch_size, v.patch_size,
+        v.patch_size).contiguous().cpu()
+    if "b" in vp["patch"]:
+        out[vs + "patch_embed.proj.bias"] = vp["patch"]["b"].cpu()
+    _hf_norm(out, vs + "post_conv_layernorm", vp["post_conv_norm"])
+    out[vs + "embeddings.position_embedding.weight"] = \
+        vp["pos_embed"].contiguous().cpu()
+    blocks = vp["blocks"]
+    for i in range(blocks["qkv"]["w"].shape[0]):
+        b, at = f"{vs}blocks.{i}.", tree_at(blocks, i)
+        _hf_norm(out, b + "norm1", at["norm1"])
+        _hf_norm(out, b + "norm2", at["norm2"])
+        _hf_linear(out, b + "attn.qkv", at["qkv"])
+        _hf_linear(out, b + "attn.proj", at["proj"])
+        for name in ("gate", "up", "down"):
+            _hf_linear(out, f"{b}mlp.{name}_proj", at["mlp"][name])
+    _hf_norm(out, vs + "post_layernorm", vp["post_norm"])
+    out[vs + "downsample.weight"] = vp["downsample"]["w"].contiguous().cpu()
+    out[vs + "downsample.bias"] = vp["downsample"]["b"].cpu()
+    mg = vp["merger"]
+    _hf_linear(out, vs + "merger.proj", mg["proj"])
+    _hf_norm(out, vs + "merger.post_projection_norm", mg["post_norm"])
+    for name in ("gate", "up", "down"):
+        _hf_linear(out, f"{vs}merger.{name}_proj", mg[name])
+    lay = tp["layers"]
+    for i in range(lay["q"]["w"].shape[0]):
+        b, at = f"{ts}layers.{i}.", tree_at(lay, i)
+        for key, name in (("ln_in", "input_layernorm"),
+                          ("ln_mid", "post_attention_layernorm"),
+                          ("ln_post_attn", "post_self_attn_layernorm"),
+                          ("ln_post_mlp", "post_mlp_layernorm")):
+            _hf_norm(out, b + name, at[key])
+        for key, name in (*((n, f"self_attn.{n}_proj") for n in "qkvo"),
+                          ("gate_up", "mlp.gate_up_proj"),
+                          ("down", "mlp.down_proj")):
+            _hf_linear(out, b + name, at[key])
+    out[ts + "embed_tokens.weight"] = tp["embed"]["w"].contiguous().cpu()
+    _hf_norm(out, ts + "norm", tp["norm"])
+    if tp["lm_head"]["w"] is not tp["embed"]["w"]:
+        out["lm_head.weight"] = tp["lm_head"]["w"].contiguous().cpu()
+    _write_side_files(path, glm_ocr_config_json(cfg), tokenizer, generation,
+                      preprocessor)
+    _save(out, path)

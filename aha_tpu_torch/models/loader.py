@@ -4,14 +4,14 @@ models), the llama text families minicpm4 / minicpm5, the hybrid text
 families lfm2 (LFM2 / LFM2.5) and qwen3_5 (Qwen3.5: text, and image and
 video chat on a checkpoint with a vision tower), qwen2_5vl (Qwen2.5-VL
 image and video chat), qwen3vl (Qwen3-VL image and video chat),
-paddleocr_vl (PaddleOCR-VL document OCR), deepseek_ocr (DeepSeek-OCR and
-DeepSeek-OCR-2), lfm2vl (LFM2-VL image chat), the ASR families qwen3_asr
-(Qwen3-ASR), fun_asr_nano (Fun-ASR-Nano) and glm_asr_nano (GLM-ASR-Nano),
-voxcpm (VoxCPM text-to-speech), rmbg2_0 (RMBG-2.0 background removal),
-qwen3_embedding / qwen3_reranker and minilm (all-MiniLM-L6-v2); every
-other family (hunyuan_ocr, glm_ocr) raises NotImplementedError.
-The reference's option checks run first, before any weights load, with
-its strings."""
+the OCR families paddleocr_vl (PaddleOCR-VL), deepseek_ocr (DeepSeek-OCR
+and DeepSeek-OCR-2), hunyuan_ocr (HunyuanOCR) and glm_ocr (GLM-OCR),
+lfm2vl (LFM2-VL image chat), the ASR families qwen3_asr (Qwen3-ASR),
+fun_asr_nano (Fun-ASR-Nano) and glm_asr_nano (GLM-ASR-Nano), voxcpm
+(VoxCPM text-to-speech), rmbg2_0 (RMBG-2.0 background removal),
+qwen3_embedding / qwen3_reranker and minilm (all-MiniLM-L6-v2): every
+family of the registry.  The reference's option checks run first, before
+any weights load, with its strings."""
 
 from __future__ import annotations
 
@@ -97,6 +97,18 @@ def _deepseek_ocr(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     return DeepseekOCRChat.load(entry, path, **kw)
 
 
+def _hunyuan_ocr(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.hunyuan_ocr_served import HunyuanOCRChat
+
+    return HunyuanOCRChat.load(entry, path, **kw)
+
+
+def _glm_ocr(entry: ModelEntry, path: str, **kw) -> LoadedModel:
+    from aha_tpu_torch.models.glm_ocr_served import GlmOcrChat
+
+    return GlmOcrChat.load(entry, path, **kw)
+
+
 def _lfm2vl(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     from aha_tpu_torch.models.lfm2vl_served import Lfm2VLChat
 
@@ -142,6 +154,8 @@ FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
     "glm_asr_nano": _glm_asr_nano,
     "paddleocr_vl": _paddleocr_vl,
     "deepseek_ocr": _deepseek_ocr,
+    "hunyuan_ocr": _hunyuan_ocr,
+    "glm_ocr": _glm_ocr,
     "lfm2vl": _lfm2vl,
     "qwen2_5vl": _qwen2_5vl,
     "qwen3vl": _qwen3vl,
@@ -187,12 +201,4 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
         kw.pop("spec_tokens", None)
     if kw.get("spec_tokens", 0) == 0:
         kw.pop("spec_tokens", None)
-    loader = FAMILY_LOADERS.get(entry.family)
-    if loader is None:
-        raise NotImplementedError(
-            f"model family '{entry.family}' is not ported to aha_tpu_torch "
-            "yet (the Qwen3 chat, MiniCPM4/5, LFM2, Qwen3.5, Qwen2.5-VL, "
-            "Qwen3-VL, PaddleOCR-VL, DeepSeek-OCR, LFM2-VL, Qwen3-ASR, "
-            "Fun-ASR-Nano, GLM-ASR-Nano, VoxCPM, RMBG-2.0, Qwen3 embedding "
-            "and reranker, and all-MiniLM-L6-v2 models are)")
-    return loader(entry, path, **kw)
+    return FAMILY_LOADERS[entry.family](entry, path, **kw)

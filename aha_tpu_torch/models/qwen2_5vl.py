@@ -444,11 +444,14 @@ class Qwen2_5VLModel:
 
 def mm_to(mm: dict[str, Any], device: torch.device) -> dict[str, Any]:
     """The host-built `mm` (numpy arrays, an int rope_delta) as tensors on
-    `device`: int32 indices, float32 patches."""
+    `device`: int32 indices, float32 patches; anything that is no array
+    (HunyuanOCR's grids) stays on the host."""
     out = {}
     for name, a in mm.items():
         if name == "rope_delta":
             out[name] = int(a)
-        else:
+        elif isinstance(a, np.ndarray):
             out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        else:
+            out[name] = a
     return out

@@ -4,8 +4,7 @@ port's copy of aha_tpu/registry.py, entry for entry).
 Equivalent of the reference's `WhichModel` enum
 (src/models/common/model_mapping.rs:3-189).  Each entry records the
 ModelScope/HF id, the serving category, and which implementation family
-loads it (models/loader.py serves every family but hunyuan_ocr and
-glm_ocr).
+loads it (models/loader.py serves every family).
 """
 
 from __future__ import annotations

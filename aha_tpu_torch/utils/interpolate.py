@@ -10,8 +10,10 @@ product for a 1-D mode, two for a 2-D one.  The same weights as the JAX
 package's, so both give the same values.
 
 Supported: linear / bilinear with align_corners False or True (RMBG-2.0's
-decoder resizes take True: source coordinates i·(in − 1)/(out − 1)), and
-bicubic with antialias (the rel-pos tables and the position tables).
+decoder resizes take True: source coordinates i·(in − 1)/(out − 1)),
+bicubic with antialias (the rel-pos tables and the position tables), and
+bicubic without it (GLM-OCR's position table: torch's a = -0.75 kernel
+over 4 taps, source indices clamped at the border).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def resize_weights_1d(in_size: int, out_size: int, mode: str = "linear",
 
 def _weights(in_size: int, out_size: int, mode: str, antialias: bool,
              align_corners: bool) -> np.ndarray:
-    if (mode not in ("linear", "cubic") or (mode == "cubic" and not antialias)
+    if (mode not in ("linear", "cubic")
             or (align_corners and (mode != "linear" or antialias))):
         raise ValueError(f"unsupported resize: {mode!r}, "
                          f"antialias={antialias}, "
@@ -72,13 +74,23 @@ def _weights(in_size: int, out_size: int, mode: str, antialias: bool,
                 row = row / s
             w[i, lo:hi] = row
         return w
-    # torch area_pixel_compute_source_index, clamped as the linear modes do
+    # torch area_pixel_compute_source_index
     i = np.arange(out_size, dtype=np.float64)
     if align_corners:
         coords = (i * (in_size - 1) / (out_size - 1) if out_size > 1
                   else np.zeros(out_size))
     else:
         coords = (i + 0.5) * scale - 0.5
+    if mode == "cubic":
+        # 4 taps around floor(coords), unclamped coords, the taps' indices
+        # clamped to the border
+        x0 = np.floor(coords).astype(np.int64)
+        t = coords - x0
+        for k in range(-1, 3):
+            np.add.at(w, (np.arange(out_size),
+                          np.clip(x0 + k, 0, in_size - 1)),
+                      _cubic_kernel(t - k, -0.75))
+        return w
     coords = np.clip(coords, 0.0, in_size - 1)
     x0 = np.floor(coords).astype(np.int64)
     x1 = np.minimum(x0 + 1, in_size - 1)

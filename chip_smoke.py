@@ -3,8 +3,8 @@
 LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
 and Qwen3.5 image and video chat, PaddleOCR-VL and DeepSeek-OCR document
 OCR, LFM2-VL image chat, Qwen3-ASR / Fun-ASR-Nano speech recognition,
-VoxCPM text-to-speech and RMBG-2.0 background removal paths once on one
-CUDA card.
+VoxCPM text-to-speech, RMBG-2.0 background removal, and HunyuanOCR and
+GLM-OCR document OCR paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -284,6 +284,31 @@ before the last line:
     in a child: POST /images/remove_background with two images answers two
     PNGs equal to the in-process served model's, and `run --output`
     writes them.
+20. hunyuan — (af) HunyuanOCR at the JAX package's defaults (tower 27
+    blocks at 1152, 16 heads of 72, patch 16, merge 2, out 1024; decoder
+    24 layers at 1024, 16/8 heads of 128, vocab 120818, tied; ≈ 1 B
+    params) with seeded bf16 weights through TextEngine without a prefix
+    store, as served: (af1) an A4 page at 150 dpi (8,580 patches in the
+    9,216 bucket, 2,202 image tokens), (af2) a 1024 x 1024 image (4,096
+    patches, 1,058 image tokens), (af3) a 200-token text-only request, 64
+    greedy tokens each: the prefill kernel 24 a prefill of ≥ 128 rows, row
+    8 24 a step, never the fused stack or the flat decode; TTFT, the tower
+    wall and device, decode ms/step and a block's idle share; the position
+    resample's host and device ms in the port's separable form and the JAX
+    package's dense one; the tower's plain attention at (af1)'s bucket
+    beside masked sdpa and its share of the tower; a 200-dpi page refused
+    before any launch; 8 teacher-forced steps of (af2) at 4 tower blocks
+    and 4 layers against the f32 plain path on the CPU; the kernel phase
+    also holds row 8 at G 2 (L 24, S 4,096, 16/8 of 128, 2,230 live);
+21. ocr2-http — HunyuanOCR cut to 4 + 4 written by save_hf_hunyuan_ocr and
+    GLM-OCR at the JAX defaults cut to 2 vision blocks and 2 text layers
+    (out_hidden_size 2048, vocab 59,392: not a published geometry) written
+    by save_hf_glm_ocr, served by `python -m aha_tpu_torch serv <dir>
+    --model <id>` in two children started together under -X importtime:
+    an image chat, non-stream and streamed, equal to the in-process served
+    model's reply, whose run launches the prefill kernel once a layer and
+    row 8 every step; `run <dir> --model <id> --input page.png` of each in
+    a child, equal to the in-process answer under the family's prompt.
 
 Every engine path runs its decode blocks as replays of captured CUDA
 graphs (core/graphs.py), the engines' default on the card, and once more
@@ -304,8 +329,8 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON lines of the siglip, the dsocr, the asr, the tts and the rmbg
-readings, one JSON line of per-kernel results,
+JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg and the
+ocr2 readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -2052,6 +2077,21 @@ def check_dsocr_attention() -> None:
         check_stacked_at(key, "DeepSeek-OCR", c, 19 + i)
 
 
+#: row 8 at HunyuanOCR's decoder (24 layers, 16 heads of 128 over 8: G 2,
+#: GLM-OCR's group too) in (af1)'s 4,096-row cache, (af1)'s page prompt
+#: live
+HUNYUAN_DECODE = {"hunyuan_g2": dict(L=24, S=4096, Hq=16, Hkv=8, D=128,
+                                     valid=2230)}
+
+
+def check_hunyuan_decode() -> None:
+    """Row 8 at G 2: HUNYUAN_DECODE against its plain version, a live
+    length off by one past the bound; timed beside plain, the bound and
+    sdpa over the live rows."""
+    for key, c in HUNYUAN_DECODE.items():
+        check_stacked_at(key, "HunyuanOCR (G 2)", c, 24)
+
+
 def _planted_decode_cache(g, L: int, S: int, Hq: int, Hkv: int, D: int,
                           valid: int, dtype: torch.dtype = torch.bfloat16):
     """q and a (L, 1, S, Hkv, D) cache at N(0, 1) in `dtype`, with one key
@@ -2396,6 +2436,7 @@ def phase_kernels() -> None:
     # row 1 at ERNIE-4.5's 16/2 heads of 128: (y1)'s page prompt, 4096
     check_prefill(4096, True, timed=True, Hkv=2)
     check_dsocr_attention()
+    check_hunyuan_decode()
     check_decode_f32()
     check_fused_layer()
     torch.cuda.synchronize()
@@ -3734,15 +3775,17 @@ def _hybrid_model(family: str, device: str, layers: int | None = None):
                                 max_rope_len=8192, device=device)
 
 
-def _block_idle(eng, ids: list[int], device: str) -> dict:
+def _block_idle(eng, ids: list[int], device: str,
+                cache_len: int = 512) -> dict:
     """One 16-step greedy decode block of a TextEngine from the prefilled
-    prompt (the replay of its graph, or the eager steps): wall, device busy
-    and idle share (profile_decode's reading)."""
+    prompt (text only; the replay of its graph, or the eager steps) in a
+    `cache_len`-row cache: wall, device busy and idle share
+    (profile_decode's reading)."""
     from aha_tpu_torch.core.engine import bucket_for
     from aha_tpu_torch.core.sampling import SamplingConfig
     from aha_tpu_torch.utils.profile_decode import _read
 
-    st = eng._take(512)
+    st = eng._take(cache_len)
     greedy = SamplingConfig()
 
     def block():
@@ -7325,6 +7368,465 @@ def phase_http_rmbg(rmbg: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- 20. ocr2: HunyuanOCR (af) and GLM-OCR -------------------------------------
+
+#: greedy tokens a (af) request
+HY_TOKENS = 64
+#: the teacher-forced check's depths at full width: tower blocks, layers
+HY_CUT = dict(depth=4, layers=4)
+#: the served checkpoints' depths at full width: HunyuanOCR's (af) weights
+#: cut, GLM-OCR's JAX defaults cut
+HY_SERVE = dict(depth=4, layers=4)
+GLM_SERVE = dict(depth=2, layers=2)
+HY_MODEL = "Tencent-Hunyuan/HunyuanOCR"
+GLM_MODEL = "ZhipuAI/GLM-OCR"
+#: GLM-OCR's served vocabulary: the JAX defaults' 59,264 rows stop short of
+#: its own image id 59,280; 59,392 covers every fixed id of the prompt frame
+GLM_VOCAB = 59392
+#: per path: TTFT, the tower (wall and device), decode ms/step graphed and
+#: eager, a decode block's idle share; the position resample's two forms;
+#: the tower's attention; the served checks (one JSON line before the
+#: kernels line)
+OCR2_READINGS: dict[str, dict] = {}
+
+
+def _hy_request(cfg, w: int, h: int, seed: int) -> dict:
+    """A seeded w x h image through HunyuanOCR's served processing (smart
+    resize at factor 32 with PIL's bicubic, 0.5 / 0.5 normalization,
+    row-major patches, the patch bucket, the merge and token gathers, the
+    4-channel position ids), its ph·(pw + 1) + 2 image ids between seeded
+    text ids standing in for the task prompt's tokens (no tokenizer of the
+    published vocabulary is in the repository); the host inputs
+    (numpy)."""
+    from aha_tpu_torch.models.hunyuan_ocr_served import (build_mm,
+                                                         image_patches)
+
+    patches, grid = image_patches(_rgb(w, h, seed), cfg.vision, {})
+    n_img = (grid[1] // 2) * (grid[2] // 2 + 1) + 2
+    rng = np.random.default_rng(seed)
+    ids = (_prompt(rng, 8, 100000) + [cfg.image_token_id] * n_img
+           + _prompt(rng, 20, 100000))
+    return {"ids": ids, "mm": build_mm([patches], [grid], ids, cfg),
+            "grid": grid, "n_img": n_img, "patches": len(patches)}
+
+
+def _hy_pos_resample(model, params: dict, req: dict, device: str) -> dict:
+    """The tower's position rows at a request's grid in the port's form
+    (two 1-D resize weights built on the host, two products on the card)
+    and in the JAX package's (the dense (N, g²) float64 outer product cast
+    and padded to the bucket on the host, one float32 product on the
+    card): host ms and device ms of each, and their largest difference
+    relative to max |dense|."""
+    from aha_tpu_torch.models.hunyuan_ocr import (hunyuan_pos_embed,
+                                                  hunyuan_pos_weights)
+    from aha_tpu_torch.utils.interpolate import resize_weights_1d
+
+    g = model.config.vision.table_grid
+    grids, nb = [req["grid"]], req["mm"]["patches"].shape[0]
+    resize_weights_1d.cache_clear()
+    t0 = time.perf_counter()
+    (wh, ww), = hunyuan_pos_weights(grids, g)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    w64h = resize_weights_1d(g, grids[0][1], "linear")
+    w64w = resize_weights_1d(g, grids[0][2], "linear")
+    outer = (w64h[:, None, :, None] * w64w[None, :, None, :]).reshape(
+        -1, g * g)
+    dense = np.zeros((nb, g * g), np.float32)
+    dense[:len(outer)] = outer
+    dense_host_ms = (time.perf_counter() - t0) * 1e3
+    del outer
+    table = params["visual"]["pos_embed"]
+    wh_t, ww_t = (torch.from_numpy(a).to(device) for a in (wh, ww))
+    r = torch.from_numpy(dense).to(device)
+    del dense
+
+    def sep():
+        return hunyuan_pos_embed(table, wh_t, ww_t, grids, nb, g)
+
+    def full():
+        return r @ table.float()
+
+    a, b = sep(), full()
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    out = {"host_ms": host_ms, "dense_host_ms": dense_host_ms,
+           "rel_err_vs_dense": err}
+    if device == "cuda":
+        out["device_ms"] = device_ms(sep, iters=5)
+        out["dense_device_ms"] = device_ms(full, iters=5)
+    del r, a, b
+    return out
+
+
+def _hy_tower_attention_ms(cfg, mm: dict, device: str) -> dict:
+    """The tower's attention (plain masked sdpa in float32, as the
+    reference computes it outside any Pallas kernel) at a request's patch
+    bucket: device ms of the port's call and of
+    F.scaled_dot_product_attention with the same additive mask, and the
+    bound over the real pairs (float32 operations)."""
+    from aha_tpu_torch.ops.attention import sdpa
+
+    mask = mm["patch_mask"]                        # (1, 1, 1, N)
+    N = mask.shape[-1]
+    v = cfg.vision
+    H = v.num_attention_heads
+    D = v.hidden_size // H
+    g = torch.Generator(device=device).manual_seed(8)
+    q, k, val = (torch.randn((1, N, H, D), generator=g, device=device)
+                 for _ in range(3))
+    ms = device_ms(lambda: sdpa(q, k, val, mask), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, val))
+    lib_ms = device_ms(lambda: _sdpa(qt, kt, vt, attn_mask=mask), iters=3,
+                       warmup=1)
+    real = int((mask == 0).sum().item())
+    b = bound(N * H * D * 4 * 4, 4.0 * H * D * real * real, "f32")
+    return {"ms": ms, "library_ms": lib_ms, "bound_ms": b[0],
+            "bound_by": b[1], "at": f"N={N} ({real} real) H={H} D={D} "
+            f"float32, additive key mask"}
+
+
+def phase_hunyuan(device: str = "cuda") -> dict:
+    """(af) HunyuanOCR at the JAX package's defaults (tower 27 blocks at
+    1152, 16 heads of 72, patch 16, merge 2, out 1024; decoder 24 layers
+    at 1024, 16/8 heads of 128, vocab 120818, tied) with seeded bf16
+    weights on the card through TextEngine without a prefix store, as
+    served: (af1) an A4 page at 150 dpi (1240 x 1754 → 1248 x 1760, 8,580
+    patches in the 9,216 bucket, 2,202 image tokens), (af2) a 1024 x 1024
+    image (4,096 patches, 1,058 image tokens), (af3) a 200-token text-only
+    request, 64 greedy tokens each: the prefill kernel 24 a prefill of ≥
+    128 rows, row 8 24 a step, never the fused stack or the flat decode;
+    a 200-dpi page refused before any launch; the position resample's two
+    forms and the tower's attention timed; 8 teacher-forced steps of (af2)
+    at HY_CUT against the CPU.  Returns the cut parameters for the HTTP
+    phase."""
+    from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.hunyuan_ocr import (HunyuanOCRModel,
+                                                  hunyuan_ocr_default)
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+
+    greedy, n = SamplingConfig(), HY_TOKENS
+    cfg = hunyuan_ocr_default()
+    v = cfg.vision
+    require((cfg.num_attention_heads, cfg.num_key_value_heads,
+             cfg.head_dim) == (16, 8, 128),
+            "HunyuanOCR's heads are not 16/8 of 128")
+    model = HunyuanOCRModel(cfg, max_rope_len=8192, device=device)
+    t0 = time.perf_counter()
+    params = model.init_random(torch.Generator(device=device).manual_seed(22),
+                               dtype=torch.bfloat16)
+    _sync(device)
+    n_vis = sum(t.numel() for t in _leaves(params["visual"]))
+    n_all = sum(t.numel() for t in _leaves(params)) - \
+        params["lm_head"]["w"].numel()
+    log(f"[hunyuan] (af) HunyuanOCR at the JAX defaults: tower "
+        f"{v.num_hidden_layers} blocks at {v.hidden_size} (16 heads of 72, "
+        f"patch {v.patch_size}, a {v.table_grid}² position table, merge "
+        f"{v.spatial_merge_size}), decoder {cfg.num_hidden_layers} layers at "
+        f"{cfg.hidden_size} (16/8 heads of 128), V={cfg.vocab_size}, tied: "
+        f"{n_all / 1e9:.3f} B bf16 params ({n_vis / 1e6:.1f} M in the "
+        f"tower) seeded on the card in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+    wr = zero_counts()
+    try:
+        _hy_request(cfg, 1654, 2339, 4)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    require("15184 patches" in refused and "9216" in refused
+            and all(fn.launches == 0 for fn in wr.values()),
+            f"a 200-dpi page: {refused or 'not refused'}")
+    log(f"[hunyuan] a 200-dpi A4 page (1654 x 2339) refused before any "
+        f"launch: {refused}")
+    reqs = {"af1": _hy_request(cfg, 1240, 1754, 1),
+            "af2": _hy_request(cfg, 1024, 1024, 2),
+            "af3": {"ids": _prompt(np.random.default_rng(3), 200, 100000),
+                    "mm": None}}
+    a1, a2 = reqs["af1"], reqs["af2"]
+    require(a1["grid"] == (1, 110, 78) and a1["patches"] == 8580
+            and a1["mm"]["patches"].shape[0] == 9216 and a1["n_img"] == 2202,
+            f"(af1): grid {a1['grid']}, {a1['n_img']} image tokens")
+    require(a2["grid"] == (1, 64, 64) and a2["patches"] == 4096
+            and a2["n_img"] == 1058, f"(af2): grid {a2['grid']}")
+    warm = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    for r in (a1, a2):
+        warm.generate_tokens(r["ids"], greedy, max_tokens=4,
+                             mm=mm_to(r["mm"], torch.device(device)))
+    del warm
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    eager = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
+                       cuda_graphs=False)
+    L = cfg.num_hidden_layers
+    must = ("flash_attention", "flash_decode_at_layer")
+    want = {"flash_attention": L, "flash_decode_at_layer": L * n,
+            "flash_attention_segmented": 0, "fused_decode_stack": 0,
+            "flash_decode_at_layer_flat": 0, "head_argmax": 0}
+    outs = {}
+    for tag, what in (("af1", "A4 page at 150 dpi (1240 x 1754 → 1248 x "
+                              "1760), 8580 patches (bucket 9216), 2202 "
+                              "image tokens"),
+                      ("af2", "1024 x 1024 image, 4096 patches, 1058 image "
+                              "tokens"),
+                      ("af3", "200-token text-only request")):
+        r = reqs[tag]
+        mm = None if r["mm"] is None else mm_to(r["mm"], torch.device(device))
+        r["mm_dev"] = mm
+        tower = tower_dev = None
+        if mm is not None:
+            tower = _wall_ms(lambda: model.encode_vision(params["visual"],
+                                                         mm), device)
+            if device == "cuda":
+                tower_dev = device_ms(lambda: model.encode_vision(
+                    params["visual"], mm), iters=2, warmup=1)
+        outs[tag] = _vl3_path(tag, what, eng, eager, r, greedy, must, want,
+                              device, tower, n=n, phase="hunyuan",
+                              readings=OCR2_READINGS)
+        rd = OCR2_READINGS[tag]
+        rd["tower_device_ms"] = tower_dev
+        idle = _block_idle(eng, r["ids"], device, bucket_for(
+            len(r["ids"]) + 17, CACHE_BUCKETS))
+        rd["block"] = idle
+        if device == "cuda":
+            log(f"[hunyuan] ({tag}) TTFT {rd['ttft_ms']:.2f} ms"
+                + (f", tower wall {tower:.2f} / device {tower_dev:.2f} ms"
+                   if tower is not None else "")
+                + f"; decode {rd['decode_ms_per_step_graphed']:.3f} ms/step "
+                f"graphed; a 16-step block at {len(r['ids'])} rows: wall "
+                f"{idle['wall_ms']:.2f} ms, device busy "
+                f"{idle['device_busy_ms']:.2f} ms, idle share "
+                f"{idle['idle_share']:.3f} | {card_line()}")
+        if r["mm"] is not None:
+            rs = _hy_pos_resample(model, params, r, device)
+            rd["pos_resample"] = rs
+            log(f"[hunyuan] ({tag}) position resample: host "
+                f"{rs['host_ms']:.3f} ms for two 1-D weights vs "
+                f"{rs['dense_host_ms']:.1f} ms for the dense (N, g²) matrix"
+                + (f"; device {rs['device_ms']:.4f} ms vs "
+                   f"{rs['dense_device_ms']:.4f} ms" if "device_ms" in rs
+                   else "")
+                + f"; {rs['rel_err_vs_dense']:.2e} of max |dense|")
+            require(rs["rel_err_vs_dense"] <= 1e-5,
+                    f"({tag}) separable positions off the dense form")
+    if device == "cuda":
+        att = _hy_tower_attention_ms(cfg, reqs["af1"]["mm_dev"], device)
+        att["share_of_tower"] = (v.num_hidden_layers * att["ms"]
+                                 / OCR2_READINGS["af1"]["tower_device_ms"])
+        OCR2_READINGS["af_tower_attention"] = att
+        log(f"[hunyuan] (af1) the tower's plain masked attention, one block: "
+            f"device ms {att['ms']:.4f}, masked sdpa {att['library_ms']:.4f}, "
+            f"bound {att['bound_ms']:.4f} ({att['bound_by']}) at {att['at']}; "
+            f"{v.num_hidden_layers} blocks = {att['share_of_tower']:.1%} of "
+            f"the tower's device time | {card_line()}")
+    del eng, eager
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cut_cfg = hunyuan_ocr_default(**HY_CUT)
+    small = {**params, "layers": params["layers"][:HY_CUT["layers"]],
+             "visual": {**params["visual"], "blocks": _tree_map(
+                 lambda t: t[:HY_CUT["depth"]], params["visual"]["blocks"])}}
+    _vl3_teacher_forced(
+        "af2", HunyuanOCRModel, cut_cfg, small, reqs["af2"], outs["af2"][:8],
+        device, {"flash_attention": HY_CUT["layers"],
+                 "flash_decode_at_layer": 8 * HY_CUT["layers"]},
+        phase="hunyuan",
+        cut=f"{HY_CUT['depth']} tower blocks and {HY_CUT['layers']} decoder "
+            f"layers, (af2)'s image")
+    return small
+
+
+#: HunyuanOCR's preprocessor_config as the checkpoint writes it (the JAX
+#: processor's defaults)
+HY_PREPROCESSOR = {"min_pixels": 32 * 32, "max_pixels": 16384 * 28 * 28,
+                   "patch_size": 16, "merge_size": 2,
+                   "image_mean": [0.5] * 3, "image_std": [0.5] * 3}
+
+
+def _ocr2_checkpoints(hy_small: dict, tmp_hy: str, tmp_glm: str) -> dict:
+    """The two served checkpoints, each with the test tokenizer (HunyuanOCR
+    with its two placeholder tokens) and the embedding rows past it zeroed
+    (so replies decode to text): HunyuanOCR's (af) weights cut to HY_SERVE
+    by save_hf_hunyuan_ocr, and GLM-OCR at the JAX defaults cut to
+    GLM_SERVE, with out_hidden_size set to the text's 2048 and a vocabulary
+    of GLM_VOCAB (not a published geometry: the defaults cannot splice an
+    image) by save_hf_glm_ocr; returns each one's config."""
+    import dataclasses
+
+    from tokenizers import AddedToken
+
+    from aha_tpu_torch.io.weights import save_hf_glm_ocr, save_hf_hunyuan_ocr
+    from aha_tpu_torch.models.glm_ocr import (GlmOcrConfig, GlmOcrModel,
+                                              GlmOcrTextConfig,
+                                              GlmOcrVisionConfig)
+    from aha_tpu_torch.models.hunyuan_ocr import hunyuan_ocr_default
+    from aha_tpu_torch.models.hunyuan_ocr_served import (IMAGE_TOKEN,
+                                                         PLACEHOLDER)
+
+    _, tok = _smoke_tokenizer(tmp_hy)
+    tok.add_tokens([AddedToken(IMAGE_TOKEN, normalized=False),
+                    AddedToken(PLACEHOLDER, normalized=False)])
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    eos = tok.token_to_id("<|im_end|>")
+    hy_cfg = dataclasses.replace(hunyuan_ocr_default(**HY_SERVE),
+                                 image_token_id=tok.token_to_id(IMAGE_TOKEN))
+    t0 = time.perf_counter()
+    save_hf_hunyuan_ocr(_text_rows_zeroed(hy_small, vocab), hy_cfg, tok,
+                        tmp_hy, generation={"eos_token_id": [eos]},
+                        preprocessor=HY_PREPROCESSOR)
+    log(f"[ocr2-http] {HY_MODEL} checkpoint: (af)'s weights cut to "
+        f"{HY_SERVE['depth']} tower blocks and {HY_SERVE['layers']} decoder "
+        f"layers at full width, written by save_hf_hunyuan_ocr in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    _, gtok = _smoke_tokenizer(tmp_glm)
+    gvocab = gtok.get_vocab_size(with_added_tokens=True)
+    text = dataclasses.replace(GlmOcrTextConfig(), vocab_size=GLM_VOCAB,
+                               num_hidden_layers=GLM_SERVE["layers"])
+    glm_cfg = GlmOcrConfig(
+        vision=dataclasses.replace(GlmOcrVisionConfig(),
+                                   depth=GLM_SERVE["depth"],
+                                   out_hidden_size=text.hidden_size),
+        text=text)
+    t0 = time.perf_counter()
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    glm = GlmOcrModel(glm_cfg, device=dev)
+    gp = glm.init_random(torch.Generator(device=dev).manual_seed(23),
+                         dtype=torch.bfloat16)
+    gp = {**gp, "text": _text_rows_zeroed(gp["text"], gvocab)}
+    save_hf_glm_ocr(gp, glm_cfg, gtok, tmp_glm,
+                    generation={"eos_token_id": [gtok.token_to_id(
+                        "<|im_end|>")]})
+    del glm, gp
+    log(f"[ocr2-http] {GLM_MODEL} checkpoint: NOT a published geometry — "
+        f"the JAX defaults (tower 1024 wide, 8 heads of 128; text 2048 wide, "
+        f"16/8 heads of 128, partial interleaved M-RoPE) cut to "
+        f"{GLM_SERVE['depth']} tower blocks and {GLM_SERVE['layers']} text "
+        f"layers, out_hidden_size 2048 (the defaults' 1536 cannot splice "
+        f"into 2048), vocab {GLM_VOCAB}; seeded and written by "
+        f"save_hf_glm_ocr in {time.perf_counter() - t0:.1f} s (set-up)")
+    return {"hy": hy_cfg, "glm": glm_cfg}
+
+
+def _ocr2_served_check(base: str, served, model_id: str, body: dict,
+                       what: str, layers: int) -> None:
+    """The in-process served model's reply to `body` (its counts zeroed
+    before: the prefill kernel `layers` times for a prompt bucket of ≥ 128
+    rows, row 8 `layers` a decode step), then the child's non-stream reply
+    equal to it and the child's streamed deltas equal to the in-process
+    model's stream (a stream holds back a partial UTF-8 sequence that the
+    whole reply decodes to U+FFFD)."""
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    wr = zero_counts()
+    want = served.generate(ChatCompletionParameters.model_validate(body))
+    _sync("cuda" if torch.cuda.is_available() else "cpu")
+    counts = read_counts(wr, f"ocr2-http {model_id}",
+                         ("flash_attention", "flash_decode_at_layer"))
+    require(counts["flash_attention"] == layers
+            and counts["flash_decode_at_layer"] % layers == 0
+            and counts["fused_decode_stack"] == 0
+            and counts["flash_decode_at_layer_flat"] == 0,
+            f"{what}: in-process launches {counts}")
+    content = want.choices[0].message.content
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": False})
+    require(status == 200, f"{what}: {text[-500:]}")
+    got = json.loads(text)
+    require(got["choices"][0]["message"]["content"] == content
+            and got["usage"]["prompt_tokens"] == want.usage.prompt_tokens,
+            f"{what}: served {got['choices'][0]['message']['content']!r} vs "
+            f"in-process {content!r}")
+    status, text = _post(base + "/v1/chat/completions",
+                         {**body, "stream": True})
+    events = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
+    require(status == 200 and events and events[-1] == "[DONE]",
+            f"{what} stream: {text[-500:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    streamed = "".join((ch.get("delta") or {}).get("content") or ""
+                       for c in chunks for ch in c.get("choices") or [])
+    local = list(served.generate_stream(
+        ChatCompletionParameters.model_validate({**body, "stream": True})))
+    local_text = "".join(ch.delta.content or "" for c in local
+                         for ch in c.choices or [])
+    require(streamed == local_text and chunks[-1]["usage"]["prompt_tokens"]
+            == local[-1].usage.prompt_tokens == want.usage.prompt_tokens,
+            f"{what} stream: {streamed!r} vs in-process {local_text!r}")
+    log(f"[ocr2-http] {what}: {want.usage.prompt_tokens}-token prompt; "
+        f"non-stream and stream replies equal to the in-process model's "
+        f"({want.usage.completion_tokens} tokens; in-process launches: "
+        f"prefill kernel {counts['flash_attention']}, row 8 "
+        f"{counts['flash_decode_at_layer']})")
+    OCR2_READINGS.setdefault("served", {})[model_id] = {
+        "prompt_tokens": want.usage.prompt_tokens,
+        "completion_tokens": want.usage.completion_tokens,
+        "launches": {k: counts[k] for k in ("flash_attention",
+                                            "flash_decode_at_layer")}}
+
+
+def phase_http_ocr2(hy_small: dict) -> None:
+    """The two OCR2 checkpoints served by `python -m aha_tpu_torch serv <dir>
+    --model <id>` in children started together under -X importtime (no jax
+    or aha_tpu module): an image chat, non-stream and streamed, each equal
+    to the in-process served model's reply (under the children's TF32
+    flags), whose run must launch the prefill kernel once a layer and row
+    8 every step; then `run <dir> --model <id> --input page.png` in a child
+    beside the servers, its answer under the family's prompt equal to the
+    in-process one."""
+    from aha_tpu_torch.cli import _OCR_PROMPTS
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="aha_torch_hy_") as t_hy, \
+                tempfile.TemporaryDirectory(prefix="aha_torch_glm_") as t_glm, \
+                contextlib.ExitStack() as runs:
+            cfgs = _ocr2_checkpoints(hy_small, t_hy, t_glm)
+            png = os.path.join(t_hy, "page.png")
+            _rgb(448, 448, 24).save(png)
+            kinds = (("hy", t_hy, HY_MODEL, "hunyuan_ocr",
+                      cfgs["hy"].num_hidden_layers),
+                     ("glm", t_glm, GLM_MODEL, "glm_ocr",
+                      cfgs["glm"].text.num_hidden_layers))
+            children = {k: runs.enter_context(_run_beside(
+                tmp, tmp, "--model", mid, "--input", png, "--max-tokens",
+                "16", "--max-seq-len", "2048")) for k, tmp, mid, _, _ in kinds}
+            served = {k: load_model(mid, tmp, max_seq_len=2048)
+                      for k, tmp, mid, _, _ in kinds}
+            with _servers(*((tmp, ("--model", mid))
+                            for _, tmp, mid, _, _ in kinds)) as bases:
+                for base, (k, _, mid, family, layers) in zip(bases, kinds):
+                    body = {"model": mid, "max_tokens": 16,
+                            "temperature": 0.0, "messages": [{
+                                "role": "user", "content": [
+                                    {"type": "image_url", "image_url": {
+                                        "url": _png_data_url(448, 448, 25)}},
+                                    {"type": "text",
+                                     "text": _OCR_PROMPTS[family]}]}]}
+                    _ocr2_served_check(base, served[k], mid, body,
+                                       f"{mid} 448 x 448 image chat", layers)
+            for k, _, mid, family, _ in kinds:
+                want = served[k].generate(ChatCompletionParameters
+                                          .model_validate({
+                    "model": mid, "max_tokens": 16, "messages": [{
+                        "role": "user", "content": [
+                            {"type": "image_url",
+                             "image_url": {"url": f"file://{png}"}},
+                            {"type": "text",
+                             "text": _OCR_PROMPTS[family]}]}]}))
+                lines, secs = _run_lines(children[k], mid)
+                require("\n".join(lines) == want.choices[0].message.text(),
+                        f"run {mid} printed {lines!r}")
+                log(f"[ocr2-http] `run` of {mid} answered a 448 x 448 page "
+                    f"under the family's prompt as the in-process model does "
+                    f"({secs:.1f} s, load included, beside the served child)")
+            del served
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -7384,6 +7886,10 @@ def main() -> int:
     rmbg = timed("rmbg", phase_rmbg)
     timed("rmbg-http", phase_http_rmbg, rmbg)
     del rmbg
+    torch.cuda.empty_cache()
+    hy = timed("hunyuan", phase_hunyuan)
+    timed("ocr2-http", phase_http_ocr2, hy)
+    del hy
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
         f"{json.dumps(secs)}")
     require("jax" not in sys.modules and not any(
@@ -7398,6 +7904,7 @@ def main() -> int:
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
                     "page", "fun_asr", "ernie", *DSOCR_DECODE, *VOX_DECODE,
+                    *HUNYUAN_DECODE,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -7411,6 +7918,7 @@ def main() -> int:
     print(json.dumps({"asr": ASR_READINGS}))
     print(json.dumps({"tts": TTS_READINGS}))
     print(json.dumps({"rmbg": RMBG_READINGS}))
+    print(json.dumps({"ocr2": OCR2_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

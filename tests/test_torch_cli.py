@@ -189,10 +189,21 @@ def test_run_answers_as_the_served_model(repo, monkeypatch, capsys, spec):
     assert answer == want and answer
 
 
-def test_run_refuses_an_unported_model_type(repo, tmp_path):
-    with pytest.raises(NotImplementedError):
-        cli.main(["run", repo, "--model", "Tencent-Hunyuan/HunyuanOCR",
-                  "--input", "hi"])
+@pytest.mark.parametrize("family", sorted({m.family for m in model_list()}))
+def test_every_registry_family_has_a_loader(family):
+    """Every family of the registry is served: it has a loader, each of
+    its ids' model types a `run` branch, and an OCR family its default
+    prompt, the JAX CLI's."""
+    from aha_tpu.cli.main import _OCR_PROMPTS as JAX_OCR_PROMPTS
+    from aha_tpu_torch.models.loader import FAMILY_LOADERS
+
+    assert family in FAMILY_LOADERS
+    for m in model_list():
+        if m.family != family:
+            continue
+        assert m.model_type in cli.RUN_TYPES
+        if m.model_type == "ocr":
+            assert cli._OCR_PROMPTS[family] == JAX_OCR_PROMPTS[family]
 
 
 def test_run_transcribes_an_asr_models_input(tmp_path, monkeypatch, capsys):

@@ -2248,3 +2248,45 @@ def test_decode_refuses_other_cache_dtypes(dev):
         with pytest.raises(ValueError):
             fa.flash_decode_at_layer(q, kv, kv, layer, vl)
     assert fa.flash_decode_at_layer.launches == n0
+
+
+@pytest.mark.parametrize("B,lens", [(1, (2230,)), (2, (300, 2230))],
+                         ids=["B1", "ragged-B2"])
+def test_stacked_decode_at_hunyuan_group_2(dev, B, lens):
+    """Row 8 at HunyuanOCR's and GLM-OCR's decoders: the 5-D cache at 16
+    query heads over 8 (G 2), D 128, (af1)'s page prompt live (about 2,230
+    of 4,096 rows), one slot and ragged B 2: within 2e-2 of the f32 plain
+    version, a live length off by one past it (a planted key at the last
+    live row, a stronger one just past it), each slot bit-equal to a B = 1
+    launch on that slot alone."""
+    from aha_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    L, S, Hq, Hkv, D = 3, 4096, 16, 8, 128
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev)
+    k = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    for b, n in enumerate(lens):
+        u = q[b].reshape(Hkv, 2, D).sum(1)
+        u = u / u.norm(dim=-1, keepdim=True)
+        k[:, b, n - 1] = 21 * u
+        k[:, b, n] = 63 * u
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for li in (0, L - 1):
+        layer = torch.tensor(li, dtype=torch.int32, device=dev)
+        n0 = fa.flash_decode_at_layer.launches
+        got = fa.flash_decode_at_layer(q, k, v, layer, vl)
+        assert fa.flash_decode_at_layer.launches == n0 + 1
+        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
+                                             layer, vl)
+        torch.cuda.synchronize()
+        assert (got.float() - ref).abs().max().item() <= 2e-2
+        for off in (-1, 1):
+            bad = fa.flash_decode_at_layer(q, k, v, layer, vl + off)
+            assert (bad.float() - ref).abs().max().item() > 2e-2
+        for b in range(B):
+            one = fa.flash_decode_at_layer(
+                q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
+            assert torch.equal(one, got[b:b + 1]), f"slot {b}"

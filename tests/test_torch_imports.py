@@ -61,6 +61,20 @@ TTS_IMAGE_MODULES = ("aha_tpu_torch.ops.conv",
                      "aha_tpu_torch.utils.interpolate")
 
 
+#: the modules of the HunyuanOCR and GLM-OCR slice
+OCR2_MODULES = ("aha_tpu_torch.models.hunyuan_ocr",
+                "aha_tpu_torch.models.hunyuan_ocr_served",
+                "aha_tpu_torch.models.glm_ocr",
+                "aha_tpu_torch.models.glm_ocr_served",
+                "aha_tpu_torch.io.weights")
+
+
+def test_ocr2_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({OCR2_MODULES!r}) - set(mods)\n"
+             "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
 def test_tts_and_image_modules_walked_and_free_of_aha_tpu():
     r = _run(ALL_MODULES + f"missing = set({TTS_IMAGE_MODULES!r}) - "
              "set(mods)\nassert not missing, missing\n" + NOTHING_OF_AHA_TPU)

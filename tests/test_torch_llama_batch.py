@@ -356,8 +356,6 @@ def test_loader_drops_chat_options_for_other_families(monkeypatch):
     assert seen == {"minilm": {}, "qwen3_reranker": {},
                     "minicpm4": {"prefix_cache": 2, "spec_tokens": 3},
                     "lfm2": {"batch_slots": 2}}
-    with pytest.raises(NotImplementedError):
-        loader.load_model("ZhipuAI/GLM-OCR", "/x")
 
 
 def test_minicpm4_geometry():
@@ -393,7 +391,9 @@ def test_minicpm4_geometry():
                                       "FunAudioLLM/Fun-ASR-Nano-2512",
                                       "ZhipuAI/GLM-ASR-Nano-2512",
                                       "OpenBMB/VoxCPM-0.5B",
-                                      "AI-ModelScope/RMBG-2.0"])
+                                      "AI-ModelScope/RMBG-2.0",
+                                      "Tencent-Hunyuan/HunyuanOCR",
+                                      "ZhipuAI/GLM-OCR"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch

@@ -87,8 +87,6 @@ def test_stream_chunks_match_jax(repo, served):
 
 
 def test_loader_and_unported_options(repo):
-    with pytest.raises(NotImplementedError):
-        load_model("ZhipuAI/GLM-OCR", repo)
     batched = load_model("Qwen/Qwen3-0.6B", repo, max_seq_len=256,
                          batch_slots=2)
     try:
