@@ -7,11 +7,20 @@
   and /v1/rerank.  A directory whose config.json has a model_type of
   MODEL_TYPES (qwen2_5_vl, qwen3_vl, paddleocr_vl, lfm2_vl) is served as
   that type's id unless --model names another.
+- `serv <model id>`: the JAX CLI's form, taken when the positional
+  argument is a registry id (`resolve`): a GGUF entry (`qwen3.5-gguf`)
+  serves `--gguf-path F [--mmproj-path M]`, an ONNX entry is refused, any
+  other serves `--weight-path DIR`, else the id's directory under the
+  save directory (~/.aha/<id>), else it refuses, as the JAX CLI's `serv`
+  does.  `--config-path` and `--onnx-path` are accepted and unused, as
+  there.
   `--batch-slots N` serves N chats at once through the continuous-batching
   engine; `--spec-tokens N` drafts N tokens a speculative round on the
   single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
   cache in int8.
-- `run <path> --input ...`: one chat from the command line (text, or for
+- `run <path or model id> --input ...`: one chat from the command line
+  (both argument forms, as `serv`; where the JAX CLI's `run` would
+  download, the port refuses: downloading is not ported) (text, or for
   a vlm a prompt and an image, or for an OCR model an image and an
   optional prompt, the family's task prompt by default, or for an ASR
   model an audio file, whose transcript is printed), the vectors of
@@ -68,11 +77,64 @@ def model_id_for(path: str, model: str) -> str:
         return MODEL_TYPES.get(json.load(f).get("model_type"), model)
 
 
+#: the JAX CLI's refusals, word for word (aha_tpu/cli/main.py:204-226);
+#: RUN_NO_DOWNLOAD stands where its `run` would download
+GGUF_PATH_REQUIRED = "gguf model path is required"
+ONNX_REFUSED = "onnx model not support now"
+SERV_NO_DOWNLOAD = ("serv subcommand will not download model, use "
+                    "`weight-path` to pass the model path")
+RUN_NO_DOWNLOAD = ("run will not download model (downloading is not ported "
+                   "to aha_tpu_torch), use `weight-path` to pass the model "
+                   "path")
+
+
+def resolve(args) -> tuple[str, str, str | None, str | None]:
+    """(model id, weights path, gguf, mmproj) of `serv` / `run`'s
+    arguments.  A positional registry id takes the JAX CLI's form
+    (`_resolve_model_path`): a GGUF entry needs --gguf-path, an ONNX entry
+    is refused, any other takes --weight-path, else its directory under
+    the save directory, else it is refused.  Anything else is a path,
+    served as --model (model_id_for); a GGUF entry there takes
+    --gguf-path, else the path itself as the file."""
+    if not registry.supported(args.path):
+        model_id = model_id_for(args.path, args.model)
+        if registry.lookup(model_id).is_gguf:
+            return (model_id, args.path, args.gguf_path or args.path,
+                    args.mmproj_path)
+        return model_id, args.path, None, None
+    model_id = args.path
+    if args.model not in (DEFAULT_MODEL, model_id):
+        raise SystemExit(f"the model id is given twice: {model_id} and "
+                         f"--model {args.model}")
+    entry = registry.lookup(model_id)
+    if entry.is_gguf:
+        if not args.gguf_path:
+            raise SystemExit(GGUF_PATH_REQUIRED)
+        return model_id, "GGUF", args.gguf_path, args.mmproj_path
+    if entry.is_onnx:
+        raise SystemExit(ONNX_REFUSED)
+    if args.weight_path:
+        return model_id, args.weight_path, None, None
+    path = os.path.join(default_save_dir(), model_id)
+    if not os.path.exists(path):
+        raise SystemExit(SERV_NO_DOWNLOAD if args.command == "serv"
+                         else RUN_NO_DOWNLOAD)
+    return model_id, path, None, None
+
+
 def _add_model_path(p: argparse.ArgumentParser) -> None:
     p.add_argument("path", help="model directory (config.json, tokenizer, "
-                                "*.safetensors)")
+                                "*.safetensors), or a registry id (the JAX "
+                                "CLI's form)")
     p.add_argument("--model", default=DEFAULT_MODEL,
                    help="registry id the checkpoint is served as")
+    p.add_argument("--weight-path", help="local model weight directory "
+                                         "(with a registry id)")
+    p.add_argument("--gguf-path", help="gguf file path (gguf models)")
+    p.add_argument("--mmproj-path", help="mmproj gguf path (gguf VLMs)")
+    p.add_argument("--onnx-path", help="onnx path (unsupported)")
+    p.add_argument("--config-path", help="config override path (unused, "
+                                         "as in the JAX CLI)")
     p.add_argument("--max-seq-len", type=int, default=8192)
     p.add_argument("--spec-tokens", type=int, default=0,
                    help="speculative decoding: draft up to N tokens a round "
@@ -194,7 +256,8 @@ def run_ps(args) -> int:
 def _load(args, **kw):
     from aha_tpu_torch.models.loader import load_model
 
-    return load_model(model_id_for(args.path, args.model), args.path,
+    model_id, path, gguf, mmproj = resolve(args)
+    return load_model(model_id, path, gguf=gguf, mmproj=mmproj,
                       max_seq_len=args.max_seq_len,
                       spec_tokens=args.spec_tokens, **kw)
 
@@ -249,7 +312,7 @@ def run_run(args) -> int:
     model's reading of an image (ocr), an ASR model's transcript of the
     first input as an audio_url (asr), an embedding model's vectors, a
     reranker's ranking, a tts model's WAV, an image model's PNGs."""
-    model_id = model_id_for(args.path, args.model)
+    model_id = resolve(args)[0]
     entry = registry.lookup(model_id)
     mt = entry.model_type
     if mt not in RUN_TYPES:

@@ -8,15 +8,19 @@ and the BPE-tokenizer-from-metadata path (:117-206).  Written from the GGUF
 v3 spec; no external gguf package.
 
 Dequantization covers F32/F16/BF16, Q8_0, Q4_0, Q4_1, Q5_0, IQ4_NL, Q2_K,
-Q3_K, Q4_K, Q5_K and Q6_K as vectorized numpy over the memory-mapped file:
-the JAX reader's own numpy reference.  Its C++ host dequant (aha_tpu/native)
-is not carried over yet.
+Q3_K, Q4_K, Q5_K and Q6_K.  A block type goes first through the C++ host
+dequant (aha_tpu_torch/native, the port's copy of aha_tpu/native), then, where
+that is unavailable, through vectorized numpy over the memory-mapped file:
+the JAX reader's own numpy reference.  `DEQUANT_PATHS` counts the block
+tensors each path dequantized in this process.
 """
 
 from __future__ import annotations
 
 import mmap
+import os
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -237,7 +241,25 @@ def _unpack_k4_scales(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return sc, mn
 
 
+#: block-quantized tensors dequantized by each path in this process
+DEQUANT_PATHS = {"native": 0, "numpy": 0}
+
+
 def _dequant(raw: np.ndarray, ggml_type: int) -> np.ndarray:
+    """Raw tensor bytes → float32 values: a block type through the native
+    dequant where it is available (aha_tpu/io/gguf.py:240-249 takes the
+    same order), else through numpy."""
+    if ggml_type in _BLOCK and _BLOCK[ggml_type][0] > 1:
+        from aha_tpu_torch import native
+
+        out = native.dequant(_TYPE_NAMES.get(ggml_type, "").lower(), raw)
+        DEQUANT_PATHS["native" if out is not None else "numpy"] += 1
+        if out is not None:
+            return out
+    return _dequant_numpy(raw, ggml_type)
+
+
+def _dequant_numpy(raw: np.ndarray, ggml_type: int) -> np.ndarray:
     if ggml_type == GGML_F32:
         return raw.view(np.float32)
     if ggml_type == GGML_F16:
@@ -617,7 +639,8 @@ def quantize_q6_k(x: np.ndarray) -> np.ndarray:
 def write_gguf(path: str, metadata: dict, tensors: dict[str, tuple[np.ndarray, int]],
                alignment: int = 32) -> None:
     """tensors: name → (array, ggml_type). Arrays are raw float data;
-    quantized types are packed here. Test/tooling emitter."""
+    quantized types are packed here, a thread a host core (numpy releases
+    the GIL in the quantizers' array operations). Test/tooling emitter."""
     def pack_str(s: str) -> bytes:
         b = s.encode()
         return struct.pack("<Q", len(b)) + b
@@ -641,30 +664,21 @@ def write_gguf(path: str, metadata: dict, tensors: dict[str, tuple[np.ndarray, i
                     + struct.pack("<Q", len(v)) + body)
         raise TypeError(type(v))
 
-    payloads = {}
-    for name, (arr, gt) in tensors.items():
-        if gt == GGML_F32:
-            payloads[name] = arr.astype(np.float32).tobytes()
-        elif gt == GGML_F16:
-            payloads[name] = arr.astype(np.float16).tobytes()
-        elif gt == GGML_Q8_0:
-            payloads[name] = quantize_q8_0(arr).tobytes()
-        elif gt == GGML_Q4_0:
-            payloads[name] = quantize_q4_0(arr).tobytes()
-        elif gt == GGML_IQ4_NL:
-            payloads[name] = quantize_iq4_nl(arr).tobytes()
-        elif gt == GGML_Q4_K:
-            payloads[name] = quantize_q4_k(arr).tobytes()
-        elif gt == GGML_Q5_K:
-            payloads[name] = quantize_q5_k(arr).tobytes()
-        elif gt == GGML_Q6_K:
-            payloads[name] = quantize_q6_k(arr).tobytes()
-        elif gt == GGML_Q2_K:
-            payloads[name] = quantize_q2_k(arr).tobytes()
-        elif gt == GGML_Q3_K:
-            payloads[name] = quantize_q3_k(arr).tobytes()
-        else:
+    packers = {GGML_F32: lambda a: a.astype(np.float32),
+               GGML_F16: lambda a: a.astype(np.float16),
+               GGML_Q8_0: quantize_q8_0, GGML_Q4_0: quantize_q4_0,
+               GGML_IQ4_NL: quantize_iq4_nl, GGML_Q4_K: quantize_q4_k,
+               GGML_Q5_K: quantize_q5_k, GGML_Q6_K: quantize_q6_k,
+               GGML_Q2_K: quantize_q2_k, GGML_Q3_K: quantize_q3_k}
+
+    def pack(item):
+        arr, gt = item
+        if gt not in packers:
             raise NotImplementedError(f"writer for type {gt}")
+        return packers[gt](arr).tobytes()
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        payloads = dict(zip(tensors, pool.map(pack, tensors.values())))
 
     with open(path, "wb") as f:
         f.write(struct.pack("<I", GGUF_MAGIC))

@@ -35,4 +35,6 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor,
         return out
     window = torch.cat([state[:, 1:].to(x.dtype), x], dim=1)
     state.copy_(window)
-    return torch.einsum("bld,ld->bd", window, w)[:, None]
+    # taps kept in float32 (a GGUF file's) promote the product, as in JAX
+    dt = torch.promote_types(window.dtype, w.dtype)
+    return torch.einsum("bld,ld->bd", window.to(dt), w.to(dt))[:, None]

@@ -10,8 +10,9 @@ lfm2vl (LFM2-VL image chat), the ASR families qwen3_asr (Qwen3-ASR),
 fun_asr_nano (Fun-ASR-Nano) and glm_asr_nano (GLM-ASR-Nano), voxcpm
 (VoxCPM text-to-speech), rmbg2_0 (RMBG-2.0 background removal),
 qwen3_embedding / qwen3_reranker and minilm (all-MiniLM-L6-v2): every
-family of the registry.  The reference's option checks run first, before
-any weights load, with its strings."""
+family of the registry, and the GGUF entry qwen3.5-gguf through qwen3_5.
+The reference's option checks run first, before any weights load, with
+its strings."""
 
 from __future__ import annotations
 
@@ -173,11 +174,22 @@ FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
 BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 
 
-def load_model(model_id: str, path: str, **kw) -> LoadedModel:
+#: the reference's refusals of the file kinds, word for word
+ONNX_REFUSED = "onnx comming soon but now not support"
+GGUF_PATH_NEEDED = "gguf model need gguf model path"
+
+
+def load_model(model_id: str, path: str, gguf: str | None = None,
+               mmproj: str | None = None, **kw) -> LoadedModel:
     """`batch_slots > 1` serves a batchable family through the
     continuous-batching engine; combined with `spec_tokens > 0` it is
-    refused before any weights load, as the JAX loader does.  `dp > 1`
-    (sharded slots) is not ported."""
+    refused before any weights load, as the JAX loader does.  A GGUF
+    entry (`qwen3.5-gguf`) loads the file `gguf` (and the tower from
+    `mmproj`) and refuses to run without one, an ONNX entry is refused,
+    each with the reference's words (aha_tpu/models/loader.py:204-213).
+    `dp > 1` (sharded slots) is not ported: after the reference's checks
+    of its combination with the slots, a GGUF entry refuses it with the
+    reference's words, any other with the port's."""
     from aha_tpu_torch.models.text_served import SPEC_WITH_SLOTS
 
     entry = lookup(model_id)
@@ -188,10 +200,26 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
             f"'{entry.family}' is served single-stream")
     if kw.get("batch_slots", 1) > 1 and kw.get("spec_tokens", 0) > 0:
         raise ValueError(SPEC_WITH_SLOTS)
-    if kw.pop("dp", 1) > 1:
-        raise ValueError("--dp (continuous-batching slots sharded over "
-                         "devices) is not ported to aha_tpu_torch yet; "
-                         "serve with --dp 1")
+    dp = kw.pop("dp", 1)
+    if dp > 1:
+        if entry.family not in BATCHABLE_FAMILIES:
+            raise ValueError(
+                "--dp shards continuous-batching slots and applies to the "
+                f"batchable text families; '{entry.family}' is served "
+                "single-stream")
+        if kw.get("batch_slots", 1) <= 1:
+            raise ValueError(
+                "--dp shards continuous-batching slots across devices; "
+                "combine it with --batch-slots N (N a multiple of dp)")
+        if kw["batch_slots"] % dp:
+            raise ValueError(
+                f"--batch-slots {kw['batch_slots']} must be a "
+                f"multiple of --dp {dp}")
+        if not entry.is_gguf:
+            raise ValueError("--dp (continuous-batching slots sharded over "
+                             "devices) is not ported to aha_tpu_torch yet; "
+                             "serve with --dp 1")
+        kw["dp"] = dp                 # the GGUF loader refuses it
     if kw.get("batch_slots", 1) == 1:
         kw.pop("batch_slots", None)   # keep kwargs clean for family loaders
     if entry.family not in BATCHABLE_FAMILIES:
@@ -201,4 +229,11 @@ def load_model(model_id: str, path: str, **kw) -> LoadedModel:
         kw.pop("spec_tokens", None)
     if kw.get("spec_tokens", 0) == 0:
         kw.pop("spec_tokens", None)
+    if entry.is_onnx:
+        raise NotImplementedError(ONNX_REFUSED)
+    if entry.is_gguf:
+        if gguf is None:
+            raise ValueError(GGUF_PATH_NEEDED)
+        return FAMILY_LOADERS[entry.family](entry, path, gguf=gguf,
+                                            mmproj=mmproj, **kw)
     return FAMILY_LOADERS[entry.family](entry, path, **kw)

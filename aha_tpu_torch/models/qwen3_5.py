@@ -31,8 +31,11 @@ published Qwen3.5 checkpoint's), the model carries Qwen3-VL's deepstack
 tower (models/qwen3vl.py): a multimodal prefill splices its features at
 the placeholder tokens, takes interleaved M-RoPE positions over the
 partial rotary table (rope_delta kept in the cache for later positions)
-and adds deepstack level i after layer i.  Not ported: the quantized
-column padding of the fusion (the GGUF map), the tensor-parallel rules.
+and adds deepstack level i after layer i.  A GGUF file's parameters
+(io/gguf_models.load_qwen3_5_gguf) keep their linears on the quantized
+grids: the fusion concatenates parts of one grid, zero-pads [q|k|v] and
+[qkv|z|b|a] to 128 columns as the JAX package does, and the blocks slice
+every part at explicit ends.  Not ported: the tensor-parallel rules.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from aha_tpu_torch.models.qwen3vl import (Qwen3VLVisionConfig,
                                           Qwen3VLVisionTower,
                                           inject_deepstack, splice_vision)
 from aha_tpu_torch.ops.norms import rms_norm
+from aha_tpu_torch.ops.quant_matmul import is_quantized, pad_quant_cols
 from aha_tpu_torch.ops.rope import (apply_rope, gather_rope, mrope_cos_sin,
                                     mrope_interleaved_sections, rope_table)
 
@@ -215,31 +219,34 @@ def recurrent_gated_delta_rule(q, k, v, g, beta, state):
 def fuse_qwen3_5_decode_params(params: dict) -> dict:
     """Per layer: full attention's [q(+gate)|k|v], GatedDeltaNet's four
     input projections [qkv|z|b|a], and the MLP's [gate|up], each one
-    matrix — bit-identical splits, fewer weight streams a step (the JAX
-    fuse_qwen3_5_decode_params for float weights; quantized parts stay
-    separate)."""
+    matrix — bit-identical splits, fewer weight streams and quant-kernel
+    launches a step (the JAX fuse_qwen3_5_decode_params).  Quantized
+    [q|k|v] and [qkv|z|b|a] are zero-padded to 128 columns
+    (pad_quant_cols; b and a are only Hv wide), which the blocks slice
+    off; [gate|up] is not padded, so that its halves stay gate and up and
+    the fused quantized MLP takes it.  Parts whose grids differ (a Q8_0
+    ssm_beta beside a Q4_K attn_qkv) stay separate."""
     layers = params.get("layers")
     if not isinstance(layers, (list, tuple)):
         return params
 
-    def fuse(lp, names, into):
-        parts = [lp[n] for n in names]
-        fused = (_fuse_out_axis(parts) if all("w" in p for p in parts)
-                 else None)
+    def fuse(lp, names, into, pad):
+        fused = _fuse_out_axis([lp[n] for n in names])
         if fused is None:
             return lp
         return {**{k: v for k, v in lp.items() if k not in names},
-                into: fused}
+                into: pad_quant_cols(fused) if pad else fused}
 
     out = []
     for lp in layers:
         if "q" in lp:
-            lp = fuse(lp, ("q", "k", "v"), "qkv")
+            lp = fuse(lp, ("q", "k", "v"), "qkv", True)
         if "in_proj_qkv" in lp:
             lp = fuse(lp, ("in_proj_qkv", "in_proj_z", "in_proj_b",
-                           "in_proj_a"), "in_proj")
+                           "in_proj_a"), "in_proj", True)
         if "gate" in lp["mlp"]:
-            lp = {**lp, "mlp": fuse(lp["mlp"], ("gate", "up"), "gateup")}
+            lp = {**lp, "mlp": fuse(lp["mlp"], ("gate", "up"), "gateup",
+                                    False)}
         out.append(lp)
     return {**params, "layers": out}
 
@@ -344,7 +351,7 @@ class Qwen3_5Model:
             qkv = nn.linear(lp["qkv"], x)
             nq2, nkv = H * 2 * hd, Hkv * hd
             qg, k, v = (qkv[..., :nq2], qkv[..., nq2:nq2 + nkv],
-                        qkv[..., nq2 + nkv:])
+                        qkv[..., nq2 + nkv:nq2 + 2 * nkv])
         else:
             qg, k, v = (nn.linear(lp["q"], x), nn.linear(lp["k"], x),
                         nn.linear(lp["v"], x))
@@ -475,8 +482,13 @@ class Qwen3_5Model:
         return rms_norm(x, params["norm"]["w"], c.rms_norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        """The head is vocab-major (V, K)."""
-        return hidden @ params["lm_head"]["w"].t()
+        """A dense head is vocab-major (V, K); a quantized one (a GGUF
+        file's) goes through nn.linear, the quant-matmul kernel at decode
+        M on the card (the JAX model's nn.linear over its head)."""
+        head = params["lm_head"]
+        if is_quantized(head):
+            return nn.linear(head, hidden)
+        return hidden @ head["w"].t()
 
     # -- parameters -----------------------------------------------------------
 

@@ -470,6 +470,19 @@ def concat_columns(parts: list[dict]) -> dict | None:
     return {k: torch.cat([p[k] for p in parts], dim=-2) for k in keys}
 
 
+def pad_quant_cols(p: dict, mult: int = 128) -> dict:
+    """A quantized dict's columns zero-padded to a multiple of `mult` (the
+    JAX package's pad_quant_cols, on the port's column axis −2): pad
+    columns carry zero integers, scales and mins, so they dequantize to
+    exact zeros and their products are 0; callers slice them off.  Dense
+    dicts, and grids already on the multiple, pass through."""
+    info = grid_info(p)
+    if info is None or info[2] % mult == 0:
+        return p
+    pad = mult - info[2] % mult
+    return {k: F.pad(v, (0, 0, 0, pad)) for k, v in p.items()}
+
+
 def swiglu_fusable(gu: dict, dn: dict, m: int) -> bool:
     """True when the fused kernel covers this MLP: both weights on a
     quantized grid, no biases, the gate|up split clean on 128-column

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive aha_tpu_torch's Qwen3 chat, MiniCPM4 chat, embedding / rerank,
 LFM2 and Qwen3.5 hybrid chat, Qwen2.5-VL image and video chat, Qwen3-VL
-and Qwen3.5 image and video chat, PaddleOCR-VL and DeepSeek-OCR document
-OCR, LFM2-VL image chat, Qwen3-ASR / Fun-ASR-Nano speech recognition,
-VoxCPM text-to-speech, RMBG-2.0 background removal, and HunyuanOCR and
-GLM-OCR document OCR paths once on one CUDA card.
+and Qwen3.5 image and video chat, Qwen3.5 GGUF text and image chat,
+PaddleOCR-VL and DeepSeek-OCR document OCR, LFM2-VL image chat, Qwen3-ASR
+/ Fun-ASR-Nano speech recognition, VoxCPM text-to-speech, RMBG-2.0
+background removal, and HunyuanOCR and GLM-OCR document OCR paths once on
+one CUDA card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -70,7 +71,8 @@ before the last line:
    admission) over a bf16 and an int8 cache, and an int8 TextEngine; each
    path with the launch counters
    zeroed before it and read after it; then 8 teacher-forced steps of 4
-   slots against the f32 plain path on the CPU over the same cache;
+   slots against the f32 plain path on the CPU over the same cache, at the
+   first 8 layers (BATCH_WITNESS_LAYERS, a cut for the time limit);
 6. quant — the same weights packed on the GGUF grids on the card
    (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
    TextEngine, whose decode runs the quantized fused stack and whose short
@@ -175,6 +177,33 @@ before the last line:
    qwen3_vl, served as Qwen/Qwen3-VL-8B-Instruct) an image, a video and a
    text chat; Qwen3.5 with the tower, served as Qwen/Qwen3.5-0.8B, an
    image chat.
+9b. gguf35 — (ag) the qwen35 GGUF path: the JAX package's default
+   Qwen3.5 (24 layers at 1024, 6 gated attention at 16/2 heads of 128,
+   vocab 151936, tied) written by the port's writer from seeded numpy
+   weights in a Q4_K_M-like mix (Q4_K projections, Q6_K ffn_down on the
+   even layers, Q8_0 ssm_beta / ssm_alpha, a Q6_K token_embd) with a
+   151,936-token byte-level vocabulary and a ChatML template, and its
+   default tower (27 blocks at 1152, 16 heads of 72, output 1024,
+   deepstack after 8, 16, 24) as an F16 mmproj; loaded through
+   load_qwen3_5_gguf_chat with every block tensor through the native
+   dequant (load seconds; native against numpy on one tensor); (ag1) a
+   300-token text request and (ag2) a 448 x 448 image request (196 image
+   tokens), 32 greedy tokens each, graphed and eager: rows 13 and 14 once
+   a quantized linear a step in the grids the file gives, row 15 once a
+   layer a step, the head once more for the prefill, row 1 once an
+   attention layer a prefill, row 8 6 a step, row 10 27 an image; a
+   decode block's idle share; 8 teacher-forced steps after a 64-token
+   prefill at full depth against the CPU's plain versions (the witness)
+   and the exact dequantized path, which zeroed scales must fail; then
+   `python -m aha_tpu_torch serv qwen3.5-gguf --gguf-path F --mmproj-path
+   M` (an image and a text chat) and the same file with `--batch-slots 8`
+   (8 concurrent text chats) in two children started together, each
+   reply equal to the in-process served model's (an 8-slot one for the
+   second), started before the witness so that they load while it and
+   the in-process chats run.  Before it, rows 13-15 at the path's new shapes (the [q|k|v],
+   the padded [qkv|z|b|a], o / out_proj, the tied head; the MLP at 8192 x
+   1024 with down at 4096) against their plain versions, timed beside
+   them and their bounds.
 10. ocr / lfm2vl — the SigLIP-tower families: (y) PaddleOCR-VL-0.9B's
     published geometry (tower 27 blocks at hidden 1152, 16 heads of 72,
     patch 14; ERNIE-4.5-0.3B 18 layers at hidden 1024, 16/2 heads of 128,
@@ -329,7 +358,7 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg and the
+JSON line of the gguf35 readings, the JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg and the
 ocr2 readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
@@ -3083,7 +3112,15 @@ def teacher_forced_slots(model, params, prompts: list[list[int]],
     return torch.stack(hs).float().cpu(), before
 
 
+#: the depth of the batch phase's teacher-forced check (i): the first
+#: layers of Qwen3-0.6B at full width on both sides (the smoke's time
+#: limit: its CPU side is f32 at every layer it has)
+BATCH_WITNESS_LAYERS = 8
+
+
 def phase_batch(model, params, device: str = "cuda") -> None:
+    import dataclasses
+
     _batch_path(model, params, device, torch.bfloat16, "batch-bf16",
                 ("flash_decode_at_layer_flat_batched",))
     _batch_path(model, params, device, torch.int8, "batch-int8",
@@ -3092,8 +3129,13 @@ def phase_batch(model, params, device: str = "cuda") -> None:
 
     # (i) 8 teacher-forced steps of 4 slots on the card against the f32
     # plain path on the CPU, from the same cache contents
-    _teacher_forced_4_slots(model, params, device,
-                            (torch.bfloat16, torch.int8), "batch")
+    n = min(BATCH_WITNESS_LAYERS, model.config.num_hidden_layers)
+    cut = type(model)(dataclasses.replace(model.config, num_hidden_layers=n),
+                      max_rope_len=8192, device=device)
+    _teacher_forced_4_slots(cut, _text_cut(params, n), device,
+                            (torch.bfloat16, torch.int8),
+                            f"batch, {n} of {model.config.num_hidden_layers} "
+                            "layers")
 
 
 def _teacher_forced_4_slots(model, params, device: str, dtypes,
@@ -3250,6 +3292,8 @@ def _zero_scales(tree):
     if isinstance(tree, dict):
         return {k: (torch.zeros_like(v) if k in ("st", "s4")
                     else _zero_scales(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zero_scales(v) for v in tree]
     return tree
 
 
@@ -4316,39 +4360,55 @@ def _free_ports(n: int) -> list[int]:
 @contextlib.contextmanager
 def _servers(*specs: tuple):
     """`python -m aha_tpu_torch serv <dir> *extra` in a child process for
-    each (dir, extra) of `specs`, all started together and each up and
-    answering /health before the body runs (their bases in `specs`'
-    order); every child is always stopped, and the -X importtime log of
-    each must name no module of jax or aha_tpu."""
+    each (dir, extra) of `specs` — or `serv <target> *extra` for a (dir,
+    extra, target), its log still in dir —, all started together and each
+    up and answering /health before the body runs (their bases in
+    `specs`' order); as `_started`."""
+    with _started(*specs) as up:
+        yield up()
+
+
+@contextlib.contextmanager
+def _started(*specs: tuple):
+    """The children of `_servers` started together; the body gets `up`,
+    which waits until each answers /health and returns their bases, so
+    work can run while they load.  Every child is always stopped, and the
+    -X importtime log of each must name no module of jax or aha_tpu."""
     children = []
     try:
-        for (tmp, extra), port in zip(specs, _free_ports(len(specs))):
+        for (tmp, extra, *target), port in zip(specs,
+                                               _free_ports(len(specs))):
             logf = open(os.path.join(tmp, f"server_{port}.log"), "w")
             proc = subprocess.Popen(
                 [sys.executable, "-X", "importtime", "-m", "aha_tpu_torch",
-                 "serv", tmp, "--port", str(port), "--max-seq-len", "2048",
-                 *extra], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+                 "serv", *(target or [tmp]), "--port", str(port),
+                 "--max-seq-len", "2048", *extra], cwd=ROOT, stdout=logf,
+                stderr=subprocess.STDOUT)
             children.append((proc, logf, f"http://127.0.0.1:{port}", extra))
         t0 = time.perf_counter()
-        for proc, logf, base, extra in children:
-            while True:
-                if proc.poll() is not None:
-                    with open(logf.name) as f:
-                        raise RuntimeError("server exited:\n"
-                                           + f.read()[-4000:])
-                try:
-                    with urllib.request.urlopen(base + "/health",
-                                                timeout=5) as r:
-                        if r.status == 200:
-                            break
-                except OSError:
-                    pass
-                require(time.perf_counter() - t0 < 300,
-                        "server did not come up")
-                time.sleep(1)
-            log(f"[http] server {' '.join(extra) or '(single stream)'} up in "
-                f"{time.perf_counter() - t0:.1f} s")
-        yield [base for _, _, base, _ in children]
+
+        def up() -> list[str]:
+            for proc, logf, base, extra in children:
+                while True:
+                    if proc.poll() is not None:
+                        with open(logf.name) as f:
+                            raise RuntimeError("server exited:\n"
+                                               + f.read()[-4000:])
+                    try:
+                        with urllib.request.urlopen(base + "/health",
+                                                    timeout=5) as r:
+                            if r.status == 200:
+                                break
+                    except OSError:
+                        pass
+                    require(time.perf_counter() - t0 < 300,
+                            "server did not come up")
+                    time.sleep(1)
+                log(f"[http] server {' '.join(extra) or '(single stream)'} "
+                    f"up {time.perf_counter() - t0:.1f} s after its start")
+            return [base for _, _, base, _ in children]
+
+        yield up
     finally:
         for proc, logf, _, _ in children:
             proc.terminate()
@@ -5255,6 +5315,676 @@ def _ask_vl(base: str) -> list[str]:
             _vl_chat(base, model, clip, "video chat", 256),
             _vl_chat(base, model, "hello world how are you today",
                      "text-only chat", 1)]
+
+
+# -- 9b. the qwen35 GGUF path (ag) ---------------------------------------------
+
+GGUF35_MODEL = "qwen3.5-gguf"
+#: greedy tokens of each (ag) request; teacher-forced steps of the witness
+GGUF35_TOKENS = 32
+GGUF35_FORCED = 8
+#: Qwen's special tokens at their ids in the written vocabulary
+GGUF35_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>",
+                   151645: "<|im_end|>", 151652: "<|vision_start|>",
+                   151653: "<|vision_end|>", 151654: "<|vision_pad|>",
+                   151655: "<|image_pad|>", 151656: "<|video_pad|>"}
+#: a ChatML template whose image parts are Qwen-VL's vision markers
+GGUF35_TEMPLATE = (
+    "{% for m in messages %}<|im_start|>{{ m.role }}\n"
+    "{% if m.content is string %}{{ m.content }}{% else %}"
+    "{% for part in m.content %}{% if part.type == 'text' %}{{ part.text }}"
+    "{% elif part.type == 'image_url' %}"
+    "<|vision_start|><|image_pad|><|vision_end|>{% endif %}{% endfor %}"
+    "{% endif %}<|im_end|>\n{% endfor %}<|im_start|>assistant\n")
+#: the new shapes of rows 13 and 14 on (ag)'s path: projection → (K, N):
+#: Qwen3.5's [q(+gate)|k|v], GatedDeltaNet's [qkv|z|b|a] (6,176 columns
+#: padded to 6,272), o / out_proj, the tied head
+GGUF35_SHAPES = {"q|k|v": (1024, 4608), "qkv|z|b|a": (1024, 6272),
+                 "o|out_proj": (2048, 1024), "head": (1024, 151936)}
+#: (ag)'s readings: writer, load, dequant, TTFT, ms/step, idle share,
+#: launches, witness (one JSON line before the kernels line)
+GGUF35_READINGS: dict = {}
+
+
+def check_gguf35_shapes() -> None:
+    """Rows 13 and 14 at GGUF35_SHAPES and row 15 at Qwen3.5's MLP ([gate|up]
+    N 8,192 at K 1,024, down K 4,096) in the grid pairs a Q4_K_M file gives
+    (q4/q4, and q4/q8 where ffn_down is Q6_K), at M = 1 (TextEngine) and
+    8 (8 slots): each against its f32 plain version within TOL_QMM_REL /
+    TOL_SWIGLU_REL of max |ref|, zeroed scales failing that bound; device
+    ms beside plain and bound under each kernel's "gguf35" key.  The
+    padded [qkv|z|b|a] carries zero pad columns (pad_quant_cols), which
+    must come out 0."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(35)
+    for grid in ("q8", "q4"):
+        name = "quant_matmul_q4" if grid == "q4" else "quant_matmul"
+        fn, plain = getattr(qm, name), getattr(qm, name + "_plain")
+        keys = qm.GRID_KEYS[grid]
+        out = RESULTS[name].setdefault("gguf35", {})
+        for proj, (K, N) in GGUF35_SHAPES.items():
+            p = _pack(g, N, K, grid)
+            real = N
+            if proj == "qkv|z|b|a":
+                real = 6176
+                p = qm.pad_quant_cols({k: v[:real] for k, v in p.items()})
+            args = [p[k] for k in keys]
+            for M in (1, 8):
+                x = torch.randn((M, K), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                got = fn(x, *args)
+                ref = plain(x.float(), *args)
+                zeroed = [torch.zeros_like(a) if k in ("st", "s4") else a
+                          for k, a in zip(keys, args)]
+                bad = _rel(plain(x.float(), *zeroed), ref)
+                torch.cuda.synchronize()
+                err = _rel(got, ref)
+                require(err <= TOL_QMM_REL and bad > TOL_QMM_REL
+                        and not got[:, real:].any(),
+                        f"{name} {proj} M={M}: err {err} (tol "
+                        f"{TOL_QMM_REL}), zeroed scales {bad}")
+                _record(name, (got.float() - ref).abs().max().item())
+                ms = device_ms(lambda: fn(x, *args))
+                plain_ms = device_ms(lambda: plain(x, *args), iters=5)
+                b = bound(_nbytes(p) + M * K * 2 + M * N * 2,
+                          2 * M * N * K, "int8")
+                out[f"{proj} M={M} K={K} N={N}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                    "bound_by": b[1], "err": err}
+                log(f"[gguf35] {name} {proj} M={M} K={K} N={N}: err "
+                    f"{err:.3e} of max |ref| (zeroed scales {bad:.3g}); "
+                    f"device ms/call kernel {ms:.4f} plain {plain_ms:.4f}; "
+                    f"bound {b[0]:.4f} ({b[1]})")
+            del p, args
+    H, I = 1024, 4096
+    out = RESULTS["quant_swiglu"].setdefault("gguf35", {})
+    for gu_fmt, dn_fmt in (("q4", "q4"), ("q4", "q8")):
+        gu, dn = _pack(g, 2 * I, H, gu_fmt), _pack(g, H, I, dn_fmt)
+        zeroed = {k: torch.zeros_like(v) if k in ("st", "s4") else v
+                  for k, v in dn.items()}
+        for M in (1, 8):
+            x = torch.randn((1, M, H), generator=g, device="cuda").to(
+                torch.bfloat16)
+            got = qm.quant_swiglu(gu, dn, x).reshape(M, H)
+            ref = qm.quant_swiglu_plain(gu, dn, x.reshape(M, H).float())
+            bad = _rel(qm.quant_swiglu_plain(gu, zeroed,
+                                             x.reshape(M, H).float()), ref)
+            err = _rel(got, ref)
+            require(err <= TOL_SWIGLU_REL < bad,
+                    f"quant_swiglu {gu_fmt}/{dn_fmt} M={M}: err {err} (tol "
+                    f"{TOL_SWIGLU_REL}), zeroed down scales {bad}")
+            _record("quant_swiglu", (got.float() - ref).abs().max().item())
+            ms = device_ms(lambda: qm.quant_swiglu(gu, dn, x))
+            plain_ms = device_ms(lambda: qm.quant_swiglu_plain(
+                gu, dn, x.reshape(M, H)), iters=5)
+            b = bound(_nbytes(gu) + _nbytes(dn) + 2 * M * H * 2,
+                      2 * M * 3 * I * H, "int8")
+            out[f"{gu_fmt}/{dn_fmt} M={M} H={H} I={I}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "err": err}
+            log(f"[gguf35] quant_swiglu {gu_fmt}/{dn_fmt} M={M} H={H} I={I}: "
+                f"err {err:.3e} (zeroed down scales {bad:.3g}); device ms/call "
+                f"kernel {ms:.4f} plain {plain_ms:.4f}; bound {b[0]:.4f} "
+                f"({b[1]})")
+    torch.cuda.empty_cache()
+
+
+def _gguf35_vocab() -> tuple[list[str], list[int]]:
+    """151,936 tokens: GPT-2's 256 byte-level characters at ids 0-255 (the
+    file carries no merges, so text encodes byte by byte), Qwen's special
+    tokens at their ids (control tokens), fillers "<fN>" elsewhere (normal
+    tokens, decoded as their text)."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    tokens = [chr(c) for c in cs] + [f"<f{i}>" for i in range(256, 151936)]
+    types = [1] * len(tokens)
+    for i, t in GGUF35_SPECIALS.items():
+        tokens[i], types[i] = t, 3
+    return tokens, types
+
+
+def _gguf35_write(tmp: str, xcfg, seed: int = 35) -> tuple[str, str]:
+    """(ag)'s two files from seeded numpy weights (a generator per tensor,
+    drawn and quantized on every host core), written with the port's
+    writer.  The decoder at `xcfg.text`'s geometry in a Q4_K_M-like mix:
+    Q4_K projections, Q6_K ffn_down on the even layers (Q4_K on the odd),
+    Q8_0 ssm_beta / ssm_alpha, a Q6_K token_embd (tied: the head is packed
+    on the int8 grid); unit norms (uncentred, as GGUF stores them), ssm_a
+    = −exp(u), u ~ U(0, ln 16), as llama.cpp's converter stores −A.  The
+    mmproj of `xcfg.vision` in F16 (biases and norms F32), as mmproj-F16
+    files ship."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aha_tpu_torch.io import gguf as G
+
+    c, v = xcfg.text, xcfg.vision
+    H, I, D = c.hidden_size, c.intermediate_size, c.head_dim
+    Hv, Dk, Dv = (c.linear_num_value_heads, c.linear_key_head_dim,
+                  c.linear_value_head_dim)
+    conv = 2 * c.linear_num_key_heads * Dk + Hv * Dv
+    Q4K, Q6K, Q8, F32, F16 = (G.GGML_Q4_K, G.GGML_Q6_K, G.GGML_Q8_0,
+                              G.GGML_F32, G.GGML_F16)
+    dec = {"token_embd.weight": ((c.vocab_size, H), Q6K, "w"),
+           "output_norm.weight": ((H,), F32, "one")}
+    for i, kind in enumerate(c.layer_types):
+        b = f"blk.{i}."
+        dec.update({b + "attn_norm.weight": ((H,), F32, "one"),
+                    b + "post_attention_norm.weight": ((H,), F32, "one"),
+                    b + "ffn_gate.weight": ((I, H), Q4K, "w"),
+                    b + "ffn_up.weight": ((I, H), Q4K, "w"),
+                    b + "ffn_down.weight": ((H, I), Q6K if i % 2 == 0
+                                            else Q4K, "w")})
+        if kind == "full_attention":
+            nq, nkv = c.num_attention_heads * D, c.num_key_value_heads * D
+            dec.update({b + "attn_q.weight": ((2 * nq, H), Q4K, "w"),
+                        b + "attn_k.weight": ((nkv, H), Q4K, "w"),
+                        b + "attn_v.weight": ((nkv, H), Q4K, "w"),
+                        b + "attn_output.weight": ((H, nq), Q4K, "w"),
+                        b + "attn_q_norm.weight": ((D,), F32, "one"),
+                        b + "attn_k_norm.weight": ((D,), F32, "one")})
+        else:
+            dec.update({b + "attn_qkv.weight": ((conv, H), Q4K, "w"),
+                        b + "attn_gate.weight": ((Hv * Dv, H), Q4K, "w"),
+                        b + "ssm_beta.weight": ((Hv, H), Q8, "w"),
+                        b + "ssm_alpha.weight": ((Hv, H), Q8, "w"),
+                        b + "ssm_out.weight": ((H, Hv * Dv), Q4K, "w"),
+                        b + "ssm_conv1d.weight": ((conv, 1, 4), F32, "conv"),
+                        b + "ssm_dt.bias": ((Hv,), F32, "small"),
+                        b + "ssm_a": ((Hv,), F32, "a"),
+                        b + "ssm_norm.weight": ((Dv,), F32, "one")})
+    d, p, unit = v.hidden_size, v.patch_size, 4 * v.hidden_size
+    vis = {"v.patch_embd.weight": ((d, 3, p, p), F16, "w"),
+           "v.patch_embd.weight.1": ((d, 3, p, p), F16, "w"),
+           "v.patch_embd.bias": ((d,), F32, "zero"),
+           "v.position_embd.weight": ((v.num_position_embeddings, d), F16,
+                                      "w")}
+
+    def lin(name, n_out, n_in):
+        vis[name + ".weight"] = ((n_out, n_in), F16, "w")
+        vis[name + ".bias"] = ((n_out,), F32, "zero")
+
+    def norm(name, n):
+        vis[name + ".weight"] = ((n,), F32, "one")
+        vis[name + ".bias"] = ((n,), F32, "zero")
+
+    for i in range(v.depth):
+        b = f"v.blk.{i}."
+        norm(b + "ln1", d)
+        norm(b + "ln2", d)
+        lin(b + "attn_qkv", 3 * d, d)
+        lin(b + "attn_out", d, d)
+        lin(b + "ffn_up", v.intermediate_size, d)
+        lin(b + "ffn_down", d, v.intermediate_size)
+    norm("v.post_ln", d)
+    lin("mm.0", unit, unit)
+    lin("mm.2", v.out_hidden_size, unit)
+    for i in v.deepstack_visual_indexes:
+        norm(f"v.deepstack.{i}.norm", unit)
+        lin(f"v.deepstack.{i}.fc1", unit, unit)
+        lin(f"v.deepstack.{i}.fc2", v.out_hidden_size, unit)
+
+    def draw(item):
+        i, (name, (shape, gt, kind)) = item
+        rng = np.random.default_rng([seed, i])
+        if kind == "one":
+            x = np.ones(shape, np.float32)
+        elif kind == "zero":
+            x = np.zeros(shape, np.float32)
+        elif kind == "a":
+            x = -np.exp(rng.uniform(0.0, np.log(16.0), shape)).astype(
+                np.float32)
+        else:
+            std = {"w": 0.02, "conv": 0.2, "small": 0.1}[kind]
+            x = rng.standard_normal(shape, dtype=np.float32) * std
+        return name, (x, gt)
+
+    tokens, types = _gguf35_vocab()
+    meta = {"general.architecture": "qwen35",
+            "qwen35.block_count": c.num_hidden_layers,
+            "qwen35.context_length": c.max_position_embeddings,
+            "qwen35.embedding_length": H,
+            "qwen35.feed_forward_length": I,
+            "qwen35.attention.head_count": c.num_attention_heads,
+            "qwen35.attention.head_count_kv": c.num_key_value_heads,
+            "qwen35.attention.key_length": D,
+            "qwen35.attention.layer_norm_rms_epsilon": c.rms_norm_eps,
+            "qwen35.rope.freq_base": c.rope_theta,
+            "qwen35.rope.dimension_count": int(D * c.partial_rotary_factor),
+            "qwen35.rope.dimension_sections": [*xcfg.mrope_section, 0],
+            "qwen35.full_attention_interval": c.full_attention_interval,
+            "qwen35.ssm.group_count": c.linear_num_key_heads,
+            "qwen35.ssm.time_step_rank": Hv,
+            "qwen35.ssm.state_size": Dk,
+            "qwen35.ssm.conv_kernel": c.linear_conv_kernel_dim,
+            "tokenizer.ggml.model": "gpt2",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": types,
+            "tokenizer.ggml.merges": [],
+            "tokenizer.ggml.eos_token_id": 151645,
+            "tokenizer.chat_template": GGUF35_TEMPLATE}
+    image = v.patch_size * int(round(v.num_position_embeddings ** 0.5))
+    vmeta = {"general.architecture": "clip",
+             "clip.vision.embedding_length": d,
+             "clip.vision.block_count": v.depth,
+             "clip.vision.feed_forward_length": v.intermediate_size,
+             "clip.vision.attention.head_count": v.num_heads,
+             "clip.vision.attention.layer_norm_epsilon": 1e-6,
+             "clip.vision.patch_size": p,
+             "clip.vision.image_size": image,
+             "clip.vision.spatial_merge_size": v.spatial_merge_size,
+             "clip.vision.is_deepstack_layers": [
+                 int(i in v.deepstack_visual_indexes)
+                 for i in range(v.depth)]}
+    paths = (os.path.join(tmp, "Qwen3.5-0.8B-Q4_K_M.gguf"),
+             os.path.join(tmp, "mmproj-Qwen3.5-0.8B-F16.gguf"))
+    for path, specs, m in zip(paths, (dec, vis), (meta, vmeta)):
+        with ThreadPoolExecutor(os.cpu_count()) as pool:
+            tensors = dict(pool.map(draw, enumerate(specs.items())))
+        G.write_gguf(path, m, tensors)
+        del tensors
+    return paths
+
+
+def _gguf35_step_launches(params: dict) -> dict:
+    """The quant kernels' launches of one decode step (M = 1) over fused
+    parameters: one of its grid's matmul for every quantized linear, the
+    fused MLP where swiglu_fusable holds (else its linears), the head."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    n = {"quant_matmul": 0, "quant_matmul_q4": 0, "quant_swiglu": 0}
+
+    def lin(p):
+        n["quant_matmul_q4" if "q4" in p else "quant_matmul"] += 1
+
+    for lp in params["layers"]:
+        for k, p in lp.items():
+            if k != "mlp" and isinstance(p, dict) and qm.is_quantized(p):
+                lin(p)
+        mlp = lp["mlp"]
+        if "gateup" in mlp and qm.swiglu_fusable(mlp["gateup"], mlp["down"],
+                                                 1):
+            n["quant_swiglu"] += 1
+        else:
+            for p in mlp.values():
+                lin(p)
+    if qm.is_quantized(params["lm_head"]):
+        lin(params["lm_head"])
+    return n
+
+
+def _gguf35_fusions(params: dict) -> dict:
+    """How the file's grids fused, layer by layer: the fused matrices and
+    the parts left separate."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    out: dict = {}
+    for lp in params["layers"]:
+        for k, p in [*lp.items(), *(("mlp." + k, p)
+                                     for k, p in lp["mlp"].items())]:
+            if isinstance(p, dict) and qm.is_quantized(p):
+                grid, _, N = qm.grid_info(p)
+                key = f"{k} {'q4' if grid else 'q8'} N={N}"
+                out[key] = out.get(key, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def _norm_inputs(store: dict):
+    """Record, for every rms_norm call of models/qwen3_5.py whose weight
+    is a key of `store` (by id), its input in f32 on the CPU: a layer's
+    ln1 weight gives the layer's input, the final norm's the last layer's
+    output."""
+    from aha_tpu_torch.models import qwen3_5
+
+    norm = qwen3_5.rms_norm
+
+    def recording(x, w, eps):
+        if id(w) in store:
+            store[id(w)].append(x.detach().float().cpu())
+        return norm(x, w, eps)
+
+    qwen3_5.rms_norm = recording
+    try:
+        yield
+    finally:
+        qwen3_5.rms_norm = norm
+
+
+def _rows(calls: list, n: int) -> torch.Tensor:
+    """A prefill call's first n rows, then one row a decode step."""
+    return torch.cat([calls[0][0, :n]] + [t[0] for t in calls[1:]])
+
+
+def _dense_tree(tree):
+    """Every quantized dict as its exactly dequantized dense (K, N) weight
+    (K a multiple of 128: the grid's Kp), for the exact f32 path without a
+    dequantize a call."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    if isinstance(tree, list):
+        return [_dense_tree(v) for v in tree]
+    if isinstance(tree, dict):
+        if qm.is_quantized(tree):
+            return {"w": qm.dequant(tree).t().contiguous()}
+        return {k: _dense_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _gguf35_witness(model, params: dict, ids: list[int], forced: list[int],
+                    device: str) -> dict:
+    """(ag)'s witness, layer by layer: the prefill of `ids` and the
+    `forced` steps at full depth on `device`, each layer's input recorded
+    (`_norm_inputs`); then each layer alone (a one-layer model whose
+    embedding rows are that input) fed the card's input, on the CPU in
+    bf16 through the kernels' plain versions (the witness) and in f32 on
+    the exactly dequantized weights (the exact path), and on `device` with
+    every grid's scales zeroed.  Each layer's increment (output − input,
+    over the 64 prefill rows and every step) is held to the witness within
+    TOL_GGUF_WITNESS_REL and to the exact path within TOL_GGUF_REL of max
+    |ref|; zeroed scales must fail both.  At full depth the seeded
+    network carries each layer's bf16 rounding and requantization steps
+    into every later one, so the whole stack's hidden states are read
+    against the same CPU paths and reported, not held."""
+    import dataclasses
+
+    from aha_tpu_torch.models.qwen3_5 import Qwen3_5Model
+
+    c = model.config
+    n = len(ids)
+    dec = {k: v for k, v in params.items() if k not in ("visual", "lm_head")}
+    weights = [lp["ln1"]["w"] for lp in dec["layers"]] + [dec["norm"]["w"]]
+    store = {id(w): [] for w in weights}
+    with _norm_inputs(store):
+        hk = teacher_forced_vl(model, dec, ids, None, forced, device)
+    X = [_rows(store[id(w)], n) for w in weights]
+    wit = _tree_to(dec, "cpu", None)
+    exact = _dense_tree(_tree_to(dec, "cpu", torch.float32))
+    zeroed = _zero_scales(dec["layers"])
+    dtype = embed_dtype(dec)
+    pos = list(range(n + len(forced)))
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def one_layer(i, lp, dtype, dev, routes):
+        cfg = dataclasses.replace(c, num_hidden_layers=1,
+                                  layer_types=(c.layer_types[i],))
+        m = Qwen3_5Model(cfg, max_rope_len=2048, device=dev)
+        ones = torch.ones(c.hidden_size, dtype=dtype, device=dev)
+        p = {"embed": {"w": X[i].to(device=dev, dtype=dtype)},
+             "layers": [lp], "norm": {"w": ones}}
+        out = {id(ones): []}
+        with (card_routes_on_cpu() if routes else contextlib.nullcontext()), \
+                _norm_inputs(out):
+            teacher_forced_vl(m, p, pos[:n], None, pos[n:], dev)
+        return _rows(out[id(ones)], n) - X[i]
+
+    layers = []
+    for i in range(c.num_hidden_layers):
+        dk = X[i + 1] - X[i]
+        dw = one_layer(i, wit["layers"][i], dtype, "cpu", True)
+        dx = one_layer(i, exact["layers"][i], torch.float32, "cpu", False)
+        dz = one_layer(i, zeroed[i], dtype, device, False)
+        layers.append({"vs_witness": rel(dk, dw), "vs_exact": rel(dk, dx),
+                       "witness_vs_exact": rel(dw, dx),
+                       "zeroed_vs_witness": rel(dz, dw),
+                       "zeroed_vs_exact": rel(dz, dx)})
+    cpu_model = Qwen3_5Model(c, max_rope_len=2048, device="cpu")
+    with card_routes_on_cpu():
+        hw = teacher_forced_vl(cpu_model, wit, ids, None, forced, "cpu")
+    hx = teacher_forced_vl(cpu_model, exact, ids, None, forced, "cpu")
+    worst = {k: max(r[k] for r in layers) for k in layers[0]}
+    least = {k: min(r[k] for r in layers) for k in layers[0]}
+    w = {"layers": layers, "worst": worst, "least_zeroed": {
+        k: least[k] for k in ("zeroed_vs_witness", "zeroed_vs_exact")},
+         "full_depth": {"vs_witness": rel(hk, hw), "vs_exact": rel(hk, hx),
+                        "witness_vs_exact": rel(hw, hx)}}
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[gguf35] teacher-forced, a {n}-token prefill (the quant kernels "
+        f"at M {n}) and {len(forced)} steps, each of the "
+        f"{c.num_hidden_layers} layers fed the card's input: increments "
+        f"within {worst['vs_witness']:.3e} of max |ref| of the witness (CPU, "
+        f"bf16, the plain versions; tol {TOL_GGUF_WITNESS_REL}) and "
+        f"{worst['vs_exact']:.3e} of the exact path (CPU, f32, dequantized; "
+        f"tol {TOL_GGUF_REL}), the witness itself "
+        f"{worst['witness_vs_exact']:.3e} from it; zeroed scales off by ≥ "
+        f"{least['zeroed_vs_witness']:.3g} / {least['zeroed_vs_exact']:.3g}; "
+        f"the whole stack (not held) {w['full_depth']['vs_witness']:.3e} / "
+        f"{w['full_depth']['vs_exact']:.3e} (the witness "
+        f"{w['full_depth']['witness_vs_exact']:.3e} from exact) | {card}")
+    require(worst["vs_witness"] <= TOL_GGUF_WITNESS_REL,
+            f"(ag) a layer off the witness by {worst['vs_witness']}")
+    require(worst["vs_exact"] <= TOL_GGUF_REL,
+            f"(ag) a layer off the exact path by {worst['vs_exact']}")
+    require(least["zeroed_vs_witness"] > TOL_GGUF_WITNESS_REL
+            and least["zeroed_vs_exact"] > TOL_GGUF_REL,
+            "zeroed scales pass the GGUF bounds in some layer")
+    return w
+
+
+def _served_reply(served, body: dict) -> str:
+    """The in-process served model's reply text to a chat body."""
+    from aha_tpu_torch.params import ChatCompletionParameters
+
+    resp = served.generate(ChatCompletionParameters.model_validate(body))
+    return resp.choices[0].message.text()
+
+
+def phase_gguf35(device: str = "cuda") -> None:
+    """(ag): the qwen35 GGUF path at the JAX package's default Qwen3.5
+    (24 layers at 1,024, 6 gated attention at 16/2 heads of 128, vocab
+    151,936, tied) with its default tower (27 blocks at 1,152, 16 heads of
+    72, output 1,024, deepstack after 8, 16, 24): two files written
+    (`_gguf35_write`), loaded through load_qwen3_5_gguf_chat (the native
+    dequant required), (ag1) a 300-token text request and (ag2) a 448 x
+    448 image request, 32 greedy tokens each, graphed and eager, each
+    launching what the file's grids imply (rows 13-15 every step, row 1
+    once an attention layer a prefill, row 8 every step, row 10 27 an
+    image); the teacher-forced witness against the CPU; the served chat
+    over HTTP from `serv qwen3.5-gguf --gguf-path F --mmproj-path M` and a
+    `--batch-slots 8` child, replies equal to the in-process models'."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aha_tpu_torch import native
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.io import gguf as G
+    from aha_tpu_torch.models.qwen2_5vl import mm_to
+    from aha_tpu_torch.models.qwen3_5 import qwen3_5_vl_default
+    from aha_tpu_torch.models.qwen3_5_served import load_qwen3_5_gguf_chat
+    from aha_tpu_torch.registry import lookup
+
+    rd = GGUF35_READINGS
+    secs = rd.setdefault("secs", {})
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        clock[0] = now
+
+    if device == "cuda":
+        check_gguf35_shapes()
+    lap("shapes")
+    greedy = SamplingConfig()
+    card = card_line() if device == "cuda" else "cpu"
+    xcfg = qwen3_5_vl_default()
+    c, entry = xcfg.text, lookup(GGUF35_MODEL)
+    tmp = tempfile.mkdtemp(prefix="aha_torch_gguf35_")
+    try:
+        path, mmproj = _gguf35_write(tmp, xcfg)
+        lap("write")
+        rd["write_s"] = secs["write"]
+        rd["mb"] = [os.path.getsize(f) / 1e6 for f in (path, mmproj)]
+        G.DEQUANT_PATHS.update(native=0, numpy=0)
+        served = load_qwen3_5_gguf_chat(entry, path, mmproj=mmproj,
+                                        max_seq_len=2048)
+        _sync(device)
+        lap("load")
+        rd["load_s"] = secs["load"]
+        rd["dequant_paths"] = dict(G.DEQUANT_PATHS)
+        require(G.DEQUANT_PATHS["numpy"] == 0
+                and G.DEQUANT_PATHS["native"] > 0,
+                f"the load did not run the native dequant: {G.DEQUANT_PATHS}")
+        f = G.GGUFFile(path)
+        name = "blk.0.attn_qkv.weight"
+        raw, gt = f.tensor_bytes(name), f.tensors[name].ggml_type
+        t0 = time.perf_counter()
+        a = native.dequant(G._TYPE_NAMES[gt].lower(), raw)
+        t1 = time.perf_counter()
+        b = G._dequant_numpy(raw, gt)
+        t2 = time.perf_counter()
+        require(np.allclose(a, b, rtol=1e-6, atol=1e-6),
+                "native and numpy dequant differ")
+        rd["dequant_one"] = {"tensor": name, "type": G._TYPE_NAMES[gt],
+                             "elements": int(a.size), "native_s": t1 - t0,
+                             "numpy_s": t2 - t1}
+        del f, raw, a, b
+        model, params = served.engine.model, served.engine.params
+        require(model.device.type == device and model.tower is not None
+                and (device != "cuda"
+                     or embed_dtype(params) == torch.bfloat16),
+                f"(ag) loaded on {model.device}, {embed_dtype(params)}")
+        per_step = _gguf35_step_launches(params)
+        rd["fused"] = _gguf35_fusions(params)
+        log(f"[gguf35] (ag) Qwen3.5 GGUF H={c.hidden_size} "
+            f"I={c.intermediate_size} V={c.vocab_size}, "
+            f"{c.num_hidden_layers} layers, and its mmproj (tower "
+            f"{xcfg.vision.depth} x {xcfg.vision.hidden_size}): "
+            f"{rd['mb'][0]:.1f} + {rd['mb'][1]:.1f} MB written in "
+            f"{rd['write_s']:.1f} s; loaded onto {device} in "
+            f"{rd['load_s']:.1f} s (dequant paths {rd['dequant_paths']}; "
+            f"{name} {rd['dequant_one']['type']}, "
+            f"{rd['dequant_one']['elements']} elements: native "
+            f"{rd['dequant_one']['native_s'] * 1e3:.1f} ms, numpy "
+            f"{rd['dequant_one']['numpy_s'] * 1e3:.1f} ms); fused "
+            f"{rd['fused']}; per decode step {per_step} | {card}")
+
+        # (ag1), (ag2): the launches the grids imply -----------------------
+        rng = np.random.default_rng(36)
+        reqs = {"ag1": {"ids": _prompt(rng, 300, 151643), "mm": None},
+                "ag2": _vl3_image_request(served.vl_config, 448, 5)}
+        require(reqs["ag2"]["patches"].shape[0] == 784,
+                "(ag2) 448 px: not 784 patches")
+        warm = TextEngine(model, params, eos_token_ids=[], max_seq_len=2048)
+        for r in reqs.values():
+            warm.generate_tokens(r["ids"], greedy, max_tokens=4,
+                                 mm=None if r["mm"] is None else mm_to(
+                                     r["mm"], torch.device(device)))
+        del warm
+        eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=2048)
+        eager = TextEngine(model, params, eos_token_ids=[], max_seq_len=2048,
+                           cuda_graphs=False)
+        n_attn, n = model.n_attn, GGUF35_TOKENS
+        head = ("quant_matmul_q4" if "q4" in params["lm_head"]
+                else "quant_matmul")
+        must = ("quant_matmul", "quant_matmul_q4", "quant_swiglu",
+                "flash_attention", "flash_decode_at_layer")
+        outs = {}
+        for tag, what in (("ag1", "300-token text prompt"),
+                          ("ag2", "448 x 448 image, 196 image tokens")):
+            vision = reqs[tag]["mm"] is not None
+            want = {k: n * v for k, v in per_step.items()}
+            want[head] += 1                 # the prefill's last row
+            want.update(flash_attention=n_attn,
+                        flash_decode_at_layer=n_attn * n,
+                        flash_attention_segmented=(xcfg.vision.depth
+                                                   if vision else 0),
+                        fused_decode_stack=0, fused_decode_stack_q8=0,
+                        head_argmax=0, head_argmax_q8=0, head_argmax_q4=0)
+            tower = None
+            if vision:
+                reqs[tag]["mm_dev"] = mm_to(reqs[tag]["mm"],
+                                            torch.device(device))
+                tower = _tower_ms(model, params["visual"],
+                                  reqs[tag]["mm_dev"], device)
+            outs[tag] = _vl3_path(
+                tag, what, eng, eager, reqs[tag], greedy,
+                must + (("flash_attention_segmented",) if vision else ()),
+                want, device, tower, n, "gguf35", rd)
+            rd[tag]["launches"] = want
+        lap("requests")
+        rd["block"] = _block_idle(eng, reqs["ag1"]["ids"], device, 512)
+        if rd["block"]:
+            log(f"[gguf35] (ag1) a 16-step decode block at 301 rows: "
+                f"{rd['block']['wall_ms'] / 16:.3f} ms/step graphed, device "
+                f"busy {rd['block']['device_busy_ms'] / 16:.3f}, idle share "
+                f"{rd['block']['idle_share']:.3f}, "
+                f"{rd['block']['device_ops_per_step']:.0f} device ops a step "
+                f"| {card}")
+        del eng, eager
+        lap("block")
+
+        # the served children load while the witness and the in-process
+        # chats run -----------------------------------------------------
+        with _started((tmp, ("--gguf-path", path, "--mmproj-path", mmproj),
+                       GGUF35_MODEL),
+                      (tmp, ("--gguf-path", path, "--batch-slots", "8"),
+                       GGUF35_MODEL)) as up:
+            rd["witness"] = _gguf35_witness(
+                model, params, reqs["ag1"]["ids"][:64],
+                outs["ag1"][:GGUF35_FORCED], device)
+            lap("witness")
+            image_body = {"model": GGUF35_MODEL, "max_tokens": n,
+                          "temperature": 0.0, "stream": False, "messages": [{
+                              "role": "user", "content": [
+                                  {"type": "text",
+                                   "text": "describe the image "},
+                                  {"type": "image_url", "image_url": {
+                                      "url": _png_data_url(448, 448, 5)}}]}]}
+            text_body = {**image_body, "messages": [{
+                "role": "user",
+                "content": "the quick brown fox jumps over the lazy dog"}]}
+            batch_bodies = [{**text_body, "max_tokens": 24, "messages": [{
+                "role": "user", "content": f"request {i}: the quick brown "
+                "fox jumps over the lazy dog " * (2 + i)}]} for i in range(8)]
+            want_vl = [_served_reply(served, b)
+                       for b in (image_body, text_body)]
+            del served, model, params
+            _sync(device)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            bserved = load_qwen3_5_gguf_chat(entry, path, max_seq_len=2048,
+                                             batch_slots=8)
+            try:
+                with ThreadPoolExecutor(8) as pool:
+                    want_batch = list(pool.map(
+                        lambda b: _served_reply(bserved, b), batch_bodies))
+            finally:
+                bserved.engine.shutdown()
+            del bserved
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            lap("in-process chats")
+            vl_base, batch_base = up()
+            got_vl = [_reply(vl_base, b) for b in (image_body, text_body)]
+            with ThreadPoolExecutor(8) as pool:
+                got_batch = list(pool.map(lambda b: _reply(batch_base, b),
+                                          batch_bodies))
+        require(got_vl == want_vl and all(want_vl),
+                f"(ag) the mmproj server's replies differ from the "
+                f"in-process model's: {got_vl} vs {want_vl}")
+        require(got_batch == want_batch and all(want_batch),
+                f"(ag) the --batch-slots 8 server's replies differ from the "
+                f"in-process 8-slot model's: {got_batch} vs {want_batch}")
+        lap("http")
+        log(f"[gguf35] served by `serv {GGUF35_MODEL} --gguf-path F "
+            f"--mmproj-path M`: an image chat and a text chat equal to the "
+            f"in-process model's; by `--batch-slots 8`: 8 concurrent chats "
+            f"equal to the in-process 8-slot model's; seconds by step "
+            f"{json.dumps({k: round(v, 1) for k, v in secs.items()})} | "
+            f"{card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # -- 8c. the SigLIP-tower families: PaddleOCR-VL (y) and LFM2-VL (z) ---------
@@ -7866,6 +8596,8 @@ def main() -> int:
     timed("vl-http", phase_http_vl, vl["params"], vl3)
     del vl, vl3
     torch.cuda.empty_cache()
+    timed("gguf35", phase_gguf35)
+    torch.cuda.empty_cache()
     ocr = timed("ocr", phase_ocr)
     lfm2vl = timed("lfm2vl", phase_lfm2vl)
     timed("siglip-http", phase_http_siglip, ocr, lfm2vl)
@@ -7903,7 +8635,8 @@ def main() -> int:
                     "library", "timed_at", "launches_by_path",
                     "index_mismatches", "max_abs_err_of", "ms_cast_variant",
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
-                    "page", "fun_asr", "ernie", *DSOCR_DECODE, *VOX_DECODE,
+                    "page", "fun_asr", "ernie", "gguf35", *DSOCR_DECODE,
+                    *VOX_DECODE,
                     *HUNYUAN_DECODE,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
@@ -7913,6 +8646,7 @@ def main() -> int:
     print(json.dumps({"spec": SPEC_READINGS}))
     print(json.dumps({"hybrid": HYBRID_READINGS}))
     print(json.dumps({"vl3": VL3_READINGS}))
+    print(json.dumps({"gguf35": GGUF35_READINGS}))
     print(json.dumps({"siglip": SIGLIP_READINGS}))
     print(json.dumps({"dsocr": DSOCR_READINGS}))
     print(json.dumps({"asr": ASR_READINGS}))

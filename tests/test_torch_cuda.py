@@ -2290,3 +2290,38 @@ def test_stacked_decode_at_hunyuan_group_2(dev, B, lens):
                 q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
                 v[:, b:b + 1].contiguous(), layer, vl[b:b + 1].contiguous())
             assert torch.equal(one, got[b:b + 1]), f"slot {b}"
+
+
+@pytest.mark.parametrize("grid", ["q8", "q4"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_qwen3_5_quantized_fusion_on_the_card(dev, grid, M):
+    """Qwen3.5's [qkv|z|b|a] at full width (4,096 + 2,048 + 16 + 16 =
+    6,176 columns, padded to 6,272 by pad_quant_cols) through row 13 / 14:
+    every real column bit-equal to the separate launches of its part, the
+    pad columns 0; and [gate|up] unpadded (N 8,192, down at K 4,096)
+    through row 15 equal to the same launch over the parts concatenated
+    by concat_columns."""
+    from aha_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(23 + M)
+    fn = qm.quant_matmul_q4 if grid == "q4" else qm.quant_matmul
+    keys = qm.GRID_KEYS[grid]
+    parts = [_packed(g, n, 1024, grid, 0.01 if grid == "q4" else 0.0)
+             for n in (4096, 2048, 16, 16)]
+    fused = qm.pad_quant_cols(qm.concat_columns(parts))
+    assert qm.grid_info(fused)[2] == 6272
+    x = _bf(g, M, 1024)
+    got = fn(x, *[fused[k] for k in keys])
+    want = torch.cat([fn(x, *[p[k] for k in keys]) for p in parts], dim=-1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :6176], want)
+    assert not got[:, 6176:].any()
+    gate, up = (_packed(g, 4096, 1024, grid, 0.01 if grid == "q4" else 0.0)
+                for _ in range(2))
+    down = _packed(g, 1024, 4096, "q8")
+    gateup = qm.concat_columns([gate, up])
+    assert qm.swiglu_fusable(gateup, down, M)
+    y = qm.quant_swiglu(gateup, down, x)
+    ref = qm.quant_swiglu_plain(gateup, down, x.float())
+    torch.cuda.synchronize()
+    assert ((y.float() - ref).abs().max() <= 1e-2 * ref.abs().max()).item()

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import aha_tpu.native
+import aha_tpu_torch.native
 from aha_tpu.core.batch_engine import BatchEngine as JBatchEngine
 from aha_tpu.core.engine import TextEngine as JEngine
 from aha_tpu.core.sampling import SamplingConfig as JSampling
@@ -150,10 +151,10 @@ def _deadline(fn, *a):
 
 
 def test_reader_matches_jax(tmp_path, monkeypatch):
-    """F32, F16, BF16, Q8_0, Q4_0, Q4_K and Q6_K tensors: metadata equal,
-    dequantized values bit-equal to the JAX reader's numpy path (the port
-    carries no C++ dequant), and equal within f32 rounding to its native
-    one."""
+    """F32, F16, BF16, Q8_0, Q4_0, Q4_K and Q6_K tensors: metadata equal;
+    the port's numpy path bit-equal to the JAX reader's numpy path, and the
+    port's reader (its native dequant first) equal within f32 rounding to
+    the JAX reader's native one."""
     rng = np.random.default_rng(0)
     types = {"f32": jg.GGML_F32, "f16": jg.GGML_F16, "q8": jg.GGML_Q8_0,
              "q4_0": jg.GGML_Q4_0, "q4_k": jg.GGML_Q4_K, "q6_k": jg.GGML_Q6_K}
@@ -172,7 +173,11 @@ def test_reader_matches_jax(tmp_path, monkeypatch):
             for k, v in port.tensors.items()} == \
         {k: (v.shape, v.ggml_type, v.offset) for k, v in ref.tensors.items()}
     native = {n: ref.dequantize(n) for n in types}
+    for n in types:
+        np.testing.assert_allclose(port.dequantize(n), native[n], rtol=1e-6,
+                                   atol=1e-7)
     monkeypatch.setattr(aha_tpu.native, "dequant", lambda *a: None)
+    monkeypatch.setattr(aha_tpu_torch.native, "dequant", lambda *a: None)
     for n in types:
         got = port.dequantize(n)
         np.testing.assert_array_equal(got, ref.dequantize(n))

@@ -69,6 +69,57 @@ OCR2_MODULES = ("aha_tpu_torch.models.hunyuan_ocr",
                 "aha_tpu_torch.io.weights")
 
 
+#: the modules of the qwen35 GGUF slice
+GGUF35_MODULES = ("aha_tpu_torch.native", "aha_tpu_torch.io.gguf",
+                  "aha_tpu_torch.io.gguf_models",
+                  "aha_tpu_torch.models.qwen3_5",
+                  "aha_tpu_torch.models.qwen3_5_served",
+                  "aha_tpu_torch.models.loader", "aha_tpu_torch.cli")
+
+
+def test_gguf35_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({GGUF35_MODULES!r}) - set(mods)\n"
+             "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
+def test_gguf35_chat_loads_natively_and_imports_nothing_of_aha_tpu(tmp_path):
+    """A tiny qwen35 file and its mmproj loaded through load_model in a
+    fresh interpreter: its block tensors go through the native dequant
+    (none through numpy), an image chat answers, and no aha_tpu or jax
+    module is loaded."""
+    from tests.test_torch_qwen3_5_gguf import write_decoder, write_mmproj
+
+    model = write_decoder(str(tmp_path / "m.gguf"))
+    mmproj = write_mmproj(str(tmp_path / "mmproj.gguf"))
+    code = (
+        "import sys\n"
+        "from aha_tpu_torch.io import gguf\n"
+        "from aha_tpu_torch.models.loader import load_model\n"
+        "from aha_tpu_torch.params import ChatCompletionParameters\n"
+        f"served = load_model('qwen3.5-gguf', 'GGUF', gguf={model!r},"
+        f" mmproj={mmproj!r}, max_seq_len=256)\n"
+        "assert gguf.DEQUANT_PATHS['numpy'] == 0, gguf.DEQUANT_PATHS\n"
+        "assert gguf.DEQUANT_PATHS['native'] > 40, gguf.DEQUANT_PATHS\n"
+        "mes = ChatCompletionParameters.model_validate({'model': 'm',"
+        " 'max_tokens': 4, 'temperature': 0.0, 'messages': [{'role': 'user',"
+        " 'content': [{'type': 'text', 'text': '<t5>'}, {'type': 'image_url',"
+        " 'image_url': {'url': 'data:image/png;base64,' + __import__("
+        "'base64').b64encode(open(sys.argv[1], 'rb').read()).decode()}}]}]})\n"
+        "resp = served.generate(mes)\n"
+        "assert resp.usage.prompt_tokens > 4, resp.usage\n"
+        + NOTHING_OF_AHA_TPU)
+    from PIL import Image
+
+    png = tmp_path / "x.png"
+    Image.new("RGB", (64, 64), (10, 200, 30)).save(png)
+    r = subprocess.run([sys.executable, "-c", code, str(png)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**{k: v for k, v in os.environ.items()
+                               if k != "AHA_NO_NATIVE"}, "AHA_DEVICE": "cpu"})
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
 def test_ocr2_modules_walked_and_free_of_aha_tpu():
     r = _run(ALL_MODULES + f"missing = set({OCR2_MODULES!r}) - set(mods)\n"
              "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)

@@ -393,14 +393,19 @@ def test_minicpm4_geometry():
                                       "OpenBMB/VoxCPM-0.5B",
                                       "AI-ModelScope/RMBG-2.0",
                                       "Tencent-Hunyuan/HunyuanOCR",
-                                      "ZhipuAI/GLM-OCR"])
+                                      "ZhipuAI/GLM-OCR",
+                                      "qwen3.5-gguf"])
 def test_new_families_refuse_a_missing_card(minicpm_repo, monkeypatch,
                                             model_id):
     """With AHA_DEVICE unset the loaders run on the card, and where torch
-    sees none they raise rather than serve on the CPU."""
+    sees none they raise rather than serve on the CPU (the GGUF entry
+    before it opens its file)."""
     from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.registry import lookup
 
     monkeypatch.delenv("AHA_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = ({"gguf": f"{minicpm_repo}/model.gguf"} if lookup(model_id).is_gguf
+          else {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        load_model(model_id, minicpm_repo, max_seq_len=128)
+        load_model(model_id, minicpm_repo, max_seq_len=128, **kw)

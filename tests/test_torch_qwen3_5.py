@@ -418,14 +418,13 @@ def test_text_repo_serves_as_the_reference(cpu, text_repo, slots):
 
 def test_vision_repo_refuses_slots_and_images(cpu, vl_repo, text_repo):
     """A checkpoint with a vision_config: --batch-slots 4 refused before
-    any weights load with aha_tpu's words, as the GGUF entry is; single
-    stream, Qwen3_5VLChat answers a text chat as the text-only checkpoint
-    of the same decoder weights does, and an image chat and a video chat
-    as aha_tpu's Qwen3_5VLChat does."""
+    any weights load with aha_tpu's words, as the GGUF entry without a
+    gguf file is; single stream, Qwen3_5VLChat answers a text chat as the
+    text-only checkpoint of the same decoder weights does, and an image
+    chat and a video chat as aha_tpu's Qwen3_5VLChat does."""
     from aha_tpu.models.loader import load_model as jload_model
-    from aha_tpu_torch.models.loader import load_model
-    from aha_tpu_torch.models.qwen3_5_served import (GGUF_NOT_PORTED,
-                                                     VL_SLOTS, Qwen3_5VLChat)
+    from aha_tpu_torch.models.loader import GGUF_PATH_NEEDED, load_model
+    from aha_tpu_torch.models.qwen3_5_served import VL_SLOTS, Qwen3_5VLChat
     from tests.vision_chat import npz_data_url, png_data_url
 
     with pytest.raises(ValueError) as got:
@@ -433,9 +432,11 @@ def test_vision_repo_refuses_slots_and_images(cpu, vl_repo, text_repo):
     with pytest.raises(ValueError) as want:
         jload_model("Qwen/Qwen3.5-0.8B", vl_repo, batch_slots=4)
     assert str(got.value) == str(want.value) == VL_SLOTS
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(ValueError) as got:
         load_model("qwen3.5-gguf", vl_repo)
-    assert str(e.value) == GGUF_NOT_PORTED
+    with pytest.raises(ValueError) as want:
+        jload_model("qwen3.5-gguf", vl_repo)
+    assert str(got.value) == str(want.value) == GGUF_PATH_NEEDED
     served = load_model("Qwen/Qwen3.5-0.8B", vl_repo, max_seq_len=1024)
     assert isinstance(served, Qwen3_5VLChat)
     assert served.engine.prefix_cache_entries == 0
