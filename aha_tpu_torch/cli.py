@@ -4,9 +4,10 @@
 - `serv <path>`: serve a local checkpoint as the registry id --model
   names: Qwen3 or MiniCPM4/5 chat, Qwen2.5-VL image chat, or a Qwen3
   embedding / reranker or all-MiniLM-L6-v2 model behind /v1/embeddings
-  and /v1/rerank.  A directory whose config.json has a model_type of
-  MODEL_TYPES (qwen2_5_vl, qwen3_vl, paddleocr_vl, lfm2_vl) is served as
-  that type's id unless --model names another.
+  and /v1/rerank.  Without --model, a directory whose config.json has a
+  model_type of MODEL_TYPES (qwen2_5_vl, qwen3_vl, paddleocr_vl, lfm2_vl,
+  bert) is served as that type's id, one with no model_type or qwen3 as
+  Qwen/Qwen3-0.6B, and any other is refused (`model_id_for`).
 - `serv <model id>`: the JAX CLI's form, taken when the positional
   argument is a registry id (`resolve`): a GGUF entry (`qwen3.5-gguf`)
   serves `--gguf-path F [--mmproj-path M]`, an ONNX entry is refused, any
@@ -17,11 +18,22 @@
   `--batch-slots N` serves N chats at once through the continuous-batching
   engine; `--spec-tokens N` drafts N tokens a speculative round on the
   single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
-  cache in int8.
+  cache in int8.  `--profile-dir D` writes a torch.profiler trace of each
+  request into D; `--profile-port P` answers GET /capture?ms=N on
+  127.0.0.1:P with a trace of the next N ms (utils/profiling.py).  `--tp`
+  above 1 is refused (tensor parallelism is not ported); `--dp` goes to
+  the loader's checks.
+- `serv --manage-only`: no model; the web console at / and the /manage
+  API (download, serve, stop, logs, settings), with the PID file.
+- `download <model id> [--save-dir] [--download-retries]`: fetch a
+  registry id's files from ModelScope into <save dir>/<id>
+  (utils/download.py).
+- `cli <model id>`: download if needed, then serve, with `serv`'s
+  options.
 - `run <path or model id> --input ...`: one chat from the command line
-  (both argument forms, as `serv`; where the JAX CLI's `run` would
-  download, the port refuses: downloading is not ported) (text, or for
-  a vlm a prompt and an image, or for an OCR model an image and an
+  (both argument forms, as `serv`; a registry id not yet under the save
+  directory is downloaded first, as the JAX CLI's `run` does) (text, or
+  for a vlm a prompt and an image, or for an OCR model an image and an
   optional prompt, the family's task prompt by default, or for an ASR
   model an audio file, whose transcript is printed), the vectors of
   an embedding model's inputs, or a reranker's ranking of `--input query
@@ -31,9 +43,6 @@
   default output.png; <base>_<i>.png for several).
 - `list [--json]`, `delete <model>`, `ps [--compact]`: the registry with
   the downloaded mark, a downloaded model's removal, the running servers.
-
-The paths are given, never fetched: `download` and `cli` stay with the JAX
-package's CLI.
 """
 
 from __future__ import annotations
@@ -56,7 +65,11 @@ MODEL_TYPES = {"qwen2_5_vl": "Qwen/Qwen2.5-VL-3B-Instruct",
                # transformers registers lfm2_vl; its config class writes
                # lfm2-vl into a saved config.json
                "lfm2_vl": "LiquidAI/LFM2-VL-1.6B",
-               "lfm2-vl": "LiquidAI/LFM2-VL-1.6B"}
+               "lfm2-vl": "LiquidAI/LFM2-VL-1.6B",
+               # BERT is all-MiniLM-L6-v2's type, and no other id's
+               "bert": "sentence-transformers/all-MiniLM-L6-v2"}
+#: model types a directory is served under the default id as
+DEFAULT_TYPES = (None, "qwen3")
 #: family → default OCR instruction (the JAX CLI's)
 _OCR_PROMPTS = {"deepseek_ocr": "<image>\nConvert the document to markdown. ",
                 "glm_ocr": "Text Recognition:",
@@ -69,23 +82,29 @@ RUN_TYPES = ("llm", "vlm", "ocr", "asr", "embedding", "reranker", "tts",
 
 def model_id_for(path: str, model: str) -> str:
     """`model`, or for the default id the one the directory's config.json
-    model_type names."""
+    model_type names: a type of MODEL_TYPES its id, no type or qwen3 the
+    default; any other type is refused before anything loads."""
     cfg = os.path.join(path, "config.json")
     if model != DEFAULT_MODEL or not os.path.exists(cfg):
         return model
     with open(cfg) as f:
-        return MODEL_TYPES.get(json.load(f).get("model_type"), model)
+        model_type = json.load(f).get("model_type")
+    if model_type in DEFAULT_TYPES:
+        return model
+    if model_type in MODEL_TYPES:
+        return MODEL_TYPES[model_type]
+    raise SystemExit(f"{path}: config.json's model_type {model_type!r} "
+                     "names no one model of the registry; name it with "
+                     "--model <model id>")
 
 
-#: the JAX CLI's refusals, word for word (aha_tpu/cli/main.py:204-226);
-#: RUN_NO_DOWNLOAD stands where its `run` would download
+#: the JAX CLI's refusals, word for word (aha_tpu/cli/main.py:204-226,
+#: :266)
 GGUF_PATH_REQUIRED = "gguf model path is required"
 ONNX_REFUSED = "onnx model not support now"
 SERV_NO_DOWNLOAD = ("serv subcommand will not download model, use "
                     "`weight-path` to pass the model path")
-RUN_NO_DOWNLOAD = ("run will not download model (downloading is not ported "
-                   "to aha_tpu_torch), use `weight-path` to pass the model "
-                   "path")
+SERV_NEEDS_MODEL = "serv requires a model id (or --manage-only)"
 
 
 def resolve(args) -> tuple[str, str, str | None, str | None]:
@@ -93,8 +112,9 @@ def resolve(args) -> tuple[str, str, str | None, str | None]:
     arguments.  A positional registry id takes the JAX CLI's form
     (`_resolve_model_path`): a GGUF entry needs --gguf-path, an ONNX entry
     is refused, any other takes --weight-path, else its directory under
-    the save directory, else it is refused.  Anything else is a path,
-    served as --model (model_id_for); a GGUF entry there takes
+    the save directory, else `serv` refuses and `run` / `cli` download it
+    into --save-dir (default the save directory).  Anything else is a
+    path, served as --model (model_id_for); a GGUF entry there takes
     --gguf-path, else the path itself as the file."""
     if not registry.supported(args.path):
         model_id = model_id_for(args.path, args.model)
@@ -117,15 +137,22 @@ def resolve(args) -> tuple[str, str, str | None, str | None]:
         return model_id, args.weight_path, None, None
     path = os.path.join(default_save_dir(), model_id)
     if not os.path.exists(path):
-        raise SystemExit(SERV_NO_DOWNLOAD if args.command == "serv"
-                         else RUN_NO_DOWNLOAD)
+        if args.command == "serv":
+            raise SystemExit(SERV_NO_DOWNLOAD)
+        from aha_tpu_torch.utils.download import download_model
+
+        save = getattr(args, "save_dir", None) or default_save_dir()
+        download_model(model_id, save, getattr(args, "download_retries", 3))
+        return model_id, os.path.join(save, model_id), None, None
     return model_id, path, None, None
 
 
-def _add_model_path(p: argparse.ArgumentParser) -> None:
-    p.add_argument("path", help="model directory (config.json, tokenizer, "
-                                "*.safetensors), or a registry id (the JAX "
-                                "CLI's form)")
+def _add_model_path(p: argparse.ArgumentParser, optional: bool = False
+                    ) -> None:
+    p.add_argument("path", nargs="?" if optional else None,
+                   help="model directory (config.json, tokenizer, "
+                        "*.safetensors), or a registry id (the JAX CLI's "
+                        "form)")
     p.add_argument("--model", default=DEFAULT_MODEL,
                    help="registry id the checkpoint is served as")
     p.add_argument("--weight-path", help="local model weight directory "
@@ -144,12 +171,53 @@ def _add_model_path(p: argparse.ArgumentParser) -> None:
                         "disables")
 
 
+def _add_download(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--save-dir", help="download directory (default ~/.aha)")
+    p.add_argument("--download-retries", type=int, default=3)
+
+
+def _add_serving(s: argparse.ArgumentParser) -> None:
+    """`serv`'s options, which `cli` shares."""
+    s.add_argument("--address", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--batch-slots", type=int, default=1,
+                   help="continuous batching: decode up to N chat requests "
+                        "together in one batched step (text models)")
+    s.add_argument("--prefix-cache", type=int, default=4,
+                   help="prompt-prefix KV cache entries (0 disables)")
+    s.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (not ported: only 1 is "
+                        "taken)")
+    s.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree of the continuous-batching "
+                        "slots (not ported: only 1 is taken)")
+    s.add_argument("--eager", action="store_true",
+                   help="run decode blocks eagerly instead of replaying "
+                        "captured CUDA graphs")
+    s.add_argument("--allow-remote-shutdown", action="store_true")
+    s.add_argument("--api-key", help="require 'Authorization: Bearer <key>' "
+                                     "on every route but /health and the "
+                                     "console page (env AHA_API_KEY also "
+                                     "works)")
+    s.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of each request into "
+                        "this directory (*.pt.trace.json; open in Perfetto "
+                        "or TensorBoard)")
+    s.add_argument("--profile-port", type=int,
+                   help="answer GET /capture?ms=N on 127.0.0.1 at this port "
+                        "with a trace of the next N ms of the server")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m aha_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("list", help="list supported models")
     p.add_argument("--json", action="store_true", help="JSON output")
+
+    p = sub.add_parser("download", help="download model weights")
+    p.add_argument("model", help="model id")
+    _add_download(p)
 
     p = sub.add_parser("delete", help="delete a downloaded model")
     p.add_argument("model", help="model id")
@@ -160,21 +228,19 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("ps", help="list running servers")
     p.add_argument("--compact", action="store_true")
 
-    s = sub.add_parser("serv", help="serve a local checkpoint")
-    _add_model_path(s)
-    s.add_argument("--address", default="127.0.0.1")
-    s.add_argument("--port", type=int, default=8000)
-    s.add_argument("--batch-slots", type=int, default=1,
-                   help="continuous batching: decode up to N chat requests "
-                        "together in one batched step (text models)")
-    s.add_argument("--prefix-cache", type=int, default=4,
-                   help="prompt-prefix KV cache entries (0 disables)")
-    s.add_argument("--eager", action="store_true",
-                   help="run decode blocks eagerly instead of replaying "
-                        "captured CUDA graphs")
-    s.add_argument("--allow-remote-shutdown", action="store_true")
-    s.add_argument("--api-key", help="require 'Authorization: Bearer <key>' "
-                                     "(env AHA_API_KEY also works)")
+    s = sub.add_parser("serv", help="serve a local checkpoint (never "
+                                    "downloads)")
+    _add_model_path(s, optional=True)
+    s.add_argument("--manage-only", action="store_true",
+                   help="start without a model: serves only the web console "
+                        "and the /manage API (download models, spawn / stop "
+                        "model servers, stream logs)")
+    _add_serving(s)
+
+    c = sub.add_parser("cli", help="download (if needed) and serve")
+    _add_model_path(c)
+    _add_download(c)
+    _add_serving(c)
 
     r = sub.add_parser("run", help="one chat from the command line")
     _add_model_path(r)
@@ -187,15 +253,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "then its documents")
     r.add_argument("--max-tokens", type=int, default=1024)
     r.add_argument("--output", help="output file (audio/image models)")
+    r.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (not ported: only 1 is "
+                        "taken)")
     return ap
 
 
-def is_model_downloaded(model_id: str, save_dir: str) -> bool:
-    d = os.path.join(save_dir, model_id)
-    return os.path.isdir(d) and bool(os.listdir(d))
-
-
 def run_list(args) -> int:
+    from aha_tpu_torch.utils.download import is_model_downloaded
+
     save = default_save_dir()
     models = registry.model_list()
     if args.json:
@@ -213,6 +279,15 @@ def run_list(args) -> int:
     for m in models:
         mark = "  ✔" if is_model_downloaded(m.model_id, save) else ""
         print(f"{m.model_id:<40} {m.owner:<20} {m.model_type:<10} {mark:<10}")
+    return 0
+
+
+def run_download(args) -> int:
+    from aha_tpu_torch.utils.download import download_model
+
+    registry.lookup(args.model)
+    download_model(args.model, args.save_dir or default_save_dir(),
+                   args.download_retries)
     return 0
 
 
@@ -259,22 +334,37 @@ def _load(args, **kw):
     model_id, path, gguf, mmproj = resolve(args)
     return load_model(model_id, path, gguf=gguf, mmproj=mmproj,
                       max_seq_len=args.max_seq_len,
-                      spec_tokens=args.spec_tokens, **kw)
+                      spec_tokens=args.spec_tokens, tp=args.tp, **kw)
 
 
 def run_serv(args) -> int:
+    """`serv` and `cli`: a model server, or with --manage-only the console
+    and /manage API alone."""
     from aha_tpu_torch.server.app import ServerState, start_http_server
-    from aha_tpu_torch.utils.device import device
 
+    api_key = args.api_key or os.environ.get("AHA_API_KEY")
+    if getattr(args, "manage_only", False):
+        state = ServerState(model=None,
+                            allow_remote_shutdown=args.allow_remote_shutdown,
+                            port=args.port, api_key=api_key)
+        print(f"management console on http://{args.address}:{args.port}/ "
+              f"(no model loaded)", flush=True)
+        start_http_server(state, address=args.address, port=args.port)
+        return 0
+    if not args.path:
+        raise SystemExit(SERV_NEEDS_MODEL)
+    from aha_tpu_torch.utils.device import device
+    from aha_tpu_torch.utils.profiling import configure
+
+    configure(args.profile_dir, args.profile_port)
     t0 = time.perf_counter()
-    model = _load(args, prefix_cache=args.prefix_cache,
+    model = _load(args, prefix_cache=args.prefix_cache, dp=args.dp,
                   batch_slots=args.batch_slots, cuda_graphs=not args.eager)
     print(f"model loaded in {time.perf_counter() - t0:.1f}s on "
           f"{device()}", flush=True)
     state = ServerState(model=model,
                         allow_remote_shutdown=args.allow_remote_shutdown,
-                        port=args.port,
-                        api_key=args.api_key or os.environ.get("AHA_API_KEY"))
+                        port=args.port, api_key=api_key)
     start_http_server(state, address=args.address, port=args.port)
     return 0
 
@@ -385,8 +475,9 @@ def run_run(args) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"list": run_list, "delete": run_delete, "ps": run_ps,
-            "serv": run_serv, "run": run_run}[args.command](args)
+    return {"list": run_list, "download": run_download,
+            "delete": run_delete, "ps": run_ps, "serv": run_serv,
+            "cli": run_serv, "run": run_run}[args.command](args)
 
 
 if __name__ == "__main__":

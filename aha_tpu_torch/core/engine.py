@@ -73,6 +73,7 @@ from aha_tpu_torch.core.graphs import DecodeGraphs
 from aha_tpu_torch.core.sampling import (DEFAULT_REPEAT_LAST_N,
                                          SamplingConfig, fast_argmax,
                                          sample_token)
+from aha_tpu_torch.utils.profiling import annotate, step_annotation
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
                    32768, 65536, 131072)
@@ -353,16 +354,18 @@ class TextEngine:
         the multimodal inputs `mm`, if any), advance pos by len(tokens),
         return the last real row's f32 logits (1, V).  The model is told
         the true length (`prompt_len`): a hybrid places its rolling state
-        at the last real row and makes the padded rows no-ops."""
+        at the last real row and makes the padded rows no-ops.  A trace
+        shows it as the range "prefill"."""
         ids = torch.zeros((1, bucket), dtype=torch.int64)
         ids[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
         kw = {} if mm is None else {"mm": mm}
-        hidden = self.model.backbone(self.params, ids.to(self.device), cache,
-                                     prompt_len=len(tokens),
-                                     from_cache=from_cache, **kw)
-        kv.advance(cache, len(tokens))
-        last = hidden[:, len(tokens) - 1:len(tokens)]
-        return self.model.logits(self.params, last)[:, 0].float()
+        with annotate("prefill"):
+            hidden = self.model.backbone(self.params, ids.to(self.device),
+                                         cache, prompt_len=len(tokens),
+                                         from_cache=from_cache, **kw)
+            kv.advance(cache, len(tokens))
+            last = hidden[:, len(tokens) - 1:len(tokens)]
+            return self.model.logits(self.params, last)[:, 0].float()
 
     @staticmethod
     def _repeat_window(cfg: SamplingConfig) -> int:
@@ -412,26 +415,28 @@ class TextEngine:
         return torch.stack(toks)
 
     def _decode_block(self, st: _Pooled, cfg: SamplingConfig, n_steps: int,
-                      live_rows: int) -> torch.Tensor:
+                      live_rows: int, step: int = 0) -> torch.Tensor:
         """A decode block whose last step leaves `live_rows` live cache
         rows: the replay of its graph on the card (cuda_graphs), else the
-        steps run eagerly."""
+        steps run eagerly.  A trace shows it as one range "decode#<step>",
+        `step` the index of its first token (a replay is one host call)."""
         cache_len = kv.cache_max_len(st.cache)
         window = window_key(live_rows, cache_len)
 
         def block():
             return self._decode_steps(st, cfg, n_steps, window)
 
-        if self.graphs is None:
-            return block()
-        mode = self._mode(cfg)
-        # the sampled block bakes cfg's filters in; its seed is the
-        # generator's state, read at each replay
-        key = (window, mode, n_steps,
-               dataclasses.replace(cfg, seed=0) if mode == "sampled"
-               else None)
-        return self.graphs.run(st.graphs, key, block,
-                               (self._gen,) if mode == "sampled" else ())
+        with step_annotation("decode", step):
+            if self.graphs is None:
+                return block()
+            mode = self._mode(cfg)
+            # the sampled block bakes cfg's filters in; its seed is the
+            # generator's state, read at each replay
+            key = (window, mode, n_steps,
+                   dataclasses.replace(cfg, seed=0) if mode == "sampled"
+                   else None)
+            return self.graphs.run(st.graphs, key, block,
+                                   (self._gen,) if mode == "sampled" else ())
 
     # -- speculative rounds -------------------------------------------------
 
@@ -643,7 +648,7 @@ class TextEngine:
             # far (the last not yet in the cache) and the block's steps
             while emitted + blk <= max_decode:
                 toks = self._decode_block(st, cfg, blk,
-                                          prompt_len + emitted + blk)
+                                          prompt_len + emitted + blk, emitted)
                 if (yield from emit(toks.tolist())):
                     return
             rem = max_decode - emitted
@@ -653,12 +658,12 @@ class TextEngine:
                 # one overshooting block, extras discarded: blk − 1 wasted
                 # device steps beat blk − 1 host round trips
                 toks = self._decode_block(st, cfg, blk,
-                                          prompt_len + emitted + blk)
+                                          prompt_len + emitted + blk, emitted)
                 yield from emit(toks.tolist()[:rem])
                 return
             while emitted < max_decode:   # single-step tail at the bucket end
                 toks = self._decode_block(st, cfg, 1,
-                                          prompt_len + emitted + 1)
+                                          prompt_len + emitted + 1, emitted)
                 if (yield from emit(toks.tolist())):
                     return
         finally:

@@ -174,6 +174,9 @@ FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
 BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 
 
+TP_NOT_PORTED = ("--tp (a model sharded over a device mesh) is not ported "
+                 "to aha_tpu_torch yet; serve with --tp 1")
+
 #: the reference's refusals of the file kinds, word for word
 ONNX_REFUSED = "onnx comming soon but now not support"
 GGUF_PATH_NEEDED = "gguf model need gguf model path"
@@ -189,10 +192,18 @@ def load_model(model_id: str, path: str, gguf: str | None = None,
     each with the reference's words (aha_tpu/models/loader.py:204-213).
     `dp > 1` (sharded slots) is not ported: after the reference's checks
     of its combination with the slots, a GGUF entry refuses it with the
-    reference's words, any other with the port's."""
+    reference's words, any other with the port's.  `tp > 1` (a model
+    sharded over a device mesh) is not ported either: a GGUF entry
+    refuses it with the reference's words, any other first of all, with
+    the port's."""
     from aha_tpu_torch.models.text_served import SPEC_WITH_SLOTS
 
     entry = lookup(model_id)
+    tp = kw.pop("tp", 1)
+    if tp > 1:
+        if not entry.is_gguf:
+            raise ValueError(TP_NOT_PORTED)
+        kw["tp"] = tp                 # the GGUF loader refuses it
     if kw.get("batch_slots", 1) > 1 and entry.family not in BATCHABLE_FAMILIES:
         raise ValueError(
             f"--batch-slots applies to text chat families "

@@ -4,8 +4,10 @@ The port's copy of aha_tpu/server/app.py's serving routes: the same
 server state, auth middleware and chat / audio transcriptions (multipart)
 / speech synthesis / background removal / embeddings / rerank / health /
 models / shutdown handlers, with the same status codes and error strings,
-so both packages answer the same wire format.  The /manage routes and the
-web console are not ported.
+so both packages answer the same wire format; the web console at GET /
+(server/webui.py) and the /manage routes (server/manage.py) on every
+server.  Each generation runs inside `utils.profiling.request_trace`,
+which writes a torch.profiler trace under `serv --profile-dir`.
 
 One model in memory; generation runs in a worker thread guarded by an
 asyncio lock (the reference's write-lock serialization, api.rs:31/:131) —
@@ -32,6 +34,9 @@ from aha_tpu_torch.params import (ChatCompletionParameters, EmbeddingData,
                                   EmbeddingResponse, RerankRequest,
                                   RerankResponse, RerankResult)
 from aha_tpu_torch.params.asr import TranscriptionResponse, error_response
+from aha_tpu_torch.server.manage import add_manage_routes
+from aha_tpu_torch.server.webui import INDEX_HTML
+from aha_tpu_torch.utils.profiling import request_trace
 
 __all__ = ["ServerState", "create_app", "start_http_server"]
 
@@ -94,7 +99,11 @@ def _state(request: web.Request) -> ServerState:
 
 
 async def _run_blocking(fn, *args):
-    return await asyncio.get_event_loop().run_in_executor(None, fn, *args)
+    def traced(*a):
+        with request_trace(getattr(fn, "__name__", "request")):
+            return fn(*a)
+
+    return await asyncio.get_event_loop().run_in_executor(None, traced, *args)
 
 
 async def chat(request: web.Request) -> web.StreamResponse:
@@ -147,10 +156,11 @@ async def chat(request: web.Request) -> web.StreamResponse:
             # call itself, which streams as the error event
             gen = None
             try:
-                gen = state.model.generate_stream(mes)
-                for chunk in gen:
-                    if cancel.is_set() or not _put(("chunk", chunk)):
-                        return
+                with request_trace("generate_stream"):
+                    gen = state.model.generate_stream(mes)
+                    for chunk in gen:
+                        if cancel.is_set() or not _put(("chunk", chunk)):
+                            return
                 _put(("done", DONE))
             except Exception as e:
                 if not cancel.is_set():
@@ -185,6 +195,11 @@ async def chat(request: web.Request) -> web.StreamResponse:
     except (ConnectionResetError, ConnectionError):
         pass
     return response
+
+
+async def index(request: web.Request) -> web.Response:
+    """The web console (server/webui.py)."""
+    return web.Response(text=INDEX_HTML, content_type="text/html")
 
 
 async def remove_background(request: web.Request) -> web.Response:
@@ -397,8 +412,9 @@ async def shutdown(request: web.Request) -> web.Response:
 
 
 # routes usable without a key when --api-key is set: the health probe
-# (process supervisors)
-_AUTH_EXEMPT = {"/health"}
+# (process supervisors) and the console page, where a user pastes the key
+# it then sends as a Bearer header on every call
+_AUTH_EXEMPT = {"/health", "/"}
 
 
 @web.middleware
@@ -421,6 +437,7 @@ def create_app(state: ServerState | None = None) -> web.Application:
     app.add_routes([
         web.post("/v1/chat/completions", chat),
         web.post("/chat/completions", chat),
+        web.get("/", index),
         web.post("/images/remove_background", remove_background),
         web.post("/audio/speech", speech),
         web.post("/audio/transcriptions", transcriptions),
@@ -434,19 +451,24 @@ def create_app(state: ServerState | None = None) -> web.Application:
         web.get("/v1/models", models),
         web.post("/shutdown", shutdown),
     ])
+    add_manage_routes(app)
     return app
 
 
 def start_http_server(state: ServerState, address: str = "127.0.0.1",
                       port: int = 8000) -> None:
     """Blocking server start: `<port>.pid` is written before the app runs
-    and removed when it stops (server/process.py)."""
+    and removed when it stops (server/process.py); stdout and stderr are
+    teed into the /manage log ring, so GET /manage/logs streams the
+    server's own output."""
     from aha_tpu_torch.server.process import (cleanup_pid_file,
                                               create_pid_file)
 
     state.port = port
     create_pid_file(os.getpid(), port)
+    app = create_app(state)
+    app["manage"].install_log_tee()
     try:
-        web.run_app(create_app(state), host=address, port=port, print=None)
+        web.run_app(app, host=address, port=port, print=None)
     finally:
         cleanup_pid_file(port)

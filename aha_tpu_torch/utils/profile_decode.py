@@ -343,24 +343,49 @@ def profile_engine(model, params, args, card: str) -> None:
 #: fresh trace of the same calls reads normally.  On some machines every
 #: trace came back empty for a while (two runs of chip_smoke.py on an H100
 #: failed so, in different phases): then the calls are timed with CUDA
-#: events instead
+#: events instead.  Such a spell made every call pay TRACE_ATTEMPTS
+#: traces (a run of chip_smoke.py with ~300 timings overran its limit), so
+#: after a call that fell back the next calls take one trace each, and
+#: after STREAK_GIVE_UP such calls in a row only every PROBE_EVERY-th call
+#: takes one, to see whether the traces are back
 TRACE_ATTEMPTS = 3
+STREAK_GIVE_UP = 4
+PROBE_EVERY = 8
+
+#: what device_ms_per_kernel has cost this process: calls, traces taken,
+#: traces that came back empty, calls timed with CUDA events, and the host
+#: seconds spent in traced loops (the profiler's start, stop and reading)
+TRACE_STATS = {"calls": 0, "traces": 0, "empty_traces": 0,
+               "event_timed": 0, "traced_s": 0.0}
+_fallback_streak = 0
+
+
+def _attempts() -> int:
+    if _fallback_streak == 0:
+        return TRACE_ATTEMPTS
+    if _fallback_streak < STREAK_GIVE_UP:
+        return 1
+    return int(_fallback_streak % PROBE_EVERY == 0)
 
 
 def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
     """Device ms per call of each CUDA kernel `fn` launches, from the
     profiler's trace of `iters` calls (each of which launches at least one
     kernel); a trace with fewer kernel launches than calls is incomplete
-    and is taken again, up to TRACE_ATTEMPTS times.  Only then are the
+    and is taken again, up to `_attempts()` times.  Only then are the
     calls timed with CUDA events, under one key: events around a loop
     time the host's per-call Python work too, which exceeds a µs-scale
     kernel."""
+    global _fallback_streak
     from torch.profiler import ProfilerActivity, profile
 
+    TRACE_STATS["calls"] += 1
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(TRACE_ATTEMPTS):
+    attempts = _attempts()
+    for _ in range(attempts):
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -368,8 +393,16 @@ def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         ms = {e.key: e.self_device_time_total / 1e3 / iters for e in kernels}
+        TRACE_STATS["traces"] += 1
+        TRACE_STATS["traced_s"] += time.perf_counter() - t0
         if sum(e.count for e in kernels) >= iters and sum(ms.values()) > 0:
+            if _fallback_streak:
+                print(f"[profile] the profiler's traces are back after "
+                      f"{_fallback_streak} call(s) timed with CUDA events",
+                      file=sys.stderr, flush=True)
+            _fallback_streak = 0
             return ms
+        TRACE_STATS["empty_traces"] += 1
     # CUDA events around the calls: the stream's time, which also takes
     # in any gap the host leaves between launches
     start = torch.cuda.Event(enable_timing=True)
@@ -379,8 +412,15 @@ def device_ms_per_kernel(fn, iters: int = 56, warmup: int = 3) -> dict:
         fn()
     end.record()
     torch.cuda.synchronize()
-    print(f"[profile] the profiler's trace stayed empty {TRACE_ATTEMPTS} "
-          f"times: CUDA events instead", file=sys.stderr, flush=True)
+    TRACE_STATS["event_timed"] += 1
+    if _fallback_streak == 0:
+        print(f"[profile] the profiler's trace stayed empty {attempts} "
+              f"times: CUDA events instead", file=sys.stderr, flush=True)
+    elif _fallback_streak + 1 == STREAK_GIVE_UP:
+        print(f"[profile] {STREAK_GIVE_UP} calls in a row timed with CUDA "
+              f"events: now one trace every {PROBE_EVERY} calls until one "
+              f"holds the kernels", file=sys.stderr, flush=True)
+    _fallback_streak += 1
     return {"(CUDA events)": start.elapsed_time(end) / iters}
 
 

@@ -5,7 +5,8 @@ and Qwen3.5 image and video chat, Qwen3.5 GGUF text and image chat,
 PaddleOCR-VL and DeepSeek-OCR document OCR, LFM2-VL image chat, Qwen3-ASR
 / Fun-ASR-Nano speech recognition, VoxCPM text-to-speech, RMBG-2.0
 background removal, and HunyuanOCR and GLM-OCR document OCR paths once on
-one CUDA card.
+one CUDA card, and the model lifecycle (a download, the console's
+/manage API, request traces) around the served Qwen3 checkpoint.
 
     python3 chip_smoke.py          # from the repository root; one card
 
@@ -55,7 +56,8 @@ before the last line:
    decode path against the plain path (float32, on the CPU);
 4b. spec — prompt-lookup speculative decoding (8 drafts a round, 8 rounds
    a dispatch, each dispatch one graph replay) through TextEngine on the
-   same weights: (o) a 300-token prompt of a 48-token cycle, 192 greedy
+   same weights cut to their first 8 layers (SPEC_LAYERS, a cut for the
+   time limit): (o) a 300-token prompt of a 48-token cycle, 192 greedy
    tokens, and the same with spec_no_drafts (every a 0, the same stream);
    (p) a 470-token prompt in the 512-row bucket with max_tokens past it,
    drafted and draftless: the host guard drops to single rounds and hands
@@ -66,14 +68,15 @@ before the last line:
    f32 logits tie within TOL_SPEC_TIE_REL; each is graphed against eager
    (tokens, accepted counts, launches); ms per emitted token, rounds and
    the accepted counts beside the plain engine's ms per token;
-5. batch — the same weights through the continuous-batching BatchEngine
+5. batch — the same weights cut to their first 8 layers (BATCH_LAYERS, a
+   cut for the time limit) through the continuous-batching BatchEngine
    (8 slots, 12 concurrent requests, one of them sampled, chunked
    admission) over a bf16 and an int8 cache, and an int8 TextEngine; each
    path with the launch counters
    zeroed before it and read after it; then 8 teacher-forced steps of 4
-   slots against the f32 plain path on the CPU over the same cache, at the
-   first 8 layers (BATCH_WITNESS_LAYERS, a cut for the time limit);
-6. quant — the same weights packed on the GGUF grids on the card
+   slots against the f32 plain path on the CPU over the same cache;
+6. quant — the same weights cut to their first 8 layers (QUANT_LAYERS, a
+   cut for the time limit) packed on the GGUF grids on the card
    (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
    TextEngine, whose decode runs the quantized fused stack and whose short
    prompt's prefill runs the quant-matmul and fused-SwiGLU kernels, each
@@ -85,9 +88,10 @@ before the last line:
    same steps on the CPU through the kernels' plain versions (the witness)
    and through the exact dequantized path; each path with the counters
    zeroed before it and its kernels launched;
-6b. embed — (t1) Qwen3-Embedding-0.6B on the same weights: 12 texts of
+6b. embed — (t1) Qwen3-Embedding-0.6B on the same weights cut to their
+   first 8 layers (EMBED_LAYERS, a cut for the time limit): 12 texts of
    the test tokenizer over the 32, 128 and 512 buckets, one forward a
-   bucket group (the prefill kernel at B = the group's rows, 28 launches a
+   bucket group (the prefill kernel at B = the group's rows, 8 launches a
    group of >= 128 rows), unit vectors within TOL_EMBED_REL of the f32
    plain path on the CPU; (t2) Qwen3-Reranker-0.6B's scores equal to the
    vectors' dot products; (t3) all-MiniLM-L6-v2 at its full geometry in
@@ -95,13 +99,31 @@ before the last line:
 7. HTTP — the bf16 weights cut to HTTP_LAYERS (4) layers at full width,
    saved as a checkpoint (embedding rows past the test tokenizer's
    vocabulary zeroed, so replies decode to text) and served by `python -m
-   aha_tpu_torch serv` in six child processes started together:
+   aha_tpu_torch serv` in eight child processes started together:
    non-stream, stream and a prefix-cache repeat of /v1/chat/completions;
    a `--spec-tokens 8` server's greedy reply equal to the plain one's;
    then a `--batch-slots 4` server answering 4 chats at once, and the
    same checkpoint served as Qwen/Qwen3-Reranker-0.6B answering /v1/rerank
-   with top_n, sorted; each child runs under `-X importtime`, whose log
-   must name no module of jax or aha_tpu;
+   with top_n, sorted; a `--profile-dir D` server whose replies equal the
+   plain one's and whose trace of each request names the `prefill` range
+   and its `decode#<step>` ranges, the kernels of rows 4 and 3 by their
+   symbols in csrc/ in at least one (warm request walls beside the plain
+   server's), and a `--profile-port P` server whose GET /capture?ms=1000,
+   hit while chats run, answers a trace holding those kernels; each child
+   runs under `-X importtime`, whose log must name no module of jax or
+   aha_tpu;
+7e. lifecycle — the same checkpoint fetched by the port's download_model
+   from a ModelScope stub (tests/modelscope_stub.py) in this process into
+   <tmp>/home/Qwen/Qwen3-0.6B, byte-equal; `serv --manage-only` with
+   AHA_HOME there serves the console page, lists the model as downloaded
+   with its bytes, starts a card server through POST /manage/serve (the
+   console-to-health time; its greedy reply equal to the plain server's),
+   lists it in /manage/services and its lines in /manage/logs, and stops
+   it with /manage/stop (gone from the services, its PID file removed);
+   the console runs under PYTHONPROFILEIMPORTTIME and AHA_PROFILE_DIR,
+   which its child inherits: the child's import list, read back through
+   /manage/logs, names no module of jax or aha_tpu, and its request's
+   trace counts its row 4 and row 3 launches;
 7b. minicpm — (s) MiniCPM4-0.5B's geometry (24 layers, hidden 1024, 16/2
    heads, D 64, vocab 73448, mup scalings, LongRoPE) with seeded bf16
    weights: (s1) a TextEngine, a 300-token prompt and 64 greedy tokens
@@ -193,8 +215,10 @@ before the last line:
    layer a step, the head once more for the prefill, row 1 once an
    attention layer a prefill, row 8 6 a step, row 10 27 an image; a
    decode block's idle share; 8 teacher-forced steps after a 64-token
-   prefill at full depth against the CPU's plain versions (the witness)
-   and the exact dequantized path, which zeroed scales must fail; then
+   prefill at full depth on the card, the first 8 of the 24 layers
+   (GGUF35_WITNESS_LAYERS, a cut for the time limit) each fed the card's
+   input and held to the CPU's plain versions (the witness) and the exact
+   dequantized path, which zeroed scales must fail; then
    `python -m aha_tpu_torch serv qwen3.5-gguf --gguf-path F --mmproj-path
    M` (an image and a text chat) and the same file with `--batch-slots 8`
    (8 concurrent text chats) in two children started together, each
@@ -358,8 +382,8 @@ PyTorch call computes the same function, that call's time (`library_ms`;
 timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
-JSON line of the gguf35 readings, the JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg and the
-ocr2 readings, one JSON line of per-kernel results,
+JSON line of the gguf35 readings, the JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg, the
+ocr2 and the lifecycle readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -2864,6 +2888,11 @@ def _spec_path(label: str, model, params, ids: list[int], n: int,
 SPEC_READINGS: list[dict] = []
 
 
+#: the depth of the spec phase's weights (Qwen3-0.6B's first layers, at
+#: full width)
+SPEC_LAYERS = 8
+
+
 def phase_spec(model, params, device: str = "cuda") -> None:
     """(o)-(r): prompt-lookup speculative decoding (8 drafts a round, 8
     rounds a dispatch) through TextEngine at Qwen3-0.6B's widths: (o) bf16,
@@ -2875,9 +2904,12 @@ def phase_spec(model, params, device: str = "cuda") -> None:
     MLP kernels at M = 9), 96 tokens each.  Every token held to the plain
     graphed engine's greedy decoding of the same prefix (or parted from it
     at a near-tie), graphed against eager (tokens, a's, launches); (o)'s
-    draftless stream equal to the drafted one."""
+    draftless stream equal to the drafted one.  The weights are cut to
+    their first SPEC_LAYERS layers at full width (a cut for the time
+    limit)."""
     from aha_tpu_torch.models.qwen3 import pack_params
 
+    model, params = _depth_cut(model, params, SPEC_LAYERS, device, "spec")
     V = model.config.vocab_size
     rng = np.random.default_rng(500)
     cpu: dict = {}
@@ -3112,15 +3144,28 @@ def teacher_forced_slots(model, params, prompts: list[list[int]],
     return torch.stack(hs).float().cpu(), before
 
 
-#: the depth of the batch phase's teacher-forced check (i): the first
-#: layers of Qwen3-0.6B at full width on both sides (the smoke's time
-#: limit: its CPU side is f32 at every layer it has)
-BATCH_WITNESS_LAYERS = 8
+#: the depth of the batch phase, Qwen3-0.6B's first layers at full width
+#: (the smoke's time limit: its eager twins step at ≈ 40-55 ms a step at
+#: 28 layers, and its check (i)'s CPU side is f32 at every layer it has)
+BATCH_LAYERS = 8
+
+
+def _depth_cut(model, params, layers: int, device: str, tag: str):
+    """The engine's model and weights cut to their first `layers` layers
+    at full width (a cut for the smoke's time limit), logged under
+    `tag`."""
+    import dataclasses
+
+    n = min(layers, model.config.num_hidden_layers)
+    log(f"[{tag}] the weights at {n} of their "
+        f"{model.config.num_hidden_layers} layers, full width")
+    return (type(model)(dataclasses.replace(model.config, num_hidden_layers=n),
+                        max_rope_len=8192, device=device),
+            _text_cut(params, n))
 
 
 def phase_batch(model, params, device: str = "cuda") -> None:
-    import dataclasses
-
+    model, params = _depth_cut(model, params, BATCH_LAYERS, device, "batch")
     _batch_path(model, params, device, torch.bfloat16, "batch-bf16",
                 ("flash_decode_at_layer_flat_batched",))
     _batch_path(model, params, device, torch.int8, "batch-int8",
@@ -3129,12 +3174,9 @@ def phase_batch(model, params, device: str = "cuda") -> None:
 
     # (i) 8 teacher-forced steps of 4 slots on the card against the f32
     # plain path on the CPU, from the same cache contents
-    n = min(BATCH_WITNESS_LAYERS, model.config.num_hidden_layers)
-    cut = type(model)(dataclasses.replace(model.config, num_hidden_layers=n),
-                      max_rope_len=8192, device=device)
-    _teacher_forced_4_slots(cut, _text_cut(params, n), device,
+    _teacher_forced_4_slots(model, params, device,
                             (torch.bfloat16, torch.int8),
-                            f"batch, {n} of {model.config.num_hidden_layers} "
+                            f"batch, {model.config.num_hidden_layers} "
                             "layers")
 
 
@@ -3447,10 +3489,16 @@ def _gguf_path(cfg, device: str) -> None:
                 "zeroed scales pass the GGUF bounds")
 
 
+#: the depth of the quant phase's (j)-(l), Qwen3-0.6B's first layers at
+#: full width (the smoke's time limit, as BATCH_LAYERS)
+QUANT_LAYERS = 8
+
+
 def phase_quant(model, params, device: str = "cuda") -> None:
     """(j)-(m): the GGUF grids on the card."""
     from aha_tpu_torch.models.qwen3 import pack_params
 
+    model, params = _depth_cut(model, params, QUANT_LAYERS, device, "quant")
     for grid in ("q8", "q4"):
         t0 = time.perf_counter()
         packed = pack_params(params, grid)
@@ -3578,14 +3626,21 @@ def phase_minicpm(device: str = "cuda") -> dict:
 # -- 6c. embeddings and reranking (t) -------------------------------------------
 
 
+def _load_by_path(name: str, rel: str):
+    """A module of the repository loaded from its path under ROOT (a
+    `tests` package elsewhere on sys.path must not shadow it)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _smoke_tokenizer(tmp: str):
     """tests/fixtures.py's test tokenizer written under `tmp`, loaded by
     file path (a `tests` package elsewhere on sys.path must not shadow
     it); returns the fixtures module and the tokenizer."""
-    spec = importlib.util.spec_from_file_location(
-        "aha_test_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
+    fixtures = _load_by_path("aha_test_fixtures", "tests/fixtures.py")
     return fixtures, fixtures.build_tokenizer(tmp)
 
 
@@ -3613,10 +3668,16 @@ EMBED_LENS = (5, 17, 30, 70, 100, 120, 128, 260, 300, 400, 470, 505)
 MINILM_LENS = (3, 9, 15, 20, 31, 40, 60, 64, 100, 200, 300, 600)
 
 
+#: the depth of the embed phase's (t1) / (t2), Qwen3-0.6B's first layers
+#: at full width (the smoke's time limit: its CPU reference is f32)
+EMBED_LAYERS = 8
+
+
 def phase_embed(qwen_model, qwen_params: dict, device: str = "cuda") -> dict:
-    """(t1) Qwen3-Embedding-0.6B on phase 4's Qwen3-0.6B weights: 12 texts
-    over the 32, 128 and 512 buckets, flash_attention 28 a group at a
-    bucket of 128 or more (B = the group's rows); every vector unit-norm
+    """(t1) Qwen3-Embedding-0.6B on phase 4's Qwen3-0.6B weights cut to
+    their first EMBED_LAYERS layers: 12 texts over the 32, 128 and 512
+    buckets, flash_attention once a layer a group at a bucket of 128 or
+    more (B = the group's rows); every vector unit-norm
     and within TOL_EMBED_REL of the f32 plain path on the CPU.  (t2)
     Qwen3-Reranker-0.6B on the same weights: scores equal to the vectors'
     dot products, the order printed.  (t3) all-MiniLM-L6-v2 at its full
@@ -3631,6 +3692,8 @@ def phase_embed(qwen_model, qwen_params: dict, device: str = "cuda") -> dict:
     from aha_tpu_torch.registry import lookup
 
     card = card_line() if device == "cuda" else "cpu"
+    qwen_model, qwen_params = _depth_cut(qwen_model, qwen_params,
+                                         EMBED_LAYERS, device, "embed")
     L = qwen_model.config.num_hidden_layers
     with tempfile.TemporaryDirectory(prefix="aha_torch_tok_") as tmp:
         _, tok = _smoke_tokenizer(tmp)
@@ -4252,24 +4315,39 @@ def _post(url: str, body: dict) -> tuple[int, str]:
 HTTP_LAYERS = 4
 
 
-def phase_http(config, params: dict) -> None:
-    """The Qwen3 weights cut to HTTP_LAYERS at full width, served by six
+def phase_http(config, params: dict) -> dict:
+    """The Qwen3 weights cut to HTTP_LAYERS at full width, served by eight
     children started together: the servers replay captured decode blocks;
     a server started with `--eager` must give the same greedy replies, and
     so must one started with `--spec-tokens 8` (speculative rounds,
-    greedy-exact); then `--batch-slots 4`, graphed and eager, and the
-    reranker."""
+    greedy-exact) and one with `--profile-dir D`, whose request traces
+    must name the engine's ranges and the kernels of rows 4 and 3; then
+    `--batch-slots 4`, graphed and eager, the reranker, and a
+    `--profile-port P` server captured while it answers chats.  The
+    checkpoint's directory and the plain reply are returned for the
+    lifecycle phase, which removes the directory."""
     import dataclasses
+    import shutil
 
-    with tempfile.TemporaryDirectory(prefix="aha_torch_smoke_") as tmp:
-        _write_checkpoint(tmp, dataclasses.replace(
+    root = tempfile.mkdtemp(prefix="aha_torch_smoke_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        os.makedirs(ckpt)
+        _write_checkpoint(ckpt, dataclasses.replace(
             config, num_hidden_layers=HTTP_LAYERS), _text_cut(
                 params, HTTP_LAYERS))
-        with _servers(*((tmp, extra) for extra in (
+        traces = os.path.join(root, "traces")
+        (cport,) = _free_ports(1)
+        # the traced pair starts with the rest and is waited for last: its
+        # profiler's warm-up outlasts the others' load
+        with _started(*((root, extra, ckpt) for extra in (
                 (), ("--spec-tokens", str(SPEC_DRAFTS)), ("--eager",),
                 ("--batch-slots", "4"), ("--batch-slots", "4", "--eager"),
-                ("--model", "Qwen/Qwen3-Reranker-0.6B")))) as bases:
-            plain, spec_base, eager, slots, slots_eager, rerank = bases
+                ("--model", "Qwen/Qwen3-Reranker-0.6B")))) as up, \
+                _started((root, ("--profile-dir", traces), ckpt),
+                         (root, ("--profile-port", str(cport)),
+                          ckpt)) as up_traced:
+            plain, spec_base, eager, slots, slots_eager, rerank = up()
             first = _ask(plain)
             spec = _reply(spec_base, _ASK)
             require(spec == first, f"--spec-tokens {SPEC_DRAFTS}: the greedy "
@@ -4282,6 +4360,13 @@ def phase_http(config, params: dict) -> None:
             _same_replies("--batch-slots 4", replies,
                           _ask_concurrent(slots_eager, 4))
             _ask_rerank(rerank)
+            profiled, captured = up_traced()
+            _profiled_requests(plain, profiled, traces, first)
+            _captured_chats(captured, cport, first)
+        return {"dir": root, "ckpt": ckpt, "reply": first}
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
 
 
 def _ask_rerank(base: str) -> None:
@@ -4505,6 +4590,393 @@ def _ask_concurrent(base: str, n: int) -> list[str]:
     log(f"[http] {n} concurrent chats to --batch-slots {n}: all 200 with "
         f"content in {wall:.2f} s")
     return out
+
+# -- 7e. lifecycle: download, the console, /manage, request traces ----------
+
+#: the lifecycle readings: the download, the console-to-health time, the
+#: request walls with and without --profile-dir, the traces' contents
+LIFECYCLE_READINGS: dict = {}
+#: each kernel of the Qwen3 decode step by its symbol in its source under
+#: aha_tpu_torch/csrc (row 4, the fused stack; row 3, the greedy head)
+TRACE_SYMBOLS = {"fused_decode_stack": "fused_stack_kernel",
+                 "head_argmax": "head_argmax_partial"}
+#: the ms a --profile-port capture traces
+CAPTURE_MS = 1000
+#: captures tried: the profiler now and then returns a trace without the
+#: device's kernels (utils/profile_decode.py's device_ms_per_kernel
+#: retakes such traces too)
+CAPTURE_ATTEMPTS = 2
+#: warm requests timed on the plain and on the --profile-dir server each
+TIMED_REQUESTS = 3
+
+
+def _symbols_in_sources() -> dict:
+    """TRACE_SYMBOLS, each checked to name a __global__ function of its
+    kernel's source."""
+    import re
+
+    for name, sym in TRACE_SYMBOLS.items():
+        with open(os.path.join(ROOT, KERNELS[name]["source"])) as f:
+            src = f.read()
+        require(re.search(r"__global__[^;{]*?\b" + sym + r"\s*\(", src),
+                f"{sym} is no kernel of {KERNELS[name]['source']}")
+    return TRACE_SYMBOLS
+
+
+def _trace_reading(path: str) -> dict:
+    """What a *.pt.trace.json holds: its bytes, the engine's ranges
+    (prefill, decode#<step>), the kernels of rows 4 and 3 by symbol, and
+    all kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e.get("name", "") for e in events
+              if e.get("cat") == "user_annotation"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"file": os.path.basename(path), "bytes": os.path.getsize(path),
+            "prefill": ranges.count("prefill"),
+            "decode_ranges": sum(r.startswith("decode#") for r in ranges),
+            **{name: sum(sym in k for k in kernels)
+               for name, sym in _symbols_in_sources().items()},
+            "kernel_events": len(kernels)}
+
+
+def _trace_files(directory: str) -> list[str]:
+    """The *.pt.trace.json files of one process, in the order written
+    (<name>.<pid>.<ms>.<n>.pt.trace.json)."""
+    files = [f for f in os.listdir(directory)
+             if f.endswith(".pt.trace.json")]
+    return [os.path.join(directory, f) for f in
+            sorted(files, key=lambda f: int(f.split(".")[-4]))]
+
+
+def _has_kernels(reading: dict) -> bool:
+    return all(reading[k] >= 1 for k in TRACE_SYMBOLS)
+
+
+def _named_ranges(what: str, reading: dict) -> None:
+    require(reading["prefill"] >= 1 and reading["decode_ranges"] >= 1,
+            f"{what}: the trace lacks the prefill range or a decode range: "
+            f"{reading}")
+    if not _has_kernels(reading):
+        log(f"[lifecycle] {what}: the trace holds no kernel of rows 4 / 3 "
+            f"(the profiler dropped the device's activity): {reading}")
+
+
+def _profiled_requests(plain: str, profiled: str, traces: str,
+                       first: str) -> None:
+    """The --profile-dir server: its replies equal the plain server's; each
+    request writes one trace naming the prefill range, its decode blocks'
+    ranges and the kernels of rows 4 and 3 (the first request runs its
+    first block eagerly and captures it; the later ones replay graphs);
+    warm request walls on both servers, alternated."""
+    t0 = time.perf_counter()
+    got = _reply(profiled, _ASK)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    require(got == first, f"--profile-dir: the greedy reply differs from the "
+            f"plain server's: {got!r} vs {first!r}")
+    walls = {"plain": [], "profiled": []}
+    for _ in range(TIMED_REQUESTS):
+        for name, base in (("plain", plain), ("profiled", profiled)):
+            t0 = time.perf_counter()
+            got = _reply(base, _ASK)
+            walls[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+            require(got == first, f"{name}: the reply changed: {got!r}")
+    readings = [_trace_reading(f) for f in _trace_files(traces)]
+    require(len(readings) == 1 + TIMED_REQUESTS,
+            f"--profile-dir wrote {len(readings)} traces for "
+            f"{1 + TIMED_REQUESTS} requests")
+    for i, r in enumerate(readings):
+        _named_ranges(f"--profile-dir request {i}", r)
+    with_kernels = sum(_has_kernels(r) for r in readings)
+    require(with_kernels >= 1, f"no --profile-dir trace names the kernels "
+            f"of rows 4 and 3: {readings}")
+    LIFECYCLE_READINGS.update(profiled_cold_ms=round(cold_ms, 3),
+                              request_ms=walls, traces=readings)
+    log(f"[lifecycle] --profile-dir: {len(readings)} requests, replies equal "
+        f"to the plain server's; {with_kernels} of {len(readings)} traces "
+        f"name the kernels of rows 4 and 3; traces {json.dumps(readings)}; "
+        f"warm walls "
+        f"ms {json.dumps(walls)} (first traced request {cold_ms:.1f} ms)")
+
+
+def _captured_chats(base: str, port: int, first: str) -> None:
+    """GET /capture?ms=CAPTURE_MS on the --profile-port server while chats
+    run (after one chat that warms the server: its first request captures
+    the decode graphs): the answer names a trace holding the kernels of
+    rows 4 and 3."""
+    import shutil
+    import threading
+
+    require(_reply(base, _ASK) == first, "--profile-port: the reply differs")
+    for attempt in range(1, CAPTURE_ATTEMPTS + 1):
+        out: dict = {}
+
+        def capture():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/capture?ms={CAPTURE_MS}",
+                        timeout=120) as r:
+                    out["status"], out["body"] = r.status, json.loads(
+                        r.read())
+            except OSError as e:
+                out["error"] = repr(e)
+
+        t = threading.Thread(target=capture)
+        t0 = time.perf_counter()
+        t.start()
+        chats = 0
+        while t.is_alive():
+            got = _reply(base, _ASK)
+            require(got == first, f"--profile-port: the reply differs: "
+                    f"{got!r}")
+            chats += 1
+            require(time.perf_counter() - t0 < 120, "/capture did not answer")
+        t.join()
+        wall_s = time.perf_counter() - t0
+        require(out.get("status") == 200, f"/capture answered {out}")
+        path = out["body"]["path"]
+        reading = _trace_reading(path)
+        os.remove(path)
+        log(f"[lifecycle] /capture?ms={CAPTURE_MS} (attempt {attempt}) "
+            f"answered in {wall_s:.2f} s, {chats} chats meanwhile: "
+            f"{json.dumps(reading)}")
+        if _has_kernels(reading):
+            break
+    if os.path.basename(os.path.dirname(path)).startswith("aha_profile_"):
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    require(_has_kernels(reading), f"no capture of {CAPTURE_ATTEMPTS} names "
+            f"the kernels of rows 4 and 3: {reading}")
+    LIFECYCLE_READINGS["capture"] = {"attempts": attempt, "chats": chats,
+                                     "answer_s": round(wall_s, 3), **reading}
+
+
+def _relative_files(root: str) -> list[str]:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _imported(lines) -> list[str]:
+    """The modules an -X importtime log names."""
+    return [ln.rsplit("|", 1)[-1].strip() for ln in lines
+            if ln.startswith("import time:")]
+
+
+def _no_jax(what: str, mods: list[str]) -> None:
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "aha_tpu")]
+    require(len(mods) > 100 and not bad,
+            f"{what} imported {bad or 'nothing logged'}")
+    log(f"[lifecycle] {what} imported {len(mods)} modules, none of jax or "
+        f"aha_tpu")
+
+
+def phase_lifecycle(http: dict) -> None:
+    """phase_http's checkpoint taken from "no weights" to "chatting":
+    fetched by the port's download_model from a stub of ModelScope in this
+    process (byte-equal); then `serv --manage-only` with AHA_HOME on it
+    serves the console page, lists the model as downloaded with its bytes,
+    starts a card server with POST /manage/serve (its greedy reply equal
+    to the plain server's), lists it in /manage/services and its lines in
+    /manage/logs, and stops it with /manage/stop (the process gone from
+    the services, its PID file removed).  The console runs under
+    PYTHONPROFILEIMPORTTIME, which its `serv` child inherits: the child's
+    import list comes back through /manage/logs and must name no module of
+    jax or aha_tpu; AHA_PROFILE_DIR, inherited too, gives the child's
+    request a trace, whose kernels of rows 4 and 3 are its launches."""
+    import shutil
+    import signal
+    import filecmp
+
+    from aha_tpu_torch.utils import download
+
+    model_id = "Qwen/Qwen3-0.6B"
+    root, ckpt = http["dir"], http["ckpt"]
+    try:
+        stub = _load_by_path("aha_modelscope_stub", "tests/modelscope_stub.py")
+        home = os.path.join(root, "home")
+        saved = download.MODELSCOPE_API
+        with stub.ModelScopeStub({model_id: ckpt}) as ms:
+            download.MODELSCOPE_API = ms.api
+            try:
+                t0 = time.perf_counter()
+                download.download_model(model_id, home)
+                dl_s = time.perf_counter() - t0
+            finally:
+                download.MODELSCOPE_API = saved
+        target = os.path.join(home, model_id)
+        names = _relative_files(ckpt)
+        require(_relative_files(target) == names and all(
+            filecmp.cmp(os.path.join(ckpt, n), os.path.join(target, n),
+                        shallow=False) for n in names),
+            f"the download differs from the checkpoint: {names} vs "
+            f"{_relative_files(target)}")
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, n)) for n in names)
+        LIFECYCLE_READINGS["download"] = {"files": len(names),
+                                          "bytes": nbytes,
+                                          "s": round(dl_s, 3)}
+        log(f"[lifecycle] download_model fetched {len(names)} files, "
+            f"{nbytes} bytes, from the ModelScope stub in {dl_s:.2f} s "
+            f"(set-up); byte-equal to the checkpoint")
+
+        run = os.path.join(root, "run")
+        managed_traces = os.path.join(root, "managed_traces")
+        env = {**os.environ, "AHA_HOME": home, "XDG_RUNTIME_DIR": run,
+               "PYTHONPROFILEIMPORTTIME": "1",
+               "AHA_PROFILE_DIR": managed_traces}
+        cport, sport = _free_ports(2)
+        base = f"http://127.0.0.1:{cport}"
+        served = f"http://127.0.0.1:{sport}"
+        logf = open(os.path.join(root, "console.log"), "w")
+        console = subprocess.Popen(
+            [sys.executable, "-m", "aha_tpu_torch", "serv", "--manage-only",
+             "--port", str(cport)], cwd=ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT)
+        pid = None
+        lines: list[dict] = []
+
+        def more_logs() -> None:
+            got = _get_json(f"{base}/manage/logs?offset="
+                            f"{lines[-1]['n'] + 1 if lines else 0}")
+            start = got["next"] - len(got["lines"])
+            lines.extend({**ln, "n": start + i}
+                         for i, ln in enumerate(got["lines"]))
+
+        def said(source: str) -> list[str]:
+            return [ln["line"] for ln in lines if ln["source"] == source]
+
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if console.poll() is not None:
+                    with open(logf.name) as f:
+                        raise RuntimeError("the console exited:\n"
+                                           + f.read()[-4000:])
+                try:
+                    with urllib.request.urlopen(base + "/", timeout=5) as r:
+                        page = r.read().decode()
+                        break
+                except OSError:
+                    pass
+                require(time.perf_counter() - t0 < 120,
+                        "the console did not come up")
+                time.sleep(0.5)
+            require("<title>aha console</title>" in page, page[:300])
+            log(f"[lifecycle] serv --manage-only up in "
+                f"{time.perf_counter() - t0:.1f} s; GET / 200, "
+                f"{len(page)} bytes of console page")
+            item = {m["model_id"]: m for m in _get_json(
+                base + "/manage/models")["models"]}[model_id]
+            require(item["downloaded"] and item["bytes"] == nbytes,
+                    f"/manage/models: {item}")
+            log(f"[lifecycle] /manage/models: {model_id} downloaded, "
+                f"{item['bytes']} bytes")
+            t0 = time.perf_counter()
+            status, text = _post(base + "/manage/serve", {
+                "model": model_id, "port": sport, "max_seq_len": 2048})
+            require(status == 200, text)
+            pid = json.loads(text)["pid"]
+            while True:
+                more_logs()
+                exited = [ln for ln in said("manage")
+                          if ln.startswith(f"server on port {sport} exited")]
+                require(not exited, f"the managed server exited: "
+                        f"{[ln for ln in said(f'serv:{sport}') if not ln.startswith('import time:')][-40:]}")
+                try:
+                    with urllib.request.urlopen(served + "/health",
+                                                timeout=5) as r:
+                        if r.status == 200:
+                            break
+                except OSError:
+                    pass
+                require(time.perf_counter() - t0 < 300,
+                        "the managed server did not come up")
+                time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            log(f"[lifecycle] POST /manage/serve to /health 200: "
+                f"{up_s:.1f} s ({card_line()})")
+            t0 = time.perf_counter()
+            got = _reply(served, _ASK)
+            reply_ms = (time.perf_counter() - t0) * 1e3
+            require(got == http["reply"], f"the managed server's reply "
+                    f"differs from the plain server's: {got!r} vs "
+                    f"{http['reply']!r}")
+            log(f"[lifecycle] the managed server's greedy reply equals the "
+                f"plain server's ({reply_ms:.1f} ms, its first request)")
+            svc = _get_json(base + "/manage/services")["services"]
+            require(any(s["pid"] == pid and s["port"] == sport
+                        for s in svc), f"/manage/services: {svc}")
+            status, text = _post(base + "/manage/stop", {"port": sport})
+            require(status == 200 and json.loads(text)["stopped"] == pid,
+                    f"/manage/stop: {status} {text}")
+            t0 = time.perf_counter()
+            while not [ln for ln in said("manage")
+                       if ln.startswith(f"server on port {sport} exited")]:
+                require(time.perf_counter() - t0 < 60,
+                        "the managed server did not exit")
+                time.sleep(0.5)
+                more_logs()
+            pid_file = os.path.join(run, "aha", f"{sport}.pid")
+            svc = _get_json(base + "/manage/services")["services"]
+            require(not os.path.exists(pid_file)
+                    and not any(s["port"] == sport for s in svc),
+                    f"after /manage/stop: PID file {os.path.exists(pid_file)}"
+                    f", services {svc}")
+            serv_lines = said(f"serv:{sport}")
+            require(any(ln.startswith("model loaded") for ln in serv_lines),
+                    f"/manage/logs holds no `model loaded` line of the "
+                    f"server: {serv_lines[-20:]}")
+            _no_jax("the managed `serv` child (via /manage/logs)",
+                    _imported(serv_lines))
+            log(f"[lifecycle] /manage/stop: the server exited "
+                f"({said('manage')[-1]}), its PID file is gone; "
+                f"{len(serv_lines)} serv:{sport} lines in /manage/logs")
+            managed = [_trace_reading(f) for f in _trace_files(managed_traces)]
+            require(len(managed) == 1, f"the managed server's traces: "
+                    f"{managed}")
+            _named_ranges("the managed server's request", managed[0])
+            ready = [float(ln.split()[-2]) for ln in serv_lines
+                     if ln.startswith("[profile] profiler ready in")]
+            LIFECYCLE_READINGS["managed"] = {
+                "console_to_health_s": round(up_s, 3),
+                "profiler_ready_s": ready[0] if ready else None,
+                "first_request_ms": round(reply_ms, 3),
+                "launches": {k: managed[0][k] for k in TRACE_SYMBOLS},
+                "trace": managed[0]}
+            log(f"[lifecycle] the managed server's request: "
+                f"{json.dumps(managed[0])}")
+        finally:
+            console.terminate()
+            try:
+                console.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                console.kill()
+                console.wait()
+            logf.close()
+            if pid is not None:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        with open(logf.name) as f:
+            _no_jax("serv --manage-only", _imported(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def qwen3_http_inputs(device: str = "cuda") -> tuple:
+    """Qwen3-0.6B's config and seeded bf16 weights on the card, as
+    phase_engine makes them: phase_http's inputs when it runs alone."""
+    from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+
+    cfg = Qwen3Config()
+    model = Qwen3Model(cfg, max_rope_len=8192, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, model.init_random(gen, dtype=torch.bfloat16)
+
 
 # -- 8. Qwen2.5-VL image chat ---------------------------------------------------
 
@@ -5323,6 +5795,10 @@ GGUF35_MODEL = "qwen3.5-gguf"
 #: greedy tokens of each (ag) request; teacher-forced steps of the witness
 GGUF35_TOKENS = 32
 GGUF35_FORCED = 8
+#: the witness holds the first this many layers (a cut for the time
+#: limit: all 24 took 23.2-26.4 s of the smoke), the stack read through
+#: the same layers
+GGUF35_WITNESS_LAYERS = 8
 #: Qwen's special tokens at their ids in the written vocabulary
 GGUF35_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>",
                    151645: "<|im_end|>", 151652: "<|vision_start|>",
@@ -5681,17 +6157,18 @@ def _dense_tree(tree):
 def _gguf35_witness(model, params: dict, ids: list[int], forced: list[int],
                     device: str) -> dict:
     """(ag)'s witness, layer by layer: the prefill of `ids` and the
-    `forced` steps at full depth on `device`, each layer's input recorded
-    (`_norm_inputs`); then each layer alone (a one-layer model whose
-    embedding rows are that input) fed the card's input, on the CPU in
-    bf16 through the kernels' plain versions (the witness) and in f32 on
-    the exactly dequantized weights (the exact path), and on `device` with
-    every grid's scales zeroed.  Each layer's increment (output − input,
-    over the 64 prefill rows and every step) is held to the witness within
+    `forced` steps through the first GGUF35_WITNESS_LAYERS layers on
+    `device`, each layer's input recorded (`_norm_inputs`); then each of
+    those layers alone (a one-layer model whose embedding rows are that
+    input) fed the card's input, on the CPU in bf16 through the kernels'
+    plain versions (the witness) and in f32 on the exactly dequantized
+    weights (the exact path), and on `device` with every grid's scales
+    zeroed.  Each layer's increment (output − input, over the 64 prefill
+    rows and every step) is held to the witness within
     TOL_GGUF_WITNESS_REL and to the exact path within TOL_GGUF_REL of max
-    |ref|; zeroed scales must fail both.  At full depth the seeded
+    |ref|; zeroed scales must fail both.  Through many layers the seeded
     network carries each layer's bf16 rounding and requantization steps
-    into every later one, so the whole stack's hidden states are read
+    into every later one, so those layers' stacked hidden states are read
     against the same CPU paths and reported, not held."""
     import dataclasses
 
@@ -5699,11 +6176,17 @@ def _gguf35_witness(model, params: dict, ids: list[int], forced: list[int],
 
     c = model.config
     n = len(ids)
+    held = min(GGUF35_WITNESS_LAYERS, c.num_hidden_layers)
+    cut = dataclasses.replace(c, num_hidden_layers=held,
+                              layer_types=tuple(c.layer_types[:held]))
     dec = {k: v for k, v in params.items() if k not in ("visual", "lm_head")}
+    dec = {**dec, "layers": dec["layers"][:held]}
     weights = [lp["ln1"]["w"] for lp in dec["layers"]] + [dec["norm"]["w"]]
     store = {id(w): [] for w in weights}
     with _norm_inputs(store):
-        hk = teacher_forced_vl(model, dec, ids, None, forced, device)
+        hk = teacher_forced_vl(Qwen3_5Model(cut, max_rope_len=2048,
+                                            device=device),
+                               dec, ids, None, forced, device)
     X = [_rows(store[id(w)], n) for w in weights]
     wit = _tree_to(dec, "cpu", None)
     exact = _dense_tree(_tree_to(dec, "cpu", torch.float32))
@@ -5728,7 +6211,7 @@ def _gguf35_witness(model, params: dict, ids: list[int], forced: list[int],
         return _rows(out[id(ones)], n) - X[i]
 
     layers = []
-    for i in range(c.num_hidden_layers):
+    for i in range(held):
         dk = X[i + 1] - X[i]
         dw = one_layer(i, wit["layers"][i], dtype, "cpu", True)
         dx = one_layer(i, exact["layers"][i], torch.float32, "cpu", False)
@@ -5737,29 +6220,31 @@ def _gguf35_witness(model, params: dict, ids: list[int], forced: list[int],
                        "witness_vs_exact": rel(dw, dx),
                        "zeroed_vs_witness": rel(dz, dw),
                        "zeroed_vs_exact": rel(dz, dx)})
-    cpu_model = Qwen3_5Model(c, max_rope_len=2048, device="cpu")
+    cpu_model = Qwen3_5Model(cut, max_rope_len=2048, device="cpu")
     with card_routes_on_cpu():
         hw = teacher_forced_vl(cpu_model, wit, ids, None, forced, "cpu")
     hx = teacher_forced_vl(cpu_model, exact, ids, None, forced, "cpu")
     worst = {k: max(r[k] for r in layers) for k in layers[0]}
     least = {k: min(r[k] for r in layers) for k in layers[0]}
-    w = {"layers": layers, "worst": worst, "least_zeroed": {
-        k: least[k] for k in ("zeroed_vs_witness", "zeroed_vs_exact")},
-         "full_depth": {"vs_witness": rel(hk, hw), "vs_exact": rel(hk, hx),
-                        "witness_vs_exact": rel(hw, hx)}}
+    w = {"layers_held": held, "of_layers": c.num_hidden_layers,
+         "layers": layers, "worst": worst, "least_zeroed": {
+             k: least[k] for k in ("zeroed_vs_witness", "zeroed_vs_exact")},
+         "stack": {"vs_witness": rel(hk, hw), "vs_exact": rel(hk, hx),
+                   "witness_vs_exact": rel(hw, hx)}}
     card = card_line() if device == "cuda" else "cpu"
     log(f"[gguf35] teacher-forced, a {n}-token prefill (the quant kernels "
-        f"at M {n}) and {len(forced)} steps, each of the "
-        f"{c.num_hidden_layers} layers fed the card's input: increments "
+        f"at M {n}) and {len(forced)} steps, each of the first {held} of "
+        f"the {c.num_hidden_layers} layers fed the card's input: increments "
         f"within {worst['vs_witness']:.3e} of max |ref| of the witness (CPU, "
         f"bf16, the plain versions; tol {TOL_GGUF_WITNESS_REL}) and "
         f"{worst['vs_exact']:.3e} of the exact path (CPU, f32, dequantized; "
         f"tol {TOL_GGUF_REL}), the witness itself "
         f"{worst['witness_vs_exact']:.3e} from it; zeroed scales off by ≥ "
         f"{least['zeroed_vs_witness']:.3g} / {least['zeroed_vs_exact']:.3g}; "
-        f"the whole stack (not held) {w['full_depth']['vs_witness']:.3e} / "
-        f"{w['full_depth']['vs_exact']:.3e} (the witness "
-        f"{w['full_depth']['witness_vs_exact']:.3e} from exact) | {card}")
+        f"those {held} layers as one stack (not held) "
+        f"{w['stack']['vs_witness']:.3e} / {w['stack']['vs_exact']:.3e} "
+        f"(the witness {w['stack']['witness_vs_exact']:.3e} from exact) "
+        f"| {card}")
     require(worst["vs_witness"] <= TOL_GGUF_WITNESS_REL,
             f"(ag) a layer off the witness by {worst['vs_witness']}")
     require(worst["vs_exact"] <= TOL_GGUF_REL,
@@ -8582,8 +9067,9 @@ def main() -> int:
     timed("batch", phase_batch, state["model"], state["params"])
     timed("quant", phase_quant, state["model"], state["params"])
     minilm = timed("embed", phase_embed, state["model"], state["params"])
-    timed("http", phase_http, state["model"].config, state["params"])
+    http = timed("http", phase_http, state["model"].config, state["params"])
     del state
+    timed("lifecycle", phase_lifecycle, http)
     torch.cuda.empty_cache()
     minicpm = timed("minicpm", phase_minicpm)
     timed("http-embed", phase_http_embed, minilm, minicpm)
@@ -8622,8 +9108,10 @@ def main() -> int:
     hy = timed("hunyuan", phase_hunyuan)
     timed("ocr2-http", phase_http_ocr2, hy)
     del hy
+    from aha_tpu_torch.utils.profile_decode import TRACE_STATS
+
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all; by phase "
-        f"{json.dumps(secs)}")
+        f"{json.dumps(secs)}; device timings {json.dumps(TRACE_STATS)}")
     require("jax" not in sys.modules and not any(
         m == "aha_tpu" or m.startswith("aha_tpu.") for m in sys.modules),
         "jax or aha_tpu was imported")
@@ -8653,6 +9141,7 @@ def main() -> int:
     print(json.dumps({"tts": TTS_READINGS}))
     print(json.dumps({"rmbg": RMBG_READINGS}))
     print(json.dumps({"ocr2": OCR2_READINGS}))
+    print(json.dumps({"lifecycle": LIFECYCLE_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

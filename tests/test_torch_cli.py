@@ -3,8 +3,11 @@ JAX CLI's behaviour (aha_tpu/cli/main.py) — `list` with the downloaded
 mark under AHA_HOME, `delete`, `ps` finding a live server by its PID file
 and removing a stale one, and `run` on the tiny Qwen3 repo of
 tests/fixtures answering as the served model does (and on its tiny
-DeepSeek-OCR repo, with the family's prompt), on the CPU.  Child
-processes run against 127.0.0.1 with a deadline."""
+DeepSeek-OCR repo, with the family's prompt), on the CPU; `download` /
+`cli` / `serv`'s options parsed with the JAX parser's defaults, `serv`
+without a model, `--tp` / `--dp` refused before loading, and the model
+types a directory is served as (`model_id_for`).  Child processes run
+against 127.0.0.1 with a deadline."""
 
 import json
 import os
@@ -59,9 +62,12 @@ def test_parser_subcommands(repo):
     t = ap.parse_args(["run", repo, "--input", "h"])
     assert (t.max_tokens, t.max_seq_len, t.spec_tokens) == \
         (j.max_tokens, j.max_seq_len, j.spec_tokens)
-    for cmd in ("download", "cli"):     # stay with the JAX CLI
-        with pytest.raises(SystemExit):
-            ap.parse_args([cmd, "Qwen/Qwen3-0.6B"])
+    for cmd in ("download", "cli"):     # ported: both take an id
+        a = ap.parse_args([cmd, "Qwen/Qwen3-0.6B", "--save-dir", "/s",
+                           "--download-retries", "5"])
+        assert (a.save_dir, a.download_retries) == ("/s", 5)
+    a = ap.parse_args(["serv", "--manage-only"])
+    assert a.manage_only and a.path is None
 
 
 def test_list_json_and_table_mark_downloaded_models(aha_home, capsys):
@@ -315,3 +321,117 @@ def test_run_reads_a_deepseek_ocr_page_with_the_family_prompt(
                 {"type": "text", "text": prompt}]}],
             "model": model_id, "max_tokens": 6}))
     assert "\n".join(out[1:-1]) == want.choices[0].message.text()
+
+
+#: options whose defaults differ on purpose: the port's positional is a
+#: path or an id (`path`, with `--model`)
+_NOT_COMPARED = {"command", "model", "path"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["download", "Qwen/Qwen3-0.6B"],
+    ["cli", "Qwen/Qwen3-0.6B"],
+    ["serv", "Qwen/Qwen3-0.6B"],
+    ["serv", "--manage-only"],
+    ["run", "Qwen/Qwen3-0.6B", "--input", "hi"],
+])
+def test_options_take_the_jax_parsers_defaults(argv):
+    """Every option the port's subcommand shares with the JAX CLI's parses
+    to the same default, and the JAX CLI's options of `download`, `cli`
+    and `serv` all exist in the port (`serv`'s --eager is the port's
+    own)."""
+    t = vars(cli.build_parser().parse_args(argv))
+    j = vars(jbuild_parser().parse_args(argv))
+    shared = (t.keys() & j.keys()) - _NOT_COMPARED
+    assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
+    if argv[0] != "run":
+        assert j.keys() - _NOT_COMPARED <= t.keys(), \
+            j.keys() - _NOT_COMPARED - t.keys()
+
+
+def test_serv_needs_a_model_or_manage_only():
+    """`serv` with neither a path nor --manage-only is refused with the
+    JAX CLI's words, before anything loads."""
+    from aha_tpu.cli.main import main as jmain
+
+    with pytest.raises(SystemExit) as got:
+        cli.main(["serv"])
+    with pytest.raises(SystemExit) as want:
+        jmain(["serv"])
+    assert str(got.value) == str(want.value) == cli.SERV_NEEDS_MODEL
+
+
+@pytest.mark.parametrize("argv,refusal", [
+    (["serv", "{repo}", "--tp", "2"], "TP_NOT_PORTED"),
+    (["cli", "{repo}", "--tp", "4"], "TP_NOT_PORTED"),
+    (["run", "{repo}", "--input", "hi", "--tp", "2"], "TP_NOT_PORTED"),
+    (["serv", "{repo}", "--dp", "2"], "--dp shards continuous-batching"),
+    (["serv", "{repo}", "--dp", "2", "--batch-slots", "3"],
+     "must be a multiple of --dp 2"),
+    (["serv", "{repo}", "--dp", "2", "--batch-slots", "4"],
+     "not ported to aha_tpu_torch yet"),
+])
+def test_tp_and_dp_are_refused_before_loading(repo, monkeypatch, argv,
+                                              refusal):
+    """--tp above 1 is refused with the port's words; --dp goes through
+    the loader's checks (its combination with the slots, then the port's
+    refusal); no family loader runs."""
+    from aha_tpu_torch.models import loader
+
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    monkeypatch.setattr(loader, "FAMILY_LOADERS", {})
+    with pytest.raises(ValueError) as got:
+        cli.main([a.format(repo=repo) for a in argv])
+    want = getattr(loader, refusal, refusal)
+    assert want in str(got.value)
+
+
+@pytest.mark.parametrize("model_type,want", [
+    (None, "Qwen/Qwen3-0.6B"),
+    ("qwen3", "Qwen/Qwen3-0.6B"),
+    ("qwen2_5_vl", "Qwen/Qwen2.5-VL-3B-Instruct"),
+    ("lfm2-vl", "LiquidAI/LFM2-VL-1.6B"),
+    ("bert", "sentence-transformers/all-MiniLM-L6-v2"),
+    ("minicpm", SystemExit),
+    ("qwen3_5_text", SystemExit),
+    ("deepseek_vl_v2", SystemExit),
+    ("glm_ocr", SystemExit),
+])
+def test_model_id_for_maps_or_refuses_a_model_type(tmp_path, model_type,
+                                                   want):
+    """A directory served without --model: no model_type or qwen3 keeps
+    the default id, a type of MODEL_TYPES maps to its one id, any other
+    type is refused, naming it and asking for --model; a named --model
+    always wins."""
+    cfg = {} if model_type is None else {"model_type": model_type}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    if want is SystemExit:
+        with pytest.raises(SystemExit) as got:
+            cli.model_id_for(str(tmp_path), cli.DEFAULT_MODEL)
+        assert repr(model_type) in str(got.value)
+        assert "--model" in str(got.value)
+    else:
+        assert cli.model_id_for(str(tmp_path), cli.DEFAULT_MODEL) == want
+    assert cli.model_id_for(str(tmp_path), "OpenBMB/MiniCPM4-0.5B") == \
+        "OpenBMB/MiniCPM4-0.5B"
+
+
+def test_every_model_type_maps_to_one_registry_id():
+    """Each MODEL_TYPES entry names an id of the registry."""
+    from aha_tpu_torch.registry import lookup
+
+    for model_type, model_id in cli.MODEL_TYPES.items():
+        assert lookup(model_id).model_id == model_id, model_type
+
+
+def test_serv_of_an_unknown_model_type_loads_nothing(tmp_path, monkeypatch):
+    """`serv <dir>` of a MiniCPM checkpoint without --model: refused before
+    any loader runs (it was loaded as Qwen3-0.6B)."""
+    from aha_tpu_torch.models import loader
+
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "minicpm"}))
+    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    monkeypatch.setattr(loader, "FAMILY_LOADERS", {})
+    with pytest.raises(SystemExit, match="'minicpm'"):
+        cli.main(["serv", str(tmp_path)])

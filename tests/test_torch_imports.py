@@ -77,6 +77,37 @@ GGUF35_MODULES = ("aha_tpu_torch.native", "aha_tpu_torch.io.gguf",
                   "aha_tpu_torch.models.loader", "aha_tpu_torch.cli")
 
 
+#: the modules of the lifecycle slice
+LIFECYCLE_MODULES = ("aha_tpu_torch.utils.download",
+                     "aha_tpu_torch.utils.profiling",
+                     "aha_tpu_torch.server.manage",
+                     "aha_tpu_torch.server.webui",
+                     "aha_tpu_torch.server.app", "aha_tpu_torch.cli")
+
+
+def test_lifecycle_modules_walked_and_free_of_aha_tpu():
+    r = _run(ALL_MODULES + f"missing = set({LIFECYCLE_MODULES!r}) - "
+             "set(mods)\nassert not missing, missing\n" + NOTHING_OF_AHA_TPU)
+    assert r.returncode == 0, r.stderr
+
+
+def test_managed_child_runs_the_port():
+    """The console's child command names the port's package, never the
+    JAX package's, and nothing in the lifecycle modules' source imports
+    or spawns aha_tpu."""
+    import inspect
+    import re
+
+    from aha_tpu_torch.server import manage
+
+    src = inspect.getsource(manage.serve_model)
+    assert '"-m", "aha_tpu_torch", "serv"' in src
+    for mod in LIFECYCLE_MODULES:
+        text = inspect.getsource(__import__(mod, fromlist=["_"]))
+        assert not re.search(r"(from|import) aha_tpu\b(?!_torch)", text), mod
+        assert '"aha_tpu"' not in text and "import jax" not in text, mod
+
+
 def test_gguf35_modules_walked_and_free_of_aha_tpu():
     r = _run(ALL_MODULES + f"missing = set({GGUF35_MODULES!r}) - set(mods)\n"
              "assert not missing, missing\n" + NOTHING_OF_AHA_TPU)

@@ -246,12 +246,15 @@ def test_serv_and_run_parse_both_forms(files):
 def test_cli_refusals_use_the_reference_words(files, tmp_path, monkeypatch):
     """A GGUF id without --gguf-path, an ONNX id, and `serv` of an id with
     neither --weight-path nor a downloaded directory exit with the JAX
-    CLI's words (aha_tpu/cli/main.py:204-226); `run` refuses where the
-    JAX CLI would download; an id's directory under AHA_HOME is served."""
+    CLI's words (aha_tpu/cli/main.py:204-226); `run` downloads where the
+    JAX CLI downloads (both packages' download_model replaced by a
+    recorder: no network); an id's directory under AHA_HOME is served."""
+    import aha_tpu.utils.download as jdownload
     from aha_tpu import registry as jregistry
     from aha_tpu.cli.main import _resolve_model_path
     from aha_tpu.cli.main import build_parser as jbuild_parser
     from aha_tpu_torch import registry
+    from aha_tpu_torch.utils import download
 
     monkeypatch.setenv("AHA_HOME", str(tmp_path / "home"))
     onnx = "x/tiny-onnx"
@@ -267,10 +270,16 @@ def test_cli_refusals_use_the_reference_words(files, tmp_path, monkeypatch):
         with pytest.raises(SystemExit) as want:
             _resolve_model_path(jap.parse_args(argv), allow_download=False)
         assert str(got.value) == str(want.value), argv
-    with pytest.raises(SystemExit) as got:
-        cli.resolve(ap.parse_args(["run", "Qwen/Qwen3-0.6B", "--input",
-                                   "hi"]))
-    assert str(got.value) == cli.RUN_NO_DOWNLOAD
+    fetched = {}
+    for mod in (download, jdownload):
+        monkeypatch.setattr(mod, "download_model",
+                            lambda *a, _m=mod: fetched.setdefault(_m, a))
+    argv = ["run", "Qwen/Qwen3-0.6B", "--input", "hi"]
+    got = cli.resolve(ap.parse_args(argv))
+    want = _resolve_model_path(jap.parse_args(argv), allow_download=True)
+    assert got == ("Qwen/Qwen3-0.6B", *want)
+    assert fetched[download] == fetched[jdownload] == (
+        "Qwen/Qwen3-0.6B", str(tmp_path / "home"), 3)
     with pytest.raises(SystemExit, match="given twice"):
         cli.resolve(ap.parse_args(["serv", MODEL, "--model",
                                    "Qwen/Qwen3-8B", "--gguf-path", "f"]))
