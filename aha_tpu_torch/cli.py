@@ -20,9 +20,11 @@
   single-stream engine (greedy requests); `AHA_KV_INT8=1` stores the KV
   cache in int8.  `--profile-dir D` writes a torch.profiler trace of each
   request into D; `--profile-port P` answers GET /capture?ms=N on
-  127.0.0.1:P with a trace of the next N ms (utils/profiling.py).  `--tp`
-  above 1 is refused (tensor parallelism is not ported); `--dp` goes to
-  the loader's checks.
+  127.0.0.1:P with a trace of the next N ms (utils/profiling.py).  `--tp
+  N` shards a Qwen3 chat model over N ranks, one a card (this process is
+  rank 0 and starts the others; other families refuse it, naming what is
+  not ported); `--dp D` with `--batch-slots N` serves D BatchEngine
+  replicas of N/D slots, one a card (parallel/).
 - `serv --manage-only`: no model; the web console at / and the /manage
   API (download, serve, stop, logs, settings), with the PID file.
 - `download <model id> [--save-dir] [--download-retries]`: fetch a
@@ -186,11 +188,11 @@ def _add_serving(s: argparse.ArgumentParser) -> None:
     s.add_argument("--prefix-cache", type=int, default=4,
                    help="prompt-prefix KV cache entries (0 disables)")
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: only 1 is "
-                        "taken)")
+                   help="tensor-parallel degree: shard a Qwen3 chat model "
+                        "over N ranks, one a card")
     s.add_argument("--dp", type=int, default=1,
-                   help="data-parallel degree of the continuous-batching "
-                        "slots (not ported: only 1 is taken)")
+                   help="data-parallel degree: D BatchEngine replicas, one "
+                        "a card, with --batch-slots N split between them")
     s.add_argument("--eager", action="store_true",
                    help="run decode blocks eagerly instead of replaying "
                         "captured CUDA graphs")
@@ -254,8 +256,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-tokens", type=int, default=1024)
     r.add_argument("--output", help="output file (audio/image models)")
     r.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: only 1 is "
-                        "taken)")
+                   help="tensor-parallel degree: shard a Qwen3 chat model "
+                        "over N ranks, one a card")
     return ap
 
 
@@ -418,6 +420,16 @@ def run_run(args) -> int:
     t0 = time.perf_counter()
     model = _load(args)
     print(f"load model use time: {time.perf_counter() - t0:.2f}s")
+    try:
+        return _run_model(args, model, model_id, entry, inputs)
+    finally:
+        stop = getattr(model, "shutdown", None)   # tp workers, schedulers
+        if stop is not None:
+            stop()
+
+
+def _run_model(args, model, model_id: str, entry, inputs: list[str]) -> int:
+    mt = entry.model_type
     t0 = time.perf_counter()
     if mt == "embedding":
         for v in model.embedding([_maybe_file_text(s) for s in inputs]):

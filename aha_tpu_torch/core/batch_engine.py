@@ -45,12 +45,24 @@ slots on dim 1, which is all admission (`_insert`) and the prefix store
 read.  Inactive slots step too, as in the JAX engine: their rolling state
 turns to garbage, which admission overwrites whole.  Chunked admission
 and the prefix store need `supports_prefix_cache` (prefill over cached
-rows).  Not ported: the `mesh`/`dp`/`tp` sharded layouts and multimodal
-requests.
+rows).  Not ported: multimodal requests.
+
+Under a tensor-parallel mesh (`mesh` with tp > 1) every rank holds a
+BatchEngine over its shard, and the scheduler thread lives on rank 0
+only: each device operation — the step inputs of a new slot set, a
+dispatch of n decode steps, an admission's start, each prefill chunk,
+its end (prefix stored, first token, rows inserted) or its drop — is an
+`_op_*` method that rank 0 calls through `_dev`, which sends it to the
+workers first (parallel/ranks.py), so every rank makes the same calls in
+the same order.  Sampled tokens are rank 0's, broadcast inside the step;
+greedy ones come from the gathered logits, the same on every rank.  No
+fusion and no CUDA graphs under a mesh.  Data parallelism is replicas of
+this engine, one a card (parallel/replicas.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -118,9 +130,23 @@ class BatchEngine:
                  slots: int = 4, cache_dtype: torch.dtype | None = None,
                  max_seq_len: int = 4096, runahead: int = 32,
                  prefix_cache_entries: int = 0, prefill_chunk: int = 512,
-                 decode_block: int = 4, cuda_graphs: bool = True):
+                 decode_block: int = 4, cuda_graphs: bool = True,
+                 mesh=None):
         self.model = model
-        self.params = fused_params(model, params)
+        #: as TextEngine's: the tp mesh, rank 0's handle on the workers
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.ranks = None
+        if self.mesh is not None:
+            if getattr(model, "mesh", None) is not self.mesh:
+                raise ValueError("the model is not built on the engine's "
+                                 "mesh")
+            if cuda_graphs and params["embed"]["w"].is_cuda:
+                print(f"tp {self.mesh.tp}: decode blocks run eagerly "
+                      "(collectives are not captured in CUDA graphs)",
+                      flush=True)
+            cuda_graphs = False
+        self.params = (params if self.mesh is not None
+                       else fused_params(model, params))
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.slots = B = slots
         self.cache_dtype = cache_dtype or self.params["embed"]["w"].dtype
@@ -178,6 +204,14 @@ class BatchEngine:
     def device(self) -> torch.device:
         return self.params["embed"]["w"].device
 
+    def _dev(self, op: str, *args):
+        """Run device operation `op` (an `_op_*` method) with `args`; on
+        rank 0 of a tp group the workers are sent it first and make the
+        same call."""
+        if self.ranks is not None:
+            return self.ranks.run(self, op, args)
+        return getattr(self, op)(*args)
+
     @property
     def last_timing(self) -> Timing:
         return getattr(self._tls, "timing", self._default_timing)
@@ -200,6 +234,8 @@ class BatchEngine:
             toks = sample_tokens_batch(logits, self._sp, self._rings,
                                        self._n_gen, self._gens)
         toks = torch.where(self._active, toks, 0)
+        if self.mesh is not None and self._mode != "greedy":
+            toks = self.mesh.broadcast(toks.contiguous())   # rank 0's
         self._rings[self._slot_ar, (self._n_gen % REPEAT_WINDOW).long()] = toks
         self._n_gen.add_(self._active_i32)
         self._tokens.copy_(toks)
@@ -210,6 +246,9 @@ class BatchEngine:
         order: on the card the replay of the (mode, n_steps) graph, whose
         output buffer the next replay overwrites (read it back before, on
         the same stream: _HostCopy)."""
+        return self._dev("_op_decode", n_steps)
+
+    def _op_decode(self, n_steps: int) -> torch.Tensor:
         self.decode_steps += n_steps
 
         def block():
@@ -339,7 +378,40 @@ class BatchEngine:
     # device and delivered through the same fetch pipeline as decode steps.
 
     def _begin_admission(self, req: _Request, slot: int) -> None:
-        prompt_len = len(req.prompt_ids)
+        self._dev("_op_admit", list(req.prompt_ids), slot)
+        self._admission["req"] = req
+
+    def _advance_admission(self) -> list | None:
+        """Run ONE prefill chunk; on the last, finalize the slot and return
+        the first token's fetch entry (None otherwise)."""
+        st = self._admission
+        req, slot = st["req"], st["slot"]
+        try:
+            if req.cancelled.is_set():
+                self._dev("_op_drop_admission")
+                req.out.put(None)
+                return None
+            if not self._dev("_op_chunk"):
+                return None
+            tok = self._dev("_op_finalize", req.cfg)
+            self._slot_req[slot] = req
+            self._emitted[slot] = 0      # counted when the token is fetched
+            self._budget[slot] = min(req.max_tokens,
+                                     self.max_seq_len - len(req.prompt_ids))
+            self._slots_dirty = True
+            return ["first", _HostCopy(tok), slot, req, st["t0"]]
+        except Exception as e:  # surface as the request's error
+            self._admission = None
+            req.out.put(e)
+            req.out.put(None)
+            return None
+
+    # -- admission's device operations (every rank of a tp group) -----------
+
+    def _op_admit(self, prompt_ids: list[int], slot: int) -> None:
+        """Reserve `slot` for a prompt: take a pooled small cache of its
+        bucket and restore the longest stored prefix that fits."""
+        prompt_len = len(prompt_ids)
         pf_bucket = min(bucket_for(prompt_len, PREFILL_BUCKETS),
                         self.max_seq_len)
         small = self._pf_caches.pop(pf_bucket, None)
@@ -349,70 +421,57 @@ class BatchEngine:
         t0 = time.perf_counter()
         entry, p = (None, 0)
         if self.prefix_cache_entries:
-            entry, p = self._prefix_entries.match(req.prompt_ids)
+            entry, p = self._prefix_entries.match(prompt_ids)
             if entry is not None and \
                     p + bucket_for(prompt_len - p) > pf_bucket:
                 entry, p = None, 0       # suffix bucket would not fit
         if entry is not None:
             PrefixStore.restore(entry, small, p)
-        self._admission = {"req": req, "slot": slot, "small": small,
-                           "pf_bucket": pf_bucket, "off": p, "t0": t0,
-                           "fresh": p == 0}
+        self._admission = {"prompt": prompt_ids, "slot": slot,
+                           "small": small, "pf_bucket": pf_bucket, "off": p,
+                           "t0": t0, "fresh": p == 0}
 
-    def _advance_admission(self) -> list | None:
-        """Run ONE prefill chunk; on the last, finalize the slot and return
-        the first token's fetch entry (None otherwise)."""
+    def _op_chunk(self) -> bool:
+        """Prefill the admission's next chunk; True after its last."""
         st = self._admission
-        req, slot = st["req"], st["slot"]
-        try:
-            if req.cancelled.is_set():
-                self._admission = None
-                self._pf_caches[st["pf_bucket"]] = st["small"]
-                req.out.put(None)
-                return None
-            prompt = req.prompt_ids
-            n = len(prompt)
-            take = min(n - st["off"], max(self.prefill_chunk or n, 1))
-            chunk = prompt[st["off"]:st["off"] + take]
-            # the chunk's bucket, cut to the small cache's free rows: the
-            # JAX engine's dynamic_update_slice would shift an overrunning
-            # chunk back over earlier rows
-            cbucket = min(bucket_for(len(chunk), PREFILL_BUCKETS),
-                          st["pf_bucket"] - st["off"])
-            logits = self._prefill(chunk, cbucket, st["small"],
-                                   from_cache=not (st["fresh"] and take == n))
-            st["off"] += take
-            st["fresh"] = False
-            if st["off"] < n:
-                return None
-            self._admission = None
-            return self._finalize_admission(req, slot, st, logits)
-        except Exception as e:  # surface as the request's error
-            self._admission = None
-            req.out.put(e)
-            req.out.put(None)
-            return None
+        prompt = st["prompt"]
+        n = len(prompt)
+        take = min(n - st["off"], max(self.prefill_chunk or n, 1))
+        chunk = prompt[st["off"]:st["off"] + take]
+        # the chunk's bucket, cut to the small cache's free rows: the JAX
+        # engine's dynamic_update_slice would shift an overrunning chunk
+        # back over earlier rows
+        cbucket = min(bucket_for(len(chunk), PREFILL_BUCKETS),
+                      st["pf_bucket"] - st["off"])
+        st["logits"] = self._prefill(
+            chunk, cbucket, st["small"],
+            from_cache=not (st["fresh"] and take == n))
+        st["off"] += take
+        st["fresh"] = False
+        return st["off"] >= n
 
-    def _finalize_admission(self, req: _Request, slot: int, st: dict,
-                            logits: torch.Tensor) -> list:
-        """Insert the prefilled rows into the slot, seed its loop state,
-        and hand the (device) first token to the fetch pipeline."""
-        prompt_len = len(req.prompt_ids)
-        small = st["small"]
+    def _op_finalize(self, cfg: SamplingConfig) -> torch.Tensor:
+        """Store the prompt's prefix, sample its first token from the
+        slot's generator seeded by `cfg`, insert the prefilled rows into
+        the slot and seed its loop state; the (device) token."""
+        st, self._admission = self._admission, None
+        slot, small = st["slot"], st["small"]
         if self.prefix_cache_entries:
-            self._prefix_entries.store(req.prompt_ids, small)
+            self._prefix_entries.store(st["prompt"], small)
         gen = self._gens[slot]
-        gen.manual_seed(req.cfg.seed)
-        tok = sample_token(logits[0], req.cfg, gen)
-        self._insert(small, slot, prompt_len)
+        gen.manual_seed(cfg.seed)
+        tok = sample_token(st["logits"][0], cfg, gen)
+        if self.mesh is not None:                 # rank 0's token
+            tok = self.mesh.broadcast(tok.clone())
+        self._insert(small, slot, len(st["prompt"]))
         self._pf_caches[st["pf_bucket"]] = small
-        self._slot_req[slot] = req
-        self._emitted[slot] = 0          # counted when the token is fetched
-        self._budget[slot] = min(req.max_tokens,
-                                 self.max_seq_len - prompt_len)
-        self._slots_dirty = True
         self._seed_slot(slot, tok)
-        return ["first", _HostCopy(tok), slot, req, st["t0"]]
+        return tok
+
+    def _op_drop_admission(self) -> None:
+        """A cancelled admission: its small cache back to the pool."""
+        st, self._admission = self._admission, None
+        self._pf_caches[st["pf_bucket"]] = st["small"]
 
     @staticmethod
     def _stamp(req: _Request) -> None:
@@ -439,8 +498,12 @@ class BatchEngine:
         (device OOM, a kernel fault) reaches every active and queued
         request instead of leaving clients blocked."""
         try:
-            # no_grad is thread-local: without it every step records a graph
-            with torch.no_grad():
+            # no_grad is thread-local: without it every step records a
+            # graph; so is the current card, which a kernel launch takes
+            # (a dp replica's engine lives on another card than cuda:0)
+            with torch.no_grad(), (torch.cuda.device(self.device)
+                                   if self.device.type == "cuda"
+                                   else contextlib.nullcontext()):
                 self._run_inner()
         except BaseException as e:  # noqa: BLE001 — deliver, then re-raise
             for slot, r in enumerate(self._slot_req):
@@ -467,6 +530,10 @@ class BatchEngine:
         the step inputs in place (a captured block reads their storage)."""
         cfgs = [(r.cfg if r is not None else SamplingConfig())
                 for r in self._slot_req]
+        self._dev("_op_refresh", list(active), cfgs)
+
+    def _op_refresh(self, active: list[bool],
+                    cfgs: list[SamplingConfig]) -> None:
         for name, t in pack_sampling_params(cfgs).items():
             self._sp[name].copy_(t)
         mask = torch.tensor(active, dtype=torch.bool)

@@ -20,6 +20,10 @@ Layouts:
   workaround; here a row's Hkv scales sit next to each other (32 bytes at
   Hkv = 8), one sector the decode kernel reads per row.
 
+Under a tensor-parallel mesh (parallel/) a rank's cache is its slice of
+these layouts by the model's cache rules (QWEN3_CACHE_RULES): the flat
+rows' kv-head groups, and the int8 scales of those heads beside them.
+
 Rolling state (`STATE_KEYS`): the hybrid decoders add per-slot state with
 no row axis, slots on dim 1 as everywhere, which every step reads whatever
 `pos` is — so `reset` zeroes it, a prefix snapshot copies it whole, and
@@ -39,6 +43,8 @@ from typing import Any
 
 import torch
 
+from aha_tpu_torch.parallel.mesh import local_shape, spec_for
+
 #: cache entries that hold per-row state, rows on dim 2 in every layout
 #: (sliced by a prefix snapshot)
 ROW_KEYS = ("k", "v", "k_scale", "v_scale")
@@ -50,21 +56,30 @@ def init_kv_cache(n_layers: int, batch: int, max_len: int, n_kv_heads: int,
                   head_dim: int, dtype: torch.dtype = torch.bfloat16,
                   device: torch.device | str = "cpu",
                   per_slot_pos: bool = False,
-                  flat: bool = True) -> dict[str, Any]:
+                  flat: bool = True, mesh=None,
+                  rules: tuple = ()) -> dict[str, Any]:
+    """The cache of a model with `n_kv_heads` kv heads; with a tp `mesh`,
+    this rank's slice of it by `rules` (parallel/mesh.local_shape)."""
     if not flat and dtype == torch.int8:
         raise ValueError("the int8 cache is flat (L, B, S, Hkv·D) only")
+
+    def zeros(name, shape, dt):
+        if mesh is not None:
+            shape = local_shape(shape, spec_for(name, rules), mesh)
+        return torch.zeros(shape, dtype=dt, device=device)
+
     shape = ((n_layers, batch, max_len, n_kv_heads * head_dim) if flat
              else (n_layers, batch, max_len, n_kv_heads, head_dim))
     cache = {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": zeros("k", shape, dtype),
+        "v": zeros("v", shape, dtype),
         "pos": torch.zeros((batch,) if per_slot_pos else (),
                            dtype=torch.int32, device=device),
     }
     if dtype == torch.int8:
         sc = (n_layers, batch, max_len, n_kv_heads)
-        cache["k_scale"] = torch.zeros(sc, dtype=torch.float32, device=device)
-        cache["v_scale"] = torch.zeros(sc, dtype=torch.float32, device=device)
+        cache["k_scale"] = zeros("k_scale", sc, torch.float32)
+        cache["v_scale"] = zeros("v_scale", sc, torch.float32)
     return cache
 
 

@@ -57,11 +57,28 @@ round that would overrun into a device no-op (`lax.cond`, a = -1): the
 loop knows pos exactly before each dispatch, dispatches R rounds only
 while R * G1 more rows fit, then single rounds while G1 fit, then hands
 the stream to the decode blocks.  Not ported yet: the jitted prefill.
+
+Under a tensor-parallel mesh (`mesh` with tp > 1; parallel/) the engine
+of every rank drives its shard of the model, and only rank 0's schedules:
+each device operation of a request — the prompt (cache taken, prefix
+matched and restored, prefilled, stored, first token), a decode block of
+n steps, the cache's return — is an `_op_*` method that rank 0 calls
+through `_dev`, which first sends it to the workers (parallel/ranks.py);
+each names its request by the id rank 0 gave it, so every rank acts on
+that request's pooled cache while other streams are open,
+so every rank makes the same calls and their collectives stay in step
+whatever the host decides (eos, stop strings, a client gone, max_tokens).
+The next token is rank 0's: a sampled one is broadcast from it, a greedy
+one comes from the head combine, the same on every rank.  No fusion
+(the partition rules name the separate weights), no speculation, and the
+blocks run eagerly: capturing the collectives in the decode graphs is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import OrderedDict
 from typing import Iterator
@@ -85,6 +102,9 @@ PREFIX_MIN_TOKENS = 32
 DECODE_BLOCK = 16
 #: bytes of KV the prefix store may pin on the device
 PREFIX_MAX_BYTES = 512 << 20
+SPEC_WITH_TP = ("--spec-tokens with --tp is not ported to aha_tpu_torch "
+                "yet: speculative rounds read the full logits of every "
+                "drafted row; serve with --spec-tokens 0")
 
 
 def spec_propose_device(hist: torch.Tensor, hl: torch.Tensor, g: int,
@@ -293,8 +313,26 @@ class TextEngine:
                  max_seq_len: int = 8192, prefix_cache_entries: int = 0,
                  spec_tokens: int = 0,
                  cache_dtype: torch.dtype | None = None,
-                 cuda_graphs: bool = True, spec_no_drafts: bool = False):
+                 cuda_graphs: bool = True, spec_no_drafts: bool = False,
+                 mesh=None):
         self.model = model
+        #: the tp mesh the model's shard runs on (None on one device; the
+        #: model allocates the rank's slice of the cache by its
+        #: cache_rules) and, on rank 0 of a tp group, the handle on the
+        #: workers (parallel/ranks.py sets it)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.ranks = None
+        if self.mesh is not None:
+            if getattr(model, "mesh", None) is not self.mesh:
+                raise ValueError("the model is not built on the engine's "
+                                 "mesh")
+            if spec_tokens > 0:
+                raise ValueError(SPEC_WITH_TP)
+            if cuda_graphs and embed_weight(params).is_cuda:
+                print(f"tp {self.mesh.tp}: decode blocks run eagerly "
+                      "(collectives are not captured in CUDA graphs)",
+                      flush=True)
+            cuda_graphs = False
         # rejected drafts are undone by moving pos back: only a pure K/V
         # cache can rewind
         self.spec_tokens = (max(0, spec_tokens)
@@ -306,8 +344,9 @@ class TextEngine:
         self.last_spec_a: list[int] = []
         # one [q|k|v] and one [gate|up] weight per layer, where the model
         # has a fusion: bit-identical outputs, fewer weight streams per
-        # decode step
-        self.params = fused_params(model, params)
+        # decode step; a sharded layout keeps the weights its rules name
+        self.params = (params if self.mesh is not None
+                       else fused_params(model, params))
         self.cache_dtype = cache_dtype or embed_weight(self.params).dtype
         self.eos_token_ids = set(int(t) for t in eos_token_ids)
         self.max_seq_len = max_seq_len
@@ -321,6 +360,18 @@ class TextEngine:
         self.graphs = (DecodeGraphs(self.device)
                        if cuda_graphs and self.device.type == "cuda"
                        else None)
+        #: the pooled cache and loop state of each open request, by the id
+        #: rank 0 gave it (streams may overlap)
+        self._live: dict[int, _Pooled] = {}
+        self._rids = itertools.count()
+
+    def _dev(self, op: str, *args):
+        """Run device operation `op` (an `_op_*` method) with `args`; on
+        rank 0 of a tp group the workers are sent it first and make the
+        same call."""
+        if self.ranks is not None:
+            return self.ranks.run(self, op, args)
+        return getattr(self, op)(*args)
 
     @property
     def device(self) -> torch.device:
@@ -380,6 +431,8 @@ class TextEngine:
         recorded at n_gen mod the ring's length, n_gen advanced."""
         n_valid = st.n_gen.clamp(max=self._repeat_window(cfg))
         tok = sample_token(logits[0], cfg, self._gen, st.ring, n_valid)
+        if self.mesh is not None:                 # rank 0's token
+            tok = self.mesh.broadcast(tok.clone())
         slot = (st.n_gen % st.ring.shape[0]).long().reshape(1)
         st.ring.index_copy_(0, slot, tok.reshape(1))
         st.n_gen.add_(1)
@@ -564,41 +617,20 @@ class TextEngine:
         cache_len = bucket_for(min(prompt_len + max_tokens, self.max_seq_len),
                                CACHE_BUCKETS)
         pf_bucket = min(bucket_for(prompt_len), cache_len)
-        st = self._take(cache_len)
-        cache = st.cache
         timing = Timing(prompt_tokens=prompt_len)
         self.last_timing = timing
         self.last_spec_a = []
-        if not cfg.greedy:
-            self._gen.manual_seed(cfg.seed)
-
-        entry, p = (None, 0)
-        use_prefix = self.prefix_cache_entries and \
+        use_prefix = bool(self.prefix_cache_entries) and \
             (mm is None or mm_key is not None)
         key = mm_key if mm is not None else None
-        if use_prefix:
-            entry, p = self._prefix_entries.match(prompt_ids, key)
-            if entry is not None and \
-                    p + bucket_for(prompt_len - p) > cache_len:
-                entry, p = None, 0       # suffix bucket would not fit
-            if entry is not None and mm_token_ids and any(
-                    t in mm_token_ids for t in prompt_ids[p:]):
-                entry, p = None, 0       # the suffix needs image features
 
+        rid = next(self._rids)
         try:
             t0 = time.perf_counter()
-            if entry is not None:
-                self._prefix_entries.restore(entry, cache, p)
-                suffix = prompt_ids[p:]
-                logits = self._prefill(suffix, bucket_for(len(suffix)), cache,
-                                       from_cache=True)
-            else:
-                logits = self._prefill(prompt_ids, pf_bucket, cache,
-                                       from_cache=False, mm=mm)
-            if use_prefix:
-                self._prefix_entries.store(prompt_ids, cache, key)
-            token = self._sample(logits, cfg, st)
-            st.token.copy_(token)
+            token = self._dev("_op_prompt", rid, list(prompt_ids), cfg,
+                              cache_len, pf_bucket, use_prefix, key, mm,
+                              tuple(mm_token_ids))
+            st = self._live[rid]
             token_host = int(token)
             timing.prompt_secs = time.perf_counter() - t0
             timing.completion_tokens = 1
@@ -621,6 +653,10 @@ class TextEngine:
                     if v in self.eos_token_ids:
                         return True
                 return False
+
+            def block(n: int) -> list[int]:
+                return self._dev("_op_decode", rid, cfg, n,
+                                 prompt_len + emitted + n, emitted).tolist()
 
             if self.spec_tokens > 0 and self._mode(cfg) == "greedy" \
                     and mm is None:
@@ -647,9 +683,7 @@ class TextEngine:
             # live rows after a block: the prompt, the tokens sampled so
             # far (the last not yet in the cache) and the block's steps
             while emitted + blk <= max_decode:
-                toks = self._decode_block(st, cfg, blk,
-                                          prompt_len + emitted + blk, emitted)
-                if (yield from emit(toks.tolist())):
+                if (yield from emit(block(blk))):
                     return
             rem = max_decode - emitted
             if rem <= 0:
@@ -657,16 +691,62 @@ class TextEngine:
             if prompt_len + emitted + blk <= cache_len:
                 # one overshooting block, extras discarded: blk − 1 wasted
                 # device steps beat blk − 1 host round trips
-                toks = self._decode_block(st, cfg, blk,
-                                          prompt_len + emitted + blk, emitted)
-                yield from emit(toks.tolist()[:rem])
+                yield from emit(block(blk)[:rem])
                 return
             while emitted < max_decode:   # single-step tail at the bucket end
-                toks = self._decode_block(st, cfg, 1,
-                                          prompt_len + emitted + 1, emitted)
-                if (yield from emit(toks.tolist())):
+                if (yield from emit(block(1))):
                     return
         finally:
+            self._dev("_op_end", rid)
+
+    # -- device operations (every rank of a tp group makes each call) -------
+
+    def _op_prompt(self, rid: int, prompt_ids: list[int],
+                   cfg: SamplingConfig, cache_len: int, pf_bucket: int,
+                   use_prefix: bool, key: str | None, mm,
+                   mm_token_ids: tuple) -> torch.Tensor:
+        """Take the pooled cache of `cache_len` for request `rid`, restore
+        the longest stored prefix (if any fits), prefill the rest, store
+        the prompt, and sample the first token into the loop state; the
+        token (device)."""
+        st = self._live[rid] = self._take(cache_len)
+        cache = st.cache
+        if not cfg.greedy:
+            self._gen.manual_seed(cfg.seed)
+        prompt_len = len(prompt_ids)
+        entry, p = (None, 0)
+        if use_prefix:
+            entry, p = self._prefix_entries.match(prompt_ids, key)
+            if entry is not None and \
+                    p + bucket_for(prompt_len - p) > cache_len:
+                entry, p = None, 0       # suffix bucket would not fit
+            if entry is not None and mm_token_ids and any(
+                    t in mm_token_ids for t in prompt_ids[p:]):
+                entry, p = None, 0       # the suffix needs image features
+        if entry is not None:
+            self._prefix_entries.restore(entry, cache, p)
+            suffix = prompt_ids[p:]
+            logits = self._prefill(suffix, bucket_for(len(suffix)), cache,
+                                   from_cache=True)
+        else:
+            logits = self._prefill(prompt_ids, pf_bucket, cache,
+                                   from_cache=False, mm=mm)
+        if use_prefix:
+            self._prefix_entries.store(prompt_ids, cache, key)
+        token = self._sample(logits, cfg, st)
+        st.token.copy_(token)
+        return token
+
+    def _op_decode(self, rid: int, cfg: SamplingConfig, n_steps: int,
+                   live_rows: int, step: int) -> torch.Tensor:
+        return self._decode_block(self._live[rid], cfg, n_steps, live_rows,
+                                  step)
+
+    def _op_end(self, rid: int) -> None:
+        """Return request `rid`'s cache to the pool (none if its prompt
+        failed before taking one)."""
+        st = self._live.pop(rid, None)
+        if st is not None:
             self._return(st)
 
     def generate_tokens(self, prompt_ids: list[int], cfg: SamplingConfig,

@@ -14,29 +14,41 @@ later call of the key is one `replay()`: the same kernels, in the same
 order, from one host call.
 
 Launch accounting: the wrappers' Python code runs only while a block is
-captured, so each `<wrapper>.launches` is read before and after the
-capture, restored, and the difference added back at every replay: a count
-still says how many times the card ran its kernel.
+captured, so the launches the capturing thread counts (ops/launches.py
+`recording`: not another thread's meanwhile) are taken back and added
+again at every replay: a count still says how many times the card ran its
+kernel.
 
 A capture that fails raises; nothing falls back to the eager block.
+
+One key's first use (its eager block and its capture) runs alone in the
+process (`_FIRST_USE`): two engines' threads capturing at once — dp
+replicas, each with its own scheduler — invalidate each other's
+captures.  Replays of other engines go on meanwhile.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+import threading
 import time
 from typing import Callable, Hashable
 
 import torch
 
+from aha_tpu_torch.ops import launches
+
+#: held through a key's first use: one capture at a time in the process
+_FIRST_USE = threading.Lock()
 #: the modules whose functions carry a kernel's launch count
 _COUNTED_PREFIX = "aha_tpu_torch."
 
 
 def counted_wrappers() -> list:
     """Every kernel wrapper loaded so far: a module-level function of the
-    port with an integer `.launches`."""
+    port with an integer `.launches` (the card tests read every count
+    through it, whichever thread launched)."""
     found = {}
     for name, mod in list(sys.modules.items()):
         if not name.startswith(_COUNTED_PREFIX) or mod is None:
@@ -48,19 +60,9 @@ def counted_wrappers() -> list:
     return list(found.values())
 
 
-def snapshot(fns: list) -> list[int]:
-    return [fn.launches for fn in fns]
-
-
-def launch_delta(fns: list, before: list[int]) -> list[tuple]:
-    """(wrapper, launches since `before`) for each wrapper that launched."""
-    return [(fn, fn.launches - n) for fn, n in zip(fns, before)
-            if fn.launches != n]
-
-
 def add_launches(delta: list[tuple], times: int = 1) -> None:
     for fn, n in delta:
-        fn.launches += n * times
+        launches.count(fn, n * times)
 
 
 @dataclasses.dataclass
@@ -110,11 +112,12 @@ class DecodeGraphs:
         got = table.get(key)
         if got is not None:
             return got.replay()
-        t0 = time.perf_counter()
-        out = self._eager_on_stream(block)
-        table[key] = self._capture(block, generators)
-        self.captured += 1
-        self.capture_secs += time.perf_counter() - t0
+        with _FIRST_USE:
+            t0 = time.perf_counter()
+            out = self._eager_on_stream(block)
+            table[key] = self._capture(block, generators)
+            self.captured += 1
+            self.capture_secs += time.perf_counter() - t0
         return out
 
     def _eager_on_stream(self, block) -> torch.Tensor:
@@ -131,17 +134,17 @@ class DecodeGraphs:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        fns = counted_wrappers()
-        before = snapshot(fns)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
+        counted: dict = {}
         try:
             # thread_local: a server's other threads may allocate meanwhile
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with launches.recording(counted), torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 out = block()
         finally:
-            delta = launch_delta(fns, before)
+            delta = list(counted.items())
             add_launches(delta, -1)     # captured, not launched
         cur.wait_stream(self.stream)
         return Captured(graph, out, delta)

@@ -11,7 +11,11 @@
 //   (V, Kp/2) with (V, Kp/128) f32 scales (and mins): the same vocab-major
 //   access (ops/quant_matmul.py).
 //   Result: int32 index; ties go to the smallest index, and any NaN logit
-//   gives V - 1, exactly what fast_argmax returns for such a row.
+//   gives V - 1, exactly what fast_argmax returns for such a row.  The
+//   value-out instance (aha_head_argmax_value) also writes the winning
+//   logit in f32 (NaN where a NaN logit was seen): a tensor-parallel rank
+//   runs it over its vocab shard, and the ranks' (value, index) pairs
+//   decide the global token (aha_tpu_torch/parallel/layers.py).
 //
 // Bound: reading the head once: K * V * 2 B bf16 (311 MB for Qwen3-0.6B);
 // V * (Kp + Kp/32) B on the int8 grid (160 MB); V * (Kp/2 + Kp/16) B on the
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kFoldThreads)
 head_argmax_fold(const float* __restrict__ part_val,
                  const int* __restrict__ part_idx,
                  const int* __restrict__ part_nan, int n_parts, int V,
-                 int* __restrict__ out_idx) {
+                 int* __restrict__ out_idx, float* __restrict__ out_val) {
   __shared__ float sv[kFoldThreads];
   __shared__ int si[kFoldThreads];
   __shared__ int sn[kFoldThreads];
@@ -186,6 +190,7 @@ head_argmax_fold(const float* __restrict__ part_val,
   if (threadIdx.x == 0) {
     const int i = si[0];
     out_idx[0] = (sn[0] || i >= V) ? V - 1 : i;
+    if (out_val != nullptr) out_val[0] = sn[0] ? NAN : sv[0];
   }
 }
 
@@ -195,10 +200,11 @@ extern "C" int aha_head_argmax_parts(int V) {
   return (V + kRowsPerBlock - 1) / kRowsPerBlock;
 }
 
-// part_val f32, part_idx/part_nan int32: aha_head_argmax_parts(V) each.
-extern "C" int aha_head_argmax(const void* h, const void* w, void* part_val,
-                               void* part_idx, void* part_nan, void* out_idx,
-                               int K, int V, void* stream) {
+namespace {
+
+int launch_dense(const void* h, const void* w, void* part_val, void* part_idx,
+                 void* part_nan, void* out_idx, void* out_val, int K, int V,
+                 void* stream) {
   if (K % 8 != 0 || K <= 0 || V <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -219,8 +225,29 @@ extern "C" int aha_head_argmax(const void* h, const void* w, void* part_val,
   head_argmax_fold<<<1, kFoldThreads, 0, st>>>(
       static_cast<const float*>(part_val), static_cast<const int*>(part_idx),
       static_cast<const int*>(part_nan), n_parts, V,
-      static_cast<int*>(out_idx));
+      static_cast<int*>(out_idx), static_cast<float*>(out_val));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// part_val f32, part_idx/part_nan int32: aha_head_argmax_parts(V) each.
+extern "C" int aha_head_argmax(const void* h, const void* w, void* part_val,
+                               void* part_idx, void* part_nan, void* out_idx,
+                               int K, int V, void* stream) {
+  return launch_dense(h, w, part_val, part_idx, part_nan, out_idx, nullptr, K,
+                      V, stream);
+}
+
+// The same, also writing the winning logit to out_val (one f32).
+extern "C" int aha_head_argmax_value(const void* h, const void* w,
+                                     void* part_val, void* part_idx,
+                                     void* part_nan, void* out_idx,
+                                     void* out_val, int K, int V,
+                                     void* stream) {
+  if (out_val == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dense(h, w, part_val, part_idx, part_nan, out_idx, out_val, K,
+                      V, stream);
 }
 
 // The same over the int8 (q4 = 0) or 4-bit (q4 = 1) grid: w (V, Kp) or
@@ -250,6 +277,7 @@ extern "C" int aha_head_argmax_quant(const void* h, const void* w, const void* s
   if (err != cudaSuccess) return static_cast<int>(err);
   head_argmax_fold<<<1, kFoldThreads, 0, st>>>(
       static_cast<const float*>(part_val), static_cast<const int*>(part_idx),
-      static_cast<const int*>(part_nan), n_parts, V, static_cast<int*>(out_idx));
+      static_cast<const int*>(part_nan), n_parts, V, static_cast<int*>(out_idx),
+      nullptr);
   return static_cast<int>(cudaGetLastError());
 }

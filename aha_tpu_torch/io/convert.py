@@ -102,12 +102,27 @@ def _to_torch(tree, device, dtype):
 
 
 def params_from_jax(tree: dict, device: torch.device | str = "cpu",
-                    dtype: torch.dtype = torch.float32) -> dict:
+                    dtype: torch.dtype = torch.float32, mesh=None,
+                    rules=()) -> dict:
+    """The JAX tree's numbers in the port's layouts; with a tp `mesh`,
+    this rank's slice of them by `rules` (QWEN3_PARTITION_RULES for
+    Qwen3; parallel/mesh.shard_params)."""
+    out = _params_from_jax(tree, "cpu" if mesh is not None else device,
+                           dtype)
+    if mesh is None:
+        return out
+    from aha_tpu_torch.parallel.mesh import shard_params
+
+    return shard_params(out, mesh, rules, device=device)
+
+
+def _params_from_jax(tree: dict, device: torch.device | str,
+                     dtype: torch.dtype) -> dict:
     if "text" in tree or "llm" in tree:         # a tower beside a decoder
         dec = "text" if "text" in tree else "llm"
         out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
                if k != dec}
-        out["text"] = params_from_jax(tree[dec], device, dtype)
+        out["text"] = _params_from_jax(tree[dec], device, dtype)
         return out
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
            if k != "lm_head"}

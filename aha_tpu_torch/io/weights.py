@@ -44,6 +44,17 @@ class SafetensorsSource:
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._files[self._index[name]].get_tensor(name)
 
+    def read_part(self, name: str, dim: int, index: int,
+                  parts: int) -> torch.Tensor:
+        """Part `index` of `parts` equal parts of `name` along `dim`,
+        reading only those bytes of the file."""
+        sl = self._files[self._index[name]].get_slice(name)
+        shape = sl.get_shape()
+        n = shape[dim] // parts
+        idx = [slice(None)] * len(shape)
+        idx[dim] = slice(index * n, (index + 1) * n)
+        return sl[tuple(idx)]
+
 
 class TorchPickleSource:
     """.pth / .bin checkpoints through torch.load (tensors only; a
@@ -83,6 +94,19 @@ class Renamed:
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.src[self.rename(name)]
+
+
+def read_shard(src, name: str, dim: int, index: int,
+               parts: int) -> torch.Tensor:
+    """Part `index` of `parts` equal parts of tensor `name` along `dim`: a
+    tensor-parallel rank's slice, read alone where the source can
+    (safetensors), else cut from the whole tensor."""
+    read_part = getattr(src, "read_part", None)
+    if read_part is not None:
+        return read_part(name, dim, index, parts)
+    t = src[name]
+    n = t.shape[dim] // parts
+    return t.narrow(dim, index * n, n).contiguous()
 
 
 def take_linear(src, name: str, device, dtype) -> dict:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+from aha_tpu_torch.core.engine import SPEC_WITH_TP
 from aha_tpu_torch.models.base import LoadedModel
 from aha_tpu_torch.registry import ModelEntry, lookup
 
@@ -174,8 +175,11 @@ FAMILY_LOADERS: dict[str, Callable[..., LoadedModel]] = {
 BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 
 
-TP_NOT_PORTED = ("--tp (a model sharded over a device mesh) is not ported "
-                 "to aha_tpu_torch yet; serve with --tp 1")
+# families whose serving wrappers have no mesh path (the reference's set
+# and words): --tp is refused before loading any weights
+_NO_TP_FAMILIES = {"minilm", "voxcpm", "rmbg2_0"}
+#: families the port shards over --tp ranks
+TP_FAMILIES = {"qwen3"}
 
 #: the reference's refusals of the file kinds, word for word
 ONNX_REFUSED = "onnx comming soon but now not support"
@@ -190,20 +194,24 @@ def load_model(model_id: str, path: str, gguf: str | None = None,
     entry (`qwen3.5-gguf`) loads the file `gguf` (and the tower from
     `mmproj`) and refuses to run without one, an ONNX entry is refused,
     each with the reference's words (aha_tpu/models/loader.py:204-213).
-    `dp > 1` (sharded slots) is not ported: after the reference's checks
-    of its combination with the slots, a GGUF entry refuses it with the
-    reference's words, any other with the port's.  `tp > 1` (a model
-    sharded over a device mesh) is not ported either: a GGUF entry
-    refuses it with the reference's words, any other first of all, with
-    the port's."""
-    from aha_tpu_torch.models.text_served import SPEC_WITH_SLOTS
+    `tp > 1` shards the Qwen3 chat family over tp ranks, one a card; the
+    families with no mesh path refuse it with the reference's words, a
+    GGUF entry with its loader's, every other family and tp with dp with
+    the port's, naming what is not ported.  `dp > 1` (dp BatchEngine
+    replicas, one a card) goes through the reference's checks of its
+    combination with the slots; a GGUF entry refuses it.  A host with
+    fewer cards than tp·dp is refused before anything loads."""
+    from aha_tpu_torch.models.text_served import (SPEC_WITH_SLOTS,
+                                                  TP_WITH_DP, check_dp)
+    from aha_tpu_torch.utils.device import mesh_devices
 
     entry = lookup(model_id)
     tp = kw.pop("tp", 1)
-    if tp > 1:
-        if not entry.is_gguf:
-            raise ValueError(TP_NOT_PORTED)
-        kw["tp"] = tp                 # the GGUF loader refuses it
+    dp = kw.pop("dp", 1)
+    if tp > 1 and entry.family in _NO_TP_FAMILIES:
+        raise ValueError(
+            f"--tp does not apply to '{entry.family}' (no sharded serving "
+            "path); serve it with --tp 1")
     if kw.get("batch_slots", 1) > 1 and entry.family not in BATCHABLE_FAMILIES:
         raise ValueError(
             f"--batch-slots applies to text chat families "
@@ -211,26 +219,28 @@ def load_model(model_id: str, path: str, gguf: str | None = None,
             f"'{entry.family}' is served single-stream")
     if kw.get("batch_slots", 1) > 1 and kw.get("spec_tokens", 0) > 0:
         raise ValueError(SPEC_WITH_SLOTS)
-    dp = kw.pop("dp", 1)
     if dp > 1:
         if entry.family not in BATCHABLE_FAMILIES:
             raise ValueError(
                 "--dp shards continuous-batching slots and applies to the "
                 f"batchable text families; '{entry.family}' is served "
                 "single-stream")
-        if kw.get("batch_slots", 1) <= 1:
+        check_dp(dp, kw.get("batch_slots", 1))
+    if entry.is_gguf:
+        kw.update({"tp": tp} if tp > 1 else {})
+        kw.update({"dp": dp} if dp > 1 else {})   # its loader refuses both
+    elif tp > 1 or dp > 1:
+        if tp > 1 and dp > 1:
+            raise ValueError(TP_WITH_DP)
+        if tp > 1 and entry.family not in TP_FAMILIES:
             raise ValueError(
-                "--dp shards continuous-batching slots across devices; "
-                "combine it with --batch-slots N (N a multiple of dp)")
-        if kw["batch_slots"] % dp:
-            raise ValueError(
-                f"--batch-slots {kw['batch_slots']} must be a "
-                f"multiple of --dp {dp}")
-        if not entry.is_gguf:
-            raise ValueError("--dp (continuous-batching slots sharded over "
-                             "devices) is not ported to aha_tpu_torch yet; "
-                             "serve with --dp 1")
-        kw["dp"] = dp                 # the GGUF loader refuses it
+                f"--tp: the sharding of '{entry.family}' is not ported to "
+                "aha_tpu_torch yet (its tp ranks cover "
+                f"{', '.join(sorted(TP_FAMILIES))}); serve it with --tp 1")
+        if tp > 1 and kw.get("spec_tokens", 0) > 0:
+            raise ValueError(SPEC_WITH_TP)
+        mesh_devices(tp, dp)          # enough cards, before any weights
+        kw.update(tp=tp, dp=dp)
     if kw.get("batch_slots", 1) == 1:
         kw.pop("batch_slots", None)   # keep kwargs clean for family loaders
     if entry.family not in BATCHABLE_FAMILIES:

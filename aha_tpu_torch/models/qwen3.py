@@ -24,6 +24,20 @@ parameters (io/gguf_models.py, or pack_params) take the quant-matmul
 kernels at ≤ 64 rows on the card, the MLP the fused quantized SwiGLU, and a
 quantized head the head's quantized bodies (greedy) or the quant-matmul
 kernel (logits).
+
+Tensor parallelism (`mesh` with tp > 1, parallel/): the model is one
+rank's, built on its slice of the parameters (`shard_params` by
+QWEN3_PARTITION_RULES): Hq/tp query and Hkv/tp kv heads, I/tp MLP
+columns and V/tp vocab rows, norms (and the per-head q/k norms)
+replicated; check_tp refuses a tp that does not divide them.  o and down
+are row-sharded (parallel/layers.row_linear: one f32 all_reduce each),
+the embedding is a masked lookup summed over the
+ranks, the tied head gives gathered logits, and the greedy token comes
+from the value-out head kernel and the ranks' combine.  The cache holds
+the rank's kv heads only: `init_cache` allocates the rank's slice of the
+whole model's cache by QWEN3_CACHE_RULES.  Under a mesh the decode is
+the per-op chain: the fused stack never runs, as the JAX gate (`mesh is
+None`) has it.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from aha_tpu_torch.ops.lm_head import head_argmax
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.quant_matmul import concat_columns, pack_rows
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
+from aha_tpu_torch.parallel import layers as tp_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +125,16 @@ class Qwen3Model:
     supports_token_rewind = True
 
     def __init__(self, config: Qwen3Config, max_rope_len: int = 32768,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = c = config
         self.device = torch.device(device)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        tp = self.mesh.tp if self.mesh is not None else 1
+        check_tp(c, tp)
         self.n_layers = c.num_hidden_layers
-        self.n_heads = c.num_attention_heads
-        self.n_kv_heads = c.num_key_value_heads
+        self.n_heads = c.num_attention_heads // tp
+        self.n_kv_heads = c.num_key_value_heads // tp
         self.head_dim = c.head_dim
         self.cos, self.sin = rope_table(
             c.head_dim, min(max_rope_len, c.max_position_embeddings),
@@ -132,9 +151,13 @@ class Qwen3Model:
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    per_slot_pos: bool = False) -> dict:
+        """The cache of the whole model's kv heads; under a mesh, this
+        rank's slice of it by QWEN3_CACHE_RULES."""
         return kv.init_kv_cache(self.n_layers, batch, max_len,
-                                self.n_kv_heads, self.head_dim, dtype,
-                                self.device, per_slot_pos)
+                                self.config.num_key_value_heads,
+                                self.head_dim, dtype, self.device,
+                                per_slot_pos, mesh=self.mesh,
+                                rules=self.cache_rules)
 
     # -- forward ------------------------------------------------------------
 
@@ -192,7 +215,12 @@ class Qwen3Model:
             attn = (attention_decode_at_q8 if quant else
                     attention_decode_at)(q, cache["k"], cache["v"], *scales,
                                          layer, valid_len)
-        x = x + nn.linear(lp["o"], attn.reshape(B, S, nq))
+        h = attn.reshape(B, S, nq)
+        if self.mesh is not None:
+            x = x + tp_layers.row_linear(lp["o"], h, self.mesh)
+            h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
+            return x + tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
+        x = x + nn.linear(lp["o"], h)
         h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
         return x + nn.swiglu_mlp(lp["mlp"], h)
 
@@ -211,7 +239,7 @@ class Qwen3Model:
         the quantized kernel covers, else None (the per-op chain).  The
         kernels read the live length on the device; `window` is the
         caller's host bound on it."""
-        if window is None or window > MAX_WINDOW \
+        if window is None or window > MAX_WINDOW or self.mesh is not None \
                 or os.environ.get("AHA_FUSED_LAYER", "1") != "1":
             return None
         B, S, _ = x.shape
@@ -270,15 +298,25 @@ class Qwen3Model:
                  prompt_len: int | None = None) -> torch.Tensor:
         """`prompt_len` (the true length of a padded prefill) is accepted
         and unused: rows past it are never read."""
-        x = nn.embedding(params["embed"], input_ids)
+        x = self.embed(params, input_ids)
         return self.run_layers(params, x, cache, from_cache=from_cache,
                                window=window)
+
+    def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return tp_layers.embedding(params["embed"], input_ids,
+                                       self.config.vocab_size, self.mesh)
+        return nn.embedding(params["embed"], input_ids)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """A dense head is vocab-major (V, K); a quantized head goes
         through nn.linear (the quant-matmul kernel at ≤ 64 rows on the
         card)."""
         head = params["lm_head"]
+        if self.mesh is not None:
+            return tp_layers.gathered_logits(hidden @ head["w"].t(),
+                                             self.config.vocab_size,
+                                             self.mesh)
         if "w" in head:
             return hidden @ head["w"].t()
         return nn.linear(head, hidden)
@@ -290,7 +328,8 @@ class Qwen3Model:
         f32.  A speculative round takes its targets from these, so that
         they tie where greedy_token ties, not at bf16's spacing."""
         w = params["lm_head"].get("w")
-        if w is not None and hidden.is_cuda and hidden.dtype == torch.bfloat16:
+        if w is not None and hidden.is_cuda and hidden.dtype == torch.bfloat16 \
+                and self.mesh is None:
             return torch.mm(hidden.reshape(-1, hidden.shape[-1]), w.t(),
                             out_dtype=torch.float32).reshape(
                                 *hidden.shape[:-1], -1)
@@ -301,7 +340,11 @@ class Qwen3Model:
         device): the fused head GEMV + argmax kernel on the card, logits +
         fast_argmax on the CPU, as the JAX model's non-TPU branch (which
         is, for a dense head, the kernel's plain version).  Raises for more
-        than one row."""
+        than one row.  Under a mesh: the value-out kernel over this rank's
+        vocab shard and the ranks' combine (parallel/layers.py)."""
+        if self.mesh is not None:
+            return tp_layers.greedy_token(params["lm_head"]["w"], hidden,
+                                          self.config.vocab_size, self.mesh)
         if hidden.is_cuda:
             return head_argmax(params["lm_head"], hidden)
         if hidden.numel() != hidden.shape[-1]:
@@ -323,12 +366,23 @@ class Qwen3Model:
         """HF checkpoint names under `prefix` ("model.language_model." for
         a Qwen3-VL checkpoint's decoder) → the port's layout on
         self.device.  `src` maps a tensor name to a CPU tensor
-        (io/weights.py)."""
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
+        (io/weights.py).  Under a mesh each tensor is read as this rank's
+        slice (`read_shard`: a safetensors file reads only those bytes)."""
+        from aha_tpu_torch.io.weights import read_shard
 
-        def lin(name):             # HF (out, in) → (in, out)
-            return {"w": get(name + ".weight").t().contiguous()}
+        def get(name, dim=None):
+            t = (src[name] if self.mesh is None or dim is None else
+                 read_shard(src, name, dim, self.mesh.tp_rank, self.mesh.tp))
+            return t.to(device=self.device, dtype=dtype)
+
+        def lin(name, dim):        # HF (out, in) → (in, out)
+            return {"w": get(name + ".weight", dim).t().contiguous()}
+
+        def col(name):             # output columns split: HF rows
+            return lin(name, 0)
+
+        def row(name):             # input rows split: HF columns
+            return lin(name, 1)
 
         def norm(name):
             return {"w": get(name + ".weight")}
@@ -339,21 +393,21 @@ class Qwen3Model:
             layers.append({
                 "ln1": norm(p + "input_layernorm"),
                 "ln2": norm(p + "post_attention_layernorm"),
-                "q": lin(p + "self_attn.q_proj"),
-                "k": lin(p + "self_attn.k_proj"),
-                "v": lin(p + "self_attn.v_proj"),
-                "o": lin(p + "self_attn.o_proj"),
+                "q": col(p + "self_attn.q_proj"),
+                "k": col(p + "self_attn.k_proj"),
+                "v": col(p + "self_attn.v_proj"),
+                "o": row(p + "self_attn.o_proj"),
                 "q_norm": norm(p + "self_attn.q_norm"),
                 "k_norm": norm(p + "self_attn.k_norm"),
-                "mlp": {"gate": lin(p + "mlp.gate_proj"),
-                        "up": lin(p + "mlp.up_proj"),
-                        "down": lin(p + "mlp.down_proj")},
+                "mlp": {"gate": col(p + "mlp.gate_proj"),
+                        "up": col(p + "mlp.up_proj"),
+                        "down": row(p + "mlp.down_proj")},
             })
-        embed = get(prefix + "embed_tokens.weight")
+        embed = get(prefix + "embed_tokens.weight", 0)
         if self.config.tie_word_embeddings and "lm_head.weight" not in src:
             head = embed
         else:
-            head = get("lm_head.weight")       # HF stores it (V, K)
+            head = get("lm_head.weight", 0)   # HF stores it (V, K)
         return {"embed": {"w": embed}, "layers": stack_layers(layers),
                 "norm": norm(prefix + "norm"), "lm_head": {"w": head}}
 
@@ -467,6 +521,52 @@ def pack_params(params: dict, grid: str) -> dict:
 
     return {**params, "layers": walk(params["layers"]),
             "lm_head": pack_rows(params["lm_head"]["w"], q4)}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's QWEN3_PARTITION_RULES on the port's names and layouts: linear
+# weights stacked (L, in, out) as there — q/k/v and gate/up split their
+# output columns, o and down their input rows; the embedding and the head,
+# both vocab-major (V, K) here (the JAX head is (K, V)), split the vocab;
+# norms replicated.
+QWEN3_PARTITION_RULES = (
+    (r"layers\.(q|k|v)\.w", (None, None, "tp")),
+    (r"layers\.o\.w", (None, "tp", None)),
+    (r"layers\.mlp\.(gate|up)\.w", (None, None, "tp")),
+    (r"layers\.mlp\.down\.w", (None, "tp", None)),
+    (r"(^|\.)embed\.w", ("tp", None)),
+    (r"lm_head\.w", ("tp", None)),
+)
+
+# KV cache (core/cache.py layouts): the flat rows (L, B, S, Hkv·D) split
+# their last axis over tp — a contiguous Hkv·D/tp slice is one head group;
+# the int8 layout's (L, B, S, Hkv) scales split their kv heads the same way,
+# so each rank's scales sit with its rows (Qwen3Model.init_cache allocates
+# a rank's slice by these).  The slot axis B splits over dp as in the JAX
+# rules; a dp replica's engine holds its batch_slots/dp slots itself, so
+# the tp-only mesh of a rank never applies it.
+QWEN3_CACHE_RULES = (
+    (r"^(k|v)$", (None, "dp", None, "tp")),
+    (r"^(k|v)_scale$", (None, "dp", None, "tp")),
+)
+Qwen3Model.cache_rules = QWEN3_CACHE_RULES
+
+
+def check_tp(config: Qwen3Config, tp: int) -> None:
+    """Refuse a tp that does not divide the heads, the MLP or the vocab,
+    naming the dimension.  The JAX shard_params replicates such a tensor
+    and lets GSPMD reconcile the rest; the port's per-rank layers need
+    whole head groups, MLP columns and vocab rows on every rank (Qwen3's
+    151,936 divides by 2, 4 and 8)."""
+    if tp <= 1:
+        return
+    for name, size in (("num_key_value_heads", config.num_key_value_heads),
+                       ("num_attention_heads", config.num_attention_heads),
+                       ("intermediate_size", config.intermediate_size),
+                       ("vocab_size", config.vocab_size)):
+        if size % tp:
+            raise ValueError(f"--tp {tp} does not divide {name} ({size}): "
+                             "each rank holds an equal slice of it")
 
 
 def load_stop_token_ids(model_dir: str) -> list[int]:

@@ -16,6 +16,8 @@ backbone.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -23,17 +25,33 @@ from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.tokenizer import TokenizerModel
 from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.base import LoadedModel
-from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model, check_tp
 from aha_tpu_torch.models.text_served import TextChatModel
 from aha_tpu_torch.ops.norms import l2_normalize
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import device, get_dtype
 
 
+def qwen3_rank(path: str, max_seq_len: int, mesh) -> tuple:
+    """A tensor-parallel rank's Qwen3 model on its card and its slice of
+    the checkpoint (read alone, io/weights.read_shard)."""
+    model = Qwen3Model(Qwen3Config.from_file(path), max_rope_len=max_seq_len,
+                       device=mesh.device, mesh=mesh)
+    return model, model.load_params(open_weights(path),
+                                    dtype=get_dtype(mesh.device))
+
+
 class Qwen3Chat(TextChatModel):
     @classmethod
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "Qwen3Chat":
+        """`tp > 1` shards the model over tp ranks (qwen3_rank), after
+        check_tp refuses a tp that does not divide its heads or MLP;
+        `dp > 1` serves dp BatchEngine replicas."""
+        tp = kw.get("tp", 1)
+        if tp > 1:
+            check_tp(Qwen3Config.from_file(path), tp)
+
         def build(path, max_seq_len):
             dev = device()
             model = Qwen3Model(Qwen3Config.from_file(path),
@@ -45,7 +63,10 @@ class Qwen3Chat(TextChatModel):
                             batch_slots=kw.get("batch_slots", 1),
                             prefix_cache=kw.get("prefix_cache", 4),
                             spec_tokens=kw.get("spec_tokens", 0),
-                            cuda_graphs=kw.get("cuda_graphs", True))
+                            cuda_graphs=kw.get("cuda_graphs", True),
+                            tp=tp, dp=kw.get("dp", 1),
+                            build_rank=functools.partial(qwen3_rank, path,
+                                                         max_seq_len))
 
 
 class Qwen3EmbeddingServed(LoadedModel):

@@ -56,6 +56,7 @@ from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
 from aha_tpu_torch.ops.attention import (causal_mask, dequantize_layer, sdpa,
                                          segment_mask)
+from aha_tpu_torch.ops.launches import count
 
 def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
@@ -277,7 +278,7 @@ def _launch_dense(counted, q, k_stack, v_stack, layer, valid_len, scale):
         return flash_decode_at_layer_flat_plain(q, k_stack, v_stack, layer,
                                                 valid_len, scale)
     out = _decode_dense(q, k_stack, v_stack, layer, valid_len, scale)
-    counted.launches += 1
+    count(counted)
     return out
 
 
@@ -311,7 +312,7 @@ def _q8_decode_wrapper(name: str, doc: str):
                                                   valid_len, scale)
         out = _decode_q8(q, k_stack, v_stack, k_scale, v_scale, layer,
                          valid_len, scale, _q8_mxu_default(mxu))
-        wrapper.launches += 1
+        count(wrapper)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
@@ -450,7 +451,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Sq, Skv, Hq, Hkv, D, int(causal), float(scale),
         kernels.stream_handle(q))
     kernels.check(rc, "aha_flash_prefill")
-    flash_attention.launches += 1
+    count(flash_attention)
     return out
 
 
@@ -517,7 +518,7 @@ def flash_attention_segmented(q: torch.Tensor, k: torch.Tensor,
         out.data_ptr(), *strides, B, S, Hq, Hkv, D, float(scale),
         kernels.stream_handle(q))
     kernels.check(rc, "aha_segment_flash")
-    flash_attention_segmented.launches += 1
+    count(flash_attention_segmented)
     return out
 
 

@@ -51,6 +51,7 @@ import torch
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.flash_attention import ticket_counters
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.ops.quant_matmul import (GRID_KEYS, GROUP, check_grid,
                                             grid_info, grid_k, qdot,
                                             quant_acts)
@@ -356,7 +357,7 @@ def fused_decode_stack(x: torch.Tensor, layers: dict, pos: torch.Tensor,
         n["L"], n["H"], n["hq"], n["hkv"], n["D"], n["NI"], n["S"],
         float(eps), float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack")
-    fused_decode_stack.launches += 1
+    count(fused_decode_stack)
     return out
 
 
@@ -406,7 +407,7 @@ def fused_decode_stack_q8(x: torch.Tensor, layers: dict, pos: torch.Tensor,
         n["hkv"], n["D"], NI, n["S"], float(eps), float(n["D"] ** -0.5),
         grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_stack_q8")
-    fused_decode_stack_q8.launches += 1
+    count(fused_decode_stack_q8)
     return out
 
 
@@ -493,7 +494,7 @@ def fused_decode_layer(x: torch.Tensor, layers: dict, li: torch.Tensor,
         n["hq"], n["hkv"], n["D"], n["NI"], n["S"], min(window, n["S"]),
         float(eps), float(n["D"] ** -0.5), grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_fused_decode_layer")
-    fused_decode_layer.launches += 1
+    count(fused_decode_layer)
     return out, k_row, v_row
 
 

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "aha_decode_attention_q8": [_P] * 7 + [_I] + [_P] * 5 + [_I] * 7
                                + [_F, _I, _P],
     "aha_head_argmax": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "aha_head_argmax_value": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aha_head_argmax_parts": [_I],
     "aha_head_argmax_quant": [_P] * 8 + [_I] * 4 + [_P],
     "aha_quant_matmul": [_P] * 5 + [_I] * 10 + [_P],

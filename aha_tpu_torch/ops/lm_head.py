@@ -18,6 +18,12 @@ the CPU each body's plain version runs (logits + fast_argmax, the
 quantized logits with the kernels' activation quantization); on the card
 the kernel runs or this raises.  Launch counts: `head_argmax.launches`
 (bf16), `head_argmax_q8.launches`, `head_argmax_q4.launches`.
+
+`head_argmax_value(w, h)` is the bf16 body's value-out instance: the same
+kernel, whose fold also writes the winning logit in f32 (NaN where the
+rows held a NaN).  A tensor-parallel rank runs it over its vocab shard and
+the ranks combine their (value, index) pairs (parallel/layers.py); its own
+count is `head_argmax_value.launches`.
 """
 
 from __future__ import annotations
@@ -26,12 +32,25 @@ import torch
 
 from aha_tpu_torch.core.sampling import fast_argmax
 from aha_tpu_torch.ops import kernels
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.ops.quant_matmul import check_grid, grid_k, qdot, quant_acts
 
 
 def head_argmax_plain(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     logits = h.reshape(1, -1).float() @ w.float().t()
     return fast_argmax(logits.reshape(-1))
+
+
+def head_argmax_value_plain(w: torch.Tensor, h: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(index, f32 value) of the first maximal logit; a NaN logit gives
+    (V − 1, NaN), as the kernel's fold."""
+    logits = (h.reshape(1, -1).float() @ w.float().t()).reshape(-1)
+    idx = fast_argmax(logits)
+    nan = torch.isnan(logits).any()
+    val = torch.where(nan, torch.full_like(logits[0], float("nan")),
+                      logits.gather(0, idx.long().reshape(1))[0])
+    return idx, val
 
 
 def quant_head_plain(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -55,14 +74,14 @@ def _parts(V: int, device) -> tuple[torch.Tensor, ...]:
             torch.empty((), dtype=torch.int32, device=device))
 
 
-def _bf16_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def _check_bf16(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """h's one row, after the checks of the bf16 kernel's operands."""
     x = _one_row(h)
     K = x.shape[0]
     if w.ndim != 2 or w.shape[1] != K:
         raise ValueError(f"head must be (V, {K}), got {tuple(w.shape)}")
     if not h.is_cuda:
-        return head_argmax_plain(w, h)
-    V = w.shape[0]
+        return x
     if w.device != h.device:
         raise ValueError("head and hidden state on different devices")
     if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
@@ -70,14 +89,41 @@ def _bf16_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if K % 8 or not w.is_contiguous() or w.data_ptr() % 16:
         raise ValueError("head rows must be contiguous, 16-byte aligned, "
                          "K a multiple of 8")
-    x = x.contiguous()
+    return x.contiguous()
+
+
+def _bf16_head(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    x = _check_bf16(w, h)
+    if not h.is_cuda:
+        return head_argmax_plain(w, h)
+    K, V = x.shape[0], w.shape[0]
     part_val, part_idx, part_nan, out = _parts(V, h.device)
     rc = kernels.lib().aha_head_argmax(
         x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
         part_nan.data_ptr(), out.data_ptr(), K, V, kernels.stream_handle(h))
     kernels.check(rc, "aha_head_argmax")
-    head_argmax.launches += 1
+    count(head_argmax)
     return out
+
+
+def head_argmax_value(w: torch.Tensor, h: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(0-dim int32 index, 0-dim f32 winning logit) over the dense bf16
+    head `w` (V, K) for ONE hidden row: the value-out kernel on the card,
+    head_argmax_value_plain on the CPU."""
+    x = _check_bf16(w, h)
+    if not h.is_cuda:
+        return head_argmax_value_plain(w, h)
+    K, V = x.shape[0], w.shape[0]
+    part_val, part_idx, part_nan, out = _parts(V, h.device)
+    val = torch.empty((), dtype=torch.float32, device=h.device)
+    rc = kernels.lib().aha_head_argmax_value(
+        x.data_ptr(), w.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+        part_nan.data_ptr(), out.data_ptr(), val.data_ptr(), K, V,
+        kernels.stream_handle(h))
+    kernels.check(rc, "aha_head_argmax_value")
+    count(head_argmax_value)
+    return out, val
 
 
 def _launch_quant(p: dict, h: torch.Tensor, what: str) -> torch.Tensor:
@@ -106,7 +152,7 @@ def head_argmax_q8(qt: torch.Tensor, st: torch.Tensor,
     if not h.is_cuda:
         return quant_head_plain(p, _one_row(h))
     out = _launch_quant(p, h, "head_argmax_q8")
-    head_argmax_q8.launches += 1
+    count(head_argmax_q8)
     return out
 
 
@@ -117,7 +163,7 @@ def head_argmax_q4(q4: torch.Tensor, s4: torch.Tensor, b4: torch.Tensor,
     if not h.is_cuda:
         return quant_head_plain(p, _one_row(h))
     out = _launch_quant(p, h, "head_argmax_q4")
-    head_argmax_q4.launches += 1
+    count(head_argmax_q4)
     return out
 
 
@@ -136,5 +182,6 @@ def head_argmax(p: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 head_argmax.launches = 0
+head_argmax_value.launches = 0
 head_argmax_q8.launches = 0
 head_argmax_q4.launches = 0

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.utils.device import sm_count
 
 GROUP = 128          # weight / activation quantization group (rows of K)
@@ -409,7 +410,7 @@ def quant_matmul(x: torch.Tensor, qt: torch.Tensor,
     if not x.is_cuda:
         return quant_matmul_plain(x, qt, st)
     out = _launch_matmul(x, {"qt": qt, "st": st}, "quant_matmul")
-    quant_matmul.launches += 1
+    count(quant_matmul)
     return out
 
 
@@ -420,7 +421,7 @@ def quant_matmul_q4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
         return quant_matmul_q4_plain(x, q4, s4, b4)
     out = _launch_matmul(x, {"q4": q4, "s4": s4, "b4": b4},
                          "quant_matmul_q4")
-    quant_matmul_q4.launches += 1
+    count(quant_matmul_q4)
     return out
 
 
@@ -532,7 +533,7 @@ def quant_swiglu(gu: dict, dn: dict, x: torch.Tensor) -> torch.Tensor:
         int(d4), rows, plan.span1, plan.chunks1, plan.span3, plan.chunks3,
         plan.grid, kernels.stream_handle(x))
     kernels.check(rc, "aha_quant_swiglu")
-    quant_swiglu.launches += 1
+    count(quant_swiglu)
     return out.reshape(*lead, dN)
 
 

@@ -405,6 +405,10 @@ async def shutdown(request: web.Request) -> web.Response:
         import time
 
         time.sleep(1)
+        # the model's scheduler threads and tensor-parallel workers first
+        stop = getattr(state.model, "shutdown", None)
+        if stop is not None:
+            stop()
         os._exit(0)
 
     threading.Thread(target=delayed_exit, daemon=True).start()

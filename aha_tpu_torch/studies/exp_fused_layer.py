@@ -34,6 +34,7 @@ import torch
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.flash_attention import ticket_counters
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.studies import (bound, card_line, device_ms, rel_err,
                                    report, require_card)
 from aha_tpu_torch.utils.device import sm_count
@@ -152,7 +153,7 @@ def fused_layer_stream(x, wqkv, wo, wgu, wdn, layer,
         p2.data_ptr(), tickets.data_ptr(), out.data_ptr(), Ln, rows, depth,
         plan.shape[0], stream)
     kernels.check(rc, "aha_study_fused_layer")
-    fused_layer_stream.launches += 1
+    count(fused_layer_stream)
     return out
 
 

@@ -37,6 +37,7 @@ import torch
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.flash_attention import ticket_counters
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.studies import (bound, card_line, device_ms, rel_err,
                                    report, require_card)
 from aha_tpu_torch.utils.device import sm_count
@@ -95,7 +96,7 @@ def stream_sum(x: torch.Tensor, w: torch.Tensor, bn: int = 2048
         out.data_ptr(), total.data_ptr(), Kw, Nw, bn,
         kernels.stream_handle(w))
     kernels.check(rc, "aha_study_stream_sum")
-    stream_sum.launches += 1
+    count(stream_sum)
     return out, total
 
 
@@ -158,7 +159,7 @@ def gemv_m8(xp: torch.Tensor, w: torch.Tensor, bn: int = GEMV_BN
     require(bn in GEMV_BNS, f"bn one of {GEMV_BNS}")
     out = torch.empty((8, Nw), dtype=torch.float32, device=w.device)
     _launch(xp, w, out, argmax=False)
-    gemv_m8.launches += 1
+    count(gemv_m8)
     return out
 
 
@@ -189,7 +190,7 @@ def gemv_argmax(x: torch.Tensor, w: torch.Tensor, bn: int = HEAD_BN
     if not w.is_cuda:
         return gemv_argmax_plain(x, w)
     out = _argmax(x, w, bn)
-    gemv_argmax.launches += 1
+    count(gemv_argmax)
     return out
 
 
@@ -200,7 +201,7 @@ def head_once(x: torch.Tensor, w: torch.Tensor
     if not w.is_cuda:
         return gemv_argmax_plain(x, w)
     out = _argmax(x, w, ONCE_BN)
-    head_once.launches += 1
+    count(head_once)
     return out
 
 

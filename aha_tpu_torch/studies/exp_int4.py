@@ -47,6 +47,7 @@ import torch
 
 from aha_tpu_torch.ops import kernels
 from aha_tpu_torch.ops.kernels import require
+from aha_tpu_torch.ops.launches import count
 from aha_tpu_torch.ops.quant_matmul import _true_div
 from aha_tpu_torch.studies import (bound, card_line, device_ms, rel_err,
                                    report, require_card)
@@ -185,7 +186,7 @@ def i4_upcast(x: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     if not words.is_cuda:
         return i4_upcast_plain(x, words)
     out = _launch(x, words, "i4_upcast")
-    i4_upcast.launches += 1
+    count(i4_upcast)
     return out
 
 
@@ -194,7 +195,7 @@ def i4_tensorcore(x: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
     if not words.is_cuda:
         return i4_tensorcore_plain(x, words)
     out = _launch(x, words, "i4_tensorcore")
-    i4_tensorcore.launches += 1
+    count(i4_tensorcore)
     return out
 
 
@@ -204,7 +205,7 @@ def i4_packed_k(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     if not packed.is_cuda:
         return i4_packed_k_plain(x, packed)
     out = _launch(x, packed, "i4_packed_k")
-    i4_packed_k.launches += 1
+    count(i4_packed_k)
     return out
 
 

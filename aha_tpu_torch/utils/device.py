@@ -7,11 +7,18 @@ with `AHA_DEVICE` unset the device is cuda, and a machine where torch sees
 no card raises rather than serve on the CPU.  `AHA_DEVICE=cpu` is the way
 to ask for the CPU (the parity tests do); any other value names a device.
 `AHA_KV_INT8=1` stores the KV cache in int8 (core/cache.py).
+
+A mesh's ranks and replicas take one card each (`mesh_devices`): a host
+with fewer cards than tp·dp is refused before anything loads, and a rank
+never falls back to the CPU; `use_device` makes `device()` another card's
+for what is built inside it (a dp replica's model and weights).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 
@@ -25,15 +32,48 @@ _DTYPE_MAP = {
 }
 
 
+_override = threading.local()
+
+
 def device() -> torch.device:
     """`AHA_DEVICE` if set, else cuda; a cuda device where torch sees no
-    card raises RuntimeError."""
+    card raises RuntimeError.  Inside `use_device(d)`: d."""
+    forced = getattr(_override, "device", None)
+    if forced is not None:
+        return forced
     name = os.environ.get("AHA_DEVICE") or "cuda"
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r}: torch sees no CUDA device; "
                            "set AHA_DEVICE=cpu to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def use_device(dev: torch.device):
+    """`device()` is `dev` in this thread until the block ends."""
+    before = getattr(_override, "device", None)
+    _override.device = torch.device(dev)
+    try:
+        yield
+    finally:
+        _override.device = before
+
+
+def mesh_devices(tp: int = 1, dp: int = 1) -> list[torch.device]:
+    """The devices of a tp·dp mesh, one a rank or replica: cuda:0 …
+    cuda:tp·dp − 1 on the card, the CPU tp·dp times under AHA_DEVICE=cpu.
+    A host with fewer cards raises ValueError naming both counts; without
+    a card `device()` raises as ever."""
+    n = tp * dp
+    dev = device()
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"--tp {tp} --dp {dp} needs {n} cards, one a rank "
+                         f"or replica; this host has {have}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def sm_count(dev: torch.device) -> int:

@@ -75,6 +75,25 @@ before the last line:
    path with the launch counters
    zeroed before it and read after it; then 8 teacher-forced steps of 4
    slots against the f32 plain path on the CPU over the same cache;
+5b. tp — the engine's weights cut to their first 8 layers (TP_LAYERS, a
+   cut for the time limit) at full width, written as a
+   checkpoint each of two tensor-parallel ranks reads its slice of
+   (aha_tpu_torch/parallel/): NCCL over cuda:0 and cuda:1 where the host
+   has two cards, else gloo with both ranks on cuda:0 (the line says
+   which); this process is rank 0 and starts the worker.  bf16 and int8
+   TextEngines (a 300-token prompt, 32 greedy tokens) and 4-slot bf16 and
+   int8 BatchEngines (4 requests, one sampled), each greedy stream equal
+   to the tp 1 engine's or parting only at a near-tie of tp 1's logits
+   (TOL_TP_TIE_REL); each rank's launches (row 1 a layer a prefill, rows
+   2 / 6 a layer a step, row 3's value-out instance once a step, rows 5
+   and 7 on the batched runs, the fused stack and the one-device head 0);
+   a teacher-forced sequence's logits against tp 1's (TOL_TP_REL); one
+   decode block's collectives a step and their time (torch.profiler);
+   ms a step beside tp 1 eager.  Then (dp) two 4-slot BatchEngine
+   replicas (one a card; both on cuda:0 on one card) on the same layers,
+   8 requests, each stream equal to a lone 4-slot engine's; then `serv
+   --tp 2`: refused before loading on one card, on two its reply equal
+   to a tp 1 server's;
 6. quant — the same weights cut to their first 8 layers (QUANT_LAYERS, a
    cut for the time limit) packed on the GGUF grids on the card
    (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
@@ -383,7 +402,7 @@ timed here only, never called by the port).  Then the JSON line of the
 graph readings, the JSON line of the speculative paths' readings, the
 JSON line of the hybrid readings, the JSON line of the vl3 readings, the
 JSON line of the gguf35 readings, the JSON lines of the siglip, the dsocr, the asr, the tts, the rmbg, the
-ocr2 and the lifecycle readings, one JSON line of per-kernel results,
+ocr2, the lifecycle and the tp readings, one JSON line of per-kernel results,
 the card line, and
 the last line {"ok": true,
 "device": {...}}.  Imports nothing of JAX or aha_tpu.
@@ -496,6 +515,10 @@ KERNELS = {
         source="aha_tpu_torch/csrc/decode_attention.cu",
         replaces="aha_tpu/ops/flash_attention.py:413"),
     "head_argmax": dict(
+        source="aha_tpu_torch/csrc/head_argmax.cu",
+        replaces="aha_tpu/ops/lm_head.py:105"),
+    # the same kernel's value-out instance: a tp rank's vocab shard
+    "head_argmax_value": dict(
         source="aha_tpu_torch/csrc/head_argmax.cu",
         replaces="aha_tpu/ops/lm_head.py:105"),
     "flash_attention": dict(
@@ -617,6 +640,7 @@ def wrappers():
 
     return {"flash_decode_at_layer_flat": fa.flash_decode_at_layer_flat,
             "head_argmax": lm_head.head_argmax,
+            "head_argmax_value": lm_head.head_argmax_value,
             "flash_attention": fa.flash_attention,
             "fused_decode_stack": fused_decode_stack,
             "flash_decode_at_layer_flat_batched":
@@ -939,6 +963,73 @@ def check_head(K: int = 1024, key: str | None = None) -> None:
     RESULTS["head_argmax"].update(
         index_mismatches=mismatches,
         max_abs_err_of="logit gap between kernel and plain argmax")
+
+
+def check_head_value(K: int = 1024, V: int = 151936 // 2) -> None:
+    """The bf16 head kernel's value-out instance over a tp 2 rank's vocab
+    shard (V 75968 of Qwen3-0.6B's 151936, K 1024) against its plain
+    version: 4 random rows (the index equal, or tied within
+    TOL_HEAD_REL; the value within TOL_HEAD_REL of max |logit|), a tie
+    planted across vocab tiles, a NaN row (index V - 1, value NaN); device
+    ms of kernel, plain and the torch.matmul GEMV."""
+    from aha_tpu_torch.ops.lm_head import (head_argmax_value,
+                                           head_argmax_value_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(V)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    w = (torch.randn((V, K), generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    worst_val, worst_gap, mismatches = 0.0, 0.0, 0
+    for _ in range(4):
+        h = torch.randn((1, 1, K), generator=g, **bf)
+        (i, v), (ri, rv) = head_argmax_value(w, h), \
+            head_argmax_value_plain(w, h)
+        top = rv.abs().item()
+        worst_val = max(worst_val, abs(v.item() - rv.item()))
+        if int(i) != int(ri):
+            logits = h.reshape(1, K).float() @ w.float().t()
+            gap = abs(logits[0, int(i)] - logits[0, int(ri)]).item()
+            require(gap <= TOL_HEAD_REL * top,
+                    f"head_argmax_value {int(i)} vs plain {int(ri)}: gap "
+                    f"{gap}")
+            worst_gap = max(worst_gap, gap)
+            mismatches += 1
+        require(abs(v.item() - rv.item()) <= TOL_HEAD_REL * top,
+                f"head_argmax_value: value {v.item()} vs plain {rv.item()}")
+    wt = torch.zeros((V, K), **bf)
+    wt[70000, 0] = wt[37, 0] = 1.0
+    e0 = torch.zeros((1, K), **bf)
+    e0[0, 0] = 1.0
+    i, v = head_argmax_value(wt, e0)
+    require((int(i), v.item()) == (37, 1.0)
+            == tuple(x.item() for x in head_argmax_value_plain(wt, e0)),
+            f"value-out: planted tie gave {int(i)}, {v.item()}")
+    del wt
+    hn = torch.full((1, K), float("nan"), **bf)
+    i, v = head_argmax_value(w, hn)
+    require(int(i) == V - 1 and bool(torch.isnan(v)),
+            "value-out: a NaN row did not give (V - 1, NaN)")
+    h = torch.randn((1, 1, K), generator=g, **bf)
+    ms = device_ms(lambda: head_argmax_value(w, h))
+    plain_ms = device_ms(lambda: head_argmax_value_plain(w, h))
+    hv = h.reshape(K)
+    lib_ms = device_ms(lambda: torch.matmul(w, hv))
+    b = bound(V * K * 2 + K * 2 + 8, 2 * V * K)
+    log(f"[kernels] head_argmax_value K={K} V={V}: {mismatches} index "
+        f"mismatches in 4 random rows (worst logit gap {worst_gap:.3e}), "
+        f"value max err {worst_val:.3e}; planted tie and NaN row agree; "
+        f"device ms/call kernel {ms:.4f} plain {plain_ms:.4f} torch.matmul "
+        f"GEMV alone {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]}); "
+        f"{V * K * 2 / ms / 1e6:.1f} GB/s of weights")
+    del w
+    torch.cuda.empty_cache()
+    _record("head_argmax_value", max(worst_val, worst_gap), ms, plain_ms, b,
+            lib_ms, "torch.matmul GEMV alone (the logits, no argmax)",
+            f"K={K} V={V}")
+    RESULTS["head_argmax_value"].update(
+        index_mismatches=mismatches,
+        max_abs_err_of="the larger of the value error and the logit gap "
+                       "between kernel and plain argmax")
 
 
 def check_prefill(S: int, causal: bool, timed: bool, Hkv: int = 8,
@@ -2451,6 +2542,7 @@ def phase_kernels() -> None:
     check_decode(4096, 4000, timed=False)
     check_head()
     check_head(4096, "k4096")       # Qwen3-VL-8B's untied head, (w)'s decode
+    check_head_value()              # a tp 2 rank's vocab shard
     check_prefill(256, True, timed=False)
     check_prefill(192, False, timed=False)
     check_prefill(2048, True, timed=True, record=True)
@@ -3206,6 +3298,466 @@ def _teacher_forced_4_slots(model, params, device: str, dtypes,
             f"{rel:.3e} of max |ref| (tol {TOL_HIDDEN_REL})")
         require(rel <= TOL_HIDDEN_REL,
                 f"{tag}: batched {dtype} hidden off by {rel}")
+
+
+# -- 5b. tensor and data parallelism (aha_tpu_torch/parallel) ---------------
+
+#: tp 2 teacher-forced logits against tp 1's, relative to max |ref|: both
+#: bf16 per-op chains over the same weights; the ranks sum o and down in
+#: f32 (parallel/layers.row_linear), tp 1 accumulates the whole product
+TOL_TP_REL = 2e-2
+#: a tp 2 greedy stream may leave tp 1's only where tp 1's two best
+#: logits lie within this share of max |logit| (the widest gap seen where
+#: a stream left, over gloo on one H100: 7.7e-3 of max; the logits
+#: themselves are held to TOL_TP_REL, teacher-forced)
+TOL_TP_TIE_REL = 1e-2
+#: the tp phase's depth: the first 8 of Qwen3-0.6B's 28 layers at full
+#: width (a cut for the smoke's time limit: two ranks on one card over gloo
+#: took 186-331 ms a step at 28 layers)
+TP_LAYERS = 8
+TP_PROMPT = 300
+TP_TOKENS = 32
+TP_READINGS: dict = {}
+
+
+def _tp_rank_engines(path: str, mesh) -> dict:
+    """A tp rank's engines over its slice of the checkpoint at `path`,
+    read alone (every rank runs this): bf16 and int8 TextEngines, 4-slot
+    bf16 and int8 BatchEngines."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.models.qwen3_served import qwen3_rank
+
+    model, params = qwen3_rank(path, 8192, mesh)
+    kw = dict(eos_token_ids=[], max_seq_len=4096, mesh=mesh)
+    return {"text": TextEngine(model, params, **kw),
+            "int8": TextEngine(model, params, cache_dtype=torch.int8, **kw),
+            "batch": BatchEngine(model, params, slots=4, **kw),
+            "batch8": BatchEngine(model, params, slots=4,
+                                  cache_dtype=torch.int8, **kw)}
+
+
+def _tp_zero(engines: dict) -> None:
+    """Every rank: its launch counts to 0."""
+    zero_counts()
+
+
+def _tp_counts(engines: dict, path: str) -> dict:
+    """Every rank: its launch counts; a worker writes them to
+    `path`.rank<r> (rank 0 returns its own once all are written)."""
+    counts = {n: fn.launches for n, fn in wrappers().items()}
+    mesh = engines["text"].mesh
+    if mesh.tp_rank:
+        with open(f"{path}.rank{mesh.tp_rank}", "w") as f:
+            json.dump(counts, f)
+    # a barrier: rank 0 returns once every rank has written (read back:
+    # an NCCL all_reduce returns to the host before it completes)
+    mesh.all_reduce(torch.zeros(1, device=mesh.device)).item()
+    return counts
+
+
+def _tp_forced(engines: dict, ids: list[int], forced: list[int]):
+    """Every rank: `_forced_logits` through its shard."""
+    e = engines["text"]
+    return _forced_logits(e.model, e.params, ids, forced)
+
+
+def _tp_forced_slots(engines: dict, name: str, prompts: list[list[int]],
+                     forced: torch.Tensor) -> torch.Tensor:
+    """Every rank: `_slot_logits` through engine `name`'s model, shard and
+    cache dtype (the per-slot decode its BatchEngine steps)."""
+    e = engines[name]
+    return _slot_logits(e.model, e.params, prompts, forced, e.device,
+                        e.cache_dtype)
+
+
+def _slot_logits(model, params, prompts: list[list[int]],
+                 forced: torch.Tensor, device, cache_dtype) -> torch.Tensor:
+    """teacher_forced_slots' steps, then each step's f32 logits, (n, B, V)
+    on the CPU (under tp, the gathered logits)."""
+    hs, _ = teacher_forced_slots(model, params, prompts, forced, device,
+                                 cache_dtype)
+    dt = params["embed"]["w"].dtype
+    with torch.no_grad():
+        return torch.stack([
+            model.logits(params, h.to(device, dt)[:, None])[:, 0].float()
+            for h in hs]).cpu()
+
+
+def _forced_logits(model, params, ids: list[int], forced: list[int]):
+    """Prefill `ids`, then feed `forced` one token a step (the per-op
+    chain); the f32 logits at each position, (1 + len(forced), V), on the
+    CPU."""
+    from aha_tpu_torch.core import cache as kv
+    from aha_tpu_torch.core.engine import bucket_for
+
+    dev = params["embed"]["w"].device
+    with torch.no_grad():
+        cache = model.init_cache(1, 1024, params["embed"]["w"].dtype)
+        x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
+        x[0, :len(ids)] = torch.tensor(ids)
+        h = model.backbone(params, x.to(dev), cache)[:, len(ids) - 1:len(ids)]
+        rows = [model.logits(params, h)[0, 0].float()]
+        kv.advance(cache, len(ids))
+        for t in forced:
+            h = model.backbone(params, torch.tensor([[t]], device=dev), cache)
+            rows.append(model.logits(params, h)[0, 0].float())
+            kv.advance(cache, 1)
+        return torch.stack(rows).cpu()
+
+
+def _first_divergence(what: str, got: list[int], want: list[int], model,
+                      params, prompt: list[int]) -> str:
+    """'equal', or the first step where `got` leaves `want` (the tp 1
+    stream), which must be a near-tie of tp 1's logits there (its two best
+    within TOL_TP_TIE_REL of max |logit|): the step and the gap."""
+    if got == want:
+        return "equal"
+    i = next(k for k in range(min(len(got), len(want))) if got[k] != want[k])
+    logits = _forced_logits(model, params, prompt, want[:i])[-1]
+    top2 = logits.topk(2).values
+    gap = (top2[0] - top2[1]).item()
+    rel = gap / logits.abs().max().item()
+    require(rel <= TOL_TP_TIE_REL, f"{what}: tp 2 leaves tp 1 at step {i} "
+            f"({got[i]} vs {want[i]}), where tp 1's two best logits lie "
+            f"{rel:.3e} of max |logit| apart (tol {TOL_TP_TIE_REL})")
+    return f"step {i} (a near-tie: top-2 gap {gap:.4e}, {rel:.3e} of max)"
+
+
+def _profiled_block(eng, prompt: list[int], device: str) -> dict:
+    """One decode block of 16 steps through rank 0's operations (the
+    workers follow), under torch.profiler: the collectives a step and
+    their device and host time."""
+    from aha_tpu_torch.core.engine import bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.parallel.mesh import COLLECTIVES
+
+    greedy = SamplingConfig()
+    cache_len = 512
+    rid = next(eng._rids)
+    eng._dev("_op_prompt", rid, prompt, greedy, cache_len,
+             bucket_for(len(prompt)), False, None, None, ())
+    try:
+        _sync(device)
+        c0 = dict(COLLECTIVES)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng._dev("_op_decode", rid, greedy, 16, len(prompt) + 17, 1)
+            _sync(device)
+        n = {k: (COLLECTIVES[k] - c0[k]) / 16 for k in c0}
+    finally:
+        eng._dev("_op_end", rid)
+    # device time: the kernels' own (NCCL's all-reduce kernels; gloo's
+    # copies to and from the host are not named for it); host time: the
+    # c10d all_reduce calls, their backend's work inside them
+    dev_ms = host_ms = 0.0
+    names = set()
+    for ev in prof.key_averages():
+        key = ev.key.lower()
+        if "allreduce" in key or "all_reduce" in key or "nccl" in key:
+            names.add(ev.key)
+            dev_ms += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            if key.startswith("c10d::allreduce"):
+                host_ms += ev.cpu_time_total / 1e3
+    return {"all_reduce_per_step": n["all_reduce"],
+            "broadcast_per_step": n["broadcast"],
+            "collective_device_ms_per_step": dev_ms / 16,
+            "collective_host_ms_per_step": host_ms / 16,
+            "profiled_events": sorted(names)}
+
+
+def phase_tp(model, params, device: str = "cuda") -> None:
+    """(tp) Qwen3-0.6B at full width, its first TP_LAYERS layers,
+    tensor-parallel over two ranks: NCCL over cuda:0 and cuda:1 where the host has two cards, else
+    gloo with both ranks on cuda:0.  The seeded weights go to a
+    checkpoint each rank reads its slice of (io/weights.read_shard); rank
+    0 (this process) starts the worker and drives bf16 and int8
+    TextEngines (a 300-token prompt, 32 tokens) and 4-slot bf16 and int8
+    BatchEngines (4 requests, one sampled), each stream held to the tp 1
+    engine's; per-rank launches of rows 1, 2, 3 (value-out), 5, 6 and 7,
+    row 4 at 0; a teacher-forced sequence's logits against tp 1's; the
+    collectives a step and their time; the step against tp 1 eager.  Then
+    the dp check and `serv --tp 2`."""
+    import functools
+    import shutil
+
+    from aha_tpu_torch.parallel import ranks
+    from aha_tpu_torch.parallel.mesh import MeshConfig
+
+    model, params = _depth_cut(model, params, TP_LAYERS, device, "tp")
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    two = device == "cuda" and torch.cuda.device_count() >= 2
+    devices = ([torch.device("cuda", 0), torch.device("cuda", 1)] if two
+               else [torch.device(device, 0)] * 2)
+    backend = None if two else "gloo"
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[tp] mesh tp 2 over {[str(d) for d in devices]} on "
+        f"{'NCCL (one card a rank)' if two else f'gloo (both ranks on {devices[0]})'}"
+        f" | {card}")
+    # the checkpoint zeroes the embedding rows past the test tokenizer
+    # (_write_checkpoint): a copy, so the other phases keep their weights
+    embed = params["embed"]["w"].clone()
+    params = {**params, "embed": {"w": embed}, "lm_head": {"w": embed}}
+    root = tempfile.mkdtemp(prefix="aha_torch_tp_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        os.makedirs(ckpt)
+        _write_checkpoint(ckpt, cfg, params)
+        n_tok = int((embed.abs().sum(-1) > 0).sum())
+        rng = np.random.default_rng(25)
+        prompt = _prompt(rng, TP_PROMPT, n_tok)
+        t0 = time.perf_counter()
+        engines, group = ranks.start(
+            MeshConfig(tp=2), functools.partial(_tp_rank_engines, ckpt),
+            devices=devices, backend=backend)
+        log(f"[tp] worker started, both ranks' slices read from the "
+            f"checkpoint: {time.perf_counter() - t0:.1f} s (set-up)")
+        try:
+            _tp_runs(engines, group, model, params, prompt, n_tok, root, L,
+                     card, device)
+        finally:
+            for name in ("batch", "batch8"):
+                engines[name].shutdown()
+            group.shutdown()
+        TP_READINGS["backend"] = group.mesh.backend
+        _dp_check(model, params, device, n_tok, ckpt)
+        if device == "cuda":
+            _serve_tp(ckpt, root, two, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tp_runs(engines, group, model, params, prompt, n_tok, root, L, card,
+             device) -> None:
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.utils.profile_decode import drive_concurrent
+
+    greedy = SamplingConfig()
+    counts_path = os.path.join(root, "counts")
+
+    def per_rank() -> list[dict]:
+        c0 = group.call(_tp_counts, counts_path)
+        out = [c0]
+        for r in range(1, group.mesh.tp):
+            with open(f"{counts_path}.rank{r}") as f:
+                out.append(json.load(f))
+        return out
+
+    # warm-up of the prefill and step shapes on both ranks, not counted
+    engines["text"].generate_tokens(prompt[:40], greedy, 16)
+    tp1 = {dt: TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
+                          cache_dtype=dt, cuda_graphs=False)
+           for dt in (torch.bfloat16, torch.int8)}
+    for name, dt, row in (("text", torch.bfloat16,
+                           "flash_decode_at_layer_flat"),
+                          ("int8", torch.int8, "flash_decode_at_layer_q8")):
+        eng = engines[name]
+        group.call(_tp_zero)
+        _sync(device)
+        out = eng.generate_tokens(prompt, greedy, TP_TOKENS)
+        _sync(device)
+        t = eng.last_timing
+        ms = t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+        counts = per_rank()
+        steps = counts[0]["head_argmax_value"]
+        for r, c in enumerate(counts):
+            require(c["flash_attention"] == L and c[row] == L * steps
+                    and c["head_argmax_value"] == steps >= TP_TOKENS - 1
+                    and c["fused_decode_stack"] == 0
+                    and c["head_argmax"] == 0,
+                    f"[tp-{name}] rank {r} launches: {json.dumps(c)}")
+        read_counts(wrappers(), f"tp-{name}",
+                    ("flash_attention", row, "head_argmax_value"))
+        want = tp1[dt].generate_tokens(prompt, greedy, TP_TOKENS)
+        t1 = tp1[dt].last_timing
+        ms1 = t1.completion_secs / max(t1.completion_tokens - 1, 1) * 1e3
+        div = _first_divergence(f"tp-{name}", out, want, model, params,
+                                prompt)
+        TP_READINGS[name] = {
+            "ms_per_step_tp2": ms, "ms_per_step_tp1_eager": ms1,
+            "stream_vs_tp1": div,
+            "launches_by_rank": [{k: c[k] for k in (
+                "flash_attention", row, "head_argmax_value",
+                "fused_decode_stack", "head_argmax")} for c in counts]}
+        log(f"[tp-{name}] {TP_PROMPT}-token prompt, {TP_TOKENS} greedy "
+            f"tokens: tp 2 {ms:.3f} ms/step, tp 1 eager {ms1:.3f} ms/step; "
+            f"stream vs tp 1: {div}; per rank: flash_attention {L} (one "
+            f"prefill), {row} {L} a step, head_argmax_value 1 a step "
+            f"({steps} steps), fused_decode_stack 0 | {card}")
+    TP_READINGS["step"] = _profiled_block(engines["text"], prompt, device)
+    log(f"[tp] one decode block: {json.dumps(TP_READINGS['step'])} | {card}")
+
+    # teacher-forced: one fixed sequence through tp 2 and tp 1
+    rng = np.random.default_rng(26)
+    forced = _prompt(rng, 16, n_tok)
+    l2 = group.call(_tp_forced, prompt, forced)
+    l1 = _forced_logits(model, params, prompt, forced)
+    rel = ((l2 - l1).abs().max() / l1.abs().max()).item()
+    g1, g2 = l1.argmax(-1).tolist(), l2.argmax(-1).tolist()
+    first = next((i for i in range(len(g1)) if g1[i] != g2[i]), None)
+    gap = None
+    if first is not None:
+        top2 = l1[first].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+    TP_READINGS["teacher_forced"] = {"positions": len(forced) + 1,
+                                     "max_err_rel": rel, "tol": TOL_TP_REL,
+                                     "first_greedy_divergence": first,
+                                     "top2_gap_there": gap}
+    log(f"[tp] teacher-forced {TP_PROMPT} + {len(forced)} tokens: bf16 "
+        f"logits tp 2 vs tp 1 max err {rel:.3e} of max |ref| (tol "
+        f"{TOL_TP_REL}); first greedy divergence "
+        f"{first if first is not None else 'none'}"
+        + (f" (tp 1's top-2 gap {gap:.4e})" if gap is not None else "")
+        + f" | {card}")
+    require(rel <= TOL_TP_REL, f"tp 2 logits off tp 1's by {rel}")
+
+    # 4-slot BatchEngines, bf16 and int8: 4 requests, one sampled
+    sampled = SamplingConfig(temperature=0.7, top_k=20, top_p=0.9, seed=25)
+    lens = (60, 150, 300, 500)
+    prompts = [_prompt(rng, n, n_tok) for n in lens]
+    cfgs = [greedy, greedy, sampled, greedy]
+    for name, dt, row in (("batch", torch.bfloat16,
+                           "flash_decode_at_layer_flat_batched"),
+                          ("batch8", torch.int8,
+                           "flash_decode_at_layer_q8_batched")):
+        eng = engines[name]
+        drive_concurrent(eng, prompts[:2], [greedy, sampled], 8)   # warm
+        group.call(_tp_zero)
+        outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs,
+                                                  TP_TOKENS, monitor=True)
+        _sync(device)
+        counts = per_rank()
+        for r, c in enumerate(counts):
+            require(c[row] > 0 and c["fused_decode_stack"] == 0,
+                    f"[tp-{name}] rank {r} launches: {json.dumps(c)}")
+        read_counts(wrappers(), f"tp-{name}", (row,))
+        require(all(o is not None and len(o) == TP_TOKENS
+                    and all(0 <= t < model.config.vocab_size for t in o)
+                    for o in outs), f"[tp-{name}] streams: {outs}")
+        plain = BatchEngine(model, params, eos_token_ids=[], slots=4,
+                            cache_dtype=dt, max_seq_len=4096,
+                            cuda_graphs=False)
+        try:
+            want, *_ = drive_concurrent(plain, prompts, cfgs, TP_TOKENS)
+        finally:
+            plain.shutdown()
+        # the 4 slots teacher-forced through the rank's per-slot decode
+        # (the BatchEngine's step) against tp 1's, from the same prompts
+        forced4 = torch.tensor(rng.integers(0, n_tok, (4, 8)))
+        l2 = group.call(_tp_forced_slots, name, prompts, forced4)
+        l1 = _slot_logits(model, params, prompts, forced4, device, dt)
+        rel = ((l2 - l1).abs().max() / l1.abs().max()).item()
+        log(f"[tp-{name}] teacher-forced 4 slots x 8 steps: logits tp 2 vs "
+            f"tp 1 max err {rel:.3e} of max |ref| (tol {TOL_TP_REL}) | "
+            f"{card}")
+        require(rel <= TOL_TP_REL,
+                f"[tp-{name}] teacher-forced slot logits off tp 1's by {rel}")
+        divs = [_first_divergence(f"tp-{name} request {i}", outs[i],
+                                  want[i], model, params, prompts[i])
+                for i in range(len(prompts)) if cfgs[i] is greedy]
+        TP_READINGS[name] = {
+            "tok_s": len(prompts) * TP_TOKENS / wall, "peak_slots": peak,
+            "teacher_forced_slots_err_rel": rel,
+            "greedy_streams_vs_tp1": divs,
+            "launches_by_rank": [{row: c[row]} for c in counts]}
+        log(f"[tp-{name}] 4 slots, {lens}-token prompts, {TP_TOKENS} "
+            f"tokens each (one sampled): {len(prompts) * TP_TOKENS / wall:.1f}"
+            f" tok/s, peak {peak} slots; greedy streams vs tp 1: {divs}; "
+            f"{row} per rank {[c[row] for c in counts]} | {card}")
+
+
+def _dp_check(model, params, device: str, n_tok: int, ckpt: str) -> None:
+    """(dp) two BatchEngine replicas of 4 slots over the tp phase's
+    weights: where the host has two cards, `load_model(..., batch_slots=8,
+    dp=2)` from its checkpoint (one replica on cuda:0, one on cuda:1);
+    else both on cuda:0, each with a model and weights of its own, built
+    as load_model builds one a card.  8 greedy requests from threads;
+    every stream equal to a lone 4-slot engine's on cuda:0 (graphed, as
+    the replicas)."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.loader import load_model
+    from aha_tpu_torch.parallel.replicas import ReplicaEngine
+    from aha_tpu_torch.utils.profile_decode import drive_concurrent
+
+    two = device == "cuda" and torch.cuda.device_count() >= 2
+    if two:
+        served = load_model("Qwen/Qwen3-0.6B", ckpt, max_seq_len=4096,
+                            batch_slots=8, dp=2, prefix_cache=0)
+        eng, stop = served.engine, served.shutdown
+    else:
+        built = []
+        for _ in range(2):
+            own = _tree_map(lambda t: t.clone(), params)
+            own["lm_head"] = {"w": own["embed"]["w"]}       # tied
+            built.append((type(model)(model.config, max_rope_len=8192,
+                                      device=device), own))
+        eng = ReplicaEngine([BatchEngine(m, p, eos_token_ids=[], slots=4,
+                                         max_seq_len=4096)
+                             for m, p in built])
+        stop = eng.shutdown
+    rng = np.random.default_rng(27)
+    prompts = [_prompt(rng, n, n_tok) for n in (40, 90, 150, 230, 300, 420,
+                                                 600, 800)]
+    greedy = [SamplingConfig()] * len(prompts)
+    # the served replicas stop at the checkpoint's eos: so does the lone
+    lone = BatchEngine(model, params, eos_token_ids=sorted(eng.eos_token_ids),
+                       slots=4, max_seq_len=4096)
+    try:
+        drive_concurrent(eng, prompts[:4], greedy[:4], 8)        # warm
+        wr = zero_counts()
+        outs, ttft, wall, _ = drive_concurrent(eng, prompts, greedy, 32)
+        _sync(device)
+        read_counts(wr, "dp", ("flash_decode_at_layer_flat_batched",))
+        want, *_ = drive_concurrent(lone, prompts, greedy, 32)
+    finally:
+        stop()
+        lone.shutdown()
+    require(outs == want, f"[dp] replica streams differ from a lone "
+            f"4-slot engine's: {[i for i in range(8) if outs[i] != want[i]]}")
+    n_out = sum(len(o) for o in outs)
+    TP_READINGS["dp"] = {"replicas": [str(e.device) for e in eng.engines],
+                         "built_by": "load_model" if two else "by hand",
+                         "tokens": n_out, "tok_s": n_out / wall}
+    log(f"[dp] 2 replicas of 4 slots on "
+        f"{TP_READINGS['dp']['replicas']} "
+        f"({TP_READINGS['dp']['built_by']}): 8 requests of up to 32 "
+        f"tokens, {n_out} in all, {n_out / wall:.1f} tok/s; every stream "
+        f"equal to a "
+        f"lone 4-slot engine's | "
+        f"{card_line() if device == 'cuda' else 'cpu'}")
+
+
+def _serve_tp(ckpt: str, root: str, two: bool, card: str) -> None:
+    """`serv --tp 2`: on a one-card host refused before loading (its
+    words name both counts); on two cards a tp 2 child's chat reply equals
+    a tp 1 child's."""
+    if not two:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "aha_tpu_torch", "serv", ckpt, "--tp",
+             "2", "--port", str(_free_ports(1)[0])], cwd=ROOT,
+            capture_output=True, text=True, timeout=120)
+        secs = time.perf_counter() - t0
+        out = p.stdout + p.stderr
+        require(p.returncode != 0 and "needs 2 cards" in out
+                and "this host has 1" in out and "model loaded" not in out,
+                f"serv --tp 2 on one card: rc {p.returncode}\n{out[-2000:]}")
+        TP_READINGS["serv_tp2"] = f"refused in {secs:.1f} s"
+        log(f"[tp-http] serv --tp 2 on one card refused before loading in "
+            f"{secs:.1f} s: {out.strip().splitlines()[-1]}")
+        return
+    with _servers((root, ("--tp", "2"), ckpt), (root, (), ckpt)) as (b2, b1):
+        r2, r1 = _reply(b2, _ASK), _reply(b1, _ASK)
+    require(r2 == r1, f"serv --tp 2 replied {r2!r}, tp 1 {r1!r}")
+    TP_READINGS["serv_tp2"] = "reply equal to tp 1's"
+    log(f"[tp-http] serv --tp 2 (NCCL, two cards) replied as the tp 1 "
+        f"child: {r2[:60]!r} | {card}")
 
 
 # -- 6. GGUF-quantized paths ---------------------------------------------------
@@ -8589,6 +9141,9 @@ def phase_http_rmbg(rmbg: dict) -> None:
 HY_TOKENS = 64
 #: the teacher-forced check's depths at full width: tower blocks, layers
 HY_CUT = dict(depth=4, layers=4)
+#: the phase's decoder depth: the first 8 of HunyuanOCR's 24 layers at full
+#: width (a cut for the smoke's time limit; the tower keeps its 27 blocks)
+HY_LAYERS = 8
 #: the served checkpoints' depths at full width: HunyuanOCR's (af) weights
 #: cut, GLM-OCR's JAX defaults cut
 HY_SERVE = dict(depth=4, layers=4)
@@ -8702,17 +9257,18 @@ def _hy_tower_attention_ms(cfg, mm: dict, device: str) -> dict:
 
 def phase_hunyuan(device: str = "cuda") -> dict:
     """(af) HunyuanOCR at the JAX package's defaults (tower 27 blocks at
-    1152, 16 heads of 72, patch 16, merge 2, out 1024; decoder 24 layers
-    at 1024, 16/8 heads of 128, vocab 120818, tied) with seeded bf16
-    weights on the card through TextEngine without a prefix store, as
-    served: (af1) an A4 page at 150 dpi (1240 x 1754 → 1248 x 1760, 8,580
+    1152, 16 heads of 72, patch 16, merge 2, out 1024; decoder at 1024,
+    16/8 heads of 128, vocab 120818, tied, cut to the first HY_LAYERS of
+    its 24 layers) with seeded bf16 weights on the card through TextEngine
+    without a prefix store, as served: (af1) an A4 page at 150 dpi (1240 x 1754 → 1248 x 1760, 8,580
     patches in the 9,216 bucket, 2,202 image tokens), (af2) a 1024 x 1024
     image (4,096 patches, 1,058 image tokens), (af3) a 200-token text-only
     request, 64 greedy tokens each: the prefill kernel 24 a prefill of ≥
     128 rows, row 8 24 a step, never the fused stack or the flat decode;
     a 200-dpi page refused before any launch; the position resample's two
     forms and the tower's attention timed; 8 teacher-forced steps of (af2)
-    at HY_CUT against the CPU.  Returns the cut parameters for the HTTP
+    at HY_CUT against the CPU.  (The prefill kernel and row 8 launch once
+    a decoder layer: HY_LAYERS a prefill, HY_LAYERS a step.)  Returns the cut parameters for the HTTP
     phase."""
     from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
     from aha_tpu_torch.core.sampling import SamplingConfig
@@ -8721,7 +9277,7 @@ def phase_hunyuan(device: str = "cuda") -> dict:
     from aha_tpu_torch.models.qwen2_5vl import mm_to
 
     greedy, n = SamplingConfig(), HY_TOKENS
-    cfg = hunyuan_ocr_default()
+    cfg = hunyuan_ocr_default(layers=HY_LAYERS)
     v = cfg.vision
     require((cfg.num_attention_heads, cfg.num_key_value_heads,
              cfg.head_dim) == (16, 8, 128),
@@ -9065,6 +9621,7 @@ def main() -> int:
     state = timed("engine", phase_engine, Qwen3Config())
     timed("spec", phase_spec, state["model"], state["params"])
     timed("batch", phase_batch, state["model"], state["params"])
+    timed("tp", phase_tp, state["model"], state["params"])
     timed("quant", phase_quant, state["model"], state["params"])
     minilm = timed("embed", phase_embed, state["model"], state["params"])
     http = timed("http", phase_http, state["model"].config, state["params"])
@@ -9142,6 +9699,7 @@ def main() -> int:
     print(json.dumps({"rmbg": RMBG_READINGS}))
     print(json.dumps({"ocr2": OCR2_READINGS}))
     print(json.dumps({"lifecycle": LIFECYCLE_READINGS}))
+    print(json.dumps({"tp": TP_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -361,27 +361,39 @@ def test_serv_needs_a_model_or_manage_only():
     assert str(got.value) == str(want.value) == cli.SERV_NEEDS_MODEL
 
 
-@pytest.mark.parametrize("argv,refusal", [
-    (["serv", "{repo}", "--tp", "2"], "TP_NOT_PORTED"),
-    (["cli", "{repo}", "--tp", "4"], "TP_NOT_PORTED"),
-    (["run", "{repo}", "--input", "hi", "--tp", "2"], "TP_NOT_PORTED"),
-    (["serv", "{repo}", "--dp", "2"], "--dp shards continuous-batching"),
+@pytest.mark.parametrize("argv,refusal,cards", [
+    (["serv", "{repo}", "--tp", "2", "--dp", "2", "--batch-slots", "4"],
+     "TP_WITH_DP", None),
+    (["cli", "{repo}", "--tp", "4"], "needs 4 cards", 1),
+    (["run", "{repo}", "--input", "hi", "--tp", "2", "--model",
+      "OpenBMB/MiniCPM4-0.5B"], "sharding of 'minicpm4' is not ported",
+     None),
+    (["serv", "{repo}", "--dp", "2"], "--dp shards continuous-batching",
+     None),
     (["serv", "{repo}", "--dp", "2", "--batch-slots", "3"],
-     "must be a multiple of --dp 2"),
+     "must be a multiple of --dp 2", None),
     (["serv", "{repo}", "--dp", "2", "--batch-slots", "4"],
-     "not ported to aha_tpu_torch yet"),
+     "needs 2 cards", 1),
 ])
 def test_tp_and_dp_are_refused_before_loading(repo, monkeypatch, argv,
-                                              refusal):
-    """--tp above 1 is refused with the port's words; --dp goes through
-    the loader's checks (its combination with the slots, then the port's
-    refusal); no family loader runs."""
-    from aha_tpu_torch.models import loader
+                                              refusal, cards):
+    """What the port does not take is refused before any family loader
+    runs: --tp with --dp, --tp on a family whose sharding is not ported,
+    --dp against the slots (the reference's words), and a host with fewer
+    cards than --tp or --dp asks for (`cards` patches the count; None runs
+    on the CPU)."""
+    from aha_tpu_torch.models import loader, text_served
 
-    monkeypatch.setenv("AHA_DEVICE", "cpu")
+    if cards is None:
+        monkeypatch.setenv("AHA_DEVICE", "cpu")
+    else:
+        monkeypatch.delenv("AHA_DEVICE", raising=False)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.setattr(loader, "FAMILY_LOADERS", {})
     with pytest.raises(ValueError) as got:
         cli.main([a.format(repo=repo) for a in argv])
+    refusal = getattr(text_served, refusal, refusal)
     want = getattr(loader, refusal, refusal)
     assert want in str(got.value)
 

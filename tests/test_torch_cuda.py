@@ -74,6 +74,31 @@ def test_head_argmax_kernel_matches_plain(dev):
         int(head_argmax_plain(w, nan))
 
 
+def test_head_argmax_value_kernel_matches_plain(dev):
+    """The value-out instance: the plain version's index and f32 value,
+    a planted tie's first index, a NaN row's (V − 1, NaN), and the count
+    its own."""
+    from aha_tpu_torch.ops import lm_head
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    w, h = _bf(g, 5000, 256), _bf(g, 1, 256)
+    n0, v0 = lm_head.head_argmax_value.launches, lm_head.head_argmax.launches
+    idx, val = lm_head.head_argmax_value(w, h)
+    ridx, rval = lm_head.head_argmax_value_plain(w, h)
+    assert int(idx) == int(ridx)
+    assert abs(val.item() - rval.item()) <= 1e-4 * abs(rval.item())
+    assert (lm_head.head_argmax_value.launches - n0,
+            lm_head.head_argmax.launches - v0) == (1, 0)
+    wt = torch.zeros(5000, 256, dtype=torch.bfloat16, device=dev)
+    wt[4000, 0] = wt[37, 0] = 1.0
+    e0 = torch.zeros(1, 256, dtype=torch.bfloat16, device=dev)
+    e0[0, 0] = 1.0
+    assert [x.item() for x in lm_head.head_argmax_value(wt, e0)] == [37, 1.0]
+    nan = torch.full((1, 256), float("nan"), dtype=torch.bfloat16, device=dev)
+    idx, val = lm_head.head_argmax_value(w, nan)
+    assert int(idx) == 4999 and bool(torch.isnan(val))
+
+
 def _fused_layers(g, L, H, hq, hkv, D, NI):
     def w(*shape):
         return (torch.randn(shape, generator=g, device="cuda") * 0.05).to(

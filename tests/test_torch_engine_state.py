@@ -6,6 +6,7 @@ copies a slot's state whole; the loader serves lfm2 and qwen3_5 (LFM2's
 chat equal to aha_tpu's on both engines, --spec-tokens ignored with the
 engine's message).  CPU, float32."""
 
+import itertools
 import json
 import os
 
@@ -167,6 +168,40 @@ def test_insert_copies_a_slots_state_whole(family):
         assert torch.equal(big["k"][:, 1, 20:], before["k"][:, 1, 20:])
     finally:
         eng.shutdown()
+
+
+@pytest.mark.parametrize("family", HYBRIDS + ["qwen3"])
+@pytest.mark.parametrize("prefix", [0, 4])
+def test_text_engine_streams_may_overlap(family, prefix):
+    """Two stream_tokens generators open on one TextEngine at once, their
+    tokens drawn in turn (with and without a prefix store): each request
+    decodes on its own pooled cache (the second takes a new one while the
+    first holds its bucket's), both streams equal the same requests run
+    alone, and the caches go back to the pool."""
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    if family == "qwen3":
+        model = Qwen3Model(Qwen3Config(
+            vocab_size=120, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=2,
+            num_key_value_heads=1, head_dim=16), max_rope_len=256)
+    else:
+        model = _models()[family]
+    params = model.init_random(torch.Generator().manual_seed(1))
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=256,
+                     prefix_cache_entries=prefix)
+    greedy = SamplingConfig()
+    a, b = _prompt(30, seed=1), _prompt(40, seed=2)
+    want = [eng.generate_tokens(p, greedy, 20) for p in (a, b)]
+    first, second = (eng.stream_tokens(p, greedy, 20) for p in (a, b))
+    got = [[next(first)], [next(second)]]
+    for pair in itertools.zip_longest(first, second):
+        for out, tok in zip(got, pair):
+            if tok is not None:
+                out.append(tok)
+    assert got == want
+    assert not eng._live
+    assert list(eng._cache_pool) == [256]
 
 
 def test_engines_fuse_only_where_the_model_has_a_fusion():

@@ -5,6 +5,8 @@ sampler's device-side inputs against their host forms and aha_tpu's, the
 batch engine's step inputs updated in place, and the launch accounting of
 core/graphs.py."""
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from aha_tpu.core.engine import TextEngine as JEngine
 from aha_tpu_torch.core import graphs
 from aha_tpu_torch.core import sampling as ts
 from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, window_key
+from aha_tpu_torch.ops import launches
 
 torch.set_num_threads(1)
 
@@ -238,20 +241,55 @@ def test_launch_accounting_adds_the_capture_delta_per_replay():
     a, b, c = _counter(), _counter(), _counter()
     fns = [a, b, c]
     a.launches, c.launches = 5, 2
-    before = graphs.snapshot(fns)
-    a.launches += 3              # what one capture of the block "launched"
-    b.launches += 28
-    delta = graphs.launch_delta(fns, before)
+    counted = {}
+    with launches.recording(counted):
+        launches.count(a, 3)     # what one capture of the block "launched"
+        launches.count(b, 28)
+    delta = list(counted.items())
     assert delta == [(a, 3), (b, 28)]
     graphs.add_launches(delta, -1)
-    assert graphs.snapshot(fns) == [5, 0, 2]
+    assert [fn.launches for fn in fns] == [5, 0, 2]
     fake = _FakeGraph()
     out = torch.zeros(4)
     cap = graphs.Captured(fake, out, delta)
     for _ in range(4):
         assert cap.replay() is out
     assert fake.replays == cap.replays == 4
-    assert graphs.snapshot(fns) == [5 + 12, 112, 2]
+    assert [fn.launches for fn in fns] == [5 + 12, 112, 2]
+
+
+def test_a_capture_takes_back_only_its_own_launches():
+    """dp replicas' scheduler threads launch while one of them captures:
+    the capture's record holds its own thread's launches only, and counts
+    added from many threads at once are all kept."""
+    a = _counter()
+    counted, started, done = {}, threading.Event(), threading.Event()
+
+    def other():
+        started.wait()
+        for _ in range(7):
+            launches.count(a)
+        done.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    with launches.recording(counted):
+        launches.count(a, 3)
+        started.set()
+        assert done.wait(10)
+    t.join()
+    assert counted == {a: 3} and a.launches == 10
+    graphs.add_launches(list(counted.items()), -1)
+    assert a.launches == 7
+
+    def many():
+        for _ in range(2000):
+            launches.count(a)
+
+    ts = [threading.Thread(target=many) for _ in range(8)]
+    [t.start() for t in ts]
+    [t.join() for t in ts]
+    assert a.launches == 7 + 8 * 2000
 
 
 def test_decode_graphs_capture_once_then_replay(monkeypatch):
@@ -287,7 +325,7 @@ def test_decode_graphs_capture_once_then_replay(monkeypatch):
 
 
 def test_counted_wrappers_finds_every_kernel_wrapper():
-    """The capture's snapshot covers the wrappers chip_smoke counts."""
+    """The census of counts covers the wrappers chip_smoke counts."""
     import aha_tpu_torch.ops.flash_attention  # noqa: F401
     import aha_tpu_torch.ops.fused_layer  # noqa: F401
     import aha_tpu_torch.ops.lm_head  # noqa: F401

@@ -17,6 +17,7 @@ from aha_tpu_torch.cli import build_parser
 from aha_tpu_torch.core.batch_engine import BatchEngine
 from aha_tpu_torch.models.loader import load_model
 from aha_tpu_torch.models.qwen3_served import Qwen3Chat
+from aha_tpu_torch.parallel.replicas import ReplicaEngine
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import lookup
 from aha_tpu_torch.server.app import ServerState, create_app
@@ -93,14 +94,25 @@ def test_loader_and_unported_options(repo):
         assert isinstance(batched.engine, BatchEngine)
         assert batched.concurrent_streams == 2
         assert batched.engine.slots == 2
+        want = batched.generate(_req(max_tokens=6)).choices[0].message
     finally:
         batched.engine.shutdown()
     # refused before any weights load, with the JAX loader's message
     with pytest.raises(ValueError, match="--spec-tokens rides"):
         load_model("Qwen/Qwen3-0.6B", "/nonexistent", batch_slots=2,
                    spec_tokens=4)
-    with pytest.raises(ValueError, match="--dp"):
-        load_model("Qwen/Qwen3-0.6B", repo, batch_slots=2, dp=2)
+    # --dp D: D BatchEngine replicas of batch_slots / D slots (the CPU
+    # stands for each card here), answering as the one engine does
+    replicas = load_model("Qwen/Qwen3-0.6B", repo, max_seq_len=256,
+                          batch_slots=2, dp=2)
+    try:
+        assert isinstance(replicas.engine, ReplicaEngine)
+        assert [e.slots for e in replicas.engine.engines] == [1, 1]
+        assert replicas.concurrent_streams == 2
+        got = replicas.generate(_req(max_tokens=6)).choices[0].message
+        assert got.content == want.content
+    finally:
+        replicas.shutdown()
     args = build_parser().parse_args(["serv", repo, "--port", "9001"])
     assert (args.path, args.port, args.model) == (repo, 9001,
                                                   "Qwen/Qwen3-0.6B")
