@@ -81,8 +81,9 @@ import dataclasses
 import itertools
 import time
 from collections import OrderedDict
-from typing import Iterator
+from typing import Any, Iterator
 
+import numpy as np
 import torch
 
 from aha_tpu_torch.core import cache as kv
@@ -160,6 +161,23 @@ def embed_weight(params: dict) -> torch.Tensor:
     """The token embedding of a text tree or of a multimodal one whose
     decoder sits under "text"; its dtype and device are the engine's."""
     return params.get("text", params)["embed"]["w"]
+
+
+def mm_to(mm: dict[str, Any], device: torch.device | str) -> dict[str, Any]:
+    """The host-built `mm` (numpy arrays, an int rope_delta) as tensors on
+    `device`, as they are typed (int32 indices, float32 patches); anything
+    that is no array (HunyuanOCR's grids, or a tensor a family built
+    itself) stays as it is.  TextEngine moves every request's `mm` so: a tp
+    rank moves the host arrays rank 0 sent it to its own card."""
+    out = {}
+    for name, a in mm.items():
+        if name == "rope_delta":
+            out[name] = int(a)
+        elif isinstance(a, np.ndarray):
+            out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        else:
+            out[name] = a
+    return out
 
 
 def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
@@ -286,13 +304,16 @@ class PrefixStore:
 class _Pooled:
     """A pooled cache and the decode loop's device state bound to it: the
     next step's input token, the repeat-token ring, the tokens generated so
-    far, and the graphs captured over them; with speculation, the token
-    history the rounds draft from and its valid length (made on first
-    use)."""
+    far, the sampling generator (re-seeded by each sampled request that
+    takes the cache: a request draws from its own generator, whatever
+    other streams are open), and the graphs captured over them; with
+    speculation, the token history the rounds draft from and its valid
+    length (made on first use)."""
     cache: dict
     token: torch.Tensor
     ring: torch.Tensor
     n_gen: torch.Tensor
+    gen: torch.Generator
     graphs: dict = dataclasses.field(default_factory=dict)
     hist: torch.Tensor | None = None
     hl: torch.Tensor | None = None
@@ -355,8 +376,6 @@ class TextEngine:
         self._cache_pool: dict[int, _Pooled] = {}
         self.last_timing = Timing()
         self._greedy_fn = getattr(model, "greedy_token", None)
-        # one generator, re-seeded per sampled request
-        self._gen = torch.Generator(device=self.device)
         self.graphs = (DecodeGraphs(self.device)
                        if cuda_graphs and self.device.type == "cuda"
                        else None)
@@ -388,7 +407,8 @@ class TextEngine:
             st = _Pooled(self.model.init_cache(1, cache_len, self.cache_dtype),
                          torch.zeros((), **i32),
                          torch.zeros((REPEAT_WINDOW,), **i32),
-                         torch.zeros((), **i32))
+                         torch.zeros((), **i32),
+                         torch.Generator(device=self.device))
         kv.reset(st.cache)
         st.ring.zero_()
         st.n_gen.zero_()
@@ -430,7 +450,7 @@ class TextEngine:
         the ring's first min(n_gen, window) entries penalized, the token
         recorded at n_gen mod the ring's length, n_gen advanced."""
         n_valid = st.n_gen.clamp(max=self._repeat_window(cfg))
-        tok = sample_token(logits[0], cfg, self._gen, st.ring, n_valid)
+        tok = sample_token(logits[0], cfg, st.gen, st.ring, n_valid)
         if self.mesh is not None:                 # rank 0's token
             tok = self.mesh.broadcast(tok.clone())
         slot = (st.n_gen % st.ring.shape[0]).long().reshape(1)
@@ -484,12 +504,12 @@ class TextEngine:
                 return block()
             mode = self._mode(cfg)
             # the sampled block bakes cfg's filters in; its seed is the
-            # generator's state, read at each replay
+            # pooled generator's state, read at each replay
             key = (window, mode, n_steps,
                    dataclasses.replace(cfg, seed=0) if mode == "sampled"
                    else None)
             return self.graphs.run(st.graphs, key, block,
-                                   (self._gen,) if mode == "sampled" else ())
+                                   (st.gen,) if mode == "sampled" else ())
 
     # -- speculative rounds -------------------------------------------------
 
@@ -708,11 +728,14 @@ class TextEngine:
         """Take the pooled cache of `cache_len` for request `rid`, restore
         the longest stored prefix (if any fits), prefill the rest, store
         the prompt, and sample the first token into the loop state; the
-        token (device)."""
+        token (device).  `mm` may hold host arrays (a tp group's requests
+        travel so): they go to this rank's device."""
+        if mm is not None:
+            mm = mm_to(mm, self.device)
         st = self._live[rid] = self._take(cache_len)
         cache = st.cache
         if not cfg.greedy:
-            self._gen.manual_seed(cfg.seed)
+            st.gen.manual_seed(cfg.seed)
         prompt_len = len(prompt_ids)
         entry, p = (None, 0)
         if use_prefix:

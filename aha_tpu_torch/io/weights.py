@@ -109,6 +109,28 @@ def read_shard(src, name: str, dim: int, index: int,
     return t.narrow(dim, index * n, n).contiguous()
 
 
+def shard_getters(src, device, dtype, mesh=None):
+    """(get, lin) over checkpoint `src`, each tensor on `device` in `dtype`.
+    get(name, dim=None): the tensor, or under a tp `mesh` this rank's slice
+    along `dim` (`read_shard`; dim None: whole).  lin(name, dim=None): HF's
+    `name.weight` (out, in) as the port's (in, out), with its bias where
+    the checkpoint has one; dim 0 splits the output columns (the bias
+    with them), dim 1 the input rows (the bias whole: it is added once
+    after the ranks' reduce)."""
+    def get(name: str, dim: int | None = None) -> torch.Tensor:
+        t = (src[name] if mesh is None or dim is None else
+             read_shard(src, name, dim, mesh.tp_rank, mesh.tp))
+        return t.to(device=device, dtype=dtype)
+
+    def lin(name: str, dim: int | None = None) -> dict:
+        p = {"w": get(name + ".weight", dim).t().contiguous()}
+        if name + ".bias" in src:
+            p["b"] = get(name + ".bias", 0 if dim == 0 else None)
+        return p
+
+    return get, lin
+
+
 def take_linear(src, name: str, device, dtype) -> dict:
     """HF's `name.weight` (out, in) as the port's (in, out), with its bias
     where the checkpoint has one."""

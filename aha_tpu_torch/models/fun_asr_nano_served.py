@@ -21,7 +21,6 @@ from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.fun_asr_nano import (FunAsrNanoConfig,
                                                FunAsrNanoModel,
                                                fun_asr_token_length)
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.text_served import TextChatModel
 from aha_tpu_torch.ops.audio_feats import apply_lfr, kaldi_fbank
 from aha_tpu_torch.params import ChatCompletionParameters, extract_parts
@@ -102,4 +101,4 @@ class FunAsrNanoChat(TextChatModel):
         input_ids = head + [0] * n_tok + tail
         mm = build_mm(feats, len(input_ids), len(head), n_tok)
         return PrepareData(input_ids=input_ids,
-                           mm=mm_to(mm, self.engine.device))
+                           mm=mm)

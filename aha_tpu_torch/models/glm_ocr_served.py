@@ -35,7 +35,6 @@ from aha_tpu_torch.models.glm_ocr import (GlmOcrConfig, GlmOcrModel,
                                           glm_vision_rope)
 # the same patch buckets (256 ... 9,216) and refusal as HunyuanOCR's
 from aha_tpu_torch.models.hunyuan_ocr_served import patch_bucket
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
 from aha_tpu_torch.models.text_served import (TextChatModel,
                                               load_generation_config)
@@ -172,4 +171,4 @@ class GlmOcrChat(TextChatModel):
                     + [cfg.image_end_token_id])
         ids += text + [ASSISTANT, NL]
         mm = build_mm(patches_list, grids, ids, cfg)
-        return PrepareData(input_ids=ids, mm=mm_to(mm, self.engine.device))
+        return PrepareData(input_ids=ids, mm=mm)

@@ -34,7 +34,6 @@ from aha_tpu_torch.models.hunyuan_ocr import (HunyuanOCRConfig,
                                               hunyuan_pos_weights,
                                               hunyuan_position_ids,
                                               hunyuan_vision_geometry)
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
 from aha_tpu_torch.models.text_served import (TextChatModel,
                                               load_generation_config)
@@ -181,4 +180,4 @@ class HunyuanOCRChat(TextChatModel):
         rendered = rendered.replace(PLACEHOLDER, IMAGE_TOKEN)
         ids = self.tokenizer.encode(rendered)
         mm = build_mm(patches_list, grids, ids, cfg, merge)
-        return PrepareData(input_ids=ids, mm=mm_to(mm, self.engine.device))
+        return PrepareData(input_ids=ids, mm=mm)

@@ -28,7 +28,6 @@ from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.lfm2vl import (Lfm2VLConfig, Lfm2VLModel,
                                          resize_pos_embeddings,
                                          unshuffle_gather)
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.text_served import TextChatModel
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
@@ -199,5 +198,5 @@ class Lfm2VLChat(TextChatModel):
         input_ids = self.tokenizer.encode(rendered)
         mm = build_mm(per_image, shapes, self.pos_table, c)
         return PrepareData(input_ids=input_ids,
-                           mm=mm_to(mm, self.engine.device),
+                           mm=mm,
                            in_reasoning=self.is_in_reasoning(rendered))

@@ -16,7 +16,21 @@ never advances it.  A decode step's attention is flash_decode_at_layer
 (the split-KV decode kernel on the card, one slot or B with per-slot
 lengths), prefill of ≥ 128 bucketed rows the flash prefill kernel; the
 projections and MLP stay torch.matmul, as the JAX package leaves them to
-XLA.  Not ported: the tensor-parallel partition rules.
+XLA.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), as Qwen3Model has
+it: the model is one rank's, on its slice of the parameters
+(LLAMA_PARTITION_RULES): Hq/tp query and Hkv/tp kv heads, I/tp MLP
+columns and V/tp vocab rows; norms, the per-head q/k norms, the mup
+scalings and the rope tables (LongRoPE's too) replicated.  A rank's q/k/v
+and gate/up biases are the slices of its columns; o and down are
+row-sharded (parallel/layers.row_linear: one f32 all_reduce each), their
+biases (ERNIE's o_bias / mlp_bias) added once after the reduce, then the
+residual scale.  The embedding is a masked lookup summed over the ranks;
+logits are gathered, and the greedy token comes from the value-out head
+kernel and the ranks' combine.  The cache is the rank's (L, B, S,
+Hkv/tp, D) slice by LLAMA_CACHE_RULES; check_tp refuses a tp that does
+not divide the heads, the MLP or the vocab.
 """
 
 from __future__ import annotations
@@ -32,12 +46,15 @@ import torch
 
 from aha_tpu_torch.core import cache as kv
 from aha_tpu_torch.core import nn
+from aha_tpu_torch.core.sampling import fast_argmax
 from aha_tpu_torch.models.cache_attention import CacheAttention
 from aha_tpu_torch.models.qwen3 import (fuse_decode_params, stack_layers,
                                         unstack_layers)
 from aha_tpu_torch.ops.attention import causal_mask, sdpa
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_text_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +153,16 @@ class LlamaModel:
     supports_token_rewind = True
 
     def __init__(self, config: LlamaConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = c = config
         self.device = torch.device(device)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        tp = self.mesh.tp if self.mesh is not None else 1
+        check_text_tp(c, tp)
         self.n_layers = c.num_hidden_layers
-        self.n_heads = c.num_attention_heads
-        self.n_kv_heads = c.num_key_value_heads
+        self.n_heads = c.num_attention_heads // tp
+        self.n_kv_heads = c.num_key_value_heads // tp
         self.head_dim = c.head_dim_
         max_rope_len = min(max_rope_len, c.max_position_embeddings)
         if c.rope_scaling and "short_factor" in c.rope_scaling:
@@ -162,9 +183,13 @@ class LlamaModel:
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    per_slot_pos: bool = False) -> dict:
+        """The 5-D cache of the whole model's kv heads; under a mesh, this
+        rank's slice of it by LLAMA_CACHE_RULES."""
         return kv.init_kv_cache(self.n_layers, batch, max_len,
-                                self.n_kv_heads, self.head_dim, dtype,
-                                self.device, per_slot_pos, flat=False)
+                                self.config.num_key_value_heads,
+                                self.head_dim, dtype, self.device,
+                                per_slot_pos, flat=False, mesh=self.mesh,
+                                rules=self.cache_rules)
 
     # -- forward ------------------------------------------------------------
 
@@ -198,10 +223,11 @@ class LlamaModel:
                       attn: torch.Tensor) -> torch.Tensor:
         c = self.config
         B, S, _ = x.shape
-        x = x + nn.linear(lp["o"], attn.reshape(B, S, -1)) * \
-            self.residual_scale
+        o = tp_layers.row_linear(lp["o"], attn.reshape(B, S, -1), self.mesh)
+        x = x + o * self.residual_scale
         h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
-        return x + nn.swiglu_mlp(lp["mlp"], h) * self.residual_scale
+        mlp = tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
+        return x + mlp * self.residual_scale
 
     def _layer(self, lp: dict, li: int, x: torch.Tensor, cos, sin,
                cache: dict, from_cache: bool, positions: torch.Tensor,
@@ -224,8 +250,16 @@ class LlamaModel:
         live rows) is accepted and unused: no fused decode stack here; so
         is `prompt_len` (a padded prefill's true length): rows past it are
         never read."""
-        x = nn.embedding(params["embed"], input_ids) * self.config.scale_emb
+        x = self.embed(params, input_ids) * self.config.scale_emb
         return self.run_layers(params, x, cache, from_cache=from_cache)
+
+    def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding (before scale_emb): under a mesh the masked
+        lookup in the rank's vocab rows, summed over the ranks."""
+        if self.mesh is not None:
+            return tp_layers.embedding(params["embed"], input_ids,
+                                       self.config.vocab_size, self.mesh)
+        return nn.embedding(params["embed"], input_ids)
 
     def run_layers(self, params: dict, x: torch.Tensor, cache: dict,
                    cos_sin: tuple[torch.Tensor, torch.Tensor] | None = None,
@@ -267,8 +301,25 @@ class LlamaModel:
         return x * self.hidden_scale
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        """The head is vocab-major (V, K)."""
-        return hidden @ params["lm_head"]["w"].t()
+        """The head is vocab-major (V, K); under a mesh each rank's V/tp
+        columns, gathered."""
+        local = hidden @ params["lm_head"]["w"].t()
+        if self.mesh is not None:
+            return tp_layers.gathered_logits(local, self.config.vocab_size,
+                                             self.mesh)
+        return local
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """Greedy next token for ONE hidden state (0-dim int32 on the
+        device).  Under a mesh: the value-out head kernel over this rank's
+        vocab shard and the ranks' combine (parallel/layers.greedy_token),
+        which spares the all_reduce of V floats a step; on one device
+        logits + fast_argmax, the engines' path for a model without a
+        head kernel."""
+        if self.mesh is not None:
+            return tp_layers.greedy_token(params["lm_head"]["w"], hidden,
+                                          self.config.vocab_size, self.mesh)
+        return fast_argmax(self.logits(params, hidden).float().reshape(-1))
 
     # -- parameters ---------------------------------------------------------
 
@@ -276,17 +327,15 @@ class LlamaModel:
                     prefix: str = "model.") -> dict:
         """HF checkpoint names under `prefix` → the port's layout on
         self.device.  `src` maps a tensor name to a CPU tensor
-        (io/weights.py)."""
+        (io/weights.py).  Under a mesh each sharded tensor is read as this
+        rank's slice (`shard_getters`: a safetensors file reads only those
+        bytes): q/k/v and gate/up by output rows with their biases, o and
+        down by input columns (their biases whole), the embedding and
+        the head by vocab rows."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         c = self.config
-
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
-
-        def lin(name):             # HF (out, in) → (in, out), bias if any
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
             return {"w": get(name + ".weight")}
@@ -297,23 +346,25 @@ class LlamaModel:
             lp = {
                 "ln1": norm(p + "input_layernorm"),
                 "ln2": norm(p + "post_attention_layernorm"),
-                "q": lin(p + "self_attn.q_proj"),
-                "k": lin(p + "self_attn.k_proj"),
-                "v": lin(p + "self_attn.v_proj"),
-                "o": lin(p + "self_attn.o_proj"),
-                "mlp": {"gate": lin(p + "mlp.gate_proj"),
-                        "up": lin(p + "mlp.up_proj"),
-                        "down": lin(p + "mlp.down_proj")},
+                # q/k/v, gate/up split their outputs (HF rows), o and down
+                # their inputs (HF columns)
+                "q": lin(p + "self_attn.q_proj", 0),
+                "k": lin(p + "self_attn.k_proj", 0),
+                "v": lin(p + "self_attn.v_proj", 0),
+                "o": lin(p + "self_attn.o_proj", 1),
+                "mlp": {"gate": lin(p + "mlp.gate_proj", 0),
+                        "up": lin(p + "mlp.up_proj", 0),
+                        "down": lin(p + "mlp.down_proj", 1)},
             }
             if c.qk_norm:
                 lp["q_norm"] = norm(p + "self_attn.q_norm")
                 lp["k_norm"] = norm(p + "self_attn.k_norm")
             layers.append(lp)
-        embed = get(prefix + "embed_tokens.weight")
+        embed = get(prefix + "embed_tokens.weight", 0)
         if c.tie_word_embeddings and "lm_head.weight" not in src:
             head = embed
         else:
-            head = get("lm_head.weight")       # HF stores it (V, K)
+            head = get("lm_head.weight", 0)    # HF stores it (V, K)
         return {"embed": {"w": embed}, "layers": stack_layers(layers),
                 "norm": norm(prefix + "norm"), "lm_head": {"w": head}}
 
@@ -358,3 +409,34 @@ class LlamaModel:
         head = embed if c.tie_word_embeddings else w(c.vocab_size, d)
         return {"embed": {"w": embed}, "layers": layers,
                 "norm": {"w": full(1.0, d)}, "lm_head": {"w": head}}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's LLAMA_PARTITION_RULES on the port's names and layouts: linear
+# weights stacked (L, in, out) — q/k/v and gate/up split their output
+# columns, o and down their input rows; the embedding and the head, both
+# vocab-major (V, K) here (the JAX head is (K, V)), split the vocab.  The
+# JAX rules leave the q/k/v and gate/up biases replicated for GSPMD to
+# slice; a rank here holds the slice of its columns.  o and down biases,
+# norms and q/k norms replicated.
+LLAMA_PARTITION_RULES = (
+    (r"layers\.(q|k|v)\.w", (None, None, "tp")),
+    (r"layers\.(q|k|v)\.b", (None, "tp")),
+    (r"layers\.o\.w", (None, "tp", None)),
+    (r"layers\.mlp\.(gate|up)\.w", (None, None, "tp")),
+    (r"layers\.mlp\.(gate|up)\.b", (None, "tp")),
+    (r"layers\.mlp\.down\.w", (None, "tp", None)),
+    # segment-anchored: must not catch vision towers' patch_embed/pos_embed
+    (r"(^|\.)embed\.w", ("tp", None)),
+    (r"lm_head\.w", ("tp", None)),
+)
+# the 5-D cache (L, B, S, Hkv, D): kv heads over tp, slots over dp (a dp
+# replica's engine holds its share of slots itself, so a rank's tp-only
+# mesh never applies it)
+LLAMA_CACHE_RULES = ((r"^(k|v)$", (None, "dp", None, "tp", None)),)
+LlamaModel.partition_rules = LLAMA_PARTITION_RULES
+LlamaModel.cache_rules = LLAMA_CACHE_RULES
+
+
+#: the tp check of a LlamaConfig (heads, MLP and vocab)
+check_tp = check_text_tp

@@ -32,13 +32,13 @@ def _qwen3(entry: ModelEntry, path: str, **kw) -> LoadedModel:
 def _qwen3_embedding(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     from aha_tpu_torch.models.qwen3_served import Qwen3EmbeddingServed
 
-    return Qwen3EmbeddingServed.load(entry, path)
+    return Qwen3EmbeddingServed.load(entry, path, tp=kw.get("tp", 1))
 
 
 def _qwen3_reranker(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     from aha_tpu_torch.models.qwen3_served import Qwen3RerankerServed
 
-    return Qwen3RerankerServed.load(entry, path)
+    return Qwen3RerankerServed.load(entry, path, tp=kw.get("tp", 1))
 
 
 def _minilm(entry: ModelEntry, path: str, **kw) -> LoadedModel:
@@ -50,12 +50,12 @@ def _minilm(entry: ModelEntry, path: str, **kw) -> LoadedModel:
 def _llama_family(entry: ModelEntry, path: str, **kw) -> LoadedModel:
     """minicpm4 / minicpm5: the generic LlamaForCausalLM wrapper —
     LlamaConfig picks up whatever mup / LongRoPE fields the config.json
-    has."""
-    from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    has; `tp > 1` shards it over tp ranks."""
+    from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel, check_tp
     from aha_tpu_torch.models.text_served import TextChatModel
 
     return TextChatModel.load_decoder(entry, path, LlamaModel, LlamaConfig,
-                                      **kw)
+                                      check_tp=check_tp, **kw)
 
 
 def _lfm2(entry: ModelEntry, path: str, **kw) -> LoadedModel:
@@ -179,7 +179,8 @@ BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 # and words): --tp is refused before loading any weights
 _NO_TP_FAMILIES = {"minilm", "voxcpm", "rmbg2_0"}
 #: families the port shards over --tp ranks
-TP_FAMILIES = {"qwen3"}
+TP_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "qwen3vl", "qwen2_5vl",
+               "qwen3_embedding", "qwen3_reranker"}
 
 #: the reference's refusals of the file kinds, word for word
 ONNX_REFUSED = "onnx comming soon but now not support"
@@ -194,12 +195,14 @@ def load_model(model_id: str, path: str, gguf: str | None = None,
     entry (`qwen3.5-gguf`) loads the file `gguf` (and the tower from
     `mmproj`) and refuses to run without one, an ONNX entry is refused,
     each with the reference's words (aha_tpu/models/loader.py:204-213).
-    `tp > 1` shards the Qwen3 chat family over tp ranks, one a card; the
-    families with no mesh path refuse it with the reference's words, a
-    GGUF entry with its loader's, every other family and tp with dp with
-    the port's, naming what is not ported.  `dp > 1` (dp BatchEngine
-    replicas, one a card) goes through the reference's checks of its
-    combination with the slots; a GGUF entry refuses it.  A host with
+    `tp > 1` shards a family of TP_FAMILIES over tp ranks, one a card
+    (Qwen3 chat, MiniCPM4 / MiniCPM5, Qwen3-VL, Qwen2.5-VL, and the Qwen3
+    embedder and reranker); the families with no mesh path refuse it with
+    the reference's words, a GGUF entry with its loader's, every other
+    family and tp with dp with the port's, naming what is not ported.
+    `dp > 1` (dp BatchEngine replicas, one a card) goes through the
+    reference's checks of its combination with the slots; a GGUF entry
+    refuses it.  A host with
     fewer cards than tp·dp is refused before anything loads."""
     from aha_tpu_torch.models.text_served import (SPEC_WITH_SLOTS,
                                                   TP_WITH_DP, check_dp)

@@ -24,7 +24,6 @@ from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLConfig,
                                                PaddleOCRVLModel,
                                                get_rope_index,
                                                paddle_vision_geometry)
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 # the same patch buckets (256 ... 16384) as Qwen2.5-VL's
 from aha_tpu_torch.models.qwen2_5vl_served import (_pad, patch_bucket,
                                                     rope_ids_to_bucket)
@@ -120,4 +119,4 @@ class PaddleOCRVLChat(TextChatModel):
         input_ids = self.tokenizer.encode(rendered)
         mm = build_mm(patches_list, grids, input_ids, cfg)
         return PrepareData(input_ids=input_ids,
-                           mm=mm_to(mm, self.engine.device))
+                           mm=mm)

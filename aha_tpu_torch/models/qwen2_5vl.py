@@ -15,6 +15,14 @@ Everything that depends only on the image grids (window permutation,
 segment ids, rotary coordinates, M-RoPE text positions, rope_delta) is
 computed on the host in numpy, once per request, as in the JAX package.
 The linears, the patch embedding and the merger stay torch.matmul.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+QWEN2_5VL_PARTITION_RULES: the text model is the sharded LlamaModel
+(models/llama.py); in the windowed tower's gated MLPs gate / up (w and
+b) are column-sharded and down row-sharded, in the merger mlp0 (w and b)
+column- and mlp2 row-sharded (each row-sharded product reduced in f32,
+its bias added once); the fused-qkv window and full attention stay
+replicated, as in the JAX rules.
 """
 
 from __future__ import annotations
@@ -22,19 +30,23 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
-from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aha_tpu_torch.core.engine import mm_to  # noqa: F401 — re-exported
+from aha_tpu_torch.models.llama import (LLAMA_CACHE_RULES,
+                                        LLAMA_PARTITION_RULES, LlamaConfig,
+                                        LlamaModel)
 from aha_tpu_torch.ops.attention import segment_attention
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import (apply_rope, gather_rope, mrope_cos_sin,
                                     mrope_sections, vision_cos_sin,
                                     vision_inv_freq)
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_vl_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,11 +264,14 @@ class Qwen2_5VLModel:
     the vision blocks are a list of per-block dicts."""
 
     def __init__(self, config: Qwen2_5VLConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        check_vl_tp(config, mesh.tp if mesh is not None else 1)
         self.text = LlamaModel(config.text, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
         v = config.vision
         self.v_inv_freq = torch.from_numpy(
@@ -305,13 +320,13 @@ class Qwen2_5VLModel:
             attn = segment_attention(q, k, qkv[:, 2][None], seg)
             x = x + nn.linear(lp["proj"], attn.reshape(N, v.hidden_size))
             h = rms_norm(x, lp["norm2"]["w"], eps)
-            x = x + nn.swiglu_mlp(lp["mlp"], h)
+            x = x + tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
 
         # merger: rmsnorm → (N_units, unit·D) → mlp
         x = rms_norm(x, vp["merger"]["ln_q"]["w"], eps)
         x = x.reshape(N // unit, unit * v.hidden_size)
         x = F.gelu(nn.linear(vp["merger"]["mlp0"], x), approximate="none")
-        x = nn.linear(vp["merger"]["mlp2"], x)
+        x = tp_layers.row_linear(vp["merger"]["mlp2"], x, self.mesh)
         return x[mm["inverse_index"].long()]
 
     # -- CausalLM ------------------------------------------------------------
@@ -329,7 +344,7 @@ class Qwen2_5VLModel:
         unused."""
         B, S = input_ids.shape
         text = self.text
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = text.embed(params["text"], input_ids)
         if mm is not None:
             feats = self.encode_vision(params["visual"], mm)
             is_img = (input_ids[0] == self.config.image_token_id) | \
@@ -355,22 +370,24 @@ class Qwen2_5VLModel:
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         return self.text.logits(params["text"], hidden)
 
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """The text model's greedy token (LlamaModel.greedy_token: the
+        value-out head kernel and the ranks' combine under a mesh)."""
+        return self.text.greedy_token(params["text"], hidden)
+
     # -- parameters ---------------------------------------------------------
 
     def load_params(self, src, dtype: torch.dtype = torch.bfloat16) -> dict:
         """HF names of a Qwen2_5_VLForConditionalGeneration checkpoint →
         the port's layout on self.device: original checkpoints use visual. /
-        model., post-refactor exports model.visual. / model.language_model."""
+        model., post-refactor exports model.visual. / model.language_model.
+        Under a mesh the tower's gate / up and mlp0 (w and b) are read as
+        the rank's output rows, down and mlp2 as its input columns
+        (io/weights.shard_getters)."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         v = self.config.vision
-
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
-
-        def lin(name):
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
             return {"w": get(name + ".weight")}
@@ -384,8 +401,8 @@ class Qwen2_5VLModel:
             "patch_embed": {"w": pe.reshape(v.hidden_size, in_dim).t()
                             .contiguous()},
             "merger": {"ln_q": norm(vt + "merger.ln_q"),
-                       "mlp0": lin(vt + "merger.mlp.0"),
-                       "mlp2": lin(vt + "merger.mlp.2")},
+                       "mlp0": lin(vt + "merger.mlp.0", 0),
+                       "mlp2": lin(vt + "merger.mlp.2", 1)},
             "blocks": [],
         }
         for i in range(v.depth):
@@ -393,9 +410,9 @@ class Qwen2_5VLModel:
             visual["blocks"].append({
                 "norm1": norm(p + "norm1"), "norm2": norm(p + "norm2"),
                 "qkv": lin(p + "attn.qkv"), "proj": lin(p + "attn.proj"),
-                "mlp": {"gate": lin(p + "mlp.gate_proj"),
-                        "up": lin(p + "mlp.up_proj"),
-                        "down": lin(p + "mlp.down_proj")},
+                "mlp": {"gate": lin(p + "mlp.gate_proj", 0),
+                        "up": lin(p + "mlp.up_proj", 0),
+                        "down": lin(p + "mlp.down_proj", 1)},
             })
         text_prefix = ("model.language_model."
                        if "model.language_model.embed_tokens.weight" in src
@@ -442,16 +459,23 @@ class Qwen2_5VLModel:
         return {"visual": visual, "text": text}
 
 
-def mm_to(mm: dict[str, Any], device: torch.device) -> dict[str, Any]:
-    """The host-built `mm` (numpy arrays, an int rope_delta) as tensors on
-    `device`: int32 indices, float32 patches; anything that is no array
-    (HunyuanOCR's grids) stays on the host."""
-    out = {}
-    for name, a in mm.items():
-        if name == "rope_delta":
-            out[name] = int(a)
-        elif isinstance(a, np.ndarray):
-            out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        else:
-            out[name] = a
-    return out
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's QWEN2_5VL_PARTITION_RULES: the text decoder's are the llama
+# ones (matched under "text."); in the windowed tower the gated MLPs and
+# the merger shard over tp, the fused-qkv attention stays replicated.
+QWEN2_5VL_PARTITION_RULES = (
+    *LLAMA_PARTITION_RULES,
+    (r"visual\.blocks\.\d+\.mlp\.(gate|up)\.w", (None, "tp")),
+    (r"visual\.blocks\.\d+\.mlp\.(gate|up)\.b", ("tp",)),
+    (r"visual\.blocks\.\d+\.mlp\.down\.w", ("tp", None)),
+    (r"merger\.mlp0\.w", (None, "tp")),
+    (r"merger\.mlp0\.b", ("tp",)),
+    (r"merger\.mlp2\.w", ("tp", None)),
+)
+QWEN2_5VL_CACHE_RULES = LLAMA_CACHE_RULES
+Qwen2_5VLModel.partition_rules = QWEN2_5VL_PARTITION_RULES
+Qwen2_5VLModel.cache_rules = QWEN2_5VL_CACHE_RULES
+
+
+#: the tp check of a VL config (text, tower MLP, merger width)
+check_tp = check_vl_tp

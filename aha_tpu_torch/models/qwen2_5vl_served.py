@@ -15,6 +15,7 @@ bucket, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -25,9 +26,9 @@ from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.qwen2_5vl import (Qwen2_5VLConfig, Qwen2_5VLModel,
-                                            get_rope_index, mm_to,
+                                            check_tp, get_rope_index,
                                             vision_geometry)
-from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.models.text_served import TextChatModel, decoder_rank
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import device, get_dtype
@@ -136,10 +137,16 @@ class Qwen2_5VLChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "Qwen2_5VLChat":
         """One stream on the TextEngine (`batch_slots > 1` is refused:
-        the continuous-batching engine takes text models only)."""
+        the continuous-batching engine takes text models only).  `tp > 1`
+        shards the model over tp ranks (decoder_rank), after check_tp
+        refuses a tp that does not divide it (the JAX package's
+        aha_tpu/models/qwen2_5vl_served.py:57-72)."""
         if kw.get("batch_slots", 1) > 1:
             raise ValueError("--batch-slots > 1 serves text models; "
                              "Qwen2.5-VL runs one stream (--batch-slots 1)")
+        tp = kw.get("tp", 1)
+        if tp > 1:
+            check_tp(Qwen2_5VLConfig.from_file(path), tp)
 
         def build(path, max_seq_len):
             dev = device()
@@ -151,7 +158,10 @@ class Qwen2_5VLChat(TextChatModel):
         served = super().load(entry, path, build, max_seq_len=max_seq_len,
                               prefix_cache=kw.get("prefix_cache", 4),
                               spec_tokens=kw.get("spec_tokens", 0),
-                              cuda_graphs=kw.get("cuda_graphs", True))
+                              cuda_graphs=kw.get("cuda_graphs", True),
+                              tp=tp, build_rank=functools.partial(
+                                  decoder_rank, Qwen2_5VLModel,
+                                  Qwen2_5VLConfig, path, max_seq_len))
         pp = {}
         pp_path = os.path.join(path, "preprocessor_config.json")
         if os.path.exists(pp_path):
@@ -208,7 +218,7 @@ class Qwen2_5VLChat(TextChatModel):
         mm = build_mm(patches_list, grids, input_ids, cfg,
                       second_per_grid_ts)
         return PrepareData(
-            input_ids=input_ids, mm=mm_to(mm, self.engine.device),
+            input_ids=input_ids, mm=mm,
             in_reasoning=self.is_in_reasoning(rendered),
             mm_key=mm_digest(patches_list, grids, second_per_grid_ts),
             mm_token_ids=(cfg.image_token_id, cfg.video_token_id))

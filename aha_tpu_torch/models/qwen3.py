@@ -67,6 +67,7 @@ from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.quant_matmul import concat_columns, pack_rows
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
 from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_text_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +132,7 @@ class Qwen3Model:
         #: the tp mesh of this rank (None on one device)
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         tp = self.mesh.tp if self.mesh is not None else 1
-        check_tp(c, tp)
+        check_text_tp(c, tp)
         self.n_layers = c.num_hidden_layers
         self.n_heads = c.num_attention_heads // tp
         self.n_kv_heads = c.num_key_value_heads // tp
@@ -216,13 +217,9 @@ class Qwen3Model:
                     attention_decode_at)(q, cache["k"], cache["v"], *scales,
                                          layer, valid_len)
         h = attn.reshape(B, S, nq)
-        if self.mesh is not None:
-            x = x + tp_layers.row_linear(lp["o"], h, self.mesh)
-            h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
-            return x + tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
-        x = x + nn.linear(lp["o"], h)
+        x = x + tp_layers.row_linear(lp["o"], h, self.mesh)
         h = rms_norm(x, lp["ln2"]["w"], c.rms_norm_eps)
-        return x + nn.swiglu_mlp(lp["mlp"], h)
+        return x + tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
 
     def _slot_ids(self, B: int, device) -> torch.Tensor:
         if B not in self._slots:
@@ -367,22 +364,10 @@ class Qwen3Model:
         a Qwen3-VL checkpoint's decoder) → the port's layout on
         self.device.  `src` maps a tensor name to a CPU tensor
         (io/weights.py).  Under a mesh each tensor is read as this rank's
-        slice (`read_shard`: a safetensors file reads only those bytes)."""
-        from aha_tpu_torch.io.weights import read_shard
+        slice (`shard_getters`: a safetensors file reads only those bytes)."""
+        from aha_tpu_torch.io.weights import shard_getters
 
-        def get(name, dim=None):
-            t = (src[name] if self.mesh is None or dim is None else
-                 read_shard(src, name, dim, self.mesh.tp_rank, self.mesh.tp))
-            return t.to(device=self.device, dtype=dtype)
-
-        def lin(name, dim):        # HF (out, in) → (in, out)
-            return {"w": get(name + ".weight", dim).t().contiguous()}
-
-        def col(name):             # output columns split: HF rows
-            return lin(name, 0)
-
-        def row(name):             # input rows split: HF columns
-            return lin(name, 1)
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
             return {"w": get(name + ".weight")}
@@ -393,15 +378,17 @@ class Qwen3Model:
             layers.append({
                 "ln1": norm(p + "input_layernorm"),
                 "ln2": norm(p + "post_attention_layernorm"),
-                "q": col(p + "self_attn.q_proj"),
-                "k": col(p + "self_attn.k_proj"),
-                "v": col(p + "self_attn.v_proj"),
-                "o": row(p + "self_attn.o_proj"),
+                # q/k/v, gate/up split their outputs (HF rows), o and down
+                # their inputs (HF columns)
+                "q": lin(p + "self_attn.q_proj", 0),
+                "k": lin(p + "self_attn.k_proj", 0),
+                "v": lin(p + "self_attn.v_proj", 0),
+                "o": lin(p + "self_attn.o_proj", 1),
                 "q_norm": norm(p + "self_attn.q_norm"),
                 "k_norm": norm(p + "self_attn.k_norm"),
-                "mlp": {"gate": col(p + "mlp.gate_proj"),
-                        "up": col(p + "mlp.up_proj"),
-                        "down": row(p + "mlp.down_proj")},
+                "mlp": {"gate": lin(p + "mlp.gate_proj", 0),
+                        "up": lin(p + "mlp.up_proj", 0),
+                        "down": lin(p + "mlp.down_proj", 1)},
             })
         embed = get(prefix + "embed_tokens.weight", 0)
         if self.config.tie_word_embeddings and "lm_head.weight" not in src:
@@ -552,21 +539,8 @@ QWEN3_CACHE_RULES = (
 Qwen3Model.cache_rules = QWEN3_CACHE_RULES
 
 
-def check_tp(config: Qwen3Config, tp: int) -> None:
-    """Refuse a tp that does not divide the heads, the MLP or the vocab,
-    naming the dimension.  The JAX shard_params replicates such a tensor
-    and lets GSPMD reconcile the rest; the port's per-rank layers need
-    whole head groups, MLP columns and vocab rows on every rank (Qwen3's
-    151,936 divides by 2, 4 and 8)."""
-    if tp <= 1:
-        return
-    for name, size in (("num_key_value_heads", config.num_key_value_heads),
-                       ("num_attention_heads", config.num_attention_heads),
-                       ("intermediate_size", config.intermediate_size),
-                       ("vocab_size", config.vocab_size)):
-        if size % tp:
-            raise ValueError(f"--tp {tp} does not divide {name} ({size}): "
-                             "each rank holds an equal slice of it")
+#: the tp check of a Qwen3Config (heads, MLP and vocab)
+check_tp = check_text_tp
 
 
 def load_stop_token_ids(model_dir: str) -> list[int]:

@@ -50,7 +50,10 @@ class Qwen3_5Chat(TextChatModel):
 class Qwen3_5VLChat(Qwen3VLChat):
     """Image and video chat: Qwen3-VL's processing and geometry over the
     Qwen3.5 decoder (get_data reads only the config's vision and token
-    fields, which Qwen3_5Config has as Qwen3VLConfig does)."""
+    fields, which Qwen3_5Config has as Qwen3VLConfig does).  Its sharding
+    is not ported: the loader refuses --tp before this runs."""
+
+    rank_model = None
 
     @staticmethod
     def build_model(path: str, max_seq_len: int) -> tuple:

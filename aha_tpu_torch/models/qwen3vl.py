@@ -22,9 +22,21 @@ features, over the Qwen3 text decoder with interleaved M-RoPE
 
 Decode runs the per-op text layers (prefill kernel, flat-cache decode
 kernel, greedy head kernel) and never the fused decode stack, as the JAX
-model's `_run_text` does.  Everything that depends only on the grids (the
-merge-unit order, frame segments, the 4-tap position indices, M-RoPE ids,
-rope_delta) is numpy on the host, once per request.
+model's `_run_text` does.
+
+Everything that depends only on the grids (the merge-unit order, frame
+segments, the 4-tap position indices, M-RoPE ids, rope_delta) is numpy
+on the host, once per request.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+QWEN3VL_PARTITION_RULES: the text model is the sharded Qwen3Model
+(models/qwen3.py), deepstack levels added to its replicated hidden after
+each text layer, the M-RoPE ids replicated.  In every vision block fc1 (w
+and b) is column-sharded and fc2 row-sharded (reduced in f32, its bias
+added once), and so is each merger's pair; the fused-qkv attention stays
+replicated, as in the JAX rules: every rank runs the tower's attention
+whole.  check_tp refuses a tp that does not divide the text dimensions,
+the tower's MLP or a merger's hidden width.
 """
 
 from __future__ import annotations
@@ -38,13 +50,16 @@ import torch
 import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
-from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
-                                        fuse_decode_params)
+from aha_tpu_torch.models.qwen3 import (QWEN3_CACHE_RULES,
+                                        QWEN3_PARTITION_RULES, Qwen3Config,
+                                        Qwen3Model, fuse_decode_params)
 from aha_tpu_torch.ops.attention import segment_attention
 from aha_tpu_torch.ops.norms import layer_norm, rms_norm
 from aha_tpu_torch.ops.rope import (apply_rope, gather_rope, mrope_cos_sin,
                                     mrope_interleaved_sections,
                                     vision_cos_sin, vision_inv_freq)
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_vl_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,12 +236,14 @@ def get_rope_index_qwen3vl(input_ids: list[int],
 class Qwen3VLVisionTower:
     """The deepstack ViT on an explicit device.  Parameters: patch_embed
     (w (in_dim, d), b), pos_embed (w (n_pos, d)), merger and ds_mergers
-    (norm, fc1, fc2 with biases), and a list of per-block dicts."""
+    (norm, fc1, fc2 with biases), and a list of per-block dicts.  Under a
+    tp `mesh` the MLPs and mergers are a rank's (fc1 columns, fc2 rows)."""
 
     def __init__(self, vision: Qwen3VLVisionConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.v = vision
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         # head_dim / 4 frequencies a row and a column: D / 2 rotary pairs
         self.inv_freq = torch.from_numpy(
             vision_inv_freq(vision.head_dim).astype(np.float32)).to(
@@ -260,8 +277,9 @@ class Qwen3VLVisionTower:
             attn = segment_attention(q, k, qkv[:, 2][None], seg)
             x = x + nn.linear(lp["proj"], attn.reshape(N, v.hidden_size))
             h = layer_norm(x, lp["norm2"]["w"], lp["norm2"].get("b"), 1e-6)
-            x = x + nn.linear(lp["fc2"], F.gelu(nn.linear(lp["fc1"], h),
-                                                approximate="tanh"))
+            x = x + tp_layers.row_linear(
+                lp["fc2"], F.gelu(nn.linear(lp["fc1"], h), approximate="tanh"),
+                self.mesh)
             if i in v.deepstack_visual_indexes:
                 j = v.deepstack_visual_indexes.index(i)
                 ds_feats.append(self._merger(vp["ds_mergers"][j], x, unit,
@@ -271,8 +289,7 @@ class Qwen3VLVisionTower:
               else main.new_zeros((0,) + tuple(main.shape)))
         return main, ds
 
-    @staticmethod
-    def _merger(mp: dict, x: torch.Tensor, unit: int,
+    def _merger(self, mp: dict, x: torch.Tensor, unit: int,
                 post_shuffle: bool) -> torch.Tensor:
         """2x2 shuffle into (N_units, unit · d), LayerNorm before it (the
         main merger) or after it (a deepstack merger), then fc1, the exact
@@ -285,21 +302,17 @@ class Qwen3VLVisionTower:
             h = layer_norm(x, mp["norm"]["w"], mp["norm"].get("b"), 1e-6)
             h = h.reshape(N // unit, unit * x.shape[-1])
         h = F.gelu(nn.linear(mp["fc1"], h), approximate="none")
-        return nn.linear(mp["fc2"], h)
+        return tp_layers.row_linear(mp["fc2"], h, self.mesh)
 
     def load_params(self, src, dtype: torch.dtype, vt: str) -> dict:
         """The tower's HF names under `vt` ("visual." or "model.visual.")
-        → its parameters on self.device."""
+        → its parameters on self.device; under a mesh, fc1 (w and b) read
+        as the rank's output rows and fc2 as its input columns
+        (io/weights.shard_getters)."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         v = self.v
-
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
-
-        def lin(name):
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
             p = {"w": get(name + ".weight")}
@@ -309,8 +322,8 @@ class Qwen3VLVisionTower:
 
         def merger(prefix):
             return {"norm": norm(prefix + "norm"),
-                    "fc1": lin(prefix + "linear_fc1"),
-                    "fc2": lin(prefix + "linear_fc2")}
+                    "fc1": lin(prefix + "linear_fc1", 0),
+                    "fc2": lin(prefix + "linear_fc2", 1)}
 
         in_dim = v.in_channels * v.temporal_patch_size * v.patch_size ** 2
         pe = get(vt + "patch_embed.proj.weight")
@@ -327,8 +340,8 @@ class Qwen3VLVisionTower:
                 "norm2": norm(f"{vt}blocks.{i}.norm2"),
                 "qkv": lin(f"{vt}blocks.{i}.attn.qkv"),
                 "proj": lin(f"{vt}blocks.{i}.attn.proj"),
-                "fc1": lin(f"{vt}blocks.{i}.mlp.linear_fc1"),
-                "fc2": lin(f"{vt}blocks.{i}.mlp.linear_fc2"),
+                "fc1": lin(f"{vt}blocks.{i}.mlp.linear_fc1", 0),
+                "fc2": lin(f"{vt}blocks.{i}.mlp.linear_fc2", 1),
             } for i in range(v.depth)],
         }
 
@@ -409,13 +422,16 @@ class Qwen3VLModel:
     supports_prefix_cache = True
 
     def __init__(self, config: Qwen3VLConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        check_vl_tp(config, mesh.tp if mesh is not None else 1)
         self.text = Qwen3Model(config.text, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
-        self.tower = Qwen3VLVisionTower(config.vision, self.device)
+        self.tower = Qwen3VLVisionTower(config.vision, self.device, mesh)
         self.sections = torch.from_numpy(mrope_interleaved_sections(
             self.text.cos.shape[-1], config.mrope_section)).to(self.device)
 
@@ -450,7 +466,7 @@ class Qwen3VLModel:
         layers."""
         B, S = input_ids.shape
         text = self.text
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = text.embed(params["text"], input_ids)
         ds = vis = rows = None
         if mm is not None:
             feats, ds = self.encode_vision(params["visual"], mm)
@@ -523,3 +539,25 @@ class Qwen3VLModel:
                                         scale)
         return {"visual": visual, "text": text}
 
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's QWEN3VL_PARTITION_RULES: the text decoder's are Qwen3's (their
+# regexes match under "text."); in the tower the MLPs and the mergers
+# (main and deepstack) shard over tp, fc1 (w and b) by columns and fc2 by
+# rows; the fused-qkv attention stays replicated.
+QWEN3VL_PARTITION_RULES = (
+    *QWEN3_PARTITION_RULES,
+    (r"visual\.blocks\.\d+\.fc1\.w", (None, "tp")),
+    (r"visual\.blocks\.\d+\.fc1\.b", ("tp",)),
+    (r"visual\.blocks\.\d+\.fc2\.w", ("tp", None)),
+    (r"merger.*\.fc1\.w", (None, "tp")),
+    (r"merger.*\.fc1\.b", ("tp",)),
+    (r"merger.*\.fc2\.w", ("tp", None)),
+)
+QWEN3VL_CACHE_RULES = QWEN3_CACHE_RULES
+Qwen3VLModel.partition_rules = QWEN3VL_PARTITION_RULES
+Qwen3VLModel.cache_rules = QWEN3VL_CACHE_RULES
+
+
+#: the tp check of a VL config (text, tower MLP, merger width)
+check_tp = check_vl_tp

@@ -16,6 +16,7 @@ builds it.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -24,14 +25,13 @@ import numpy as np
 
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.io.weights import open_weights
-from aha_tpu_torch.models.qwen2_5vl import mm_to
 from aha_tpu_torch.models.qwen2_5vl_served import (_pad, expand_image,
                                                     patch_bucket,
                                                     rope_ids_to_bucket)
 from aha_tpu_torch.models.qwen3vl import (Qwen3VLConfig, Qwen3VLModel,
-                                          get_rope_index_qwen3vl,
+                                          check_tp, get_rope_index_qwen3vl,
                                           vision_geometry_qwen3vl)
-from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.models.text_served import TextChatModel, decoder_rank
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.device import device, get_dtype
@@ -108,15 +108,29 @@ class Qwen3VLChat(TextChatModel):
     def config_of(model) -> Qwen3VLConfig:
         return model.config
 
+    #: the model class a tp rank builds over its slice (None: the
+    #: checkpoint's sharding is not ported)
+    rank_model: type | None = Qwen3VLModel
+
     @classmethod
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "Qwen3VLChat":
         """One stream on a TextEngine without a prefix store (the JAX
         package builds it so); `batch_slots > 1` is refused by the loader
-        before this runs."""
+        before this runs.  `tp > 1` shards the model over tp ranks
+        (decoder_rank), after check_tp refuses a tp that does not divide
+        it (the JAX package's aha_tpu/models/qwen3vl_served.py:61-74)."""
+        tp = kw.get("tp", 1)
+        build_rank = None
+        if cls.rank_model is not None:
+            if tp > 1:
+                check_tp(Qwen3VLConfig.from_file(path), tp)
+            build_rank = functools.partial(decoder_rank, cls.rank_model,
+                                           Qwen3VLConfig, path, max_seq_len)
         served = super().load(entry, path, cls.build_model,
                               max_seq_len=max_seq_len, prefix_cache=0,
-                              cuda_graphs=kw.get("cuda_graphs", True))
+                              cuda_graphs=kw.get("cuda_graphs", True),
+                              tp=tp, build_rank=build_rank)
         served.vl_config = cls.config_of(served.engine.model)
         served.read_preprocessor(path)
         return served
@@ -183,7 +197,7 @@ class Qwen3VLChat(TextChatModel):
         input_ids = self.tokenizer.encode(rendered)
         mm = build_mm(patches_list, grids, input_ids, cfg)
         return PrepareData(
-            input_ids=input_ids, mm=mm_to(mm, self.engine.device),
+            input_ids=input_ids, mm=mm,
             in_reasoning=self.is_in_reasoning(rendered),
             mm_key=mm_digest(patches_list, grids),
             mm_token_ids=(cfg.image_token_id, cfg.video_token_id))

@@ -9,13 +9,16 @@ refuses them).  A model with
 on both engines; any other keeps its parameters' dtype, as the
 reference's rule is.
 
-`tp > 1` (Qwen3: the family whose wrapper passes `build_rank`) starts a
+`tp > 1` (the families whose wrappers pass `build_rank`: Qwen3, the
+llama families minicpm4 / minicpm5, Qwen3-VL and Qwen2.5-VL) starts a
 tensor-parallel group (parallel/ranks.py): this process is rank 0, each
 rank builds its model on its card (`mesh_devices`) from its slice of the
-checkpoint and its engine over it, and rank 0 schedules.  `dp > 1` builds
-dp BatchEngine replicas in this process, one a card, with batch_slots/dp
-slots each (parallel/replicas.py).  `shutdown()` stops the engine's
-scheduler threads and the workers."""
+checkpoint and its engine over it, and rank 0 schedules.  Every family
+hands the engine a multimodal request's inputs as the host arrays it
+built; the engine moves them to each rank's card (TextEngine._op_prompt).
+`dp > 1` builds dp BatchEngine replicas in this process, one a card,
+with batch_slots/dp slots each (parallel/replicas.py).  `shutdown()`
+stops the engine's scheduler threads and the workers."""
 
 from __future__ import annotations
 
@@ -102,6 +105,18 @@ def rank_engine(build_rank: Callable, eos: list[int], batch_slots: int,
                        prefix_cache, cuda_graphs=cuda_graphs, mesh=mesh)
 
 
+def decoder_rank(model_cls: type, config_cls: type, path: str,
+                 max_seq_len: int, mesh) -> tuple:
+    """A tensor-parallel rank's model on its card and its slice of the
+    checkpoint at `path` (read alone, io/weights.read_shard): the
+    `build_rank` of a model class that takes a `mesh` (Qwen3Model,
+    LlamaModel, Qwen3VLModel, Qwen2_5VLModel)."""
+    model = model_cls(config_cls.from_file(path), max_rope_len=max_seq_len,
+                      device=mesh.device, mesh=mesh)
+    return model, model.load_params(open_weights(path),
+                                    dtype=get_dtype(mesh.device))
+
+
 def load_generation_config(path: str) -> dict:
     p = os.path.join(path, "generation_config.json")
     if os.path.exists(p):
@@ -129,10 +144,14 @@ class TextChatModel(GenerateModel, LoadedModel):
     @classmethod
     def load_decoder(cls, entry: ModelEntry, path: str, model_cls: type,
                      config_cls: type, max_seq_len: int = 8192,
+                     check_tp: Callable | None = None,
                      **kw) -> "TextChatModel":
         """`model_cls(config_cls.from_file(path))` on the default device with
         the checkpoint's safetensors weights, served through `load` with the
-        serve options of `kw` (SERVE_OPTIONS; anything else is ignored)."""
+        serve options of `kw` (SERVE_OPTIONS and tp; anything else is
+        ignored).  `check_tp(config, tp)` given: the model shards over
+        `tp > 1` ranks (`decoder_rank`), after it refuses, before loading,
+        a tp that does not divide the model."""
         def build(path, max_seq_len):
             dev = device()
             model = model_cls(config_cls.from_file(path),
@@ -140,9 +159,17 @@ class TextChatModel(GenerateModel, LoadedModel):
             return model, model.load_params(open_weights(path),
                                             dtype=get_dtype(dev))
 
+        tp = kw.get("tp", 1)
+        build_rank = None
+        if check_tp is not None:
+            if tp > 1:
+                check_tp(config_cls.from_file(path), tp)
+            build_rank = functools.partial(decoder_rank, model_cls,
+                                           config_cls, path, max_seq_len)
         return cls.load(entry, path, build, max_seq_len=max_seq_len,
+                        build_rank=build_rank,
                         **{k: v for k, v in kw.items()
-                           if k in SERVE_OPTIONS})
+                           if k in SERVE_OPTIONS + ("tp",)})
 
     @classmethod
     def load(cls, entry: ModelEntry, path: str,

@@ -43,16 +43,24 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def row_linear(p: dict, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def row_linear(p: dict, x: torch.Tensor,
+               mesh: Mesh | None) -> torch.Tensor:
     """A row-sharded linear: the sum over ranks of x_r @ w_r, reduced in
-    f32, returned in x's dtype (the bias, replicated, added once)."""
+    f32, returned in x's dtype (the bias, replicated, added once); with no
+    mesh, the one device's `nn.linear`."""
+    if mesh is None:
+        return nn.linear(p, x)
     y = mesh.all_reduce(_matmul_f32(x, p["w"])).to(x.dtype)
     return y + p["b"] if "b" in p else y
 
 
-def swiglu_mlp(p: dict, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def swiglu_mlp(p: dict, x: torch.Tensor,
+               mesh: Mesh | None) -> torch.Tensor:
     """The SwiGLU MLP over this rank's I/tp hidden columns: gate and up
-    column-sharded, down row-sharded."""
+    column-sharded, down row-sharded; with no mesh, the one device's
+    `nn.swiglu_mlp`."""
+    if mesh is None:
+        return nn.swiglu_mlp(p, x)
     act = torch.nn.functional.silu(nn.linear(p["gate"], x)) \
         * nn.linear(p["up"], x)
     return row_linear(p["down"], act, mesh)

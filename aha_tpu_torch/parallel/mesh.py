@@ -191,12 +191,53 @@ def placed_spec(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
     rule written for a 5-D cache applied to the flat 4-D layout), and an
     axis that does not divide its dimension replicated, as the JAX
     shard_params does (a model's check refuses such a tp where its ranks
-    need equal slices: models/qwen3.check_tp)."""
+    need equal slices: check_text_tp)."""
     fixed = []
     for size, axis in zip(shape, spec[:len(shape)]):
         fixed.append(None if axis is not None and size % mesh.shape[axis]
                      else axis)
     return tuple(fixed)
+
+
+def check_divides(tp: int, sizes: dict[str, int]) -> None:
+    """Refuse a tp that does not divide each named dimension of `sizes`,
+    naming the first that it does not divide.  The JAX shard_params
+    replicates such a tensor and lets GSPMD reconcile the rest; the port's
+    per-rank layers need an equal slice of each on every rank."""
+    if tp <= 1:
+        return
+    for name, size in sizes.items():
+        if size % tp:
+            raise ValueError(f"--tp {tp} does not divide {name} ({size}): "
+                             "each rank holds an equal slice of it")
+
+
+def text_dims(config) -> dict[str, int]:
+    """The dimensions a decoder's ranks split: kv heads, heads, MLP
+    columns and vocab rows (a Qwen3Config's or a LlamaConfig's fields)."""
+    return {"num_key_value_heads": config.num_key_value_heads,
+            "num_attention_heads": config.num_attention_heads,
+            "intermediate_size": config.intermediate_size,
+            "vocab_size": config.vocab_size}
+
+
+def check_text_tp(config, tp: int) -> None:
+    """Refuse, before a rank's decoder is built, a tp that does not divide
+    its heads, kv heads, MLP or vocab, naming the dimension (Qwen3's
+    151,936 divides by 2, 4 and 8)."""
+    check_divides(tp, text_dims(config))
+
+
+def check_vl_tp(config, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide a VL model's text
+    dimensions (`config.text`), its tower's MLP or its mergers' hidden
+    width (spatial_merge_size² × the tower's width: Qwen3-VL's main and
+    deepstack mergers, Qwen2.5-VL's merger), naming the dimension."""
+    v = config.vision
+    check_divides(tp, {**text_dims(config.text),
+                       "vision intermediate_size": v.intermediate_size,
+                       "the merger's hidden width":
+                       v.spatial_merge_size ** 2 * v.hidden_size})
 
 
 def local_shape(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:

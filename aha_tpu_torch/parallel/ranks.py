@@ -222,20 +222,31 @@ def _expect(rank: int, proc, conn, kind: str, deadline: float) -> None:
         raise RuntimeError(f"tp rank {rank} failed to start:\n{detail}")
 
 
+def backend_for(devices, backend: str | None = None) -> str | None:
+    """The backend asked for; else gloo where a device is listed twice
+    (ranks sharing a card: NCCL refuses them), else None (the devices'
+    own, make_mesh's default)."""
+    if backend is None and devices is not None and \
+            len({str(torch.device(d)) for d in devices}) < len(devices):
+        return "gloo"
+    return backend
+
+
 def start(cfg: MeshConfig, build: Callable[[Mesh], Any],
           devices=None, backend: str | None = None,
           timeout: float = START_SECS) -> tuple[Any, Ranks]:
     """Start a tp group: `build(mesh)` → an engine, or a dict of named
     engines, on every rank (a picklable callable: a top-level function or
     a partial of one).  Returns rank 0's, each engine's `ranks` set, and
-    the handle.  Raises if a worker fails to build or does not report
-    within `timeout` seconds."""
+    the handle.  Ranks on one card talk over gloo (`backend_for`).  Raises
+    if a worker fails to build or does not report within `timeout`
+    seconds."""
     import torch.multiprocessing as mp
 
     if cfg.dp != 1:
         raise ValueError("a tp group is one row of the mesh: dp replicas "
                          "are parallel/replicas.py's")
-    mesh = make_mesh(cfg, devices, backend)
+    mesh = make_mesh(cfg, devices, backend_for(devices, backend))
     store = tempfile.mkdtemp(prefix="aha-tp-")
     init = "file://" + os.path.join(store, "rendezvous")
     ctx = mp.get_context("spawn")

@@ -12,6 +12,9 @@ A mesh's ranks and replicas take one card each (`mesh_devices`): a host
 with fewer cards than tp·dp is refused before anything loads, and a rank
 never falls back to the CPU; `use_device` makes `device()` another card's
 for what is built inside it (a dp replica's model and weights).
+`AHA_MESH_DEVICES` (e.g. "cuda:0,cuda:0") lists a mesh's devices instead:
+a card listed twice takes two ranks, which then talk over gloo
+(parallel/ranks.start), to try --tp on a host with fewer cards.
 """
 
 from __future__ import annotations
@@ -62,10 +65,20 @@ def use_device(dev: torch.device):
 
 def mesh_devices(tp: int = 1, dp: int = 1) -> list[torch.device]:
     """The devices of a tp·dp mesh, one a rank or replica: cuda:0 …
-    cuda:tp·dp − 1 on the card, the CPU tp·dp times under AHA_DEVICE=cpu.
-    A host with fewer cards raises ValueError naming both counts; without
-    a card `device()` raises as ever."""
+    cuda:tp·dp − 1 on the card, the CPU tp·dp times under AHA_DEVICE=cpu,
+    or the first tp·dp that AHA_MESH_DEVICES lists.  A host with fewer
+    cards (or a list with fewer devices) raises ValueError naming both
+    counts; without a card `device()` raises as ever."""
     n = tp * dp
+    listed = os.environ.get("AHA_MESH_DEVICES")
+    if listed:
+        devs = [torch.device(d.strip()) for d in listed.split(",")
+                if d.strip()]
+        if len(devs) < n:
+            raise ValueError(f"--tp {tp} --dp {dp} needs {n} devices, one a "
+                             f"rank or replica; AHA_MESH_DEVICES lists "
+                             f"{len(devs)}")
+        return devs[:n]
     dev = device()
     if dev.type != "cuda":
         return [dev] * n

@@ -659,15 +659,17 @@ def _vl_request(args, rng):
 def profile_vl(args, card: str) -> None:
     """Qwen2.5-VL-3B, Qwen3-VL-8B, PaddleOCR-VL-0.9B or LFM2-VL-1.6B: the
     tower, the image prefill and a decode block."""
-    from aha_tpu_torch.core.engine import CACHE_BUCKETS, TextEngine, bucket_for
+    from aha_tpu_torch.core.engine import (CACHE_BUCKETS, TextEngine,
+                                           bucket_for, mm_to)
     from aha_tpu_torch.core.sampling import SamplingConfig
-    from aha_tpu_torch.models.qwen2_5vl import mm_to
 
     rng = np.random.default_rng(0)
     name, model, params, ids, mm_np, encode, n_patches = _vl_request(args,
                                                                      rng)
     eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192,
                      cuda_graphs=not args.eager)
+    # the tower and the prefill are timed on their own, outside a request,
+    # so the image inputs go to the card here, once
     mm = mm_to(mm_np, torch.device("cuda"))
     side = args.image_px
     bucket = bucket_for(len(ids))

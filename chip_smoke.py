@@ -94,6 +94,28 @@ before the last line:
    8 requests, each stream equal to a lone 4-slot engine's; then `serv
    --tp 2`: refused before loading on one card, on two its reply equal
    to a tp 1 server's;
+5c. tp-fam — tp 2 (NCCL over two cards, else gloo with both ranks on
+   cuda:0) over the families that shard beside Qwen3, each at full width
+   and TPFAM_CUT's depth, every rank reading its slice of a seeded
+   checkpoint, one worker for all: MiniCPM4-0.5B (4 of 24 layers; a
+   300-token prompt and 32 greedy tokens on a TextEngine, 4 requests, one
+   sampled, on a 4-slot BatchEngine), Qwen3-VL-8B (4 of 36 text layers, 4
+   vision blocks) and Qwen2.5-VL-3B (4 of 36, 4 blocks), one 448-px image
+   request each, and the Qwen3 embedder at Qwen3-0.6B's geometry (4 of
+   28), one group of 4 texts; each stream held to the tp 1 model's (or
+   parting at a near-tie of the f32 CPU reference, TOL_TPFAM_TIE_*), 16
+   teacher-forced positions' logits of tp 1 and tp 2 each to the f32
+   reference (TOL_TP_F32_REL) and tp 2's distances from it and from tp 1
+   to TOL_TP_PAIR_RATIO times tp 1's from it, the vectors to tp 1's
+   (TOL_TP_EMBED_ABS, TOL_TP_EMBED_COS); each rank's launches of rows 1,
+   2, 3v, 8 and 10 and the collectives a step printed
+   (`--tp-fam-spread N` runs only this phase, with N more requests a
+   family whose readings those bounds are set from).  Then rows 1
+   (8/1 D 64 and 128, 16/4 D 128), 2 (16/4), 8 (8/1) and 3v (K 4096 x V
+   75968) timed beside their plain versions, bounds and sdpa / the
+   torch.matmul GEMV, and `serv --tp 2` of the MiniCPM4 checkpoint
+   (AHA_MESH_DEVICES=cuda:0,cuda:0 on one card) answering one HTTP chat
+   and ending with its worker on POST /shutdown;
 6. quant — the same weights cut to their first 8 layers (QUANT_LAYERS, a
    cut for the time limit) packed on the GGUF grids on the card
    (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
@@ -158,10 +180,10 @@ before the last line:
    OpenBMB/MiniCPM4-0.5B --batch-slots 4 answering 4 chats at once;
 7d. hybrid — (u) LFM2-1.2B's published geometry (hidden 2048, ff 8192,
    vocab 65536, tied; 32/8 heads of 64 in its attention layers, gated
-   short convs in the rest) cut to its first 8 of 16 layers (2
+   short convs in the rest) cut to its first 6 of 16 layers (2
    attention) and (v) the reference's default Qwen3.5 text config (hidden
    1024, vocab 151936, tied; gated attention at 16/2 heads of 128 every
-   4th layer, GatedDeltaNet in the rest) cut to 12 of 24 layers (3
+   4th layer, GatedDeltaNet in the rest) cut to 8 of 24 layers (2
    attention) — HYBRID_DEPTH —, seeded bf16: (u1)/(v1) a TextEngine with
    the prefix store, a 300-token prompt and 64 greedy tokens
    (flash_attention once an attention layer a prefill,
@@ -410,6 +432,7 @@ the last line {"ok": true,
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import importlib.util
 import json
@@ -965,13 +988,16 @@ def check_head(K: int = 1024, key: str | None = None) -> None:
         max_abs_err_of="logit gap between kernel and plain argmax")
 
 
-def check_head_value(K: int = 1024, V: int = 151936 // 2) -> None:
+def check_head_value(K: int = 1024, V: int = 151936 // 2,
+                     key: str | None = None) -> None:
     """The bf16 head kernel's value-out instance over a tp 2 rank's vocab
     shard (V 75968 of Qwen3-0.6B's 151936, K 1024) against its plain
     version: 4 random rows (the index equal, or tied within
     TOL_HEAD_REL; the value within TOL_HEAD_REL of max |logit|), a tie
     planted across vocab tiles, a NaN row (index V - 1, value NaN); device
-    ms of kernel, plain and the torch.matmul GEMV."""
+    ms of kernel, plain and the torch.matmul GEMV.  K 1024 is the row of
+    the JSON line; another shape (Qwen3-VL-8B's untied K 4096 head at tp
+    2) goes under `key` in that row."""
     from aha_tpu_torch.ops.lm_head import (head_argmax_value,
                                            head_argmax_value_plain)
 
@@ -1023,6 +1049,14 @@ def check_head_value(K: int = 1024, V: int = 151936 // 2) -> None:
         f"{V * K * 2 / ms / 1e6:.1f} GB/s of weights")
     del w
     torch.cuda.empty_cache()
+    if key is not None:
+        _record("head_argmax_value", max(worst_val, worst_gap))
+        RESULTS["head_argmax_value"][key] = {
+            "max_abs_err": max(worst_val, worst_gap),
+            "index_mismatches": mismatches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+            "timed_at": f"K={K} V={V}"}
+        return
     _record("head_argmax_value", max(worst_val, worst_gap), ms, plain_ms, b,
             lib_ms, "torch.matmul GEMV alone (the logits, no argmax)",
             f"K={K} V={V}")
@@ -2153,52 +2187,55 @@ DSOCR_DECODE = {"dsocr_300": dict(L=12, S=1024, Hq=10, Hkv=10, D=128,
                                   valid=920)}
 
 
-def check_stacked_at(key: str, label: str, c: dict, seed: int) -> None:
-    """flash_decode_at_layer at the shape `c`: error against the plain
-    version on the first and last layer, within TOL_DECODE_REL of max |ref|,
-    a live length off by one either way past it; device time over the L
-    layers in turn, plain, the bound and sdpa over the live rows, kept
-    under RESULTS["flash_decode_at_layer"][key]."""
+def check_stacked_at(key: str, label: str, c: dict, seed: int,
+                     flat: bool = False) -> None:
+    """flash_decode_at_layer at the shape `c` (with `flat`, row 2's
+    flash_decode_at_layer_flat over the same rows laid out (L, 1, S,
+    Hkv·D)): error against the plain version on the first and last layer,
+    within TOL_DECODE_REL of max |ref|, a live length off by one either
+    way past it; device time over the L layers in turn, plain, the bound
+    and sdpa over the live rows, kept under RESULTS[the kernel][key]."""
     from aha_tpu_torch.ops import flash_attention as fa
 
     L, S, Hq, Hkv, D, valid = (c[n] for n in ("L", "S", "Hq", "Hkv", "D",
                                               "valid"))
+    name = "flash_decode_at_layer_flat" if flat else "flash_decode_at_layer"
+    kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _planted_decode_cache(g, L, S, Hq, Hkv, D, valid)
+    if flat:
+        k, v = k.reshape(L, 1, S, Hkv * D), v.reshape(L, 1, S, Hkv * D)
     vl = torch.tensor([valid], dtype=torch.int32, device="cuda")
     rel, rel_bad, err = 0.0, float("inf"), 0.0
     for li in (0, L - 1):
         lt = torch.tensor(li, dtype=torch.int32, device="cuda")
-        ref = fa.flash_decode_at_layer_plain(q.float(), k.float(), v.float(),
-                                             lt, vl)
-        e, r = _rel_err(fa.flash_decode_at_layer(q, k, v, lt, vl), ref)
+        ref = plain(q.float(), k.float(), v.float(), lt, vl)
+        e, r = _rel_err(kernel(q, k, v, lt, vl), ref)
         err, rel = max(err, e), max(rel, r)
         for off in (-1, 1):
-            rel_bad = min(rel_bad, _rel_err(fa.flash_decode_at_layer(
-                q, k, v, lt, vl + off), ref)[1])
+            rel_bad = min(rel_bad, _rel_err(kernel(q, k, v, lt, vl + off),
+                                            ref)[1])
     require(rel <= TOL_DECODE_REL, f"{label} decode: err {rel} of max |ref|")
     require(rel_bad > TOL_DECODE_REL, f"{label} decode: a live length off by "
             f"one stays within the bound ({rel_bad})")
     layer = _layer_cycle(L)
-    ms = device_ms(lambda: fa.flash_decode_at_layer(q, k, v, layer(), vl),
-                   iters=4 * L)
-    plain_ms = device_ms(lambda: fa.flash_decode_at_layer_plain(
-        q, k, v, layer(), vl), iters=2 * L)
+    ms = device_ms(lambda: kernel(q, k, v, layer(), vl), iters=4 * L)
+    plain_ms = device_ms(lambda: plain(q, k, v, layer(), vl), iters=2 * L)
     it = iter(range(10 ** 9))
-    kv_live = [(k[li, :, :valid].transpose(1, 2).contiguous(),
-                v[li, :, :valid].transpose(1, 2).contiguous())
-               for li in range(L)]
+    kv_live = [(k[li, :, :valid].reshape(1, valid, Hkv, D).transpose(1, 2)
+                .contiguous(), v[li, :, :valid].reshape(1, valid, Hkv, D)
+                .transpose(1, 2).contiguous()) for li in range(L)]
     qt = q.transpose(1, 2).contiguous()
     lib_ms = device_ms(lambda: _sdpa(qt, *kv_live[next(it) % L]),
                        iters=4 * L)
     b = bound(valid * Hkv * D * 2 * 2 + 2 * Hq * D * 2, 4 * Hq * valid * D)
-    log(f"[kernels] flash_decode_at_layer {label} L={L} S={S} "
+    log(f"[kernels] {name} {label} L={L} S={S} "
         f"valid={valid} Hq={Hq} Hkv={Hkv} D={D}: max_abs_err {err:.3e}, "
         f"{rel:.3e} of max |ref| (tol {TOL_DECODE_REL}; live length ±1 ≥ "
         f"{rel_bad:.3e}); device ms/call kernel {ms:.4f} plain "
         f"{plain_ms:.4f} sdpa {lib_ms:.4f}; bound {b[0]:.4f} ({b[1]})")
-    _record("flash_decode_at_layer", err)
-    RESULTS["flash_decode_at_layer"][key] = {
+    _record(name, err)
+    RESULTS[name][key] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
         "library_ms": lib_ms, "rel_err": rel,
         "timed_at": f"L={L} S={S} valid={valid} Hq={Hq} Hkv={Hkv} D={D}"}
@@ -2584,6 +2621,9 @@ def phase_kernels() -> None:
     check_hunyuan_decode()
     check_decode_f32()
     check_fused_layer()
+    # rows 1, 2, 8 and 3v at the heads a tp 2 rank of (tp-fam) launches,
+    # timed here, before any process group or profiled request runs
+    _tpfam_kernel_times()
     torch.cuda.synchronize()
 
 
@@ -3311,6 +3351,35 @@ TOL_TP_REL = 2e-2
 #: a stream left, over gloo on one H100: 7.7e-3 of max; the logits
 #: themselves are held to TOL_TP_REL, teacher-forced)
 TOL_TP_TIE_REL = 1e-2
+#: (tp-fam): tp 2's and tp 1's teacher-forced logits (f32 sums of the
+#: bf16 hidden states) each against the f32 CPU reference of the same
+#: weights, relative to max |ref|: the smoke's bf16-vs-f32 bound
+#: (TOL_HIDDEN_REL).  At Qwen3-VL-8B's width (4,096) and Qwen2.5-VL-3B's
+#: (2,048) each bf16 path lies 1.5-2.3e-2 of max from f32 and the two
+#: 1.8-2.5e-2 from each other (H100, gloo, 8 layers), so TOL_TP_REL's
+#: tp-2-against-tp-1 bound, read at Qwen3-0.6B's 1,024, does not hold
+#: between two correct bf16 paths there.  Instead tp 2's distance from
+#: tp 1, and its own from f32, are held to TOL_TP_PAIR_RATIO times tp 1's
+#: distance from f32: the bf16 rounding one correct path carries, which a
+#: second correct path's differs from by about as much.  `--tp-fam-spread
+#: 6` read both ratios over 21 requests at most 1.24 and 1.32 at 8
+#: layers, 1.11 and 1.30 at TPFAM_LAYERS = 4 (H100, gloo)
+TOL_TP_F32_REL = 5e-2
+TOL_TP_PAIR_RATIO = 2.0
+#: (tp-fam) where a tp 2 stream leaves tp 1's, the f32 reference's gap
+#: between the two tokens, at most TOL_TPFAM_TIE_RATIO times the larger
+#: of the two paths' errors there and at most TOL_TPFAM_TIE_REL of max
+#: |ref|: 13 partings over 21 requests (`--tp-fam-spread 6`, 8 layers)
+#: read gaps up to 0.87 of the error and 1.52e-2 of max (a VL model,
+#: whose paths lie 1.5-2.3e-2 from f32), 7 at 4 layers up to 0.72 and
+#: 8.2e-3; wider than TOL_TP_TIE_REL, read at 1,024
+TOL_TPFAM_TIE_RATIO = 1.5
+TOL_TPFAM_TIE_REL = 2.5e-2
+#: (tp-fam) the embedder's tp 2 unit vectors against tp 1's: the largest
+#: |difference| of a component, and 1 - the least cosine (read over 7
+#: groups at most 1.48e-3 and 4.4e-5)
+TOL_TP_EMBED_ABS = 5e-3
+TOL_TP_EMBED_COS = 1e-4
 #: the tp phase's depth: the first 8 of Qwen3-0.6B's 28 layers at full
 #: width (a cut for the smoke's time limit: two ranks on one card over gloo
 #: took 186-331 ms a step at 28 layers)
@@ -3346,7 +3415,8 @@ def _tp_counts(engines: dict, path: str) -> dict:
     """Every rank: its launch counts; a worker writes them to
     `path`.rank<r> (rank 0 returns its own once all are written)."""
     counts = {n: fn.launches for n, fn in wrappers().items()}
-    mesh = engines["text"].mesh
+    mesh = next(e.mesh for e in engines.values()
+                if getattr(e, "mesh", None) is not None)
     if mesh.tp_rank:
         with open(f"{path}.rank{mesh.tp_rank}", "w") as f:
             json.dump(counts, f)
@@ -3354,6 +3424,15 @@ def _tp_counts(engines: dict, path: str) -> dict:
     # an NCCL all_reduce returns to the host before it completes)
     mesh.all_reduce(torch.zeros(1, device=mesh.device)).item()
     return counts
+
+
+def _per_rank(group, path: str) -> list[dict]:
+    """Every rank's launch counts, rank order (_tp_counts)."""
+    out = [group.call(_tp_counts, path)]
+    for r in range(1, group.mesh.tp):
+        with open(f"{path}.rank{r}") as f:
+            out.append(json.load(f))
+    return out
 
 
 def _tp_forced(engines: dict, ids: list[int], forced: list[int]):
@@ -3539,15 +3618,6 @@ def _tp_runs(engines, group, model, params, prompt, n_tok, root, L, card,
 
     greedy = SamplingConfig()
     counts_path = os.path.join(root, "counts")
-
-    def per_rank() -> list[dict]:
-        c0 = group.call(_tp_counts, counts_path)
-        out = [c0]
-        for r in range(1, group.mesh.tp):
-            with open(f"{counts_path}.rank{r}") as f:
-                out.append(json.load(f))
-        return out
-
     # warm-up of the prefill and step shapes on both ranks, not counted
     engines["text"].generate_tokens(prompt[:40], greedy, 16)
     tp1 = {dt: TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
@@ -3563,7 +3633,7 @@ def _tp_runs(engines, group, model, params, prompt, n_tok, root, L, card,
         _sync(device)
         t = eng.last_timing
         ms = t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
-        counts = per_rank()
+        counts = _per_rank(group, counts_path)
         steps = counts[0]["head_argmax_value"]
         for r, c in enumerate(counts):
             require(c["flash_attention"] == L and c[row] == L * steps
@@ -3631,7 +3701,7 @@ def _tp_runs(engines, group, model, params, prompt, n_tok, root, L, card,
         outs, ttft, wall, peak = drive_concurrent(eng, prompts, cfgs,
                                                   TP_TOKENS, monitor=True)
         _sync(device)
-        counts = per_rank()
+        counts = _per_rank(group, counts_path)
         for r, c in enumerate(counts):
             require(c[row] > 0 and c["fused_decode_stack"] == 0,
                     f"[tp-{name}] rank {r} launches: {json.dumps(c)}")
@@ -3760,7 +3830,821 @@ def _serve_tp(ckpt: str, root: str, two: bool, card: str) -> None:
         f"child: {r2[:60]!r} | {card}")
 
 
-# -- 6. GGUF-quantized paths ---------------------------------------------------
+# -- 5c. tp over the llama decoder, Qwen3-VL, Qwen2.5-VL and the embedder -----
+
+#: (tp-fam)'s text depth: each family's first 4 layers (at 8 the whole
+#: smoke took 982.7-1,056.1 s on one H100 80GB HBM3, at 4 898.4 s)
+TPFAM_LAYERS = 4
+#: (tp-fam)'s depths, each family at its published widths: MiniCPM4-0.5B's
+#: first TPFAM_LAYERS of 24 layers; Qwen3-VL-8B's first TPFAM_LAYERS of 36
+#: text layers and 4 of 27 vision blocks, deepstack after blocks 1, 2 and
+#: 3 (inside the cut, as the published 8, 16 and 24 lie inside 27);
+#: Qwen2.5-VL-3B's first TPFAM_LAYERS of 36 text layers and 4 of 32
+#: vision blocks (blocks 0-2 windowed, block 3 full attention, as every
+#: fourth is); Qwen3-Embedding-0.6B (Qwen3-0.6B's geometry) at
+#: TPFAM_LAYERS of 28.  Cuts for the smoke's time limit.
+TPFAM_CUT = {"minicpm4": TPFAM_LAYERS,
+             "qwen3vl": dict(depth=4, layers=TPFAM_LAYERS,
+                             deepstack=(1, 2, 3)),
+             "qwen2_5vl": dict(depth=4, layers=TPFAM_LAYERS, fullatt=(3,)),
+             "embed": TPFAM_LAYERS}
+#: the side (pixels) of the VL requests' one image
+TPFAM_IMAGE = 448
+#: rows 8 and 2 at the heads a tp 2 rank of each family runs, timed at the
+#: published depths (every layer's rows read in turn, as a step reads
+#: them) and about this phase's live rows in its 512-row caches
+TPFAM_DECODE = {"minicpm4_tp2": dict(L=24, S=512, Hq=8, Hkv=1, D=64,
+                                     valid=330),
+                "qwen2_5vl_tp2": dict(L=36, S=512, Hq=8, Hkv=1, D=128,
+                                      valid=320)}
+TPFAM_FLAT = {"qwen3vl_tp2": dict(L=36, S=512, Hq=16, Hkv=4, D=128,
+                                  valid=260),
+              # the tp phase's Qwen3-0.6B rank, not timed at this shape before
+              "qwen3_tp2": dict(L=28, S=512, Hq=8, Hkv=4, D=128, valid=330)}
+#: row 1 at the heads a tp 2 rank prefills (Hq, Hkv, D): MiniCPM4's,
+#: Qwen2.5-VL-3B's and Qwen3-VL-8B's, and the tp phase's Qwen3-0.6B's, at
+#: the 512-row prompt bucket
+TPFAM_PREFILL = ((8, 1, 64), (8, 1, 128), (16, 4, 128), (8, 4, 128))
+TP_FAM_READINGS: dict = {}
+
+
+def _tpfam_models(root: str, device: str) -> dict:
+    """Each family's tp 1 model and seeded weights on `device` at
+    TPFAM_CUT (bf16 on the card), and its checkpoint under `root`, which
+    the ranks read their slices of: MiniCPM4's and the embedder's with the
+    test tokenizer (rows past it zeroed: MiniCPM4's is served), the VL
+    ones as published checkpoints name their tensors."""
+    from aha_tpu_torch.io import weights
+    from aha_tpu_torch.models.llama import LlamaModel, minicpm4_0_5b
+    from aha_tpu_torch.models.qwen2_5vl import Qwen2_5VLModel, qwen2_5vl_3b
+    from aha_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from aha_tpu_torch.models.qwen3vl import Qwen3VLModel, qwen3vl_8b
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    cfgs = {"minicpm4": (LlamaModel, minicpm4_0_5b(TPFAM_CUT["minicpm4"])),
+            "qwen3vl": (Qwen3VLModel, qwen3vl_8b(**TPFAM_CUT["qwen3vl"])),
+            "qwen2_5vl": (Qwen2_5VLModel,
+                          qwen2_5vl_3b(**TPFAM_CUT["qwen2_5vl"])),
+            "embed": (Qwen3Model, Qwen3Config(
+                num_hidden_layers=TPFAM_CUT["embed"]))}
+    fams = {}
+    for seed, (name, (cls, cfg)) in enumerate(cfgs.items(), 26):
+        t0 = time.perf_counter()
+        model = cls(cfg, max_rope_len=8192, device=device)
+        params = model.init_random(
+            torch.Generator(device=device).manual_seed(seed), dtype=dtype)
+        ckpt = os.path.join(root, name)
+        os.makedirs(ckpt)
+        if name in ("minicpm4", "embed"):
+            _write_checkpoint(ckpt, cfg, params)
+        elif name == "qwen3vl":
+            weights.save_hf_qwen3vl(params, ckpt)
+            conf = {"architectures": ["Qwen3VLForConditionalGeneration"],
+                    "model_type": "qwen3_vl",
+                    "text_config": {**cfg.text.__dict__, "rope_scaling": {
+                        "rope_type": "default", "mrope_interleaved": True,
+                        "mrope_section": list(cfg.mrope_section)}},
+                    "vision_config": _vision_json(cfg.vision)}
+        else:
+            weights.save_hf_qwen2_5vl(params, ckpt)
+            conf = {**cfg.text.__dict__,
+                    "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+                    "model_type": "qwen2_5_vl",
+                    "rope_scaling": {"type": "mrope", "mrope_section":
+                                     list(cfg.mrope_section)},
+                    "vision_config": {**cfg.vision.__dict__,
+                                      "fullatt_block_indexes":
+                                      list(cfg.vision.fullatt_block_indexes)}}
+        if name in ("qwen3vl", "qwen2_5vl"):
+            with open(os.path.join(ckpt, "config.json"), "w") as f:
+                json.dump(conf, f)
+        _sync(device)
+        log(f"[tp-fam] {name}: seeded at full width, tp 1 model built and "
+            f"its checkpoint written in {time.perf_counter() - t0:.1f} s "
+            f"(set-up)")
+        fams[name] = {"model": model, "params": params, "ckpt": ckpt}
+    return fams
+
+
+def _tpfam_rank(ckpts: dict, mesh) -> dict:
+    """A tp rank's engines over its slices of (tp-fam)'s checkpoints, each
+    read alone (every rank runs this): TextEngines of MiniCPM4, Qwen3-VL
+    and Qwen2.5-VL, a 4-slot BatchEngine of MiniCPM4, and the embedder's
+    sharded model."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from aha_tpu_torch.models.qwen2_5vl import Qwen2_5VLConfig, Qwen2_5VLModel
+    from aha_tpu_torch.models.qwen3_served import EmbedRank, qwen3_rank
+    from aha_tpu_torch.models.qwen3vl import Qwen3VLConfig, Qwen3VLModel
+    from aha_tpu_torch.models.text_served import decoder_rank
+
+    kw = dict(eos_token_ids=[], max_seq_len=4096, mesh=mesh)
+    out = {}
+    for name, cls, cfg_cls in (("minicpm4", LlamaModel, LlamaConfig),
+                               ("qwen3vl", Qwen3VLModel, Qwen3VLConfig),
+                               ("qwen2_5vl", Qwen2_5VLModel, Qwen2_5VLConfig)):
+        model, params = decoder_rank(cls, cfg_cls, ckpts[name], 8192, mesh)
+        out[name] = TextEngine(model, params, **kw)
+    out["minicpm4_batch"] = BatchEngine(out["minicpm4"].model,
+                                        out["minicpm4"].params, slots=4, **kw)
+    out["embed"] = EmbedRank(*qwen3_rank(ckpts["embed"], 8192, mesh))
+    return out
+
+
+def _tpfam_hidden(model, params, ids: list[int], forced: list[int],
+                  mm) -> torch.Tensor:
+    """The final hidden states after the prompt `ids` (with the image
+    inputs `mm`, host arrays, for a VL model) and each forced token, f32,
+    (1 + len(forced), H) on the CPU: teacher_forced_vl's for a VL model,
+    else a prefill and one step a token, as _forced_logits runs them."""
+    from aha_tpu_torch.core import cache as kv
+    from aha_tpu_torch.core.engine import bucket_for, mm_to
+
+    w = params.get("text", params)["embed"]["w"]
+    dev = w.device
+    with torch.no_grad():
+        if mm is not None:
+            return teacher_forced_vl(model, params, ids, mm_to(mm, dev),
+                                     forced, dev)
+        cache = model.init_cache(1, 1024, w.dtype)
+        x = torch.zeros((1, bucket_for(len(ids))), dtype=torch.int64)
+        x[0, :len(ids)] = torch.tensor(ids)
+        hs = [model.backbone(params, x.to(dev), cache)[0, len(ids) - 1]]
+        kv.advance(cache, len(ids))
+        for t in forced:
+            hs.append(model.backbone(params, torch.tensor([[t]], device=dev),
+                                     cache)[0, 0])
+            kv.advance(cache, 1)
+        return torch.stack(hs).float().cpu()
+
+
+def _tpfam_logits(model, params, ids: list[int], forced: list[int],
+                  mm) -> torch.Tensor:
+    """_tpfam_hidden's states through the head in f32 (the sums the greedy
+    head kernel compares, never rounded to bf16): (1 + len(forced), V) on
+    the CPU; under a mesh the rank's vocab columns, gathered."""
+    from aha_tpu_torch.parallel import layers as tp_layers
+
+    hs = _tpfam_hidden(model, params, ids, forced, mm)
+    w = params.get("text", params)["lm_head"]["w"]
+    text = getattr(model, "text", model)
+    with torch.no_grad():
+        logits = hs.to(w.device) @ w.float().t()
+        if text.mesh is not None:
+            logits = tp_layers.gathered_logits(logits, text.config.vocab_size,
+                                               text.mesh)
+        return logits.cpu()
+
+
+def _tpfam_forced(engines: dict, name: str, ids: list[int],
+                  forced: list[int], mm) -> torch.Tensor:
+    """Every rank: _tpfam_logits of engine `name`'s model through its
+    shard."""
+    e = engines[name]
+    return _tpfam_logits(e.model, e.params, ids, forced, mm)
+
+
+def _f32_reference(model, params):
+    """The model's plain path on the CPU in float32 at the same config,
+    over the same weights (a tied head kept tied)."""
+    cpu = _tree_to(params, "cpu", torch.float32)
+    for tree, src in ((cpu.get("text", cpu), params.get("text", params)),):
+        if src["lm_head"]["w"] is src["embed"]["w"]:
+            tree["lm_head"] = {"w": tree["embed"]["w"]}
+    return type(model)(model.config, max_rope_len=8192, device="cpu"), cpu
+
+
+def _rel_rows(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Each row's max |got - ref| over its max |ref|."""
+    return (got - ref).abs().amax(-1) / ref.abs().amax(-1)
+
+
+class _TpLogits:
+    """Teacher-forced f32 logits of one prompt through tp 1 (this
+    process's model), tp 2 (the group's engine `name`) and the f32 CPU
+    reference (made on first use)."""
+
+    def __init__(self, group, name, model, params, ids, mm=None):
+        self.group, self.name, self.model, self.params = (group, name, model,
+                                                          params)
+        self.ids, self.mm, self._ref = ids, mm, None
+
+    def __call__(self, forced: list[int]) -> tuple:
+        if self._ref is None:
+            self._ref = _f32_reference(self.model, self.params)
+        return (_tpfam_logits(*self._ref, self.ids, forced, self.mm),
+                _tpfam_logits(self.model, self.params, self.ids, forced,
+                              self.mm),
+                self.group.call(_tpfam_forced, self.name, self.ids, forced,
+                                self.mm))
+
+
+def _tf_errors(logits: "_TpLogits", forced: list[int]) -> dict:
+    """The prompt and `forced` teacher-forced: tp 1's and tp 2's errors
+    against the f32 reference and tp 2's against tp 1, each the largest
+    over the positions relative to the row's max |ref|, and the ratios of
+    the last two to tp 1's."""
+    ref, l1, l2 = logits(forced)
+    e1, e2 = _rel_rows(l1, ref).max().item(), _rel_rows(l2, ref).max().item()
+    e21 = _rel_rows(l2, l1).max().item()
+    return {"positions": len(forced) + 1, "tp1_vs_f32": e1,
+            "tp2_vs_f32": e2, "tp2_vs_tp1": e21,
+            "ratio_tp2_vs_f32": e2 / e1 if e1 else None,
+            "ratio_tp2_vs_tp1": e21 / e1 if e1 else None}
+
+
+def _tpfam_teacher_forced(what: str, logits: "_TpLogits",
+                          forced: list[int]) -> dict:
+    """_tf_errors, held: both paths within TOL_TP_F32_REL of the f32
+    reference's max |logit| at every position, and tp 2's distance from
+    f32 and from tp 1 each at most TOL_TP_PAIR_RATIO times tp 1's from
+    f32."""
+    tf = _tf_errors(logits, forced)
+    e1, e2, e21 = tf["tp1_vs_f32"], tf["tp2_vs_f32"], tf["tp2_vs_tp1"]
+    # (or within bf16's relative spacing 2^-9 where tp 1 is exact: an f32
+    # tp 1, as the smoke's CPU rehearsal runs it)
+    room = max(TOL_TP_PAIR_RATIO * e1, 2 ** -9)
+    require(e1 <= TOL_TP_F32_REL and e2 <= TOL_TP_F32_REL and e2 <= room
+            and e21 <= room,
+            f"[tp-fam] {what}: teacher-forced logits: tp 1 {e1:.3e} and tp "
+            f"2 {e2:.3e} of max |ref| from the f32 reference (tol "
+            f"{TOL_TP_F32_REL}), tp 2 {e21:.3e} from tp 1; tp 2's distances "
+            f"at most {TOL_TP_PAIR_RATIO}x tp 1's from f32 ({room:.3e})")
+    return tf
+
+
+def _parting(got: list[int], want: list[int],
+             logits: "_TpLogits") -> dict | None:
+    """None where the tp 2 stream `got` equals tp 1's `want`, else the
+    first step where it leaves it, read on the f32 reference
+    teacher-forced over tp 1's tokens so far: the reference's gap between
+    the two tokens, tp 1's and tp 2's largest errors there, each relative
+    to max |ref|, and the token the reference prefers."""
+    if got == want:
+        return None
+    i = next(k for k in range(min(len(got), len(want))) if got[k] != want[k])
+    ref, l1, l2 = (t[-1] for t in logits(want[:i]))
+    top = ref.abs().max().item()
+    return {"step": i, "tokens": [got[i], want[i]],
+            "gap": abs((ref[want[i]] - ref[got[i]]).item()) / top,
+            "tp1_vs_f32": (l1 - ref).abs().max().item() / top,
+            "tp2_vs_f32": (l2 - ref).abs().max().item() / top,
+            "prefers": "tp 2" if ref[got[i]] > ref[want[i]] else "tp 1"}
+
+
+def _tpfam_divergence(what: str, got: list[int], want: list[int],
+                      logits: "_TpLogits") -> str:
+    """'equal', or the first step where the tp 2 stream `got` leaves tp 1's
+    `want` (_parting), which the f32 reference there must explain: tp 1's
+    and tp 2's logits each within TOL_TP_F32_REL of its max |logit|, and
+    its gap between the two tokens a near-tie: at most TOL_TPFAM_TIE_RATIO
+    times the larger error and TOL_TPFAM_TIE_REL of max."""
+    p = _parting(got, want, logits)
+    if p is None:
+        return "equal"
+    e = max(p["tp1_vs_f32"], p["tp2_vs_f32"])
+    tie = min(TOL_TPFAM_TIE_RATIO * e, TOL_TPFAM_TIE_REL)
+    require(e <= TOL_TP_F32_REL and p["gap"] <= tie,
+            f"{what}: tp 2 leaves tp 1 at step {p['step']} ({p['tokens']}): "
+            f"the f32 reference's gap {p['gap']:.3e} of max |ref| (tol "
+            f"{tie:.3e}: {TOL_TPFAM_TIE_RATIO}x the larger error, at most "
+            f"{TOL_TPFAM_TIE_REL}), errors tp 1 "
+            f"{p['tp1_vs_f32']:.3e}, tp 2 {p['tp2_vs_f32']:.3e} (tol "
+            f"{TOL_TP_F32_REL})")
+    return (f"step {p['step']} (a near-tie of the f32 reference, which "
+            f"prefers {p['prefers']}'s token by {p['gap']:.3e} of max; "
+            f"errors there tp 1 {p['tp1_vs_f32']:.3e}, tp 2 "
+            f"{p['tp2_vs_f32']:.3e})")
+
+
+def _embed_errors(v2: np.ndarray, v1: np.ndarray) -> tuple[float, float]:
+    """The largest |component difference| of two sets of unit vectors and
+    their least cosine."""
+    return float(np.abs(v2 - v1).max()), float((v2 * v1).sum(-1).min())
+
+
+def _tpfam_embed(engines: dict, ids: np.ndarray, lens: np.ndarray):
+    """Every rank: one group's vectors through its shard of the
+    embedder."""
+    from aha_tpu_torch.models.qwen3_served import embed_rows
+
+    return embed_rows(engines["embed"], ids, lens)
+
+
+#: the kernels whose per-rank launches (tp-fam) prints: rows 1, 2, 3v, 8
+#: and 10, and the fused stack and one-device head, which no rank runs
+TPFAM_ROWS = ("flash_attention", "flash_decode_at_layer_flat",
+              "head_argmax_value", "flash_decode_at_layer",
+              "flash_attention_segmented", "fused_decode_stack",
+              "head_argmax")
+
+
+def _rank_launches(what: str, counts: list[dict], want: dict) -> list:
+    """Every rank launched each kernel of `want` as often as it says;
+    the per-rank launches of TPFAM_ROWS, logged."""
+    rows = [{k: c[k] for k in TPFAM_ROWS} for c in counts]
+    for r, (c, row) in enumerate(zip(counts, rows)):
+        require(all(c[k] == n for k, n in want.items()),
+                f"[tp-fam] {what}: rank {r} launches {json.dumps(row)}, "
+                f"expected {json.dumps(want)}")
+    log(f"[tp-fam] {what}: launches by rank {json.dumps(rows)}")
+    return rows
+
+
+def _tpfam_minicpm(engines, group, fam, cpath, device, card) -> None:
+    """(tp-fam) MiniCPM4: a 300-token prompt and TP_TOKENS greedy tokens
+    on the TextEngine (row 1 at 8/1 D 64 for the prefill, row 8 a layer a
+    step, row 3v a step on each rank), the stream and 16 teacher-forced
+    positions held to tp 1's; a 4-slot BatchEngine with one sampled
+    request, its greedy streams held to a tp 1 BatchEngine's."""
+    from aha_tpu_torch.core.batch_engine import BatchEngine
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.utils.profile_decode import drive_concurrent
+
+    model, params = fam["model"], fam["params"]
+    L = model.config.num_hidden_layers
+    n_tok = int((params["embed"]["w"].abs().sum(-1) > 0).sum())
+    greedy = SamplingConfig()
+    rng = np.random.default_rng(30)
+    prompt = _prompt(rng, TP_PROMPT, n_tok)
+    eng = engines["minicpm4"]
+    eng.generate_tokens(prompt[:40], greedy, 16)          # warm-up
+    group.call(_tp_zero)
+    _sync(device)
+    out = eng.generate_tokens(prompt, greedy, TP_TOKENS)
+    _sync(device)
+    t = eng.last_timing
+    ms = t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+    counts = _per_rank(group, cpath)
+    steps = counts[0]["head_argmax_value"]
+    require(steps >= TP_TOKENS - 1, f"[tp-fam] minicpm4: {steps} steps")
+    rows = _rank_launches("minicpm4 text", counts, {
+        "flash_attention": L, "flash_decode_at_layer": L * steps,
+        "head_argmax_value": steps, "flash_decode_at_layer_flat": 0,
+        "flash_attention_segmented": 0, "fused_decode_stack": 0,
+        "head_argmax": 0})
+    read_counts(wrappers(), "tp-fam-minicpm4", (
+        "flash_attention", "flash_decode_at_layer", "head_argmax_value"))
+    tp1 = TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
+                     cuda_graphs=False)
+    want = tp1.generate_tokens(prompt, greedy, TP_TOKENS)
+    t1 = tp1.last_timing
+    ms1 = t1.completion_secs / max(t1.completion_tokens - 1, 1) * 1e3
+    logits = _TpLogits(group, "minicpm4", model, params, prompt)
+    tf = _tpfam_teacher_forced("minicpm4", logits, _prompt(rng, 16, n_tok))
+    div = _tpfam_divergence("tp-fam minicpm4", out, want, logits)
+    step = _profiled_block(eng, prompt, device)
+    TP_FAM_READINGS["minicpm4"] = {
+        "ms_per_step_tp2": ms, "ms_per_step_tp1_eager": ms1,
+        "stream_vs_tp1": div, "teacher_forced": tf,
+        "launches_by_rank": rows, "step": step}
+    log(f"[tp-fam] minicpm4 (MiniCPM4-0.5B, {L} layers, 16/2 heads of 64: "
+        f"8/1 a rank) {TP_PROMPT}-token prompt, {TP_TOKENS} greedy tokens: "
+        f"tp 2 {ms:.3f} ms/step, tp 1 eager {ms1:.3f}; stream vs tp 1: "
+        f"{div}; teacher-forced f32 logits {json.dumps(tf)} (tol "
+        f"{TOL_TP_F32_REL}); a step: {json.dumps(step)} | {card}")
+
+    be = engines["minicpm4_batch"]
+    sampled = SamplingConfig(temperature=0.7, top_k=20, top_p=0.9, seed=26)
+    lens = (60, 150, 300, 500)
+    prompts = [_prompt(rng, n, n_tok) for n in lens]
+    cfgs = [greedy, greedy, sampled, greedy]
+    drive_concurrent(be, prompts[:2], [greedy, sampled], 8)       # warm-up
+    group.call(_tp_zero)
+    outs, _, wall, peak = drive_concurrent(be, prompts, cfgs, TP_TOKENS,
+                                           monitor=True)
+    _sync(device)
+    counts = _per_rank(group, cpath)
+    for r, c in enumerate(counts):
+        require(c["flash_decode_at_layer"] > 0 and c["fused_decode_stack"]
+                == 0, f"[tp-fam] minicpm4 batch: rank {r} launches "
+                f"{json.dumps({k: c[k] for k in TPFAM_ROWS})}")
+    brows = _rank_launches("minicpm4 batch", counts, {
+        "flash_decode_at_layer": counts[0]["flash_decode_at_layer"]})
+    read_counts(wrappers(), "tp-fam-minicpm4-batch",
+                ("flash_decode_at_layer",))
+    require(all(o is not None and len(o) == TP_TOKENS
+                and all(0 <= x < model.config.vocab_size for x in o)
+                for o in outs), f"[tp-fam] minicpm4 batch streams: {outs}")
+    plain = BatchEngine(model, params, eos_token_ids=[], slots=4,
+                        max_seq_len=4096, cuda_graphs=False)
+    try:
+        want4, *_ = drive_concurrent(plain, prompts, cfgs, TP_TOKENS)
+    finally:
+        plain.shutdown()
+    divs = [_tpfam_divergence(
+        f"tp-fam minicpm4 batch request {i}", outs[i], want4[i],
+        _TpLogits(group, "minicpm4", model, params, prompts[i]))
+        for i in range(len(prompts)) if cfgs[i] is greedy]
+    TP_FAM_READINGS["minicpm4_batch"] = {
+        "tok_s": len(prompts) * TP_TOKENS / wall, "peak_slots": peak,
+        "greedy_streams_vs_tp1": divs, "launches_by_rank": brows}
+    log(f"[tp-fam] minicpm4 batch: 4 slots, {lens}-token prompts, "
+        f"{TP_TOKENS} tokens each (one sampled): "
+        f"{len(prompts) * TP_TOKENS / wall:.1f} tok/s, peak {peak} slots; "
+        f"greedy streams vs tp 1: {divs} | {card}")
+
+
+def _tpfam_vl(engines, group, name: str, fam, cpath, device, card) -> None:
+    """(tp-fam) Qwen3-VL or Qwen2.5-VL: one image request of TP_TOKENS
+    greedy tokens on the TextEngine (each rank runs the tower whole: row
+    10 a block; row 1 for the prefill, row 2 (Qwen3-VL's flat cache) or
+    row 8 (Qwen2.5-VL's 5-D one) a layer a step, row 3v a step), the
+    stream and 16 teacher-forced positions held to tp 1's."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    model, params = fam["model"], fam["params"]
+    cfg = model.config
+    L, depth = model.n_layers, len(params["visual"]["blocks"])
+    if name == "qwen3vl":
+        req = _vl3_image_request(cfg, TPFAM_IMAGE, 31)
+        row, other = "flash_decode_at_layer_flat", "flash_decode_at_layer"
+    else:
+        ids_, mm_, _, _, key_ = _vl_request(cfg, TPFAM_IMAGE, 32)
+        req = {"ids": ids_, "mm": mm_, "key": key_}
+        row, other = "flash_decode_at_layer", "flash_decode_at_layer_flat"
+    ids, mm = req["ids"], req["mm"]
+    kw = dict(mm=mm, mm_key=req["key"], mm_token_ids=(VL_IMAGE, VL_VIDEO))
+    greedy = SamplingConfig()
+    eng = engines[name]
+    eng.generate_tokens(ids, greedy, 4, **kw)              # warm-up
+    group.call(_tp_zero)
+    _sync(device)
+    out = eng.generate_tokens(ids, greedy, TP_TOKENS, **kw)
+    _sync(device)
+    t = eng.last_timing
+    ms = t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+    counts = _per_rank(group, cpath)
+    steps = counts[0]["head_argmax_value"]
+    require(steps >= TP_TOKENS - 1, f"[tp-fam] {name}: {steps} steps")
+    rows = _rank_launches(f"{name} image", counts, {
+        "flash_attention": L, row: L * steps, other: 0,
+        "flash_attention_segmented": depth, "head_argmax_value": steps,
+        "fused_decode_stack": 0, "head_argmax": 0})
+    read_counts(wrappers(), f"tp-fam-{name}", (
+        "flash_attention", row, "flash_attention_segmented",
+        "head_argmax_value"))
+    tp1 = TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
+                     cuda_graphs=False)
+    want = tp1.generate_tokens(ids, greedy, TP_TOKENS, **kw)
+    t1 = tp1.last_timing
+    ms1 = t1.completion_secs / max(t1.completion_tokens - 1, 1) * 1e3
+
+    logits = _TpLogits(group, name, model, params, ids, mm)
+    tf = _tpfam_teacher_forced(name, logits, _prompt(
+        np.random.default_rng(33), 16, 151643))
+    div = _tpfam_divergence(f"tp-fam {name}", out, want, logits)
+    step = _profiled_block(eng, _prompt(np.random.default_rng(34),
+                                        TP_PROMPT, 151643), device)
+    c = cfg.text
+    TP_FAM_READINGS[name] = {
+        "prompt_tokens": len(ids), "ms_per_step_tp2": ms,
+        "ms_per_step_tp1_eager": ms1, "prefill_ms_tp2": t.prompt_secs * 1e3,
+        "prefill_ms_tp1": t1.prompt_secs * 1e3, "stream_vs_tp1": div,
+        "teacher_forced": tf, "launches_by_rank": rows, "step": step}
+    log(f"[tp-fam] {name} ({L} text layers, {c.num_attention_heads}/"
+        f"{c.num_key_value_heads} heads: {c.num_attention_heads // 2}/"
+        f"{c.num_key_value_heads // 2} a rank; {depth} vision blocks "
+        f"replicated) a {len(ids)}-token prompt with one {TPFAM_IMAGE}-px "
+        f"image, {TP_TOKENS} greedy tokens: prefill with the tower tp 2 "
+        f"{t.prompt_secs * 1e3:.1f} ms, tp 1 {t1.prompt_secs * 1e3:.1f} ms; "
+        f"decode tp 2 {ms:.3f} ms/step, tp 1 eager {ms1:.3f}; stream vs tp "
+        f"1: {div}; teacher-forced f32 logits {json.dumps(tf)} (tol "
+        f"{TOL_TP_F32_REL}); a step: {json.dumps(step)} | {card}")
+
+
+def _tpfam_embedder(engines, group, fam, cpath, device, card) -> None:
+    """(tp-fam) the Qwen3 embedder: one group of 4 texts of 150-240
+    tokens (the 256-row bucket: row 1 a layer on each rank), its unit
+    vectors held to tp 1's."""
+    from aha_tpu_torch.models.qwen3_served import EmbedRank, embed_rows
+
+    model, params = fam["model"], fam["params"]
+    L = model.config.num_hidden_layers
+    n_tok = int((params["embed"]["w"].abs().sum(-1) > 0).sum())
+    rng = np.random.default_rng(35)
+    lens = np.asarray([150, 180, 200, 240])
+    ids = np.zeros((len(lens), 256), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = _prompt(rng, int(n), n_tok)
+    group.call(_tpfam_embed, ids, lens)                    # warm-up
+    group.call(_tp_zero)
+    _sync(device)
+    t0 = time.perf_counter()
+    v2 = group.call(_tpfam_embed, ids, lens)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _per_rank(group, cpath)
+    rows = _rank_launches("embed", counts, {
+        "flash_attention": L, "flash_decode_at_layer_flat": 0,
+        "head_argmax_value": 0, "fused_decode_stack": 0})
+    read_counts(wrappers(), "tp-fam-embed", ("flash_attention",))
+    t0 = time.perf_counter()
+    v1 = embed_rows(EmbedRank(model, params), ids, lens)
+    _sync(device)
+    ms1 = (time.perf_counter() - t0) * 1e3
+    err, cos = _embed_errors(v2, v1)
+    require(v2.shape == v1.shape and np.isfinite(v2).all()
+            and err <= TOL_TP_EMBED_ABS and 1 - cos <= TOL_TP_EMBED_COS,
+            f"[tp-fam] embed: vectors tp 2 off tp 1's by {err} (tol "
+            f"{TOL_TP_EMBED_ABS}), least cosine {cos} (1 - cos tol "
+            f"{TOL_TP_EMBED_COS}), shapes {v2.shape} {v1.shape}")
+    TP_FAM_READINGS["embed"] = {"ms_tp2": ms, "ms_tp1": ms1,
+                                "max_abs_err": err, "min_cosine": cos,
+                                "launches_by_rank": rows}
+    log(f"[tp-fam] embed (Qwen3-0.6B geometry, {L} layers) 4 texts of "
+        f"{lens.tolist()} tokens in the 256-row bucket: tp 2 {ms:.1f} ms, tp "
+        f"1 {ms1:.1f} ms; unit vectors max |tp 2 - tp 1| {err:.3e} (tol "
+        f"{TOL_TP_EMBED_ABS}), least cosine {cos:.6f} (1 - cos tol "
+        f"{TOL_TP_EMBED_COS}) | {card}")
+
+
+def _tpfam_kernel_times() -> None:
+    """Rows 1, 2, 8 and 3v at the shapes a tp 2 rank of this phase's
+    families launches, each beside its plain version, its bound and the
+    library call: the prefill kernel at TPFAM_PREFILL (sdpa), rows 8 and 2
+    at TPFAM_DECODE and TPFAM_FLAT (sdpa over the live rows), and the
+    value-out head at K 4096 x V 75968 (Qwen3-VL-8B's untied head's tp 2
+    shard; the torch.matmul GEMV)."""
+    for Hq, Hkv, D in TPFAM_PREFILL:
+        check_prefill(512, True, timed=True, Hkv=Hkv, Hq=Hq, D=D)
+    for i, (key, c) in enumerate(TPFAM_DECODE.items()):
+        check_stacked_at(key, f"{key} rank", c, 40 + i)
+    for i, (key, c) in enumerate(TPFAM_FLAT.items()):
+        check_stacked_at(key, f"{key} rank", c, 45 + i, flat=True)
+    check_head_value(4096, 151936 // 2, key="k4096")
+
+
+def _proc_children(pid: int) -> list[int]:
+    """The pids whose parent is `pid` and whose command line runs a
+    multiprocessing spawn (a tp worker), read from /proc."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid and "spawn_main" in cmd:
+            out.append(int(name))
+    return out
+
+
+def _pid_gone(pid: int, secs: float = 30.0) -> bool:
+    end = time.monotonic() + secs
+    while time.monotonic() < end:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return True
+        except OSError:
+            return True
+        time.sleep(0.1)
+    return False
+
+
+@contextlib.contextmanager
+def _serv_tp2_child(ckpt: str, two: bool):
+    """`serv <MiniCPM4 checkpoint> --model OpenBMB/MiniCPM4-0.5B --tp 2` in
+    a child, started at once (it loads while the caller works): NCCL over
+    two cards where the host has them, else both ranks on cuda:0 over gloo
+    (AHA_MESH_DEVICES=cuda:0,cuda:0).  The body gets (the child, its
+    base URL, its start time, its log's path); the child is always
+    stopped."""
+    env = dict(os.environ)
+    if not two:
+        env["AHA_MESH_DEVICES"] = "cuda:0,cuda:0"
+    port = _free_ports(1)[0]
+    logf = open(os.path.join(ckpt, "serv_tp2.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aha_tpu_torch", "serv", ckpt, "--model",
+         "OpenBMB/MiniCPM4-0.5B", "--tp", "2", "--port", str(port),
+         "--max-seq-len", "2048"], cwd=ROOT, stdout=logf,
+        stderr=subprocess.STDOUT, env=env)
+    try:
+        yield proc, f"http://127.0.0.1:{port}", t0, logf.name
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+
+
+def _serve_tp_fam(proc, base: str, t0: float, log_path: str, two: bool,
+                  card: str) -> None:
+    """The `serv --tp 2` child of _serv_tp2_child: up, one worker, one HTTP
+    chat answered; POST /shutdown ends the child with code 0, and its
+    worker."""
+    while True:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                raise RuntimeError("serv --tp 2 exited:\n" + f.read()[-4000:])
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                if r.status == 200:
+                    break
+        except OSError:
+            pass
+        require(time.perf_counter() - t0 < 300, "serv --tp 2 did not come up")
+        time.sleep(0.5)
+    up = time.perf_counter() - t0
+    workers = _proc_children(proc.pid)
+    require(len(workers) == 1, f"serv --tp 2: workers {workers}")
+    body = {**_chat_body("the quick brown fox jumps over the lazy dog"),
+            "model": "OpenBMB/MiniCPM4-0.5B", "stream": False}
+    t1 = time.perf_counter()
+    status, text = _post(base + "/v1/chat/completions", body)
+    chat_s = time.perf_counter() - t1
+    require(status == 200, f"serv --tp 2 chat: {status} {text[:400]}")
+    reply = json.loads(text)
+    content = reply["choices"][0]["message"]["content"]
+    require(content and reply["usage"]["completion_tokens"] > 0,
+            f"serv --tp 2 chat: {text[:400]}")
+    status, _ = _post(base + "/shutdown", {})
+    require(status == 200 and proc.wait(60) == 0,
+            f"serv --tp 2 shutdown: {status}, rc {proc.poll()}")
+    require(all(_pid_gone(w) for w in workers),
+            f"serv --tp 2 left its worker {workers}")
+    TP_FAM_READINGS["serv_tp2"] = {
+        "backend": "nccl (two cards)" if two else "gloo (cuda:0 twice)",
+        "health_ok_s_after_start": up, "chat_s": chat_s,
+        "completion_tokens": reply["usage"]["completion_tokens"]}
+    log(f"[tp-fam-http] serv --tp 2 of the MiniCPM4 checkpoint over "
+        f"{TP_FAM_READINGS['serv_tp2']['backend']}: answering /health when "
+        f"first asked, {up:.1f} s after its start (it loaded while the "
+        f"in-process checks ran), one chat "
+        f"answered in {chat_s:.2f} s ({content[:40]!r}), POST /shutdown "
+        f"ended it (rc 0) and its worker | {card}")
+
+
+def _tpfam_spread(engines, group, fams: dict, n: int, card: str) -> dict:
+    """(`--tp-fam-spread N`) the readings the phase's bounds are set from,
+    none of them held to a bound: for MiniCPM4, Qwen3-VL and Qwen2.5-VL,
+    N more requests a family (other prompts and images than the phase's),
+    each a greedy stream of TP_TOKENS tokens at tp 2 and tp 1, 16
+    teacher-forced positions (_tf_errors) and, where the streams part, the
+    f32 reference's gap there (_parting); for the embedder N more groups'
+    largest |component difference| and 1 - least cosine."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+    from aha_tpu_torch.models.qwen3_served import EmbedRank, embed_rows
+
+    greedy = SamplingConfig()
+    out = {}
+    for name in ("minicpm4", "qwen3vl", "qwen2_5vl"):
+        model, params = fams[name]["model"], fams[name]["params"]
+        n_tok = int((params.get("text", params)["embed"]["w"].abs().sum(-1)
+                     > 0).sum())
+        tp1 = TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
+                         cuda_graphs=False)
+        logits = _TpLogits(group, name, model, params, None)
+        rows = []
+        for k in range(n):
+            seed = 500 + 10 * k
+            kw = {}
+            if name == "minicpm4":
+                ids, mm = _prompt(np.random.default_rng(seed), TP_PROMPT,
+                                  n_tok), None
+            else:
+                if name == "qwen3vl":
+                    req = _vl3_image_request(model.config, TPFAM_IMAGE, seed)
+                    ids, mm, key = req["ids"], req["mm"], req["key"]
+                else:
+                    ids, mm, _, _, key = _vl_request(model.config,
+                                                     TPFAM_IMAGE, seed)
+                kw = dict(mm=mm, mm_key=key,
+                          mm_token_ids=(VL_IMAGE, VL_VIDEO))
+            got = engines[name].generate_tokens(ids, greedy, TP_TOKENS, **kw)
+            want = tp1.generate_tokens(ids, greedy, TP_TOKENS, **kw)
+            logits.ids, logits.mm = ids, mm
+            row = _tf_errors(logits, _prompt(np.random.default_rng(seed + 1),
+                                             16, n_tok))
+            row["parting"] = _parting(got, want, logits)
+            rows.append(row)
+            log(f"[tp-fam-spread] {name} request {k}: {json.dumps(row)}")
+        out[name] = rows
+    model, params = fams["embed"]["model"], fams["embed"]["params"]
+    n_tok = int((params["embed"]["w"].abs().sum(-1) > 0).sum())
+    lens = np.asarray([150, 180, 200, 240])
+    rows = []
+    for k in range(n):
+        rng = np.random.default_rng(600 + k)
+        ids = np.zeros((len(lens), 256), np.int64)
+        for i, m in enumerate(lens):
+            ids[i, :m] = _prompt(rng, int(m), n_tok)
+        err, cos = _embed_errors(group.call(_tpfam_embed, ids, lens),
+                                 embed_rows(EmbedRank(model, params), ids,
+                                            lens))
+        rows.append({"max_abs_err": err, "one_minus_cos": 1 - cos})
+    out["embed"] = rows
+    tf = [r for name in ("minicpm4", "qwen3vl", "qwen2_5vl")
+          for r in out[name]]
+    parts = [r["parting"] for r in tf if r["parting"] is not None]
+
+    def most(key):          # (no ratio where tp 1 is exact: the CPU's f32)
+        return max((r[key] for r in tf if r[key] is not None), default=None)
+
+    out["summary"] = {
+        "requests": len(tf),
+        "max_ratio_tp2_vs_f32": most("ratio_tp2_vs_f32"),
+        "max_ratio_tp2_vs_tp1": most("ratio_tp2_vs_tp1"),
+        "partings": len(parts),
+        "max_parting_gap": max((p["gap"] for p in parts), default=None),
+        "max_parting_gap_vs_error": max(
+            (p["gap"] / max(p["tp1_vs_f32"], p["tp2_vs_f32"]) for p in parts),
+            default=None),
+        "embed_max_abs_err": max(r["max_abs_err"] for r in rows),
+        "embed_max_one_minus_cos": max(r["one_minus_cos"] for r in rows)}
+    log(f"[tp-fam-spread] {n} requests a family: {json.dumps(out['summary'])}"
+        f" | {card}")
+    print(json.dumps({"tp_fam_spread": out}), flush=True)
+    return out
+
+
+def phase_tp_fam(device: str = "cuda", spread: int = 0) -> None:
+    """(tp-fam) tp 2 over the families this slice shards, each at full
+    width and TPFAM_CUT's depth: NCCL over cuda:0 and cuda:1 where the
+    host has two cards, else gloo with both ranks on cuda:0.  The seeded
+    weights go to checkpoints each rank reads its slice of; rank 0 (this
+    process) starts the worker once for all four families, then MiniCPM4
+    (TextEngine and 4-slot BatchEngine), Qwen3-VL and Qwen2.5-VL (one
+    image request each) and the Qwen3 embedder (one group), every stream
+    or vector held to the tp 1 model's and the f32 reference's, per-rank
+    launches of rows 1, 2, 3v, 8 and 10 and the collectives a step
+    printed.  On the card a `serv --tp 2` child of the MiniCPM4
+    checkpoint loads meanwhile and then answers one HTTP chat.  (Rows 1,
+    2, 8 and 3v at these per-rank shapes are timed in the kernels phase.)"""
+    import functools
+    import shutil
+
+    from aha_tpu_torch.parallel import ranks
+    from aha_tpu_torch.parallel.mesh import MeshConfig
+
+    two = device == "cuda" and torch.cuda.device_count() >= 2
+    devices = ([torch.device("cuda", 0), torch.device("cuda", 1)] if two
+               else [torch.device(device, 0)] * 2)
+    card = card_line() if device == "cuda" else "cpu"
+    log(f"[tp-fam] mesh tp 2 over {[str(d) for d in devices]} on "
+        + ("NCCL (one card a rank)" if two
+           else "gloo (both ranks on one device)") + f" | {card}")
+    root = tempfile.mkdtemp(prefix="aha_torch_tpfam_")
+    secs = TP_FAM_READINGS.setdefault("secs", {})
+    try:
+        t0 = time.perf_counter()
+        fams = _tpfam_models(root, device)
+        secs["set-up"] = time.perf_counter() - t0
+        with contextlib.ExitStack() as stack:
+            child = (stack.enter_context(_serv_tp2_child(
+                fams["minicpm4"]["ckpt"], two)) if device == "cuda" else None)
+            t0 = time.perf_counter()
+            engines, group = ranks.start(
+                MeshConfig(tp=2), functools.partial(
+                    _tpfam_rank, {k: f["ckpt"] for k, f in fams.items()}),
+                devices=devices)
+            secs["start"] = time.perf_counter() - t0
+            log(f"[tp-fam] worker started, both ranks' slices of the four "
+                f"checkpoints read: {secs['start']:.1f} s (set-up)")
+            cpath = os.path.join(root, "counts")
+            try:
+                t0 = time.perf_counter()
+                _tpfam_minicpm(engines, group, fams["minicpm4"], cpath,
+                               device, card)
+                secs["minicpm4"] = time.perf_counter() - t0
+                for name in ("qwen3vl", "qwen2_5vl"):
+                    t0 = time.perf_counter()
+                    _tpfam_vl(engines, group, name, fams[name], cpath,
+                              device, card)
+                    secs[name] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                _tpfam_embedder(engines, group, fams["embed"], cpath, device,
+                                card)
+                secs["embed"] = time.perf_counter() - t0
+                if spread:
+                    t0 = time.perf_counter()
+                    _tpfam_spread(engines, group, fams, spread, card)
+                    secs["spread"] = time.perf_counter() - t0
+            finally:
+                engines["minicpm4_batch"].shutdown()
+                group.shutdown()
+            TP_FAM_READINGS["backend"] = group.mesh.backend
+            if child is not None:
+                t0 = time.perf_counter()
+                _serve_tp_fam(*child, two, card)
+                secs["serv"] = time.perf_counter() - t0
+        log(f"[tp-fam] seconds by part: {json.dumps(secs)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- 6. GGUF-quantized paths --------------------------------------------------
 
 #: the GGUF file of (m): its depth, cut from Qwen3-0.6B's 28 layers (the
 #: widths stay the published ones)
@@ -4175,7 +5059,7 @@ def phase_minicpm(device: str = "cuda") -> dict:
     return {"model": model, "params": params}
 
 
-# -- 6c. embeddings and reranking (t) -------------------------------------------
+# -- 6c. embeddings and reranking (t) -----------------------------------------
 
 
 def _load_by_path(name: str, rel: str):
@@ -4698,9 +5582,10 @@ def _hybrid_checkpoint(tmp: str, name: str, params: dict) -> None:
     del embed, cut_params
 
 
-#: the engine paths' depth of each hybrid, full width: LFM2-1.2B's first 8
-#: of 16 layers (2 attention), Qwen3.5's first 12 of 24 (3 attention)
-HYBRID_DEPTH = {"lfm2": 8, "qwen3_5": 12}
+#: the engine paths' depth of each hybrid, full width: LFM2-1.2B's first 6
+#: of 16 layers (2 attention), Qwen3.5's first 8 of 24 (2 attention); cut
+#: from 8 and 12 for the smoke's time limit
+HYBRID_DEPTH = {"lfm2": 6, "qwen3_5": 8}
 
 
 def _hybrid_family(tag: str, name: str, device: str, tmp: str) -> None:
@@ -5530,7 +6415,7 @@ def qwen3_http_inputs(device: str = "cuda") -> tuple:
     return cfg, model.init_random(gen, dtype=torch.bfloat16)
 
 
-# -- 8. Qwen2.5-VL image chat ---------------------------------------------------
+# -- 8. Qwen2.5-VL image chat -------------------------------------------------
 
 #: Qwen2.5-VL-3B-Instruct's special tokens: vision start / end, image pad
 VL_VSTART, VL_VEND, VL_IMAGE, VL_VIDEO = 151652, 151653, 151655, 151656
@@ -6341,7 +7226,7 @@ def _ask_vl(base: str) -> list[str]:
                      "text-only chat", 1)]
 
 
-# -- 9b. the qwen35 GGUF path (ag) ---------------------------------------------
+# -- 9b. the qwen35 GGUF path (ag) --------------------------------------------
 
 GGUF35_MODEL = "qwen3.5-gguf"
 #: greedy tokens of each (ag) request; teacher-forced steps of the witness
@@ -7739,7 +8624,7 @@ def phase_http_deepseek_ocr(params: dict) -> None:
         del served
 
 
-# -- 14. ASR: Qwen3-ASR-0.6B (ab) and Fun-ASR-Nano (ac) ------------------------
+# -- 14. ASR: Qwen3-ASR-0.6B (ab) and Fun-ASR-Nano (ac) -----------------------
 
 #: greedy tokens a request (bench_asr_rtfx's 80)
 ASR_TOKENS = 80
@@ -7868,12 +8753,14 @@ def _asr_path(tag: str, what: str, chat, eager, mes, wav: np.ndarray,
     (wall and device) and TTFT (front end + the engine's prompt time).
     `frontend(wav, mm)` rebuilds the request's `mm` from the 16 kHz
     waveform (the prepared one tells it the prompt's layout)."""
-    from aha_tpu_torch.core.engine import DECODE_BLOCK, bucket_for
+    from aha_tpu_torch.core.engine import DECODE_BLOCK, bucket_for, mm_to
     from aha_tpu_torch.models.fun_asr_nano_served import FunAsrNanoChat
 
     greedy = _greedy()
     data = chat.get_data(mes)
-    ids, mm = data.input_ids, data.mm
+    # the wrapper hands the engine host arrays; the front end and the
+    # encoder timed here take the request's inputs on the card
+    ids, mm = data.input_ids, mm_to(data.mm, device)
     fun = isinstance(chat, FunAsrNanoChat)
     L = chat.asr_model.n_layers
     steps = DECODE_BLOCK * -(-(n - 1) // DECODE_BLOCK)
@@ -9135,7 +10022,7 @@ def phase_http_rmbg(rmbg: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# -- 20. ocr2: HunyuanOCR (af) and GLM-OCR -------------------------------------
+# -- 20. ocr2: HunyuanOCR (af) and GLM-OCR ------------------------------------
 
 #: greedy tokens a (af) request
 HY_TOKENS = 64
@@ -9598,7 +10485,13 @@ def phase_http_ocr2(hy_small: dict) -> None:
          torch.backends.cudnn.allow_tf32) = flags
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tp-fam-spread", type=int, default=0, metavar="N",
+                    help="run only the device, build and tp-fam phases, "
+                    "tp-fam with N more requests a family whose readings "
+                    "its bounds are set from (_tpfam_spread)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -9614,6 +10507,12 @@ def main() -> int:
 
     timed("device", phase_device)
     timed("build", phase_build)
+    if args.tp_fam_spread:
+        timed("tp-fam", phase_tp_fam, "cuda", args.tp_fam_spread)
+        log(f"[smoke] --tp-fam-spread: {time.perf_counter() - t_start:.1f} "
+            f"s; by phase {json.dumps(secs)}")
+        print(card_line())
+        return 0
     timed("kernels", phase_kernels)
     timed("studies", phase_studies)
     from aha_tpu_torch.models.qwen3 import Qwen3Config
@@ -9622,6 +10521,7 @@ def main() -> int:
     timed("spec", phase_spec, state["model"], state["params"])
     timed("batch", phase_batch, state["model"], state["params"])
     timed("tp", phase_tp, state["model"], state["params"])
+    timed("tp-fam", phase_tp_fam)
     timed("quant", phase_quant, state["model"], state["params"])
     minilm = timed("embed", phase_embed, state["model"], state["params"])
     http = timed("http", phase_http, state["model"].config, state["params"])
@@ -9682,7 +10582,7 @@ def main() -> int:
                     "also_timed", "full_image", "real_rows_ms", "d72", "k4096",
                     "page", "fun_asr", "ernie", "gguf35", *DSOCR_DECODE,
                     *VOX_DECODE,
-                    *HUNYUAN_DECODE,
+                    *HUNYUAN_DECODE, *TPFAM_DECODE, *TPFAM_FLAT,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -9700,6 +10600,7 @@ def main() -> int:
     print(json.dumps({"ocr2": OCR2_READINGS}))
     print(json.dumps({"lifecycle": LIFECYCLE_READINGS}))
     print(json.dumps({"tp": TP_READINGS}))
+    print(json.dumps({"tp_fam": TP_FAM_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

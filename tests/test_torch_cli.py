@@ -366,8 +366,7 @@ def test_serv_needs_a_model_or_manage_only():
      "TP_WITH_DP", None),
     (["cli", "{repo}", "--tp", "4"], "needs 4 cards", 1),
     (["run", "{repo}", "--input", "hi", "--tp", "2", "--model",
-      "OpenBMB/MiniCPM4-0.5B"], "sharding of 'minicpm4' is not ported",
-     None),
+      "LiquidAI/LFM2-1.2B"], "sharding of 'lfm2' is not ported", None),
     (["serv", "{repo}", "--dp", "2"], "--dp shards continuous-batching",
      None),
     (["serv", "{repo}", "--dp", "2", "--batch-slots", "3"],

@@ -1591,6 +1591,30 @@ def test_text_engine_graphs_equal_eager(dev, path, monkeypatch):
     assert engines[False].graphs is None
 
 
+def test_graphed_sampled_streams_may_overlap(dev):
+    """Two seeded sampled streams open on one graphed TextEngine at once,
+    drawn in turn, equal the same requests run alone: each pooled request
+    state's generator is the one its sampled graphs replay from."""
+    import itertools
+
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    model, params = _qwen3_tiny(dev)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=8192)
+    cfgs = [SamplingConfig(**dict(_SAMPLED, seed=s)) for s in (11, 12)]
+    prompts = [_prompt_ids(40, 1), _prompt_ids(50, 2)]
+    want = [eng.generate_tokens(p, c, 40) for p, c in zip(prompts, cfgs)]
+    its = [eng.stream_tokens(p, c, 40) for p, c in zip(prompts, cfgs)]
+    got = [[], []]
+    for pair in itertools.zip_longest(*its):
+        for out, tok in zip(got, pair):
+            if tok is not None:
+                out.append(tok)
+    assert got == want and want[0] != want[1]
+    assert eng.graphs.stats()["graphs"] >= 2
+
+
 @pytest.mark.parametrize("path", ["bf16", "int8-cache", "q4"])
 def test_text_engine_spec_graphs_equal_eager(dev, path):
     """Speculative rounds replayed from graphs (keys ("spec", G1, R))

@@ -204,6 +204,39 @@ def test_text_engine_streams_may_overlap(family, prefix):
     assert list(eng._cache_pool) == [256]
 
 
+@pytest.mark.parametrize("family", HYBRIDS + ["qwen3"])
+def test_text_engine_sampled_streams_may_overlap(family):
+    """Two seeded sampled streams open on one TextEngine at once, their
+    tokens drawn in turn, equal the same requests run alone: each request
+    draws from its own generator, so the second request's seed does not
+    re-seed the first's draws (as the JAX engine keeps a key a call)."""
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    if family == "qwen3":
+        model = Qwen3Model(Qwen3Config(
+            vocab_size=120, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=2,
+            num_key_value_heads=1, head_dim=16), max_rope_len=256)
+    else:
+        model = _models()[family]
+    params = model.init_random(torch.Generator().manual_seed(1), scale=0.3)
+    eng = TextEngine(model, params, eos_token_ids=[], max_seq_len=256)
+    cfgs = [SamplingConfig(temperature=1.0, top_k=50, seed=s)
+            for s in (7, 8)]
+    a, b = _prompt(30, seed=1), _prompt(40, seed=2)
+    want = [eng.generate_tokens(p, c, 20) for p, c in zip((a, b), cfgs)]
+    assert want[0] != want[1]
+    first, second = (eng.stream_tokens(p, c, 20)
+                     for p, c in zip((a, b), cfgs))
+    got = [[next(first)], [next(second)]]
+    for pair in itertools.zip_longest(first, second):
+        for out, tok in zip(got, pair):
+            if tok is not None:
+                out.append(tok)
+    assert got == want
+    assert not eng._live
+
+
 def test_engines_fuse_only_where_the_model_has_a_fusion():
     """LFM2 has no fuse_params (as aha_tpu's has none): both engines keep
     its tree; Qwen3.5's is fused."""

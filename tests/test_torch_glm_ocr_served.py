@@ -107,7 +107,7 @@ def test_request_inputs_equal_jax(both, name):
     mm, jmm = got.mm, {k: np.asarray(v) for k, v in want.mm.items()}
     for k in ("patches", "vis_cos", "vis_sin", "pos_resample", "patch_mask",
               "position_ids"):
-        np.testing.assert_array_equal(mm[k].numpy(), jmm[k], err_msg=k)
+        np.testing.assert_array_equal(mm[k], jmm[k], err_msg=k)
     assert mm["rope_delta"] == int(jmm["rope_delta"])
     n_img = got.input_ids.count(port.glm_model.config.image_token_id)
     assert n_img * 4 <= mm["patches"].shape[0]

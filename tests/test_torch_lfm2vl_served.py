@@ -145,7 +145,7 @@ def test_token_expansion_and_inputs_equal_jax(both, kind):
     assert got.input_ids == list(want.input_ids)
     assert got.mm.keys() == want.mm.keys()
     for name, a in got.mm.items():
-        np.testing.assert_allclose(a.numpy(), np.asarray(want.mm[name]),
+        np.testing.assert_allclose(a, np.asarray(want.mm[name]),
                                    rtol=0, atol=1e-6, err_msg=name)
     n_images = got.mm["pixels"].shape[0]
     assert n_images == (1 if rows * cols == 1 else rows * cols + 1)

@@ -172,7 +172,7 @@ def test_request_inputs_equal_jax(both, content):
         if name == "rope_delta":
             assert a == int(w)
         else:
-            np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+            np.testing.assert_array_equal(a, np.asarray(w),
                                           err_msg=name)
     tok = port.tokenizer
     n_ph = got.input_ids.count(port.vl_model.config.image_token_id)

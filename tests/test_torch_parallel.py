@@ -654,12 +654,12 @@ def test_tp_that_does_not_divide_is_refused_where_jax_runs_it(name, size):
 
 @pytest.mark.parametrize("model_id,kw,words", [
     ("Qwen/Qwen3-0.6B", dict(tp=2, dp=2, batch_slots=4), "TP_WITH_DP"),
-    ("OpenBMB/MiniCPM4-0.5B", dict(tp=2), "sharding of 'minicpm4' is not "
-                                          "ported"),
-    ("Qwen/Qwen3-VL-8B-Instruct", dict(tp=2), "sharding of 'qwen3vl' is "
-                                              "not ported"),
-    ("Qwen/Qwen3-Embedding-0.6B", dict(tp=2), "sharding of "
-                                              "'qwen3_embedding'"),
+    ("LiquidAI/LFM2-1.2B", dict(tp=2), "sharding of 'lfm2' is not "
+                                       "ported"),
+    ("Qwen/Qwen3.5-0.8B", dict(tp=2), "sharding of 'qwen3_5' is "
+                                      "not ported"),
+    ("Qwen/Qwen3-ASR-0.6B", dict(tp=2), "sharding of "
+                                        "'qwen3_asr'"),
     ("sentence-transformers/all-MiniLM-L6-v2", dict(tp=2),
      "--tp does not apply to 'minilm'"),
     ("OpenBMB/VoxCPM-0.5B", dict(tp=2), "--tp does not apply to 'voxcpm'"),

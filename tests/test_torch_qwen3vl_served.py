@@ -130,7 +130,7 @@ def test_request_inputs_equal_jax(both, content):
         if name == "rope_delta":
             assert a == int(w)
         else:
-            np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+            np.testing.assert_array_equal(a, np.asarray(w),
                                           err_msg=name)
     if content is VIDEO:
         text = port.tokenizer.decode(got.input_ids)
