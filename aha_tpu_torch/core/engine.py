@@ -180,6 +180,17 @@ def mm_to(mm: dict[str, Any], device: torch.device | str) -> dict[str, Any]:
     return out
 
 
+def host_mm(mm: dict[str, Any] | None) -> dict[str, Any] | None:
+    """`mm` with every tensor a family built on its card (Qwen3-ASR's mel,
+    GLM-ASR's windows, DeepSeek-OCR's pixels) as a host array: what rank
+    0 sends its tp workers, each of which moves it to its own card
+    (`mm_to`)."""
+    if mm is None:
+        return None
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in mm.items()}
+
+
 def bucket_for(n: int, buckets=PREFILL_BUCKETS) -> int:
     for b in buckets:
         if n <= b:
@@ -648,7 +659,8 @@ class TextEngine:
         try:
             t0 = time.perf_counter()
             token = self._dev("_op_prompt", rid, list(prompt_ids), cfg,
-                              cache_len, pf_bucket, use_prefix, key, mm,
+                              cache_len, pf_bucket, use_prefix, key,
+                              mm if self.ranks is None else host_mm(mm),
                               tuple(mm_token_ids))
             st = self._live[rid]
             token_host = int(token)

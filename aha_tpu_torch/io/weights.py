@@ -95,6 +95,11 @@ class Renamed:
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.src[self.rename(name)]
 
+    def read_part(self, name: str, dim: int, index: int,
+                  parts: int) -> torch.Tensor:
+        """A tp rank's part of `name`, read alone where the source can."""
+        return read_shard(self.src, self.rename(name), dim, index, parts)
+
 
 def read_shard(src, name: str, dim: int, index: int,
                parts: int) -> torch.Tensor:
@@ -111,21 +116,28 @@ def read_shard(src, name: str, dim: int, index: int,
 
 def shard_getters(src, device, dtype, mesh=None):
     """(get, lin) over checkpoint `src`, each tensor on `device` in `dtype`.
-    get(name, dim=None): the tensor, or under a tp `mesh` this rank's slice
-    along `dim` (`read_shard`; dim None: whole).  lin(name, dim=None): HF's
-    `name.weight` (out, in) as the port's (in, out), with its bias where
-    the checkpoint has one; dim 0 splits the output columns (the bias
-    with them), dim 1 the input rows (the bias whole: it is added once
-    after the ranks' reduce)."""
-    def get(name: str, dim: int | None = None) -> torch.Tensor:
-        t = (src[name] if mesh is None or dim is None else
-             read_shard(src, name, dim, mesh.tp_rank, mesh.tp))
+    get(name, dim=None, chunks=1): the tensor, or under a tp `mesh` this
+    rank's slice along `dim` (`read_shard`; dim None: whole); `chunks` > 1
+    reads a fused tensor of that many equal blocks along `dim` as the
+    rank's part of each block, side by side (GLM-OCR's [gate | up]).
+    lin(name, dim=None, chunks=1): HF's `name.weight` (out, in) as the
+    port's (in, out), with its bias where the checkpoint has one; dim 0
+    splits the output columns (the bias with them), dim 1 the input rows
+    (the bias whole: it is added once after the ranks' reduce)."""
+    def get(name: str, dim: int | None = None,
+            chunks: int = 1) -> torch.Tensor:
+        if mesh is None or dim is None:
+            t = src[name]
+        else:
+            parts = [read_shard(src, name, dim, c * mesh.tp + mesh.tp_rank,
+                                chunks * mesh.tp) for c in range(chunks)]
+            t = parts[0] if chunks == 1 else torch.cat(parts, dim)
         return t.to(device=device, dtype=dtype)
 
-    def lin(name: str, dim: int | None = None) -> dict:
-        p = {"w": get(name + ".weight", dim).t().contiguous()}
+    def lin(name: str, dim: int | None = None, chunks: int = 1) -> dict:
+        p = {"w": get(name + ".weight", dim, chunks).t().contiguous()}
         if name + ".bias" in src:
-            p["b"] = get(name + ".bias", 0 if dim == 0 else None)
+            p["b"] = get(name + ".bias", 0 if dim == 0 else None, chunks)
         return p
 
     return get, lin

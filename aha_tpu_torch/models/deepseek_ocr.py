@@ -26,8 +26,22 @@ reference's request carries them, which promotes its bfloat16 weights to
 float32 — and their features are cast to the decoder's dtype where they
 replace the image tokens' embeddings.  All image geometry (the Gundam
 tile grid, newline and separator rows) is a host-built gather index over
-the projected rows (`deepseek_vision_layout`).  Not ported: the
-tensor-parallel partition rules.
+the projected rows (`deepseek_vision_layout`).
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+DEEPSEEK_OCR_PARTITION_RULES: a rank's decoder holds H/tp heads (q / k /
+v by columns), the dense layer's I/tp MLP columns and V/tp vocab rows of
+the embedding and the head; o and the dense down are row-sharded (one
+f32 all_reduce each); the cache is the rank's (L, B, S, H/tp, D) slice.
+The routed experts are expert-parallel: rank r holds experts [r·E/tp,
+(r + 1)·E/tp) whole, the router runs on every rank and the capacity
+comes from the global E and N (ops/moe.py), and the shared experts are
+split as a dense MLP; a MoE layer's routed and shared partial sums go
+through ONE f32 all_reduce.  The SAM and CLIP towers (or version 2's
+Qwen2 encoder) run whole on every rank, as the JAX mesh replicates them.
+check_tp refuses a tp that does not divide the heads (10 at the published
+width: tp 4 is refused), the MLP, the vocab, the routed experts or the
+shared experts' width.
 """
 
 from __future__ import annotations
@@ -50,6 +64,8 @@ from aha_tpu_torch.ops.conv import conv2d, layer_norm_2d
 from aha_tpu_torch.ops.moe import default_capacity, moe_ffn
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import apply_rope, gather_rope, rope_table
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_divides, text_dims
 from aha_tpu_torch.utils.interpolate import interpolate
 
 
@@ -376,13 +392,19 @@ class DeepseekOCRModel:
     differ), "embed", "norm", and the head vocab-major (V, K)."""
 
     def __init__(self, config: DeepseekOCRConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        tp = self.mesh.tp if self.mesh is not None else 1
+        check_tp(config, tp)
         c = config.language
         self.n_layers = c.num_hidden_layers
-        self.n_heads = c.num_attention_heads
-        self.n_kv_heads = c.num_key_value_heads
+        self.n_heads = c.num_attention_heads // tp
+        self.n_kv_heads = c.num_key_value_heads // tp
+        #: the routed experts this rank holds
+        self.n_experts = c.n_routed_experts // tp
         self.head_dim = c.head_dim
         self.cos, self.sin = rope_table(
             self.head_dim, min(max_rope_len, c.max_position_embeddings),
@@ -425,15 +447,20 @@ class DeepseekOCRModel:
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The 5-D cache of the model's kv heads; under a mesh, this
+        rank's Hkv/tp of them (DEEPSEEK_OCR_CACHE_RULES)."""
         return kv.init_kv_cache(self.n_layers, batch, max_len,
-                                self.n_kv_heads, self.head_dim, dtype,
-                                self.device, flat=False)
+                                self.config.language.num_key_value_heads,
+                                self.head_dim, dtype, self.device,
+                                flat=False, mesh=self.mesh,
+                                rules=self.cache_rules)
 
     def mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         """A layer's dense SwiGLU or its MoE over (B, S, D); the MoE's
-        capacity from B·S, the padded token count."""
+        capacity from B·S, the padded token count, and the global expert
+        count (under a mesh too)."""
         if "mlp" in lp:
-            return nn.swiglu_mlp(lp["mlp"], h)
+            return tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
         c = self.config.language
         B, S, D = h.shape
         out = moe_ffn(
@@ -441,7 +468,7 @@ class DeepseekOCRModel:
             scoring=c.scoring_func, norm_topk_prob=c.norm_topk_prob,
             routed_scaling_factor=c.routed_scaling_factor,
             capacity=default_capacity(B * S, c.num_experts_per_tok,
-                                      c.n_routed_experts))
+                                      c.n_routed_experts), mesh=self.mesh)
         return out.reshape(B, S, D)
 
     def _layer(self, lp: dict, li: int, x: torch.Tensor, cos, sin,
@@ -458,7 +485,8 @@ class DeepseekOCRModel:
         q, k = apply_rope(q, k, cos, sin)
         attn = self.attn.attend(q, k, v, cache, li, positions, valid_len,
                                 from_cache)
-        x = x + nn.linear(lp["o"], attn.reshape(B, S, -1))
+        x = x + tp_layers.row_linear(lp["o"], attn.reshape(B, S, -1),
+                                     self.mesh)
         return x + self.mlp(lp, rms_norm(x, lp["ln2"]["w"], eps))
 
     def backbone(self, params: dict, input_ids: torch.Tensor, cache: dict,
@@ -470,7 +498,7 @@ class DeepseekOCRModel:
         left as it was.  `window` and `prompt_len` are accepted and
         unused."""
         S = input_ids.shape[1]
-        x = nn.embedding(params["embed"], input_ids)
+        x = self.embed(params, input_ids)
         if mm is not None:
             feats = self.assemble_vision(params, mm)
             is_img = input_ids[0] == self.config.image_token_id
@@ -487,27 +515,45 @@ class DeepseekOCRModel:
         return rms_norm(x, params["norm"]["w"],
                         self.config.language.rms_norm_eps)
 
+    def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding; under a mesh the masked lookup in the
+        rank's vocab rows, summed over the ranks."""
+        return tp_layers.embedding(params["embed"], input_ids,
+                                   self.config.language.vocab_size, self.mesh)
+
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        """The head is vocab-major (V, K)."""
-        return hidden @ params["lm_head"]["w"].t()
+        """The head is vocab-major (V, K); under a mesh each rank's V/tp
+        columns, gathered."""
+        return tp_layers.head_logits(params["lm_head"]["w"], hidden,
+                                     self.config.language.vocab_size,
+                                     self.mesh)
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """Greedy next token for ONE hidden state (0-dim int32): under a
+        mesh the value-out head kernel over this rank's vocab shard and
+        the ranks' combine (parallel/layers.head_greedy)."""
+        return tp_layers.head_greedy(params["lm_head"]["w"], hidden,
+                                     self.config.language.vocab_size,
+                                     self.mesh)
 
     # -- parameters -----------------------------------------------------------
 
     def load_params(self, src, dtype: torch.dtype = torch.bfloat16) -> dict:
         """HF names of a DeepSeek-OCR checkpoint → the port's layout on
         self.device: (in, out) linears, the routed experts stacked (E, in,
-        out), the router float32 (D, E)."""
+        out), the router float32 (D, E).  Under a mesh each sharded tensor
+        is read as this rank's slice (io/weights.shard_getters): q / k / v
+        and the gates / ups by output rows, o and the downs by input
+        columns, the embedding and the head by vocab rows, and only the
+        rank's E/tp routed experts are read."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         c = self.config
         lc = c.language
+        shard_get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def get(name, dt=dtype):
             return src[name].to(device=self.device, dtype=dt)
-
-        def lin(name):
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
 
         def norm(name):
             p = {"w": get(name + ".weight")}
@@ -566,27 +612,33 @@ class DeepseekOCRModel:
             p = f"model.layers.{i}."
             lp = {"ln1": norm(p + "input_layernorm"),
                   "ln2": norm(p + "post_attention_layernorm"),
-                  **{n: lin(f"{p}self_attn.{n}_proj")
-                     for n in ("q", "k", "v", "o")}}
+                  **{n: lin(f"{p}self_attn.{n}_proj", 0)
+                     for n in ("q", "k", "v")},
+                  "o": lin(p + "self_attn.o_proj", 1)}
             if lc.is_moe_layer(i):
+                first = (self.mesh.tp_rank * self.n_experts
+                         if self.mesh is not None else 0)
                 experts = {n: {"w": torch.stack([
                     get(f"{p}mlp.experts.{e}.{n}_proj.weight").t()
-                    for e in range(lc.n_routed_experts)])}
+                    for e in range(first, first + self.n_experts)])}
                     for n in ("gate", "up", "down")}
+                sh = p + "mlp.shared_experts."
                 lp["moe"] = {
                     "gate": {"w": get(p + "mlp.gate.weight",
                                       torch.float32).t().contiguous()},
                     "experts": experts,
-                    "shared": {n: lin(f"{p}mlp.shared_experts.{n}_proj")
-                               for n in ("gate", "up", "down")}}
+                    "shared": {"gate": lin(sh + "gate_proj", 0),
+                               "up": lin(sh + "up_proj", 0),
+                               "down": lin(sh + "down_proj", 1)}}
             else:
-                lp["mlp"] = {n: lin(f"{p}mlp.{n}_proj")
-                             for n in ("gate", "up", "down")}
+                lp["mlp"] = {"gate": lin(p + "mlp.gate_proj", 0),
+                             "up": lin(p + "mlp.up_proj", 0),
+                             "down": lin(p + "mlp.down_proj", 1)}
             layers.append(lp)
         params["layers"] = layers
-        params["embed"] = {"w": get("model.embed_tokens.weight")}
+        params["embed"] = {"w": shard_get("model.embed_tokens.weight", 0)}
         params["norm"] = norm("model.norm")
-        params["lm_head"] = {"w": get("lm_head.weight")}     # (V, K)
+        params["lm_head"] = {"w": shard_get("lm_head.weight", 0)}  # (V, K)
         return params
 
     def init_random(self, generator: torch.Generator,
@@ -659,7 +711,8 @@ class DeepseekOCRModel:
                            "fc2": lin(cv.ffn_hidden_size, d, True, L)}}
             params["image_newline"] = w(c.projector_n_embed)
         d = lc.hidden_size
-        nq, nkv = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
+        nq = lc.num_attention_heads * self.head_dim
+        nkv = lc.num_key_value_heads * self.head_dim
         layers = []
         for i in range(lc.num_hidden_layers):
             lp = {"ln1": {"w": full(1.0, d)}, "ln2": {"w": full(1.0, d)},
@@ -738,3 +791,40 @@ def deepseek_vision_layout(images: list[dict], version: int,
         global_base += nb * nb
         idx.append(sep_row)
     return np.asarray(idx, np.int32)
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's DEEPSEEK_OCR_PARTITION_RULES on the port's layouts: the
+# decoder's layers a list (dense and MoE layers differ), linears (in,
+# out); the routed experts (E, in, out) split on their expert axis (each
+# rank E/tp whole experts); the shared experts split as a dense MLP; the
+# embedding and the head vocab-major (V, K) (the JAX head is (K, V)).  The
+# router ("moe.gate.w") and the towers stay replicated.
+DEEPSEEK_OCR_PARTITION_RULES = (
+    (r"^layers\.\d+\.(q|k|v)\.w", (None, "tp")),
+    (r"^layers\.\d+\.(q|k|v)\.b", ("tp",)),
+    (r"^layers\.\d+\.o\.w", ("tp", None)),
+    (r"^layers\.\d+\.mlp\.(gate|up)\.w", (None, "tp")),
+    (r"^layers\.\d+\.mlp\.down\.w", ("tp", None)),
+    (r"moe\.experts\.(gate|up|down)\.w", ("tp", None, None)),
+    (r"moe\.shared\.(gate|up)\.w", (None, "tp")),
+    (r"moe\.shared\.down\.w", ("tp", None)),
+    (r"^embed\.w", ("tp", None)),
+    (r"^lm_head\.w", ("tp", None)),
+)
+# the 5-D cache (L, B, S, Hkv, D): kv heads over tp
+DEEPSEEK_OCR_CACHE_RULES = ((r"^(k|v)$", (None, None, None, "tp", None)),)
+DeepseekOCRModel.partition_rules = DEEPSEEK_OCR_PARTITION_RULES
+DeepseekOCRModel.cache_rules = DEEPSEEK_OCR_CACHE_RULES
+
+
+def check_tp(config: DeepseekOCRConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the decoder's
+    heads, kv heads, dense MLP or vocab, its routed experts or its shared
+    experts' width (the JAX mesh replicates them), naming the
+    dimension."""
+    lc = config.language
+    check_divides(tp, {**text_dims(lc),
+                       "n_routed_experts": lc.n_routed_experts,
+                       "the shared experts' width":
+                       lc.moe_intermediate_size * lc.n_shared_experts})

@@ -17,23 +17,22 @@ which gives the same rows at the image tokens.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from aha_tpu_torch.core.engine import TextEngine
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.core.tokenizer import TokenizerModel
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.deepseek_ocr import (DeepseekOCRConfig,
-                                               DeepseekOCRModel,
+                                               DeepseekOCRModel, check_tp,
                                                deepseek_vision_layout)
-from aha_tpu_torch.models.text_served import (TextChatModel,
-                                              load_generation_config)
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              load_generation_config,
+                                              rank_builder, start_engine)
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
-from aha_tpu_torch.utils.device import device, get_dtype
 
 IMAGE_TOKEN = "<image>"
 ALLOWED_SIZES = (512, 640, 1024, 1280)
@@ -117,22 +116,25 @@ class DeepseekOCRChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "DeepseekOCRChat":
         """One stream on a TextEngine without a prefix store; `batch_slots
-        > 1` is refused by the loader before this runs."""
-        dev = device()
-        config = DeepseekOCRConfig.from_file(path)
-        model = DeepseekOCRModel(config, max_rope_len=max_seq_len,
-                                 device=dev)
-        params = model.load_params(open_weights(path), dtype=get_dtype(dev))
-        lc = config.language
-        engine = TextEngine(model, params,
-                            eos_token_ids=[lc.eos_token_id, lc.bos_token_id],
-                            max_seq_len=max_seq_len,
-                            cuda_graphs=kw.get("cuda_graphs", True))
+        > 1` is refused by the loader before this runs.  `tp > 1` shards
+        the model over tp ranks, the routed experts expert-parallel
+        (text_served.rank_builder), after check_tp refuses a tp that does
+        not divide it."""
+        tp = kw.get("tp", 1)
+        lc = DeepseekOCRConfig.from_file(path).language
+        engine, ranks = start_engine(
+            entry, path, functools.partial(decoder_rank, DeepseekOCRModel,
+                                           DeepseekOCRConfig),
+            [lc.eos_token_id, lc.bos_token_id], max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(DeepseekOCRModel, DeepseekOCRConfig,
+                                    path, max_seq_len, tp, check_tp))
         served = cls(entry, engine, TokenizerModel.init(path), None,
                      load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))
                      or entry.name)
-        served.ocr_model = model
+        served.ranks = ranks
+        served.ocr_model = engine.model
         return served
 
     def _prompt(self, mes: ChatCompletionParameters) -> str:

@@ -28,6 +28,11 @@ taps in torch's depthwise layout (D, 1, K).
 
 Frontend (kaldi fbank ×32768, LFR 7/6) is host numpy
 (ops/audio_feats.kaldi_fbank / apply_lfr).
+
+Tensor parallelism (`mesh` with tp > 1, parallel/): the rules are Qwen3's
+alone (FUN_ASR_NANO_PARTITION_RULES), so only the LLM shards — the
+sharded Qwen3Model under "text." —, and the encoder and the adaptor run
+whole on every rank, as the JAX mesh replicates them.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
 from aha_tpu_torch.io.weights import Renamed, take_linear, take_norm
-from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
+from aha_tpu_torch.models.qwen3 import (QWEN3_CACHE_RULES,
+                                        QWEN3_PARTITION_RULES, Qwen3Config,
+                                        Qwen3Model, check_tp as qwen3_tp,
                                         fuse_decode_params)
 from aha_tpu_torch.models.qwen3_asr import splice
 from aha_tpu_torch.ops.attention import segment_attention
@@ -130,11 +137,13 @@ class FunAsrNanoModel:
     tree keeps the LLM under "llm"."""
 
     def __init__(self, config: FunAsrNanoConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
         self.text = Qwen3Model(config.llm, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
         self.pe = torch.from_numpy(sinusoidal_pe_cat(
             4096, config.encoder.input_size)).to(self.device)
@@ -245,7 +254,7 @@ class FunAsrNanoModel:
         """With `mm` (a prefill): encode the speech, gather its spliced
         rows and put them where fbank_mask is set.  `window` admits the
         Qwen3 fused decode stack on a decode step."""
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = self.text.embed(params["text"], input_ids)
         if mm is not None:
             feats = self.encode_audio(params["audio"], mm["speech"],
                                       mm["seg"])
@@ -378,3 +387,18 @@ class FunAsrNanoModel:
             } for _ in range(a.n_layer)],
         }
         return {"audio": audio, "text": text}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params): the JAX
+# package's FUN_ASR_NANO_PARTITION_RULES, Qwen3's — they match the LLM
+# under "text." and no path of the encoder or the adaptor.
+FUN_ASR_NANO_PARTITION_RULES = QWEN3_PARTITION_RULES
+FUN_ASR_NANO_CACHE_RULES = QWEN3_CACHE_RULES
+FunAsrNanoModel.partition_rules = FUN_ASR_NANO_PARTITION_RULES
+FunAsrNanoModel.cache_rules = FUN_ASR_NANO_CACHE_RULES
+
+
+def check_tp(config: FunAsrNanoConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the LLM, naming
+    the dimension (the towers are replicated)."""
+    qwen3_tp(config.llm, tp)

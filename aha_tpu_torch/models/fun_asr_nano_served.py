@@ -12,21 +12,21 @@ the reference.  One stream on a TextEngine without a prefix store.
 
 from __future__ import annotations
 
+import functools
 import numpy as np
 
 from aha_tpu_torch.core.chat_template import ChatTemplate
 from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.generate import PrepareData
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.fun_asr_nano import (FunAsrNanoConfig,
-                                               FunAsrNanoModel,
+                                               FunAsrNanoModel, check_tp,
                                                fun_asr_token_length)
-from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              rank_builder)
 from aha_tpu_torch.ops.audio_feats import apply_lfr, kaldi_fbank
 from aha_tpu_torch.params import ChatCompletionParameters, extract_parts
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.audio import prepare_audio
-from aha_tpu_torch.utils.device import device, get_dtype
 
 PROMPT_PREFIX = ("<|im_start|>system\nYou are a helpful assistant.<|im_end|>"
                  "\n<|im_start|>user\n")
@@ -66,17 +66,17 @@ class FunAsrNanoChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "FunAsrNanoChat":
         """One stream on a TextEngine without a prefix store; `batch_slots
-        > 1` is refused by the loader before this runs."""
-        def build(path, max_seq_len):
-            dev = device()
-            model = FunAsrNanoModel(FunAsrNanoConfig.from_file(path),
-                                    max_rope_len=max_seq_len, device=dev)
-            return model, model.load_params(open_weights(path),
-                                            dtype=get_dtype(dev))
-
+        > 1` is refused by the loader before this runs.  `tp > 1` shards
+        the model over tp ranks (text_served.rank_builder), after check_tp
+        refuses a tp that does not divide it."""
+        tp = kw.get("tp", 1)
+        build = functools.partial(decoder_rank, FunAsrNanoModel,
+                                  FunAsrNanoConfig)
         served = super().load(
             entry, path, build, max_seq_len=max_seq_len, prefix_cache=0,
-            cuda_graphs=kw.get("cuda_graphs", True),
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(FunAsrNanoModel, FunAsrNanoConfig,
+                                    path, max_seq_len, tp, check_tp),
             chat_template=ChatTemplate.str_init("{{ messages }}"))
         served.asr_model = served.engine.model
         return served

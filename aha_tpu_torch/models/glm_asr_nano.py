@@ -15,6 +15,12 @@ The encoder casts the mel to its weights' dtype, as the JAX model does
 (bfloat16 served on the card); its attention is plain sdpa (no Pallas
 kernel in the reference).  Every GELU is jax.nn.gelu's default, the tanh
 form (GELU_APPROXIMATE), as in Qwen3-ASR's encoder.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/): the rules are llama's
+(GLM_ASR_NANO_PARTITION_RULES), so the decoder is the sharded LlamaModel
+under "text."; the encoder and the projector run whole on every rank —
+their "audio.layers.<i>.*" paths match no llama rule, and the JAX mesh
+replicates them.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
 from aha_tpu_torch.io.weights import Renamed, take_linear, take_norm
-from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aha_tpu_torch.models.llama import (LLAMA_CACHE_RULES,
+                                        LLAMA_PARTITION_RULES, LlamaConfig,
+                                        LlamaModel, check_tp as llama_tp)
 from aha_tpu_torch.models.qwen3_asr import splice
 from aha_tpu_torch.ops.attention import sdpa
 from aha_tpu_torch.ops.conv import conv1d
@@ -100,11 +108,13 @@ class GlmAsrNanoModel:
     list of dicts, convs OIH) and projector, "text": LlamaModel's}."""
 
     def __init__(self, config: GlmAsrNanoConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
         self.text = LlamaModel(config.text, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
         a = config.audio
         self.rotary_dim = int(a.head_dim * a.partial_rotary_factor)
@@ -160,7 +170,7 @@ class GlmAsrNanoModel:
         """With `mm` (a prefill): encode the windows, gather the valid
         tokens in host order and splice them at the audio-token positions.
         `window` and `prompt_len` are accepted and unused."""
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = self.text.embed(params["text"], input_ids)
         if mm is not None:
             feats = self.encode_audio(params["audio"], mm["mel"])
             feats = feats[mm["gather"].long()]
@@ -170,6 +180,9 @@ class GlmAsrNanoModel:
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         return self.text.logits(params["text"], hidden)
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        return self.text.greedy_token(params["text"], hidden)
 
     # -- parameters ---------------------------------------------------------
 
@@ -263,3 +276,18 @@ class GlmAsrNanoModel:
             } for _ in range(a.num_hidden_layers)],
         }
         return {"audio": audio, "text": text}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params): the JAX
+# package's GLM_ASR_NANO_PARTITION_RULES, llama's — they match the decoder
+# under "text." and no path of the encoder or the projector.
+GLM_ASR_NANO_PARTITION_RULES = LLAMA_PARTITION_RULES
+GLM_ASR_NANO_CACHE_RULES = LLAMA_CACHE_RULES
+GlmAsrNanoModel.partition_rules = GLM_ASR_NANO_PARTITION_RULES
+GlmAsrNanoModel.cache_rules = GLM_ASR_NANO_CACHE_RULES
+
+
+def check_tp(config: GlmAsrNanoConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the decoder,
+    naming the dimension (the encoder is replicated)."""
+    llama_tp(config.text, tp)

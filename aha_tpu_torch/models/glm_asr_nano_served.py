@@ -12,6 +12,7 @@ store.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
@@ -19,16 +20,15 @@ import numpy as np
 import torch
 
 from aha_tpu_torch.core.generate import PrepareData
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.glm_asr_nano import (GlmAsrNanoConfig,
                                                GlmAsrNanoModel,
-                                               audio_token_length)
-from aha_tpu_torch.models.text_served import TextChatModel
+                                               audio_token_length, check_tp)
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              rank_builder)
 from aha_tpu_torch.ops.audio_feats import whisper_log_mel
 from aha_tpu_torch.params import ChatCompletionParameters, extract_parts
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.audio import prepare_audio
-from aha_tpu_torch.utils.device import device, get_dtype
 
 SAMPLE_RATE = 16000
 CHUNK_SECONDS = 30
@@ -44,17 +44,17 @@ class GlmAsrNanoChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "GlmAsrNanoChat":
         """One stream on a TextEngine without a prefix store; `batch_slots
-        > 1` is refused by the loader before this runs."""
-        def build(path, max_seq_len):
-            dev = device()
-            model = GlmAsrNanoModel(GlmAsrNanoConfig.from_file(path),
-                                    max_rope_len=max_seq_len, device=dev)
-            return model, model.load_params(open_weights(path),
-                                            dtype=get_dtype(dev))
-
-        served = super().load(entry, path, build, max_seq_len=max_seq_len,
-                              prefix_cache=0,
-                              cuda_graphs=kw.get("cuda_graphs", True))
+        > 1` is refused by the loader before this runs.  `tp > 1` shards
+        the model over tp ranks (text_served.rank_builder), after check_tp
+        refuses a tp that does not divide it."""
+        tp = kw.get("tp", 1)
+        build = functools.partial(decoder_rank, GlmAsrNanoModel,
+                                  GlmAsrNanoConfig)
+        served = super().load(
+            entry, path, build, max_seq_len=max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(GlmAsrNanoModel, GlmAsrNanoConfig,
+                                    path, max_seq_len, tp, check_tp))
         served.asr_model = served.engine.model
         pcfg = {}
         for name in ("processor_config.json", "preprocessor_config.json"):

@@ -31,8 +31,22 @@ them.
 The tower computes in the patches' float32, as the JAX package promotes
 its bf16 weights (`nn.linear_promoted`); the decoder in the parameters'
 dtype.  Host geometry (blocked coordinates, vision cos / sin, the position
-resample, M-RoPE ids and rope_delta) is numpy, once per request.  Not
-ported: the tensor-parallel partition rules.
+resample, M-RoPE ids and rope_delta) is numpy, once per request.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+GLM_OCR_PARTITION_RULES: a rank's decoder holds Hq/tp query and Hkv/tp kv
+heads (q / k / v with their biases by columns), V/tp vocab rows of the
+embedding and the head, and I/tp columns of gate AND the matching I/tp
+columns of up, side by side in its [gate | up] — the layer splits the
+fused product with chunk(2), so a rank's halves must pair up (the JAX
+rule cuts the fused matrix into contiguous columns, so at tp 2 one
+device holds all of gate and GSPMD reshards around it); o and down are
+row-sharded (one f32 all_reduce each); the cache is the rank's (L, B, S,
+Hkv/tp, D) slice.  In the tower each block's MLP and the merger's shard
+gate / up by columns (their biases with them) and down by rows, reduced
+in f32; the attention, the downsample and the merger's projection run
+whole on every rank.  check_tp refuses a tp that does not divide the
+decoder or either MLP.
 """
 
 from __future__ import annotations
@@ -51,6 +65,8 @@ from aha_tpu_torch.models.cache_attention import CacheAttention
 from aha_tpu_torch.ops.attention import sdpa
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import rotate_half
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_divides, text_dims
 from aha_tpu_torch.utils.interpolate import resize_weights_1d
 
 
@@ -242,8 +258,19 @@ def _rot_vision(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 class GlmOcrVisionTower:
-    def __init__(self, v: GlmOcrVisionConfig):
+    """The GLM-4V tower and its merger; under a tp `mesh` each SwiGLU (a
+    block's, the merger's) is a rank's (gate / up columns, down rows)."""
+
+    def __init__(self, v: GlmOcrVisionConfig, mesh=None):
         self.v = v
+        self.mesh = mesh
+
+    def _swiglu(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+        """down(SiLU(gate(h)) · up(h)), promoted to h's float32; down's
+        f32 partial sums reduced over the ranks."""
+        return tp_layers.row_linear(
+            p["down"], F.silu(nn.linear_promoted(p["gate"], h))
+            * nn.linear_promoted(p["up"], h), self.mesh, promoted=True)
 
     def encode(self, p: dict, mm: dict) -> torch.Tensor:
         """mm: patches (N, C·tp·p·p) padded to a bucket, vis_cos / vis_sin
@@ -268,10 +295,7 @@ class GlmOcrVisionTower:
             a = sdpa(q[None], k[None], qkv[:, 2][None], mask)[0]
             x = x + nn.linear_promoted(lp["proj"], a.reshape(-1, nh * hd))
             h = rms_norm(x, lp["norm2"]["w"], eps)
-            mlp = lp["mlp"]
-            x = x + nn.linear_promoted(mlp["down"], F.silu(
-                nn.linear_promoted(mlp["gate"], h))
-                * nn.linear_promoted(mlp["up"], h))
+            x = x + self._swiglu(lp["mlp"], h)
         x = rms_norm(x, p["post_norm"]["w"], eps)
         # the m x m stride-m downsample over one blocked unit: one
         # full-window dot product a unit
@@ -284,9 +308,7 @@ class GlmOcrVisionTower:
         h = nn.linear_promoted(mp["proj"], x)
         h = nn.ln(mp["post_norm"], h, eps=eps)
         h = F.gelu(h, approximate="none")
-        return nn.linear_promoted(mp["down"], F.silu(
-            nn.linear_promoted(mp["gate"], h))
-            * nn.linear_promoted(mp["up"], h))
+        return self._swiglu(mp, h)
 
 
 # ---------------------------------------------------------------------------
@@ -362,14 +384,18 @@ class GlmOcrModel:
     vocab-major (V, K)}."""
 
     def __init__(self, config: GlmOcrConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
-        self.tower = GlmOcrVisionTower(config.vision)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        tp = self.mesh.tp if self.mesh is not None else 1
+        check_tp(config, tp)
+        self.tower = GlmOcrVisionTower(config.vision, self.mesh)
         c = config.text
         self.n_layers = c.num_hidden_layers
-        self.n_heads = c.num_attention_heads
-        self.n_kv_heads = c.num_key_value_heads
+        self.n_heads = c.num_attention_heads // tp
+        self.n_kv_heads = c.num_key_value_heads // tp
         self.head_dim = c.head_dim_
         # kept: a captured decode step reads them
         self.inv_freq = glm_inv_freq(c, self.device)
@@ -379,8 +405,10 @@ class GlmOcrModel:
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         cache = kv.init_kv_cache(self.n_layers, batch, max_len,
-                                 self.n_kv_heads, self.head_dim, dtype,
-                                 self.device, flat=False)
+                                 self.config.text.num_key_value_heads,
+                                 self.head_dim, dtype, self.device,
+                                 flat=False, mesh=self.mesh,
+                                 rules=self.cache_rules)
         cache["rope_delta"] = torch.zeros((), dtype=torch.int32,
                                           device=self.device)
         return cache
@@ -398,7 +426,7 @@ class GlmOcrModel:
         c = self.config.text
         tp = params["text"]
         S = input_ids.shape[1]
-        x = nn.embedding(tp["embed"], input_ids)
+        x = self.embed(tp, input_ids)
         offset = None
         if mm is not None:
             feats = self.tower.encode(params["visual"], mm)
@@ -440,16 +468,32 @@ class GlmOcrModel:
         k = _apply_partial_interleaved(k, cos, sin)
         attn = self.attn.attend(q, k, v, cache, li, positions, valid_len,
                                 from_cache)
-        attn = nn.linear(lp["o"], attn.reshape(B, S, -1))
+        attn = tp_layers.row_linear(lp["o"], attn.reshape(B, S, -1),
+                                    self.mesh)
         x = x + rms_norm(attn, lp["ln_post_attn"]["w"], eps)
         h = rms_norm(x, lp["ln_mid"]["w"], eps)
         g, u = nn.linear(lp["gate_up"], h).chunk(2, dim=-1)
-        h = nn.linear(lp["down"], F.silu(g) * u)
+        h = tp_layers.row_linear(lp["down"], F.silu(g) * u, self.mesh)
         return x + rms_norm(h, lp["ln_post_mlp"]["w"], eps)
 
+    def embed(self, tp: dict, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding of the text tree `tp`; under a mesh the
+        masked lookup in the rank's vocab rows, summed over the ranks."""
+        return tp_layers.embedding(tp["embed"], input_ids,
+                                   self.config.text.vocab_size, self.mesh)
+
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        """The head is vocab-major (V, K)."""
-        return hidden @ params["text"]["lm_head"]["w"].t()
+        """The head is vocab-major (V, K); under a mesh each rank's V/tp
+        columns, gathered."""
+        return tp_layers.head_logits(params["text"]["lm_head"]["w"], hidden,
+                                     self.config.text.vocab_size, self.mesh)
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """Greedy next token for ONE hidden state (0-dim int32): under a
+        mesh the value-out head kernel over this rank's vocab shard and
+        the ranks' combine (parallel/layers.head_greedy)."""
+        return tp_layers.head_greedy(params["text"]["lm_head"]["w"], hidden,
+                                     self.config.text.vocab_size, self.mesh)
 
     # -- parameters -----------------------------------------------------------
 
@@ -457,17 +501,21 @@ class GlmOcrModel:
         """HF names of a GLM-OCR checkpoint (the tower under
         model.visual., the decoder under model.language_model.) → the
         port's layout on self.device: (in, out) linears, blocks and layers
-        stacked, lm_head where the checkpoint has one (else tied)."""
+        stacked, lm_head where the checkpoint has one (else tied).  Under a
+        mesh each sharded tensor is read as this rank's slice
+        (io/weights.shard_getters): q / k / v and the towers' gate / up by
+        output rows with their biases, [gate | up] as the rank's rows of
+        each half, o and the downs by input columns, the embedding and the
+        head by vocab rows."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         c = self.config
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
-
-        def lin(name):
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
+        def swiglu(prefix):
+            return {"gate": lin(prefix + "gate_proj", 0),
+                    "up": lin(prefix + "up_proj", 0),
+                    "down": lin(prefix + "down_proj", 1)}
 
         def norm(name):
             p = {"w": get(name + ".weight")}
@@ -480,8 +528,7 @@ class GlmOcrModel:
                    "norm2": norm(f"{vs}blocks.{i}.norm2"),
                    "qkv": lin(f"{vs}blocks.{i}.attn.qkv"),
                    "proj": lin(f"{vs}blocks.{i}.attn.proj"),
-                   "mlp": {n: lin(f"{vs}blocks.{i}.mlp.{n}_proj")
-                           for n in ("gate", "up", "down")}}
+                   "mlp": swiglu(f"{vs}blocks.{i}.mlp.")}
                   for i in range(c.vision.depth)]
         patch = {"w": get(vs + "patch_embed.proj.weight").reshape(
             c.vision.hidden_size, -1).t().contiguous()}
@@ -497,8 +544,7 @@ class GlmOcrModel:
                            "b": get(vs + "downsample.bias")},
             "merger": {"proj": lin(vs + "merger.proj"),
                        "post_norm": norm(vs + "merger.post_projection_norm"),
-                       **{n: lin(f"{vs}merger.{n}_proj")
-                          for n in ("gate", "up", "down")}},
+                       **swiglu(vs + "merger.")},
         }
         ts = "model.language_model."
         layers = [{"ln_in": norm(f"{ts}layers.{i}.input_layernorm"),
@@ -506,13 +552,15 @@ class GlmOcrModel:
                    "ln_post_attn": norm(
                        f"{ts}layers.{i}.post_self_attn_layernorm"),
                    "ln_post_mlp": norm(f"{ts}layers.{i}.post_mlp_layernorm"),
-                   **{n: lin(f"{ts}layers.{i}.self_attn.{n}_proj")
-                      for n in "qkvo"},
-                   "gate_up": lin(f"{ts}layers.{i}.mlp.gate_up_proj"),
-                   "down": lin(f"{ts}layers.{i}.mlp.down_proj")}
+                   **{n: lin(f"{ts}layers.{i}.self_attn.{n}_proj", 0)
+                      for n in "qkv"},
+                   "o": lin(f"{ts}layers.{i}.self_attn.o_proj", 1),
+                   "gate_up": lin(f"{ts}layers.{i}.mlp.gate_up_proj", 0,
+                                  chunks=2),
+                   "down": lin(f"{ts}layers.{i}.mlp.down_proj", 1)}
                   for i in range(c.text.num_hidden_layers)]
-        embed = {"w": get(ts + "embed_tokens.weight")}
-        head = ({"w": get("lm_head.weight")} if "lm_head.weight" in src
+        embed = {"w": get(ts + "embed_tokens.weight", 0)}
+        head = ({"w": get("lm_head.weight", 0)} if "lm_head.weight" in src
                 else {"w": embed["w"]})
         return {"visual": visual,
                 "text": {"embed": embed, "layers": nn.tree_stack(layers),
@@ -585,3 +633,43 @@ class GlmOcrModel:
                            "down": lin(t.intermediate_size, D, False, Lt)},
                 "norm": rms(D), "lm_head": {"w": w(t.vocab_size, D)}}
         return {"visual": visual, "text": text}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's GLM_OCR_PARTITION_RULES on the port's layouts: linears stacked
+# (L, in, out); the embedding and the head vocab-major (V, K) (the JAX
+# head is (K, V)).  The fused [gate | up] takes ("tp", 2): each half split
+# over the ranks and a rank's parts kept side by side — the port's layer
+# splits the product with chunk(2) — where the JAX rule cuts the fused
+# columns contiguously and GSPMD reshards.  The JAX rules leave the
+# decoder's q / k / v biases to GSPMD; a rank here holds the slice of its
+# columns.
+GLM_OCR_PARTITION_RULES = (
+    (r"text\.layers\.(q|k|v)\.w", (None, None, "tp")),
+    (r"text\.layers\.(q|k|v)\.b", (None, "tp")),
+    (r"text\.layers\.o\.w", (None, "tp", None)),
+    (r"text\.layers\.gate_up\.w", (None, None, ("tp", 2))),
+    (r"text\.layers\.down\.w", (None, "tp", None)),
+    (r"text\.embed\.w", ("tp", None)),
+    (r"text\.lm_head\.w", ("tp", None)),
+    (r"visual\.blocks\.mlp\.(gate|up)\.w", (None, None, "tp")),
+    (r"visual\.blocks\.mlp\.(gate|up)\.b", (None, "tp")),
+    (r"visual\.blocks\.mlp\.down\.w", (None, "tp", None)),
+    (r"visual\.merger\.(gate|up)\.w", (None, "tp")),
+    (r"visual\.merger\.(gate|up)\.b", ("tp",)),
+    (r"visual\.merger\.down\.w", ("tp", None)),
+)
+# the 5-D cache (L, B, S, Hkv, D): kv heads over tp
+GLM_OCR_CACHE_RULES = ((r"^(k|v)$", (None, None, None, "tp", None)),)
+GlmOcrModel.partition_rules = GLM_OCR_PARTITION_RULES
+GlmOcrModel.cache_rules = GLM_OCR_CACHE_RULES
+
+
+def check_tp(config: GlmOcrConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the decoder's
+    heads, kv heads, MLP or vocab, a tower block's MLP (out_hidden_size
+    wide) or the merger's (intermediate_size), naming the dimension."""
+    v = config.vision
+    check_divides(tp, {**text_dims(config.text),
+                       "vision out_hidden_size": v.out_hidden_size,
+                       "vision intermediate_size": v.intermediate_size})

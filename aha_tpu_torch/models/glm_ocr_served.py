@@ -19,16 +19,17 @@ it.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
 import numpy as np
 
-from aha_tpu_torch.core.engine import TextEngine, bucket_for
+from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.core.tokenizer import TokenizerModel
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.glm_ocr import (GlmOcrConfig, GlmOcrModel,
+                                          check_tp,
                                           glm_pos_resample_matrix,
                                           glm_rope_index,
                                           glm_vision_geometry,
@@ -36,11 +37,11 @@ from aha_tpu_torch.models.glm_ocr import (GlmOcrConfig, GlmOcrModel,
 # the same patch buckets (256 ... 9,216) and refusal as HunyuanOCR's
 from aha_tpu_torch.models.hunyuan_ocr_served import patch_bucket
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
-from aha_tpu_torch.models.text_served import (TextChatModel,
-                                              load_generation_config)
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              load_generation_config,
+                                              rank_builder, start_engine)
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
-from aha_tpu_torch.utils.device import device, get_dtype
 
 GMASK, SOP, USER, NL, ASSISTANT = 59248, 59250, 59253, 10, 59254
 DEFAULT_PROMPT = "Extract all text from this image."
@@ -122,20 +123,23 @@ class GlmOcrChat(TextChatModel):
         """One stream on a TextEngine without a prefix store, on the
         device rule's card in its dtype (bf16 there); the fixed prompt
         frame needs no chat template; `batch_slots > 1` is refused by the
-        loader before this runs."""
-        dev = device()
-        model = GlmOcrModel(GlmOcrConfig.from_file(path),
-                            max_rope_len=max_seq_len, device=dev)
-        params = model.load_params(open_weights(path), dtype=get_dtype(dev))
-        engine = TextEngine(model, params,
-                            eos_token_ids=load_stop_token_ids(path),
-                            max_seq_len=max_seq_len,
-                            cuda_graphs=kw.get("cuda_graphs", True))
+        loader before this runs.  `tp > 1` shards the model over tp ranks
+        (text_served.rank_builder), after check_tp refuses a tp that does
+        not divide it."""
+        tp = kw.get("tp", 1)
+        engine, ranks = start_engine(
+            entry, path, functools.partial(decoder_rank, GlmOcrModel,
+                                           GlmOcrConfig),
+            load_stop_token_ids(path), max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(GlmOcrModel, GlmOcrConfig, path,
+                                    max_seq_len, tp, check_tp))
         served = cls(entry, engine, TokenizerModel.init(path), None,
                      load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))
                      or entry.name)
-        served.glm_model = model
+        served.ranks = ranks
+        served.glm_model = engine.model
         pp = {}
         pp_path = os.path.join(path, "preprocessor_config.json")
         if os.path.exists(pp_path):

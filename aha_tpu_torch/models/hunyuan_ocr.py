@@ -27,8 +27,22 @@ prefill) (counterpart of aha_tpu/models/hunyuan_ocr.py).
 The towers compute in the patches' float32, as the JAX package promotes
 its bf16 weights (`nn.linear_promoted`); the decoder in the parameters'
 dtype.  Host geometry (the 1-D resize weights, the merge and token
-gathers, the 4-channel position ids) is numpy, once per request.  Not
-ported: the tensor-parallel partition rules.
+gathers, the 4-channel position ids) is numpy, once per request.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+HUNYUAN_OCR_PARTITION_RULES: a rank's decoder holds Hq/tp query and
+Hkv/tp kv heads (q / k / v with their biases by columns), its I/tp MLP
+columns and V/tp vocab rows of the tied embedding and head; o and down
+are row-sharded (one f32 all_reduce each, an o bias added once); the
+embedding is the masked lookup summed over the ranks, the greedy token
+the value-out head kernel and the ranks' combine; the cache is the
+rank's (L, B, S, Hkv/tp, D) slice.  In the tower fc1 (w and b) is
+column-sharded and fc2 row-sharded, its f32 partial sums reduced once
+and its bias added once — the JAX rules shard fc2's output columns and
+GSPMD gathers fc1's output to feed it; the numbers are one device's up
+to the order of summation.  The tower's attention and the perceive
+merger run whole on every rank.  check_tp refuses a tp that does not
+divide the decoder (vocab 120,818: tp 4 is refused) or the tower's MLP.
 """
 
 from __future__ import annotations
@@ -47,6 +61,8 @@ from aha_tpu_torch.models.cache_attention import CacheAttention
 from aha_tpu_torch.ops.attention import sdpa
 from aha_tpu_torch.ops.norms import rms_norm
 from aha_tpu_torch.ops.rope import gather_rope, rotate_half, rope_table
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_divides, text_dims
 from aha_tpu_torch.utils.interpolate import resize_weights_1d
 
 
@@ -260,8 +276,12 @@ def hunyuan_pos_embed(table: torch.Tensor, pos_wh: torch.Tensor,
 
 
 class HunyuanVisionTower:
-    def __init__(self, v: HunyuanVisionConfig):
+    """The ViT and its perceive merger; under a tp `mesh` each block's MLP
+    is a rank's (fc1 columns, fc2 rows)."""
+
+    def __init__(self, v: HunyuanVisionConfig, mesh=None):
         self.v = v
+        self.mesh = mesh
 
     def encode(self, p: dict, mm: dict) -> torch.Tensor:
         """mm: patches (N, C·p·p) bucket-padded row-major, pos_wh (Σgh, g)
@@ -287,8 +307,9 @@ class HunyuanVisionTower:
             a = sdpa(q[None], k[None], vv[None], mask)[0]
             x = x + nn.linear_promoted(lp["o"], a.reshape(-1, nh * hd))
             h = nn.ln(lp["ln2"], x, eps=v.rms_norm_eps)
-            x = x + nn.linear_promoted(lp["fc2"], F.gelu(
-                nn.linear_promoted(lp["fc1"], h), approximate="none"))
+            x = x + tp_layers.row_linear(lp["fc2"], F.gelu(
+                nn.linear_promoted(lp["fc1"], h), approximate="none"),
+                self.mesh, promoted=True)
         return x
 
     def perceive(self, p: dict, feats: torch.Tensor, mm: dict
@@ -330,14 +351,18 @@ class HunyuanOCRModel:
     and the tied head vocab-major (V, K), sharing the embedding."""
 
     def __init__(self, config: HunyuanOCRConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
-        self.tower = HunyuanVisionTower(config.vision)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        tp = self.mesh.tp if self.mesh is not None else 1
+        check_tp(config, tp)
+        self.tower = HunyuanVisionTower(config.vision, self.mesh)
         c = config
         self.n_layers = c.num_hidden_layers
-        self.n_heads = c.num_attention_heads
-        self.n_kv_heads = c.num_key_value_heads
+        self.n_heads = c.num_attention_heads // tp
+        self.n_kv_heads = c.num_key_value_heads // tp
         self.head_dim = c.head_dim
         self.cos, self.sin = rope_table(
             self.head_dim, min(max_rope_len, c.max_position_embeddings),
@@ -348,9 +373,13 @@ class HunyuanOCRModel:
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The 5-D cache of the model's kv heads; under a mesh, this
+        rank's Hkv/tp of them (HUNYUAN_OCR_CACHE_RULES)."""
         return kv.init_kv_cache(self.n_layers, batch, max_len,
-                                self.n_kv_heads, self.head_dim, dtype,
-                                self.device, flat=False)
+                                self.config.num_key_value_heads,
+                                self.head_dim, dtype, self.device,
+                                flat=False, mesh=self.mesh,
+                                rules=self.cache_rules)
 
     # -- vision ---------------------------------------------------------------
 
@@ -382,7 +411,7 @@ class HunyuanOCRModel:
         unused."""
         c = self.config
         S = input_ids.shape[1]
-        x = nn.embedding(params["embed"], input_ids)
+        x = self.embed(params, input_ids)
         if mm is not None:
             feats = self.encode_vision(params["visual"], mm)
             is_img = input_ids[0] == c.image_token_id
@@ -424,13 +453,29 @@ class HunyuanOCRModel:
         k = rms_norm(k, lp["k_norm"]["w"], eps)
         attn = self.attn.attend(q, k, v, cache, li, positions, valid_len,
                                 from_cache)
-        x = x + nn.linear(lp["o"], attn.reshape(B, S, -1))
+        x = x + tp_layers.row_linear(lp["o"], attn.reshape(B, S, -1),
+                                     self.mesh)
         h = rms_norm(x, lp["ln2"]["w"], eps)
-        return x + nn.swiglu_mlp(lp["mlp"], h)
+        return x + tp_layers.swiglu_mlp(lp["mlp"], h, self.mesh)
+
+    def embed(self, params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding; under a mesh the masked lookup in the
+        rank's vocab rows, summed over the ranks."""
+        return tp_layers.embedding(params["embed"], input_ids,
+                                   self.config.vocab_size, self.mesh)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        """The head is vocab-major (V, K): the tied embedding."""
-        return hidden @ params["lm_head"]["w"].t()
+        """The head is vocab-major (V, K); under a mesh each rank's V/tp
+        columns, gathered."""
+        return tp_layers.head_logits(params["lm_head"]["w"], hidden,
+                                     self.config.vocab_size, self.mesh)
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """Greedy next token for ONE hidden state (0-dim int32): under a
+        mesh the value-out head kernel over this rank's vocab shard and
+        the ranks' combine (parallel/layers.head_greedy)."""
+        return tp_layers.head_greedy(params["lm_head"]["w"], hidden,
+                                     self.config.vocab_size, self.mesh)
 
     # -- parameters -----------------------------------------------------------
 
@@ -439,18 +484,15 @@ class HunyuanOCRModel:
         decoder under model.) → the port's layout on self.device: (in, out)
         linears, the tower's blocks stacked, the position table without
         its CLS row (model.rs:55-59), the head tied to the embedding
-        (model.rs:553)."""
+        (model.rs:553).  Under a mesh each sharded tensor is read as this
+        rank's slice (io/weights.shard_getters): q / k / v, gate / up and
+        the tower's fc1 by output rows with their biases, o, down and fc2
+        by input columns, the embedding by vocab rows."""
+        from aha_tpu_torch.io.weights import shard_getters
+
         c = self.config
         v = c.vision
-
-        def get(name):
-            return src[name].to(device=self.device, dtype=dtype)
-
-        def lin(name):
-            p = {"w": get(name + ".weight").t().contiguous()}
-            if name + ".bias" in src:
-                p["b"] = get(name + ".bias")
-            return p
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
             p = {"w": get(name + ".weight")}
@@ -468,8 +510,8 @@ class HunyuanOCRModel:
                 "ln1": norm(b + "input_layernorm"),
                 "ln2": norm(b + "post_attention_layernorm"),
                 **{n: lin(f"{b}self_attn.{n}_proj") for n in "qkvo"},
-                "fc1": lin(b + "mlp.dense_h_to_4h"),
-                "fc2": lin(b + "mlp.dense_4h_to_h")})
+                "fc1": lin(b + "mlp.dense_h_to_4h", 0),
+                "fc2": lin(b + "mlp.dense_4h_to_h", 1)})
         pc = vs + "perceive."
         visual = {
             "patch": {"w": get(vs + "embeddings.patch_embedding.weight")
@@ -496,12 +538,14 @@ class HunyuanOCRModel:
             layers.append({
                 "ln1": norm(p + "input_layernorm"),
                 "ln2": norm(p + "post_attention_layernorm"),
-                **{n: lin(f"{p}self_attn.{n}_proj") for n in "qkvo"},
+                **{n: lin(f"{p}self_attn.{n}_proj", 0) for n in "qkv"},
+                "o": lin(p + "self_attn.o_proj", 1),
                 "q_norm": norm(p + "self_attn.query_layernorm"),
                 "k_norm": norm(p + "self_attn.key_layernorm"),
-                "mlp": {n: lin(f"{p}mlp.{n}_proj")
-                        for n in ("gate", "up", "down")}})
-        embed = {"w": get("model.embed_tokens.weight")}
+                "mlp": {"gate": lin(p + "mlp.gate_proj", 0),
+                        "up": lin(p + "mlp.up_proj", 0),
+                        "down": lin(p + "mlp.down_proj", 1)}})
+        embed = {"w": get("model.embed_tokens.weight", 0)}
         return {"visual": visual, "layers": layers, "embed": embed,
                 "norm": norm("model.norm"), "lm_head": {"w": embed["w"]}}
 
@@ -552,7 +596,7 @@ class HunyuanOCRModel:
                 "image_end": w(v.out_hidden_size)},
         }
         D, hd = c.hidden_size, c.head_dim
-        nq, nkv = self.n_heads * hd, self.n_kv_heads * hd
+        nq, nkv = c.num_attention_heads * hd, c.num_key_value_heads * hd
         layers = [{"ln1": {"w": full(1.0, D)}, "ln2": {"w": full(1.0, D)},
                    "q": lin(D, nq, c.attention_bias),
                    "k": lin(D, nkv, c.attention_bias),
@@ -568,3 +612,39 @@ class HunyuanOCRModel:
         return {"visual": visual, "layers": layers, "embed": embed,
                 "norm": {"w": full(1.0, D)}, "lm_head": {"w": embed["w"]}}
 
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's HUNYUAN_OCR_PARTITION_RULES on the port's layouts: the
+# decoder's layers a list, linears (in, out); the embedding and the tied
+# head vocab-major (V, K) (the JAX head is (K, V)); the tower's blocks
+# stacked (L, in, out), fc1 split by columns (w and b) and fc2 by rows —
+# the JAX rule splits fc2's output columns, the port its input rows, so
+# a rank's fc1 output feeds its fc2 rows without a gather.  The JAX rules
+# leave the attention's and the MLP's biases to GSPMD; a rank here holds
+# the slice of its columns.
+HUNYUAN_OCR_PARTITION_RULES = (
+    (r"^layers\.\d+\.(q|k|v)\.w", (None, "tp")),
+    (r"^layers\.\d+\.(q|k|v)\.b", ("tp",)),
+    (r"^layers\.\d+\.o\.w", ("tp", None)),
+    (r"^layers\.\d+\.mlp\.(gate|up)\.w", (None, "tp")),
+    (r"^layers\.\d+\.mlp\.(gate|up)\.b", ("tp",)),
+    (r"^layers\.\d+\.mlp\.down\.w", ("tp", None)),
+    (r"^embed\.w", ("tp", None)),
+    (r"^lm_head\.w", ("tp", None)),
+    (r"visual\.blocks\.(fc1)\.w", (None, None, "tp")),
+    (r"visual\.blocks\.(fc1)\.b", (None, "tp")),
+    (r"visual\.blocks\.(fc2)\.w", (None, "tp", None)),
+)
+# the 5-D cache (L, B, S, Hkv, D): kv heads over tp
+HUNYUAN_OCR_CACHE_RULES = ((r"^(k|v)$", (None, None, None, "tp", None)),)
+HunyuanOCRModel.partition_rules = HUNYUAN_OCR_PARTITION_RULES
+HunyuanOCRModel.cache_rules = HUNYUAN_OCR_CACHE_RULES
+
+
+def check_tp(config: HunyuanOCRConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the decoder's
+    heads, kv heads, MLP or vocab, or the tower's MLP (the JAX mesh
+    replicates them), naming the dimension."""
+    check_divides(tp, {**text_dims(config),
+                       "vision intermediate_size":
+                       config.vision.intermediate_size})

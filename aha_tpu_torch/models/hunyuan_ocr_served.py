@@ -19,27 +19,27 @@ a prefix store, as the JAX package builds it.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
 import numpy as np
 
-from aha_tpu_torch.core.engine import TextEngine, bucket_for
+from aha_tpu_torch.core.engine import bucket_for
 from aha_tpu_torch.core.generate import PrepareData
 from aha_tpu_torch.core.chat_template import ChatTemplate
 from aha_tpu_torch.core.tokenizer import TokenizerModel
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.hunyuan_ocr import (HunyuanOCRConfig,
-                                              HunyuanOCRModel,
+                                              HunyuanOCRModel, check_tp,
                                               hunyuan_pos_weights,
                                               hunyuan_position_ids,
                                               hunyuan_vision_geometry)
 from aha_tpu_torch.models.qwen3 import load_stop_token_ids
-from aha_tpu_torch.models.text_served import (TextChatModel,
-                                              load_generation_config)
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              load_generation_config,
+                                              rank_builder, start_engine)
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
-from aha_tpu_torch.utils.device import device, get_dtype
 
 IMAGE_TOKEN = "<｜hy_place▁holder▁no▁102｜>"
 PLACEHOLDER = "<｜hy_place▁holder▁no▁799｜>"
@@ -135,20 +135,23 @@ class HunyuanOCRChat(TextChatModel):
              **kw) -> "HunyuanOCRChat":
         """One stream on a TextEngine without a prefix store, on the
         device rule's card in its dtype (bf16 there); `batch_slots > 1` is
-        refused by the loader before this runs."""
-        dev = device()
-        model = HunyuanOCRModel(HunyuanOCRConfig.from_file(path),
-                                max_rope_len=max_seq_len, device=dev)
-        params = model.load_params(open_weights(path), dtype=get_dtype(dev))
-        engine = TextEngine(model, params,
-                            eos_token_ids=load_stop_token_ids(path),
-                            max_seq_len=max_seq_len,
-                            cuda_graphs=kw.get("cuda_graphs", True))
+        refused by the loader before this runs.  `tp > 1` shards the model
+        over tp ranks (text_served.rank_builder), after check_tp refuses
+        a tp that does not divide it."""
+        tp = kw.get("tp", 1)
+        engine, ranks = start_engine(
+            entry, path, functools.partial(decoder_rank, HunyuanOCRModel,
+                                           HunyuanOCRConfig),
+            load_stop_token_ids(path), max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(HunyuanOCRModel, HunyuanOCRConfig, path,
+                                    max_seq_len, tp, check_tp))
         served = cls(entry, engine, TokenizerModel.init(path),
                      ChatTemplate.init(path), load_generation_config(path),
                      model_name=os.path.basename(path.rstrip("/"))
                      or entry.name)
-        served.hy_model = model
+        served.ranks = ranks
+        served.hy_model = engine.model
         pp = {}
         pp_path = os.path.join(path, "preprocessor_config.json")
         if os.path.exists(pp_path):

@@ -180,7 +180,9 @@ BATCHABLE_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "lfm2", "qwen3_5"}
 _NO_TP_FAMILIES = {"minilm", "voxcpm", "rmbg2_0"}
 #: families the port shards over --tp ranks
 TP_FAMILIES = {"qwen3", "minicpm4", "minicpm5", "qwen3vl", "qwen2_5vl",
-               "qwen3_embedding", "qwen3_reranker"}
+               "qwen3_embedding", "qwen3_reranker", "qwen3_asr",
+               "fun_asr_nano", "glm_asr_nano", "paddleocr_vl", "hunyuan_ocr",
+               "glm_ocr", "deepseek_ocr"}
 
 #: the reference's refusals of the file kinds, word for word
 ONNX_REFUSED = "onnx comming soon but now not support"
@@ -196,10 +198,13 @@ def load_model(model_id: str, path: str, gguf: str | None = None,
     `mmproj`) and refuses to run without one, an ONNX entry is refused,
     each with the reference's words (aha_tpu/models/loader.py:204-213).
     `tp > 1` shards a family of TP_FAMILIES over tp ranks, one a card
-    (Qwen3 chat, MiniCPM4 / MiniCPM5, Qwen3-VL, Qwen2.5-VL, and the Qwen3
-    embedder and reranker); the families with no mesh path refuse it with
-    the reference's words, a GGUF entry with its loader's, every other
-    family and tp with dp with the port's, naming what is not ported.
+    (Qwen3 chat, MiniCPM4 / MiniCPM5, Qwen3-VL, Qwen2.5-VL, the Qwen3
+    embedder and reranker, the ASR families Qwen3-ASR, Fun-ASR-Nano and
+    GLM-ASR-Nano, and the OCR families PaddleOCR-VL, HunyuanOCR, GLM-OCR
+    and DeepSeek-OCR, its routed experts split across the ranks); the
+    families with no mesh path refuse it with the reference's words, a
+    GGUF entry with its loader's, every other family (LFM2, LFM2-VL,
+    Qwen3.5) and tp with dp with the port's, naming what is not ported.
     `dp > 1` (dp BatchEngine replicas, one a card) goes through the
     reference's checks of its combination with the slots; a GGUF entry
     refuses it.  A host with

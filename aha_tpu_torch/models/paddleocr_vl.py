@@ -23,8 +23,13 @@ contiguous M-RoPE (counterpart of aha_tpu/models/paddleocr_vl.py).
 
 Everything that depends only on the grids (coordinates, taps, segments,
 the merge gather, M-RoPE ids, rope_delta) is numpy on the host, once per
-request, as in the JAX package.  Not ported: the tensor-parallel
-partition rules.
+request, as in the JAX package.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/): the rules are llama's
+(PADDLEOCR_VL_PARTITION_RULES), so the ERNIE decoder is the sharded
+LlamaModel under "text." (its o / MLP biases added once after the
+reduce), and the SigLIP tower and the projector run whole on every rank,
+as the JAX mesh replicates them.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
 from aha_tpu_torch.models import siglip
-from aha_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from aha_tpu_torch.models.llama import (LLAMA_CACHE_RULES,
+                                        LLAMA_PARTITION_RULES, LlamaConfig,
+                                        LlamaModel, check_tp as llama_tp)
 from aha_tpu_torch.models.qwen2_5vl import get_rope_index as _qwen_rope_index
 from aha_tpu_torch.ops.attention import segment_attention
 from aha_tpu_torch.ops.norms import layer_norm
@@ -204,11 +211,13 @@ class PaddleOCRVLModel:
     LlamaModel's}; the encoder blocks are a list of per-block dicts."""
 
     def __init__(self, config: PaddleOCRVLConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
         self.text = LlamaModel(config.text, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
         v = config.vision
         self.v_inv_freq = torch.from_numpy(
@@ -290,7 +299,7 @@ class PaddleOCRVLModel:
         `prompt_len` are accepted and unused."""
         B, S = input_ids.shape
         text = self.text
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = text.embed(params["text"], input_ids)
         if mm is not None:
             feats = self.encode_vision(params["visual"], mm)
             is_img = (input_ids[0] == self.config.image_token_id) | \
@@ -315,6 +324,9 @@ class PaddleOCRVLModel:
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         return self.text.logits(params["text"], hidden)
+
+    def greedy_token(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
+        return self.text.greedy_token(params["text"], hidden)
 
     # -- parameters ---------------------------------------------------------
 
@@ -397,3 +409,19 @@ class PaddleOCRVLModel:
                                          v.num_hidden_layers),
         }
         return {"visual": visual, "text": text}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params): the JAX
+# package's PADDLEOCR_VL_PARTITION_RULES, llama's — they match the ERNIE
+# decoder under "text." and no path of the SigLIP tower or the projector.
+PADDLEOCR_VL_PARTITION_RULES = LLAMA_PARTITION_RULES
+PADDLEOCR_VL_CACHE_RULES = LLAMA_CACHE_RULES
+PaddleOCRVLModel.partition_rules = PADDLEOCR_VL_PARTITION_RULES
+PaddleOCRVLModel.cache_rules = PADDLEOCR_VL_CACHE_RULES
+
+
+def check_tp(config: PaddleOCRVLConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the ERNIE decoder
+    (its 2 kv heads stop it at tp 2), naming the dimension; the tower is
+    replicated."""
+    llama_tp(config.text, tp)

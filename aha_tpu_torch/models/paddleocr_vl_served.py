@@ -13,24 +13,24 @@ without a prefix store, as the JAX package builds it.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
 import numpy as np
 
 from aha_tpu_torch.core.generate import PrepareData
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLConfig,
-                                               PaddleOCRVLModel,
+                                               PaddleOCRVLModel, check_tp,
                                                get_rope_index,
                                                paddle_vision_geometry)
 # the same patch buckets (256 ... 16384) as Qwen2.5-VL's
 from aha_tpu_torch.models.qwen2_5vl_served import (_pad, patch_bucket,
                                                     rope_ids_to_bucket)
-from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              rank_builder)
 from aha_tpu_torch.params import ChatCompletionParameters
 from aha_tpu_torch.registry import ModelEntry
-from aha_tpu_torch.utils.device import device, get_dtype
 
 IMAGE_PLACEHOLDER = "<|IMAGE_PLACEHOLDER|>"
 
@@ -65,17 +65,17 @@ class PaddleOCRVLChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "PaddleOCRVLChat":
         """One stream on a TextEngine without a prefix store; `batch_slots
-        > 1` is refused by the loader before this runs."""
-        def build(path, max_seq_len):
-            dev = device()
-            model = PaddleOCRVLModel(PaddleOCRVLConfig.from_file(path),
-                                     max_rope_len=max_seq_len, device=dev)
-            return model, model.load_params(open_weights(path),
-                                            dtype=get_dtype(dev))
-
-        served = super().load(entry, path, build, max_seq_len=max_seq_len,
-                              prefix_cache=0,
-                              cuda_graphs=kw.get("cuda_graphs", True))
+        > 1` is refused by the loader before this runs.  `tp > 1` shards
+        the model over tp ranks (text_served.rank_builder), after check_tp
+        refuses a tp that does not divide it."""
+        tp = kw.get("tp", 1)
+        build = functools.partial(decoder_rank, PaddleOCRVLModel,
+                                  PaddleOCRVLConfig)
+        served = super().load(
+            entry, path, build, max_seq_len=max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(PaddleOCRVLModel, PaddleOCRVLConfig,
+                                    path, max_seq_len, tp, check_tp))
         served.vl_model = served.engine.model
         pp = {}
         pp_path = os.path.join(path, "preprocessor_config.json")

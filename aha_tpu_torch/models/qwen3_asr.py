@@ -17,6 +17,16 @@ defaults to approximate=True, so the reference computes that (ROADMAP
 queue 3 lists it as a departure the port copies), and GELU_APPROXIMATE
 pins it.  Decode steps are the Qwen3 decoder's: the fused decode stack
 and the greedy head kernel on the card.
+
+Tensor parallelism (`mesh` with tp > 1, parallel/), by
+QWEN3_ASR_PARTITION_RULES: the thinker is the sharded Qwen3Model
+(models/qwen3.py) under "text."; in every encoder layer q / k / v (with
+their biases) and fc1 are column-sharded — a rank attends its H/tp heads
+— and o and fc2 row-sharded, their f32 partial sums reduced once each
+(parallel/layers.row_linear) and their biases added once; the convs,
+ln_post and the projections run whole on every rank.  check_tp refuses a
+tp that does not divide the decoder, the encoder's heads (14 at the
+published width: tp 4 is refused) or its FFN.
 """
 
 from __future__ import annotations
@@ -30,13 +40,16 @@ import torch
 import torch.nn.functional as F
 
 from aha_tpu_torch.core import nn
-from aha_tpu_torch.io.weights import Renamed, take_linear, take_norm
-from aha_tpu_torch.models.qwen3 import (Qwen3Config, Qwen3Model,
-                                        fuse_decode_params)
+from aha_tpu_torch.io.weights import Renamed, shard_getters
+from aha_tpu_torch.models.qwen3 import (QWEN3_CACHE_RULES,
+                                        QWEN3_PARTITION_RULES, Qwen3Config,
+                                        Qwen3Model, fuse_decode_params)
 from aha_tpu_torch.ops.attention import sdpa
 from aha_tpu_torch.ops.audio_feats import sinusoidal_pe_cat
 from aha_tpu_torch.ops.conv import conv2d
 from aha_tpu_torch.ops.norms import layer_norm
+from aha_tpu_torch.parallel import layers as tp_layers
+from aha_tpu_torch.parallel.mesh import check_divides, text_dims
 
 #: the GELU of the encoder: jax.nn.gelu's default, the tanh form
 GELU_APPROXIMATE = "tanh"
@@ -114,16 +127,22 @@ class Qwen3ASRModel:
     dicts, convs OIHW, linears (in, out)), "text": Qwen3Model's}."""
 
     def __init__(self, config: Qwen3ASRConfig, max_rope_len: int = 8192,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.config = config
         self.device = torch.device(device)
+        check_tp(config, mesh.tp if mesh is not None else 1)
         self.text = Qwen3Model(config.text, max_rope_len=max_rope_len,
-                               device=self.device)
+                               device=self.device, mesh=mesh)
+        #: the tp mesh of this rank (None on one device)
+        self.mesh = self.text.mesh
         self.n_layers = self.text.n_layers
         a = config.audio
         self.pe_chunk = torch.from_numpy(
             sinusoidal_pe_cat(13, a.d_model)).to(self.device)
         self.audio_head_dim = a.d_model // a.encoder_attention_heads
+        #: the encoder heads this rank attends
+        self.audio_heads = a.encoder_attention_heads // (
+            self.mesh.tp if self.mesh is not None else 1)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -157,17 +176,19 @@ class Qwen3ASRModel:
         mask = torch.where(torch.arange(S, device=x.device) < n_valid_out,
                            0.0, torch.finfo(torch.float32).min)
         mask = mask[None, None, None, :]
-        H, hd = a.encoder_attention_heads, self.audio_head_dim
+        H, hd = self.audio_heads, self.audio_head_dim
         for lp in ap["layers"]:
             h = layer_norm(x, lp["ln1"]["w"], lp["ln1"].get("b"))
             q = nn.linear_promoted(lp["q"], h).reshape(1, S, H, hd)
             k = nn.linear_promoted(lp["k"], h).reshape(1, S, H, hd)
             v = nn.linear_promoted(lp["v"], h).reshape(1, S, H, hd)
-            attn = sdpa(q, k, v, mask).reshape(1, S, a.d_model)
-            x = x + nn.linear_promoted(lp["o"], attn)
+            attn = sdpa(q, k, v, mask).reshape(1, S, H * hd)
+            x = x + tp_layers.row_linear(lp["o"], attn, self.mesh,
+                                         promoted=True)
             h = layer_norm(x, lp["ln2"]["w"], lp["ln2"].get("b"))
-            x = x + nn.linear_promoted(
-                lp["fc2"], gelu(nn.linear_promoted(lp["fc1"], h)))
+            x = x + tp_layers.row_linear(
+                lp["fc2"], gelu(nn.linear_promoted(lp["fc1"], h)), self.mesh,
+                promoted=True)
         x = layer_norm(x, ap["ln_post"]["w"], ap["ln_post"].get("b"))
         x = gelu(nn.linear_promoted(ap["proj1"], x))
         return nn.linear_promoted(ap["proj2"], x)[0]
@@ -181,7 +202,7 @@ class Qwen3ASRModel:
         """With `mm` (a prefill): encode the audio and splice its rows at
         the audio-token positions.  `window` admits the Qwen3 fused decode
         stack on a decode step; `prompt_len` is unused."""
-        x = nn.embedding(params["text"]["embed"], input_ids)
+        x = self.text.embed(params["text"], input_ids)
         if mm is not None:
             feats = self.encode_audio(params["audio"], mm["mel"],
                                       int(mm["n_out"]))
@@ -206,18 +227,21 @@ class Qwen3ASRModel:
     def load_params(self, src, dtype: torch.dtype = torch.bfloat16) -> dict:
         """HF names (thinker.audio_tower. / thinker.model. /
         thinker.lm_head., or the same without "thinker.") → the port's
-        layout on self.device."""
+        layout on self.device.  Under a mesh each sharded tensor is read
+        as this rank's slice (io/weights.shard_getters): the encoder's
+        q / k / v / fc1 by output rows with their biases, o / fc2 by input
+        columns; the decoder as Qwen3Model reads it."""
         a = self.config.audio
-        dev = self.device
         at = "thinker.audio_tower."
         if at + "conv2d1.weight" not in src:
             at = "audio_tower."
-
-        def lin(name):
-            return take_linear(src, name, dev, dtype)
+        get, lin = shard_getters(src, self.device, dtype, self.mesh)
 
         def norm(name):
-            return take_norm(src, name, dev, dtype)
+            p = {"w": get(name + ".weight")}
+            if name + ".bias" in src:
+                p["b"] = get(name + ".bias")
+            return p
 
         layers = []
         for i in range(a.encoder_layers):
@@ -225,19 +249,19 @@ class Qwen3ASRModel:
             layers.append({
                 "ln1": norm(p + "self_attn_layer_norm"),
                 "ln2": norm(p + "final_layer_norm"),
-                "q": lin(p + "self_attn.q_proj"),
-                "k": lin(p + "self_attn.k_proj"),
-                "v": lin(p + "self_attn.v_proj"),
-                "o": lin(p + "self_attn.out_proj"),
-                "fc1": lin(p + "fc1"), "fc2": lin(p + "fc2"),
+                "q": lin(p + "self_attn.q_proj", 0),
+                "k": lin(p + "self_attn.k_proj", 0),
+                "v": lin(p + "self_attn.v_proj", 0),
+                "o": lin(p + "self_attn.out_proj", 1),
+                "fc1": lin(p + "fc1", 0), "fc2": lin(p + "fc2", 1),
             })
         audio = {"layers": layers, "ln_post": norm(at + "ln_post"),
                  "conv_out": lin(at + "conv_out"),
                  "proj1": lin(at + "proj1"), "proj2": lin(at + "proj2")}
         for i in (1, 2, 3):
-            audio[f"conv{i}"] = {
-                k: src[f"{at}conv2d{i}.{n}"].to(device=dev, dtype=dtype)
-                for k, n in (("w", "weight"), ("b", "bias"))}
+            audio[f"conv{i}"] = {k: get(f"{at}conv2d{i}.{n}")
+                                 for k, n in (("w", "weight"),
+                                              ("b", "bias"))}
         prefix = ("thinker.model."
                   if "thinker.model.embed_tokens.weight" in src else "model.")
         head = ("thinker.lm_head.weight"
@@ -288,3 +312,29 @@ class Qwen3ASRModel:
             "conv3": {"w": w(h, h, 3, 3), "b": zeros(h)},
         }
         return {"audio": audio, "text": text}
+
+
+# Tensor-parallel partition rules (parallel/mesh.shard_params), the JAX
+# package's QWEN3_ASR_PARTITION_RULES: the thinker's are Qwen3's (matched
+# under "text."); in the encoder's layers q / k / v and fc1 split their
+# output columns (biases with them), o and fc2 their input rows.
+QWEN3_ASR_PARTITION_RULES = (
+    *QWEN3_PARTITION_RULES,
+    (r"audio\.layers\.\d+\.(q|k|v|fc1)\.w", (None, "tp")),
+    (r"audio\.layers\.\d+\.(q|k|v|fc1)\.b", ("tp",)),
+    (r"audio\.layers\.\d+\.(o|fc2)\.w", ("tp", None)),
+)
+QWEN3_ASR_CACHE_RULES = QWEN3_CACHE_RULES
+Qwen3ASRModel.partition_rules = QWEN3_ASR_PARTITION_RULES
+Qwen3ASRModel.cache_rules = QWEN3_ASR_CACHE_RULES
+
+
+def check_tp(config: Qwen3ASRConfig, tp: int) -> None:
+    """Refuse, before loading, a tp that does not divide the thinker's
+    dimensions or the encoder's heads or FFN (the JAX mesh replicates
+    them), naming the dimension."""
+    a = config.audio
+    check_divides(tp, {**text_dims(config.text),
+                       "audio encoder_attention_heads":
+                       a.encoder_attention_heads,
+                       "audio encoder_ffn_dim": a.encoder_ffn_dim})

@@ -21,6 +21,7 @@ decode in graphed blocks of 16 steps on the card.
 
 from __future__ import annotations
 
+import functools
 import uuid
 
 import numpy as np
@@ -28,10 +29,11 @@ import torch
 
 from aha_tpu_torch.core.generate import DEFAULT_MAX_TOKENS, PrepareData
 from aha_tpu_torch.core.sampling import SamplingConfig
-from aha_tpu_torch.io.weights import open_weights
 from aha_tpu_torch.models.qwen3_asr import (Qwen3ASRConfig, Qwen3ASRModel,
+                                            check_tp,
                                             get_feat_extract_output_lengths)
-from aha_tpu_torch.models.text_served import TextChatModel
+from aha_tpu_torch.models.text_served import (TextChatModel, decoder_rank,
+                                              rank_builder)
 from aha_tpu_torch.ops.audio_feats import whisper_log_mel
 from aha_tpu_torch.params import (ChatCompletionChoice,
                                   ChatCompletionParameters,
@@ -40,7 +42,6 @@ from aha_tpu_torch.params import (ChatCompletionChoice,
 from aha_tpu_torch.params.chat import now_created
 from aha_tpu_torch.registry import ModelEntry
 from aha_tpu_torch.utils.audio import prepare_audio, split_audio_into_chunks
-from aha_tpu_torch.utils.device import device, get_dtype
 
 AUDIO_MARKER = "<|audio_start|><|audio_pad|><|audio_end|>"
 AUDIO_PAD = "<|audio_pad|>"
@@ -88,17 +89,17 @@ class Qwen3ASRChat(TextChatModel):
     def load(cls, entry: ModelEntry, path: str, max_seq_len: int = 8192,
              **kw) -> "Qwen3ASRChat":
         """One stream on a TextEngine without a prefix store; `batch_slots
-        > 1` is refused by the loader before this runs."""
-        def build(path, max_seq_len):
-            dev = device()
-            model = Qwen3ASRModel(Qwen3ASRConfig.from_file(path),
-                                  max_rope_len=max_seq_len, device=dev)
-            return model, model.load_params(open_weights(path),
-                                            dtype=get_dtype(dev))
-
-        served = super().load(entry, path, build, max_seq_len=max_seq_len,
-                              prefix_cache=0,
-                              cuda_graphs=kw.get("cuda_graphs", True))
+        > 1` is refused by the loader before this runs.  `tp > 1` shards
+        the model over tp ranks (text_served.rank_builder), after check_tp
+        refuses a tp that does not divide it."""
+        tp = kw.get("tp", 1)
+        build = functools.partial(decoder_rank, Qwen3ASRModel,
+                                  Qwen3ASRConfig)
+        served = super().load(
+            entry, path, build, max_seq_len=max_seq_len, prefix_cache=0,
+            cuda_graphs=kw.get("cuda_graphs", True), tp=tp,
+            build_rank=rank_builder(Qwen3ASRModel, Qwen3ASRConfig,
+                                    path, max_seq_len, tp, check_tp))
         served.asr_model = served.engine.model
         return served
 

@@ -106,15 +106,28 @@ def rank_engine(build_rank: Callable, eos: list[int], batch_slots: int,
 
 
 def decoder_rank(model_cls: type, config_cls: type, path: str,
-                 max_seq_len: int, mesh) -> tuple:
+                 max_seq_len: int, mesh=None) -> tuple:
     """A tensor-parallel rank's model on its card and its slice of the
     checkpoint at `path` (read alone, io/weights.read_shard): the
-    `build_rank` of a model class that takes a `mesh` (Qwen3Model,
-    LlamaModel, Qwen3VLModel, Qwen2_5VLModel)."""
+    `build_rank` of a model class that takes a `mesh`.  With no mesh, the
+    whole model on the default device: the `build_model` of a family
+    whose model class reads its own checkpoint."""
+    dev = mesh.device if mesh is not None else device()
     model = model_cls(config_cls.from_file(path), max_rope_len=max_seq_len,
-                      device=mesh.device, mesh=mesh)
-    return model, model.load_params(open_weights(path),
-                                    dtype=get_dtype(mesh.device))
+                      device=dev, **({} if mesh is None else {"mesh": mesh}))
+    return model, model.load_params(open_weights(path), dtype=get_dtype(dev))
+
+
+def rank_builder(model_cls: type, config_cls: type, path: str,
+                 max_seq_len: int, tp: int = 1,
+                 check_tp: Callable | None = None) -> Callable:
+    """The `build_rank` of a family whose model class takes a `mesh`
+    (`decoder_rank` over the checkpoint at `path`), after `check_tp(config,
+    tp)` refuses, before any weights load, a tp that does not divide it."""
+    if tp > 1 and check_tp is not None:
+        check_tp(config_cls.from_file(path), tp)
+    return functools.partial(decoder_rank, model_cls, config_cls, path,
+                             max_seq_len)
 
 
 def load_generation_config(path: str) -> dict:
@@ -123,6 +136,58 @@ def load_generation_config(path: str) -> dict:
         with open(p) as f:
             return json.load(f)
     return {}
+
+
+def start_engine(entry: ModelEntry, path: str,
+                 build_model: Callable[[str, int], tuple], eos: list[int],
+                 max_seq_len: int = 8192, batch_slots: int = 1,
+                 prefix_cache: int = 4, spec_tokens: int = 0,
+                 cuda_graphs: bool = True, tp: int = 1, dp: int = 1,
+                 build_rank: Callable | None = None) -> tuple:
+    """(engine, the tp group's handle or None) of a served model: over tp
+    ranks through `build_rank(mesh)` (this process rank 0), else on this
+    process's card (one a dp replica) through `build_model(path,
+    max_seq_len)` → (model, params).  The reference's checks of the
+    options come first."""
+    if batch_slots > 1 and spec_tokens > 0:
+        raise ValueError(SPEC_WITH_SLOTS)
+    check_dp(dp, batch_slots)
+    if tp > 1 and dp > 1:
+        raise ValueError(TP_WITH_DP)
+    if tp > 1 and build_rank is None:
+        raise ValueError(f"--tp: {entry.name}'s sharding is not ported "
+                         "to aha_tpu_torch yet; serve it with --tp 1")
+    if tp > 1:
+        from aha_tpu_torch.parallel.mesh import MeshConfig
+        from aha_tpu_torch.parallel.ranks import start
+
+        return start(
+            MeshConfig(tp=tp),
+            functools.partial(rank_engine, build_rank, eos, batch_slots,
+                              max_seq_len, prefix_cache, cuda_graphs),
+            devices=mesh_devices(tp=tp))
+    built = []
+    for dev in mesh_devices(dp=dp) if dp > 1 else ():
+        with use_device(dev):
+            built.append(build_model(path, max_seq_len))
+    built = built or [build_model(path, max_seq_len)]
+    model = built[0][0]
+    if batch_slots > 1 and not getattr(model, "supports_slot_decode",
+                                       False):
+        raise ValueError(
+            f"{type(model).__name__} does not support per-slot "
+            "batched decode; serve it with --batch-slots 1")
+    engines = [make_engine(m, p, eos, batch_slots, max_seq_len,
+                           prefix_cache, spec_tokens, cuda_graphs,
+                           replicas=dp)
+               for m, p in built]
+    engine = engines[0] if dp == 1 else ReplicaEngine(engines)
+    if isinstance(engine, TextEngine) and spec_tokens > 0 and \
+            engine.spec_tokens == 0:
+        print(f"--spec-tokens ignored: {type(model).__name__} "
+              "carries rolling conv/recurrent state that cannot "
+              "rewind past rejected drafts")
+    return engine, None
 
 
 class TextChatModel(GenerateModel, LoadedModel):
@@ -152,20 +217,10 @@ class TextChatModel(GenerateModel, LoadedModel):
         ignored).  `check_tp(config, tp)` given: the model shards over
         `tp > 1` ranks (`decoder_rank`), after it refuses, before loading,
         a tp that does not divide the model."""
-        def build(path, max_seq_len):
-            dev = device()
-            model = model_cls(config_cls.from_file(path),
-                              max_rope_len=max_seq_len, device=dev)
-            return model, model.load_params(open_weights(path),
-                                            dtype=get_dtype(dev))
-
-        tp = kw.get("tp", 1)
-        build_rank = None
-        if check_tp is not None:
-            if tp > 1:
-                check_tp(config_cls.from_file(path), tp)
-            build_rank = functools.partial(decoder_rank, model_cls,
-                                           config_cls, path, max_seq_len)
+        build = functools.partial(decoder_rank, model_cls, config_cls)
+        build_rank = (None if check_tp is None else rank_builder(
+            model_cls, config_cls, path, max_seq_len, kw.get("tp", 1),
+            check_tp))
         return cls.load(entry, path, build, max_seq_len=max_seq_len,
                         build_rank=build_rank,
                         **{k: v for k, v in kw.items()
@@ -185,47 +240,10 @@ class TextChatModel(GenerateModel, LoadedModel):
         checkpoint's (a family with a fixed prompt).  `tp > 1` needs
         `build_rank(mesh)` → (the rank's model, its slice); `dp > 1` builds
         one (model, params) a card through build_model."""
-        if batch_slots > 1 and spec_tokens > 0:
-            raise ValueError(SPEC_WITH_SLOTS)
-        check_dp(dp, batch_slots)
-        if tp > 1 and dp > 1:
-            raise ValueError(TP_WITH_DP)
-        if tp > 1 and build_rank is None:
-            raise ValueError(f"--tp: {entry.name}'s sharding is not ported "
-                             "to aha_tpu_torch yet; serve it with --tp 1")
-        eos = load_stop_token_ids(path)
-        ranks = None
-        if tp > 1:
-            from aha_tpu_torch.parallel.mesh import MeshConfig
-            from aha_tpu_torch.parallel.ranks import start
-
-            engine, ranks = start(
-                MeshConfig(tp=tp),
-                functools.partial(rank_engine, build_rank, eos, batch_slots,
-                                  max_seq_len, prefix_cache, cuda_graphs),
-                devices=mesh_devices(tp=tp))
-        else:
-            built = []
-            for dev in mesh_devices(dp=dp) if dp > 1 else ():
-                with use_device(dev):
-                    built.append(build_model(path, max_seq_len))
-            built = built or [build_model(path, max_seq_len)]
-            model = built[0][0]
-            if batch_slots > 1 and not getattr(model, "supports_slot_decode",
-                                               False):
-                raise ValueError(
-                    f"{type(model).__name__} does not support per-slot "
-                    "batched decode; serve it with --batch-slots 1")
-            engines = [make_engine(m, p, eos, batch_slots, max_seq_len,
-                                   prefix_cache, spec_tokens, cuda_graphs,
-                                   replicas=dp)
-                       for m, p in built]
-            engine = engines[0] if dp == 1 else ReplicaEngine(engines)
-            if isinstance(engine, TextEngine) and spec_tokens > 0 and \
-                    engine.spec_tokens == 0:
-                print(f"--spec-tokens ignored: {type(model).__name__} "
-                      "carries rolling conv/recurrent state that cannot "
-                      "rewind past rejected drafts")
+        engine, ranks = start_engine(
+            entry, path, build_model, load_stop_token_ids(path),
+            max_seq_len, batch_slots, prefix_cache, spec_tokens, cuda_graphs,
+            tp, dp, build_rank)
         served = cls(entry, engine, TokenizerModel.init(path),
                      chat_template or ChatTemplate.init(path),
                      load_generation_config(path),

@@ -30,11 +30,12 @@ from __future__ import annotations
 import torch
 
 from aha_tpu_torch.core import nn
+from aha_tpu_torch.core.sampling import fast_argmax
 from aha_tpu_torch.ops.lm_head import head_argmax_value
 from aha_tpu_torch.parallel.mesh import Mesh
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with f32 sums never rounded to x's dtype."""
     if x.is_cuda and x.dtype == torch.bfloat16:
         return torch.mm(x.reshape(-1, x.shape[-1]), w,
@@ -43,15 +44,17 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def row_linear(p: dict, x: torch.Tensor,
-               mesh: Mesh | None) -> torch.Tensor:
+def row_linear(p: dict, x: torch.Tensor, mesh: Mesh | None,
+               promoted: bool = False) -> torch.Tensor:
     """A row-sharded linear: the sum over ranks of x_r @ w_r, reduced in
-    f32, returned in x's dtype (the bias, replicated, added once); with no
-    mesh, the one device's `nn.linear`."""
+    f32, returned in x's dtype (the bias, replicated, added once in x's
+    dtype); with no mesh, the one device's `nn.linear` (`promoted`:
+    `nn.linear_promoted`, the weight cast to x's dtype — the float32
+    towers'; under a mesh the f32 product already is)."""
     if mesh is None:
-        return nn.linear(p, x)
-    y = mesh.all_reduce(_matmul_f32(x, p["w"])).to(x.dtype)
-    return y + p["b"] if "b" in p else y
+        return (nn.linear_promoted if promoted else nn.linear)(p, x)
+    y = mesh.all_reduce(matmul_f32(x, p["w"])).to(x.dtype)
+    return y + p["b"].to(x.dtype) if "b" in p else y
 
 
 def swiglu_mlp(p: dict, x: torch.Tensor,
@@ -73,9 +76,12 @@ def vocab_range(vocab: int, mesh: Mesh) -> tuple[int, int]:
 
 
 def embedding(p: dict, ids: torch.Tensor, vocab: int,
-              mesh: Mesh) -> torch.Tensor:
+              mesh: Mesh | None) -> torch.Tensor:
     """Lookup in a vocab-sharded table: this rank's rows where the id is
-    its own, zeros elsewhere, summed over the ranks."""
+    its own, zeros elsewhere, summed over the ranks; with no mesh, the one
+    device's lookup."""
+    if mesh is None:
+        return nn.embedding(p, ids)
     start, n = vocab_range(vocab, mesh)
     local = ids.long() - start
     mine = (local >= 0) & (local < n)
@@ -90,6 +96,25 @@ def gathered_logits(local: torch.Tensor, vocab: int,
     full = local.new_zeros((*local.shape[:-1], vocab))
     full[..., start:start + n] = local
     return mesh.all_reduce(full)
+
+
+def head_logits(w: torch.Tensor, hidden: torch.Tensor, vocab: int,
+                mesh: Mesh | None) -> torch.Tensor:
+    """hidden @ w.t() over a vocab-major head (V/tp, K): under a mesh each
+    rank's columns, gathered."""
+    local = hidden @ w.t()
+    return local if mesh is None else gathered_logits(local, vocab, mesh)
+
+
+def head_greedy(w: torch.Tensor, hidden: torch.Tensor, vocab: int,
+                mesh: Mesh | None) -> torch.Tensor:
+    """Greedy next token for ONE hidden row (0-dim int32): under a mesh
+    `greedy_token`; on one device logits + fast_argmax, the engines' path
+    for a model without a head kernel."""
+    if mesh is not None:
+        return greedy_token(w, hidden, vocab, mesh)
+    return fast_argmax(head_logits(w, hidden, vocab, None).float()
+                       .reshape(-1))
 
 
 def pick_token(packed: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -186,16 +186,25 @@ def spec_for(path: str, rules: Sequence[PartitionRule]) -> tuple:
     return ()
 
 
+def spec_axis(entry) -> tuple[Any, int]:
+    """(mesh axis, chunks) of one entry of a spec: an axis name (or None),
+    or (name, chunks) — the dimension is `chunks` equal blocks side by
+    side (a fused [gate | up]), each block split over the axis and a
+    rank's parts of the blocks kept side by side (GLM-OCR's gate_up)."""
+    return entry if isinstance(entry, tuple) else (entry, 1)
+
+
 def placed_spec(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
     """`spec` as it places a tensor of `shape`: truncated to its rank (a
     rule written for a 5-D cache applied to the flat 4-D layout), and an
-    axis that does not divide its dimension replicated, as the JAX
-    shard_params does (a model's check refuses such a tp where its ranks
-    need equal slices: check_text_tp)."""
+    axis that does not divide its dimension (each of its blocks')
+    replicated, as the JAX shard_params does (a model's check refuses
+    such a tp where its ranks need equal slices: check_text_tp)."""
     fixed = []
-    for size, axis in zip(shape, spec[:len(shape)]):
-        fixed.append(None if axis is not None and size % mesh.shape[axis]
-                     else axis)
+    for size, entry in zip(shape, spec[:len(shape)]):
+        axis, chunks = spec_axis(entry)
+        fixed.append(None if axis is not None
+                     and size % (mesh.shape[axis] * chunks) else entry)
     return tuple(fixed)
 
 
@@ -245,20 +254,25 @@ def local_shape(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
     `spec` (placed as `placed_spec` places it)."""
     placed = placed_spec(shape, spec, mesh)
     return tuple(size if i >= len(placed) or placed[i] is None
-                 else size // mesh.shape[placed[i]]
+                 else size // mesh.shape[spec_axis(placed[i])[0]]
                  for i, size in enumerate(shape))
 
 
 def shard_slice(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     """This rank's slice of `t` under `spec` (already placed): a view where
     the slice is contiguous (dimension 0, or a whole tensor), else a
-    contiguous copy."""
+    contiguous copy; a chunked entry takes the rank's part of each block
+    and keeps them side by side."""
     out = t
-    for dim, axis in enumerate(spec):
+    for dim, entry in enumerate(spec):
+        axis, chunks = spec_axis(entry)
         if axis is None:
             continue
-        n = out.shape[dim] // mesh.shape[axis]
-        out = out.narrow(dim, mesh.index(axis) * n, n)
+        block = out.shape[dim] // chunks
+        n = block // mesh.shape[axis]
+        start = mesh.index(axis) * n
+        parts = [out.narrow(dim, c * block + start, n) for c in range(chunks)]
+        out = parts[0] if chunks == 1 else torch.cat(parts, dim)
     return out if out.is_contiguous() else out.contiguous()
 
 

@@ -116,6 +116,21 @@ before the last line:
    torch.matmul GEMV, and `serv --tp 2` of the MiniCPM4 checkpoint
    (AHA_MESH_DEVICES=cuda:0,cuda:0 on one card) answering one HTTP chat
    and ending with its worker on POST /shutdown;
+5d. tp-ocr — tp 2 over the ASR and OCR families, as tp-fam runs its
+   mesh, each at its published widths (GLM-OCR at ocr2-http's cut
+   geometry) and 4 text layers, towers cut (TPOCR_FAMILIES): Qwen3-ASR-0.6B
+   and Fun-ASR-Nano (one 30-s WAV request each, as asr builds it),
+   PaddleOCR-VL (ERNIE-4.5-0.3B), HunyuanOCR (16/8 heads of 128: 8/4 a
+   rank), GLM-OCR and DeepSeek-OCR (64 routed experts: 32 a rank, its
+   expert bytes read back by rank), one page each; every stream and 16
+   teacher-forced positions held to tp 1's and to the f32 reference's as
+   in tp-fam; each rank's launches of rows 1, 2, 3v, 8 and 10, TTFT and
+   ms a step of tp 2 and tp 1, and the collectives a step printed; a
+   `serv --tp 2` child of the Qwen3-ASR checkpoint answering one
+   /v1/audio/transcriptions over HTTP.  Rows 8 and 1 at HunyuanOCR's
+   8/4, DeepSeek-OCR's 5/5 and ERNIE's 8/1 heads and 3v over their vocab
+   shards (K 1024 x V 60409, 1280 x 64640, 1024 x 51712) are timed in
+   the kernels phase;
 6. quant — the same weights cut to their first 8 layers (QUANT_LAYERS, a
    cut for the time limit) packed on the GGUF grids on the card
    (models/qwen3.pack_params, the head too): (j) a q8 and (k) a q4
@@ -255,9 +270,10 @@ before the last line:
    a quantized linear a step in the grids the file gives, row 15 once a
    layer a step, the head once more for the prefill, row 1 once an
    attention layer a prefill, row 8 6 a step, row 10 27 an image; a
-   decode block's idle share; 8 teacher-forced steps after a 64-token
-   prefill at full depth on the card, the first 8 of the 24 layers
-   (GGUF35_WITNESS_LAYERS, a cut for the time limit) each fed the card's
+   decode block's idle share; 4 teacher-forced steps (GGUF35_FORCED)
+   after a 64-token prefill at full depth on the card, the first 4 of the
+   24 layers (GGUF35_WITNESS_LAYERS, a cut for the time limit) each fed the
+   card's
    input and held to the CPU's plain versions (the witness) and the exact
    dequantized path, which zeroed scales must fail; then
    `python -m aha_tpu_torch serv qwen3.5-gguf --gguf-path F --mmproj-path
@@ -1023,7 +1039,7 @@ def check_head_value(K: int = 1024, V: int = 151936 // 2,
         require(abs(v.item() - rv.item()) <= TOL_HEAD_REL * top,
                 f"head_argmax_value: value {v.item()} vs plain {rv.item()}")
     wt = torch.zeros((V, K), **bf)
-    wt[70000, 0] = wt[37, 0] = 1.0
+    wt[min(70000, V - 1), 0] = wt[37, 0] = 1.0     # a tie across tiles
     e0 = torch.zeros((1, K), **bf)
     e0[0, 0] = 1.0
     i, v = head_argmax_value(wt, e0)
@@ -2624,6 +2640,7 @@ def phase_kernels() -> None:
     # rows 1, 2, 8 and 3v at the heads a tp 2 rank of (tp-fam) launches,
     # timed here, before any process group or profiled request runs
     _tpfam_kernel_times()
+    _tpocr_kernel_times()
     torch.cuda.synchronize()
 
 
@@ -3992,9 +4009,18 @@ def _tpfam_logits(model, params, ids: list[int], forced: list[int],
     with torch.no_grad():
         logits = hs.to(w.device) @ w.float().t()
         if text.mesh is not None:
-            logits = tp_layers.gathered_logits(logits, text.config.vocab_size,
+            logits = tp_layers.gathered_logits(logits, _vocab_of(text),
                                                text.mesh)
         return logits.cpu()
+
+
+def _vocab_of(model) -> int:
+    """A decoder's vocabulary: its config's, or its text config's (GLM-OCR)
+    or language config's (DeepSeek-OCR)."""
+    c = model.config
+    for part in ("text", "language"):
+        c = getattr(c, part, c)
+    return c.vocab_size
 
 
 def _tpfam_forced(engines: dict, name: str, ids: list[int],
@@ -4640,6 +4666,479 @@ def phase_tp_fam(device: str = "cuda", spread: int = 0) -> None:
                 _serve_tp_fam(*child, two, card)
                 secs["serv"] = time.perf_counter() - t0
         log(f"[tp-fam] seconds by part: {json.dumps(secs)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- 5d. tp over the ASR and OCR families -------------------------------------
+
+#: (tp-ocr)'s families, each at its published widths (GLM-OCR at ocr2-http's
+#: cut geometry: out 2048, vocab 59,392, no published model) and
+#: TPFAM_LAYERS text layers, the towers cut for the smoke's time limit:
+#: Qwen3-ASR-0.6B (4 of 18 encoder layers), Fun-ASR-Nano (4 + 2 SANM
+#: blocks, the adaptor whole), PaddleOCR-VL (ERNIE-4.5-0.3B and its
+#: tower: SIGLIP_CUT, 4 blocks and 4 layers), HunyuanOCR (4 of 27 tower
+#: blocks), GLM-OCR (4 of 24 tower blocks) and DeepSeek-OCR (SAM 4
+#: blocks, CLIP 4 layers; 64 routed experts in each of its 3 MoE layers,
+#: 32 a rank).  GLM-ASR-Nano runs on the CPU only: its full-width
+#: geometry is not in the repository.
+TPOCR_FAMILIES = ("qwen3_asr", "fun_asr", "paddleocr_vl", "hunyuan_ocr",
+                  "glm_ocr", "deepseek_ocr")
+TPOCR_DSOCR = dict(sam=4, clip=4, layers=TPFAM_LAYERS)
+#: greedy tokens a request, and the teacher-forced positions after it
+TPOCR_TOKENS = 32
+TPOCR_FORCED = 16
+#: rows 8 and 1 at the heads a tp 2 rank of (tp-ocr)'s OCR decoders runs
+#: (HunyuanOCR 8/4, DeepSeek-OCR 5/5, ERNIE 8/1, D 128), timed at the
+#: published depths about the phase's live rows in a 512-row cache, and
+#: row 3v over their vocab shards (K x V/2)
+TPOCR_DECODE = {"hunyuan_tp2": dict(L=24, S=512, Hq=8, Hkv=4, D=128,
+                                    valid=340),
+                "dsocr_tp2": dict(L=12, S=512, Hq=5, Hkv=5, D=128,
+                                  valid=180),
+                "ernie_tp2": dict(L=18, S=512, Hq=8, Hkv=1, D=128,
+                                  valid=330)}
+TPOCR_PREFILL = ((8, 4, 128), (5, 5, 128), (8, 1, 128))
+TPOCR_HEADS = {"v60409": (1024, 120818 // 2), "v64640": (1280, 129280 // 2),
+               "v51712": (1024, 103424 // 2)}
+TP_OCR_READINGS: dict = {}
+
+
+def _tpocr_kernel_times() -> None:
+    """Rows 8, 1 and 3v at the shapes a tp 2 rank of (tp-ocr)'s OCR
+    decoders launches (TPOCR_DECODE, TPOCR_PREFILL at the 512-row prompt
+    bucket, TPOCR_HEADS), each beside its plain version, its bound and the
+    library call (sdpa; the torch.matmul GEMV)."""
+    for i, (key, c) in enumerate(TPOCR_DECODE.items()):
+        check_stacked_at(key, f"{key} rank", c, 50 + i)
+    for Hq, Hkv, D in TPOCR_PREFILL:
+        check_prefill(512, True, timed=True, Hkv=Hkv, Hq=Hq, D=D)
+    for key, (K, V) in TPOCR_HEADS.items():
+        check_head_value(K, V, key=key)
+
+
+def _tpocr_checkpoint(name: str, d: str, device: str, seed: int) -> str:
+    """Family `name`'s seeded weights at its (tp-ocr) geometry written under
+    `d` as a servable checkpoint with the test tokenizer (the rows past it
+    zeroed where the family's writer does so); returns its registry id."""
+    import dataclasses
+
+    from tokenizers import AddedToken
+
+    from aha_tpu_torch.io import weights
+    from aha_tpu_torch.models.deepseek_ocr import (DeepseekOCRConfig,
+                                                   DeepseekOCRModel)
+    from aha_tpu_torch.models.fun_asr_nano import FunAsrNanoModel
+    from aha_tpu_torch.models.glm_ocr import (GlmOcrConfig, GlmOcrModel,
+                                              GlmOcrTextConfig,
+                                              GlmOcrVisionConfig)
+    from aha_tpu_torch.models.hunyuan_ocr import (HunyuanOCRModel,
+                                                  hunyuan_ocr_default)
+    from aha_tpu_torch.models.hunyuan_ocr_served import (IMAGE_TOKEN,
+                                                         PLACEHOLDER)
+    from aha_tpu_torch.models.paddleocr_vl import (PaddleOCRVLModel,
+                                                   paddleocr_vl_0_9b)
+    from aha_tpu_torch.models.qwen3_asr import Qwen3ASRModel
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    os.makedirs(d)
+    q_cfg, f_cfg = asr_configs()
+    if name == "qwen3_asr":
+        cfg = dataclasses.replace(
+            q_cfg, audio=dataclasses.replace(q_cfg.audio, encoder_layers=4),
+            text=dataclasses.replace(q_cfg.text,
+                                     num_hidden_layers=TPFAM_LAYERS))
+        vocab = _asr_tokenizer(d).get_vocab_size(with_added_tokens=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"thinker_config": {
+                "audio_config": dataclasses.asdict(cfg.audio),
+                "text_config": dataclasses.asdict(cfg.text),
+                "audio_token_id": cfg.audio_token_id}}, f)
+        params = Qwen3ASRModel(cfg, device=device).init_random(gen, dtype)
+        # the rows past the tokenizer zeroed: the served reply decodes
+        weights.save_hf_qwen3_asr(
+            {**params, "text": _text_rows_zeroed(params["text"], vocab)}, d)
+        return QWEN3_ASR_MODEL
+    if name == "fun_asr":
+        cfg = dataclasses.replace(
+            f_cfg, encoder=dataclasses.replace(f_cfg.encoder, num_blocks=4,
+                                               tp_blocks=2),
+            llm=dataclasses.replace(f_cfg.llm,
+                                    num_hidden_layers=TPFAM_LAYERS))
+        _asr_tokenizer(d)
+        enc = dataclasses.asdict(cfg.encoder)
+        frontend = {k: enc.pop(k) for k in ("n_mels", "lfr_m", "lfr_n")}
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"audio_encoder_conf": enc, "frontend_conf": frontend,
+                       "audio_adaptor_conf": dataclasses.asdict(cfg.adaptor),
+                       "llm_conf": dataclasses.asdict(cfg.llm)}, f)
+        weights.save_hf_fun_asr_nano(FunAsrNanoModel(cfg, device=device)
+                                     .init_random(gen, dtype), d)
+        return FUN_ASR_MODEL
+    if name == "paddleocr_vl":
+        params = PaddleOCRVLModel(paddleocr_vl_0_9b(**SIGLIP_CUT),
+                                  device=device).init_random(gen, dtype)
+        return _siglip_checkpoint(d, "ocr", params, tag="tp-ocr")
+    if name == "deepseek_ocr":
+        c = DeepseekOCRConfig()
+        cfg = dataclasses.replace(
+            c, sam=dataclasses.replace(c.sam, depth=TPOCR_DSOCR["sam"],
+                                       global_attn_indexes=(2,)),
+            clip=dataclasses.replace(c.clip,
+                                     num_layers=TPOCR_DSOCR["clip"]),
+            language=dataclasses.replace(
+                c.language, num_hidden_layers=TPOCR_DSOCR["layers"]))
+        params = DeepseekOCRModel(cfg, device=device).init_random(gen, dtype)
+        _dsocr_checkpoint(d, params, cut=TPOCR_DSOCR, tag="tp-ocr")
+        return DSOCR_MODEL
+    _, tok = _smoke_tokenizer(d)
+    eos = {"eos_token_id": [tok.token_to_id("<|im_end|>")]}
+    if name == "hunyuan_ocr":
+        tok.add_tokens([AddedToken(IMAGE_TOKEN, normalized=False),
+                        AddedToken(PLACEHOLDER, normalized=False)])
+        cfg = dataclasses.replace(
+            hunyuan_ocr_default(depth=4, layers=TPFAM_LAYERS),
+            image_token_id=tok.token_to_id(IMAGE_TOKEN))
+        params = HunyuanOCRModel(cfg, device=device).init_random(gen, dtype)
+        weights.save_hf_hunyuan_ocr(
+            _text_rows_zeroed(params, tok.get_vocab_size(
+                with_added_tokens=True)), cfg, tok, d, generation=eos,
+            preprocessor=HY_PREPROCESSOR)
+        return HY_MODEL
+    text = dataclasses.replace(GlmOcrTextConfig(), vocab_size=GLM_VOCAB,
+                               num_hidden_layers=TPFAM_LAYERS)
+    cfg = GlmOcrConfig(vision=dataclasses.replace(
+        GlmOcrVisionConfig(), depth=4, out_hidden_size=text.hidden_size),
+        text=text)
+    params = GlmOcrModel(cfg, device=device).init_random(gen, dtype)
+    params = {**params, "text": _text_rows_zeroed(
+        params["text"], tok.get_vocab_size(with_added_tokens=True))}
+    weights.save_hf_glm_ocr(params, cfg, tok, d, generation=eos)
+    return GLM_MODEL
+
+
+def _tpocr_classes(name: str) -> tuple:
+    """(model class, config class) of a (tp-ocr) family."""
+    from aha_tpu_torch.models import (deepseek_ocr, fun_asr_nano, glm_ocr,
+                                      hunyuan_ocr, paddleocr_vl, qwen3_asr)
+
+    return {"qwen3_asr": (qwen3_asr.Qwen3ASRModel, qwen3_asr.Qwen3ASRConfig),
+            "fun_asr": (fun_asr_nano.FunAsrNanoModel,
+                        fun_asr_nano.FunAsrNanoConfig),
+            "paddleocr_vl": (paddleocr_vl.PaddleOCRVLModel,
+                             paddleocr_vl.PaddleOCRVLConfig),
+            "hunyuan_ocr": (hunyuan_ocr.HunyuanOCRModel,
+                            hunyuan_ocr.HunyuanOCRConfig),
+            "glm_ocr": (glm_ocr.GlmOcrModel, glm_ocr.GlmOcrConfig),
+            "deepseek_ocr": (deepseek_ocr.DeepseekOCRModel,
+                             deepseek_ocr.DeepseekOCRConfig)}[name]
+
+
+def _tpocr_request(name: str, model, params, ckpt: str) -> dict:
+    """One request of family `name` as its served preprocessing builds it,
+    its inputs host arrays: a 30-s WAV through the served ASR chats
+    (phase_asr's waveform), a 448 x 448 page (640 for DeepSeek-OCR's one
+    view) for the OCR families."""
+    from aha_tpu_torch.core.engine import host_mm
+
+    cfg = model.config
+    if name in ("qwen3_asr", "fun_asr"):
+        from aha_tpu_torch.models.fun_asr_nano_served import FunAsrNanoChat
+        from aha_tpu_torch.models.qwen3_asr_served import Qwen3ASRChat
+
+        cls, mid = ((Qwen3ASRChat, QWEN3_ASR_MODEL) if name == "qwen3_asr"
+                    else (FunAsrNanoChat, FUN_ASR_MODEL))
+        data = _asr_chat(cls, mid, model, params, ckpt, False).get_data(
+            _asr_request(_wav_url(_asr_wave(30.0))))
+        return {"ids": data.input_ids, "mm": host_mm(data.mm)}
+    if name == "paddleocr_vl":
+        req = _ocr_request(cfg, [(448, 448)], "OCR:", 60)
+    elif name == "hunyuan_ocr":
+        req = _hy_request(cfg, 448, 448, 61)
+    elif name == "deepseek_ocr":
+        req = _dsocr_request(cfg, 640, 640, 62, 640, 640, False)
+    else:
+        from aha_tpu_torch.models.glm_ocr_served import (ASSISTANT, GMASK,
+                                                         NL, SOP, USER,
+                                                         build_mm,
+                                                         image_patches)
+
+        patches, grid = image_patches(_rgb(448, 448, 63), cfg.vision, {})
+        m = cfg.vision.spatial_merge_size
+        ids = ([GMASK, SOP, USER, NL, cfg.image_start_token_id]
+               + [cfg.image_token_id] * (grid[0] * (grid[1] // m)
+                                         * (grid[2] // m))
+               + [cfg.image_end_token_id]
+               + _prompt(np.random.default_rng(63), 8, 50000)
+               + [ASSISTANT, NL])
+        req = {"ids": ids, "mm": build_mm([patches], [grid], ids, cfg)}
+    return {"ids": req["ids"], "mm": req["mm"]}
+
+
+def _tpocr_rank(ckpts: dict, mesh) -> dict:
+    """A tp rank's TextEngines over its slices of (tp-ocr)'s checkpoints,
+    each read alone (every rank runs this)."""
+    from aha_tpu_torch.core.engine import TextEngine
+    from aha_tpu_torch.models.text_served import decoder_rank
+
+    out = {}
+    for name, ckpt in ckpts.items():
+        model, params = decoder_rank(*_tpocr_classes(name), ckpt, 8192, mesh)
+        out[name] = TextEngine(model, params, eos_token_ids=[],
+                               max_seq_len=4096, mesh=mesh)
+    return out
+
+
+def _tpocr_expert_bytes(engines: dict) -> list:
+    """Every rank: its bytes of DeepSeek-OCR's routed experts and its
+    experts a layer, gathered into (tp, 2) rows, rank order."""
+    e = engines["deepseek_ocr"]
+    mesh = e.model.mesh
+    moe = [lp["moe"]["experts"] for lp in e.params["layers"] if "moe" in lp]
+    rows = torch.zeros((mesh.tp, 2), dtype=torch.float32, device=mesh.device)
+    rows[mesh.tp_rank, 0] = float(sum(t["w"].numel() * t["w"].element_size()
+                                      for ex in moe for t in ex.values()))
+    rows[mesh.tp_rank, 1] = float(moe[0]["gate"]["w"].shape[0])
+    return mesh.all_reduce(rows).cpu().tolist()
+
+
+def _tpocr_family(engines, group, name: str, fam: dict, cpath: str,
+                  device: str, card: str) -> None:
+    """(tp-ocr) one family: a warm-up, then its request's TPOCR_TOKENS
+    greedy tokens on the tp 2 TextEngine (each rank runs the towers whole:
+    row 10 a SANM / adaptor block or a SigLIP block; row 1 a layer for a
+    prefill of >= 128 rows; row 2 (the Qwen3 decoders' flat cache) or row
+    8 (the 5-D one) a layer a step; row 3v a step), the per-rank
+    launches, the stream and TPOCR_FORCED teacher-forced positions held
+    to tp 1's and to the f32 reference's, TTFT and ms a step of both, the
+    collectives a step."""
+    from aha_tpu_torch.core.engine import TextEngine, bucket_for
+    from aha_tpu_torch.core.sampling import SamplingConfig
+
+    model, params, req = fam["model"], fam["params"], fam["req"]
+    ids, mm = req["ids"], req["mm"]
+    text = getattr(model, "text", model)
+    L = text.n_layers
+    flat = name in ("qwen3_asr", "fun_asr")
+    row, other = (("flash_decode_at_layer_flat", "flash_decode_at_layer")
+                  if flat else
+                  ("flash_decode_at_layer", "flash_decode_at_layer_flat"))
+    if name == "fun_asr":
+        e, a = model.config.encoder, model.config.adaptor
+        seg = e.num_blocks + e.tp_blocks + a.n_layer
+    elif name == "paddleocr_vl":
+        seg = len(params["visual"]["layers"])
+    else:
+        seg = 0
+    greedy = SamplingConfig()
+    eng = engines[name]
+    eng.generate_tokens(ids, greedy, 4, mm=mm)              # warm-up
+    group.call(_tp_zero)
+    _sync(device)
+    out = eng.generate_tokens(ids, greedy, TPOCR_TOKENS, mm=mm)
+    _sync(device)
+    t = eng.last_timing
+    ms = t.completion_secs / max(t.completion_tokens - 1, 1) * 1e3
+    counts = _per_rank(group, cpath)
+    steps = counts[0]["head_argmax_value"]
+    require(steps >= TPOCR_TOKENS - 1, f"[tp-ocr] {name}: {steps} steps")
+    # the prefill kernel runs for a bucket of >= 128 rows
+    prefill = L if bucket_for(len(ids)) >= 128 else 0
+    must = [row, "head_argmax_value"] + (["flash_attention"] if prefill
+                                         else [])
+    rows = _rank_launches(f"{name} request", counts, {
+        "flash_attention": prefill,
+        row: L * steps, other: 0, "flash_attention_segmented": seg,
+        "head_argmax_value": steps, "fused_decode_stack": 0,
+        "head_argmax": 0})
+    read_counts(wrappers(), f"tp-ocr-{name}", tuple(
+        must + (["flash_attention_segmented"] if seg else [])))
+    tp1 = TextEngine(model, params, eos_token_ids=[], max_seq_len=4096,
+                     cuda_graphs=False)
+    want = tp1.generate_tokens(ids, greedy, TPOCR_TOKENS, mm=mm)
+    t1 = tp1.last_timing
+    ms1 = t1.completion_secs / max(t1.completion_tokens - 1, 1) * 1e3
+    vocab = min(_vocab_of(text), 50000)
+    logits = _TpLogits(group, name, model, params, ids, mm)
+    tf = _tpfam_teacher_forced(name, logits, _prompt(
+        np.random.default_rng(70), TPOCR_FORCED, vocab))
+    div = _tpfam_divergence(f"tp-ocr {name}", out, want, logits)
+    del logits
+    step = _profiled_block(eng, _prompt(np.random.default_rng(71),
+                                        TP_PROMPT, vocab), device)
+    TP_OCR_READINGS[name] = {
+        "prompt_tokens": len(ids), "ttft_ms_tp2": t.prompt_secs * 1e3,
+        "ttft_ms_tp1": t1.prompt_secs * 1e3, "ms_per_step_tp2": ms,
+        "ms_per_step_tp1_eager": ms1, "stream_vs_tp1": div,
+        "teacher_forced": tf, "launches_by_rank": rows, "step": step}
+    log(f"[tp-ocr] {name} ({L} text layers, tower replicated) a "
+        f"{len(ids)}-token request, {TPOCR_TOKENS} greedy tokens: TTFT tp 2 "
+        f"{t.prompt_secs * 1e3:.1f} ms, tp 1 {t1.prompt_secs * 1e3:.1f} ms; "
+        f"decode tp 2 {ms:.3f} ms/step, tp 1 eager {ms1:.3f}; stream vs tp "
+        f"1: {div}; teacher-forced f32 logits {json.dumps(tf)} (tol "
+        f"{TOL_TP_F32_REL}); a step: {json.dumps(step)} | {card}")
+
+
+@contextlib.contextmanager
+def _serv_asr_tp2_child(ckpt: str, two: bool):
+    """`serv <Qwen3-ASR checkpoint> --model Qwen/Qwen3-ASR-0.6B --tp 2` in a
+    child, started at once (it loads while the caller works), over NCCL
+    on two cards or gloo with both ranks on cuda:0; a 256-row context, so a
+    transcription's greedy reply stops within the smallest cache.  The body
+    gets (the child, its base URL, its start time, its log's path)."""
+    env = dict(os.environ)
+    if not two:
+        env["AHA_MESH_DEVICES"] = "cuda:0,cuda:0"
+    port = _free_ports(1)[0]
+    logf = open(os.path.join(ckpt, "serv_tp2.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aha_tpu_torch", "serv", ckpt, "--model",
+         QWEN3_ASR_MODEL, "--tp", "2", "--port", str(port),
+         "--max-seq-len", "256"], cwd=ROOT, stdout=logf,
+        stderr=subprocess.STDOUT, env=env)
+    try:
+        yield proc, f"http://127.0.0.1:{port}", t0, logf.name
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+
+
+def _serve_asr_tp2(proc, base: str, t0: float, log_path: str, two: bool,
+                   card: str) -> None:
+    """The `serv --tp 2` child of _serv_asr_tp2_child: up, one worker, one
+    12-s WAV transcribed over POST /v1/audio/transcriptions (200 with a
+    "text"); POST /shutdown ends the child with code 0, and its worker."""
+    from aha_tpu_torch.utils.audio import wav_bytes
+
+    while True:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                raise RuntimeError("serv --tp 2 (Qwen3-ASR) exited:\n"
+                                   + f.read()[-4000:])
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                if r.status == 200:
+                    break
+        except OSError:
+            pass
+        require(time.perf_counter() - t0 < 300,
+                "serv --tp 2 (Qwen3-ASR) did not come up")
+        time.sleep(0.5)
+    up = time.perf_counter() - t0
+    workers = _proc_children(proc.pid)
+    require(len(workers) == 1, f"serv --tp 2 (Qwen3-ASR): workers {workers}")
+    t1 = time.perf_counter()
+    status, text = _multipart(base + "/v1/audio/transcriptions",
+                              {"language": "en"}, "speech.wav",
+                              wav_bytes(_asr_wave(12.0), 16000))
+    secs = time.perf_counter() - t1
+    got = json.loads(text).get("text") if status == 200 else None
+    require(got, f"serv --tp 2 transcription: {status} {text[:400]}")
+    status, _ = _post(base + "/shutdown", {})
+    require(status == 200 and proc.wait(60) == 0,
+            f"serv --tp 2 (Qwen3-ASR) shutdown: {status}, rc {proc.poll()}")
+    require(all(_pid_gone(w) for w in workers),
+            f"serv --tp 2 (Qwen3-ASR) left its worker {workers}")
+    TP_OCR_READINGS["serv_tp2"] = {
+        "backend": "nccl (two cards)" if two else "gloo (cuda:0 twice)",
+        "health_ok_s_after_start": up, "transcription_s": secs,
+        "text_chars": len(got)}
+    log(f"[tp-ocr-http] serv --tp 2 of the Qwen3-ASR checkpoint over "
+        f"{TP_OCR_READINGS['serv_tp2']['backend']}: answering /health "
+        f"{up:.1f} s after its start (it loaded while the in-process checks "
+        f"ran), one 12-s WAV transcribed over POST /v1/audio/transcriptions "
+        f"in {secs:.2f} s ({len(got)} characters), POST /shutdown ended it "
+        f"(rc 0) and its worker | {card}")
+
+
+def phase_tp_ocr(device: str = "cuda") -> None:
+    """(tp-ocr) tp 2 over the ASR and OCR families (TPOCR_FAMILIES), each
+    at its published widths and TPFAM_LAYERS text layers: NCCL over two
+    cards where the host has them, else gloo with both ranks on cuda:0, as
+    (tp-fam).  Each family's seeded weights go to a checkpoint; the tp 1
+    model loads it whole on the card, the ranks their slices, all six
+    from one worker start; each family's request is held to tp 1 and to
+    the f32 reference (_tpocr_family); DeepSeek-OCR's routed experts are
+    read back as each rank's share (32 of 64 experts, half the bytes).
+    On the card a `serv --tp 2` child of the Qwen3-ASR checkpoint loads
+    meanwhile and then answers one transcription over HTTP.  (Rows 8, 1
+    and 3v at the OCR decoders' per-rank shapes are timed in the kernels
+    phase.)"""
+    import functools
+    import shutil
+
+    from aha_tpu_torch.io.weights import open_weights
+    from aha_tpu_torch.parallel import ranks
+    from aha_tpu_torch.parallel.mesh import MeshConfig
+
+    two = device == "cuda" and torch.cuda.device_count() >= 2
+    devices = ([torch.device("cuda", 0), torch.device("cuda", 1)] if two
+               else [torch.device(device, 0)] * 2)
+    card = card_line() if device == "cuda" else "cpu"
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    log(f"[tp-ocr] mesh tp 2 over {[str(d) for d in devices]} on "
+        + ("NCCL (one card a rank)" if two
+           else "gloo (both ranks on one device)") + f" | {card}")
+    root = tempfile.mkdtemp(prefix="aha_torch_tpocr_")
+    secs = TP_OCR_READINGS.setdefault("secs", {})
+    try:
+        t0 = time.perf_counter()
+        fams = {}
+        for seed, name in enumerate(TPOCR_FAMILIES, 70):
+            ckpt = os.path.join(root, name)
+            model_id = _tpocr_checkpoint(name, ckpt, device, seed)
+            cls, cfg_cls = _tpocr_classes(name)
+            model = cls(cfg_cls.from_file(ckpt), max_rope_len=8192,
+                        device=device)
+            params = model.load_params(open_weights(ckpt), dtype=dtype)
+            fams[name] = {"model": model, "params": params, "ckpt": ckpt,
+                          "model_id": model_id,
+                          "req": _tpocr_request(name, model, params, ckpt)}
+            _sync(device)
+        secs["set-up"] = time.perf_counter() - t0
+        log(f"[tp-ocr] six checkpoints written, each loaded whole as tp 1 "
+            f"and its request built: {secs['set-up']:.1f} s (set-up)")
+        with contextlib.ExitStack() as stack:
+            child = (stack.enter_context(_serv_asr_tp2_child(
+                fams["qwen3_asr"]["ckpt"], two)) if device == "cuda"
+                else None)
+            t0 = time.perf_counter()
+            engines, group = ranks.start(
+                MeshConfig(tp=2), functools.partial(
+                    _tpocr_rank, {k: f["ckpt"] for k, f in fams.items()}),
+                devices=devices)
+            secs["start"] = time.perf_counter() - t0
+            log(f"[tp-ocr] worker started, both ranks' slices of the six "
+                f"checkpoints read: {secs['start']:.1f} s (set-up)")
+            cpath = os.path.join(root, "counts")
+            try:
+                rows = group.call(_tpocr_expert_bytes)
+                total = sum(r[0] for r in rows)
+                require([r[1] for r in rows] == [32.0, 32.0]
+                        and rows[0][0] == rows[1][0] == total / 2,
+                        f"[tp-ocr] deepseek_ocr experts by rank {rows}")
+                by_rank = [{"experts_a_layer": int(r[1]), "bytes": int(r[0]),
+                            "share": r[0] / total} for r in rows]
+                TP_OCR_READINGS["deepseek_ocr_experts_by_rank"] = by_rank
+                log(f"[tp-ocr] deepseek_ocr routed experts by rank: "
+                    f"{json.dumps(by_rank)}")
+                for name in TPOCR_FAMILIES:
+                    t0 = time.perf_counter()
+                    _tpocr_family(engines, group, name, fams[name], cpath,
+                                  device, card)
+                    secs[name] = time.perf_counter() - t0
+            finally:
+                group.shutdown()
+            TP_OCR_READINGS["backend"] = group.mesh.backend
+            if child is not None:
+                t0 = time.perf_counter()
+                _serve_asr_tp2(*child, two, card)
+                secs["serv"] = time.perf_counter() - t0
+        log(f"[tp-ocr] seconds by part: {json.dumps(secs)}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7230,12 +7729,13 @@ def _ask_vl(base: str) -> list[str]:
 
 GGUF35_MODEL = "qwen3.5-gguf"
 #: greedy tokens of each (ag) request; teacher-forced steps of the witness
+#: (8 until the tp-ocr phase came: a cut for the time limit)
 GGUF35_TOKENS = 32
-GGUF35_FORCED = 8
+GGUF35_FORCED = 4
 #: the witness holds the first this many layers (a cut for the time
-#: limit: all 24 took 23.2-26.4 s of the smoke), the stack read through
-#: the same layers
-GGUF35_WITNESS_LAYERS = 8
+#: limit: all 24 took 23.2-26.4 s of the smoke, 8 the smoke of PRs 24-26),
+#: the stack read through the same layers
+GGUF35_WITNESS_LAYERS = 4
 #: Qwen's special tokens at their ids in the written vocabulary
 GGUF35_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>",
                    151645: "<|im_end|>", 151652: "<|vision_start|>",
@@ -8222,7 +8722,8 @@ LFM2VL_TEMPLATE_PARTS = (
     "{% endfor %}{% endif %}")
 
 
-def _siglip_checkpoint(tmp: str, kind: str, small: dict) -> str:
+def _siglip_checkpoint(tmp: str, kind: str, small: dict,
+                       tag: str = "siglip-http") -> str:
     """A servable SIGLIP_CUT directory at the published widths: the test
     tokenizer with the family's image tokens, a chat template with image
     parts, config.json (model type paddleocr_vl or lfm2-vl, the tokenizer's
@@ -8280,7 +8781,7 @@ def _siglip_checkpoint(tmp: str, kind: str, small: dict) -> str:
         model_id = "LiquidAI/LFM2-VL-1.6B"
     with open(os.path.join(tmp, "config.json"), "w") as f:
         json.dump(cfg, f)
-    log(f"[siglip-http] {model_id} full-width checkpoint "
+    log(f"[{tag}] {model_id} full-width checkpoint "
         f"({SIGLIP_CUT['depth']} vision blocks, {SIGLIP_CUT['layers']} text "
         f"layers) written in {time.perf_counter() - t0:.1f} s (set-up)")
     return model_id
@@ -8493,12 +8994,14 @@ def phase_deepseek_ocr(device: str = "cuda") -> dict:
     return params
 
 
-def _dsocr_checkpoint(tmp: str, params: dict) -> tuple:
-    """A servable DSOCR_SERVE cut at the published widths with HF names:
-    the test tokenizer and its <image> token, config.json in the published
-    layout (language_config, vision_config widths, projector_config), the
-    seeded weights with the embedding rows past the tokenizer zeroed.
-    Returns (the served model's cut config, the <image> id)."""
+def _dsocr_checkpoint(tmp: str, params: dict, cut: dict = DSOCR_SERVE,
+                      tag: str = "dsocr-http") -> tuple:
+    """A servable `cut` (DSOCR_SERVE's by default) at the published widths
+    with HF names: the test tokenizer and its <image> token, config.json
+    in the published layout (language_config, vision_config widths,
+    projector_config), the seeded weights with the embedding rows past the
+    tokenizer zeroed.  Returns (the served model's cut config, the <image>
+    id)."""
     import dataclasses
 
     from tokenizers import AddedToken
@@ -8512,7 +9015,6 @@ def _dsocr_checkpoint(tmp: str, params: dict) -> tuple:
     vocab = tok.get_vocab_size(with_added_tokens=True)
     eos, img = tok.token_to_id("<|im_end|>"), tok.token_to_id("<image>")
     c = DeepseekOCRConfig()
-    cut = DSOCR_SERVE
     sam = dataclasses.replace(c.sam, depth=cut["sam"],
                               global_attn_indexes=(2,))
     lang = dataclasses.replace(c.language, num_hidden_layers=cut["layers"],
@@ -8547,7 +9049,7 @@ def _dsocr_checkpoint(tmp: str, params: dict) -> tuple:
              "layers": params["layers"][:cut["layers"]]}
     t0 = time.perf_counter()
     save_hf_deepseek_ocr(_text_rows_zeroed(small, vocab), tmp)
-    log(f"[dsocr-http] {DSOCR_MODEL} full-width checkpoint (SAM "
+    log(f"[{tag}] {DSOCR_MODEL} full-width checkpoint (SAM "
         f"{cut['sam']} blocks, CLIP {cut['clip']} layers, {cut['layers']} "
         f"decoder layers) written in {time.perf_counter() - t0:.1f} s "
         f"(set-up)")
@@ -10522,6 +11024,8 @@ def main(argv=None) -> int:
     timed("batch", phase_batch, state["model"], state["params"])
     timed("tp", phase_tp, state["model"], state["params"])
     timed("tp-fam", phase_tp_fam)
+    timed("tp-ocr", phase_tp_ocr)
+    torch.cuda.empty_cache()
     timed("quant", phase_quant, state["model"], state["params"])
     minilm = timed("embed", phase_embed, state["model"], state["params"])
     http = timed("http", phase_http, state["model"].config, state["params"])
@@ -10583,6 +11087,7 @@ def main(argv=None) -> int:
                     "page", "fun_asr", "ernie", "gguf35", *DSOCR_DECODE,
                     *VOX_DECODE,
                     *HUNYUAN_DECODE, *TPFAM_DECODE, *TPFAM_FLAT,
+                    *TPOCR_DECODE, *TPOCR_HEADS,
                     "weight_gb_s",
                     "g7", "gbps", "tol", "timings", "library_bf16_ms",
                     *SLOT_DECODE_SHAPES)
@@ -10601,6 +11106,7 @@ def main(argv=None) -> int:
     print(json.dumps({"lifecycle": LIFECYCLE_READINGS}))
     print(json.dumps({"tp": TP_READINGS}))
     print(json.dumps({"tp_fam": TP_FAM_READINGS}))
+    print(json.dumps({"tp_ocr": TP_OCR_READINGS}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -658,8 +658,8 @@ def test_tp_that_does_not_divide_is_refused_where_jax_runs_it(name, size):
                                        "ported"),
     ("Qwen/Qwen3.5-0.8B", dict(tp=2), "sharding of 'qwen3_5' is "
                                       "not ported"),
-    ("Qwen/Qwen3-ASR-0.6B", dict(tp=2), "sharding of "
-                                        "'qwen3_asr'"),
+    ("LiquidAI/LFM2-VL-1.6B", dict(tp=2), "sharding of "
+                                          "'lfm2vl'"),
     ("sentence-transformers/all-MiniLM-L6-v2", dict(tp=2),
      "--tp does not apply to 'minilm'"),
     ("OpenBMB/VoxCPM-0.5B", dict(tp=2), "--tp does not apply to 'voxcpm'"),
